@@ -1,0 +1,38 @@
+"""Carry a problem lowered by the JAX package across to the port.
+
+This system has no weights to convert; its counterpart is the lowered
+problem itself.  ``from_jax_problem`` takes the JAX package's
+``DeviceProblem`` as numpy arrays (``dp._asdict()`` with every leaf passed
+through ``np.asarray``; ``key_valid``, ``key_oh``, ``spf`` and ``sps`` as
+tuples) and places the port's ``DeviceProblem`` on ``device`` in one copy,
+so both packages' kernels can be fed the very same problem.  The JAX-only
+fields (the on-device expansion placeholders and the traced weight vector)
+are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from kube_scheduler_simulator_tpu_torch.device import resolve_device
+from kube_scheduler_simulator_tpu_torch.ops.batch import ROUND_SCALARS, DeviceProblem, place
+
+
+def from_jax_problem(
+    fields: "dict[str, Any]", dims: dict, device: "str | torch.device | None" = None
+) -> "tuple[DeviceProblem, dict]":
+    """(port DeviceProblem on ``device``, dims) from the JAX package's
+    lowered problem given as numpy arrays and its dims dict."""
+    host: dict[str, Any] = {}
+    for name in DeviceProblem._fields:
+        val = fields[name]
+        if name in ROUND_SCALARS:
+            host[name] = int(np.asarray(val))
+        elif isinstance(val, tuple):
+            host[name] = tuple(np.asarray(v) for v in val)
+        else:
+            host[name] = np.asarray(val)
+    return place(host, resolve_device(device)), dict(dims)

@@ -1,0 +1,964 @@
+"""The batch scheduling round on the device: lowering, the scan, the trace
+compaction, and the host-side trace reconstruction.
+
+Port of the JAX package's ``ops/batch.py``.  Scheduling is sequential over
+the pod queue (each bind consumes node resources) and parallel over nodes;
+one scan runs a full scheduling cycle per pod over all nodes and commits
+into the cluster-state carry:
+
+    carry = (requested [N,R], nonzero [N,2], pod_count [N], start)
+    step  = filters [N] → sampling → scores [N] → normalize → select → commit
+
+Two implementations of each device step live side by side:
+
+- the plain PyTorch versions in this module (``expand_features``,
+  ``scan_plain``, ``compact_plain``), which repeat the reference's
+  arithmetic op for op and serve CPU tensors;
+- the hand-written CUDA kernels of ``ops/kernels.py`` (``csrc/``), which
+  serve CUDA tensors and must agree with the plain versions bit for bit.
+
+``build_batch_fn`` / ``build_compact_fn`` return callables that pick one by
+the device of the tensors they are given.  This slice covers the filters
+NodeUnschedulable, NodeName, TaintToleration, NodeAffinity and
+NodeResourcesFit and the scores NodeResourcesFit (three strategies),
+NodeResourcesBalancedAllocation, ImageLocality, TaintToleration and
+NodeAffinity, with both tie-breaks and feasible-node sampling.
+
+All math is in the problem dtype: float64 for the bit-exact CPU runs,
+float32 on the card, kept exact by the encoder's GCD scaling.  Every
+division is a correctly rounded tensor/tensor division: PyTorch divides a
+CUDA tensor by a Python scalar as a multiplication by its reciprocal,
+which can land a floored quotient on the other side of an integer.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from kube_scheduler_simulator_tpu_torch.device import resolve_device, resolve_dtype
+from kube_scheduler_simulator_tpu_torch.ops.encode import BatchProblem
+
+MAX_NODE_SCORE = 100.0
+NEG = -1e18
+MASK32 = 0xFFFFFFFF
+GOLDEN32 = 0x9E3779B9
+
+
+class BatchConfig(NamedTuple):
+    """Static plugin configuration for the batch kernels."""
+
+    filters: tuple  # subset of FILTER_KERNELS, in profile order
+    scores: tuple   # ((kernel_name, weight), ...) in profile order
+    fit_strategy: str = "LeastAllocated"
+    # scoringStrategy.resources: ((col, weight), ...) over the nz axis
+    # (0 = cpu, 1 = memory) — upstream default is cpu:1, memory:1
+    fit_resources: tuple = ((0, 1), (1, 1))
+    # RequestedToCapacityRatio shape: ((utilization, score·10), ...) points
+    # ascending in utilization (only read when fit_strategy selects it)
+    fit_shape: tuple = ()
+    trace: bool = False
+    # selectHost tie handling: "first" = first tied max in visit order;
+    # "reservoir" = k-th tied max with k from the counter-keyed hash draw
+    tie_break: str = "first"
+    seed: int = 0
+
+
+FILTER_KERNELS = (
+    "NodeUnschedulable",
+    "NodeName",
+    "NodePorts",
+    "TaintToleration",
+    "NodeAffinity",
+    "NodeResourcesFit",
+    "VolumeRestrictions",
+    "EBSLimits",
+    "GCEPDLimits",
+    "NodeVolumeLimits",
+    "AzureDiskLimits",
+    "VolumeBinding",
+    "VolumeZone",
+    "PodTopologySpread",
+    "InterPodAffinity",
+)
+SCORE_KERNELS = (
+    "NodeResourcesFit",
+    "NodeResourcesBalancedAllocation",
+    "TaintToleration",
+    "NodeAffinity",
+    "PodTopologySpread",
+    "InterPodAffinity",
+    "ImageLocality",
+)
+# What this port's scan computes; supported() rejects the rest by name.
+SLICE_FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit")
+SLICE_SCORES = (
+    "NodeResourcesFit",
+    "NodeResourcesBalancedAllocation",
+    "ImageLocality",
+    "TaintToleration",
+    "NodeAffinity",
+)
+FIT_STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
+TIE_BREAKS = ("first", "reservoir")
+
+# How each score kernel's NormalizeScore relates raw → normalized; drives
+# the trace-fetch plan (build_compact_fn): "identity" plugins fetch ONE
+# int8 plane that serves as both raw and norm; "default"/"default_reverse"
+# /"minmax" fetch raw only and the host recomputes norm with exact integer
+# arithmetic; "custom" fetches both.
+NORMALIZE_KIND = {
+    "NodeResourcesFit": "identity",
+    "NodeResourcesBalancedAllocation": "identity",
+    "ImageLocality": "identity",
+    "TaintToleration": "default_reverse",
+    "NodeAffinity": "default",
+    "InterPodAffinity": "minmax",
+    "PodTopologySpread": "custom",
+}
+
+
+def check_slice(cfg: BatchConfig) -> None:
+    """Raise, naming the plugin, for a configuration this port's kernels do
+    not compute."""
+    for kind, names, ported, known in (
+        ("filter", cfg.filters, SLICE_FILTERS, FILTER_KERNELS),
+        ("score", [s for s, _w in cfg.scores], SLICE_SCORES, SCORE_KERNELS),
+    ):
+        for name in names:
+            if name not in ported:
+                why = "is not ported to the PyTorch scan yet" if name in known else "has no batch kernel"
+                raise ValueError(f"{kind} plugin {name} {why}")
+    if cfg.fit_strategy not in FIT_STRATEGIES:
+        raise ValueError(f"unknown NodeResourcesFit strategy {cfg.fit_strategy}")
+    if cfg.tie_break not in TIE_BREAKS:
+        raise ValueError(f"unknown tie_break {cfg.tie_break}")
+
+
+def fail_pack_mode(code_max: int, n_filters: int) -> int:
+    """How the (first-fail plugin, code) planes travel: 0 = one uint8
+    nibble pair, 1 = one uint16 byte pair, 2/3 = separate planes with
+    int16/int32 codes."""
+    if code_max <= 15 and n_filters + 1 <= 15:
+        return 0
+    if code_max <= 255 and n_filters + 1 <= 255:
+        return 1
+    return 2 if code_max <= 0x7FFF else 3
+
+
+def raw_dtype_for(mn: int, mx: int) -> str:
+    """Minimal fetch dtype for a raw-score plane, with headroom so the
+    choice stays stable as the cluster fills."""
+    if -100 <= mn and mx <= 100:
+        return "int8"
+    if -30000 <= mn and mx <= 30000:
+        return "int16"
+    return "int32"
+
+
+def trace_fetch_plan(cfg: "BatchConfig", raw_dtypes: "tuple[str, ...]"):
+    """Per score plugin: (fetch_raw, fetch_norm, host_norm_kind | None)."""
+    plan = []
+    for k, (s, _w) in enumerate(cfg.scores):
+        kind = NORMALIZE_KIND.get(s, "custom")
+        if kind == "identity":
+            plan.append((False, True, None))
+        elif kind == "custom" or raw_dtypes[k] == "int32":
+            # int32 raws: the host's integer normalize is no longer
+            # provably equal to the kernel's float path — fetch norm too
+            plan.append((True, True, None))
+        else:
+            plan.append((True, False, kind))
+    return tuple(plan)
+
+
+class DeviceProblem(NamedTuple):
+    """BatchProblem lowered to device tensors, field for field the JAX
+    package's DeviceProblem (its on-device expansion placeholders and the
+    traced weight vector aside).  The four round scalars are host ints."""
+
+    alloc: Any            # [N,R]
+    max_pods: Any         # [N]
+    nz_alloc: Any         # [N,2]
+    pod_req: Any          # [P,R]
+    pod_nonzero: Any      # [P,2]
+    fit_checked: Any      # [P,R] bool
+    # Pairwise features, factored through (pod-class × node-class)
+    # matrices; the scan gathers a pod's row per node.
+    taint_cls: Any        # [L,T] int16: first untolerated taint idx or -1
+    taint_prefer_cls: Any # [L,T] int16
+    taint_unsched_cls: Any# [L,T] bool
+    pod_tol_idx: Any      # [P] int32
+    node_taint_idx: Any   # [N] int32
+    node_unsched: Any     # [N] bool
+    aff_code_cls: Any     # [A,M] int8
+    incl_cls: Any         # [A,M] bool
+    aff_pref_cls: Any     # [B,M] int32
+    pod_aff_idx: Any      # [P] int32
+    pod_pref_idx: Any     # [P] int32
+    node_label_idx: Any   # [N] int32
+    img_cls: Any          # [IC,MC] int8: COMPLETE ImageLocality score
+    pod_img_idx: Any      # [P] int32
+    node_img_idx: Any     # [N] int32
+    name_target: Any      # [P] int32: -1 free, node idx, -2 absent node
+    pod_ports: Any        # [P,PT] bool
+    port_conflict: Any    # [PT,PT]
+    vb_cls: Any           # [VC,M] int8
+    vz_cls: Any           # [VC,M] int8
+    pod_vol_idx: Any      # [P] int32
+    pod_restr: Any        # [P,VR] bool
+    restr_conflict: Any   # [VR,VR]
+    cloud_cnt: Any        # [P,3]
+    pod_csi: Any          # [P,V] bool
+    csi_drv_oh: Any       # [V,DR]
+    csi_seed_used: Any    # [N,DR]
+    csi_limit: Any        # [N,DR]
+    node_domain: Any      # [KT,N] int32
+    spf: Any              # spread filter constraints (key,grp,skew,self) [P,KC]
+    sps: Any              # spread score constraints [P,KS]
+    spread_match: Any     # [SG,P]
+    gdom: Any             # [G,N] int32
+    term_match: Any       # [G,P]
+    ip_aff_g: Any         # [P,KA]
+    ip_anti_g: Any        # [P,KB]
+    ip_pref_g: Any        # [P,KP]
+    ip_pref_w: Any        # [P,KP]
+    ip_own_g: Any         # [P,KO]
+    ip_own_w: Any         # [P,KO]
+    ip_self_match: Any    # [P] bool
+    pod_active: Any       # [P] bool (False = padding row, never committed)
+    node_active: Any      # [N] bool (False = padding column, never feasible)
+    tb_base: int          # attempt counter of the round's first pod (uint32)
+    sample_k: int         # stop after this many feasible nodes
+    start0: int           # rotation start index for the first pod
+    n_true: int           # real node count (modulus; N minus padding)
+    key_valid: Any        # tuple of [N] bool, per used key
+    key_oh: Any           # tuple of [size,N] one-hots ([0,N] for identity keys)
+    g_ku: Any             # [G] local key index per term group
+    spf_ku: Any           # [P, KC]
+    sps_ku: Any           # [P, KS]
+    # initial carry
+    requested0: Any       # [N,R]
+    nonzero0: Any         # [N,2]
+    pod_count0: Any       # [N]
+    ports_used0: Any      # [N,PT]
+    restr_used0: Any      # [N,VR]
+    cloud_used0: Any      # [N,3]
+    csi_attached0: Any    # [N,V]
+    spread_counts0: Any   # [SG,N]
+    ip_sel0: Any          # [G,D+1]
+    ip_own0: Any          # [G,D+1]
+    ip_anti0: Any         # [G,D+1]
+
+
+ROUND_SCALARS = ("tb_base", "sample_k", "start0", "n_true")
+
+_TORCH_OF_NP = {
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(bool): torch.bool,
+}
+
+
+def place(host: "dict[str, Any]", device: torch.device) -> DeviceProblem:
+    """Host numpy fields → DeviceProblem on ``device`` in ONE host-to-device
+    copy: every array is packed into one aligned byte buffer, shipped once,
+    and viewed back out by offset, dtype and shape."""
+    leaves: list[tuple[str, "int | None", np.ndarray]] = []
+    for name in DeviceProblem._fields:
+        val = host[name]
+        if name in ROUND_SCALARS:
+            continue
+        if isinstance(val, tuple):
+            leaves += [(name, j, np.ascontiguousarray(v)) for j, v in enumerate(val)]
+        else:
+            leaves.append((name, None, np.ascontiguousarray(val)))
+    offs = []
+    off = 0
+    for _n, _j, a in leaves:
+        offs.append(off)
+        off += -(-a.nbytes // 64) * 64
+    buf = np.zeros(max(off, 64), dtype=np.uint8)
+    for (_n, _j, a), o in zip(leaves, offs):
+        buf[o : o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev_buf = torch.from_numpy(buf).to(device)
+    out: dict[str, Any] = {name: int(host[name]) for name in ROUND_SCALARS}
+    tuples: dict[str, list] = {}
+    for (name, j, a), o in zip(leaves, offs):
+        t = dev_buf[o : o + a.nbytes].view(_TORCH_OF_NP[a.dtype]).reshape(a.shape)
+        if j is None:
+            out[name] = t
+        else:
+            tuples.setdefault(name, []).append(t)
+    for name, ts in tuples.items():
+        out[name] = tuple(ts)
+    return DeviceProblem(**out)
+
+
+def lower(
+    pr: BatchProblem, dtype: "torch.dtype | None" = None, device: "str | torch.device | None" = None
+) -> "tuple[DeviceProblem, dict]":
+    """Convert host BatchProblem → DeviceProblem (+ static dims dict) on
+    ``device`` (the card unless the caller asks for the CPU), in the working
+    dtype (float32 on the card, float64 on the CPU, unless given)."""
+    dev = resolve_device(device)
+    np_dt = np.float64 if resolve_dtype(dev, dtype) == torch.float64 else np.float32
+    f = lambda x: np.asarray(x, dtype=np_dt)
+    i32 = lambda x: np.asarray(x, dtype=np.int32)
+    b = lambda x: np.asarray(x, dtype=bool)
+    D = pr.D
+    group_key = np.asarray(pr.group_key)
+    gdom = np.asarray(pr.node_domain)[np.clip(group_key, 0, None)]  # [G,N]
+    pad = lambda a: np.concatenate([a, np.zeros((a.shape[0], 1), a.dtype)], axis=1)
+
+    # Used topology keys → local index + static expansion structure
+    node_domain = np.asarray(pr.node_domain)
+    used_keys: list[int] = sorted(
+        {int(k) for k in group_key.tolist() if pr.G}
+        | {int(k) for k in np.asarray(pr.spf_key).ravel().tolist() if k >= 0}
+        | {int(k) for k in np.asarray(pr.sps_key).ravel().tolist() if k >= 0}
+    )
+    ku_of = {k: u for u, k in enumerate(used_keys)}
+    N = pr.N
+    key_base = list(getattr(pr, "key_base", []))
+    key_identity = list(getattr(pr, "key_identity", []))
+    key_struct: list[tuple] = []
+    key_valid: list[np.ndarray] = []
+    key_oh: list[np.ndarray] = []
+    for k in used_keys:
+        dom = node_domain[k]
+        valid = dom >= 0
+        base = key_base[k] if k < len(key_base) else 0
+        if key_identity[k] if k < len(key_identity) else False:
+            key_struct.append(("identity", base, N))
+            key_valid.append(valid)
+            key_oh.append(np.zeros((0, N), dtype=np.float32))
+        else:
+            size = int(dom[valid].max() - base + 1) if valid.any() else 1
+            oh = np.zeros((size, N), dtype=np.float32)
+            oh[dom[valid] - base, np.nonzero(valid)[0]] = 1.0
+            key_struct.append(("onehot", base, size))
+            key_valid.append(valid)
+            key_oh.append(oh)
+    if not used_keys:
+        key_struct.append(("identity", 0, N))
+        key_valid.append(np.zeros(N, dtype=bool))
+        key_oh.append(np.zeros((0, N), dtype=np.float32))
+
+    def remap(keys: np.ndarray) -> np.ndarray:
+        keys = np.asarray(keys)
+        lut = np.zeros(max((max(ku_of, default=0) + 1, 1)), dtype=keys.dtype)
+        for k, u in ku_of.items():
+            lut[k] = u
+        return lut[np.clip(keys, 0, len(lut) - 1)]
+
+    g_ku = remap(group_key) if pr.G else np.zeros(1, dtype=np.int32)
+    host = dict(
+        alloc=f(pr.alloc),
+        max_pods=f(pr.max_pods),
+        nz_alloc=f(pr.nz_alloc),
+        pod_req=f(pr.pod_req),
+        pod_nonzero=f(pr.pod_nonzero),
+        fit_checked=b(pr.fit_checked),
+        taint_cls=np.asarray(pr.taint_cls, dtype=np.int16),
+        taint_prefer_cls=np.asarray(pr.taint_prefer_cls, dtype=np.int16),
+        taint_unsched_cls=b(pr.taint_unsched_cls),
+        pod_tol_idx=i32(pr.pod_tol_idx),
+        node_taint_idx=i32(pr.node_taint_idx),
+        node_unsched=b(pr.node_unsched),
+        aff_code_cls=np.asarray(pr.aff_code_cls, dtype=np.int8),
+        incl_cls=b(pr.incl_cls),
+        aff_pref_cls=i32(pr.aff_pref_cls),
+        pod_aff_idx=i32(pr.pod_aff_idx),
+        pod_pref_idx=i32(pr.pod_pref_idx),
+        node_label_idx=i32(pr.node_label_idx),
+        img_cls=np.asarray(pr.img_cls, dtype=np.int8),
+        pod_img_idx=i32(pr.pod_img_idx),
+        node_img_idx=i32(pr.node_img_idx),
+        name_target=i32(pr.name_target),
+        pod_ports=b(pr.pod_ports),
+        port_conflict=f(pr.port_conflict),
+        vb_cls=np.asarray(pr.vb_cls, dtype=np.int8),
+        vz_cls=np.asarray(pr.vz_cls, dtype=np.int8),
+        pod_vol_idx=i32(pr.pod_vol_idx),
+        pod_restr=b(pr.pod_restr),
+        restr_conflict=f(pr.restr_conflict),
+        cloud_cnt=f(pr.cloud_cnt),
+        pod_csi=b(pr.pod_csi),
+        csi_drv_oh=f(pr.csi_drv_oh),
+        csi_seed_used=f(pr.csi_seed_used),
+        csi_limit=f(pr.csi_limit),
+        node_domain=i32(pr.node_domain),
+        spf=(i32(pr.spf_key), i32(pr.spf_group), f(pr.spf_skew), f(pr.spf_self)),
+        sps=(i32(pr.sps_key), i32(pr.sps_group), f(pr.sps_skew), f(pr.sps_self)),
+        spread_match=f(pr.spread_match),
+        gdom=i32(gdom),
+        term_match=f(pr.term_match),
+        ip_aff_g=i32(pr.ip_aff_g),
+        ip_anti_g=i32(pr.ip_anti_g),
+        ip_pref_g=i32(pr.ip_pref_g),
+        ip_pref_w=f(pr.ip_pref_w),
+        ip_own_g=i32(pr.ip_own_g),
+        ip_own_w=f(pr.ip_own_w),
+        ip_self_match=b(pr.ip_self_match),
+        pod_active=b(pr.pod_active),
+        node_active=b(pr.node_active),
+        tb_base=0,
+        sample_k=pr.N_true,
+        start0=0,
+        n_true=pr.N_true,
+        key_valid=tuple(b(v) for v in key_valid),
+        key_oh=tuple(f(o) for o in key_oh),
+        g_ku=i32(g_ku),
+        spf_ku=i32(remap(np.asarray(pr.spf_key))),
+        sps_ku=i32(remap(np.asarray(pr.sps_key))),
+        requested0=f(pr.requested0),
+        nonzero0=f(pr.nonzero0),
+        pod_count0=f(pr.pod_count0),
+        ports_used0=f(pr.ports_used0),
+        restr_used0=f(pr.restr_used0),
+        cloud_used0=f(pr.cloud_used0),
+        csi_attached0=f(pr.csi_attached0),
+        spread_counts0=f(pr.spread_counts0),
+        ip_sel0=f(pad(np.asarray(pr.ip_sel0))),
+        ip_own0=f(pad(np.asarray(pr.ip_own0))),
+        ip_anti0=f(pad(np.asarray(pr.ip_anti0))),
+    )
+    dims = dict(
+        P=pr.P, N=pr.N, R=pr.R, D=D, SG=pr.SG, G=pr.G, PT=pr.PT,
+        KC=pr.KC, KS=pr.KS, KA=pr.KA, KB=pr.KB, KP=pr.KP, KO=pr.KO,
+        VR=pr.VR, VID=pr.VID, DR=pr.DR, CLOUD=pr.CLOUD,
+        key_struct=tuple(key_struct),
+    )
+    return place(host, dev), dims
+
+
+# --------------------------------------------------------------- primitives
+
+def _den(a: torch.Tensor, b) -> torch.Tensor:
+    """The denominator ``where(b == 0, 1, b)`` as a tensor beside ``a`` (a
+    Python-scalar divisor would turn the division into a reciprocal
+    multiplication on the card)."""
+    if isinstance(b, torch.Tensor):
+        return torch.where(b == 0, torch.ones_like(b), b)
+    return torch.full_like(a, float(b) if b != 0 else 1.0)
+
+
+def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
+    """Go integer division for non-negative operands, in floats."""
+    nz = (b != 0) if isinstance(b, torch.Tensor) else float(b != 0)
+    return torch.floor(a / _den(a, b)) * nz
+
+
+def _truncdiv(a: torch.Tensor, b) -> torch.Tensor:
+    """Go integer division with truncation toward zero, in floats."""
+    nz = (b != 0) if isinstance(b, torch.Tensor) else float(b != 0)
+    return torch.trunc(a / _den(a, b)) * nz
+
+
+def _broken_linear(p: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """helper.BuildBrokenLinearFunction over static (utilization, score)
+    points: clamp outside the range, Go-integer interpolation inside.
+    Descending-index sweep so the FIRST point with p <= utilization wins."""
+    out = torch.full_like(p, float(shape[-1][1]))
+    for i in range(len(shape) - 1, -1, -1):
+        u, s = shape[i]
+        if i == 0:
+            v = torch.full_like(p, float(s))
+        else:
+            u0, s0 = shape[i - 1]
+            v = float(s0) + _truncdiv(float(s - s0) * (p - float(u0)), float(max(u - u0, 1)))
+        out = torch.where(p <= float(u), v, out)
+    return out
+
+
+def _default_normalize(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """helper.DefaultNormalizeScore over the feasible set (int semantics)."""
+    mx = torch.where(feasible, raw, torch.zeros_like(raw)).max()
+    scaled = _floordiv(raw * MAX_NODE_SCORE, mx)
+    out = MAX_NODE_SCORE - scaled if reverse else scaled
+    zero_case = MAX_NODE_SCORE if reverse else 0.0
+    return torch.where(mx == 0, torch.full_like(out, zero_case), out)
+
+
+def _minmax_normalize(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    """InterPodAffinity's ScoreExtensions: MAX*(v-min)/(max-min), floored."""
+    inf = torch.full_like(raw, float("inf"))
+    mn = torch.where(feasible, raw, inf).min()
+    mx = torch.where(feasible, raw, -inf).max()
+    diff = mx - mn
+    q = torch.floor(MAX_NODE_SCORE * (raw - mn) / torch.where(diff == 0, torch.ones_like(diff), diff))
+    return torch.where(diff > 0, q, torch.zeros_like(q))
+
+
+def _mix32(x):
+    """murmur3 32-bit finalizer on uint32 values held in int64 (or Python
+    ints), masked after every multiply."""
+    x = x & MASK32
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & MASK32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & MASK32
+    x = x ^ (x >> 16)
+    return x
+
+
+def tie_break_draw(seed: int, counter: int) -> int:
+    """The uint32 draw for scheduling attempt ``counter`` under ``seed``."""
+    return _mix32(_mix32((seed ^ GOLDEN32) & MASK32) ^ _mix32(counter & MASK32))
+
+
+# ------------------------------------------------------------- plain scan
+
+def expand_features(dp: DeviceProblem, dt: torch.dtype) -> dict:
+    """Expand the factored (pod-class × node-class) feature matrices to the
+    dense [P,N] planes the step reads — the plain version of the JAX
+    ``_expand_features``; the scan kernel gathers per pod row instead."""
+    def pair(cls, pi, ni):
+        return cls[pi.long()][:, ni.long()]
+
+    N = dp.node_active.shape[0]
+    tu = pair(dp.taint_unsched_cls, dp.pod_tol_idx, dp.node_taint_idx)
+    idx_n = torch.arange(N, dtype=torch.int32, device=dp.node_active.device)
+    tgt = dp.name_target[:, None]
+    return dict(
+        taint_fail=pair(dp.taint_cls, dp.pod_tol_idx, dp.node_taint_idx),
+        taint_prefer=pair(dp.taint_prefer_cls, dp.pod_tol_idx, dp.node_taint_idx).to(dt),
+        unsched_ok=(~dp.node_unsched)[None, :] | tu,
+        aff_code=pair(dp.aff_code_cls, dp.pod_aff_idx, dp.node_label_idx),
+        aff_pref=pair(dp.aff_pref_cls, dp.pod_pref_idx, dp.node_label_idx).to(dt),
+        name_ok=torch.where(tgt == -1, True, tgt == idx_n[None, :]),
+        img_score=pair(dp.img_cls, dp.pod_img_idx, dp.node_img_idx).to(dt),
+    )
+
+
+def _fit_raw(cfg: BatchConfig, req_nz: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """NodeResourcesFit's score over the nonzero-request columns."""
+    fits = (a > 0) & (req_nz <= a)
+    zero = torch.zeros_like(a)
+    if cfg.fit_strategy == "MostAllocated":
+        per_r = torch.where(fits, _floordiv(req_nz * MAX_NODE_SCORE, a), zero)
+    elif cfg.fit_strategy == "RequestedToCapacityRatio":
+        # zero/over capacity evaluates the shape at 100, not 0
+        util = torch.where(fits, _floordiv(req_nz * MAX_NODE_SCORE, a), torch.full_like(a, 100.0))
+        per_r = _broken_linear(util, cfg.fit_shape)
+    else:  # LeastAllocated
+        per_r = torch.where(fits, _floordiv((a - req_nz) * MAX_NODE_SCORE, a), zero)
+    wsum = float(sum(w for _, w in cfg.fit_resources)) or 1.0
+    return _floordiv(sum(per_r[:, c] * float(w) for c, w in cfg.fit_resources), wsum)
+
+
+def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
+    """The whole pod loop of one round in plain PyTorch, op for op the JAX
+    ``build_batch_fn`` step (filters with first-failure tracking, rotated
+    feasible-node sampling, scores and normalization, selection with either
+    tie-break, commit).  Returns the JAX outputs under the same keys."""
+    check_slice(cfg)
+    P, N, R = dims["P"], dims["N"], dims["R"]
+    if R > 30:
+        raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
+    dev = dp.alloc.device
+    dt = dp.alloc.dtype
+    i32 = torch.int32
+    X = expand_features(dp, dt)
+    requested = dp.requested0.clone()
+    nonzero = dp.nonzero0.clone()
+    pod_count = dp.pod_count0.clone()
+    start = torch.tensor(dp.start0, dtype=i32, device=dev)
+    nt, K = int(dp.n_true), int(dp.sample_k)
+    idx = torch.arange(N, dtype=i32, device=dev)
+    filter_pos = {f: k for k, f in enumerate(cfg.filters)}
+
+    packed = torch.zeros((5, P), dtype=i32, device=dev)
+    out: dict = {}
+    if cfg.trace:
+        out["fail_plug"] = torch.empty((P, N), dtype=torch.int8, device=dev)
+        out["fail_code"] = torch.empty((P, N), dtype=i32, device=dev)
+        out["feasible"] = torch.empty((P, N), dtype=torch.bool, device=dev)
+        for name, _w in cfg.scores:
+            out[f"raw:{name}"] = torch.empty((P, N), dtype=dt, device=dev)
+            out[f"norm:{name}"] = torch.empty((P, N), dtype=dt, device=dev)
+
+    def rot_cumsum(mask):
+        """c[n] = number of True entries with visit rank <= r[n] (a cumsum
+        in rotation order), plus the total count."""
+        pref = torch.cumsum(mask.to(i32), 0, dtype=i32)
+        tot = pref[N - 1]
+        ps = torch.where(start == 0, 0, pref[torch.clamp(start - 1, min=0).long()])
+        return torch.where(idx >= start, pref - ps, pref + (tot - ps)), tot
+
+    for i in range(P):
+        pod_req = dp.pod_req[i]
+        fail_plug = torch.full((N,), -1, dtype=torch.int8, device=dev)
+        fail_code = torch.zeros(N, dtype=i32, device=dev)
+        feasible = dp.node_active.clone()
+
+        def apply(name, code):
+            nonlocal feasible, fail_plug, fail_code
+            if cfg.trace:
+                hit = (fail_plug < 0) & (code != 0)
+                fail_plug = torch.where(hit, filter_pos[name], fail_plug)
+                fail_code = torch.where(hit, code, fail_code)
+            feasible = feasible & (code == 0)
+
+        one, zero_i = torch.ones(N, dtype=i32, device=dev), torch.zeros(N, dtype=i32, device=dev)
+        for name in cfg.filters:
+            if name == "NodeUnschedulable":
+                apply(name, torch.where(X["unsched_ok"][i], zero_i, one))
+            elif name == "NodeName":
+                apply(name, torch.where(X["name_ok"][i], zero_i, one))
+            elif name == "TaintToleration":
+                tfail = X["taint_fail"][i].to(i32)
+                apply(name, torch.where(tfail < 0, zero_i, tfail + 1))
+            elif name == "NodeAffinity":
+                apply(name, X["aff_code"][i].to(i32))
+            elif name == "NodeResourcesFit":
+                free = dp.alloc - requested
+                insuff = (pod_req[None, :] > free) & dp.fit_checked[i][None, :]
+                too_many = pod_count + 1.0 > dp.max_pods
+                # bit 0: Too many pods; bit r+1: Insufficient resource r
+                code = too_many.to(i32)
+                for r in range(R):
+                    code = code | (insuff[:, r].to(i32) << (r + 1))
+                apply(name, code)
+
+        # feasible-node sampling: visit rank r = (n - start) mod n_true;
+        # "the first K feasible in visit order" is a rotated prefix sum
+        r = torch.where(idx >= start, idx - start, idx - start + nt)
+        c, total = rot_cumsum(feasible)
+        sampled = feasible & (c <= K)
+        processed = torch.where(
+            total >= K,
+            torch.where(feasible & (c == K), r + 1, 0).sum().to(i32),
+            torch.tensor(nt, dtype=i32, device=dev),
+        )
+        count = torch.clamp(total, max=K) * dp.pod_active[i]
+
+        totals = torch.zeros(N, dtype=dt, device=dev)
+        for name, weight in cfg.scores:
+            if name == "NodeResourcesFit":
+                raw = _fit_raw(cfg, nonzero + dp.pod_nonzero[i][None, :], dp.nz_alloc)
+                norm = raw
+            elif name == "NodeResourcesBalancedAllocation":
+                req_nz = nonzero + dp.pod_nonzero[i][None, :]
+                a = dp.nz_alloc
+                frac = torch.where(
+                    a > 0, torch.clamp(req_nz / _den(a, a), max=1.0), torch.ones_like(a)
+                )
+                std = torch.abs(frac[:, 0] - frac[:, 1]) / 2.0
+                raw = torch.floor((1.0 - std) * MAX_NODE_SCORE)
+                norm = raw
+            elif name == "ImageLocality":
+                raw = X["img_score"][i]
+                norm = raw
+            elif name == "TaintToleration":
+                raw = X["taint_prefer"][i]
+                norm = _default_normalize(raw, sampled, reverse=True)
+            else:  # NodeAffinity
+                raw = X["aff_pref"][i]
+                norm = _default_normalize(raw, sampled, reverse=False)
+            if cfg.trace:
+                out[f"raw:{name}"][i] = raw
+                out[f"norm:{name}"][i] = norm
+            totals = totals + norm * float(weight)
+
+        # ties are ordered by VISIT rank, not node index
+        masked = torch.where(sampled, totals, torch.full_like(totals, NEG))
+        tied = sampled & (masked == masked.max())
+        if cfg.tie_break == "reservoir":
+            ct, t_count = rot_cumsum(tied)
+            draw = tie_break_draw(cfg.seed, dp.tb_base + i)
+            k = torch.remainder(torch.tensor(draw, device=dev), torch.clamp(t_count, min=1).long())
+            sel = torch.argmax((tied & (ct == k + 1)).to(i32)).to(i32)
+        else:
+            sel = torch.argmin(torch.where(tied, r, 2 * nt + N)).to(i32)
+        sel = torch.where(count > 0, sel, -1)
+
+        # commit
+        commit = count > 0
+        oh = ((idx == sel) & commit).to(dt)
+        requested = requested + oh[:, None] * pod_req[None, :]
+        nonzero = nonzero + oh[:, None] * dp.pod_nonzero[i][None, :]
+        pod_count = pod_count + oh
+        packed[0, i] = sel
+        packed[1, i] = count
+        packed[2, i] = start
+        packed[3, i] = processed
+        # the rotating start advances by the number of visited nodes
+        next_start = (start + processed) % max(nt, 1) if nt > 0 else torch.zeros_like(start)
+        start = torch.where(dp.pod_active[i], next_start, start)
+        if cfg.trace:
+            out["fail_plug"][i] = fail_plug
+            out["fail_code"][i] = fail_code
+            out["feasible"][i] = sampled
+
+    packed[4] = start
+    out.update(
+        selected=packed[0],
+        feasible_count=packed[1],
+        sample_start=packed[2],
+        sample_processed=packed[3],
+        final_requested=requested,
+        final_nonzero=nonzero,
+        final_pod_count=pod_count,
+        final_start=start,
+        packed_pod=packed,
+    )
+    if cfg.trace:
+        feas = out["feasible"] & dp.pod_active[:, None]
+        rows = []
+        for s, _w in cfg.scores:
+            v = torch.where(feas, out[f"raw:{s}"], torch.zeros((), dtype=dt, device=dev))
+            rows.append(torch.stack([v.min().to(i32), v.max().to(i32)]))
+        code_max = out["fail_code"].max().to(i32) if cfg.filters else torch.zeros((), dtype=i32, device=dev)
+        rows.append(torch.stack([torch.zeros((), dtype=i32, device=dev), code_max]))
+        out["trace_meta"] = torch.stack(rows)
+    return out
+
+
+def build_batch_fn(cfg: BatchConfig, dims: dict):
+    """fn(dp) → dict of result tensors: the CUDA scan kernel for a problem on
+    the card, the plain version for one on the CPU."""
+    check_slice(cfg)
+
+    def fn(dp: DeviceProblem) -> dict:
+        if dp.alloc.device.type == "cuda":
+            from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+            return kernels.scan(cfg, dims, dp)
+        return scan_plain(cfg, dims, dp)
+
+    return fn
+
+
+# ------------------------------------------------------- trace compaction
+
+def compact_manifest(cfg: BatchConfig, P: int, W: int, WS: int, raw_dtypes, code_max: int):
+    """The blob's (name, dtype, shape) planes in order."""
+    mode = fail_pack_mode(code_max, len(cfg.filters))
+    plan = trace_fetch_plan(cfg, raw_dtypes)
+    manifest: "list[tuple[str, str, tuple]]" = []
+    if cfg.filters:
+        if mode == 0:
+            manifest.append(("fail8", "uint8", (P, W)))
+        elif mode == 1:
+            manifest.append(("fail", "uint16", (P, W)))
+        else:
+            manifest.append(("fail_plug", "int8", (P, W)))
+            manifest.append(("fail_code", "int16" if mode == 2 else "int32", (P, W)))
+    else:
+        manifest.append(("sids", "int32", (P, WS)))
+    for k, (_s, _w) in enumerate(cfg.scores):
+        fetch_raw, fetch_norm, _host = plan[k]
+        if fetch_raw:
+            manifest.append((f"raw:{k}", raw_dtypes[k], (P, WS)))
+        if fetch_norm:
+            manifest.append((f"norm:{k}", "int8", (P, WS)))
+    return manifest
+
+
+def _plane_bytes(x: torch.Tensor, dt: str) -> torch.Tensor:
+    """Integer-valued plane → its little-endian bytes in dtype ``dt``."""
+    if dt == "uint16":  # low two bytes of the int32 value
+        b = x.to(torch.int32).contiguous().view(torch.uint8).reshape(*x.shape, 4)
+        return b[..., :2].reshape(-1)
+    t = {"uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16, "int32": torch.int32}[dt]
+    return x.to(t).contiguous().view(torch.uint8).reshape(-1)
+
+
+def compact_plain(cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: dict, n_true: int) -> torch.Tensor:
+    """Reduce the [P,N] trace planes to what the annotation writer reads,
+    as one uint8 blob in ``manifest`` order — op for op the JAX
+    ``build_compact_fn`` (visited window, stable partition, first-failure
+    gather and pack, score planes at their fetch dtype)."""
+    P, N = dims["P"], dims["N"]
+    dev = out["sample_start"].device
+    i32 = torch.int32
+    idx = torch.arange(N, dtype=i32, device=dev)[None, :]
+    d = idx - out["sample_start"][:, None]
+    rank = torch.where(d >= 0, d, d + n_true)
+    # padded node columns can alias into the rank window when the
+    # rotation start is nonzero — they were never really visited
+    visited = (rank < out["sample_processed"][:, None]) & (idx < n_true)
+
+    def partition_ids(mask, Wd):
+        """ids of True entries per row, ascending, padded to width Wd."""
+        pos = torch.cumsum(mask.to(i32), 1, dtype=i32) - 1
+        dest = torch.where(mask & (pos < Wd), pos, Wd)
+        ids = torch.zeros((P, Wd + 1), dtype=i32, device=dev)
+        ids.scatter_(1, dest.long(), idx.expand(P, N).contiguous())
+        cnt = torch.clamp(pos[:, -1] + 1, max=Wd)
+        valid = torch.arange(Wd, dtype=i32, device=dev)[None, :] < cnt[:, None]
+        return ids[:, :Wd], valid
+
+    res: dict = {}
+    names = {name for name, _dt, _shape in manifest}
+    if cfg.filters:
+        order, valid = partition_ids(visited, W)
+        take = lambda a: torch.gather(a, 1, order.long())
+        plug = torch.where(valid, take(out["fail_plug"]).to(i32), -1)
+        code = torch.where(valid, take(out["fail_code"]).to(i32), 0)
+        if "fail8" in names:
+            res["fail8"] = ((plug + 1) << 4) | code
+        elif "fail" in names:
+            res["fail"] = ((plug + 1) << 8) | code
+        else:
+            res["fail_plug"] = plug
+            res["fail_code"] = code
+    sorder, svalid = partition_ids(out["feasible"], WS)
+    if not cfg.filters:
+        res["sids"] = torch.where(svalid, sorder, -1)
+
+    def stakem(a):
+        g = torch.gather(a, 1, sorder.long())
+        return torch.where(svalid, g, torch.zeros_like(g))
+
+    for k, (s, _w) in enumerate(cfg.scores):
+        if f"raw:{k}" in names:
+            res[f"raw:{k}"] = stakem(out[f"raw:{s}"])
+        if f"norm:{k}" in names:
+            res[f"norm:{k}"] = stakem(out[f"norm:{s}"])
+    return torch.cat([_plane_bytes(res[name], dt) for name, dt, _shape in manifest])
+
+
+def build_compact_fn(cfg: BatchConfig, dims: dict, W: int, WS: int, raw_dtypes=None, code_max: int = 1 << 30):
+    """(fn(out, n_true) → uint8 blob, manifest): the CUDA compaction kernel
+    for planes on the card, the plain version for planes on the CPU."""
+    raw_dtypes = tuple(raw_dtypes or ("int32",) * len(cfg.scores))
+    manifest = compact_manifest(cfg, dims["P"], W, WS, raw_dtypes, code_max)
+
+    def fn(out: dict, n_true: int) -> torch.Tensor:
+        if out["sample_start"].device.type == "cuda":
+            from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+            return kernels.compact(cfg, dims, W, WS, manifest, out, n_true)
+        return compact_plain(cfg, dims, W, WS, manifest, out, n_true)
+
+    return fn, manifest
+
+
+# --------------------------------------------------- host reconstruction
+
+def unpack_compact_blob(blob: np.ndarray, manifest: "list[tuple[str, str, tuple]]") -> dict:
+    """Slice the single fetched uint8 blob back into named planes (host
+    views, no copies beyond the one D2H transfer)."""
+    out: dict = {}
+    off = 0
+    for name, dt, shape in manifest:
+        n = int(np.prod(shape)) * np.dtype(dt).itemsize
+        out[name] = blob[off : off + n].view(dt).reshape(shape)
+        off += n
+    if "fail8" in out:
+        packed = out.pop("fail8")
+        out["fail_plug"] = ((packed >> 4).astype(np.int16) - 1).astype(np.int8)
+        out["fail_code"] = (packed & 0xF).astype(np.uint8)
+    elif "fail" in out:
+        packed = out.pop("fail")
+        out["fail_plug"] = ((packed >> 8).astype(np.int16) - 1).astype(np.int8)
+        out["fail_code"] = (packed & 0xFF).astype(np.uint8)
+    return out
+
+
+def _host_default_normalize(raw: np.ndarray, valid: np.ndarray, reverse: bool) -> np.ndarray:
+    """helper.DefaultNormalizeScore recomputed on host over the compacted
+    feasible window — integer arithmetic, equal to the kernel's float
+    path for the int8/int16 raws the fetch plan routes here."""
+    r = np.where(valid, raw, 0).astype(np.int64)
+    mx = r.max(axis=1)
+    q = (r * int(MAX_NODE_SCORE)) // np.maximum(mx, 1)[:, None]
+    out = int(MAX_NODE_SCORE) - q if reverse else q
+    out = np.where(mx[:, None] == 0, int(MAX_NODE_SCORE) if reverse else 0, out)
+    return np.where(valid, out, 0).astype(np.int8)
+
+
+def _host_minmax_normalize(raw: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """InterPodAffinity's MAX*(v-min)/(max-min) on host (see above)."""
+    r = raw.astype(np.int64)
+    big = np.int64(1) << 40
+    mn = np.where(valid, r, big).min(axis=1)
+    mx = np.where(valid, r, -big).max(axis=1)
+    diff = mx - mn
+    q = ((r - mn[:, None]) * int(MAX_NODE_SCORE)) // np.maximum(diff, 1)[:, None]
+    out = np.where(diff[:, None] > 0, q, 0)
+    return np.where(valid, out, 0).astype(np.int8)
+
+
+def reconstruct_trace(
+    cfg: BatchConfig,
+    fetched: "dict[str, np.ndarray]",
+    sample_start: np.ndarray,
+    sample_processed: np.ndarray,
+    n_true: int,
+    feasible_count: np.ndarray,
+    raw_dtypes: "tuple[str, ...]",
+    p_true: int,
+    WS: int,
+) -> dict:
+    """Expand the minimal fetch back to the trace interface the annotation
+    writer reads (sids [P,WS] int32, raw [S,P,WS] int32, norm [S,P,WS]
+    int8, fail planes) — all host-side numpy.
+
+    Rows ≥ ``p_true`` are shape padding (pod_active=False in the kernel):
+    their planes are left empty — no consumer reads them."""
+    P = len(sample_start)
+    fp = fetched.get("fail_plug")
+    out: dict = {}
+    if fp is not None:
+        out["fail_plug"] = fp
+        out["fail_code"] = fetched["fail_code"]
+        W = fp.shape[1]
+        r = np.arange(W, dtype=np.int32)[None, :]
+        proc = np.minimum(sample_processed.astype(np.int32), n_true)[:, None]
+        ids = (sample_start.astype(np.int32)[:, None] + r) % max(n_true, 1)
+        # ascending-id column order (invalid columns pushed past the end),
+        # matching the compact planes' partition
+        ids = np.sort(np.where(r < proc, ids, n_true + r), axis=1)
+        in_window = r < proc
+        in_window[p_true:] = False
+        feas = in_window & (fp < 0)
+        pos = np.cumsum(feas, axis=1) - 1
+        take = feas & (pos < WS)
+        sids = np.full((P, WS), -1, dtype=np.int32)
+        rows = np.broadcast_to(np.arange(P)[:, None], (P, W))
+        sids[rows[take], pos[take]] = ids[take].astype(np.int32)
+        counts = feas.sum(axis=1)
+        if not np.array_equal(counts[:p_true], feasible_count[:p_true]):
+            raise RuntimeError(
+                "derived feasible ids disagree with the kernel's feasible counts"
+            )
+        out["sids"] = sids
+        # the sorted visit-id matrix: per-pod annotation writers read
+        # their visited windows from it (first `processed` columns)
+        out["visit_ids"] = ids.astype(np.int64, copy=False)
+    else:
+        out["sids"] = fetched["sids"]
+    if cfg.scores:
+        valid = out["sids"] >= 0
+        S = len(cfg.scores)
+        raw = np.zeros((S, P, WS), dtype=np.int32)
+        norm = np.zeros((S, P, WS), dtype=np.int8)
+        plan = trace_fetch_plan(cfg, raw_dtypes)
+        for k in range(S):
+            fetch_raw, fetch_norm, host = plan[k]
+            if fetch_raw:
+                raw[k] = fetched[f"raw:{k}"]
+            if fetch_norm:
+                norm[k] = fetched[f"norm:{k}"]
+                if not fetch_raw:
+                    raw[k] = norm[k]  # identity-normalized plugin
+            elif host == "default":
+                norm[k] = _host_default_normalize(raw[k], valid, reverse=False)
+            elif host == "default_reverse":
+                norm[k] = _host_default_normalize(raw[k], valid, reverse=True)
+            elif host == "minmax":
+                norm[k] = _host_minmax_normalize(raw[k], valid)
+        out["raw"] = raw
+        out["norm"] = norm
+    return out

@@ -1,0 +1,492 @@
+"""BatchEngine: one traced batch scheduling round on the card, with the
+reference's annotation contract.
+
+Port of the JAX package's ``scheduler/batch_engine.py`` for this slice: the
+per-pod Filter/Score loop evaluated as one scan kernel over features
+encoded once on the host (ops/encode.py), the trace compacted on the card,
+and the per-plugin annotation trail the reference writes onto pods
+reproduced byte for byte from the fetched planes (``BatchResult``).
+
+Kernels: NodeUnschedulable, NodeName, TaintToleration, NodeAffinity and
+NodeResourcesFit filters; NodeResourcesFit (LeastAllocated, MostAllocated,
+RequestedToCapacityRatio), NodeResourcesBalancedAllocation,
+ImageLocality, TaintToleration and NodeAffinity scores.  ``supported()``
+names whatever falls outside that set.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from kube_scheduler_simulator_tpu_torch.device import resolve_device, resolve_dtype
+from kube_scheduler_simulator_tpu_torch.ops import batch as B
+from kube_scheduler_simulator_tpu_torch.ops import encode as E
+from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
+from kube_scheduler_simulator_tpu_torch.plugins.intree import interpodaffinity as ip
+from kube_scheduler_simulator_tpu_torch.plugins.intree import node_basic as nb
+from kube_scheduler_simulator_tpu_torch.plugins.intree import nodeaffinity as na
+from kube_scheduler_simulator_tpu_torch.plugins.intree import podtopologyspread as pts
+from kube_scheduler_simulator_tpu_torch.plugins.intree import volumes as vol
+from kube_scheduler_simulator_tpu_torch.plugins.resultstore import PASSED_FILTER_MESSAGE
+from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import (
+    MIN_FEASIBLE_NODES_TO_FIND,
+    num_feasible_nodes_to_find,
+)
+from kube_scheduler_simulator_tpu_torch.utils.gojson import go_marshal, go_string_key
+
+Obj = dict[str, Any]
+
+FILTER_MESSAGES = {
+    "NodeUnschedulable": {1: nb.NODE_UNSCHEDULABLE_ERR},
+    "NodeName": {1: nb.NODE_NAME_ERR},
+    "NodePorts": {1: nb.NODE_PORTS_ERR},
+    "NodeAffinity": {1: na.ERR_REASON_ENFORCED, 2: na.ERR_REASON_POD},
+    "VolumeBinding": {1: vol.ERR_UNBOUND_IMMEDIATE_PVC, 2: vol.ERR_VOLUME_NODE_CONFLICT},
+    "VolumeZone": {1: vol.ERR_VOLUME_ZONE},
+    "VolumeRestrictions": {1: vol.ERR_DISK_CONFLICT},
+    "EBSLimits": {1: vol.ERR_MAX_VOLUME_COUNT},
+    "GCEPDLimits": {1: vol.ERR_MAX_VOLUME_COUNT},
+    "AzureDiskLimits": {1: vol.ERR_MAX_VOLUME_COUNT},
+    "NodeVolumeLimits": {1: vol.ERR_MAX_VOLUME_COUNT},
+    "PodTopologySpread": {1: pts.ERR_REASON_LABEL, 2: pts.ERR_REASON},
+    "InterPodAffinity": {1: ip.ERR_EXISTING_ANTI, 2: ip.ERR_AFFINITY, 3: ip.ERR_ANTI_AFFINITY},
+}
+
+
+def has_pending_nomination(pod: Obj) -> bool:
+    """Unbound pod carrying a preemption nomination."""
+    return bool((pod.get("status") or {}).get("nominatedNodeName")) and not (
+        (pod.get("spec") or {}).get("nodeName")
+    )
+
+
+class BatchResult:
+    """Outcome of one batch scheduling pass, with lazy trace formatting.
+
+    The per-node trace arrives COMPACTED to the annotation writer's
+    minimal reads: one (first-failing plugin, code) plane over each pod's
+    visited window — whose node ids the host re-derives arithmetically from
+    (start, processed) — plus feasible node ids and raw/normalized scores
+    over the feasible width only.  Score strings are pre-rendered through
+    offset LUTs and annotation JSON is assembled from precomputed
+    fragments, byte-identical to go_marshal on the equivalent dicts."""
+
+    # the wave-profiler record this round accumulates into
+    prof_rec: "dict | None" = None
+
+    def __init__(self, engine: "BatchEngine", pending: list[Obj], out: dict, pr: "E.BatchProblem", nodes: list[Obj]):
+        self._engine = engine
+        self.pending = pending
+        self.out = out
+        self.problem = pr
+        self.nodes = nodes
+        self.selected = np.asarray(out["selected"])  # node index or -1, per pod
+        self.feasible_count = np.asarray(out["feasible_count"])
+        self.node_names = pr.node_names
+        self.pod_keys = pr.pod_keys
+        self._lists: "dict | None" = None
+
+    @property
+    def selected_nodes(self) -> "list[str | None]":
+        return [self.node_names[s] if s >= 0 else None for s in self.selected]
+
+    @property
+    def final_start(self) -> int:
+        """next_start_node_index after this round (rotating sample start)."""
+        return int(np.asarray(self.out["final_start"]))
+
+    # ------------------------------------------------------------ trace
+
+    def _tr(self) -> dict:
+        """Python views of the compact int trace (built once, vectorized)."""
+        if self._lists is None:
+            tr = self.out["trace"]
+            cfg = self._engine.cfg
+
+            def lut_inv(arr: "np.ndarray") -> tuple:
+                """[P,WS] ints → (rendered str per DISTINCT value, [P,WS]
+                indices into it): each distinct value is formatted once."""
+                mn = int(arr.min()) if arr.size else 0
+                mx = int(arr.max()) if arr.size else 0
+                if mx - mn <= 4096:
+                    return [str(v) for v in range(mn, mx + 1)], arr.astype(np.int64) - mn
+                uniq, inv = np.unique(arr, return_inverse=True)
+                return [str(int(v)) for v in uniq], inv.reshape(arr.shape).astype(np.int64)
+
+            fp = tr.get("fail_plug")
+            self._lists = {
+                "fail_plug": fp,
+                "fail_code": tr.get("fail_code"),
+                # [P] bool: any visited node failed any filter
+                "fail_any_row": (fp >= 0).any(axis=1) if fp is not None else np.zeros(len(self.pending), bool),
+                "sids": tr["sids"],
+                # engine.filters position of each kernel filter: the trail
+                # records "passed" for every enabled plugin BEFORE the
+                # first failure, in profile order
+                "fail_pos": [self._engine.filters.index(f) for f in cfg.filters],
+                "raw_li": {s: lut_inv(tr["raw"][k]) for k, (s, _w) in enumerate(cfg.scores)},
+                "fin_li": {
+                    s: lut_inv(tr["norm"][k].astype(np.int32) * int(w)) for k, (s, w) in enumerate(cfg.scores)
+                },
+                "raw_s": {},
+                "final_s": {},
+                "msg_memo": {},
+            }
+            self._lists["passed_entry"] = {p: PASSED_FILTER_MESSAGE for p in self._engine.filters}
+        return self._lists
+
+    def _strs_of(self, plugin: str, final: bool = False) -> list:
+        """[P][WS] interned score strings for one plugin."""
+        tr = self._tr()
+        cache = tr["final_s" if final else "raw_s"]
+        v = cache.get(plugin)
+        if v is None:
+            lut, inv = tr["fin_li" if final else "raw_li"][plugin]
+            v = cache[plugin] = np.array(lut, dtype=object)[inv].tolist()
+        return v
+
+    def _visited_ids(self, i: int) -> "np.ndarray":
+        """The nodes pod i's cycle visited, ascending node index — the
+        column order of the compact fail planes."""
+        proc = int(self.out["sample_processed"][i])
+        n_true = self.problem.N_true
+        if proc >= n_true:
+            return np.arange(n_true, dtype=np.int64)
+        ids = self.out["trace"].get("visit_ids")
+        if ids is not None:
+            return ids[i, :proc]
+        start = int(self.out["sample_start"][i])
+        return np.sort((start + np.arange(proc, dtype=np.int64)) % n_true)
+
+    def _msg(self, i: int, n: int, plugin: str, code: int) -> str:
+        """Memoized failure-message formatting: messages depend only on
+        (plugin, code) plus the node's taints (TaintToleration) or the pod's
+        resource order (Fit)."""
+        memo = self._tr()["msg_memo"]
+        if plugin == "TaintToleration":
+            key = (plugin, code, n)
+        elif plugin == "NodeResourcesFit":
+            key = (plugin, code, tuple(self.problem.fit_order[i]))
+        else:
+            key = (plugin, code, None)
+        v = memo.get(key)
+        if v is None:
+            v = memo[key] = self._engine.filter_message(self, i, n, plugin, code)
+        return v
+
+    # ------------------------------------------------- pre-marshaled JSON
+
+    def _fr(self) -> dict:
+        """Per-round fragments for direct annotation-JSON assembly: node
+        key fragments, the shared all-passed entry's bytes, and sorted
+        score-plugin key fragments."""
+        tr = self._tr()
+        if "frags" not in tr:
+            names = self.problem.node_names
+            key = [go_string_key(nm) for nm in names]
+            passed = go_marshal(tr["passed_entry"])
+            order_by_name = np.array(sorted(range(len(names)), key=names.__getitem__), dtype=np.int64)
+            rank_by_name = np.empty(len(names), dtype=np.int64)
+            rank_by_name[order_by_name] = np.arange(len(names))
+            tr["frags"] = {
+                "key": key,
+                "key_arr": np.array(key, dtype=object),
+                "splug": [(go_string_key(s) + '"', s) for s in sorted(s for s, _w in self._engine.cfg.scores)],
+                # go_marshal key order = sorted node names
+                "order_by_name": order_by_name,
+                "rank_by_name": rank_by_name,
+                "pass_arr": np.array([k + passed for k in key], dtype=object),
+            }
+        return tr["frags"]
+
+    def filter_annotation_json(self, i: int) -> str:
+        """go_marshal of pod i's filter-result map (node → plugin →
+        "passed"/failure message, first-failure short circuit), assembled
+        from fragments."""
+        assert self._engine.cfg.trace, "run with trace=True for annotations"
+        tr = self._tr()
+        fr = self._fr()
+        ids = self._visited_ids(i)
+        narrowed = self._prefilter_node_set(i)
+        n_true = self.problem.N_true
+        mask = np.zeros(n_true, dtype=bool)
+        mask[ids] = True
+        if narrowed is not None:
+            nmask = np.zeros(n_true, dtype=bool)
+            nmask[list(narrowed)] = True
+            mask &= nmask
+        order = fr["order_by_name"]
+        sel = order[mask[order]]  # visited ids in go_marshal key order
+        fp = tr["fail_plug"]
+        if fp is None or not tr["fail_any_row"][i]:
+            return "{" + ",".join(fr["pass_arr"][sel]) + "}"
+        # column of each node in the compact planes (ascending-id order)
+        col_of = np.empty(n_true, dtype=np.int64)
+        col_of[ids] = np.arange(len(ids))
+        cols = col_of[sel]
+        fps = fp[i][cols]
+        parts = fr["pass_arr"][sel].copy()
+        failing = np.nonzero(fps >= 0)[0]
+        if failing.size:
+            filters = self._engine.filters
+            cfg_filters = self._engine.cfg.filters
+            fail_pos = tr["fail_pos"]
+            key_frag = fr["key"]
+            fc_row = tr["fail_code"][i]
+            # (first failing plugin, message) fully determines the entry
+            entry_memo = tr.setdefault("entry_memo", {})
+            for t in failing:
+                k = int(fps[t])
+                n = int(sel[t])
+                plugin = cfg_filters[k]
+                msg = self._msg(i, n, plugin, int(fc_row[cols[t]]))
+                frag = entry_memo.get((k, msg))
+                if frag is None:
+                    entry = {p: PASSED_FILTER_MESSAGE for p in filters[: fail_pos[k]]}
+                    entry[plugin] = msg
+                    frag = entry_memo[(k, msg)] = go_marshal(entry)
+                parts[t] = key_frag[n] + frag
+        return "{" + ",".join(parts) + "}"
+
+    def score_annotations_json(self, i: int) -> "tuple[str, str]":
+        """(score, finalScore) annotation JSON over pod i's feasible nodes."""
+        assert self._engine.cfg.trace, "run with trace=True for annotations"
+        tr = self._tr()
+        fr = self._fr()
+        sids_row = tr["sids"][i]
+        js = np.nonzero(sids_row >= 0)[0]
+        if js.size == 0:
+            return "{}", "{}"
+        ns = sids_row[js]
+        order = np.argsort(fr["rank_by_name"][ns], kind="stable")
+        js = js[order]
+        ns = ns[order]
+        keys = fr["key_arr"][ns].tolist()
+        splug = fr["splug"]
+        frags = [frag for frag, _s in splug]
+        raw_rows = [self._strs_of(s)[i] for _f, s in splug]
+        fin_rows = [self._strs_of(s, final=True)[i] for _f, s in splug]
+        s_parts = []
+        f_parts = []
+        for kf, j in zip(keys, js.tolist()):
+            s_parts.append(kf + "{" + ",".join([frag + row[j] + '"' for frag, row in zip(frags, raw_rows)]) + "}")
+            f_parts.append(kf + "{" + ",".join([frag + row[j] + '"' for frag, row in zip(frags, fin_rows)]) + "}")
+        return "{" + ",".join(s_parts) + "}", "{" + ",".join(f_parts) + "}"
+
+    def _prefilter_node_set(self, i: int) -> "set[int] | None":
+        """Node indices surviving PreFilter narrowing (NodeAffinity
+        matchFields pinning restricts which nodes the cycle visits)."""
+        narrowed = self._engine.prefilter_node_names(self.pending[i])
+        if narrowed is None:
+            return None
+        idx = {nm: j for j, nm in enumerate(self.problem.node_names)}
+        return {idx[nm] for nm in narrowed if nm in idx}
+
+
+class BatchEngine:
+    """Run-per-snapshot driver for the batch kernels."""
+
+    def __init__(
+        self,
+        filters: "list[str] | None" = None,
+        scores: "list[tuple[str, int]] | None" = None,
+        fit_strategy: str = "LeastAllocated",
+        fit_resources: "tuple | None" = None,
+        fit_shape: "tuple | None" = None,
+        percentage_of_nodes_to_score: int = 100,
+        trace: bool = False,
+        dtype: "torch.dtype | None" = None,
+        tie_break: str = "first",
+        seed: int = 0,
+        device: "str | torch.device | None" = None,
+    ):
+        """``device``: the card unless the caller passes ``"cpu"`` (where the
+        plain versions stand in for the kernels); a missing card raises.
+        ``dtype``: float32 on the card, float64 on the CPU unless given."""
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(self.device, dtype)
+        self.filters = list(filters if filters is not None else B.SLICE_FILTERS)
+        self.scores = list(scores if scores is not None else [])
+        self.fit_strategy = fit_strategy
+        self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
+        self.trace = trace
+        self.cfg = B.BatchConfig(
+            filters=tuple(self.filters),
+            scores=tuple((s, w) for s, w in self.scores),
+            fit_strategy=fit_strategy,
+            fit_resources=tuple(fit_resources) if fit_resources else ((0, 1), (1, 1)),
+            fit_shape=tuple(fit_shape) if fit_shape else (),
+            trace=trace,
+            tie_break=tie_break,
+            seed=seed,
+        )
+        # sticky per-plugin raw fetch dtypes: only widen across rounds
+        self._raw_dtypes: dict[int, str] = {}
+        self.last_timings: dict[str, float] = {}
+        self.profiler = WaveProfiler()
+
+    # ---------------------------------------------------------- supported
+
+    def supported(self, pending: list[Obj], nodes: list[Obj]) -> "tuple[bool, str]":
+        """Can this profile × workload run fully on the port's batch path?
+        (False, reason) names what it cannot."""
+        try:
+            B.check_slice(self.cfg)
+        except ValueError as exc:
+            return False, str(exc)
+        if not nodes:
+            return False, "no nodes in cluster"
+        # an unbound pod nominated by an earlier preemption reserves its
+        # node for other pods' filter runs — not modeled by the kernel
+        if any(has_pending_nomination(p) for p in pending):
+            return False, "nominated pods present (preemption in flight)"
+        # a PreFilter that narrows the node list while sampling rotates
+        # desynchronizes the shared start index from the kernel's rotation
+        sampling = len(nodes) >= MIN_FEASIBLE_NODES_TO_FIND and self.percentage_of_nodes_to_score < 100
+        if sampling and any(self.prefilter_node_names(p) is not None for p in pending):
+            return False, "PreFilter node narrowing while feasible-node sampling is active"
+        # the encoder's host-port and volume class matrices are capped
+        distinct_ports: set = set()
+        distinct_restr: set = set()
+        for p in pending:
+            distinct_ports.update(nb._host_ports(p))
+            distinct_restr.update(vol.pod_cloud_triples(p))
+        if len(distinct_ports) > 128:
+            return False, f"{len(distinct_ports)} distinct host ports exceed the batch kernel cap"
+        if len(distinct_restr) > 128:
+            return False, f"{len(distinct_restr)} distinct conflict volumes exceed the batch kernel cap"
+        # the Fit filter's reason bitmask covers at most 30 resource columns
+        distinct: set = {"cpu", "memory"}
+        for p in pending:
+            distinct |= set(E._fit_resources(p))
+        if len(distinct) > 30:
+            return False, f"{len(distinct)} distinct requested resources exceed the batch kernel's bitmask"
+        return True, ""
+
+    # ------------------------------------------------------------- running
+
+    def schedule(
+        self,
+        nodes: list[Obj],
+        all_pods: list[Obj],
+        pending: list[Obj],
+        namespaces: "list[Obj] | None" = None,
+        base_counter: int = 0,
+        start_index: int = 0,
+        volumes: "dict[str, list[Obj]] | None" = None,
+    ) -> BatchResult:
+        """One batch scheduling pass over ``pending`` (already in queue
+        order).  ``base_counter`` is the framework's attempt counter for the
+        round's first pod (keys the reservoir tie-break draws);
+        ``start_index`` is the rotating next_start_node_index at round
+        start."""
+        return self._finish_prepped(
+            self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes)
+        )
+
+    def _prep(self, nodes, all_pods, pending, namespaces, base_counter, start_index, volumes) -> dict:
+        """Encode + pad + lower + place a round's problem (one host-to-device
+        copy)."""
+        prof = self.profiler
+        rec = prof.open()
+        t0 = time.perf_counter()
+        pr = E.encode(nodes, all_pods, pending, namespaces, volumes=volumes or {})
+        pr = E.pad_problem(pr)
+        t1 = time.perf_counter()
+        dp, dims = B.lower(pr, dtype=self.dtype, device=self.device)
+        dp = dp._replace(
+            tb_base=base_counter & B.MASK32,
+            sample_k=num_feasible_nodes_to_find(len(nodes), self.percentage_of_nodes_to_score),
+            start0=start_index % max(len(nodes), 1),
+        )
+        prof.note(rec, "encode", t1 - t0)
+        prof.note(rec, "upload", time.perf_counter() - t1)
+        return dict(pr=pr, dp=dp, dims=dims, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec)
+
+    def _compact_dispatch(self, dims: dict, out_dev: dict, packed: np.ndarray, n_true: int):
+        """Pick this round's widths and fetch dtypes from the scan's packed
+        outputs and trace meta, and run the compaction → (blob, manifest,
+        raw_dtypes, WS)."""
+        cfg = self.cfg
+        W = min(dims["N"], E._bucket(max(int(packed[3].max()) if packed.shape[1] else 1, 1)))
+        WS = min(dims["N"], E._bucket(max(int(packed[1].max()) if packed.shape[1] else 1, 1)))
+        mm = out_dev["trace_meta"].cpu().numpy()
+        widths = {"int8": 0, "int16": 1, "int32": 2}
+        raw_dtypes = []
+        for k in range(len(cfg.scores)):
+            dt = B.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1]))
+            prev = self._raw_dtypes.get(k)
+            if prev is not None and widths[prev] > widths[dt]:
+                dt = prev
+            self._raw_dtypes[k] = dt
+            raw_dtypes.append(dt)
+        raw_dtypes = tuple(raw_dtypes)
+        cfn, manifest = B.build_compact_fn(cfg, dims, W, WS, raw_dtypes, int(mm[-1, 1]))
+        return cfn(out_dev, n_true), manifest, raw_dtypes, WS
+
+    def _finish_prepped(self, ctx: dict) -> BatchResult:
+        pr, dp, dims = ctx["pr"], ctx["dp"], ctx["dims"]
+        prof, rec = self.profiler, ctx["prof"]
+        t2 = time.perf_counter()
+        out_dev = B.build_batch_fn(self.cfg, dims)(dp)
+        td = time.perf_counter()
+        prof.note(rec, "dispatch", td - t2)
+        packed = out_dev["packed_pod"].cpu().numpy()
+        out = {
+            "selected": packed[0],
+            "feasible_count": packed[1],
+            "sample_start": packed[2],
+            "sample_processed": packed[3],
+            "final_start": packed[4, 0] if packed.shape[1] else np.int32(dp.start0),
+        }
+        tb = time.perf_counter()
+        prof.note(rec, "device_blocked", tb - td)
+        if self.trace:
+            blob, manifest, raw_dtypes, WS = self._compact_dispatch(dims, out_dev, packed, pr.N_true)
+            fetched = B.unpack_compact_blob(blob.cpu().numpy(), manifest)
+            out["trace"] = B.reconstruct_trace(
+                self.cfg, fetched, out["sample_start"], out["sample_processed"],
+                pr.N_true, out["feasible_count"], raw_dtypes, len(ctx["pending"]), WS,
+            )
+            prof.note(rec, "trace_fetch", time.perf_counter() - tb)
+        t3 = time.perf_counter()
+        self.last_timings = {
+            "encode_s": ctx["t1"] - ctx["t0"],
+            "lower_s": t2 - ctx["t1"],
+            "device_s": t3 - t2,
+            "total_s": t3 - ctx["t0"],
+        }
+        prof.close(rec, pods=len(ctx["pending"]))
+        res = BatchResult(self, ctx["pending"], out, pr, ctx["nodes"])
+        res.prof_rec = rec
+        return res
+
+    # ----------------------------------------------------- trace helpers
+
+    def filter_message(self, result: BatchResult, i: int, n: int, plugin: str, code: int) -> str:
+        if plugin == "TaintToleration":
+            node = result.nodes[n]
+            taints = (node.get("spec") or {}).get("taints") or []
+            t = taints[code - 1] if 0 <= code - 1 < len(taints) else {}
+            return f"node(s) had untolerated taint {{{t.get('key', '')}: {t.get('value', '')}}}"
+        if plugin == "NodeResourcesFit":
+            reasons = []
+            if code & 1:
+                reasons.append("Too many pods")
+            # pod-manifest resource order, matching the oracle's req.items()
+            for r in result.problem.fit_order[i]:
+                if code & (1 << (r + 1)):
+                    reasons.append(f"Insufficient {result.problem.resource_names[r]}")
+            return ", ".join(reasons)
+        return FILTER_MESSAGES.get(plugin, {}).get(code, f"failed ({plugin} code {code})")
+
+    def prefilter_node_names(self, pod: Obj) -> "set[str] | None":
+        """NodeAffinity's matchFields metadata.name pinning (the only
+        node-narrowing PreFilter among the kernelized plugins)."""
+        if "NodeAffinity" not in self.filters:
+            return None
+        return na.pre_filter_node_names(pod)
