@@ -2,8 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py            # the full run (one card, about 5 min)
-    python3 chip_smoke.py --quick    # the 1000 x 500 workload only
+    python3 chip_smoke.py    # one card, about 5 min, build included
 
 Phases (each prints its seconds; any failure exits nonzero before the last
 line):
@@ -18,20 +17,21 @@ line):
    with the trace on; the compaction on both scans' planes and on seeded
    planes for every fail-pack mode and raw dtype;
 3. end to end: ``BatchEngine(device="cuda").schedule`` on both workloads
-   (launch counters reset just before the north-star round, read just
-   after); at cfg2 every pod's annotation bytes from a CUDA float64 round
-   must equal a CPU float64 round's; the float32 round's differences from
-   float64 are counted per plugin and printed.
+   in float32 and float64 (launch counters reset just before each round
+   and read just after: every round must launch each kernel once); at
+   cfg2 every pod's annotation bytes from a CUDA float64 round must equal
+   a CPU float64 round's; the float32 round's differences from float64 are
+   counted per plugin and printed.
 
 Then one ``{"kernels": [...]}`` line (time, plain time and bound of each
-kernel at the north-star shapes, launches on the main path), and as the
+kernel at the north-star shapes, launches on the main path: the north
+float32 round), and as the
 last line ``{"ok": true, "device": {...}}``.  Everything is generated from
 seeds; nothing is read from the network.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -75,13 +75,13 @@ class Phase:
             log(f"== {self.name}: {time.perf_counter() - self.t0:.3f} s")
 
 
-def cuda_ms(fn, reps: int, warmup: bool = True):
+def cuda_ms(fn, reps: int, warmup: int = 1):
     """(mean ms per call over ``reps`` calls timed with CUDA events, last
-    result), after one untimed warm-up call unless told otherwise."""
+    result), after ``warmup`` untimed calls."""
     import torch
 
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if warmup:
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     s.record()
@@ -154,9 +154,6 @@ def compact_counts(out, manifest, W, WS, n_true) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--quick", action="store_true", help="the 1000 x 500 workload only")
-    args = ap.parse_args()
     t_all = time.perf_counter()
 
     import torch
@@ -179,7 +176,6 @@ def main() -> int:
 
     assert "jax" not in sys.modules, "the port must not import jax"
     dev = torch.device(DEVICE)
-    names = ["cfg2"] if args.quick else ["cfg2", "north"]
 
     with Phase("card"):
         smi = subprocess.run(
@@ -196,14 +192,14 @@ def main() -> int:
 
     clusters = {}
     timing: dict = {}
-    for name in names:
+    for name in WORKLOADS:
         P, N, pct, tie, bc, si = WORKLOADS[name]
-        nodes, all_pods, pending = workloads.cluster(P, N, seed=42, extras=True)
+        nodes, all_pods, pending = workloads.cluster(P, N, seed=42)
         pr = E.pad_problem(E.encode(nodes, all_pods, pending))
         clusters[name] = (nodes, all_pods, pending, pr)
 
     # ------------------------------------------------ kernel vs plain
-    for name in names:
+    for name in WORKLOADS:
         P, N, pct, tie, bc, si = WORKLOADS[name]
         nodes, all_pods, pending, pr = clusters[name]
         cfg = B.BatchConfig(
@@ -218,11 +214,13 @@ def main() -> int:
                 log(f"padded P={dims['P']} N={dims['N']} R={dims['R']} sample_k={dp.sample_k} start0={dp.start0}")
                 kout = K.scan(cfg, dims, dp)
                 torch.cuda.synchronize()
-                plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp), 1, warmup=False)
+                plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp), 1, warmup=0)
                 if set(kout) != set(pout):
                     raise AssertionError(f"scan output keys differ: {set(kout) ^ set(pout)}")
                 err = max(same(f"scan {k}", kout[k], pout[k]) for k in pout)
-                ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp), 2 if name == "north" else 20, warmup=False)
+                # warm-up calls first: the first timed scan of the process
+                # must not pay for clocks or the allocator settling
+                ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp), *((2, 1) if name == "north" else (20, 10)))
                 log(f"scan bitwise equal ({len(pout)} outputs); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
                     f"scheduled {int((kout['selected'] >= 0).sum())}")
                 # the compaction on these planes at the widths a round picks
@@ -279,8 +277,8 @@ def main() -> int:
 
     # ------------------------------------------------------ end to end
     results = {}
-    launches = None
-    for name in names:
+    main_launches = None
+    for name in WORKLOADS:
         P, N, pct, tie, bc, si = WORKLOADS[name]
         nodes, all_pods, pending, _pr = clusters[name]
         for dt in (torch.float32, torch.float64):
@@ -291,24 +289,23 @@ def main() -> int:
                 )
                 ok, why = eng.supported(pending, nodes)
                 assert ok, why
-                main_path = name == names[-1] and dt == torch.float32
-                if main_path:
-                    K.reset_counts()
+                K.reset_counts()
                 t0 = time.perf_counter()
                 res = eng.schedule(nodes, all_pods, pending, base_counter=bc, start_index=si)
                 wall = time.perf_counter() - t0
-                if main_path:
-                    launches = dict(K.LAUNCHES)
+                launches = dict(K.LAUNCHES)
+                if launches != {"scan": 1, "compact": 1}:
+                    raise AssertionError(f"the round did not launch each kernel once: {launches}")
+                if name == "north" and dt == torch.float32:
+                    main_launches = launches
                 sel = res.selected[:P]  # rows past P are shape padding
                 assert len(sel) == P and ((sel >= -1) & (sel < N)).all()
                 lt = eng.last_timings
                 log(f"wall {wall:.3f} s encode_s {lt['encode_s']:.3f} device_s {lt['device_s']:.3f} "
-                    f"scheduled {int((sel >= 0).sum())}/{P} launches {dict(K.LAUNCHES)}")
+                    f"scheduled {int((sel >= 0).sum())}/{P} launches {launches}")
                 stages = {k: round(v, 4) for k, v in eng.profiler.snapshot()["last_wave"].items()}
                 log(f"host stages (s): {json.dumps(stages, sort_keys=True)}")
                 results[(name, dt)] = res
-    if not (launches and launches["scan"] > 0 and launches["compact"] > 0):
-        raise AssertionError(f"the main path did not launch every kernel: {launches}")
 
     with Phase("cfg2 annotation bytes: CUDA float64 round vs CPU float64 round"):
         P, N, pct, tie, bc, si = WORKLOADS["cfg2"]
@@ -328,7 +325,7 @@ def main() -> int:
 
     with Phase("float32 against float64 (CUDA rounds)"):
         f32_report = {}
-        for name in names:
+        for name in WORKLOADS:
             P = WORKLOADS[name][0]
             r32, r64 = results[(name, torch.float32)], results[(name, torch.float64)]
             t32, t64 = r32.out["trace"], r64.out["trace"]
@@ -366,7 +363,7 @@ def main() -> int:
             f32_report[name] = rep
             log(f"{name}: float32 vs float64: {json.dumps(rep, sort_keys=True)}")
 
-    ref = names[-1]
+    ref = "north"
     main = timing[(ref, torch.float32)]
     kernels = [
         {
@@ -374,7 +371,7 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
-            "launches": launches["scan"],
+            "launches": main_launches["scan"],
             "max_abs_err": main["scan_err"],
             "ms": main["scan_ms"],
             "plain_ms": main["scan_plain_ms"],
@@ -389,7 +386,7 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/compact.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:951",
-            "launches": launches["compact"],
+            "launches": main_launches["compact"],
             "max_abs_err": main["compact_err"],
             "ms": main["compact_ms"],
             "plain_ms": main["compact_plain_ms"],

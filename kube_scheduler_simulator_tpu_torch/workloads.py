@@ -4,10 +4,10 @@
 (BASELINE cfg1-cfg5 shapes: 64-core / 256 Gi nodes in 8 zones, every 16th
 node carrying a PreferNoSchedule taint; pods of 100m-1000m CPU and
 128-1024 Mi memory, every 4th with a nodeSelector).  ``cluster`` builds a
-whole seeded snapshot, and the ``cfg2_extras`` knobs add the features the
-slice's other filters and scores read (NoSchedule taints and tolerations,
-an unschedulable node, a nodeName-pinned pod, container images on nodes
-and pods), all drawn from the same seed.
+whole seeded snapshot and adds the features the slice's other filters and
+scores read (NoSchedule taints and tolerations, an unschedulable node, a
+nodeName-pinned pod, container images on nodes and pods), all drawn from
+the same seed.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def mk_node(i: int, zones: int = 8) -> dict:
     }
 
 
-def mk_pod(i: int, rng: random.Random, spread: bool = False, interpod: bool = False) -> dict:
+def mk_pod(i: int, rng: random.Random, spread: bool = False) -> dict:
     spec: dict = {
         "containers": [
             {
@@ -66,61 +66,47 @@ def mk_pod(i: int, rng: random.Random, spread: bool = False, interpod: bool = Fa
                 "labelSelector": {"matchLabels": {"app": f"app-{i % 8}"}},
             },
         ]
-    if interpod and i % 2:
-        spec["affinity"] = {
-            "podAntiAffinity": {
-                "preferredDuringSchedulingIgnoredDuringExecution": [
-                    {
-                        "weight": 10,
-                        "podAffinityTerm": {
-                            "labelSelector": {"matchLabels": {"app": f"app-{i % 8}"}},
-                            "topologyKey": "kubernetes.io/hostname",
-                        },
-                    }
-                ]
-            }
-        }
     return {"metadata": {"name": f"pod-{i}", "namespace": "default", "labels": labels}, "spec": spec}
 
 
 IMAGES = [(f"registry.example/app-{k}:v1", (k + 1) * 150 * 1024 * 1024) for k in range(6)]
 
 
-def cluster(n_pods: int, n_nodes: int, seed: int = 42, extras: bool = False, n_bound: int = 0):
+def cluster(n_pods: int, n_nodes: int, seed: int = 42, n_bound: int = 0):
     """(nodes, all_pods, pending) of a seeded cluster in queue order.
 
-    ``extras`` adds, from the same seed: NoSchedule taints on every 8th
-    node with tolerations on every 3rd pod, node 3 unschedulable (every
-    10th pod tolerates it), pod 5 pinned to ``node-7`` by nodeName, and
-    container images on nodes and pods (ImageLocality).  ``n_bound`` pods
+    Beyond the bench shapes, drawn from the same seed: NoSchedule taints
+    on every 8th node with tolerations on every 3rd pod, node 3
+    unschedulable (every 10th pod tolerates it), pod 5 pinned to
+    ``node-7`` by nodeName, and container images on nodes and pods
+    (ImageLocality).  ``n_bound`` pods
     are bound round-robin before the round, so the carry starts non-empty.
     """
     rng = random.Random(seed)
     nodes = [mk_node(i) for i in range(n_nodes)]
     pods = [mk_pod(i, rng) for i in range(n_pods + n_bound)]
-    if extras:
-        for i, n in enumerate(nodes):
-            if i % 8 == 3:
-                n["spec"] = {
-                    "taints": [{"key": "dedicated", "value": f"team-{i % 3}", "effect": "NoSchedule"}]
-                    + n["spec"].get("taints", [])
-                }
-            n["status"]["images"] = [
-                {"names": [nm], "sizeBytes": sz} for nm, sz in IMAGES if rng.random() < 0.4
-            ]
-        if n_nodes > 3:
-            nodes[3]["spec"]["unschedulable"] = True
-        for i, p in enumerate(pods):
-            spec = p["spec"]
-            spec["containers"][0]["image"] = IMAGES[rng.randrange(len(IMAGES))][0]
-            if i % 3 == 0:
-                spec["tolerations"] = [{"key": "dedicated", "operator": "Equal", "value": f"team-{i % 3}", "effect": "NoSchedule"}]
-            if i % 10 == 0:
-                spec.setdefault("tolerations", []).append(
-                    {"key": "node.kubernetes.io/unschedulable", "operator": "Exists", "effect": "NoSchedule"}
-                )
-        if n_pods > 5 and n_nodes > 7:
-            pods[n_bound + 5]["spec"]["nodeName"] = "node-7"
+    for i, n in enumerate(nodes):
+        if i % 8 == 3:
+            n["spec"] = {
+                "taints": [{"key": "dedicated", "value": f"team-{i % 3}", "effect": "NoSchedule"}]
+                + n["spec"].get("taints", [])
+            }
+        n["status"]["images"] = [
+            {"names": [nm], "sizeBytes": sz} for nm, sz in IMAGES if rng.random() < 0.4
+        ]
+    if n_nodes > 3:
+        nodes[3]["spec"]["unschedulable"] = True
+    for i, p in enumerate(pods):
+        spec = p["spec"]
+        spec["containers"][0]["image"] = IMAGES[rng.randrange(len(IMAGES))][0]
+        if i % 3 == 0:
+            spec["tolerations"] = [{"key": "dedicated", "operator": "Equal", "value": f"team-{i % 3}", "effect": "NoSchedule"}]
+        if i % 10 == 0:
+            spec.setdefault("tolerations", []).append(
+                {"key": "node.kubernetes.io/unschedulable", "operator": "Exists", "effect": "NoSchedule"}
+            )
+    if n_pods > 5 and n_nodes > 7:
+        pods[n_bound + 5]["spec"]["nodeName"] = "node-7"
     for j, p in enumerate(pods[:n_bound]):
         p["spec"]["nodeName"] = f"node-{j % n_nodes}"
     return nodes, pods, pods[n_bound:]

@@ -74,7 +74,7 @@ CASES = [
 @pytest.fixture(scope="module")
 def problem():
     """48 pending pods over 130 nodes (padded to 160), 40 pods bound."""
-    nodes, all_pods, pending = workloads.cluster(48, 130, seed=5, extras=True, n_bound=40)
+    nodes, all_pods, pending = workloads.cluster(48, 130, seed=5, n_bound=40)
     with jax.enable_x64(True):
         pr = JE.pad_problem(JE.encode(nodes, all_pods, pending))
         dp, dims = JB.lower(pr)
@@ -228,7 +228,7 @@ def test_compact_of_a_real_scan_matches_reference(problem):
 
 def test_scan_matches_reference_with_an_extended_resource():
     """A third checked resource widens the Fit bitmask and the carry."""
-    nodes, all_pods, pending = workloads.cluster(24, 40, seed=8, extras=True, n_bound=10)
+    nodes, all_pods, pending = workloads.cluster(24, 40, seed=8, n_bound=10)
     for i, n in enumerate(nodes):
         if i % 3 == 0:
             n["status"]["allocatable"]["example.com/accel"] = "2"

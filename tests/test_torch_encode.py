@@ -43,7 +43,7 @@ def _graft():
 def _cfg2():
     # taints + tolerations, nodeSelector, one unschedulable node, one
     # nodeName-pinned pod, images on nodes and pods, bound pods
-    return workloads.cluster(40, 60, seed=11, extras=True, n_bound=25)
+    return workloads.cluster(40, 60, seed=11, n_bound=25)
 
 
 def _empty():

@@ -46,7 +46,7 @@ RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))
 
 @pytest.fixture(scope="module")
 def cluster():
-    return workloads.cluster(48, 130, seed=9, extras=True, n_bound=40)
+    return workloads.cluster(48, 130, seed=9, n_bound=40)
 
 
 @pytest.mark.parametrize(

@@ -60,7 +60,7 @@ sys.path.insert(0, {str(ROOT)!r})
 before = set(sys.modules)
 from kube_scheduler_simulator_tpu_torch import workloads
 from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
-nodes, all_pods, pending = workloads.cluster(12, 20, seed=1, extras=True)
+nodes, all_pods, pending = workloads.cluster(12, 20, seed=1)
 eng = BatchEngine(scores=[("NodeResourcesFit", 1), ("TaintToleration", 3)], trace=True, device="cpu")
 res = eng.schedule(nodes, all_pods, pending)
 assert sum(s is not None for s in res.selected_nodes) == 12
@@ -112,7 +112,7 @@ def test_a_cuda_round_launches_both_kernels():
     from kube_scheduler_simulator_tpu_torch.ops import kernels
     from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
 
-    nodes, all_pods, pending = workloads.cluster(40, 60, seed=1, extras=True)
+    nodes, all_pods, pending = workloads.cluster(40, 60, seed=1)
     kernels.reset_counts()
     res = BatchEngine(scores=[("NodeResourcesFit", 1)], trace=True).schedule(nodes, all_pods, pending)
     assert kernels.LAUNCHES == {"scan": 1, "compact": 1}

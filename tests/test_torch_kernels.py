@@ -68,7 +68,7 @@ def test_build_flags_keep_ieee_arithmetic():
 def _problem(dtype, device, extended=False, sampling=True, n_pods=48, n_nodes=130):
     """48 pending pods over 130 nodes, 40 bound; ``extended`` adds a third
     checked resource (an extended resource on every 3rd node and pod)."""
-    nodes, all_pods, pending = workloads.cluster(n_pods, n_nodes, seed=5, extras=True, n_bound=40)
+    nodes, all_pods, pending = workloads.cluster(n_pods, n_nodes, seed=5, n_bound=40)
     if extended:
         for i, n in enumerate(nodes):
             if i % 3 == 0:
