@@ -2,7 +2,21 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 5 min, build included
+    python3 chip_smoke.py    # one card, about 8 min, build included
+
+Workloads (every one from seed 42 through ``workloads.cluster``):
+
+- cfg2: 1000 pods x 500 nodes, percentageOfNodesToScore 100, tie_break
+  first; the five-filter, five-score profile;
+- north: 10 000 pods x 5 000 nodes, percentage 0 -> 500 sampled nodes,
+  tie_break reservoir, base counter 12345, start index 2027; that profile;
+- cfg3: 5 000 pods x 2 000 nodes, every pod with bench's two spread
+  constraints; cfg2's knobs; the seven-plugin profile (the five plus
+  PodTopologySpread and InterPodAffinity, upstream's default weights);
+- cfg4: 10 000 pods x 5 000 nodes, inter-pod terms on every pod (bench's
+  preferred anti-affinity on odd pods, required anti-affinity on every
+  25th, required zone affinity on pods 20, 60, ...) and the spread
+  constraints on every 3rd; north's knobs; the seven-plugin profile.
 
 Phases (each prints its seconds; any failure exits nonzero before the last
 line):
@@ -10,24 +24,21 @@ line):
 1. the card's name and power limit (nvidia-smi), then the kernel build
    (nvcc, sm_90a, both sources in parallel);
 2. kernel against plain version on the card, bitwise (``torch.equal``) in
-   float32 and float64: the scan on the cfg2 workload (1000 pods x 500
-   nodes, percentageOfNodesToScore 100, tie_break first) and at the north
-   star (10 000 pods x 5 000 nodes, the upstream default percentage 0 ->
-   500 sampled nodes, tie_break reservoir, a nonzero start index), both
-   with the trace on; the compaction on both scans' planes and on seeded
-   planes for every fail-pack mode and raw dtype;
-3. end to end: ``BatchEngine(device="cuda").schedule`` on both workloads
+   float32 and float64, with the trace on: the scan and the compaction of
+   its planes at every workload; the compaction on seeded planes for every
+   fail-pack mode and raw dtype;
+3. end to end: ``BatchEngine(device="cuda").schedule`` on every workload
    in float32 and float64 (launch counters reset just before each round
-   and read just after: every round must launch each kernel once); at
-   cfg2 every pod's annotation bytes from a CUDA float64 round must equal
-   a CPU float64 round's; the float32 round's differences from float64 are
-   counted per plugin and printed.
+   and read just after: every round must launch each kernel once);
+4. every pod's annotation bytes from a CUDA float64 round equal a CPU
+   float64 round's at cfg2, at cfg3 and at cfg4 cut to 1 000 pods x 500
+   nodes (a CPU round at full cfg4 size does not fit the time limit);
+5. the float32 round's differences from float64, per plugin, printed.
 
 Then one ``{"kernels": [...]}`` line (time, plain time and bound of each
-kernel at the north-star shapes, launches on the main path: the north
-float32 round), and as the
-last line ``{"ok": true, "device": {...}}``.  Everything is generated from
-seeds; nothing is read from the network.
+kernel at the cfg4 shapes, launches on the main path: the cfg4 float32
+round), and as the last line ``{"ok": true, "device": {...}}``.  Everything
+is generated from seeds; nothing is read from the network.
 """
 
 from __future__ import annotations
@@ -42,18 +53,33 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # non-tensor float32
 FP64_OPS_PER_S = 34e12     # non-tensor float64
 
-SLICE_SCORES = [
+FIVE_FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit")
+FIVE_SCORES = [
     ("NodeResourcesFit", 1),
     ("NodeResourcesBalancedAllocation", 1),
     ("ImageLocality", 1),
     ("TaintToleration", 3),
     ("NodeAffinity", 2),
 ]
-WORKLOADS = {
-    # name: (pods, nodes, percentageOfNodesToScore, tie_break, base_counter, start_index)
-    "cfg2": (1000, 500, 100, "first", 0, 0),
-    "north": (10000, 5000, 0, "reservoir", 12345, 2027),
+PROFILES = {
+    "five": (FIVE_FILTERS, FIVE_SCORES),
+    "seven": (
+        FIVE_FILTERS + ("PodTopologySpread", "InterPodAffinity"),
+        FIVE_SCORES + [("PodTopologySpread", 2), ("InterPodAffinity", 2)],
+    ),
 }
+WORKLOADS = {
+    # name: (pods, nodes, percentageOfNodesToScore, tie_break, base_counter,
+    #        start_index, profile, spread pods, inter-pod pods)
+    "cfg2": (1000, 500, 100, "first", 0, 0, "five", False, False),
+    "north": (10000, 5000, 0, "reservoir", 12345, 2027, "five", False, False),
+    "cfg3": (5000, 2000, 100, "first", 0, 0, "seven", lambda i: True, False),
+    "cfg4": (10000, 5000, 0, "reservoir", 12345, 2027, "seven", lambda i: i % 3 == 0, lambda i: True),
+}
+# CUDA float64 against CPU float64 annotation bytes: (workload, cut to
+# (pods, nodes) or None)
+ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", None), ("cfg4", (1000, 500)))
+MAIN = "cfg4"  # the slice's path: the kernels line reads its float32 run
 DEVICE = "cuda"
 
 
@@ -104,18 +130,31 @@ def same(name: str, a, b) -> float:
 
 
 def scan_counts(cfg, dims, dp, out) -> dict:
-    """Bytes the scan must move and operations it must do on this input."""
+    """Bytes the scan must move and operations it must do on this input:
+    every input the profile reads once, every output once; the operations
+    of each (pod, node) cell, and those of the pod's own spread
+    constraints and inter-pod terms."""
+    from kube_scheduler_simulator_tpu_torch.ops.batch import plugin_gates
+
     P, N, R = dims["P"], dims["N"], dims["R"]
-    read = sum(
-        getattr(dp, f).numel() * getattr(dp, f).element_size()
-        for f in (
-            "alloc", "max_pods", "nz_alloc", "pod_req", "pod_nonzero", "fit_checked", "taint_cls",
-            "taint_prefer_cls", "taint_unsched_cls", "pod_tol_idx", "node_taint_idx", "node_unsched",
-            "aff_code_cls", "aff_pref_cls", "pod_aff_idx", "pod_pref_idx", "node_label_idx", "img_cls",
-            "pod_img_idx", "node_img_idx", "name_target", "pod_active", "node_active",
-            "requested0", "nonzero0", "pod_count0",
-        )
-    )
+    gates = plugin_gates(cfg, dims)
+    fields = [
+        "alloc", "max_pods", "nz_alloc", "pod_req", "pod_nonzero", "fit_checked", "taint_cls",
+        "taint_prefer_cls", "taint_unsched_cls", "pod_tol_idx", "node_taint_idx", "node_unsched",
+        "aff_code_cls", "aff_pref_cls", "pod_aff_idx", "pod_pref_idx", "node_label_idx", "img_cls",
+        "pod_img_idx", "node_img_idx", "name_target", "pod_active", "node_active",
+        "requested0", "nonzero0", "pod_count0",
+    ]
+    tensors = [getattr(dp, f) for f in fields]
+    if gates["spread_filter"] or gates["spread_score"]:
+        tensors += [dp.incl_cls, dp.node_domain, dp.spf_ku, dp.sps_ku, dp.spread_match, dp.spread_counts0]
+        tensors += list(dp.spf) + list(dp.sps[:3])
+    if gates["interpod"]:
+        tensors += [getattr(dp, f) for f in (
+            "gdom", "term_match", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w", "ip_own_g", "ip_own_w",
+            "ip_self_match", "ip_sel0", "ip_own0", "ip_anti0",
+        )]
+    read = sum(t.numel() * t.element_size() for t in tensors)
     written = sum(t.numel() * t.element_size() for k, t in out.items() if k in (
         "packed_pod", "final_requested", "final_nonzero", "final_pod_count", "fail_plug", "fail_code",
         "feasible", "trace_meta") or k.startswith(("raw:", "norm:")))
@@ -123,7 +162,33 @@ def scan_counts(cfg, dims, dp, out) -> dict:
     # step, Fit (12 per resource column), Balanced (12), two normalized
     # scores (6 each), the weighted sum (2 per score), select (2)
     per_cell = 4 + 2 + 3 * R + 2 + 12 * len(cfg.fit_resources) + 12 + 12 + 2 * len(cfg.scores) + 2
-    return {"bytes": read + written, "ops": per_cell * P * N}
+    ops = per_cell * P * N
+    active = lambda t: (t >= 0).sum(dim=1).cpu().long()
+    if gates["spread_filter"]:
+        # domain sum, match + self, - min, compare, first code: 5 a node
+        ops += 5 * N * int(active(dp.spf[0]).sum())
+    if gates["spread_score"]:
+        # domain sum, count x log, + (skew - 1), + running sum: 4 a node a
+        # constraint; rint, extrema, normalization: 8 a node
+        n_sps = active(dp.sps[0])
+        ops += N * int((4 * n_sps + 8 * (n_sps > 0)).sum())
+    if gates["interpod"]:
+        terms = (dp.term_match != 0).sum(dim=0).cpu().long()  # groups matching each pod
+        # filter: one check per group matching the pod, 2 per required
+        # term; score: one add per matching group, 2 per preferred term,
+        # min-max normalization 6
+        per_pod = 2 * terms + 2 * (active(dp.ip_aff_g) + active(dp.ip_anti_g)) + 2 * active(dp.ip_pref_g) + 6
+        ops += N * int(per_pod.sum())
+    return {"bytes": read + written, "ops": ops}
+
+
+def carry_bytes(dims, dt, blocks: int) -> dict:
+    """Bytes of the scan's per-block copies of PodTopologySpread's and
+    InterPodAffinity's carries: spread_counts [SG,N] and ip_sel, ip_own,
+    ip_anti [G,D+1], in the working dtype."""
+    size = 4 if str(dt).endswith("float32") else 8
+    per_block = (dims["SG"] * dims["N"] + 3 * dims["G"] * (dims["D"] + 1)) * size
+    return {"blocks": blocks, "per_block": per_block, "total": per_block * blocks}
 
 
 def bound(counts: dict, dt) -> "tuple[float, str]":
@@ -190,28 +255,44 @@ def main() -> int:
         K.build()
         log(f"kernel build: {K.build_seconds:.2f} s (nvcc, sm_90a, {len(K.SOURCES)} sources in parallel)")
 
+    def make_cluster(name, cut=None):
+        P, N, _pct, _tie, _bc, _si, _prof, spread, interpod = WORKLOADS[name]
+        P, N = cut or (P, N)
+        return workloads.cluster(P, N, seed=42, spread=spread, interpod=interpod)
+
+    def engine(name, dt, device=DEVICE):
+        _P, _N, pct, tie, _bc, _si, prof, _sp, _ip = WORKLOADS[name]
+        filters, scores = PROFILES[prof]
+        return BatchEngine(
+            filters=list(filters), scores=scores, percentage_of_nodes_to_score=pct,
+            trace=True, tie_break=tie, seed=7, device=device, dtype=dt,
+        )
+
     clusters = {}
     timing: dict = {}
     for name in WORKLOADS:
-        P, N, pct, tie, bc, si = WORKLOADS[name]
-        nodes, all_pods, pending = workloads.cluster(P, N, seed=42)
+        nodes, all_pods, pending = make_cluster(name)
         pr = E.pad_problem(E.encode(nodes, all_pods, pending))
         clusters[name] = (nodes, all_pods, pending, pr)
 
     # ------------------------------------------------ kernel vs plain
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name in WORKLOADS:
-        P, N, pct, tie, bc, si = WORKLOADS[name]
+        P, N, pct, tie, bc, si, prof, _sp, _ip = WORKLOADS[name]
         nodes, all_pods, pending, pr = clusters[name]
-        cfg = B.BatchConfig(
-            filters=B.SLICE_FILTERS, scores=tuple(SLICE_SCORES), trace=True, tie_break=tie, seed=7,
-        )
+        filters, scores = PROFILES[prof]
+        cfg = B.BatchConfig(filters=filters, scores=tuple(scores), trace=True, tie_break=tie, seed=7)
         for dt in (torch.float32, torch.float64):
             with Phase(f"scan kernel vs plain, {name} {P}x{N}, {dt}"):
                 dp, dims = B.lower(pr, dtype=dt, device=dev)
                 dp = dp._replace(
                     tb_base=bc, start0=si % N, sample_k=num_feasible_nodes_to_find(N, pct),
                 )
-                log(f"padded P={dims['P']} N={dims['N']} R={dims['R']} sample_k={dp.sample_k} start0={dp.start0}")
+                log(f"padded P={dims['P']} N={dims['N']} R={dims['R']} sample_k={dp.sample_k} start0={dp.start0} "
+                    f"SG={dims['SG']} G={dims['G']} D={dims['D']} KC={dims['KC']} KS={dims['KS']} "
+                    f"KA={dims['KA']} KB={dims['KB']} KP={dims['KP']} KO={dims['KO']} keys={dims['key_struct']} "
+                    f"domain slots {K.domain_layout(dims, dt)}")
+                log(f"per-block topology carries: {json.dumps(carry_bytes(dims, dt, min(dims['P'], sms)))}")
                 kout = K.scan(cfg, dims, dp)
                 torch.cuda.synchronize()
                 plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp), 1, warmup=0)
@@ -220,9 +301,15 @@ def main() -> int:
                 err = max(same(f"scan {k}", kout[k], pout[k]) for k in pout)
                 # warm-up calls first: the first timed scan of the process
                 # must not pay for clocks or the allocator settling
-                ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp), *((2, 1) if name == "north" else (20, 10)))
+                ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp), *((2, 1) if P >= 10000 else (20, 10)))
+                fail = kout["fail_plug"][: pr.P_true]
+                codes = {
+                    f: sorted(set(kout["fail_code"][: pr.P_true][fail == k].unique().tolist()))
+                    for k, f in enumerate(filters) if f in ("PodTopologySpread", "InterPodAffinity")
+                }
                 log(f"scan bitwise equal ({len(pout)} outputs); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
-                    f"scheduled {int((kout['selected'] >= 0).sum())}")
+                    f"scheduled {int((kout['selected'][: pr.P_true] >= 0).sum())}/{pr.P_true}; "
+                    f"first-failure codes {codes}")
                 # the compaction on these planes at the widths a round picks
                 packed = kout["packed_pod"].cpu().numpy()
                 W = min(dims["N"], E._bucket(max(int(packed[3].max()), 1)))
@@ -233,7 +320,7 @@ def main() -> int:
                 cms, kb = cuda_ms(lambda: K.compact(cfg, dims, W, WS, manifest, kout, pr.N_true), 20)
                 cplain_ms, pb = cuda_ms(lambda: B.compact_plain(cfg, dims, W, WS, manifest, kout, pr.N_true), 3)
                 cerr = same("compact blob", kb, pb)
-                log(f"compact bitwise equal (W={W} WS={WS} mode={B.fail_pack_mode(int(mm[-1, 1]), 5)} "
+                log(f"compact bitwise equal (W={W} WS={WS} mode={B.fail_pack_mode(int(mm[-1, 1]), len(filters))} "
                     f"raw={rdt}, {kb.numel()} bytes); kernel {cms:.3f} ms, plain {cplain_ms:.3f} ms")
                 sb, sby = bound(scan_counts(cfg, dims, dp, kout), dt)
                 cb, cby = bound(compact_counts(kout, manifest, W, WS, pr.N_true), dt)
@@ -249,8 +336,8 @@ def main() -> int:
     with Phase("compact kernel vs plain, every fail-pack mode and raw dtype (seeded planes)"):
         rng = np.random.default_rng(11)
         P, N, nt = 1024, 512, 500
-        for filters in (B.SLICE_FILTERS, ()):
-            cfg = B.BatchConfig(filters=filters, scores=tuple(SLICE_SCORES), trace=True)
+        for filters in (FIVE_FILTERS, ()):
+            cfg = B.BatchConfig(filters=filters, scores=tuple(FIVE_SCORES), trace=True)
             for code_max in (9, 200, 30000, 70000):
                 for rdt in ("int8", "int16", "int32"):
                     for dt in (torch.float32, torch.float64):
@@ -262,7 +349,7 @@ def main() -> int:
                             "fail_code": torch.from_numpy(rng.integers(0, code_max + 1, (P, N)).astype(np.int32)),
                             "feasible": torch.from_numpy(rng.random((P, N)) < 0.5),
                         }
-                        for s, _w in SLICE_SCORES:
+                        for s, _w in FIVE_SCORES:
                             out[f"raw:{s}"] = torch.from_numpy(rng.integers(-hi, hi + 1, (P, N))).to(dt)
                             out[f"norm:{s}"] = torch.from_numpy(rng.integers(0, 101, (P, N))).to(dt)
                         out = {k: v.to(dev) for k, v in out.items()}
@@ -279,14 +366,11 @@ def main() -> int:
     results = {}
     main_launches = None
     for name in WORKLOADS:
-        P, N, pct, tie, bc, si = WORKLOADS[name]
+        P, N, pct, tie, bc, si, _prof, _sp, _ip = WORKLOADS[name]
         nodes, all_pods, pending, _pr = clusters[name]
         for dt in (torch.float32, torch.float64):
             with Phase(f"end to end BatchEngine(device='cuda'), {name} {P}x{N}, {dt}"):
-                eng = BatchEngine(
-                    filters=list(B.SLICE_FILTERS), scores=SLICE_SCORES, percentage_of_nodes_to_score=pct,
-                    trace=True, tie_break=tie, seed=7, device=DEVICE, dtype=dt,
-                )
+                eng = engine(name, dt)
                 ok, why = eng.supported(pending, nodes)
                 assert ok, why
                 K.reset_counts()
@@ -296,7 +380,7 @@ def main() -> int:
                 launches = dict(K.LAUNCHES)
                 if launches != {"scan": 1, "compact": 1}:
                     raise AssertionError(f"the round did not launch each kernel once: {launches}")
-                if name == "north" and dt == torch.float32:
+                if name == MAIN and dt == torch.float32:
                     main_launches = launches
                 sel = res.selected[:P]  # rows past P are shape padding
                 assert len(sel) == P and ((sel >= -1) & (sel < N)).all()
@@ -307,31 +391,39 @@ def main() -> int:
                 log(f"host stages (s): {json.dumps(stages, sort_keys=True)}")
                 results[(name, dt)] = res
 
-    with Phase("cfg2 annotation bytes: CUDA float64 round vs CPU float64 round"):
-        P, N, pct, tie, bc, si = WORKLOADS["cfg2"]
-        nodes, all_pods, pending, _pr = clusters["cfg2"]
-        cpu = BatchEngine(
-            filters=list(B.SLICE_FILTERS), scores=SLICE_SCORES, percentage_of_nodes_to_score=pct,
-            trace=True, tie_break=tie, seed=7, device="cpu", dtype=torch.float64,
-        ).schedule(nodes, all_pods, pending, base_counter=bc, start_index=si)
-        gpu = results[("cfg2", torch.float64)]
-        assert cpu.selected_nodes == gpu.selected_nodes, "selections differ between CUDA and CPU float64"
-        for i in range(P):
-            if cpu.filter_annotation_json(i) != gpu.filter_annotation_json(i):
-                raise AssertionError(f"pod {i}: filter annotation bytes differ")
-            if cpu.score_annotations_json(i) != gpu.score_annotations_json(i):
-                raise AssertionError(f"pod {i}: score annotation bytes differ")
-        log(f"{P} pods x 3 annotation documents byte-identical")
+    for name, cut in ANNOTATION_CHECKS:
+        P, N, pct, tie, bc, si, _prof, _sp, _ip = WORKLOADS[name]
+        P, N = cut or (P, N)
+        with Phase(f"{name} {P}x{N} annotation bytes: CUDA float64 round vs CPU float64 round"):
+            if cut is None:
+                nodes, all_pods, pending, _pr = clusters[name]
+                gpu = results[(name, torch.float64)]
+            else:
+                nodes, all_pods, pending = make_cluster(name, cut)
+                K.reset_counts()
+                gpu = engine(name, torch.float64).schedule(nodes, all_pods, pending, base_counter=bc, start_index=si)
+                assert K.LAUNCHES == {"scan": 1, "compact": 1}, K.LAUNCHES
+            cpu = engine(name, torch.float64, device="cpu").schedule(
+                nodes, all_pods, pending, base_counter=bc, start_index=si,
+            )
+            assert cpu.selected_nodes == gpu.selected_nodes, "selections differ between CUDA and CPU float64"
+            for i in range(P):
+                if cpu.filter_annotation_json(i) != gpu.filter_annotation_json(i):
+                    raise AssertionError(f"pod {i}: filter annotation bytes differ")
+                if cpu.score_annotations_json(i) != gpu.score_annotations_json(i):
+                    raise AssertionError(f"pod {i}: score annotation bytes differ")
+            log(f"{P} pods x 3 annotation documents byte-identical; "
+                f"scheduled {sum(s is not None for s in gpu.selected_nodes)}/{P}")
 
     with Phase("float32 against float64 (CUDA rounds)"):
         f32_report = {}
         for name in WORKLOADS:
-            P = WORKLOADS[name][0]
+            P, scores = WORKLOADS[name][0], PROFILES[WORKLOADS[name][6]][1]
             r32, r64 = results[(name, torch.float32)], results[(name, torch.float64)]
             t32, t64 = r32.out["trace"], r64.out["trace"]
             diff_sel = np.nonzero(r32.selected[:P] != r64.selected[:P])[0]
             per_plugin = {}
-            for k, (s, _w) in enumerate(SLICE_SCORES):
+            for k, (s, _w) in enumerate(scores):
                 rows = [
                     i for i in range(P)
                     if not (np.array_equal(t32["sids"][i], t64["sids"][i])
@@ -363,7 +455,7 @@ def main() -> int:
             f32_report[name] = rep
             log(f"{name}: float32 vs float64: {json.dumps(rep, sort_keys=True)}")
 
-    ref = "north"
+    ref = MAIN
     main = timing[(ref, torch.float32)]
     kernels = [
         {

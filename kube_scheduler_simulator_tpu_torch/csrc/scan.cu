@@ -4,9 +4,12 @@
 // feature expansion _expand_features (:1702-1721, here per-pod-row gathers
 // from the class matrices, never a [P,N] plane), the per-pod step under
 // lax.scan (:1264-1700: filters with first-failure tracking, the rotated
-// feasible-node sampling prefix sum, five scores with their normalization,
+// feasible-node sampling prefix sum, seven scores with their normalization,
 // selection by first visit rank or the reservoir draw, the commit) and the
-// packed outputs and trace meta of _scan (:1723-1780).
+// packed outputs and trace meta of _scan (:1723-1780).  PodTopologySpread
+// (:1337-1379, :1508-1562, :1642) and InterPodAffinity (:1380-1414,
+// :1563-1576, :1644-1662) read their carries through each node's domain
+// (node_domain, gdom) where the reference multiplies by one-hot matrices.
 //
 // What bounds it on an H100: the sequential dependency chain.  Pod i+1's
 // filters read the carry pod i committed, so the P steps run one after the
@@ -26,9 +29,31 @@
 // (rank r -> node (start + r) % n_true, padding columns after), so the
 // rotated prefix sum is a plain running block scan.
 //
+// Passes per pod: (0) PodTopologySpread's per-domain sums, each constraint's
+// minimum over domains and InterPodAffinity's required-affinity total, when
+// the pod has constraints or terms; (1) filters, the rotated prefix sum and
+// sampling, InterPodAffinity's raw score and its extrema over the sampled
+// nodes, and the sampled domains PodTopologySpread's score counts;
+// (1b) PodTopologySpread's raw score and its extrema, when the pod has score
+// constraints; (2) scores and weighted totals; (3) selection; the commit.
+// Domain sums of a key with few domains live in shared memory, the rest in
+// per-block global scratch; identity keys (one domain per node, such as the
+// hostname) need none: their minimum is a block reduction over nodes.
+//
+// Carries: each block keeps its own copy of spread_counts [SG,N] and of
+// ip_sel, ip_own, ip_anti [G,D+1] (column D is the reference's sink for a
+// node without the key; it is never read, so the commit skips it).  At the
+// cfg4 workload (10 000 pods x 5 000 nodes, chip_smoke.py prints the sizes)
+// these copies take SG*N + 3*G*(D+1) values per block, times 132 blocks.
+//
 // Exactness: built with --fmad=false and without fast math; every formula
 // keeps the reference's order of operations, divisions are IEEE divisions,
-// quotients go through floor/trunc, and the reservoir hash is uint32.
+// quotients go through floor/trunc, rounding is rint (half to even, as
+// jnp.round), and the reservoir hash is uint32.  The domain sums use
+// atomicAdd, whose order varies; they stay exact because every count is an
+// integer-valued float below 2^24 (float32's integer range), so any order
+// gives the same sum.  log(tsize + 2) is read from a table the wrapper fills
+// with torch.log, which the plain version reads too.
 
 #include <cmath>
 #include <cstdint>
@@ -41,9 +66,11 @@ constexpr int MAXF = 8;
 constexpr int MAXS = 8;
 constexpr int MAXFR = 4;
 constexpr int MAXSHAPE = 16;
+constexpr int MAXC = 8;    // PodTopologySpread constraints per pod, of each kind
+constexpr int MAXKU = 16;  // topology keys the constraints and terms use
 
-enum { F_UNSCHED = 0, F_NAME = 1, F_TAINT = 2, F_AFF = 3, F_FIT = 4 };
-enum { S_FIT = 0, S_BAL = 1, S_IMG = 2, S_TAINT = 3, S_AFF = 4 };
+enum { F_UNSCHED = 0, F_NAME = 1, F_TAINT = 2, F_AFF = 3, F_FIT = 4, F_SPREAD = 5, F_IPA = 6 };
+enum { S_FIT = 0, S_BAL = 1, S_IMG = 2, S_TAINT = 3, S_AFF = 4, S_SPREAD = 5, S_IPA = 6 };
 enum { FIT_LEAST = 0, FIT_MOST = 1, FIT_RTCR = 2 };
 
 }  // namespace
@@ -61,6 +88,12 @@ struct ScanArgs {
   double fit_wsum;
   int64_t n_shape, shape_u[MAXSHAPE], shape_s[MAXSHAPE];
   int64_t T_cols, M_cols, MP_cols, MC_cols;
+  int64_t use_spread_f, use_spread_s, use_ipa;
+  int64_t KC, KS, KA, KB, KP, KO, SG, G, D;
+  int64_t dom_cap;   // domains of the largest interned key a constraint uses
+  int64_t dom_smem;  // 1: the domain sums live in dynamic shared memory
+  int64_t key_base[MAXKU];  // first domain id of each used key
+  int64_t key_size[MAXKU];  // domains of an interned key; 0 = identity key
   const void* alloc;
   const void* max_pods;
   const void* nz_alloc;
@@ -84,14 +117,48 @@ struct ScanArgs {
   const int32_t* name_target;
   const uint8_t* pod_active;
   const uint8_t* node_active;
+  const uint8_t* incl_cls;     // [A,M] spread inclusion per (affinity class, label class)
+  const int32_t* node_domain;  // [KT,N] global domain id per key, -1 = no label
+  const int32_t* spf_key;      // [P,KC] DoNotSchedule constraints: key, -1 = none
+  const int32_t* spf_grp;      // [P,KC] selector group
+  const int32_t* spf_ku;       // [P,KC] used-key index
+  const void* spf_skew;        // [P,KC]
+  const void* spf_self;        // [P,KC]
+  const int32_t* sps_key;      // [P,KS] ScheduleAnyway constraints
+  const int32_t* sps_grp;
+  const int32_t* sps_ku;
+  const void* sps_skew;
+  const void* spread_match;    // [SG,P]
+  const int32_t* gdom;         // [G,N] domain id of each term group's key
+  const void* term_match;      // [G,P]
+  const int32_t* ip_aff_g;     // [P,KA] required affinity groups, -1 = none
+  const int32_t* ip_anti_g;    // [P,KB] required anti-affinity groups
+  const int32_t* ip_pref_g;    // [P,KP] preferred groups
+  const void* ip_pref_w;       // [P,KP] signed weights
+  const int32_t* ip_own_g;     // [P,KO] groups the pod's own terms add to
+  const void* ip_own_w;        // [P,KO]
+  const uint8_t* ip_self_match;  // [P]
+  const void* log_table;       // [N+1] log(t + 2)
   const void* requested0;
   const void* nonzero0;
   const void* pod_count0;
+  const void* spread_counts0;  // [SG,N]
+  const void* ip_sel0;         // [G,D+1]
+  const void* ip_own0;
+  const void* ip_anti0;
   void* s_requested;   // [B,N,R] per-block carry
   void* s_nonzero;     // [B,N,2]
   void* s_pod_count;   // [B,N]
+  void* s_spread;      // [B,SG,N]
+  void* s_ip_sel;      // [B,G,D+1]
+  void* s_ip_own;
+  void* s_ip_anti;
+  void* s_raw_spread;  // [B,N] PodTopologySpread raw score of the current pod
+  void* s_raw_ipa;     // [B,N] InterPodAffinity raw score of the current pod
+  void* s_dom;         // [B,(KC+KS)*dom_cap] domain sums, when not in shared memory
+  int32_t* s_domflag;  // [B,(KC+KS)*dom_cap] domain flags
   void* s_total;       // [B,N] masked weighted totals of the current pod
-  uint8_t* s_flags;    // [B,N] bit 0 feasible, bit 1 sampled
+  uint8_t* s_flags;    // [B,N] bit 0 feasible, bit 1 sampled, bit 2 has every score key
   int32_t* packed;     // [5,P]
   int32_t* final_start;  // [1]
   void* final_requested;
@@ -180,6 +247,8 @@ __device__ __forceinline__ float d_trunc(float x) { return truncf(x); }
 __device__ __forceinline__ double d_trunc(double x) { return ::trunc(x); }
 __device__ __forceinline__ float d_fabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double d_fabs(double x) { return ::fabs(x); }
+__device__ __forceinline__ float d_rint(float x) { return rintf(x); }
+__device__ __forceinline__ double d_rint(double x) { return ::rint(x); }
 
 // Go integer division for non-negative operands, in floats:
 // floor(a / where(b == 0, 1, b)) * (b != 0).
@@ -253,8 +322,28 @@ __device__ T balanced_score(const T* nz, const T* nz_alloc, const T* pnz) {
   return d_floor((T(1) - spread) * T(100));
 }
 
+// Does node n have every key of the pod's active score constraints?
+__device__ __forceinline__ bool has_all_keys(const ScanArgs& a, const int32_t* sk, int64_t n) {
+  for (int k = 0; k < a.KS; ++k) {
+    if (sk[k] >= 0 && a.node_domain[(int64_t)sk[k] * a.N + n] < 0) return false;
+  }
+  return true;
+}
+
+// carry[g, domain of node n under group g], 0 when the node lacks the key
 template <typename T>
-__global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
+__device__ __forceinline__ T at_node(const ScanArgs& a, const T* carry, int g, int64_t n) {
+  const int d = a.gdom[(int64_t)g * a.N + n];
+  return d >= 0 ? carry[(int64_t)g * (a.D + 1) + d] : T(0);
+}
+
+// TOPO = false compiles PodTopologySpread's and InterPodAffinity's work out
+// (a problem without spread constraints or term groups), so that path keeps
+// the registers of a kernel without them.  The grid has one block per SM,
+// so the bounds allow one resident block and up to 128 registers a thread:
+// capped at 64, the float64 kernel spilled to local memory.
+template <typename T, bool TOPO>
+__global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const int B = gridDim.x;
@@ -272,10 +361,39 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
   T* tot = (T*)a.s_total + (int64_t)b * N;
   uint8_t* fl = a.s_flags + (int64_t)b * N;
   const T NEG = T(-1e18);
+  const T INF = T(INFINITY);
+
+  const bool spread_on = TOPO && (a.use_spread_f || a.use_spread_s);
+  const bool ipa = TOPO && a.use_ipa != 0;
+  bool ipa_scored = false;
+  for (int k = 0; k < a.ns; ++k) ipa_scored = ipa_scored || (ipa && a.scores[k] == S_IPA);
+  const int64_t GD = a.G * (a.D + 1);
+  T* spc = (T*)a.s_spread + (int64_t)b * a.SG * N;
+  T* isel = (T*)a.s_ip_sel + (int64_t)b * GD;
+  T* iown = (T*)a.s_ip_own + (int64_t)b * GD;
+  T* ianti = (T*)a.s_ip_anti + (int64_t)b * GD;
+  T* spraw = (T*)a.s_raw_spread + (int64_t)b * N;
+  T* ipraw = (T*)a.s_raw_ipa + (int64_t)b * N;
+  const int64_t cap = a.dom_cap;
+  const int64_t nslot = a.KC + a.KS;
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  T* dom_sum = a.dom_smem ? (T*)dyn_smem : (T*)a.s_dom + (int64_t)b * nslot * cap;
+  int* dom_flag = a.dom_smem ? (int*)(dyn_smem + nslot * cap * sizeof(T)) : a.s_domflag + (int64_t)b * nslot * cap;
+  const T* log_table = (const T*)a.log_table;
 
   for (int64_t j = tid; j < N * R; j += blockDim.x) req[j] = ((const T*)a.requested0)[j];
   for (int64_t j = tid; j < N * 2; j += blockDim.x) nzc[j] = ((const T*)a.nonzero0)[j];
   for (int64_t j = tid; j < N; j += blockDim.x) pc[j] = ((const T*)a.pod_count0)[j];
+  if (spread_on) {
+    for (int64_t j = tid; j < a.SG * N; j += blockDim.x) spc[j] = ((const T*)a.spread_counts0)[j];
+  }
+  if (ipa) {
+    for (int64_t j = tid; j < GD; j += blockDim.x) {
+      isel[j] = ((const T*)a.ip_sel0)[j];
+      iown[j] = ((const T*)a.ip_own0)[j];
+      ianti[j] = ((const T*)a.ip_anti0)[j];
+    }
+  }
   __syncthreads();
 
   // trace meta (block 0): per-score min/max of where(feasible & active,
@@ -301,15 +419,96 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
     const T* preq = pod_req + i * R;
     const T* pnz = pod_nonzero + i * 2;
     const uint8_t* fchk = a.fit_checked + i * R;
+    const int32_t* fkey = a.spf_key + i * a.KC;
+    const int32_t* fgrp = a.spf_grp + i * a.KC;
+    const int32_t* fku = a.spf_ku + i * a.KC;
+    const int32_t* skey = a.sps_key + i * a.KS;
+    const int32_t* sgrp = a.sps_grp + i * a.KS;
+    const int32_t* sku = a.sps_ku + i * a.KS;
+    const bool sp_f = TOPO && a.use_spread_f != 0;
+    const bool sp_s = TOPO && a.use_spread_s && skey[0] >= 0;
+
+    // ---- pass 0: PodTopologySpread domain sums and minima ---------------
+    T min_match[MAXC], w_log[MAXC];
+    if (sp_f || sp_s) {
+      for (int k = 0; k < nslot; ++k) {
+        const int key = k < a.KC ? fkey[k] : skey[k - a.KC];
+        const int u = k < a.KC ? fku[k] : sku[k - a.KC];
+        if (key < 0 || a.key_size[u] == 0) continue;
+        for (int64_t d = tid; d < a.key_size[u]; d += blockDim.x) {
+          dom_sum[k * cap + d] = T(0);
+          dom_flag[k * cap + d] = 0;
+        }
+      }
+      __syncthreads();
+      T lmin[MAXC];
+      for (int k = 0; k < MAXC; ++k) lmin[k] = INF;
+      for (int64_t n = tid; n < N; n += blockDim.x) {
+        if (sp_f) {
+          const bool incl = a.incl_cls[(int64_t)affi * a.M_cols + a.node_label_idx[n]] != 0;
+          for (int k = 0; k < a.KC; ++k) {
+            if (fkey[k] < 0) continue;
+            const int dom = a.node_domain[(int64_t)fkey[k] * N + n];
+            if (dom < 0 || !incl) continue;  // not a contributing node
+            const T m = spc[(int64_t)fgrp[k] * N + n];
+            if (a.key_size[fku[k]] == 0) {
+              lmin[k] = m < lmin[k] ? m : lmin[k];
+            } else {
+              const int64_t d = k * cap + (dom - a.key_base[fku[k]]);
+              atomicAdd(&dom_sum[d], m);
+              dom_flag[d] = 1;
+            }
+          }
+        }
+        if (sp_s && has_all_keys(a, skey, n)) {
+          for (int k = 0; k < a.KS; ++k) {
+            if (skey[k] < 0 || a.key_size[sku[k]] == 0) continue;
+            const int dom = a.node_domain[(int64_t)skey[k] * N + n];
+            atomicAdd(&dom_sum[(a.KC + k) * cap + (dom - a.key_base[sku[k]])], spc[(int64_t)sgrp[k] * N + n]);
+          }
+        }
+      }
+      __syncthreads();
+      if (sp_f) {
+        for (int k = 0; k < a.KC; ++k) {
+          if (fkey[k] < 0) continue;
+          T v = lmin[k];
+          const int64_t size = a.key_size[fku[k]];
+          for (int64_t d = tid; d < size; d += blockDim.x) {
+            if (dom_flag[k * cap + d] && dom_sum[k * cap + d] < v) v = dom_sum[k * cap + d];
+          }
+          v = block_reduce(v, INF, MinOp());
+          // finite iff some domain (node) contributes: counts are finite
+          min_match[k] = v == INF ? T(0) : v;
+        }
+      }
+    }
+
+    // InterPodAffinity: existing matches of the required-affinity groups
+    const bool has_aff = ipa && a.KA > 0 && a.ip_aff_g[i * a.KA] >= 0;
+    bool aff_escape = false;
+    if (has_aff) {
+      T s = T(0);
+      for (int k = 0; k < a.KA; ++k) {
+        const int g = a.ip_aff_g[i * a.KA + k];
+        if (g < 0) continue;
+        for (int64_t d = tid; d < a.D; d += blockDim.x) s = s + isel[(int64_t)g * (a.D + 1) + d];
+      }
+      s = block_reduce(s, T(0), SumOp());
+      aff_escape = s == T(0) && a.ip_self_match[i] != 0;
+    }
 
     // ---- pass 1: filters, rotated prefix sum, sampling ----------------
     int run = 0;
     int kth_rank = -1;
+    int n_fni = 0;  // sampled nodes with every score key
     T mx_taint = -INFINITY, mx_aff = -INFINITY;
+    T ip_mn = INF, ip_mx = -INF;
     for (int64_t base = 0; base < N; base += blockDim.x) {
       const int r = (int)(base + tid);
       int n = -1;
       int feas = 0;
+      T ip_raw = T(0);
       if (r < N) {
         n = r < nt ? (start + r) % nt : r;
         const int ntaint = a.node_taint_idx[n];
@@ -344,6 +543,44 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
               }
               break;
             }
+            case F_SPREAD: {
+              if (!sp_f) break;
+              const bool incl = a.incl_cls[(int64_t)affi * a.M_cols + nlabel] != 0;
+              for (int c = 0; c < a.KC; ++c) {
+                if (fkey[c] < 0) continue;
+                const int dom = a.node_domain[(int64_t)fkey[c] * N + n];
+                int c_code = 1;
+                if (dom >= 0) {
+                  const T match = a.key_size[fku[c]] == 0
+                      ? (incl ? spc[(int64_t)fgrp[c] * N + n] : T(0))
+                      : dom_sum[c * cap + (dom - a.key_base[fku[c]])];
+                  const T skew = match + ((const T*)a.spf_self)[i * a.KC + c] - min_match[c];
+                  c_code = skew > ((const T*)a.spf_skew)[i * a.KC + c] ? 2 : 0;
+                }
+                if (code == 0) code = c_code;
+              }
+              break;
+            }
+            case F_IPA: {
+              if (!ipa) break;
+              // existing pods' required anti-affinity toward this pod
+              for (int g = 0; g < a.G && code == 0; ++g) {
+                if (((const T*)a.term_match)[(int64_t)g * P + i] != T(0) && at_node(a, ianti, g, n) > T(0)) code = 1;
+              }
+              if (code == 0 && has_aff && !aff_escape) {
+                bool sat = true;
+                for (int c = 0; c < a.KA; ++c) {
+                  const int g = a.ip_aff_g[i * a.KA + c];
+                  if (g >= 0) sat = sat && a.gdom[(int64_t)g * N + n] >= 0 && at_node(a, isel, g, n) > T(0);
+                }
+                if (!sat) code = 2;
+              }
+              for (int c = 0; c < a.KB && code == 0; ++c) {
+                const int g = a.ip_anti_g[i * a.KB + c];
+                if (g >= 0 && at_node(a, isel, g, n) > T(0)) code = 3;
+              }
+              break;
+            }
           }
           if (plug < 0 && code != 0) {
             plug = k;
@@ -357,6 +594,16 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
           a.fail_code[i * N + n] = fcode;
         }
         if (meta && fcode > code_mx) code_mx = fcode;
+        if (ipa_scored) {
+          for (int g = 0; g < a.G; ++g) {
+            if (((const T*)a.term_match)[(int64_t)g * P + i] != T(0)) ip_raw = ip_raw + at_node(a, iown, g, n);
+          }
+          for (int c = 0; c < a.KP; ++c) {
+            const int g = a.ip_pref_g[i * a.KP + c];
+            if (g >= 0) ip_raw = ip_raw + ((const T*)a.ip_pref_w)[i * a.KP + c] * at_node(a, isel, g, n);
+          }
+          ipraw[n] = ip_raw;
+        }
       }
       int tile_total;
       const int c = run + block_scan(feas, &tile_total);
@@ -370,14 +617,74 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
         const T va = samp ? T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + a.node_label_idx[n]]) : T(0);
         mx_taint = vt > mx_taint ? vt : mx_taint;
         mx_aff = va > mx_aff ? va : mx_aff;
+        if (samp && ipa_scored) {
+          ip_mn = ip_raw < ip_mn ? ip_raw : ip_mn;
+          ip_mx = ip_raw > ip_mx ? ip_raw : ip_mx;
+        }
+        if (samp && sp_s && has_all_keys(a, skey, n)) {
+          ++n_fni;
+          for (int k = 0; k < a.KS; ++k) {
+            if (skey[k] < 0 || a.key_size[sku[k]] == 0) continue;
+            const int dom = a.node_domain[(int64_t)skey[k] * N + n];
+            dom_flag[(a.KC + k) * cap + (dom - a.key_base[sku[k]])] = 1;
+          }
+        }
       }
     }
     const int total = run;
     kth_rank = block_reduce(kth_rank, -1, MaxOp());
     mx_taint = block_reduce(mx_taint, T(-INFINITY), MaxOp());
     mx_aff = block_reduce(mx_aff, T(-INFINITY), MaxOp());
+    if (ipa_scored) {
+      ip_mn = block_reduce(ip_mn, INF, MinOp());
+      ip_mx = block_reduce(ip_mx, -INF, MaxOp());
+    }
     const int processed = total >= K ? kth_rank + 1 : nt;
     const int count = (total < K ? total : K) * (active ? 1 : 0);
+
+    // ---- pass 1b: PodTopologySpread's raw score and its extrema ---------
+    T sp_mn = INF, sp_mx = -INF;
+    if (sp_s) {
+      // topology size: sampled nodes (identity key) or sampled domains
+      n_fni = block_reduce(n_fni, 0, SumOp());
+      for (int k = 0; k < a.KS; ++k) {
+        if (skey[k] < 0) continue;
+        int tsize = n_fni;
+        const int64_t size = a.key_size[sku[k]];
+        if (size > 0) {
+          int cnt = 0;
+          for (int64_t d = tid; d < size; d += blockDim.x) cnt += dom_flag[(a.KC + k) * cap + d];
+          tsize = block_reduce(cnt, 0, SumOp());
+        }
+        w_log[k] = log_table[tsize];
+      }
+      for (int64_t n = tid; n < N; n += blockDim.x) {
+        const bool all_keys = has_all_keys(a, skey, n);
+        T raw_f = T(0);
+        for (int k = 0; k < a.KS; ++k) {
+          if (skey[k] < 0) continue;
+          const int dom = a.node_domain[(int64_t)skey[k] * N + n];
+          T cnt;
+          if (a.key_size[sku[k]] == 0) {
+            cnt = all_keys ? spc[(int64_t)sgrp[k] * N + n] : T(0);
+          } else {
+            cnt = dom >= 0 ? dom_sum[(a.KC + k) * cap + (dom - a.key_base[sku[k]])] : T(0);
+          }
+          raw_f = raw_f + (cnt * w_log[k] + (((const T*)a.sps_skew)[i * a.KS + k] - T(1)));
+        }
+        const T raw = d_rint(raw_f);
+        spraw[n] = raw;
+        if (all_keys) {
+          fl[n] |= 4;
+          if (fl[n] & 2) {
+            sp_mn = raw < sp_mn ? raw : sp_mn;
+            sp_mx = raw > sp_mx ? raw : sp_mx;
+          }
+        }
+      }
+      sp_mn = block_reduce(sp_mn, INF, MinOp());
+      sp_mx = block_reduce(sp_mx, -INF, MaxOp());
+    }
 
     // ---- pass 2: scores, weighted totals -------------------------------
     T best = -INFINITY;
@@ -390,7 +697,7 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
         const int nlabel = a.node_label_idx[n];
         T total_w = T(0);
         for (int k = 0; k < a.ns; ++k) {
-          T raw, nrm;
+          T raw = T(0), nrm = T(0);
           switch ((int)a.scores[k]) {
             case S_FIT:
               raw = fit_score(a, nzc + n * 2, nz_alloc + n * 2, pnz);
@@ -408,10 +715,25 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
               raw = T(a.taint_prefer_cls[(int64_t)tol * a.T_cols + ntaint]);
               nrm = default_normalize(raw, mx_taint, true);
               break;
-            default:  // S_AFF
+            case S_AFF:
               raw = T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + nlabel]);
               nrm = default_normalize(raw, mx_aff, false);
               break;
+            case S_SPREAD:
+              if (!sp_s) break;
+              raw = spraw[n];
+              // nodes without every key, or no sampled node with them: 0
+              if ((fl[n] & 4) && sp_mn != INF) {
+                nrm = sp_mx == T(0) ? T(100) : floordiv(T(100) * (sp_mx + sp_mn - raw), sp_mx);
+              }
+              break;
+            default: {  // S_IPA: MAX * (raw - min) / (max - min) over the sampled nodes
+              if (!ipa) break;
+              raw = ipraw[n];
+              const T diff = ip_mx - ip_mn;
+              nrm = diff > T(0) ? d_floor(T(100) * (raw - ip_mn) / diff) : T(0);
+              break;
+            }
           }
           if (writes) {
             ((T*)a.raw[k])[i * N + n] = raw;
@@ -485,6 +807,31 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
       nzc[sel * 2 + 1] = nzc[sel * 2 + 1] + T(1) * pnz[1];
       pc[sel] = pc[sel] + T(1);
     }
+    if (sel >= 0 && spread_on) {
+      for (int64_t s = tid; s < a.SG; s += blockDim.x) {
+        spc[s * N + sel] = spc[s * N + sel] + ((const T*)a.spread_match)[s * P + i];
+      }
+    }
+    if (sel >= 0 && ipa) {
+      // one thread per group row of ip_sel; ip_own and ip_anti, whose
+      // terms may repeat a cell, on thread 0 in the reference's order
+      for (int64_t g = tid; g < a.G; g += blockDim.x) {
+        const int d = a.gdom[g * N + sel];
+        if (d >= 0) isel[g * (a.D + 1) + d] = isel[g * (a.D + 1) + d] + ((const T*)a.term_match)[g * P + i];
+      }
+      if (tid == 0) {
+        for (int c = 0; c < a.KO; ++c) {
+          const int g = a.ip_own_g[i * a.KO + c];
+          const int d = g >= 0 ? a.gdom[(int64_t)g * N + sel] : -1;
+          if (d >= 0) iown[(int64_t)g * (a.D + 1) + d] = iown[(int64_t)g * (a.D + 1) + d] + ((const T*)a.ip_own_w)[i * a.KO + c];
+        }
+        for (int c = 0; c < a.KB; ++c) {
+          const int g = a.ip_anti_g[i * a.KB + c];
+          const int d = g >= 0 ? a.gdom[(int64_t)g * N + sel] : -1;
+          if (d >= 0) ianti[(int64_t)g * (a.D + 1) + d] = ianti[(int64_t)g * (a.D + 1) + d] + T(1);
+        }
+      }
+    }
     if (owner && tid == 0) {
       a.packed[0 * P + i] = sel;
       a.packed[1 * P + i] = count;
@@ -520,7 +867,12 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const ScanArgs a) {
 
 template <typename T>
 int launch(const ScanArgs* a, int64_t blocks, void* stream) {
-  scan_kernel<T><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(*a);
+  const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
+  if (a->use_spread_f || a->use_spread_s || a->use_ipa) {
+    scan_kernel<T, true><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(*a);
+  } else {
+    scan_kernel<T, false><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(*a);
+  }
   return (int)cudaGetLastError();
 }
 

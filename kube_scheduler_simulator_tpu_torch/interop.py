@@ -3,11 +3,11 @@
 This system has no weights to convert; its counterpart is the lowered
 problem itself.  ``from_jax_problem`` takes the JAX package's
 ``DeviceProblem`` as numpy arrays (``dp._asdict()`` with every leaf passed
-through ``np.asarray``; ``key_valid``, ``key_oh``, ``spf`` and ``sps`` as
-tuples) and places the port's ``DeviceProblem`` on ``device`` in one copy,
-so both packages' kernels can be fed the very same problem.  The JAX-only
-fields (the on-device expansion placeholders and the traced weight vector)
-are dropped.
+through ``np.asarray``; ``spf`` and ``sps`` as tuples) and places the
+port's ``DeviceProblem`` on ``device`` in one copy, so both packages'
+kernels can be fed the very same problem.  The JAX-only fields (the
+on-device expansion placeholders, the traced weight vector and the one-hot
+key expansion) are dropped.
 """
 
 from __future__ import annotations

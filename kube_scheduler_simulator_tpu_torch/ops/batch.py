@@ -18,11 +18,17 @@ Two implementations of each device step live side by side:
   serve CUDA tensors and must agree with the plain versions bit for bit.
 
 ``build_batch_fn`` / ``build_compact_fn`` return callables that pick one by
-the device of the tensors they are given.  This slice covers the filters
-NodeUnschedulable, NodeName, TaintToleration, NodeAffinity and
-NodeResourcesFit and the scores NodeResourcesFit (three strategies),
-NodeResourcesBalancedAllocation, ImageLocality, TaintToleration and
-NodeAffinity, with both tie-breaks and feasible-node sampling.
+the device of the tensors they are given.  The port covers the filters
+NodeUnschedulable, NodeName, TaintToleration, NodeAffinity,
+NodeResourcesFit, PodTopologySpread and InterPodAffinity and the scores
+NodeResourcesFit (three strategies), NodeResourcesBalancedAllocation,
+ImageLocality, TaintToleration, NodeAffinity, PodTopologySpread and
+InterPodAffinity, with both tie-breaks and feasible-node sampling.
+
+The reference expands domain vectors to nodes (and collapses node values
+to domains) with one-hot matrix products; here they are gathers through
+``node_domain``/``gdom`` and ``index_add_`` sums.  Both are exact: every
+value is an integer-valued float far below 2**24.
 
 All math is in the problem dtype: float64 for the bit-exact CPU runs,
 float32 on the card, kept exact by the encoder's GCD scaling.  Every
@@ -93,13 +99,23 @@ SCORE_KERNELS = (
     "ImageLocality",
 )
 # What this port's scan computes; supported() rejects the rest by name.
-SLICE_FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit")
+SLICE_FILTERS = (
+    "NodeUnschedulable",
+    "NodeName",
+    "TaintToleration",
+    "NodeAffinity",
+    "NodeResourcesFit",
+    "PodTopologySpread",
+    "InterPodAffinity",
+)
 SLICE_SCORES = (
     "NodeResourcesFit",
     "NodeResourcesBalancedAllocation",
     "ImageLocality",
     "TaintToleration",
     "NodeAffinity",
+    "PodTopologySpread",
+    "InterPodAffinity",
 )
 FIT_STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
 TIE_BREAKS = ("first", "reservoir")
@@ -176,8 +192,10 @@ def trace_fetch_plan(cfg: "BatchConfig", raw_dtypes: "tuple[str, ...]"):
 
 class DeviceProblem(NamedTuple):
     """BatchProblem lowered to device tensors, field for field the JAX
-    package's DeviceProblem (its on-device expansion placeholders and the
-    traced weight vector aside).  The four round scalars are host ints."""
+    package's DeviceProblem (its on-device expansion placeholders, the
+    traced weight vector and the one-hot key expansion aside: the port
+    reads domains through ``node_domain``/``gdom``).  The four round
+    scalars are host ints."""
 
     alloc: Any            # [N,R]
     max_pods: Any         # [N]
@@ -234,10 +252,7 @@ class DeviceProblem(NamedTuple):
     sample_k: int         # stop after this many feasible nodes
     start0: int           # rotation start index for the first pod
     n_true: int           # real node count (modulus; N minus padding)
-    key_valid: Any        # tuple of [N] bool, per used key
-    key_oh: Any           # tuple of [size,N] one-hots ([0,N] for identity keys)
-    g_ku: Any             # [G] local key index per term group
-    spf_ku: Any           # [P, KC]
+    spf_ku: Any           # [P, KC] used-key index (dims key_struct)
     sps_ku: Any           # [P, KS]
     # initial carry
     requested0: Any       # [N,R]
@@ -318,7 +333,7 @@ def lower(
     gdom = np.asarray(pr.node_domain)[np.clip(group_key, 0, None)]  # [G,N]
     pad = lambda a: np.concatenate([a, np.zeros((a.shape[0], 1), a.dtype)], axis=1)
 
-    # Used topology keys → local index + static expansion structure
+    # Used topology keys → local index + (kind, first domain, domains)
     node_domain = np.asarray(pr.node_domain)
     used_keys: list[int] = sorted(
         {int(k) for k in group_key.tolist() if pr.G}
@@ -330,27 +345,17 @@ def lower(
     key_base = list(getattr(pr, "key_base", []))
     key_identity = list(getattr(pr, "key_identity", []))
     key_struct: list[tuple] = []
-    key_valid: list[np.ndarray] = []
-    key_oh: list[np.ndarray] = []
     for k in used_keys:
         dom = node_domain[k]
         valid = dom >= 0
         base = key_base[k] if k < len(key_base) else 0
         if key_identity[k] if k < len(key_identity) else False:
             key_struct.append(("identity", base, N))
-            key_valid.append(valid)
-            key_oh.append(np.zeros((0, N), dtype=np.float32))
         else:
             size = int(dom[valid].max() - base + 1) if valid.any() else 1
-            oh = np.zeros((size, N), dtype=np.float32)
-            oh[dom[valid] - base, np.nonzero(valid)[0]] = 1.0
             key_struct.append(("onehot", base, size))
-            key_valid.append(valid)
-            key_oh.append(oh)
     if not used_keys:
         key_struct.append(("identity", 0, N))
-        key_valid.append(np.zeros(N, dtype=bool))
-        key_oh.append(np.zeros((0, N), dtype=np.float32))
 
     def remap(keys: np.ndarray) -> np.ndarray:
         keys = np.asarray(keys)
@@ -359,7 +364,6 @@ def lower(
             lut[k] = u
         return lut[np.clip(keys, 0, len(lut) - 1)]
 
-    g_ku = remap(group_key) if pr.G else np.zeros(1, dtype=np.int32)
     host = dict(
         alloc=f(pr.alloc),
         max_pods=f(pr.max_pods),
@@ -414,9 +418,6 @@ def lower(
         sample_k=pr.N_true,
         start0=0,
         n_true=pr.N_true,
-        key_valid=tuple(b(v) for v in key_valid),
-        key_oh=tuple(f(o) for o in key_oh),
-        g_ku=i32(g_ku),
         spf_ku=i32(remap(np.asarray(pr.spf_key))),
         sps_ku=i32(remap(np.asarray(pr.sps_key))),
         requested0=f(pr.requested0),
@@ -535,8 +536,78 @@ def expand_features(dp: DeviceProblem, dt: torch.dtype) -> dict:
         aff_code=pair(dp.aff_code_cls, dp.pod_aff_idx, dp.node_label_idx),
         aff_pref=pair(dp.aff_pref_cls, dp.pod_pref_idx, dp.node_label_idx).to(dt),
         name_ok=torch.where(tgt == -1, True, tgt == idx_n[None, :]),
+        incl=pair(dp.incl_cls, dp.pod_aff_idx, dp.node_label_idx),
         img_score=pair(dp.img_cls, dp.pod_img_idx, dp.node_img_idx).to(dt),
     )
+
+
+def log_table(n: int, dt: torch.dtype, device) -> torch.Tensor:
+    """``log(t + 2)`` for t = 0..n in the working dtype: PodTopologySpread's
+    topology-size weight.  One ``torch.log`` call per round; the plain scan
+    and the kernel both read this table, so they use the same logarithm."""
+    return torch.log(torch.arange(n + 1, dtype=dt, device=device) + 2.0)
+
+
+def _domain_index(dom: torch.Tensor, base: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """(has the key [N], domain index within the key [N], 0 where absent)."""
+    ok = dom >= 0
+    return ok, torch.where(ok, dom - base, 0).long()
+
+
+def _domain_sums(ok: torch.Tensor, d: torch.Tensor, size: int, vals: torch.Tensor) -> torch.Tensor:
+    """Per-domain sums of per-node values over the nodes that have the key
+    (the reference's ``one_hot @ vals``)."""
+    z = torch.zeros(size, dtype=vals.dtype, device=vals.device)
+    return z.index_add_(0, d, torch.where(ok, vals, 0))
+
+
+def _spread_filter_code(dom, m, incl, kind_base_size, self_match, max_skew) -> torch.Tensor:
+    """One DoNotSchedule constraint's code per node: 1 = the node lacks the
+    key, 2 = placing the pod there would exceed maxSkew."""
+    kind, base, size = kind_base_size
+    contributing = incl & (dom >= 0)
+    mc = torch.where(contributing, m, 0)
+    if kind == "identity":  # each node is its own domain
+        present = contributing
+        mn = torch.where(present, mc, float("inf")).min()
+        match = mc
+    else:
+        ok, d = _domain_index(dom, base)
+        dc = _domain_sums(ok, d, size, mc)
+        present = _domain_sums(ok, d, size, contributing.to(mc.dtype)) > 0
+        mn = torch.where(present, dc, float("inf")).min()
+        match = torch.where(ok, dc[d], 0)
+    min_match = torch.where(present.any(), mn, torch.zeros_like(mn))
+    skew = match + self_match - min_match
+    return torch.where(dom < 0, 1, torch.where(skew > max_skew, 2, 0)).to(torch.int32)
+
+
+def _spread_score(cons, dp, spread_counts, sampled, key_struct, logt):
+    """PodTopologySpread's raw and normalized score of one pod with score
+    constraints ``cons`` = [(key, group, local key, maxSkew), ...]."""
+    N = sampled.shape[0]
+    has_all = torch.ones(N, dtype=torch.bool, device=sampled.device)
+    for key, _g, _u, _skew in cons:
+        has_all = has_all & (dp.node_domain[key] >= 0)
+    raw_f = torch.zeros(N, dtype=logt.dtype, device=sampled.device)
+    fni = sampled & has_all
+    for key, g, u, skew in cons:
+        dom = dp.node_domain[key]
+        mc = torch.where(has_all, spread_counts[g], 0)
+        kind, base, size = key_struct[u]
+        if kind == "identity":
+            cnt = mc
+            tsize = fni.sum()
+        else:
+            ok, d = _domain_index(dom, base)
+            cnt = torch.where(ok, _domain_sums(ok, d, size, mc)[d], 0)
+            tsize = (_domain_sums(ok, d, size, fni.to(mc.dtype)) > 0).sum()
+        raw_f = raw_f + (cnt * logt[tsize] + (skew - 1.0))
+    raw = torch.round(raw_f)  # half to even, as jnp.round
+    mn = torch.where(fni, raw, float("inf")).min()
+    mx = torch.where(fni, raw, float("-inf")).max()
+    norm = torch.where(mx == 0, MAX_NODE_SCORE, _floordiv(MAX_NODE_SCORE * (mx + mn - raw), mx))
+    return raw, torch.where(~has_all | ~fni.any(), 0.0, norm)
 
 
 def _fit_raw(cfg: BatchConfig, req_nz: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -561,7 +632,7 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
     feasible-node sampling, scores and normalization, selection with either
     tie-break, commit).  Returns the JAX outputs under the same keys."""
     check_slice(cfg)
-    P, N, R = dims["P"], dims["N"], dims["R"]
+    P, N, R, D = dims["P"], dims["N"], dims["R"], dims["D"]
     if R > 30:
         raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
     dev = dp.alloc.device
@@ -571,6 +642,26 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
     requested = dp.requested0.clone()
     nonzero = dp.nonzero0.clone()
     pod_count = dp.pod_count0.clone()
+    gates = plugin_gates(cfg, dims)
+    spread_counts = dp.spread_counts0.clone()
+    ip_sel, ip_own, ip_anti = dp.ip_sel0.clone(), dp.ip_own0.clone(), dp.ip_anti0.clone()
+    key_struct = dims["key_struct"]
+    logt = log_table(N, dt, dev)
+    # the per-pod constraint and term lists, read on the host
+    host = {f: t.cpu().numpy() for f, t in (
+        ("spf_key", dp.spf[0]), ("spf_grp", dp.spf[1]), ("spf_ku", dp.spf_ku),
+        ("sps_key", dp.sps[0]), ("sps_grp", dp.sps[1]), ("sps_ku", dp.sps_ku),
+        ("aff_g", dp.ip_aff_g), ("anti_g", dp.ip_anti_g), ("pref_g", dp.ip_pref_g), ("own_g", dp.ip_own_g),
+    )}
+    gvalid, gidx = _domain_index(dp.gdom, 0)
+    g_rows = torch.arange(gidx.shape[0], device=dev)
+
+    def at_nodes(carry, g=None):
+        """A [G,D+1] carry read at each node's domain of each group ([G,N]),
+        or of group ``g`` ([N]); 0 where the node lacks the key."""
+        if g is None:
+            return torch.where(gvalid, carry.gather(1, gidx), 0)
+        return torch.where(gvalid[g], carry[g][gidx[g]], 0)
     start = torch.tensor(dp.start0, dtype=i32, device=dev)
     nt, K = int(dp.n_true), int(dp.sample_k)
     idx = torch.arange(N, dtype=i32, device=dev)
@@ -628,6 +719,36 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
                 for r in range(R):
                     code = code | (insuff[:, r].to(i32) << (r + 1))
                 apply(name, code)
+            elif name == "PodTopologySpread" and gates["spread_filter"]:
+                code = torch.zeros(N, dtype=i32, device=dev)
+                for k in range(dims["KC"]):
+                    key = int(host["spf_key"][i, k])
+                    if key < 0:
+                        continue
+                    k_code = _spread_filter_code(
+                        dp.node_domain[key], spread_counts[int(host["spf_grp"][i, k])], X["incl"][i],
+                        key_struct[int(host["spf_ku"][i, k])], dp.spf[3][i, k], dp.spf[2][i, k],
+                    )
+                    code = torch.where(code == 0, k_code, code)
+                apply(name, code)
+            elif name == "InterPodAffinity" and gates["interpod"]:
+                tm = dp.term_match[:, i]
+                # existing pods' required anti-affinity toward this pod
+                code = torch.where((tm[:, None] * at_nodes(ip_anti)).sum(0) > 0, 1, 0).to(i32)
+                aff = [int(g) for g in host["aff_g"][i] if g >= 0]
+                if aff:
+                    sat = torch.ones(N, dtype=torch.bool, device=dev)
+                    total_any = torch.zeros((), dtype=dt, device=dev)
+                    for g in aff:
+                        sat = sat & (at_nodes(ip_sel, g) > 0) & gvalid[g]
+                        total_any = total_any + ip_sel[g, :D].sum()
+                    # the first pod of a group that matches its own terms
+                    escape = (total_any == 0) & dp.ip_self_match[i]
+                    code = torch.where((code == 0) & ~sat & ~escape, 2, code)
+                for g in host["anti_g"][i]:
+                    if g >= 0:
+                        code = torch.where((code == 0) & (at_nodes(ip_sel, int(g)) > 0), 3, code)
+                apply(name, code)
 
         # feasible-node sampling: visit rank r = (n - start) mod n_true;
         # "the first K feasible in visit order" is a rotated prefix sum
@@ -661,9 +782,24 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
             elif name == "TaintToleration":
                 raw = X["taint_prefer"][i]
                 norm = _default_normalize(raw, sampled, reverse=True)
-            else:  # NodeAffinity
+            elif name == "NodeAffinity":
                 raw = X["aff_pref"][i]
                 norm = _default_normalize(raw, sampled, reverse=False)
+            elif name == "PodTopologySpread" and gates["spread_score"] and host["sps_key"][i, 0] >= 0:
+                cons = [
+                    (int(host["sps_key"][i, k]), int(host["sps_grp"][i, k]), int(host["sps_ku"][i, k]), dp.sps[2][i, k])
+                    for k in range(dims["KS"]) if host["sps_key"][i, k] >= 0
+                ]
+                raw, norm = _spread_score(cons, dp, spread_counts, sampled, key_struct, logt)
+            elif name == "InterPodAffinity" and gates["interpod"]:
+                raw = (dp.term_match[:, i][:, None] * at_nodes(ip_own)).sum(0)
+                for k, g in enumerate(host["pref_g"][i]):
+                    if g >= 0:
+                        raw = raw + dp.ip_pref_w[i, k] * at_nodes(ip_sel, int(g))
+                norm = _minmax_normalize(raw, sampled)
+            else:  # a plugin with nothing to score in this problem
+                raw = torch.zeros(N, dtype=dt, device=dev)
+                norm = raw
             if cfg.trace:
                 out[f"raw:{name}"][i] = raw
                 out[f"norm:{name}"][i] = norm
@@ -687,6 +823,22 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
         requested = requested + oh[:, None] * pod_req[None, :]
         nonzero = nonzero + oh[:, None] * dp.pod_nonzero[i][None, :]
         pod_count = pod_count + oh
+        if dims["SG"] > 0:
+            spread_counts = spread_counts + dp.spread_match[:, i][:, None] * oh[None, :]
+        if gates["interpod"]:
+            # column D is the sink for a group whose key the node lacks
+            sel_safe = torch.clamp(sel, min=0).long()
+            d_g = dp.gdom[:, sel_safe]
+            d_g = torch.where((d_g >= 0) & commit, d_g, D).long()
+            ip_sel = ip_sel.index_put((g_rows, d_g), dp.term_match[:, i] * commit, accumulate=True)
+            for carry, groups, weights in ((ip_own, host["own_g"][i], dp.ip_own_w[i]), (ip_anti, host["anti_g"][i], None)):
+                for k, g in enumerate(groups):
+                    if g < 0:
+                        continue
+                    dd = dp.gdom[int(g), sel_safe]
+                    dd = torch.where((dd >= 0) & commit, dd, D).long().view(1)
+                    w = commit.to(dt) if weights is None else weights[k] * commit
+                    carry[int(g)].index_add_(0, dd, w.view(1))
         packed[0, i] = sel
         packed[1, i] = count
         packed[2, i] = start
@@ -721,6 +873,18 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
         rows.append(torch.stack([torch.zeros((), dtype=i32, device=dev), code_max]))
         out["trace_meta"] = torch.stack(rows)
     return out
+
+
+def plugin_gates(cfg: BatchConfig, dims: dict) -> "dict[str, bool]":
+    """Which of PodTopologySpread's and InterPodAffinity's work this problem
+    needs: none without constraints or term groups, as in the reference."""
+    return {
+        "spread_filter": "PodTopologySpread" in cfg.filters and dims["KC"] > 0,
+        "spread_score": any(s == "PodTopologySpread" for s, _w in cfg.scores) and dims["KS"] > 0,
+        "interpod": dims["G"] > 0 and (
+            "InterPodAffinity" in cfg.filters or any(s == "InterPodAffinity" for s, _w in cfg.scores)
+        ),
+    }
 
 
 def build_batch_fn(cfg: BatchConfig, dims: dict):

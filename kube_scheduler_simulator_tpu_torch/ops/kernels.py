@@ -2,9 +2,11 @@
 counters and the wrappers.
 
 - ``scan``    (csrc/scan.cu) — the whole pod loop of a round in one launch:
-              the pairwise feature gathers, the five filters, the rotated
-              sampling prefix sum, the five scores and their normalization,
-              selection (first or reservoir) and the commit.
+              the pairwise feature gathers, the seven filters, the rotated
+              sampling prefix sum, the seven scores and their
+              normalization, selection (first or reservoir) and the commit
+              of every carry (PodTopologySpread's counts, InterPodAffinity's
+              term-group counts).
 - ``compact`` (csrc/compact.cu) — the [P,N] trace planes → the manifest's
               byte blob, one block per pod row.
 
@@ -41,6 +43,8 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
     DeviceProblem,
     _mix32,
     check_slice,
+    log_table,
+    plugin_gates,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -55,13 +59,18 @@ NVCC_FLAGS = (
 LAUNCHES = {"scan": 0, "compact": 0}
 
 # the struct capacities of csrc/*.cu
-MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP = 8, 8, 4, 16, 16
+MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 8, 8, 4, 16, 16, 8, 16
+# bytes of shared memory the scan may take for PodTopologySpread's domain
+# sums; larger domain arrays go to per-block global scratch
+DOM_SMEM_BYTES = 8192
 _SCORE_IDS = {
     "NodeResourcesFit": 0,
     "NodeResourcesBalancedAllocation": 1,
     "ImageLocality": 2,
     "TaintToleration": 3,
     "NodeAffinity": 4,
+    "PodTopologySpread": 5,
+    "InterPodAffinity": 6,
 }
 _FIT_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 _DT_IDS = {"int8": 0, "int16": 1, "int32": 2}
@@ -90,6 +99,14 @@ class ScanArgs(ctypes.Structure):
         ("MP_cols", _i64),
         ("MC_cols", _i64),
     ] + [
+        (n, _i64) for n in (
+            "use_spread_f", "use_spread_s", "use_ipa",
+            "KC", "KS", "KA", "KB", "KP", "KO", "SG", "G", "D", "dom_cap", "dom_smem",
+        )
+    ] + [
+        ("key_base", _i64 * MAXKU),
+        ("key_size", _i64 * MAXKU),
+    ] + [
         (n, _ptr)
         for n in (
             "alloc", "max_pods", "nz_alloc", "pod_req", "pod_nonzero", "fit_checked",
@@ -97,8 +114,14 @@ class ScanArgs(ctypes.Structure):
             "node_taint_idx", "node_unsched", "aff_code_cls", "aff_pref_cls",
             "pod_aff_idx", "pod_pref_idx", "node_label_idx", "img_cls", "pod_img_idx",
             "node_img_idx", "name_target", "pod_active", "node_active",
-            "requested0", "nonzero0", "pod_count0",
-            "s_requested", "s_nonzero", "s_pod_count", "s_total", "s_flags",
+            "incl_cls", "node_domain",
+            "spf_key", "spf_grp", "spf_ku", "spf_skew", "spf_self",
+            "sps_key", "sps_grp", "sps_ku", "sps_skew", "spread_match",
+            "gdom", "term_match", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w",
+            "ip_own_g", "ip_own_w", "ip_self_match", "log_table",
+            "requested0", "nonzero0", "pod_count0", "spread_counts0", "ip_sel0", "ip_own0", "ip_anti0",
+            "s_requested", "s_nonzero", "s_pod_count", "s_spread", "s_ip_sel", "s_ip_own", "s_ip_anti",
+            "s_raw_spread", "s_raw_ipa", "s_dom", "s_domflag", "s_total", "s_flags",
             "packed", "final_start", "final_requested", "final_nonzero", "final_pod_count",
             "fail_plug", "fail_code", "feasible",
         )
@@ -198,6 +221,15 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {torch.cuda.get_device_name()} cudaError {rc}")
 
 
+def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
+    """(domains per PodTopologySpread constraint slot, whether the slots fit
+    the scan's shared memory): a slot holds the per-domain sums and flags
+    of the largest interned key; identity keys need none."""
+    cap = max((size for kind, _base, size in dims["key_struct"] if kind != "identity"), default=0)
+    slot_bytes = (dims["KC"] + dims["KS"]) * cap * (torch.empty((), dtype=dt).element_size() + 4)
+    return cap, slot_bytes <= DOM_SMEM_BYTES
+
+
 def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None) -> dict:
     """Launch the scan kernel on a problem on the card; returns the outputs
     of ops/batch.scan_plain under the same keys.  ``blocks`` defaults to one
@@ -210,6 +242,10 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
         raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
     if len(cfg.fit_resources) > MAXFR or len(cfg.fit_shape) > MAXSHAPE:
         raise ValueError("NodeResourcesFit scoring resources or shape exceed the kernel's capacity")
+    if max(dims["KC"], dims["KS"]) > MAXC:
+        raise ValueError(f"more than {MAXC} PodTopologySpread constraints of one kind on a pod")
+    if len(dims["key_struct"]) > MAXKU:
+        raise ValueError(f"more than {MAXKU} topology keys in the spread constraints and inter-pod terms")
     dt = dp.alloc.dtype
     fn = _entry("scan", dt)
     dev = dp.alloc.device
@@ -227,10 +263,23 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
         "final_pod_count": e(N),
     }
     final_start = e(1, dtype=i32)
+    gates = plugin_gates(cfg, dims)
+    spread_on = gates["spread_filter"] or gates["spread_score"]
+    SG, G, D = dims["SG"], dims["G"], dims["D"]
+    cap, in_smem = domain_layout(dims, dt)
+    nslot = dims["KC"] + dims["KS"]
     scratch = dict(
         s_requested=e(blocks, N, R), s_nonzero=e(blocks, N, 2), s_pod_count=e(blocks, N),
+        s_spread=e(blocks, SG, N) if spread_on else e(1),
+        s_ip_sel=e(blocks, G, D + 1) if gates["interpod"] else e(1),
+        s_ip_own=e(blocks, G, D + 1) if gates["interpod"] else e(1),
+        s_ip_anti=e(blocks, G, D + 1) if gates["interpod"] else e(1),
+        s_raw_spread=e(blocks, N), s_raw_ipa=e(blocks, N),
+        s_dom=e(1) if in_smem else e(blocks, nslot * cap),
+        s_domflag=e(1, dtype=i32) if in_smem else e(blocks, nslot * cap, dtype=i32),
         s_total=e(blocks, N), s_flags=e(blocks, N, dtype=torch.uint8),
     )
+    logt = log_table(N, dt, dev)
     a = ScanArgs()
     a.P, a.N, a.R = P, N, R
     a.n_true, a.sample_k, a.start0 = dp.n_true, dp.sample_k, dp.start0
@@ -259,6 +308,15 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
     a.M_cols = dp.aff_code_cls.shape[1]
     a.MP_cols = dp.aff_pref_cls.shape[1]
     a.MC_cols = dp.img_cls.shape[1]
+    a.use_spread_f, a.use_spread_s = int(gates["spread_filter"]), int(gates["spread_score"])
+    a.use_ipa = int(gates["interpod"])
+    for name in ("KC", "KS", "KA", "KB", "KP", "KO", "SG", "G", "D"):
+        setattr(a, name, int(dims[name]))
+    a.dom_cap, a.dom_smem = cap, int(in_smem)
+    # (first domain id, domains; 0 = identity) of each used key, by value:
+    # a device copy would block the host until the card drains
+    for u, (kind, base, size) in enumerate(dims["key_struct"]):
+        a.key_base[u], a.key_size[u] = base, 0 if kind == "identity" else size
     for name, want in (
         ("alloc", dt), ("max_pods", dt), ("nz_alloc", dt), ("pod_req", dt), ("pod_nonzero", dt),
         ("fit_checked", torch.bool), ("taint_cls", torch.int16), ("taint_prefer_cls", torch.int16),
@@ -266,9 +324,19 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
         ("node_unsched", torch.bool), ("aff_code_cls", torch.int8), ("aff_pref_cls", i32),
         ("pod_aff_idx", i32), ("pod_pref_idx", i32), ("node_label_idx", i32), ("img_cls", torch.int8),
         ("pod_img_idx", i32), ("node_img_idx", i32), ("name_target", i32), ("pod_active", torch.bool),
-        ("node_active", torch.bool), ("requested0", dt), ("nonzero0", dt), ("pod_count0", dt),
+        ("node_active", torch.bool), ("incl_cls", torch.bool), ("node_domain", i32), ("spf_ku", i32),
+        ("sps_ku", i32), ("spread_match", dt), ("gdom", i32), ("term_match", dt), ("ip_aff_g", i32),
+        ("ip_anti_g", i32), ("ip_pref_g", i32), ("ip_pref_w", dt), ("ip_own_g", i32), ("ip_own_w", dt),
+        ("ip_self_match", torch.bool), ("requested0", dt), ("nonzero0", dt), ("pod_count0", dt),
+        ("spread_counts0", dt), ("ip_sel0", dt), ("ip_own0", dt), ("ip_anti0", dt),
     ):
         setattr(a, name, _check(getattr(dp, name), name, want))
+    for name, t, want in (
+        ("spf_key", dp.spf[0], i32), ("spf_grp", dp.spf[1], i32), ("spf_skew", dp.spf[2], dt),
+        ("spf_self", dp.spf[3], dt), ("sps_key", dp.sps[0], i32), ("sps_grp", dp.sps[1], i32),
+        ("sps_skew", dp.sps[2], dt), ("log_table", logt, dt),
+    ):
+        setattr(a, name, _check(t, name, want))
     for name, t in scratch.items():
         setattr(a, name, t.data_ptr())
     a.packed = out["packed_pod"].data_ptr()

@@ -7,11 +7,13 @@ encoded once on the host (ops/encode.py), the trace compacted on the card,
 and the per-plugin annotation trail the reference writes onto pods
 reproduced byte for byte from the fetched planes (``BatchResult``).
 
-Kernels: NodeUnschedulable, NodeName, TaintToleration, NodeAffinity and
-NodeResourcesFit filters; NodeResourcesFit (LeastAllocated, MostAllocated,
+Kernels: NodeUnschedulable, NodeName, TaintToleration, NodeAffinity,
+NodeResourcesFit, PodTopologySpread and InterPodAffinity filters;
+NodeResourcesFit (LeastAllocated, MostAllocated,
 RequestedToCapacityRatio), NodeResourcesBalancedAllocation,
-ImageLocality, TaintToleration and NodeAffinity scores.  ``supported()``
-names whatever falls outside that set.
+ImageLocality, TaintToleration, NodeAffinity, PodTopologySpread and
+InterPodAffinity scores.  ``supported()`` names whatever falls outside
+that set (NodePorts and the volume filters among them).
 """
 
 from __future__ import annotations
@@ -303,10 +305,13 @@ class BatchEngine:
         tie_break: str = "first",
         seed: int = 0,
         device: "str | torch.device | None" = None,
+        hard_pod_affinity_weight: int = 1,
     ):
         """``device``: the card unless the caller passes ``"cpu"`` (where the
         plain versions stand in for the kernels); a missing card raises.
-        ``dtype``: float32 on the card, float64 on the CPU unless given."""
+        ``dtype``: float32 on the card, float64 on the CPU unless given.
+        ``hard_pod_affinity_weight``: InterPodAffinity's
+        hardPodAffinityWeight argument (upstream default 1)."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.device, dtype)
         self.filters = list(filters if filters is not None else B.SLICE_FILTERS)
@@ -314,6 +319,7 @@ class BatchEngine:
         self.fit_strategy = fit_strategy
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
         self.trace = trace
+        self.hard_pod_affinity_weight = hard_pod_affinity_weight
         self.cfg = B.BatchConfig(
             filters=tuple(self.filters),
             scores=tuple((s, w) for s, w in self.scores),
@@ -394,7 +400,10 @@ class BatchEngine:
         prof = self.profiler
         rec = prof.open()
         t0 = time.perf_counter()
-        pr = E.encode(nodes, all_pods, pending, namespaces, volumes=volumes or {})
+        pr = E.encode(
+            nodes, all_pods, pending, namespaces, volumes=volumes or {},
+            hard_pod_affinity_weight=self.hard_pod_affinity_weight,
+        )
         pr = E.pad_problem(pr)
         t1 = time.perf_counter()
         dp, dims = B.lower(pr, dtype=self.dtype, device=self.device)

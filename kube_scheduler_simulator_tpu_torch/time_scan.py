@@ -1,11 +1,16 @@
-"""Time the scan kernel at the north-star shapes on one card, with one
-block per SM (the wrapper's default with the trace on) against a single
-block that also writes every trace row.
+"""Time the scan kernel on one card, with one block per SM (the wrapper's
+default with the trace on) against a single block that also writes every
+trace row.
 
-    python3 -m kube_scheduler_simulator_tpu_torch.time_scan [--reps 3]
+    python3 -m kube_scheduler_simulator_tpu_torch.time_scan [--reps 3] [--workload north|cfg2]
 
 The problem is chip_smoke.py's north workload (10 000 pods x 5 000 nodes,
-seed 42, 500 sampled nodes, reservoir tie-break, trace on).  Each dtype
+seed 42, 500 sampled nodes, reservoir tie-break, trace on, the five-filter,
+five-score profile) or its cfg2 workload (1000 x 500, every node scored,
+first tie-break).  The script reads nothing but the package's
+``workloads``, ``ops.batch``, ``ops.encode`` and ``ops.kernels``, so run as
+a file with another checkout's root on ``PYTHONPATH`` it times that
+checkout's kernel.  Each dtype
 runs the two launch shapes in the order per-SM, single, single, per-SM;
 each turn times ``--reps`` launches with CUDA events after one warm-up
 launch, and the two shapes' outputs must be bitwise equal.  The card's
@@ -28,6 +33,7 @@ from kube_scheduler_simulator_tpu_torch.ops import encode as E
 from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import num_feasible_nodes_to_find
 
+FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit")
 SCORES = (
     ("NodeResourcesFit", 1),
     ("NodeResourcesBalancedAllocation", 1),
@@ -36,6 +42,8 @@ SCORES = (
     ("NodeAffinity", 2),
 )
 SHAPES = {"per_sm": None, "single": 1}
+# name: (pods, nodes, percentageOfNodesToScore, tie_break, base_counter, start_index)
+WORKLOADS = {"north": (10000, 5000, 0, "reservoir", 12345, 2027), "cfg2": (1000, 500, 100, "first", 0, 0)}
 
 
 def _time(fn, reps: int) -> "tuple[float, dict]":
@@ -53,6 +61,7 @@ def _time(fn, reps: int) -> "tuple[float, dict]":
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--workload", choices=sorted(WORKLOADS), default="north")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_scan: no CUDA device", file=sys.stderr)
@@ -65,13 +74,13 @@ def main() -> int:
     K.build()
     order = ["per_sm", "single", "single", "per_sm"]
 
-    P, N = 10000, 5000
+    P, N, pct, tie, bc, si = WORKLOADS[args.workload]
     nodes, all_pods, pending = workloads.cluster(P, N, seed=42)
     pr = E.pad_problem(E.encode(nodes, all_pods, pending))
-    cfg = B.BatchConfig(filters=B.SLICE_FILTERS, scores=SCORES, trace=True, tie_break="reservoir", seed=7)
+    cfg = B.BatchConfig(filters=FILTERS, scores=SCORES, trace=True, tie_break=tie, seed=7)
     for dt in (torch.float32, torch.float64):
         dp, dims = B.lower(pr, dtype=dt, device=torch.device("cuda"))
-        dp = dp._replace(tb_base=12345, start0=2027 % N, sample_k=num_feasible_nodes_to_find(N, 0))
+        dp = dp._replace(tb_base=bc, start0=si % N, sample_k=num_feasible_nodes_to_find(N, pct))
         ms: dict = {v: [] for v in SHAPES}
         first = None
         for v in order:
@@ -84,7 +93,8 @@ def main() -> int:
                     raise AssertionError(f"{dt} {k}: the two launch shapes' outputs differ")
             del out
         print(json.dumps({
-            "dtype": str(dt).split(".")[-1], "P": dims["P"], "N": dims["N"], "reps": args.reps,
+            "workload": args.workload, "dtype": str(dt).split(".")[-1], "P": dims["P"], "N": dims["N"],
+            "reps": args.reps,
             "ms": ms, "order": order,
         }), flush=True)
         del first, dp

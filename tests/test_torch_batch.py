@@ -43,14 +43,24 @@ ALL_SCORES = (
     ("TaintToleration", 3),
     ("NodeAffinity", 2),
 )
+# upstream's default weights for the two topology plugins
+TOPO_SCORES = ALL_SCORES + (("PodTopologySpread", 2), ("InterPodAffinity", 2))
+FIVE_FILTERS = TB.SLICE_FILTERS[:5]
+# profiles run on the cluster with spread constraints and inter-pod terms
+TOPO_SUBSETS = {
+    "seven": (TB.SLICE_FILTERS, TOPO_SCORES),
+    "spread": (("NodeResourcesFit", "PodTopologySpread"), (("NodeResourcesFit", 1), ("PodTopologySpread", 2))),
+    "interpod": (("NodeResourcesFit", "InterPodAffinity"), (("NodeResourcesFit", 1), ("InterPodAffinity", 2))),
+}
 SUBSETS = {
-    "full": (TB.SLICE_FILTERS, ALL_SCORES),
+    **TOPO_SUBSETS,
+    "full": (FIVE_FILTERS, ALL_SCORES),
     "fit": (("NodeResourcesFit",), (("NodeResourcesFit", 2), ("NodeResourcesBalancedAllocation", 1))),
     "taint-aff": (
         ("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity"),
         (("TaintToleration", 3), ("NodeAffinity", 2), ("ImageLocality", 1)),
     ),
-    "no-scores": (TB.SLICE_FILTERS, ()),
+    "no-scores": (FIVE_FILTERS, ()),
     "no-filters": ((), ALL_SCORES),
 }
 RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))  # a rising then falling ramp
@@ -68,7 +78,23 @@ CASES = [
     ("taint-aff", "MostAllocated", "first", False, False),
     ("no-scores", "LeastAllocated", "first", True, True),
     ("no-filters", "RequestedToCapacityRatio", "reservoir", True, True),
+    ("seven", "LeastAllocated", "first", False, True),
+    ("seven", "MostAllocated", "reservoir", True, True),
+    ("seven", "LeastAllocated", "reservoir", True, False),
+    ("spread", "LeastAllocated", "first", True, True),
+    ("spread", "MostAllocated", "reservoir", False, False),
+    ("interpod", "LeastAllocated", "reservoir", True, True),
+    ("interpod", "MostAllocated", "first", False, True),
 ]
+# first-failure codes each topology profile must show on its cluster:
+# PodTopologySpread 1 = node without the zone label, 2 = skew; InterPodAffinity
+# 1 = an existing pod's anti-affinity, 2 = required affinity unmet, 3 = own
+# anti-affinity
+TOPO_CODES = {
+    "seven": {"PodTopologySpread": {1, 2}, "InterPodAffinity": {1, 3}},
+    "spread": {"PodTopologySpread": {1, 2}},
+    "interpod": {"InterPodAffinity": {1, 2, 3}},
+}
 
 
 @pytest.fixture(scope="module")
@@ -78,6 +104,23 @@ def problem():
     with jax.enable_x64(True):
         pr = JE.pad_problem(JE.encode(nodes, all_pods, pending))
         dp, dims = JB.lower(pr)
+    return pr, dp, dims
+
+
+@pytest.fixture(scope="module")
+def topo_problem():
+    """The same shape with bench's spread constraints on every 3rd pod and
+    the inter-pod terms on every pod, bound ones included (so the spread
+    counts and the required anti-affinity carry start non-empty); node 13
+    lacks its zone label."""
+    nodes, all_pods, pending = workloads.cluster(
+        48, 130, seed=5, n_bound=40, spread=lambda i: i % 3 == 0, interpod=lambda i: True,
+    )
+    del nodes[13]["metadata"]["labels"]["topology.kubernetes.io/zone"]
+    with jax.enable_x64(True):
+        pr = JE.pad_problem(JE.encode(nodes, all_pods, pending))
+        dp, dims = JB.lower(pr)
+    assert np.asarray(dp.ip_anti0).any() and np.asarray(dp.spread_counts0).any()
     return pr, dp, dims
 
 
@@ -108,7 +151,8 @@ def run_both(problem, subset, strategy, tie, sampling, trace):
 
 
 @pytest.mark.parametrize("subset,strategy,tie,sampling,trace", CASES)
-def test_scan_matches_reference(problem, subset, strategy, tie, sampling, trace):
+def test_scan_matches_reference(request, subset, strategy, tie, sampling, trace):
+    problem = request.getfixturevalue("topo_problem" if subset in TOPO_SUBSETS else "problem")
     want, got = run_both(problem, subset, strategy, tie, sampling, trace)
     assert set(want) == set(got)
     for k, v in want.items():
@@ -116,6 +160,11 @@ def test_scan_matches_reference(problem, subset, strategy, tie, sampling, trace)
         assert g.shape == v.shape, k
         assert np.array_equal(g, v), k
     assert (want["selected"][:48] >= 0).any()
+    if trace and subset in TOPO_CODES:
+        filters = SUBSETS[subset][0]
+        for plugin, codes in TOPO_CODES[subset].items():
+            hit = want["fail_plug"][:48] == filters.index(plugin)
+            assert set(np.unique(want["fail_code"][:48][hit]).tolist()) == codes, plugin
 
 
 def test_scan_outputs_cover_the_trace_interface(problem):
@@ -201,18 +250,23 @@ def test_compact_blob_without_filters_matches_reference():
     assert np.array_equal(want, got)
 
 
-def test_compact_of_a_real_scan_matches_reference(problem):
+@pytest.mark.parametrize("subset", ["full", "seven"])
+def test_compact_of_a_real_scan_matches_reference(request, subset):
     """The round's own path: scan planes → widths and fetch dtypes from the
-    packed outputs and trace meta → compaction → unpack → reconstruct."""
-    want, got = run_both(problem, "full", "MostAllocated", "reservoir", True, True)
+    packed outputs and trace meta → compaction → unpack → reconstruct
+    (with the topology plugins: PodTopologySpread's raw and norm planes and
+    InterPodAffinity's raw plane, normalized on the host)."""
+    problem = request.getfixturevalue("topo_problem" if subset in TOPO_SUBSETS else "problem")
+    want, got = run_both(problem, subset, "MostAllocated", "reservoir", True, True)
     pr, _dp, dims = problem
+    filters, scores = SUBSETS[subset]
     packed = want["packed_pod"]
     W = min(dims["N"], JE._bucket(int(packed[3].max())))
     WS = min(dims["N"], JE._bucket(int(packed[1].max())))
     mm = want["trace_meta"]
-    rd = tuple(JB.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(ALL_SCORES)))
-    jcfg = JB.BatchConfig(filters=TB.SLICE_FILTERS, scores=ALL_SCORES, trace=True)
-    tcfg = TB.BatchConfig(filters=TB.SLICE_FILTERS, scores=ALL_SCORES, trace=True)
+    rd = tuple(JB.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(scores)))
+    jcfg = JB.BatchConfig(filters=filters, scores=scores, trace=True)
+    tcfg = TB.BatchConfig(filters=filters, scores=scores, trace=True)
     jfn, jman = JB.build_compact_fn(jcfg, dims, W, WS, rd, int(mm[-1, 1]))
     tfn, tman = TB.build_compact_fn(tcfg, dims, W, WS, rd, int(mm[-1, 1]))
     jblob = np.asarray(jfn(want, np.int32(pr.N_true)))

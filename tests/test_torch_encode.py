@@ -108,10 +108,12 @@ def test_lower_matches_reference(which):
     for name in TB.DeviceProblem._fields:
         assert_same_value(name, jf[name], getattr(tdp, name))
     # every port field is a JAX field; the JAX-only ones are the on-device
-    # expansion placeholders and the traced weight vector
+    # expansion placeholders, the traced weight vector and the one-hot key
+    # expansion (the port gathers through node_domain and gdom instead)
     assert set(jf) - set(TB.DeviceProblem._fields) == {
         "taint_fail", "taint_prefer", "unsched_ok", "aff_code", "aff_pref",
         "name_ok", "incl", "img_score", "vb_code", "vz_code", "plugin_w",
+        "key_valid", "key_oh", "g_ku",
     }
 
 

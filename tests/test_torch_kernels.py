@@ -32,6 +32,7 @@ SCORES = (
     ("TaintToleration", 3),
     ("NodeAffinity", 2),
 )
+TOPO_SCORES = SCORES + (("PodTopologySpread", 2), ("InterPodAffinity", 2))
 
 
 def _struct_fields(src: str, name: str) -> "list[str]":
@@ -65,10 +66,20 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "fast_math" not in flags and "fast-math" not in flags
 
 
-def _problem(dtype, device, extended=False, sampling=True, n_pods=48, n_nodes=130):
+def _problem(dtype, device, extended=False, sampling=True, n_pods=48, n_nodes=130, topo=False, zone_of=None):
     """48 pending pods over 130 nodes, 40 bound; ``extended`` adds a third
-    checked resource (an extended resource on every 3rd node and pod)."""
-    nodes, all_pods, pending = workloads.cluster(n_pods, n_nodes, seed=5, n_bound=40)
+    checked resource (an extended resource on every 3rd node and pod);
+    ``topo`` adds spread constraints on every 3rd pod and inter-pod terms on
+    every pod, and takes node 13's zone label away; ``zone_of(i)`` relabels
+    node i's zone."""
+    topo_kw = dict(spread=lambda i: i % 3 == 0, interpod=lambda i: True) if topo else {}
+    nodes, all_pods, pending = workloads.cluster(n_pods, n_nodes, seed=5, n_bound=40, **topo_kw)
+    if topo:
+        del nodes[13]["metadata"]["labels"]["topology.kubernetes.io/zone"]
+    if zone_of is not None:
+        for i, n in enumerate(nodes):
+            if "topology.kubernetes.io/zone" in n["metadata"]["labels"]:
+                n["metadata"]["labels"]["topology.kubernetes.io/zone"] = zone_of(i)
     if extended:
         for i, n in enumerate(nodes):
             if i % 3 == 0:
@@ -98,26 +109,32 @@ def test_wrappers_refuse_cpu_tensors():
 
 
 RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))
-# (filters, scores, fit_strategy, tie_break, sampling, trace, extended)
+SPREAD_ONLY = (("NodeResourcesFit", "PodTopologySpread"), (("NodeResourcesFit", 1), ("PodTopologySpread", 2)))
+INTERPOD_ONLY = (("NodeResourcesFit", "InterPodAffinity"), (("NodeResourcesFit", 1), ("InterPodAffinity", 2)))
+# (filters, scores, fit_strategy, tie_break, sampling, trace, extended, topo)
 GPU_CASES = [
-    (TB.SLICE_FILTERS, SCORES, "LeastAllocated", "first", True, True, False),
-    (TB.SLICE_FILTERS, SCORES, "MostAllocated", "reservoir", True, True, True),
-    (TB.SLICE_FILTERS, SCORES, "RequestedToCapacityRatio", "reservoir", False, True, False),
-    (TB.SLICE_FILTERS, SCORES, "LeastAllocated", "reservoir", True, False, True),
-    (("NodeResourcesFit",), SCORES[:2], "RequestedToCapacityRatio", "first", True, True, True),
-    (("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity"), SCORES[2:], "LeastAllocated", "first", False, True, False),
-    ((), SCORES, "MostAllocated", "reservoir", True, True, False),
-    (TB.SLICE_FILTERS, (), "LeastAllocated", "first", True, True, False),
+    (TB.SLICE_FILTERS, SCORES, "LeastAllocated", "first", True, True, False, False),
+    (TB.SLICE_FILTERS, SCORES, "MostAllocated", "reservoir", True, True, True, False),
+    (TB.SLICE_FILTERS, SCORES, "RequestedToCapacityRatio", "reservoir", False, True, False, False),
+    (TB.SLICE_FILTERS, SCORES, "LeastAllocated", "reservoir", True, False, True, False),
+    (("NodeResourcesFit",), SCORES[:2], "RequestedToCapacityRatio", "first", True, True, True, False),
+    (("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity"), SCORES[2:], "LeastAllocated", "first", False, True, False, False),
+    ((), SCORES, "MostAllocated", "reservoir", True, True, False, False),
+    (TB.SLICE_FILTERS, (), "LeastAllocated", "first", True, True, False, False),
+    (TB.SLICE_FILTERS, TOPO_SCORES, "LeastAllocated", "first", True, True, False, True),
+    (TB.SLICE_FILTERS, TOPO_SCORES, "MostAllocated", "reservoir", False, False, True, True),
+    (*SPREAD_ONLY, "LeastAllocated", "reservoir", True, True, False, True),
+    (*INTERPOD_ONLY, "MostAllocated", "first", False, True, False, True),
 ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("filters,scores,strategy,tie_break,sampling,trace,extended", GPU_CASES)
-def test_kernels_match_plain_versions_on_the_card(filters, scores, strategy, tie_break, sampling, trace, extended):
+@pytest.mark.parametrize("filters,scores,strategy,tie_break,sampling,trace,extended,topo", GPU_CASES)
+def test_kernels_match_plain_versions_on_the_card(filters, scores, strategy, tie_break, sampling, trace, extended, topo):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     for dt in (torch.float32, torch.float64):
-        pr, dp, dims = _problem(dt, "cuda", extended=extended, sampling=sampling)
+        pr, dp, dims = _problem(dt, "cuda", extended=extended, sampling=sampling, topo=topo)
         cfg = TB.BatchConfig(
             filters=tuple(filters), scores=tuple(scores), fit_strategy=strategy,
             fit_shape=RTCR_SHAPE if strategy == "RequestedToCapacityRatio" else (),
@@ -152,3 +169,20 @@ def test_scan_kernel_over_several_node_tiles():
     k_out, p_out = TK.scan(cfg, dims, dp), TB.scan_plain(cfg, dims, dp)
     for key in p_out:
         assert torch.equal(k_out[key], p_out[key]), key
+
+
+@pytest.mark.gpu
+def test_scan_kernel_with_domain_sums_in_global_memory():
+    """650 zones of two nodes each: PodTopologySpread's per-domain sums
+    outgrow the scan's shared memory in both dtypes and live in per-block
+    global scratch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg = TB.BatchConfig(filters=TB.SLICE_FILTERS, scores=TOPO_SCORES, trace=True, tie_break="reservoir", seed=4)
+    for dt in (torch.float32, torch.float64):
+        _pr, dp, dims = _problem(dt, "cuda", n_pods=200, n_nodes=1300, topo=True, zone_of=lambda i: f"zone-{i // 2}")
+        cap, in_smem = TK.domain_layout(dims, dt)
+        assert cap >= 600 and not in_smem
+        k_out, p_out = TK.scan(cfg, dims, dp), TB.scan_plain(cfg, dims, dp)
+        for key in p_out:
+            assert torch.equal(k_out[key], p_out[key]), (dt, key)
