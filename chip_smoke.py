@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 8 min, build included
+    python3 chip_smoke.py    # one card, about 10 min, build included
 
 Workloads (every one from seed 42 through ``workloads.cluster``):
 
@@ -16,7 +16,16 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
 - cfg4: 10 000 pods x 5 000 nodes, inter-pod terms on every pod (bench's
   preferred anti-affinity on odd pods, required anti-affinity on every
   25th, required zone affinity on pods 20, 60, ...) and the spread
-  constraints on every 3rd; north's knobs; the seven-plugin profile.
+  constraints on every 3rd; north's knobs; the seven-plugin profile;
+- cfg5-vol: BASELINE cfg5's size and profile in one round: 10 000 pods x
+  5 000 nodes plus 5 000 pods bound round-robin before it, cfg4's spread
+  constraints and inter-pod terms, DaemonSet host ports and volumes
+  (``workloads.add_host_ports``, ``add_volumes``: own, shared and
+  WaitForFirstConsumer claims, GCE PD, EBS and Azure disks, CSI nodes);
+  percentage 0 -> 500 sampled nodes (so the score planes are compacted in
+  the scan's step), tie_break first, base counter 0, start 0; upstream's
+  default profile (fifteen filters and seven scores in the registry's
+  order, default weights).
 
 Phases (each prints its seconds; any failure exits nonzero before the last
 line):
@@ -24,21 +33,28 @@ line):
 1. the card's name and power limit (nvidia-smi), then the kernel build
    (nvcc, sm_90a, both sources in parallel);
 2. kernel against plain version on the card, bitwise (``torch.equal``) in
-   float32 and float64, with the trace on: the scan and the compaction of
-   its planes at every workload; the compaction on seeded planes for every
-   fail-pack mode and raw dtype;
+   float32 and float64, with the trace on: the scan (score planes compacted
+   in the step wherever a round would compact them) and the compaction of
+   its planes at every workload; where the step compacts, the compacted
+   planes against the same kernel's full planes gathered at the ascending
+   sampled ids, and the two blobs; at cfg5-vol, the first failures of each
+   filter (NodePorts, VolumeRestrictions, NodeVolumeLimits, VolumeBinding
+   and VolumeZone must each reject a pair); the compaction on seeded planes
+   for every fail-pack mode and raw dtype;
 3. end to end: ``BatchEngine(device="cuda").schedule`` on every workload
    in float32 and float64 (launch counters reset just before each round
    and read just after: every round must launch each kernel once);
 4. every pod's annotation bytes from a CUDA float64 round equal a CPU
-   float64 round's at cfg2, at cfg3 and at cfg4 cut to 1 000 pods x 500
-   nodes (a CPU round at full cfg4 size does not fit the time limit);
-5. the float32 round's differences from float64, per plugin, printed.
+   float64 round's at cfg2, at cfg3 and at cfg4 and cfg5-vol cut to 1 000
+   pods x 500 nodes (a CPU round at full size does not fit the time
+   limit);
+5. the float32 round's differences from float64, per score plugin and per
+   filter, printed.
 
 Then one ``{"kernels": [...]}`` line (time, plain time and bound of each
-kernel at the cfg4 shapes, launches on the main path: the cfg4 float32
-round), and as the last line ``{"ok": true, "device": {...}}``.  Everything
-is generated from seeds; nothing is read from the network.
+kernel at the cfg5-vol shapes, launches on the main path: the cfg5-vol
+float32 round), and as the last line ``{"ok": true, "device": {...}}``.
+Everything is generated from seeds; nothing is read from the network.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Any, NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # non-tensor float32
@@ -61,25 +78,59 @@ FIVE_SCORES = [
     ("TaintToleration", 3),
     ("NodeAffinity", 2),
 ]
+# upstream's default profile as the service's default configuration hands
+# it to the engine: the registry's filter order, its scores and weights
+DEFAULT_FILTERS = (
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodePorts", "NodeResourcesFit",
+    "VolumeRestrictions", "EBSLimits", "GCEPDLimits", "NodeVolumeLimits", "AzureDiskLimits",
+    "VolumeBinding", "VolumeZone", "PodTopologySpread", "InterPodAffinity",
+)
+DEFAULT_SCORES = [
+    ("TaintToleration", 3), ("NodeAffinity", 2), ("NodeResourcesFit", 1), ("PodTopologySpread", 2),
+    ("InterPodAffinity", 2), ("NodeResourcesBalancedAllocation", 1), ("ImageLocality", 1),
+]
 PROFILES = {
     "five": (FIVE_FILTERS, FIVE_SCORES),
     "seven": (
         FIVE_FILTERS + ("PodTopologySpread", "InterPodAffinity"),
         FIVE_SCORES + [("PodTopologySpread", 2), ("InterPodAffinity", 2)],
     ),
+    "default": (DEFAULT_FILTERS, DEFAULT_SCORES),
 }
+
+
+class Workload(NamedTuple):
+    pods: int
+    nodes: int
+    pct: int          # percentageOfNodesToScore
+    tie: str
+    base_counter: int
+    start: int        # start index
+    profile: str
+    spread: Any = False    # predicate on the pod index, or False
+    interpod: Any = False
+    bound: int = 0         # pods bound round-robin before the round
+    storage: bool = False  # host ports and volumes
+
+
 WORKLOADS = {
-    # name: (pods, nodes, percentageOfNodesToScore, tie_break, base_counter,
-    #        start_index, profile, spread pods, inter-pod pods)
-    "cfg2": (1000, 500, 100, "first", 0, 0, "five", False, False),
-    "north": (10000, 5000, 0, "reservoir", 12345, 2027, "five", False, False),
-    "cfg3": (5000, 2000, 100, "first", 0, 0, "seven", lambda i: True, False),
-    "cfg4": (10000, 5000, 0, "reservoir", 12345, 2027, "seven", lambda i: i % 3 == 0, lambda i: True),
+    "cfg2": Workload(1000, 500, 100, "first", 0, 0, "five"),
+    "north": Workload(10000, 5000, 0, "reservoir", 12345, 2027, "five"),
+    "cfg3": Workload(5000, 2000, 100, "first", 0, 0, "seven", spread=lambda i: True),
+    "cfg4": Workload(
+        10000, 5000, 0, "reservoir", 12345, 2027, "seven", spread=lambda i: i % 3 == 0, interpod=lambda i: True,
+    ),
+    "cfg5-vol": Workload(
+        10000, 5000, 0, "first", 0, 0, "default", spread=lambda i: i % 3 == 0, interpod=lambda i: True,
+        bound=5000, storage=True,
+    ),
 }
 # CUDA float64 against CPU float64 annotation bytes: (workload, cut to
-# (pods, nodes) or None)
-ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", None), ("cfg4", (1000, 500)))
-MAIN = "cfg4"  # the slice's path: the kernels line reads its float32 run
+# (pods, nodes, bound pods) or None)
+ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", None), ("cfg4", (1000, 500, 0)), ("cfg5-vol", (1000, 500, 500)))
+MAIN = "cfg5-vol"  # the slice's path: the kernels line reads its float32 run
+# filters cfg5-vol must see reject at least one (pod, node) pair first
+MUST_REJECT = ("NodePorts", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 DEVICE = "cuda"
 
 
@@ -131,9 +182,11 @@ def same(name: str, a, b) -> float:
 
 def scan_counts(cfg, dims, dp, out) -> dict:
     """Bytes the scan must move and operations it must do on this input:
-    every input the profile reads once, every output once; the operations
-    of each (pod, node) cell, and those of the pod's own spread
-    constraints and inter-pod terms."""
+    every input the profile reads once, every output once (the score
+    planes at their [P, ws0] width where the step compacts them, the final
+    volume carries); the operations of each (pod, node) cell, and those of
+    the pod's own spread constraints, inter-pod terms, host ports and
+    volumes."""
     from kube_scheduler_simulator_tpu_torch.ops.batch import plugin_gates
 
     P, N, R = dims["P"], dims["N"], dims["R"]
@@ -154,9 +207,20 @@ def scan_counts(cfg, dims, dp, out) -> dict:
             "gdom", "term_match", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w", "ip_own_g", "ip_own_w",
             "ip_self_match", "ip_sel0", "ip_own0", "ip_anti0",
         )]
+    if "VolumeBinding" in cfg.filters or "VolumeZone" in cfg.filters:
+        tensors += [dp.vb_cls, dp.vz_cls, dp.pod_vol_idx]
+    for gate, fields in (
+        ("ports", ("port_cols", "port_conflict", "ports_used0")),
+        ("restr", ("restr_cols", "restr_conflict", "restr_used0")),
+        ("cloud", ("cloud_cnt", "cloud_used0")),
+        ("csi", ("csi_cols", "csi_drv", "csi_seed_used", "csi_limit", "csi_attached0")),
+    ):
+        if gates[gate]:
+            tensors += [getattr(dp, f) for f in fields]
     read = sum(t.numel() * t.element_size() for t in tensors)
     written = sum(t.numel() * t.element_size() for k, t in out.items() if k in (
-        "packed_pod", "final_requested", "final_nonzero", "final_pod_count", "fail_plug", "fail_code",
+        "packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_ports_used",
+        "final_restr_used", "final_cloud_used", "final_csi_att", "fail_plug", "fail_code",
         "feasible", "trace_meta") or k.startswith(("raw:", "norm:")))
     # per (pod, node) cell: filters (Fit: 2 + 3 per resource), the scan
     # step, Fit (12 per resource column), Balanced (12), two normalized
@@ -179,16 +243,43 @@ def scan_counts(cfg, dims, dp, out) -> dict:
         # min-max normalization 6
         per_pod = 2 * terms + 2 * (active(dp.ip_aff_g) + active(dp.ip_anti_g)) + 2 * active(dp.ip_pref_g) + 6
         ops += N * int(per_pod.sum())
+    # VolumeBinding, VolumeZone: one read a cell each; host ports and
+    # conflict volumes: one add a pod's class; a cloud limit the pod wants:
+    # add and compare; CSI: per id k, the k ids' need count and the compare
+    ops += P * N * sum(f in cfg.filters for f in ("VolumeBinding", "VolumeZone"))
+    if gates["ports"] and "NodePorts" in cfg.filters:
+        ops += N * int(active(dp.port_cols).sum())
+    if gates["restr"]:
+        ops += N * int(active(dp.restr_cols).sum())
+    if gates["cloud"]:
+        n_cloud = sum(f in cfg.filters for f in ("EBSLimits", "GCEPDLimits", "AzureDiskLimits"))
+        ops += 2 * N * n_cloud * int((dp.cloud_cnt > 0).any(dim=1).sum())
+    if gates["csi"]:
+        k = active(dp.csi_cols)
+        ops += N * int((k * k + 3 * k).sum())
     return {"bytes": read + written, "ops": ops}
 
 
-def carry_bytes(dims, dt, blocks: int) -> dict:
-    """Bytes of the scan's per-block copies of PodTopologySpread's and
-    InterPodAffinity's carries: spread_counts [SG,N] and ip_sel, ip_own,
-    ip_anti [G,D+1], in the working dtype."""
+def carry_bytes(cfg, dims, dp, dt, blocks: int) -> dict:
+    """Bytes of the scan's per-block copies of the carries it keeps beside
+    Fit's: PodTopologySpread's spread_counts [SG,N], InterPodAffinity's
+    ip_sel, ip_own, ip_anti [G,D+1], and the volume carries ports_used
+    [PT,N], restr_used [VR,N], cloud_used [3,N], the CSI count per driver
+    [DR,N] in the working dtype and the CSI attachment bytes [V,N]."""
+    from kube_scheduler_simulator_tpu_torch.ops.batch import plugin_gates
+
     size = 4 if str(dt).endswith("float32") else 8
-    per_block = (dims["SG"] * dims["N"] + 3 * dims["G"] * (dims["D"] + 1)) * size
-    return {"blocks": blocks, "per_block": per_block, "total": per_block * blocks}
+    N = dims["N"]
+    gates = plugin_gates(cfg, dims)
+    topo = (dims["SG"] * N + 3 * dims["G"] * (dims["D"] + 1)) * size
+    vol = {
+        "ports": dp.ports_used0.shape[1] * N * size if gates["ports"] else 0,
+        "restr": dp.restr_used0.shape[1] * N * size if gates["restr"] else 0,
+        "cloud": 3 * N * size if gates["cloud"] else 0,
+        "csi": dp.csi_attached0.shape[1] * N + dp.csi_seed_used.shape[1] * N * size if gates["csi"] else 0,
+    }
+    per_block = topo + sum(vol.values())
+    return {"blocks": blocks, "topology": topo, **vol, "per_block": per_block, "total": per_block * blocks}
 
 
 def bound(counts: dict, dt) -> "tuple[float, str]":
@@ -203,19 +294,41 @@ def bound(counts: dict, dt) -> "tuple[float, str]":
 
 
 def compact_counts(out, manifest, W, WS, n_true) -> dict:
-    """Bytes the compaction must move on this input: the sampled mask and
-    the window scalars of every row, the fail planes of the visited cells,
-    the score planes of the kept sampled cells, and the blob."""
+    """Bytes the compaction must move on this input: the sampled mask (or,
+    for planes compacted in the scan's step, the feasible counts) and the
+    window scalars of every row, the fail planes of the visited cells, the
+    score planes of the kept sampled cells, and the blob."""
     import numpy as np
 
-    P, N = out["feasible"].shape
+    P, N = out["fail_plug"].shape
     proc = np.minimum(out["sample_processed"].cpu().numpy().astype(np.int64), n_true)
-    kept = np.minimum(out["feasible"].sum(dim=1).cpu().numpy(), WS).sum()
+    if "feasible" in out:
+        kept = np.minimum(out["feasible"].sum(dim=1).cpu().numpy(), WS).sum()
+        mask = P * N
+    else:
+        kept = np.minimum(out["feasible_count"].cpu().numpy(), WS).sum()
+        mask = 4 * P
     dt_size = out["raw:NodeResourcesFit"].element_size()
     n_score_planes = sum(1 for n, _d, _s in manifest if n.startswith(("raw:", "norm:")))
     blob = sum(int(np.prod(s)) * np.dtype(d).itemsize for _n, d, s in manifest)
-    read = P * N + 8 * P + int(np.minimum(proc, W).sum()) * 5 + int(kept) * n_score_planes * dt_size
+    read = mask + 8 * P + int(np.minimum(proc, W).sum()) * 5 + int(kept) * n_score_planes * dt_size
     return {"bytes": read + blob, "ops": 0}
+
+
+def gather_sampled(full, ws0: int):
+    """[P,N] planes → [P,ws0]: each row's sampled (feasible-plane) cells in
+    ascending node id, the rest zero."""
+    import torch
+
+    feas = full["feasible"]
+    pos = torch.cumsum(feas.to(torch.int32), 1) - 1
+    dest = torch.where(feas & (pos < ws0), pos, ws0).long()
+    out = {}
+    for k, v in full.items():
+        if k.startswith(("raw:", "norm:")):
+            z = torch.zeros((v.shape[0], ws0 + 1), dtype=v.dtype, device=v.device)
+            out[k] = z.scatter_(1, dest, v)[:, :ws0]
+    return out
 
 
 def main() -> int:
@@ -256,72 +369,116 @@ def main() -> int:
         log(f"kernel build: {K.build_seconds:.2f} s (nvcc, sm_90a, {len(K.SOURCES)} sources in parallel)")
 
     def make_cluster(name, cut=None):
-        P, N, _pct, _tie, _bc, _si, _prof, spread, interpod = WORKLOADS[name]
-        P, N = cut or (P, N)
-        return workloads.cluster(P, N, seed=42, spread=spread, interpod=interpod)
+        """(nodes, all pods, pending pods, volume objects) of a workload, or
+        of its cut to (pods, nodes, bound pods)."""
+        w = WORKLOADS[name]
+        P, N, n_bound = cut or (w.pods, w.nodes, w.bound)
+        nodes, all_pods, pending = workloads.cluster(
+            P, N, seed=42, n_bound=n_bound, spread=w.spread, interpod=w.interpod,
+        )
+        vols = {}
+        if w.storage:
+            workloads.add_host_ports(all_pods)
+            vols = workloads.add_volumes(nodes, all_pods, n_bound)
+        return nodes, all_pods, pending, vols
 
     def engine(name, dt, device=DEVICE):
-        _P, _N, pct, tie, _bc, _si, prof, _sp, _ip = WORKLOADS[name]
-        filters, scores = PROFILES[prof]
+        w = WORKLOADS[name]
+        filters, scores = PROFILES[w.profile]
         return BatchEngine(
-            filters=list(filters), scores=scores, percentage_of_nodes_to_score=pct,
-            trace=True, tie_break=tie, seed=7, device=device, dtype=dt,
+            filters=list(filters), scores=scores, percentage_of_nodes_to_score=w.pct,
+            trace=True, tie_break=w.tie, seed=7, device=device, dtype=dt,
         )
 
     clusters = {}
     timing: dict = {}
     for name in WORKLOADS:
-        nodes, all_pods, pending = make_cluster(name)
-        pr = E.pad_problem(E.encode(nodes, all_pods, pending))
-        clusters[name] = (nodes, all_pods, pending, pr)
+        t0 = time.perf_counter()
+        nodes, all_pods, pending, vols = make_cluster(name)
+        pr = E.pad_problem(E.encode(nodes, all_pods, pending, volumes=vols))
+        clusters[name] = (nodes, all_pods, pending, vols, pr)
+        log(f"{name}: generated and encoded in {time.perf_counter() - t0:.2f} s")
 
     # ------------------------------------------------ kernel vs plain
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name in WORKLOADS:
-        P, N, pct, tie, bc, si, prof, _sp, _ip = WORKLOADS[name]
-        nodes, all_pods, pending, pr = clusters[name]
-        filters, scores = PROFILES[prof]
-        cfg = B.BatchConfig(filters=filters, scores=tuple(scores), trace=True, tie_break=tie, seed=7)
+        w = WORKLOADS[name]
+        P, N = w.pods, w.nodes
+        nodes, all_pods, pending, vols, pr = clusters[name]
+        filters, scores = PROFILES[w.profile]
+        cfg = B.BatchConfig(filters=filters, scores=tuple(scores), trace=True, tie_break=w.tie, seed=7)
         for dt in (torch.float32, torch.float64):
             with Phase(f"scan kernel vs plain, {name} {P}x{N}, {dt}"):
                 dp, dims = B.lower(pr, dtype=dt, device=dev)
                 dp = dp._replace(
-                    tb_base=bc, start0=si % N, sample_k=num_feasible_nodes_to_find(N, pct),
+                    tb_base=w.base_counter, start0=w.start % N, sample_k=num_feasible_nodes_to_find(N, w.pct),
                 )
+                ws0 = B.pick_ws0(cfg, dims, dp.sample_k, N)
                 log(f"padded P={dims['P']} N={dims['N']} R={dims['R']} sample_k={dp.sample_k} start0={dp.start0} "
-                    f"SG={dims['SG']} G={dims['G']} D={dims['D']} KC={dims['KC']} KS={dims['KS']} "
+                    f"ws0={ws0} SG={dims['SG']} G={dims['G']} D={dims['D']} KC={dims['KC']} KS={dims['KS']} "
                     f"KA={dims['KA']} KB={dims['KB']} KP={dims['KP']} KO={dims['KO']} keys={dims['key_struct']} "
-                    f"domain slots {K.domain_layout(dims, dt)}")
-                log(f"per-block topology carries: {json.dumps(carry_bytes(dims, dt, min(dims['P'], sms)))}")
-                kout = K.scan(cfg, dims, dp)
+                    f"domain slots {K.domain_layout(dims, dt)} PT={dims['PT']} VR={dims['VR']} VID={dims['VID']} "
+                    f"DR={dims['DR']} CLOUD={dims['CLOUD']} lists KPT/KVR/KV="
+                    f"{dp.port_cols.shape[1]}/{dp.restr_cols.shape[1]}/{dp.csi_cols.shape[1]} "
+                    f"gates {B.plugin_gates(cfg, dims)}")
+                log(f"per-block carries (bytes): {json.dumps(carry_bytes(cfg, dims, dp, dt, min(dims['P'], sms)))}")
+                kout = K.scan(cfg, dims, dp, ws0=ws0)
                 torch.cuda.synchronize()
-                plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp), 1, warmup=0)
+                plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp, ws0=ws0), 1, warmup=0)
                 if set(kout) != set(pout):
                     raise AssertionError(f"scan output keys differ: {set(kout) ^ set(pout)}")
                 err = max(same(f"scan {k}", kout[k], pout[k]) for k in pout)
+                del pout
                 # warm-up calls first: the first timed scan of the process
                 # must not pay for clocks or the allocator settling
-                ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp), *((2, 1) if P >= 10000 else (20, 10)))
+                ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp, ws0=ws0), *((2, 1) if P >= 10000 else (20, 10)))
                 fail = kout["fail_plug"][: pr.P_true]
                 codes = {
                     f: sorted(set(kout["fail_code"][: pr.P_true][fail == k].unique().tolist()))
                     for k, f in enumerate(filters) if f in ("PodTopologySpread", "InterPodAffinity")
                 }
-                log(f"scan bitwise equal ({len(pout)} outputs); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+                log(f"scan bitwise equal ({len(kout)} outputs); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
                     f"scheduled {int((kout['selected'][: pr.P_true] >= 0).sum())}/{pr.P_true}; "
                     f"first-failure codes {codes}")
+                if w.storage:
+                    # (pod, node) pairs each filter rejected first
+                    rejected = {f: int((fail == k).sum()) for k, f in enumerate(filters)}
+                    log(f"first rejections per filter: {json.dumps(rejected)}")
+                    gates = B.plugin_gates(cfg, dims)
+                    off = [g for g in ("ports", "restr", "cloud", "csi") if not gates[g]]
+                    none = [f for f in MUST_REJECT if rejected[f] == 0]
+                    if off or none:
+                        raise AssertionError(f"{name}: gates off {off}; filters that rejected nothing {none}")
                 # the compaction on these planes at the widths a round picks
                 packed = kout["packed_pod"].cpu().numpy()
                 W = min(dims["N"], E._bucket(max(int(packed[3].max()), 1)))
-                WS = min(dims["N"], E._bucket(max(int(packed[1].max()), 1)))
+                WS = min(dims["N"], E._bucket(max(int(packed[1].max()), 1)), ws0 or dims["N"])
                 mm = kout["trace_meta"].cpu().numpy()
                 rdt = tuple(B.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(cfg.scores)))
-                cfn, manifest = B.build_compact_fn(cfg, dims, W, WS, rdt, int(mm[-1, 1]))
-                cms, kb = cuda_ms(lambda: K.compact(cfg, dims, W, WS, manifest, kout, pr.N_true), 20)
-                cplain_ms, pb = cuda_ms(lambda: B.compact_plain(cfg, dims, W, WS, manifest, kout, pr.N_true), 3)
+                cfn, manifest = B.build_compact_fn(cfg, dims, W, WS, rdt, int(mm[-1, 1]), in_step_ws0=ws0)
+                cms, kb = cuda_ms(lambda: K.compact(cfg, dims, W, WS, manifest, kout, pr.N_true, ws0), 20)
+                cplain_ms, pb = cuda_ms(lambda: B.compact_plain(cfg, dims, W, WS, manifest, kout, pr.N_true, ws0), 3)
                 cerr = same("compact blob", kb, pb)
-                log(f"compact bitwise equal (W={W} WS={WS} mode={B.fail_pack_mode(int(mm[-1, 1]), len(filters))} "
-                    f"raw={rdt}, {kb.numel()} bytes); kernel {cms:.3f} ms, plain {cplain_ms:.3f} ms")
+                log(f"compact bitwise equal (W={W} WS={WS} in-step {ws0} mode="
+                    f"{B.fail_pack_mode(int(mm[-1, 1]), len(filters))} raw={rdt}, {kb.numel()} bytes); "
+                    f"kernel {cms:.3f} ms, plain {cplain_ms:.3f} ms")
+                if ws0 is not None:
+                    # in-step compaction: the same kernel's full planes,
+                    # gathered at the ascending sampled ids, and their blob
+                    full = K.scan(cfg, dims, dp)
+                    for k, v in gather_sampled(full, ws0).items():
+                        same(f"in-step {k} vs full planes gathered", kout[k], v)
+                    _ffn, fman = B.build_compact_fn(cfg, dims, W, WS, rdt, int(mm[-1, 1]))
+                    fb = K.compact(cfg, dims, W, WS, fman, full, pr.N_true)
+                    # the pods' rows: a padding row's sampled cells are
+                    # kept in the full planes, masked in the compacted ones
+                    ub, uf = (B.unpack_compact_blob(b.cpu().numpy(), manifest) for b in (kb, fb))
+                    for k in ub:
+                        if not np.array_equal(ub[k][: pr.P_true], uf[k][: pr.P_true]):
+                            raise AssertionError(f"in-step blob vs full-plane blob: plane {k} differs")
+                    log(f"in-step planes [P,{ws0}] equal the full planes gathered; blobs equal in the pods' rows")
+                    del fb
+                    del full
                 sb, sby = bound(scan_counts(cfg, dims, dp, kout), dt)
                 cb, cby = bound(compact_counts(kout, manifest, W, WS, pr.N_true), dt)
                 timing[(name, dt)] = t = dict(
@@ -330,7 +487,7 @@ def main() -> int:
                     compact_bound_ms=cb, compact_bound_by=cby,
                 )
                 log(f"timing {name} {str(dt).split('.')[-1]}: {json.dumps(t)}")
-                del kout, pout, kb, pb, dp
+                del kout, kb, pb, dp
                 torch.cuda.empty_cache()
 
     with Phase("compact kernel vs plain, every fail-pack mode and raw dtype (seeded planes)"):
@@ -366,16 +523,18 @@ def main() -> int:
     results = {}
     main_launches = None
     for name in WORKLOADS:
-        P, N, pct, tie, bc, si, _prof, _sp, _ip = WORKLOADS[name]
-        nodes, all_pods, pending, _pr = clusters[name]
+        w = WORKLOADS[name]
+        P, N = w.pods, w.nodes
+        nodes, all_pods, pending, vols, _pr = clusters[name]
         for dt in (torch.float32, torch.float64):
             with Phase(f"end to end BatchEngine(device='cuda'), {name} {P}x{N}, {dt}"):
                 eng = engine(name, dt)
-                ok, why = eng.supported(pending, nodes)
+                ok, why = eng.supported(pending, nodes, vols)
                 assert ok, why
                 K.reset_counts()
                 t0 = time.perf_counter()
-                res = eng.schedule(nodes, all_pods, pending, base_counter=bc, start_index=si)
+                res = eng.schedule(nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start,
+                                   volumes=vols)
                 wall = time.perf_counter() - t0
                 launches = dict(K.LAUNCHES)
                 if launches != {"scan": 1, "compact": 1}:
@@ -392,19 +551,21 @@ def main() -> int:
                 results[(name, dt)] = res
 
     for name, cut in ANNOTATION_CHECKS:
-        P, N, pct, tie, bc, si, _prof, _sp, _ip = WORKLOADS[name]
-        P, N = cut or (P, N)
+        w = WORKLOADS[name]
+        P, N = cut[:2] if cut else (w.pods, w.nodes)
         with Phase(f"{name} {P}x{N} annotation bytes: CUDA float64 round vs CPU float64 round"):
             if cut is None:
-                nodes, all_pods, pending, _pr = clusters[name]
+                nodes, all_pods, pending, vols, _pr = clusters[name]
                 gpu = results[(name, torch.float64)]
             else:
-                nodes, all_pods, pending = make_cluster(name, cut)
+                nodes, all_pods, pending, vols = make_cluster(name, cut)
                 K.reset_counts()
-                gpu = engine(name, torch.float64).schedule(nodes, all_pods, pending, base_counter=bc, start_index=si)
+                gpu = engine(name, torch.float64).schedule(
+                    nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start, volumes=vols,
+                )
                 assert K.LAUNCHES == {"scan": 1, "compact": 1}, K.LAUNCHES
             cpu = engine(name, torch.float64, device="cpu").schedule(
-                nodes, all_pods, pending, base_counter=bc, start_index=si,
+                nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start, volumes=vols,
             )
             assert cpu.selected_nodes == gpu.selected_nodes, "selections differ between CUDA and CPU float64"
             for i in range(P):
@@ -418,7 +579,8 @@ def main() -> int:
     with Phase("float32 against float64 (CUDA rounds)"):
         f32_report = {}
         for name in WORKLOADS:
-            P, scores = WORKLOADS[name][0], PROFILES[WORKLOADS[name][6]][1]
+            P = WORKLOADS[name].pods
+            filters, scores = PROFILES[WORKLOADS[name].profile]
             r32, r64 = results[(name, torch.float32)], results[(name, torch.float64)]
             t32, t64 = r32.out["trace"], r64.out["trace"]
             diff_sel = np.nonzero(r32.selected[:P] != r64.selected[:P])[0]
@@ -431,17 +593,24 @@ def main() -> int:
                             and np.array_equal(t32["norm"][k][i], t64["norm"][k][i]))
                 ]
                 per_plugin[s] = len(rows)
-            fail_rows = sum(
-                1 for i in range(P)
-                if not (np.array_equal(t32["fail_plug"][i], t64["fail_plug"][i])
-                        and np.array_equal(t32["fail_code"][i], t64["fail_code"][i]))
-            )
+            # per filter: rows whose first failures of that filter (cells
+            # and codes) differ; all rows when the windows differ in width
+            per_filter = {}
+            same_w = t32["fail_plug"].shape == t64["fail_plug"].shape
+            for k, f in enumerate(filters):
+                if not same_w:
+                    per_filter[f] = P
+                    continue
+                h32, h64 = t32["fail_plug"][:P] == k, t64["fail_plug"][:P] == k
+                c32 = np.where(h32, t32["fail_code"][:P], 0)
+                c64 = np.where(h64, t64["fail_code"][:P], 0)
+                per_filter[f] = int(((h32 != h64) | (c32 != c64)).any(axis=1).sum())
             rep = {
                 "pods": P,
                 "selected_differ": int(len(diff_sel)),
                 "first_differing_pod": int(diff_sel[0]) if len(diff_sel) else None,
                 "score_rows_differ": per_plugin,
-                "filter_rows_differ": fail_rows,
+                "filter_rows_differ": per_filter,
             }
             if name == "cfg2":
                 docs = {"filter": 0, "score": 0, "finalScore": 0}

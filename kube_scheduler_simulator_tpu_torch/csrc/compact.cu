@@ -7,7 +7,10 @@
 // node ids (partition_ids :960), the gather of the first-failure planes
 // packed per fail_pack_mode (fail8 / fail16 / separate int8 + int16|int32
 // planes), the gather of the score planes at their fetch dtype, and the
-// little-endian concatenation in manifest order.
+// little-endian concatenation in manifest order.  When the scan compacted
+// the score rows in its step (in_step_ws0, :993-1002), they arrive [P,ws0]
+// in ascending node id: each row is cut to WS and masked by position
+// against the pod's feasible count.
 //
 // What bounds it on an H100: bytes.  It reads the fail planes and the
 // sampled mask of every [P,N] cell and the score planes of the sampled
@@ -42,14 +45,16 @@ struct CompactArgs {
   int64_t off_code;     // fail_code plane (modes 2, 3)
   int64_t off_sids;     // sids plane (no filters)
   int64_t n_sp;         // score planes
+  int64_t ws0;          // width of in-step compacted score planes; 0 = [P,N] planes
   int64_t sp_off[MAXSP];
   int64_t sp_dt[MAXSP];
-  const void* sp_src[MAXSP];  // [P,N] raw or norm plane in the working dtype
+  const void* sp_src[MAXSP];  // [P,N] (or [P,ws0]) raw or norm plane in the working dtype
   const int8_t* fail_plug;    // [P,N]
   const int32_t* fail_code;   // [P,N]
-  const uint8_t* feasible;    // [P,N]
+  const uint8_t* feasible;    // [P,N]; unread with ws0
   const int32_t* sample_start;      // [P]
   const int32_t* sample_processed;  // [P]
+  const int32_t* feasible_count;    // [P]; read with ws0
   uint8_t* blob;
 };
 
@@ -107,6 +112,7 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(const CompactArgs a) {
   const int proc = a.sample_processed[i];
   const int nt = (int)a.n_true;
   const bool filters = a.mode >= 0;
+  const bool in_step = a.ws0 > 0;
   int run = 0, frun = 0;
   for (int64_t base = 0; base < N; base += blockDim.x) {
     const int64_t n = base + threadIdx.x;
@@ -115,7 +121,7 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(const CompactArgs a) {
       const int d = (int)n - start;
       const int rank = d >= 0 ? d : d + nt;
       vis = (rank < proc && n < nt) ? 1 : 0;
-      f = a.feasible[i * N + n] ? 1 : 0;
+      f = !in_step && a.feasible[i * N + n] ? 1 : 0;
     }
     int vt, ft;
     const int pos = run + block_scan(vis, &vt) - 1;
@@ -136,12 +142,21 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(const CompactArgs a) {
   if (filters) {
     for (int64_t j = (run < a.W ? run : a.W) + threadIdx.x; j < a.W; j += blockDim.x) put_fail(a, i, j, -1, 0);
   }
-  for (int64_t j = (frun < a.WS ? frun : a.WS) + threadIdx.x; j < a.WS; j += blockDim.x) {
+  for (int64_t j = (frun < a.WS ? frun : a.WS) + threadIdx.x; !in_step && j < a.WS; j += blockDim.x) {
     const int64_t cell = i * a.WS + j;
     if (!filters) put(a.blob + a.off_sids + 4 * cell, -1, 4);
     for (int k = 0; k < a.n_sp; ++k) {
       const int nb = dt_bytes(a.sp_dt[k]);
       put(a.blob + a.sp_off[k] + nb * cell, 0, nb);
+    }
+  }
+  // in-step planes: the first WS columns, those below the feasible count
+  const int fc = in_step ? a.feasible_count[i] : 0;
+  for (int64_t j = threadIdx.x; in_step && j < a.WS; j += blockDim.x) {
+    const int64_t cell = i * a.WS + j;
+    for (int k = 0; k < a.n_sp; ++k) {
+      const int nb = dt_bytes(a.sp_dt[k]);
+      put(a.blob + a.sp_off[k] + nb * cell, j < fc ? (int64_t)((const T*)a.sp_src[k])[i * a.ws0 + j] : 0, nb);
     }
   }
 }

@@ -10,6 +10,11 @@
 // (:1337-1379, :1508-1562, :1642) and InterPodAffinity (:1380-1414,
 // :1563-1576, :1644-1662) read their carries through each node's domain
 // (node_domain, gdom) where the reference multiplies by one-hot matrices.
+// NodePorts, VolumeRestrictions, the EBS/GCE/Azure disk limits,
+// NodeVolumeLimits, VolumeBinding and VolumeZone (:1297-1336, commits
+// :1627-1641) read their carries only at the pod's own columns (the per-pod
+// lists lower() builds), and the in-step score compaction (:1681-1699)
+// writes the score rows at [P, ws0] in ascending node id.
 //
 // What bounds it on an H100: the sequential dependency chain.  Pod i+1's
 // filters read the carry pod i committed, so the P steps run one after the
@@ -45,6 +50,21 @@
 // node without the key; it is never read, so the commit skips it).  At the
 // cfg4 workload (10 000 pods x 5 000 nodes, chip_smoke.py prints the sizes)
 // these copies take SG*N + 3*G*(D+1) values per block, times 132 blocks.
+// The volume carries are kept column-major, so neighbouring threads read
+// neighbouring nodes: ports_used [PT,N], restr_used [VR,N], cloud_used
+// [3,N] in the working dtype, the CSI attachment bits [V,N] as bytes (they
+// are 0 or 1), and beside them the count of attached ids per (driver,
+// node) [DR,N], which the commit raises by the pod's newly attached ids.
+// So NodeVolumeLimits reads the pod's few ids and one count per driver, not
+// the reference's whole [N,V] product: exact, since every count is an
+// integer.
+//
+// In-step compaction: the sampled nodes are the first sample_k feasible in
+// visit order, which starts at node `start`.  A sampled node's rank among
+// the sampled ones in visit order is its running count c - 1; with c_hi the
+// number of sampled nodes of id >= start (visited first) and n_s the number
+// sampled, its rank in ascending node id is (n_s - c_hi) + c - 1 for
+// id >= start and c - 1 - c_hi below.
 //
 // Exactness: built with --fmad=false and without fast math; every formula
 // keeps the reference's order of operations, divisions are IEEE divisions,
@@ -62,14 +82,17 @@
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int MAXF = 8;
+constexpr int MAXF = 16;
 constexpr int MAXS = 8;
 constexpr int MAXFR = 4;
 constexpr int MAXSHAPE = 16;
 constexpr int MAXC = 8;    // PodTopologySpread constraints per pod, of each kind
 constexpr int MAXKU = 16;  // topology keys the constraints and terms use
 
-enum { F_UNSCHED = 0, F_NAME = 1, F_TAINT = 2, F_AFF = 3, F_FIT = 4, F_SPREAD = 5, F_IPA = 6 };
+enum {
+  F_UNSCHED = 0, F_NAME = 1, F_TAINT = 2, F_AFF = 3, F_FIT = 4, F_SPREAD = 5, F_IPA = 6,
+  F_PORTS = 7, F_RESTR = 8, F_EBS = 9, F_GCE = 10, F_AZURE = 11, F_CSI = 12, F_VB = 13, F_VZ = 14,
+};
 enum { S_FIT = 0, S_BAL = 1, S_IMG = 2, S_TAINT = 3, S_AFF = 4, S_SPREAD = 5, S_IPA = 6 };
 enum { FIT_LEAST = 0, FIT_MOST = 1, FIT_RTCR = 2 };
 
@@ -94,6 +117,10 @@ struct ScanArgs {
   int64_t dom_smem;  // 1: the domain sums live in dynamic shared memory
   int64_t key_base[MAXKU];  // first domain id of each used key
   int64_t key_size[MAXKU];  // domains of an interned key; 0 = identity key
+  int64_t ws0;              // width of the compacted score rows; 0 = [P,N] rows
+  int64_t use_ports, use_restr, use_cloud, use_csi;
+  int64_t PT, VR, VID, DR, KPT, KVR, KV, VB_cols;
+  double cloud_limit[3];    // EBS, GCE PD, Azure disk: cloud_cnt's columns
   const void* alloc;
   const void* max_pods;
   const void* nz_alloc;
@@ -138,6 +165,18 @@ struct ScanArgs {
   const int32_t* ip_own_g;     // [P,KO] groups the pod's own terms add to
   const void* ip_own_w;        // [P,KO]
   const uint8_t* ip_self_match;  // [P]
+  const int32_t* port_cols;    // [P,KPT] the pod's host-port classes, -1 padded
+  const void* port_conflict;   // [PT,PT]
+  const int32_t* restr_cols;   // [P,KVR] the pod's conflict volumes
+  const void* restr_conflict;  // [VR,VR]
+  const void* cloud_cnt;       // [P,3]
+  const int32_t* csi_cols;     // [P,KV] the pod's CSI volume ids
+  const int32_t* csi_drv;      // [V] driver of each id, -1 none
+  const void* csi_seed_used;   // [N,DR] attachments of ids no pending pod mounts
+  const void* csi_limit;       // [N,DR]
+  const int8_t* vb_cls;        // [VC,M] VolumeBinding code per (volume class, label class)
+  const int8_t* vz_cls;        // [VC,M] VolumeZone code
+  const int32_t* pod_vol_idx;  // [P]
   const void* log_table;       // [N+1] log(t + 2)
   const void* requested0;
   const void* nonzero0;
@@ -146,6 +185,10 @@ struct ScanArgs {
   const void* ip_sel0;         // [G,D+1]
   const void* ip_own0;
   const void* ip_anti0;
+  const void* ports_used0;     // [N,PT]
+  const void* restr_used0;     // [N,VR]
+  const void* cloud_used0;     // [N,3]
+  const void* csi_attached0;   // [N,V]
   void* s_requested;   // [B,N,R] per-block carry
   void* s_nonzero;     // [B,N,2]
   void* s_pod_count;   // [B,N]
@@ -159,16 +202,26 @@ struct ScanArgs {
   int32_t* s_domflag;  // [B,(KC+KS)*dom_cap] domain flags
   void* s_total;       // [B,N] masked weighted totals of the current pod
   uint8_t* s_flags;    // [B,N] bit 0 feasible, bit 1 sampled, bit 2 has every score key
+  int32_t* s_rank;     // [B,N] running feasible count in visit order (in-step compaction)
+  void* s_ports;       // [B,PT,N]
+  void* s_restr;       // [B,VR,N]
+  void* s_cloud;       // [B,3,N]
+  uint8_t* s_csi;      // [B,V,N] attachment bits
+  void* s_csi_cnt;     // [B,DR,N] attached ids per driver
   int32_t* packed;     // [5,P]
   int32_t* final_start;  // [1]
   void* final_requested;
   void* final_nonzero;
   void* final_pod_count;
+  void* final_ports_used;   // [N,PT]
+  void* final_restr_used;   // [N,VR]
+  void* final_cloud_used;   // [N,3]
+  void* final_csi_att;      // [N,V]
   int8_t* fail_plug;   // [P,N]
   int32_t* fail_code;  // [P,N]
-  uint8_t* feasible;   // [P,N]
-  void* raw[MAXS];     // [P,N] each
-  void* norm[MAXS];    // [P,N] each
+  uint8_t* feasible;   // [P,N]; not written with ws0
+  void* raw[MAXS];     // [P,N] each, [P,ws0] with ws0
+  void* norm[MAXS];
   int32_t* trace_meta; // [S+1,2]
 };
 
@@ -337,12 +390,23 @@ __device__ __forceinline__ T at_node(const ScanArgs& a, const T* carry, int g, i
   return d >= 0 ? carry[(int64_t)g * (a.D + 1) + d] : T(0);
 }
 
+// dst[c * N + n] = src[n * C + c]: a row-major [N,C] carry into a block's
+// column-major copy (once a launch).
+template <typename S, typename D>
+__device__ void load_transposed(const S* src, D* dst, int64_t N, int64_t C) {
+  for (int64_t c = 0; c < C; ++c) {
+    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) dst[c * N + n] = D(src[n * C + c]);
+  }
+}
+
 // TOPO = false compiles PodTopologySpread's and InterPodAffinity's work out
 // (a problem without spread constraints or term groups), so that path keeps
-// the registers of a kernel without them.  The grid has one block per SM,
-// so the bounds allow one resident block and up to 128 registers a thread:
-// capped at 64, the float64 kernel spilled to local memory.
-template <typename T, bool TOPO>
+// the registers of a kernel without them; VOL = false does the same for the
+// host-port, conflict-volume, cloud-disk and CSI carries.  The grid has one
+// block per SM, so the bounds allow one resident block and up to 128
+// registers a thread: capped at 64, the float64 kernel spilled to local
+// memory.
+template <typename T, bool TOPO, bool VOL>
 __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
@@ -380,6 +444,15 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   T* dom_sum = a.dom_smem ? (T*)dyn_smem : (T*)a.s_dom + (int64_t)b * nslot * cap;
   int* dom_flag = a.dom_smem ? (int*)(dyn_smem + nslot * cap * sizeof(T)) : a.s_domflag + (int64_t)b * nslot * cap;
   const T* log_table = (const T*)a.log_table;
+  const bool ports = VOL && a.use_ports, restr = VOL && a.use_restr;
+  const bool cloud = VOL && a.use_cloud, csi = VOL && a.use_csi;
+  T* sports = ports ? (T*)a.s_ports + (int64_t)b * a.PT * N : nullptr;
+  T* srestr = restr ? (T*)a.s_restr + (int64_t)b * a.VR * N : nullptr;
+  T* scloud = cloud ? (T*)a.s_cloud + (int64_t)b * 3 * N : nullptr;
+  uint8_t* scsi = csi ? a.s_csi + (int64_t)b * a.VID * N : nullptr;
+  T* scnt = csi ? (T*)a.s_csi_cnt + (int64_t)b * a.DR * N : nullptr;
+  const int ws0 = (int)a.ws0;
+  int32_t* srank = ws0 > 0 ? a.s_rank + (int64_t)b * N : nullptr;
 
   for (int64_t j = tid; j < N * R; j += blockDim.x) req[j] = ((const T*)a.requested0)[j];
   for (int64_t j = tid; j < N * 2; j += blockDim.x) nzc[j] = ((const T*)a.nonzero0)[j];
@@ -394,7 +467,22 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       ianti[j] = ((const T*)a.ip_anti0)[j];
     }
   }
+  if (ports) load_transposed((const T*)a.ports_used0, sports, N, a.PT);
+  if (restr) load_transposed((const T*)a.restr_used0, srestr, N, a.VR);
+  if (cloud) load_transposed((const T*)a.cloud_used0, scloud, N, 3);
+  if (csi) load_transposed((const T*)a.csi_attached0, scsi, N, a.VID);
   __syncthreads();
+  if (csi) {
+    // attached ids per (driver, node): the reference's csi_att @ csi_drv_oh
+    for (int64_t n = tid; n < N; n += blockDim.x) {
+      for (int64_t d = 0; d < a.DR; ++d) scnt[d * N + n] = T(0);
+      for (int64_t v = 0; v < a.VID; ++v) {
+        const int d = a.csi_drv[v];
+        if (scsi[v * N + n] && d >= 0) scnt[d * N + n] = scnt[d * N + n] + T(1);
+      }
+    }
+    __syncthreads();
+  }
 
   // trace meta (block 0): per-score min/max of where(feasible & active,
   // raw, 0) over [P,N], and the max failure code
@@ -427,6 +515,11 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     const int32_t* sku = a.sps_ku + i * a.KS;
     const bool sp_f = TOPO && a.use_spread_f != 0;
     const bool sp_s = TOPO && a.use_spread_s && skey[0] >= 0;
+    const int32_t* pcols = a.port_cols + i * a.KPT;
+    const int32_t* rcols = a.restr_cols + i * a.KVR;
+    const int32_t* ccols = a.csi_cols + i * a.KV;
+    const T* ccnt = (const T*)a.cloud_cnt + i * 3;
+    const int voli = a.pod_vol_idx[i];
 
     // ---- pass 0: PodTopologySpread domain sums and minima ---------------
     T min_match[MAXC], w_log[MAXC];
@@ -501,6 +594,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     // ---- pass 1: filters, rotated prefix sum, sampling ----------------
     int run = 0;
     int kth_rank = -1;
+    int c_hi = 0;  // sampled nodes of id >= start (in-step compaction)
     int n_fni = 0;  // sampled nodes with every score key
     T mx_taint = -INFINITY, mx_aff = -INFINITY;
     T ip_mn = INF, ip_mx = -INF;
@@ -540,6 +634,50 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
               for (int64_t q = 0; q < R; ++q) {
                 const T fr = alloc[n * R + q] - req[n * R + q];
                 if (preq[q] > fr && fchk[q]) code |= 1 << (q + 1);
+              }
+              break;
+            }
+            case F_VB:
+              code = a.vb_cls[(int64_t)voli * a.VB_cols + nlabel];
+              break;
+            case F_VZ:
+              code = a.vz_cls[(int64_t)voli * a.VB_cols + nlabel];
+              break;
+            case F_PORTS:
+            case F_RESTR: {
+              // the used counts (in wanted-class conflict space) at the
+              // pod's own classes
+              const bool is_ports = a.filters[k] == F_PORTS;
+              if (!(is_ports ? ports : restr)) break;
+              const int32_t* cols = is_ports ? pcols : rcols;
+              const T* used = is_ports ? sports : srestr;
+              T clash = T(0);
+              for (int c = 0; c < (is_ports ? a.KPT : a.KVR) && cols[c] >= 0; ++c) clash = clash + used[(int64_t)cols[c] * N + n];
+              code = clash > T(0) ? 1 : 0;
+              break;
+            }
+            case F_EBS:
+            case F_GCE:
+            case F_AZURE: {
+              if (!cloud) break;
+              const int col = (int)a.filters[k] - F_EBS;
+              const T want = ccnt[col];
+              code = (want > T(0) && scloud[col * N + n] + want > T(a.cloud_limit[col])) ? 1 : 0;
+              break;
+            }
+            case F_CSI: {
+              // per driver of the pod's not yet attached ids: seeded +
+              // attached + new ones over the node's limit
+              if (!csi) break;
+              for (int c = 0; c < a.KV && ccols[c] >= 0 && code == 0; ++c) {
+                const int d = a.csi_drv[ccols[c]];
+                if (scsi[(int64_t)ccols[c] * N + n] || d < 0) continue;
+                T need = T(0);
+                for (int c2 = 0; c2 < a.KV && ccols[c2] >= 0; ++c2) {
+                  if (!scsi[(int64_t)ccols[c2] * N + n] && a.csi_drv[ccols[c2]] == d) need = need + T(1);
+                }
+                const T used = ((const T*)a.csi_seed_used)[n * a.DR + d] + scnt[(int64_t)d * N + n];
+                if (used + need > ((const T*)a.csi_limit)[n * a.DR + d]) code = 1;
               }
               break;
             }
@@ -611,6 +749,10 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       if (r < N) {
         const bool samp = feas && c <= K;
         if (feas && c == K) kth_rank = r;
+        if (ws0 > 0) {
+          srank[n] = c;
+          if (samp && r < nt - start) c_hi = c;
+        }
         fl[n] = (uint8_t)(feas | (samp ? 2 : 0));
         const int64_t tcell = (int64_t)tol * a.T_cols + a.node_taint_idx[n];
         const T vt = samp ? T(a.taint_prefer_cls[tcell]) : T(0);
@@ -640,7 +782,9 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       ip_mx = block_reduce(ip_mx, -INF, MaxOp());
     }
     const int processed = total >= K ? kth_rank + 1 : nt;
-    const int count = (total < K ? total : K) * (active ? 1 : 0);
+    const int n_samp = total < K ? total : K;
+    const int count = n_samp * (active ? 1 : 0);
+    if (ws0 > 0) c_hi = block_reduce(c_hi, 0, MaxOp());
 
     // ---- pass 1b: PodTopologySpread's raw score and its extrema ---------
     T sp_mn = INF, sp_mx = -INF;
@@ -735,11 +879,21 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
               break;
             }
           }
-          if (writes) {
+          if (writes && ws0 == 0) {
             ((T*)a.raw[k])[i * N + n] = raw;
             ((T*)a.norm[k])[i * N + n] = nrm;
+          } else if (writes && samp) {
+            // rank in ascending node id among the sampled nodes
+            const int rank = srank[n] - 1;
+            const int pos = r < nt - start ? (n_samp - c_hi) + rank : rank - c_hi;
+            if (pos < ws0) {
+              ((T*)a.raw[k])[i * ws0 + pos] = raw;
+              ((T*)a.norm[k])[i * ws0 + pos] = nrm;
+            }
           }
-          if (meta) {
+          // meta reads where(feasible & active, raw, 0): over [P,N], or
+          // over [P,ws0] with a column valid below the pod's count
+          if (meta && (ws0 == 0 || (samp && active))) {
             const T v = (samp && active) ? raw : T(0);
             meta_mn[k] = v < meta_mn[k] ? v : meta_mn[k];
             meta_mx[k] = v > meta_mx[k] ? v : meta_mx[k];
@@ -749,7 +903,23 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         const T masked = samp ? total_w : NEG;
         tot[n] = masked;
         best = masked > best ? masked : best;
-        if (writes) a.feasible[i * N + n] = samp ? 1 : 0;
+        if (writes && ws0 == 0) a.feasible[i * N + n] = samp ? 1 : 0;
+      }
+    }
+    if (ws0 > 0) {
+      // the compacted rows past the sampled nodes are zero, and hold a
+      // masked (zero) column for the meta when the pod's count is below ws0
+      for (int j = n_samp + tid; writes && j < ws0; j += blockDim.x) {
+        for (int k = 0; k < a.ns; ++k) {
+          ((T*)a.raw[k])[i * ws0 + j] = T(0);
+          ((T*)a.norm[k])[i * ws0 + j] = T(0);
+        }
+      }
+      if (meta && tid == 0 && count < ws0) {
+        for (int k = 0; k < a.ns; ++k) {
+          meta_mn[k] = T(0) < meta_mn[k] ? T(0) : meta_mn[k];
+          meta_mx[k] = T(0) > meta_mx[k] ? T(0) : meta_mx[k];
+        }
       }
     }
     best = block_reduce(best, T(-INFINITY), MaxOp());
@@ -807,6 +977,32 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       nzc[sel * 2 + 1] = nzc[sel * 2 + 1] + T(1) * pnz[1];
       pc[sel] = pc[sel] + T(1);
     }
+    if (sel >= 0 && VOL) {
+      // host ports and conflict volumes: the pod's classes projected
+      // through the conflict relation, one thread per wanted class
+      for (int64_t w = tid; ports && w < a.PT; w += blockDim.x) {
+        T proj = T(0);
+        for (int c = 0; c < a.KPT && pcols[c] >= 0; ++c) proj = proj + ((const T*)a.port_conflict)[w * a.PT + pcols[c]];
+        sports[w * N + sel] = sports[w * N + sel] + T(1) * proj;
+      }
+      for (int64_t w = tid; restr && w < a.VR; w += blockDim.x) {
+        T proj = T(0);
+        for (int c = 0; c < a.KVR && rcols[c] >= 0; ++c) proj = proj + ((const T*)a.restr_conflict)[w * a.VR + rcols[c]];
+        srestr[w * N + sel] = srestr[w * N + sel] + T(1) * proj;
+      }
+      if (cloud && tid < 3) scloud[tid * N + sel] = scloud[tid * N + sel] + T(1) * ccnt[tid];
+      // CSI ids are set bits (a shared id stays one attachment); their
+      // drivers may repeat, so one thread counts them
+      if (csi && tid == 0) {
+        for (int c = 0; c < a.KV && ccols[c] >= 0; ++c) {
+          const int64_t v = ccols[c];
+          if (scsi[v * N + sel]) continue;
+          scsi[v * N + sel] = 1;
+          const int d = a.csi_drv[v];
+          if (d >= 0) scnt[(int64_t)d * N + sel] = scnt[(int64_t)d * N + sel] + T(1);
+        }
+      }
+    }
     if (sel >= 0 && spread_on) {
       for (int64_t s = tid; s < a.SG; s += blockDim.x) {
         spc[s * N + sel] = spc[s * N + sel] + ((const T*)a.spread_match)[s * P + i];
@@ -849,6 +1045,20 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   for (int64_t j = tid; j < N * R; j += blockDim.x) ((T*)a.final_requested)[j] = req[j];
   for (int64_t j = tid; j < N * 2; j += blockDim.x) ((T*)a.final_nonzero)[j] = nzc[j];
   for (int64_t j = tid; j < N; j += blockDim.x) ((T*)a.final_pod_count)[j] = pc[j];
+  // the volume carries, row-major again (their initial values when the
+  // problem carries none)
+  for (int64_t j = tid; j < N * a.PT; j += blockDim.x) {
+    ((T*)a.final_ports_used)[j] = ports ? sports[(j % a.PT) * N + j / a.PT] : ((const T*)a.ports_used0)[j];
+  }
+  for (int64_t j = tid; j < N * a.VR; j += blockDim.x) {
+    ((T*)a.final_restr_used)[j] = restr ? srestr[(j % a.VR) * N + j / a.VR] : ((const T*)a.restr_used0)[j];
+  }
+  for (int64_t j = tid; j < N * 3; j += blockDim.x) {
+    ((T*)a.final_cloud_used)[j] = cloud ? scloud[(j % 3) * N + j / 3] : ((const T*)a.cloud_used0)[j];
+  }
+  for (int64_t j = tid; j < N * a.VID; j += blockDim.x) {
+    ((T*)a.final_csi_att)[j] = csi ? T(scsi[(j % a.VID) * N + j / a.VID]) : ((const T*)a.csi_attached0)[j];
+  }
   if (!a.trace) return;
   for (int k = 0; k < a.ns; ++k) {
     const T mn = block_reduce(meta_mn[k], T(INFINITY), MinOp());
@@ -865,13 +1075,22 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   }
 }
 
+template <typename T, bool TOPO>
+void launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
+  if (a->use_ports || a->use_restr || a->use_cloud || a->use_csi) {
+    scan_kernel<T, TOPO, true><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(*a);
+  } else {
+    scan_kernel<T, TOPO, false><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(*a);
+  }
+}
+
 template <typename T>
 int launch(const ScanArgs* a, int64_t blocks, void* stream) {
   const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
   if (a->use_spread_f || a->use_spread_s || a->use_ipa) {
-    scan_kernel<T, true><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    launch_vol<T, true>(a, blocks, smem, stream);
   } else {
-    scan_kernel<T, false><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(*a);
+    launch_vol<T, false>(a, blocks, 0, stream);
   }
   return (int)cudaGetLastError();
 }

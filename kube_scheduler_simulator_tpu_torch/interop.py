@@ -7,7 +7,8 @@ through ``np.asarray``; ``spf`` and ``sps`` as tuples) and places the
 port's ``DeviceProblem`` on ``device`` in one copy, so both packages'
 kernels can be fed the very same problem.  The JAX-only fields (the
 on-device expansion placeholders, the traced weight vector and the one-hot
-key expansion) are dropped.
+key expansion) are dropped; the port's own derived fields (the per-pod
+column lists) are built from the carried ones as ``lower`` builds them.
 """
 
 from __future__ import annotations
@@ -18,7 +19,13 @@ import numpy as np
 import torch
 
 from kube_scheduler_simulator_tpu_torch.device import resolve_device
-from kube_scheduler_simulator_tpu_torch.ops.batch import ROUND_SCALARS, DeviceProblem, place
+from kube_scheduler_simulator_tpu_torch.ops.batch import (
+    LIST_FIELDS,
+    ROUND_SCALARS,
+    DeviceProblem,
+    place,
+    volume_lists,
+)
 
 
 def from_jax_problem(
@@ -26,8 +33,12 @@ def from_jax_problem(
 ) -> "tuple[DeviceProblem, dict]":
     """(port DeviceProblem on ``device``, dims) from the JAX package's
     lowered problem given as numpy arrays and its dims dict."""
-    host: dict[str, Any] = {}
+    host: dict[str, Any] = volume_lists(
+        fields["pod_ports"], fields["pod_restr"], fields["pod_csi"], fields["csi_drv_oh"]
+    )
     for name in DeviceProblem._fields:
+        if name in LIST_FIELDS:
+            continue
         val = fields[name]
         if name in ROUND_SCALARS:
             host[name] = int(np.asarray(val))

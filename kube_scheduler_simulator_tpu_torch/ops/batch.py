@@ -6,7 +6,10 @@ the pod queue (each bind consumes node resources) and parallel over nodes;
 one scan runs a full scheduling cycle per pod over all nodes and commits
 into the cluster-state carry:
 
-    carry = (requested [N,R], nonzero [N,2], pod_count [N], start)
+    carry = (requested [N,R], nonzero [N,2], pod_count [N],
+             ports_used [N,PT], restr_used [N,VR], cloud_used [N,3],
+             csi_att [N,V], spread_counts [SG,N],
+             ip_sel/ip_own/ip_anti [G,D+1], start)
     step  = filters [N] → sampling → scores [N] → normalize → select → commit
 
 Two implementations of each device step live side by side:
@@ -18,12 +21,13 @@ Two implementations of each device step live side by side:
   serve CUDA tensors and must agree with the plain versions bit for bit.
 
 ``build_batch_fn`` / ``build_compact_fn`` return callables that pick one by
-the device of the tensors they are given.  The port covers the filters
-NodeUnschedulable, NodeName, TaintToleration, NodeAffinity,
-NodeResourcesFit, PodTopologySpread and InterPodAffinity and the scores
+the device of the tensors they are given.  The port covers upstream's whole
+default profile: the fifteen filters of ``FILTER_KERNELS`` (NodePorts and
+the volume filters among them, with their carries) and the scores
 NodeResourcesFit (three strategies), NodeResourcesBalancedAllocation,
 ImageLocality, TaintToleration, NodeAffinity, PodTopologySpread and
-InterPodAffinity, with both tie-breaks and feasible-node sampling.
+InterPodAffinity, with both tie-breaks, feasible-node sampling and the
+in-step compaction of the score planes to ``[P, ws0]``.
 
 The reference expands domain vectors to nodes (and collapses node values
 to domains) with one-hot matrix products; here they are gathers through
@@ -45,7 +49,8 @@ import numpy as np
 import torch
 
 from kube_scheduler_simulator_tpu_torch.device import resolve_device, resolve_dtype
-from kube_scheduler_simulator_tpu_torch.ops.encode import BatchProblem
+from kube_scheduler_simulator_tpu_torch.ops.encode import BatchProblem, _bucket
+from kube_scheduler_simulator_tpu_torch.plugins.intree.volumes import CLOUD_LIMIT_PLUGINS
 
 MAX_NODE_SCORE = 100.0
 NEG = -1e18
@@ -98,25 +103,10 @@ SCORE_KERNELS = (
     "InterPodAffinity",
     "ImageLocality",
 )
-# What this port's scan computes; supported() rejects the rest by name.
-SLICE_FILTERS = (
-    "NodeUnschedulable",
-    "NodeName",
-    "TaintToleration",
-    "NodeAffinity",
-    "NodeResourcesFit",
-    "PodTopologySpread",
-    "InterPodAffinity",
-)
-SLICE_SCORES = (
-    "NodeResourcesFit",
-    "NodeResourcesBalancedAllocation",
-    "ImageLocality",
-    "TaintToleration",
-    "NodeAffinity",
-    "PodTopologySpread",
-    "InterPodAffinity",
-)
+# per-family cloud volume-count limits: (cloud_cnt column, default limit)
+CLOUD_LIMIT_COL = {
+    cls.name: (col, float(cls.default_limit)) for col, cls in enumerate(CLOUD_LIMIT_PLUGINS)
+}
 FIT_STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
 TIE_BREAKS = ("first", "reservoir")
 
@@ -137,16 +127,15 @@ NORMALIZE_KIND = {
 
 
 def check_slice(cfg: BatchConfig) -> None:
-    """Raise, naming the plugin, for a configuration this port's kernels do
-    not compute."""
-    for kind, names, ported, known in (
-        ("filter", cfg.filters, SLICE_FILTERS, FILTER_KERNELS),
-        ("score", [s for s, _w in cfg.scores], SLICE_SCORES, SCORE_KERNELS),
+    """Raise, naming the plugin, for a configuration the kernels do not
+    compute."""
+    for kind, names, known in (
+        ("filter", cfg.filters, FILTER_KERNELS),
+        ("score", [s for s, _w in cfg.scores], SCORE_KERNELS),
     ):
         for name in names:
-            if name not in ported:
-                why = "is not ported to the PyTorch scan yet" if name in known else "has no batch kernel"
-                raise ValueError(f"{kind} plugin {name} {why}")
+            if name not in known:
+                raise ValueError(f"{kind} plugin {name} has no batch kernel")
     if cfg.fit_strategy not in FIT_STRATEGIES:
         raise ValueError(f"unknown NodeResourcesFit strategy {cfg.fit_strategy}")
     if cfg.tie_break not in TIE_BREAKS:
@@ -233,6 +222,13 @@ class DeviceProblem(NamedTuple):
     csi_drv_oh: Any       # [V,DR]
     csi_seed_used: Any    # [N,DR]
     csi_limit: Any        # [N,DR]
+    # the scan kernel's per-pod lists of set columns (built by lower on
+    # the host from the rows above, -1 padded), so it reads the carries
+    # only at the pod's own ports, conflict volumes and CSI volume ids
+    port_cols: Any        # [P,KPT] int32 columns of pod_ports
+    restr_cols: Any       # [P,KVR] int32 columns of pod_restr
+    csi_cols: Any         # [P,KV] int32 columns of pod_csi
+    csi_drv: Any          # [V] int32 driver column of each volume id, -1 none
     node_domain: Any      # [KT,N] int32
     spf: Any              # spread filter constraints (key,grp,skew,self) [P,KC]
     sps: Any              # spread score constraints [P,KS]
@@ -269,6 +265,29 @@ class DeviceProblem(NamedTuple):
 
 
 ROUND_SCALARS = ("tb_base", "sample_k", "start0", "n_true")
+# DeviceProblem fields lower() derives from others (volume_lists)
+LIST_FIELDS = ("port_cols", "restr_cols", "csi_cols", "csi_drv")
+
+
+def _set_columns(mask) -> np.ndarray:
+    """[P,C] bool → [P,K] int32: each row's True columns ascending, -1
+    padded, K the most any row has (at least 1)."""
+    mask = np.asarray(mask, dtype=bool)
+    cnt = mask.sum(axis=1)
+    K = max(int(cnt.max()) if mask.size else 0, 1)
+    order = np.argsort(~mask, axis=1, kind="stable")[:, :K]
+    return np.where(np.arange(K)[None, :] < cnt[:, None], order, -1).astype(np.int32)
+
+
+def volume_lists(pod_ports, pod_restr, pod_csi, csi_drv_oh) -> "dict[str, np.ndarray]":
+    """The LIST_FIELDS of a problem from its pod rows and driver one-hot."""
+    oh = np.asarray(csi_drv_oh) != 0
+    return dict(
+        port_cols=_set_columns(pod_ports),
+        restr_cols=_set_columns(pod_restr),
+        csi_cols=_set_columns(pod_csi),
+        csi_drv=np.where(oh.any(axis=1), oh.argmax(axis=1), -1).astype(np.int32),
+    )
 
 _TORCH_OF_NP = {
     np.dtype(np.float64): torch.float64,
@@ -399,6 +418,7 @@ def lower(
         csi_drv_oh=f(pr.csi_drv_oh),
         csi_seed_used=f(pr.csi_seed_used),
         csi_limit=f(pr.csi_limit),
+        **volume_lists(pr.pod_ports, pr.pod_restr, pr.pod_csi, pr.csi_drv_oh),
         node_domain=i32(pr.node_domain),
         spf=(i32(pr.spf_key), i32(pr.spf_group), f(pr.spf_skew), f(pr.spf_self)),
         sps=(i32(pr.sps_key), i32(pr.sps_group), f(pr.sps_skew), f(pr.sps_self)),
@@ -538,6 +558,8 @@ def expand_features(dp: DeviceProblem, dt: torch.dtype) -> dict:
         name_ok=torch.where(tgt == -1, True, tgt == idx_n[None, :]),
         incl=pair(dp.incl_cls, dp.pod_aff_idx, dp.node_label_idx),
         img_score=pair(dp.img_cls, dp.pod_img_idx, dp.node_img_idx).to(dt),
+        vb_code=pair(dp.vb_cls, dp.pod_vol_idx, dp.node_label_idx),
+        vz_code=pair(dp.vz_cls, dp.pod_vol_idx, dp.node_label_idx),
     )
 
 
@@ -626,12 +648,32 @@ def _fit_raw(cfg: BatchConfig, req_nz: torch.Tensor, a: torch.Tensor) -> torch.T
     return _floordiv(sum(per_r[:, c] * float(w) for c, w in cfg.fit_resources), wsum)
 
 
-def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
+def in_step_width(cfg: BatchConfig, dims: dict, ws0: "int | None") -> "int | None":
+    """The score planes' width when the step compacts them (the reference's
+    ``ws0`` rule: trace on, filters present, ``ws0 < N``), else None."""
+    return ws0 if cfg.trace and ws0 is not None and ws0 < dims["N"] and cfg.filters else None
+
+
+def pick_ws0(cfg: BatchConfig, dims: dict, sample_k: int, n_nodes: int) -> "int | None":
+    """The in-step compaction width a round takes: bucket(sample_k) where
+    sampling narrows the nodes (the reference's batch_engine.py:1568-1577)."""
+    if sample_k >= n_nodes:
+        return None
+    return in_step_width(cfg, dims, min(dims["N"], _bucket(max(sample_k, 1))))
+
+
+def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem, ws0: "int | None" = None) -> dict:
     """The whole pod loop of one round in plain PyTorch, op for op the JAX
     ``build_batch_fn`` step (filters with first-failure tracking, rotated
     feasible-node sampling, scores and normalization, selection with either
-    tie-break, commit).  Returns the JAX outputs under the same keys."""
+    tie-break, commit).  Returns the JAX outputs under the same keys, and
+    the final volume carries (the JAX package's ``_final_carry``) as
+    ``final_ports_used``, ``final_restr_used``, ``final_cloud_used`` and
+    ``final_csi_att``.  ``ws0``: the in-step compaction width
+    (``in_step_width``): the score planes come out [P, ws0], the sampled
+    nodes' values in ascending node id, and no ``feasible`` plane."""
     check_slice(cfg)
+    ws0 = in_step_width(cfg, dims, ws0)
     P, N, R, D = dims["P"], dims["N"], dims["R"], dims["D"]
     if R > 30:
         raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
@@ -643,6 +685,8 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
     nonzero = dp.nonzero0.clone()
     pod_count = dp.pod_count0.clone()
     gates = plugin_gates(cfg, dims)
+    ports_used, restr_used = dp.ports_used0.clone(), dp.restr_used0.clone()
+    cloud_used, csi_att = dp.cloud_used0.clone(), dp.csi_attached0.clone()
     spread_counts = dp.spread_counts0.clone()
     ip_sel, ip_own, ip_anti = dp.ip_sel0.clone(), dp.ip_own0.clone(), dp.ip_anti0.clone()
     key_struct = dims["key_struct"]
@@ -672,10 +716,11 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
     if cfg.trace:
         out["fail_plug"] = torch.empty((P, N), dtype=torch.int8, device=dev)
         out["fail_code"] = torch.empty((P, N), dtype=i32, device=dev)
-        out["feasible"] = torch.empty((P, N), dtype=torch.bool, device=dev)
+        if ws0 is None:
+            out["feasible"] = torch.empty((P, N), dtype=torch.bool, device=dev)
         for name, _w in cfg.scores:
-            out[f"raw:{name}"] = torch.empty((P, N), dtype=dt, device=dev)
-            out[f"norm:{name}"] = torch.empty((P, N), dtype=dt, device=dev)
+            out[f"raw:{name}"] = torch.empty((P, ws0 or N), dtype=dt, device=dev)
+            out[f"norm:{name}"] = torch.empty((P, ws0 or N), dtype=dt, device=dev)
 
     def rot_cumsum(mask):
         """c[n] = number of True entries with visit rank <= r[n] (a cumsum
@@ -710,6 +755,10 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
                 apply(name, torch.where(tfail < 0, zero_i, tfail + 1))
             elif name == "NodeAffinity":
                 apply(name, X["aff_code"][i].to(i32))
+            elif name == "NodePorts" and gates["ports"]:
+                # ports_used is already in wanted-class conflict space
+                clash = (ports_used * dp.pod_ports[i][None, :].to(dt)).sum(1)
+                apply(name, (clash > 0).to(i32))
             elif name == "NodeResourcesFit":
                 free = dp.alloc - requested
                 insuff = (pod_req[None, :] > free) & dp.fit_checked[i][None, :]
@@ -719,6 +768,23 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
                 for r in range(R):
                     code = code | (insuff[:, r].to(i32) << (r + 1))
                 apply(name, code)
+            elif name == "VolumeBinding":
+                apply(name, X["vb_code"][i].to(i32))
+            elif name == "VolumeZone":
+                apply(name, X["vz_code"][i].to(i32))
+            elif name == "VolumeRestrictions" and gates["restr"]:
+                clash = (restr_used * dp.pod_restr[i][None, :].to(dt)).sum(1)
+                apply(name, (clash > 0).to(i32))
+            elif name in CLOUD_LIMIT_COL and gates["cloud"]:
+                col, limit = CLOUD_LIMIT_COL[name]
+                want = dp.cloud_cnt[i, col]
+                apply(name, ((want > 0) & (cloud_used[:, col] + want > limit)).to(i32))
+            elif name == "NodeVolumeLimits" and gates["csi"]:
+                new = dp.pod_csi[i].to(dt)[None, :] * (1.0 - csi_att)  # [N,V]
+                need_d = new @ dp.csi_drv_oh  # [N,DR]; exact: 0/1 entries
+                used_d = dp.csi_seed_used + csi_att @ dp.csi_drv_oh
+                over = (need_d > 0) & (used_d + need_d > dp.csi_limit)
+                apply(name, over.any(1).to(i32))
             elif name == "PodTopologySpread" and gates["spread_filter"]:
                 code = torch.zeros(N, dtype=i32, device=dev)
                 for k in range(dims["KC"]):
@@ -763,6 +829,7 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
         count = torch.clamp(total, max=K) * dp.pod_active[i]
 
         totals = torch.zeros(N, dtype=dt, device=dev)
+        raws, norms = {}, {}
         for name, weight in cfg.scores:
             if name == "NodeResourcesFit":
                 raw = _fit_raw(cfg, nonzero + dp.pod_nonzero[i][None, :], dp.nz_alloc)
@@ -801,8 +868,7 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
                 raw = torch.zeros(N, dtype=dt, device=dev)
                 norm = raw
             if cfg.trace:
-                out[f"raw:{name}"][i] = raw
-                out[f"norm:{name}"][i] = norm
+                raws[name], norms[name] = raw, norm
             totals = totals + norm * float(weight)
 
         # ties are ordered by VISIT rank, not node index
@@ -823,6 +889,17 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
         requested = requested + oh[:, None] * pod_req[None, :]
         nonzero = nonzero + oh[:, None] * dp.pod_nonzero[i][None, :]
         pod_count = pod_count + oh
+        if gates["ports"]:
+            # project the committed pod's triples onto every wanted class
+            # they conflict with
+            ports_used = ports_used + oh[:, None] * (dp.port_conflict @ dp.pod_ports[i].to(dt))[None, :]
+        if gates["restr"]:
+            restr_used = restr_used + oh[:, None] * (dp.restr_conflict @ dp.pod_restr[i].to(dt))[None, :]
+        if gates["cloud"]:
+            cloud_used = cloud_used + oh[:, None] * dp.cloud_cnt[i][None, :]
+        if gates["csi"]:
+            # shared volume ids stay one attachment: max, not add
+            csi_att = torch.maximum(csi_att, oh[:, None] * dp.pod_csi[i][None, :].to(dt))
         if dims["SG"] > 0:
             spread_counts = spread_counts + dp.spread_match[:, i][:, None] * oh[None, :]
         if gates["interpod"]:
@@ -849,7 +926,20 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
         if cfg.trace:
             out["fail_plug"][i] = fail_plug
             out["fail_code"][i] = fail_code
-            out["feasible"][i] = sampled
+            if ws0 is None:
+                out["feasible"][i] = sampled
+                for name in raws:
+                    out[f"raw:{name}"][i] = raws[name]
+                    out[f"norm:{name}"][i] = norms[name]
+            else:
+                # in-step compaction: the sampled nodes' values at their
+                # rank in ascending node id, the rest of the row zero
+                pos_id = torch.cumsum(sampled.to(i32), 0, dtype=i32) - 1
+                dest = torch.where(sampled & (pos_id < ws0), pos_id, ws0).long()
+                for name in raws:
+                    for kind, v in (("raw", raws[name]), ("norm", norms[name])):
+                        row = torch.zeros(ws0 + 1, dtype=dt, device=dev).scatter_(0, dest, v)
+                        out[f"{kind}:{name}"][i] = row[:ws0]
 
     packed[4] = start
     out.update(
@@ -860,11 +950,18 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
         final_requested=requested,
         final_nonzero=nonzero,
         final_pod_count=pod_count,
+        final_ports_used=ports_used,
+        final_restr_used=restr_used,
+        final_cloud_used=cloud_used,
+        final_csi_att=csi_att,
         final_start=start,
         packed_pod=packed,
     )
     if cfg.trace:
-        feas = out["feasible"] & dp.pod_active[:, None]
+        if ws0 is None:
+            feas = out["feasible"] & dp.pod_active[:, None]
+        else:  # positional: column < the pod's feasible count
+            feas = torch.arange(ws0, dtype=i32, device=dev)[None, :] < packed[1][:, None]
         rows = []
         for s, _w in cfg.scores:
             v = torch.where(feas, out[f"raw:{s}"], torch.zeros((), dtype=dt, device=dev))
@@ -876,9 +973,16 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem) -> dict:
 
 
 def plugin_gates(cfg: BatchConfig, dims: dict) -> "dict[str, bool]":
-    """Which of PodTopologySpread's and InterPodAffinity's work this problem
-    needs: none without constraints or term groups, as in the reference."""
+    """Which carried work this problem needs, as the reference gates it:
+    PodTopologySpread's and InterPodAffinity's none without constraints or
+    term groups; host ports and cloud-disk counts are carried whenever a
+    pending pod wants one (whatever the profile), conflict volumes and CSI
+    attachments only under their filter."""
     return {
+        "ports": dims["PT"] > 0,
+        "restr": dims["VR"] > 0 and "VolumeRestrictions" in cfg.filters,
+        "cloud": dims["CLOUD"] > 0,
+        "csi": dims["VID"] > 0 and "NodeVolumeLimits" in cfg.filters,
         "spread_filter": "PodTopologySpread" in cfg.filters and dims["KC"] > 0,
         "spread_score": any(s == "PodTopologySpread" for s, _w in cfg.scores) and dims["KS"] > 0,
         "interpod": dims["G"] > 0 and (
@@ -887,17 +991,18 @@ def plugin_gates(cfg: BatchConfig, dims: dict) -> "dict[str, bool]":
     }
 
 
-def build_batch_fn(cfg: BatchConfig, dims: dict):
+def build_batch_fn(cfg: BatchConfig, dims: dict, ws0: "int | None" = None):
     """fn(dp) → dict of result tensors: the CUDA scan kernel for a problem on
-    the card, the plain version for one on the CPU."""
+    the card, the plain version for one on the CPU.  ``ws0``: as
+    ``scan_plain``'s."""
     check_slice(cfg)
 
     def fn(dp: DeviceProblem) -> dict:
         if dp.alloc.device.type == "cuda":
             from kube_scheduler_simulator_tpu_torch.ops import kernels
 
-            return kernels.scan(cfg, dims, dp)
-        return scan_plain(cfg, dims, dp)
+            return kernels.scan(cfg, dims, dp, ws0=ws0)
+        return scan_plain(cfg, dims, dp, ws0=ws0)
 
     return fn
 
@@ -937,11 +1042,17 @@ def _plane_bytes(x: torch.Tensor, dt: str) -> torch.Tensor:
     return x.to(t).contiguous().view(torch.uint8).reshape(-1)
 
 
-def compact_plain(cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: dict, n_true: int) -> torch.Tensor:
+def compact_plain(
+    cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: dict, n_true: int,
+    in_step_ws0: "int | None" = None,
+) -> torch.Tensor:
     """Reduce the [P,N] trace planes to what the annotation writer reads,
     as one uint8 blob in ``manifest`` order — op for op the JAX
     ``build_compact_fn`` (visited window, stable partition, first-failure
-    gather and pack, score planes at their fetch dtype)."""
+    gather and pack, score planes at their fetch dtype).  With
+    ``in_step_ws0`` the score planes arrive compacted by the scan ([P,
+    in_step_ws0], ascending node id): they are cut to WS and masked by
+    position against ``feasible_count``."""
     P, N = dims["P"], dims["N"]
     dev = out["sample_start"].device
     i32 = torch.int32
@@ -976,12 +1087,19 @@ def compact_plain(cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: 
         else:
             res["fail_plug"] = plug
             res["fail_code"] = code
-    sorder, svalid = partition_ids(out["feasible"], WS)
-    if not cfg.filters:
-        res["sids"] = torch.where(svalid, sorder, -1)
+    if in_step_ws0 is not None:
+        if not cfg.filters:
+            raise ValueError("the in-step compaction needs filters: without them the blob carries feasible ids")
+        svalid = torch.arange(WS, dtype=i32, device=dev)[None, :] < out["feasible_count"][:, None]
+        stake = lambda a: a[:, :WS]
+    else:
+        sorder, svalid = partition_ids(out["feasible"], WS)
+        if not cfg.filters:
+            res["sids"] = torch.where(svalid, sorder, -1)
+        stake = lambda a: torch.gather(a, 1, sorder.long())
 
     def stakem(a):
-        g = torch.gather(a, 1, sorder.long())
+        g = stake(a)
         return torch.where(svalid, g, torch.zeros_like(g))
 
     for k, (s, _w) in enumerate(cfg.scores):
@@ -992,9 +1110,13 @@ def compact_plain(cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: 
     return torch.cat([_plane_bytes(res[name], dt) for name, dt, _shape in manifest])
 
 
-def build_compact_fn(cfg: BatchConfig, dims: dict, W: int, WS: int, raw_dtypes=None, code_max: int = 1 << 30):
+def build_compact_fn(
+    cfg: BatchConfig, dims: dict, W: int, WS: int, raw_dtypes=None, code_max: int = 1 << 30,
+    in_step_ws0: "int | None" = None,
+):
     """(fn(out, n_true) → uint8 blob, manifest): the CUDA compaction kernel
-    for planes on the card, the plain version for planes on the CPU."""
+    for planes on the card, the plain version for planes on the CPU.
+    ``in_step_ws0``: the scan compacted the score planes to that width."""
     raw_dtypes = tuple(raw_dtypes or ("int32",) * len(cfg.scores))
     manifest = compact_manifest(cfg, dims["P"], W, WS, raw_dtypes, code_max)
 
@@ -1002,8 +1124,8 @@ def build_compact_fn(cfg: BatchConfig, dims: dict, W: int, WS: int, raw_dtypes=N
         if out["sample_start"].device.type == "cuda":
             from kube_scheduler_simulator_tpu_torch.ops import kernels
 
-            return kernels.compact(cfg, dims, W, WS, manifest, out, n_true)
-        return compact_plain(cfg, dims, W, WS, manifest, out, n_true)
+            return kernels.compact(cfg, dims, W, WS, manifest, out, n_true, in_step_ws0)
+        return compact_plain(cfg, dims, W, WS, manifest, out, n_true, in_step_ws0)
 
     return fn, manifest
 

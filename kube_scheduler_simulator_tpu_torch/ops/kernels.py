@@ -2,13 +2,15 @@
 counters and the wrappers.
 
 - ``scan``    (csrc/scan.cu) — the whole pod loop of a round in one launch:
-              the pairwise feature gathers, the seven filters, the rotated
+              the pairwise feature gathers, the fifteen filters, the rotated
               sampling prefix sum, the seven scores and their
-              normalization, selection (first or reservoir) and the commit
+              normalization, selection (first or reservoir), the commit
               of every carry (PodTopologySpread's counts, InterPodAffinity's
-              term-group counts).
-- ``compact`` (csrc/compact.cu) — the [P,N] trace planes → the manifest's
-              byte blob, one block per pod row.
+              term-group counts, host ports, conflict volumes, cloud-disk
+              counts, CSI attachments) and, with ``ws0``, the score rows
+              compacted in the step.
+- ``compact`` (csrc/compact.cu) — the trace planes → the manifest's byte
+              blob, one block per pod row.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``csrc/build/`` keyed by a hash
@@ -36,13 +38,14 @@ from pathlib import Path
 import torch
 
 from kube_scheduler_simulator_tpu_torch.ops.batch import (
+    CLOUD_LIMIT_COL,
     GOLDEN32,
     MASK32,
-    SLICE_FILTERS,
     BatchConfig,
     DeviceProblem,
     _mix32,
     check_slice,
+    in_step_width,
     log_table,
     plugin_gates,
 )
@@ -59,10 +62,27 @@ NVCC_FLAGS = (
 LAUNCHES = {"scan": 0, "compact": 0}
 
 # the struct capacities of csrc/*.cu
-MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 8, 8, 4, 16, 16, 8, 16
+MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 16, 8, 4, 16, 16, 8, 16
 # bytes of shared memory the scan may take for PodTopologySpread's domain
 # sums; larger domain arrays go to per-block global scratch
 DOM_SMEM_BYTES = 8192
+_FILTER_IDS = {
+    "NodeUnschedulable": 0,
+    "NodeName": 1,
+    "TaintToleration": 2,
+    "NodeAffinity": 3,
+    "NodeResourcesFit": 4,
+    "PodTopologySpread": 5,
+    "InterPodAffinity": 6,
+    "NodePorts": 7,
+    "VolumeRestrictions": 8,
+    "EBSLimits": 9,
+    "GCEPDLimits": 10,
+    "AzureDiskLimits": 11,
+    "NodeVolumeLimits": 12,
+    "VolumeBinding": 13,
+    "VolumeZone": 14,
+}
 _SCORE_IDS = {
     "NodeResourcesFit": 0,
     "NodeResourcesBalancedAllocation": 1,
@@ -107,6 +127,13 @@ class ScanArgs(ctypes.Structure):
         ("key_base", _i64 * MAXKU),
         ("key_size", _i64 * MAXKU),
     ] + [
+        (n, _i64) for n in (
+            "ws0", "use_ports", "use_restr", "use_cloud", "use_csi",
+            "PT", "VR", "VID", "DR", "KPT", "KVR", "KV", "VB_cols",
+        )
+    ] + [
+        ("cloud_limit", _f64 * 3),
+    ] + [
         (n, _ptr)
         for n in (
             "alloc", "max_pods", "nz_alloc", "pod_req", "pod_nonzero", "fit_checked",
@@ -118,11 +145,16 @@ class ScanArgs(ctypes.Structure):
             "spf_key", "spf_grp", "spf_ku", "spf_skew", "spf_self",
             "sps_key", "sps_grp", "sps_ku", "sps_skew", "spread_match",
             "gdom", "term_match", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w",
-            "ip_own_g", "ip_own_w", "ip_self_match", "log_table",
+            "ip_own_g", "ip_own_w", "ip_self_match",
+            "port_cols", "port_conflict", "restr_cols", "restr_conflict", "cloud_cnt", "csi_cols", "csi_drv",
+            "csi_seed_used", "csi_limit", "vb_cls", "vz_cls", "pod_vol_idx", "log_table",
             "requested0", "nonzero0", "pod_count0", "spread_counts0", "ip_sel0", "ip_own0", "ip_anti0",
+            "ports_used0", "restr_used0", "cloud_used0", "csi_attached0",
             "s_requested", "s_nonzero", "s_pod_count", "s_spread", "s_ip_sel", "s_ip_own", "s_ip_anti",
             "s_raw_spread", "s_raw_ipa", "s_dom", "s_domflag", "s_total", "s_flags",
+            "s_rank", "s_ports", "s_restr", "s_cloud", "s_csi", "s_csi_cnt",
             "packed", "final_start", "final_requested", "final_nonzero", "final_pod_count",
+            "final_ports_used", "final_restr_used", "final_cloud_used", "final_csi_att",
             "fail_plug", "fail_code", "feasible",
         )
     ] + [
@@ -134,13 +166,15 @@ class ScanArgs(ctypes.Structure):
 
 class CompactArgs(ctypes.Structure):
     _fields_ = [
-        (n, _i64) for n in ("P", "N", "W", "WS", "n_true", "mode", "off_fail", "off_code", "off_sids", "n_sp")
+        (n, _i64) for n in ("P", "N", "W", "WS", "n_true", "mode", "off_fail", "off_code", "off_sids", "n_sp", "ws0")
     ] + [
         ("sp_off", _i64 * MAXSP),
         ("sp_dt", _i64 * MAXSP),
         ("sp_src", _ptr * MAXSP),
     ] + [
-        (n, _ptr) for n in ("fail_plug", "fail_code", "feasible", "sample_start", "sample_processed", "blob")
+        (n, _ptr) for n in (
+            "fail_plug", "fail_code", "feasible", "sample_start", "sample_processed", "feasible_count", "blob",
+        )
     ]
 
 
@@ -230,13 +264,16 @@ def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
     return cap, slot_bytes <= DOM_SMEM_BYTES
 
 
-def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None) -> dict:
+def scan(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None, ws0: "int | None" = None,
+) -> dict:
     """Launch the scan kernel on a problem on the card; returns the outputs
-    of ops/batch.scan_plain under the same keys.  ``blocks`` defaults to one
-    per SM with the trace on (one without); time_scan.py compares it with a
-    single block."""
+    of ops/batch.scan_plain under the same keys (``ws0`` as there).
+    ``blocks`` defaults to one per SM with the trace on (one without);
+    time_scan.py compares it with a single block."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
+    ws0 = in_step_width(cfg, dims, ws0)
     P, N, R = dims["P"], dims["N"], dims["R"]
     if R > 30:
         raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
@@ -261,9 +298,15 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
         "final_requested": e(N, R),
         "final_nonzero": e(N, 2),
         "final_pod_count": e(N),
+        "final_ports_used": e(*dp.ports_used0.shape),
+        "final_restr_used": e(*dp.restr_used0.shape),
+        "final_cloud_used": e(*dp.cloud_used0.shape),
+        "final_csi_att": e(*dp.csi_attached0.shape),
     }
     final_start = e(1, dtype=i32)
     gates = plugin_gates(cfg, dims)
+    # column counts of the volume arrays (at least 1 each)
+    PT, VR, VID, DR = (t.shape[1] for t in (dp.ports_used0, dp.restr_used0, dp.csi_attached0, dp.csi_seed_used))
     spread_on = gates["spread_filter"] or gates["spread_score"]
     SG, G, D = dims["SG"], dims["G"], dims["D"]
     cap, in_smem = domain_layout(dims, dt)
@@ -278,6 +321,12 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
         s_dom=e(1) if in_smem else e(blocks, nslot * cap),
         s_domflag=e(1, dtype=i32) if in_smem else e(blocks, nslot * cap, dtype=i32),
         s_total=e(blocks, N), s_flags=e(blocks, N, dtype=torch.uint8),
+        s_rank=e(blocks, N, dtype=i32) if ws0 else e(1, dtype=i32),
+        s_ports=e(blocks, PT, N) if gates["ports"] else e(1),
+        s_restr=e(blocks, VR, N) if gates["restr"] else e(1),
+        s_cloud=e(blocks, 3, N) if gates["cloud"] else e(1),
+        s_csi=e(blocks, VID, N, dtype=torch.uint8) if gates["csi"] else e(1, dtype=torch.uint8),
+        s_csi_cnt=e(blocks, DR, N) if gates["csi"] else e(1),
     )
     logt = log_table(N, dt, dev)
     a = ScanArgs()
@@ -290,7 +339,7 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
     a.reservoir = int(cfg.tie_break == "reservoir")
     a.nf = len(cfg.filters)
     for k, f in enumerate(cfg.filters):
-        a.filters[k] = SLICE_FILTERS.index(f)
+        a.filters[k] = _FILTER_IDS[f]
     a.ns = len(cfg.scores)
     for k, (s, w) in enumerate(cfg.scores):
         a.scores[k] = _SCORE_IDS[s]
@@ -313,6 +362,14 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
     for name in ("KC", "KS", "KA", "KB", "KP", "KO", "SG", "G", "D"):
         setattr(a, name, int(dims[name]))
     a.dom_cap, a.dom_smem = cap, int(in_smem)
+    a.ws0 = ws0 or 0
+    a.use_ports, a.use_restr = int(gates["ports"]), int(gates["restr"])
+    a.use_cloud, a.use_csi = int(gates["cloud"]), int(gates["csi"])
+    a.PT, a.VR, a.VID, a.DR = PT, VR, VID, DR
+    a.KPT, a.KVR, a.KV = (t.shape[1] for t in (dp.port_cols, dp.restr_cols, dp.csi_cols))
+    a.VB_cols = dp.vb_cls.shape[1]
+    for col, limit in CLOUD_LIMIT_COL.values():
+        a.cloud_limit[col] = limit
     # (first domain id, domains; 0 = identity) of each used key, by value:
     # a device copy would block the host until the card drains
     for u, (kind, base, size) in enumerate(dims["key_struct"]):
@@ -329,6 +386,10 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
         ("ip_anti_g", i32), ("ip_pref_g", i32), ("ip_pref_w", dt), ("ip_own_g", i32), ("ip_own_w", dt),
         ("ip_self_match", torch.bool), ("requested0", dt), ("nonzero0", dt), ("pod_count0", dt),
         ("spread_counts0", dt), ("ip_sel0", dt), ("ip_own0", dt), ("ip_anti0", dt),
+        ("port_cols", i32), ("port_conflict", dt), ("restr_cols", i32), ("restr_conflict", dt),
+        ("cloud_cnt", dt), ("csi_cols", i32), ("csi_drv", i32), ("csi_seed_used", dt), ("csi_limit", dt),
+        ("vb_cls", torch.int8), ("vz_cls", torch.int8), ("pod_vol_idx", i32),
+        ("ports_used0", dt), ("restr_used0", dt), ("cloud_used0", dt), ("csi_attached0", dt),
     ):
         setattr(a, name, _check(getattr(dp, name), name, want))
     for name, t, want in (
@@ -341,19 +402,20 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
         setattr(a, name, t.data_ptr())
     a.packed = out["packed_pod"].data_ptr()
     a.final_start = final_start.data_ptr()
-    a.final_requested = out["final_requested"].data_ptr()
-    a.final_nonzero = out["final_nonzero"].data_ptr()
-    a.final_pod_count = out["final_pod_count"].data_ptr()
+    for name in ("final_requested", "final_nonzero", "final_pod_count", "final_ports_used",
+                 "final_restr_used", "final_cloud_used", "final_csi_att"):
+        setattr(a, name, out[name].data_ptr())
     if cfg.trace:
         out["fail_plug"] = e(P, N, dtype=torch.int8)
         out["fail_code"] = e(P, N, dtype=i32)
-        out["feasible"] = e(P, N, dtype=torch.bool)
         a.fail_plug = out["fail_plug"].data_ptr()
         a.fail_code = out["fail_code"].data_ptr()
-        a.feasible = out["feasible"].data_ptr()
+        if ws0 is None:
+            out["feasible"] = e(P, N, dtype=torch.bool)
+            a.feasible = out["feasible"].data_ptr()
         for k, (s, _w) in enumerate(cfg.scores):
-            out[f"raw:{s}"] = e(P, N)
-            out[f"norm:{s}"] = e(P, N)
+            out[f"raw:{s}"] = e(P, ws0 or N)
+            out[f"norm:{s}"] = e(P, ws0 or N)
             a.raw[k] = out[f"raw:{s}"].data_ptr()
             a.norm[k] = out[f"norm:{s}"].data_ptr()
         out["trace_meta"] = e(len(cfg.scores) + 1, 2, dtype=i32)
@@ -372,9 +434,12 @@ def scan(cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" =
     return out
 
 
-def compact(cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: dict, n_true: int) -> torch.Tensor:
+def compact(
+    cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: dict, n_true: int,
+    in_step_ws0: "int | None" = None,
+) -> torch.Tensor:
     """Launch the compaction kernel on trace planes on the card; returns the
-    uint8 blob of ops/batch.compact_plain."""
+    uint8 blob of ops/batch.compact_plain (``in_step_ws0`` as there)."""
     _check(out["sample_start"], "sample_start")
     P, N = dims["P"], dims["N"]
     offs: dict[str, int] = {}
@@ -411,7 +476,13 @@ def compact(cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, out: dict, 
     if cfg.filters:
         a.fail_plug = _check(out["fail_plug"], "fail_plug", torch.int8)
         a.fail_code = _check(out["fail_code"], "fail_code", torch.int32)
-    a.feasible = _check(out["feasible"], "feasible", torch.bool)
+    if in_step_ws0 is not None:
+        if not cfg.filters:
+            raise ValueError("the in-step compaction needs filters: without them the blob carries feasible ids")
+        a.ws0 = in_step_ws0
+        a.feasible_count = _check(out["feasible_count"], "feasible_count", torch.int32)
+    else:
+        a.feasible = _check(out["feasible"], "feasible", torch.bool)
     a.sample_start = _check(out["sample_start"], "sample_start", torch.int32)
     a.sample_processed = _check(out["sample_processed"], "sample_processed", torch.int32)
     a.blob = blob.data_ptr()

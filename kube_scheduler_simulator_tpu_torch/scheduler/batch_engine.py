@@ -7,13 +7,16 @@ encoded once on the host (ops/encode.py), the trace compacted on the card,
 and the per-plugin annotation trail the reference writes onto pods
 reproduced byte for byte from the fetched planes (``BatchResult``).
 
-Kernels: NodeUnschedulable, NodeName, TaintToleration, NodeAffinity,
-NodeResourcesFit, PodTopologySpread and InterPodAffinity filters;
-NodeResourcesFit (LeastAllocated, MostAllocated,
-RequestedToCapacityRatio), NodeResourcesBalancedAllocation,
+Kernels: upstream's whole default profile, the fifteen filters of
+``ops/batch.FILTER_KERNELS`` (NodePorts, VolumeRestrictions, the EBS, GCE
+PD and Azure disk limits, NodeVolumeLimits, VolumeBinding and VolumeZone
+among them) and the scores NodeResourcesFit (LeastAllocated,
+MostAllocated, RequestedToCapacityRatio), NodeResourcesBalancedAllocation,
 ImageLocality, TaintToleration, NodeAffinity, PodTopologySpread and
-InterPodAffinity scores.  ``supported()`` names whatever falls outside
-that set (NodePorts and the volume filters among them).
+InterPodAffinity.  ``supported()`` names a plugin without a batch kernel
+and the workloads the kernels do not model.  Where feasible-node sampling
+narrows the nodes, the scan writes the score planes compacted to the
+sampled width (``ws0``).
 """
 
 from __future__ import annotations
@@ -314,7 +317,7 @@ class BatchEngine:
         hardPodAffinityWeight argument (upstream default 1)."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.device, dtype)
-        self.filters = list(filters if filters is not None else B.SLICE_FILTERS)
+        self.filters = list(filters if filters is not None else B.FILTER_KERNELS)
         self.scores = list(scores if scores is not None else [])
         self.fit_strategy = fit_strategy
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
@@ -337,9 +340,12 @@ class BatchEngine:
 
     # ---------------------------------------------------------- supported
 
-    def supported(self, pending: list[Obj], nodes: list[Obj]) -> "tuple[bool, str]":
+    def supported(
+        self, pending: list[Obj], nodes: list[Obj], volumes: "dict[str, list[Obj]] | None" = None
+    ) -> "tuple[bool, str]":
         """Can this profile × workload run fully on the port's batch path?
-        (False, reason) names what it cannot."""
+        (False, reason) names what it cannot.  ``volumes``: the volume
+        objects ``schedule`` will be given."""
         try:
             B.check_slice(self.cfg)
         except ValueError as exc:
@@ -365,6 +371,17 @@ class BatchEngine:
             return False, f"{len(distinct_ports)} distinct host ports exceed the batch kernel cap"
         if len(distinct_restr) > 128:
             return False, f"{len(distinct_restr)} distinct conflict volumes exceed the batch kernel cap"
+        # a claim that does not exist is VolumeBinding's PreFilter reject of
+        # the whole pod, which the kernel does not model
+        if "VolumeBinding" in self.filters:
+            claims = {
+                (o["metadata"].get("namespace") or "default", o["metadata"]["name"])
+                for o in (volumes or {}).get("persistentvolumeclaims") or []
+            }
+            for p in pending:
+                ns = p["metadata"].get("namespace", "default")
+                if any((ns, c) not in claims for c in vol._pod_pvc_names(p)):
+                    return False, "pod references a missing PersistentVolumeClaim (PreFilter reject)"
         # the Fit filter's reason bitmask covers at most 30 resource columns
         distinct: set = {"cpu", "memory"}
         for p in pending:
@@ -407,22 +424,28 @@ class BatchEngine:
         pr = E.pad_problem(pr)
         t1 = time.perf_counter()
         dp, dims = B.lower(pr, dtype=self.dtype, device=self.device)
+        sample_k = num_feasible_nodes_to_find(len(nodes), self.percentage_of_nodes_to_score)
         dp = dp._replace(
             tb_base=base_counter & B.MASK32,
-            sample_k=num_feasible_nodes_to_find(len(nodes), self.percentage_of_nodes_to_score),
+            sample_k=sample_k,
             start0=start_index % max(len(nodes), 1),
         )
+        # in-step score compaction when sampling narrows the nodes: the
+        # planes are [P, bucket(sample_k)] instead of [P, N]
+        ws0 = B.pick_ws0(self.cfg, dims, sample_k, len(nodes))
         prof.note(rec, "encode", t1 - t0)
         prof.note(rec, "upload", time.perf_counter() - t1)
-        return dict(pr=pr, dp=dp, dims=dims, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec)
+        return dict(pr=pr, dp=dp, dims=dims, ws0=ws0, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec)
 
-    def _compact_dispatch(self, dims: dict, out_dev: dict, packed: np.ndarray, n_true: int):
+    def _compact_dispatch(self, dims: dict, ws0: "int | None", out_dev: dict, packed: np.ndarray, n_true: int):
         """Pick this round's widths and fetch dtypes from the scan's packed
         outputs and trace meta, and run the compaction → (blob, manifest,
         raw_dtypes, WS)."""
         cfg = self.cfg
         W = min(dims["N"], E._bucket(max(int(packed[3].max()) if packed.shape[1] else 1, 1)))
         WS = min(dims["N"], E._bucket(max(int(packed[1].max()) if packed.shape[1] else 1, 1)))
+        if ws0 is not None:
+            WS = min(WS, ws0)  # the in-step planes are [P, ws0]
         mm = out_dev["trace_meta"].cpu().numpy()
         widths = {"int8": 0, "int16": 1, "int32": 2}
         raw_dtypes = []
@@ -434,14 +457,14 @@ class BatchEngine:
             self._raw_dtypes[k] = dt
             raw_dtypes.append(dt)
         raw_dtypes = tuple(raw_dtypes)
-        cfn, manifest = B.build_compact_fn(cfg, dims, W, WS, raw_dtypes, int(mm[-1, 1]))
+        cfn, manifest = B.build_compact_fn(cfg, dims, W, WS, raw_dtypes, int(mm[-1, 1]), in_step_ws0=ws0)
         return cfn(out_dev, n_true), manifest, raw_dtypes, WS
 
     def _finish_prepped(self, ctx: dict) -> BatchResult:
         pr, dp, dims = ctx["pr"], ctx["dp"], ctx["dims"]
         prof, rec = self.profiler, ctx["prof"]
         t2 = time.perf_counter()
-        out_dev = B.build_batch_fn(self.cfg, dims)(dp)
+        out_dev = B.build_batch_fn(self.cfg, dims, ws0=ctx["ws0"])(dp)
         td = time.perf_counter()
         prof.note(rec, "dispatch", td - t2)
         packed = out_dev["packed_pod"].cpu().numpy()
@@ -455,7 +478,7 @@ class BatchEngine:
         tb = time.perf_counter()
         prof.note(rec, "device_blocked", tb - td)
         if self.trace:
-            blob, manifest, raw_dtypes, WS = self._compact_dispatch(dims, out_dev, packed, pr.N_true)
+            blob, manifest, raw_dtypes, WS = self._compact_dispatch(dims, ctx["ws0"], out_dev, packed, pr.N_true)
             fetched = B.unpack_compact_blob(blob.cpu().numpy(), manifest)
             out["trace"] = B.reconstruct_trace(
                 self.cfg, fetched, out["sample_start"], out["sample_processed"],

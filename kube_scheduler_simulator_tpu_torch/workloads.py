@@ -8,7 +8,10 @@ constraints and its preferred podAntiAffinity on request).  ``cluster``
 builds a whole seeded snapshot and adds the features the port's other
 filters and scores read (NoSchedule taints and tolerations, an
 unschedulable node, a nodeName-pinned pod, container images on nodes and
-pods), all drawn from the same seed.
+pods), all drawn from the same seed.  ``add_host_ports`` and
+``add_volumes`` give such a snapshot the host ports, claims, volumes and
+CSI nodes a StatefulSet- and DaemonSet-heavy cluster carries (the
+``volumes`` dict that ``BatchEngine.schedule(..., volumes=)`` reads).
 """
 
 from __future__ import annotations
@@ -146,3 +149,118 @@ def cluster(n_pods: int, n_nodes: int, seed: int = 42, n_bound: int = 0, spread=
     for j, p in enumerate(pods[:n_bound]):
         p["spec"]["nodeName"] = f"node-{j % n_nodes}"
     return nodes, pods, pods[n_bound:]
+
+
+def add_host_ports(pods: list) -> None:
+    """DaemonSet-style host ports, by pod index (bound pods first): pods
+    with ``i % 25 == 11`` take hostPort 8080/TCP, pods with ``i % 40 == 17``
+    443/TCP (disjoint sets)."""
+    for i, p in enumerate(pods):
+        port = 8080 if i % 25 == 11 else 443 if i % 40 == 17 else None
+        if port is not None:
+            p["spec"]["containers"][0]["ports"] = [{"containerPort": port, "hostPort": port, "protocol": "TCP"}]
+
+
+# the object shapes of the JAX package's volume tests
+CSI_DRIVER = "csi.example.com"
+
+
+def mk_pv(name: str, labels=None, node_affinity=None, csi_driver=None) -> dict:
+    pv: dict = {
+        "metadata": {"name": name, "labels": labels or {}},
+        "spec": {"capacity": {"storage": "10Gi"}, "accessModes": ["ReadWriteOnce"]},
+    }
+    if node_affinity is not None:
+        pv["spec"]["nodeAffinity"] = {"required": node_affinity}
+    if csi_driver:
+        pv["spec"]["csi"] = {"driver": csi_driver, "volumeHandle": name}
+    return pv
+
+
+def mk_pvc(name: str, ns: str = "default", volume_name=None, storage_class=None, access="ReadWriteOnce") -> dict:
+    pvc: dict = {
+        "metadata": {"name": name, "namespace": ns},
+        "spec": {"accessModes": [access], "resources": {"requests": {"storage": "1Gi"}}},
+    }
+    if volume_name:
+        pvc["spec"]["volumeName"] = volume_name
+    if storage_class:
+        pvc["spec"]["storageClassName"] = storage_class
+    return pvc
+
+
+def mk_sc(name: str, binding_mode: str = "Immediate", provisioner: str = CSI_DRIVER) -> dict:
+    return {"metadata": {"name": name}, "provisioner": provisioner, "volumeBindingMode": binding_mode}
+
+
+def mk_csinode(node_name: str, driver: str, count: int) -> dict:
+    return {"metadata": {"name": node_name}, "spec": {"drivers": [{"name": driver, "allocatable": {"count": count}}]}}
+
+
+def pvc_volume(claim: str, vol_name: str = "v") -> dict:
+    return {"name": vol_name, "persistentVolumeClaim": {"claimName": claim}}
+
+
+def add_volumes(nodes: list, pods: list, n_bound: int = 0) -> dict:
+    """Give a ``cluster`` snapshot (``pods`` = all pods, bound ones first)
+    volumes by pod index, and return its volume objects:
+
+    - every 10th pod (``i % 10 == 1``) mounts a claim of its own bound to a
+      CSI PV of ``csi.example.com``, alternately one with a zone label
+      (VolumeZone) and one with node affinity on ``disk=ssd``
+      (VolumeBinding code 2);
+    - ``i % 20 == 7`` mounts an unbound WaitForFirstConsumer claim;
+    - ``i % 40 == 23`` mounts one of 16 shared ReadWriteMany CSI claims;
+    - ``i % 50 == 9`` a read-write GCE PD ``pd-{i % 40}``, ``i % 100 == 5``
+      an EBS volume ``vol-{i % 30}``, ``i % 200 == 15`` an Azure disk
+      ``az-{i % 16}`` (VolumeRestrictions and the cloud limits);
+    - every node has a CSINode allowing 24 volumes of the driver, every
+      16th node only 1, and the bound pod on such a node
+      holds a CSI volume of its own (NodeVolumeLimits rejects it for a pod
+      bringing a new one).
+    """
+    vols: dict = {"persistentvolumeclaims": [], "persistentvolumes": [], "storageclasses": [], "csinodes": []}
+    vols["storageclasses"] += [mk_sc("standard"), mk_sc("wfc", binding_mode="WaitForFirstConsumer")]
+    vols["persistentvolumeclaims"] += [
+        mk_pvc(f"shared-{k}", volume_name=f"pv-shared-{k}", access="ReadWriteMany") for k in range(16)
+    ]
+    vols["persistentvolumes"] += [mk_pv(f"pv-shared-{k}", csi_driver=CSI_DRIVER) for k in range(16)]
+    ssd = {"nodeSelectorTerms": [{"matchExpressions": [{"key": "disk", "operator": "In", "values": ["ssd"]}]}]}
+
+    def own_claim(i: int, k: int) -> dict:
+        name = f"data-{i}"
+        zone = {"topology.kubernetes.io/zone": f"zone-{k % 8}"}
+        vols["persistentvolumes"].append(
+            mk_pv(f"pv-{name}", labels=zone if k % 2 == 0 else None, node_affinity=None if k % 2 == 0 else ssd,
+                  csi_driver=CSI_DRIVER)
+        )
+        vols["persistentvolumeclaims"].append(mk_pvc(name, volume_name=f"pv-{name}", storage_class="standard"))
+        return pvc_volume(name)
+
+    full_nodes = {j % len(nodes) for j in range(n_bound) if (j % len(nodes)) % 16 == 0}
+    for i, p in enumerate(pods):
+        v: list = []
+        if i % 10 == 1:
+            v.append(own_claim(i, i // 10))
+        elif i < n_bound and i % len(nodes) in full_nodes:
+            full_nodes.discard(i % len(nodes))
+            v.append(own_claim(i, i // 10))
+        if i % 20 == 7:
+            vols["persistentvolumeclaims"].append(mk_pvc(f"wfc-{i}", storage_class="wfc"))
+            v.append(pvc_volume(f"wfc-{i}"))
+        if i % 40 == 23:
+            v.append(pvc_volume(f"shared-{i % 16}"))
+        if i % 50 == 9:
+            v.append({"name": "pd", "gcePersistentDisk": {"pdName": f"pd-{i % 40}"}})
+        if i % 100 == 5:
+            v.append({"name": "ebs", "awsElasticBlockStore": {"volumeID": f"vol-{i % 30}"}})
+        if i % 200 == 15:
+            v.append({"name": "az", "azureDisk": {"diskName": f"az-{i % 16}", "diskURI": f"uri/az-{i % 16}"}})
+        for k, vol in enumerate(v):
+            vol["name"] = f"{vol['name']}-{k}"
+        if v:
+            p["spec"]["volumes"] = v
+    vols["csinodes"] = [
+        mk_csinode(n["metadata"]["name"], CSI_DRIVER, 1 if j % 16 == 0 else 24) for j, n in enumerate(nodes)
+    ]
+    return vols

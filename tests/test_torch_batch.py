@@ -24,8 +24,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from kube_scheduler_simulator_tpu.ops import batch as JB  # noqa: E402
 from kube_scheduler_simulator_tpu.ops import encode as JE  # noqa: E402
 from kube_scheduler_simulator_tpu.utils import hashing  # noqa: E402
+from test_batch_parity import mk_node, mk_pod  # noqa: E402
 from kube_scheduler_simulator_tpu_torch import interop, workloads  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.ops import batch as TB  # noqa: E402
+from kube_scheduler_simulator_tpu_torch.ops import encode as TE  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -45,10 +47,14 @@ ALL_SCORES = (
 )
 # upstream's default weights for the two topology plugins
 TOPO_SCORES = ALL_SCORES + (("PodTopologySpread", 2), ("InterPodAffinity", 2))
-FIVE_FILTERS = TB.SLICE_FILTERS[:5]
+SEVEN_FILTERS = (
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit",
+    "PodTopologySpread", "InterPodAffinity",
+)
+FIVE_FILTERS = SEVEN_FILTERS[:5]
 # profiles run on the cluster with spread constraints and inter-pod terms
 TOPO_SUBSETS = {
-    "seven": (TB.SLICE_FILTERS, TOPO_SCORES),
+    "seven": (SEVEN_FILTERS, TOPO_SCORES),
     "spread": (("NodeResourcesFit", "PodTopologySpread"), (("NodeResourcesFit", 1), ("PodTopologySpread", 2))),
     "interpod": (("NodeResourcesFit", "InterPodAffinity"), (("NodeResourcesFit", 1), ("InterPodAffinity", 2))),
 }
@@ -144,10 +150,24 @@ def run_both(problem, subset, strategy, tie, sampling, trace):
         start0=np.int32(37 if sampling else 0),
         tb_base=np.uint32(4294967290),
     )
-    want = {k: np.asarray(v) for k, v in JB.build_batch_fn(JB.BatchConfig(**common, sampling=sampling), dims)(jdp).items()}
     tdp, tdims = interop.from_jax_problem(jax_fields(jdp), dims, device="cpu")
+    want = jax_scan(JB.BatchConfig(**common, sampling=sampling), dims, jdp)
     got = TB.build_batch_fn(TB.BatchConfig(**common), tdims)(tdp)
     return want, got
+
+
+# the JAX scan's carry tuple positions of the port's final volume carries
+CARRY_OUTPUTS = {"final_ports_used": 3, "final_restr_used": 4, "final_cloud_used": 5, "final_csi_att": 6}
+
+
+def jax_scan(cfg, dims, jdp, ws0=None) -> dict:
+    """The JAX scan's outputs as numpy, its carry donated so the final
+    carry comes back: the volume carries join under the port's keys."""
+    want = JB.build_batch_fn(cfg, dims, donate=True, ws0=ws0)(jdp)
+    carry = want.pop("_final_carry")
+    want = {key: np.asarray(v) for key, v in want.items()}
+    want.update({key: np.asarray(carry[j]) for key, j in CARRY_OUTPUTS.items()})
+    return want
 
 
 @pytest.mark.parametrize("subset,strategy,tie,sampling,trace", CASES)
@@ -228,8 +248,8 @@ def test_compact_blob_matches_reference(code_max, raw_dtype):
     hi = {"int8": 100, "int16": 30000, "int32": 10**6}[raw_dtype]
     out = _synthetic_out(rng, P, N, nt, code_max, hi)
     rd = (raw_dtype,) * len(ALL_SCORES)
-    jfn, jman = JB.build_compact_fn(JB.BatchConfig(filters=TB.SLICE_FILTERS, scores=ALL_SCORES, trace=True), {"P": P, "N": N}, W, WS, rd, code_max)
-    tfn, tman = TB.build_compact_fn(TB.BatchConfig(filters=TB.SLICE_FILTERS, scores=ALL_SCORES, trace=True), {"P": P, "N": N}, W, WS, rd, code_max)
+    jfn, jman = JB.build_compact_fn(JB.BatchConfig(filters=SEVEN_FILTERS, scores=ALL_SCORES, trace=True), {"P": P, "N": N}, W, WS, rd, code_max)
+    tfn, tman = TB.build_compact_fn(TB.BatchConfig(filters=SEVEN_FILTERS, scores=ALL_SCORES, trace=True), {"P": P, "N": N}, W, WS, rd, code_max)
     assert [tuple(m) for m in jman] == [tuple(m) for m in tman]
     assert TB.fail_pack_mode(code_max, 5) == [9, 200, 30000, 70000].index(code_max)
     want = np.asarray(jfn(out, np.int32(nt)))
@@ -292,11 +312,266 @@ def test_scan_matches_reference_with_an_extended_resource():
     pr = JE.pad_problem(JE.encode(nodes, all_pods, pending))
     dp, dims = JB.lower(pr)
     assert dims["R"] == 3
-    common = dict(filters=TB.SLICE_FILTERS, scores=ALL_SCORES, trace=True, tie_break="reservoir", seed=2)
-    want = JB.build_batch_fn(JB.BatchConfig(**common), dims)(dp)
+    common = dict(filters=SEVEN_FILTERS, scores=ALL_SCORES, trace=True, tie_break="reservoir", seed=2)
     tdp, tdims = interop.from_jax_problem(jax_fields(dp), dims, device="cpu")
+    want = jax_scan(JB.BatchConfig(**common), dims, dp)
     got = TB.build_batch_fn(TB.BatchConfig(**common), tdims)(tdp)
+    assert set(want) == set(got)
     for k, v in want.items():
-        assert np.array_equal(np.asarray(v), got[k].numpy()), k
+        assert np.array_equal(v, got[k].numpy()), k
     bit = 1 << (pr.resource_names.index("example.com/accel") + 1)
     assert (np.asarray(want["fail_code"]) & bit).any()  # an "Insufficient example.com/accel"
+
+
+# ------------------------------------------- host ports and volumes (K2d)
+
+# upstream's default filters in the registry's order, and its scores with
+# their default weights
+DEFAULT_FILTERS = (
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodePorts", "NodeResourcesFit",
+    "VolumeRestrictions", "EBSLimits", "GCEPDLimits", "NodeVolumeLimits", "AzureDiskLimits",
+    "VolumeBinding", "VolumeZone", "PodTopologySpread", "InterPodAffinity",
+)
+DEFAULT_SCORES = (
+    ("TaintToleration", 3), ("NodeAffinity", 2), ("NodeResourcesFit", 1), ("PodTopologySpread", 2),
+    ("InterPodAffinity", 2), ("NodeResourcesBalancedAllocation", 1), ("ImageLocality", 1),
+)
+def _nodes(n, **labels_of):
+    return [
+        mk_node(f"node-{i}", 8000, 16384, labels={k: f(i) for k, f in labels_of.items()}) for i in range(n)
+    ]
+
+
+def _bound(pod, node):
+    pod["spec"]["nodeName"] = node
+    return pod
+
+
+def _host_port_case():
+    """Two pending pods want hostPort 8080: the second cannot share the
+    first one's node."""
+    nodes = _nodes(3)
+    port = [{"name": "c", "ports": [{"containerPort": 80, "hostPort": 8080}]}]
+    pending = [mk_pod(f"p{i}", cpu_m=100) for i in range(2)]
+    for p in pending:
+        p["spec"]["containers"][0].update(port[0])
+    return nodes, pending, pending, {}, ("NodePorts", 0, 1)
+
+
+def _gce_pd_case():
+    """A read-write GCE PD held by a bound pod on node-0 and wanted by two
+    pending pods: the disk conflicts on node-0 and, for the second pod, on
+    the first one's node."""
+    nodes = _nodes(4)
+    disk = lambda: [{"name": "d", "gcePersistentDisk": {"pdName": "disk-a"}}]
+    bound = _bound(mk_pod("holder", cpu_m=100, volumes=disk()), "node-0")
+    pending = [mk_pod(f"p{i}", cpu_m=100, volumes=disk()) for i in range(2)]
+    return nodes, [bound] + pending, pending, {}, ("VolumeRestrictions", 0, 1)
+
+
+def _ebs_case():
+    """node-0 already holds EBSLimits' default 39 EBS volumes."""
+    nodes = _nodes(3)
+    held = [{"name": f"e{k}", "awsElasticBlockStore": {"volumeID": f"held-{k}"}} for k in range(39)]
+    bound = _bound(mk_pod("holder", cpu_m=100, volumes=held), "node-0")
+    pending = [
+        mk_pod(f"p{i}", cpu_m=100, volumes=[{"name": "e", "awsElasticBlockStore": {"volumeID": f"vol-{i}"}}])
+        for i in range(3)
+    ]
+    return nodes, [bound] + pending, pending, {}, None
+
+
+def _csi_case():
+    """CSI nodes allow two volumes of the driver; node-0 already attaches
+    one no pending pod mounts.  p0 and p1 share a claim, which the node
+    that holds it counts once: p1 fits beside p0, p2 (with a new one) does
+    not."""
+    nodes = _nodes(3)
+    drv = workloads.CSI_DRIVER
+    vols = {
+        "persistentvolumes": [workloads.mk_pv(n, csi_driver=drv) for n in ("pv-s", "pv-x", "pv-y", "pv-b")],
+        "persistentvolumeclaims": [
+            workloads.mk_pvc("shared", volume_name="pv-s", access="ReadWriteMany"),
+            workloads.mk_pvc("x", volume_name="pv-x"),
+            workloads.mk_pvc("y", volume_name="pv-y"),
+            workloads.mk_pvc("b", volume_name="pv-b"),
+        ],
+        "storageclasses": [],
+        "csinodes": [workloads.mk_csinode(n["metadata"]["name"], drv, 2) for n in nodes],
+    }
+    claims = lambda *c: [workloads.pvc_volume(x, f"v{k}") for k, x in enumerate(c)]
+    bound = _bound(mk_pod("holder", cpu_m=100, volumes=claims("b")), "node-0")
+    pending = [
+        mk_pod("p0", cpu_m=100, volumes=claims("shared", "x")),
+        mk_pod("p1", cpu_m=100, volumes=claims("shared")),
+        mk_pod("p2", cpu_m=100, volumes=claims("shared", "y")),
+    ]
+    return nodes, [bound] + pending, pending, vols, ("NodeVolumeLimits", 0, 2)
+
+
+def _binding_case():
+    """An unbound Immediate claim fails everywhere (code 1); a claim bound
+    to a PV pinned to disk=ssd fails the hdd nodes (code 2)."""
+    nodes = _nodes(4, disk=lambda i: "ssd" if i % 2 else "hdd")
+    ssd = {"nodeSelectorTerms": [{"matchExpressions": [{"key": "disk", "operator": "In", "values": ["ssd"]}]}]}
+    vols = {
+        "persistentvolumes": [workloads.mk_pv("pv-pinned", node_affinity=ssd)],
+        "persistentvolumeclaims": [
+            workloads.mk_pvc("pinned", volume_name="pv-pinned"),
+            workloads.mk_pvc("unbound", storage_class="imm"),
+        ],
+        "storageclasses": [workloads.mk_sc("imm")],
+        "csinodes": [],
+    }
+    pending = [
+        mk_pod("p0", cpu_m=100, volumes=[workloads.pvc_volume("unbound")]),
+        mk_pod("p1", cpu_m=100, volumes=[workloads.pvc_volume("pinned")]),
+    ]
+    return nodes, pending, pending, vols, None
+
+
+def _zone_case():
+    """A PV labelled with zone z0: the z1 nodes fail VolumeZone."""
+    nodes = _nodes(4, **{"topology.kubernetes.io/zone": lambda i: f"z{i % 2}"})
+    vols = {
+        "persistentvolumes": [workloads.mk_pv("pv-z", labels={"topology.kubernetes.io/zone": "z0"})],
+        "persistentvolumeclaims": [workloads.mk_pvc("zoned", volume_name="pv-z")],
+        "storageclasses": [],
+        "csinodes": [],
+    }
+    pending = [mk_pod(f"p{i}", cpu_m=100, volumes=[workloads.pvc_volume("zoned")]) for i in range(2)]
+    return nodes, pending, pending, vols, None
+
+
+def _all_fifteen_case():
+    """workloads.cluster with bench's topology, host ports and volumes, bound
+    pods holding them too."""
+    nodes, all_pods, pending = workloads.cluster(
+        48, 130, seed=5, n_bound=40, spread=lambda i: i % 3 == 0, interpod=lambda i: True,
+    )
+    workloads.add_host_ports(all_pods)
+    return nodes, all_pods, pending, workloads.add_volumes(nodes, all_pods, 40), None
+
+
+# name: (builder, filters, first-failure codes the round must show)
+VOLUME_CASES = {
+    "host_port": (_host_port_case, DEFAULT_FILTERS, {"NodePorts": {1}}),
+    "gce_pd_conflict": (_gce_pd_case, DEFAULT_FILTERS, {"VolumeRestrictions": {1}}),
+    "ebs_limit": (_ebs_case, DEFAULT_FILTERS, {"EBSLimits": {1}}),
+    "csi_limit_shared_claim": (_csi_case, DEFAULT_FILTERS, {"NodeVolumeLimits": {1}}),
+    "volume_binding": (_binding_case, DEFAULT_FILTERS, {"VolumeBinding": {1, 2}}),
+    "volume_zone": (_zone_case, DEFAULT_FILTERS, {"VolumeZone": {1}}),
+    "all_fifteen": (
+        _all_fifteen_case, DEFAULT_FILTERS,
+        {"NodePorts": {1}, "NodeVolumeLimits": {1}, "VolumeBinding": {2}, "VolumeZone": {1}},
+    ),
+}
+
+
+def run_both_encoders(objs, filters, scores, tie="first", sample_k=None, start0=0, ws0=None):
+    """The same objects through both packages' encode + pad + lower, then
+    the JAX scan (carry donated, so its final carry comes back) and the
+    port's plain scan, in float64: every output equal, the final volume
+    carries included.  Returns the JAX outputs."""
+    nodes, all_pods, pending, vols = objs
+    jpr = JE.pad_problem(JE.encode(nodes, all_pods, pending, volumes=vols))
+    tpr = TE.pad_problem(TE.encode(nodes, all_pods, pending, volumes=vols))
+    k = sample_k or jpr.N_true
+    jdp, dims = JB.lower(jpr)
+    jdp = jdp._replace(sample_k=np.int32(k), start0=np.int32(start0), tb_base=np.uint32(11))
+    common = dict(filters=tuple(filters), scores=tuple(scores), trace=True, tie_break=tie, seed=7)
+    want = jax_scan(JB.BatchConfig(**common), dims, jdp, ws0)
+    tdp, tdims = TB.lower(tpr, dtype=torch.float64, device="cpu")
+    tdp = tdp._replace(sample_k=k, start0=start0, tb_base=11)
+    got = TB.build_batch_fn(TB.BatchConfig(**common), tdims, ws0=ws0)(tdp)
+    assert set(want) == set(got)
+    for key, v in want.items():
+        g = got[key].numpy()
+        assert g.shape == v.shape and np.array_equal(g, v), key
+    return want
+
+
+@pytest.mark.parametrize("case", list(VOLUME_CASES))
+def test_volume_and_port_filters_match_reference(case):
+    build, filters, codes = VOLUME_CASES[case]
+    nodes, all_pods, pending, vols, pair = build()
+    want = run_both_encoders((nodes, all_pods, pending, vols), filters, DEFAULT_SCORES)
+    P = len(pending)
+    fp, fc = want["fail_plug"][:P], want["fail_code"][:P]
+    for plugin, expect in codes.items():
+        hit = fp == filters.index(plugin)
+        assert set(np.unique(fc[hit]).tolist()) == expect, plugin
+    if pair is not None:
+        # pod `later` fails `plugin` on the node pod `first` took
+        plugin, first, later = pair
+        node = int(want["selected"][first])
+        assert node >= 0 and fp[later, node] == filters.index(plugin) and fc[later, node] == 1
+    if case == "csi_limit_shared_claim":
+        node = int(want["selected"][0])
+        assert fp[1, node] == -1  # the shared claim is already attached there
+    if case == "all_fifteen":
+        assert want["final_csi_att"].any() and want["final_ports_used"].any()
+
+
+# ------------------------------------------------- in-step compaction (K2f)
+
+def _in_step(problem, tie, ws0):
+    """Both scans on the topology problem with 100 of 130 nodes sampled
+    from a rotated start, the score planes compacted to ``ws0``."""
+    pr, dp, dims = problem
+    common = dict(filters=SEVEN_FILTERS, scores=TOPO_SCORES, trace=True, tie_break=tie, seed=7)
+    jdp = dp._replace(sample_k=np.int32(100), start0=np.int32(37), tb_base=np.uint32(99))
+    tdp, tdims = interop.from_jax_problem(jax_fields(jdp), dims, device="cpu")
+    want = jax_scan(JB.BatchConfig(**common), dims, jdp, ws0)
+    got = TB.build_batch_fn(TB.BatchConfig(**common), tdims, ws0=ws0)(tdp)
+    return want, got
+
+
+WS0 = 112  # bucket(100) < N = 160
+
+
+@pytest.mark.parametrize("tie", ["first", "reservoir"])
+def test_in_step_compaction_matches_reference(topo_problem, tie):
+    want, got = _in_step(topo_problem, tie, WS0)
+    assert "feasible" not in want and set(want) == set(got)
+    for k, v in want.items():
+        g = got[k].numpy()
+        assert g.shape == v.shape and np.array_equal(g, v), k
+    assert want["raw:NodeResourcesFit"].shape == (topo_problem[2]["P"], WS0)
+
+
+def _blob(cfg_mod, want, pr, dims, in_step):
+    packed = want["packed_pod"]
+    W = min(dims["N"], JE._bucket(int(packed[3].max())))
+    WS = min(dims["N"], JE._bucket(int(packed[1].max())), WS0)
+    mm = want["trace_meta"]
+    rd = tuple(JB.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(TOPO_SCORES)))
+    cfg = cfg_mod.BatchConfig(filters=SEVEN_FILTERS, scores=TOPO_SCORES, trace=True)
+    fn, _man = cfg_mod.build_compact_fn(cfg, dims, W, WS, rd, int(mm[-1, 1]), in_step_ws0=WS0 if in_step else None)
+    return fn, W, WS
+
+
+def test_in_step_compaction_blob_matches_reference(topo_problem):
+    pr, _dp, dims = topo_problem
+    want, got = _in_step(topo_problem, "reservoir", WS0)
+    jfn, _W, _WS = _blob(JB, want, pr, dims, True)
+    tfn, _W, _WS = _blob(TB, want, pr, dims, True)
+    assert np.array_equal(np.asarray(jfn(want, np.int32(pr.N_true))), tfn(got, pr.N_true).numpy())
+
+
+def test_in_step_compaction_blob_equals_the_full_plane_blob(topo_problem):
+    """The compacted planes make the same blob as the [P,N] planes compacted
+    after the scan, at the width a round picks."""
+    pr, _dp, dims = topo_problem
+    _want, step = _in_step(topo_problem, "first", WS0)
+    _want, full = _in_step(topo_problem, "first", None)
+    assert "feasible" in full and "feasible" not in step
+    assert torch.equal(step["trace_meta"], full["trace_meta"])
+    np_step = {k: v.numpy() for k, v in step.items()}
+    fn_step, W, WS = _blob(TB, np_step, pr, dims, True)
+    fn_full, W2, WS2 = _blob(TB, np_step, pr, dims, False)
+    assert (W, WS) == (W2, WS2) and WS <= WS0
+    # every row is a pod's here (48 pods pad to 48): no padding row, whose
+    # sampled cells the full planes keep and the compacted ones mask
+    assert pr.P_true == dims["P"]
+    assert torch.equal(fn_step(step, pr.N_true), fn_full(full, pr.N_true))

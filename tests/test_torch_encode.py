@@ -51,7 +51,15 @@ def _empty():
     return nodes, all_pods, []
 
 
-CLUSTERS = {"graft": _graft, "cfg2": _cfg2, "empty": _empty}
+def _storage():
+    # host ports, bound and unbound claims, shared claims, cloud disks and
+    # CSI nodes, held by bound pods too
+    nodes, all_pods, pending = workloads.cluster(60, 70, seed=4, n_bound=40)
+    workloads.add_host_ports(all_pods)
+    return nodes, all_pods, pending, workloads.add_volumes(nodes, all_pods, 40)
+
+
+CLUSTERS = {"graft": _graft, "cfg2": _cfg2, "empty": _empty, "storage": _storage}
 
 
 def jax_fields(dp) -> dict:
@@ -79,9 +87,10 @@ def assert_same_value(name, want, got):
 
 
 def _encode_both(which):
-    nodes, all_pods, pending = CLUSTERS[which]()
-    jpr = JE.pad_problem(JE.encode(nodes, all_pods, pending))
-    tpr = TE.pad_problem(TE.encode(nodes, all_pods, pending))
+    nodes, all_pods, pending, *vols = CLUSTERS[which]()
+    vols = vols[0] if vols else {}
+    jpr = JE.pad_problem(JE.encode(nodes, all_pods, pending, volumes=vols))
+    tpr = TE.pad_problem(TE.encode(nodes, all_pods, pending, volumes=vols))
     return jpr, tpr
 
 
@@ -106,7 +115,18 @@ def test_lower_matches_reference(which):
     assert tdims == jdims
     jf = jax_fields(jdp)
     for name in TB.DeviceProblem._fields:
-        assert_same_value(name, jf[name], getattr(tdp, name))
+        if name not in TB.LIST_FIELDS:
+            assert_same_value(name, jf[name], getattr(tdp, name))
+    # the port's own per-pod column lists: each row's set columns, ascending
+    lists = TB.volume_lists(jf["pod_ports"], jf["pod_restr"], jf["pod_csi"], jf["csi_drv_oh"])
+    for name in TB.LIST_FIELDS:
+        assert np.array_equal(getattr(tdp, name).numpy(), lists[name]), name
+    for mask, name in ((jf["pod_ports"], "port_cols"), (jf["pod_restr"], "restr_cols"), (jf["pod_csi"], "csi_cols")):
+        for i in range(mask.shape[0]):
+            row = lists[name][i]
+            assert row[row >= 0].tolist() == np.nonzero(mask[i])[0].tolist(), (name, i)
+    if which == "storage":
+        assert all(lists[n].max() >= 0 for n in TB.LIST_FIELDS)
     # every port field is a JAX field; the JAX-only ones are the on-device
     # expansion placeholders, the traced weight vector and the one-hot key
     # expansion (the port gathers through node_domain and gdom instead)

@@ -15,6 +15,7 @@ import sys
 from pathlib import Path
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -43,9 +44,25 @@ SCORES = [
     ("NodeAffinity", 2),
 ]
 RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))
-# the seven-plugin profile: upstream's default filters and scores, with
-# their default weights, minus what the port has no kernel for
+# the seven-plugin profile: upstream's default scores with their default
+# weights, and its filters without NodePorts and the volume filters
 TOPO_SCORES = SCORES + [("PodTopologySpread", 2), ("InterPodAffinity", 2)]
+SEVEN_FILTERS = [
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit",
+    "PodTopologySpread", "InterPodAffinity",
+]
+# upstream's default profile as the service's default configuration hands
+# it to the engine: every filter in the registry's order, the scores in
+# that order with their default weights
+REGISTRY_FILTERS = [
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodePorts", "NodeResourcesFit",
+    "VolumeRestrictions", "EBSLimits", "GCEPDLimits", "NodeVolumeLimits", "AzureDiskLimits",
+    "VolumeBinding", "VolumeZone", "PodTopologySpread", "InterPodAffinity",
+]
+DEFAULT_SCORES = [
+    ("TaintToleration", 3), ("NodeAffinity", 2), ("NodeResourcesFit", 1), ("PodTopologySpread", 2),
+    ("InterPodAffinity", 2), ("NodeResourcesBalancedAllocation", 1), ("ImageLocality", 1),
+]
 
 
 @pytest.fixture(scope="module")
@@ -60,13 +77,14 @@ def topo_cluster():
     return workloads.cluster(48, 130, seed=9, n_bound=40, spread=lambda i: i % 3 == 0, interpod=lambda i: True)
 
 
-def assert_rounds_match(ref, port, nodes, all_pods, pending, rounds=((0, 0), (1000, 17))):
+def assert_rounds_match(ref, port, nodes, all_pods, pending, rounds=((0, 0), (1000, 17)), volumes=None):
     """Both engines schedule the same snapshot; selections and every
     annotation document must be equal byte for byte."""
-    assert port.supported(pending, nodes) == (True, "")
+    assert port.supported(pending, nodes, volumes) == (True, "")
     for base_counter, start_index in rounds:
-        want = ref.schedule(nodes, all_pods, pending, base_counter=base_counter, start_index=start_index)
-        got = port.schedule(nodes, all_pods, pending, base_counter=base_counter, start_index=start_index)
+        kw = dict(base_counter=base_counter, start_index=start_index, volumes=volumes)
+        want = ref.schedule(nodes, all_pods, pending, **kw)
+        got = port.schedule(nodes, all_pods, pending, **kw)
         assert got.selected_nodes == want.selected_nodes
         assert got.final_start == want.final_start
         assert any(s is not None for s in got.selected_nodes)
@@ -89,7 +107,7 @@ def assert_rounds_match(ref, port, nodes, all_pods, pending, rounds=((0, 0), (10
 def test_rounds_match_reference_byte_for_byte(request, tie_break, percentage, strategy, profile, hard_weight):
     nodes, all_pods, pending = request.getfixturevalue("cluster" if profile == "five" else "topo_cluster")
     kw = dict(
-        filters=list(TB.SLICE_FILTERS), scores=SCORES if profile == "five" else TOPO_SCORES,
+        filters=SEVEN_FILTERS, scores=SCORES if profile == "five" else TOPO_SCORES,
         fit_strategy=strategy, fit_shape=RTCR_SHAPE if strategy == "RequestedToCapacityRatio" else None,
         percentage_of_nodes_to_score=percentage, trace=True, tie_break=tie_break, seed=3,
         hard_pod_affinity_weight=hard_weight,
@@ -189,17 +207,141 @@ def test_round_reports_timings_and_profile(cluster):
 
 def test_supported_rejects_what_the_port_has_no_kernel_for(cluster):
     nodes, _all_pods, pending = cluster
-    eng = BatchEngine(filters=list(TB.SLICE_FILTERS) + ["NodePorts"], scores=TOPO_SCORES, device="cpu")
-    ok, why = eng.supported(pending, nodes)
-    assert not ok and why == "filter plugin NodePorts is not ported to the PyTorch scan yet"
-    eng = BatchEngine(filters=list(TB.SLICE_FILTERS) + ["VolumeBinding"], scores=TOPO_SCORES, device="cpu")
-    ok, why = eng.supported(pending, nodes)
-    assert not ok and "VolumeBinding" in why
-    assert BatchEngine(filters=list(TB.SLICE_FILTERS), scores=TOPO_SCORES, device="cpu").supported(pending, nodes) == (True, "")
-    ok, why = BatchEngine(filters=["Coscheduling"], device="cpu").supported(pending, nodes)
+    # the whole default profile is ported, in either order
+    for filters in (REGISTRY_FILTERS, None):
+        assert BatchEngine(filters=filters, scores=DEFAULT_SCORES, device="cpu").supported(pending, nodes) == (True, "")
+    ok, why = BatchEngine(filters=REGISTRY_FILTERS + ["Coscheduling"], device="cpu").supported(pending, nodes)
     assert not ok and why == "filter plugin Coscheduling has no batch kernel"
+    ok, why = BatchEngine(scores=SCORES + [("NodeResourcesFitPlus", 1)], device="cpu").supported(pending, nodes)
+    assert not ok and why == "score plugin NodeResourcesFitPlus has no batch kernel"
+    # the encoder's caps: 128 distinct host ports, 128 conflict volumes
+    many = [dict(p, spec=dict(p["spec"])) for p in pending[:1] * 129]
+    for k, p in enumerate(many):
+        p["spec"]["containers"] = [dict(p["spec"]["containers"][0], ports=[{"containerPort": 80, "hostPort": 9000 + k}])]
+    ok, why = BatchEngine(device="cpu").supported(many, nodes)
+    assert not ok and why == "129 distinct host ports exceed the batch kernel cap"
+    assert BatchEngine(device="cpu").supported(many[:128], nodes) == (True, "")
+    for k, p in enumerate(many):
+        p["spec"]["containers"] = pending[0]["spec"]["containers"]
+        p["spec"]["volumes"] = [{"name": "d", "gcePersistentDisk": {"pdName": f"disk-{k}"}}]
+    ok, why = BatchEngine(device="cpu").supported(many, nodes)
+    assert not ok and why == "129 distinct conflict volumes exceed the batch kernel cap"
+    # a claim that does not exist is VolumeBinding's PreFilter reject
+    claimed = [dict(pending[0], spec=dict(pending[0]["spec"], volumes=[workloads.pvc_volume("gone")]))]
+    ok, why = BatchEngine(device="cpu").supported(claimed, nodes, {"persistentvolumeclaims": []})
+    assert not ok and "missing PersistentVolumeClaim" in why
+    present = {"persistentvolumeclaims": [workloads.mk_pvc("gone")]}
+    assert BatchEngine(device="cpu").supported(claimed, nodes, present) == (True, "")
     ok, why = BatchEngine(scores=SCORES, device="cpu").supported(pending, [])
     assert not ok and why == "no nodes in cluster"
     nominated = dict(pending[0], status={"nominatedNodeName": "node-1"})
     ok, why = BatchEngine(scores=SCORES, device="cpu").supported([nominated], nodes)
     assert not ok and "nominated" in why
+
+
+def test_default_filters_equal_the_reference_engines():
+    assert BatchEngine(device="cpu").filters == JaxEngine(incremental=False).filters == list(TB.FILTER_KERNELS)
+
+
+@pytest.fixture(scope="module")
+def storage_cluster():
+    """The topology cluster with DaemonSet host ports and volumes (own and
+    shared claims, WaitForFirstConsumer claims, cloud disks, CSI nodes),
+    bound pods holding them too."""
+    nodes, all_pods, pending = workloads.cluster(
+        48, 130, seed=9, n_bound=40, spread=lambda i: i % 3 == 0, interpod=lambda i: True,
+    )
+    workloads.add_host_ports(all_pods)
+    return nodes, all_pods, pending, workloads.add_volumes(nodes, all_pods, 40)
+
+
+@pytest.mark.parametrize(
+    "order,tie_break,percentage",
+    [
+        ("registry", "first", 100),
+        ("registry", "reservoir", 30),  # 100 of 130 nodes sampled: in-step compaction
+        ("kernels", "reservoir", 100),
+        ("kernels", "first", 30),
+    ],
+)
+def test_default_profile_rounds_match_reference_byte_for_byte(storage_cluster, order, tie_break, percentage):
+    nodes, all_pods, pending, vols = storage_cluster
+    kw = dict(
+        filters=REGISTRY_FILTERS if order == "registry" else None, scores=DEFAULT_SCORES,
+        percentage_of_nodes_to_score=percentage, trace=True, tie_break=tie_break, seed=3,
+    )
+    port = BatchEngine(**kw, device="cpu")
+    assert_rounds_match(JaxEngine(**kw, incremental=False), port, nodes, all_pods, pending, volumes=vols)
+    res = port.schedule(nodes, all_pods, pending, volumes=vols)
+    failed = {port.cfg.filters[k] for k in np.unique(res.out["trace"]["fail_plug"]) if k >= 0}
+    assert {"NodePorts", "NodeVolumeLimits", "VolumeBinding", "VolumeZone"} <= failed
+
+
+def _mixed_everything(seed):
+    """tests/test_batch_volumes.py's cross-feature workload (bound and
+    WaitForFirstConsumer claims, GCE PD conflicts, CSI limits, host ports,
+    images, taints, node and inter-pod affinity, spread) as objects."""
+    import random
+
+    rng = random.Random(seed)
+    ssd = {"nodeSelectorTerms": [{"matchExpressions": [{"key": "disk", "operator": "In", "values": ["ssd"]}]}]}
+    vols = {
+        "storageclasses": [workloads.mk_sc("wfc", binding_mode="WaitForFirstConsumer")],
+        "persistentvolumes": [
+            workloads.mk_pv("pv-pinned", labels={"topology.kubernetes.io/zone": "z0"}, node_affinity=ssd)
+        ],
+        "persistentvolumeclaims": [workloads.mk_pvc("claim-pinned", volume_name="pv-pinned")]
+        + [workloads.mk_pvc(f"claim-wfc-{c}", storage_class="wfc") for c in range(4)],
+        "csinodes": [],
+    }
+    nodes = []
+    for i in range(12):
+        node = mk_node(
+            f"node-{i}", 8000, 16384,
+            labels={"topology.kubernetes.io/zone": f"z{i % 3}", "kubernetes.io/hostname": f"node-{i}",
+                    "disk": "ssd" if i % 2 else "hdd"},
+            taints=[{"key": "spot", "value": "t", "effect": "PreferNoSchedule"}] if i % 5 == 0 else None,
+        )
+        node["status"]["images"] = (
+            [{"names": [f"img-{i % 2}:v1"], "sizeBytes": 400 * 1024 * 1024}] if i % 3 == 0 else []
+        )
+        nodes.append(node)
+        vols["csinodes"].append(workloads.mk_csinode(f"node-{i}", workloads.CSI_DRIVER, 2))
+    pods = []
+    for i in range(36):
+        p = mk_pod(f"pod-{i}", cpu_m=rng.choice([100, 250, 500]), mem_mi=rng.choice([128, 256]),
+                   labels={"app": f"app-{i % 4}"})
+        spec = p["spec"]
+        spec["containers"][0]["image"] = f"img-{i % 2}:v1"
+        if i % 6 == 0:
+            spec["volumes"] = [workloads.pvc_volume("claim-pinned")]
+        elif i % 6 == 1:
+            spec["volumes"] = [workloads.pvc_volume(f"claim-wfc-{i % 4}")]
+        elif i % 6 == 2:
+            spec["volumes"] = [{"name": "d", "gcePersistentDisk": {"pdName": f"disk-{i % 3}", "readOnly": i % 2 == 0}}]
+        if i % 7 == 0:
+            spec["containers"][0]["ports"] = [{"containerPort": 80, "hostPort": 8000 + (i % 3)}]
+        if i % 4 == 0:
+            spec["nodeSelector"] = {"disk": "ssd"}
+        if i % 3 == 0:
+            spec["topologySpreadConstraints"] = [{
+                "maxSkew": 3, "topologyKey": "topology.kubernetes.io/zone", "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchLabels": {"app": f"app-{i % 4}"}},
+            }]
+        if i % 5 == 1:
+            spec["affinity"] = {"podAntiAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [{
+                "weight": 7, "podAffinityTerm": {
+                    "labelSelector": {"matchLabels": {"app": f"app-{i % 4}"}},
+                    "topologyKey": "kubernetes.io/hostname"},
+            }]}}
+        pods.append(p)
+    return nodes, pods, vols
+
+
+def test_mixed_everything_default_profile_matches_byte_for_byte():
+    nodes, pods, vols = _mixed_everything(4242)
+    kw = dict(filters=REGISTRY_FILTERS, scores=DEFAULT_SCORES, trace=True)
+    assert_rounds_match(
+        JaxEngine(**kw, incremental=False), BatchEngine(**kw, device="cpu"), nodes, pods, pods,
+        rounds=((0, 0),), volumes=vols,
+    )

@@ -33,6 +33,20 @@ SCORES = (
     ("NodeAffinity", 2),
 )
 TOPO_SCORES = SCORES + (("PodTopologySpread", 2), ("InterPodAffinity", 2))
+SEVEN_FILTERS = (
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit",
+    "PodTopologySpread", "InterPodAffinity",
+)
+# upstream's default profile: the registry's filter order, its scores and weights
+REGISTRY_FILTERS = (
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodePorts", "NodeResourcesFit",
+    "VolumeRestrictions", "EBSLimits", "GCEPDLimits", "NodeVolumeLimits", "AzureDiskLimits",
+    "VolumeBinding", "VolumeZone", "PodTopologySpread", "InterPodAffinity",
+)
+DEFAULT_SCORES = (
+    ("TaintToleration", 3), ("NodeAffinity", 2), ("NodeResourcesFit", 1), ("PodTopologySpread", 2),
+    ("InterPodAffinity", 2), ("NodeResourcesBalancedAllocation", 1), ("ImageLocality", 1),
+)
 
 
 def _struct_fields(src: str, name: str) -> "list[str]":
@@ -66,14 +80,21 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "fast_math" not in flags and "fast-math" not in flags
 
 
-def _problem(dtype, device, extended=False, sampling=True, n_pods=48, n_nodes=130, topo=False, zone_of=None):
+def _problem(
+    dtype, device, extended=False, sampling=True, n_pods=48, n_nodes=130, topo=False, zone_of=None, storage=False,
+):
     """48 pending pods over 130 nodes, 40 bound; ``extended`` adds a third
     checked resource (an extended resource on every 3rd node and pod);
     ``topo`` adds spread constraints on every 3rd pod and inter-pod terms on
     every pod, and takes node 13's zone label away; ``zone_of(i)`` relabels
-    node i's zone."""
+    node i's zone; ``storage`` adds host ports and volumes
+    (``workloads.add_host_ports``, ``add_volumes``)."""
     topo_kw = dict(spread=lambda i: i % 3 == 0, interpod=lambda i: True) if topo else {}
     nodes, all_pods, pending = workloads.cluster(n_pods, n_nodes, seed=5, n_bound=40, **topo_kw)
+    vols = {}
+    if storage:
+        workloads.add_host_ports(all_pods)
+        vols = workloads.add_volumes(nodes, all_pods, 40)
     if topo:
         del nodes[13]["metadata"]["labels"]["topology.kubernetes.io/zone"]
     if zone_of is not None:
@@ -87,7 +108,7 @@ def _problem(dtype, device, extended=False, sampling=True, n_pods=48, n_nodes=13
         for i, p in enumerate(pending):
             if i % 3 == 0:
                 p["spec"]["containers"][0]["resources"]["requests"]["example.com/accel"] = "1"
-    pr = TE.pad_problem(TE.encode(nodes, all_pods, pending))
+    pr = TE.pad_problem(TE.encode(nodes, all_pods, pending, volumes=vols))
     dp, dims = TB.lower(pr, dtype=dtype, device=device)
     if sampling:
         dp = dp._replace(sample_k=100, start0=37, tb_base=4294967290)
@@ -98,7 +119,7 @@ def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises; CPU tensors reach the plain
     versions through build_batch_fn, never through a wrapper."""
     pr, dp, dims = _problem(torch.float64, "cpu")
-    cfg = TB.BatchConfig(filters=TB.SLICE_FILTERS, scores=SCORES, trace=True)
+    cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=SCORES, trace=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.scan(cfg, dims, dp)
     out = TB.build_batch_fn(cfg, dims)(dp)
@@ -113,16 +134,16 @@ SPREAD_ONLY = (("NodeResourcesFit", "PodTopologySpread"), (("NodeResourcesFit", 
 INTERPOD_ONLY = (("NodeResourcesFit", "InterPodAffinity"), (("NodeResourcesFit", 1), ("InterPodAffinity", 2)))
 # (filters, scores, fit_strategy, tie_break, sampling, trace, extended, topo)
 GPU_CASES = [
-    (TB.SLICE_FILTERS, SCORES, "LeastAllocated", "first", True, True, False, False),
-    (TB.SLICE_FILTERS, SCORES, "MostAllocated", "reservoir", True, True, True, False),
-    (TB.SLICE_FILTERS, SCORES, "RequestedToCapacityRatio", "reservoir", False, True, False, False),
-    (TB.SLICE_FILTERS, SCORES, "LeastAllocated", "reservoir", True, False, True, False),
+    (SEVEN_FILTERS, SCORES, "LeastAllocated", "first", True, True, False, False),
+    (SEVEN_FILTERS, SCORES, "MostAllocated", "reservoir", True, True, True, False),
+    (SEVEN_FILTERS, SCORES, "RequestedToCapacityRatio", "reservoir", False, True, False, False),
+    (SEVEN_FILTERS, SCORES, "LeastAllocated", "reservoir", True, False, True, False),
     (("NodeResourcesFit",), SCORES[:2], "RequestedToCapacityRatio", "first", True, True, True, False),
     (("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity"), SCORES[2:], "LeastAllocated", "first", False, True, False, False),
     ((), SCORES, "MostAllocated", "reservoir", True, True, False, False),
-    (TB.SLICE_FILTERS, (), "LeastAllocated", "first", True, True, False, False),
-    (TB.SLICE_FILTERS, TOPO_SCORES, "LeastAllocated", "first", True, True, False, True),
-    (TB.SLICE_FILTERS, TOPO_SCORES, "MostAllocated", "reservoir", False, False, True, True),
+    (SEVEN_FILTERS, (), "LeastAllocated", "first", True, True, False, False),
+    (SEVEN_FILTERS, TOPO_SCORES, "LeastAllocated", "first", True, True, False, True),
+    (SEVEN_FILTERS, TOPO_SCORES, "MostAllocated", "reservoir", False, False, True, True),
     (*SPREAD_ONLY, "LeastAllocated", "reservoir", True, True, False, True),
     (*INTERPOD_ONLY, "MostAllocated", "first", False, True, False, True),
 ]
@@ -165,7 +186,7 @@ def test_scan_kernel_over_several_node_tiles():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     _pr, dp, dims = _problem(torch.float32, "cuda", n_pods=300, n_nodes=1300)
     dp = dp._replace(sample_k=200, start0=1111, tb_base=99)
-    cfg = TB.BatchConfig(filters=TB.SLICE_FILTERS, scores=SCORES, trace=True, tie_break="reservoir", seed=1)
+    cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=SCORES, trace=True, tie_break="reservoir", seed=1)
     k_out, p_out = TK.scan(cfg, dims, dp), TB.scan_plain(cfg, dims, dp)
     for key in p_out:
         assert torch.equal(k_out[key], p_out[key]), key
@@ -178,7 +199,7 @@ def test_scan_kernel_with_domain_sums_in_global_memory():
     global scratch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    cfg = TB.BatchConfig(filters=TB.SLICE_FILTERS, scores=TOPO_SCORES, trace=True, tie_break="reservoir", seed=4)
+    cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=TOPO_SCORES, trace=True, tie_break="reservoir", seed=4)
     for dt in (torch.float32, torch.float64):
         _pr, dp, dims = _problem(dt, "cuda", n_pods=200, n_nodes=1300, topo=True, zone_of=lambda i: f"zone-{i // 2}")
         cap, in_smem = TK.domain_layout(dims, dt)
@@ -186,3 +207,52 @@ def test_scan_kernel_with_domain_sums_in_global_memory():
         k_out, p_out = TK.scan(cfg, dims, dp), TB.scan_plain(cfg, dims, dp)
         for key in p_out:
             assert torch.equal(k_out[key], p_out[key]), (dt, key)
+
+
+# (filters, tie_break, ws0): the default profile in both orders, with the
+# score planes at [P,N] and compacted in the step (100 of 130 nodes
+# sampled: ws0 = bucket(100) = 112 < N = 160)
+STORAGE_CASES = [
+    (REGISTRY_FILTERS, "first", None),
+    (REGISTRY_FILTERS, "reservoir", 112),
+    (TB.FILTER_KERNELS, "reservoir", None),
+    (TB.FILTER_KERNELS, "first", 112),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filters,tie_break,ws0", STORAGE_CASES)
+def test_volume_filters_and_in_step_compaction_on_the_card(filters, tie_break, ws0):
+    """Host ports, the volume filters and their carries, and the in-step
+    score compaction (K2d, K2f): the kernels against their plain versions,
+    bitwise, in both dtypes, and the compacted planes against the same
+    kernel's full planes gathered at the ascending sampled ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    for dt in (torch.float32, torch.float64):
+        pr, dp, dims = _problem(dt, "cuda", topo=True, storage=True)
+        cfg = TB.BatchConfig(filters=tuple(filters), scores=DEFAULT_SCORES, trace=True, tie_break=tie_break, seed=7)
+        k_out = TK.scan(cfg, dims, dp, ws0=ws0)
+        p_out = TB.scan_plain(cfg, dims, dp, ws0=ws0)
+        assert set(k_out) == set(p_out)
+        for key in p_out:
+            assert torch.equal(k_out[key], p_out[key]), (dt, key)
+        assert k_out["final_csi_att"].any() and k_out["final_ports_used"].any()
+        packed = p_out["packed_pod"].cpu().numpy()
+        W = min(dims["N"], TE._bucket(int(packed[3].max())))
+        WS = min(dims["N"], TE._bucket(int(packed[1].max())), ws0 or dims["N"])
+        mm = p_out["trace_meta"].cpu().numpy()
+        rd = tuple(TB.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(DEFAULT_SCORES)))
+        _fn, man = TB.build_compact_fn(cfg, dims, W, WS, rd, int(mm[-1, 1]), in_step_ws0=ws0)
+        blob = TK.compact(cfg, dims, W, WS, man, p_out, pr.N_true, ws0)
+        assert torch.equal(blob, TB.compact_plain(cfg, dims, W, WS, man, p_out, pr.N_true, ws0))
+        if ws0 is None:
+            continue
+        full = TK.scan(cfg, dims, dp)
+        for i in range(dims["P"]):
+            cols = torch.nonzero(full["feasible"][i]).flatten()
+            for s, _w in DEFAULT_SCORES:
+                for kind in ("raw", "norm"):
+                    row = k_out[f"{kind}:{s}"][i]
+                    assert torch.equal(row[: len(cols)], full[f"{kind}:{s}"][i][cols]), (dt, i, s, kind)
+                    assert not row[len(cols):].any()
