@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 10 min, build included
+    python3 chip_smoke.py    # one card, about 14 min, build included
 
 Workloads (every one from seed 42 through ``workloads.cluster``):
 
@@ -25,7 +25,21 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   percentage 0 -> 500 sampled nodes (so the score planes are compacted in
   the scan's step), tie_break first, base counter 0, start 0; upstream's
   default profile (fifteen filters and seven scores in the registry's
-  order, default weights).
+  order, default weights);
+- cfg5-churn (the main path since the service's batch round was ported):
+  BASELINE cfg5's churn as the JAX package's bench drives it
+  (``run_churn``), through the port's ``SchedulerService(store,
+  tie_break="first", use_batch="auto")`` on the default configuration: 5
+  000 nodes, 10 000 pods (spread constraints on every 3rd) in 5 waves of
+  2 000 with deterministic stamps, 10 % of the bound pods deleted after
+  each wave, and a rolling cordon of 50 nodes before every wave after the
+  first (``workloads.churn``); one ``schedule_pending(max_rounds=1)`` a
+  wave, each a windowed round of 8 windows of 256 pods (P 2 048).
+
+Cut for the time limit: the float64 churn runs 3 waves.  The CPU float64
+references of phases 4 and 9 run in two worker processes started after
+the build, beside the card's phases; the script stops them before it
+exits.
 
 Phases (each prints its seconds; any failure exits nonzero before the last
 line):
@@ -49,17 +63,40 @@ line):
    pods x 500 nodes (a CPU round at full size does not fit the time
    limit);
 5. the float32 round's differences from float64, per score plugin and per
-   filter, printed.
+   filter, printed;
+6. the scatter kernel (K4) against its plain version, bitwise, on every
+   plane dtype and rank of the churn's problem, K from 1 to a quarter of
+   the rows with repeated indices; timed beside ``index_copy_``;
+7. the windowed scan (K2w): at cfg4's and cfg5-vol's full shapes, the
+   kernel run in windows of 256 chained on the card equals the one-launch
+   kernel bitwise (packed outputs, trace planes and compaction blobs window
+   by window, the whole final carry), in both dtypes, timed against it; at
+   cfg5-churn's wave shape, one window against the windowed plain version;
+8. cfg5-churn end to end on the card, float32 (5 waves) and float64 (3
+   waves): per wave the wall, encode, blocked and estimated device time,
+   commit, windows, launches (counts reset just before each wave), the
+   placer's decisions and planes scattered, and the encoder's counters; a
+   wave fails on a scan or compaction count other than its window count,
+   no scatter after the first wave, a batch fallback, a sequential pod or
+   an unbound pod;
+9. the same churn cut to 1 500 pods in 3 waves on 500 nodes with a 10-node
+   cordon: the CUDA float64 service and the CPU float64 service leave every
+   pod with equal annotations, node and status;
+10. float32 against float64 over the first three churn waves: the pods
+   whose node, annotations or status differ, printed.
 
-Then one ``{"kernels": [...]}`` line (time, plain time and bound of each
-kernel at the cfg5-vol shapes, launches on the main path: the cfg5-vol
-float32 round), and as the last line ``{"ok": true, "device": {...}}``.
-Everything is generated from seeds; nothing is read from the network.
+Then one ``{"kernels": [...]}`` line (time, plain time, bound and launches
+of each kernel: the one-launch scan at cfg5-vol, launched by its round;
+the windowed scan, the compaction and the scatter at cfg5-churn's shapes,
+launched by the float32 churn), and as the last line ``{"ok": true,
+"device": {...}}``.  Everything is generated from seeds; nothing is read
+from the network.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -128,7 +165,12 @@ WORKLOADS = {
 # CUDA float64 against CPU float64 annotation bytes: (workload, cut to
 # (pods, nodes, bound pods) or None)
 ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", None), ("cfg4", (1000, 500, 0)), ("cfg5-vol", (1000, 500, 500)))
-MAIN = "cfg5-vol"  # the slice's path: the kernels line reads its float32 run
+MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
+# cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
+CHURN = (10000, 5000, 5, 50)
+CHURN_F64_WAVES = 3
+CHURN_CUT = (1500, 500, 3, 10)
+WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # filters cfg5-vol must see reject at least one (pod, node) pair first
 MUST_REJECT = ("NodePorts", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 DEVICE = "cuda"
@@ -180,6 +222,20 @@ def same(name: str, a, b) -> float:
     return 0.0
 
 
+def same_outputs(name: str, kout: dict, pout: dict) -> float:
+    """Require the same output keys and every output bitwise equal (the
+    final carry field by field); return max |a - b| (0.0)."""
+    if set(kout) != set(pout):
+        raise AssertionError(f"{name} output keys differ: {set(kout) ^ set(pout)}")
+    for k in pout:
+        if k == "final_carry":
+            for f, v in pout[k].items():
+                same(f"{name} final carry {f}", kout[k][f].reshape(-1), v.reshape(-1))
+        else:
+            same(f"{name} {k}", kout[k], pout[k])
+    return 0.0
+
+
 def scan_counts(cfg, dims, dp, out) -> dict:
     """Bytes the scan must move and operations it must do on this input:
     every input the profile reads once, every output once (the score
@@ -220,7 +276,8 @@ def scan_counts(cfg, dims, dp, out) -> dict:
     read = sum(t.numel() * t.element_size() for t in tensors)
     written = sum(t.numel() * t.element_size() for k, t in out.items() if k in (
         "packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_ports_used",
-        "final_restr_used", "final_cloud_used", "final_csi_att", "fail_plug", "fail_code",
+        "final_restr_used", "final_cloud_used", "final_csi_att", "final_spread_counts", "final_ip_sel",
+        "final_ip_own", "final_ip_anti", "fail_plug", "fail_code",
         "feasible", "trace_meta") or k.startswith(("raw:", "norm:")))
     # per (pod, node) cell: filters (Fit: 2 + 3 per resource), the scan
     # step, Fit (12 per resource column), Balanced (12), two normalized
@@ -331,7 +388,164 @@ def gather_sampled(full, ws0: int):
     return out
 
 
+def make_cluster(name, cut=None):
+    """(nodes, all pods, pending pods, volume objects) of a workload, or of
+    its cut to (pods, nodes, bound pods)."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+
+    w = WORKLOADS[name]
+    P, N, n_bound = cut or (w.pods, w.nodes, w.bound)
+    nodes, all_pods, pending = workloads.cluster(
+        P, N, seed=42, n_bound=n_bound, spread=w.spread, interpod=w.interpod,
+    )
+    vols = {}
+    if w.storage:
+        workloads.add_host_ports(all_pods)
+        vols = workloads.add_volumes(nodes, all_pods, n_bound)
+    return nodes, all_pods, pending, vols
+
+
+def engine(name, dt, device=DEVICE):
+    from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
+
+    w = WORKLOADS[name]
+    filters, scores = PROFILES[w.profile]
+    return BatchEngine(
+        filters=list(filters), scores=scores, percentage_of_nodes_to_score=w.pct,
+        trace=True, tie_break=w.tie, seed=7, device=device, dtype=dt,
+    )
+
+
+def digest(s: str) -> str:
+    import hashlib
+
+    return hashlib.sha256(s.encode()).hexdigest()
+
+
+def round_documents(res, P: int) -> "tuple[list, list]":
+    """(selected node names, per pod the sha256 of its filter, score and
+    finalScore annotation documents) of a round's first ``P`` pods."""
+    docs = [(digest(res.filter_annotation_json(i)), *map(digest, res.score_annotations_json(i))) for i in range(P)]
+    return list(res.selected_nodes[:P]), docs
+
+
+def pod_digests(store) -> dict:
+    """name → (node, sha256 of the annotations and status)."""
+    return {
+        p["metadata"]["name"]: (
+            (p.get("spec") or {}).get("nodeName"),
+            digest(json.dumps([p["metadata"].get("annotations"), p.get("status")], sort_keys=True)),
+        )
+        for p in store.list("pods", copy_objects=False)
+    }
+
+
+def run_churn(spec, device, dt, waves=None, snapshot_after=None, echo=True):
+    """Drive the churn through a SchedulerService on ``device``; returns
+    (per-wave records, launches over all waves, pod digests after wave
+    ``snapshot_after`` (or the last)).  On the card a wave fails on a scan
+    or compaction count other than its window count and, after the first
+    wave, on no scatter; on any device, on a batch fallback, a sequential
+    pod or an unbound pod."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    pods, n_nodes, n_waves, cordon = spec
+    store = ClusterStore(clock=lambda: 0.0)
+    svc = None
+    records, total = [], {"scan": 0, "compact": 0, "scatter": 0}
+    digests = None
+    gen = workloads.churn(store, pods, n_nodes, n_waves, cordon=cordon)
+    for w in gen:
+        if svc is None:
+            svc = SchedulerService(store, tie_break="first", use_batch="auto", device=device, dtype=dt)
+            svc.start_scheduler(None)
+        eng = svc._batch_engine
+        pl0 = (eng._placer.plane_reuses, eng._placer.scatter_updates, eng._placer.full_uploads) if eng else (0, 0, 0)
+        c0 = svc.stats["commit_s"]
+        K.reset_counts()
+        t0 = time.perf_counter()
+        svc.schedule_pending(max_rounds=1)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        eng = svc._batch_engine
+        lt = eng.last_timings
+        windows = int(lt.get("windows", 1))
+        pl = eng._placer
+        unbound = sum(1 for p in store.list("pods", copy_objects=False) if not (p.get("spec") or {}).get("nodeName"))
+        rec = dict(
+            wave=w, wall_s=wall, encode_s=lt["encode_s"], device_s=lt["device_s"],
+            device_est_s=lt.get("device_est_s", 0.0), commit_s=svc.stats["commit_s"] - c0, windows=windows,
+            overlap=1 - lt["device_s"] / lt["device_est_s"] if lt.get("device_est_s") else 0.0,
+            launches=launches, reuses=pl.plane_reuses - pl0[0], scatters=pl.scatter_updates - pl0[1],
+            full_uploads=pl.full_uploads - pl0[2], scattered=pl.last_scattered, unbound=unbound,
+            encode_stats={k: v for k, v in eng.encode_stats().items() if k.startswith("encode_")},
+            stages={k: round(v, 4) for k, v in svc.profiler.snapshot()["last_wave"].items()},
+        )
+        if echo:
+            log(f"{device} {str(dt).split('.')[-1]} wave {w}: {json.dumps(rec, sort_keys=True)}")
+        if device == DEVICE:
+            if launches["scan"] != windows or launches["compact"] != windows:
+                raise AssertionError(f"wave {w}: {launches} for {windows} windows")
+            if w > 0 and launches["scatter"] == 0:
+                raise AssertionError(f"wave {w}: the cordon reached no plane through the scatter kernel")
+        if svc.stats["batch_fallbacks"] or svc.stats["sequential_pods"]:
+            raise AssertionError(f"{device} wave {w}: fallbacks {svc.stats['batch_fallbacks']}, "
+                                 f"sequential pods {svc.stats['sequential_pods']}")
+        if unbound:
+            raise AssertionError(f"{device} wave {w}: {unbound} pods left unbound (every pod places at this size)")
+        for k in total:
+            total[k] += launches[k]
+        records.append(rec)
+        if w == snapshot_after:
+            digests = pod_digests(store)
+        if waves is not None and w + 1 >= waves:
+            break
+    gen.close()
+    if digests is None:
+        digests = pod_digests(store)
+    return records, total, digests
+
+
+# ------------------------------------------ CPU references, in workers
+
+def cpu_worker_init() -> None:
+    """A worker process of the CPU float64 references: never touches the
+    card, and leaves cores to the main process."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(3)
+
+
+def cpu_round(name: str, cut) -> "tuple[list, list]":
+    """A workload's (or its cut's) CPU float64 round: round_documents."""
+    import torch
+
+    w = WORKLOADS[name]
+    nodes, all_pods, pending, vols = make_cluster(name, cut)
+    res = engine(name, torch.float64, device="cpu").schedule(
+        nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start, volumes=vols,
+    )
+    return round_documents(res, len(pending))
+
+
+def cpu_churn(spec) -> "tuple[list, dict]":
+    """The churn through a CPU float64 service: (per-wave records, pod
+    digests after the last wave)."""
+    import torch
+
+    records, _total, digests = run_churn(spec, "cpu", torch.float64, echo=False)
+    return records, digests
+
+
+_POOL = None  # the worker pool, stopped on the way out of the script
+
+
 def main() -> int:
+    global _POOL
     t_all = time.perf_counter()
 
     import torch
@@ -344,7 +558,6 @@ def main() -> int:
         from kube_scheduler_simulator_tpu_torch.ops import batch as B
         from kube_scheduler_simulator_tpu_torch.ops import encode as E
         from kube_scheduler_simulator_tpu_torch.ops import kernels as K
-        from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
         from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import num_feasible_nodes_to_find
         from kube_scheduler_simulator_tpu_torch import workloads
     except ImportError as exc:
@@ -368,27 +581,11 @@ def main() -> int:
         K.build()
         log(f"kernel build: {K.build_seconds:.2f} s (nvcc, sm_90a, {len(K.SOURCES)} sources in parallel)")
 
-    def make_cluster(name, cut=None):
-        """(nodes, all pods, pending pods, volume objects) of a workload, or
-        of its cut to (pods, nodes, bound pods)."""
-        w = WORKLOADS[name]
-        P, N, n_bound = cut or (w.pods, w.nodes, w.bound)
-        nodes, all_pods, pending = workloads.cluster(
-            P, N, seed=42, n_bound=n_bound, spread=w.spread, interpod=w.interpod,
-        )
-        vols = {}
-        if w.storage:
-            workloads.add_host_ports(all_pods)
-            vols = workloads.add_volumes(nodes, all_pods, n_bound)
-        return nodes, all_pods, pending, vols
-
-    def engine(name, dt, device=DEVICE):
-        w = WORKLOADS[name]
-        filters, scores = PROFILES[w.profile]
-        return BatchEngine(
-            filters=list(filters), scores=scores, percentage_of_nodes_to_score=w.pct,
-            trace=True, tie_break=w.tie, seed=7, device=device, dtype=dt,
-        )
+    # the CPU references (phases 4 and 9) run beside the card's phases; the
+    # longest first
+    _POOL = multiprocessing.get_context("spawn").Pool(2, initializer=cpu_worker_init)
+    cpu_refs = {name: _POOL.apply_async(cpu_round, (name, cut)) for name, cut in ANNOTATION_CHECKS}
+    cpu_churn_ref = _POOL.apply_async(cpu_churn, (CHURN_CUT,))
 
     clusters = {}
     timing: dict = {}
@@ -401,19 +598,31 @@ def main() -> int:
 
     # ------------------------------------------------ kernel vs plain
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def lowered(name, pr, dt):
+        """(dp, dims, ws0) of a workload's encoded problem on the card, with
+        the workload's round knobs."""
+        w = WORKLOADS[name]
+        cfg = workload_cfg(name)
+        dp, dims = B.lower(pr, dtype=dt, device=dev)
+        N = pr.N_true
+        dp = dp._replace(tb_base=w.base_counter, start0=w.start % N, sample_k=num_feasible_nodes_to_find(N, w.pct))
+        return dp, dims, B.pick_ws0(cfg, dims, dp.sample_k, N)
+
+    def workload_cfg(name):
+        w = WORKLOADS[name]
+        filters, scores = PROFILES[w.profile]
+        return B.BatchConfig(filters=filters, scores=tuple(scores), trace=True, tie_break=w.tie, seed=7)
+
     for name in WORKLOADS:
         w = WORKLOADS[name]
         P, N = w.pods, w.nodes
         nodes, all_pods, pending, vols, pr = clusters[name]
         filters, scores = PROFILES[w.profile]
-        cfg = B.BatchConfig(filters=filters, scores=tuple(scores), trace=True, tie_break=w.tie, seed=7)
+        cfg = workload_cfg(name)
         for dt in (torch.float32, torch.float64):
             with Phase(f"scan kernel vs plain, {name} {P}x{N}, {dt}"):
-                dp, dims = B.lower(pr, dtype=dt, device=dev)
-                dp = dp._replace(
-                    tb_base=w.base_counter, start0=w.start % N, sample_k=num_feasible_nodes_to_find(N, w.pct),
-                )
-                ws0 = B.pick_ws0(cfg, dims, dp.sample_k, N)
+                dp, dims, ws0 = lowered(name, pr, dt)
                 log(f"padded P={dims['P']} N={dims['N']} R={dims['R']} sample_k={dp.sample_k} start0={dp.start0} "
                     f"ws0={ws0} SG={dims['SG']} G={dims['G']} D={dims['D']} KC={dims['KC']} KS={dims['KS']} "
                     f"KA={dims['KA']} KB={dims['KB']} KP={dims['KP']} KO={dims['KO']} keys={dims['key_struct']} "
@@ -425,10 +634,8 @@ def main() -> int:
                 kout = K.scan(cfg, dims, dp, ws0=ws0)
                 torch.cuda.synchronize()
                 plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp, ws0=ws0), 1, warmup=0)
-                if set(kout) != set(pout):
-                    raise AssertionError(f"scan output keys differ: {set(kout) ^ set(pout)}")
-                err = max(same(f"scan {k}", kout[k], pout[k]) for k in pout)
-                del pout
+                err = same_outputs("scan", kout, pout)
+                del pout, kout
                 # warm-up calls first: the first timed scan of the process
                 # must not pay for clocks or the allocator settling
                 ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp, ws0=ws0), *((2, 1) if P >= 10000 else (20, 10)))
@@ -537,8 +744,9 @@ def main() -> int:
                                    volumes=vols)
                 wall = time.perf_counter() - t0
                 launches = dict(K.LAUNCHES)
-                if launches != {"scan": 1, "compact": 1}:
-                    raise AssertionError(f"the round did not launch each kernel once: {launches}")
+                # a fresh engine's placer uploads every plane: no scatter
+                if launches != {"scan": 1, "compact": 1, "scatter": 0}:
+                    raise AssertionError(f"the round did not launch scan and compaction once each: {launches}")
                 if name == MAIN and dt == torch.float32:
                     main_launches = launches
                 sel = res.selected[:P]  # rows past P are shape padding
@@ -555,7 +763,6 @@ def main() -> int:
         P, N = cut[:2] if cut else (w.pods, w.nodes)
         with Phase(f"{name} {P}x{N} annotation bytes: CUDA float64 round vs CPU float64 round"):
             if cut is None:
-                nodes, all_pods, pending, vols, _pr = clusters[name]
                 gpu = results[(name, torch.float64)]
             else:
                 nodes, all_pods, pending, vols = make_cluster(name, cut)
@@ -563,18 +770,18 @@ def main() -> int:
                 gpu = engine(name, torch.float64).schedule(
                     nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start, volumes=vols,
                 )
-                assert K.LAUNCHES == {"scan": 1, "compact": 1}, K.LAUNCHES
-            cpu = engine(name, torch.float64, device="cpu").schedule(
-                nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start, volumes=vols,
-            )
-            assert cpu.selected_nodes == gpu.selected_nodes, "selections differ between CUDA and CPU float64"
+                assert K.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0}, K.LAUNCHES
+            gsel, gdocs = round_documents(gpu, P)
+            t0 = time.perf_counter()
+            csel, cdocs = cpu_refs[name].get()
+            log(f"CPU float64 round (worker process) waited for {time.perf_counter() - t0:.2f} s")
+            assert csel == gsel, "selections differ between CUDA and CPU float64"
             for i in range(P):
-                if cpu.filter_annotation_json(i) != gpu.filter_annotation_json(i):
-                    raise AssertionError(f"pod {i}: filter annotation bytes differ")
-                if cpu.score_annotations_json(i) != gpu.score_annotations_json(i):
-                    raise AssertionError(f"pod {i}: score annotation bytes differ")
-            log(f"{P} pods x 3 annotation documents byte-identical; "
-                f"scheduled {sum(s is not None for s in gpu.selected_nodes)}/{P}")
+                for d, kind in enumerate(("filter", "score", "finalScore")):
+                    if cdocs[i][d] != gdocs[i][d]:
+                        raise AssertionError(f"pod {i}: {kind} annotation bytes differ")
+            log(f"{P} pods x 3 annotation documents byte-identical (sha256); "
+                f"scheduled {sum(s is not None for s in gsel)}/{P}")
 
     with Phase("float32 against float64 (CUDA rounds)"):
         f32_report = {}
@@ -624,8 +831,173 @@ def main() -> int:
             f32_report[name] = rep
             log(f"{name}: float32 vs float64: {json.dumps(rep, sort_keys=True)}")
 
+
+    # ------------------------------------------- row scatter (K4)
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    P_ch, N_ch, waves_ch, cordon_ch = CHURN
+    with Phase("scatter kernel vs plain on every plane of the churn's problem"):
+        # the problem of cfg5-churn's first wave: 5 000 nodes, 2 000 pods
+        cstore = ClusterStore(clock=lambda: 0.0)
+        gen = workloads.churn(cstore, P_ch, N_ch, waves_ch, cordon=cordon_ch)
+        next(gen)
+        cpods = cstore.list("pods", copy_objects=False)
+        churn_pr = E.pad_problem(E.encode(cstore.list("nodes", copy_objects=False), cpods, cpods, None))
+        del gen, cstore
+        planes: dict = {}
+        for pdt in (torch.float32, torch.float64):
+            host, _dims = B.lower_host(churn_pr, pdt)
+            for (fname, sub), a in B.problem_leaves(host).items():
+                key = (str(a.dtype), a.ndim)
+                if fname not in B.CARRY0_FIELDS and a.shape[0] >= 4 and (
+                    key not in planes or a.shape[0] > planes[key][1].shape[0]
+                ):
+                    planes[key] = (fname if sub is None else f"{fname}[{sub}]", a)
+        g = torch.Generator().manual_seed(17)
+        checked = []
+        s_err = 0.0
+        for (dts, nd), (fname, a) in sorted(planes.items()):
+            rows_n = a.shape[0]
+            buf0 = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for k in sorted({1, 2, 7, max(1, rows_n // 16), max(1, rows_n // 4)}):
+                idx = torch.randperm(rows_n, generator=g)[:k].to(torch.int32)
+                idx = torch.cat([idx, idx[:1].repeat(3)]).to(dev)
+                src = torch.from_numpy(np.ascontiguousarray(a[torch.randperm(rows_n, generator=g)[: k + 3].numpy()]))
+                src = src.to(dev)
+                src[k:] = src[0]
+                want = B.scatter_rows_plain(buf0.clone(), idx, src)
+                got = K.scatter_rows(buf0.clone(), idx, src)
+                s_err = max(s_err, same(f"scatter {fname} {dts} rank {nd} K={k}", got, want))
+            checked.append(f"{fname} {dts} {tuple(a.shape)}")
+        log(f"scatter bitwise equal on {len(checked)} planes: {checked}")
+        # the main path's update: node_unsched [N], the rows of one cordon
+        # step (about 2 x 50 nodes), padded to a bucket as the placer does
+        unsched = torch.from_numpy(host["node_unsched"]).to(dev)
+        k_main = E._bucket(2 * cordon_ch)
+        idx = torch.randperm(unsched.shape[0], generator=g)[:k_main].to(torch.int32).to(dev)
+        rows = torch.ones(k_main, dtype=torch.bool, device=dev)
+        idx64 = idx.long()
+        s_ms, _ = cuda_ms(lambda: K.scatter_rows(unsched, idx, rows), 200, warmup=10)
+        s_plain_ms, _ = cuda_ms(lambda: B.scatter_rows_plain(unsched, idx, rows), 200, warmup=10)
+        s_lib_ms, _ = cuda_ms(lambda: unsched.index_copy_(0, idx64, rows), 200, warmup=10)
+        s_bytes = k_main * 4 + 2 * k_main * rows.element_size()
+        scatter_t = dict(ms=s_ms, plain_ms=s_plain_ms, library_ms=s_lib_ms, bound_ms=s_bytes / HBM_BYTES_PER_S * 1e3,
+                         K=k_main, bytes=s_bytes, err=s_err)
+        log(f"timing scatter node_unsched [{unsched.shape[0]}] K={k_main}: {json.dumps(scatter_t)}")
+
+    # ------------------------------------------- windowed scan (K2w)
+    win_t: dict = {}
+    for name in ("cfg4", "cfg5-vol"):
+        pr = clusters[name][4]
+        cfg = workload_cfg(name)
+        for dt in (torch.float32, torch.float64):
+            with Phase(f"windowed scan vs one launch, {name} full shape, windows of {WINDOW}, {dt}"):
+                dp, dims, ws0 = lowered(name, pr, dt)
+                Pp, N = dims["P"], pr.N_true
+                wdims = dict(dims, P=WINDOW)
+                one_ms, one = cuda_ms(lambda: K.scan(cfg, dims, dp, ws0=ws0), 1)
+
+                def chain():
+                    carry, outs = None, []
+                    for off in range(0, Pp, WINDOW):
+                        o = K.scan(cfg, dims, dp, ws0=ws0, carry0=carry, offset=off, window=WINDOW)
+                        carry = o["final_carry"]
+                        outs.append(o)
+                    return outs
+
+                win_ms, outs = cuda_ms(chain, 1)
+                keys = [k for k in one if k.startswith(("raw:", "norm:", "fail_"))]
+                packed = one["packed_pod"].cpu().numpy()
+                W = min(dims["N"], E._bucket(max(int(packed[3].max()), 1)))
+                WS = min(dims["N"], E._bucket(max(int(packed[1].max()), 1)), ws0 or dims["N"])
+                mm = one["trace_meta"].cpu().numpy()
+                rdt = tuple(B.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(cfg.scores)))
+                code_max = int(mm[-1, 1])
+                _fn, manifest = B.build_compact_fn(cfg, dims, W, WS, rdt, code_max, in_step_ws0=ws0)
+                whole = B.unpack_compact_blob(K.compact(cfg, dims, W, WS, manifest, one, N, ws0).cpu().numpy(), manifest)
+                _fn, wman = B.build_compact_fn(cfg, wdims, W, WS, rdt, code_max, in_step_ws0=ws0)
+                for c, o in enumerate(outs):
+                    lo, hi = c * WINDOW, (c + 1) * WINDOW
+                    same(f"window {c} packed", o["packed_pod"][:4], one["packed_pod"][:4, lo:hi])
+                    for k in keys:
+                        same(f"window {c} {k}", o[k], one[k][lo:hi])
+                    part = B.unpack_compact_blob(K.compact(cfg, wdims, W, WS, wman, o, N, ws0).cpu().numpy(), wman)
+                    for k, v in part.items():
+                        if not np.array_equal(v, whole[k][lo:hi]):
+                            raise AssertionError(f"window {c}: blob plane {k} differs from the one-launch blob's rows")
+                for fname in B.CARRY0_FIELDS:
+                    same(f"final carry {fname}", outs[-1]["final_carry"][fname].reshape(-1), one["final_carry"][fname].reshape(-1))
+                win_t[(name, dt)] = dict(one_ms=one_ms, windows_ms=win_ms, windows=len(outs))
+                log(f"{len(outs)} windows chained on the card equal one launch (packed, {len(keys)} trace planes, "
+                    f"blobs, final carry); one launch {one_ms:.2f} ms, windows {win_ms:.2f} ms "
+                    f"({100 * (win_ms / one_ms - 1):+.2f} %)")
+                del one, outs, dp
+                torch.cuda.empty_cache()
+
+    with Phase(f"one window at cfg5-churn's wave shape: kernel vs windowed plain"):
+        cfg = B.BatchConfig(filters=DEFAULT_FILTERS, scores=tuple(DEFAULT_SCORES), trace=True, tie_break="first", seed=0)
+        dp, dims = B.lower(churn_pr, dtype=torch.float32, device=dev)
+        sample_k = num_feasible_nodes_to_find(N_ch, 0)
+        dp = dp._replace(sample_k=sample_k)
+        ws0 = B.pick_ws0(cfg, dims, sample_k, N_ch)
+        wdims = dict(dims, P=WINDOW)
+        first = K.scan(cfg, dims, dp, ws0=ws0, offset=0, window=WINDOW)
+        carry = first["final_carry"]
+        kw = dict(ws0=ws0, carry0=carry, offset=WINDOW, window=WINDOW)
+        sw_ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp, **kw), 20, warmup=3)
+        sw_plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp, **kw), 1, warmup=0)
+        sw_err = same_outputs("window 1", kout, pout)
+        wsb, wsby = bound(scan_counts(cfg, wdims, B.slice_pod_window(dp, WINDOW, WINDOW), kout), torch.float32)
+        packed = kout["packed_pod"].cpu().numpy()
+        W = min(dims["N"], E._bucket(max(int(packed[3].max()), 1)))
+        WS = min(dims["N"], E._bucket(max(int(packed[1].max()), 1)), ws0 or dims["N"])
+        mm = kout["trace_meta"].cpu().numpy()
+        rdt = tuple(B.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(cfg.scores)))
+        _fn, wman = B.build_compact_fn(cfg, wdims, W, WS, rdt, int(mm[-1, 1]), in_step_ws0=ws0)
+        wc_ms, kb = cuda_ms(lambda: K.compact(cfg, wdims, W, WS, wman, kout, churn_pr.N_true, ws0), 20)
+        wc_plain_ms, pb = cuda_ms(lambda: B.compact_plain(cfg, wdims, W, WS, wman, kout, churn_pr.N_true, ws0), 3)
+        wc_err = same("window compaction blob", kb, pb)
+        wcb, wcby = bound(compact_counts(kout, wman, W, WS, churn_pr.N_true), torch.float32)
+        churn_t = dict(scan_window_ms=sw_ms, scan_window_plain_ms=sw_plain_ms, scan_window_err=sw_err,
+                       scan_window_bound_ms=wsb, scan_window_bound_by=wsby, compact_ms=wc_ms,
+                       compact_plain_ms=wc_plain_ms, compact_err=wc_err, compact_bound_ms=wcb, compact_bound_by=wcby)
+        log(f"window 1 of P={dims['P']} N={dims['N']} ws0={ws0} W={W} WS={WS}: kernel equals the windowed plain "
+            f"version; {json.dumps(churn_t)}")
+        del dp, first, carry, kout, pout
+
+    # ------------------------------------------- cfg5-churn end to end
+    def medians(records) -> dict:
+        keys = ("wall_s", "encode_s", "device_s", "device_est_s", "commit_s", "overlap")
+        return {k: float(np.median([r[k] for r in records])) for k in keys}
+
+    with Phase(f"cfg5-churn {P_ch} pods x {N_ch} nodes, {waves_ch} waves, cordon {cordon_ch}: service on the card, float32"):
+        rec32, main_launches_churn, dig32 = run_churn(CHURN, DEVICE, torch.float32, snapshot_after=CHURN_F64_WAVES - 1)
+        log(f"float32 churn: launches over {len(rec32)} waves {main_launches_churn}; medians {json.dumps(medians(rec32))}")
+    with Phase(f"cfg5-churn, float64, {CHURN_F64_WAVES} waves"):
+        rec64, _l64, dig64 = run_churn(CHURN, DEVICE, torch.float64, waves=CHURN_F64_WAVES)
+        log(f"float64 churn medians {json.dumps(medians(rec64))}")
+    with Phase(f"cfg5-churn cut to {CHURN_CUT}: CUDA float64 service vs CPU float64 service"):
+        _r, _l, dig_gpu = run_churn(CHURN_CUT, DEVICE, torch.float64)
+        t0 = time.perf_counter()
+        rec_cpu, dig_cpu = cpu_churn_ref.get()
+        log(f"CPU float64 service (worker process) waited for {time.perf_counter() - t0:.2f} s")
+        for rec in rec_cpu:
+            log(f"cpu float64 wave {rec['wave']}: {json.dumps(rec, sort_keys=True)}")
+        if dig_gpu.keys() != dig_cpu.keys():
+            raise AssertionError("the CUDA and CPU services left different pods")
+        bad = [n for n in dig_cpu if dig_gpu[n] != dig_cpu[n]]
+        if bad:
+            raise AssertionError(f"{len(bad)} pods differ between the CUDA and CPU services, first {bad[:3]}")
+        log(f"{len(dig_cpu)} pods: node, annotations and status byte-identical between the CUDA and CPU services")
+    with Phase(f"cfg5-churn float32 against float64 after {CHURN_F64_WAVES} waves"):
+        differ = sorted(n for n in dig64 if dig32.get(n) != dig64[n])
+        node_differ = sorted(n for n in dig64 if (dig32.get(n) or (None,))[0] != dig64[n][0])
+        log(f"pods {len(dig64)}; node differs {len(node_differ)} {node_differ[:5]}; node, annotations or "
+            f"status differ {len(differ)} {differ[:5]}")
+
     ref = MAIN
     main = timing[(ref, torch.float32)]
+    churn_shape = f"cfg5-churn: window of {WINDOW} of P={churn_pr.P} N={churn_pr.N}"
     kernels = [
         {
             "name": "scan",
@@ -640,23 +1012,55 @@ def main() -> int:
             "bound_by": main["scan_bound_by"],
             "library_ms": None,
             "paced_by": "sequential dependency chain over the pod queue",
-            "shape": ref,
+            "shape": f"{ref}, one launch (its round)",
+        },
+        {
+            "name": "scan_window",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
+            "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1785",
+            "launches": main_launches_churn["scan"],
+            "max_abs_err": churn_t["scan_window_err"],
+            "ms": churn_t["scan_window_ms"],
+            "plain_ms": churn_t["scan_window_plain_ms"],
+            "bound_ms": churn_t["scan_window_bound_ms"],
+            "bound_by": churn_t["scan_window_bound_by"],
+            "library_ms": None,
+            "paced_by": "sequential dependency chain over the pod queue",
+            "shape": churn_shape,
         },
         {
             "name": "compact",
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/compact.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:951",
-            "launches": main_launches["compact"],
-            "max_abs_err": main["compact_err"],
-            "ms": main["compact_ms"],
-            "plain_ms": main["compact_plain_ms"],
-            "bound_ms": main["compact_bound_ms"],
-            "bound_by": main["compact_bound_by"],
+            "launches": main_launches_churn["compact"],
+            "max_abs_err": churn_t["compact_err"],
+            "ms": churn_t["compact_ms"],
+            "plain_ms": churn_t["compact_plain_ms"],
+            "bound_ms": churn_t["compact_bound_ms"],
+            "bound_by": churn_t["compact_bound_by"],
             "library_ms": None,
-            "shape": ref,
+            "shape": churn_shape,
+        },
+        {
+            "name": "scatter",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scatter.cu",
+            "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:614",
+            "launches": main_launches_churn["scatter"],
+            "max_abs_err": scatter_t["err"],
+            "ms": scatter_t["ms"],
+            "plain_ms": scatter_t["plain_ms"],
+            "bound_ms": scatter_t["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": scatter_t["library_ms"],
+            "shape": f"cfg5-churn: node_unsched [{churn_pr.N}], K={scatter_t['K']}",
         },
     ]
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"kernel {k['name']} was not launched on its path")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -667,4 +1071,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if _POOL is not None:
+            _POOL.terminate()
+            _POOL.join()
+    sys.exit(rc)

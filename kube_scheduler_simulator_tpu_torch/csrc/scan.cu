@@ -16,6 +16,17 @@
 // lists lower() builds), and the in-step score compaction (:1681-1699)
 // writes the score rows at [P, ws0] in ascending node id.
 //
+// Windowed launches (the JAX run_windowed + slice_pod_window, :1162-1182 and
+// :1783-1790): a launch runs pods [offset, offset + P) of a larger problem
+// from a given initial carry and writes the whole final carry, so windows
+// chain on the card with no host round trip.  The wrapper hands every
+// pod-axis row array in at row `offset`; the two arrays that carry pods on
+// their second axis (spread_match, term_match) are read with the row
+// stride Psrc of the full problem; the rotation start may come from the
+// device (start_ptr, the previous window's final_start); the reservoir
+// counter base arrives shifted by the offset.  A one-launch round is the
+// window at offset 0 over every pod.
+//
 // What bounds it on an H100: the sequential dependency chain.  Pod i+1's
 // filters read the carry pod i committed, so the P steps run one after the
 // other, each a handful of passes over N nodes with block-wide scans and
@@ -47,7 +58,8 @@
 //
 // Carries: each block keeps its own copy of spread_counts [SG,N] and of
 // ip_sel, ip_own, ip_anti [G,D+1] (column D is the reference's sink for a
-// node without the key; it is never read, so the commit skips it).  At the
+// node without the key: never read, but committed as the reference does,
+// so the final carry a window hands on equals the reference's).  At the
 // cfg4 workload (10 000 pods x 5 000 nodes, chip_smoke.py prints the sizes)
 // these copies take SG*N + 3*G*(D+1) values per block, times 132 blocks.
 // The volume carries are kept column-major, so neighbouring threads read
@@ -102,6 +114,7 @@ enum { FIT_LEAST = 0, FIT_MOST = 1, FIT_RTCR = 2 };
 // ops/kernels.py without padding rules.
 struct ScanArgs {
   int64_t P, N, R, n_true, sample_k, start0, tb_base, seed_mix;
+  int64_t Psrc;  // row stride of spread_match and term_match: the full problem's P
   int64_t trace, reservoir;
   int64_t nf, filters[MAXF];
   int64_t ns, scores[MAXS];
@@ -189,6 +202,7 @@ struct ScanArgs {
   const void* restr_used0;     // [N,VR]
   const void* cloud_used0;     // [N,3]
   const void* csi_attached0;   // [N,V]
+  const int32_t* start_ptr;    // [1] the rotation start on the card; null: start0
   void* s_requested;   // [B,N,R] per-block carry
   void* s_nonzero;     // [B,N,2]
   void* s_pod_count;   // [B,N]
@@ -217,6 +231,10 @@ struct ScanArgs {
   void* final_restr_used;   // [N,VR]
   void* final_cloud_used;   // [N,3]
   void* final_csi_att;      // [N,V]
+  void* final_spread;       // [SG,N]
+  void* final_ip_sel;       // [G,D+1]
+  void* final_ip_own;
+  void* final_ip_anti;
   int8_t* fail_plug;   // [P,N]
   int32_t* fail_code;  // [P,N]
   uint8_t* feasible;   // [P,N]; not written with ws0
@@ -427,7 +445,9 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const T NEG = T(-1e18);
   const T INF = T(INFINITY);
 
-  const bool spread_on = TOPO && (a.use_spread_f || a.use_spread_s);
+  // spread_counts is carried whenever the problem has selector groups,
+  // as the reference commits it (SG > 0), read only by the spread plugin
+  const bool spread_on = TOPO && a.SG > 0;
   const bool ipa = TOPO && a.use_ipa != 0;
   bool ipa_scored = false;
   for (int k = 0; k < a.ns; ++k) ipa_scored = ipa_scored || (ipa && a.scores[k] == S_IPA);
@@ -494,7 +514,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   int code_mx = 0;
   const bool meta = a.trace && b == 0;
 
-  int start = (int)a.start0;
+  int start = a.start_ptr ? a.start_ptr[0] : (int)a.start0;
   for (int64_t i = 0; i < P; ++i) {
     const bool owner = (i % B) == b;
     const bool writes = a.trace && owner;
@@ -703,7 +723,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
               if (!ipa) break;
               // existing pods' required anti-affinity toward this pod
               for (int g = 0; g < a.G && code == 0; ++g) {
-                if (((const T*)a.term_match)[(int64_t)g * P + i] != T(0) && at_node(a, ianti, g, n) > T(0)) code = 1;
+                if (((const T*)a.term_match)[(int64_t)g * a.Psrc + i] != T(0) && at_node(a, ianti, g, n) > T(0)) code = 1;
               }
               if (code == 0 && has_aff && !aff_escape) {
                 bool sat = true;
@@ -734,7 +754,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         if (meta && fcode > code_mx) code_mx = fcode;
         if (ipa_scored) {
           for (int g = 0; g < a.G; ++g) {
-            if (((const T*)a.term_match)[(int64_t)g * P + i] != T(0)) ip_raw = ip_raw + at_node(a, iown, g, n);
+            if (((const T*)a.term_match)[(int64_t)g * a.Psrc + i] != T(0)) ip_raw = ip_raw + at_node(a, iown, g, n);
           }
           for (int c = 0; c < a.KP; ++c) {
             const int g = a.ip_pref_g[i * a.KP + c];
@@ -1005,26 +1025,32 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     if (sel >= 0 && spread_on) {
       for (int64_t s = tid; s < a.SG; s += blockDim.x) {
-        spc[s * N + sel] = spc[s * N + sel] + ((const T*)a.spread_match)[s * P + i];
+        spc[s * N + sel] = spc[s * N + sel] + ((const T*)a.spread_match)[s * a.Psrc + i];
       }
     }
     if (sel >= 0 && ipa) {
       // one thread per group row of ip_sel; ip_own and ip_anti, whose
       // terms may repeat a cell, on thread 0 in the reference's order
+      // a node without the group's key commits to the sink column D
       for (int64_t g = tid; g < a.G; g += blockDim.x) {
         const int d = a.gdom[g * N + sel];
-        if (d >= 0) isel[g * (a.D + 1) + d] = isel[g * (a.D + 1) + d] + ((const T*)a.term_match)[g * P + i];
+        const int64_t cell = g * (a.D + 1) + (d >= 0 ? d : a.D);
+        isel[cell] = isel[cell] + ((const T*)a.term_match)[g * a.Psrc + i];
       }
       if (tid == 0) {
         for (int c = 0; c < a.KO; ++c) {
           const int g = a.ip_own_g[i * a.KO + c];
-          const int d = g >= 0 ? a.gdom[(int64_t)g * N + sel] : -1;
-          if (d >= 0) iown[(int64_t)g * (a.D + 1) + d] = iown[(int64_t)g * (a.D + 1) + d] + ((const T*)a.ip_own_w)[i * a.KO + c];
+          if (g < 0) continue;
+          const int d = a.gdom[(int64_t)g * N + sel];
+          const int64_t cell = (int64_t)g * (a.D + 1) + (d >= 0 ? d : a.D);
+          iown[cell] = iown[cell] + ((const T*)a.ip_own_w)[i * a.KO + c];
         }
         for (int c = 0; c < a.KB; ++c) {
           const int g = a.ip_anti_g[i * a.KB + c];
-          const int d = g >= 0 ? a.gdom[(int64_t)g * N + sel] : -1;
-          if (d >= 0) ianti[(int64_t)g * (a.D + 1) + d] = ianti[(int64_t)g * (a.D + 1) + d] + T(1);
+          if (g < 0) continue;
+          const int d = a.gdom[(int64_t)g * N + sel];
+          const int64_t cell = (int64_t)g * (a.D + 1) + (d >= 0 ? d : a.D);
+          ianti[cell] = ianti[cell] + T(1);
         }
       }
     }
@@ -1059,6 +1085,15 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   for (int64_t j = tid; j < N * a.VID; j += blockDim.x) {
     ((T*)a.final_csi_att)[j] = csi ? T(scsi[(j % a.VID) * N + j / a.VID]) : ((const T*)a.csi_attached0)[j];
   }
+  // PodTopologySpread's and InterPodAffinity's carries, for the next window
+  for (int64_t j = tid; j < a.SG * N; j += blockDim.x) {
+    ((T*)a.final_spread)[j] = spread_on ? spc[j] : ((const T*)a.spread_counts0)[j];
+  }
+  for (int64_t j = tid; j < GD; j += blockDim.x) {
+    ((T*)a.final_ip_sel)[j] = ipa ? isel[j] : ((const T*)a.ip_sel0)[j];
+    ((T*)a.final_ip_own)[j] = ipa ? iown[j] : ((const T*)a.ip_own0)[j];
+    ((T*)a.final_ip_anti)[j] = ipa ? ianti[j] : ((const T*)a.ip_anti0)[j];
+  }
   if (!a.trace) return;
   for (int k = 0; k < a.ns; ++k) {
     const T mn = block_reduce(meta_mn[k], T(INFINITY), MinOp());
@@ -1087,7 +1122,7 @@ void launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
 template <typename T>
 int launch(const ScanArgs* a, int64_t blocks, void* stream) {
   const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
-  if (a->use_spread_f || a->use_spread_s || a->use_ipa) {
+  if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) {
     launch_vol<T, true>(a, blocks, smem, stream);
   } else {
     launch_vol<T, false>(a, blocks, 0, stream);

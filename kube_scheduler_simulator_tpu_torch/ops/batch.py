@@ -301,39 +301,58 @@ _TORCH_OF_NP = {
 }
 
 
-def place(host: "dict[str, Any]", device: torch.device) -> DeviceProblem:
-    """Host numpy fields → DeviceProblem on ``device`` in ONE host-to-device
-    copy: every array is packed into one aligned byte buffer, shipped once,
-    and viewed back out by offset, dtype and shape."""
-    leaves: list[tuple[str, "int | None", np.ndarray]] = []
-    for name in DeviceProblem._fields:
-        val = host[name]
-        if name in ROUND_SCALARS:
-            continue
-        if isinstance(val, tuple):
-            leaves += [(name, j, np.ascontiguousarray(v)) for j, v in enumerate(val)]
-        else:
-            leaves.append((name, None, np.ascontiguousarray(val)))
-    offs = []
+def upload(arrays: "dict[Any, np.ndarray]", device: torch.device) -> "dict[Any, torch.Tensor]":
+    """Host arrays → tensors on ``device`` in ONE host-to-device copy: every
+    array is packed into one aligned byte buffer, shipped once, and viewed
+    back out by offset, dtype and shape.  Each call ships a fresh buffer,
+    so no view of it aliases an earlier call's."""
+    arrays = {k: np.ascontiguousarray(a) for k, a in arrays.items()}
+    offs = {}
     off = 0
-    for _n, _j, a in leaves:
-        offs.append(off)
+    for k, a in arrays.items():
+        offs[k] = off
         off += -(-a.nbytes // 64) * 64
     buf = np.zeros(max(off, 64), dtype=np.uint8)
-    for (_n, _j, a), o in zip(leaves, offs):
-        buf[o : o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    for k, a in arrays.items():
+        buf[offs[k] : offs[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
     dev_buf = torch.from_numpy(buf).to(device)
-    out: dict[str, Any] = {name: int(host[name]) for name in ROUND_SCALARS}
-    tuples: dict[str, list] = {}
-    for (name, j, a), o in zip(leaves, offs):
-        t = dev_buf[o : o + a.nbytes].view(_TORCH_OF_NP[a.dtype]).reshape(a.shape)
-        if j is None:
-            out[name] = t
+    return {
+        k: dev_buf[offs[k] : offs[k] + a.nbytes].view(_TORCH_OF_NP[a.dtype]).reshape(a.shape)
+        for k, a in arrays.items()
+    }
+
+
+def problem_leaves(host: "dict[str, Any]") -> "dict[tuple[str, int | None], np.ndarray]":
+    """The array leaves of a host problem by (field, tuple index or None)."""
+    leaves: dict = {}
+    for name in DeviceProblem._fields:
+        if name in ROUND_SCALARS:
+            continue
+        val = host[name]
+        if isinstance(val, tuple):
+            leaves.update({(name, j): v for j, v in enumerate(val)})
         else:
-            tuples.setdefault(name, []).append(t)
-    for name, ts in tuples.items():
-        out[name] = tuple(ts)
+            leaves[(name, None)] = val
+    return leaves
+
+
+def assemble(host: "dict[str, Any]", placed: "dict[tuple[str, int | None], torch.Tensor]") -> DeviceProblem:
+    """DeviceProblem from placed leaves and the host round scalars."""
+    out: dict[str, Any] = {name: int(host[name]) for name in ROUND_SCALARS}
+    for name in DeviceProblem._fields:
+        if name in out:
+            continue
+        val = host[name]
+        out[name] = (
+            tuple(placed[(name, j)] for j in range(len(val))) if isinstance(val, tuple) else placed[(name, None)]
+        )
     return DeviceProblem(**out)
+
+
+def place(host: "dict[str, Any]", device: torch.device) -> DeviceProblem:
+    """Host numpy fields → DeviceProblem on ``device`` in ONE host-to-device
+    copy (``upload``)."""
+    return assemble(host, upload(problem_leaves(host), device))
 
 
 def lower(
@@ -343,7 +362,16 @@ def lower(
     ``device`` (the card unless the caller asks for the CPU), in the working
     dtype (float32 on the card, float64 on the CPU, unless given)."""
     dev = resolve_device(device)
-    np_dt = np.float64 if resolve_dtype(dev, dtype) == torch.float64 else np.float32
+    host, dims = lower_host(pr, resolve_dtype(dev, dtype))
+    return place(host, dev), dims
+
+
+def lower_host(pr: BatchProblem, dtype: torch.dtype) -> "tuple[dict, dict]":
+    """The host half of ``lower``: every DeviceProblem field as a fresh numpy
+    array (the round scalars as ints) in ``dtype``, and the dims dict — what
+    ``place`` ships in one copy and ``DevicePlacer`` diffs against the
+    planes resident on the device."""
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
     f = lambda x: np.asarray(x, dtype=np_dt)
     i32 = lambda x: np.asarray(x, dtype=np.int32)
     b = lambda x: np.asarray(x, dtype=bool)
@@ -458,7 +486,7 @@ def lower(
         VR=pr.VR, VID=pr.VID, DR=pr.DR, CLOUD=pr.CLOUD,
         key_struct=tuple(key_struct),
     )
-    return place(host, dev), dims
+    return host, dims
 
 
 # --------------------------------------------------------------- primitives
@@ -662,18 +690,78 @@ def pick_ws0(cfg: BatchConfig, dims: dict, sample_k: int, n_nodes: int) -> "int 
     return in_step_width(cfg, dims, min(dims["N"], _bucket(max(sample_k, 1))))
 
 
-def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem, ws0: "int | None" = None) -> dict:
+# DeviceProblem fields that are the scan's initial carry, in the JAX
+# package's carry order: a windowed scan takes them from the previous
+# window (``carry0=``) and hands them on (``out["final_carry"]``).
+CARRY0_FIELDS = (
+    "requested0", "nonzero0", "pod_count0", "ports_used0", "restr_used0",
+    "cloud_used0", "csi_attached0", "spread_counts0",
+    "ip_sel0", "ip_own0", "ip_anti0", "start0",
+)
+
+# DeviceProblem fields carrying the pod axis (axis 0 / axis 1): the
+# windowed scan reads exactly these at its [offset, offset+Wp) rows (the
+# JAX package's lists, plus the port's per-pod column lists).
+POD_WINDOW_AXIS0 = (
+    "pod_req", "pod_nonzero", "fit_checked", "pod_tol_idx", "pod_aff_idx",
+    "pod_pref_idx", "pod_img_idx", "name_target", "pod_ports", "pod_vol_idx",
+    "pod_restr", "cloud_cnt", "pod_csi", "ip_aff_g", "ip_anti_g", "ip_pref_g",
+    "ip_pref_w", "ip_own_g", "ip_own_w", "ip_self_match", "pod_active",
+    "spf_ku", "sps_ku", "port_cols", "restr_cols", "csi_cols",
+)
+POD_WINDOW_AXIS1 = ("spread_match", "term_match")
+
+
+def slice_pod_window(dp: DeviceProblem, offset: int, Wp: int) -> DeviceProblem:
+    """The [offset, offset+Wp) pod-window view of a DeviceProblem (the JAX
+    ``slice_pod_window``): the pod-axis fields are narrowed (views, no
+    copies), node-axis state and class matrices pass through, and tb_base
+    shifts by the offset (uint32 wrap) so the counter-keyed tie-break draws
+    stay those of each pod's position in the whole round."""
+    repl: dict = {f: getattr(dp, f).narrow(0, offset, Wp) for f in POD_WINDOW_AXIS0}
+    repl.update({f: getattr(dp, f).narrow(1, offset, Wp) for f in POD_WINDOW_AXIS1})
+    repl["spf"] = tuple(a.narrow(0, offset, Wp) for a in dp.spf)
+    repl["sps"] = tuple(a.narrow(0, offset, Wp) for a in dp.sps)
+    repl["tb_base"] = (int(dp.tb_base) + int(offset)) & MASK32
+    return dp._replace(**repl)
+
+
+def final_carry(out: dict, start) -> dict:
+    """The whole final carry of a scan's outputs under CARRY0_FIELDS names:
+    the next window's ``carry0``."""
+    return dict(
+        requested0=out["final_requested"], nonzero0=out["final_nonzero"], pod_count0=out["final_pod_count"],
+        ports_used0=out["final_ports_used"], restr_used0=out["final_restr_used"],
+        cloud_used0=out["final_cloud_used"], csi_attached0=out["final_csi_att"],
+        spread_counts0=out["final_spread_counts"], ip_sel0=out["final_ip_sel"],
+        ip_own0=out["final_ip_own"], ip_anti0=out["final_ip_anti"], start0=start,
+    )
+
+
+def scan_plain(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, ws0: "int | None" = None,
+    carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
+) -> dict:
     """The whole pod loop of one round in plain PyTorch, op for op the JAX
     ``build_batch_fn`` step (filters with first-failure tracking, rotated
     feasible-node sampling, scores and normalization, selection with either
     tie-break, commit).  Returns the JAX outputs under the same keys, and
-    the final volume carries (the JAX package's ``_final_carry``) as
-    ``final_ports_used``, ``final_restr_used``, ``final_cloud_used`` and
-    ``final_csi_att``.  ``ws0``: the in-step compaction width
-    (``in_step_width``): the score planes come out [P, ws0], the sampled
-    nodes' values in ascending node id, and no ``feasible`` plane."""
+    the whole final carry (the JAX package's ``_final_carry``): as
+    ``final_carry`` under CARRY0_FIELDS names, and field by field as
+    ``final_requested`` ... ``final_csi_att``, ``final_spread_counts``,
+    ``final_ip_sel``, ``final_ip_own``, ``final_ip_anti``, ``final_start``.
+    ``ws0``: the in-step compaction width (``in_step_width``): the score
+    planes come out [P, ws0], the sampled nodes' values in ascending node
+    id, and no ``feasible`` plane.  ``window``: run only pods [offset,
+    offset+window) (the JAX ``build_batch_fn(window=)``), from ``carry0``
+    (a ``final_carry`` dict; default the problem's own initial carry)."""
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
+    if window is not None:
+        dp = slice_pod_window(dp, offset, window)
+        dims = dict(dims, P=window)
+    if carry0 is not None:
+        dp = dp._replace(**carry0)
     P, N, R, D = dims["P"], dims["N"], dims["R"], dims["D"]
     if R > 30:
         raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
@@ -706,7 +794,7 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem, ws0: "int | None
         if g is None:
             return torch.where(gvalid, carry.gather(1, gidx), 0)
         return torch.where(gvalid[g], carry[g][gidx[g]], 0)
-    start = torch.tensor(dp.start0, dtype=i32, device=dev)
+    start = torch.as_tensor(dp.start0, dtype=i32, device=dev).reshape(())
     nt, K = int(dp.n_true), int(dp.sample_k)
     idx = torch.arange(N, dtype=i32, device=dev)
     filter_pos = {f: k for k, f in enumerate(cfg.filters)}
@@ -954,9 +1042,14 @@ def scan_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem, ws0: "int | None
         final_restr_used=restr_used,
         final_cloud_used=cloud_used,
         final_csi_att=csi_att,
+        final_spread_counts=spread_counts,
+        final_ip_sel=ip_sel,
+        final_ip_own=ip_own,
+        final_ip_anti=ip_anti,
         final_start=start,
         packed_pod=packed,
     )
+    out["final_carry"] = final_carry(out, start)
     if cfg.trace:
         if ws0 is None:
             feas = out["feasible"] & dp.pod_active[:, None]
@@ -991,20 +1084,187 @@ def plugin_gates(cfg: BatchConfig, dims: dict) -> "dict[str, bool]":
     }
 
 
-def build_batch_fn(cfg: BatchConfig, dims: dict, ws0: "int | None" = None):
+def build_batch_fn(cfg: BatchConfig, dims: dict, ws0: "int | None" = None, window: "int | None" = None):
     """fn(dp) → dict of result tensors: the CUDA scan kernel for a problem on
     the card, the plain version for one on the CPU.  ``ws0``: as
-    ``scan_plain``'s."""
+    ``scan_plain``'s.  With ``window`` (the JAX ``build_batch_fn(window=)``)
+    it returns fn(carry0, dp, offset) instead, which scans pods [offset,
+    offset+window) from ``carry0`` (None: the problem's own) and hands on
+    ``out["final_carry"]``: windows chain with no host round trip."""
     check_slice(cfg)
 
-    def fn(dp: DeviceProblem) -> dict:
+    def fn(dp: DeviceProblem, carry0: "dict | None" = None, offset: int = 0) -> dict:
+        kw = dict(ws0=ws0, carry0=carry0, offset=offset, window=window)
         if dp.alloc.device.type == "cuda":
             from kube_scheduler_simulator_tpu_torch.ops import kernels
 
-            return kernels.scan(cfg, dims, dp, ws0=ws0)
-        return scan_plain(cfg, dims, dp, ws0=ws0)
+            return kernels.scan(cfg, dims, dp, **kw)
+        return scan_plain(cfg, dims, dp, **kw)
 
-    return fn
+    if window is None:
+        return lambda dp: fn(dp)
+    return lambda carry0, dp, offset: fn(dp, carry0, offset)
+
+
+# ------------------------------------------------ device-resident problem
+
+def scatter_rows_plain(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``buf[idx[k]] = rows[k]`` in place, returning ``buf``: the plain
+    version of the scatter kernel (the JAX ``_scatter_rows``).  Repeated
+    indices carry identical rows, so the order of the writes is moot."""
+    buf[idx.long()] = rows
+    return buf
+
+
+def scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The scatter kernel for a plane on the card, the plain version for one
+    on the CPU."""
+    if buf.device.type == "cuda":
+        from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+        return kernels.scatter_rows(buf, idx, rows)
+    return scatter_rows_plain(buf, idx, rows)
+
+
+def placer_scatter_frac(default: float = 0.25) -> float:
+    """The placer's changed-rows threshold for a scatter update, from the
+    ``KSS_PLACER_SCATTER_FRAC`` environment variable (the reference's knob;
+    default a quarter of the plane's rows).  An unparseable or
+    out-of-range value raises."""
+    import os
+
+    raw = os.environ.get("KSS_PLACER_SCATTER_FRAC")
+    if raw is None or not raw.strip():
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(f"KSS_PLACER_SCATTER_FRAC must be a float in (0, 1], got {raw!r}") from None
+    if not 0.0 < v <= 1.0:
+        raise ValueError(f"KSS_PLACER_SCATTER_FRAC must be in (0, 1], got {raw!r}")
+    return v
+
+
+class DevicePlacer:
+    """The problem's planes resident on the device from round to round (the
+    JAX package's ``DevicePlacer``, ops/batch.py:648-873).
+
+    ``place`` takes a round's host problem (``lower_host``) and routes each
+    plane, against the previous round's plane under the same shape key:
+
+    - byte-identical           → reuse the resident tensor (0 bytes up);
+    - at most ``scatter_max_frac`` of its rows changed → ship the changed
+      rows and their indices and write them in place with the scatter
+      kernel (``scatter_rows``; K padded to a bucket by repeating the first
+      index with its own row);
+    - otherwise, or a new shape → full upload.
+
+    Full uploads and the scatter rows and indices of a round travel in ONE
+    host-to-device copy (``upload``): a fresh buffer, so a plane the kernel
+    updates in place never aliases a buffer a later upload rewrites.
+    CARRY0_FIELDS are never kept: a windowed round chains its carry on the
+    device, and the chain owns it.
+
+    Counters as the reference's: ``bytes_uploaded`` (full planes, carries,
+    scatter rows and indices), ``plane_reuses``, ``scatter_updates``,
+    ``full_uploads``; and the last round's decision per plane,
+    ``decisions[(field, sub)] = ("reuse" | "scatter" | "full" | "carry",
+    bytes uploaded)``.  The reference's plane banks (one resident set per
+    bank, for its mesh and multi-config callers) are left out: the port's
+    engine keeps one set per shape key."""
+
+    def __init__(self, max_keys: int = 2, scatter_max_frac: "float | None" = None):
+        self.max_keys = max_keys
+        self.scatter_max_frac = placer_scatter_frac() if scatter_max_frac is None else scatter_max_frac
+        self.bytes_uploaded = 0
+        self.plane_reuses = 0
+        self.scatter_updates = 0
+        self.full_uploads = 0
+        self.decisions: dict = {}
+        # key → {(field, sub): (host ndarray, device tensor)}
+        self._cache: dict = {}
+        self._order: list = []
+
+    def _entry(self, key) -> dict:
+        """The resident plane dict for ``key``, kept for the last
+        ``max_keys`` shape keys."""
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = self._cache[key] = {}
+            self._order.append(key)
+            while len(self._order) > self.max_keys:
+                self._cache.pop(self._order.pop(0), None)
+        else:
+            self._order.remove(key)
+            self._order.append(key)
+        return entry
+
+    def place(self, host: "dict[str, Any]", key, device: torch.device) -> DeviceProblem:
+        """Place a host problem on ``device``, reusing or row-updating the
+        resident planes of ``key``."""
+        entry = self._entry(key)
+        leaves = problem_leaves(host)
+        placed: dict = {}
+        uploads: dict = {}
+        scatters: list = []
+        decisions: dict = {}
+        for path, val in leaves.items():
+            if path[0] in CARRY0_FIELDS or val.ndim == 0:
+                uploads[path] = val
+                decisions[path] = ("carry", val.nbytes if val.ndim else 0)
+                continue
+            cached = entry.get(path)
+            if cached is not None:
+                host_old, dev_old = cached
+                if host_old.shape == val.shape and host_old.dtype == val.dtype:
+                    if val.size == 0:
+                        placed[path] = dev_old
+                        decisions[path] = ("reuse", 0)
+                        continue
+                    diff = val != host_old
+                    if val.ndim > 1:
+                        diff = diff.reshape(val.shape[0], -1).any(axis=1)
+                    changed = np.nonzero(diff)[0]
+                    if changed.size == 0:
+                        placed[path] = dev_old
+                        decisions[path] = ("reuse", 0)
+                        continue
+                    if changed.size <= max(1, int(val.shape[0] * self.scatter_max_frac)):
+                        idx = changed.astype(np.int32)
+                        rows = np.ascontiguousarray(val[changed])
+                        # pad K to a bucket with repeats of the first row
+                        k = min(_bucket(len(idx)), val.shape[0])
+                        if k > len(idx):
+                            pad = k - len(idx)
+                            idx = np.concatenate([idx, np.full(pad, idx[0], dtype=idx.dtype)])
+                            rows = np.concatenate([rows, np.repeat(rows[:1], pad, axis=0)])
+                        uploads[("idx",) + path] = idx
+                        uploads[("rows",) + path] = rows
+                        scatters.append((path, dev_old))
+                        decisions[path] = ("scatter", idx.nbytes + rows.nbytes)
+                        continue
+            uploads[path] = val
+            decisions[path] = ("full", val.nbytes)
+        shipped = upload(uploads, device)
+        for path, dev_old in scatters:
+            placed[path] = scatter_rows(dev_old, shipped.pop(("idx",) + path), shipped.pop(("rows",) + path))
+        placed.update(shipped)
+        kinds = [kind for kind, _n in decisions.values()]
+        self.plane_reuses += kinds.count("reuse")
+        self.scatter_updates += len(scatters)
+        self.full_uploads += kinds.count("full")
+        self.bytes_uploaded += sum(n for _kind, n in decisions.values())
+        self.decisions = decisions
+        # lower_host allocates fresh host arrays every round: keeping them is safe
+        for path, val in leaves.items():
+            if path[0] not in CARRY0_FIELDS and val.ndim:
+                entry[path] = (val, placed[path])
+        return assemble(host, placed)
+
+    @property
+    def last_scattered(self) -> "list[str]":
+        """The fields whose planes the last round row-updated."""
+        return sorted({path[0] for path, (kind, _n) in self.decisions.items() if kind == "scatter"})
 
 
 # ------------------------------------------------------- trace compaction

@@ -8,9 +8,14 @@ counters and the wrappers.
               of every carry (PodTopologySpread's counts, InterPodAffinity's
               term-group counts, host ports, conflict volumes, cloud-disk
               counts, CSI attachments) and, with ``ws0``, the score rows
-              compacted in the step.
+              compacted in the step.  A launch may run one window of pods
+              from a given initial carry (``offset``, ``window``,
+              ``carry0``); it always hands on the whole final carry, so
+              windows chain on the card.
 - ``compact`` (csrc/compact.cu) — the trace planes → the manifest's byte
               blob, one block per pod row.
+- ``scatter`` (csrc/scatter.cu) — ``buf[idx] = rows`` on a plane resident on
+              the card: the DevicePlacer's row update.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``csrc/build/`` keyed by a hash
@@ -45,21 +50,23 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
     DeviceProblem,
     _mix32,
     check_slice,
+    final_carry,
     in_step_width,
     log_table,
     plugin_gates,
+    slice_pod_window,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = {"scan": "scan.cu", "compact": "compact.cu"}
+SOURCES = {"scan": "scan.cu", "compact": "compact.cu", "scatter": "scatter.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"scan": 0, "compact": 0}
+LAUNCHES = {"scan": 0, "compact": 0, "scatter": 0}
 
 # the struct capacities of csrc/*.cu
 MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 16, 8, 4, 16, 16, 8, 16
@@ -100,7 +107,9 @@ _i64, _f64, _ptr = ctypes.c_int64, ctypes.c_double, ctypes.c_void_p
 
 class ScanArgs(ctypes.Structure):
     _fields_ = [
-        (n, _i64) for n in ("P", "N", "R", "n_true", "sample_k", "start0", "tb_base", "seed_mix", "trace", "reservoir", "nf")
+        (n, _i64) for n in (
+            "P", "N", "R", "n_true", "sample_k", "start0", "tb_base", "seed_mix", "Psrc", "trace", "reservoir", "nf",
+        )
     ] + [
         ("filters", _i64 * MAXF),
         ("ns", _i64),
@@ -149,12 +158,13 @@ class ScanArgs(ctypes.Structure):
             "port_cols", "port_conflict", "restr_cols", "restr_conflict", "cloud_cnt", "csi_cols", "csi_drv",
             "csi_seed_used", "csi_limit", "vb_cls", "vz_cls", "pod_vol_idx", "log_table",
             "requested0", "nonzero0", "pod_count0", "spread_counts0", "ip_sel0", "ip_own0", "ip_anti0",
-            "ports_used0", "restr_used0", "cloud_used0", "csi_attached0",
+            "ports_used0", "restr_used0", "cloud_used0", "csi_attached0", "start_ptr",
             "s_requested", "s_nonzero", "s_pod_count", "s_spread", "s_ip_sel", "s_ip_own", "s_ip_anti",
             "s_raw_spread", "s_raw_ipa", "s_dom", "s_domflag", "s_total", "s_flags",
             "s_rank", "s_ports", "s_restr", "s_cloud", "s_csi", "s_csi_cnt",
             "packed", "final_start", "final_requested", "final_nonzero", "final_pod_count",
             "final_ports_used", "final_restr_used", "final_cloud_used", "final_csi_att",
+            "final_spread", "final_ip_sel", "final_ip_own", "final_ip_anti",
             "fail_plug", "fail_code", "feasible",
         )
     ] + [
@@ -220,10 +230,15 @@ def build() -> "dict[str, ctypes.CDLL]":
         os.replace(tmp, out)
     for name, fn in SOURCES.items():
         lib = ctypes.CDLL(str(_lib_path(CSRC / fn)))
-        for entry in (f"kss_{name}_f32", f"kss_{name}_f64"):
+        if name == "scatter":
+            entries = {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]}
+        else:
+            args = [_ptr, _i64, _ptr] if name == "scan" else [_ptr, _ptr]
+            entries = {f"kss_{name}_f32": args, f"kss_{name}_f64": args}
+        for entry, argtypes in entries.items():
             f = getattr(lib, entry)
             f.restype = ctypes.c_int
-            f.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p] if name == "scan" else [ctypes.c_void_p, ctypes.c_void_p]
+            f.argtypes = argtypes
         _LIBS[name] = lib
     build_seconds = time.perf_counter() - t0
     return _LIBS
@@ -266,14 +281,28 @@ def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
 
 def scan(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None, ws0: "int | None" = None,
+    carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
 ) -> dict:
     """Launch the scan kernel on a problem on the card; returns the outputs
-    of ops/batch.scan_plain under the same keys (``ws0`` as there).
-    ``blocks`` defaults to one per SM with the trace on (one without);
-    time_scan.py compares it with a single block."""
+    of ops/batch.scan_plain under the same keys (``ws0``, ``carry0``,
+    ``offset`` and ``window`` as there: with ``window`` the launch runs pods
+    [offset, offset + window) from ``carry0``, whose ``start0`` may be the
+    previous window's ``final_start`` on the card).  ``blocks`` defaults to
+    one per SM with the trace on (one without); time_scan.py compares it
+    with a single block."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
+    Psrc = dims["P"]
+    if window is not None:
+        dp = slice_pod_window(dp, offset, window)
+        dims = dict(dims, P=window)
+    start_dev = None
+    if carry0 is not None:
+        start_dev = carry0["start0"] if isinstance(carry0["start0"], torch.Tensor) else None
+        dp = dp._replace(**{f: v for f, v in carry0.items() if f != "start0"})
+        if start_dev is None:
+            dp = dp._replace(start0=int(carry0["start0"]))
     P, N, R = dims["P"], dims["N"], dims["R"]
     if R > 30:
         raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
@@ -293,6 +322,14 @@ def scan(
         blocks = max(1, min(P, sms)) if cfg.trace else 1
 
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
+    SG, G, D = dims["SG"], dims["G"], dims["D"]
+
+    def carried(t: torch.Tensor, rows: int) -> torch.Tensor:
+        """A final-carry output the kernel writes ``rows`` rows of: a problem
+        without selector groups or term groups still carries one padding
+        row, handed on as it came in."""
+        return e(*t.shape) if t.shape[0] == rows else t.clone()
+
     out = {
         "packed_pod": e(5, P, dtype=i32),
         "final_requested": e(N, R),
@@ -302,18 +339,20 @@ def scan(
         "final_restr_used": e(*dp.restr_used0.shape),
         "final_cloud_used": e(*dp.cloud_used0.shape),
         "final_csi_att": e(*dp.csi_attached0.shape),
+        "final_spread_counts": carried(dp.spread_counts0, SG),
+        "final_ip_sel": carried(dp.ip_sel0, G),
+        "final_ip_own": carried(dp.ip_own0, G),
+        "final_ip_anti": carried(dp.ip_anti0, G),
     }
     final_start = e(1, dtype=i32)
     gates = plugin_gates(cfg, dims)
     # column counts of the volume arrays (at least 1 each)
     PT, VR, VID, DR = (t.shape[1] for t in (dp.ports_used0, dp.restr_used0, dp.csi_attached0, dp.csi_seed_used))
-    spread_on = gates["spread_filter"] or gates["spread_score"]
-    SG, G, D = dims["SG"], dims["G"], dims["D"]
     cap, in_smem = domain_layout(dims, dt)
     nslot = dims["KC"] + dims["KS"]
     scratch = dict(
         s_requested=e(blocks, N, R), s_nonzero=e(blocks, N, 2), s_pod_count=e(blocks, N),
-        s_spread=e(blocks, SG, N) if spread_on else e(1),
+        s_spread=e(blocks, SG, N) if SG > 0 else e(1),
         s_ip_sel=e(blocks, G, D + 1) if gates["interpod"] else e(1),
         s_ip_own=e(blocks, G, D + 1) if gates["interpod"] else e(1),
         s_ip_anti=e(blocks, G, D + 1) if gates["interpod"] else e(1),
@@ -330,7 +369,7 @@ def scan(
     )
     logt = log_table(N, dt, dev)
     a = ScanArgs()
-    a.P, a.N, a.R = P, N, R
+    a.P, a.N, a.R, a.Psrc = P, N, R, Psrc
     a.n_true, a.sample_k, a.start0 = dp.n_true, dp.sample_k, dp.start0
     a.tb_base = dp.tb_base & 0xFFFFFFFF
     # mix32(seed ^ golden): the counter-independent half of the draw
@@ -382,7 +421,7 @@ def scan(
         ("pod_aff_idx", i32), ("pod_pref_idx", i32), ("node_label_idx", i32), ("img_cls", torch.int8),
         ("pod_img_idx", i32), ("node_img_idx", i32), ("name_target", i32), ("pod_active", torch.bool),
         ("node_active", torch.bool), ("incl_cls", torch.bool), ("node_domain", i32), ("spf_ku", i32),
-        ("sps_ku", i32), ("spread_match", dt), ("gdom", i32), ("term_match", dt), ("ip_aff_g", i32),
+        ("sps_ku", i32), ("gdom", i32), ("ip_aff_g", i32),
         ("ip_anti_g", i32), ("ip_pref_g", i32), ("ip_pref_w", dt), ("ip_own_g", i32), ("ip_own_w", dt),
         ("ip_self_match", torch.bool), ("requested0", dt), ("nonzero0", dt), ("pod_count0", dt),
         ("spread_counts0", dt), ("ip_sel0", dt), ("ip_own0", dt), ("ip_anti0", dt),
@@ -398,6 +437,14 @@ def scan(
         ("sps_skew", dp.sps[2], dt), ("log_table", logt, dt),
     ):
         setattr(a, name, _check(t, name, want))
+    # pods on the second axis: a window's view keeps the full problem's row
+    # stride (Psrc), so only its columns need to be contiguous
+    for name in ("spread_match", "term_match"):
+        t = getattr(dp, name)
+        if not t.is_cuda or t.dtype != dt or (t.numel() and (t.stride(1) != 1 or t.stride(0) != Psrc)):
+            raise ValueError(f"{name} must be a {dt} CUDA tensor with rows of the full problem")
+        setattr(a, name, t.data_ptr())
+    a.start_ptr = _check(start_dev, "start0", i32) if start_dev is not None else None
     for name, t in scratch.items():
         setattr(a, name, t.data_ptr())
     a.packed = out["packed_pod"].data_ptr()
@@ -405,6 +452,9 @@ def scan(
     for name in ("final_requested", "final_nonzero", "final_pod_count", "final_ports_used",
                  "final_restr_used", "final_cloud_used", "final_csi_att"):
         setattr(a, name, out[name].data_ptr())
+    for name, key in (("final_spread", "final_spread_counts"), ("final_ip_sel", "final_ip_sel"),
+                      ("final_ip_own", "final_ip_own"), ("final_ip_anti", "final_ip_anti")):
+        setattr(a, name, out[key].data_ptr())
     if cfg.trace:
         out["fail_plug"] = e(P, N, dtype=torch.int8)
         out["fail_code"] = e(P, N, dtype=i32)
@@ -431,7 +481,31 @@ def scan(
         sample_processed=packed[3],
         final_start=final_start[0],
     )
+    out["final_carry"] = final_carry(out, final_start)
     return out
+
+
+def scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``buf[idx[k]] = rows[k]`` in place on a plane resident on the card
+    (any dtype, rank >= 1), by the row-copy kernel; returns ``buf``.  Every
+    repeated index must carry an identical row (the placer pads with
+    repeats of its first index)."""
+    _check(buf, "buf")
+    _check(idx, "idx", torch.int32)
+    _check(rows, "rows", buf.dtype)
+    if buf.dim() < 1 or rows.dim() != buf.dim() or rows.shape[1:] != buf.shape[1:] or idx.shape != rows.shape[:1]:
+        raise ValueError(f"rows {tuple(rows.shape)} / idx {tuple(idx.shape)} do not fit plane {tuple(buf.shape)}")
+    k = rows.shape[0]
+    row_bytes = rows[0].numel() * rows.element_size() if k else 0
+    if k == 0 or row_bytes == 0:
+        return buf
+    word = next(w for w in (8, 4, 2, 1) if row_bytes % w == 0 and buf.data_ptr() % w == 0 and rows.data_ptr() % w == 0)
+    dev = buf.device
+    fn = build()["scatter"].kss_scatter_rows
+    rc = fn(buf.data_ptr(), idx.data_ptr(), rows.data_ptr(), k, row_bytes, word, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "scatter")
+    LAUNCHES["scatter"] += 1
+    return buf
 
 
 def compact(

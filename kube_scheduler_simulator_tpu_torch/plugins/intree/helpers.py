@@ -4,9 +4,26 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
+from kube_scheduler_simulator_tpu_torch.models.framework import MAX_NODE_SCORE
 from kube_scheduler_simulator_tpu_torch.utils.labels import match_label_selector
 
 Obj = dict[str, Any]
+
+
+def default_normalize_score(scores: dict[str, int], reverse: bool) -> None:
+    """helper.DefaultNormalizeScore: scale to [0, MaxNodeScore] by max,
+    optionally reversed.  Integer (int64) division, like upstream."""
+    if not scores:
+        return
+    max_count = max(scores.values())
+    if max_count == 0:
+        if reverse:
+            for k in scores:
+                scores[k] = MAX_NODE_SCORE
+        return
+    for k, v in scores.items():
+        s = v * MAX_NODE_SCORE // max_count
+        scores[k] = MAX_NODE_SCORE - s if reverse else s
 
 
 def affinity_term_matches_pod(

@@ -1,11 +1,23 @@
-"""BatchEngine: one traced batch scheduling round on the card, with the
-reference's annotation contract.
+"""BatchEngine: batch scheduling rounds on the card, with the reference's
+annotation contract.
 
-Port of the JAX package's ``scheduler/batch_engine.py`` for this slice: the
-per-pod Filter/Score loop evaluated as one scan kernel over features
-encoded once on the host (ops/encode.py), the trace compacted on the card,
-and the per-plugin annotation trail the reference writes onto pods
-reproduced byte for byte from the fetched planes (``BatchResult``).
+Port of the JAX package's ``scheduler/batch_engine.py``: the per-pod
+Filter/Score loop evaluated as one scan kernel over features encoded on the
+host (ops/encode.py), the trace compacted on the card, and the per-plugin
+annotation trail the reference writes onto pods reproduced byte for byte
+from the fetched planes (``BatchResult``).  ``schedule`` runs a round in one
+launch; ``schedule_waves`` runs it in pod windows whose carry chains on the
+card, double-buffered against the caller's commit of the previous window.
+By default the engine is incremental: an ``EncodeCache`` re-encodes only
+what changed and a ``DevicePlacer`` keeps the problem's planes on the card,
+row-updating them with the scatter kernel.  ``from_framework`` builds the
+engine a scheduler profile describes.
+
+Left out of the reference's engine: the mesh, the weight override (the
+tuner's traced weights), the streaming ``schedule_async``, the AOT
+artifact cache and the process ensemble, and the C renderer of the
+annotation documents (``materialize_wave`` returns None; every document
+takes the Python paths, which the parity suites pin to the same bytes).
 
 Kernels: upstream's whole default profile, the fifteen filters of
 ``ops/batch.FILTER_KERNELS`` (NodePorts, VolumeRestrictions, the EBS, GCE
@@ -28,6 +40,8 @@ import numpy as np
 import torch
 
 from kube_scheduler_simulator_tpu_torch.device import resolve_device, resolve_dtype
+from kube_scheduler_simulator_tpu_torch.models.framework import CycleState, Status
+from kube_scheduler_simulator_tpu_torch.models.snapshot import has_pending_nomination
 from kube_scheduler_simulator_tpu_torch.ops import batch as B
 from kube_scheduler_simulator_tpu_torch.ops import encode as E
 from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
@@ -44,6 +58,31 @@ from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import (
 from kube_scheduler_simulator_tpu_torch.utils.gojson import go_marshal, go_string_key
 
 Obj = dict[str, Any]
+
+# the resource kinds the volume kernels resolve on the host
+VOLUME_KINDS = ("persistentvolumeclaims", "persistentvolumes", "storageclasses", "csinodes")
+
+# Which kernel filter failures upstream statuses as
+# UnschedulableAndUnresolvable (DefaultPreemption skips those nodes); None =
+# every failure code of that plugin, else the specific codes.
+UNRESOLVABLE_CODES: "dict[str, set | None]" = {
+    "NodeName": None,
+    "NodeUnschedulable": None,
+    "NodeAffinity": None,
+    "TaintToleration": None,
+    "VolumeBinding": None,
+    "VolumeZone": None,
+    # code 1 = missing topology label (unresolvable); code 2 = skew
+    "PodTopologySpread": {1},
+}
+
+
+def is_unresolvable_failure(plugin: str, code: int) -> bool:
+    codes = UNRESOLVABLE_CODES.get(plugin, False)
+    if codes is False:
+        return False
+    return codes is None or code in codes
+
 
 FILTER_MESSAGES = {
     "NodeUnschedulable": {1: nb.NODE_UNSCHEDULABLE_ERR},
@@ -62,13 +101,6 @@ FILTER_MESSAGES = {
 }
 
 
-def has_pending_nomination(pod: Obj) -> bool:
-    """Unbound pod carrying a preemption nomination."""
-    return bool((pod.get("status") or {}).get("nominatedNodeName")) and not (
-        (pod.get("spec") or {}).get("nodeName")
-    )
-
-
 class BatchResult:
     """Outcome of one batch scheduling pass, with lazy trace formatting.
 
@@ -83,7 +115,10 @@ class BatchResult:
     # the wave-profiler record this round accumulates into
     prof_rec: "dict | None" = None
 
-    def __init__(self, engine: "BatchEngine", pending: list[Obj], out: dict, pr: "E.BatchProblem", nodes: list[Obj]):
+    def __init__(
+        self, engine: "BatchEngine", pending: list[Obj], out: dict, pr: "E.BatchProblem | _WindowProblem",
+        nodes: list[Obj], fr_shared: "dict | None" = None,
+    ):
         self._engine = engine
         self.pending = pending
         self.out = out
@@ -94,6 +129,9 @@ class BatchResult:
         self.node_names = pr.node_names
         self.pod_keys = pr.pod_keys
         self._lists: "dict | None" = None
+        # the windows of one round share a node axis: the O(N) fragment
+        # tables are built once per round (schedule_waves passes the dict)
+        self._fr_shared = fr_shared
 
     @property
     def selected_nodes(self) -> "list[str | None]":
@@ -191,6 +229,10 @@ class BatchResult:
         score-plugin key fragments."""
         tr = self._tr()
         if "frags" not in tr:
+            shared = self._fr_shared
+            if shared is not None and "frags" in shared:
+                tr["frags"] = shared["frags"]
+                return tr["frags"]
             names = self.problem.node_names
             key = [go_string_key(nm) for nm in names]
             passed = go_marshal(tr["passed_entry"])
@@ -206,6 +248,8 @@ class BatchResult:
                 "rank_by_name": rank_by_name,
                 "pass_arr": np.array([k + passed for k in key], dtype=object),
             }
+            if shared is not None:
+                shared["frags"] = tr["frags"]
         return tr["frags"]
 
     def filter_annotation_json(self, i: int) -> str:
@@ -257,6 +301,49 @@ class BatchResult:
                 parts[t] = key_frag[n] + frag
         return "{" + ",".join(parts) + "}"
 
+    def filter_annotation_pair(self, i: int, want_esc: bool = True) -> "tuple[str, None]":
+        """(annotation, history-escaped twin): the twin is None, as on the
+        reference's Python path, and the history writer escapes it."""
+        return self.filter_annotation_json(i), None
+
+    def score_annotations_pairs(self, i: int) -> "tuple[tuple[str, None], tuple[str, None]]":
+        """((score, None), (finalScore, None)), as ``filter_annotation_pair``."""
+        s, f = self.score_annotations_json(i)
+        return (s, None), (f, None)
+
+    def materialize_wave(self, js: "list[int]") -> None:
+        """The reference renders a whole commit wave's documents in its C
+        extension here; the port has no copy of it yet, so every pod takes
+        the per-pod builders (None, as the reference without the
+        extension)."""
+        return None
+
+    def diagnosis(self, i: int) -> dict[str, Status]:
+        """Per-node failure Status map (failure messages, PostFilter)."""
+        assert self._engine.cfg.trace
+        tr = self._tr()
+        fp = tr["fail_plug"]
+        if fp is None:
+            return {}
+        ids = self._visited_ids(i)
+        narrowed = self._prefilter_node_set(i)
+        cfg_filters = self._engine.cfg.filters
+        fc = tr["fail_code"][i]
+        diag: dict[str, Status] = {}
+        for j in np.nonzero(fp[i][: len(ids)] >= 0)[0]:
+            n = int(ids[j])
+            if narrowed is not None and n not in narrowed:
+                continue
+            plugin = cfg_filters[int(fp[i][j])]
+            code = int(fc[j])
+            msg = self._msg(i, n, plugin, code)
+            # upstream's UnschedulableAndUnresolvable, which preemption skips
+            if is_unresolvable_failure(plugin, code):
+                diag[self.problem.node_names[n]] = Status.unresolvable(msg)
+            else:
+                diag[self.problem.node_names[n]] = Status.unschedulable(msg)
+        return diag
+
     def score_annotations_json(self, i: int) -> "tuple[str, str]":
         """(score, finalScore) annotation JSON over pod i's feasible nodes."""
         assert self._engine.cfg.trace, "run with trace=True for annotations"
@@ -292,6 +379,21 @@ class BatchResult:
         return {idx[nm] for nm in narrowed if nm in idx}
 
 
+class _WindowProblem:
+    """Pod-window view of an encoded BatchProblem: what BatchResult and the
+    annotation writers read, with the pod-axis host metadata cut to the
+    window and the node-axis metadata shared."""
+
+    __slots__ = ("node_names", "pod_keys", "fit_order", "resource_names", "N_true")
+
+    def __init__(self, pr: "E.BatchProblem", lo: int, hi: int):
+        self.node_names = pr.node_names
+        self.pod_keys = pr.pod_keys[lo:hi]
+        self.fit_order = pr.fit_order[lo:hi]
+        self.resource_names = pr.resource_names
+        self.N_true = pr.N_true
+
+
 class BatchEngine:
     """Run-per-snapshot driver for the batch kernels."""
 
@@ -309,12 +411,14 @@ class BatchEngine:
         seed: int = 0,
         device: "str | torch.device | None" = None,
         hard_pod_affinity_weight: int = 1,
+        added_affinity: "Obj | None" = None,
     ):
         """``device``: the card unless the caller passes ``"cpu"`` (where the
         plain versions stand in for the kernels); a missing card raises.
         ``dtype``: float32 on the card, float64 on the CPU unless given.
         ``hard_pod_affinity_weight``: InterPodAffinity's
-        hardPodAffinityWeight argument (upstream default 1)."""
+        hardPodAffinityWeight argument (upstream default 1);
+        ``added_affinity``: NodeAffinity's addedAffinity argument."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.device, dtype)
         self.filters = list(filters if filters is not None else B.FILTER_KERNELS)
@@ -323,6 +427,7 @@ class BatchEngine:
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
         self.trace = trace
         self.hard_pod_affinity_weight = hard_pod_affinity_weight
+        self.added_affinity = added_affinity
         self.cfg = B.BatchConfig(
             filters=tuple(self.filters),
             scores=tuple((s, w) for s, w in self.scores),
@@ -333,10 +438,102 @@ class BatchEngine:
             tie_break=tie_break,
             seed=seed,
         )
+        self.encode_cache = E.EncodeCache()
+        self._placer = B.DevicePlacer()
         # sticky per-plugin raw fetch dtypes: only widen across rounds
         self._raw_dtypes: dict[int, str] = {}
         self.last_timings: dict[str, float] = {}
+        self.cum_timings: dict[str, float] = {}
         self.profiler = WaveProfiler()
+        # set by from_framework: config aspects the kernels cannot honor,
+        # the framework, and the store the volume kinds are listed from
+        self._unsupported_config: "str | None" = None
+        self._framework: Any = None
+        self._store: Any = None
+
+    # ------------------------------------------------------------ factory
+
+    @classmethod
+    def from_framework(
+        cls, framework: Any, trace: bool = False, dtype: "torch.dtype | None" = None,
+        device: "str | torch.device | None" = None,
+    ) -> "BatchEngine":
+        """Build from a scheduler Framework: the plugin set, weights and
+        arguments the sequential path uses."""
+        filters = [wp.original.name for wp in framework.plugins["filter"]]
+        scores = [
+            (wp.original.name, framework.score_weights.get(wp.original.name, 1))
+            for wp in framework.plugins["score"]
+        ]
+        fit_strategy = "LeastAllocated"
+        fit_resources = None
+        fit_shape = None
+        hard_w = 1
+        added = None
+        unsupported = None
+        nz_col = {"cpu": 0, "memory": 1}
+        for wp in framework.plugins["filter"] + framework.plugins["score"]:
+            o = wp.original
+            if o.name == "NodeResourcesFit":
+                fit_strategy = getattr(o, "strategy_type", "LeastAllocated")
+                res = getattr(o, "score_resources", [("cpu", 1), ("memory", 1)])
+                if all(r in nz_col for r, _w in res):
+                    fit_resources = tuple((nz_col[r], w) for r, w in res)
+                else:
+                    unsupported = f"NodeResourcesFit scoringStrategy over {[r for r, _ in res]}"
+                if fit_strategy == "RequestedToCapacityRatio":
+                    fit_shape = tuple(getattr(o, "rtcr_shape", ()) or ())
+            elif o.name == "NodeResourcesBalancedAllocation":
+                res = getattr(o, "resources", ["cpu", "memory"])
+                if sorted(res) != ["cpu", "memory"]:
+                    unsupported = f"NodeResourcesBalancedAllocation over {res}"
+            elif o.name == "InterPodAffinity":
+                hard_w = getattr(o, "hard_pod_affinity_weight", 1)
+            elif o.name == "NodeAffinity":
+                added = getattr(o, "added_affinity", None)
+        # the batch pass replays the default cycle around the kernels:
+        # PrioritySort queue, no permit plugins, DefaultBinder, and
+        # reserve/preBind limited to VolumeBinding
+        point_names = {
+            p: [wp.original.name for wp in framework.plugins[p]]
+            for p in ("reserve", "permit", "pre_bind", "bind")
+        }
+        if point_names["permit"]:
+            unsupported = unsupported or f"permit plugins {point_names['permit']}"
+        if point_names["bind"] != ["DefaultBinder"]:
+            unsupported = unsupported or f"bind plugins {point_names['bind']}"
+        if not set(point_names["reserve"]) <= {"VolumeBinding"}:
+            unsupported = unsupported or f"reserve plugins {point_names['reserve']}"
+        if not set(point_names["pre_bind"]) <= {"VolumeBinding"}:
+            unsupported = unsupported or f"preBind plugins {point_names['pre_bind']}"
+        ext = getattr(framework, "extender_service", None)
+        if ext is not None and ext.extenders:
+            unsupported = unsupported or "extender webhooks configured"
+        eng = cls(
+            filters=filters,
+            scores=scores,
+            fit_strategy=fit_strategy,
+            fit_resources=fit_resources,
+            fit_shape=fit_shape,
+            hard_pod_affinity_weight=hard_w,
+            added_affinity=added,
+            percentage_of_nodes_to_score=framework.percentage_of_nodes_to_score,
+            trace=trace,
+            dtype=dtype,
+            tie_break=framework.tie_break,
+            seed=framework.seed,
+            device=device,
+        )
+        eng._unsupported_config = unsupported
+        eng._framework = framework
+        eng._store = getattr(framework.handle, "cluster_store", None)
+        return eng
+
+    def _volumes(self) -> "dict[str, list[Obj]]":
+        """The volume resource kinds for encode() (empty without a store)."""
+        if self._store is None:
+            return {}
+        return {k: self._store.list(k, copy_objects=False) for k in VOLUME_KINDS}
 
     # ---------------------------------------------------------- supported
 
@@ -345,7 +542,9 @@ class BatchEngine:
     ) -> "tuple[bool, str]":
         """Can this profile × workload run fully on the port's batch path?
         (False, reason) names what it cannot.  ``volumes``: the volume
-        objects ``schedule`` will be given."""
+        objects ``schedule`` will be given (default: the store's)."""
+        if self._unsupported_config:
+            return False, self._unsupported_config
         try:
             B.check_slice(self.cfg)
         except ValueError as exc:
@@ -356,12 +555,20 @@ class BatchEngine:
         # node for other pods' filter runs — not modeled by the kernel
         if any(has_pending_nomination(p) for p in pending):
             return False, "nominated pods present (preemption in flight)"
-        # a PreFilter that narrows the node list while sampling rotates
-        # desynchronizes the shared start index from the kernel's rotation
+        # a PreFilter that narrows the node list while sampling rotates (or
+        # from a rotated start) desynchronizes the shared start index from
+        # the kernel's all-nodes rotation
         sampling = len(nodes) >= MIN_FEASIBLE_NODES_TO_FIND and self.percentage_of_nodes_to_score < 100
-        if sampling and any(self.prefilter_node_names(p) is not None for p in pending):
-            return False, "PreFilter node narrowing while feasible-node sampling is active"
-        # the encoder's host-port and volume class matrices are capped
+        start = getattr(self._framework, "next_start_node_index", 0)
+        if (sampling or start != 0) and any(self.prefilter_node_names(p) is not None for p in pending):
+            return False, (
+                "PreFilter node narrowing while feasible-node sampling (or a "
+                "rotated start index) is active"
+            )
+        # the encoder's host-port and volume class matrices are capped; the
+        # reference also caps distinct CSI/PVC volume ids at 256 (its step
+        # reads an [N,V] product), which the port's scan, reading only the
+        # pod's own ids, does not need
         distinct_ports: set = set()
         distinct_restr: set = set()
         for p in pending:
@@ -374,9 +581,10 @@ class BatchEngine:
         # a claim that does not exist is VolumeBinding's PreFilter reject of
         # the whole pod, which the kernel does not model
         if "VolumeBinding" in self.filters:
+            vols = volumes if volumes is not None else self._volumes()
             claims = {
                 (o["metadata"].get("namespace") or "default", o["metadata"]["name"])
-                for o in (volumes or {}).get("persistentvolumeclaims") or []
+                for o in vols.get("persistentvolumeclaims") or []
             }
             for p in pending:
                 ns = p["metadata"].get("namespace", "default")
@@ -401,31 +609,37 @@ class BatchEngine:
         base_counter: int = 0,
         start_index: int = 0,
         volumes: "dict[str, list[Obj]] | None" = None,
+        nominated: "list[tuple[Obj, str]] | None" = None,
     ) -> BatchResult:
         """One batch scheduling pass over ``pending`` (already in queue
-        order).  ``base_counter`` is the framework's attempt counter for the
-        round's first pod (keys the reservoir tie-break draws);
-        ``start_index`` is the rotating next_start_node_index at round
-        start."""
+        order), in one scan launch.  ``base_counter`` is the framework's
+        attempt counter for the round's first pod (keys the reservoir
+        tie-break draws); ``start_index`` is the rotating
+        next_start_node_index at round start; ``volumes`` the volume kinds
+        (default: the store's); ``nominated`` the pending nominations the
+        encoder models as filter-only usage."""
         return self._finish_prepped(
-            self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes)
+            self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated)
         )
 
-    def _prep(self, nodes, all_pods, pending, namespaces, base_counter, start_index, volumes) -> dict:
-        """Encode + pad + lower + place a round's problem (one host-to-device
-        copy)."""
+    def _prep(self, nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated=None) -> dict:
+        """Encode (delta through the EncodeCache) + pad + lower the round's
+        problem and place it on the device through the DevicePlacer (reuse,
+        scatter, or one upload of what changed)."""
         prof = self.profiler
         rec = prof.open()
         t0 = time.perf_counter()
-        pr = E.encode(
-            nodes, all_pods, pending, namespaces, volumes=volumes or {},
+        kw = dict(
             hard_pod_affinity_weight=self.hard_pod_affinity_weight,
+            added_affinity=self.added_affinity,
+            volumes=volumes if volumes is not None else self._volumes(),
+            nominated=nominated,
         )
-        pr = E.pad_problem(pr)
+        pr = E.pad_problem(self.encode_cache.encode(nodes, all_pods, pending, namespaces, **kw))
         t1 = time.perf_counter()
-        dp, dims = B.lower(pr, dtype=self.dtype, device=self.device)
+        host, dims = B.lower_host(pr, self.dtype)
         sample_k = num_feasible_nodes_to_find(len(nodes), self.percentage_of_nodes_to_score)
-        dp = dp._replace(
+        host.update(
             tb_base=base_counter & B.MASK32,
             sample_k=sample_k,
             start0=start_index % max(len(nodes), 1),
@@ -433,14 +647,26 @@ class BatchEngine:
         # in-step score compaction when sampling narrows the nodes: the
         # planes are [P, bucket(sample_k)] instead of [P, N]
         ws0 = B.pick_ws0(self.cfg, dims, sample_k, len(nodes))
-        prof.note(rec, "encode", t1 - t0)
-        prof.note(rec, "upload", time.perf_counter() - t1)
+        tl = time.perf_counter()
+        prof.note(rec, "encode", tl - t0)
+        dp = self._placer.place(host, tuple(sorted(dims.items())), self.device)
+        prof.note(rec, "upload", time.perf_counter() - tl)
         return dict(pr=pr, dp=dp, dims=dims, ws0=ws0, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec)
+
+    @staticmethod
+    def _packed_out(packed: np.ndarray) -> dict:
+        return {
+            "selected": packed[0],
+            "feasible_count": packed[1],
+            "sample_start": packed[2],
+            "sample_processed": packed[3],
+            "final_start": packed[4, 0] if packed.shape[1] else np.int32(0),
+        }
 
     def _compact_dispatch(self, dims: dict, ws0: "int | None", out_dev: dict, packed: np.ndarray, n_true: int):
         """Pick this round's widths and fetch dtypes from the scan's packed
-        outputs and trace meta, and run the compaction → (blob, manifest,
-        raw_dtypes, WS)."""
+        outputs and trace meta, and launch the compaction → (blob on the
+        device, manifest, raw_dtypes, WS)."""
         cfg = self.cfg
         W = min(dims["N"], E._bucket(max(int(packed[3].max()) if packed.shape[1] else 1, 1)))
         WS = min(dims["N"], E._bucket(max(int(packed[1].max()) if packed.shape[1] else 1, 1)))
@@ -460,7 +686,129 @@ class BatchEngine:
         cfn, manifest = B.build_compact_fn(cfg, dims, W, WS, raw_dtypes, int(mm[-1, 1]), in_step_ws0=ws0)
         return cfn(out_dev, n_true), manifest, raw_dtypes, WS
 
+    def encode_stats(self) -> dict:
+        """Incremental-encoder and device-upload counters (the reference's
+        keys; the mesh, bank and AOT families are not ported)."""
+        s = self.encode_cache.stats_snapshot()
+        pl = self._placer
+        s["device_bytes_uploaded_total"] = pl.bytes_uploaded
+        s["device_plane_reuses_total"] = pl.plane_reuses
+        s["device_scatter_updates_total"] = pl.scatter_updates
+        return s
+
+    def _note_round(self, timings: dict) -> None:
+        self.last_timings = timings
+        # rebind, never mutate: a reader may hold the old dict
+        self.cum_timings = {
+            k: self.cum_timings.get(k, 0.0) + timings.get(k, 0.0) for k in {*self.cum_timings, *timings}
+        }
+
+    def schedule_waves(
+        self,
+        nodes: list[Obj],
+        all_pods: list[Obj],
+        pending: list[Obj],
+        namespaces: "list[Obj] | None" = None,
+        base_counter: int = 0,
+        start_index: int = 0,
+        volumes: "dict[str, list[Obj]] | None" = None,
+        nominated: "list[tuple[Obj, str]] | None" = None,
+        wave_pods: int = 512,
+    ):
+        """Pipelined round: yields (BatchResult, offset, count) per pod
+        WINDOW, double-buffering the scan against the caller's commit.
+
+        The round encodes once; the scan then runs in windows of about
+        ``wave_pods`` pods (the largest power-of-two split of the padded
+        pod axis that keeps windows at least that wide) whose carry chains
+        on the device, equal to one launch over every pod.  Per window c:
+        fetch its packed outputs (blocks on scan c), launch its compaction,
+        enqueue the blob's copy into pinned host memory and record an
+        event, launch scan c+1, and only then wait on the event, so while
+        the caller commits window c on the host, scan c+1 runs on the card
+        (on one stream, a plain fetch after scan c+1 would wait for it).
+        Trace rounds only; callers consume the windows in order, and stop
+        on a restart (the remaining device work is dropped)."""
+        assert self.trace, "pipelined rounds are trace rounds"
+        ctx = self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated)
+        pr, dims, ws0 = ctx["pr"], ctx["dims"], ctx["ws0"]
+        P = dims["P"]
+        pend_n = len(pending)
+        S = 1
+        while P % (S * 2) == 0 and P // (S * 2) >= max(int(wave_pods), 1):
+            S *= 2
+        Wp = P // S
+        if S == 1 or pend_n <= Wp // 2:
+            # too small to split: the one-launch path
+            yield self._finish_prepped(ctx), 0, pend_n
+            return
+        wdims = dict(dims, P=Wp)
+        t2 = time.perf_counter()
+        fnw = B.build_batch_fn(self.cfg, dims, ws0=ws0, window=Wp)
+        dp = ctx.pop("dp")
+        n_windows = (min(pend_n, P) + Wp - 1) // Wp
+        dev_wait = 0.0
+        est_scan = None
+        fr_shared: dict = {}  # one O(N) fragment build per round
+        prof, rec = self.profiler, ctx["prof"]
+        try:
+            ys = fnw(None, dp, 0)
+            prof.note(rec, "dispatch", time.perf_counter() - t2)
+            for c in range(n_windows):
+                offset = c * Wp
+                tw = time.perf_counter()
+                packed = ys["packed_pod"].cpu().numpy()  # blocks on window c's scan
+                wait = time.perf_counter() - tw
+                dev_wait += wait
+                prof.note(rec, "device_blocked", wait)
+                if est_scan is None:
+                    est_scan = wait  # the first window overlaps nothing
+                out = self._packed_out(packed)
+                tw = time.perf_counter()
+                blob, manifest, raw_dtypes, WS = self._compact_dispatch(wdims, ws0, ys, packed, pr.N_true)
+                host_blob, ready = _fetch_async(blob)
+                # double buffer: the next window's scan queues behind this
+                # window's compaction and blob copy, ahead of the host commit
+                if c + 1 < n_windows:
+                    ys = fnw(ys["final_carry"], dp, offset + Wp)
+                prof.note(rec, "dispatch", time.perf_counter() - tw)
+                tw = time.perf_counter()
+                if ready is not None:
+                    ready.synchronize()
+                dev_wait += time.perf_counter() - tw
+                fetched = B.unpack_compact_blob(host_blob.numpy(), manifest)
+                cnt = min(Wp, pend_n - offset)
+                out["trace"] = B.reconstruct_trace(
+                    self.cfg, fetched, out["sample_start"], out["sample_processed"],
+                    pr.N_true, out["feasible_count"], raw_dtypes, cnt, WS,
+                )
+                prof.note(rec, "trace_fetch", time.perf_counter() - tw)
+                result = BatchResult(
+                    self, pending[offset : offset + cnt], out, _WindowProblem(pr, offset, offset + cnt), nodes,
+                    fr_shared=fr_shared,
+                )
+                # the windows of a round share one wave record; the commit
+                # path re-closes it per window
+                result.prof_rec = rec
+                yield result, offset, cnt
+        finally:
+            t3 = time.perf_counter()
+            self._note_round(
+                {
+                    "encode_s": ctx["t1"] - ctx["t0"],
+                    "lower_s": t2 - ctx["t1"],
+                    # blocked device wait: the device time the host paid
+                    "device_s": dev_wait,
+                    # estimated device busy: the first (unoverlapped)
+                    # window's latency times the window count
+                    "device_est_s": (est_scan or 0.0) * n_windows,
+                    "total_s": t3 - ctx["t0"],
+                    "windows": float(n_windows),
+                }
+            )
+
     def _finish_prepped(self, ctx: dict) -> BatchResult:
+        """Run a prepped round in one scan launch."""
         pr, dp, dims = ctx["pr"], ctx["dp"], ctx["dims"]
         prof, rec = self.profiler, ctx["prof"]
         t2 = time.perf_counter()
@@ -468,13 +816,9 @@ class BatchEngine:
         td = time.perf_counter()
         prof.note(rec, "dispatch", td - t2)
         packed = out_dev["packed_pod"].cpu().numpy()
-        out = {
-            "selected": packed[0],
-            "feasible_count": packed[1],
-            "sample_start": packed[2],
-            "sample_processed": packed[3],
-            "final_start": packed[4, 0] if packed.shape[1] else np.int32(dp.start0),
-        }
+        out = self._packed_out(packed)
+        if not packed.shape[1]:
+            out["final_start"] = np.int32(dp.start0)
         tb = time.perf_counter()
         prof.note(rec, "device_blocked", tb - td)
         if self.trace:
@@ -486,12 +830,14 @@ class BatchEngine:
             )
             prof.note(rec, "trace_fetch", time.perf_counter() - tb)
         t3 = time.perf_counter()
-        self.last_timings = {
-            "encode_s": ctx["t1"] - ctx["t0"],
-            "lower_s": t2 - ctx["t1"],
-            "device_s": t3 - t2,
-            "total_s": t3 - ctx["t0"],
-        }
+        self._note_round(
+            {
+                "encode_s": ctx["t1"] - ctx["t0"],
+                "lower_s": t2 - ctx["t1"],
+                "device_s": t3 - t2,
+                "total_s": t3 - ctx["t0"],
+            }
+        )
         prof.close(rec, pods=len(ctx["pending"]))
         res = BatchResult(self, ctx["pending"], out, pr, ctx["nodes"])
         res.prof_rec = rec
@@ -521,4 +867,20 @@ class BatchEngine:
         node-narrowing PreFilter among the kernelized plugins)."""
         if "NodeAffinity" not in self.filters:
             return None
-        return na.pre_filter_node_names(pod)
+        # pre_filter only inspects the pod's own required terms
+        result, _status = na.NodeAffinity(None).pre_filter(CycleState(), pod)
+        return None if result is None else result.node_names
+
+
+def _fetch_async(t: torch.Tensor) -> "tuple[torch.Tensor, torch.cuda.Event | None]":
+    """(host tensor, event): on the card, a copy into pinned host memory
+    enqueued on the current stream with an event recorded after it, so
+    waiting on the event waits for this copy and what came before it, not
+    for kernels launched later; on the CPU the tensor itself and None."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev

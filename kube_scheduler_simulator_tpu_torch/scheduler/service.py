@@ -1,0 +1,935 @@
+"""Scheduler service: lifecycle, configuration and the scheduling rounds.
+
+Port of the JAX package's ``scheduler/service.py`` for the batch round as
+users run it: ``start_scheduler`` builds one Framework per profile of the
+(defaulted) KubeSchedulerConfiguration and wires its result store into the
+shared reflector; ``schedule_pending`` drains the queue, running each round
+through the port's ``BatchEngine`` on the card when the profile and the
+workload are supported (``use_batch="auto"``) and through the sequential
+cycle otherwise.  Kernel decisions are replayed in queue order and
+committed in waves of ``commit_wave`` pods; on the card a round with more
+pods than that runs ``BatchEngine.schedule_waves``, so the host commits
+window k while the card scans window k+1.
+
+Refused with an error, never worked around: ``autoscale`` other than
+"off", a mesh, ``weights=``, extenders, ``Coscheduling`` or any other
+permit plugin, ``schedule_stream``.  Left out: the journal, the background
+loop, ``metrics()``, the restart and reset of a running configuration, the
+Permit wait machinery (no pod is ever parked: permit plugins are refused)
+and the chaos catch of the reference (a kernel or launch error propagates:
+finishing the round on the Python cycle would hide the kernel).  A kernel-failed pod under a profile with a PostFilter
+takes the exact sequential cycle (DefaultPreemption); the batched victim
+search is not ported, and each kernel run that needed it counts "batched
+preemption not ported" in ``stats["preempt_fallbacks"]``.
+"""
+
+from __future__ import annotations
+
+import copy
+import gc
+import os
+import threading
+import time
+from typing import Any, Callable
+
+import torch
+
+from kube_scheduler_simulator_tpu_torch.config import scheduler_config as sc
+from kube_scheduler_simulator_tpu_torch.device import resolve_device
+from kube_scheduler_simulator_tpu_torch.models.snapshot import Snapshot, has_pending_nomination
+from kube_scheduler_simulator_tpu_torch.models.wrapped import WrappedPlugin, original_name
+from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
+from kube_scheduler_simulator_tpu_torch.plugins.intree import in_tree_registry
+from kube_scheduler_simulator_tpu_torch.plugins.intree.queue_bind import pod_priority
+from kube_scheduler_simulator_tpu_torch.plugins.resultstore import SUCCESS_MESSAGE, ResultStore
+from kube_scheduler_simulator_tpu_torch.plugins.storereflector import RESULT_STORE_KEY, StoreReflector
+from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
+from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import (
+    Framework,
+    FrameworkHandle,
+    ScheduleResult,
+)
+from kube_scheduler_simulator_tpu_torch.scheduler.queue import SchedulingQueue
+from kube_scheduler_simulator_tpu_torch.utils.keys import pod_key as _pod_key
+
+Obj = dict[str, Any]
+
+# permit plugins the reference replays on its batch path; the port has none
+NOT_PORTED_PLUGINS = ("Coscheduling",)
+
+
+class SchedulerService:
+    def __init__(
+        self,
+        cluster_store: Any,
+        seed: int = 0,
+        tie_break: str = "reservoir",
+        use_batch: str = "off",
+        batch_min_work: int = 2048,
+        batch_max_restarts: int = 8,
+        clock: "Callable[[], float] | None" = None,
+        mesh: Any = "auto",
+        commit_wave: int = 256,
+        pipeline: "bool | str" = "auto",
+        autoscale: str = "off",
+        autoscaler_opts: "dict | None" = None,
+        autoscale_interval_s: float = 10.0,
+        weights: Any = None,
+        device: "str | torch.device | None" = None,
+        dtype: "torch.dtype | None" = None,
+    ):
+        """The reference's signature, plus ``device`` (the card unless the
+        caller passes "cpu"; a missing card raises) and ``dtype`` (the batch
+        engines' working dtype: float32 on the card, float64 on the CPU).
+
+        ``use_batch``: "off" = sequential cycle only; "auto" = whole pending
+        rounds through the batch engine when the profile × workload is
+        supported; "force" = always batch (kernel failures are recorded
+        without preemption).  ``batch_min_work``: in auto mode, rounds with
+        pods × nodes below this take the sequential cycle.  ``commit_wave``:
+        pods per bulk-commit wave.  ``pipeline``: the double-buffered
+        windowed round; "auto" turns it on on the card, and on the CPU
+        where the host has at least 4 cores (the reference's rule)."""
+        if autoscale != "off":
+            raise ValueError(f"autoscale={autoscale!r}: the capacity engine is not ported yet")
+        if mesh not in ("auto", None):
+            raise ValueError("a mesh: the port runs one card; sharding the node axis is not ported yet")
+        if os.environ.get("KSS_MESH_DEVICES", "").strip() not in ("", "0", "1"):
+            raise ValueError("KSS_MESH_DEVICES: the port runs one card; sharding the node axis is not ported yet")
+        if weights is not None:
+            raise ValueError("weights=: the plugin-weight override is not ported yet")
+        del autoscaler_opts, autoscale_interval_s
+        self.cluster_store = cluster_store
+        self.seed = seed
+        self.tie_break = tie_break
+        self._clock = clock
+        self.use_batch = use_batch
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.batch_min_work = batch_min_work
+        self.commit_wave = max(int(commit_wave), 1)
+        self.pipeline = pipeline
+        self._pipeline_resolved: "bool | None" = None if pipeline == "auto" else bool(pipeline)
+        # successful preemptions free resources mid-round, forcing a kernel
+        # re-run on the remaining tail; past this many re-runs the round
+        # finishes on the (equally exact) sequential cycle
+        self.batch_max_restarts = batch_max_restarts
+        self.reflector = StoreReflector()
+        self.reflector.register_to_cluster_store(cluster_store)
+        # upstream-shaped scheduling queue (activeQ/backoffQ/unschedulableQ
+        # with event-driven requeue), subscribed for the service's lifetime
+        self.queue = SchedulingQueue(clock=clock)
+        cluster_store.subscribe(["pods", "nodes"], self.queue.note_event)
+        self._out_of_tree: dict[str, Callable[[Obj | None, Any], Any]] = {}
+        self._profile_names: set[str] = {"default-scheduler"}
+        # one Framework per profile, keyed by schedulerName; ``framework``
+        # is the default profile's
+        self.frameworks: dict[str, Framework] = {}
+        self.framework: "Framework | None" = None
+        self.result_store: "ResultStore | None" = None
+        self._result_store_keys: list[str] = []
+        self._batch_engine: "BatchEngine | None" = None
+        self._batch_engines: dict[str, BatchEngine] = {}
+        self.stats: dict[str, Any] = {
+            "batch_commits": 0,
+            "batch_pods": 0,
+            "batch_fallbacks": {},
+            "batch_restarts": 0,
+            "sequential_pods": 0,
+            # host seconds of batch commits and of the pods a batch round
+            # routed through the sequential cycle
+            "commit_s": 0.0,
+            "commit_waves": 0,
+            "last_wave_commit_s": 0.0,
+            "last_wave_pods": 0,
+            "preempt_fallbacks": {},
+        }
+        self._stats_lock = threading.Lock()
+        # one per-wave stage profiler shared by every profile engine and the
+        # commit path; the store stamps its mutations against it too
+        self.profiler = WaveProfiler()
+        self.cluster_store.profiler = self.profiler
+
+    # ----------------------------------------------------------- extension
+
+    def set_out_of_tree_registries(self, registry: dict[str, Callable[[Obj | None, Any], Any]]) -> None:
+        self._out_of_tree.update(registry)
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start_scheduler(self, cfg: "Obj | None" = None) -> None:
+        """Build one Framework per profile of the configuration, keyed by
+        schedulerName.  Extenders and permit plugins are refused."""
+        cfg = self._filter_allowed_changes(cfg)
+        if cfg.get("extenders"):
+            raise ValueError("extenders: the extender webhooks are not ported yet")
+        profiles = cfg.get("profiles") or [{}]
+        names = [p.get("schedulerName") or "default-scheduler" for p in profiles]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicated profile schedulerName in {names}")
+        for profile in profiles:
+            for point_set in (profile.get("plugins") or {}).values():
+                if not isinstance(point_set, dict):
+                    continue
+                for p in point_set.get("enabled") or []:
+                    if original_name(p.get("name", "")) in NOT_PORTED_PLUGINS:
+                        raise ValueError(f"plugin {original_name(p['name'])} is not ported yet")
+        # drop the previous build's stores before registering new ones
+        for key in self._result_store_keys:
+            self.reflector.remove_result_store(key)
+        self._result_store_keys = []
+        frameworks: dict[str, Framework] = {}
+        for idx, (name, profile) in enumerate(zip(names, profiles)):
+            store_key = RESULT_STORE_KEY if idx == 0 else f"{RESULT_STORE_KEY}/{name}"
+            fw = self._build_framework(cfg, profile, store_key)
+            self._result_store_keys.append(store_key)
+            frameworks[name] = fw
+            if fw.plugins["permit"]:
+                permit = [wp.original.name for wp in fw.plugins["permit"]]
+                raise ValueError(f"permit plugins {permit}: the port's batch round has no permit replay yet")
+        self._profile_names = set(names)
+        self.frameworks = frameworks
+        self.framework = frameworks.get("default-scheduler") or frameworks[names[0]]
+        self.result_store = self.framework.result_store
+        self._batch_engine = None  # rebuilt lazily for the new profiles
+        self._batch_engines = {}
+        # a scheduler (re)build is a scheduling-relevant event
+        self.queue.move_all()
+
+    def schedule_stream(self, *args: Any, **kwargs: Any) -> Any:
+        raise NotImplementedError("schedule_stream: the streaming wave pipeline is not ported yet")
+
+    # -------------------------------------------------------------- builder
+
+    def _filter_allowed_changes(self, cfg: "Obj | None") -> Obj:
+        """Only .profiles, .extenders and .percentageOfNodesToScore of user
+        configs are honored."""
+        base = sc.default_scheduler_config()
+        if cfg is None:
+            return base
+        if cfg.get("profiles"):
+            base["profiles"] = copy.deepcopy(cfg["profiles"])
+        if cfg.get("extenders"):
+            base["extenders"] = copy.deepcopy(cfg["extenders"])
+        if cfg.get("percentageOfNodesToScore") is not None:
+            base["percentageOfNodesToScore"] = cfg["percentageOfNodesToScore"]
+        return base
+
+    def framework_for(self, pod: Obj) -> Framework:
+        """The Framework owning ``pod`` by its spec.schedulerName."""
+        name = (pod.get("spec") or {}).get("schedulerName") or "default-scheduler"
+        fw = self.frameworks.get(name)
+        if fw is None:
+            fw = self.framework
+        assert fw is not None, "scheduler not started"
+        return fw
+
+    def _sync_rotation(self, src: Framework) -> None:
+        """Upstream keeps ONE rotating start index and attempt counter per
+        scheduler process, shared by all profiles: mirror the source
+        framework's onto the rest after it schedules."""
+        for fw in self.frameworks.values():
+            if fw is not src:
+                fw.next_start_node_index = src.next_start_node_index
+                fw.sched_counter = src.sched_counter
+
+    def _build_framework(self, cfg: Obj, profile: "Obj | None" = None, store_key: str = RESULT_STORE_KEY) -> Framework:
+        if profile is None:
+            profile = (cfg.get("profiles") or [{}])[0]
+        registry = in_tree_registry()
+        registry.update(self._out_of_tree)
+        for point_set in (profile.get("plugins") or {}).values():
+            if not isinstance(point_set, dict):
+                continue
+            for p in point_set.get("enabled") or []:
+                name = original_name(p.get("name", ""))
+                if name and name != "*" and name not in registry:
+                    raise KeyError(f"registry for {name} is not found")
+        args_by_name = sc.plugin_args_by_name(profile)
+        handle = FrameworkHandle(cluster_store=self.cluster_store)
+        instances: dict[str, Any] = {}
+
+        def instance(name: str) -> Any:
+            name = original_name(name)
+            if name not in instances:
+                if name not in registry:
+                    raise KeyError(f"registry for {name} is not found")
+                instances[name] = registry[name](args_by_name.get(name), handle)
+            return instances[name]
+
+        capabilities: dict[str, set[str]] = {}
+        all_names = set(registry.keys())
+        for p in (profile.get("plugins") or {}).get("multiPoint", {}).get("enabled") or []:
+            all_names.add(original_name(p["name"]))
+        for name in all_names:
+            try:
+                inst = instance(name)
+            except KeyError:
+                continue
+            capabilities[name] = {point for point, method in sc.POINT_METHODS.items() if hasattr(inst, method)}
+        norm_profile = copy.deepcopy(profile)
+        _normalize_names(norm_profile)
+        per_point = sc.effective_plugins(norm_profile, capabilities)
+        # weights from the effective (merged) score set; zero weight → 1
+        score_weights = {original_name(p["name"]): int(p.get("weight") or 0) or 1 for p in per_point["score"]}
+        result_store = ResultStore(score_plugin_weight=score_weights)
+        self.reflector.add_result_store(result_store, store_key)
+        wrapped_cache: dict[str, WrappedPlugin] = {}
+
+        def wrapped(name: str) -> WrappedPlugin:
+            name = original_name(name)
+            if name not in wrapped_cache:
+                orig = instance(name)
+                wrapped_cache[name] = WrappedPlugin(result_store, orig, None)
+            return wrapped_cache[name]
+
+        plugins = {
+            point: [wrapped(p["name"]) for p in per_point[key]]
+            for point, key in (
+                ("queue_sort", "queueSort"), ("pre_filter", "preFilter"), ("filter", "filter"),
+                ("post_filter", "postFilter"), ("pre_score", "preScore"), ("score", "score"),
+                ("reserve", "reserve"), ("permit", "permit"), ("pre_bind", "preBind"),
+                ("bind", "bind"), ("post_bind", "postBind"),
+            )
+        }
+        fw = Framework(
+            plugins,
+            handle,
+            score_weights=score_weights,
+            percentage_of_nodes_to_score=int(cfg.get("percentageOfNodesToScore") or 0),
+            seed=self.seed,
+            profile_name=profile.get("schedulerName") or "default-scheduler",
+            tie_break=self.tie_break,
+            clock=self._clock,
+        )
+        fw.result_store = result_store
+        return fw
+
+    # ------------------------------------------------------------- run loop
+
+    def pending_pods(self) -> list[Obj]:
+        """Unbound, undeleted pods of a declared profile (no pod is ever
+        parked at Permit: the port refuses permit plugins)."""
+        profiles = self._profile_names or {"default-scheduler"}
+        return [
+            p
+            for p in self.cluster_store.list("pods", copy_objects=False)
+            if not (p.get("spec") or {}).get("nodeName")
+            and not p["metadata"].get("deletionTimestamp")
+            and ((p.get("spec") or {}).get("schedulerName") or "default-scheduler") in profiles
+        ]
+
+    def _ready_pending(self, respect_backoff: bool = False) -> list[Obj]:
+        """The store-pending pods the queue allows a round to attempt."""
+        cands = self.pending_pods()
+        q = self.queue
+        for p in cands:
+            q.ensure_tracked(_pod_key(p))
+        ready = q.ready(ignore_backoff=not respect_backoff)
+        return [p for p in cands if _pod_key(p) in ready]
+
+    def build_snapshot(self) -> Snapshot:
+        t0 = time.perf_counter()
+        snap = Snapshot(
+            self.cluster_store.list("nodes", copy_objects=False),
+            self.cluster_store.list("pods", copy_objects=False),
+            self.cluster_store.list("namespaces", copy_objects=False),
+        )
+        self.profiler.ambient("snapshot_rv", time.perf_counter() - t0)
+        return snap
+
+    def schedule_pending(self, max_rounds: int = 3, respect_backoff: bool = False) -> dict[str, ScheduleResult]:
+        """Drain the pending queue: sort by QueueSort and schedule each pod
+        in order, a round at a time (batch rounds when ``use_batch`` allows,
+        with outcomes identical to the sequential cycle's)."""
+        assert self.framework is not None, "scheduler not started"
+        results: dict[str, ScheduleResult] = {}
+        # big rounds allocate millions of short-lived strings next to a store
+        # holding millions of live ones: generational GC scans cost seconds
+        # per round for nothing (refcounting frees the garbage)
+        gc_was_enabled = gc.isenabled()
+        if gc_was_enabled:
+            gc.disable()
+        try:
+            for _ in range(max_rounds):
+                round_results: "dict[str, ScheduleResult] | None" = None
+                if self.use_batch in ("auto", "force"):
+                    round_results = self._schedule_pending_batch(respect_backoff)
+                if round_results is None:
+                    pending = self.framework.sort_pods(self._ready_pending(respect_backoff))
+                    if not pending:
+                        break
+                    snapshot = self.build_snapshot()
+                    round_results = {}
+                    for pod in pending:
+                        round_results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
+                if not round_results:
+                    break
+                results.update(round_results)
+                if not any(r.success or r.nominated_node for r in round_results.values()):
+                    break
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+        return results
+
+    # ------------------------------------------------------------ batch path
+
+    def _engine_for(self, fw: Framework) -> BatchEngine:
+        """The (lazily built) batch engine of a profile, on the service's
+        device."""
+        eng = self._batch_engines.get(fw.profile_name)
+        if eng is None:
+            eng = BatchEngine.from_framework(fw, trace=True, device=self.device, dtype=self.dtype)
+            eng.profiler = self.profiler
+            self._batch_engines[fw.profile_name] = eng
+            if fw is self.framework:
+                self._batch_engine = eng
+        return eng
+
+    def _schedule_pending_batch(self, respect_backoff: bool = False) -> "dict[str, ScheduleResult] | None":
+        """One round on the batch engine; None when the whole round must run
+        sequentially (nothing committed, so falling back is exact).  Kernel
+        decisions are replayed in queue order; multi-profile rounds run as
+        segments of same-profile pods, each on its profile's engine, with
+        the rotation and attempt counters synced after each."""
+        fw0 = self.framework
+        assert fw0 is not None
+        tq = time.perf_counter()
+        pending_all = fw0.sort_pods(self._ready_pending(respect_backoff))
+        self.profiler.ambient("queue_maint", time.perf_counter() - tq)
+        if not pending_all:
+            return {}
+        nodes = self.cluster_store.list("nodes", copy_objects=False)
+        if self.use_batch == "auto" and len(pending_all) * max(len(nodes), 1) < self.batch_min_work:
+            self._count_fallback("below batch_min_work")
+            return None
+        # pending nominations store-wide: a nominee in the round is only
+        # modeled by the sequential cycle; one outside it is filter-only
+        # usage on its node when the gate holds
+        noms = self._pending_nominations()
+        if noms:
+            pending_keys = {_pod_key(p) for p in pending_all}
+            if any(_pod_key(p) in pending_keys for p, _nn in noms):
+                self._count_fallback("nominated pods present (preemption in flight)")
+                return None
+            reason = nomination_gate(noms, pending_all)
+            if reason is not None:
+                self._count_fallback(f"nominations not batchable: {reason}")
+                return None
+        segments: list[tuple[Framework, list[Obj]]] = []
+        for pod in pending_all:
+            fw = self.framework_for(pod)
+            if segments and segments[-1][0] is fw:
+                segments[-1][1].append(pod)
+            else:
+                segments.append((fw, [pod]))
+        results: dict[str, ScheduleResult] = {}
+        any_batched = False
+        for fw, pending in segments:
+            eng = self._engine_for(fw)
+            volumes = eng._volumes()
+            ok, why = eng.supported(pending, nodes, volumes=volumes)
+            if ok and len(segments) > 1 and self.use_batch == "auto" and (
+                len(pending) * max(len(nodes), 1) < self.batch_min_work
+            ):
+                ok, why = False, "segment below batch_min_work"
+            if not ok:
+                if len(segments) == 1:
+                    self._count_fallback(why)
+                    return None
+                self._count_fallback(f"{why} [profile {fw.profile_name}]")
+                snapshot = self.build_snapshot()
+                tc = time.perf_counter()
+                for pod in pending:
+                    results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
+                self.stats["commit_s"] += time.perf_counter() - tc
+            else:
+                self._run_segment_batch(fw, eng, pending, nodes, volumes, results, noms)
+                any_batched = True
+                self._sync_rotation(fw)
+        if any_batched:
+            self.stats["batch_commits"] += 1
+        self.reflector.flush_all(self.cluster_store)
+        return results
+
+    def _run_segment_batch(
+        self,
+        fw: Framework,
+        eng: BatchEngine,
+        pending: list[Obj],
+        nodes: list[Obj],
+        volumes: "dict[str, list[Obj]]",
+        results: dict,
+        nominated: "list[tuple[Obj, str]] | None" = None,
+    ) -> None:
+        seq_failures = bool(fw.plugins["post_filter"]) and self.use_batch != "force"
+        point_names = {
+            p: [wp.original.name for wp in fw.plugins[p]]
+            for p in ("pre_filter", "pre_score", "reserve", "permit", "pre_bind", "bind")
+        }
+        i = 0  # index of the tail's first pod within `pending`
+        restarts = 0
+        # round-start nominations only: the sequential cycle's snapshot
+        # freezes its nominated map at round build
+        noms = list(nominated or [])
+        while i < len(pending):
+            tail = pending[i:]
+            args = (
+                nodes,
+                self.cluster_store.list("pods", copy_objects=False),
+                tail,
+                self.cluster_store.list("namespaces", copy_objects=False),
+            )
+            kw = dict(
+                base_counter=fw.sched_counter,
+                start_index=fw.next_start_node_index,
+                volumes=volumes,
+                nominated=noms or None,
+            )
+            if self._pipeline_on() and len(tail) > self.commit_wave:
+                windows = eng.schedule_waves(*args, **kw, wave_pods=max(self.commit_wave, 256))
+            else:
+                windows = iter([(eng.schedule(*args, **kw), 0, len(tail))])
+            snapshot = None
+            restart_at = None
+            preempt_noted = False
+            for result, off, cnt in windows:
+                if snapshot is None:
+                    # after the round's encode captured the cluster state
+                    snapshot = self.build_snapshot()
+                    self._prune_mid_round_nominations(snapshot, noms)
+                if seq_failures and not preempt_noted and any(int(result.selected[j]) < 0 for j in range(cnt)):
+                    # the reference runs one batched victim search per
+                    # kernel run here; the port has none yet
+                    self._count_preempt_fallback("batched preemption not ported")
+                    preempt_noted = True
+                restart_at = self._replay_window(result, i, off, cnt, snapshot, point_names, fw, seq_failures, results)
+                if restart_at is not None:
+                    break  # abandon the remaining windows (state changed)
+                fw.next_start_node_index = result.final_start
+            if restart_at is None:
+                break
+            i = restart_at
+            restarts += 1
+            if i >= len(pending):
+                break
+            self.stats["batch_restarts"] += 1
+            if restarts >= self.batch_max_restarts:
+                # a preemption-heavy round: finish it on the exact
+                # sequential cycle
+                snapshot = self.build_snapshot()
+                self._prune_mid_round_nominations(snapshot, noms)
+                for pod in pending[i:]:
+                    results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
+                break
+
+    def _pipeline_on(self) -> bool:
+        """Resolve ``pipeline="auto"`` once: on on the card, where the scan
+        runs while the host commits; on the CPU only with at least 4 cores
+        (the reference's rule: the plain scan and the commit share them)."""
+        if self._pipeline_resolved is None:
+            self._pipeline_resolved = self.device.type == "cuda" or (os.cpu_count() or 1) >= 4
+        return self._pipeline_resolved
+
+    def _replay_window(
+        self,
+        result: Any,
+        base_i: int,
+        off: int,
+        cnt: int,
+        snapshot: Snapshot,
+        point_names: dict[str, list[str]],
+        fw: Framework,
+        seq_failures: bool,
+        results: dict,
+    ) -> "int | None":
+        """Replay one kernel window's decisions in queue order: successes
+        accumulate into bulk-commit waves, kernel failures commit from the
+        trace (force mode) or run the exact sequential cycle.  Returns the
+        pending index to restart the kernel from after a successful
+        preemption, else None."""
+        window = result.pending
+        sample_start = result.out["sample_start"]
+        wave_js: list[int] = []
+
+        def flush_wave() -> None:
+            if not wave_js:
+                return
+            tc = time.perf_counter()
+            with self.cluster_store.journal_txn("wave"):
+                self._commit_batch_wave(result, wave_js, window, snapshot, point_names, fw, results)
+                fw.sched_counter += len(wave_js)
+                nj = wave_js[-1] + 1
+                fw.next_start_node_index = int(sample_start[nj]) if nj < cnt else result.final_start
+            dt = time.perf_counter() - tc
+            self.stats["commit_s"] += dt
+            self.stats["commit_waves"] += 1
+            self.stats["last_wave_commit_s"] = dt
+            self.stats["last_wave_pods"] = len(wave_js)
+            self.stats["batch_pods"] += len(wave_js)
+            wave_js.clear()
+
+        for j in range(cnt):
+            pod = window[j]
+            key = _pod_key(pod)
+            if int(result.selected[j]) >= 0:
+                wave_js.append(j)
+                if len(wave_js) >= self.commit_wave:
+                    flush_wave()
+            elif not seq_failures:
+                # force mode (or no PostFilter): record the kernel's failure
+                flush_wave()
+                tc = time.perf_counter()
+                results[key] = self._commit_batch_pod(result, j, pod, snapshot, point_names, fw)
+                self.stats["commit_s"] += time.perf_counter() - tc
+                fw.sched_counter += 1
+                self.stats["batch_pods"] += 1
+            else:
+                # exact sequential cycle for this pod: same snapshot state
+                # (earlier commits assumed), attempt counter and rotation
+                flush_wave()
+                fw.next_start_node_index = int(sample_start[j])
+                tc = time.perf_counter()
+                res = self.schedule_one(pod, snapshot)
+                self.stats["commit_s"] += time.perf_counter() - tc
+                results[key] = res
+                if res.nominated_node:
+                    self.profiler.close(getattr(result, "prof_rec", None))
+                    return base_i + off + j + 1
+        flush_wave()
+        # the wave record closes even when nothing committed
+        self.profiler.close(getattr(result, "prof_rec", None))
+        return None
+
+    def _count_fallback(self, reason: str) -> None:
+        with self._stats_lock:
+            fb = self.stats["batch_fallbacks"]
+            fb[reason] = fb.get(reason, 0) + 1
+
+    def _count_preempt_fallback(self, reason: str) -> None:
+        with self._stats_lock:
+            fb = self.stats["preempt_fallbacks"]
+            fb[reason] = fb.get(reason, 0) + 1
+
+    def _prune_mid_round_nominations(self, snapshot: Snapshot, round_noms: "list[tuple[Obj, str]]") -> None:
+        """Restrict a (re)built snapshot's nominated map to the round-start
+        nominations, as the sequential cycle's one snapshot per round sees."""
+        keep = {(p["metadata"].get("namespace", "default"), p["metadata"]["name"]) for p, _nn in round_noms}
+        pruned: dict[str, list[Obj]] = {}
+        for nn, lst in snapshot.nominated.items():
+            kept = [q for q in lst if (q["metadata"].get("namespace", "default"), q["metadata"]["name"]) in keep]
+            if kept:
+                pruned[nn] = kept
+        snapshot.nominated = pruned
+
+    def _pending_nominations(self) -> "list[tuple[Obj, str]]":
+        """Unbound pods carrying a preemption nomination, store-wide."""
+        return [
+            (p, p["status"]["nominatedNodeName"])
+            for p in self.cluster_store.list("pods", copy_objects=False)
+            if has_pending_nomination(p)
+        ]
+
+    def _commit_batch_wave(
+        self,
+        result: Any,
+        js: list[int],
+        tail: list[Obj],
+        snapshot: "Snapshot | None",
+        point_names: dict[str, list[str]],
+        fw: Framework,
+        results: dict,
+    ) -> None:
+        """Commit a wave of kernel-scheduled pods in bulk: every pod's
+        annotation documents, the result store filled under one lock, the
+        binds, and one reflector flush of the whole wave.  Byte-identical
+        to committing each pod through ``_commit_batch_pod``."""
+        rs = fw.result_store
+        prof = self.profiler
+        prof_rec = getattr(result, "prof_rec", None)
+        t_ann = time.perf_counter()
+        pf_names = point_names["pre_filter"]
+        # per-wave shared category maps, identical for every pod
+        pf_status = {pn: SUCCESS_MESSAGE for pn in pf_names}
+        pre_score = {pn: SUCCESS_MESSAGE for pn in point_names["pre_score"]}
+        reserve = {pn: SUCCESS_MESSAGE for pn in point_names["reserve"]}
+        prebind = {pn: SUCCESS_MESSAGE for pn in point_names["pre_bind"]}
+        bind = {point_names["bind"][0]: SUCCESS_MESSAGE} if point_names["bind"] else None
+        entries: list[tuple[str, str, dict]] = []
+        bound: list[tuple[Obj, str, str, str]] = []
+        wave_docs = result.materialize_wave(js)
+        for j in js:
+            pod = tail[j]
+            ns = pod["metadata"].get("namespace", "default")
+            name = pod["metadata"]["name"]
+            node_name = result.node_names[int(result.selected[j])]
+            docs = wave_docs.get(j) if wave_docs is not None else None
+            cats: dict = {}
+            if pf_names:
+                cats["preFilterStatus"] = pf_status
+                if "NodeAffinity" in pf_names:
+                    names = result._engine.prefilter_node_names(pod)
+                    if names is not None:
+                        cats["preFilterResult"] = {"NodeAffinity": sorted(names)}
+            cats["filter"] = docs["filter"] if docs is not None else result.filter_annotation_pair(j)
+            if int(result.feasible_count[j]) > 1:
+                if pre_score:
+                    cats["preScore"] = pre_score
+                if docs is not None:
+                    score_pair, final_pair = docs["score"], docs["finalScore"]
+                else:
+                    score_pair, final_pair = result.score_annotations_pairs(j)
+                cats["score"] = score_pair
+                cats["finalScore"] = final_pair
+            if reserve:
+                # selected-node is recorded by the wrapped Reserve hooks
+                cats["selectedNode"] = node_name
+                cats["reserve"] = reserve
+            if prebind:
+                cats["prebind"] = prebind
+            if bind:
+                cats["bind"] = bind
+            entries.append((ns, name, cats))
+            bound.append((pod, ns, name, node_name))
+        t_commit = time.perf_counter()
+        prof.note(prof_rec, "annotate", t_commit - t_ann)
+        rs.profiler = prof
+        nested0 = prof.nested(prof_rec)
+        prof.current = prof_rec
+        try:
+            rs.add_wave_results(entries)
+            committed: list[tuple[Obj, str, str, str]] = []
+            for pod, ns, name, node_name in bound:
+                try:
+                    self.cluster_store.bind_pod(ns, name, node_name)
+                except KeyError:
+                    # deleted between the kernel's decision and this commit
+                    continue
+                if snapshot is not None:
+                    snapshot.assume(pod, node_name)
+                results[_pod_key(pod)] = ScheduleResult(selected_node=node_name)
+                committed.append((pod, ns, name, node_name))
+            self.reflector.flush_wave(self.cluster_store, [p for p, *_ in committed])
+            for pod, ns, name, node_name in committed:
+                self._record_event(pod, "Normal", "Scheduled", f"Successfully assigned {ns}/{name} to {node_name}")
+        finally:
+            prof.current = None
+        prof.note_excl(prof_rec, "commit", time.perf_counter() - t_commit, nested0)
+        prof.close(prof_rec, pods=len(js))
+
+    def _commit_batch_pod(
+        self,
+        result: Any,
+        i: int,
+        pod: Obj,
+        snapshot: "Snapshot | None" = None,
+        point_names: "dict[str, list[str]] | None" = None,
+        fw: "Framework | None" = None,
+    ) -> ScheduleResult:
+        """Write one pod's batch trace into the result store (the categories
+        the wrapped plugins record) and bind it, or record its failure;
+        with ``snapshot``, assume the bind for later sequential cycles of
+        the round."""
+        with self.cluster_store.journal_txn("attempt"):
+            return self._commit_batch_pod_txn(result, i, pod, snapshot, point_names, fw)
+
+    def _commit_batch_pod_txn(
+        self,
+        result: Any,
+        i: int,
+        pod: Obj,
+        snapshot: "Snapshot | None" = None,
+        point_names: "dict[str, list[str]] | None" = None,
+        fw: "Framework | None" = None,
+    ) -> ScheduleResult:
+        from kube_scheduler_simulator_tpu_torch.models.framework import PreFilterResult, Status
+
+        if fw is None:
+            fw = self.framework
+        assert fw is not None
+        rs = fw.result_store
+        # this pod's attempt starts at its commit, as in schedule_one
+        attempt_move_seq = self.queue.move_seq
+        if point_names is None:
+            point_names = {
+                p: [wp.original.name for wp in fw.plugins[p]]
+                for p in ("pre_filter", "pre_score", "reserve", "permit", "pre_bind", "bind")
+            }
+        ns = pod["metadata"].get("namespace", "default")
+        name = pod["metadata"]["name"]
+        sel = int(result.selected[i])
+        feasible_count = int(result.feasible_count[i])
+        for pn in point_names["pre_filter"]:
+            narrowed = None
+            if pn == "NodeAffinity":
+                names = result._engine.prefilter_node_names(pod)
+                if names is not None:
+                    narrowed = PreFilterResult(names)
+            rs.add_pre_filter_result(ns, name, pn, SUCCESS_MESSAGE, narrowed)
+        rs.add_batch_results(ns, name, filter=result.filter_annotation_pair(i))
+        if feasible_count > 1:
+            for pn in point_names["pre_score"]:
+                rs.add_pre_score_result(ns, name, pn, SUCCESS_MESSAGE)
+            score_pair, final_pair = result.score_annotations_pairs(i)
+            rs.add_batch_results(ns, name, score=score_pair, finalScore=final_pair)
+        if sel >= 0:
+            node_name = result.node_names[sel]
+            if point_names["reserve"]:
+                rs.add_selected_node(ns, name, node_name)
+            for pn in point_names["reserve"]:
+                rs.add_reserve_result(ns, name, pn, SUCCESS_MESSAGE)
+            for pn in point_names["pre_bind"]:
+                rs.add_pre_bind_result(ns, name, pn, SUCCESS_MESSAGE)
+            if point_names["bind"]:
+                rs.add_bind_result(ns, name, point_names["bind"][0], SUCCESS_MESSAGE)
+            self.cluster_store.bind_pod(ns, name, node_name)
+            if snapshot is not None:
+                snapshot.assume(pod, node_name)
+            self.reflector.flush_pod(self.cluster_store, pod)
+            self._record_event(pod, "Normal", "Scheduled", f"Successfully assigned {ns}/{name} to {node_name}")
+            return ScheduleResult(selected_node=node_name)
+        diagnosis = result.diagnosis(i)
+        res = ScheduleResult(
+            diagnosis=diagnosis,
+            status=Status.unschedulable(f"0/{result.problem.N_true} nodes are available"),
+        )
+        self._record_failure(pod, res, attempt_move_seq)
+        self.reflector.flush_pod(self.cluster_store, pod)
+        return res
+
+    def schedule_one(self, pod: Obj, snapshot: "Snapshot | None" = None) -> ScheduleResult:
+        """One pod through the exact sequential cycle."""
+        assert self.framework is not None, "scheduler not started"
+        if snapshot is None:
+            snapshot = self.build_snapshot()
+        fw = self.framework_for(pod)
+        attempt_move_seq = self.queue.move_seq
+        with self.cluster_store.journal_txn("attempt"):
+            result = fw.schedule_one(pod, snapshot)
+            self._sync_rotation(fw)
+            self.stats["sequential_pods"] += 1
+            if not result.success:
+                self._record_failure(pod, result, attempt_move_seq)
+            else:
+                ns = pod["metadata"].get("namespace", "default")
+                self._record_event(
+                    pod, "Normal", "Scheduled",
+                    f"Successfully assigned {ns}/{pod['metadata']['name']} to {result.selected_node}",
+                )
+            self.reflector.flush_all(self.cluster_store)
+        return result
+
+    def _record_event(self, pod: Obj, type_: str, reason: str, message: str) -> None:
+        """Record a scheduling Event like upstream's recorder; best-effort,
+        as client-go's fire-and-forget recorder."""
+        meta = pod["metadata"]
+        ns = meta.get("namespace", "default")
+        self._event_seq = getattr(self, "_event_seq", 0) + 1
+        component = self.framework_for(pod).profile_name
+        try:
+            self.cluster_store.create(
+                "events",
+                {
+                    "metadata": {"name": f"{meta['name']}.{self._event_seq:x}", "namespace": ns},
+                    "involvedObject": {"kind": "Pod", "namespace": ns, "name": meta["name"], "uid": meta.get("uid", "")},
+                    "reason": reason,
+                    "message": message,
+                    "type": type_,
+                    "count": 1,
+                    "source": {"component": component},
+                    "reportingComponent": component,
+                },
+            )
+        except Exception:  # noqa: BLE001 - the recorder is fire-and-forget
+            pass
+
+    def _record_failure(self, pod: Obj, result: ScheduleResult, attempt_move_seq: "int | None" = None) -> None:
+        """Update pod status like upstream's failure handler: PodScheduled
+        condition and, for a new nomination, nominatedNodeName."""
+        ns = pod["metadata"].get("namespace", "default")
+        name = pod["metadata"]["name"]
+        self.queue.on_failure(f"{ns}/{name}", attempt_move_seq)
+        message = self._failure_message(result)
+        patch: Obj = {
+            "status": {
+                "phase": "Pending",
+                "conditions": [
+                    {"type": "PodScheduled", "status": "False", "reason": "Unschedulable", "message": message}
+                ],
+            }
+        }
+        if result.nominated_node:
+            patch["status"]["nominatedNodeName"] = result.nominated_node
+        try:
+            # skip no-op patches: an identical failure would wake the queue
+            current = self.cluster_store.get("pods", name, ns)
+            cur_status = current.get("status") or {}
+            if (cur_status.get("conditions") or []) == patch["status"]["conditions"] and (
+                result.nominated_node is None or cur_status.get("nominatedNodeName") == result.nominated_node
+            ):
+                return
+            self.cluster_store.patch("pods", name, patch, ns)
+            self._record_event(pod, "Warning", "FailedScheduling", message)
+        except KeyError:
+            pass
+
+    @staticmethod
+    def _failure_message(result: ScheduleResult) -> str:
+        counts: dict[str, int] = {}
+        for status in result.diagnosis.values():
+            msg = status.message() if status is not None else ""
+            counts[msg] = counts.get(msg, 0) + 1
+        num = len(result.diagnosis)
+        parts = [f"{counts[m]} {m}" for m in sorted(counts) if m]
+        if not parts:
+            return result.status.message() if result.status else "no nodes available"
+        return f"0/{num} nodes are available: {', '.join(parts)}."
+
+
+def nomination_gate(nominated: "list[tuple[Obj, str]]", round_pods: list[Obj]) -> "str | None":
+    """Why pending nominations can't be modeled as filter-only usage for
+    this round's kernel runs (None = modelable): the reference's
+    ``preemption/engine.py`` gate.  The model adds each nominee's requests
+    and count to the Fit filter state on its nominated node, exact only
+    when every round pod must respect every reservation (priority <=) and
+    no non-monotone filter can observe the difference."""
+    if not nominated:
+        return None
+    min_nom = min(pod_priority(p) for p, _nn in nominated)
+    for p, _nn in nominated:
+        spec = p.get("spec") or {}
+        if any(prt.get("hostPort") for c in spec.get("containers") or [] for prt in c.get("ports") or []):
+            return "nominated pod requests host ports"
+        if spec.get("volumes"):
+            return "nominated pod mounts volumes"
+        if ((spec.get("affinity") or {}).get("podAntiAffinity") or {}).get("requiredDuringSchedulingIgnoredDuringExecution"):
+            return "nominated pod has required anti-affinity"
+    for p in round_pods:
+        spec = p.get("spec") or {}
+        if pod_priority(p) > min_nom:
+            return "pending pod outranks a nomination"
+        if any(
+            (tsc.get("whenUnsatisfiable") or "DoNotSchedule") == "DoNotSchedule"
+            for tsc in spec.get("topologySpreadConstraints") or []
+        ):
+            return "pending pod has required topology spread constraints"
+        aff = spec.get("affinity") or {}
+        if any((aff.get(k) or {}).get("requiredDuringSchedulingIgnoredDuringExecution") for k in ("podAffinity", "podAntiAffinity")):
+            return "pending pod has required pod (anti-)affinity"
+    return None
+
+
+def _normalize_names(profile: Obj) -> None:
+    """Strip the Wrapped suffix from any plugin names in a profile."""
+    plugins = profile.get("plugins") or {}
+    for point_set in plugins.values():
+        if not isinstance(point_set, dict):
+            continue
+        for lst in ("enabled", "disabled"):
+            for p in point_set.get(lst) or []:
+                if p.get("name") and p["name"] != "*":
+                    p["name"] = original_name(p["name"])
+    for pc in profile.get("pluginConfig") or []:
+        if pc.get("name"):
+            pc["name"] = original_name(pc["name"])

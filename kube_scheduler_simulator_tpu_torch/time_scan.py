@@ -119,6 +119,8 @@ def main() -> int:
             if first is None:
                 first = out
             for k in first:
+                if k == "final_carry":  # a dict view of the final_* outputs
+                    continue
                 if not torch.equal(first[k], out[k]):
                     raise AssertionError(f"{dt} {k}: the two launch shapes' outputs differ")
             del out

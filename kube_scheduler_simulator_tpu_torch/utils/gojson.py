@@ -31,8 +31,19 @@ def _escape_html(s: str) -> str:
     )
 
 
+class RawJSON(str):
+    """A string that IS already go_marshal output.  Producers that can
+    assemble the exact bytes from pre-escaped fragments (the batch
+    engine's annotation writer) wrap them in RawJSON so go_marshal
+    passes them through instead of re-encoding."""
+
+    __slots__ = ()
+
+
 def go_marshal(obj: Any) -> str:
     """Serialize ``obj`` the way Go's ``json.Marshal`` would."""
+    if isinstance(obj, RawJSON):
+        return obj
     raw = json.dumps(obj, sort_keys=True, separators=(",", ":"), ensure_ascii=False)
     # json.dumps never emits raw & < > outside of string literals, so a
     # post-pass escape over the whole document only touches string contents

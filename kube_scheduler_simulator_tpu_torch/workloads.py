@@ -12,6 +12,8 @@ pods), all drawn from the same seed.  ``add_host_ports`` and
 ``add_volumes`` give such a snapshot the host ports, claims, volumes and
 CSI nodes a StatefulSet- and DaemonSet-heavy cluster carries (the
 ``volumes`` dict that ``BatchEngine.schedule(..., volumes=)`` reads).
+``churn`` replays the bench's BASELINE cfg5 scenario churn into a cluster
+store, wave by wave, with a rolling cordon on top.
 """
 
 from __future__ import annotations
@@ -264,3 +266,47 @@ def add_volumes(nodes: list, pods: list, n_bound: int = 0) -> dict:
         mk_csinode(n["metadata"]["name"], CSI_DRIVER, 1 if j % 16 == 0 else 24) for j, n in enumerate(nodes)
     ]
     return vols
+
+
+def stamp(pod: dict, i: int) -> dict:
+    """A creationTimestamp derived from ``i`` (the bench's deterministic
+    stamps): PrioritySort breaks ties on it, so runs of the same shape are
+    byte-comparable."""
+    pod["metadata"]["creationTimestamp"] = f"2024-03-01T{i // 3600 % 24:02d}:{i // 60 % 60:02d}:{i % 60:02d}Z"
+    return pod
+
+
+def churn(store, n_pods: int, n_nodes: int, waves: int, delete_frac: float = 0.1, cordon: int = 0, seed: int = 7):
+    """BASELINE cfg5's scenario churn (the JAX package's bench ``run_churn``
+    with deterministic stamps) driven into ``store``, a generator: it
+    creates ``n_nodes`` nodes, then per wave creates ``n_pods // waves``
+    pods (bench's ``mk_pod``, spread constraints on every 3rd) and yields
+    the wave index, for the caller to schedule; after each wave it deletes
+    ``delete_frac`` of the bound pods, drawn by a ``random.Random(seed)``.
+
+    ``cordon`` > 0 adds a rolling cordon, as a node-pool upgrade drains
+    nodes a few at a time: before every wave after the first,
+    ``spec.unschedulable`` is set on ``cordon`` nodes (drawn by the same
+    generator from the nodes not cordoned) and cleared on the ones
+    cordoned before the previous wave, by store patches."""
+    rng = random.Random(seed)
+    for i in range(n_nodes):
+        store.create("nodes", mk_node(i))
+    per_wave = n_pods // waves
+    created = 0
+    cordoned: list = []
+    for w in range(waves):
+        if cordon and w > 0:
+            fresh = rng.sample(sorted(set(range(n_nodes)) - set(cordoned)), cordon)
+            for i in cordoned:
+                store.patch("nodes", f"node-{i}", {"spec": {"unschedulable": None}})
+            for i in fresh:
+                store.patch("nodes", f"node-{i}", {"spec": {"unschedulable": True}})
+            cordoned = fresh
+        for _ in range(per_wave):
+            store.create("pods", stamp(mk_pod(created, rng, spread=created % 3 == 0), created))
+            created += 1
+        yield w
+        bound = [p for p in store.list("pods") if (p.get("spec") or {}).get("nodeName")]
+        for p in rng.sample(bound, int(len(bound) * delete_frac)):
+            store.delete("pods", p["metadata"]["name"], p["metadata"].get("namespace"))

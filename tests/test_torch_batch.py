@@ -152,12 +152,25 @@ def run_both(problem, subset, strategy, tie, sampling, trace):
     )
     tdp, tdims = interop.from_jax_problem(jax_fields(jdp), dims, device="cpu")
     want = jax_scan(JB.BatchConfig(**common, sampling=sampling), dims, jdp)
-    got = TB.build_batch_fn(TB.BatchConfig(**common), tdims)(tdp)
+    got = port_scan(TB.BatchConfig(**common), tdims, tdp)
     return want, got
 
 
-# the JAX scan's carry tuple positions of the port's final volume carries
-CARRY_OUTPUTS = {"final_ports_used": 3, "final_restr_used": 4, "final_cloud_used": 5, "final_csi_att": 6}
+def port_scan(cfg, dims, dp, ws0=None) -> dict:
+    """The port's scan outputs with ``final_carry`` (the chaining view of
+    the final carry fields, checked here) taken out."""
+    got = dict(TB.build_batch_fn(cfg, dims, ws0=ws0)(dp))
+    carry = got.pop("final_carry")
+    assert carry["requested0"] is got["final_requested"] and carry["start0"] is got["final_start"]
+    assert carry["ip_anti0"] is got["final_ip_anti"] and carry["csi_attached0"] is got["final_csi_att"]
+    return got
+
+
+# the JAX scan's carry tuple positions of the port's final carries
+CARRY_OUTPUTS = {
+    "final_ports_used": 3, "final_restr_used": 4, "final_cloud_used": 5, "final_csi_att": 6,
+    "final_spread_counts": 7, "final_ip_sel": 8, "final_ip_own": 9, "final_ip_anti": 10,
+}
 
 
 def jax_scan(cfg, dims, jdp, ws0=None) -> dict:
@@ -315,7 +328,7 @@ def test_scan_matches_reference_with_an_extended_resource():
     common = dict(filters=SEVEN_FILTERS, scores=ALL_SCORES, trace=True, tie_break="reservoir", seed=2)
     tdp, tdims = interop.from_jax_problem(jax_fields(dp), dims, device="cpu")
     want = jax_scan(JB.BatchConfig(**common), dims, dp)
-    got = TB.build_batch_fn(TB.BatchConfig(**common), tdims)(tdp)
+    got = port_scan(TB.BatchConfig(**common), tdims, tdp)
     assert set(want) == set(got)
     for k, v in want.items():
         assert np.array_equal(v, got[k].numpy()), k
@@ -483,7 +496,7 @@ def run_both_encoders(objs, filters, scores, tie="first", sample_k=None, start0=
     want = jax_scan(JB.BatchConfig(**common), dims, jdp, ws0)
     tdp, tdims = TB.lower(tpr, dtype=torch.float64, device="cpu")
     tdp = tdp._replace(sample_k=k, start0=start0, tb_base=11)
-    got = TB.build_batch_fn(TB.BatchConfig(**common), tdims, ws0=ws0)(tdp)
+    got = port_scan(TB.BatchConfig(**common), tdims, tdp, ws0)
     assert set(want) == set(got)
     for key, v in want.items():
         g = got[key].numpy()
@@ -523,7 +536,7 @@ def _in_step(problem, tie, ws0):
     jdp = dp._replace(sample_k=np.int32(100), start0=np.int32(37), tb_base=np.uint32(99))
     tdp, tdims = interop.from_jax_problem(jax_fields(jdp), dims, device="cpu")
     want = jax_scan(JB.BatchConfig(**common), dims, jdp, ws0)
-    got = TB.build_batch_fn(TB.BatchConfig(**common), tdims, ws0=ws0)(tdp)
+    got = port_scan(TB.BatchConfig(**common), tdims, tdp, ws0)
     return want, got
 
 
@@ -575,3 +588,122 @@ def test_in_step_compaction_blob_equals_the_full_plane_blob(topo_problem):
     # sampled cells the full planes keep and the compacted ones mask
     assert pr.P_true == dims["P"]
     assert torch.equal(fn_step(step, pr.N_true), fn_full(full, pr.N_true))
+
+
+# --------------------------------------------------- windowed scan (K2w)
+
+def _window_problem(case):
+    """(JAX dp, dims, port dp, cfg kwargs, ws0, Wp) of a windowed-scan case:
+
+    - ``reservoir_wrap``: spread constraints and inter-pod terms, reservoir
+      with a base counter 20 below 2**32, so tb_base + offset wraps inside
+      the round, and a rotated start;
+    - ``volumes_ws0``: upstream's default profile with host ports and
+      volumes, 100 of 130 nodes sampled and the score planes compacted in
+      the step (ws0 = 112);
+    - ``padding_tail``: 57 pending pods padded to 64, windows of 4: the
+      last window is all padding."""
+    if case == "padding_tail":
+        nodes, all_pods, pending = workloads.cluster(57, 60, seed=9, n_bound=10, spread=lambda i: i % 2 == 0)
+        vols, filters, scores = {}, SEVEN_FILTERS, TOPO_SCORES
+        knobs = dict(sample_k=60, start0=0, tb_base=5)
+        tie, ws0, Wp = "first", None, 4
+    elif case == "reservoir_wrap":
+        nodes, all_pods, pending = workloads.cluster(
+            48, 130, seed=5, n_bound=40, spread=lambda i: i % 3 == 0, interpod=lambda i: True,
+        )
+        vols, filters, scores = {}, SEVEN_FILTERS, TOPO_SCORES
+        knobs = dict(sample_k=130, start0=37, tb_base=(1 << 32) - 20)
+        tie, ws0, Wp = "reservoir", None, 16
+    else:
+        nodes, all_pods, pending = workloads.cluster(
+            48, 130, seed=6, n_bound=40, spread=lambda i: i % 3 == 0, interpod=lambda i: i % 2 == 0,
+        )
+        workloads.add_host_ports(all_pods)
+        vols = workloads.add_volumes(nodes, all_pods, 40)
+        filters, scores = DEFAULT_FILTERS, DEFAULT_SCORES
+        knobs = dict(sample_k=100, start0=71, tb_base=3)
+        tie, ws0, Wp = "first", 112, 16
+    jpr = JE.pad_problem(JE.encode(nodes, all_pods, pending, volumes=vols))
+    jdp, dims = JB.lower(jpr)
+    jdp = jdp._replace(
+        sample_k=np.int32(knobs["sample_k"]), start0=np.int32(knobs["start0"]), tb_base=np.uint32(knobs["tb_base"]),
+    )
+    tdp, tdims = TB.lower(TE.pad_problem(TE.encode(nodes, all_pods, pending, volumes=vols)), dtype=torch.float64, device="cpu")
+    tdp = tdp._replace(**knobs)
+    common = dict(filters=tuple(filters), scores=tuple(scores), trace=True, tie_break=tie, seed=7)
+    return jdp, dims, tdp, tdims, common, ws0, Wp
+
+
+WINDOW_CASES = ("reservoir_wrap", "volumes_ws0", "padding_tail")
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_windowed_plain_scan_equals_one_call_and_the_reference(case):
+    """The plain scan chained over windows (each from the previous window's
+    final carry) equals the one-call plain scan in every output and in the
+    whole final carry, and equals the JAX ``build_batch_fn(window=Wp)``
+    chained through ``_final_carry``, in float64."""
+    jdp, dims, tdp, tdims, common, ws0, Wp = _window_problem(case)
+    P = dims["P"]
+    assert P % Wp == 0 and P // Wp >= 3
+    cfg = TB.BatchConfig(**common)
+    one = TB.scan_plain(cfg, tdims, tdp, ws0=ws0)
+    fnw = TB.build_batch_fn(cfg, tdims, ws0=ws0, window=Wp)
+    jfn = JB.build_batch_fn(JB.BatchConfig(**common), dims, ws0=ws0, window=Wp)
+    jcarry = tuple(getattr(jdp, f) for f in JB.CARRY0_FIELDS)
+    jslim = jdp._replace(**{f: np.int32(0) for f in JB.CARRY0_FIELDS})
+    carry, outs, jouts = None, [], []
+    for off in range(0, P, Wp):
+        out = fnw(carry, tdp, off)
+        carry = out["final_carry"]
+        outs.append(out)
+        ys = jfn(jcarry, jslim, np.int32(off))
+        jcarry = ys.pop("_final_carry")
+        jouts.append({k: np.asarray(v) for k, v in ys.items()})
+    row_keys = [k for k in one if k.startswith(("raw:", "norm:", "fail_")) or k == "feasible"]
+    for k in row_keys + ["selected", "feasible_count", "sample_start", "sample_processed"]:
+        chained = torch.cat([o[k] for o in outs])
+        assert torch.equal(chained, one[k]), k
+        assert np.array_equal(np.concatenate([j[k] for j in jouts]), one[k].numpy()), k
+    for w, (o, j) in enumerate(zip(outs, jouts)):
+        assert np.array_equal(o["packed_pod"].numpy(), j["packed_pod"]), w
+        assert np.array_equal(o["trace_meta"].numpy(), j["trace_meta"]), w
+    for pos, f in enumerate(TB.CARRY0_FIELDS):
+        assert torch.equal(carry[f].reshape(-1), one["final_carry"][f].reshape(-1)), f
+        assert np.array_equal(np.asarray(jcarry[pos]).reshape(-1), carry[f].numpy().reshape(-1)), f
+    assert (one["selected"] >= 0).any()
+    if case == "padding_tail":
+        assert not tdp.pod_active[P - Wp :].any() and (outs[-1]["selected"] == -1).all()
+    if case == "reservoir_wrap":
+        assert one["final_carry"]["ip_anti0"].any() and one["final_carry"]["spread_counts0"].any()
+
+
+def test_windowed_scan_keeps_the_reservoir_counter_of_the_whole_round():
+    """A window's draws are keyed by each pod's position in the whole round:
+    slice_pod_window shifts tb_base by the offset, modulo 2**32."""
+    _jdp, _dims, tdp, _tdims, _common, _ws0, Wp = _window_problem("reservoir_wrap")
+    w = TB.slice_pod_window(tdp, 32, Wp)
+    assert w.tb_base == (tdp.tb_base + 32) % (1 << 32) == 12
+    assert torch.equal(w.pod_req, tdp.pod_req[32:48]) and torch.equal(w.term_match, tdp.term_match[:, 32:48])
+
+
+# --------------------------------------------------- row scatter (K4)
+
+SCATTER_DTYPES = [np.bool_, np.int8, np.int16, np.int32, np.float32, np.float64]
+
+
+@pytest.mark.parametrize("dtype", SCATTER_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_scatter_rows_plain_equals_the_reference(dtype):
+    """``scatter_rows_plain`` equals the JAX ``_scatter_rows`` on every plane
+    dtype, on rank-1 and rank-2 planes, with repeated indices carrying
+    identical rows (the placer's padding)."""
+    rng = np.random.default_rng(3)
+    for shape in ((40,), (40, 3)):
+        buf = (rng.integers(0, 90, shape) % (2 if dtype is np.bool_ else 90)).astype(dtype)
+        idx = np.array([5, 0, 39, 17, 5, 5], dtype=np.int32)
+        rows = (rng.integers(0, 90, (6,) + shape[1:]) % (2 if dtype is np.bool_ else 90)).astype(dtype)
+        rows[4:] = rows[0]  # repeats carry the first index's row
+        want = np.asarray(JB._scatter_rows(jax.numpy.asarray(buf), idx, rows))
+        got = TB.scatter_rows(torch.from_numpy(buf.copy()), torch.from_numpy(idx), torch.from_numpy(rows))
+        assert got.numpy().dtype == want.dtype and np.array_equal(got.numpy(), want), shape

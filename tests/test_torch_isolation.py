@@ -65,6 +65,15 @@ eng = BatchEngine(scores=[("NodeResourcesFit", 1), ("TaintToleration", 3)], trac
 res = eng.schedule(nodes, all_pods, pending)
 assert sum(s is not None for s in res.selected_nodes) == 12
 res.filter_annotation_json(0); res.score_annotations_json(0)
+from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+store = ClusterStore()
+for w in workloads.churn(store, 40, 20, 2, cordon=2):
+    if w == 0:
+        svc = SchedulerService(store, use_batch="auto", batch_min_work=0, device="cpu")
+        svc.start_scheduler(None)
+    svc.schedule_pending(max_rounds=1)
+assert svc.stats["batch_pods"] >= 30 and not svc.stats["batch_fallbacks"], svc.stats
 new = set(sys.modules) - before
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == {REFERENCE!r} or m.startswith({REFERENCE!r} + ".")))
@@ -115,5 +124,5 @@ def test_a_cuda_round_launches_both_kernels():
     nodes, all_pods, pending = workloads.cluster(40, 60, seed=1)
     kernels.reset_counts()
     res = BatchEngine(scores=[("NodeResourcesFit", 1)], trace=True).schedule(nodes, all_pods, pending)
-    assert kernels.LAUNCHES == {"scan": 1, "compact": 1}
+    assert kernels.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0}
     assert sum(s is not None for s in res.selected_nodes) == 40

@@ -115,6 +115,18 @@ def _problem(
     return pr, dp, dims
 
 
+def assert_outputs_equal(k_out: dict, p_out: dict, tag=None) -> None:
+    """Every output of the kernel equals the plain version's, bitwise; the
+    final carry (a dict of the carried tensors) field by field."""
+    assert set(k_out) == set(p_out)
+    for key in p_out:
+        if key == "final_carry":
+            for f in TB.CARRY0_FIELDS:
+                assert torch.equal(k_out[key][f].reshape(-1), p_out[key][f].reshape(-1)), (tag, f)
+        else:
+            assert torch.equal(k_out[key], p_out[key]), (tag, key)
+
+
 def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises; CPU tensors reach the plain
     versions through build_batch_fn, never through a wrapper."""
@@ -126,7 +138,10 @@ def test_wrappers_refuse_cpu_tensors():
     _fn, man = TB.build_compact_fn(cfg, dims, 64, 64, ("int8",) * 5, 15)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.compact(cfg, dims, 64, 64, man, out, pr.N_true)
-    assert TK.LAUNCHES == {"scan": 0, "compact": 0}
+    buf = torch.zeros(8, 3, dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.scatter_rows(buf, torch.tensor([1], dtype=torch.int32), buf[:1].clone())
+    assert TK.LAUNCHES == {"scan": 0, "compact": 0, "scatter": 0}
 
 
 RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))
@@ -163,9 +178,7 @@ def test_kernels_match_plain_versions_on_the_card(filters, scores, strategy, tie
         )
         k_out = TK.scan(cfg, dims, dp)
         p_out = TB.scan_plain(cfg, dims, dp)
-        assert set(k_out) == set(p_out)
-        for key in p_out:
-            assert torch.equal(k_out[key], p_out[key]), (dt, key)
+        assert_outputs_equal(k_out, p_out, dt)
         if not trace:
             continue
         packed = p_out["packed_pod"].cpu().numpy()
@@ -188,8 +201,7 @@ def test_scan_kernel_over_several_node_tiles():
     dp = dp._replace(sample_k=200, start0=1111, tb_base=99)
     cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=SCORES, trace=True, tie_break="reservoir", seed=1)
     k_out, p_out = TK.scan(cfg, dims, dp), TB.scan_plain(cfg, dims, dp)
-    for key in p_out:
-        assert torch.equal(k_out[key], p_out[key]), key
+    assert_outputs_equal(k_out, p_out)
 
 
 @pytest.mark.gpu
@@ -205,8 +217,7 @@ def test_scan_kernel_with_domain_sums_in_global_memory():
         cap, in_smem = TK.domain_layout(dims, dt)
         assert cap >= 600 and not in_smem
         k_out, p_out = TK.scan(cfg, dims, dp), TB.scan_plain(cfg, dims, dp)
-        for key in p_out:
-            assert torch.equal(k_out[key], p_out[key]), (dt, key)
+        assert_outputs_equal(k_out, p_out, dt)
 
 
 # (filters, tie_break, ws0): the default profile in both orders, with the
@@ -234,9 +245,7 @@ def test_volume_filters_and_in_step_compaction_on_the_card(filters, tie_break, w
         cfg = TB.BatchConfig(filters=tuple(filters), scores=DEFAULT_SCORES, trace=True, tie_break=tie_break, seed=7)
         k_out = TK.scan(cfg, dims, dp, ws0=ws0)
         p_out = TB.scan_plain(cfg, dims, dp, ws0=ws0)
-        assert set(k_out) == set(p_out)
-        for key in p_out:
-            assert torch.equal(k_out[key], p_out[key]), (dt, key)
+        assert_outputs_equal(k_out, p_out, dt)
         assert k_out["final_csi_att"].any() and k_out["final_ports_used"].any()
         packed = p_out["packed_pod"].cpu().numpy()
         W = min(dims["N"], TE._bucket(int(packed[3].max())))
@@ -256,3 +265,84 @@ def test_volume_filters_and_in_step_compaction_on_the_card(filters, tie_break, w
                     row = k_out[f"{kind}:{s}"][i]
                     assert torch.equal(row[: len(cols)], full[f"{kind}:{s}"][i][cols]), (dt, i, s, kind)
                     assert not row[len(cols):].any()
+
+
+# ------------------------------------------ row scatter and windows (K4, K2w)
+
+@pytest.mark.gpu
+def test_scatter_kernel_matches_plain_version_on_the_card():
+    """K4 against its plain version, bitwise: every plane dtype, ranks 1-3,
+    K from 1 to a quarter of the rows, repeated indices carrying the first
+    index's row, odd row widths (byte words) and aligned ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator().manual_seed(5)
+    for dt in (torch.bool, torch.int8, torch.int16, torch.int32, torch.float32, torch.float64):
+        for shape in ((400,), (400, 3), (400, 2, 5)):
+            base = torch.randint(0, 2 if dt == torch.bool else 100, shape, generator=gen).to(dt)
+            for k in (1, 7, 100):
+                idx = torch.randperm(shape[0], generator=gen)[:k].to(torch.int32)
+                idx = torch.cat([idx, idx[:1].repeat(3)])
+                rows = torch.randint(0, 2 if dt == torch.bool else 100, (k + 3,) + shape[1:], generator=gen).to(dt)
+                rows[k:] = rows[0]
+                want = TB.scatter_rows_plain(base.clone(), idx, rows)
+                got = TK.scatter_rows(base.cuda(), idx.cuda(), rows.cuda())
+                assert torch.equal(got.cpu(), want), (dt, shape, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_windowed_scan_matches_one_launch_on_the_card(dt):
+    """K2w: the kernel run in windows chained on the card (the carry and the
+    rotation start never leave it) equals the one-launch kernel bitwise in
+    every output and the whole final carry, and each window equals the
+    windowed plain version; reservoir draws across the uint32 wrap, spread
+    constraints, inter-pod terms, host ports and volumes, the score planes
+    compacted in the step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    _pr, dp, dims = _problem(dt, "cuda", topo=True, storage=True)
+    cfg = TB.BatchConfig(filters=REGISTRY_FILTERS, scores=DEFAULT_SCORES, trace=True, tie_break="reservoir", seed=7)
+    ws0, Wp = 112, 16
+    one = TK.scan(cfg, dims, dp, ws0=ws0)
+    carry, outs = None, []
+    for off in range(0, dims["P"], Wp):
+        out = TK.scan(cfg, dims, dp, ws0=ws0, carry0=carry, offset=off, window=Wp)
+        assert_outputs_equal(out, TB.scan_plain(cfg, dims, dp, ws0=ws0, carry0=carry, offset=off, window=Wp), off)
+        carry = out["final_carry"]
+        outs.append(out)
+    for key in ("fail_plug", "fail_code", *(f"{k}:{s}" for s, _w in DEFAULT_SCORES for k in ("raw", "norm"))):
+        assert torch.equal(torch.cat([o[key] for o in outs]), one[key]), key
+    assert torch.equal(torch.cat([o["packed_pod"][:4] for o in outs], 1), one["packed_pod"][:4])
+    for f in TB.CARRY0_FIELDS:
+        assert torch.equal(carry[f].reshape(-1), one["final_carry"][f].reshape(-1)), f
+
+
+@pytest.mark.gpu
+def test_service_churn_on_the_card_matches_the_cpu():
+    """A small churn through the port's SchedulerService on the card (float64,
+    windowed rounds, a rolling cordon through the scatter kernel) leaves
+    every pod with the CPU service's annotations, node and status."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    states = []
+    for device in ("cuda", "cpu"):
+        store = ClusterStore(clock=lambda: 0.0)
+        svc = None
+        TK.reset_counts()
+        for _w in workloads.churn(store, 1400, 200, 2, cordon=5):
+            if svc is None:
+                svc = SchedulerService(store, tie_break="first", use_batch="auto", device=device, dtype=torch.float64)
+                svc.start_scheduler(None)
+            svc.schedule_pending(max_rounds=1)
+        if device == "cuda":
+            assert TK.LAUNCHES["scan"] == TK.LAUNCHES["compact"] == 4 and TK.LAUNCHES["scatter"] >= 1, TK.LAUNCHES
+        assert not svc.stats["batch_fallbacks"] and svc.stats["sequential_pods"] == 0
+        states.append({
+            p["metadata"]["name"]: (p["spec"].get("nodeName"), p["metadata"].get("annotations"), p.get("status"))
+            for p in store.list("pods")
+        })
+    assert states[0] == states[1]
