@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 14 min, build included
+    python3 chip_smoke.py    # one card, about 16 min, build included
 
 Workloads (every one from seed 42 through ``workloads.cluster``):
 
@@ -34,12 +34,22 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   2 000 with deterministic stamps, 10 % of the bound pods deleted after
   each wave, and a rolling cordon of 50 nodes before every wave after the
   first (``workloads.churn``); one ``schedule_pending(max_rounds=1)`` a
-  wave, each a windowed round of 8 windows of 256 pods (P 2 048).
+  wave, each a windowed round of 8 windows of 256 pods (P 2 048);
+- cfg7-preempt-5k: Kubernetes scheduler_perf's PreemptionBasic at its
+  5000Nodes size (``workloads.preemption_wave``): 5 000 nodes of 4 CPU, 32Gi
+  and 110 pods, 20 000 bound low-priority pods (4 a node, 900m and 500Mi,
+  priorities 0-2, seeded start times, 64 apps), 16 PDBs allowing 2
+  disruptions each, then 400 fillers (priority 50) and 64 preemptors of 3
+  CPU (priority 10, every 8th pinned to a hostname) pending; one
+  ``schedule_pending(max_rounds=1)`` through the port's service on the
+  default configuration: every preemptor fails its first scan, the victim
+  search (K5) runs once per replay window with failures, and each
+  nomination restarts the kernel on the tail.
 
 Cut for the time limit: the float64 churn runs 3 waves.  The CPU float64
-references of phases 4 and 9 run in two worker processes started after
-the build, beside the card's phases; the script stops them before it
-exits.
+references of phases 4, 9 and 14 run in two worker processes started
+after the build, beside the card's phases; the script stops them before
+it exits.
 
 Phases (each prints its seconds; any failure exits nonzero before the last
 line):
@@ -83,12 +93,32 @@ line):
    cordon: the CUDA float64 service and the CPU float64 service leave every
    pod with equal annotations, node and status;
 10. float32 against float64 over the first three churn waves: the pods
-   whose node, annotations or status differ, printed.
+   whose node, annotations or status differ, printed;
+11. the victim-search kernel (K5) against its plain version, bitwise, in
+   float32 and float64, on seeded problems of 64 pods x 5 000 nodes with V
+   1, 4 and 16 slots, with no PDB and no same-window success and with 16
+   PDBs and 150 successes;
+12. cfg7-preempt-5k end to end on the card, float32 (counts reset just
+   before the round): the wall, the restarts, the victim-search dispatches
+   and K5 launches, its seconds, the nominations and victims, commit,
+   sequential pods, scan and compaction launches; it fails on a preemption
+   or batch fallback, a sequential pod, a preemptor neither bound nor
+   nominated, no nomination, restarts other than the nominations (less one
+   when the last pending pod is the one nominated), or K5 launches other
+   than the dispatches;
+13. K5 against its plain version on the captured inputs of that round's
+   first dispatch, bitwise in float32 and float64, timed (the kernel over
+   20 launches after warm-ups, the plain version once);
+14. cfg7-preempt-5k cut to 500 nodes, 2 000 bound pods, 40 fillers and 16
+   preemptors, two rounds: the CUDA float64 service and the CPU float64
+   service (a worker process) leave every pod with equal annotations, node
+   and status (nominatedNodeName included) and evict the same pods.
 
 Then one ``{"kernels": [...]}`` line (time, plain time, bound and launches
 of each kernel: the one-launch scan at cfg5-vol, launched by its round;
 the windowed scan, the compaction and the scatter at cfg5-churn's shapes,
-launched by the float32 churn), and as the last line ``{"ok": true,
+launched by the float32 churn; the victim search at the first dispatch of
+cfg7-preempt-5k, launched by its round), and as the last line ``{"ok": true,
 "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
 """
@@ -171,6 +201,13 @@ CHURN = (10000, 5000, 5, 50)
 CHURN_F64_WAVES = 3
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
+# cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
+# the byte-check cut, run for two rounds
+PREEMPT = (5000, 20000, 400, 64)
+PREEMPT_CUT = (500, 2000, 40, 16)
+# K5 against its plain version on seeded problems: pods x nodes, resource
+# columns, and (V, PDB, S) cases
+K5_SEEDED = (64, 5000, 2, [(v, pdb, s) for v in (1, 4, 16) for pdb, s in ((0, 0), (16, 150))])
 # filters cfg5-vol must see reject at least one (pod, node) pair first
 MUST_REJECT = ("NodePorts", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 DEVICE = "cuda"
@@ -220,6 +257,64 @@ def same(name: str, a, b) -> float:
         n_bad = int((diff != 0).sum()) if a.shape == b.shape else -1
         raise AssertionError(f"{name}: kernel and plain version differ ({n_bad} cells, {a.dtype}/{b.dtype})")
     return 0.0
+
+
+def search_counts(args, outs) -> dict:
+    """Bytes the victim search must move (every input read once, the three
+    masks written once) and the operations its lanes do on these inputs:
+    per (pod, node) lane, the V slot compares and the lower slots' R
+    additions, the S same-window checks and the matching successes' R
+    additions, the fit (3 per column and 4 more), the PDB counts (2 per
+    matching lower slot and budget), and each active slot's reprieve (4 per
+    column and 4 more)."""
+    import torch
+
+    (ucand, ureq, uprio, smask, sreq, snode, alloc, base_req, extra_req, base_cnt, extra_cnt, max_pods,
+     vreq, vprio, vvalid, vmatch, allowed) = args
+    U, N = ucand.shape
+    R, V, S = alloc.shape[1], vprio.shape[1], snode.shape[0]
+    lower = vvalid.unsqueeze(0) & (vprio.unsqueeze(0) < uprio.view(U, 1, 1))  # [U,N,V]
+    n_low = int(lower.sum())
+    hits = 0
+    if S:
+        onehot = snode.long().unsqueeze(0) == torch.arange(N, device=snode.device).unsqueeze(1)
+        hits = int((smask.float() @ onehot.float().T).sum())  # [U,N] successes landing on each lane
+    pdb_hits = int((vmatch.unsqueeze(0) & lower.unsqueeze(-1)).sum()) if vmatch.shape[2] else 0
+    lanes = U * N
+    ops = lanes * (2 * V + S + 3 * R + 4) + n_low * (R + 4 * R + 4) + hits * (R + 1) + 2 * pdb_hits
+    nbytes = sum(t.numel() * t.element_size() for t in args) + sum(t.numel() * t.element_size() for t in outs)
+    return {"bytes": nbytes, "ops": ops}
+
+
+def seeded_search(U, N, R, V, PDB, S, dt, device, seed):
+    """Seeded arguments of the victim search at a path's scale:
+    integer-valued requests that keep every node full but leave room once
+    its lower slots go, slots a prefix of each node's row, priorities 0-5
+    with ties against the pods' 1-6, budgets of 0-2."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_valid = rng.integers(0, V + 1, N)
+    vvalid = np.arange(V)[None, :] < n_valid[:, None]
+    vreq = rng.integers(0, 9, (N, V, R)) * vvalid[..., None]
+    base_req = vreq.sum(axis=1) + rng.integers(0, 3, (N, R))
+    base_cnt = n_valid + rng.integers(0, 3, N)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)  # noqa: E731
+    t = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=d)  # noqa: E731
+    return (
+        t(rng.random((U, N)) < 0.9, torch.bool), f(rng.integers(0, 12, (U, R))), t(rng.integers(1, 7, U), torch.int64),
+        t(rng.random((U, S)) < 0.5, torch.bool), f(rng.integers(0, 3, (S, R))), t(rng.integers(0, N, S), torch.int32),
+        f(base_req + rng.integers(0, 4, (N, R))), f(base_req), f(rng.integers(0, 2, (N, R))), f(base_cnt),
+        f(rng.integers(0, 2, N)), f(base_cnt + rng.integers(0, 3, N)), f(vreq),
+        t(np.where(vvalid, -np.sort(-rng.integers(0, 6, (N, V)), axis=1), 0), torch.int64), t(vvalid, torch.bool),
+        t((rng.random((N, V, PDB)) < 0.3) & vvalid[..., None], torch.bool), t(rng.integers(0, 3, PDB), torch.int32),
+    )
+
+
+def as_dtype(args, dt):
+    """The victim search's arguments with the float tensors in ``dt``."""
+    return tuple(a.to(dt) if a.is_floating_point() else a for a in args)
 
 
 def same_outputs(name: str, kout: dict, pout: dict) -> float:
@@ -509,6 +604,157 @@ def run_churn(spec, device, dt, waves=None, snapshot_after=None, echo=True):
     return records, total, digests
 
 
+def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = None):
+    """cfg7-preempt-5k (or its cut) through a SchedulerService on ``device``:
+    one ``schedule_pending(max_rounds=max_rounds)``, the launch counters
+    reset just before it.  With ``capture``, the first victim-search
+    dispatch's arguments are kept there (``capture["args"]``).  Returns (the
+    call's record, pod digests after it, pod names by role)."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.preemption import kernel as PK
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    n_nodes, n_low, n_fillers, n_preemptors = spec
+    store = ClusterStore(clock=lambda: 0.0)
+    t0 = time.perf_counter()
+    names = workloads.preemption_wave(store, n_nodes, n_low, n_fillers, n_preemptors)
+    build_s = time.perf_counter() - t0
+    svc = SchedulerService(store, tie_break="first", use_batch="auto", device=device, dtype=dt)
+    svc.start_scheduler(None)
+    search = PK.search
+    # host seconds building the victim-search tables (one per kernel run)
+    prep_s = [0.0]
+    prepare = svc._prepare_preemption
+
+    def timed_prepare(*a):
+        t = time.perf_counter()
+        try:
+            return prepare(*a)
+        finally:
+            prep_s[0] += time.perf_counter() - t
+
+    svc._prepare_preemption = timed_prepare
+    if capture is not None:
+        def keep(*args):
+            if "args" not in capture:
+                capture["args"] = tuple(a.clone() for a in args)
+            return search(*args)
+
+        PK.search = keep
+    try:
+        K.reset_counts()
+        t0 = time.perf_counter()
+        svc.schedule_pending(max_rounds=max_rounds)
+        wall = time.perf_counter() - t0
+    finally:
+        PK.search = search
+    st = svc.stats
+    pods = {p["metadata"]["name"]: p for p in store.list("pods", copy_objects=False)}
+    pre = [pods[n] for n in names["preemptors"]]
+    rec = dict(
+        wall_s=wall, build_s=build_s, launches=dict(K.LAUNCHES), restarts=st["batch_restarts"],
+        dispatches=st["preempt_dispatches"], preempt_kernel_s=st["preempt_kernel_s"],
+        attempts=st["preempt_attempts"], nominations=st["preempt_nominations"],
+        victims=st["preempt_victims"], commit_s=st["commit_s"], sequential_pods=st["sequential_pods"],
+        batch_pods=st["batch_pods"], preempt_fallbacks=dict(st["preempt_fallbacks"]),
+        batch_fallbacks=dict(st["batch_fallbacks"]),
+        preemptors_bound=sum(1 for p in pre if (p.get("spec") or {}).get("nodeName")),
+        preemptors_nominated=sum(
+            1 for p in pre
+            if not (p.get("spec") or {}).get("nodeName") and (p.get("status") or {}).get("nominatedNodeName")
+        ),
+        last_nominated=bool((pre[-1].get("status") or {}).get("nominatedNodeName"))
+        and not (pre[-1].get("spec") or {}).get("nodeName"),
+        evicted=len(names["low"]) - sum(1 for n in names["low"] if n in pods),
+        prepare_s=prep_s[0], engine=dict(svc._batch_engine.cum_timings),
+        stages={k: v["total_s"] for k, v in svc.profiler.snapshot()["stages"].items()},
+    )
+    return rec, pod_digests(store), names
+
+
+def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
+    """Phases 11-14: K5 against its plain version on seeded problems, the
+    cfg7-preempt-5k round on the card, K5 at that round's first dispatch,
+    and the cut's CUDA against CPU float64 services (the CPU side from
+    ``cpu_preempt_ref``, a pool result).  Returns (the round's record, K5's
+    timing)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.preemption.kernel import preempt_plain
+
+    U5, N5, R5, cases5 = K5_SEEDED
+    with Phase(f"K5 kernel vs plain, seeded {U5} pods x {N5} nodes, V/PDB/S {cases5}"):
+        k5_err = 0.0
+        for c, (V5, PDB5, S5) in enumerate(cases5):
+            for dt in (torch.float32, torch.float64):
+                args = seeded_search(U5, N5, R5, V5, PDB5, S5, dt, dev, seed=100 + c)
+                got = K.preempt(*args)
+                want = preempt_plain(*args)
+                for nm, a, b in zip(("cand", "victims", "viol"), got, want):
+                    k5_err = max(k5_err, same(f"K5 V={V5} PDB={PDB5} S={S5} {dt} {nm}", a, b))
+                log(f"V={V5} PDB={PDB5} S={S5} {str(dt).split('.')[-1]}: bitwise equal; cand {int(got[0].sum())}, "
+                    f"victims {int(got[1].sum())}, viol {int(got[2].sum())}")
+
+    P_n, P_low, P_fill, P_pre = PREEMPT
+    captured: dict = {}
+    with Phase(f"cfg7-preempt-5k {P_n} nodes, {P_low} bound, {P_fill} fillers, {P_pre} preemptors: service on the card, float32"):
+        prec, _dig, _names = run_preempt(PREEMPT, DEVICE, torch.float32, capture=captured)
+        log(f"cfg7-preempt-5k float32: {json.dumps(prec, sort_keys=True)}")
+        want_restarts = prec["nominations"] - int(prec["last_nominated"])
+        problems = []
+        if prec["preempt_fallbacks"] or prec["batch_fallbacks"]:
+            problems.append(f"fallbacks {prec['preempt_fallbacks']} {prec['batch_fallbacks']}")
+        if prec["sequential_pods"]:
+            problems.append(f"{prec['sequential_pods']} pods ran the sequential cycle")
+        if prec["preemptors_bound"] + prec["preemptors_nominated"] != P_pre:
+            problems.append(f"preemptors bound {prec['preemptors_bound']} + nominated {prec['preemptors_nominated']} != {P_pre}")
+        if prec["nominations"] < 1 or prec["preemptors_nominated"] < 1:
+            problems.append("no preemptor was nominated")
+        if prec["restarts"] != want_restarts:
+            problems.append(f"restarts {prec['restarts']} != nominations less the last pod's ({want_restarts})")
+        if prec["launches"]["preempt"] != prec["dispatches"] or "args" not in captured:
+            problems.append(f"K5 launches {prec['launches']['preempt']} != dispatches {prec['dispatches']}")
+        if problems:
+            raise AssertionError(f"cfg7-preempt-5k: {'; '.join(problems)}")
+
+    with Phase("K5 kernel vs plain at cfg7-preempt-5k's first dispatch"):
+        cargs = captured["args"]
+        U1, N1 = cargs[0].shape
+        shape5 = f"U={U1} N={N1} V={cargs[13].shape[1]} R={cargs[6].shape[1]} PDB={cargs[15].shape[2]} S={cargs[5].shape[0]}"
+        for dt in (torch.float32, torch.float64):
+            a = as_dtype(cargs, dt)
+            got = K.preempt(*a)
+            for nm, x, y in zip(("cand", "victims", "viol"), got, preempt_plain(*a)):
+                k5_err = max(k5_err, same(f"K5 first dispatch {dt} {nm}", x, y))
+        k5_ms, kout5 = cuda_ms(lambda: K.preempt(*cargs), 20, warmup=3)
+        k5_plain_ms, _p = cuda_ms(lambda: preempt_plain(*cargs), 1, warmup=0)
+        k5b, k5by = bound(search_counts(cargs, kout5), torch.float32)
+        k5_t = dict(ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5b, bound_by=k5by, err=k5_err, shape=shape5,
+                    cand=int(kout5[0].sum()), victims=int(kout5[1].sum()), viol=int(kout5[2].sum()))
+        log(f"timing K5 {shape5}: {json.dumps(k5_t)}")
+
+    with Phase(f"cfg7-preempt-5k cut to {PREEMPT_CUT}, two rounds: CUDA float64 service vs CPU float64 service"):
+        grec, dig_g, _n = run_preempt(PREEMPT_CUT, DEVICE, torch.float64, max_rounds=2)
+        log(f"cuda float64, two rounds: {json.dumps(grec, sort_keys=True)}")
+        t0 = time.perf_counter()
+        crec, dig_c = cpu_preempt_ref.get()
+        log(f"CPU float64 service (worker process) waited for {time.perf_counter() - t0:.2f} s")
+        log(f"cpu float64, two rounds: {json.dumps(crec, sort_keys=True)}")
+        if dig_g.keys() != dig_c.keys():
+            raise AssertionError(f"the CUDA and CPU services evicted different pods: {sorted(dig_g.keys() ^ dig_c.keys())[:5]}")
+        bad = [n for n in dig_c if dig_g[n] != dig_c[n]]
+        if bad:
+            raise AssertionError(f"{len(bad)} pods differ between the CUDA and CPU services, first {bad[:3]}")
+        if grec["launches"]["preempt"] < 1 or grec["nominations"] != crec["nominations"]:
+            raise AssertionError(f"cut: K5 launches {grec['launches']['preempt']}, nominations {grec['nominations']} "
+                                 f"vs CPU {crec['nominations']}")
+        log(f"{len(dig_c)} pods: node, annotations and status byte-identical, same {grec['evicted']} evictions")
+    return prec, k5_t
+
+
 # ------------------------------------------ CPU references, in workers
 
 def cpu_worker_init() -> None:
@@ -539,6 +785,15 @@ def cpu_churn(spec) -> "tuple[list, dict]":
 
     records, _total, digests = run_churn(spec, "cpu", torch.float64, echo=False)
     return records, digests
+
+
+def cpu_preempt(spec) -> "tuple[dict, dict]":
+    """The cfg7-preempt-5k cut through a CPU float64 service, two rounds:
+    (their record, pod digests after them)."""
+    import torch
+
+    rec, digests, _names = run_preempt(spec, "cpu", torch.float64, max_rounds=2)
+    return rec, digests
 
 
 _POOL = None  # the worker pool, stopped on the way out of the script
@@ -586,6 +841,7 @@ def main() -> int:
     _POOL = multiprocessing.get_context("spawn").Pool(2, initializer=cpu_worker_init)
     cpu_refs = {name: _POOL.apply_async(cpu_round, (name, cut)) for name, cut in ANNOTATION_CHECKS}
     cpu_churn_ref = _POOL.apply_async(cpu_churn, (CHURN_CUT,))
+    cpu_preempt_ref = _POOL.apply_async(cpu_preempt, (PREEMPT_CUT,))
 
     clusters = {}
     timing: dict = {}
@@ -745,7 +1001,7 @@ def main() -> int:
                 wall = time.perf_counter() - t0
                 launches = dict(K.LAUNCHES)
                 # a fresh engine's placer uploads every plane: no scatter
-                if launches != {"scan": 1, "compact": 1, "scatter": 0}:
+                if launches != {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0}:
                     raise AssertionError(f"the round did not launch scan and compaction once each: {launches}")
                 if name == MAIN and dt == torch.float32:
                     main_launches = launches
@@ -770,7 +1026,7 @@ def main() -> int:
                 gpu = engine(name, torch.float64).schedule(
                     nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start, volumes=vols,
                 )
-                assert K.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0}, K.LAUNCHES
+                assert K.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0}, K.LAUNCHES
             gsel, gdocs = round_documents(gpu, P)
             t0 = time.perf_counter()
             csel, cdocs = cpu_refs[name].get()
@@ -995,6 +1251,9 @@ def main() -> int:
         log(f"pods {len(dig64)}; node differs {len(node_differ)} {node_differ[:5]}; node, annotations or "
             f"status differ {len(differ)} {differ[:5]}")
 
+    # ------------------------------------------- victim search (K5)
+    prec, k5_t = preempt_phases(dev, cpu_preempt_ref)
+
     ref = MAIN
     main = timing[(ref, torch.float32)]
     churn_shape = f"cfg5-churn: window of {WINDOW} of P={churn_pr.P} N={churn_pr.N}"
@@ -1056,6 +1315,20 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": scatter_t["library_ms"],
             "shape": f"cfg5-churn: node_unsched [{churn_pr.N}], K={scatter_t['K']}",
+        },
+        {
+            "name": "preempt",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/preempt.cu",
+            "replaces": "kube_scheduler_simulator_tpu/preemption/kernel.py:34",
+            "launches": prec["launches"]["preempt"],
+            "max_abs_err": k5_t["err"],
+            "ms": k5_t["ms"],
+            "plain_ms": k5_t["plain_ms"],
+            "bound_ms": k5_t["bound_ms"],
+            "bound_by": k5_t["bound_by"],
+            "library_ms": None,
+            "shape": f"cfg7-preempt-5k first dispatch: {k5_t['shape']}",
         },
     ]
     for k in kernels:

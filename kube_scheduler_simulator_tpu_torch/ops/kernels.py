@@ -16,6 +16,11 @@ counters and the wrappers.
               blob, one block per pod row.
 - ``scatter`` (csrc/scatter.cu) — ``buf[idx] = rows`` on a plane resident on
               the card: the DevicePlacer's row update.
+- ``preempt`` (csrc/preempt.cu) — DefaultPreemption's victim search, one
+              thread per (pod, node) lane: the lower slots, the fit with
+              all of them removed, PDB violations by budget rank and the
+              greedy reprieve (preemption/kernel.py holds its plain
+              version).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``csrc/build/`` keyed by a hash
@@ -25,10 +30,10 @@ loaded with ``ctypes``: every pointer and the stream travel as
 wide, and every entry point returns ``cudaGetLastError()``, which the
 wrapper turns into an exception.
 
-A wrapper takes CUDA tensors only: the plain versions in ops/batch.py
-serve CPU tensors, and nothing here falls back to them.  ``LAUNCHES``
-counts the launches of each kernel, bumped only where the kernel is
-launched.
+A wrapper takes CUDA tensors only: the plain versions in ops/batch.py and
+preemption/kernel.py serve CPU tensors, and nothing here falls back to
+them.  ``LAUNCHES`` counts the launches of each kernel, bumped only where
+the kernel is launched.
 """
 
 from __future__ import annotations
@@ -59,17 +64,18 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = {"scan": "scan.cu", "compact": "compact.cu", "scatter": "scatter.cu"}
+SOURCES = {"scan": "scan.cu", "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"scan": 0, "compact": 0, "scatter": 0}
+LAUNCHES = {"scan": 0, "compact": 0, "scatter": 0, "preempt": 0}
 
 # the struct capacities of csrc/*.cu
 MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 16, 8, 4, 16, 16, 8, 16
+MAXR_PREEMPT = 16  # resource columns of a victim-search lane (csrc/preempt.cu)
 # bytes of shared memory the scan may take for PodTopologySpread's domain
 # sums; larger domain arrays go to per-block global scratch
 DOM_SMEM_BYTES = 8192
@@ -185,6 +191,18 @@ class CompactArgs(ctypes.Structure):
         (n, _ptr) for n in (
             "fail_plug", "fail_code", "feasible", "sample_start", "sample_processed", "feasible_count", "blob",
         )
+    ]
+
+
+PREEMPT_TENSORS = (
+    "ucand", "ureq", "uprio", "smask", "sreq", "snode", "alloc", "base_req", "extra_req", "base_cnt",
+    "extra_cnt", "max_pods", "vreq", "vprio", "vvalid", "vmatch", "allowed",
+)
+
+
+class PreemptArgs(ctypes.Structure):
+    _fields_ = [(n, _i64) for n in ("U", "N", "V", "R", "PDB", "S")] + [
+        (n, _ptr) for n in PREEMPT_TENSORS + ("cand", "victims", "viol")
     ]
 
 
@@ -566,3 +584,47 @@ def compact(
     _raise_on(rc, "compact")
     LAUNCHES["compact"] += 1
     return blob
+
+
+def preempt(
+    ucand, ureq, uprio, smask, sreq, snode, alloc, base_req, extra_req, base_cnt, extra_cnt, max_pods,
+    vreq, vprio, vvalid, vmatch, allowed,
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """Launch the victim-search kernel on tensors on the card; returns
+    (cand [U,N], victims [U,N,V], viol [U,N,V]) bool, as
+    preemption/kernel.preempt_plain (whose docstring gives the shapes)."""
+    U, N = ucand.shape
+    V, R, PDB, S = vprio.shape[1], alloc.shape[1], vmatch.shape[2], snode.shape[0]
+    if R > MAXR_PREEMPT:
+        raise ValueError(f"{R} resource columns exceed the victim search's capacity ({MAXR_PREEMPT})")
+    dt = alloc.dtype
+    want = dict(
+        ucand=((U, N), torch.bool), ureq=((U, R), dt), uprio=((U,), torch.int64), smask=((U, S), torch.bool),
+        sreq=((S, R), dt), snode=((S,), torch.int32), alloc=((N, R), dt), base_req=((N, R), dt),
+        extra_req=((N, R), dt), base_cnt=((N,), dt), extra_cnt=((N,), dt), max_pods=((N,), dt),
+        vreq=((N, V, R), dt), vprio=((N, V), torch.int64), vvalid=((N, V), torch.bool),
+        vmatch=((N, V, PDB), torch.bool), allowed=((PDB,), torch.int32),
+    )
+    given = dict(zip(PREEMPT_TENSORS, (
+        ucand, ureq, uprio, smask, sreq, snode, alloc, base_req, extra_req, base_cnt, extra_cnt, max_pods,
+        vreq, vprio, vvalid, vmatch, allowed,
+    )))
+    a = PreemptArgs()
+    a.U, a.N, a.V, a.R, a.PDB, a.S = U, N, V, R, PDB, S
+    for name, (shape, tdt) in want.items():
+        t = given[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the search wants {shape}")
+        setattr(a, name, _check(t, name, tdt))
+    fn = _entry("preempt", dt)
+    dev = alloc.device
+    cand = torch.empty((U, N), dtype=torch.bool, device=dev)
+    victims = torch.empty((U, N, V), dtype=torch.bool, device=dev)
+    viol = torch.empty((U, N, V), dtype=torch.bool, device=dev)
+    a.cand, a.victims, a.viol = cand.data_ptr(), victims.data_ptr(), viol.data_ptr()
+    if U * N == 0:
+        return cand, victims, viol
+    rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "preempt")
+    LAUNCHES["preempt"] += 1
+    return cand, victims, viol

@@ -369,6 +369,23 @@ class BatchResult:
             f_parts.append(kf + "{" + ",".join([frag + row[j] + '"' for frag, row in zip(frags, fin_rows)]) + "}")
         return "{" + ",".join(s_parts) + "}", "{" + ",".join(f_parts) + "}"
 
+    def fit_failed_ids(self, i: int) -> "np.ndarray":
+        """Visited node ids whose first filter failure was NodeResourcesFit —
+        under the preemption engine's workload gates these are exactly the
+        non-UnschedulableAndUnresolvable nodes of the diagnosis, i.e.
+        DefaultPreemption's candidate set (preemption/engine.py)."""
+        tr = self._tr()
+        fp = tr["fail_plug"]
+        if fp is None or "NodeResourcesFit" not in self._engine.cfg.filters:
+            return np.empty(0, dtype=np.int64)
+        k = self._engine.cfg.filters.index("NodeResourcesFit")
+        ids = self._visited_ids(i)
+        cand = np.asarray(ids[fp[i][: len(ids)] == k], dtype=np.int64)
+        narrowed = self._prefilter_node_set(i)
+        if narrowed is not None and cand.size:
+            cand = cand[np.isin(cand, np.fromiter(narrowed, dtype=np.int64))]
+        return cand
+
     def _prefilter_node_set(self, i: int) -> "set[int] | None":
         """Node indices surviving PreFilter narrowing (NodeAffinity
         matchFields pinning restricts which nodes the cycle visits)."""

@@ -11,16 +11,26 @@ committed in waves of ``commit_wave`` pods; on the card a round with more
 pods than that runs ``BatchEngine.schedule_waves``, so the host commits
 window k while the card scans window k+1.
 
+A kernel-failed pod under upstream's PostFilter, DefaultPreemption, stays
+on the batch round: at a kernel run's first failure the service builds the
+victim-search tables of preemption/ (``prepare_round``), and each replay
+window makes ONE victim-search dispatch for all of its failed pods (the
+CUDA kernel ``csrc/preempt.cu`` on the card, its plain version on the CPU);
+the decision commits from the kernel trace, its victims are evicted in one
+bulk store update, and a nomination restarts the kernel on the tail.  Pods
+and rounds outside the search's exactness envelope (a preemptor with host
+ports, volumes, required spread or pod (anti-)affinity; a cluster with
+required anti-affinity; another PostFilter) take the exact sequential
+cycle, counted by reason in ``stats["preempt_fallbacks"]``.
+
 Refused with an error, never worked around: ``autoscale`` other than
-"off", a mesh, ``weights=``, extenders, ``Coscheduling`` or any other
-permit plugin, ``schedule_stream``.  Left out: the journal, the background
-loop, ``metrics()``, the restart and reset of a running configuration, the
-Permit wait machinery (no pod is ever parked: permit plugins are refused)
-and the chaos catch of the reference (a kernel or launch error propagates:
-finishing the round on the Python cycle would hide the kernel).  A kernel-failed pod under a profile with a PostFilter
-takes the exact sequential cycle (DefaultPreemption); the batched victim
-search is not ported, and each kernel run that needed it counts "batched
-preemption not ported" in ``stats["preempt_fallbacks"]``.
+"off", a mesh, ``weights=``, extenders (preempt-verb ones included),
+``Coscheduling`` or any other permit plugin, ``schedule_stream``.  Left
+out: the journal, the background loop, ``metrics()``, the restart and reset
+of a running configuration, the Permit wait machinery (no pod is ever
+parked: permit plugins are refused) and the chaos catch of the reference (a
+kernel or launch error propagates: finishing the round on the Python cycle
+would hide the kernel).
 """
 
 from __future__ import annotations
@@ -40,9 +50,9 @@ from kube_scheduler_simulator_tpu_torch.models.snapshot import Snapshot, has_pen
 from kube_scheduler_simulator_tpu_torch.models.wrapped import WrappedPlugin, original_name
 from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
 from kube_scheduler_simulator_tpu_torch.plugins.intree import in_tree_registry
-from kube_scheduler_simulator_tpu_torch.plugins.intree.queue_bind import pod_priority
 from kube_scheduler_simulator_tpu_torch.plugins.resultstore import SUCCESS_MESSAGE, ResultStore
 from kube_scheduler_simulator_tpu_torch.plugins.storereflector import RESULT_STORE_KEY, StoreReflector
+from kube_scheduler_simulator_tpu_torch.preemption import nomination_gate, prepare_round
 from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
 from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import (
     Framework,
@@ -50,6 +60,7 @@ from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import (
     ScheduleResult,
 )
 from kube_scheduler_simulator_tpu_torch.scheduler.queue import SchedulingQueue
+from kube_scheduler_simulator_tpu_torch.state.store import BULK_DELETE
 from kube_scheduler_simulator_tpu_torch.utils.keys import pod_key as _pod_key
 
 Obj = dict[str, Any]
@@ -142,6 +153,15 @@ class SchedulerService:
             "commit_waves": 0,
             "last_wave_commit_s": 0.0,
             "last_wave_pods": 0,
+            # batched PostFilter (preemption/): attempts, nominations and
+            # victims committed from the victim search, its dispatches and
+            # their host-clock seconds (uploads, search, fetch); pods the
+            # search declined run the sequential cycle, counted by reason
+            "preempt_attempts": 0,
+            "preempt_nominations": 0,
+            "preempt_victims": 0,
+            "preempt_dispatches": 0,
+            "preempt_kernel_s": 0.0,
             "preempt_fallbacks": {},
         }
         self._stats_lock = threading.Lock()
@@ -493,21 +513,25 @@ class SchedulerService:
                 windows = iter([(eng.schedule(*args, **kw), 0, len(tail))])
             snapshot = None
             restart_at = None
-            preempt_noted = False
+            # batched-PostFilter context, built lazily at the run's first
+            # kernel failure (its victim tables read the snapshot at build
+            # time, so earlier windows' commits are already accounted)
+            pholder: "dict | None" = None
+            if seq_failures:
+                pholder = {"build": lambda: self._prepare_preemption(fw, eng, snapshot, nodes, tail, noms)}
             for result, off, cnt in windows:
                 if snapshot is None:
                     # after the round's encode captured the cluster state
                     snapshot = self.build_snapshot()
                     self._prune_mid_round_nominations(snapshot, noms)
-                if seq_failures and not preempt_noted and any(int(result.selected[j]) < 0 for j in range(cnt)):
-                    # the reference runs one batched victim search per
-                    # kernel run here; the port has none yet
-                    self._count_preempt_fallback("batched preemption not ported")
-                    preempt_noted = True
-                restart_at = self._replay_window(result, i, off, cnt, snapshot, point_names, fw, seq_failures, results)
+                restart_at = self._replay_window(
+                    result, i, off, cnt, snapshot, point_names, fw, seq_failures, results, pholder
+                )
                 if restart_at is not None:
                     break  # abandon the remaining windows (state changed)
                 fw.next_start_node_index = result.final_start
+            self._flush_pctx_stats(pholder)
+            pctx = (pholder or {}).get("ctx")
             if restart_at is None:
                 break
             i = restart_at
@@ -515,9 +539,11 @@ class SchedulerService:
             if i >= len(pending):
                 break
             self.stats["batch_restarts"] += 1
-            if restarts >= self.batch_max_restarts:
-                # a preemption-heavy round: finish it on the exact
-                # sequential cycle
+            if pctx is None and restarts >= self.batch_max_restarts:
+                # a preemption-heavy round whose PostFilter runs on the
+                # sequential path (the batched search declined the round):
+                # finish it on the exact sequential cycle.  With the batched
+                # search active every restart strictly advances ``i``
                 snapshot = self.build_snapshot()
                 self._prune_mid_round_nominations(snapshot, noms)
                 for pod in pending[i:]:
@@ -543,15 +569,26 @@ class SchedulerService:
         fw: Framework,
         seq_failures: bool,
         results: dict,
+        pholder: "dict | None" = None,
     ) -> "int | None":
         """Replay one kernel window's decisions in queue order: successes
-        accumulate into bulk-commit waves, kernel failures commit from the
-        trace (force mode) or run the exact sequential cycle.  Returns the
-        pending index to restart the kernel from after a successful
-        preemption, else None."""
+        accumulate into bulk-commit waves; kernel failures commit from the
+        trace, with their PostFilter resolved by the batched victim search
+        (preemption/) or, outside its envelope, by the exact sequential
+        cycle (force mode records the failure alone).  Returns the pending
+        index to restart the kernel from after a successful preemption,
+        else None."""
         window = result.pending
         sample_start = result.out["sample_start"]
         wave_js: list[int] = []
+        decisions: dict = {}
+        if seq_failures and pholder is not None and any(int(result.selected[j]) < 0 for j in range(cnt)):
+            # ONE victim-search dispatch covers every kernel failure of this
+            # window (the context is built at first use)
+            if "ctx" not in pholder:
+                pholder["ctx"] = pholder["build"]()
+            if pholder["ctx"] is not None:
+                decisions = pholder["ctx"].decide(result, off, cnt)
 
         def flush_wave() -> None:
             if not wave_js:
@@ -586,8 +623,28 @@ class SchedulerService:
                 fw.sched_counter += 1
                 self.stats["batch_pods"] += 1
             else:
+                dec = decisions.get(j)
+                if dec is not None and not isinstance(dec, str):
+                    # batched PostFilter: the failure trace commits from the
+                    # kernel result and the preemption decision applies
+                    # inside the commit
+                    flush_wave()
+                    tc = time.perf_counter()
+                    res = self._commit_batch_pod(result, j, pod, snapshot, point_names, fw, preempt=dec)
+                    self.stats["commit_s"] += time.perf_counter() - tc
+                    fw.sched_counter += 1
+                    self.stats["batch_pods"] += 1
+                    results[key] = res
+                    if res.nominated_node:
+                        # preemption restarts the kernel: this window's
+                        # record ends here
+                        self.profiler.close(getattr(result, "prof_rec", None))
+                        return base_i + off + j + 1
+                    continue
                 # exact sequential cycle for this pod: same snapshot state
                 # (earlier commits assumed), attempt counter and rotation
+                if isinstance(dec, str):
+                    self._count_preempt_fallback(dec)
                 flush_wave()
                 fw.next_start_node_index = int(sample_start[j])
                 tc = time.perf_counter()
@@ -600,7 +657,21 @@ class SchedulerService:
         flush_wave()
         # the wave record closes even when nothing committed
         self.profiler.close(getattr(result, "prof_rec", None))
+        pctx = (pholder or {}).get("ctx")
+        if pctx is not None:
+            # later windows' dry runs must see this window's commits
+            for j in range(cnt):
+                if int(result.selected[j]) >= 0:
+                    pctx.note_success(off + j, int(result.selected[j]))
         return None
+
+    def _flush_pctx_stats(self, pholder: "dict | None") -> None:
+        pctx = (pholder or {}).get("ctx")
+        if pctx is None:
+            return
+        with self._stats_lock:
+            self.stats["preempt_dispatches"] += pctx.dispatches
+            self.stats["preempt_kernel_s"] += pctx.kernel_s
 
     def _count_fallback(self, reason: str) -> None:
         with self._stats_lock:
@@ -630,6 +701,46 @@ class SchedulerService:
             for p in self.cluster_store.list("pods", copy_objects=False)
             if has_pending_nomination(p)
         ]
+
+    def _prepare_preemption(
+        self,
+        fw: Framework,
+        eng: BatchEngine,
+        snapshot: Snapshot,
+        nodes: list[Obj],
+        tail: list[Obj],
+        noms: "list[tuple[Obj, str]]",
+    ) -> Any:
+        """Build the batched victim-search context for one kernel run, or
+        None (with a counted reason): the round then keeps the exact
+        sequential PostFilter path."""
+        pctx, reason = prepare_round(fw, eng, snapshot, self.cluster_store, nodes, tail, nominated=noms or None)
+        if pctx is None and reason:
+            self._count_preempt_fallback(reason)
+        return pctx
+
+    def _apply_preemption_victims(self, decision: Any, snapshot: "Snapshot | None") -> None:
+        """Evict one decision's victims in one bulk store update: per-victim
+        DELETED events in the oracle's eviction order (each drives the
+        queue's move request as a per-victim ``store.delete`` would), then
+        the oracle's snapshot mutation so later pods in the round see the
+        freed capacity."""
+        self.cluster_store.bulk_update(
+            "pods",
+            [
+                (v["metadata"]["name"], v["metadata"].get("namespace", "default"), lambda cur: BULK_DELETE)
+                for v in decision.victims
+            ],
+            allow_delete=True,
+        )
+        if snapshot is not None:
+            ni = snapshot.get(decision.node_name)
+            if ni is not None:
+                for v in decision.victims:
+                    ni.remove_pod(v)
+        with self._stats_lock:
+            self.stats["preempt_nominations"] += 1
+            self.stats["preempt_victims"] += len(decision.victims)
 
     def _commit_batch_wave(
         self,
@@ -726,13 +837,15 @@ class SchedulerService:
         snapshot: "Snapshot | None" = None,
         point_names: "dict[str, list[str]] | None" = None,
         fw: "Framework | None" = None,
+        preempt: Any = None,
     ) -> ScheduleResult:
         """Write one pod's batch trace into the result store (the categories
-        the wrapped plugins record) and bind it, or record its failure;
+        the wrapped plugins record) and bind it, or record its failure and,
+        with ``preempt`` (a preemption/ Decision), its PostFilter outcome;
         with ``snapshot``, assume the bind for later sequential cycles of
         the round."""
         with self.cluster_store.journal_txn("attempt"):
-            return self._commit_batch_pod_txn(result, i, pod, snapshot, point_names, fw)
+            return self._commit_batch_pod_txn(result, i, pod, snapshot, point_names, fw, preempt)
 
     def _commit_batch_pod_txn(
         self,
@@ -742,6 +855,7 @@ class SchedulerService:
         snapshot: "Snapshot | None" = None,
         point_names: "dict[str, list[str]] | None" = None,
         fw: "Framework | None" = None,
+        preempt: Any = None,
     ) -> ScheduleResult:
         from kube_scheduler_simulator_tpu_torch.models.framework import PreFilterResult, Status
 
@@ -790,9 +904,22 @@ class SchedulerService:
             self._record_event(pod, "Normal", "Scheduled", f"Successfully assigned {ns}/{name} to {node_name}")
             return ScheduleResult(selected_node=node_name)
         diagnosis = result.diagnosis(i)
+        nominated_node = None
+        if preempt is not None:
+            # batched PostFilter: victims are deleted before the annotation
+            # lands — the oracle's post_filter evicts, then the wrapped
+            # recorder writes the nomination over the diagnosis node set
+            with self._stats_lock:
+                self.stats["preempt_attempts"] += 1
+            if preempt.node_name:
+                self._apply_preemption_victims(preempt, snapshot)
+                nominated_node = preempt.node_name
+            plug = fw.plugins["post_filter"][0].original.name
+            rs.add_post_filter_result(ns, name, nominated_node or "", plug, sorted(diagnosis.keys()))
         res = ScheduleResult(
             diagnosis=diagnosis,
             status=Status.unschedulable(f"0/{result.problem.N_true} nodes are available"),
+            nominated_node=nominated_node,
         )
         self._record_failure(pod, res, attempt_move_seq)
         self.reflector.flush_pod(self.cluster_store, pod)
@@ -885,39 +1012,6 @@ class SchedulerService:
         if not parts:
             return result.status.message() if result.status else "no nodes available"
         return f"0/{num} nodes are available: {', '.join(parts)}."
-
-
-def nomination_gate(nominated: "list[tuple[Obj, str]]", round_pods: list[Obj]) -> "str | None":
-    """Why pending nominations can't be modeled as filter-only usage for
-    this round's kernel runs (None = modelable): the reference's
-    ``preemption/engine.py`` gate.  The model adds each nominee's requests
-    and count to the Fit filter state on its nominated node, exact only
-    when every round pod must respect every reservation (priority <=) and
-    no non-monotone filter can observe the difference."""
-    if not nominated:
-        return None
-    min_nom = min(pod_priority(p) for p, _nn in nominated)
-    for p, _nn in nominated:
-        spec = p.get("spec") or {}
-        if any(prt.get("hostPort") for c in spec.get("containers") or [] for prt in c.get("ports") or []):
-            return "nominated pod requests host ports"
-        if spec.get("volumes"):
-            return "nominated pod mounts volumes"
-        if ((spec.get("affinity") or {}).get("podAntiAffinity") or {}).get("requiredDuringSchedulingIgnoredDuringExecution"):
-            return "nominated pod has required anti-affinity"
-    for p in round_pods:
-        spec = p.get("spec") or {}
-        if pod_priority(p) > min_nom:
-            return "pending pod outranks a nomination"
-        if any(
-            (tsc.get("whenUnsatisfiable") or "DoNotSchedule") == "DoNotSchedule"
-            for tsc in spec.get("topologySpreadConstraints") or []
-        ):
-            return "pending pod has required topology spread constraints"
-        aff = spec.get("affinity") or {}
-        if any((aff.get(k) or {}).get("requiredDuringSchedulingIgnoredDuringExecution") for k in ("podAffinity", "podAntiAffinity")):
-            return "pending pod has required pod (anti-)affinity"
-    return None
 
 
 def _normalize_names(profile: Obj) -> None:

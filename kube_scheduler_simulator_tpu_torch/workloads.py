@@ -13,7 +13,9 @@ pods), all drawn from the same seed.  ``add_host_ports`` and
 CSI nodes a StatefulSet- and DaemonSet-heavy cluster carries (the
 ``volumes`` dict that ``BatchEngine.schedule(..., volumes=)`` reads).
 ``churn`` replays the bench's BASELINE cfg5 scenario churn into a cluster
-store, wave by wave, with a rolling cordon on top.
+store, wave by wave, with a rolling cordon on top.  ``preemption_wave``
+fills a store with cfg7-preempt-5k, Kubernetes scheduler_perf's
+PreemptionBasic shape at its 5000Nodes size.
 """
 
 from __future__ import annotations
@@ -310,3 +312,79 @@ def churn(store, n_pods: int, n_nodes: int, waves: int, delete_frac: float = 0.1
         bound = [p for p in store.list("pods") if (p.get("spec") or {}).get("nodeName")]
         for p in rng.sample(bound, int(len(bound) * delete_frac)):
             store.delete("pods", p["metadata"]["name"], p["metadata"].get("namespace"))
+
+
+def preemption_wave(
+    store, n_nodes: int = 5000, n_low: int = 20000, n_fillers: int = 400, n_preemptors: int = 64,
+    n_pdbs: int = 16, seed: int = 7,
+) -> dict:
+    """cfg7-preempt-5k: Kubernetes scheduler_perf's ``PreemptionBasic``
+    (test/integration/scheduler_perf/config/performance-config.yaml:
+    node-default.yaml, pod-low-priority.yaml, pod-high-priority.yaml) at its
+    5000Nodes cluster size, created in ``store``; returns the names of the
+    pods by role.
+
+    - ``n_nodes`` nodes of 4 CPU, 32Gi and 110 pods allocatable;
+    - ``n_low`` bound low-priority pods, spread evenly (4 a node at the
+      default sizes), each 900m CPU and 500Mi, with seeded priorities from
+      {0, 1, 2}, seeded ``startTime``s (a minute's 3 600 distinct stamps, so
+      ties occur) and labels ``app=a{k}``, k from 0 to 63;
+    - ``n_pdbs`` PodDisruptionBudgets on ``app`` a0, a1, ... each allowing
+      2 disruptions (16 cover a quarter of the victims);
+    - pending: ``n_fillers`` fillers of 100m and 100Mi at priority 50, then
+      ``n_preemptors`` preemptors of 3 CPU and 500Mi at priority 10, every
+      8th pinned by ``nodeSelector`` to a hostname of its own.  The fillers
+      outrank the preemptors, so the preemptors ride the queue's tail.
+
+    Departures from scheduler_perf, which bring the victim search's PDB,
+    tie-break and same-window paths onto the path: the victim priorities,
+    the PDBs and the fillers.  The pinned preemptors' nodes hold only
+    priority-2 victims, so pickOneNodeForPreemption ranks them last for the
+    unpinned preemptors and each pinned preemptor finds its node as the
+    round started."""
+    rng = random.Random(seed)
+    for i in range(n_nodes):
+        alloc = {"cpu": "4", "memory": "32Gi", "pods": "110"}
+        store.create("nodes", {
+            "metadata": {"name": f"node-{i}", "labels": {"kubernetes.io/hostname": f"node-{i}"}},
+            "spec": {},
+            "status": {"allocatable": dict(alloc), "capacity": dict(alloc)},
+        })
+    pinned_nodes = rng.sample(range(n_nodes), len(range(0, n_preemptors, 8)))
+    pinned = set(pinned_nodes)
+
+    def pod(name: str, i: int, cpu: str, mem: str, prio: int, labels=None) -> dict:
+        p = {
+            "metadata": {"name": name, "namespace": "default", "labels": labels or {}},
+            "spec": {
+                "priority": prio,
+                "containers": [{"name": "c", "resources": {"requests": {"cpu": cpu, "memory": mem}}}],
+            },
+        }
+        return stamp(p, i)
+
+    names: dict = {"low": [], "fillers": [], "preemptors": []}
+    for j in range(n_low):
+        node = j * n_nodes // n_low
+        prio = 2 if node in pinned else rng.choice([0, 1, 2])
+        p = pod(f"low-{j}", j, "900m", "500Mi", prio, {"app": f"a{rng.randrange(64)}"})
+        p["spec"]["nodeName"] = f"node-{node}"
+        p["status"] = {"phase": "Running", "startTime": f"2024-02-01T00:{rng.randrange(60):02d}:{rng.randrange(60):02d}Z"}
+        store.create("pods", p)
+        names["low"].append(p["metadata"]["name"])
+    for k in range(n_pdbs):
+        store.create("poddisruptionbudgets", {
+            "metadata": {"name": f"pdb-a{k}", "namespace": "default"},
+            "spec": {"selector": {"matchLabels": {"app": f"a{k}"}}},
+            "status": {"disruptionsAllowed": 2},
+        })
+    for i in range(n_fillers):
+        store.create("pods", pod(f"filler-{i}", n_low + i, "100m", "100Mi", 50))
+        names["fillers"].append(f"filler-{i}")
+    for i in range(n_preemptors):
+        p = pod(f"preemptor-{i}", n_low + n_fillers + i, "3", "500Mi", 10)
+        if i % 8 == 0:
+            p["spec"]["nodeSelector"] = {"kubernetes.io/hostname": f"node-{pinned_nodes[i // 8]}"}
+        store.create("pods", p)
+        names["preemptors"].append(p["metadata"]["name"])
+    return names

@@ -124,5 +124,5 @@ def test_a_cuda_round_launches_both_kernels():
     nodes, all_pods, pending = workloads.cluster(40, 60, seed=1)
     kernels.reset_counts()
     res = BatchEngine(scores=[("NodeResourcesFit", 1)], trace=True).schedule(nodes, all_pods, pending)
-    assert kernels.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0}
+    assert kernels.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0}
     assert sum(s is not None for s in res.selected_nodes) == 40

@@ -61,7 +61,9 @@ def _struct_fields(src: str, name: str) -> "list[str]":
     return fields
 
 
-@pytest.mark.parametrize("src,struct", [("scan.cu", "ScanArgs"), ("compact.cu", "CompactArgs")])
+@pytest.mark.parametrize(
+    "src,struct", [("scan.cu", "ScanArgs"), ("compact.cu", "CompactArgs"), ("preempt.cu", "PreemptArgs")]
+)
 def test_ctypes_mirror_matches_the_cuda_struct(src, struct):
     """The argument structs are read by field order: the ctypes mirror and
     the CUDA declaration list the same fields in the same order, each 8
@@ -72,6 +74,30 @@ def test_ctypes_mirror_matches_the_cuda_struct(src, struct):
     for f, t in mirror._fields_:
         base = t._type_ if issubclass(t, ctypes.Array) else t
         assert base in (TK._i64, TK._f64, TK._ptr), f
+
+
+def _search_args(U, N, V, R, PDB, S, dt, device, seed=0):
+    """Seeded arguments of the victim search (kernels.preempt, preempt_plain):
+    integer-valued requests, slots a prefix of each node's row, mixed
+    priorities with ties, budgets of 0-2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_valid = rng.integers(0, V + 1, N)
+    vvalid = np.arange(V)[None, :] < n_valid[:, None]
+    vreq = rng.integers(0, 5, (N, V, R)) * vvalid[..., None]
+    base_req = vreq.sum(axis=1) + rng.integers(0, 3, (N, R))
+    base_cnt = n_valid + rng.integers(0, 3, N)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)  # noqa: E731
+    t = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=d)  # noqa: E731
+    return (
+        t(rng.random((U, N)) < 0.8, torch.bool), f(rng.integers(0, 6, (U, R))), t(rng.integers(1, 6, U), torch.int64),
+        t(rng.random((U, S)) < 0.6, torch.bool), f(rng.integers(0, 3, (S, R))), t(rng.integers(0, N, S), torch.int32),
+        f(base_req + rng.integers(-2, 6, (N, R))), f(base_req), f(rng.integers(0, 2, (N, R))), f(base_cnt),
+        f(rng.integers(0, 2, N)), f(base_cnt + rng.integers(0, 4, N)), f(vreq),
+        t(np.where(vvalid, -np.sort(-rng.integers(0, 6, (N, V)), axis=1), 0), torch.int64), t(vvalid, torch.bool),
+        t((rng.random((N, V, PDB)) < 0.45) & vvalid[..., None], torch.bool), t(rng.integers(0, 3, PDB), torch.int32),
+    )
 
 
 def test_build_flags_keep_ieee_arithmetic():
@@ -141,7 +167,9 @@ def test_wrappers_refuse_cpu_tensors():
     buf = torch.zeros(8, 3, dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.scatter_rows(buf, torch.tensor([1], dtype=torch.int32), buf[:1].clone())
-    assert TK.LAUNCHES == {"scan": 0, "compact": 0, "scatter": 0}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.preempt(*_search_args(3, 5, 2, 2, 1, 2, torch.float64, "cpu"))
+    assert TK.LAUNCHES == {"scan": 0, "compact": 0, "scatter": 0, "preempt": 0}
 
 
 RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))
@@ -265,6 +293,27 @@ def test_volume_filters_and_in_step_compaction_on_the_card(filters, tie_break, w
                     row = k_out[f"{kind}:{s}"][i]
                     assert torch.equal(row[: len(cols)], full[f"{kind}:{s}"][i][cols]), (dt, i, s, kind)
                     assert not row[len(cols):].any()
+
+
+# ------------------------------------------ the victim search (K5)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_preempt_kernel_matches_plain_version_on_the_card(dt):
+    """K5 against preemption/kernel.preempt_plain on the same tensors on the
+    card, bitwise: cand, victims and viol, with and without PDBs and
+    same-window successes, V from 1 to 16, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_scheduler_simulator_tpu_torch.preemption.kernel import preempt_plain
+
+    for k, shape in enumerate(((1, 1, 1, 1, 0, 0), (5, 16, 4, 2, 3, 0), (7, 23, 9, 3, 2, 5), (16, 640, 16, 2, 16, 150))):
+        args = _search_args(*shape, dt, "cuda", seed=k)
+        TK.reset_counts()
+        got = TK.preempt(*args)
+        assert TK.LAUNCHES["preempt"] == 1
+        for name, a, b in zip(("cand", "victims", "viol"), got, preempt_plain(*args)):
+            assert torch.equal(a, b), (shape, name)
 
 
 # ------------------------------------------ row scatter and windows (K4, K2w)

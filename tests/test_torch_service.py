@@ -8,7 +8,7 @@ equal annotations, node and status.  Covered: the sequential cycle
 (``use_batch="off"``), the windowed double-buffered round (``pipeline=True``
 with enough pending pods to split P = 512 into two windows of 256), BASELINE
 cfg5's churn cut to three small waves with deletes and a rolling cordon
-(both tie-breaks), a kernel-failed pod resolved by the sequential
+(both tie-breaks), a kernel-failed pod resolved by the batched
 DefaultPreemption, two profiles (segments), and what the port refuses.
 Mirrors tests/test_batch_parity.py and tests/test_commit_pipeline.py.
 """
@@ -141,10 +141,13 @@ def test_churn_with_rolling_cordon_matches_the_reference(tie):
 
 def test_sequential_preemption_after_a_kernel_failure_matches_the_reference():
     """A high-priority pod that fits nowhere fails the kernel; under the
-    default profile it takes the exact sequential cycle, whose
-    DefaultPreemption deletes a victim and nominates its node; the round
-    restarts the kernel on the tail.  Equal store state, equal
-    nominatedNodeName, and the fallback counted."""
+    default profile its PostFilter runs as the batched victim search
+    (preemption/), which deletes a victim and nominates its node; the round
+    restarts the kernel on the tail.  Equal store state and
+    nominatedNodeName, no preemption fallback, at least one victim-search
+    dispatch.  (The name predates the batched search: the sequential
+    DefaultPreemption is now the path of pods outside its envelope,
+    tests/test_torch_preemption.py's volumes case.)"""
     def build(store):
         for i in range(4):
             store.create("nodes", mk_node(f"node-{i}", 1000, 4096))
@@ -160,8 +163,8 @@ def test_sequential_preemption_after_a_kernel_failure_matches_the_reference():
     assert_same(got, want)
     deleted = {f"low-{i}" for i in range(4)} - got.keys()
     assert len(deleted) == 1 and got["high"][2].get("nominatedNodeName")
-    assert port.stats["preempt_fallbacks"] == {"batched preemption not ported": 1}
-    assert port.stats["sequential_pods"] >= 1 and port.stats["batch_pods"] > 0
+    assert port.stats["preempt_fallbacks"] == {} and port.stats["preempt_dispatches"] >= 1
+    assert port.stats["preempt_nominations"] == 1 and port.stats["batch_pods"] > 0
 
 
 def test_two_profiles_run_as_segments():
