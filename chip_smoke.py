@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 16 min, build included
+    python3 chip_smoke.py    # one card, about 17 min, build included
 
 Workloads (every one from seed 42 through ``workloads.cluster``):
 
@@ -44,10 +44,19 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   ``schedule_pending(max_rounds=1)`` through the port's service on the
   default configuration: every preemptor fails its first scan, the victim
   search (K5) runs once per replay window with failures, and each
-  nomination restarts the kernel on the tail.
+  nomination restarts the kernel on the tail;
+- cfg8-gang: the JAX package's bench ``run_gang`` (``workloads.gang_churn``):
+  200 distributed-training jobs of 8-64 one-CPU members (plan seed 24),
+  each a PodGroup with minMember its member count, on 220 bench nodes (64
+  CPU, 256Gi, 512 pods, 8 zones), arriving in 5 waves, each wave's jobs
+  completing after the next wave is scheduled; one
+  ``schedule_pending(max_rounds=3)`` a wave through the port's service
+  under ``gang_scheduler_config()`` (Coscheduling, DefaultPreemption off):
+  every member parks at Permit until its gang's last member releases the
+  whole gang, and each replay window makes one gang-verdict dispatch (K6).
 
 Cut for the time limit: the float64 churn runs 3 waves.  The CPU float64
-references of phases 4, 9 and 14 run in two worker processes started
+references of phases 4, 9, 14 and 18 run in two worker processes started
 after the build, beside the card's phases; the script stops them before
 it exits.
 
@@ -112,14 +121,44 @@ line):
 14. cfg7-preempt-5k cut to 500 nodes, 2 000 bound pods, 40 fillers and 16
    preemptors, two rounds: the CUDA float64 service and the CPU float64
    service (a worker process) leave every pod with equal annotations, node
-   and status (nominatedNodeName included) and evict the same pods.
+   and status (nominatedNodeName included) and evict the same pods;
+15. the gang kernels against their plain versions, bitwise: the window
+   verdict (K6) on seeded problems (K 256 and 2 048 member slots, G 80, N
+   220 and 5 000, D 8 and N), the feasibility scan (K7) in float32 and
+   float64 at cfg8's preview shape (G 64, M 64, N 220, D 8), at G 256 x M 64
+   x N 5 000 with D 8 and D 5 000, and at N 12 000 (its float64 table in
+   global scratch);
+16. cfg8-gang end to end on the card, float32: per wave the wall, the gang
+   counters, the launches (counts reset just before each wave) and the
+   verdict's seconds; a wave fails on a verdict mismatch, a partially bound
+   group, a gang or batch fallback, K6 launches other than the dispatches,
+   dispatches other than one a replay window, or an unbound member;
+17. K6 timed on the captured inputs of 16's first dispatch; group_preview
+   at 16's final state on a feasible group (32 one-CPU members) and on one
+   too large for any node (4 members of 100 CPU at priority 100), counts
+   reset just before: K7 must launch twice and the victim search (K5) at
+   least once; K7 and K5 against their plain versions on the captured
+   inputs, K7 timed;
+18. the CUDA float64 service against the CPU float64 service (a worker
+   process) on cfg8-gang's parity leg (24 jobs of 2-8 members, plan seed
+   23, 40 nodes) and on the same plan on 4 nodes of 8 CPU in 3 zones (members
+   fail and gangs cascade): after every wave every pod's annotations, node
+   and status equal, the events equal at the end; no group partially bound
+   after any wave;
+19. Part A's probe (one node of 33554438 bytes of memory, one pod asking
+   33554439): in float32 on the card the round runs in float64 (one
+   promotion counted, in the engine and in the service), places nothing
+   ("Insufficient memory") and equals the float64 round.  Phases 3, 8 and
+   12 fail on any promotion and print each round's exactness headroom.
 
 Then one ``{"kernels": [...]}`` line (time, plain time, bound and launches
 of each kernel: the one-launch scan at cfg5-vol, launched by its round;
 the windowed scan, the compaction and the scatter at cfg5-churn's shapes,
 launched by the float32 churn; the victim search at the first dispatch of
-cfg7-preempt-5k, launched by its round), and as the last line ``{"ok": true,
-"device": {...}}``.  Everything is generated from seeds; nothing is read
+cfg7-preempt-5k, launched by its round; the window verdict at cfg8-gang's
+first dispatch, launched by the gang waves; the feasibility scan at the
+preview's first group, launched by group_preview), and as the last line
+``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
 """
 
@@ -136,6 +175,7 @@ from typing import Any, NamedTuple
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # non-tensor float32
 FP64_OPS_PER_S = 34e12     # non-tensor float64
+INT32_OPS_PER_S = 33.5e12  # 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
 
 FIVE_FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodeResourcesFit")
 FIVE_SCORES = [
@@ -208,9 +248,30 @@ PREEMPT_CUT = (500, 2000, 40, 16)
 # K5 against its plain version on seeded problems: pods x nodes, resource
 # columns, and (V, PDB, S) cases
 K5_SEEDED = (64, 5000, 2, [(v, pdb, s) for v in (1, 4, 16) for pdb, s in ((0, 0), (16, 150))])
+# cfg8-gang (the JAX package's bench run_gang): the scale leg, its parity
+# leg, and the parity leg's plan on 4 nodes of 8 CPU in 3 zones, where
+# members fail in four of the five waves and their gangs cascade (on 6 such
+# nodes every member still fits)
+GANG = dict(jobs=200, min_members=8, max_members=64, nodes=220, waves=5, seed=24)
+GANG_PARITY = dict(jobs=24, min_members=2, max_members=8, nodes=40, waves=5, seed=23)
+GANG_CUTS = {"parity": GANG_PARITY, "cascade": dict(GANG_PARITY, nodes=4)}
+# K6 against its plain version on seeded problems: (K, G, N, D)
+K6_SEEDED = [(k, 80, n, d) for k in (256, 2048) for n in (220, 5000) for d in (8, n)]
+# K7 in both dtypes: (G, M, N, D) — cfg8's preview shape, the 5 000-node
+# shapes under a zone and a hostname key, and one whose table is too big
+# for shared memory in float64 (the global-scratch path)
+K7_SEEDED = [(64, 64, 220, 8), (256, 64, 5000, 8), (256, 64, 5000, 5000), (32, 16, 12000, 12000)]
+# Part A's probe: one node, one pod asking a byte more memory than it has
+# (GCD 1, so float32 cannot hold the sums)
+PROBE_NODE = {"metadata": {"name": "n0", "labels": {}},
+              "status": {"allocatable": {"cpu": "4", "memory": "33554438", "pods": "110"}}}
+PROBE_POD = {"metadata": {"name": "p0", "namespace": "default"},
+             "spec": {"containers": [{"name": "c", "resources": {"requests": {"memory": "33554439"}}}]}}
 # filters cfg5-vol must see reject at least one (pod, node) pair first
 MUST_REJECT = ("NodePorts", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 DEVICE = "cuda"
+# what one BatchEngine round launches
+ROUND_LAUNCHES = {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
 
 
 def log(*a) -> None:
@@ -437,11 +498,12 @@ def carry_bytes(cfg, dims, dp, dt, blocks: int) -> dict:
 def bound(counts: dict, dt) -> "tuple[float, str]":
     """(least ms the card could take, "bytes" or "operations"): the bytes
     over the memory rate against the operations over the peak rate of the
-    working dtype."""
+    working dtype (float32, float64, or int32 for integer kernels)."""
     import torch
 
     t_bytes = counts["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = counts["ops"] / (FP32_OPS_PER_S if dt == torch.float32 else FP64_OPS_PER_S) * 1e3
+    rate = {torch.float32: FP32_OPS_PER_S, torch.float64: FP64_OPS_PER_S, torch.int32: INT32_OPS_PER_S}[dt]
+    t_ops = counts["ops"] / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -578,6 +640,7 @@ def run_churn(spec, device, dt, waves=None, snapshot_after=None, echo=True):
             full_uploads=pl.full_uploads - pl0[2], scattered=pl.last_scattered, unbound=unbound,
             encode_stats={k: v for k, v in eng.encode_stats().items() if k.startswith("encode_")},
             stages={k: round(v, 4) for k, v in svc.profiler.snapshot()["last_wave"].items()},
+            bound=headroom(eng.last_bound), promotions=dict(svc.stats["f64_promotions"]),
         )
         if echo:
             log(f"{device} {str(dt).split('.')[-1]} wave {w}: {json.dumps(rec, sort_keys=True)}")
@@ -586,9 +649,10 @@ def run_churn(spec, device, dt, waves=None, snapshot_after=None, echo=True):
                 raise AssertionError(f"wave {w}: {launches} for {windows} windows")
             if w > 0 and launches["scatter"] == 0:
                 raise AssertionError(f"wave {w}: the cordon reached no plane through the scatter kernel")
-        if svc.stats["batch_fallbacks"] or svc.stats["sequential_pods"]:
+        if svc.stats["batch_fallbacks"] or svc.stats["sequential_pods"] or svc.stats["f64_promotions"]:
             raise AssertionError(f"{device} wave {w}: fallbacks {svc.stats['batch_fallbacks']}, "
-                                 f"sequential pods {svc.stats['sequential_pods']}")
+                                 f"sequential pods {svc.stats['sequential_pods']}, "
+                                 f"promotions {svc.stats['f64_promotions']}")
         if unbound:
             raise AssertionError(f"{device} wave {w}: {unbound} pods left unbound (every pod places at this size)")
         for k in total:
@@ -669,6 +733,7 @@ def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = 
         and not (pre[-1].get("spec") or {}).get("nodeName"),
         evicted=len(names["low"]) - sum(1 for n in names["low"] if n in pods),
         prepare_s=prep_s[0], engine=dict(svc._batch_engine.cum_timings),
+        bound=headroom(svc._batch_engine.last_bound), promotions=dict(st["f64_promotions"]),
         stages={k: v["total_s"] for k, v in svc.profiler.snapshot()["stages"].items()},
     )
     return rec, pod_digests(store), names
@@ -707,6 +772,8 @@ def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
         problems = []
         if prec["preempt_fallbacks"] or prec["batch_fallbacks"]:
             problems.append(f"fallbacks {prec['preempt_fallbacks']} {prec['batch_fallbacks']}")
+        if prec["promotions"]:
+            problems.append(f"promoted to float64 {prec['promotions']}")
         if prec["sequential_pods"]:
             problems.append(f"{prec['sequential_pods']} pods ran the sequential cycle")
         if prec["preemptors_bound"] + prec["preemptors_nominated"] != P_pre:
@@ -755,6 +822,381 @@ def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
     return prec, k5_t
 
 
+# ------------------------------------------------------ gang (K6, K7)
+
+def seeded_verdict(K, G, N, D, device, seed):
+    """Seeded window-verdict arguments: members of G groups, a tenth of the
+    slots padding (-1) and a twentieth failed (-1 node); dom a hostname
+    key (dom[g, n] = n) when D == N, else random domains below D."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(0, G, K)
+    gid[rng.random(K) < 0.1] = -1
+    node = rng.integers(0, N, K)
+    node[rng.random(K) < 0.05] = -1
+    dom = np.tile(np.arange(N), (G, 1)) if D == N else rng.integers(0, D, (G, N))
+    prior = rng.integers(0, 4, G)
+    minm = rng.integers(1, max(2, 2 * K // G), G)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)  # noqa: E731
+    return t(gid), t(node), t(dom), t(prior), t(minm), D
+
+
+def seeded_feasibility(G, M, N, R, D, dt, device, seed):
+    """Seeded feasibility-scan arguments: per group a prefix of valid member
+    slots with a few holes, small integer requests (ties everywhere), free
+    capacities from -1 to 11 (so some nodes are overcommitted), pod budgets
+    0-5, group 0 asking more than any node has (infeasible); dom a hostname
+    key when D == N, else n mod D."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    valid = (np.arange(M)[None, :] < rng.integers(1, M + 1, G)[:, None]) & (rng.random((G, M)) < 0.95)
+    req = rng.integers(0, 3, (G, M, R))
+    req[0] = 1000
+    free = rng.integers(-1, 12, (N, R))
+    cnt = rng.integers(0, 6, N)
+    dom = np.tile(np.arange(N) % D, (G, 1))
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)  # noqa: E731
+    return (f(req), torch.from_numpy(valid).to(device), f(free), f(cnt),
+            torch.from_numpy(np.ascontiguousarray(dom, dtype=np.int32)).to(device), D)
+
+
+def verdict_counts(args, outs) -> dict:
+    """Bytes the window verdict must move (the member slots, the domain cell
+    of every placed member, the per-group inputs and outputs) and its
+    integer operations (per slot: the pad and failure tests and one add; per
+    placed member the domain mark; per group the bitmap popcounts and the
+    quorum test)."""
+    gid, node, dom, prior, minm, D = args
+    K, G = gid.shape[0], dom.shape[0]
+    placed = int(((gid >= 0) & (node >= 0)).sum())
+    nbytes = 8 * K + 4 * placed + 8 * G + sum(t.numel() * t.element_size() for t in outs)
+    ops = 3 * K + 3 * placed + G * ((D + 31) // 32 + 4)
+    return {"bytes": nbytes, "ops": ops}
+
+
+def feasibility_counts(args, outs) -> dict:
+    """Bytes the feasibility scan must move (every input once, the outputs
+    once) and its operations on these inputs: per valid slot and node the R
+    column compares, the budget test, the rank and the argmax step; per
+    valid slot the commit (R + 2)."""
+    req, valid, free, cnt, dom, D = args
+    N, R = free.shape
+    slots = int(valid.sum())
+    nbytes = sum(t.numel() * t.element_size() for t in (req, valid, free, cnt, dom)) + sum(
+        t.numel() * t.element_size() for t in outs)
+    return {"bytes": nbytes, "ops": slots * (N * (R + 4) + R + 2)}
+
+
+def gang_node_small(i: int) -> dict:
+    """A node of tests/test_gang.py's churn: 8 CPU, 64Gi, 110 pods, 3 zones."""
+    return {
+        "metadata": {"name": f"node-{i}", "labels": {"kubernetes.io/hostname": f"node-{i}",
+                                                     "topology.kubernetes.io/zone": f"zone-{i % 3}"}},
+        "status": {"allocatable": {"cpu": "8", "memory": "64Gi", "pods": "110"}},
+    }
+
+
+def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_nodes=False, strict=True):
+    """cfg8-gang (or a cut) through a SchedulerService on ``device`` under
+    the gang profile: one ``schedule_pending(max_rounds=3)`` a wave, the
+    launch counters reset just before it.  With ``capture``, the first
+    verdict dispatch's arguments are kept there.  A wave fails on a verdict
+    mismatch, a partially bound group, a gang or batch fallback, or (on the
+    card) verdict launches other than the dispatches; with ``strict``, also
+    on an unbound member or dispatches other than one a replay window.
+    Returns (per-wave records, total launches, (the pod digests after each
+    wave, the events' digest), the store, the service)."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.gang import gang_scheduler_config, partially_bound_groups
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore(clock=lambda: 0.0)
+    svc = None
+    records, total, waves = [], {k: 0 for k in K.LAUNCHES}, []
+    verdict = GK.window_verdict
+    if capture is not None:
+        def keep(*args):
+            if "args" not in capture:
+                capture["args"] = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+            return verdict(*args)
+
+        GK.window_verdict = keep
+    keys = ("gang_parked", "gang_released_groups", "gang_released_pods", "gang_kernel_dispatches",
+            "gang_kernel_s", "gang_verdict_mismatch", "commit_s", "sequential_pods", "batch_pods")
+    try:
+        gen = workloads.gang_churn(store, node=gang_node_small if small_nodes else workloads.mk_node, **spec)
+        for w in gen:
+            if svc is None:
+                svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0,
+                                       device=device, dtype=dt)
+                svc.start_scheduler(gang_scheduler_config())
+            st0 = {k: svc.stats[k] for k in keys}
+            K.reset_counts()
+            t0 = time.perf_counter()
+            svc.schedule_pending(max_rounds=3)
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            st = svc.stats
+            delta = {k: st[k] - st0[k] for k in keys}
+            members = [p for p in store.list("pods", copy_objects=False) if (p["metadata"].get("labels") or {})]
+            unbound = sum(1 for p in members if not (p.get("spec") or {}).get("nodeName"))
+            partial = partially_bound_groups(store)
+            eng = svc._batch_engine
+            lt = eng.last_timings if eng is not None else {}
+            rec = dict(
+                wave=w, wall_s=wall, pods=len(members), unbound=unbound, windows=int(lt.get("windows", 1)),
+                encode_s=lt.get("encode_s", 0.0), device_s=lt.get("device_s", 0.0), launches=launches,
+                promotions=dict(st["f64_promotions"]), waiting=len(svc.framework.waiting_pods), **delta,
+                stages={k: round(v, 4) for k, v in svc.profiler.snapshot()["last_wave"].items()},
+            )
+            if echo:
+                log(f"{device} {str(dt).split('.')[-1]} gang wave {w}: {json.dumps(rec, sort_keys=True)}")
+            problems = []
+            if delta["gang_verdict_mismatch"]:
+                problems.append(f"{delta['gang_verdict_mismatch']} verdict mismatches")
+            if partial:
+                problems.append(f"partially bound groups {partial[:3]}")
+            if st["gang_fallbacks"] or st["batch_fallbacks"]:
+                problems.append(f"fallbacks {st['gang_fallbacks']} {st['batch_fallbacks']}")
+            if device == DEVICE and launches["gang_verdict"] != delta["gang_kernel_dispatches"]:
+                problems.append(f"K6 launches {launches['gang_verdict']} != dispatches {delta['gang_kernel_dispatches']}")
+            if strict and unbound:
+                problems.append(f"{unbound} members unbound")
+            if strict and delta["gang_kernel_dispatches"] != rec["windows"]:
+                problems.append(f"{delta['gang_kernel_dispatches']} verdict dispatches for {rec['windows']} windows")
+            if problems:
+                raise AssertionError(f"{device} gang wave {w}: {'; '.join(problems)}")
+            for k in total:
+                total[k] += launches[k]
+            records.append(rec)
+            waves.append(pod_digests(store))
+    finally:
+        GK.window_verdict = verdict
+    events = [(e["metadata"]["name"], e["reason"], e["message"], e["type"])
+              for e in store.list("events", copy_objects=False)]
+    return records, total, (waves, digest(json.dumps(sorted(events)))), store, svc
+
+
+def probe(device, dt) -> dict:
+    """Part A's probe through a BatchEngine and a SchedulerService on
+    ``device`` in ``dt``: the node, the filter document, the promotion."""
+    from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    eng = BatchEngine(filters=["NodeResourcesFit"], scores=[("NodeResourcesFit", 1)], device=device, trace=True,
+                      dtype=dt)
+    res = eng.schedule([PROBE_NODE], [PROBE_POD], [PROBE_POD])
+    store = ClusterStore(clock=lambda: 0.0)
+    store.create("nodes", json.loads(json.dumps(PROBE_NODE)))
+    store.create("pods", json.loads(json.dumps(PROBE_POD)))
+    svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=device, dtype=dt)
+    svc.start_scheduler(None)
+    svc.schedule_pending(max_rounds=1)
+    pod = store.get("pods", "p0")
+    return dict(
+        selected=res.selected_nodes[0], filter=res.filter_annotation_json(0), promotion=eng.last_promotion,
+        promoted=eng.last_timings["promoted_f64"], round_dtype=str(eng.round_dtype),
+        service_node=(pod.get("spec") or {}).get("nodeName"), service_promotions=dict(svc.stats["f64_promotions"]),
+        service_annotations=digest(json.dumps(pod["metadata"].get("annotations"), sort_keys=True)),
+        service_batch_pods=svc.stats["batch_pods"],
+    )
+
+
+def headroom(bound) -> dict:
+    """A round's exactness bound and how far below float32's 2^24 it is."""
+    col, worst = bound
+    return {"column": col, "magnitude_x100": worst, "headroom": (1 << 24) / worst if worst else None}
+
+
+def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
+    """Phases 15-19: K6 and K7 against their plain versions on seeded
+    problems, cfg8-gang on the card, the kernels timed at that path's
+    shapes (K6 at its first dispatch, K7 and K5 through group_preview), the
+    CUDA against CPU float64 services on the two cuts (the CPU side from
+    ``cpu_gang_refs``, pool results), and Part A's probe on the card.
+    Returns (K6's timing, K7's timing, the cfg8-gang launches)."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.gang import engine as GE
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.preemption import kernel as PK
+
+    with Phase(f"K6 and K7 kernel vs plain, seeded: K6 {K6_SEEDED}; K7 {K7_SEEDED} in float32 and float64"):
+        err = 0.0
+        for c, (k6, g6, n6, d6) in enumerate(K6_SEEDED):
+            args = seeded_verdict(k6, g6, n6, d6, dev, seed=200 + c)
+            got, want = K.gang_verdict(*args), GK.verdict_plain(*args)
+            for nm, a, b in zip(("feasible", "distinct", "placed"), got, want):
+                err = max(err, same(f"K6 K={k6} G={g6} N={n6} D={d6} {nm}", a, b))
+            log(f"K6 K={k6} G={g6} N={n6} D={d6}: bitwise equal; feasible {int(got[0].sum())}/{g6}, "
+                f"distinct max {int(got[1].max())}, placed {int(got[2].sum())}")
+        for c, (g7, m7, n7, d7) in enumerate(K7_SEEDED):
+            for dt in (torch.float32, torch.float64):
+                args = seeded_feasibility(g7, m7, n7, 2, d7, dt, dev, seed=300 + c)
+                got, want = K.gang_feasibility(*args), GK.feasibility_plain(*args)
+                for nm, a, b in zip(("feasible", "distinct", "assignment"), got, want):
+                    err = max(err, same(f"K7 G={g7} M={m7} N={n7} D={d7} {dt} {nm}", a, b))
+                smem = (n7 * 3) * (4 if dt == torch.float32 else 8) + d7 <= K.GANG_SMEM_BYTES
+                log(f"K7 G={g7} M={m7} N={n7} D={d7} {str(dt).split('.')[-1]} ({'shared' if smem else 'global'} "
+                    f"table): bitwise equal; feasible {int(got[0].sum())}/{g7}, placed {int((got[2] >= 0).sum())}")
+        args = seeded_feasibility(32, 16, 12000, 2, 12000, torch.float64, dev, seed=303)
+        k7_seeded_ms, kout = cuda_ms(lambda: K.gang_feasibility(*args), 5, warmup=1)
+        k7_seeded_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*args), 1, warmup=0)
+        args = seeded_feasibility(256, 64, 5000, 2, 8, torch.float32, dev, seed=301)
+        k7_big_ms, kout = cuda_ms(lambda: K.gang_feasibility(*args), 5, warmup=1)
+        k7_big_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*args), 1, warmup=0)
+        k7_big_bound, k7_big_by = bound(feasibility_counts(args, kout), torch.float32)
+        log(f"timing K7 G=256 M=64 N=5000 D=8 float32: kernel {k7_big_ms:.3f} ms, plain {k7_big_plain_ms:.3f} ms, "
+            f"bound {k7_big_bound:.5f} ms ({k7_big_by}); G=32 M=16 N=12000 float64 (global table): kernel "
+            f"{k7_seeded_ms:.3f} ms, plain {k7_seeded_plain_ms:.3f} ms")
+
+    captured: dict = {}
+    with Phase(f"cfg8-gang {GANG}: service on the card, float32"):
+        grec, glaunch, _dig, gstore, gsvc = run_gang(GANG, DEVICE, torch.float32, capture=captured)
+        keys = ("wall_s", "encode_s", "device_s", "commit_s", "gang_kernel_s")
+        med = {k: float(np.median([r[k] for r in grec])) for k in keys}
+        st = gsvc.stats
+        log(f"cfg8-gang float32: launches over {len(grec)} waves {glaunch}; medians {json.dumps(med)}; "
+            f"released {st['gang_released_groups']} groups / {st['gang_released_pods']} pods, parked "
+            f"{st['gang_parked']}, dispatches {st['gang_kernel_dispatches']}, preempt fallbacks "
+            f"{st['preempt_fallbacks']}, promotions {st['f64_promotions']}")
+        if st["f64_promotions"]:
+            raise AssertionError(f"cfg8-gang float32 was promoted: {st['f64_promotions']}")
+        if "args" not in captured or glaunch["gang_verdict"] < 1:
+            raise AssertionError("cfg8-gang launched no window verdict")
+
+    with Phase("timings: K6 at cfg8-gang's first dispatch; group_preview at its final state (K7, K5)"):
+        cargs = captured["args"]
+        shape6 = f"K={cargs[0].shape[0]} G={cargs[2].shape[0]} N={cargs[2].shape[1]} D={cargs[5]}"
+        got, want = K.gang_verdict(*cargs), GK.verdict_plain(*cargs)
+        for nm, a, b in zip(("feasible", "distinct", "placed"), got, want):
+            err = max(err, same(f"K6 first dispatch {nm}", a, b))
+        k6_ms, kout6 = cuda_ms(lambda: K.gang_verdict(*cargs), 50, warmup=5)
+        k6_plain_ms, _p = cuda_ms(lambda: GK.verdict_plain(*cargs), 5, warmup=1)
+        k6b, k6by = bound(verdict_counts(cargs, kout6), torch.int32)
+        k6_t = dict(ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6b, bound_by=k6by, library_ms=None, err=err,
+                    shape=shape6)
+        log(f"timing K6 {shape6}: {json.dumps(k6_t)}")
+        # the preview: one feasible group (32 one-CPU members) and one too
+        # large for any node (4 members of 100 CPU at priority 100, so the
+        # victim search runs too)
+        from kube_scheduler_simulator_tpu_torch.gang.scenario import make_member
+
+        gstore.create("podgroups", {"metadata": {"name": "preview-ok"}, "spec": {"minMember": 32}})
+        for m in range(32):
+            gstore.create("pods", make_member(f"preview-ok-m{m}", "preview-ok"))
+        gstore.create("podgroups", {"metadata": {"name": "preview-big"}, "spec": {"minMember": 4}})
+        for m in range(4):
+            big = make_member(f"preview-big-m{m}", "preview-big", cpu="100")
+            big["spec"]["priority"] = 100
+            gstore.create("pods", big)
+        fcap: dict = {}
+        scap: dict = {}
+        feas, search = GK.feasibility, PK.search
+
+        def keep_f(*a):
+            fcap.setdefault("args", tuple(x.clone() if hasattr(x, "clone") else x for x in a))
+            return feas(*a)
+
+        def keep_s(*a):
+            scap.setdefault("args", tuple(x.clone() for x in a))
+            return search(*a)
+
+        GK.feasibility, PK.search = keep_f, keep_s
+        try:
+            K.reset_counts()
+            t0 = time.perf_counter()
+            ok = GE.group_preview(gstore, gstore.get("podgroups", "preview-ok"), device=DEVICE)
+            big = GE.group_preview(gstore, gstore.get("podgroups", "preview-big"), device=DEVICE)
+            preview_s = time.perf_counter() - t0
+            preview_launches = dict(K.LAUNCHES)
+        finally:
+            GK.feasibility, PK.search = feas, search
+        log(f"group_preview x2 in {preview_s:.4f} s, launches {preview_launches}: feasible group -> feasible "
+            f"{ok['feasible']}, {ok['distinctTopologyDomains']} domains, {sum(v is not None for v in ok['assignment'].values())} "
+            f"assigned; large group -> feasible {big['feasible']}, victim preview {big.get('victimPreview')}")
+        if not ok["feasible"] or big["feasible"] or "victimPreview" not in big:
+            raise AssertionError("group_preview: the small group must be feasible, the large one not (with a victim preview)")
+        if preview_launches["gang_feasibility"] != 2 or preview_launches["preempt"] < 1:
+            raise AssertionError(f"group_preview did not launch K7 twice and K5: {preview_launches}")
+        fargs = fcap["args"]
+        got, want = K.gang_feasibility(*fargs), GK.feasibility_plain(*fargs)
+        for nm, a, b in zip(("feasible", "distinct", "assignment"), got, want):
+            err = max(err, same(f"K7 preview {nm}", a, b))
+        k7_ms, kout7 = cuda_ms(lambda: K.gang_feasibility(*fargs), 50, warmup=5)
+        k7_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*fargs), 5, warmup=1)
+        k7b, k7by = bound(feasibility_counts(fargs, kout7), fargs[2].dtype)
+        shape7 = f"G={fargs[0].shape[0]} M={fargs[0].shape[1]} N={fargs[2].shape[0]} R={fargs[2].shape[1]} D={fargs[5]}"
+        k7_t = dict(ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=k7b, bound_by=k7by, library_ms=None, err=err,
+                    shape=shape7, launches=preview_launches["gang_feasibility"],
+                    seeded_256x64x5000_ms=k7_big_ms, seeded_256x64x5000_plain_ms=k7_big_plain_ms,
+                    seeded_256x64x5000_bound_ms=k7_big_bound)
+        log(f"timing K7 {shape7} (the preview's first group): {json.dumps(k7_t)}")
+        sargs = scap["args"]
+        for dt in (torch.float32, torch.float64):
+            a = as_dtype(sargs, dt)
+            for nm, x, y in zip(("cand", "victims", "viol"), K.preempt(*a), PK.preempt_plain(*a)):
+                same(f"K5 preview {dt} {nm}", x, y)
+        log(f"K5 at the preview's dispatch (U={sargs[0].shape[0]} N={sargs[0].shape[1]} V={sargs[13].shape[1]}): "
+            f"bitwise equal in float32 and float64")
+
+    for cut, spec in GANG_CUTS.items():
+        with Phase(f"cfg8-gang {cut} cut {spec}: CUDA float64 service vs CPU float64 service"):
+            crec, _l, (dig_g, ev_g), _s, gsvc64 = run_gang(spec, DEVICE, torch.float64, echo=False,
+                                                          small_nodes=cut == "cascade", strict=cut != "cascade")
+            t0 = time.perf_counter()
+            cpu_rec, (dig_c, ev_c) = cpu_gang_refs[cut].get()
+            log(f"CPU float64 service (worker process) waited for {time.perf_counter() - t0:.2f} s")
+            for r_g, r_c in zip(crec, cpu_rec):
+                log(f"{cut} wave {r_g['wave']}: cuda parked {r_g['gang_parked']} released {r_g['gang_released_groups']} "
+                    f"sequential {r_g['sequential_pods']} unbound {r_g['unbound']} | cpu parked {r_c['gang_parked']} "
+                    f"released {r_c['gang_released_groups']} sequential {r_c['sequential_pods']} unbound {r_c['unbound']}")
+            for w, (wg, wc) in enumerate(zip(dig_g, dig_c, strict=True)):
+                if wg.keys() != wc.keys():
+                    raise AssertionError(f"{cut} wave {w}: the CUDA and CPU services hold different pods")
+                bad = [n for n in wc if wg[n] != wc[n]]
+                if bad:
+                    raise AssertionError(f"{cut} wave {w}: {len(bad)} pods differ between the CUDA and CPU services, "
+                                         f"first {bad[:3]}")
+            if ev_g != ev_c:
+                raise AssertionError(f"{cut}: the CUDA and CPU services recorded different events")
+            if gsvc64.stats["gang_kernel_dispatches"] < 1:
+                raise AssertionError(f"{cut}: no window verdict dispatched")
+            if cut == "cascade" and not any(r["sequential_pods"] for r in crec):
+                raise AssertionError("cascade cut: no member failed the kernel (nothing cascaded)")
+            log(f"{cut}: after every wave ({[len(d) for d in dig_c]} pods) node, annotations and status "
+                f"byte-identical, events equal, no partially bound group")
+
+    with Phase("Part A's probe on the card: float32 against float64"):
+        r32, r64 = probe(DEVICE, torch.float32), probe(DEVICE, torch.float64)
+        log(f"float32: {json.dumps(r32, sort_keys=True)}")
+        log(f"float64: {json.dumps(r64, sort_keys=True)}")
+        problems = []
+        if r32["selected"] is not None or r32["service_node"] is not None:
+            problems.append("the pod was placed")
+        if "Insufficient memory" not in r32["filter"] or r32["filter"] != r64["filter"]:
+            problems.append("the filter documents differ or miss Insufficient memory")
+        if r32["service_annotations"] != r64["service_annotations"]:
+            problems.append("the service's annotations differ between float32 and float64")
+        if r32["promoted"] != 1.0 or r32["promotion"] is None or sum(r32["service_promotions"].values()) != 1:
+            problems.append("float32 did not count exactly one promotion")
+        if r64["promotion"] is not None or r64["service_promotions"]:
+            problems.append("float64 counted a promotion")
+        if problems:
+            raise AssertionError(f"Part A probe: {'; '.join(problems)}")
+    return k6_t, k7_t, glaunch
+
+
 # ------------------------------------------ CPU references, in workers
 
 def cpu_worker_init() -> None:
@@ -794,6 +1236,17 @@ def cpu_preempt(spec) -> "tuple[dict, dict]":
 
     rec, digests, _names = run_preempt(spec, "cpu", torch.float64, max_rounds=2)
     return rec, digests
+
+
+def cpu_gang(cut: str) -> "tuple[list, tuple]":
+    """A cfg8-gang cut through a CPU float64 service: (per-wave records,
+    (the pod digests after each wave, the events' digest))."""
+    import torch
+
+    records, _total, digests, _store, _svc = run_gang(
+        GANG_CUTS[cut], "cpu", torch.float64, echo=False, small_nodes=cut == "cascade", strict=cut != "cascade",
+    )
+    return records, digests
 
 
 _POOL = None  # the worker pool, stopped on the way out of the script
@@ -842,6 +1295,7 @@ def main() -> int:
     cpu_refs = {name: _POOL.apply_async(cpu_round, (name, cut)) for name, cut in ANNOTATION_CHECKS}
     cpu_churn_ref = _POOL.apply_async(cpu_churn, (CHURN_CUT,))
     cpu_preempt_ref = _POOL.apply_async(cpu_preempt, (PREEMPT_CUT,))
+    cpu_gang_refs = {cut: _POOL.apply_async(cpu_gang, (cut,)) for cut in GANG_CUTS}
 
     clusters = {}
     timing: dict = {}
@@ -1001,8 +1455,11 @@ def main() -> int:
                 wall = time.perf_counter() - t0
                 launches = dict(K.LAUNCHES)
                 # a fresh engine's placer uploads every plane: no scatter
-                if launches != {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0}:
+                if launches != dict(ROUND_LAUNCHES):
                     raise AssertionError(f"the round did not launch scan and compaction once each: {launches}")
+                if eng.last_promotion is not None:
+                    raise AssertionError(f"{name} {dt}: promoted to float64 ({eng.last_promotion})")
+                log(f"exactness bound: {json.dumps(headroom(eng.last_bound))}")
                 if name == MAIN and dt == torch.float32:
                     main_launches = launches
                 sel = res.selected[:P]  # rows past P are shape padding
@@ -1026,7 +1483,7 @@ def main() -> int:
                 gpu = engine(name, torch.float64).schedule(
                     nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start, volumes=vols,
                 )
-                assert K.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0}, K.LAUNCHES
+                assert K.LAUNCHES == dict(ROUND_LAUNCHES), K.LAUNCHES
             gsel, gdocs = round_documents(gpu, P)
             t0 = time.perf_counter()
             csel, cdocs = cpu_refs[name].get()
@@ -1254,6 +1711,9 @@ def main() -> int:
     # ------------------------------------------- victim search (K5)
     prec, k5_t = preempt_phases(dev, cpu_preempt_ref)
 
+    # ------------------------------------------- gang (K6, K7)
+    k6_t, k7_t, gang_launches = gang_phases(dev, cpu_gang_refs)
+
     ref = MAIN
     main = timing[(ref, torch.float32)]
     churn_shape = f"cfg5-churn: window of {WINDOW} of P={churn_pr.P} N={churn_pr.N}"
@@ -1329,6 +1789,34 @@ def main() -> int:
             "bound_by": k5_t["bound_by"],
             "library_ms": None,
             "shape": f"cfg7-preempt-5k first dispatch: {k5_t['shape']}",
+        },
+        {
+            "name": "gang_verdict",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/gang.cu",
+            "replaces": "kube_scheduler_simulator_tpu/gang/kernel.py:43",
+            "launches": gang_launches["gang_verdict"],
+            "max_abs_err": k6_t["err"],
+            "ms": k6_t["ms"],
+            "plain_ms": k6_t["plain_ms"],
+            "bound_ms": k6_t["bound_ms"],
+            "bound_by": k6_t["bound_by"],
+            "library_ms": None,
+            "shape": f"cfg8-gang first dispatch: {k6_t['shape']}",
+        },
+        {
+            "name": "gang_feasibility",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/gang.cu",
+            "replaces": "kube_scheduler_simulator_tpu/gang/kernel.py:108",
+            "launches": k7_t["launches"],
+            "max_abs_err": k7_t["err"],
+            "ms": k7_t["ms"],
+            "plain_ms": k7_t["plain_ms"],
+            "bound_ms": k7_t["bound_ms"],
+            "bound_by": k7_t["bound_by"],
+            "library_ms": None,
+            "shape": f"group_preview at cfg8-gang's final state: {k7_t['shape']}",
         },
     ]
     for k in kernels:

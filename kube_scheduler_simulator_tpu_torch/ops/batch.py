@@ -489,6 +489,66 @@ def lower_host(pr: BatchProblem, dtype: torch.dtype) -> "tuple[dict, dict]":
     return host, dims
 
 
+# exact integers in each working dtype: 2^24 in float32, 2^53 in float64
+EXACT_LIMIT = {torch.float32: 1 << 24, torch.float64: 1 << 53}
+
+
+def exactness_bound(pr: BatchProblem) -> "tuple[str, int]":
+    """(the column, its largest magnitude) of the resource values a round
+    forms in floating point, after GCD scaling, times MAX_NODE_SCORE.
+
+    Per Fit column r: max(requested0, alloc) + the largest pending request;
+    per non-zero column (cpu, memory): max(nonzero0, nz_alloc) + the largest
+    pending non-zero request.  When that times MAX_NODE_SCORE stays below
+    the dtype's limit, every value the round needs is exact:
+
+    - the allocatables and every request are exact integers, and so is a
+      sum of them up to the limit;
+    - a carry only grows.  Once a running sum passes an allocatable ``a``
+      it stays above ``a`` even when it rounds (rounding is monotone and
+      ``a`` is representable), so every compare against ``a`` still
+      answers right; a sum at or below ``a`` was formed exactly;
+    - the score products ``req * 100`` and ``(a - req) * 100`` are taken
+      where ``req <= a`` (a fitting node), so they stay below the limit;
+    - ``_floordiv``'s divisor ``a`` is below limit / 100, so its correctly
+      rounded quotient (a value below 128) is off by less than the gap from
+      a non-integer quotient ``x / a`` to the next integer (at least
+      ``1 / a``), and the floor lands where the integer floor does.
+
+    Pod counts, per-domain pod counts and domain ids are counts of objects,
+    far below 2^24 at any cluster the service holds; they are not checked."""
+    def colmax(a: np.ndarray) -> np.ndarray:
+        a = np.abs(np.asarray(a, dtype=np.int64))
+        return a.max(axis=0) if a.shape[0] else np.zeros(a.shape[1:], dtype=np.int64)
+
+    worst = ("none", 0)
+    cols = [
+        (f"resource {name}", np.maximum(colmax(pr.requested0), colmax(pr.alloc)) + colmax(pr.pod_req), r)
+        for r, name in enumerate(pr.resource_names)
+    ] + [
+        (f"non-zero {name}", np.maximum(colmax(pr.nonzero0), colmax(pr.nz_alloc)) + colmax(pr.pod_nonzero), c)
+        for c, name in enumerate(("cpu", "memory"))
+    ]
+    for name, mag, j in cols:
+        v = int(mag[j]) * int(MAX_NODE_SCORE)
+        if v > worst[1]:
+            worst = (name, v)
+    return worst
+
+
+def round_dtype(bound: "tuple[str, int]", dtype: torch.dtype) -> "tuple[torch.dtype, str | None]":
+    """The dtype a round runs in, given its ``exactness_bound``: ``dtype``
+    when its values stay exact there, else float64 with the reason (the
+    column and its magnitude).  Raises ``ValueError`` when not even float64
+    holds them: a round never runs inexact."""
+    col, worst = bound
+    if worst < EXACT_LIMIT[dtype]:
+        return dtype, None
+    if worst >= EXACT_LIMIT[torch.float64]:
+        raise ValueError(f"{col}: scaled magnitude x {int(MAX_NODE_SCORE)} = {worst} is beyond exact float64 integers")
+    return torch.float64, f"{col}: scaled magnitude x {int(MAX_NODE_SCORE)} = {worst} >= 2^24"
+
+
 # --------------------------------------------------------------- primitives
 
 def _den(a: torch.Tensor, b) -> torch.Tensor:

@@ -21,6 +21,12 @@ counters and the wrappers.
               all of them removed, PDB violations by budget rank and the
               greedy reprieve (preemption/kernel.py holds its plain
               version).
+- ``gang``    (csrc/gang.cu) — the gang round's per-window verdict (K6:
+              placed and failed members per group by integer atomics, the
+              quorum test, distinct domains by a bitmap popcount) and the
+              PodGroup feasibility scan (K7: one block a group, a greedy
+              slot loop with a block argmax); gang/kernel.py holds their
+              plain versions.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``csrc/build/`` keyed by a hash
@@ -64,14 +70,16 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = {"scan": "scan.cu", "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu"}
+SOURCES = {
+    "scan": "scan.cu", "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu", "gang": "gang.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"scan": 0, "compact": 0, "scatter": 0, "preempt": 0}
+LAUNCHES = {"scan": 0, "compact": 0, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
 
 # the struct capacities of csrc/*.cu
 MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 16, 8, 4, 16, 16, 8, 16
@@ -79,6 +87,10 @@ MAXR_PREEMPT = 16  # resource columns of a victim-search lane (csrc/preempt.cu)
 # bytes of shared memory the scan may take for PodTopologySpread's domain
 # sums; larger domain arrays go to per-block global scratch
 DOM_SMEM_BYTES = 8192
+# bytes of shared memory a feasibility-scan block may take for its group's
+# free table, pod budgets and domain flags (of the 227 KB an H100 block can
+# have); larger tables go to a per-group slice of global scratch
+GANG_SMEM_BYTES = 200 * 1024
 _FILTER_IDS = {
     "NodeUnschedulable": 0,
     "NodeName": 1,
@@ -206,6 +218,22 @@ class PreemptArgs(ctypes.Structure):
     ]
 
 
+class GangVerdictArgs(ctypes.Structure):
+    _fields_ = [(n, _i64) for n in ("K", "G", "N", "D", "W")] + [
+        (n, _ptr) for n in (
+            "gid", "node", "dom", "prior_bound", "min_member", "nfail", "used", "feasible", "distinct", "placed",
+        )
+    ]
+
+
+class GangFeasArgs(ctypes.Structure):
+    _fields_ = [(n, _i64) for n in ("G", "M", "N", "R", "D", "smem")] + [
+        (n, _ptr) for n in (
+            "req", "valid", "free", "cnt_free", "dom", "scratch", "used_scratch", "feasible", "distinct", "assignment",
+        )
+    ]
+
+
 _LIBS: "dict[str, ctypes.CDLL]" = {}
 build_seconds = 0.0
 
@@ -250,6 +278,8 @@ def build() -> "dict[str, ctypes.CDLL]":
         lib = ctypes.CDLL(str(_lib_path(CSRC / fn)))
         if name == "scatter":
             entries = {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]}
+        elif name == "gang":
+            entries = {f"kss_gang_{e}": [_ptr, _ptr] for e in ("verdict", "feasibility_f32", "feasibility_f64")}
         else:
             args = [_ptr, _i64, _ptr] if name == "scan" else [_ptr, _ptr]
             entries = {f"kss_{name}_f32": args, f"kss_{name}_f64": args}
@@ -628,3 +658,77 @@ def preempt(
     _raise_on(rc, "preempt")
     LAUNCHES["preempt"] += 1
     return cand, victims, viol
+
+
+def gang_verdict(gid, node, dom, prior_bound, min_member, D: int):
+    """Launch the window verdict (K6) on int32 tensors on the card; returns
+    (feasible [G] bool, distinct [G] int32, placed [G] int32), as
+    gang/kernel.verdict_plain (whose docstring gives the shapes).  Every
+    member's node must be below N and every domain id below ``D``."""
+    K = gid.shape[0]
+    G, N = dom.shape
+    want = dict(gid=(gid, (K,)), node=(node, (K,)), dom=(dom, (G, N)), prior_bound=(prior_bound, (G,)),
+                min_member=(min_member, (G,)))
+    a = GangVerdictArgs()
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the verdict wants {shape}")
+        setattr(a, name, _check(t, name, torch.int32))
+    D = max(int(D), 1)
+    W = (D + 31) // 32
+    dev = dom.device
+    nfail = torch.empty(G, dtype=torch.int32, device=dev)
+    used = torch.empty(G * W, dtype=torch.int32, device=dev)
+    feasible = torch.empty(G, dtype=torch.bool, device=dev)
+    distinct = torch.empty(G, dtype=torch.int32, device=dev)
+    placed = torch.empty(G, dtype=torch.int32, device=dev)
+    a.K, a.G, a.N, a.D, a.W = K, G, N, D, W
+    a.nfail, a.used = nfail.data_ptr(), used.data_ptr()
+    a.feasible, a.distinct, a.placed = feasible.data_ptr(), distinct.data_ptr(), placed.data_ptr()
+    if G == 0:
+        return feasible, distinct, placed
+    rc = build()["gang"].kss_gang_verdict(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "gang verdict")
+    LAUNCHES["gang_verdict"] += 1
+    return feasible, distinct, placed
+
+
+def gang_feasibility(req, valid, free, cnt_free, dom, D: int):
+    """Launch the all-or-nothing feasibility scan (K7) on tensors on the
+    card; returns (feasible [G] bool, distinct [G] int32, assignment [G,M]
+    int32), as gang/kernel.feasibility_plain (whose docstring gives the
+    shapes).  Every domain id must be below ``D``."""
+    G, M, R = req.shape
+    N = free.shape[0]
+    dt = free.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"the feasibility scan takes float32 or float64 capacities, got {dt}")
+    want = dict(
+        req=(req, (G, M, R), dt), valid=(valid, (G, M), torch.bool), free=(free, (N, R), dt),
+        cnt_free=(cnt_free, (N,), dt), dom=(dom, (G, N), torch.int32),
+    )
+    a = GangFeasArgs()
+    for name, (t, shape, tdt) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the scan wants {shape}")
+        setattr(a, name, _check(t, name, tdt))
+    D = max(int(D), 1)
+    dev = free.device
+    smem = (N * R + N) * free.element_size() + D <= GANG_SMEM_BYTES
+    scratch = used_scratch = None
+    if not smem:
+        scratch = torch.empty(G * (N * R + N), dtype=dt, device=dev)
+        used_scratch = torch.empty(G * D, dtype=torch.uint8, device=dev)
+        a.scratch, a.used_scratch = scratch.data_ptr(), used_scratch.data_ptr()
+    feasible = torch.empty(G, dtype=torch.bool, device=dev)
+    distinct = torch.empty(G, dtype=torch.int32, device=dev)
+    assignment = torch.empty((G, M), dtype=torch.int32, device=dev)
+    a.G, a.M, a.N, a.R, a.D, a.smem = G, M, N, R, D, int(smem)
+    a.feasible, a.distinct, a.assignment = feasible.data_ptr(), distinct.data_ptr(), assignment.data_ptr()
+    if G == 0:
+        return feasible, distinct, assignment
+    fn = getattr(build()["gang"], f"kss_gang_feasibility_{'f32' if dt == torch.float32 else 'f64'}")
+    rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "gang feasibility")
+    LAUNCHES["gang_feasibility"] += 1
+    return feasible, distinct, assignment

@@ -3,8 +3,8 @@
 Each plugin implements the per-pod Python protocol from models.framework
 (exact upstream messages and integer math — the parity oracle of the
 sequential cycle); the batch engine computes the same plugins in the
-scan kernel (``ops``).  The registry leaves out the reference's
-Coscheduling (its gang engine is not ported).
+scan kernel (``ops``).  The registry also holds the reference's
+Coscheduling gang oracle (``gang/plugin.py``), enabled by name.
 """
 
 from kube_scheduler_simulator_tpu_torch.plugins.intree.registry import (

@@ -43,6 +43,11 @@ from kube_scheduler_simulator_tpu_torch.plugins.intree.volumes import (
     VolumeZone,
 )
 
+# The gang oracle (gang/plugin.py) registers like the sigs
+# scheduler-plugins build registers coscheduling: available by name for
+# profiles that enable it, NOT part of the default MultiPoint set.
+from kube_scheduler_simulator_tpu_torch.gang.plugin import Coscheduling
+
 Obj = dict[str, Any]
 PluginFactory = Callable[["Obj | None", Any], Any]
 
@@ -115,6 +120,7 @@ _REGISTRY: dict[str, PluginFactory] = {
     "NodeResourcesBalancedAllocation": _args_only(NodeResourcesBalancedAllocation),
     "ImageLocality": _args_handle(ImageLocality),
     "DefaultBinder": _args_handle(DefaultBinder),
+    "Coscheduling": _args_handle(Coscheduling),
 }
 
 

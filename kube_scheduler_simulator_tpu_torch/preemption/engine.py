@@ -259,7 +259,8 @@ def prepare_round(
     """Build the round context, or (None, reason) when the batched search
     can't be exact for this profile × cluster (per-POD gates are softer:
     they fall back pod by pod inside ``decide``).  The search runs on the
-    engine's device in its dtype."""
+    engine's device in the dtype of the engine's current round (float64
+    when the round was promoted)."""
     post = [wp.original.name for wp in fw.plugins["post_filter"]]
     if post != ["DefaultPreemption"]:
         return None, f"post-filter plugins {post} have no batch kernel"
@@ -299,7 +300,8 @@ def prepare_round(
     return (
         PreemptionRound(
             pr, tail, fit_k, ureq_all, uprio_all, reasons, len(nis),
-            device=getattr(eng, "device", None), dtype=getattr(eng, "dtype", None),
+            device=getattr(eng, "device", None),
+            dtype=getattr(eng, "round_dtype", None) or getattr(eng, "dtype", None),
         ),
         None,
     )

@@ -432,7 +432,10 @@ class BatchEngine:
     ):
         """``device``: the card unless the caller passes ``"cpu"`` (where the
         plain versions stand in for the kernels); a missing card raises.
-        ``dtype``: float32 on the card, float64 on the CPU unless given.
+        ``dtype``: float32 on the card, float64 on the CPU unless given; a
+        round whose scaled resource values would go inexact in it runs in
+        float64 (``round_dtype``, ``last_promotion``, and
+        ``last_timings["promoted_f64"]``).
         ``hard_pod_affinity_weight``: InterPodAffinity's
         hardPodAffinityWeight argument (upstream default 1);
         ``added_affinity``: NodeAffinity's addedAffinity argument."""
@@ -461,6 +464,12 @@ class BatchEngine:
         self._raw_dtypes: dict[int, str] = {}
         self.last_timings: dict[str, float] = {}
         self.cum_timings: dict[str, float] = {}
+        # the last round's exactness bound (column, magnitude), its working
+        # dtype and, when the bound promoted it to float64, why
+        # (ops/batch.exactness_bound, round_dtype)
+        self.last_bound: "tuple[str, int]" = ("none", 0)
+        self.round_dtype = self.dtype
+        self.last_promotion: "str | None" = None
         self.profiler = WaveProfiler()
         # set by from_framework: config aspects the kernels cannot honor,
         # the framework, and the store the volume kinds are listed from
@@ -509,17 +518,20 @@ class BatchEngine:
             elif o.name == "NodeAffinity":
                 added = getattr(o, "added_affinity", None)
         # the batch pass replays the default cycle around the kernels:
-        # PrioritySort queue, no permit plugins, DefaultBinder, and
-        # reserve/preBind limited to VolumeBinding
+        # PrioritySort queue, DefaultBinder, reserve/preBind limited to
+        # VolumeBinding (plus Coscheduling's no-op Reserve), and no permit
+        # plugin but the Coscheduling gang oracle, whose decisions the gang
+        # round (gang/engine.py) parks and releases; any other permit plugin
+        # keeps the round sequential
         point_names = {
             p: [wp.original.name for wp in framework.plugins[p]]
             for p in ("reserve", "permit", "pre_bind", "bind")
         }
-        if point_names["permit"]:
+        if point_names["permit"] and point_names["permit"] != ["Coscheduling"]:
             unsupported = unsupported or f"permit plugins {point_names['permit']}"
         if point_names["bind"] != ["DefaultBinder"]:
             unsupported = unsupported or f"bind plugins {point_names['bind']}"
-        if not set(point_names["reserve"]) <= {"VolumeBinding"}:
+        if not set(point_names["reserve"]) <= {"VolumeBinding", "Coscheduling"}:
             unsupported = unsupported or f"reserve plugins {point_names['reserve']}"
         if not set(point_names["pre_bind"]) <= {"VolumeBinding"}:
             unsupported = unsupported or f"preBind plugins {point_names['pre_bind']}"
@@ -654,7 +666,11 @@ class BatchEngine:
         )
         pr = E.pad_problem(self.encode_cache.encode(nodes, all_pods, pending, namespaces, **kw))
         t1 = time.perf_counter()
-        host, dims = B.lower_host(pr, self.dtype)
+        # a round whose resource values would go inexact in the engine's
+        # dtype runs in float64, on the same device and kernels
+        self.last_bound = B.exactness_bound(pr)
+        self.round_dtype, self.last_promotion = B.round_dtype(self.last_bound, self.dtype)
+        host, dims = B.lower_host(pr, self.round_dtype)
         sample_k = num_feasible_nodes_to_find(len(nodes), self.percentage_of_nodes_to_score)
         host.update(
             tb_base=base_counter & B.MASK32,
@@ -666,7 +682,9 @@ class BatchEngine:
         ws0 = B.pick_ws0(self.cfg, dims, sample_k, len(nodes))
         tl = time.perf_counter()
         prof.note(rec, "encode", tl - t0)
-        dp = self._placer.place(host, tuple(sorted(dims.items())), self.device)
+        # planes are resident per (dtype, shape): a float64 round never
+        # reuses float32 planes, nor the reverse
+        dp = self._placer.place(host, (str(self.round_dtype), tuple(sorted(dims.items()))), self.device)
         prof.note(rec, "upload", time.perf_counter() - tl)
         return dict(pr=pr, dp=dp, dims=dims, ws0=ws0, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec)
 
@@ -813,6 +831,7 @@ class BatchEngine:
             self._note_round(
                 {
                     "encode_s": ctx["t1"] - ctx["t0"],
+                    "promoted_f64": float(self.last_promotion is not None),
                     "lower_s": t2 - ctx["t1"],
                     # blocked device wait: the device time the host paid
                     "device_s": dev_wait,
@@ -850,6 +869,7 @@ class BatchEngine:
         self._note_round(
             {
                 "encode_s": ctx["t1"] - ctx["t0"],
+                "promoted_f64": float(self.last_promotion is not None),
                 "lower_s": t2 - ctx["t1"],
                 "device_s": t3 - t2,
                 "total_s": t3 - ctx["t0"],

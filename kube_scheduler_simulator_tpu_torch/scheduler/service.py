@@ -23,14 +23,28 @@ ports, volumes, required spread or pod (anti-)affinity; a cluster with
 required anti-affinity; another PostFilter) take the exact sequential
 cycle, counted by reason in ``stats["preempt_fallbacks"]``.
 
+A profile whose permit point is exactly the Coscheduling gang oracle (the
+gang profile, ``gang.gang_scheduler_config()``) stays on the batch round
+too: the round's gang context (gang/engine.py) parks each kernel-placed
+member at Permit, the member completing its group's quorum commits the
+whole gang in one transaction, and each replay window makes ONE gang-verdict
+dispatch (K6, csrc/gang.cu on the card) whose answer is checked against
+host arithmetic (``stats["gang_verdict_mismatch"]`` stays 0).  Gate
+failures, ``KSS_GANG_BATCH=0`` and any other permit plugin take the
+sequential round, counted by reason.  Parked pods hold their reservations
+(the snapshot and the encoder see them on their nodes) until released,
+rejected or expired (``process_waiting_pods``).
+
+A round whose resource values would go inexact in float32 runs in float64
+on the card (ops/batch.round_dtype), counted by reason in
+``stats["f64_promotions"]``.
+
 Refused with an error, never worked around: ``autoscale`` other than
 "off", a mesh, ``weights=``, extenders (preempt-verb ones included),
-``Coscheduling`` or any other permit plugin, ``schedule_stream``.  Left
-out: the journal, the background loop, ``metrics()``, the restart and reset
-of a running configuration, the Permit wait machinery (no pod is ever
-parked: permit plugins are refused) and the chaos catch of the reference (a
-kernel or launch error propagates: finishing the round on the Python cycle
-would hide the kernel).
+``schedule_stream``.  Left out: the journal, the background loop,
+``metrics()``, the restart and reset of a running configuration, and the
+chaos catch of the reference (a kernel or launch error propagates:
+finishing the round on the Python cycle would hide the kernel).
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ import torch
 
 from kube_scheduler_simulator_tpu_torch.config import scheduler_config as sc
 from kube_scheduler_simulator_tpu_torch.device import resolve_device
+from kube_scheduler_simulator_tpu_torch.gang import prepare_round as gang_prepare
 from kube_scheduler_simulator_tpu_torch.models.snapshot import Snapshot, has_pending_nomination
 from kube_scheduler_simulator_tpu_torch.models.wrapped import WrappedPlugin, original_name
 from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
@@ -64,9 +79,6 @@ from kube_scheduler_simulator_tpu_torch.state.store import BULK_DELETE
 from kube_scheduler_simulator_tpu_torch.utils.keys import pod_key as _pod_key
 
 Obj = dict[str, Any]
-
-# permit plugins the reference replays on its batch path; the port has none
-NOT_PORTED_PLUGINS = ("Coscheduling",)
 
 
 class SchedulerService:
@@ -141,6 +153,9 @@ class SchedulerService:
         self._result_store_keys: list[str] = []
         self._batch_engine: "BatchEngine | None" = None
         self._batch_engines: dict[str, BatchEngine] = {}
+        # wait-start move_seq of each pod parked at Permit: events fired
+        # while it waits count if the wait ends in failure
+        self._wait_move_seq: dict[str, int] = {}
         self.stats: dict[str, Any] = {
             "batch_commits": 0,
             "batch_pods": 0,
@@ -163,6 +178,24 @@ class SchedulerService:
             "preempt_dispatches": 0,
             "preempt_kernel_s": 0.0,
             "preempt_fallbacks": {},
+            # gang engine (gang/): all-or-nothing PodGroup placement on the
+            # batch round; gang_fallbacks counts the rounds that took the
+            # sequential Coscheduling oracle instead, by reason;
+            # gang_verdict_mismatch (device verdict vs host arithmetic)
+            # must stay 0
+            "gang_rounds": 0,
+            "gang_parked": 0,
+            "gang_released_groups": 0,
+            "gang_released_pods": 0,
+            "gang_kernel_dispatches": 0,
+            "gang_kernel_s": 0.0,
+            "gang_verdict_mismatch": 0,
+            "gang_fallbacks": {},
+            # permit waits that expired and were rejected
+            "permit_wait_expired": 0,
+            # kernel runs promoted to float64 because their resource values
+            # would go inexact in float32, by reason (column and magnitude)
+            "f64_promotions": {},
         }
         self._stats_lock = threading.Lock()
         # one per-wave stage profiler shared by every profile engine and the
@@ -179,7 +212,7 @@ class SchedulerService:
 
     def start_scheduler(self, cfg: "Obj | None" = None) -> None:
         """Build one Framework per profile of the configuration, keyed by
-        schedulerName.  Extenders and permit plugins are refused."""
+        schedulerName.  Extenders are refused."""
         cfg = self._filter_allowed_changes(cfg)
         if cfg.get("extenders"):
             raise ValueError("extenders: the extender webhooks are not ported yet")
@@ -187,13 +220,6 @@ class SchedulerService:
         names = [p.get("schedulerName") or "default-scheduler" for p in profiles]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicated profile schedulerName in {names}")
-        for profile in profiles:
-            for point_set in (profile.get("plugins") or {}).values():
-                if not isinstance(point_set, dict):
-                    continue
-                for p in point_set.get("enabled") or []:
-                    if original_name(p.get("name", "")) in NOT_PORTED_PLUGINS:
-                        raise ValueError(f"plugin {original_name(p['name'])} is not ported yet")
         # drop the previous build's stores before registering new ones
         for key in self._result_store_keys:
             self.reflector.remove_result_store(key)
@@ -204,12 +230,12 @@ class SchedulerService:
             fw = self._build_framework(cfg, profile, store_key)
             self._result_store_keys.append(store_key)
             frameworks[name] = fw
-            if fw.plugins["permit"]:
-                permit = [wp.original.name for wp in fw.plugins["permit"]]
-                raise ValueError(f"permit plugins {permit}: the port's batch round has no permit replay yet")
         self._profile_names = set(names)
         self.frameworks = frameworks
         self.framework = frameworks.get("default-scheduler") or frameworks[names[0]]
+        # parked waiting pods do not survive a framework rebuild, nor do
+        # their wait-start marks
+        self._wait_move_seq.clear()
         self.result_store = self.framework.result_store
         self._batch_engine = None  # rebuilt lazily for the new profiles
         self._batch_engines = {}
@@ -243,6 +269,12 @@ class SchedulerService:
             fw = self.framework
         assert fw is not None, "scheduler not started"
         return fw
+
+    def _all_waiting_keys(self) -> set[str]:
+        keys: set[str] = set()
+        for fw in self.frameworks.values():
+            keys.update(fw.waiting_pods)
+        return keys
 
     def _sync_rotation(self, src: Framework) -> None:
         """Upstream keeps ONE rotating start index and attempt counter per
@@ -328,8 +360,9 @@ class SchedulerService:
     # ------------------------------------------------------------- run loop
 
     def pending_pods(self) -> list[Obj]:
-        """Unbound, undeleted pods of a declared profile (no pod is ever
-        parked at Permit: the port refuses permit plugins)."""
+        """Unbound, undeleted pods of a declared profile that are not parked
+        at Permit."""
+        waiting = self._all_waiting_keys()
         profiles = self._profile_names or {"default-scheduler"}
         return [
             p
@@ -337,6 +370,7 @@ class SchedulerService:
             if not (p.get("spec") or {}).get("nodeName")
             and not p["metadata"].get("deletionTimestamp")
             and ((p.get("spec") or {}).get("schedulerName") or "default-scheduler") in profiles
+            and _pod_key(p) not in waiting
         ]
 
     def _ready_pending(self, respect_backoff: bool = False) -> list[Obj]:
@@ -355,8 +389,31 @@ class SchedulerService:
             self.cluster_store.list("pods", copy_objects=False),
             self.cluster_store.list("namespaces", copy_objects=False),
         )
+        # pods parked at Permit hold their reservation (upstream keeps
+        # assumed pods in the scheduler cache until bound)
+        for fw in self.frameworks.values():
+            for w in fw.waiting_pods.values():
+                snap.assume(w.pod, w.node_name)
         self.profiler.ambient("snapshot_rv", time.perf_counter() - t0)
         return snap
+
+    def _pods_with_waiting_assumed(self) -> list[Obj]:
+        """Store pods with waiting pods shown as bound to their reserved
+        node (the batch encoder's node-usage seeding)."""
+        pods = self.cluster_store.list("pods", copy_objects=False)
+        waiting: dict[str, Any] = {}
+        for fw in self.frameworks.values():
+            waiting.update(fw.waiting_pods)
+        if not waiting:
+            return pods
+        out = []
+        for p in pods:
+            w = waiting.get(_pod_key(p))
+            if w is not None:
+                out.append({**p, "spec": {**(p.get("spec") or {}), "nodeName": w.node_name}})
+            else:
+                out.append(p)
+        return out
 
     def schedule_pending(self, max_rounds: int = 3, respect_backoff: bool = False) -> dict[str, ScheduleResult]:
         """Drain the pending queue: sort by QueueSort and schedule each pod
@@ -371,6 +428,9 @@ class SchedulerService:
         if gc_was_enabled:
             gc.disable()
         try:
+            # a parked pod whose permit deadline passed releases its
+            # reservation before this drain
+            self.process_waiting_pods()
             for _ in range(max_rounds):
                 round_results: "dict[str, ScheduleResult] | None" = None
                 if self.use_batch in ("auto", "force"):
@@ -386,12 +446,75 @@ class SchedulerService:
                 if not round_results:
                     break
                 results.update(round_results)
-                if not any(r.success or r.nominated_node for r in round_results.values()):
+                if not any(r.success or r.nominated_node or r.waiting_on for r in round_results.values()):
                     break
         finally:
             if gc_was_enabled:
                 gc.enable()
         return results
+
+    # ------------------------------------------------------- waiting pods
+
+    def allow_waiting_pod(self, namespace: str, name: str, plugin: str) -> "ScheduleResult | None":
+        """Approve a waiting pod on ``plugin``'s behalf; when that was the
+        last pending permit plugin, the bind cycle runs and the full result
+        set (the recorded Wait included) flushes to annotations."""
+        assert self.framework is not None, "scheduler not started"
+        for fw in self.frameworks.values():
+            with self.cluster_store.journal_txn("attempt"):
+                res = fw.allow_waiting_pod(namespace, name, plugin)
+                if res is not None:
+                    self._drain_resolved_waiting()
+                    self.reflector.flush_all(self.cluster_store, skip_keys=self._all_waiting_keys())
+                    return res
+        return None
+
+    def reject_waiting_pod(self, namespace: str, name: str, message: str = "rejected") -> "ScheduleResult | None":
+        assert self.framework is not None, "scheduler not started"
+        for fw in self.frameworks.values():
+            with self.cluster_store.journal_txn("attempt"):
+                res = fw.reject_waiting_pod(namespace, name, message)
+                if res is not None:
+                    self._drain_resolved_waiting()
+                    self.reflector.flush_all(self.cluster_store, skip_keys=self._all_waiting_keys())
+                    return res
+        return None
+
+    def process_waiting_pods(self, now: "float | None" = None) -> dict[str, ScheduleResult]:
+        """Expire waiting pods whose permit deadline passed, recording the
+        rejection like any scheduling failure.  Cascades an expiry's
+        unreserve triggers (a gang member's timeout rejecting its whole
+        group) resolve more pods than the expiry set; the drain records
+        them all."""
+        expired: dict[str, ScheduleResult] = {}
+        with self.cluster_store.journal_txn("attempt"):
+            for fw in self.frameworks.values():
+                if fw.waiting_pods:
+                    expired.update(fw.expire_waiting_pods(now))
+            if expired:
+                with self._stats_lock:
+                    self.stats["permit_wait_expired"] += len(expired)
+            if self._drain_resolved_waiting():
+                self.reflector.flush_all(self.cluster_store, skip_keys=self._all_waiting_keys())
+        return expired
+
+    def _drain_resolved_waiting(self) -> int:
+        """Record every waiting-pod resolution the frameworks collected
+        since the last drain (service calls and plugin cascades): pop the
+        wait-start move_seq, record failures like any scheduling failure
+        (a successful resolution needs no record).  Returns the number
+        drained (callers flush the reflector when nonzero)."""
+        drained = 0
+        for fw in self.frameworks.values():
+            if not fw.resolved_waiting:
+                continue
+            resolved, fw.resolved_waiting = fw.resolved_waiting, []
+            for pod, res in resolved:
+                drained += 1
+                seq = self._wait_move_seq.pop(_pod_key(pod), None)
+                if not res.success:
+                    self._record_failure(pod, res, seq)
+        return drained
 
     # ------------------------------------------------------------ batch path
 
@@ -454,6 +577,18 @@ class SchedulerService:
                 len(pending) * max(len(nodes), 1) < self.batch_min_work
             ):
                 ok, why = False, "segment below batch_min_work"
+            gang_ctx = None
+            if ok and fw.plugins["permit"]:
+                # a permit-bearing profile passes supported() only when its
+                # permit point is exactly the Coscheduling oracle: the gang
+                # context replays its decisions; gate failures (quorum,
+                # missing group, KSS_GANG_BATCH=0) take the sequential oracle
+                gang_ctx, gang_why = gang_prepare(self, fw, eng, pending, nodes)
+                if gang_ctx is None:
+                    with self._stats_lock:
+                        gf = self.stats["gang_fallbacks"]
+                        gf[gang_why] = gf.get(gang_why, 0) + 1
+                    ok, why = False, f"gang: {gang_why}"
             if not ok:
                 if len(segments) == 1:
                     self._count_fallback(why)
@@ -465,12 +600,14 @@ class SchedulerService:
                     results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
                 self.stats["commit_s"] += time.perf_counter() - tc
             else:
-                self._run_segment_batch(fw, eng, pending, nodes, volumes, results, noms)
+                if gang_ctx is not None and gang_ctx.engaged:
+                    self.stats["gang_rounds"] += 1
+                self._run_segment_batch(fw, eng, pending, nodes, volumes, results, noms, gang_ctx)
                 any_batched = True
                 self._sync_rotation(fw)
         if any_batched:
             self.stats["batch_commits"] += 1
-        self.reflector.flush_all(self.cluster_store)
+        self.reflector.flush_all(self.cluster_store, skip_keys=self._all_waiting_keys())
         return results
 
     def _run_segment_batch(
@@ -482,6 +619,7 @@ class SchedulerService:
         volumes: "dict[str, list[Obj]]",
         results: dict,
         nominated: "list[tuple[Obj, str]] | None" = None,
+        gang_ctx: Any = None,
     ) -> None:
         seq_failures = bool(fw.plugins["post_filter"]) and self.use_batch != "force"
         point_names = {
@@ -497,7 +635,7 @@ class SchedulerService:
             tail = pending[i:]
             args = (
                 nodes,
-                self.cluster_store.list("pods", copy_objects=False),
+                self._pods_with_waiting_assumed(),
                 tail,
                 self.cluster_store.list("namespaces", copy_objects=False),
             )
@@ -524,8 +662,10 @@ class SchedulerService:
                     # after the round's encode captured the cluster state
                     snapshot = self.build_snapshot()
                     self._prune_mid_round_nominations(snapshot, noms)
+                    if eng.last_promotion is not None:
+                        self._count_promotion(eng.last_promotion)
                 restart_at = self._replay_window(
-                    result, i, off, cnt, snapshot, point_names, fw, seq_failures, results, pholder
+                    result, i, off, cnt, snapshot, point_names, fw, seq_failures, results, pholder, gang_ctx
                 )
                 if restart_at is not None:
                     break  # abandon the remaining windows (state changed)
@@ -570,16 +710,21 @@ class SchedulerService:
         seq_failures: bool,
         results: dict,
         pholder: "dict | None" = None,
+        gang_ctx: Any = None,
     ) -> "int | None":
         """Replay one kernel window's decisions in queue order: successes
-        accumulate into bulk-commit waves; kernel failures commit from the
-        trace, with their PostFilter resolved by the batched victim search
-        (preemption/) or, outside its envelope, by the exact sequential
-        cycle (force mode records the failure alone).  Returns the pending
-        index to restart the kernel from after a successful preemption,
-        else None."""
+        accumulate into bulk-commit waves; gang members park or release
+        their whole gang through the gang context; kernel failures commit
+        from the trace, with their PostFilter resolved by the batched victim
+        search (preemption/) or, outside its envelope, by the exact
+        sequential cycle (force mode records the failure alone).  Returns
+        the pending index to restart the kernel from after a successful
+        preemption, else None."""
         window = result.pending
         sample_start = result.out["sample_start"]
+        if gang_ctx is not None:
+            # ONE gang-verdict dispatch per replay window, for every group
+            gang_ctx.note_window(result, cnt)
         wave_js: list[int] = []
         decisions: dict = {}
         if seq_failures and pholder is not None and any(int(result.selected[j]) < 0 for j in range(cnt)):
@@ -611,6 +756,23 @@ class SchedulerService:
             pod = window[j]
             key = _pod_key(pod)
             if int(result.selected[j]) >= 0:
+                gk = gang_ctx.group_of(pod) if gang_ctx is not None else None
+                if gk is not None:
+                    # gang member: park at Permit, or release the whole gang
+                    # when it completes the quorum; earlier commits flush
+                    # first so the store matches the oracle's at this pod
+                    flush_wave()
+                    node_name = result.node_names[int(result.selected[j])]
+                    tc = time.perf_counter()
+                    if gang_ctx.completes(gk):
+                        res = gang_ctx.commit_release(result, j, pod, node_name, snapshot, point_names)
+                    else:
+                        res = gang_ctx.park(result, j, pod, node_name, snapshot, point_names)
+                    self.stats["commit_s"] += time.perf_counter() - tc
+                    results[key] = res
+                    fw.sched_counter += 1
+                    self.stats["batch_pods"] += 1
+                    continue
                 wave_js.append(j)
                 if len(wave_js) >= self.commit_wave:
                     flush_wave()
@@ -683,6 +845,11 @@ class SchedulerService:
             fb = self.stats["preempt_fallbacks"]
             fb[reason] = fb.get(reason, 0) + 1
 
+    def _count_promotion(self, reason: str) -> None:
+        with self._stats_lock:
+            pm = self.stats["f64_promotions"]
+            pm[reason] = pm.get(reason, 0) + 1
+
     def _prune_mid_round_nominations(self, snapshot: Snapshot, round_noms: "list[tuple[Obj, str]]") -> None:
         """Restrict a (re)built snapshot's nominated map to the round-start
         nominations, as the sequential cycle's one snapshot per round sees."""
@@ -714,6 +881,9 @@ class SchedulerService:
         """Build the batched victim-search context for one kernel run, or
         None (with a counted reason): the round then keeps the exact
         sequential PostFilter path."""
+        if self._all_waiting_keys():
+            self._count_preempt_fallback("waiting pods parked at Permit")
+            return None
         pctx, reason = prepare_round(fw, eng, snapshot, self.cluster_store, nodes, tail, nominated=noms or None)
         if pctx is None and reason:
             self._count_preempt_fallback(reason)
@@ -765,6 +935,10 @@ class SchedulerService:
         pf_status = {pn: SUCCESS_MESSAGE for pn in pf_names}
         pre_score = {pn: SUCCESS_MESSAGE for pn in point_names["pre_score"]}
         reserve = {pn: SUCCESS_MESSAGE for pn in point_names["reserve"]}
+        # a gang profile's wrapped Permit records success and "0s" for
+        # singleton pods (the Coscheduling oracle returns (None, 0))
+        permit = {pn: SUCCESS_MESSAGE for pn in point_names["permit"]}
+        permit_to = {pn: "0s" for pn in point_names["permit"]}
         prebind = {pn: SUCCESS_MESSAGE for pn in point_names["pre_bind"]}
         bind = {point_names["bind"][0]: SUCCESS_MESSAGE} if point_names["bind"] else None
         entries: list[tuple[str, str, dict]] = []
@@ -797,6 +971,9 @@ class SchedulerService:
                 # selected-node is recorded by the wrapped Reserve hooks
                 cats["selectedNode"] = node_name
                 cats["reserve"] = reserve
+            if permit:
+                cats["permit"] = permit
+                cats["permitTimeout"] = permit_to
             if prebind:
                 cats["prebind"] = prebind
             if bind:
@@ -893,6 +1070,10 @@ class SchedulerService:
                 rs.add_selected_node(ns, name, node_name)
             for pn in point_names["reserve"]:
                 rs.add_reserve_result(ns, name, pn, SUCCESS_MESSAGE)
+            for pn in point_names["permit"]:
+                # the gang profile's Coscheduling permit returns (None, 0)
+                # for singleton pods: success, "0s" timeout
+                rs.add_permit_result(ns, name, pn, SUCCESS_MESSAGE, 0)
             for pn in point_names["pre_bind"]:
                 rs.add_pre_bind_result(ns, name, pn, SUCCESS_MESSAGE)
             if point_names["bind"]:
@@ -936,7 +1117,14 @@ class SchedulerService:
             result = fw.schedule_one(pod, snapshot)
             self._sync_rotation(fw)
             self.stats["sequential_pods"] += 1
-            if not result.success:
+            # gang cascades inside the cycle (Coscheduling permit releases,
+            # PostFilter rejections) resolve OTHER waiting pods: record
+            # their outcomes before the flush
+            self._drain_resolved_waiting()
+            if result.waiting_on:
+                # the attempt continues through the Permit wait
+                self._wait_move_seq[_pod_key(pod)] = attempt_move_seq
+            elif not result.success:
                 self._record_failure(pod, result, attempt_move_seq)
             else:
                 ns = pod["metadata"].get("namespace", "default")
@@ -944,7 +1132,8 @@ class SchedulerService:
                     pod, "Normal", "Scheduled",
                     f"Successfully assigned {ns}/{pod['metadata']['name']} to {result.selected_node}",
                 )
-            self.reflector.flush_all(self.cluster_store)
+            # waiting pods keep their results queued until permit resolves
+            self.reflector.flush_all(self.cluster_store, skip_keys=self._all_waiting_keys())
         return result
 
     def _record_event(self, pod: Obj, type_: str, reason: str, message: str) -> None:

@@ -15,7 +15,9 @@ CSI nodes a StatefulSet- and DaemonSet-heavy cluster carries (the
 ``churn`` replays the bench's BASELINE cfg5 scenario churn into a cluster
 store, wave by wave, with a rolling cordon on top.  ``preemption_wave``
 fills a store with cfg7-preempt-5k, Kubernetes scheduler_perf's
-PreemptionBasic shape at its 5000Nodes size.
+PreemptionBasic shape at its 5000Nodes size.  ``gang_churn`` replays the
+JAX package's cfg8-gang (bench ``run_gang``): distributed-training jobs,
+each a PodGroup of one-CPU members, arriving in waves and completing.
 """
 
 from __future__ import annotations
@@ -388,3 +390,48 @@ def preemption_wave(
         store.create("pods", p)
         names["preemptors"].append(p["metadata"]["name"])
     return names
+
+
+def gang_churn(
+    store, jobs: int = 200, min_members: int = 8, max_members: int = 64, nodes: int = 220, waves: int = 5,
+    seed: int = 24, node=mk_node,
+):
+    """cfg8-gang as the JAX package's bench drives it (``run_gang``), a
+    generator: it creates the default namespace and ``nodes`` nodes
+    (``node(i)``, bench's ``mk_node`` by default: 64 CPU, 256Gi, 512 pods,
+    8 zones), draws the plan of ``jobs`` jobs of ``min_members`` to
+    ``max_members`` members from ``random.Random(seed)``, then per wave
+    creates that wave's jobs (a PodGroup with minMember = its member count
+    and a 600 s timeout, and the members: gang/scenario ``make_member``, 1
+    CPU and 1Gi) and yields the wave index, for the caller to schedule;
+    after each wave the previous wave's jobs complete (members and group
+    deleted).  The defaults are cfg8-gang's scale leg (plan seed 24); its
+    parity leg is ``jobs=24, min_members=2, max_members=8, nodes=40,
+    seed=23``."""
+    from kube_scheduler_simulator_tpu_torch.gang.scenario import make_member
+
+    rng = random.Random(seed)
+    plan = [rng.randint(min_members, max_members) for _ in range(jobs)]
+    store.create("namespaces", {"metadata": {"name": "default"}})
+    for i in range(nodes):
+        store.create("nodes", node(i))
+    per_wave = max(len(plan) // waves, 1)
+    prev: list = []
+    for w in range(waves):
+        batch = plan[w * per_wave : (w + 1) * per_wave] if w < waves - 1 else plan[(waves - 1) * per_wave :]
+        cur = []
+        for j, members in enumerate(batch):
+            g = f"job-{w}-{j}"
+            store.create("podgroups", {"metadata": {"name": g}, "spec": {"minMember": members, "scheduleTimeoutSeconds": 600}})
+            for m in range(members):
+                store.create("pods", make_member(f"{g}-m{m}", g))
+            cur.append((g, members))
+        yield w
+        for g, members in prev:
+            for m in range(members):
+                try:
+                    store.delete("pods", f"{g}-m{m}")
+                except KeyError:
+                    pass
+            store.delete("podgroups", g)
+        prev = cur

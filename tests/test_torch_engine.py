@@ -199,8 +199,9 @@ def test_round_reports_timings_and_profile(cluster):
     nodes, all_pods, pending = cluster
     eng = BatchEngine(scores=SCORES, trace=True, device="cpu")
     eng.schedule(nodes, all_pods, pending)
-    assert set(eng.last_timings) == {"encode_s", "lower_s", "device_s", "total_s"}
-    assert eng.dtype == torch.float64
+    assert set(eng.last_timings) == {"encode_s", "lower_s", "device_s", "total_s", "promoted_f64"}
+    assert eng.last_timings["promoted_f64"] == 0.0 and eng.last_promotion is None
+    assert eng.dtype == eng.round_dtype == torch.float64
     snap = eng.profiler.snapshot()
     assert snap["waves"] == 1
 

@@ -74,6 +74,21 @@ for w in workloads.churn(store, 40, 20, 2, cordon=2):
         svc.start_scheduler(None)
     svc.schedule_pending(max_rounds=1)
 assert svc.stats["batch_pods"] >= 30 and not svc.stats["batch_fallbacks"], svc.stats
+from kube_scheduler_simulator_tpu_torch.gang import gang_scheduler_config, partially_bound_groups
+from kube_scheduler_simulator_tpu_torch.gang.engine import group_preview
+gstore = ClusterStore()
+for w in workloads.gang_churn(gstore, jobs=6, min_members=2, max_members=4, nodes=6, waves=2, seed=1):
+    if w == 0:
+        gsvc = SchedulerService(gstore, use_batch="auto", batch_min_work=0, device="cpu")
+        gsvc.start_scheduler(gang_scheduler_config())
+    gsvc.schedule_pending(max_rounds=3)
+    assert not partially_bound_groups(gstore)
+assert gsvc.stats["gang_kernel_dispatches"] >= 2 and gsvc.stats["gang_released_groups"] == 6, gsvc.stats
+from kube_scheduler_simulator_tpu_torch.gang.scenario import make_member
+gstore.create("podgroups", dict(metadata=dict(name="g"), spec=dict(minMember=2)))
+for name in ("g-0", "g-1"):
+    gstore.create("pods", make_member(name, "g"))
+assert group_preview(gstore, gstore.get("podgroups", "g"), device="cpu")["feasible"] is True
 new = set(sys.modules) - before
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == {REFERENCE!r} or m.startswith({REFERENCE!r} + ".")))
@@ -96,6 +111,9 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device resolves instead of raising")
     from kube_scheduler_simulator_tpu_torch.device import resolve_device, resolve_dtype
+    from kube_scheduler_simulator_tpu_torch.gang import engine as GE
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
     from kube_scheduler_simulator_tpu_torch.ops import batch as TB
     from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
 
@@ -105,6 +123,12 @@ def test_entry_points_default_to_the_card():
         BatchEngine()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TB.lower(None)
+    store = ClusterStore()
+    store.create("podgroups", {"metadata": {"name": "g"}, "spec": {"minMember": 1}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GE.group_preview(store, store.get("podgroups", "g"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GK.run_window_verdict([0], [0], [[0]], [0], [1], 1)
     assert resolve_device("cpu").type == "cpu"
     assert resolve_dtype(resolve_device("cpu")) == torch.float64
     assert resolve_dtype(torch.device("cuda")) == torch.float32
@@ -124,5 +148,5 @@ def test_a_cuda_round_launches_both_kernels():
     nodes, all_pods, pending = workloads.cluster(40, 60, seed=1)
     kernels.reset_counts()
     res = BatchEngine(scores=[("NodeResourcesFit", 1)], trace=True).schedule(nodes, all_pods, pending)
-    assert kernels.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0}
+    assert kernels.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
     assert sum(s is not None for s in res.selected_nodes) == 40

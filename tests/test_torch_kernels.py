@@ -62,7 +62,9 @@ def _struct_fields(src: str, name: str) -> "list[str]":
 
 
 @pytest.mark.parametrize(
-    "src,struct", [("scan.cu", "ScanArgs"), ("compact.cu", "CompactArgs"), ("preempt.cu", "PreemptArgs")]
+    "src,struct",
+    [("scan.cu", "ScanArgs"), ("compact.cu", "CompactArgs"), ("preempt.cu", "PreemptArgs"),
+     ("gang.cu", "GangVerdictArgs"), ("gang.cu", "GangFeasArgs")],
 )
 def test_ctypes_mirror_matches_the_cuda_struct(src, struct):
     """The argument structs are read by field order: the ctypes mirror and
@@ -169,7 +171,13 @@ def test_wrappers_refuse_cpu_tensors():
         TK.scatter_rows(buf, torch.tensor([1], dtype=torch.int32), buf[:1].clone())
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.preempt(*_search_args(3, 5, 2, 2, 1, 2, torch.float64, "cpu"))
-    assert TK.LAUNCHES == {"scan": 0, "compact": 0, "scatter": 0, "preempt": 0}
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.gang_verdict(i32(4), i32(4), i32(2, 3), i32(2), i32(2), 3)
+    f64 = lambda *shape: torch.zeros(shape, dtype=torch.float64)  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.gang_feasibility(f64(2, 3, 1), torch.ones(2, 3, dtype=torch.bool), f64(4, 1), f64(4), i32(2, 4), 2)
+    assert TK.LAUNCHES == {k: 0 for k in ("scan", "compact", "scatter", "preempt", "gang_verdict", "gang_feasibility")}
 
 
 RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))
@@ -395,3 +403,66 @@ def test_service_churn_on_the_card_matches_the_cpu():
             for p in store.list("pods")
         })
     assert states[0] == states[1]
+
+
+def _gang_args(G, M, N, R, D, dt, device, seed=0):
+    """Seeded arguments of the window verdict (K6) and the feasibility scan
+    (K7): padding and failed member slots, a hostname key when D == N; ties
+    across nodes, invalid slots, overcommitted nodes, group 0 infeasible."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    K = 4 * G * M
+    gid = np.where(rng.random(K) < 0.1, -1, rng.integers(0, G, K))
+    node = np.where(rng.random(K) < 0.05, -1, rng.integers(0, N, K))
+    dom = np.tile(np.arange(N) if D == N else np.arange(N) % D, (G, 1))
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)  # noqa: E731
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)  # noqa: E731
+    verdict = (i32(gid), i32(node), i32(dom), i32(rng.integers(0, 3, G)), i32(rng.integers(1, 3 * M, G)), D)
+    valid = (np.arange(M)[None, :] < rng.integers(1, M + 1, G)[:, None]) & (rng.random((G, M)) < 0.9)
+    req = rng.integers(0, 3, (G, M, R))
+    req[0, 0] = 100
+    feas = (f(req), torch.from_numpy(valid).to(device), f(rng.integers(-1, 8, (N, R))), f(rng.integers(0, 4, N)),
+            i32(dom), D)
+    return verdict, feas
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,M,N,R,D", [(12, 8, 40, 2, 4), (12, 8, 40, 2, 40), (1, 16, 30, 2, 3), (6, 6, 25, 3, 1)])
+def test_gang_kernels_match_plain_versions_on_the_card(G, M, N, R, D):
+    """K6 and K7 against gang/kernel.verdict_plain and feasibility_plain on
+    the same tensors on the card, bitwise, K7 in both dtypes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+
+    for dt in (torch.float32, torch.float64):
+        verdict, feas = _gang_args(G, M, N, R, D, dt, "cuda", seed=G + N)
+        for a, b in zip(TK.gang_verdict(*verdict), GK.verdict_plain(*verdict)):
+            assert torch.equal(a, b)
+        for a, b in zip(TK.gang_feasibility(*feas), GK.feasibility_plain(*feas)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_float32_round_past_the_exact_bound_runs_in_float64_on_the_card():
+    """One node of 33554438 bytes of memory, one pod asking 33554439: in
+    float32 on the card the round runs in float64 (counted) and equals the
+    float64 round: nothing placed, "Insufficient memory"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
+
+    node = {"metadata": {"name": "n0", "labels": {}},
+            "status": {"allocatable": {"cpu": "4", "memory": "33554438", "pods": "110"}}}
+    pod = {"metadata": {"name": "p0", "namespace": "default"},
+           "spec": {"containers": [{"name": "c", "resources": {"requests": {"memory": "33554439"}}}]}}
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        eng = BatchEngine(filters=["NodeResourcesFit"], scores=[("NodeResourcesFit", 1)], trace=True, dtype=dt)
+        res = eng.schedule([node], [pod], [pod])
+        out[dt] = (res.selected_nodes[0], res.filter_annotation_json(0), res.score_annotations_json(0))
+        assert eng.round_dtype == torch.float64
+        assert eng.last_timings["promoted_f64"] == float(dt == torch.float32)
+    assert out[torch.float32] == out[torch.float64]
+    assert out[torch.float32][0] is None and "Insufficient memory" in out[torch.float32][1]

@@ -204,9 +204,10 @@ def test_the_port_refuses_what_it_has_not_ported():
     svc = SchedulerService(store, device="cpu", use_batch="auto")
     with pytest.raises(ValueError, match="extender"):
         svc.start_scheduler({"extenders": [{"urlPrefix": "http://localhost:1", "filterVerb": "filter"}]})
+    # the gang path is ported: a Coscheduling profile starts and batches
     gang = profile_with(["NodeResourcesFit", "Coscheduling"])
-    with pytest.raises(ValueError, match="Coscheduling is not ported"):
-        svc.start_scheduler({"profiles": [gang]})
+    svc.start_scheduler({"profiles": [gang]})
+    assert [wp.original.name for wp in svc.framework.plugins["permit"]] == ["Coscheduling"]
 
     class Gate:
         name = "Gate"
@@ -214,9 +215,16 @@ def test_the_port_refuses_what_it_has_not_ported():
         def permit(self, state, pod, node_name):
             return None, 0
 
+    # any other permit plugin starts too, and its rounds take the sequential
+    # cycle with a counted reason, as in the reference
     svc.set_out_of_tree_registries({"Gate": lambda args, handle: Gate()})
-    with pytest.raises(ValueError, match="permit plugins"):
-        svc.start_scheduler({"profiles": [profile_with(["NodeResourcesFit", "Gate"])]})
+    svc.start_scheduler({"profiles": [profile_with(["NodeResourcesFit", "Gate"])]})
+    svc.batch_min_work = 0
+    store.create("nodes", mk_node("node-0", 4000, 8192))
+    store.create("pods", {"metadata": {"name": "p0"}, "spec": {"containers": [{"name": "c"}]}})
+    svc.schedule_pending(max_rounds=1)
+    assert svc.stats["batch_fallbacks"] == {"permit plugins ['Gate']": 1}
+    assert store.get("pods", "p0")["spec"]["nodeName"] == "node-0"
     with pytest.raises(NotImplementedError, match="schedule_stream"):
         svc.schedule_stream()
     with pytest.raises(NotImplementedError, match="journal"):
