@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 17 min, build included
+    python3 chip_smoke.py    # one card, about 13-19 min, build included
 
 Workloads (every one from seed 42 through ``workloads.cluster``):
 
@@ -53,10 +53,22 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   ``schedule_pending(max_rounds=3)`` a wave through the port's service
   under ``gang_scheduler_config()`` (Coscheduling, DefaultPreemption off):
   every member parks at Permit until its gang's last member releases the
-  whole gang, and each replay window makes one gang-verdict dispatch (K6).
+  whole gang, and each replay window makes one gang-verdict dispatch (K6);
+- cfg6-autoscale: the JAX package's bench ``run_autoscale``
+  (``workloads.autoscale``): 4 bench nodes, three node groups (pool-small 8
+  CPU 32Gi ssd, pool-mid 16 CPU 64Gi hdd, pool-big 64 CPU 256Gi ssd; each
+  at minSize 0, maxSize 48, 110 pods, a zone of its own), then 1 500 bench
+  pods from ``random.Random(11)``; ``SchedulerService(store,
+  tie_break="first", use_batch="auto", autoscale="on")`` with the
+  least-waste expander and ``schedule_pending_autoscaled(max_rounds=2,
+  max_passes=12)``: each scale-up estimate is one lane-scan launch (K8);
+- the autoscale burst: one ``ScaleUpEstimator.estimate`` against 16 node
+  groups of 64 copies (the reference autoscaler's max_nodes_per_scale_up),
+  4 to 64 CPU, every 4th tainted NoSchedule, and 10 000 pending bench
+  pods (``workloads.autoscale_burst``): G 16 x N 1 024 x P 10 000.
 
-Cut for the time limit: the float64 churn runs 3 waves.  The CPU float64
-references of phases 4, 9, 14 and 18 run in two worker processes started
+Cut for the time limit: the float64 churn runs 1 wave.  The CPU float64
+references of phases 4, 9, 14, 18 and 22 run in two worker processes started
 after the build, beside the card's phases; the script stops them before
 it exits.
 
@@ -91,8 +103,8 @@ line):
    kernel bitwise (packed outputs, trace planes and compaction blobs window
    by window, the whole final carry), in both dtypes, timed against it; at
    cfg5-churn's wave shape, one window against the windowed plain version;
-8. cfg5-churn end to end on the card, float32 (5 waves) and float64 (3
-   waves): per wave the wall, encode, blocked and estimated device time,
+8. cfg5-churn end to end on the card, float32 (5 waves) and float64 (1
+   wave): per wave the wall, encode, blocked and estimated device time,
    commit, windows, launches (counts reset just before each wave), the
    placer's decisions and planes scattered, and the encoder's counters; a
    wave fails on a scan or compaction count other than its window count,
@@ -101,7 +113,7 @@ line):
 9. the same churn cut to 1 500 pods in 3 waves on 500 nodes with a 10-node
    cordon: the CUDA float64 service and the CPU float64 service leave every
    pod with equal annotations, node and status;
-10. float32 against float64 over the first three churn waves: the pods
+10. float32 against float64 after the first churn wave: the pods
    whose node, annotations or status differ, printed;
 11. the victim-search kernel (K5) against its plain version, bitwise, in
    float32 and float64, on seeded problems of 64 pods x 5 000 nodes with V
@@ -149,7 +161,27 @@ line):
    33554439): in float32 on the card the round runs in float64 (one
    promotion counted, in the engine and in the service), places nothing
    ("Insufficient memory") and equals the float64 round.  Phases 3, 8 and
-   12 fail on any promotion and print each round's exactness headroom.
+   12 fail on any promotion and print each round's exactness headroom;
+20. (run after 21, on its captured inputs) K8 against its plain version,
+   bitwise in float32 and float64, at cfg6-autoscale's first estimate
+   dispatch; at the burst's shape, each of the 16 lanes of K8 against the
+   one-lane scan (K2) launched on that lane's mask, in both dtypes; K8
+   timed over 20 launches at both shapes, the plain version once at cfg6's;
+21. cfg6-autoscale end to end on the card, float32 (counts reset just
+   before): the wall, scheduled, pending after, nodes added, scale-ups,
+   passes, group sizes, estimate dispatches and K8 launches, each
+   dispatch's (G, P, N), exactness headroom and K8 time, the rounds' scan
+   and compaction launches, and whether the scale-ups equal
+   BENCH_autoscaler.json's (recorded, not required); it fails on a kernel
+   error, a resource-fallback estimate or a method other than
+   "xla-batch", K8 launches other than the dispatches, a pod left pending,
+   or a batch fallback other than the size rule (a round below
+   ``batch_min_work`` takes the sequential cycle, as in the bench); then
+   one estimate at the autoscale burst, its wall and K8 time;
+22. cfg6-autoscale through the CUDA float64 service and the CPU float64
+   service (a worker process), store clocks frozen: every pod's
+   annotations, node and status, the autoscaler's events, summaries and
+   node names equal.
 
 Then one ``{"kernels": [...]}`` line (time, plain time, bound and launches
 of each kernel: the one-launch scan at cfg5-vol, launched by its round;
@@ -157,7 +189,9 @@ the windowed scan, the compaction and the scatter at cfg5-churn's shapes,
 launched by the float32 churn; the victim search at the first dispatch of
 cfg7-preempt-5k, launched by its round; the window verdict at cfg8-gang's
 first dispatch, launched by the gang waves; the feasibility scan at the
-preview's first group, launched by group_preview), and as the last line
+preview's first group, launched by group_preview; the lane scan at
+cfg6-autoscale's first estimate dispatch, launched by its loop), and as
+the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
 """
@@ -238,7 +272,7 @@ ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", None), ("cfg4", (1000, 500, 0)), (
 MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
 # cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
 CHURN = (10000, 5000, 5, 50)
-CHURN_F64_WAVES = 3
+CHURN_F64_WAVES = 1
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
@@ -261,6 +295,14 @@ K6_SEEDED = [(k, 80, n, d) for k in (256, 2048) for n in (220, 5000) for d in (8
 # shapes under a zone and a hostname key, and one whose table is too big
 # for shared memory in float64 (the global-scratch path)
 K7_SEEDED = [(64, 64, 220, 8), (256, 64, 5000, 8), (256, 64, 5000, 5000), (32, 16, 12000, 12000)]
+# cfg6-autoscale (the JAX package's bench run_autoscale, workloads.autoscale)
+# and the autoscale burst (one estimate: 16 groups of the reference
+# autoscaler's 64-copy max_nodes_per_scale_up, 10 000 pending pods)
+AUTOSCALE = dict(n_pods=1500, seed_nodes=4, max_size=48, seed=11)
+BURST = dict(n_groups=16, copies=64, n_pending=10_000, seed=11)
+# BENCH_autoscaler.json's scale-ups (a CPU run of the JAX package): recorded
+# beside the port's, not required
+AUTOSCALE_REFERENCE = [["pool-small", 48], ["pool-big", 1]]
 # Part A's probe: one node, one pod asking a byte more memory than it has
 # (GCD 1, so float32 cannot hold the sums)
 PROBE_NODE = {"metadata": {"name": "n0", "labels": {}},
@@ -271,7 +313,7 @@ PROBE_POD = {"metadata": {"name": "p0", "namespace": "default"},
 MUST_REJECT = ("NodePorts", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 DEVICE = "cuda"
 # what one BatchEngine round launches
-ROUND_LAUNCHES = {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
+ROUND_LAUNCHES = {"scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
 
 
 def log(*a) -> None:
@@ -1197,6 +1239,236 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
     return k6_t, k7_t, glaunch
 
 
+# ------------------------------------------ capacity engine (K8)
+
+def capture_lanes(capture: list, estimator):
+    """Wrap kernels.scan_lanes: each dispatch's arguments, shape, working
+    dtype, exactness headroom (``estimator()``'s last bound) and CUDA
+    events around the launch are appended to ``capture``.  Returns the
+    function that unwraps it."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    orig = K.scan_lanes
+
+    def wrapped(cfg, dims, dp, lane):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(cfg, dims, dp, lane)
+        e.record()
+        est = estimator()
+        capture.append(dict(
+            args=(cfg, dims, dp, lane), events=(s, e), G=lane.shape[0], P=int(dp.pod_active.sum()),
+            N=int(dp.n_true), P_pad=dims["P"], N_pad=dims["N"], dtype=str(dp.alloc.dtype).split(".")[-1],
+            bound=headroom(est.last_bound) if est is not None else None,
+        ))
+        return out
+
+    K.scan_lanes = wrapped
+    return lambda: setattr(K, "scan_lanes", orig)
+
+
+def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None):
+    """cfg6-autoscale through a SchedulerService on ``device`` in ``dt``, as
+    bench's run_autoscale drives it (``workloads.autoscale``, then
+    ``schedule_pending_autoscaled(max_rounds=2, max_passes=12)``), the
+    launch counts reset just before it and read just after.
+    ``frozen_clock``: the store's clock frozen at 0, so two runs are
+    byte-comparable.  With ``capture``, every lane-scan dispatch is kept
+    there (``capture_lanes``).  Returns (record, pod digests, events
+    digest)."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.autoscaler.estimator import ScaleUpEstimator
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    def start(store):
+        svc = SchedulerService(store, tie_break="first", use_batch="auto", autoscale="on",
+                               autoscaler_opts={"expander": "least-waste"}, device=device, dtype=dt)
+        svc.start_scheduler(None)
+        return svc
+
+    store = ClusterStore(clock=lambda: 0.0) if frozen_clock else ClusterStore()
+    svc = workloads.autoscale(store, start, **AUTOSCALE)
+    # estimates that took the resource-only fallback
+    fallbacks = []
+    fallback = ScaleUpEstimator._estimate_resources
+
+    def counted(blocks, pending):
+        fallbacks.append(len(blocks))
+        return fallback(blocks, pending)
+
+    ScaleUpEstimator._estimate_resources = staticmethod(counted)
+    unwrap = capture_lanes(capture, lambda: svc.autoscaler._estimator) if capture is not None else None
+    try:
+        K.reset_counts()
+        t0 = time.perf_counter()
+        results = svc.schedule_pending_autoscaled(max_rounds=2, max_passes=12)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        ScaleUpEstimator._estimate_resources = staticmethod(fallback)
+        if unwrap is not None:
+            unwrap()
+    asc = svc.autoscaler
+    am = asc.metrics()
+    ups = [e for e in asc.events if e["action"] == "ScaleUp"]
+    rec = dict(
+        wall_s=wall, scheduled=sum(1 for r in results.values() if r.success), pending_after=len(svc.pending_pods()),
+        nodes_added=am["nodes_added"], scale_ups=am["scale_ups"], passes=am["passes"],
+        group_sizes={g: v["current"] for g, v in sorted(am["groups"].items())},
+        estimate_dispatches=am["estimate_dispatches"], estimate_compiles=am["estimate_compiles"],
+        estimate_cum_s=am["estimate_cum_s"], kernel_errors=am["estimate_kernel_errors"],
+        fallback_estimates=len(fallbacks), launches=launches,
+        actions=[[e["nodeGroup"], len(e["nodes"])] for e in ups], methods=sorted({e["method"] for e in ups}),
+        batch_pods=svc.stats["batch_pods"], sequential_pods=svc.stats["sequential_pods"],
+        batch_fallbacks=dict(svc.stats["batch_fallbacks"]), promotions=dict(svc.stats["f64_promotions"]),
+        estimate_promotions=dict(asc._estimator.promotions) if asc._estimator else {},
+        nodes=sorted(n["metadata"]["name"] for n in store.list("nodes", copy_objects=False)),
+    )
+    return rec, pod_digests(store), digest(json.dumps(asc.events, sort_keys=True))
+
+
+def lane_counts(cfg, dims, dp, lane, out) -> dict:
+    """Bytes and operations of one lane-scan launch: the problem read once
+    and the lane mask, every lane's outputs written once (``scan_counts``
+    over the outputs with their lane axis), and the scan's operations once
+    per lane (every lane runs every (pod, node) cell)."""
+    c = scan_counts(cfg, dims, dp, out)
+    return {"bytes": c["bytes"] + lane.numel() * lane.element_size(), "ops": c["ops"] * lane.shape[0]}
+
+
+def dp_as(dp, dt):
+    """A DeviceProblem with its float tensors in ``dt`` (exact: every value
+    is an integer well inside both dtypes' range)."""
+    import torch
+
+    conv = lambda t: t.to(dt) if isinstance(t, torch.Tensor) and t.is_floating_point() else t  # noqa: E731
+    return dp._replace(**{f: tuple(map(conv, v)) if isinstance(v, tuple) else conv(v) for f, v in dp._asdict().items()})
+
+
+def autoscale_phases(dev, cpu_autoscale_ref) -> dict:
+    """Phases 20-22.  21 runs first: cfg6-autoscale end to end on the card
+    in float32, capturing its lane-scan dispatches, then one burst estimate.
+    20 holds K8 against its plain version on the captured inputs of cfg6's
+    first dispatch (bitwise, float32 and float64) and, at the burst's shape,
+    each lane against the one-lane scan K2 launched on that lane's mask, and
+    times K8 at both.  22 holds the CUDA float64 service against the CPU
+    float64 service (``cpu_autoscale_ref``, a pool result).  Returns K8's
+    timing and launches."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.autoscaler import ScaleUpEstimator
+    from kube_scheduler_simulator_tpu_torch.ops import batch as B
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    cfg6: list = []
+    with Phase(f"21. cfg6-autoscale {AUTOSCALE}: service on the card, float32"):
+        rec, _dig, _ev = run_autoscale(DEVICE, torch.float32, capture=cfg6)
+        for c in cfg6:
+            c["k8_ms"] = c["events"][0].elapsed_time(c["events"][1])
+        rec["dispatches"] = [{k: c[k] for k in ("G", "P", "N", "P_pad", "N_pad", "dtype", "bound", "k8_ms")} for c in cfg6]
+        log(f"cfg6-autoscale float32: {json.dumps(rec, sort_keys=True)}")
+        log(f"scale-ups {rec['actions']}; BENCH_autoscaler.json (JAX package, CPU) {AUTOSCALE_REFERENCE}: "
+            f"{'equal' if rec['actions'] == AUTOSCALE_REFERENCE else 'different'}")
+        problems = []
+        if rec["kernel_errors"] or rec["fallback_estimates"]:
+            problems.append(f"kernel errors {rec['kernel_errors']}, fallback estimates {rec['fallback_estimates']}")
+        if rec["methods"] != ["xla-batch"]:
+            problems.append(f"estimate methods {rec['methods']}")
+        if rec["launches"]["scan_lanes"] != rec["estimate_dispatches"] or not cfg6:
+            problems.append(f"K8 launches {rec['launches']['scan_lanes']} != dispatches {rec['estimate_dispatches']}")
+        # the size rule (a round of pods x nodes below batch_min_work takes
+        # the sequential cycle) is the service's routing, as in the bench;
+        # any other fallback reason fails
+        refused = {k: v for k, v in rec["batch_fallbacks"].items() if k != "below batch_min_work"}
+        if rec["pending_after"] or refused:
+            problems.append(f"pending after {rec['pending_after']}, batch fallbacks {refused}")
+        if problems:
+            raise AssertionError(f"cfg6-autoscale: {'; '.join(problems)}")
+        launches = rec["launches"]["scan_lanes"]
+
+    burst: list = []
+    with Phase(f"21. the autoscale burst {BURST}: one ScaleUpEstimator(device='cuda').estimate"):
+        groups, room, pending = workloads.autoscale_burst(**BURST)
+        est = ScaleUpEstimator(device=DEVICE)
+        unwrap = capture_lanes(burst, lambda: est)
+        try:
+            t0 = time.perf_counter()
+            out = est.estimate(groups, room, pending, volumes={})
+            wall = time.perf_counter() - t0
+        finally:
+            unwrap()
+        c = burst[0]
+        c["k8_ms"] = c["events"][0].elapsed_time(c["events"][1])
+        log(f"burst estimate: wall {wall:.4f} s, K8 {c['k8_ms']:.3f} ms (G={c['G']} P={c['P']} N={c['N']}, padded "
+            f"{c['P_pad']} x {c['N_pad']}, {c['dtype']}, bound {json.dumps(c['bound'])}); estimates "
+            f"{[(e.group, e.nodes_needed, e.pods_fit, e.waste) for e in out]}")
+        if len(burst) != 1 or {e.method for e in out} != {"xla-batch"} or not any(e.pods_fit for e in out):
+            raise AssertionError("the burst estimate did not run one lane-kernel dispatch that places pods")
+
+    with Phase("20. K8 kernel vs plain at cfg6's first dispatch; lanes vs K2 at the burst; timed"):
+        cfg, dims, dp, lane = cfg6[0]["args"]
+        shape6 = f"cfg6-autoscale first dispatch: G={lane.shape[0]} P={dims['P']} N={dims['N']}"
+        for dt in (torch.float32, torch.float64):
+            d = dp_as(dp, dt)
+            same_outputs(f"K8 cfg6 {dt}", K.scan_lanes(cfg, dims, d, lane), B.scan_lanes_plain(cfg, dims, d, lane))
+        k8_ms, kout = cuda_ms(lambda: K.scan_lanes(cfg, dims, dp, lane), 20, warmup=3)
+        plain_ms, _p = cuda_ms(lambda: B.scan_lanes_plain(cfg, dims, dp, lane), 1, warmup=0)
+        k8b, k8by = bound(lane_counts(cfg, dims, dp, lane, kout), dp.alloc.dtype)
+        log(f"{shape6}: bitwise equal in float32 and float64; kernel {k8_ms:.4f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {k8b:.6f} ms ({k8by})")
+        cfg, dims, dp, lane = burst[0]["args"]
+        G = lane.shape[0]
+        for dt in (torch.float32, torch.float64):
+            d = dp_as(dp, dt)
+            kb = K.scan_lanes(cfg, dims, d, lane)
+            for g in range(G):
+                one = K.scan(cfg, dims, d._replace(node_active=lane[g].contiguous()))
+                for k, v in one.items():
+                    if k != "final_carry":
+                        same(f"K8 burst lane {g} {k} {dt}", kb[k][g], v)
+            del kb
+        burst_ms, bout = cuda_ms(lambda: K.scan_lanes(cfg, dims, dp, lane), 20, warmup=2)
+        burst_b, burst_by = bound(lane_counts(cfg, dims, dp, lane, bout), dp.alloc.dtype)
+        log(f"burst G={G} P={dims['P']} N={dims['N']}: every lane bitwise equal to K2 on its mask in float32 and "
+            f"float64; kernel {burst_ms:.3f} ms, bound {burst_b:.6f} ms ({burst_by}); placed per lane "
+            f"{(bout['selected'] >= 0).sum(dim=1).tolist()}")
+        k8_t = dict(ms=k8_ms, plain_ms=plain_ms, bound_ms=k8b, bound_by=k8by, err=0.0, shape=shape6, launches=launches,
+                    burst_ms=burst_ms, burst_bound_ms=burst_b, burst_bound_by=burst_by,
+                    burst_shape=f"G={G} P={dims['P']} N={dims['N']}")
+        log(f"timing K8: {json.dumps(k8_t)}")
+        del bout, kout
+        torch.cuda.empty_cache()
+
+    with Phase("22. cfg6-autoscale: CUDA float64 service vs CPU float64 service"):
+        grec, dig_g, ev_g = run_autoscale(DEVICE, torch.float64, frozen_clock=True)
+        t0 = time.perf_counter()
+        crec, dig_c, ev_c = cpu_autoscale_ref.get()
+        log(f"CPU float64 service (worker process) waited for {time.perf_counter() - t0:.2f} s")
+        for side, r in (("cuda", grec), ("cpu", crec)):
+            log(f"{side} float64: wall {r['wall_s']:.3f} s, actions {r['actions']}, passes {r['passes']}, "
+                f"pending after {r['pending_after']}, launches {r['launches']}")
+        keys = ("scheduled", "pending_after", "nodes_added", "scale_ups", "passes", "group_sizes", "actions",
+                "methods", "nodes", "estimate_dispatches", "batch_fallbacks")
+        diff = [k for k in keys if grec[k] != crec[k]]
+        if dig_g.keys() != dig_c.keys() or diff:
+            raise AssertionError(f"the CUDA and CPU services differ: {diff}")
+        bad = [n for n in dig_c if dig_g[n] != dig_c[n]]
+        if bad:
+            raise AssertionError(f"{len(bad)} pods differ between the CUDA and CPU services, first {bad[:3]}")
+        if ev_g != ev_c:
+            raise AssertionError("the CUDA and CPU autoscalers recorded different events")
+        if grec["launches"]["scan_lanes"] != grec["estimate_dispatches"]:
+            raise AssertionError(f"float64: K8 launches {grec['launches']['scan_lanes']} != dispatches")
+        log(f"{len(dig_c)} pods: node, annotations and status byte-identical; autoscaler events, summaries "
+            f"and node names equal")
+    return k8_t
+
+
 # ------------------------------------------ CPU references, in workers
 
 def cpu_worker_init() -> None:
@@ -1249,6 +1521,14 @@ def cpu_gang(cut: str) -> "tuple[list, tuple]":
     return records, digests
 
 
+def cpu_autoscale() -> "tuple[dict, dict, str]":
+    """cfg6-autoscale through a CPU float64 service, the store's clock
+    frozen: run_autoscale's (record, pod digests, events digest)."""
+    import torch
+
+    return run_autoscale("cpu", torch.float64, frozen_clock=True)
+
+
 _POOL = None  # the worker pool, stopped on the way out of the script
 
 
@@ -1296,6 +1576,7 @@ def main() -> int:
     cpu_churn_ref = _POOL.apply_async(cpu_churn, (CHURN_CUT,))
     cpu_preempt_ref = _POOL.apply_async(cpu_preempt, (PREEMPT_CUT,))
     cpu_gang_refs = {cut: _POOL.apply_async(cpu_gang, (cut,)) for cut in GANG_CUTS}
+    cpu_autoscale_ref = _POOL.apply_async(cpu_autoscale)
 
     clusters = {}
     timing: dict = {}
@@ -1714,6 +1995,9 @@ def main() -> int:
     # ------------------------------------------- gang (K6, K7)
     k6_t, k7_t, gang_launches = gang_phases(dev, cpu_gang_refs)
 
+    # ------------------------------------------- capacity engine (K8)
+    k8_t = autoscale_phases(dev, cpu_autoscale_ref)
+
     ref = MAIN
     main = timing[(ref, torch.float32)]
     churn_shape = f"cfg5-churn: window of {WINDOW} of P={churn_pr.P} N={churn_pr.N}"
@@ -1817,6 +2101,24 @@ def main() -> int:
             "bound_by": k7_t["bound_by"],
             "library_ms": None,
             "shape": f"group_preview at cfg8-gang's final state: {k7_t['shape']}",
+        },
+        {
+            "name": "scan_lanes",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
+            "replaces": "kube_scheduler_simulator_tpu/autoscaler/estimator.py:186",
+            "launches": k8_t["launches"],
+            "max_abs_err": k8_t["err"],
+            "ms": k8_t["ms"],
+            "plain_ms": k8_t["plain_ms"],
+            "bound_ms": k8_t["bound_ms"],
+            "bound_by": k8_t["bound_by"],
+            "library_ms": None,
+            "paced_by": "sequential dependency chain over the pod queue, one block a lane",
+            "shape": k8_t["shape"],
+            "burst_ms": k8_t["burst_ms"],
+            "burst_bound_ms": k8_t["burst_bound_ms"],
+            "burst_shape": k8_t["burst_shape"],
         },
     ]
     for k in kernels:

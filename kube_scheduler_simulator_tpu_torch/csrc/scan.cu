@@ -78,6 +78,19 @@
 // sampled, its rank in ascending node id is (n_s - c_hi) + c - 1 for
 // id >= start and c - 1 - c_hi below.
 //
+// Lanes (K8, replacing the JAX package's autoscaler/estimator.py:186
+// ScaleUpEstimator._estimate_kernel, which runs this scan vmapped over a
+// [G,N] node_active mask, one lane a node group): blockIdx.y is the lane.
+// Block (b, g) runs the whole pod loop of lane g on its own copy of the
+// carry, read from the shared initial carry (the estimator's template rows
+// carry no bound pods), with its own lane's mask row node_active[g] (lane
+// stride N), and writes its lane's slices of packed_pod and of every final
+// carry (lane strides 5*P, N*R, N*2, N, ...).  Per-block scratch sits in
+// slot g * gridDim.x + b.  So G lanes take G SMs in one launch, each paced
+// by the per-pod chain as a one-lane scan is; a one-lane launch (G = 1) is
+// the scan as it was.  Lane launches run with the trace off: the trace
+// planes and their meta have no lane stride, and launch() refuses them.
+//
 // Exactness: built with --fmad=false and without fast math; every formula
 // keeps the reference's order of operations, divisions are IEEE divisions,
 // quotients go through floor/trunc, rounding is rint (half to even, as
@@ -116,6 +129,7 @@ struct ScanArgs {
   int64_t P, N, R, n_true, sample_k, start0, tb_base, seed_mix;
   int64_t Psrc;  // row stride of spread_match and term_match: the full problem's P
   int64_t trace, reservoir;
+  int64_t lanes;  // K8's lane count: the grid's y extent; node_active is [lanes,N]
   int64_t nf, filters[MAXF];
   int64_t ns, scores[MAXS];
   double weights[MAXS];
@@ -156,7 +170,7 @@ struct ScanArgs {
   const int32_t* node_img_idx;
   const int32_t* name_target;
   const uint8_t* pod_active;
-  const uint8_t* node_active;
+  const uint8_t* node_active;  // [lanes,N]
   const uint8_t* incl_cls;     // [A,M] spread inclusion per (affinity class, label class)
   const int32_t* node_domain;  // [KT,N] global domain id per key, -1 = no label
   const int32_t* spf_key;      // [P,KC] DoNotSchedule constraints: key, -1 = none
@@ -222,8 +236,8 @@ struct ScanArgs {
   void* s_cloud;       // [B,3,N]
   uint8_t* s_csi;      // [B,V,N] attachment bits
   void* s_csi_cnt;     // [B,DR,N] attached ids per driver
-  int32_t* packed;     // [5,P]
-  int32_t* final_start;  // [1]
+  int32_t* packed;     // [lanes,5,P]
+  int32_t* final_start;  // [lanes]
   void* final_requested;
   void* final_nonzero;
   void* final_pod_count;
@@ -430,6 +444,11 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const int b = blockIdx.x;
   const int B = gridDim.x;
   const int64_t P = a.P, N = a.N, R = a.R;
+  // the lane, and this block's scratch slot among the grid's blocks
+  const int64_t lane = blockIdx.y;
+  const int64_t sb = lane * B + b;
+  const uint8_t* node_act = a.node_active + lane * N;
+  int32_t* const packed = a.packed + lane * 5 * P;
   const int nt = (int)a.n_true;
   const int K = (int)a.sample_k;
   const T* alloc = (const T*)a.alloc;
@@ -437,11 +456,11 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const T* nz_alloc = (const T*)a.nz_alloc;
   const T* pod_req = (const T*)a.pod_req;
   const T* pod_nonzero = (const T*)a.pod_nonzero;
-  T* req = (T*)a.s_requested + (int64_t)b * N * R;
-  T* nzc = (T*)a.s_nonzero + (int64_t)b * N * 2;
-  T* pc = (T*)a.s_pod_count + (int64_t)b * N;
-  T* tot = (T*)a.s_total + (int64_t)b * N;
-  uint8_t* fl = a.s_flags + (int64_t)b * N;
+  T* req = (T*)a.s_requested + sb * N * R;
+  T* nzc = (T*)a.s_nonzero + sb * N * 2;
+  T* pc = (T*)a.s_pod_count + sb * N;
+  T* tot = (T*)a.s_total + sb * N;
+  uint8_t* fl = a.s_flags + sb * N;
   const T NEG = T(-1e18);
   const T INF = T(INFINITY);
 
@@ -452,27 +471,27 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   bool ipa_scored = false;
   for (int k = 0; k < a.ns; ++k) ipa_scored = ipa_scored || (ipa && a.scores[k] == S_IPA);
   const int64_t GD = a.G * (a.D + 1);
-  T* spc = (T*)a.s_spread + (int64_t)b * a.SG * N;
-  T* isel = (T*)a.s_ip_sel + (int64_t)b * GD;
-  T* iown = (T*)a.s_ip_own + (int64_t)b * GD;
-  T* ianti = (T*)a.s_ip_anti + (int64_t)b * GD;
-  T* spraw = (T*)a.s_raw_spread + (int64_t)b * N;
-  T* ipraw = (T*)a.s_raw_ipa + (int64_t)b * N;
+  T* spc = (T*)a.s_spread + sb * a.SG * N;
+  T* isel = (T*)a.s_ip_sel + sb * GD;
+  T* iown = (T*)a.s_ip_own + sb * GD;
+  T* ianti = (T*)a.s_ip_anti + sb * GD;
+  T* spraw = (T*)a.s_raw_spread + sb * N;
+  T* ipraw = (T*)a.s_raw_ipa + sb * N;
   const int64_t cap = a.dom_cap;
   const int64_t nslot = a.KC + a.KS;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  T* dom_sum = a.dom_smem ? (T*)dyn_smem : (T*)a.s_dom + (int64_t)b * nslot * cap;
-  int* dom_flag = a.dom_smem ? (int*)(dyn_smem + nslot * cap * sizeof(T)) : a.s_domflag + (int64_t)b * nslot * cap;
+  T* dom_sum = a.dom_smem ? (T*)dyn_smem : (T*)a.s_dom + sb * nslot * cap;
+  int* dom_flag = a.dom_smem ? (int*)(dyn_smem + nslot * cap * sizeof(T)) : a.s_domflag + sb * nslot * cap;
   const T* log_table = (const T*)a.log_table;
   const bool ports = VOL && a.use_ports, restr = VOL && a.use_restr;
   const bool cloud = VOL && a.use_cloud, csi = VOL && a.use_csi;
-  T* sports = ports ? (T*)a.s_ports + (int64_t)b * a.PT * N : nullptr;
-  T* srestr = restr ? (T*)a.s_restr + (int64_t)b * a.VR * N : nullptr;
-  T* scloud = cloud ? (T*)a.s_cloud + (int64_t)b * 3 * N : nullptr;
-  uint8_t* scsi = csi ? a.s_csi + (int64_t)b * a.VID * N : nullptr;
-  T* scnt = csi ? (T*)a.s_csi_cnt + (int64_t)b * a.DR * N : nullptr;
+  T* sports = ports ? (T*)a.s_ports + sb * a.PT * N : nullptr;
+  T* srestr = restr ? (T*)a.s_restr + sb * a.VR * N : nullptr;
+  T* scloud = cloud ? (T*)a.s_cloud + sb * 3 * N : nullptr;
+  uint8_t* scsi = csi ? a.s_csi + sb * a.VID * N : nullptr;
+  T* scnt = csi ? (T*)a.s_csi_cnt + sb * a.DR * N : nullptr;
   const int ws0 = (int)a.ws0;
-  int32_t* srank = ws0 > 0 ? a.s_rank + (int64_t)b * N : nullptr;
+  int32_t* srank = ws0 > 0 ? a.s_rank + sb * N : nullptr;
 
   for (int64_t j = tid; j < N * R; j += blockDim.x) req[j] = ((const T*)a.requested0)[j];
   for (int64_t j = tid; j < N * 2; j += blockDim.x) nzc[j] = ((const T*)a.nonzero0)[j];
@@ -627,7 +646,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         n = r < nt ? (start + r) % nt : r;
         const int ntaint = a.node_taint_idx[n];
         const int nlabel = a.node_label_idx[n];
-        bool ok = a.node_active[n] != 0;
+        bool ok = node_act[n] != 0;
         int plug = -1, fcode = 0;
         for (int k = 0; k < a.nf; ++k) {
           int code = 0;
@@ -1055,10 +1074,10 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
     }
     if (owner && tid == 0) {
-      a.packed[0 * P + i] = sel;
-      a.packed[1 * P + i] = count;
-      a.packed[2 * P + i] = start;
-      a.packed[3 * P + i] = processed;
+      packed[0 * P + i] = sel;
+      packed[1 * P + i] = count;
+      packed[2 * P + i] = start;
+      packed[3 * P + i] = processed;
     }
     // the rotating start advances by the number of visited nodes
     if (active) start = nt > 0 ? (start + processed) % nt : 0;
@@ -1066,33 +1085,45 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   }
 
   if (b != 0) return;
-  for (int64_t i = tid; i < P; i += blockDim.x) a.packed[4 * P + i] = start;
-  if (tid == 0) a.final_start[0] = start;
-  for (int64_t j = tid; j < N * R; j += blockDim.x) ((T*)a.final_requested)[j] = req[j];
-  for (int64_t j = tid; j < N * 2; j += blockDim.x) ((T*)a.final_nonzero)[j] = nzc[j];
-  for (int64_t j = tid; j < N; j += blockDim.x) ((T*)a.final_pod_count)[j] = pc[j];
+  for (int64_t i = tid; i < P; i += blockDim.x) packed[4 * P + i] = start;
+  if (tid == 0) a.final_start[lane] = start;
+  // this lane's slices of the final carries
+  T* f_req = (T*)a.final_requested + lane * N * R;
+  T* f_nz = (T*)a.final_nonzero + lane * N * 2;
+  T* f_pc = (T*)a.final_pod_count + lane * N;
+  T* f_ports = (T*)a.final_ports_used + lane * N * a.PT;
+  T* f_restr = (T*)a.final_restr_used + lane * N * a.VR;
+  T* f_cloud = (T*)a.final_cloud_used + lane * N * 3;
+  T* f_csi = (T*)a.final_csi_att + lane * N * a.VID;
+  T* f_spread = (T*)a.final_spread + lane * a.SG * N;
+  T* f_isel = (T*)a.final_ip_sel + lane * GD;
+  T* f_iown = (T*)a.final_ip_own + lane * GD;
+  T* f_ianti = (T*)a.final_ip_anti + lane * GD;
+  for (int64_t j = tid; j < N * R; j += blockDim.x) f_req[j] = req[j];
+  for (int64_t j = tid; j < N * 2; j += blockDim.x) f_nz[j] = nzc[j];
+  for (int64_t j = tid; j < N; j += blockDim.x) f_pc[j] = pc[j];
   // the volume carries, row-major again (their initial values when the
   // problem carries none)
   for (int64_t j = tid; j < N * a.PT; j += blockDim.x) {
-    ((T*)a.final_ports_used)[j] = ports ? sports[(j % a.PT) * N + j / a.PT] : ((const T*)a.ports_used0)[j];
+    f_ports[j] = ports ? sports[(j % a.PT) * N + j / a.PT] : ((const T*)a.ports_used0)[j];
   }
   for (int64_t j = tid; j < N * a.VR; j += blockDim.x) {
-    ((T*)a.final_restr_used)[j] = restr ? srestr[(j % a.VR) * N + j / a.VR] : ((const T*)a.restr_used0)[j];
+    f_restr[j] = restr ? srestr[(j % a.VR) * N + j / a.VR] : ((const T*)a.restr_used0)[j];
   }
   for (int64_t j = tid; j < N * 3; j += blockDim.x) {
-    ((T*)a.final_cloud_used)[j] = cloud ? scloud[(j % 3) * N + j / 3] : ((const T*)a.cloud_used0)[j];
+    f_cloud[j] = cloud ? scloud[(j % 3) * N + j / 3] : ((const T*)a.cloud_used0)[j];
   }
   for (int64_t j = tid; j < N * a.VID; j += blockDim.x) {
-    ((T*)a.final_csi_att)[j] = csi ? T(scsi[(j % a.VID) * N + j / a.VID]) : ((const T*)a.csi_attached0)[j];
+    f_csi[j] = csi ? T(scsi[(j % a.VID) * N + j / a.VID]) : ((const T*)a.csi_attached0)[j];
   }
   // PodTopologySpread's and InterPodAffinity's carries, for the next window
   for (int64_t j = tid; j < a.SG * N; j += blockDim.x) {
-    ((T*)a.final_spread)[j] = spread_on ? spc[j] : ((const T*)a.spread_counts0)[j];
+    f_spread[j] = spread_on ? spc[j] : ((const T*)a.spread_counts0)[j];
   }
   for (int64_t j = tid; j < GD; j += blockDim.x) {
-    ((T*)a.final_ip_sel)[j] = ipa ? isel[j] : ((const T*)a.ip_sel0)[j];
-    ((T*)a.final_ip_own)[j] = ipa ? iown[j] : ((const T*)a.ip_own0)[j];
-    ((T*)a.final_ip_anti)[j] = ipa ? ianti[j] : ((const T*)a.ip_anti0)[j];
+    f_isel[j] = ipa ? isel[j] : ((const T*)a.ip_sel0)[j];
+    f_iown[j] = ipa ? iown[j] : ((const T*)a.ip_own0)[j];
+    f_ianti[j] = ipa ? ianti[j] : ((const T*)a.ip_anti0)[j];
   }
   if (!a.trace) return;
   for (int k = 0; k < a.ns; ++k) {
@@ -1112,15 +1143,18 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
 
 template <typename T, bool TOPO>
 void launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
+  const dim3 grid((unsigned)blocks, (unsigned)a->lanes);
   if (a->use_ports || a->use_restr || a->use_cloud || a->use_csi) {
-    scan_kernel<T, TOPO, true><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    scan_kernel<T, TOPO, true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
   } else {
-    scan_kernel<T, TOPO, false><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    scan_kernel<T, TOPO, false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
   }
 }
 
 template <typename T>
 int launch(const ScanArgs* a, int64_t blocks, void* stream) {
+  // the trace planes have no lane stride; gridDim.y is at most 65 535
+  if (a->lanes < 1 || a->lanes > 65535 || (a->lanes > 1 && a->trace)) return (int)cudaErrorInvalidValue;
   const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
   if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) {
     launch_vol<T, true>(a, blocks, smem, stream);

@@ -1166,6 +1166,52 @@ def build_batch_fn(cfg: BatchConfig, dims: dict, ws0: "int | None" = None, windo
     return lambda carry0, dp, offset: fn(dp, carry0, offset)
 
 
+# ------------------------------------------------ the lane scan (K8)
+
+def check_lanes(cfg: BatchConfig, dims: dict, lane_active: torch.Tensor) -> None:
+    """Raise for what the lane scan does not take: the trace on, or a lane
+    mask that is not bool [G, N] with G >= 1."""
+    if cfg.trace:
+        raise ValueError("the lane scan runs with the trace off")
+    if lane_active.dtype != torch.bool or lane_active.dim() != 2 or lane_active.shape[1] != dims["N"] \
+            or lane_active.shape[0] < 1:
+        raise ValueError(f"lane_active must be bool [G, {dims['N']}] with G >= 1, got "
+                         f"{lane_active.dtype} {tuple(lane_active.shape)}")
+
+
+def scan_lanes_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
+    """The plain version of the lane scan (K8): ``scan_plain`` once per lane
+    g with ``node_active = lane_active[g]``, every output stacked on a
+    leading lane axis (what the JAX package's ``jax.vmap`` of
+    ``build_batch_fn`` over the node_active mask returns), and the lanes'
+    final carries as ``final_carry``."""
+    check_lanes(cfg, dims, lane_active)
+    outs = [scan_plain(cfg, dims, dp._replace(node_active=lane_active[g])) for g in range(lane_active.shape[0])]
+    out = {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k != "final_carry"}
+    out["final_carry"] = final_carry(out, out["final_start"])
+    return out
+
+
+def build_lanes_fn(cfg: BatchConfig, dims: dict):
+    """fn(dp, lane_active) → dict of [G, ...] result tensors: the scan over
+    the G lanes of a [G, N] node mask in one dispatch (the JAX package's
+    ``jax.jit(jax.vmap(build_batch_fn(cfg, dims)))`` with only node_active
+    mapped), by the lane kernel for a problem on the card and the plain
+    version for one on the CPU.  Trace off, no window, no carry0, no ws0."""
+    check_slice(cfg)
+    if cfg.trace:
+        raise ValueError("the lane scan runs with the trace off")
+
+    def fn(dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
+        if dp.alloc.device.type == "cuda":
+            from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+            return kernels.scan_lanes(cfg, dims, dp, lane_active)
+        return scan_lanes_plain(cfg, dims, dp, lane_active)
+
+    return fn
+
+
 # ------------------------------------------------ device-resident problem
 
 def scatter_rows_plain(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,11 @@ counters and the wrappers.
               from a given initial carry (``offset``, ``window``,
               ``carry0``); it always hands on the whole final carry, so
               windows chain on the card.
+- ``scan_lanes`` (csrc/scan.cu, K8) — the same kernel over G lanes, one
+              block a lane on the grid's y axis: lane g runs the whole pod
+              loop with node_active = lane_active[g] and writes its slices
+              of the packed outputs and the final carries (the capacity
+              engine's scale-up estimate: one node group a lane).
 - ``compact`` (csrc/compact.cu) — the trace planes → the manifest's byte
               blob, one block per pod row.
 - ``scatter`` (csrc/scatter.cu) — ``buf[idx] = rows`` on a plane resident on
@@ -60,6 +65,7 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
     BatchConfig,
     DeviceProblem,
     _mix32,
+    check_lanes,
     check_slice,
     final_carry,
     in_step_width,
@@ -79,7 +85,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"scan": 0, "compact": 0, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
+LAUNCHES = {"scan": 0, "scan_lanes": 0, "compact": 0, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
 
 # the struct capacities of csrc/*.cu
 MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 16, 8, 4, 16, 16, 8, 16
@@ -126,7 +132,8 @@ _i64, _f64, _ptr = ctypes.c_int64, ctypes.c_double, ctypes.c_void_p
 class ScanArgs(ctypes.Structure):
     _fields_ = [
         (n, _i64) for n in (
-            "P", "N", "R", "n_true", "sample_k", "start0", "tb_base", "seed_mix", "Psrc", "trace", "reservoir", "nf",
+            "P", "N", "R", "n_true", "sample_k", "start0", "tb_base", "seed_mix", "Psrc", "trace", "reservoir", "lanes",
+            "nf",
         )
     ] + [
         ("filters", _i64 * MAXF),
@@ -338,6 +345,28 @@ def scan(
     previous window's ``final_start`` on the card).  ``blocks`` defaults to
     one per SM with the trace on (one without); time_scan.py compares it
     with a single block."""
+    out = _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window)
+    LAUNCHES["scan"] += 1
+    return out
+
+
+def scan_lanes(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
+    """Launch the scan kernel over G lanes (K8) on a problem on the card,
+    lane g with ``node_active = lane_active[g]`` (a contiguous CUDA bool
+    [G, N]); returns the outputs of ops/batch.scan_lanes_plain under the
+    same keys, each with a leading lane axis.  The trace is off: the
+    estimator reads decisions, not annotations."""
+    check_lanes(cfg, dims, lane_active)
+    _check(lane_active, "lane_active", torch.bool)
+    out = _launch_scan(cfg, dims, dp, 1, None, None, 0, None, lane_active)
+    LAUNCHES["scan_lanes"] += 1
+    return out
+
+
+def _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None) -> dict:
+    """One launch of csrc/scan.cu: ``scan``'s arguments, and with
+    ``lane_active`` [G, N] the lane axis (every output gets a leading lane
+    axis, the scratch a slot per lane and block)."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
@@ -371,33 +400,39 @@ def scan(
 
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
     SG, G, D = dims["SG"], dims["G"], dims["D"]
+    # the lane axis: L lanes, each output with a leading [L]
+    L = 1 if lane_active is None else lane_active.shape[0]
+    lead = () if lane_active is None else (L,)
+    o = lambda *shape, dtype=dt: e(*lead, *shape, dtype=dtype)
 
     def carried(t: torch.Tensor, rows: int) -> torch.Tensor:
         """A final-carry output the kernel writes ``rows`` rows of: a problem
         without selector groups or term groups still carries one padding
         row, handed on as it came in."""
-        return e(*t.shape) if t.shape[0] == rows else t.clone()
+        return o(*t.shape) if t.shape[0] == rows else t.expand(*lead, *t.shape).clone()
 
     out = {
-        "packed_pod": e(5, P, dtype=i32),
-        "final_requested": e(N, R),
-        "final_nonzero": e(N, 2),
-        "final_pod_count": e(N),
-        "final_ports_used": e(*dp.ports_used0.shape),
-        "final_restr_used": e(*dp.restr_used0.shape),
-        "final_cloud_used": e(*dp.cloud_used0.shape),
-        "final_csi_att": e(*dp.csi_attached0.shape),
+        "packed_pod": o(5, P, dtype=i32),
+        "final_requested": o(N, R),
+        "final_nonzero": o(N, 2),
+        "final_pod_count": o(N),
+        "final_ports_used": o(*dp.ports_used0.shape),
+        "final_restr_used": o(*dp.restr_used0.shape),
+        "final_cloud_used": o(*dp.cloud_used0.shape),
+        "final_csi_att": o(*dp.csi_attached0.shape),
         "final_spread_counts": carried(dp.spread_counts0, SG),
         "final_ip_sel": carried(dp.ip_sel0, G),
         "final_ip_own": carried(dp.ip_own0, G),
         "final_ip_anti": carried(dp.ip_anti0, G),
     }
-    final_start = e(1, dtype=i32)
+    final_start = e(L, dtype=i32)
     gates = plugin_gates(cfg, dims)
     # column counts of the volume arrays (at least 1 each)
     PT, VR, VID, DR = (t.shape[1] for t in (dp.ports_used0, dp.restr_used0, dp.csi_attached0, dp.csi_seed_used))
     cap, in_smem = domain_layout(dims, dt)
     nslot = dims["KC"] + dims["KS"]
+    # a carry copy for each block of each lane
+    blocks_x, blocks = blocks, blocks * L
     scratch = dict(
         s_requested=e(blocks, N, R), s_nonzero=e(blocks, N, 2), s_pod_count=e(blocks, N),
         s_spread=e(blocks, SG, N) if SG > 0 else e(1),
@@ -424,6 +459,7 @@ def scan(
     a.seed_mix = _mix32((cfg.seed ^ GOLDEN32) & MASK32)
     a.trace = int(cfg.trace)
     a.reservoir = int(cfg.tie_break == "reservoir")
+    a.lanes = L
     a.nf = len(cfg.filters)
     for k, f in enumerate(cfg.filters):
         a.filters[k] = _FILTER_IDS[f]
@@ -492,6 +528,8 @@ def scan(
         if not t.is_cuda or t.dtype != dt or (t.numel() and (t.stride(1) != 1 or t.stride(0) != Psrc)):
             raise ValueError(f"{name} must be a {dt} CUDA tensor with rows of the full problem")
         setattr(a, name, t.data_ptr())
+    if lane_active is not None:
+        a.node_active = lane_active.data_ptr()
     a.start_ptr = _check(start_dev, "start0", i32) if start_dev is not None else None
     for name, t in scratch.items():
         setattr(a, name, t.data_ptr())
@@ -518,16 +556,15 @@ def scan(
             a.norm[k] = out[f"norm:{s}"].data_ptr()
         out["trace_meta"] = e(len(cfg.scores) + 1, 2, dtype=i32)
         a.trace_meta = out["trace_meta"].data_ptr()
-    rc = fn(ctypes.byref(a), blocks, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(ctypes.byref(a), blocks_x, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "scan")
-    LAUNCHES["scan"] += 1
     packed = out["packed_pod"]
     out.update(
-        selected=packed[0],
-        feasible_count=packed[1],
-        sample_start=packed[2],
-        sample_processed=packed[3],
-        final_start=final_start[0],
+        selected=packed[..., 0, :],
+        feasible_count=packed[..., 1, :],
+        sample_start=packed[..., 2, :],
+        sample_processed=packed[..., 3, :],
+        final_start=final_start[0] if lane_active is None else final_start,
     )
     out["final_carry"] = final_carry(out, final_start)
     return out

@@ -39,12 +39,19 @@ A round whose resource values would go inexact in float32 runs in float64
 on the card (ops/batch.round_dtype), counted by reason in
 ``stats["f64_promotions"]``.
 
-Refused with an error, never worked around: ``autoscale`` other than
-"off", a mesh, ``weights=``, extenders (preempt-verb ones included),
-``schedule_stream``.  Left out: the journal, the background loop,
-``metrics()``, the restart and reset of a running configuration, and the
-chaos catch of the reference (a kernel or launch error propagates:
-finishing the round on the Python cycle would hide the kernel).
+The capacity engine (autoscaler/) hooks in as the reference's does:
+``autoscale`` "on" or "scenario" builds a ``ClusterAutoscaler`` lazily
+(``autoscaler``), and ``schedule_pending_autoscaled`` loops drain, one
+autoscaler pass, drain, while the autoscaler acts.  Its scale-up estimate
+is one launch of the lane scan (K8) on the service's device and dtype.
+
+Refused with an error, never worked around: a mesh, ``weights=``,
+extenders (preempt-verb ones included), ``schedule_stream``.  Left out:
+the journal, the background loop (and with it the throttled background
+autoscaler passes), ``metrics()``, the restart and reset of a running
+configuration, and the chaos catch of the reference (a kernel or launch
+error propagates: finishing the round on the Python cycle would hide the
+kernel).
 """
 
 from __future__ import annotations
@@ -112,16 +119,21 @@ class SchedulerService:
         pods × nodes below this take the sequential cycle.  ``commit_wave``:
         pods per bulk-commit wave.  ``pipeline``: the double-buffered
         windowed round; "auto" turns it on on the card, and on the CPU
-        where the host has at least 4 cores (the reference's rule)."""
-        if autoscale != "off":
-            raise ValueError(f"autoscale={autoscale!r}: the capacity engine is not ported yet")
+        where the host has at least 4 cores (the reference's rule).
+        ``autoscale``: "off" = no capacity engine; "on" =
+        ``schedule_pending_autoscaled`` runs autoscaler passes between
+        rounds; "scenario" = only ``scenario_autoscaler`` callers get one.
+        ``autoscaler_opts`` forwards to ``ClusterAutoscaler``;
+        ``autoscale_interval_s`` is kept for the reference's signature (it
+        throttles the background loop, which is not ported)."""
+        if autoscale not in ("off", "on", "scenario"):
+            raise ValueError(f"autoscale must be off|on|scenario, got {autoscale!r}")
         if mesh not in ("auto", None):
             raise ValueError("a mesh: the port runs one card; sharding the node axis is not ported yet")
         if os.environ.get("KSS_MESH_DEVICES", "").strip() not in ("", "0", "1"):
             raise ValueError("KSS_MESH_DEVICES: the port runs one card; sharding the node axis is not ported yet")
         if weights is not None:
             raise ValueError("weights=: the plugin-weight override is not ported yet")
-        del autoscaler_opts, autoscale_interval_s
         self.cluster_store = cluster_store
         self.seed = seed
         self.tie_break = tie_break
@@ -202,6 +214,56 @@ class SchedulerService:
         # commit path; the store stamps its mutations against it too
         self.profiler = WaveProfiler()
         self.cluster_store.profiler = self.profiler
+        # capacity engine (autoscaler/): built lazily on first use, so
+        # autoscale="off" services never import the package
+        self.autoscale = autoscale
+        self._autoscaler_opts = dict(autoscaler_opts or {})
+        self._autoscaler: Any = None
+        self._autoscaler_build_lock = threading.Lock()
+        self.autoscale_interval_s = float(autoscale_interval_s)
+
+    # ----------------------------------------------------------- autoscaler
+
+    @property
+    def autoscaler(self) -> Any:
+        """The capacity engine (None when ``autoscale="off"``)."""
+        if self._autoscaler is None and self.autoscale != "off":
+            from kube_scheduler_simulator_tpu_torch.autoscaler import ClusterAutoscaler
+
+            with self._autoscaler_build_lock:
+                if self._autoscaler is None:
+                    self._autoscaler = ClusterAutoscaler(self.cluster_store, self, **self._autoscaler_opts)
+        return self._autoscaler
+
+    @autoscaler.setter
+    def autoscaler(self, value: Any) -> None:
+        self._autoscaler = value
+        if value is not None and self.autoscale == "off":
+            self.autoscale = "on"
+
+    def scenario_autoscaler(self) -> Any:
+        """The autoscaler a scenario replay should drive (None unless the
+        knob enables it for scenarios — "on" or "scenario")."""
+        return self.autoscaler if self.autoscale in ("on", "scenario") else None
+
+    def schedule_pending_autoscaled(
+        self,
+        max_rounds: int = 3,
+        respect_backoff: bool = False,
+        max_passes: int = 8,
+    ) -> dict[str, ScheduleResult]:
+        """The converged autoscale→schedule→autoscale loop: drain the queue,
+        run one autoscaler pass, and repeat while the autoscaler keeps
+        acting (its node adds and drains re-activate pods through the
+        queue's move machinery).  With ``autoscale="off"`` this IS
+        ``schedule_pending``."""
+        results: dict[str, ScheduleResult] = {}
+        for _ in range(max(max_passes, 1)):
+            results.update(self.schedule_pending(max_rounds=max_rounds, respect_backoff=respect_backoff))
+            asc = self.autoscaler
+            if asc is None or not asc.run_once()["actions"]:
+                break
+        return results
 
     # ----------------------------------------------------------- extension
 

@@ -18,6 +18,10 @@ fills a store with cfg7-preempt-5k, Kubernetes scheduler_perf's
 PreemptionBasic shape at its 5000Nodes size.  ``gang_churn`` replays the
 JAX package's cfg8-gang (bench ``run_gang``): distributed-training jobs,
 each a PodGroup of one-CPU members, arriving in waves and completing.
+``autoscale`` builds the JAX package's cfg6-autoscale (bench
+``run_autoscale``): a few seed nodes, three node groups and a backlog of
+pending pods; ``autoscale_burst`` one scale-up estimate's groups and
+pods against many pools.
 """
 
 from __future__ import annotations
@@ -435,3 +439,62 @@ def gang_churn(
                     pass
             store.delete("podgroups", g)
         prev = cur
+
+
+# cfg6-autoscale's node groups (the JAX package's bench ``run_autoscale``):
+# (name, cpu, memory, disk label)
+AUTOSCALE_GROUPS = (
+    ("pool-small", "8000m", "32Gi", "ssd"),
+    ("pool-mid", "16000m", "64Gi", "hdd"),
+    ("pool-big", "64000m", "256Gi", "ssd"),
+)
+
+
+def node_group(name: str, cpu: str, memory: str, labels: dict, max_size: int, taints=None) -> dict:
+    """A NodeGroup at minSize 0 whose template has ``labels`` plus a zone of
+    its own, 110 pods and, when given, ``taints``."""
+    template: dict = {
+        "metadata": {"labels": {**labels, "topology.kubernetes.io/zone": f"zone-{name}"}},
+        "status": {"allocatable": {"cpu": cpu, "memory": memory, "pods": "110"}},
+    }
+    if taints:
+        template["spec"] = {"taints": taints}
+    return {"metadata": {"name": name}, "spec": {"minSize": 0, "maxSize": max_size, "template": template}}
+
+
+def autoscale(store, start, n_pods: int = 1500, seed_nodes: int = 4, max_size: int = 48, seed: int = 11):
+    """cfg6-autoscale as the JAX package's bench ``run_autoscale`` builds it
+    in ``store``: ``seed_nodes`` bench nodes and the three node groups of
+    ``AUTOSCALE_GROUPS`` at maxSize ``max_size``, then ``start(store)`` (the
+    caller builds and starts its scheduler service there, as the bench
+    does before the pods arrive), then ``n_pods`` pending pods of bench's
+    ``mk_pod`` drawn from ``random.Random(seed)``.  Returns what ``start``
+    returned."""
+    rng = random.Random(seed)
+    for i in range(seed_nodes):
+        store.create("nodes", mk_node(i))
+    for name, cpu, mem, disk in AUTOSCALE_GROUPS:
+        store.create("nodegroups", node_group(name, cpu, mem, {"disk": disk}, max_size))
+    svc = start(store)
+    for i in range(n_pods):
+        store.create("pods", mk_pod(i, rng))
+    return svc
+
+
+def autoscale_burst(n_groups: int = 16, copies: int = 64, n_pending: int = 10_000, seed: int = 11):
+    """(groups, headroom, pending) of one scale-up estimate against many
+    pools: ``n_groups`` node groups, group g of 4(g + 1) CPU and 4 GiB a CPU
+    (4 to 64 CPU at 16 groups), ``disk`` ssd on odd groups and hdd on even
+    ones, every 4th group tainted ``NoSchedule`` (no pending pod tolerates
+    it); ``copies`` template copies each (the reference autoscaler's
+    ``max_nodes_per_scale_up``); ``n_pending`` pods of bench's ``mk_pod``
+    drawn from ``random.Random(seed)``."""
+    rng = random.Random(seed)
+    groups = []
+    for g in range(n_groups):
+        cpu = 4 * (g + 1)
+        taints = [{"key": "dedicated", "value": "batch", "effect": "NoSchedule"}] if g % 4 == 3 else None
+        groups.append(node_group(f"burst-{g:02d}", str(cpu), f"{4 * cpu}Gi", {"disk": "ssd" if g % 2 else "hdd"},
+                                 copies, taints))
+    headroom = {gr["metadata"]["name"]: copies for gr in groups}
+    return groups, headroom, [mk_pod(i, rng) for i in range(n_pending)]

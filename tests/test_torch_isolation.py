@@ -89,6 +89,14 @@ gstore.create("podgroups", dict(metadata=dict(name="g"), spec=dict(minMember=2))
 for name in ("g-0", "g-1"):
     gstore.create("pods", make_member(name, "g"))
 assert group_preview(gstore, gstore.get("podgroups", "g"), device="cpu")["feasible"] is True
+def start(st):
+    s = SchedulerService(st, use_batch="auto", batch_min_work=0, autoscale="on", device="cpu")
+    s.start_scheduler(None)
+    return s
+astore = ClusterStore()
+asvc = workloads.autoscale(astore, start, n_pods=60, seed_nodes=0, max_size=4)
+asvc.schedule_pending_autoscaled(max_rounds=2)
+assert not asvc.pending_pods() and asvc.autoscaler.metrics()["estimate_dispatches"] >= 1
 new = set(sys.modules) - before
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == {REFERENCE!r} or m.startswith({REFERENCE!r} + ".")))
@@ -129,6 +137,10 @@ def test_entry_points_default_to_the_card():
         GE.group_preview(store, store.get("podgroups", "g"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GK.run_window_verdict([0], [0], [[0]], [0], [1], 1)
+    from kube_scheduler_simulator_tpu_torch.autoscaler import ScaleUpEstimator
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScaleUpEstimator()
     assert resolve_device("cpu").type == "cpu"
     assert resolve_dtype(resolve_device("cpu")) == torch.float64
     assert resolve_dtype(torch.device("cuda")) == torch.float32
@@ -148,5 +160,7 @@ def test_a_cuda_round_launches_both_kernels():
     nodes, all_pods, pending = workloads.cluster(40, 60, seed=1)
     kernels.reset_counts()
     res = BatchEngine(scores=[("NodeResourcesFit", 1)], trace=True).schedule(nodes, all_pods, pending)
-    assert kernels.LAUNCHES == {"scan": 1, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
+    assert kernels.LAUNCHES == {
+        "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
+    }
     assert sum(s is not None for s in res.selected_nodes) == 40

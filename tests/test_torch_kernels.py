@@ -162,6 +162,8 @@ def test_wrappers_refuse_cpu_tensors():
     cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=SCORES, trace=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.scan(cfg, dims, dp)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.scan_lanes(cfg._replace(trace=False), dims, dp, torch.ones(2, dims["N"], dtype=torch.bool))
     out = TB.build_batch_fn(cfg, dims)(dp)
     _fn, man = TB.build_compact_fn(cfg, dims, 64, 64, ("int8",) * 5, 15)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -177,7 +179,9 @@ def test_wrappers_refuse_cpu_tensors():
     f64 = lambda *shape: torch.zeros(shape, dtype=torch.float64)  # noqa: E731
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.gang_feasibility(f64(2, 3, 1), torch.ones(2, 3, dtype=torch.bool), f64(4, 1), f64(4), i32(2, 4), 2)
-    assert TK.LAUNCHES == {k: 0 for k in ("scan", "compact", "scatter", "preempt", "gang_verdict", "gang_feasibility")}
+    assert TK.LAUNCHES == {
+        k: 0 for k in ("scan", "scan_lanes", "compact", "scatter", "preempt", "gang_verdict", "gang_feasibility")
+    }
 
 
 RTCR_SHAPE = ((0, 20), (40, 100), (100, 10))
@@ -466,3 +470,37 @@ def test_float32_round_past_the_exact_bound_runs_in_float64_on_the_card():
         assert eng.last_timings["promoted_f64"] == float(dt == torch.float32)
     assert out[torch.float32] == out[torch.float64]
     assert out[torch.float32][0] is None and "Insufficient memory" in out[torch.float32][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topo", [False, True])
+def test_lane_scan_matches_plain_version_and_one_lane_scans_on_the_card(topo):
+    """K8 against its plain version in both dtypes on seeded lane masks
+    (overlapping blocks of nodes, one lane of every node, one of none), and
+    each lane against the one-lane scan (K2) launched on that lane's
+    mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    filters, scores = (SEVEN_FILTERS, (("NodeResourcesFit", 1),))
+    cfg = TB.BatchConfig(filters=filters, scores=scores, fit_strategy="MostAllocated", tie_break="first")
+    for dt in (torch.float32, torch.float64):
+        _pr, dp, dims = _problem(dt, "cuda", sampling=False, topo=topo)
+        rng = np.random.default_rng(9)
+        N = dims["N"]
+        masks = np.zeros((5, N), dtype=bool)
+        for g in range(3):
+            lo = int(rng.integers(0, 100))
+            masks[g, lo : lo + int(rng.integers(5, 40))] = True
+        masks[3, :130] = True
+        lane = torch.from_numpy(masks).to("cuda")
+        k_out = TK.scan_lanes(cfg, dims, dp, lane)
+        p_out = TB.scan_lanes_plain(cfg, dims, dp, lane)
+        assert_outputs_equal(k_out, p_out, (dt, topo))
+        for g in range(masks.shape[0]):
+            one = TK.scan(cfg, dims, dp._replace(node_active=lane[g].contiguous()))
+            for key in ("packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_spread_counts",
+                        "final_ip_sel", "final_ip_own", "final_ip_anti"):
+                assert torch.equal(k_out[key][g], one[key]), (dt, topo, g, key)
+        assert (k_out["selected"][4] < 0).all() and (k_out["selected"][3] >= 0).any()

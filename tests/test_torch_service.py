@@ -195,12 +195,13 @@ def test_two_profiles_run_as_segments():
 def test_the_port_refuses_what_it_has_not_ported():
     store = ClusterStore()
     for kw, what in (
-        ({"autoscale": "on"}, "capacity engine"),
         ({"mesh": object()}, "mesh"),
         ({"weights": [1.0]}, "weight override"),
     ):
         with pytest.raises(ValueError, match=what):
             SchedulerService(store, device="cpu", **kw)
+    # the capacity engine is ported: the knob is accepted
+    assert SchedulerService(store, device="cpu", autoscale="on").autoscaler is not None
     svc = SchedulerService(store, device="cpu", use_batch="auto")
     with pytest.raises(ValueError, match="extender"):
         svc.start_scheduler({"extenders": [{"urlPrefix": "http://localhost:1", "filterVerb": "filter"}]})
