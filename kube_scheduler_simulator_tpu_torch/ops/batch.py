@@ -1197,10 +1197,9 @@ def build_lanes_fn(cfg: BatchConfig, dims: dict):
     the G lanes of a [G, N] node mask in one dispatch (the JAX package's
     ``jax.jit(jax.vmap(build_batch_fn(cfg, dims)))`` with only node_active
     mapped), by the lane kernel for a problem on the card and the plain
-    version for one on the CPU.  Trace off, no window, no carry0, no ws0."""
+    version for one on the CPU.  Trace off (each call checks it with the
+    mask, ``check_lanes``), no window, no carry0, no ws0."""
     check_slice(cfg)
-    if cfg.trace:
-        raise ValueError("the lane scan runs with the trace off")
 
     def fn(dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
         if dp.alloc.device.type == "cuda":

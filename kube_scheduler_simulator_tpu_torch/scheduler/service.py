@@ -122,10 +122,11 @@ class SchedulerService:
         where the host has at least 4 cores (the reference's rule).
         ``autoscale``: "off" = no capacity engine; "on" =
         ``schedule_pending_autoscaled`` runs autoscaler passes between
-        rounds; "scenario" = only ``scenario_autoscaler`` callers get one.
-        ``autoscaler_opts`` forwards to ``ClusterAutoscaler``;
-        ``autoscale_interval_s`` is kept for the reference's signature (it
-        throttles the background loop, which is not ported)."""
+        rounds.  "scenario" is accepted and, until the background loop and
+        scenario/ are ported, behaves as "on".  ``autoscaler_opts``
+        forwards to ``ClusterAutoscaler``; ``autoscale_interval_s`` is
+        accepted for the reference's signature and unused (it throttles
+        the background loop, which is not ported)."""
         if autoscale not in ("off", "on", "scenario"):
             raise ValueError(f"autoscale must be off|on|scenario, got {autoscale!r}")
         if mesh not in ("auto", None):
@@ -220,7 +221,6 @@ class SchedulerService:
         self._autoscaler_opts = dict(autoscaler_opts or {})
         self._autoscaler: Any = None
         self._autoscaler_build_lock = threading.Lock()
-        self.autoscale_interval_s = float(autoscale_interval_s)
 
     # ----------------------------------------------------------- autoscaler
 

@@ -153,7 +153,7 @@ def test_lane_scan_refuses_the_trace_and_a_bad_mask():
     dp, dims = TB.lower(TE.pad_problem(TE.encode(synth, [], pending[:8])), device="cpu")
     cfg = TB.BatchConfig(filters=("NodeResourcesFit",), scores=(("NodeResourcesFit", 1),))
     with pytest.raises(ValueError, match="trace off"):
-        TB.build_lanes_fn(cfg._replace(trace=True), dims)
+        TB.build_lanes_fn(cfg._replace(trace=True), dims)(dp, torch.ones(1, dims["N"], dtype=torch.bool))
     fn = TB.build_lanes_fn(cfg, dims)
     with pytest.raises(ValueError, match="lane_active"):
         fn(dp, torch.ones(2, dims["N"] + 1, dtype=torch.bool))
