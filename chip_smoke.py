@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 13-19 min, build included
+    python3 chip_smoke.py    # one card, about 15-19 min, build included
 
 Workloads (every one from seed 42 through ``workloads.cluster``):
 
@@ -65,12 +65,19 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
 - the autoscale burst: one ``ScaleUpEstimator.estimate`` against 16 node
   groups of 64 copies (the reference autoscaler's max_nodes_per_scale_up),
   4 to 64 CPU, every 4th tainted NoSchedule, and 10 000 pending bench
-  pods (``workloads.autoscale_burst``): G 16 x N 1 024 x P 10 000.
+  pods (``workloads.autoscale_burst``): G 16 x N 1 024 x P 10 000;
+- cfg10-tune-10k: the JAX bench's tune report (``bench.py`` run_tune_report:
+  the imbalance/cem, consolidate/cem and imbalance/grad rows, seed 11, 8
+  steps, population 16, tau 50, lr 1, the default profile's seven scores and
+  its filters) at 1 250 nodes x 10 000 pods (the bench's 8 pods a node at
+  north's pod count; ``workloads.tune``), ``run_tuning`` on the card in
+  float32; the bench's own 12 x 96 size is the parity cut.
 
-Cut for the time limit: the float64 churn runs 1 wave.  The CPU float64
-references of phases 4, 9, 14, 18 and 22 run in two worker processes started
-after the build, beside the card's phases; the script stops them before
-it exits.
+Cut for the time limit: the float64 churn runs 1 wave, the float32 churn
+its first 3 of 5 waves.  The CPU float64
+references of phases 4, 9, 14, 18, 22 and 26 run in two worker processes
+started after the build, beside the card's phases; the script stops them
+before it exits.
 
 Phases (each prints its seconds; any failure exits nonzero before the last
 line):
@@ -103,7 +110,7 @@ line):
    kernel bitwise (packed outputs, trace planes and compaction blobs window
    by window, the whole final carry), in both dtypes, timed against it; at
    cfg5-churn's wave shape, one window against the windowed plain version;
-8. cfg5-churn end to end on the card, float32 (5 waves) and float64 (1
+8. cfg5-churn end to end on the card, float32 (3 of 5 waves) and float64 (1
    wave): per wave the wall, encode, blocked and estimated device time,
    commit, windows, launches (counts reset just before each wave), the
    placer's decisions and planes scattered, and the encoder's counters; a
@@ -181,7 +188,33 @@ line):
 22. cfg6-autoscale through the CUDA float64 service and the CPU float64
    service (a worker process), store clocks frozen: every pod's
    annotations, node and status, the autoscaler's events, summaries and
-   node names equal.
+   node names equal;
+23. K9 at cfg10-tune-10k's imbalance problem on generation 0's population
+   of ``run_cem`` (seed 11, 16 lanes), in float32 and float64: each lane
+   bitwise equal to the one-lane scan (K2) under that lane's weights
+   (packed outputs and final carry), lane 0 bitwise equal to
+   ``scan_plain``, the objective kernel (values on every lane, cotangents
+   of every lane) bitwise equal to its plain version for the three
+   objectives; K9 timed over 20 launches, the plain scan once;
+24. K2g at the same problem, tau 50: fragmentation in float32 and
+   utilization in float64 against ``grad_plain`` within K2G_TOL of the
+   gradient's norm (printed with the error), the launch's final carry
+   bitwise the hard rollout's; pending_age exactly 0; timed over 20
+   launches;
+25. cfg10-tune-10k end to end, float32, the three rows through a default
+   service on the card: wall, rollouts, dispatches, grad dispatches,
+   launches (counts reset just before each row), default and tuned
+   objectives, improvement, exactness headroom and the population's carry
+   bytes; it fails on K9 launches other than the dispatches, K2g launches
+   other than the grad dispatches, a promotion, or a tuned objective below
+   the default;
+26. CUDA float64 against CPU float64 (a worker process) at the bench's
+   12 x 96: the three ``run_tuning`` reports (CEM bitwise, grad within
+   1e-9); the zero-drift rounds (the bench's imbalance workload through the
+   service with no override, with the profile's own weights as an
+   override, and with seeded float weights): the defaults change no byte,
+   and every pod's bytes equal the CPU service's, finalScore fractional
+   under the float weights.
 
 Then one ``{"kernels": [...]}`` line (time, plain time, bound and launches
 of each kernel: the one-launch scan at cfg5-vol, launched by its round;
@@ -190,8 +223,9 @@ launched by the float32 churn; the victim search at the first dispatch of
 cfg7-preempt-5k, launched by its round; the window verdict at cfg8-gang's
 first dispatch, launched by the gang waves; the feasibility scan at the
 preview's first group, launched by group_preview; the lane scan at
-cfg6-autoscale's first estimate dispatch, launched by its loop), and as
-the last line
+cfg6-autoscale's first estimate dispatch, launched by its loop; the
+population scan K9 with its objective at phase 23's shape and the grad scan
+K2g at phase 24's, launched by phase 25's rows), and as the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
 """
@@ -273,6 +307,7 @@ MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
 # cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
 CHURN = (10000, 5000, 5, 50)
 CHURN_F64_WAVES = 1
+CHURN_F32_WAVES = 3  # the first 3 of its 5 waves, for the time limit
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
@@ -313,7 +348,21 @@ PROBE_POD = {"metadata": {"name": "p0", "namespace": "default"},
 MUST_REJECT = ("NodePorts", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 DEVICE = "cuda"
 # what one BatchEngine round launches
-ROUND_LAUNCHES = {"scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
+ROUND_LAUNCHES = {
+    "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
+    "scan_population": 0, "objective": 0, "scan_grad": 0,
+}
+# cfg10-tune-10k (workloads.TUNE: the JAX bench's tune report at 1 250 nodes
+# x 10 000 pods, seed 11, steps 8, pop 16, tau 50, lr 1) and the bench's own
+# 12 x 96 size, the parity cut; the zero-drift and float-weight service
+# rounds: the bench's zero-drift workload (imbalance, 10 nodes x 80 pods,
+# seed 3) and seeded float weights
+TUNE_PARITY = dict(n_nodes=12, n_pods=96)
+TUNE_SERVICE = dict(n_nodes=10, n_pods=80, seed=3)
+TUNE_FLOAT_WEIGHTS = [1.37, 2.05, 0.62, 2.5, 1.75, 0.9, 1.12]
+# K2g against grad_plain: ||dg|| <= tol * ||g|| (the block's sums run in
+# another order than the plain version's)
+K2G_TOL = {"float64": 1e-10, "float32": 1e-4}
 
 
 def log(*a) -> None:
@@ -1464,6 +1513,307 @@ def autoscale_phases(dev, cpu_autoscale_ref) -> dict:
     return k8_t
 
 
+# ------------------------------------------ the tuner (K9, K2g)
+
+def tune_reports(device, dt, size) -> list:
+    """The JAX bench's three tune rows (``workloads.TUNE_ROWS``) through the
+    port's ``run_tuning`` on ``device`` in ``dt`` at ``size`` (nodes, pods),
+    each with its wall and the kernel launches (counts reset just before)."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.tuning import run_tuning
+
+    t = workloads.TUNE
+    out = []
+    for family, tuner in workloads.TUNE_ROWS:
+        K.reset_counts()
+        t0 = time.perf_counter()
+        rep = run_tuning(family=family, tuner=tuner, seed=t["seed"], steps=t["steps"], pop=t["pop"], tau=t["tau"],
+                         lr=t["lr"], device=device, dtype=dt, **size)
+        rep["wall_s"] = time.perf_counter() - t0
+        rep["launches"] = {k: K.LAUNCHES[k] for k in ("scan_population", "objective", "scan_grad")}
+        out.append(rep)
+    return out
+
+
+def tune_service_rounds(device, dt) -> dict:
+    """The bench's zero-drift workload through the port's service on
+    ``device`` in ``dt``: pod digests with no override ("folded"), with the
+    profile's own weights as an override ("traced") and with
+    TUNE_FLOAT_WEIGHTS ("float"); whether a finalScore came out
+    fractional."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    out = {}
+    for mode in ("folded", "traced", "float"):
+        nodes, pods, _obj = workloads.tune("imbalance", **TUNE_SERVICE)
+        store = ClusterStore(clock=lambda: 0.0)
+        for o in nodes:
+            store.create("nodes", o)
+        for o in pods:
+            store.create("pods", o)
+        svc = SchedulerService(store, tie_break="first", use_batch="force", batch_min_work=0, device=device, dtype=dt)
+        svc.start_scheduler(None)
+        if mode == "traced":
+            svc.set_plugin_weights({n: float(w) for n, w in svc.framework.score_weights.items()})
+        elif mode == "float":
+            svc.set_plugin_weights(TUNE_FLOAT_WEIGHTS)
+        svc.schedule_pending()
+        if svc.stats["batch_pods"] == 0 or svc.stats["batch_fallbacks"]:
+            raise AssertionError(f"zero-drift {mode}: batch pods {svc.stats['batch_pods']}, "
+                                 f"fallbacks {svc.stats['batch_fallbacks']}")
+        out[mode] = pod_digests(store)
+        if mode == "float":
+            out["fractional"] = any(
+                "." in (p["metadata"].get("annotations") or {}).get("scheduler-simulator/finalscore-result", "")
+                for p in store.list("pods", copy_objects=False)
+            )
+    return out
+
+
+def population_counts(cfg, dims, dp, W, out) -> dict:
+    """Bytes and operations of one population launch (K9) and its objective:
+    the problem and the weights read once, every lane's outputs and value
+    written once; the scan's operations once a lane, plus the objective's
+    (about 6 a lane's cpu/mem fraction: divide, mask, square, two tree
+    adds)."""
+    c = scan_counts(cfg, dims, dp, out)
+    L = W.shape[0]
+    return {"bytes": c["bytes"] + W.numel() * W.element_size() * 2,
+            "ops": c["ops"] * L + 6 * 2 * dims["N"] * L}
+
+
+def grad_counts(cfg, dims, dp, w, F, out) -> dict:
+    """Bytes and operations of one grad launch (K2g): the scan's (one lane),
+    plus F and the weights read and dw written once, and 2(S + 3)
+    operations a (committed pod, sampled node) cell (the softmax's max,
+    exp and sum, c and its mean, and two a weight)."""
+    c = scan_counts(cfg, dims, dp, out)
+    S = len(cfg.scores)
+    cells = int(out["packed_pod"][1].sum())
+    return {"bytes": c["bytes"] + (F.numel() + w.numel()) * F.element_size() + 8 * S,
+            "ops": c["ops"] + 2 * (S + 3) * cells}
+
+
+def capture_population(capture: list):
+    """Wrap tuning.tuner.TuningSession.evaluate_population: each call's
+    weight matrix is appended to ``capture``.  Returns the unwrapper."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.tuning import tuner as TT
+
+    orig = TT.TuningSession.evaluate_population
+
+    def wrapped(self, W):
+        capture.append(np.asarray(W, dtype=np.float64).copy())
+        return orig(self, W)
+
+    TT.TuningSession.evaluate_population = wrapped
+    return lambda: setattr(TT.TuningSession, "evaluate_population", orig)
+
+
+def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
+    """Phases 23-26 (cfg10-tune-10k and the bench's 12 x 96 size).  Returns
+    (K9's timing, K2g's timing)."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import batch as B
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.tuning import objective as TO
+    from kube_scheduler_simulator_tpu_torch.tuning import tuner as TT
+
+    t = workloads.TUNE
+    size = dict(n_nodes=t["n_nodes"], n_pods=t["n_pods"])
+    scores, filters = TT.profile_scores(device=DEVICE)
+    nodes, pods, obj = workloads.tune("imbalance", seed=t["seed"], **size)
+    sessions = {}
+    for dt in (torch.float32, torch.float64):
+        sessions[dt] = TT.TuningSession(nodes, pods, scores, filters=filters, objective=obj, dtype=dt, device=DEVICE)
+    s32 = sessions[torch.float32]
+    if s32.promotion is not None:
+        raise AssertionError(f"cfg10-tune-10k imbalance promoted to float64: {s32.promotion}")
+    gen0: list = []
+    unwrap = capture_population(gen0)
+    try:
+        TT.run_cem(s32, np.asarray([float(w) for _s, w in scores]), steps=1, pop=t["pop"], seed=t["seed"])
+    finally:
+        unwrap()
+    W = gen0[0]
+    shape = f"cfg10-tune-10k imbalance: L={W.shape[0]} P={s32.dims['P']} N={s32.dims['N']} S={W.shape[1]}"
+
+    with Phase(f"23. K9 at {shape}: lanes vs K2, lane 0 vs the plain scan, the objective kernel; timed"):
+        log(f"per-block carries (bytes): {json.dumps(carry_bytes(s32.cfg, s32.dims, s32.dp, torch.float32, W.shape[0]))}; "
+            f"exactness bound {json.dumps(headroom(s32.bound))}; generation 0 weights {W.tolist()}")
+        k9_err = 0.0
+        for dt, s in sessions.items():
+            Wt = torch.as_tensor(W).to(device=dev, dtype=dt)
+            kout = K.scan_population(s.cfg, s.dims, s.dp, Wt)
+            for g in range(W.shape[0]):
+                one = K.scan(s.cfg, s.dims, s.dp, weights=Wt[g].contiguous())
+                for k, v in one.items():
+                    if k == "final_carry":
+                        for f, fv in v.items():
+                            k9_err = max(k9_err, same(f"K9 lane {g} final carry {f} {dt}",
+                                                      torch.as_tensor(kout[k][f])[g].reshape(-1), fv.reshape(-1)))
+                    else:
+                        k9_err = max(k9_err, same(f"K9 lane {g} {k} {dt}", kout[k][g], v))
+            plain_ms, pout = cuda_ms(lambda: B.scan_plain(s.cfg, s.dims, s.dp, weights=Wt[0].contiguous()), 1, warmup=0)
+            for k, v in pout.items():
+                if k != "final_carry":
+                    k9_err = max(k9_err, same(f"K9 lane 0 vs scan_plain {k} {dt}", kout[k][0], v))
+            ys = {"final_nonzero": kout["final_nonzero"], "selected": kout["selected"]}
+            for name in TO.OBJECTIVES:
+                k9_err = max(k9_err, same(f"objective {name} {dt}", TO.objective_value(name, ys, s.dp, s.age_w),
+                                          TO.objective_plain(name, ys, s.dp, s.age_w)))
+                for g in range(W.shape[0]):
+                    one_ys = {k: v[g] for k, v in ys.items()}
+                    k9_err = max(k9_err, same(f"objective grad {name} lane {g} {dt}",
+                                              TO.objective_grad(name, one_ys, s.dp, s.age_w),
+                                              TO.objective_grad_plain(name, one_ys, s.dp, s.age_w)))
+            values = TO.objective_value(obj, ys, s.dp, s.age_w).tolist()
+            log(f"{dt}: {W.shape[0]} lanes bitwise equal to K2 under their weights; lane 0 equal to scan_plain "
+                f"({plain_ms:.1f} ms); objective values and cotangents equal their plain versions for "
+                f"{list(TO.OBJECTIVES)}; {obj} per lane {values}; placed per lane "
+                f"{(kout['selected'] >= 0).sum(dim=1).tolist()}")
+            if dt == torch.float32:
+                k9_plain_ms = plain_ms
+            del kout, pout
+        Wt = torch.as_tensor(W).to(device=dev, dtype=torch.float32)
+        k9_ms, kout = cuda_ms(lambda: K.scan_population(s32.cfg, s32.dims, s32.dp, Wt), 20, warmup=2)
+        obj_ms, _v = cuda_ms(lambda: TO.objective_value(obj, kout, s32.dp, s32.age_w), 20, warmup=2)
+        k9b, k9by = bound(population_counts(s32.cfg, s32.dims, s32.dp, Wt, kout), torch.float32)
+        k9_t = dict(ms=k9_ms + obj_ms, scan_ms=k9_ms, objective_ms=obj_ms, plain_ms=k9_plain_ms * W.shape[0],
+                    plain_lane_ms=k9_plain_ms, bound_ms=k9b, bound_by=k9by, err=k9_err, shape=shape)
+        log(f"timing K9: {json.dumps(k9_t)}")
+        del kout
+        torch.cuda.empty_cache()
+
+    with Phase(f"24. K2g at {shape}, tau {t['tau']}: against grad_plain; timed"):
+        k2g_err = 0.0
+        for dt, objective in ((torch.float32, "fragmentation"), (torch.float64, "utilization"),
+                              (torch.float32, "pending_age")):
+            s = sessions[dt]
+            w = torch.as_tensor(W[0]).to(device=dev, dtype=dt)
+            hard = K.scan_population(s.cfg, s.dims, s.dp, w[None].contiguous())
+            ys = {"final_nonzero": hard["final_nonzero"][0], "selected": hard["selected"][0]}
+            F = TO.objective_grad(objective, ys, s.dp, s.age_w)
+            dw, out = K.scan_grad(s.cfg, s.dims, s.dp, w, F, t["tau"])
+            for k, v in out.items():
+                if k == "final_carry":
+                    for f, fv in v.items():
+                        same(f"K2g final carry {f}", fv.reshape(-1), torch.as_tensor(hard[k][f])[0].reshape(-1))
+                else:
+                    same(f"K2g {k} vs the hard rollout", v, hard[k][0])
+            if objective == "pending_age":
+                if dw.any():
+                    raise AssertionError(f"pending_age: K2g gave {dw.tolist()}, not 0")
+                log(f"pending_age {dt}: K2g exactly 0")
+                continue
+            tol = K2G_TOL[str(dt).split(".")[-1]]
+            plain_ms, (dw_p, _o) = cuda_ms(lambda: B.grad_plain(s.cfg, s.dims, s.dp, w, F, t["tau"]), 1, warmup=0)
+            err = float((dw - dw_p).norm())
+            rel = err / max(float(dw_p.norm()), 1e-300)
+            log(f"{objective} {dt}: K2g {dw.tolist()}; grad_plain {dw_p.tolist()}; |dg| {err:.3e} = {rel:.3e} |g| "
+                f"(tolerance {tol:g} |g|); final carry bitwise the hard rollout's; plain {plain_ms:.1f} ms")
+            if not float(dw_p.norm()) > 0 or rel > tol:
+                raise AssertionError(f"K2g {objective} {dt}: |dg| = {rel:.3e} |g| over the tolerance {tol:g}")
+            k2g_err = max(k2g_err, float((dw - dw_p).abs().max()))
+            if dt == torch.float32:
+                k2g_plain_ms = plain_ms
+                k2g_args = (s, w, F)
+        s, w, F = k2g_args
+        k2g_ms, (_dw, kout) = cuda_ms(lambda: K.scan_grad(s.cfg, s.dims, s.dp, w, F, t["tau"]), 20, warmup=2)
+        k2gb, k2gby = bound(grad_counts(s.cfg, s.dims, s.dp, w, F, kout), torch.float32)
+        k2g_t = dict(ms=k2g_ms, plain_ms=k2g_plain_ms, bound_ms=k2gb, bound_by=k2gby, err=k2g_err,
+                     shape=f"{shape.replace('L=16', 'one lane')}, fragmentation")
+        log(f"timing K2g: {json.dumps(k2g_t)}")
+        del kout, sessions, s32, s
+        torch.cuda.empty_cache()
+
+    with Phase(f"25. cfg10-tune-10k {size}: run_tuning on the card, float32, the bench's three rows"):
+        svc = SchedulerService(ClusterStore(), device=DEVICE)
+        svc.start_scheduler(None)
+        seen: list = []
+        note = svc.note_tuning_run
+        svc.note_tuning_run = lambda session, report: (seen.append(session), note(session, report))
+        launches = {"scan_population": 0, "scan_grad": 0}
+        for family, tuner in workloads.TUNE_ROWS:
+            K.reset_counts()
+            t0 = time.perf_counter()
+            rep = TT.run_tuning(family=family, tuner=tuner, seed=t["seed"], steps=t["steps"], pop=t["pop"],
+                                tau=t["tau"], lr=t["lr"], svc=svc, **size)
+            wall = time.perf_counter() - t0
+            got = {k: K.LAUNCHES[k] for k in ("scan_population", "objective", "scan_grad")}
+            sess = seen[-1]
+            rec = {k: rep[k] for k in ("defaultObjective", "tunedObjective", "improvement", "rollouts", "dispatches",
+                                       "gradDispatches", "weights", "kernelPlatform")}
+            log(f"{family}/{tuner}: wall {wall:.3f} s, {json.dumps(rec)}, launches {got}, "
+                f"dtype {str(sess.dp.alloc.dtype).split('.')[-1]}, exactness {json.dumps(headroom(sess.bound))}, "
+                f"population carries (bytes) {json.dumps(carry_bytes(sess.cfg, sess.dims, sess.dp, sess.dp.alloc.dtype, t['pop']))}, "
+                f"history {json.dumps(rep['history'])}")
+            problems = []
+            if got["scan_population"] != rep["dispatches"]:
+                problems.append(f"K9 launches {got['scan_population']} != dispatches {rep['dispatches']}")
+            if got["scan_grad"] != rep["gradDispatches"]:
+                problems.append(f"K2g launches {got['scan_grad']} != grad dispatches {rep['gradDispatches']}")
+            if sess.promotion is not None:
+                problems.append(f"promoted: {sess.promotion}")
+            if rep["tunedObjective"] < rep["defaultObjective"]:
+                problems.append(f"tuned {rep['tunedObjective']} below default {rep['defaultObjective']}")
+            if rep["kernelPlatform"] != torch.device(DEVICE).type:
+                problems.append(f"kernelPlatform {rep['kernelPlatform']}")
+            if problems:
+                raise AssertionError(f"cfg10-tune-10k {family}/{tuner}: {'; '.join(problems)}")
+            for k in launches:
+                launches[k] += got[k]
+        k9_t["launches"], k2g_t["launches"] = launches["scan_population"], launches["scan_grad"]
+        log(f"service counters: runs {svc.stats['tuning_runs']}, rollouts {svc.stats['tuning_rollouts']}, "
+            f"grad dispatches {svc.stats['tuning_grad_dispatches']}, objectives {svc.stats['tuning_objective']}")
+        del seen, svc
+        torch.cuda.empty_cache()
+
+    with Phase(f"26. the bench's {TUNE_PARITY} size and the zero-drift rounds: CUDA float64 vs CPU float64"):
+        gpu_reps = tune_reports(DEVICE, torch.float64, TUNE_PARITY)
+        gpu_rounds = tune_service_rounds(DEVICE, torch.float64)
+        t0 = time.perf_counter()
+        cpu_reps, cpu_rounds = cpu_tune_ref.get()
+        log(f"CPU float64 (worker process) waited for {time.perf_counter() - t0:.2f} s")
+        for g, c in zip(gpu_reps, cpu_reps):
+            tag = f"{g['family']}/{g['tuner']}"
+            log(f"{tag}: cuda {json.dumps({k: g[k] for k in ('weights', 'defaultObjective', 'tunedObjective', 'wall_s', 'launches')})}; "
+                f"cpu weights {c['weights']} tuned {c['tunedObjective']}")
+            if g["defaultObjective"] != c["defaultObjective"] or g["tunedObjective"] != c["tunedObjective"]:
+                raise AssertionError(f"{tag}: objectives differ between CUDA and CPU float64")
+            if g["tuner"] == "cem":
+                if g["weights"] != c["weights"] or g["history"] != c["history"]:
+                    raise AssertionError(f"{tag}: CEM weights or history differ between CUDA and CPU float64")
+            else:
+                dw = float(np.linalg.norm(np.subtract(g["weights"], c["weights"])))
+                if dw > 1e-9 * float(np.linalg.norm(c["weights"])) or len(g["history"]) != len(c["history"]):
+                    raise AssertionError(f"{tag}: grad weights differ by {dw:.3e}")
+                for a, b in zip(g["history"], c["history"]):
+                    if a["objective"] != b["objective"] or abs(a["gradNorm"] - b["gradNorm"]) > 1e-9 * b["gradNorm"]:
+                        raise AssertionError(f"{tag}: grad history differs: {a} vs {b}")
+        if gpu_rounds["folded"] != gpu_rounds["traced"]:
+            raise AssertionError("zero drift: the defaults as an override changed pod bytes on the card")
+        for mode in ("folded", "traced", "float"):
+            if gpu_rounds[mode] != cpu_rounds[mode]:
+                bad = [n for n in cpu_rounds[mode] if gpu_rounds[mode].get(n) != cpu_rounds[mode][n]]
+                raise AssertionError(f"{mode}: {len(bad)} pods differ between the CUDA and CPU services, first {bad[:3]}")
+        if not gpu_rounds["fractional"]:
+            raise AssertionError("float weights rendered no fractional finalScore")
+        log(f"three reports equal (CEM bitwise, grad within 1e-9); {len(gpu_rounds['folded'])} pods: defaults as an "
+            f"override byte-identical to no override, and CUDA equal to CPU with no override, the defaults and "
+            f"float weights {TUNE_FLOAT_WEIGHTS} (finalScore fractional)")
+    return k9_t, k2g_t
+
+
 # ------------------------------------------ CPU references, in workers
 
 def cpu_worker_init() -> None:
@@ -1514,6 +1864,14 @@ def cpu_gang(cut: str) -> "tuple[list, tuple]":
         GANG_CUTS[cut], "cpu", torch.float64, echo=False, small_nodes=cut == "cascade", strict=cut != "cascade",
     )
     return records, digests
+
+
+def cpu_tune() -> "tuple[list, dict]":
+    """The bench-size tune reports and the zero-drift service rounds on the
+    CPU in float64: (tune_reports, tune_service_rounds)."""
+    import torch
+
+    return tune_reports("cpu", torch.float64, TUNE_PARITY), tune_service_rounds("cpu", torch.float64)
 
 
 def cpu_autoscale() -> "tuple[dict, dict, str]":
@@ -1572,6 +1930,7 @@ def main() -> int:
     cpu_preempt_ref = _POOL.apply_async(cpu_preempt, (PREEMPT_CUT,))
     cpu_gang_refs = {cut: _POOL.apply_async(cpu_gang, (cut,)) for cut in GANG_CUTS}
     cpu_autoscale_ref = _POOL.apply_async(cpu_autoscale)
+    cpu_tune_ref = _POOL.apply_async(cpu_tune)
 
     clusters = {}
     timing: dict = {}
@@ -1959,8 +2318,11 @@ def main() -> int:
         keys = ("wall_s", "encode_s", "device_s", "device_est_s", "commit_s", "overlap")
         return {k: float(np.median([r[k] for r in records])) for k in keys}
 
-    with Phase(f"cfg5-churn {P_ch} pods x {N_ch} nodes, {waves_ch} waves, cordon {cordon_ch}: service on the card, float32"):
-        rec32, main_launches_churn, dig32 = run_churn(CHURN, DEVICE, torch.float32, snapshot_after=CHURN_F64_WAVES - 1)
+    with Phase(f"cfg5-churn {P_ch} pods x {N_ch} nodes, {CHURN_F32_WAVES} of {waves_ch} waves, cordon {cordon_ch}: "
+               f"service on the card, float32"):
+        rec32, main_launches_churn, dig32 = run_churn(
+            CHURN, DEVICE, torch.float32, waves=CHURN_F32_WAVES, snapshot_after=CHURN_F64_WAVES - 1,
+        )
         log(f"float32 churn: launches over {len(rec32)} waves {main_launches_churn}; medians {json.dumps(medians(rec32))}")
     with Phase(f"cfg5-churn, float64, {CHURN_F64_WAVES} waves"):
         rec64, _l64, dig64 = run_churn(CHURN, DEVICE, torch.float64, waves=CHURN_F64_WAVES)
@@ -1992,6 +2354,9 @@ def main() -> int:
 
     # ------------------------------------------- capacity engine (K8)
     k8_t = autoscale_phases(dev, cpu_autoscale_ref)
+
+    # ------------------------------------------- the tuner (K9, K2g)
+    k9_t, k2g_t = tune_phases(dev, cpu_tune_ref)
 
     ref = MAIN
     main = timing[(ref, torch.float32)]
@@ -2114,6 +2479,39 @@ def main() -> int:
             "burst_ms": k8_t["burst_ms"],
             "burst_bound_ms": k8_t["burst_bound_ms"],
             "burst_shape": k8_t["burst_shape"],
+        },
+        {
+            "name": "scan_population",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
+            "objective_source": "kube_scheduler_simulator_tpu_torch/csrc/tune.cu",
+            "replaces": "kube_scheduler_simulator_tpu/tuning/relax.py:36",
+            "launches": k9_t["launches"],
+            "max_abs_err": k9_t["err"],
+            "ms": k9_t["ms"],
+            "plain_ms": k9_t["plain_ms"],
+            "bound_ms": k9_t["bound_ms"],
+            "bound_by": k9_t["bound_by"],
+            "library_ms": None,
+            "paced_by": "sequential dependency chain over the pod queue, one block a lane",
+            "shape": k9_t["shape"],
+            "scan_ms": k9_t["scan_ms"],
+            "objective_ms": k9_t["objective_ms"],
+        },
+        {
+            "name": "scan_grad",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
+            "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1614",
+            "launches": k2g_t["launches"],
+            "max_abs_err": k2g_t["err"],
+            "ms": k2g_t["ms"],
+            "plain_ms": k2g_t["plain_ms"],
+            "bound_ms": k2g_t["bound_ms"],
+            "bound_by": k2g_t["bound_by"],
+            "library_ms": None,
+            "paced_by": "sequential dependency chain over the pod queue, 3 + S block reductions a committed pod",
+            "shape": k2g_t["shape"],
         },
     ]
     for k in kernels:

@@ -91,6 +91,32 @@
 // the scan as it was.  Lane launches run with the trace off: the trace
 // planes and their meta have no lane stride, and launch() refuses them.
 //
+// Weights: the score weights are a device array read per lane, row
+// weights + lane * w_stride in the working dtype.  A one-lane scan, a
+// window and K8 pass the profile's row with stride 0; K9 (replacing the
+// JAX package's tuning/relax.py:36-60 build_value_fn / build_population_fn,
+// jax.vmap of the rollout over a [pop,S] weight matrix) passes the
+// population with stride S and one shared node_active (na_stride 0), so
+// lane g is the rollout under weights[g].  The profile's weights cast to
+// T on the host round as T(double) did in the kernel, so the one-lane
+// launches stayed bitwise what they were.
+//
+// Grad mode (K2g, replacing the autodiff through the JAX package's
+// straight-through head, ops/batch.py:1614-1623, tuning/relax.py:63-71):
+// one lane, one block, trace off.  The weights enter only the totals and
+// every score reaches its normalized value through floor/trunc/round, so
+// the gradient of an objective of final_nonzero is a sum over committed
+// pods that this same pod chain accumulates: after pass 2 stores each
+// node's normalized scores (s_norm [S,N]), a committed pod takes s =
+// softmax(totals / tau) over its sampled nodes (block max, sum of exp),
+// c[n] = F[n,0] pnz[0] + F[n,1] pnz[1] with F = d objective / d
+// final_nonzero, cbar = sum s c, and for each weight k adds (sum_n s (c -
+// cbar) norm_k[n]) / tau to a float64 accumulator: 3 + S block
+// reductions a pod and nothing of size [P,N,S].  The launch also writes
+// the hard rollout's final carry.  Its sums run in the block's order, not
+// the plain version's (ops/batch.grad_plain), so the two agree to a
+// stated tolerance, not bitwise; exp is the IEEE expf/exp (no fast math).
+//
 // Exactness: built with --fmad=false and without fast math; every formula
 // keeps the reference's order of operations, divisions are IEEE divisions,
 // quotients go through floor/trunc, rounding is rint (half to even, as
@@ -129,10 +155,12 @@ struct ScanArgs {
   int64_t P, N, R, n_true, sample_k, start0, tb_base, seed_mix;
   int64_t Psrc;  // row stride of spread_match and term_match: the full problem's P
   int64_t trace, reservoir;
-  int64_t lanes;  // K8's lane count: the grid's y extent; node_active is [lanes,N]
+  int64_t lanes;  // the grid's y extent: K8's node masks or K9's weight rows
+  int64_t na_stride;  // lane stride of node_active: N (K8) or 0 (one mask)
+  int64_t w_stride;   // lane stride of weights: S (K9) or 0 (one row)
+  int64_t grad;       // K2g: accumulate d objective / d weights into dw
   int64_t nf, filters[MAXF];
   int64_t ns, scores[MAXS];
-  double weights[MAXS];
   int64_t fit_strategy, n_fit_res, fit_col[MAXFR];
   double fit_w[MAXFR];
   double fit_wsum;
@@ -148,6 +176,7 @@ struct ScanArgs {
   int64_t use_ports, use_restr, use_cloud, use_csi;
   int64_t PT, VR, VID, DR, KPT, KVR, KV, VB_cols;
   double cloud_limit[3];    // EBS, GCE PD, Azure disk: cloud_cnt's columns
+  double tau;               // K2g's softmax temperature
   const void* alloc;
   const void* max_pods;
   const void* nz_alloc;
@@ -205,6 +234,9 @@ struct ScanArgs {
   const int8_t* vz_cls;        // [VC,M] VolumeZone code
   const int32_t* pod_vol_idx;  // [P]
   const void* log_table;       // [N+1] log(t + 2)
+  const void* weights;         // [lanes or 1, S] score weights in the working dtype
+  const void* grad_F;          // [N,2] d objective / d final_nonzero (grad mode)
+  double* dw;                  // [S] d objective / d weights (grad mode)
   const void* requested0;
   const void* nonzero0;
   const void* pod_count0;
@@ -236,6 +268,8 @@ struct ScanArgs {
   void* s_cloud;       // [B,3,N]
   uint8_t* s_csi;      // [B,V,N] attachment bits
   void* s_csi_cnt;     // [B,DR,N] attached ids per driver
+  void* s_norm;        // [B,S,N] normalized scores of the current pod (grad mode)
+  void* s_soft;        // [B,N] its softmax (grad mode)
   int32_t* packed;     // [lanes,5,P]
   int32_t* final_start;  // [lanes]
   void* final_requested;
@@ -334,6 +368,8 @@ __device__ __forceinline__ float d_fabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double d_fabs(double x) { return ::fabs(x); }
 __device__ __forceinline__ float d_rint(float x) { return rintf(x); }
 __device__ __forceinline__ double d_rint(double x) { return ::rint(x); }
+__device__ __forceinline__ float d_exp(float x) { return expf(x); }
+__device__ __forceinline__ double d_exp(double x) { return ::exp(x); }
 
 // Go integer division for non-negative operands, in floats:
 // floor(a / where(b == 0, 1, b)) * (b != 0).
@@ -437,8 +473,8 @@ __device__ void load_transposed(const S* src, D* dst, int64_t N, int64_t C) {
 // host-port, conflict-volume, cloud-disk and CSI carries.  The grid has one
 // block per SM, so the bounds allow one resident block and up to 128
 // registers a thread: capped at 64, the float64 kernel spilled to local
-// memory.
-template <typename T, bool TOPO, bool VOL>
+// memory.  GRAD compiles K2g's reductions in (grad mode).
+template <typename T, bool TOPO, bool VOL, bool GRAD>
 __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
@@ -447,7 +483,13 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   // the lane, and this block's scratch slot among the grid's blocks
   const int64_t lane = blockIdx.y;
   const int64_t sb = lane * B + b;
-  const uint8_t* node_act = a.node_active + lane * N;
+  const uint8_t* node_act = a.node_active + lane * a.na_stride;
+  const T* wrow = (const T*)a.weights + lane * a.w_stride;
+  T* snorm = GRAD ? (T*)a.s_norm + sb * a.ns * N : nullptr;
+  T* ssoft = GRAD ? (T*)a.s_soft + sb * N : nullptr;
+  const T* gF = (const T*)a.grad_F;
+  double dwacc[MAXS];
+  for (int k = 0; k < MAXS; ++k) dwacc[k] = 0.0;
   int32_t* const packed = a.packed + lane * 5 * P;
   const int nt = (int)a.n_true;
   const int K = (int)a.sample_k;
@@ -937,7 +979,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
             meta_mn[k] = v < meta_mn[k] ? v : meta_mn[k];
             meta_mx[k] = v > meta_mx[k] ? v : meta_mx[k];
           }
-          total_w = total_w + nrm * T(a.weights[k]);
+          if (GRAD) snorm[k * N + n] = nrm;
+          total_w = total_w + nrm * wrow[k];
         }
         const T masked = samp ? total_w : NEG;
         tot[n] = masked;
@@ -962,6 +1005,41 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
     }
     best = block_reduce(best, T(-INFINITY), MaxOp());
+
+    // ---- K2g: this pod's term of d objective / d weights -----------------
+    if (GRAD && count > 0) {
+      const T tau = T(a.tau);
+      T zmax = -INFINITY;
+      for (int64_t n = tid; n < N; n += blockDim.x) {
+        const T z = (fl[n] & 2) ? tot[n] / tau : NEG;
+        zmax = z > zmax ? z : zmax;
+      }
+      zmax = block_reduce(zmax, T(-INFINITY), MaxOp());
+      T esum = T(0);
+      for (int64_t n = tid; n < N; n += blockDim.x) {
+        const T e = d_exp(((fl[n] & 2) ? tot[n] / tau : NEG) - zmax);
+        ssoft[n] = e;
+        esum = esum + e;
+      }
+      esum = block_reduce(esum, T(0), SumOp());
+      T sc = T(0);
+      for (int64_t n = tid; n < N; n += blockDim.x) {
+        const T sn = ssoft[n] / esum;
+        ssoft[n] = sn;
+        sc = sc + sn * (gF[n * 2] * pnz[0] + gF[n * 2 + 1] * pnz[1]);
+      }
+      const T cbar = block_reduce(sc, T(0), SumOp());
+      T part[MAXS];
+      for (int k = 0; k < MAXS; ++k) part[k] = T(0);
+      for (int64_t n = tid; n < N; n += blockDim.x) {
+        const T d = ssoft[n] * ((gF[n * 2] * pnz[0] + gF[n * 2 + 1] * pnz[1]) - cbar);
+        for (int k = 0; k < a.ns; ++k) part[k] = part[k] + d * snorm[k * N + n];
+      }
+      for (int k = 0; k < a.ns; ++k) {
+        const T gk = block_reduce(part[k], T(0), SumOp());
+        if (tid == 0) dwacc[k] += (double)(gk / tau);
+      }
+    }
 
     // ---- pass 3: selection ----------------------------------------------
     int sel_node = -1;
@@ -1085,6 +1163,9 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   }
 
   if (b != 0) return;
+  if (GRAD && tid == 0) {
+    for (int k = 0; k < a.ns; ++k) a.dw[k] = dwacc[k];
+  }
   for (int64_t i = tid; i < P; i += blockDim.x) packed[4 * P + i] = start;
   if (tid == 0) a.final_start[lane] = start;
   // this lane's slices of the final carries
@@ -1141,13 +1222,22 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   }
 }
 
+template <typename T, bool TOPO, bool VOL>
+void launch_grad(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
+  const dim3 grid((unsigned)blocks, (unsigned)a->lanes);
+  if (a->grad) {
+    scan_kernel<T, TOPO, VOL, true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+  } else {
+    scan_kernel<T, TOPO, VOL, false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+  }
+}
+
 template <typename T, bool TOPO>
 void launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
-  const dim3 grid((unsigned)blocks, (unsigned)a->lanes);
   if (a->use_ports || a->use_restr || a->use_cloud || a->use_csi) {
-    scan_kernel<T, TOPO, true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    launch_grad<T, TOPO, true>(a, blocks, smem, stream);
   } else {
-    scan_kernel<T, TOPO, false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    launch_grad<T, TOPO, false>(a, blocks, smem, stream);
   }
 }
 
@@ -1155,6 +1245,9 @@ template <typename T>
 int launch(const ScanArgs* a, int64_t blocks, void* stream) {
   // the trace planes have no lane stride; gridDim.y is at most 65 535
   if (a->lanes < 1 || a->lanes > 65535 || (a->lanes > 1 && a->trace)) return (int)cudaErrorInvalidValue;
+  // grad mode: one lane, one block, trace off, at most MAXS weights
+  if (a->grad && (a->lanes != 1 || blocks != 1 || a->trace)) return (int)cudaErrorInvalidValue;
+  if (a->ns > MAXS) return (int)cudaErrorInvalidValue;
   const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
   if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) {
     launch_vol<T, true>(a, blocks, smem, stream);

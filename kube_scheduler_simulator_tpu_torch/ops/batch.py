@@ -75,6 +75,15 @@ class BatchConfig(NamedTuple):
     # "reservoir" = k-th tied max with k from the counter-keyed hash draw
     tie_break: str = "first"
     seed: int = 0
+    # the engine runs with a weight override (the tuner's or the service's
+    # set_plugin_weights): the scan takes its [S] weight vector as an
+    # argument (``weights=``) instead of the profile's ``scores`` weights
+    traced_weights: bool = False
+    # > 0: the plain scan's commit one-hot is the straight-through relaxed
+    # head, soft + (hard - soft).detach() with soft = softmax(totals / tau)
+    # over the sampled nodes: forward values equal the hard rollout's, and
+    # torch autograd differentiates the rollout in the weights
+    relax_tau: float = 0.0
 
 
 FILTER_KERNELS = (
@@ -607,6 +616,12 @@ def _minmax_normalize(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor
     return torch.where(diff > 0, q, torch.zeros_like(q))
 
 
+def profile_weights(cfg: BatchConfig, dt: torch.dtype, device) -> torch.Tensor:
+    """The profile's score weights as an [S] tensor in the round's dtype
+    (the scan's weight vector when no override is given)."""
+    return torch.tensor([float(w) for _s, w in cfg.scores], dtype=dt, device=device)
+
+
 def _mix32(x):
     """murmur3 32-bit finalizer on uint32 values held in int64 (or Python
     ints), masked after every multiply."""
@@ -801,6 +816,7 @@ def final_carry(out: dict, start) -> dict:
 def scan_plain(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, ws0: "int | None" = None,
     carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
+    weights: "torch.Tensor | None" = None, grad: "tuple | None" = None,
 ) -> dict:
     """The whole pod loop of one round in plain PyTorch, op for op the JAX
     ``build_batch_fn`` step (filters with first-failure tracking, rotated
@@ -814,7 +830,12 @@ def scan_plain(
     planes come out [P, ws0], the sampled nodes' values in ascending node
     id, and no ``feasible`` plane.  ``window``: run only pods [offset,
     offset+window) (the JAX ``build_batch_fn(window=)``), from ``carry0``
-    (a ``final_carry`` dict; default the problem's own initial carry)."""
+    (a ``final_carry`` dict; default the problem's own initial carry).
+    ``weights``: the [S] weight vector in the round's dtype (the JAX
+    ``DeviceProblem.plugin_w`` under ``traced_weights``; default the
+    profile's).  ``cfg.relax_tau > 0``: the straight-through commit (see
+    BatchConfig).  ``grad=(F, tau)``: also accumulate K2g's closed form
+    (``grad_plain``) into ``out["dw"]``."""
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
     if window is not None:
@@ -839,6 +860,13 @@ def scan_plain(
     ip_sel, ip_own, ip_anti = dp.ip_sel0.clone(), dp.ip_own0.clone(), dp.ip_anti0.clone()
     key_struct = dims["key_struct"]
     logt = log_table(N, dt, dev)
+    w_vec = profile_weights(cfg, dt, dev) if weights is None else weights
+    if w_vec.shape != (len(cfg.scores),) or w_vec.dtype != dt:
+        raise ValueError(f"weights must be {dt} [{len(cfg.scores)}], got {w_vec.dtype} {tuple(w_vec.shape)}")
+    tau = cfg.relax_tau if grad is None else grad[1]
+    if grad is not None:
+        F_n = grad[0]
+        dw = torch.zeros(len(cfg.scores), dtype=torch.float64, device=dev)
     # the per-pod constraint and term lists, read on the host
     host = {f: t.cpu().numpy() for f, t in (
         ("spf_key", dp.spf[0]), ("spf_grp", dp.spf[1]), ("spf_ku", dp.spf_ku),
@@ -978,7 +1006,8 @@ def scan_plain(
 
         totals = torch.zeros(N, dtype=dt, device=dev)
         raws, norms = {}, {}
-        for name, weight in cfg.scores:
+        norm_rows = []
+        for k_s, (name, _weight) in enumerate(cfg.scores):
             if name == "NodeResourcesFit":
                 raw = _fit_raw(cfg, nonzero + dp.pod_nonzero[i][None, :], dp.nz_alloc)
                 norm = raw
@@ -1017,7 +1046,8 @@ def scan_plain(
                 norm = raw
             if cfg.trace:
                 raws[name], norms[name] = raw, norm
-            totals = totals + norm * float(weight)
+            norm_rows.append(norm)
+            totals = totals + norm * w_vec[k_s]
 
         # ties are ordered by VISIT rank, not node index
         masked = torch.where(sampled, totals, torch.full_like(totals, NEG))
@@ -1034,6 +1064,18 @@ def scan_plain(
         # commit
         commit = count > 0
         oh = ((idx == sel) & commit).to(dt)
+        if grad is not None and bool(commit):
+            # K2g's term of this pod: s = softmax(totals / tau) over the
+            # sampled nodes, c = F . pod_nonzero, and for each weight
+            # (1 / tau) sum_n s (c - sum_m s c) norm_k
+            s_n = torch.softmax(torch.where(sampled, totals / _den(totals, tau), NEG), 0)
+            c_n = F_n[:, 0] * dp.pod_nonzero[i, 0] + F_n[:, 1] * dp.pod_nonzero[i, 1]
+            cbar = (s_n * c_n).sum()
+            g = ((s_n * (c_n - cbar))[None, :] * torch.stack(norm_rows)).sum(1)
+            dw = dw + (g / _den(g, tau)).double()
+        if cfg.relax_tau > 0:
+            soft = torch.softmax(torch.where(sampled, totals / _den(totals, tau), NEG), 0) * commit.to(dt)
+            oh = soft + (oh - soft).detach()
         requested = requested + oh[:, None] * pod_req[None, :]
         nonzero = nonzero + oh[:, None] * dp.pod_nonzero[i][None, :]
         pod_count = pod_count + oh
@@ -1110,6 +1152,8 @@ def scan_plain(
         packed_pod=packed,
     )
     out["final_carry"] = final_carry(out, start)
+    if grad is not None:
+        out["dw"] = dw
     if cfg.trace:
         if ws0 is None:
             feas = out["feasible"] & dp.pod_active[:, None]
@@ -1144,17 +1188,21 @@ def plugin_gates(cfg: BatchConfig, dims: dict) -> "dict[str, bool]":
     }
 
 
-def build_batch_fn(cfg: BatchConfig, dims: dict, ws0: "int | None" = None, window: "int | None" = None):
+def build_batch_fn(
+    cfg: BatchConfig, dims: dict, ws0: "int | None" = None, window: "int | None" = None,
+    weights: "torch.Tensor | None" = None,
+):
     """fn(dp) → dict of result tensors: the CUDA scan kernel for a problem on
-    the card, the plain version for one on the CPU.  ``ws0``: as
-    ``scan_plain``'s.  With ``window`` (the JAX ``build_batch_fn(window=)``)
-    it returns fn(carry0, dp, offset) instead, which scans pods [offset,
+    the card, the plain version for one on the CPU.  ``ws0`` and ``weights``
+    (an [S] tensor beside the problem): as ``scan_plain``'s.  With
+    ``window`` (the JAX ``build_batch_fn(window=)``) it returns
+    fn(carry0, dp, offset) instead, which scans pods [offset,
     offset+window) from ``carry0`` (None: the problem's own) and hands on
     ``out["final_carry"]``: windows chain with no host round trip."""
     check_slice(cfg)
 
     def fn(dp: DeviceProblem, carry0: "dict | None" = None, offset: int = 0) -> dict:
-        kw = dict(ws0=ws0, carry0=carry0, offset=offset, window=window)
+        kw = dict(ws0=ws0, carry0=carry0, offset=offset, window=window, weights=weights)
         if dp.alloc.device.type == "cuda":
             from kube_scheduler_simulator_tpu_torch.ops import kernels
 
@@ -1166,27 +1214,73 @@ def build_batch_fn(cfg: BatchConfig, dims: dict, ws0: "int | None" = None, windo
     return lambda carry0, dp, offset: fn(dp, carry0, offset)
 
 
-# ------------------------------------------------ the lane scan (K8)
+def grad_plain(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: torch.Tensor, F: torch.Tensor, tau: float,
+) -> "tuple[torch.Tensor, dict]":
+    """K2g's plain version: (d objective / d weights [S] float64, the hard
+    rollout's outputs).  A re-run of the plain step that, for every
+    committed pod i, with s = softmax(totals_i / tau) over the sampled
+    nodes and c_i[n] = F[n,0] pod_nonzero[i,0] + F[n,1] pod_nonzero[i,1]
+    (F [N,2] = d objective / d final_nonzero), adds
 
-def check_lanes(cfg: BatchConfig, dims: dict, lane_active: torch.Tensor) -> None:
-    """Raise for what the lane scan does not take: the trace on, or a lane
-    mask that is not bool [G, N] with G >= 1."""
+        dw_k += (1 / tau) sum_n s[n] (c_i[n] - sum_m s[m] c_i[m]) norm_ik[n].
+
+    This is the gradient the JAX package takes by autodiff through the
+    straight-through scan (``build_grad_fn``): the weights enter only the
+    totals, every score reaches its normalized value through floor, trunc
+    or round (derivative zero), selection and feasibility are comparisons,
+    so no carry passes gradient into a later pod's totals, and the
+    objectives read ``final_nonzero`` (or the selections, gradient zero)."""
+    if F.shape != (dims["N"], 2) or F.dtype != weights.dtype:
+        raise ValueError(f"F must be {weights.dtype} [{dims['N']}, 2], got {F.dtype} {tuple(F.shape)}")
+    out = scan_plain(cfg._replace(relax_tau=0.0, trace=False), dims, dp, weights=weights, grad=(F, float(tau)))
+    return out.pop("dw"), out
+
+
+# ------------------------------------------- the lane scan (K8, K9)
+
+def check_lanes(
+    cfg: BatchConfig, dims: dict, lane_active: "torch.Tensor | None", weights: "torch.Tensor | None" = None,
+) -> int:
+    """The lane count, or raise for what the lane scan does not take: the
+    trace on, a lane mask that is not bool [G, N], a weight matrix that is
+    not [G, S] (G >= 1; with both, one G)."""
     if cfg.trace:
         raise ValueError("the lane scan runs with the trace off")
-    if lane_active.dtype != torch.bool or lane_active.dim() != 2 or lane_active.shape[1] != dims["N"] \
-            or lane_active.shape[0] < 1:
-        raise ValueError(f"lane_active must be bool [G, {dims['N']}] with G >= 1, got "
-                         f"{lane_active.dtype} {tuple(lane_active.shape)}")
+    lanes = []
+    if lane_active is not None:
+        if lane_active.dtype != torch.bool or lane_active.dim() != 2 or lane_active.shape[1] != dims["N"]:
+            raise ValueError(f"lane_active must be bool [G, {dims['N']}], got "
+                             f"{lane_active.dtype} {tuple(lane_active.shape)}")
+        lanes.append(lane_active.shape[0])
+    if weights is not None:
+        if not weights.is_floating_point() or weights.dim() != 2 or weights.shape[1] != len(cfg.scores):
+            raise ValueError(f"weights must be floating [G, {len(cfg.scores)}], got "
+                             f"{weights.dtype} {tuple(weights.shape)}")
+        lanes.append(weights.shape[0])
+    if not lanes or min(lanes) < 1 or len(set(lanes)) != 1:
+        raise ValueError(f"the lane scan needs G >= 1 lanes of one count, got {lanes}")
+    return lanes[0]
 
 
-def scan_lanes_plain(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
-    """The plain version of the lane scan (K8): ``scan_plain`` once per lane
-    g with ``node_active = lane_active[g]``, every output stacked on a
-    leading lane axis (what the JAX package's ``jax.vmap`` of
-    ``build_batch_fn`` over the node_active mask returns), and the lanes'
-    final carries as ``final_carry``."""
-    check_lanes(cfg, dims, lane_active)
-    outs = [scan_plain(cfg, dims, dp._replace(node_active=lane_active[g])) for g in range(lane_active.shape[0])]
+def scan_lanes_plain(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: "torch.Tensor | None" = None,
+    weights: "torch.Tensor | None" = None,
+) -> dict:
+    """The plain version of the lane scan: ``scan_plain`` once per lane g,
+    with ``node_active = lane_active[g]`` (K8, the JAX package's
+    ``jax.vmap`` of ``build_batch_fn`` over the node_active mask) and/or
+    the weight vector ``weights[g]`` (K9, the JAX ``build_population_fn``:
+    ``jax.vmap`` over the weights only), every output stacked on a leading
+    lane axis, and the lanes' final carries as ``final_carry``."""
+    G = check_lanes(cfg, dims, lane_active, weights)
+    outs = [
+        scan_plain(
+            cfg, dims, dp if lane_active is None else dp._replace(node_active=lane_active[g]),
+            weights=None if weights is None else weights[g],
+        )
+        for g in range(G)
+    ]
     out = {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k != "final_carry"}
     out["final_carry"] = final_carry(out, out["final_start"])
     return out

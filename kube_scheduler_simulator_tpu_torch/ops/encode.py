@@ -1862,3 +1862,40 @@ class EncodeCache:
         )
 
 
+def objective_planes(pr: "BatchProblem", pending: "list[Obj] | None" = None) -> dict:
+    """Host-side objective planes for the tuner (tuning/objective.py).
+
+    ``age_w`` [P]: normalized pending-age weight per pod row — how much an
+    unscheduled outcome for that pod costs the pending-age objective.
+    Derived from creationTimestamp seniority when the timestamps parse and
+    differ; otherwise from queue rank (the pending order IS the
+    PrioritySort age order within a priority band).  Normalized to (0, 1]
+    with the oldest pod at 1; padding rows (pod_active False) carry 0.
+
+    Shapes follow the (possibly padded) problem axes, so the planes go to
+    the device beside the lowered DeviceProblem."""
+    P = pr.P
+    p_true = min(getattr(pr, "P_true", P) or P, P)
+    age = None
+    if pending:
+        import calendar
+        import time as _time
+
+        ts: "list[int] | None" = []
+        for p in pending[:p_true]:
+            raw = (p.get("metadata") or {}).get("creationTimestamp") or ""
+            try:
+                ts.append(calendar.timegm(_time.strptime(raw, "%Y-%m-%dT%H:%M:%SZ")))
+            except (TypeError, ValueError):
+                ts = None
+                break
+        if ts and len(set(ts)) > 1:
+            a = np.asarray(ts, dtype=np.float64)
+            age = (a.max() - a) + 1.0  # oldest pod → largest weight
+            age = age / age.max()
+    if age is None and p_true:
+        age = np.arange(p_true, 0, -1, dtype=np.float64) / float(p_true)
+    out = np.zeros(P, dtype=np.float64)
+    if age is not None:
+        out[: len(age)] = age
+    return {"age_w": out}

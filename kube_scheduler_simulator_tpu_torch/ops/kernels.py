@@ -17,6 +17,17 @@ counters and the wrappers.
               loop with node_active = lane_active[g] and writes its slices
               of the packed outputs and the final carries (the capacity
               engine's scale-up estimate: one node group a lane).
+- ``scan_population`` (csrc/scan.cu, K9) — the same kernel over the rows
+              of a [pop, S] weight matrix, one shared node mask: lane g is
+              the whole rollout under weights[g] (the tuner's population).
+- ``scan_grad`` (csrc/scan.cu, K2g) — the scan's grad mode: one launch
+              re-runs the pod chain and accumulates d objective / d
+              weights through the straight-through softmax head from the
+              objective's cotangent F [N,2].
+- ``objective`` (csrc/tune.cu, part of K9) — each lane's final carry or
+              selections reduced to its objective (utilization,
+              fragmentation, pending_age) over a fixed pairwise tree, or
+              (backward) the cotangent F.
 - ``compact`` (csrc/compact.cu) — the trace planes → the manifest's byte
               blob, one block per pod row.
 - ``scatter`` (csrc/scatter.cu) — ``buf[idx] = rows`` on a plane resident on
@@ -71,6 +82,7 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
     in_step_width,
     log_table,
     plugin_gates,
+    profile_weights,
     slice_pod_window,
 )
 
@@ -78,6 +90,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {
     "scan": "scan.cu", "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu", "gang": "gang.cu",
+    "objective": "tune.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -85,7 +98,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"scan": 0, "scan_lanes": 0, "compact": 0, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0}
+LAUNCHES = {
+    "scan": 0, "scan_lanes": 0, "compact": 0, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
+    "scan_population": 0, "objective": 0, "scan_grad": 0,
+}
 
 # the struct capacities of csrc/*.cu
 MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 16, 8, 4, 16, 16, 8, 16
@@ -133,13 +149,12 @@ class ScanArgs(ctypes.Structure):
     _fields_ = [
         (n, _i64) for n in (
             "P", "N", "R", "n_true", "sample_k", "start0", "tb_base", "seed_mix", "Psrc", "trace", "reservoir", "lanes",
-            "nf",
+            "na_stride", "w_stride", "grad", "nf",
         )
     ] + [
         ("filters", _i64 * MAXF),
         ("ns", _i64),
         ("scores", _i64 * MAXS),
-        ("weights", _f64 * MAXS),
         ("fit_strategy", _i64),
         ("n_fit_res", _i64),
         ("fit_col", _i64 * MAXFR),
@@ -167,6 +182,7 @@ class ScanArgs(ctypes.Structure):
         )
     ] + [
         ("cloud_limit", _f64 * 3),
+        ("tau", _f64),
     ] + [
         (n, _ptr)
         for n in (
@@ -181,12 +197,12 @@ class ScanArgs(ctypes.Structure):
             "gdom", "term_match", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w",
             "ip_own_g", "ip_own_w", "ip_self_match",
             "port_cols", "port_conflict", "restr_cols", "restr_conflict", "cloud_cnt", "csi_cols", "csi_drv",
-            "csi_seed_used", "csi_limit", "vb_cls", "vz_cls", "pod_vol_idx", "log_table",
+            "csi_seed_used", "csi_limit", "vb_cls", "vz_cls", "pod_vol_idx", "log_table", "weights", "grad_F", "dw",
             "requested0", "nonzero0", "pod_count0", "spread_counts0", "ip_sel0", "ip_own0", "ip_anti0",
             "ports_used0", "restr_used0", "cloud_used0", "csi_attached0", "start_ptr",
             "s_requested", "s_nonzero", "s_pod_count", "s_spread", "s_ip_sel", "s_ip_own", "s_ip_anti",
             "s_raw_spread", "s_raw_ipa", "s_dom", "s_domflag", "s_total", "s_flags",
-            "s_rank", "s_ports", "s_restr", "s_cloud", "s_csi", "s_csi_cnt",
+            "s_rank", "s_ports", "s_restr", "s_cloud", "s_csi", "s_csi_cnt", "s_norm", "s_soft",
             "packed", "final_start", "final_requested", "final_nonzero", "final_pod_count",
             "final_ports_used", "final_restr_used", "final_cloud_used", "final_csi_att",
             "final_spread", "final_ip_sel", "final_ip_own", "final_ip_anti",
@@ -219,6 +235,16 @@ PREEMPT_TENSORS = (
 )
 
 
+class ObjArgs(ctypes.Structure):
+    _fields_ = [(n, _i64) for n in ("L", "N", "P", "kind", "backward", "pw")] + [
+        (n, _ptr) for n in ("used", "nz_alloc", "node_active", "selected", "pod_active", "age_w", "scratch", "value", "F")
+    ]
+
+
+# the objective kernel's kinds (csrc/tune.cu)
+OBJECTIVE_IDS = {"utilization": 0, "fragmentation": 1, "pending_age": 2}
+
+
 class PreemptArgs(ctypes.Structure):
     _fields_ = [(n, _i64) for n in ("U", "N", "V", "R", "PDB", "S")] + [
         (n, _ptr) for n in PREEMPT_TENSORS + ("cand", "victims", "viol")
@@ -240,6 +266,16 @@ class GangFeasArgs(ctypes.Structure):
         )
     ]
 
+
+# each library's extern "C" entry points and their argument types
+ENTRIES = {
+    "scan": {f"kss_scan_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")},
+    "compact": {f"kss_compact_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
+    "scatter": {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]},
+    "preempt": {f"kss_preempt_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
+    "gang": {f"kss_gang_{e}": [_ptr, _ptr] for e in ("verdict", "feasibility_f32", "feasibility_f64")},
+    "objective": {f"kss_objective_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
+}
 
 _LIBS: "dict[str, ctypes.CDLL]" = {}
 build_seconds = 0.0
@@ -283,14 +319,7 @@ def build() -> "dict[str, ctypes.CDLL]":
         os.replace(tmp, out)
     for name, fn in SOURCES.items():
         lib = ctypes.CDLL(str(_lib_path(CSRC / fn)))
-        if name == "scatter":
-            entries = {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]}
-        elif name == "gang":
-            entries = {f"kss_gang_{e}": [_ptr, _ptr] for e in ("verdict", "feasibility_f32", "feasibility_f64")}
-        else:
-            args = [_ptr, _i64, _ptr] if name == "scan" else [_ptr, _ptr]
-            entries = {f"kss_{name}_f32": args, f"kss_{name}_f64": args}
-        for entry, argtypes in entries.items():
+        for entry, argtypes in ENTRIES[name].items():
             f = getattr(lib, entry)
             f.restype = ctypes.c_int
             f.argtypes = argtypes
@@ -334,18 +363,33 @@ def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
     return cap, slot_bytes <= DOM_SMEM_BYTES
 
 
+_WEIGHT_ROWS: "dict[tuple, torch.Tensor]" = {}
+
+
+def _profile_row(cfg: BatchConfig, dt: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """The profile's [S] weight row on the card, uploaded once per (weights,
+    dtype, device): a copy per launch would block the host until the card
+    drains, and windowed rounds queue launches ahead of the host."""
+    key = (tuple(float(w) for _s, w in cfg.scores), dt, str(dev))
+    row = _WEIGHT_ROWS.get(key)
+    if row is None:
+        row = _WEIGHT_ROWS[key] = profile_weights(cfg, dt, dev)
+    return row
+
+
 def scan(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None, ws0: "int | None" = None,
     carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
+    weights: "torch.Tensor | None" = None,
 ) -> dict:
     """Launch the scan kernel on a problem on the card; returns the outputs
     of ops/batch.scan_plain under the same keys (``ws0``, ``carry0``,
-    ``offset`` and ``window`` as there: with ``window`` the launch runs pods
-    [offset, offset + window) from ``carry0``, whose ``start0`` may be the
-    previous window's ``final_start`` on the card).  ``blocks`` defaults to
-    one per SM with the trace on (one without); time_scan.py compares it
-    with a single block."""
-    out = _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window)
+    ``offset``, ``window`` and ``weights`` as there: with ``window`` the
+    launch runs pods [offset, offset + window) from ``carry0``, whose
+    ``start0`` may be the previous window's ``final_start`` on the card).
+    ``blocks`` defaults to one per SM with the trace on (one without);
+    time_scan.py compares it with a single block."""
+    out = _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, weights=weights)
     LAUNCHES["scan"] += 1
     return out
 
@@ -358,15 +402,94 @@ def scan_lanes(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: tor
     estimator reads decisions, not annotations."""
     check_lanes(cfg, dims, lane_active)
     _check(lane_active, "lane_active", torch.bool)
-    out = _launch_scan(cfg, dims, dp, 1, None, None, 0, None, lane_active)
+    out = _launch_scan(cfg, dims, dp, 1, None, None, 0, None, lane_active=lane_active)
     LAUNCHES["scan_lanes"] += 1
     return out
 
 
-def _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None) -> dict:
-    """One launch of csrc/scan.cu: ``scan``'s arguments, and with
-    ``lane_active`` [G, N] the lane axis (every output gets a leading lane
-    axis, the scratch a slot per lane and block)."""
+def scan_population(cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: torch.Tensor) -> dict:
+    """Launch the scan kernel over the rows of a [G, S] weight matrix (K9)
+    on a problem on the card, every lane on the problem's own node_active:
+    lane g is the rollout under ``weights[g]``.  Returns the outputs of
+    ops/batch.scan_lanes_plain(weights=) under the same keys, each with a
+    leading lane axis.  Trace off."""
+    check_lanes(cfg, dims, None, weights)
+    _check(weights, "weights", dp.alloc.dtype)
+    out = _launch_scan(cfg, dims, dp, 1, None, None, 0, None, weights=weights)
+    LAUNCHES["scan_population"] += 1
+    return out
+
+
+def scan_grad(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: torch.Tensor, F: torch.Tensor, tau: float,
+) -> "tuple[torch.Tensor, dict]":
+    """Launch the scan's grad mode (K2g) on a problem on the card: (d
+    objective / d weights [S] float64, the hard rollout's outputs), as
+    ops/batch.grad_plain (whose docstring gives the formula).  ``weights``
+    [S] and ``F`` [N, 2] (d objective / d final_nonzero) in the problem's
+    dtype.  One lane, one block, trace off."""
+    dt = dp.alloc.dtype
+    if weights.shape != (len(cfg.scores),) or F.shape != (dims["N"], 2):
+        raise ValueError(f"weights must be [{len(cfg.scores)}] and F [{dims['N']}, 2], got "
+                         f"{tuple(weights.shape)} and {tuple(F.shape)}")
+    _check(F, "F", dt)
+    if not tau > 0:
+        raise ValueError(f"tau must be positive, got {tau}")
+    out = _launch_scan(cfg._replace(trace=False), dims, dp, 1, None, None, 0, None, weights=weights, grad=(F, tau))
+    LAUNCHES["scan_grad"] += 1
+    return out.pop("dw"), out
+
+
+def objective(
+    name: str, final_nonzero: torch.Tensor, selected: torch.Tensor, nz_alloc: torch.Tensor,
+    node_active: torch.Tensor, pod_active: torch.Tensor, age_w: torch.Tensor, backward: bool = False,
+) -> torch.Tensor:
+    """Launch the objective kernel (csrc/tune.cu) on a rollout on the card:
+    ``final_nonzero`` [L, N, 2] and ``selected`` [L, P] → the L lanes'
+    objective values [L], or with ``backward`` the cotangents F [L, N, 2]
+    (d objective / d final_nonzero), as tuning/objective.py's plain
+    versions."""
+    if name not in OBJECTIVE_IDS:
+        raise ValueError(f"unknown objective {name!r}; choose from {tuple(OBJECTIVE_IDS)}")
+    L, N, _two = final_nonzero.shape
+    P = selected.shape[1]
+    dt = final_nonzero.dtype
+    want = dict(
+        final_nonzero=(final_nonzero, (L, N, 2), dt), selected=(selected, (L, P), torch.int32),
+        nz_alloc=(nz_alloc, (N, 2), dt), node_active=(node_active, (N,), torch.bool),
+        pod_active=(pod_active, (P,), torch.bool), age_w=(age_w, (P,), dt),
+    )
+    a = ObjArgs()
+    for field, (t, shape, tdt) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{field} has shape {tuple(t.shape)}, the objective wants {shape}")
+        setattr(a, "used" if field == "final_nonzero" else field, _check(t, field, tdt))
+    fn = _entry("objective", dt)
+    n_vals = {"utilization": 2 * N, "fragmentation": N, "pending_age": P}[name]
+    pw = 1 << max(n_vals - 1, 0).bit_length()
+    dev = final_nonzero.device
+    scratch = torch.empty((L, 2, pw), dtype=dt, device=dev)
+    res = torch.empty((L, N, 2) if backward else (L,), dtype=dt, device=dev)
+    a.L, a.N, a.P, a.kind, a.backward, a.pw = L, N, P, OBJECTIVE_IDS[name], int(backward), pw
+    a.scratch = scratch.data_ptr()
+    if backward:
+        a.F = res.data_ptr()
+    else:
+        a.value = res.data_ptr()
+    rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "objective")
+    LAUNCHES["objective"] += 1
+    return res
+
+
+def _launch_scan(
+    cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None, weights=None, grad=None,
+) -> dict:
+    """One launch of csrc/scan.cu: ``scan``'s arguments; with
+    ``lane_active`` [G, N] (K8) or a [G, S] ``weights`` matrix (K9) the lane
+    axis (every output gets a leading lane axis, the scratch a slot per lane
+    and block); with ``grad=(F, tau)`` the grad mode (K2g, ``dw`` in the
+    outputs)."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
@@ -400,9 +523,16 @@ def _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active
 
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
     SG, G, D = dims["SG"], dims["G"], dims["D"]
+    # the weights: the profile's row, one given row, or K9's [L, S] rows
+    S = len(cfg.scores)
+    w_rows = _profile_row(cfg, dt, dev) if weights is None else weights
+    _check(w_rows, "weights", dt)
+    if w_rows.shape[-1] != S or w_rows.dim() not in (1, 2):
+        raise ValueError(f"weights must be [{S}] or [G, {S}], got {tuple(w_rows.shape)}")
     # the lane axis: L lanes, each output with a leading [L]
-    L = 1 if lane_active is None else lane_active.shape[0]
-    lead = () if lane_active is None else (L,)
+    laned = lane_active is not None or w_rows.dim() == 2
+    L = lane_active.shape[0] if lane_active is not None else (w_rows.shape[0] if w_rows.dim() == 2 else 1)
+    lead = (L,) if laned else ()
     o = lambda *shape, dtype=dt: e(*lead, *shape, dtype=dtype)
 
     def carried(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -449,6 +579,8 @@ def _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active
         s_cloud=e(blocks, 3, N) if gates["cloud"] else e(1),
         s_csi=e(blocks, VID, N, dtype=torch.uint8) if gates["csi"] else e(1, dtype=torch.uint8),
         s_csi_cnt=e(blocks, DR, N) if gates["csi"] else e(1),
+        s_norm=e(blocks, S, N) if grad is not None else e(1),
+        s_soft=e(blocks, N) if grad is not None else e(1),
     )
     logt = log_table(N, dt, dev)
     a = ScanArgs()
@@ -460,13 +592,17 @@ def _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active
     a.trace = int(cfg.trace)
     a.reservoir = int(cfg.tie_break == "reservoir")
     a.lanes = L
+    a.na_stride = N if lane_active is not None else 0
+    a.w_stride = S if w_rows.dim() == 2 else 0
+    a.weights = w_rows.data_ptr()
     a.nf = len(cfg.filters)
     for k, f in enumerate(cfg.filters):
         a.filters[k] = _FILTER_IDS[f]
     a.ns = len(cfg.scores)
-    for k, (s, w) in enumerate(cfg.scores):
+    if S > MAXS:
+        raise ValueError(f"{S} score plugins exceed the scan's capacity ({MAXS})")
+    for k, (s, _w) in enumerate(cfg.scores):
         a.scores[k] = _SCORE_IDS[s]
-        a.weights[k] = float(w)
     a.fit_strategy = _FIT_IDS[cfg.fit_strategy]
     a.n_fit_res = len(cfg.fit_resources)
     for j, (c, w) in enumerate(cfg.fit_resources):
@@ -531,6 +667,13 @@ def _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active
     if lane_active is not None:
         a.node_active = lane_active.data_ptr()
     a.start_ptr = _check(start_dev, "start0", i32) if start_dev is not None else None
+    if grad is not None:
+        F, tau = grad
+        if L != 1 or blocks != 1 or cfg.trace:
+            raise ValueError("the grad mode runs one lane in one block with the trace off")
+        out["dw"] = torch.empty(S, dtype=torch.float64, device=dev)
+        a.grad, a.tau = 1, float(tau)
+        a.grad_F, a.dw = F.data_ptr(), out["dw"].data_ptr()
     for name, t in scratch.items():
         setattr(a, name, t.data_ptr())
     a.packed = out["packed_pod"].data_ptr()
@@ -564,7 +707,7 @@ def _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active
         feasible_count=packed[..., 1, :],
         sample_start=packed[..., 2, :],
         sample_processed=packed[..., 3, :],
-        final_start=final_start[0] if lane_active is None else final_start,
+        final_start=final_start if laned else final_start[0],
     )
     out["final_carry"] = final_carry(out, final_start)
     return out

@@ -158,9 +158,11 @@ class ResultStore:
     ) -> None:
         w = self._weights.get(plugin, 0)
         if isinstance(w, float) and not w.is_integer():
-            # a tuned (float) weight override: the port's service refuses
-            # weights=, so no store carries one
-            raise ValueError(f"non-integral weight {w} for {plugin}: weight overrides are not ported")
+            # a tuned (float) weight override: the shared renderer, byte-
+            # equal to the integer path whenever the product is integral
+            from kube_scheduler_simulator_tpu_torch.tuning.validate import format_weighted_score
+
+            final = format_weighted_score(int(normalized_score), w)
         else:
             final = str(int(normalized_score) * int(w))
         self._entry(namespace, pod_name)["finalScore"].setdefault(node_name, {})[plugin] = final

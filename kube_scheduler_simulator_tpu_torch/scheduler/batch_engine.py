@@ -13,8 +13,13 @@ what changed and a ``DevicePlacer`` keeps the problem's planes on the card,
 row-updating them with the scatter kernel.  ``from_framework`` builds the
 engine a scheduler profile describes.
 
-Left out of the reference's engine: the mesh, the weight override (the
-tuner's traced weights), the streaming ``schedule_async``, the AOT
+A plugin-weight override (``weights=``, ``set_weight_override``; the
+service's ``set_plugin_weights``) runs the scan with the override's [S]
+vector as its weight argument and renders finalScore through
+``format_weighted_score``, with the vector each round was dispatched with.
+
+Left out of the reference's engine: the mesh, the streaming
+``schedule_async``, the AOT
 artifact cache and the process ensemble, and the C renderer of the
 annotation documents (``materialize_wave`` returns None; every document
 takes the Python paths, which the parity suites pin to the same bytes).
@@ -55,6 +60,7 @@ from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import (
     MIN_FEASIBLE_NODES_TO_FIND,
     num_feasible_nodes_to_find,
 )
+from kube_scheduler_simulator_tpu_torch.tuning.validate import format_weighted_score, validate_plugin_weights
 from kube_scheduler_simulator_tpu_torch.utils.gojson import go_marshal, go_string_key
 
 Obj = dict[str, Any]
@@ -117,9 +123,18 @@ class BatchResult:
 
     def __init__(
         self, engine: "BatchEngine", pending: list[Obj], out: dict, pr: "E.BatchProblem | _WindowProblem",
-        nodes: list[Obj], fr_shared: "dict | None" = None,
+        nodes: list[Obj], fr_shared: "dict | None" = None, weight_override: Any = "_at_construction",
     ):
         self._engine = engine
+        # the weight vector this round was dispatched with (rendering is
+        # lazy, so a set_weight_override between dispatch and commit must
+        # not reach it); the synchronous paths build the result at
+        # dispatch time, where the engine's live value is that vector
+        self.weight_override = (
+            engine.weight_override
+            if isinstance(weight_override, str) and weight_override == "_at_construction"
+            else weight_override
+        )
         self.pending = pending
         self.out = out
         self.problem = pr
@@ -150,15 +165,23 @@ class BatchResult:
             tr = self.out["trace"]
             cfg = self._engine.cfg
 
-            def lut_inv(arr: "np.ndarray") -> tuple:
+            def lut_inv(arr: "np.ndarray", fmt=str) -> tuple:
                 """[P,WS] ints → (rendered str per DISTINCT value, [P,WS]
                 indices into it): each distinct value is formatted once."""
                 mn = int(arr.min()) if arr.size else 0
                 mx = int(arr.max()) if arr.size else 0
                 if mx - mn <= 4096:
-                    return [str(v) for v in range(mn, mx + 1)], arr.astype(np.int64) - mn
+                    return [fmt(v) for v in range(mn, mx + 1)], arr.astype(np.int64) - mn
                 uniq, inv = np.unique(arr, return_inverse=True)
-                return [str(int(v)) for v in uniq], inv.reshape(arr.shape).astype(np.int64)
+                return [fmt(int(v)) for v in uniq], inv.reshape(arr.shape).astype(np.int64)
+
+            wov = self.weight_override  # dispatch-time snapshot, not live
+
+            def fin_li_of(k: int, w) -> tuple:
+                if wov is None:
+                    return lut_inv(tr["norm"][k].astype(np.int32) * int(w))
+                wk = float(wov[k])
+                return lut_inv(tr["norm"][k].astype(np.int32), fmt=lambda v: format_weighted_score(v, wk))
 
             fp = tr.get("fail_plug")
             self._lists = {
@@ -172,9 +195,7 @@ class BatchResult:
                 # first failure, in profile order
                 "fail_pos": [self._engine.filters.index(f) for f in cfg.filters],
                 "raw_li": {s: lut_inv(tr["raw"][k]) for k, (s, _w) in enumerate(cfg.scores)},
-                "fin_li": {
-                    s: lut_inv(tr["norm"][k].astype(np.int32) * int(w)) for k, (s, w) in enumerate(cfg.scores)
-                },
+                "fin_li": {s: fin_li_of(k, w) for k, (s, w) in enumerate(cfg.scores)},
                 "raw_s": {},
                 "final_s": {},
                 "msg_memo": {},
@@ -429,6 +450,7 @@ class BatchEngine:
         device: "str | torch.device | None" = None,
         hard_pod_affinity_weight: int = 1,
         added_affinity: "Obj | None" = None,
+        weights: Any = None,
     ):
         """``device``: the card unless the caller passes ``"cpu"`` (where the
         plain versions stand in for the kernels); a missing card raises.
@@ -438,7 +460,12 @@ class BatchEngine:
         ``last_timings["promoted_f64"]``).
         ``hard_pod_affinity_weight``: InterPodAffinity's
         hardPodAffinityWeight argument (upstream default 1);
-        ``added_affinity``: NodeAffinity's addedAffinity argument."""
+        ``added_affinity``: NodeAffinity's addedAffinity argument.
+        ``weights``: a plugin-weight override for the score pass (a vector in
+        the profile's score order or a name → weight mapping), validated
+        here (WeightValidationError); the scan then takes it as its weight
+        argument and finalScore renders through ``format_weighted_score``.
+        None keeps the profile's weights and bytes."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.device, dtype)
         self.filters = list(filters if filters is not None else B.FILTER_KERNELS)
@@ -448,6 +475,13 @@ class BatchEngine:
         self.trace = trace
         self.hard_pod_affinity_weight = hard_pod_affinity_weight
         self.added_affinity = added_affinity
+        self.weight_override: "np.ndarray | None" = None
+        if weights is not None:
+            self.weight_override = validate_plugin_weights(
+                weights, [s for s, _w in self.scores], defaults=dict(self.scores)
+            )
+        # the override's [S] tensor on the device, per (vector, dtype)
+        self._weights_dev: "tuple | None" = None
         self.cfg = B.BatchConfig(
             filters=tuple(self.filters),
             scores=tuple((s, w) for s, w in self.scores),
@@ -457,6 +491,7 @@ class BatchEngine:
             trace=trace,
             tie_break=tie_break,
             seed=seed,
+            traced_weights=self.weight_override is not None,
         )
         self.encode_cache = E.EncodeCache()
         self._placer = B.DevicePlacer()
@@ -538,9 +573,14 @@ class BatchEngine:
         ext = getattr(framework, "extender_service", None)
         if ext is not None and ext.extenders:
             unsupported = unsupported or "extender webhooks configured"
+        # a service-level weight override (SchedulerService(weights=),
+        # set_plugin_weights) rides on the framework
+        override = getattr(framework, "score_weight_override", None)
+        weights = [float(override.get(s, w)) for s, w in scores] if override else None
         eng = cls(
             filters=filters,
             scores=scores,
+            weights=weights,
             fit_strategy=fit_strategy,
             fit_resources=fit_resources,
             fit_shape=fit_shape,
@@ -557,6 +597,32 @@ class BatchEngine:
         eng._framework = framework
         eng._store = getattr(framework.handle, "cluster_store", None)
         return eng
+
+    def set_weight_override(self, override: "dict[str, float]") -> None:
+        """Swap the override's vector without rebuilding the engine: the
+        next round's scan takes the new vector.  Only on an engine built
+        with an override (``cfg.traced_weights``); validated as the
+        constructor's."""
+        if not self.cfg.traced_weights:
+            raise ValueError(
+                "set_weight_override requires the traced-weights path; "
+                "an engine without an override must be rebuilt to install one"
+            )
+        weights = [float(override.get(s, w)) for s, w in self.scores]
+        self.weight_override = validate_plugin_weights(
+            weights, [s for s, _w in self.scores], defaults=dict(self.scores)
+        )
+
+    def _round_weights(self, dt: torch.dtype) -> "torch.Tensor | None":
+        """The override's [S] tensor in the round's dtype on the engine's
+        device (uploaded once per vector and dtype), None without one."""
+        if self.weight_override is None:
+            return None
+        key = (tuple(self.weight_override.tolist()), dt)
+        if self._weights_dev is None or self._weights_dev[0] != key:
+            t = torch.as_tensor(self.weight_override, dtype=dt).to(self.device)
+            self._weights_dev = (key, t)
+        return self._weights_dev[1]
 
     def _volumes(self) -> "dict[str, list[Obj]]":
         """The volume resource kinds for encode() (empty without a store)."""
@@ -686,7 +752,10 @@ class BatchEngine:
         # reuses float32 planes, nor the reverse
         dp = self._placer.place(host, (str(self.round_dtype), tuple(sorted(dims.items()))), self.device)
         prof.note(rec, "upload", time.perf_counter() - tl)
-        return dict(pr=pr, dp=dp, dims=dims, ws0=ws0, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec)
+        return dict(
+            pr=pr, dp=dp, dims=dims, ws0=ws0, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec,
+            weights=self._round_weights(self.round_dtype), weight_override=self.weight_override,
+        )
 
     @staticmethod
     def _packed_out(packed: np.ndarray) -> dict:
@@ -779,7 +848,7 @@ class BatchEngine:
             return
         wdims = dict(dims, P=Wp)
         t2 = time.perf_counter()
-        fnw = B.build_batch_fn(self.cfg, dims, ws0=ws0, window=Wp)
+        fnw = B.build_batch_fn(self.cfg, dims, ws0=ws0, window=Wp, weights=ctx["weights"])
         dp = ctx.pop("dp")
         n_windows = (min(pend_n, P) + Wp - 1) // Wp
         dev_wait = 0.0
@@ -820,7 +889,7 @@ class BatchEngine:
                 prof.note(rec, "trace_fetch", time.perf_counter() - tw)
                 result = BatchResult(
                     self, pending[offset : offset + cnt], out, _WindowProblem(pr, offset, offset + cnt), nodes,
-                    fr_shared=fr_shared,
+                    fr_shared=fr_shared, weight_override=ctx["weight_override"],
                 )
                 # the windows of a round share one wave record; the commit
                 # path re-closes it per window
@@ -848,7 +917,7 @@ class BatchEngine:
         pr, dp, dims = ctx["pr"], ctx["dp"], ctx["dims"]
         prof, rec = self.profiler, ctx["prof"]
         t2 = time.perf_counter()
-        out_dev = B.build_batch_fn(self.cfg, dims, ws0=ctx["ws0"])(dp)
+        out_dev = B.build_batch_fn(self.cfg, dims, ws0=ctx["ws0"], weights=ctx["weights"])(dp)
         td = time.perf_counter()
         prof.note(rec, "dispatch", td - t2)
         packed = out_dev["packed_pod"].cpu().numpy()
@@ -876,7 +945,7 @@ class BatchEngine:
             }
         )
         prof.close(rec, pods=len(ctx["pending"]))
-        res = BatchResult(self, ctx["pending"], out, pr, ctx["nodes"])
+        res = BatchResult(self, ctx["pending"], out, pr, ctx["nodes"], weight_override=ctx["weight_override"])
         res.prof_rec = rec
         return res
 

@@ -45,8 +45,15 @@ The capacity engine (autoscaler/) hooks in as the reference's does:
 autoscaler pass, drain, while the autoscaler acts.  Its scale-up estimate
 is one launch of the lane scan (K8) on the service's device and dtype.
 
-Refused with an error, never worked around: a mesh, ``weights=``,
-extenders (preempt-verb ones included), ``schedule_stream``.  Left out:
+A plugin-weight override (``weights=``, ``set_plugin_weights``: the
+tuner's learned scoring head, tuning/) applies to every profile: the
+sequential cycle's weighted sum, the result stores' finalScore rendering
+and the batch engines, whose scan takes the vector as its weight argument.
+The scale-up estimator keeps its own packing profile.  ``note_tuning_run``
+absorbs a ``run_tuning`` report into the ``tuning_*`` counters.
+
+Refused with an error, never worked around: a mesh, extenders
+(preempt-verb ones included), ``schedule_stream``.  Left out:
 the journal, the background loop (and with it the throttled background
 autoscaler passes), ``metrics()``, the restart and reset of a running
 configuration, and the chaos catch of the reference (a kernel or launch
@@ -124,7 +131,11 @@ class SchedulerService:
         ``schedule_pending_autoscaled`` runs autoscaler passes between
         rounds.  "scenario" is accepted and, until the background loop and
         scenario/ are ported, behaves as "on".  ``autoscaler_opts``
-        forwards to ``ClusterAutoscaler``; ``autoscale_interval_s`` is
+        forwards to ``ClusterAutoscaler``; ``weights``: the plugin-weight
+        override (a vector in the profile's score-plugin order or a name →
+        weight mapping), validated at ``start_scheduler``
+        (WeightValidationError), changed live by ``set_plugin_weights``;
+        ``autoscale_interval_s`` is
         accepted for the reference's signature and unused (it throttles
         the background loop, which is not ported)."""
         if autoscale not in ("off", "on", "scenario"):
@@ -133,8 +144,6 @@ class SchedulerService:
             raise ValueError("a mesh: the port runs one card; sharding the node axis is not ported yet")
         if os.environ.get("KSS_MESH_DEVICES", "").strip() not in ("", "0", "1"):
             raise ValueError("KSS_MESH_DEVICES: the port runs one card; sharding the node axis is not ported yet")
-        if weights is not None:
-            raise ValueError("weights=: the plugin-weight override is not ported yet")
         self.cluster_store = cluster_store
         self.seed = seed
         self.tie_break = tie_break
@@ -209,7 +218,19 @@ class SchedulerService:
             # kernel runs promoted to float64 because their resource values
             # would go inexact in float32, by reason (column and magnitude)
             "f64_promotions": {},
+            # the tuner (tuning/): runs absorbed by note_tuning_run, their
+            # rollouts (hard objective evaluations) and value-and-grad
+            # dispatches, and each objective's last tuned value
+            "tuning_runs": 0,
+            "tuning_rollouts": 0,
+            "tuning_grad_dispatches": 0,
+            "tuning_objective": {},
         }
+        # the weight override asked for (at construction or by
+        # set_plugin_weights), resolved and validated when frameworks exist
+        self._weights_requested = weights
+        self._weights_override: "dict[str, float] | None" = None
+        self._last_tuning_report: "Obj | None" = None
         self._stats_lock = threading.Lock()
         # one per-wave stage profiler shared by every profile engine and the
         # commit path; the store stamps its mutations against it too
@@ -301,8 +322,89 @@ class SchedulerService:
         self.result_store = self.framework.result_store
         self._batch_engine = None  # rebuilt lazily for the new profiles
         self._batch_engines = {}
+        # re-apply a requested weight override onto the fresh frameworks
+        self._weights_override = None
+        if self._weights_requested is not None:
+            self.set_plugin_weights(self._weights_requested)
         # a scheduler (re)build is a scheduling-relevant event
         self.queue.move_all()
+
+    # ------------------------------------------------------- weight override
+
+    def score_plugin_names(self, profile: "str | None" = None) -> list[str]:
+        """The score plugins of a profile (default profile when None), in
+        profile order — the arity a weight vector must match."""
+        fw = self.frameworks.get(profile) if profile else self.framework
+        assert fw is not None, "scheduler not started"
+        return [wp.original.name for wp in fw.plugins["score"]]
+
+    def set_plugin_weights(self, weights: Any) -> "dict[str, float] | None":
+        """Install (or clear, with None) a plugin-weight override across
+        every profile: the sequential cycle's weighted sum, the result
+        stores' finalScore rendering and the batch engines all pick it up.
+        Every profile is validated before any is touched
+        (WeightValidationError leaves the previous override in place).
+        Returns the resolved default-profile mapping."""
+        assert self.framework is not None, "scheduler not started"
+        if weights is None:
+            self._weights_requested = None
+            self._weights_override = None
+            for fw in self.frameworks.values():
+                fw.score_weight_override = None
+                fw.result_store.set_weights(fw.score_weights)
+        else:
+            resolved: "dict[str, float] | None" = None
+            for fw, mapping in self.check_plugin_weights(weights):
+                fw.score_weight_override = mapping
+                fw.result_store.set_weights(mapping)
+                if fw is self.framework:
+                    resolved = mapping
+            self._weights_requested = weights
+            self._weights_override = resolved
+        # an engine built without an override (or a cleared override) is
+        # rebuilt; a value change on an override engine swaps its vector
+        if weights is None or any(not eng.cfg.traced_weights for eng in self._batch_engines.values()):
+            self._batch_engine = None
+            self._batch_engines = {}
+        else:
+            for name, fw in self.frameworks.items():
+                eng = self._batch_engines.get(name)
+                if eng is not None:
+                    eng.set_weight_override(fw.score_weight_override)
+        return self._weights_override
+
+    def check_plugin_weights(self, weights: Any) -> "list[tuple[Any, dict[str, float]]]":
+        """Validate a weight vector against EVERY profile without applying
+        it: (framework, resolved name → weight mapping) per profile;
+        WeightValidationError names the offending profile."""
+        from kube_scheduler_simulator_tpu_torch.tuning.validate import validate_plugin_weights
+
+        plans = []
+        for name, fw in self.frameworks.items():
+            names = [wp.original.name for wp in fw.plugins["score"]]
+            try:
+                vec = validate_plugin_weights(weights, names, defaults=fw.score_weights)
+            except Exception as e:
+                raise type(e)(f"profile {name}: {e}") from None
+            plans.append((fw, dict(zip(names, vec.tolist()))))
+        return plans
+
+    def plugin_weights(self) -> "dict[str, float] | None":
+        """The active default-profile weight override (None = defaults)."""
+        return self._weights_override
+
+    def note_tuning_run(self, session: Any, report: Obj) -> None:
+        """Absorb one tuning run's dispatch counts and outcome into the
+        ``tuning_*`` counters."""
+        with self._stats_lock:
+            self.stats["tuning_runs"] += 1
+            self.stats["tuning_rollouts"] += int(getattr(session, "rollouts", 0))
+            self.stats["tuning_grad_dispatches"] += int(getattr(session, "grad_dispatches", 0))
+            self.stats["tuning_objective"] = {
+                **self.stats["tuning_objective"],
+                report["objective"]: float(report["tunedObjective"]),
+            }
+        self._last_tuning_report = report
 
     def schedule_stream(self, *args: Any, **kwargs: Any) -> Any:
         raise NotImplementedError("schedule_stream: the streaming wave pipeline is not ported yet")

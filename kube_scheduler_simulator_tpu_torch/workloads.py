@@ -21,7 +21,8 @@ each a PodGroup of one-CPU members, arriving in waves and completing.
 ``autoscale`` builds the JAX package's cfg6-autoscale (bench
 ``run_autoscale``): a few seed nodes, three node groups and a backlog of
 pending pods; ``autoscale_burst`` one scale-up estimate's groups and
-pods against many pools.
+pods against many pools.  ``tune`` gives the weight tuner's scenario
+families (tuning/scenario.py) at a size: cfg10-tune-10k.
 """
 
 from __future__ import annotations
@@ -498,3 +499,18 @@ def autoscale_burst(n_groups: int = 16, copies: int = 64, n_pending: int = 10_00
                                  copies, taints))
     headroom = {gr["metadata"]["name"]: copies for gr in groups}
     return groups, headroom, [mk_pod(i, rng) for i in range(n_pending)]
+
+
+# cfg10-tune-10k: the JAX bench's tune report (bench.py:1094
+# run_tune_report, its 8 pods a node, bench.py:1108-1111) at north's 10 000
+# pods; the report's rows as (family, tuner)
+TUNE = dict(n_nodes=1250, n_pods=10_000, seed=11, steps=8, pop=16, tau=50.0, lr=1.0)
+TUNE_ROWS = (("imbalance", "cem"), ("consolidate", "cem"), ("imbalance", "grad"))
+
+
+def tune(family: str = "imbalance", n_nodes: int = 1250, n_pods: int = 10_000, seed: int = 11):
+    """(nodes, pods, objective name) of a tuner scenario family
+    (``tuning.scenario.build_family``): cfg10-tune-10k at the defaults."""
+    from kube_scheduler_simulator_tpu_torch.tuning.scenario import build_family
+
+    return build_family(family, n_nodes=n_nodes, n_pods=n_pods, seed=seed)

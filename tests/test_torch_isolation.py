@@ -97,6 +97,16 @@ astore = ClusterStore()
 asvc = workloads.autoscale(astore, start, n_pods=60, seed_nodes=0, max_size=4)
 asvc.schedule_pending_autoscaled(max_rounds=2)
 assert not asvc.pending_pods() and asvc.autoscaler.metrics()["estimate_dispatches"] >= 1
+from kube_scheduler_simulator_tpu_torch.tuning import run_tuning
+for fam, tuner in (("imbalance", "cem"), ("imbalance", "grad")):
+    rep = run_tuning(family=fam, tuner=tuner, n_nodes=6, n_pods=24, steps=2, pop=4, device="cpu")
+    assert rep["kernelPlatform"] == "cpu" and rep["tunedObjective"] >= rep["defaultObjective"], rep
+wstore = ClusterStore()
+for w in workloads.churn(wstore, 40, 20, 1):
+    wsvc = SchedulerService(wstore, use_batch="auto", batch_min_work=0, weights=[1.5, 2, 0.25, 2, 2, 1, 1], device="cpu")
+    wsvc.start_scheduler(None)
+    wsvc.schedule_pending(max_rounds=1)
+assert wsvc.stats["batch_pods"] >= 30 and wsvc.plugin_weights() is not None, wsvc.stats
 new = set(sys.modules) - before
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == {REFERENCE!r} or m.startswith({REFERENCE!r} + ".")))
@@ -141,6 +151,13 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ScaleUpEstimator()
+    from kube_scheduler_simulator_tpu_torch.tuning import run_tuning
+    from kube_scheduler_simulator_tpu_torch.tuning.tuner import TuningSession
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tuning(n_nodes=4, n_pods=8, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TuningSession([], [], [("NodeResourcesFit", 1)])
     assert resolve_device("cpu").type == "cpu"
     assert resolve_dtype(resolve_device("cpu")) == torch.float64
     assert resolve_dtype(torch.device("cuda")) == torch.float32
@@ -162,5 +179,21 @@ def test_a_cuda_round_launches_both_kernels():
     res = BatchEngine(scores=[("NodeResourcesFit", 1)], trace=True).schedule(nodes, all_pods, pending)
     assert kernels.LAUNCHES == {
         "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
+        "scan_population": 0, "objective": 0, "scan_grad": 0,
     }
     assert sum(s is not None for s in res.selected_nodes) == 40
+
+
+def test_every_library_entry_the_loader_binds_is_in_its_source():
+    """``kernels.build`` loads each csrc/ source's library and binds the
+    entries of ``kernels.ENTRIES`` (the tuner's objective kernel among
+    them): each is an ``extern "C"`` function of that source."""
+    import re
+
+    from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+    assert set(kernels.ENTRIES) == set(kernels.SOURCES) and kernels.SOURCES["objective"] == "tune.cu"
+    for lib, entries in kernels.ENTRIES.items():
+        text = (kernels.CSRC / kernels.SOURCES[lib]).read_text()
+        exported = set(re.findall(r'extern "C" int (\w+)\(', text))
+        assert set(entries) <= exported, (lib, set(entries) - exported)

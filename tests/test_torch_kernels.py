@@ -64,7 +64,7 @@ def _struct_fields(src: str, name: str) -> "list[str]":
 @pytest.mark.parametrize(
     "src,struct",
     [("scan.cu", "ScanArgs"), ("compact.cu", "CompactArgs"), ("preempt.cu", "PreemptArgs"),
-     ("gang.cu", "GangVerdictArgs"), ("gang.cu", "GangFeasArgs")],
+     ("gang.cu", "GangVerdictArgs"), ("gang.cu", "GangFeasArgs"), ("tune.cu", "ObjArgs")],
 )
 def test_ctypes_mirror_matches_the_cuda_struct(src, struct):
     """The argument structs are read by field order: the ctypes mirror and
@@ -179,8 +179,18 @@ def test_wrappers_refuse_cpu_tensors():
     f64 = lambda *shape: torch.zeros(shape, dtype=torch.float64)  # noqa: E731
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.gang_feasibility(f64(2, 3, 1), torch.ones(2, 3, dtype=torch.bool), f64(4, 1), f64(4), i32(2, 4), 2)
+    lanes_cfg = cfg._replace(trace=False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.scan_population(lanes_cfg, dims, dp, f64(3, len(SCORES)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.scan_grad(lanes_cfg, dims, dp, f64(len(SCORES)), f64(dims["N"], 2), 50.0)
+    N, P = dims["N"], dims["P"]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.objective("utilization", f64(2, N, 2), i32(2, P), f64(N, 2), torch.ones(N, dtype=torch.bool),
+                     torch.ones(P, dtype=torch.bool), f64(P))
     assert TK.LAUNCHES == {
-        k: 0 for k in ("scan", "scan_lanes", "compact", "scatter", "preempt", "gang_verdict", "gang_feasibility")
+        k: 0 for k in ("scan", "scan_lanes", "compact", "scatter", "preempt", "gang_verdict", "gang_feasibility",
+                       "scan_population", "objective", "scan_grad")
     }
 
 
@@ -504,3 +514,119 @@ def test_lane_scan_matches_plain_version_and_one_lane_scans_on_the_card(topo):
                         "final_ip_sel", "final_ip_own", "final_ip_anti"):
                 assert torch.equal(k_out[key][g], one[key]), (dt, topo, g, key)
         assert (k_out["selected"][4] < 0).all() and (k_out["selected"][3] >= 0).any()
+
+
+def _tune_session(family: str, dt, device, n_nodes=40, n_pods=240):
+    """A tuner session on a scenario family (the default profile's scores
+    and filters), in ``dt`` on ``device``."""
+    from kube_scheduler_simulator_tpu_torch.tuning import tuner as TT
+
+    nodes, pods, obj = workloads.tune(family, n_nodes=n_nodes, n_pods=n_pods, seed=11)
+    filters = [f for f in REGISTRY_FILTERS]
+    return TT.TuningSession(nodes, pods, list(DEFAULT_SCORES), filters=filters, objective=obj, dtype=dt, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["imbalance", "consolidate"])
+def test_population_and_objective_kernels_match_plain_versions_on_the_card(family):
+    """K9: the population launch against its plain version and each lane
+    against the one-lane scan (K2) under that lane's weights, bitwise, in
+    both dtypes; the objective kernel (values and cotangents) against its
+    plain version, bitwise, for every objective."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.tuning import objective as TO
+
+    for dt in (torch.float32, torch.float64):
+        s = _tune_session(family, dt, "cuda")
+        S = len(s.scores)
+        W = np.random.default_rng(3).uniform(0.0, 3.0, size=(6, S))
+        W[0] = [w for _s, w in s.scores]
+        Wt = torch.as_tensor(W).to(device="cuda", dtype=dt)
+        k_out = TK.scan_population(s.cfg, s.dims, s.dp, Wt)
+        assert_outputs_equal(k_out, TB.scan_lanes_plain(s.cfg, s.dims, s.dp, weights=Wt), (family, dt))
+        for g in range(W.shape[0]):
+            one = TK.scan(s.cfg, s.dims, s.dp, weights=Wt[g].contiguous())
+            for key in ("packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_ip_sel", "final_ip_own"):
+                assert torch.equal(k_out[key][g], one[key]), (family, dt, g, key)
+        for name in TO.OBJECTIVES:
+            ys = {"final_nonzero": k_out["final_nonzero"], "selected": k_out["selected"]}
+            assert torch.equal(TO.objective_value(name, ys, s.dp, s.age_w), TO.objective_plain(name, ys, s.dp, s.age_w))
+            for g in range(W.shape[0]):
+                one = {k: v[g] for k, v in ys.items()}
+                assert torch.equal(TO.objective_grad(name, one, s.dp, s.age_w),
+                                   TO.objective_grad_plain(name, one, s.dp, s.age_w)), (name, g)
+
+
+# K2g against grad_plain: sums in the block's order, not the plain version's
+GRAD_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,objective", [("imbalance", "fragmentation"), ("consolidate", "utilization"),
+                                              ("imbalance", "pending_age")])
+def test_grad_kernel_matches_grad_plain_on_the_card(family, objective):
+    """K2g: d objective / d weights within GRAD_TOL of ||g||, the launch's
+    final carry bitwise the hard rollout's; pending_age's exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_scheduler_simulator_tpu_torch.tuning import objective as TO
+
+    for dt in (torch.float32, torch.float64):
+        s = _tune_session(family, dt, "cuda")
+        w = torch.tensor([1.0, 2.0, 1.5, 0.5, 2.0, 1.0, 1.0], dtype=dt, device="cuda")
+        hard = TK.scan_population(s.cfg, s.dims, s.dp, w[None].contiguous())
+        ys = {"final_nonzero": hard["final_nonzero"][0], "selected": hard["selected"][0]}
+        F = TO.objective_grad(objective, ys, s.dp, s.age_w)
+        dw, out = TK.scan_grad(s.cfg, s.dims, s.dp, w, F, 50.0)
+        dw_p, out_p = TB.grad_plain(s.cfg, s.dims, s.dp, w, F, 50.0)
+        for key in ("packed_pod", "final_requested", "final_nonzero", "final_pod_count"):
+            assert torch.equal(out[key], hard[key][0]) and torch.equal(out[key], out_p[key]), (dt, key)
+        if objective == "pending_age":
+            assert not dw.any() and not dw_p.any()
+        else:
+            err = float((dw - dw_p).norm())
+            assert dw_p.norm() > 0 and err <= GRAD_TOL[dt] * float(dw_p.norm()), (dt, err, dw, dw_p)
+
+
+@pytest.mark.gpu
+def test_tuner_and_override_on_the_card_match_the_cpu():
+    """run_tuning on the card in float64 against the CPU: CEM bitwise,
+    grad within 1e-9; a service round under float weights leaves the CPU
+    service's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_scheduler_simulator_tpu_torch.ops import kernels
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.tuning import run_tuning
+
+    for family, tuner in workloads.TUNE_ROWS:
+        kw = dict(family=family, tuner=tuner, n_nodes=8, n_pods=48, steps=3, pop=6, seed=11, dtype=torch.float64)
+        kernels.reset_counts()
+        got = run_tuning(device="cuda", **kw)
+        want = run_tuning(device="cpu", **kw)
+        assert got["kernelPlatform"] == "cuda" and kernels.LAUNCHES["scan_population"] == got["dispatches"]
+        assert kernels.LAUNCHES["scan_grad"] == got["gradDispatches"]
+        assert got["defaultObjective"] == want["defaultObjective"]
+        if tuner == "cem":
+            assert got["weights"] == want["weights"] and got["history"] == want["history"]
+        else:
+            import numpy as np
+
+            assert np.allclose(got["weights"], want["weights"], rtol=1e-9, atol=0)
+    states = []
+    for dev in ("cuda", "cpu"):
+        store = ClusterStore(clock=lambda: 0.0)
+        for w in workloads.churn(store, 300, 40, 2):
+            if w == 0:
+                svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=dev,
+                                       dtype=torch.float64, weights=[1.5, 2.25, 0.75, 2, 2, 1.1, 1])
+                svc.start_scheduler(None)
+            svc.schedule_pending(max_rounds=1)
+        assert svc.stats["batch_pods"] > 0 and not svc.stats["batch_fallbacks"]
+        states.append({p["metadata"]["name"]: ((p.get("spec") or {}).get("nodeName"), p["metadata"].get("annotations"))
+                       for p in store.list("pods")})
+    assert states[0] == states[1]

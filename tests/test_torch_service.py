@@ -196,10 +196,13 @@ def test_the_port_refuses_what_it_has_not_ported():
     store = ClusterStore()
     for kw, what in (
         ({"mesh": object()}, "mesh"),
-        ({"weights": [1.0]}, "weight override"),
     ):
         with pytest.raises(ValueError, match=what):
             SchedulerService(store, device="cpu", **kw)
+    # the weight override is ported: the knob is accepted, and a vector of
+    # the wrong arity is refused when the profile is known
+    with pytest.raises(ValueError, match="expected 7 weights"):
+        SchedulerService(store, device="cpu", weights=[1.0]).start_scheduler(None)
     # the capacity engine is ported: the knob is accepted
     assert SchedulerService(store, device="cpu", autoscale="on").autoscaler is not None
     svc = SchedulerService(store, device="cpu", use_batch="auto")
