@@ -307,7 +307,7 @@ MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
 # cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
 CHURN = (10000, 5000, 5, 50)
 CHURN_F64_WAVES = 1
-CHURN_F32_WAVES = 3  # the first 3 of its 5 waves, for the time limit
+CHURN_F32_WAVES = 2  # the first 2 of its 5 waves, for the time limit
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
@@ -1539,7 +1539,7 @@ def tune_reports(device, dt, size) -> list:
 def tune_service_rounds(device, dt) -> dict:
     """The bench's zero-drift workload through the port's service on
     ``device`` in ``dt``: pod digests with no override ("folded"), with the
-    profile's own weights as an override ("traced") and with
+    profile's own weights as an override ("defaults") and with
     TUNE_FLOAT_WEIGHTS ("float"); whether a finalScore came out
     fractional."""
     from kube_scheduler_simulator_tpu_torch import workloads
@@ -1547,7 +1547,7 @@ def tune_service_rounds(device, dt) -> dict:
     from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
 
     out = {}
-    for mode in ("folded", "traced", "float"):
+    for mode in ("folded", "defaults", "float"):
         nodes, pods, _obj = workloads.tune("imbalance", **TUNE_SERVICE)
         store = ClusterStore(clock=lambda: 0.0)
         for o in nodes:
@@ -1556,7 +1556,7 @@ def tune_service_rounds(device, dt) -> dict:
             store.create("pods", o)
         svc = SchedulerService(store, tie_break="first", use_batch="force", batch_min_work=0, device=device, dtype=dt)
         svc.start_scheduler(None)
-        if mode == "traced":
+        if mode == "defaults":
             svc.set_plugin_weights({n: float(w) for n, w in svc.framework.score_weights.items()})
         elif mode == "float":
             svc.set_plugin_weights(TUNE_FLOAT_WEIGHTS)
@@ -1646,8 +1646,13 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
         unwrap()
     W = gen0[0]
     shape = f"cfg10-tune-10k imbalance: L={W.shape[0]} P={s32.dims['P']} N={s32.dims['N']} S={W.shape[1]}"
+    # the lane held against the plain scan: the one with the most fractional
+    # weights (generation 0 opens with the profile's integer mean, the zero
+    # vector and one-hots; its Gaussian draws follow)
+    frac = [int((np.abs(r - np.round(r)) > 0).sum()) for r in W]
+    gp = max(range(W.shape[0]), key=lambda g: (frac[g], g))
 
-    with Phase(f"23. K9 at {shape}: lanes vs K2, lane 0 vs the plain scan, the objective kernel; timed"):
+    with Phase(f"23. K9 at {shape}: lanes vs K2, lane {gp} vs the plain scan, the objective kernel; timed"):
         log(f"per-block carries (bytes): {json.dumps(carry_bytes(s32.cfg, s32.dims, s32.dp, torch.float32, W.shape[0]))}; "
             f"exactness bound {json.dumps(headroom(s32.bound))}; generation 0 weights {W.tolist()}")
         k9_err = 0.0
@@ -1663,10 +1668,14 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
                                                       torch.as_tensor(kout[k][f])[g].reshape(-1), fv.reshape(-1)))
                     else:
                         k9_err = max(k9_err, same(f"K9 lane {g} {k} {dt}", kout[k][g], v))
-            plain_ms, pout = cuda_ms(lambda: B.scan_plain(s.cfg, s.dims, s.dp, weights=Wt[0].contiguous()), 1, warmup=0)
+            plain_ms, pout = cuda_ms(lambda: B.scan_plain(s.cfg, s.dims, s.dp, weights=Wt[gp].contiguous()), 1, warmup=0)
             for k, v in pout.items():
-                if k != "final_carry":
-                    k9_err = max(k9_err, same(f"K9 lane 0 vs scan_plain {k} {dt}", kout[k][0], v))
+                if k == "final_carry":
+                    for f, fv in v.items():
+                        k9_err = max(k9_err, same(f"K9 lane {gp} final carry {f} vs scan_plain {dt}",
+                                                  torch.as_tensor(kout[k][f])[gp].reshape(-1), fv.reshape(-1)))
+                else:
+                    k9_err = max(k9_err, same(f"K9 lane {gp} vs scan_plain {k} {dt}", kout[k][gp], v))
             ys = {"final_nonzero": kout["final_nonzero"], "selected": kout["selected"]}
             for name in TO.OBJECTIVES:
                 k9_err = max(k9_err, same(f"objective {name} {dt}", TO.objective_value(name, ys, s.dp, s.age_w),
@@ -1677,19 +1686,27 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
                                               TO.objective_grad(name, one_ys, s.dp, s.age_w),
                                               TO.objective_grad_plain(name, one_ys, s.dp, s.age_w)))
             values = TO.objective_value(obj, ys, s.dp, s.age_w).tolist()
-            log(f"{dt}: {W.shape[0]} lanes bitwise equal to K2 under their weights; lane 0 equal to scan_plain "
-                f"({plain_ms:.1f} ms); objective values and cotangents equal their plain versions for "
+            log(f"{dt}: {W.shape[0]} lanes bitwise equal to K2 under their weights; lane {gp} ({frac[gp]} of "
+                f"{W.shape[1]} weights fractional, {W[gp].tolist()}) equal to scan_plain ({plain_ms:.1f} ms); objective values and cotangents equal their plain versions for "
                 f"{list(TO.OBJECTIVES)}; {obj} per lane {values}; placed per lane "
                 f"{(kout['selected'] >= 0).sum(dim=1).tolist()}")
             if dt == torch.float32:
                 k9_plain_ms = plain_ms
             del kout, pout
         Wt = torch.as_tensor(W).to(device=dev, dtype=torch.float32)
-        k9_ms, kout = cuda_ms(lambda: K.scan_population(s32.cfg, s32.dims, s32.dp, Wt), 20, warmup=2)
+
+        def population():
+            kout = K.scan_population(s32.cfg, s32.dims, s32.dp, Wt)
+            return kout, TO.objective_value(obj, kout, s32.dp, s32.age_w)
+
+        k9_ms, (kout, _v) = cuda_ms(population, 20, warmup=2)
         obj_ms, _v = cuda_ms(lambda: TO.objective_value(obj, kout, s32.dp, s32.age_w), 20, warmup=2)
         k9b, k9by = bound(population_counts(s32.cfg, s32.dims, s32.dp, Wt, kout), torch.float32)
-        k9_t = dict(ms=k9_ms + obj_ms, scan_ms=k9_ms, objective_ms=obj_ms, plain_ms=k9_plain_ms * W.shape[0],
-                    plain_lane_ms=k9_plain_ms, bound_ms=k9b, bound_by=k9by, err=k9_err, shape=shape)
+        # the plain scan is timed over one lane (lane gp): the 16 lanes in
+        # plain would take ~16 x as long again
+        k9_t = dict(ms=k9_ms, objective_ms=obj_ms, plain_ms=k9_plain_ms,
+                    plain_shape=f"one lane (lane {gp}) of {shape}", bound_ms=k9b, bound_by=k9by, err=k9_err,
+                    shape=shape)
         log(f"timing K9: {json.dumps(k9_t)}")
         del kout
         torch.cuda.empty_cache()
@@ -1800,9 +1817,9 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
                 for a, b in zip(g["history"], c["history"]):
                     if a["objective"] != b["objective"] or abs(a["gradNorm"] - b["gradNorm"]) > 1e-9 * b["gradNorm"]:
                         raise AssertionError(f"{tag}: grad history differs: {a} vs {b}")
-        if gpu_rounds["folded"] != gpu_rounds["traced"]:
+        if gpu_rounds["folded"] != gpu_rounds["defaults"]:
             raise AssertionError("zero drift: the defaults as an override changed pod bytes on the card")
-        for mode in ("folded", "traced", "float"):
+        for mode in ("folded", "defaults", "float"):
             if gpu_rounds[mode] != cpu_rounds[mode]:
                 bad = [n for n in cpu_rounds[mode] if gpu_rounds[mode].get(n) != cpu_rounds[mode][n]]
                 raise AssertionError(f"{mode}: {len(bad)} pods differ between the CUDA and CPU services, first {bad[:3]}")
@@ -2495,7 +2512,7 @@ def main() -> int:
             "library_ms": None,
             "paced_by": "sequential dependency chain over the pod queue, one block a lane",
             "shape": k9_t["shape"],
-            "scan_ms": k9_t["scan_ms"],
+            "plain_shape": k9_t["plain_shape"],
             "objective_ms": k9_t["objective_ms"],
         },
         {

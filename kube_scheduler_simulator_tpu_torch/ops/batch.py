@@ -75,10 +75,6 @@ class BatchConfig(NamedTuple):
     # "reservoir" = k-th tied max with k from the counter-keyed hash draw
     tie_break: str = "first"
     seed: int = 0
-    # the engine runs with a weight override (the tuner's or the service's
-    # set_plugin_weights): the scan takes its [S] weight vector as an
-    # argument (``weights=``) instead of the profile's ``scores`` weights
-    traced_weights: bool = False
     # > 0: the plain scan's commit one-hot is the straight-through relaxed
     # head, soft + (hard - soft).detach() with soft = softmax(totals / tau)
     # over the sampled nodes: forward values equal the hard rollout's, and
@@ -616,10 +612,27 @@ def _minmax_normalize(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor
     return torch.where(diff > 0, q, torch.zeros_like(q))
 
 
+_WEIGHT_ROWS: "dict[tuple, torch.Tensor]" = {}
+
+
+def weight_row(weights, dt: torch.dtype, device) -> torch.Tensor:
+    """An [S] weight vector as a tensor in the round's dtype on ``device``,
+    made once per (vector, dtype, device): an upload per launch would block
+    the host until the card drains, and windowed rounds queue launches
+    ahead of the host.  The row is shared; nothing writes into it."""
+    key = (tuple(float(w) for w in weights), dt, str(torch.device(device)))
+    row = _WEIGHT_ROWS.get(key)
+    if row is None:
+        if len(_WEIGHT_ROWS) >= 64:
+            _WEIGHT_ROWS.clear()
+        row = _WEIGHT_ROWS[key] = torch.tensor(key[0], dtype=dt, device=device)
+    return row
+
+
 def profile_weights(cfg: BatchConfig, dt: torch.dtype, device) -> torch.Tensor:
-    """The profile's score weights as an [S] tensor in the round's dtype
-    (the scan's weight vector when no override is given)."""
-    return torch.tensor([float(w) for _s, w in cfg.scores], dtype=dt, device=device)
+    """The profile's score weights as an [S] row (``weight_row``): the
+    scan's weight vector when no override is given."""
+    return weight_row([w for _s, w in cfg.scores], dt, device)
 
 
 def _mix32(x):
@@ -832,8 +845,7 @@ def scan_plain(
     offset+window) (the JAX ``build_batch_fn(window=)``), from ``carry0``
     (a ``final_carry`` dict; default the problem's own initial carry).
     ``weights``: the [S] weight vector in the round's dtype (the JAX
-    ``DeviceProblem.plugin_w`` under ``traced_weights``; default the
-    profile's).  ``cfg.relax_tau > 0``: the straight-through commit (see
+    ``DeviceProblem.plugin_w``; default the profile's).  ``cfg.relax_tau > 0``: the straight-through commit (see
     BatchConfig).  ``grad=(F, tau)``: also accumulate K2g's closed form
     (``grad_plain``) into ``out["dw"]``."""
     check_slice(cfg)

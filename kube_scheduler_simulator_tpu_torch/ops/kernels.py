@@ -363,20 +363,6 @@ def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
     return cap, slot_bytes <= DOM_SMEM_BYTES
 
 
-_WEIGHT_ROWS: "dict[tuple, torch.Tensor]" = {}
-
-
-def _profile_row(cfg: BatchConfig, dt: torch.dtype, dev: torch.device) -> torch.Tensor:
-    """The profile's [S] weight row on the card, uploaded once per (weights,
-    dtype, device): a copy per launch would block the host until the card
-    drains, and windowed rounds queue launches ahead of the host."""
-    key = (tuple(float(w) for _s, w in cfg.scores), dt, str(dev))
-    row = _WEIGHT_ROWS.get(key)
-    if row is None:
-        row = _WEIGHT_ROWS[key] = profile_weights(cfg, dt, dev)
-    return row
-
-
 def scan(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None, ws0: "int | None" = None,
     carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
@@ -525,7 +511,7 @@ def _launch_scan(
     SG, G, D = dims["SG"], dims["G"], dims["D"]
     # the weights: the profile's row, one given row, or K9's [L, S] rows
     S = len(cfg.scores)
-    w_rows = _profile_row(cfg, dt, dev) if weights is None else weights
+    w_rows = profile_weights(cfg, dt, dev) if weights is None else weights
     _check(w_rows, "weights", dt)
     if w_rows.shape[-1] != S or w_rows.dim() not in (1, 2):
         raise ValueError(f"weights must be [{S}] or [G, {S}], got {tuple(w_rows.shape)}")

@@ -480,8 +480,6 @@ class BatchEngine:
             self.weight_override = validate_plugin_weights(
                 weights, [s for s, _w in self.scores], defaults=dict(self.scores)
             )
-        # the override's [S] tensor on the device, per (vector, dtype)
-        self._weights_dev: "tuple | None" = None
         self.cfg = B.BatchConfig(
             filters=tuple(self.filters),
             scores=tuple((s, w) for s, w in self.scores),
@@ -491,7 +489,6 @@ class BatchEngine:
             trace=trace,
             tie_break=tie_break,
             seed=seed,
-            traced_weights=self.weight_override is not None,
         )
         self.encode_cache = E.EncodeCache()
         self._placer = B.DevicePlacer()
@@ -598,31 +595,23 @@ class BatchEngine:
         eng._store = getattr(framework.handle, "cluster_store", None)
         return eng
 
-    def set_weight_override(self, override: "dict[str, float]") -> None:
-        """Swap the override's vector without rebuilding the engine: the
-        next round's scan takes the new vector.  Only on an engine built
-        with an override (``cfg.traced_weights``); validated as the
-        constructor's."""
-        if not self.cfg.traced_weights:
-            raise ValueError(
-                "set_weight_override requires the traced-weights path; "
-                "an engine without an override must be rebuilt to install one"
-            )
+    def set_weight_override(self, override: "dict[str, float] | None") -> None:
+        """Swap the engine's weight vector (None: back to the profile's)
+        without rebuilding it: the next round's scan takes the new vector.
+        Validated as the constructor's."""
+        if override is None:
+            self.weight_override = None
+            return
         weights = [float(override.get(s, w)) for s, w in self.scores]
         self.weight_override = validate_plugin_weights(
             weights, [s for s, _w in self.scores], defaults=dict(self.scores)
         )
 
-    def _round_weights(self, dt: torch.dtype) -> "torch.Tensor | None":
-        """The override's [S] tensor in the round's dtype on the engine's
-        device (uploaded once per vector and dtype), None without one."""
-        if self.weight_override is None:
-            return None
-        key = (tuple(self.weight_override.tolist()), dt)
-        if self._weights_dev is None or self._weights_dev[0] != key:
-            t = torch.as_tensor(self.weight_override, dtype=dt).to(self.device)
-            self._weights_dev = (key, t)
-        return self._weights_dev[1]
+    def _round_weights(self, dt: torch.dtype) -> torch.Tensor:
+        """The [S] weight row a round's scan takes, in its dtype on the
+        engine's device: the override's, else the profile's."""
+        w = self.weight_override if self.weight_override is not None else [w for _s, w in self.scores]
+        return B.weight_row(w, dt, self.device)
 
     def _volumes(self) -> "dict[str, list[Obj]]":
         """The volume resource kinds for encode() (empty without a store)."""

@@ -361,16 +361,11 @@ class SchedulerService:
                     resolved = mapping
             self._weights_requested = weights
             self._weights_override = resolved
-        # an engine built without an override (or a cleared override) is
-        # rebuilt; a value change on an override engine swaps its vector
-        if weights is None or any(not eng.cfg.traced_weights for eng in self._batch_engines.values()):
-            self._batch_engine = None
-            self._batch_engines = {}
-        else:
-            for name, fw in self.frameworks.items():
-                eng = self._batch_engines.get(name)
-                if eng is not None:
-                    eng.set_weight_override(fw.score_weight_override)
+        # a live engine swaps its weight vector; none is rebuilt
+        for name, fw in self.frameworks.items():
+            eng = self._batch_engines.get(name)
+            if eng is not None:
+                eng.set_weight_override(fw.score_weight_override)
         return self._weights_override
 
     def check_plugin_weights(self, weights: Any) -> "list[tuple[Any, dict[str, float]]]":

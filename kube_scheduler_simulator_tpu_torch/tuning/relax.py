@@ -84,7 +84,7 @@ def build_value_fn(
     rollout under the [S] weight vector ``w`` and its objective.
     ``relax_tau > 0`` makes the value differentiable in ``w`` (a
     ``RolloutValue``); its forward equals the hard build's."""
-    cfg = cfg._replace(traced_weights=True, relax_tau=0.0, trace=False)
+    cfg = cfg._replace(relax_tau=0.0, trace=False)
     tau = float(relax_tau)
 
     def value(dp, w, age_w):

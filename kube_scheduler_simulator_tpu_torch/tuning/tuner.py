@@ -154,7 +154,6 @@ class TuningSession:
             scores=tuple((s, w) for s, w in scores),
             trace=False,
             tie_break="first",
-            traced_weights=True,
         )
         self.dims = dims
         self.pr = pr

@@ -394,7 +394,7 @@ def test_float_weights_give_the_reference_bytes(mode, trial):
     bad = [k for k in want if got[k] != want[k]]
     assert not bad, (len(bad), bad[:3])
     if mode == "force":
-        assert svc.stats["batch_pods"] > 0 and svc._batch_engine.cfg.traced_weights
+        assert svc.stats["batch_pods"] > 0 and svc._batch_engine.weight_override is not None
     fin = [a.get("scheduler-simulator/finalscore-result", "") for _n, a in got.values()]
     assert any("." in f for f in fin), "no fractional finalScore rendered"
 
@@ -405,8 +405,8 @@ def test_default_weights_as_an_override_change_no_byte():
     defaults = {n: float(w) for n, w in svc_f.framework.score_weights.items()}
     traced, svc_t = _run(SchedulerService, ClusterStore, nodes, "force", defaults, device="cpu")
     want, _ = _run(JaxService, JaxStore, nodes, "force", None)
-    assert svc_t.plugin_weights() is not None and svc_t._batch_engine.cfg.traced_weights
-    assert not svc_f._batch_engine.cfg.traced_weights
+    assert svc_t.plugin_weights() is not None and svc_t._batch_engine.weight_override is not None
+    assert svc_f._batch_engine.weight_override is None
     assert folded == traced == want
 
 
@@ -418,13 +418,15 @@ def test_set_plugin_weights_validates_swaps_and_clears():
     assert svc.plugin_weights() is None
     got = svc.set_plugin_weights([1, 2.5, 1])
     assert got == dict(zip(svc.score_plugin_names(), [1.0, 2.5, 1.0]))
-    assert svc.framework.score_weight_override == got and svc._batch_engines == {}
     eng = svc._engine_for(svc.framework)
+    assert svc.framework.score_weight_override == got and eng.weight_override.tolist() == [1.0, 2.5, 1.0]
     svc.set_plugin_weights({"TaintToleration": 0.5})
     assert svc._engine_for(svc.framework) is eng and eng.weight_override.tolist() == [1.0, 1.0, 0.5]
+    assert eng._round_weights(torch.float64).tolist() == [1.0, 1.0, 0.5]
     svc.set_plugin_weights(None)
     assert svc.plugin_weights() is None and svc.framework.score_weight_override is None
-    assert svc._batch_engines == {}
+    assert svc._engine_for(svc.framework) is eng and eng.weight_override is None
+    assert eng._round_weights(torch.float64).tolist() == [float(w) for _s, w in eng.scores]
     store = ClusterStore()
     bad = SchedulerService(store, weights=[1, 2], device="cpu")
     with pytest.raises(TV.WeightValidationError):
@@ -456,4 +458,5 @@ def test_the_estimator_keeps_its_profile_under_a_live_override():
     assert action["method"] == "xla-batch", action
     est = asc._estimator
     assert est is not None and est.dispatches >= 1 and est.kernel_errors == 0
-    assert est.engine.weight_override is None and not est.engine.cfg.traced_weights
+    assert est.engine.weight_override is None
+    assert est.engine._round_weights(torch.float64).tolist() == [float(w) for _s, w in est.engine.scores]
