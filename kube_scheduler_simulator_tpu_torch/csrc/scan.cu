@@ -88,8 +88,47 @@
 // carry (lane strides 5*P, N*R, N*2, N, ...).  Per-block scratch sits in
 // slot g * gridDim.x + b.  So G lanes take G SMs in one launch, each paced
 // by the per-pod chain as a one-lane scan is; a one-lane launch (G = 1) is
-// the scan as it was.  Lane launches run with the trace off: the trace
+// the scan as it was.  That is the lane launch at C = 1; with C > 1 a lane
+// is a cluster of C blocks (Clusters, below).  Lane launches run with the trace off: the trace
 // planes and their meta have no lane stride, and launch() refuses them.
+//
+// Clusters (K9 and K8 since the lane scan was redesigned for Hopper, replacing
+// one block a lane): a lane launch with C > 1 runs each lane on one
+// thread-block cluster of C blocks, grid (C, lanes), cluster dims (C, 1, 1).
+// C = min(8, node tiles, 132 / lanes) is a function of the shape
+// (kernels.cluster_width).  Block k of a lane's cluster walks rank tiles k,
+// k + C, ... of the visit order, so a pod's chain is split C ways and the
+// rotated prefix sum stays a plain scan: each block scans its tiles, the
+// tiles' feasible counts are exclusive-scanned across the cluster through
+// distributed shared memory (DSMEM), and every block then samples its nodes
+// with the cluster-wide count.  The other per-pod reductions (the k-th
+// feasible rank, the score extrema, PodTopologySpread's minima over nodes,
+// the selection's best total and rank) are combined through DSMEM slots in
+// fixed rank order; min and max are exact in any order.  PodTopologySpread's
+// domain sums and sampled-domain flags live once a lane, in rank 0's shared
+// memory (DSMEM atomics) or in the lane's global scratch: exact, as below.
+// The carries are one copy a lane in global scratch, not one a block: the
+// block that owns the selected node's rank tile commits it, and a cluster
+// barrier (release/acquire at cluster scope) orders those global writes
+// before the next pod reads them.  Where every carry a pod reads is a
+// per-node one (no InterPodAffinity rows, no PodTopologySpread domain sums)
+// and every block knows the selection (first tie), the block that owns the
+// node's rank in the NEXT pod commits it instead, so that barrier goes: a
+// block then reads only carries it wrote itself or that an earlier barrier
+// published.  The barriers, not the DSMEM reads, are what a cluster adds to
+// a pod's time (PERF.md), so this is three barriers a pod at the tuner's
+// imbalance problem and the autoscale burst (after the tiles' counts, after
+// sampling, after the selection), four with
+// InterPodAffinity, one more with PodTopologySpread's domain sums, one more
+// for its score extrema, and the reservoir draw two more.  The trace and the
+// grad mode never run in a cluster.
+//
+// Term groups: InterPodAffinity's filter and raw score walk the pod's own
+// list of matching term groups (ip_match_g, ascending g, built on the host
+// from term_match) instead of every group, so a pod that matches one of G
+// groups costs one carry read a node, not G; the sum keeps ascending g, so
+// it is bitwise the loop over every group.  The commit still adds
+// term_match's column to every group row.
 //
 // Weights: the score weights are a device array read per lane, row
 // weights + lane * w_stride in the working dtype.  A one-lane scan, a
@@ -128,6 +167,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -139,6 +179,9 @@ constexpr int MAXFR = 4;
 constexpr int MAXSHAPE = 16;
 constexpr int MAXC = 8;    // PodTopologySpread constraints per pod, of each kind
 constexpr int MAXKU = 16;  // topology keys the constraints and terms use
+constexpr int MAXCL = 8;   // blocks of a lane's cluster (the portable cluster size)
+constexpr int MAXT = THREADS / 2;  // rank tiles a cluster block owns (N <= THREADS tiles, C >= 2)
+enum { MODE_BLOCKS = 0, MODE_GRAD = 1, MODE_CLUSTER = 2 };
 
 enum {
   F_UNSCHED = 0, F_NAME = 1, F_TAINT = 2, F_AFF = 3, F_FIT = 4, F_SPREAD = 5, F_IPA = 6,
@@ -159,6 +202,7 @@ struct ScanArgs {
   int64_t na_stride;  // lane stride of node_active: N (K8) or 0 (one mask)
   int64_t w_stride;   // lane stride of weights: S (K9) or 0 (one row)
   int64_t grad;       // K2g: accumulate d objective / d weights into dw
+  int64_t cluster;    // blocks of each lane's thread-block cluster; 1: none
   int64_t nf, filters[MAXF];
   int64_t ns, scores[MAXS];
   int64_t fit_strategy, n_fit_res, fit_col[MAXFR];
@@ -167,7 +211,7 @@ struct ScanArgs {
   int64_t n_shape, shape_u[MAXSHAPE], shape_s[MAXSHAPE];
   int64_t T_cols, M_cols, MP_cols, MC_cols;
   int64_t use_spread_f, use_spread_s, use_ipa;
-  int64_t KC, KS, KA, KB, KP, KO, SG, G, D;
+  int64_t KC, KS, KA, KB, KP, KO, KM, SG, G, D;
   int64_t dom_cap;   // domains of the largest interned key a constraint uses
   int64_t dom_smem;  // 1: the domain sums live in dynamic shared memory
   int64_t key_base[MAXKU];  // first domain id of each used key
@@ -214,6 +258,7 @@ struct ScanArgs {
   const void* spread_match;    // [SG,P]
   const int32_t* gdom;         // [G,N] domain id of each term group's key
   const void* term_match;      // [G,P]
+  const int32_t* ip_match_g;   // [P,KM] groups whose term selects the pod, ascending, -1 padded
   const int32_t* ip_aff_g;     // [P,KA] required affinity groups, -1 = none
   const int32_t* ip_anti_g;    // [P,KB] required anti-affinity groups
   const int32_t* ip_pref_g;    // [P,KP] preferred groups
@@ -249,7 +294,7 @@ struct ScanArgs {
   const void* cloud_used0;     // [N,3]
   const void* csi_attached0;   // [N,V]
   const int32_t* start_ptr;    // [1] the rotation start on the card; null: start0
-  void* s_requested;   // [B,N,R] per-block carry
+  void* s_requested;   // [B,N,R] per-block carry (per lane in a cluster)
   void* s_nonzero;     // [B,N,2]
   void* s_pod_count;   // [B,N]
   void* s_spread;      // [B,SG,N]
@@ -262,7 +307,8 @@ struct ScanArgs {
   int32_t* s_domflag;  // [B,(KC+KS)*dom_cap] domain flags
   void* s_total;       // [B,N] masked weighted totals of the current pod
   uint8_t* s_flags;    // [B,N] bit 0 feasible, bit 1 sampled, bit 2 has every score key
-  int32_t* s_rank;     // [B,N] running feasible count in visit order (in-step compaction)
+  int32_t* s_rank;     // [B,N] running feasible count in visit order (in-step compaction;
+                       // in a cluster, the count within the node's rank tile)
   void* s_ports;       // [B,PT,N]
   void* s_restr;       // [B,VR,N]
   void* s_cloud;       // [B,3,N]
@@ -349,6 +395,39 @@ struct SumOp {
   template <typename V>
   __device__ V operator()(V a, V b) const { return a + b; }
 };
+
+namespace cg = cooperative_groups;
+
+// A cluster block's exchange slots, in its shared memory: each block writes
+// its own, a cluster barrier publishes them, then warp 0 reads all C of them
+// (lane q block q's, at_rank), combines them and leaves the cluster's value
+// in the block's own `out` slots for its threads: one remote read a lane,
+// not one a thread.
+template <typename T>
+struct ClusterX {
+  T lmin[MAXC];         // pass 0: minima over the block's nodes (identity keys)
+  int tile_feas[MAXT];  // pass 1: feasible nodes in each of the block's rank tiles
+  int tile_tied[MAXT];  // reservoir: nodes tied at the best total in each tile
+  int kth, n_fni, best_rank;
+  T mx_taint, mx_aff, ip_mn, ip_mx, sp_mn, sp_mx, best;
+  int out_i[2];         // the cluster's values, for this block's threads
+  T out_t[MAXC + 4];
+};
+
+// warp 0's reduction of the lanes' values (one a cluster block) to lane 0
+template <typename V, typename Op>
+__device__ __forceinline__ V warp_combine(V v, Op op) {
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+// the same shared-memory object in the cluster's block of rank `rank`
+template <typename V>
+__device__ __forceinline__ V* at_rank(V* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, (unsigned)rank);
+}
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -458,12 +537,12 @@ __device__ __forceinline__ T at_node(const ScanArgs& a, const T* carry, int g, i
   return d >= 0 ? carry[(int64_t)g * (a.D + 1) + d] : T(0);
 }
 
-// dst[c * N + n] = src[n * C + c]: a row-major [N,C] carry into a block's
-// column-major copy (once a launch).
+// dst[c * N + n] = src[n * C + c]: a row-major [N,C] carry into a
+// column-major copy (once a launch), nodes n0, n0 + step, ... of it.
 template <typename S, typename D>
-__device__ void load_transposed(const S* src, D* dst, int64_t N, int64_t C) {
+__device__ void load_transposed(const S* src, D* dst, int64_t N, int64_t C, int64_t n0, int64_t step) {
   for (int64_t c = 0; c < C; ++c) {
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) dst[c * N + n] = D(src[n * C + c]);
+    for (int64_t n = n0; n < N; n += step) dst[c * N + n] = D(src[n * C + c]);
   }
 }
 
@@ -473,16 +552,26 @@ __device__ void load_transposed(const S* src, D* dst, int64_t N, int64_t C) {
 // host-port, conflict-volume, cloud-disk and CSI carries.  The grid has one
 // block per SM, so the bounds allow one resident block and up to 128
 // registers a thread: capped at 64, the float64 kernel spilled to local
-// memory.  GRAD compiles K2g's reductions in (grad mode).
-template <typename T, bool TOPO, bool VOL, bool GRAD>
+// memory.  MODE_GRAD compiles K2g's reductions in (grad mode), MODE_CLUSTER
+// the cluster's exchanges (a lane a cluster of gridDim.x blocks).
+template <typename T, bool TOPO, bool VOL, int MODE>
 __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
+  constexpr bool GRAD = MODE == MODE_GRAD;
+  constexpr bool CL = MODE == MODE_CLUSTER;
   const int tid = threadIdx.x;
-  const int b = blockIdx.x;
+  const int b = blockIdx.x;  // in a cluster: the block's rank in it
   const int B = gridDim.x;
   const int64_t P = a.P, N = a.N, R = a.R;
-  // the lane, and this block's scratch slot among the grid's blocks
+  // the lane, and this block's scratch slot: its own, or its lane's (the
+  // blocks of a cluster share one copy of the carries)
   const int64_t lane = blockIdx.y;
-  const int64_t sb = lane * B + b;
+  const int64_t sb = CL ? lane : lane * B + b;
+  // the rank tiles this block walks (every one, or b, b + C, ...) and its
+  // share of the once-a-launch copies (all, or every C-th stretch)
+  const int64_t T0 = CL ? (int64_t)b * THREADS : 0, TSTEP = CL ? (int64_t)B * THREADS : THREADS;
+  const int64_t i0 = CL ? (int64_t)b * THREADS + tid : tid, istep = CL ? (int64_t)B * THREADS : THREADS;
+  __shared__ ClusterX<T> cx;
+  __shared__ int tile_off[THREADS];
   const uint8_t* node_act = a.node_active + lane * a.na_stride;
   const T* wrow = (const T*)a.weights + lane * a.w_stride;
   T* snorm = GRAD ? (T*)a.s_norm + sb * a.ns * N : nullptr;
@@ -533,29 +622,57 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   uint8_t* scsi = csi ? a.s_csi + sb * a.VID * N : nullptr;
   T* scnt = csi ? (T*)a.s_csi_cnt + sb * a.DR * N : nullptr;
   const int ws0 = (int)a.ws0;
-  int32_t* srank = ws0 > 0 ? a.s_rank + sb * N : nullptr;
+  int32_t* srank = ws0 > 0 || CL ? a.s_rank + sb * N : nullptr;
+  // PodTopologySpread's domain sums and flags: a cluster's live once, in
+  // rank 0's shared memory or in the lane's scratch
+  const bool dom_used = TOPO && (a.use_spread_f || a.use_spread_s);
+  T* const dom_sum0 = dom_sum;
+  int* const dom_flag0 = dom_flag;
+  if constexpr (CL) {
+    if (a.dom_smem) {
+      dom_sum = at_rank(dom_sum, 0);
+      dom_flag = at_rank(dom_flag, 0);
+    }
+  }
+  // A cluster's barrier after the commit: where a block may read a carry
+  // another block committed (InterPodAffinity's per-domain rows), rank 0
+  // zeroes the domain sums, or only one block knows the selection (the
+  // reservoir).  Elsewhere the block that owns the selected node's rank in
+  // the next pod commits it, and every carry a block reads before the next
+  // barrier is its own nodes'.
+  const bool commit_sync = ipa || dom_used || a.reservoir;
+  // rank 0 zeroes them for the next pod once every block has read them
+  auto zero_domains = [&]() {
+    if (CL && b == 0 && dom_used) {
+      for (int64_t j = tid; j < nslot * cap; j += blockDim.x) {
+        dom_sum0[j] = T(0);
+        dom_flag0[j] = 0;
+      }
+    }
+  };
 
-  for (int64_t j = tid; j < N * R; j += blockDim.x) req[j] = ((const T*)a.requested0)[j];
-  for (int64_t j = tid; j < N * 2; j += blockDim.x) nzc[j] = ((const T*)a.nonzero0)[j];
-  for (int64_t j = tid; j < N; j += blockDim.x) pc[j] = ((const T*)a.pod_count0)[j];
+  for (int64_t j = i0; j < N * R; j += istep) req[j] = ((const T*)a.requested0)[j];
+  for (int64_t j = i0; j < N * 2; j += istep) nzc[j] = ((const T*)a.nonzero0)[j];
+  for (int64_t j = i0; j < N; j += istep) pc[j] = ((const T*)a.pod_count0)[j];
   if (spread_on) {
-    for (int64_t j = tid; j < a.SG * N; j += blockDim.x) spc[j] = ((const T*)a.spread_counts0)[j];
+    for (int64_t j = i0; j < a.SG * N; j += istep) spc[j] = ((const T*)a.spread_counts0)[j];
   }
   if (ipa) {
-    for (int64_t j = tid; j < GD; j += blockDim.x) {
+    for (int64_t j = i0; j < GD; j += istep) {
       isel[j] = ((const T*)a.ip_sel0)[j];
       iown[j] = ((const T*)a.ip_own0)[j];
       ianti[j] = ((const T*)a.ip_anti0)[j];
     }
   }
-  if (ports) load_transposed((const T*)a.ports_used0, sports, N, a.PT);
-  if (restr) load_transposed((const T*)a.restr_used0, srestr, N, a.VR);
-  if (cloud) load_transposed((const T*)a.cloud_used0, scloud, N, 3);
-  if (csi) load_transposed((const T*)a.csi_attached0, scsi, N, a.VID);
+  if (ports) load_transposed((const T*)a.ports_used0, sports, N, a.PT, i0, istep);
+  if (restr) load_transposed((const T*)a.restr_used0, srestr, N, a.VR, i0, istep);
+  if (cloud) load_transposed((const T*)a.cloud_used0, scloud, N, 3, i0, istep);
+  if (csi) load_transposed((const T*)a.csi_attached0, scsi, N, a.VID, i0, istep);
   __syncthreads();
   if (csi) {
     // attached ids per (driver, node): the reference's csi_att @ csi_drv_oh
-    for (int64_t n = tid; n < N; n += blockDim.x) {
+    // (the nodes this thread copied above)
+    for (int64_t n = i0; n < N; n += istep) {
       for (int64_t d = 0; d < a.DR; ++d) scnt[d * N + n] = T(0);
       for (int64_t v = 0; v < a.VID; ++v) {
         const int d = a.csi_drv[v];
@@ -564,6 +681,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     __syncthreads();
   }
+  zero_domains();
+  if constexpr (CL) cluster_sync();
 
   // trace meta (block 0): per-score min/max of where(feasible & active,
   // raw, 0) over [P,N], and the max failure code
@@ -573,12 +692,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     meta_mx[k] = T(-INFINITY);
   }
   int code_mx = 0;
-  const bool meta = a.trace && b == 0;
+  const bool meta = !CL && a.trace && b == 0;
 
   int start = a.start_ptr ? a.start_ptr[0] : (int)a.start0;
   for (int64_t i = 0; i < P; ++i) {
     const bool owner = (i % B) == b;
-    const bool writes = a.trace && owner;
+    const bool writes = !CL && a.trace && owner;
     const bool active = a.pod_active[i] != 0;
     const int tol = a.pod_tol_idx[i];
     const int affi = a.pod_aff_idx[i];
@@ -605,7 +724,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     // ---- pass 0: PodTopologySpread domain sums and minima ---------------
     T min_match[MAXC], w_log[MAXC];
     if (sp_f || sp_s) {
-      for (int k = 0; k < nslot; ++k) {
+      // (a cluster's were zeroed after the previous pod)
+      for (int k = 0; !CL && k < nslot; ++k) {
         const int key = k < a.KC ? fkey[k] : skey[k - a.KC];
         const int u = k < a.KC ? fku[k] : sku[k - a.KC];
         if (key < 0 || a.key_size[u] == 0) continue;
@@ -614,10 +734,13 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
           dom_flag[k * cap + d] = 0;
         }
       }
-      __syncthreads();
+      if constexpr (!CL) __syncthreads();
       T lmin[MAXC];
       for (int k = 0; k < MAXC; ++k) lmin[k] = INF;
-      for (int64_t n = tid; n < N; n += blockDim.x) {
+      // this block's nodes: all, or its tiles' (any split gives the same sums)
+      for (int64_t base = T0; base < N; base += TSTEP) {
+        const int64_t n = base + tid;
+        if (n >= N) continue;
         if (sp_f) {
           const bool incl = a.incl_cls[(int64_t)affi * a.M_cols + a.node_label_idx[n]] != 0;
           for (int k = 0; k < a.KC; ++k) {
@@ -642,7 +765,28 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
           }
         }
       }
-      __syncthreads();
+      if constexpr (CL) {
+        // the cluster's minima over nodes, and its domain sums complete
+        for (int k = 0; sp_f && k < a.KC; ++k) {
+          if (fkey[k] < 0) continue;
+          const T v = block_reduce(lmin[k], INF, MinOp());
+          if (tid == 0) cx.lmin[k] = v;
+        }
+        cluster_sync();
+        if (sp_f && tid < 32) {
+          const ClusterX<T>* x = at_rank(&cx, tid < B ? tid : 0);
+          for (int k = 0; k < a.KC; ++k) {
+            const T v = warp_combine(fkey[k] >= 0 ? x->lmin[k] : INF, MinOp());
+            if (tid == 0) cx.out_t[k] = v;
+          }
+        }
+        __syncthreads();
+        for (int k = 0; sp_f && k < a.KC; ++k) {
+          if (fkey[k] >= 0) lmin[k] = cx.out_t[k] < lmin[k] ? cx.out_t[k] : lmin[k];
+        }
+      } else {
+        __syncthreads();
+      }
       if (sp_f) {
         for (int k = 0; k < a.KC; ++k) {
           if (fkey[k] < 0) continue;
@@ -679,7 +823,36 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     int n_fni = 0;  // sampled nodes with every score key
     T mx_taint = -INFINITY, mx_aff = -INFINITY;
     T ip_mn = INF, ip_mx = -INF;
-    for (int64_t base = 0; base < N; base += blockDim.x) {
+    const int32_t* mg = a.ip_match_g + i * a.KM;  // the groups whose term selects the pod
+    // a feasible node at running count c (in visit order): sampled while c
+    // <= K; its taint/affinity/InterPodAffinity extrema and sampled domains
+    auto sample = [&](int r, int n, int feas, int c, T ip_raw) {
+      const bool samp = feas && c <= K;
+      if (feas && c == K) kth_rank = r;
+      if (ws0 > 0) {
+        srank[n] = c;
+        if (samp && r < nt - start) c_hi = c;
+      }
+      fl[n] = (uint8_t)(feas | (samp ? 2 : 0));
+      const int64_t tcell = (int64_t)tol * a.T_cols + a.node_taint_idx[n];
+      const T vt = samp ? T(a.taint_prefer_cls[tcell]) : T(0);
+      const T va = samp ? T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + a.node_label_idx[n]]) : T(0);
+      mx_taint = vt > mx_taint ? vt : mx_taint;
+      mx_aff = va > mx_aff ? va : mx_aff;
+      if (samp && ipa_scored) {
+        ip_mn = ip_raw < ip_mn ? ip_raw : ip_mn;
+        ip_mx = ip_raw > ip_mx ? ip_raw : ip_mx;
+      }
+      if (samp && sp_s && has_all_keys(a, skey, n)) {
+        ++n_fni;
+        for (int k = 0; k < a.KS; ++k) {
+          if (skey[k] < 0 || a.key_size[sku[k]] == 0) continue;
+          const int dom = a.node_domain[(int64_t)skey[k] * N + n];
+          dom_flag[(a.KC + k) * cap + (dom - a.key_base[sku[k]])] = 1;
+        }
+      }
+    };
+    for (int64_t base = T0, tile = 0; base < N; base += TSTEP, ++tile) {
       const int r = (int)(base + tid);
       int n = -1;
       int feas = 0;
@@ -783,8 +956,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
             case F_IPA: {
               if (!ipa) break;
               // existing pods' required anti-affinity toward this pod
-              for (int g = 0; g < a.G && code == 0; ++g) {
-                if (((const T*)a.term_match)[(int64_t)g * a.Psrc + i] != T(0) && at_node(a, ianti, g, n) > T(0)) code = 1;
+              for (int c = 0; c < a.KM && mg[c] >= 0 && code == 0; ++c) {
+                if (at_node(a, ianti, mg[c], n) > T(0)) code = 1;
               }
               if (code == 0 && has_aff && !aff_escape) {
                 bool sat = true;
@@ -814,9 +987,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
         if (meta && fcode > code_mx) code_mx = fcode;
         if (ipa_scored) {
-          for (int g = 0; g < a.G; ++g) {
-            if (((const T*)a.term_match)[(int64_t)g * a.Psrc + i] != T(0)) ip_raw = ip_raw + at_node(a, iown, g, n);
-          }
+          for (int c = 0; c < a.KM && mg[c] >= 0; ++c) ip_raw = ip_raw + at_node(a, iown, mg[c], n);
           for (int c = 0; c < a.KP; ++c) {
             const int g = a.ip_pref_g[i * a.KP + c];
             if (g >= 0) ip_raw = ip_raw + ((const T*)a.ip_pref_w)[i * a.KP + c] * at_node(a, isel, g, n);
@@ -825,33 +996,34 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
       int tile_total;
-      const int c = run + block_scan(feas, &tile_total);
-      run += tile_total;
-      if (r < N) {
-        const bool samp = feas && c <= K;
-        if (feas && c == K) kth_rank = r;
-        if (ws0 > 0) {
-          srank[n] = c;
-          if (samp && r < nt - start) c_hi = c;
+      const int c_tile = block_scan(feas, &tile_total);
+      if constexpr (CL) {
+        // sampled once the cluster's counts before this tile are known
+        if (r < N) {
+          srank[n] = c_tile;
+          fl[n] = (uint8_t)feas;
         }
-        fl[n] = (uint8_t)(feas | (samp ? 2 : 0));
-        const int64_t tcell = (int64_t)tol * a.T_cols + a.node_taint_idx[n];
-        const T vt = samp ? T(a.taint_prefer_cls[tcell]) : T(0);
-        const T va = samp ? T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + a.node_label_idx[n]]) : T(0);
-        mx_taint = vt > mx_taint ? vt : mx_taint;
-        mx_aff = va > mx_aff ? va : mx_aff;
-        if (samp && ipa_scored) {
-          ip_mn = ip_raw < ip_mn ? ip_raw : ip_mn;
-          ip_mx = ip_raw > ip_mx ? ip_raw : ip_mx;
-        }
-        if (samp && sp_s && has_all_keys(a, skey, n)) {
-          ++n_fni;
-          for (int k = 0; k < a.KS; ++k) {
-            if (skey[k] < 0 || a.key_size[sku[k]] == 0) continue;
-            const int dom = a.node_domain[(int64_t)skey[k] * N + n];
-            dom_flag[(a.KC + k) * cap + (dom - a.key_base[sku[k]])] = 1;
-          }
-        }
+        if (tid == 0) cx.tile_feas[tile] = tile_total;
+      } else {
+        const int c = run + c_tile;
+        run += tile_total;
+        if (r < N) sample(r, n, feas, c, ip_raw);
+      }
+    }
+    if constexpr (CL) {
+      // tile t (rank order) is block t % C's (t / C)-th: its feasible count,
+      // exclusive-scanned over the cluster's tiles
+      cluster_sync();
+      const int ntiles = (int)((N + THREADS - 1) / THREADS);
+      const int v = tid < ntiles ? at_rank(&cx, tid % B)->tile_feas[tid / B] : 0;
+      const int incl = block_scan(v, &run);
+      if (tid < ntiles) tile_off[tid] = incl - v;
+      __syncthreads();
+      for (int64_t base = T0; base < N; base += TSTEP) {
+        const int r = (int)(base + tid);
+        if (r >= N) continue;
+        const int n = r < nt ? (start + r) % nt : r;
+        sample(r, n, fl[n] & 1, tile_off[base / THREADS] + srank[n], ipa_scored ? ipraw[n] : T(0));
       }
     }
     const int total = run;
@@ -862,6 +1034,44 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       ip_mn = block_reduce(ip_mn, INF, MinOp());
       ip_mx = block_reduce(ip_mx, -INF, MaxOp());
     }
+    if constexpr (CL) {
+      // the cluster's: the sampled-domain flags land in rank 0's copy too
+      if (sp_s) n_fni = block_reduce(n_fni, 0, SumOp());
+      if (tid == 0) {
+        cx.kth = kth_rank;
+        cx.n_fni = n_fni;
+        cx.mx_taint = mx_taint;
+        cx.mx_aff = mx_aff;
+        cx.ip_mn = ip_mn;
+        cx.ip_mx = ip_mx;
+      }
+      cluster_sync();
+      if (tid < 32) {
+        const bool in = tid < B;
+        const ClusterX<T>* x = at_rank(&cx, in ? tid : 0);
+        const int kth = warp_combine(x->kth, MaxOp());
+        const int nf = warp_combine(in ? x->n_fni : 0, SumOp());
+        const T mt = warp_combine(x->mx_taint, MaxOp());
+        const T ma = warp_combine(x->mx_aff, MaxOp());
+        const T mn = warp_combine(x->ip_mn, MinOp());
+        const T mx = warp_combine(x->ip_mx, MaxOp());
+        if (tid == 0) {
+          cx.out_i[0] = kth;
+          cx.out_i[1] = nf;
+          cx.out_t[0] = mt;
+          cx.out_t[1] = ma;
+          cx.out_t[2] = mn;
+          cx.out_t[3] = mx;
+        }
+      }
+      __syncthreads();
+      kth_rank = cx.out_i[0];
+      n_fni = cx.out_i[1];
+      mx_taint = cx.out_t[0];
+      mx_aff = cx.out_t[1];
+      ip_mn = cx.out_t[2];
+      ip_mx = cx.out_t[3];
+    }
     const int processed = total >= K ? kth_rank + 1 : nt;
     const int n_samp = total < K ? total : K;
     const int count = n_samp * (active ? 1 : 0);
@@ -870,8 +1080,9 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     // ---- pass 1b: PodTopologySpread's raw score and its extrema ---------
     T sp_mn = INF, sp_mx = -INF;
     if (sp_s) {
-      // topology size: sampled nodes (identity key) or sampled domains
-      n_fni = block_reduce(n_fni, 0, SumOp());
+      // topology size: sampled nodes (identity key) or sampled domains (a
+      // cluster's n_fni is already its total)
+      if constexpr (!CL) n_fni = block_reduce(n_fni, 0, SumOp());
       for (int k = 0; k < a.KS; ++k) {
         if (skey[k] < 0) continue;
         int tsize = n_fni;
@@ -883,7 +1094,11 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
         w_log[k] = log_table[tsize];
       }
-      for (int64_t n = tid; n < N; n += blockDim.x) {
+      // every node, or in a cluster the nodes of this block's rank tiles
+      for (int64_t base = T0; base < N; base += TSTEP) {
+        const int64_t r = base + tid;
+        if (r >= N) continue;
+        const int64_t n = !CL || r >= nt ? r : (start + r) % nt;
         const bool all_keys = has_all_keys(a, skey, n);
         T raw_f = T(0);
         for (int k = 0; k < a.KS; ++k) {
@@ -909,11 +1124,30 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
       sp_mn = block_reduce(sp_mn, INF, MinOp());
       sp_mx = block_reduce(sp_mx, -INF, MaxOp());
+      if constexpr (CL) {
+        if (tid == 0) {
+          cx.sp_mn = sp_mn;
+          cx.sp_mx = sp_mx;
+        }
+        cluster_sync();
+        if (tid < 32) {
+          const ClusterX<T>* x = at_rank(&cx, tid < B ? tid : 0);
+          const T mn = warp_combine(x->sp_mn, MinOp());
+          const T mx = warp_combine(x->sp_mx, MaxOp());
+          if (tid == 0) {
+            cx.out_t[0] = mn;
+            cx.out_t[1] = mx;
+          }
+        }
+        __syncthreads();
+        sp_mn = cx.out_t[0];
+        sp_mx = cx.out_t[1];
+      }
     }
 
     // ---- pass 2: scores, weighted totals -------------------------------
     T best = -INFINITY;
-    for (int64_t base = 0; base < N; base += blockDim.x) {
+    for (int64_t base = T0; base < N; base += TSTEP) {
       const int r = (int)(base + tid);
       if (r < N) {
         const int n = r < nt ? (start + r) % nt : r;
@@ -1042,11 +1276,14 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
 
     // ---- pass 3: selection ----------------------------------------------
+    // (in a cluster, the block whose rank tile holds the selected node
+    // commits it and writes the pod's packed row; block 0 when none is)
     int sel_node = -1;
+    int committer = 0;
     if (!a.reservoir) {
       // first tied maximum in visit order = minimal visit rank
       int best_rank = 0x7fffffff;
-      for (int64_t base = 0; base < N; base += blockDim.x) {
+      for (int64_t base = T0; base < N; base += TSTEP) {
         const int r = (int)(base + tid);
         if (r < N) {
           const int n = r < nt ? (start + r) % nt : r;
@@ -1054,8 +1291,39 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
       best_rank = block_reduce(best_rank, 0x7fffffff, MinOp());
+      if constexpr (CL) {
+        // each block's best total and its first rank, then the cluster's
+        if (tid == 0) {
+          cx.best = best;
+          cx.best_rank = best_rank;
+        }
+        cluster_sync();
+        if (tid < 32) {
+          const ClusterX<T>* x = at_rank(&cx, tid < B ? tid : 0);
+          const T v = x->best;
+          const int vr = x->best_rank;
+          const T gb = __shfl_sync(0xffffffffu, warp_combine(v, MaxOp()), 0);
+          const int gr = warp_combine(v == gb ? vr : 0x7fffffff, MinOp());
+          if (tid == 0) {
+            cx.out_t[0] = gb;
+            cx.out_i[0] = gr;
+          }
+        }
+        __syncthreads();
+        best = cx.out_t[0];
+        best_rank = cx.out_i[0];
+        if (best_rank != 0x7fffffff) {
+          // the owner of the node's rank tile, in this pod or the next
+          int rk = best_rank;
+          if (!commit_sync && best_rank < nt) {
+            const int nstart = active ? (start + processed) % nt : start;
+            rk = ((start + best_rank) % nt - nstart + nt) % nt;
+          }
+          committer = (rk / THREADS) % B;
+        }
+      }
       if (best_rank != 0x7fffffff) sel_node = best_rank < nt ? (start + best_rank) % nt : best_rank;
-    } else {
+    } else if constexpr (!CL) {
       // k-th tied maximum in visit order, k from the counter-keyed draw
       int tied_cnt = 0;
       for (int64_t base = 0; base < N; base += blockDim.x) {
@@ -1084,17 +1352,63 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         if (tied && ct == kk + 1) pick = n;
       }
       sel_node = block_reduce(pick, -1, MaxOp());
+    } else {
+      // a cluster's reservoir draw: the best total, each rank tile's ties at
+      // it exclusive-scanned in rank order, and the tile holding the k-th
+      if (tid == 0) cx.best = best;
+      cluster_sync();
+      if (tid < 32) {
+        const T gb = warp_combine(at_rank(&cx, tid < B ? tid : 0)->best, MaxOp());
+        if (tid == 0) cx.out_t[0] = gb;
+      }
+      __syncthreads();
+      best = cx.out_t[0];
+      for (int64_t base = T0, tile = 0; base < N; base += TSTEP, ++tile) {
+        const int r = (int)(base + tid);
+        int tied = 0;
+        if (r < N) {
+          const int n = r < nt ? (start + r) % nt : r;
+          tied = ((fl[n] & 2) && tot[n] == best) ? 1 : 0;
+        }
+        const int t_tied = block_reduce(tied, 0, SumOp());
+        if (tid == 0) cx.tile_tied[tile] = t_tied;
+      }
+      cluster_sync();
+      const int ntiles = (int)((N + THREADS - 1) / THREADS);
+      const int v = tid < ntiles ? at_rank(&cx, tid % B)->tile_tied[tid / B] : 0;
+      int t_count;
+      const int incl = block_scan(v, &t_count);
+      if (tid < ntiles) tile_off[tid] = incl - v;
+      const uint32_t counter = (uint32_t)((uint64_t)a.tb_base + (uint64_t)i);
+      const uint32_t draw = mix32((uint32_t)a.seed_mix ^ mix32(counter));
+      const int kk = (int)(draw % (uint32_t)(t_count > 1 ? t_count : 1));
+      const int t_sel = block_reduce(v > 0 && incl - v <= kk && kk < incl ? tid : -1, -1, MaxOp());
+      if (t_sel >= 0) {
+        committer = t_sel % B;
+        if (b == committer) {
+          const int r = t_sel * THREADS + tid;
+          int tied = 0, n = -1;
+          if (r < N) {
+            n = r < nt ? (start + r) % nt : r;
+            tied = ((fl[n] & 2) && tot[n] == best) ? 1 : 0;
+          }
+          int tile_total;
+          const int ct = tile_off[t_sel] + block_scan(tied, &tile_total);
+          sel_node = block_reduce(tied && ct == kk + 1 ? n : -1, -1, MaxOp());
+        }
+      }
     }
     const int sel = count > 0 ? sel_node : -1;
+    const bool commits = !CL || b == committer;
 
     // ---- commit: one writer per node ------------------------------------
-    if (sel >= 0 && tid == 0) {
+    if (sel >= 0 && commits && tid == 0) {
       for (int64_t q = 0; q < R; ++q) req[sel * R + q] = req[sel * R + q] + T(1) * preq[q];
       nzc[sel * 2 + 0] = nzc[sel * 2 + 0] + T(1) * pnz[0];
       nzc[sel * 2 + 1] = nzc[sel * 2 + 1] + T(1) * pnz[1];
       pc[sel] = pc[sel] + T(1);
     }
-    if (sel >= 0 && VOL) {
+    if (sel >= 0 && VOL && commits) {
       // host ports and conflict volumes: the pod's classes projected
       // through the conflict relation, one thread per wanted class
       for (int64_t w = tid; ports && w < a.PT; w += blockDim.x) {
@@ -1120,12 +1434,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
     }
-    if (sel >= 0 && spread_on) {
+    if (sel >= 0 && spread_on && commits) {
       for (int64_t s = tid; s < a.SG; s += blockDim.x) {
         spc[s * N + sel] = spc[s * N + sel] + ((const T*)a.spread_match)[s * a.Psrc + i];
       }
     }
-    if (sel >= 0 && ipa) {
+    if (sel >= 0 && ipa && commits) {
       // one thread per group row of ip_sel; ip_own and ip_anti, whose
       // terms may repeat a cell, on thread 0 in the reference's order
       // a node without the group's key commits to the sink column D
@@ -1151,7 +1465,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
     }
-    if (owner && tid == 0) {
+    zero_domains();
+    if ((CL ? b == committer : owner) && tid == 0) {
       packed[0 * P + i] = sel;
       packed[1 * P + i] = count;
       packed[2 * P + i] = start;
@@ -1159,15 +1474,26 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     // the rotating start advances by the number of visited nodes
     if (active) start = nt > 0 ? (start + processed) % nt : 0;
-    __syncthreads();
+    if constexpr (CL) {
+      if (commit_sync) {
+        cluster_sync();  // the commit, before the next pod reads the carries
+      } else {
+        __syncthreads();
+      }
+    } else {
+      __syncthreads();
+    }
   }
+  if constexpr (CL) cluster_sync();  // every commit, before the final copy
 
-  if (b != 0) return;
+  // the final carries: block 0's copy, or a cluster's one copy by all its
+  // blocks
+  if (!CL && b != 0) return;
   if (GRAD && tid == 0) {
     for (int k = 0; k < a.ns; ++k) a.dw[k] = dwacc[k];
   }
-  for (int64_t i = tid; i < P; i += blockDim.x) packed[4 * P + i] = start;
-  if (tid == 0) a.final_start[lane] = start;
+  for (int64_t i = i0; i < P; i += istep) packed[4 * P + i] = start;
+  if (b == 0 && tid == 0) a.final_start[lane] = start;
   // this lane's slices of the final carries
   T* f_req = (T*)a.final_requested + lane * N * R;
   T* f_nz = (T*)a.final_nonzero + lane * N * 2;
@@ -1180,33 +1506,33 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   T* f_isel = (T*)a.final_ip_sel + lane * GD;
   T* f_iown = (T*)a.final_ip_own + lane * GD;
   T* f_ianti = (T*)a.final_ip_anti + lane * GD;
-  for (int64_t j = tid; j < N * R; j += blockDim.x) f_req[j] = req[j];
-  for (int64_t j = tid; j < N * 2; j += blockDim.x) f_nz[j] = nzc[j];
-  for (int64_t j = tid; j < N; j += blockDim.x) f_pc[j] = pc[j];
+  for (int64_t j = i0; j < N * R; j += istep) f_req[j] = req[j];
+  for (int64_t j = i0; j < N * 2; j += istep) f_nz[j] = nzc[j];
+  for (int64_t j = i0; j < N; j += istep) f_pc[j] = pc[j];
   // the volume carries, row-major again (their initial values when the
   // problem carries none)
-  for (int64_t j = tid; j < N * a.PT; j += blockDim.x) {
+  for (int64_t j = i0; j < N * a.PT; j += istep) {
     f_ports[j] = ports ? sports[(j % a.PT) * N + j / a.PT] : ((const T*)a.ports_used0)[j];
   }
-  for (int64_t j = tid; j < N * a.VR; j += blockDim.x) {
+  for (int64_t j = i0; j < N * a.VR; j += istep) {
     f_restr[j] = restr ? srestr[(j % a.VR) * N + j / a.VR] : ((const T*)a.restr_used0)[j];
   }
-  for (int64_t j = tid; j < N * 3; j += blockDim.x) {
+  for (int64_t j = i0; j < N * 3; j += istep) {
     f_cloud[j] = cloud ? scloud[(j % 3) * N + j / 3] : ((const T*)a.cloud_used0)[j];
   }
-  for (int64_t j = tid; j < N * a.VID; j += blockDim.x) {
+  for (int64_t j = i0; j < N * a.VID; j += istep) {
     f_csi[j] = csi ? T(scsi[(j % a.VID) * N + j / a.VID]) : ((const T*)a.csi_attached0)[j];
   }
   // PodTopologySpread's and InterPodAffinity's carries, for the next window
-  for (int64_t j = tid; j < a.SG * N; j += blockDim.x) {
+  for (int64_t j = i0; j < a.SG * N; j += istep) {
     f_spread[j] = spread_on ? spc[j] : ((const T*)a.spread_counts0)[j];
   }
-  for (int64_t j = tid; j < GD; j += blockDim.x) {
+  for (int64_t j = i0; j < GD; j += istep) {
     f_isel[j] = ipa ? isel[j] : ((const T*)a.ip_sel0)[j];
     f_iown[j] = ipa ? iown[j] : ((const T*)a.ip_own0)[j];
     f_ianti[j] = ipa ? ianti[j] : ((const T*)a.ip_anti0)[j];
   }
-  if (!a.trace) return;
+  if (CL || !a.trace) return;
   for (int k = 0; k < a.ns; ++k) {
     const T mn = block_reduce(meta_mn[k], T(INFINITY), MinOp());
     const T mx = block_reduce(meta_mx[k], T(-INFINITY), MaxOp());
@@ -1222,23 +1548,47 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   }
 }
 
-template <typename T, bool TOPO, bool VOL>
-void launch_grad(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
+template <typename T, bool TOPO, bool VOL, int MODE>
+cudaError_t launch_mode(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
   const dim3 grid((unsigned)blocks, (unsigned)a->lanes);
-  if (a->grad) {
-    scan_kernel<T, TOPO, VOL, true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+  if constexpr (MODE == MODE_CLUSTER) {
+    // one cluster of `blocks` blocks a lane
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, scan_kernel<T, TOPO, VOL, MODE>, *a);
   } else {
-    scan_kernel<T, TOPO, VOL, false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    scan_kernel<T, TOPO, VOL, MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    return cudaGetLastError();
   }
 }
 
+// The cluster launches build as a library of their own (csrc/scan_lanes.cu
+// includes this file with SCAN_CLUSTER defined), so the two nvcc runs go in
+// parallel: each holds a third or two thirds of the instantiations.
+template <typename T, bool TOPO, bool VOL>
+cudaError_t launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
+#ifdef SCAN_CLUSTER
+  return launch_mode<T, TOPO, VOL, MODE_CLUSTER>(a, blocks, smem, stream);
+#else
+  if (a->grad) return launch_mode<T, TOPO, VOL, MODE_GRAD>(a, blocks, smem, stream);
+  return launch_mode<T, TOPO, VOL, MODE_BLOCKS>(a, blocks, smem, stream);
+#endif
+}
+
 template <typename T, bool TOPO>
-void launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
-  if (a->use_ports || a->use_restr || a->use_cloud || a->use_csi) {
-    launch_grad<T, TOPO, true>(a, blocks, smem, stream);
-  } else {
-    launch_grad<T, TOPO, false>(a, blocks, smem, stream);
-  }
+cudaError_t launch_topo(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
+  if (a->use_ports || a->use_restr || a->use_cloud || a->use_csi) return launch_vol<T, TOPO, true>(a, blocks, smem, stream);
+  return launch_vol<T, TOPO, false>(a, blocks, smem, stream);
 }
 
 template <typename T>
@@ -1246,18 +1596,26 @@ int launch(const ScanArgs* a, int64_t blocks, void* stream) {
   // the trace planes have no lane stride; gridDim.y is at most 65 535
   if (a->lanes < 1 || a->lanes > 65535 || (a->lanes > 1 && a->trace)) return (int)cudaErrorInvalidValue;
   // grad mode: one lane, one block, trace off, at most MAXS weights
-  if (a->grad && (a->lanes != 1 || blocks != 1 || a->trace)) return (int)cudaErrorInvalidValue;
+  if (a->grad && (a->lanes != 1 || blocks != 1 || a->trace || a->cluster != 1)) return (int)cudaErrorInvalidValue;
+  // a cluster: `blocks` of them a lane, trace off, every block at most MAXT
+  // of the at most THREADS rank tiles
+#ifdef SCAN_CLUSTER
+  if (a->cluster < 2 || a->cluster > MAXCL) return (int)cudaErrorInvalidValue;
+#else
+  if (a->cluster != 1) return (int)cudaErrorInvalidValue;
+#endif
+  if (a->cluster > 1 && (blocks != a->cluster || a->trace || a->ws0 || (a->N + THREADS - 1) / THREADS > THREADS)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (a->ns > MAXS) return (int)cudaErrorInvalidValue;
   const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
-  if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) {
-    launch_vol<T, true>(a, blocks, smem, stream);
-  } else {
-    launch_vol<T, false>(a, blocks, 0, stream);
-  }
-  return (int)cudaGetLastError();
+  if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) return (int)launch_topo<T, true>(a, blocks, smem, stream);
+  return (int)launch_topo<T, false>(a, blocks, 0, stream);
 }
 
 }  // namespace
 
+#ifndef SCAN_CLUSTER
 extern "C" int kss_scan_f32(const ScanArgs* a, int64_t blocks, void* stream) { return launch<float>(a, blocks, stream); }
 extern "C" int kss_scan_f64(const ScanArgs* a, int64_t blocks, void* stream) { return launch<double>(a, blocks, stream); }
+#endif

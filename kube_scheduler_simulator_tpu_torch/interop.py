@@ -8,7 +8,8 @@ port's ``DeviceProblem`` on ``device`` in one copy, so both packages'
 kernels can be fed the very same problem.  The JAX-only fields (the
 on-device expansion placeholders, the traced weight vector and the one-hot
 key expansion) are dropped; the port's own derived fields (the per-pod
-column lists) are built from the carried ones as ``lower`` builds them.
+column and term-group lists) are built from the carried ones as ``lower``
+builds them.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
     ROUND_SCALARS,
     DeviceProblem,
     place,
+    term_lists,
     volume_lists,
 )
 
@@ -36,6 +38,7 @@ def from_jax_problem(
     host: dict[str, Any] = volume_lists(
         fields["pod_ports"], fields["pod_restr"], fields["pod_csi"], fields["csi_drv_oh"]
     )
+    host.update(term_lists(fields["term_match"]))
     for name in DeviceProblem._fields:
         if name in LIST_FIELDS:
             continue

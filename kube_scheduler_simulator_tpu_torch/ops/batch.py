@@ -234,6 +234,10 @@ class DeviceProblem(NamedTuple):
     restr_cols: Any       # [P,KVR] int32 columns of pod_restr
     csi_cols: Any         # [P,KV] int32 columns of pod_csi
     csi_drv: Any          # [V] int32 driver column of each volume id, -1 none
+    # the term groups each pod matches (term_match's nonzero rows of the
+    # pod's column, ascending g), so the scan's InterPodAffinity filter and
+    # score walk the pod's few groups instead of every group
+    ip_match_g: Any       # [P,KM] int32, -1 padded
     node_domain: Any      # [KT,N] int32
     spf: Any              # spread filter constraints (key,grp,skew,self) [P,KC]
     sps: Any              # spread score constraints [P,KS]
@@ -270,8 +274,8 @@ class DeviceProblem(NamedTuple):
 
 
 ROUND_SCALARS = ("tb_base", "sample_k", "start0", "n_true")
-# DeviceProblem fields lower() derives from others (volume_lists)
-LIST_FIELDS = ("port_cols", "restr_cols", "csi_cols", "csi_drv")
+# DeviceProblem fields lower() derives from others (volume_lists, term_lists)
+LIST_FIELDS = ("port_cols", "restr_cols", "csi_cols", "csi_drv", "ip_match_g")
 
 
 def _set_columns(mask) -> np.ndarray:
@@ -293,6 +297,14 @@ def volume_lists(pod_ports, pod_restr, pod_csi, csi_drv_oh) -> "dict[str, np.nda
         csi_cols=_set_columns(pod_csi),
         csi_drv=np.where(oh.any(axis=1), oh.argmax(axis=1), -1).astype(np.int32),
     )
+
+
+def term_lists(term_match) -> "dict[str, np.ndarray]":
+    """``ip_match_g`` [P, KM] of a problem from its term_match [G, P]: row i
+    the groups g with term_match[g, i] != 0, ascending, -1 padded; KM the
+    most any pod matches (at least 1), exact as the encoder keeps KA, KB,
+    KP and KO."""
+    return dict(ip_match_g=_set_columns(np.asarray(term_match).T))
 
 _TORCH_OF_NP = {
     np.dtype(np.float64): torch.float64,
@@ -458,6 +470,7 @@ def lower_host(pr: BatchProblem, dtype: torch.dtype) -> "tuple[dict, dict]":
         spread_match=f(pr.spread_match),
         gdom=i32(gdom),
         term_match=f(pr.term_match),
+        **term_lists(pr.term_match),
         ip_aff_g=i32(pr.ip_aff_g),
         ip_anti_g=i32(pr.ip_anti_g),
         ip_pref_g=i32(pr.ip_pref_g),
@@ -795,7 +808,7 @@ POD_WINDOW_AXIS0 = (
     "pod_pref_idx", "pod_img_idx", "name_target", "pod_ports", "pod_vol_idx",
     "pod_restr", "cloud_cnt", "pod_csi", "ip_aff_g", "ip_anti_g", "ip_pref_g",
     "ip_pref_w", "ip_own_g", "ip_own_w", "ip_self_match", "pod_active",
-    "spf_ku", "sps_ku", "port_cols", "restr_cols", "csi_cols",
+    "spf_ku", "sps_ku", "port_cols", "restr_cols", "csi_cols", "ip_match_g",
 )
 POD_WINDOW_AXIS1 = ("spread_match", "term_match")
 

@@ -89,8 +89,8 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {
-    "scan": "scan.cu", "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu", "gang": "gang.cu",
-    "objective": "tune.cu",
+    "scan": "scan.cu", "scan_lanes": "scan_lanes.cu", "compact": "compact.cu", "scatter": "scatter.cu",
+    "preempt": "preempt.cu", "gang": "gang.cu", "objective": "tune.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -109,6 +109,9 @@ MAXR_PREEMPT = 16  # resource columns of a victim-search lane (csrc/preempt.cu)
 # bytes of shared memory the scan may take for PodTopologySpread's domain
 # sums; larger domain arrays go to per-block global scratch
 DOM_SMEM_BYTES = 8192
+# the scan's block width (csrc/scan.cu THREADS: one rank tile of nodes), the
+# portable thread-block cluster size, and the H100's SMs
+SCAN_THREADS, MAX_CLUSTER, H100_SMS = 512, 8, 132
 # bytes of shared memory a feasibility-scan block may take for its group's
 # free table, pod budgets and domain flags (of the 227 KB an H100 block can
 # have); larger tables go to a per-group slice of global scratch
@@ -149,7 +152,7 @@ class ScanArgs(ctypes.Structure):
     _fields_ = [
         (n, _i64) for n in (
             "P", "N", "R", "n_true", "sample_k", "start0", "tb_base", "seed_mix", "Psrc", "trace", "reservoir", "lanes",
-            "na_stride", "w_stride", "grad", "nf",
+            "na_stride", "w_stride", "grad", "cluster", "nf",
         )
     ] + [
         ("filters", _i64 * MAXF),
@@ -170,7 +173,7 @@ class ScanArgs(ctypes.Structure):
     ] + [
         (n, _i64) for n in (
             "use_spread_f", "use_spread_s", "use_ipa",
-            "KC", "KS", "KA", "KB", "KP", "KO", "SG", "G", "D", "dom_cap", "dom_smem",
+            "KC", "KS", "KA", "KB", "KP", "KO", "KM", "SG", "G", "D", "dom_cap", "dom_smem",
         )
     ] + [
         ("key_base", _i64 * MAXKU),
@@ -194,7 +197,7 @@ class ScanArgs(ctypes.Structure):
             "incl_cls", "node_domain",
             "spf_key", "spf_grp", "spf_ku", "spf_skew", "spf_self",
             "sps_key", "sps_grp", "sps_ku", "sps_skew", "spread_match",
-            "gdom", "term_match", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w",
+            "gdom", "term_match", "ip_match_g", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w",
             "ip_own_g", "ip_own_w", "ip_self_match",
             "port_cols", "port_conflict", "restr_cols", "restr_conflict", "cloud_cnt", "csi_cols", "csi_drv",
             "csi_seed_used", "csi_limit", "vb_cls", "vz_cls", "pod_vol_idx", "log_table", "weights", "grad_F", "dw",
@@ -270,6 +273,7 @@ class GangFeasArgs(ctypes.Structure):
 # each library's extern "C" entry points and their argument types
 ENTRIES = {
     "scan": {f"kss_scan_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")},
+    "scan_lanes": {f"kss_scan_lanes_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")},
     "compact": {f"kss_compact_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
     "scatter": {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]},
     "preempt": {f"kss_preempt_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
@@ -292,7 +296,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``src``, keyed by every source (scan_lanes.cu includes
+    scan.cu) and the flags."""
+    key = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cu"))) + src.name.encode()
+    h = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{h}.so"
 
 
@@ -363,6 +370,13 @@ def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
     return cap, slot_bytes <= DOM_SMEM_BYTES
 
 
+def cluster_width(N: int, lanes: int) -> int:
+    """Blocks of each lane's thread-block cluster in a lane launch (K8, K9):
+    one a rank tile of the N nodes, at most 8, and at most the H100's 132
+    SMs shared among the lanes; 1 runs each lane in one block."""
+    return max(1, min(MAX_CLUSTER, -(-N // SCAN_THREADS), H100_SMS // lanes))
+
+
 def scan(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None, ws0: "int | None" = None,
     carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
@@ -383,9 +397,10 @@ def scan(
 def scan_lanes(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
     """Launch the scan kernel over G lanes (K8) on a problem on the card,
     lane g with ``node_active = lane_active[g]`` (a contiguous CUDA bool
-    [G, N]); returns the outputs of ops/batch.scan_lanes_plain under the
-    same keys, each with a leading lane axis.  The trace is off: the
-    estimator reads decisions, not annotations."""
+    [G, N]), each lane a cluster of ``cluster_width(N, G)`` blocks; returns
+    the outputs of ops/batch.scan_lanes_plain under the same keys, each with
+    a leading lane axis.  The trace is off: the estimator reads decisions,
+    not annotations."""
     check_lanes(cfg, dims, lane_active)
     _check(lane_active, "lane_active", torch.bool)
     out = _launch_scan(cfg, dims, dp, 1, None, None, 0, None, lane_active=lane_active)
@@ -396,7 +411,8 @@ def scan_lanes(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: tor
 def scan_population(cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: torch.Tensor) -> dict:
     """Launch the scan kernel over the rows of a [G, S] weight matrix (K9)
     on a problem on the card, every lane on the problem's own node_active:
-    lane g is the rollout under ``weights[g]``.  Returns the outputs of
+    lane g is the rollout under ``weights[g]``, a cluster of
+    ``cluster_width(N, G)`` blocks.  Returns the outputs of
     ops/batch.scan_lanes_plain(weights=) under the same keys, each with a
     leading lane axis.  Trace off."""
     check_lanes(cfg, dims, None, weights)
@@ -473,9 +489,9 @@ def _launch_scan(
 ) -> dict:
     """One launch of csrc/scan.cu: ``scan``'s arguments; with
     ``lane_active`` [G, N] (K8) or a [G, S] ``weights`` matrix (K9) the lane
-    axis (every output gets a leading lane axis, the scratch a slot per lane
-    and block); with ``grad=(F, tau)`` the grad mode (K2g, ``dw`` in the
-    outputs)."""
+    axis (every output gets a leading lane axis; a lane is a cluster of
+    ``cluster_width`` blocks sharing one scratch slot, or one block); with
+    ``grad=(F, tau)`` the grad mode (K2g, ``dw`` in the outputs)."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
@@ -499,7 +515,6 @@ def _launch_scan(
     if len(dims["key_struct"]) > MAXKU:
         raise ValueError(f"more than {MAXKU} topology keys in the spread constraints and inter-pod terms")
     dt = dp.alloc.dtype
-    fn = _entry("scan", dt)
     dev = dp.alloc.device
     i32 = torch.int32
     if blocks is None:
@@ -547,26 +562,30 @@ def _launch_scan(
     PT, VR, VID, DR = (t.shape[1] for t in (dp.ports_used0, dp.restr_used0, dp.csi_attached0, dp.csi_seed_used))
     cap, in_smem = domain_layout(dims, dt)
     nslot = dims["KC"] + dims["KS"]
-    # a carry copy for each block of each lane
-    blocks_x, blocks = blocks, blocks * L
+    # a lane launch runs each lane on a cluster of C blocks sharing one carry
+    # copy; otherwise a carry copy for each block of each lane
+    C = cluster_width(N, L) if laned and grad is None else 1
+    fn = _entry("scan_lanes" if C > 1 else "scan", dt)
+    blocks_x = C if C > 1 else blocks
+    slots = L if C > 1 else blocks * L
     scratch = dict(
-        s_requested=e(blocks, N, R), s_nonzero=e(blocks, N, 2), s_pod_count=e(blocks, N),
-        s_spread=e(blocks, SG, N) if SG > 0 else e(1),
-        s_ip_sel=e(blocks, G, D + 1) if gates["interpod"] else e(1),
-        s_ip_own=e(blocks, G, D + 1) if gates["interpod"] else e(1),
-        s_ip_anti=e(blocks, G, D + 1) if gates["interpod"] else e(1),
-        s_raw_spread=e(blocks, N), s_raw_ipa=e(blocks, N),
-        s_dom=e(1) if in_smem else e(blocks, nslot * cap),
-        s_domflag=e(1, dtype=i32) if in_smem else e(blocks, nslot * cap, dtype=i32),
-        s_total=e(blocks, N), s_flags=e(blocks, N, dtype=torch.uint8),
-        s_rank=e(blocks, N, dtype=i32) if ws0 else e(1, dtype=i32),
-        s_ports=e(blocks, PT, N) if gates["ports"] else e(1),
-        s_restr=e(blocks, VR, N) if gates["restr"] else e(1),
-        s_cloud=e(blocks, 3, N) if gates["cloud"] else e(1),
-        s_csi=e(blocks, VID, N, dtype=torch.uint8) if gates["csi"] else e(1, dtype=torch.uint8),
-        s_csi_cnt=e(blocks, DR, N) if gates["csi"] else e(1),
-        s_norm=e(blocks, S, N) if grad is not None else e(1),
-        s_soft=e(blocks, N) if grad is not None else e(1),
+        s_requested=e(slots, N, R), s_nonzero=e(slots, N, 2), s_pod_count=e(slots, N),
+        s_spread=e(slots, SG, N) if SG > 0 else e(1),
+        s_ip_sel=e(slots, G, D + 1) if gates["interpod"] else e(1),
+        s_ip_own=e(slots, G, D + 1) if gates["interpod"] else e(1),
+        s_ip_anti=e(slots, G, D + 1) if gates["interpod"] else e(1),
+        s_raw_spread=e(slots, N), s_raw_ipa=e(slots, N),
+        s_dom=e(1) if in_smem else e(slots, nslot * cap),
+        s_domflag=e(1, dtype=i32) if in_smem else e(slots, nslot * cap, dtype=i32),
+        s_total=e(slots, N), s_flags=e(slots, N, dtype=torch.uint8),
+        s_rank=e(slots, N, dtype=i32) if ws0 or C > 1 else e(1, dtype=i32),
+        s_ports=e(slots, PT, N) if gates["ports"] else e(1),
+        s_restr=e(slots, VR, N) if gates["restr"] else e(1),
+        s_cloud=e(slots, 3, N) if gates["cloud"] else e(1),
+        s_csi=e(slots, VID, N, dtype=torch.uint8) if gates["csi"] else e(1, dtype=torch.uint8),
+        s_csi_cnt=e(slots, DR, N) if gates["csi"] else e(1),
+        s_norm=e(slots, S, N) if grad is not None else e(1),
+        s_soft=e(slots, N) if grad is not None else e(1),
     )
     logt = log_table(N, dt, dev)
     a = ScanArgs()
@@ -577,7 +596,7 @@ def _launch_scan(
     a.seed_mix = _mix32((cfg.seed ^ GOLDEN32) & MASK32)
     a.trace = int(cfg.trace)
     a.reservoir = int(cfg.tie_break == "reservoir")
-    a.lanes = L
+    a.lanes, a.cluster = L, C
     a.na_stride = N if lane_active is not None else 0
     a.w_stride = S if w_rows.dim() == 2 else 0
     a.weights = w_rows.data_ptr()
@@ -606,6 +625,7 @@ def _launch_scan(
     a.use_ipa = int(gates["interpod"])
     for name in ("KC", "KS", "KA", "KB", "KP", "KO", "SG", "G", "D"):
         setattr(a, name, int(dims[name]))
+    a.KM = dp.ip_match_g.shape[1]
     a.dom_cap, a.dom_smem = cap, int(in_smem)
     a.ws0 = ws0 or 0
     a.use_ports, a.use_restr = int(gates["ports"]), int(gates["restr"])
@@ -627,7 +647,7 @@ def _launch_scan(
         ("pod_aff_idx", i32), ("pod_pref_idx", i32), ("node_label_idx", i32), ("img_cls", torch.int8),
         ("pod_img_idx", i32), ("node_img_idx", i32), ("name_target", i32), ("pod_active", torch.bool),
         ("node_active", torch.bool), ("incl_cls", torch.bool), ("node_domain", i32), ("spf_ku", i32),
-        ("sps_ku", i32), ("gdom", i32), ("ip_aff_g", i32),
+        ("sps_ku", i32), ("gdom", i32), ("ip_match_g", i32), ("ip_aff_g", i32),
         ("ip_anti_g", i32), ("ip_pref_g", i32), ("ip_pref_w", dt), ("ip_own_g", i32), ("ip_own_w", dt),
         ("ip_self_match", torch.bool), ("requested0", dt), ("nonzero0", dt), ("pod_count0", dt),
         ("spread_counts0", dt), ("ip_sel0", dt), ("ip_own0", dt), ("ip_anti0", dt),
@@ -655,7 +675,7 @@ def _launch_scan(
     a.start_ptr = _check(start_dev, "start0", i32) if start_dev is not None else None
     if grad is not None:
         F, tau = grad
-        if L != 1 or blocks != 1 or cfg.trace:
+        if L != 1 or blocks_x != 1 or cfg.trace:
             raise ValueError("the grad mode runs one lane in one block with the trace off")
         out["dw"] = torch.empty(S, dtype=torch.float64, device=dev)
         a.grad, a.tau = 1, float(tau)
@@ -699,25 +719,48 @@ def _launch_scan(
     return out
 
 
+_SCATTER: list = []  # [the row-copy entry point, the raw current-stream getter], resolved once
+
+
+def _scatter_entry() -> list:
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    _SCATTER[:] = [build()["scatter"].kss_scatter_rows,
+                   raw or (lambda d: torch.cuda.current_stream(d).cuda_stream)]
+    return _SCATTER
+
+
 def scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``buf[idx[k]] = rows[k]`` in place on a plane resident on the card
     (any dtype, rank >= 1), by the row-copy kernel; returns ``buf``.  Every
     repeated index must carry an identical row (the placer pads with
-    repeats of its first index)."""
-    _check(buf, "buf")
-    _check(idx, "idx", torch.int32)
-    _check(rows, "rows", buf.dtype)
-    if buf.dim() < 1 or rows.dim() != buf.dim() or rows.shape[1:] != buf.shape[1:] or idx.shape != rows.shape[:1]:
-        raise ValueError(f"rows {tuple(rows.shape)} / idx {tuple(idx.shape)} do not fit plane {tuple(buf.shape)}")
-    k = rows.shape[0]
-    row_bytes = rows[0].numel() * rows.element_size() if k else 0
-    if k == 0 or row_bytes == 0:
+    repeats of its first index).
+
+    The path is the call's whole cost (the copy is a few hundred bytes):
+    the entry point and the stream getter are resolved once, the row width
+    comes from the shape and the copy word from the width and the two
+    pointers, each read once."""
+    if not (buf.is_cuda and idx.is_cuda and rows.is_cuda):
+        raise ValueError("buf, idx and rows must be CUDA tensors (the plain versions serve CPU tensors)")
+    if not (buf.is_contiguous() and idx.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("buf, idx and rows must be contiguous")
+    if idx.dtype != torch.int32 or rows.dtype != buf.dtype:
+        raise ValueError(f"idx must be torch.int32 and rows {buf.dtype}, got {idx.dtype} and {rows.dtype}")
+    bs, rs, js = buf.shape, rows.shape, idx.shape
+    if len(js) != 1 or len(rs) != len(bs) or not bs or js[0] != rs[0] or (len(bs) > 1 and rs[1:] != bs[1:]):
+        raise ValueError(f"rows {tuple(rs)} / idx {tuple(js)} do not fit plane {tuple(bs)}")
+    nbytes = rows.nbytes
+    if nbytes == 0:
         return buf
-    word = next(w for w in (8, 4, 2, 1) if row_bytes % w == 0 and buf.data_ptr() % w == 0 and rows.data_ptr() % w == 0)
-    dev = buf.device
-    fn = build()["scatter"].kss_scatter_rows
-    rc = fn(buf.data_ptr(), idx.data_ptr(), rows.data_ptr(), k, row_bytes, word, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "scatter")
+    k = rs[0]
+    row_bytes = nbytes // k
+    bp, rp = buf.data_ptr(), rows.data_ptr()
+    # the widest word (8, 4, 2 or 1 bytes) dividing the width and both bases
+    m = row_bytes | bp | rp
+    word = min(8, m & -m)
+    fn, stream = _SCATTER or _scatter_entry()
+    rc = fn(bp, idx.data_ptr(), rp, k, row_bytes, word, stream(buf.get_device()))
+    if rc:
+        _raise_on(rc, "scatter")
     LAUNCHES["scatter"] += 1
     return buf
 

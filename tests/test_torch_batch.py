@@ -707,3 +707,73 @@ def test_scatter_rows_plain_equals_the_reference(dtype):
         want = np.asarray(JB._scatter_rows(jax.numpy.asarray(buf), idx, rows))
         got = TB.scatter_rows(torch.from_numpy(buf.copy()), torch.from_numpy(idx), torch.from_numpy(rows))
         assert got.numpy().dtype == want.dtype and np.array_equal(got.numpy(), want), shape
+
+
+# ------------------------------- per-pod term-group lists (InterPodAffinity)
+
+def test_term_lists_hold_each_pods_groups_ascending():
+    """``ip_match_g`` row i: the groups g with term_match[g, i] != 0 in
+    ascending g, -1 padded to the most any pod matches (at least 1): pods
+    that match no group, one, and several set out of column order."""
+    tm = np.zeros((6, 5))
+    tm[3, 1] = 1.0
+    tm[[5, 0, 2], 2] = 1.0
+    tm[[4, 1], 4] = 1.0
+    lists = TB.term_lists(tm)["ip_match_g"]
+    assert lists.dtype == np.int32
+    assert lists.tolist() == [[-1, -1, -1], [3, -1, -1], [0, 2, 5], [-1, -1, -1], [1, 4, -1]]
+    assert TB.term_lists(np.zeros((1, 4), dtype=bool))["ip_match_g"].tolist() == [[-1]] * 4
+
+
+def test_ip_match_g_is_term_match_pattern_of_the_reference_problem(topo_problem):
+    """On the seeded inter-pod cluster lowered by the JAX package, the port's
+    list (carried across and lowered by the port itself) is term_match's
+    nonzero pattern, pod by pod, with pods of 0, 1 and 2 groups."""
+    pr, jdp, dims = topo_problem
+    tm = np.asarray(jdp.term_match)
+    tdp, _ = interop.from_jax_problem(jax_fields(jdp), dims, device="cpu")
+    own, _ = TB.lower(pr, dtype=torch.float64, device="cpu")
+    for dp in (tdp, own):
+        lists = dp.ip_match_g.numpy()
+        assert lists.shape == (tm.shape[1], max(int((tm != 0).sum(axis=0).max()), 1))
+        for i in range(tm.shape[1]):
+            assert lists[i][lists[i] >= 0].tolist() == np.nonzero(tm[:, i])[0].tolist(), i
+            assert (lists[i][(lists[i] >= 0).sum():] == -1).all(), i
+    counts = set((tm != 0).sum(axis=0).tolist())
+    assert {0, 1, 2} <= counts, counts
+
+
+def test_ip_match_g_under_a_window_offset_is_the_full_problems_rows(topo_problem):
+    """A window's view hands the list in at row ``offset``, as every other
+    pod-row plane."""
+    pr, _jdp, _dims = topo_problem
+    tdp, _ = TB.lower(pr, dtype=torch.float64, device="cpu")
+    for off, wp in ((0, 16), (16, 16), (40, 8)):
+        w = TB.slice_pod_window(tdp, off, wp)
+        assert torch.equal(w.ip_match_g, tdp.ip_match_g[off : off + wp])
+        assert torch.equal((w.term_match != 0).sum(dim=0), (w.ip_match_g >= 0).sum(dim=1))
+
+
+def test_device_placer_reuses_and_scatters_ip_match_g(topo_problem):
+    """The DevicePlacer routes the list like any pod-row plane: reused when
+    no pod's groups changed, row-updated when a few did, and the placed
+    rows equal the host's."""
+    pr, _jdp, dims = topo_problem
+    placer = TB.DevicePlacer()
+    cpu = torch.device("cpu")
+    key = tuple(sorted(dims.items()))
+    host, _ = TB.lower_host(pr, torch.float64)
+    placer.place(host, key, cpu)
+    assert placer.decisions[("ip_match_g", None)][0] == "full"
+    placer.place(TB.lower_host(pr, torch.float64)[0], key, cpu)
+    assert placer.decisions[("ip_match_g", None)] == ("reuse", 0)
+    host3, _ = TB.lower_host(pr, torch.float64)
+    tm = host3["term_match"].copy()
+    tm[:, 3] = 0.0
+    tm[[0, 2], 3] = 1.0
+    host3["term_match"] = tm
+    host3.update(TB.term_lists(tm))
+    d3 = placer.place(host3, key, cpu)
+    assert placer.decisions[("ip_match_g", None)][0] == "scatter" and "ip_match_g" in placer.last_scattered
+    assert torch.equal(d3.ip_match_g, torch.from_numpy(host3["ip_match_g"]))
+    assert d3.ip_match_g[3].tolist()[:2] == [0, 2]

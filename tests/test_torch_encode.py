@@ -117,16 +117,19 @@ def test_lower_matches_reference(which):
     for name in TB.DeviceProblem._fields:
         if name not in TB.LIST_FIELDS:
             assert_same_value(name, jf[name], getattr(tdp, name))
-    # the port's own per-pod column lists: each row's set columns, ascending
+    # the port's own per-pod column and term-group lists: each row's set
+    # columns (each pod's matching groups), ascending
     lists = TB.volume_lists(jf["pod_ports"], jf["pod_restr"], jf["pod_csi"], jf["csi_drv_oh"])
+    lists.update(TB.term_lists(jf["term_match"]))
     for name in TB.LIST_FIELDS:
         assert np.array_equal(getattr(tdp, name).numpy(), lists[name]), name
-    for mask, name in ((jf["pod_ports"], "port_cols"), (jf["pod_restr"], "restr_cols"), (jf["pod_csi"], "csi_cols")):
+    for mask, name in ((jf["pod_ports"], "port_cols"), (jf["pod_restr"], "restr_cols"), (jf["pod_csi"], "csi_cols"),
+                       (np.asarray(jf["term_match"]).T, "ip_match_g")):
         for i in range(mask.shape[0]):
             row = lists[name][i]
             assert row[row >= 0].tolist() == np.nonzero(mask[i])[0].tolist(), (name, i)
     if which == "storage":
-        assert all(lists[n].max() >= 0 for n in TB.LIST_FIELDS)
+        assert all(lists[n].max() >= 0 for n in ("port_cols", "restr_cols", "csi_cols", "csi_drv"))
     # every port field is a JAX field; the JAX-only ones are the on-device
     # expansion placeholders, the traced weight vector and the one-hot key
     # expansion (the port gathers through node_domain and gdom instead)

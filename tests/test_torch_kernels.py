@@ -102,6 +102,22 @@ def _search_args(U, N, V, R, PDB, S, dt, device, seed=0):
     )
 
 
+@pytest.mark.parametrize("N,lanes,C", [
+    (160, 3, 1),      # cfg6-autoscale's first estimate: one tile, one block a lane
+    (1024, 16, 2),    # the autoscale burst
+    (1280, 16, 3),    # cfg10-tune-10k's population
+    (1280, 1, 3),     # the grad tuner's one-lane evaluation
+    (4096, 16, 8),    # 3 585 nodes padded: eight tiles, at most 8 blocks a cluster
+    (40960, 1, 8),
+    (4096, 40, 3),    # 132 SMs shared by 40 lanes
+    (1280, 100, 1),
+])
+def test_cluster_width_is_a_function_of_the_shape(N, lanes, C):
+    """C = min(8, ceil(N / 512), max(1, 132 // lanes)) at the lane paths'
+    shapes."""
+    assert TK.cluster_width(N, lanes) == C
+
+
 def test_build_flags_keep_ieee_arithmetic():
     flags = " ".join(TK.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "--fmad=false" in flags
@@ -514,6 +530,91 @@ def test_lane_scan_matches_plain_version_and_one_lane_scans_on_the_card(topo):
                         "final_ip_sel", "final_ip_own", "final_ip_anti"):
                 assert torch.equal(k_out[key][g], one[key]), (dt, topo, g, key)
         assert (k_out["selected"][4] < 0).all() and (k_out["selected"][3] >= 0).any()
+
+
+# (cluster width, nodes, lanes, pods, sample_k, start0, zones, topology): the
+# lane scan in clusters of 1, 2, 3 and 8 blocks, the rotation start past the
+# first tiles; with spread constraints and inter-pod terms (a barrier after
+# each commit), or without them (the next pod's owner commits); the last in
+# 650 zones, so PodTopologySpread's domain sums live in the lane's global
+# scratch instead of rank 0's shared memory
+CLUSTER_CASES = [
+    (1, 300, 4, 24, 120, 211, None, True),
+    (2, 900, 4, 24, 400, 777, None, True),
+    (3, 1300, 5, 24, 700, 1111, None, True),
+    (8, 3585, 16, 12, 2500, 3001, None, True),
+    (2, 900, 4, 24, 400, 777, None, False),
+    (3, 1300, 5, 24, 700, 1111, None, False),
+    (8, 3585, 16, 12, 2500, 3001, None, False),
+    (3, 1300, 3, 16, 900, 5, lambda i: f"zone-{i // 2}", True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,n_nodes,lanes,n_pods,sample_k,start0,zones,topo", CLUSTER_CASES)
+def test_lane_scans_in_clusters_match_plain_versions_on_the_card(
+    C, n_nodes, lanes, n_pods, sample_k, start0, zones, topo,
+):
+    """K9 (weight lanes, first tie) and K8 (node-mask lanes, reservoir with
+    the topology plugins, first tie without) launched as one thread-block
+    cluster of C blocks a lane, against their plain versions, bitwise, in
+    both dtypes; with ``topo``, spread constraints on every 3rd pod and
+    inter-pod terms on every pod (pods matching one and two term groups); a
+    rotated start."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    rng = np.random.default_rng(C + n_nodes)
+    for dt in (torch.float32, torch.float64):
+        pr, dp, dims = _problem(dt, "cuda", n_pods=n_pods, n_nodes=n_nodes, topo=topo, zone_of=zones)
+        dp = dp._replace(sample_k=sample_k, start0=start0, tb_base=4294967290)
+        assert TK.cluster_width(dims["N"], lanes) == C
+        assert int((dp.ip_match_g >= 0).sum(dim=1).max()) >= (2 if topo else 0)
+        if zones is not None:
+            assert not TK.domain_layout(dims, dt)[1]
+        cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=TOPO_SCORES if topo else SCORES, tie_break="first")
+        W = torch.as_tensor(rng.uniform(0.0, 3.0, size=(lanes, len(cfg.scores)))).to(device="cuda", dtype=dt)
+        TK.reset_counts()
+        assert_outputs_equal(TK.scan_population(cfg, dims, dp, W),
+                             TB.scan_lanes_plain(cfg, dims, dp, weights=W), ("K9", C, dt))
+        masks = rng.random((lanes, dims["N"])) < 0.7
+        masks[0] = True
+        masks[:, pr.N_true:] = False  # the shape padding
+        lane = torch.from_numpy(masks).to("cuda")
+        rcfg = cfg._replace(tie_break="reservoir" if topo else "first", seed=7)
+        assert_outputs_equal(TK.scan_lanes(rcfg, dims, dp, lane),
+                             TB.scan_lanes_plain(rcfg, dims, dp, lane), ("K8", C, dt))
+        assert TK.LAUNCHES["scan_population"] == TK.LAUNCHES["scan_lanes"] == 1
+
+
+@pytest.mark.gpu
+def test_scatter_kernel_on_unaligned_rows_on_the_card():
+    """K4's word follows the row width and both base addresses: row views
+    starting one element in (odd addresses for 1- and 2-byte planes), rows
+    of 3 and 5 bytes, repeated indices; bitwise the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator().manual_seed(9)
+    for dt in (torch.int8, torch.int16, torch.float32, torch.float64):
+        for shape in ((64,), (64, 3), (64, 5)):
+            base = torch.randint(0, 100, shape, generator=gen).to(dt)
+            idx = torch.tensor([7, 0, 63, 7, 7], dtype=torch.int32)
+            pool = torch.randint(0, 100, (6,) + shape[1:], generator=gen).to(dt)
+            pool[4:] = pool[1]
+            rows = pool[1:]  # a view one row in: not 8-byte aligned unless a row is
+            want = TB.scatter_rows_plain(base.clone(), idx, rows.clone())
+            dev_pool = pool.cuda()
+            got = TK.scatter_rows(base.cuda(), idx.cuda(), dev_pool[1:])
+            assert torch.equal(got.cpu(), want), (dt, shape)
+    # rows or indices that do not fit the plane are refused before a launch
+    plane = torch.zeros(64, 3, device="cuda")
+    for idx, rows in ((torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4)),
+                      (torch.zeros(3, dtype=torch.int32), torch.zeros(2, 3)),
+                      (torch.zeros(2, 1, dtype=torch.int32), torch.zeros(2, 3)),
+                      (torch.zeros(2, dtype=torch.int32), torch.zeros(2, 3, 1))):
+        with pytest.raises(ValueError, match="do not fit"):
+            TK.scatter_rows(plane, idx.cuda(), rows.cuda())
 
 
 def _tune_session(family: str, dt, device, n_nodes=40, n_pods=240):
