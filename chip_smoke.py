@@ -93,9 +93,12 @@ line):
 1. the card's name and power limit (nvidia-smi), then the kernel build
    (nvcc, sm_90a, both sources in parallel);
 2. kernel against plain version on the card, bitwise (digests of every
-   output against a worker's plain run) in float32 and float64, with the trace on: the scan (score planes compacted
-   in the step wherever a round would compact them) and the compaction of
-   its planes at every workload; where the step compacts, the compacted
+   output against a worker's plain run) in float32 and float64, with the
+   trace on: the scan (one thread-block cluster of ``cluster_width(N, 1)``
+   blocks; score planes compacted in the step wherever a round would
+   compact them) and the compaction of its planes at every workload; in
+   float32, the redundant chains (the earlier design, one block per SM)
+   bitwise equal to the cluster at every workload and timed beside it; where the step compacts, the compacted
    planes against the same kernel's full planes gathered at the ascending
    sampled ids, and the two blobs; at cfg5-vol, the first failures of each
    filter (NodePorts, VolumeRestrictions, NodeVolumeLimits, VolumeBinding
@@ -116,11 +119,13 @@ line):
    the rows with repeated indices; timed beside its plain version and
    ``index_copy_`` (kernel, plain, library, kernel; 200 calls each), each
    with its CUDA-event µs and its host µs a call over the same calls;
-7. the windowed scan (K2w): at cfg4's and cfg5-vol's full shapes, the
-   kernel run in windows of 256 chained on the card equals the one-launch
-   kernel bitwise (packed outputs, trace planes and compaction blobs window
-   by window, the whole final carry), in both dtypes, timed against it; at
-   cfg5-churn's wave shape, one window against the windowed plain version;
+7. the windowed scan (K2w, a cluster as every one-lane scan): at cfg4's
+   and cfg5-vol's full shapes, the kernel run in windows of 256 chained on
+   the card equals the one-launch kernel bitwise (packed outputs, trace
+   planes and compaction blobs window by window, the whole final carry), in
+   both dtypes, timed against it; at cfg5-churn's wave shape, one window
+   against the windowed plain version and the redundant chains, timed
+   beside them;
 8. cfg5-churn end to end on the card, float32 (2 of 5 waves): per wave
    the wall, encode, blocked and estimated device time, commit, windows,
    launches (counts reset just before each wave), the placer's decisions
@@ -204,26 +209,31 @@ line):
    problem (625 term groups), each on generation 0's population of
    ``run_cem`` (seed 11, 16 lanes), in float32 and float64: each lane
    bitwise equal to the one-lane scan (K2, one block) under that lane's
-   weights (packed outputs and final carry), so the cluster path against
-   the block path; the lane with the most fractional weights bitwise equal
+   weights (packed outputs and final carry), launched explicitly as the
+   redundant chains with one block: the cluster path against the block
+   path; the lane with the most fractional weights bitwise equal
    to ``scan_plain``; the objective kernel (values on every lane,
    cotangents of every lane) bitwise equal to its plain version for the
    three objectives; K9 and its objective timed over 20 launches at each
    problem, the plain scan once; the cluster width C and the term-group
    list width KM printed (K8's too, in 20);
-24. K2g at the same problem under the lane with the most fractional
-   weights, tau 50: fragmentation in float32 and utilization in float64
-   against ``grad_plain`` (a worker's) within K2G_TOL of the
-   gradient's norm (printed with the error), the launch's final carry
-   bitwise the hard rollout's; pending_age exactly 0; timed over 20
-   launches;
+24. K2g (the grad forward, a cluster of ``cluster_width(N, 1)`` blocks
+   folding the residual M, then the contraction) at the same problem under
+   the lane with the most fractional weights, tau 50: fragmentation in
+   float32 and utilization in float64 against ``grad_plain`` (a worker's)
+   within K2G_TOL of the gradient's norm (printed with the error), the
+   launch's final carry bitwise the hard rollout's; pending_age exactly 0;
+   timed over 20 launches, and apart: the grad forward against the hard
+   forward (one lane of K9), the contraction against its plain version
+   (bitwise) and ``torch.einsum``;
 25. cfg10-tune-10k end to end, float32, the three rows through a default
    service on the card: wall, rollouts, dispatches, grad dispatches,
    launches (counts reset just before each row), default and tuned
    objectives, improvement, exactness headroom and the population's carry
-   bytes; it fails on K9 launches other than the dispatches, K2g launches
-   other than the grad dispatches, a promotion, or a tuned objective below
-   the default;
+   bytes; it fails on K9 launches other than the evaluate and population
+   dispatches (dispatches less grad dispatches), grad forwards (K2g) or
+   contractions other than the grad dispatches, a promotion, or a tuned
+   objective below the default;
 26. CUDA float64 against CPU float64 (a worker process) at the bench's
    12 x 96: the three ``run_tuning`` reports (CEM bitwise, grad within
    1e-9); the zero-drift rounds (the bench's imbalance workload through the
@@ -240,8 +250,10 @@ cfg7-preempt-5k, launched by its round; the window verdict at cfg8-gang's
 first dispatch, launched by the gang waves; the feasibility scan at the
 preview's first group, launched by group_preview; the lane scan at
 cfg6-autoscale's first estimate dispatch, launched by its loop; the
-population scan K9 with its objective at phase 23's two shapes and the grad
-scan K2g at phase 24's, launched by phase 25's rows), and as the last line
+population scan K9 with its objective at phase 23's two shapes, the grad
+scan K2g and its contraction at phase 24's, launched by phase 25's rows;
+the scan's cluster width and the redundant chains' time beside it), and as
+the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
 """
@@ -366,7 +378,7 @@ DEVICE = "cuda"
 # what one BatchEngine round launches
 ROUND_LAUNCHES = {
     "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
-    "scan_population": 0, "objective": 0, "scan_grad": 0,
+    "scan_population": 0, "objective": 0, "scan_grad": 0, "grad_contract": 0,
 }
 # cfg10-tune-10k (workloads.TUNE: the JAX bench's tune report at 1 250 nodes
 # x 10 000 pods, seed 11, steps 8, pop 16, tau 50, lr 1) and the bench's own
@@ -376,8 +388,9 @@ ROUND_LAUNCHES = {
 TUNE_PARITY = dict(n_nodes=12, n_pods=96)
 TUNE_SERVICE = dict(n_nodes=10, n_pods=80, seed=3)
 TUNE_FLOAT_WEIGHTS = [1.37, 2.05, 0.62, 2.5, 1.75, 0.9, 1.12]
-# K2g against grad_plain: ||dg|| <= tol * ||g|| (the block's sums run in
-# another order than the plain version's)
+# K2g against grad_plain: ||dg|| <= tol * ||g|| (the grad forward folds M in
+# the cluster's order and over pods before F; the plain version sums each
+# pod's terms with F)
 K2G_TOL = {"float64": 1e-10, "float32": 1e-4}
 
 
@@ -1509,7 +1522,7 @@ def autoscale_phases(dev, cpu_autoscale_ref) -> dict:
             d = dp_as(dp, dt)
             kb = K.scan_lanes(cfg, dims, d, lane)
             for g in range(G):
-                one = K.scan(cfg, dims, d._replace(node_active=lane[g].contiguous()))
+                one = K.scan(cfg, dims, d._replace(node_active=lane[g].contiguous()), blocks=1)
                 for k, v in one.items():
                     if k != "final_carry":
                         k8_err = max(k8_err, same(f"K8 burst lane {g} {k} {dt}", kb[k][g], v))
@@ -1637,6 +1650,13 @@ def grad_counts(cfg, dims, dp, w, F, out) -> dict:
             "ops": c["ops"] + 2 * (S + 3) * cells}
 
 
+def contract_counts(M, F) -> dict:
+    """Bytes and operations of K2g's contraction: M and F read once, dw
+    written once; a multiply and an add a term of M."""
+    return {"bytes": M.numel() * M.element_size() + F.numel() * F.element_size() + M.shape[1] * 8,
+            "ops": 2 * M.numel()}
+
+
 def capture_population(capture: list):
     """Wrap tuning.tuner.TuningSession.evaluate_population: each call's
     weight matrix is appended to ``capture``.  Returns the unwrapper."""
@@ -1698,7 +1718,7 @@ def k9_checks(dev, sessions, W, gp, frac, family, obj, plain_refs) -> dict:
         Wt = torch.as_tensor(W).to(device=dev, dtype=dt)
         kout = K.scan_population(s.cfg, s.dims, s.dp, Wt)
         for g in range(L):
-            one = K.scan(s.cfg, s.dims, s.dp, weights=Wt[g].contiguous())
+            one = K.scan(s.cfg, s.dims, s.dp, weights=Wt[g].contiguous(), blocks=1)
             for k, v in one.items():
                 if k == "final_carry":
                     for f, fv in v.items():
@@ -1767,6 +1787,7 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
     import torch
 
     from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import batch as B
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
     from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
     from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
@@ -1853,12 +1874,28 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
                     err=max(k9_t["err"], k9c["err"]))
         log(f"timing K9: {json.dumps(k9_t)}")
         s, w, F = k2g_args
-        k2g_ms, (_dw, kout) = cuda_ms(lambda: K.scan_grad(s.cfg, s.dims, s.dp, w, F, t["tau"]), 20, warmup=2)
+        tau = t["tau"]
+        k2g_ms, (_dw, kout) = cuda_ms(lambda: K.scan_grad(s.cfg, s.dims, s.dp, w, F, tau), 20, warmup=2)
         k2gb, k2gby = bound(grad_counts(s.cfg, s.dims, s.dp, w, F, kout), torch.float32)
+        # its two launches apart, beside the hard forward the CEM tuner runs
+        # (one lane of K9), the plain contraction and einsum on the same M
+        fwd_ms, (M, _o) = cuda_ms(lambda: K.scan_grad_forward(s.cfg, s.dims, s.dp, w, tau), 20, warmup=2)
+        hard_ms, _h = cuda_ms(lambda: K.scan_population(s.cfg, s.dims, s.dp, w[None].contiguous()), 20, warmup=2)
+        c_ms, dwc = cuda_ms(lambda: K.grad_contract(M, F, tau), 200, warmup=10)
+        cp_ms, dwp = cuda_ms(lambda: B.grad_contract_plain(M, F, tau), 20, warmup=2)
+        Fd = F.double()
+        lib_ms, _l = cuda_ms(lambda: torch.einsum("nj,jkn->k", Fd, M), 200, warmup=10)
+        c_err = same("K2g contraction vs grad_contract_plain", dwc, dwp)
+        cb, cby = bound(contract_counts(M, F), torch.float64)
+        C = K.cluster_width(s.dims["N"], 1)
         k2g_t = dict(ms=k2g_ms, plain_ms=k2g_plain_ms, bound_ms=k2gb, bound_by=k2gby, err=k2g_err,
+                     forward_ms=fwd_ms, hard_forward_ms=hard_ms, cluster=C,
+                     contract=dict(ms=c_ms, plain_ms=cp_ms, library_ms=lib_ms, bound_ms=cb, bound_by=cby, err=c_err,
+                                   shape=f"M [2, {M.shape[1]}, {M.shape[2]}] float64, F [{M.shape[2]}, 2] float32"),
                      shape=f"{shape.replace('L=16', 'one lane')}, fragmentation, lane {gp}'s weights")
-        log(f"timing K2g: {json.dumps(k2g_t)}")
-        del kout, sessions, families, csess, grad_cases, s32, s
+        log(f"timing K2g (grad forward {fwd_ms:.3f} ms at C={C} against the hard forward {hard_ms:.3f} ms: "
+            f"{100 * (fwd_ms / hard_ms - 1):+.1f} %; contraction {c_ms * 1e3:.2f} us): {json.dumps(k2g_t)}")
+        del kout, M, _o, _h, sessions, families, csess, grad_cases, s32, s
         torch.cuda.empty_cache()
 
     with Phase(f"25. cfg10-tune-10k {size}: run_tuning on the card, float32, the bench's three rows"):
@@ -1867,14 +1904,14 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
         seen: list = []
         note = svc.note_tuning_run
         svc.note_tuning_run = lambda session, report: (seen.append(session), note(session, report))
-        launches = {"scan_population": 0, "scan_grad": 0}
+        launches = {"scan_population": 0, "scan_grad": 0, "grad_contract": 0}
         for family, tuner in workloads.TUNE_ROWS:
             K.reset_counts()
             t0 = time.perf_counter()
             rep = TT.run_tuning(family=family, tuner=tuner, seed=t["seed"], steps=t["steps"], pop=t["pop"],
                                 tau=t["tau"], lr=t["lr"], svc=svc, **size)
             wall = time.perf_counter() - t0
-            got = {k: K.LAUNCHES[k] for k in ("scan_population", "objective", "scan_grad")}
+            got = {k: K.LAUNCHES[k] for k in ("scan_population", "objective", "scan_grad", "grad_contract")}
             sess = seen[-1]
             rec = {k: rep[k] for k in ("defaultObjective", "tunedObjective", "improvement", "rollouts", "dispatches",
                                        "gradDispatches", "weights", "kernelPlatform")}
@@ -1882,11 +1919,15 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
                 f"dtype {str(sess.dp.alloc.dtype).split('.')[-1]}, exactness {json.dumps(headroom(sess.bound))}, "
                 f"population carries (bytes) {json.dumps(carry_bytes(sess.cfg, sess.dims, sess.dp, sess.dp.alloc.dtype, t['pop']))}, "
                 f"history {json.dumps(rep['history'])}")
+            # an evaluate or population call launches K9, a value-and-grad
+            # call the grad forward (K2g) and the contraction
             problems = []
-            if got["scan_population"] != rep["dispatches"]:
-                problems.append(f"K9 launches {got['scan_population']} != dispatches {rep['dispatches']}")
-            if got["scan_grad"] != rep["gradDispatches"]:
-                problems.append(f"K2g launches {got['scan_grad']} != grad dispatches {rep['gradDispatches']}")
+            if got["scan_population"] != rep["dispatches"] - rep["gradDispatches"]:
+                problems.append(f"K9 launches {got['scan_population']} != dispatches {rep['dispatches']} - grad "
+                                f"dispatches {rep['gradDispatches']}")
+            if got["scan_grad"] != rep["gradDispatches"] or got["grad_contract"] != rep["gradDispatches"]:
+                problems.append(f"K2g launches {got['scan_grad']} and contractions {got['grad_contract']} != grad "
+                                f"dispatches {rep['gradDispatches']}")
             if sess.promotion is not None:
                 problems.append(f"promoted: {sess.promotion}")
             if rep["tunedObjective"] < rep["defaultObjective"]:
@@ -1899,7 +1940,10 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
                 launches[k] += got[k]
             if family == "consolidate":
                 k9_t["consolidate_launches"] = got["scan_population"]
+            if tuner == "grad":
+                k2g_t["grad_row_wall_s"] = wall
         k9_t["launches"], k2g_t["launches"] = launches["scan_population"], launches["scan_grad"]
+        k2g_t["contract"]["launches"] = launches["grad_contract"]
         log(f"service counters: runs {svc.stats['tuning_runs']}, rollouts {svc.stats['tuning_rollouts']}, "
             f"grad dispatches {svc.stats['tuning_grad_dispatches']}, objectives {svc.stats['tuning_objective']}")
         del seen, svc
@@ -2239,13 +2283,21 @@ def main() -> int:
                     f"DR={dims['DR']} CLOUD={dims['CLOUD']} lists KPT/KVR/KV/KM="
                     f"{dp.port_cols.shape[1]}/{dp.restr_cols.shape[1]}/{dp.csi_cols.shape[1]}/"
                     f"{dp.ip_match_g.shape[1]} gates {B.plugin_gates(cfg, dims)}")
-                log(f"per-block carries (bytes): {json.dumps(carry_bytes(cfg, dims, dp, dt, min(dims['P'], sms)))}")
+                C = K.cluster_width(dims["N"], 1)
+                log(f"one cluster of C={C} blocks; the lane's carries (bytes): "
+                    f"{json.dumps(carry_bytes(cfg, dims, dp, dt, 1))}")
                 kout = K.scan(cfg, dims, dp, ws0=ws0)
                 torch.cuda.synchronize()
+                kdig = out_digests(kout)
+                if dt == torch.float32:
+                    # the redundant chains (the earlier design), bitwise the cluster
+                    bdig = out_digests(K.scan(cfg, dims, dp, ws0=ws0, blocks=sms))
+                    same_digests(f"{name}: the redundant chains ({sms} blocks) vs the cluster", bdig, kdig)
+                    log(f"the redundant chains ({sms} blocks) bitwise equal to the cluster ({len(kdig)} outputs)")
                 t0 = time.perf_counter()
                 plain_ms, pdig = plain_refs.pop((name, dt)).get()
                 log(f"plain version (worker process) waited for {time.perf_counter() - t0:.2f} s")
-                err = same_digests("scan", out_digests(kout), pdig)
+                err = same_digests("scan", kdig, pdig)
                 fail = kout["fail_plug"][: pr.P_true]
                 codes = {
                     f: sorted(set(kout["fail_code"][: pr.P_true][fail == k].unique().tolist()))
@@ -2304,12 +2356,18 @@ def main() -> int:
             # must not pay for clocks or the allocator settling
             big = WORKLOADS[name].pods >= 10000
             ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp, ws0=ws0), *((2, 1) if big else (20, 10)))
+            # the redundant chains beside it, float32 only (one launch at full size)
+            blocks_ms = None
+            if dt == torch.float32:
+                blocks_ms, _bo = cuda_ms(lambda: K.scan(cfg, dims, dp, ws0=ws0, blocks=sms), *((1, 0) if big else (5, 2)))
+                del _bo
             cms, _kb = cuda_ms(lambda: K.compact(cfg, dims, W, WS, manifest, kout, n_true, ws0), 20)
             cplain_ms, _pb = cuda_ms(lambda: B.compact_plain(cfg, dims, W, WS, manifest, kout, n_true, ws0), 3)
             sb, sby = bound(scan_counts(cfg, dims, dp, kout), dt)
             cb, cby = bound(compact_counts(kout, manifest, W, WS, n_true), dt)
             timing[(name, dt)] = t = dict(
-                scan_ms=ms, scan_plain_ms=t["scan_plain_ms"], scan_err=t["scan_err"], scan_bound_ms=sb,
+                scan_ms=ms, scan_blocks_ms=blocks_ms, cluster=K.cluster_width(dims["N"], 1),
+                scan_plain_ms=t["scan_plain_ms"], scan_err=t["scan_err"], scan_bound_ms=sb,
                 scan_bound_by=sby, compact_ms=cms, compact_plain_ms=cplain_ms, compact_err=t["compact_err"],
                 compact_bound_ms=cb, compact_bound_by=cby,
             )
@@ -2577,6 +2635,10 @@ def main() -> int:
         sw_ms, kout = cuda_ms(lambda: K.scan(cfg, dims, dp, **kw), 20, warmup=3)
         sw_plain_ms, pout = cuda_ms(lambda: B.scan_plain(cfg, dims, dp, **kw), 1, warmup=0)
         sw_err = same_outputs("window 1", kout, pout)
+        # the redundant chains beside the cluster, bitwise
+        swb_ms, bout = cuda_ms(lambda: K.scan(cfg, dims, dp, blocks=sms, **kw), 5, warmup=1)
+        same_outputs("window 1, the redundant chains vs the cluster", bout, kout)
+        del bout
         wsb, wsby = bound(scan_counts(cfg, wdims, B.slice_pod_window(dp, WINDOW, WINDOW), kout), torch.float32)
         packed = kout["packed_pod"].cpu().numpy()
         W = min(dims["N"], E._bucket(max(int(packed[3].max()), 1)))
@@ -2588,7 +2650,8 @@ def main() -> int:
         wc_plain_ms, pb = cuda_ms(lambda: B.compact_plain(cfg, wdims, W, WS, wman, kout, churn_pr.N_true, ws0), 3)
         wc_err = same("window compaction blob", kb, pb)
         wcb, wcby = bound(compact_counts(kout, wman, W, WS, churn_pr.N_true), torch.float32)
-        churn_t = dict(scan_window_ms=sw_ms, scan_window_plain_ms=sw_plain_ms, scan_window_err=sw_err,
+        churn_t = dict(scan_window_ms=sw_ms, scan_window_blocks_ms=swb_ms, cluster=K.cluster_width(dims["N"], 1),
+                       scan_window_plain_ms=sw_plain_ms, scan_window_err=sw_err,
                        scan_window_bound_ms=wsb, scan_window_bound_by=wsby, compact_ms=wc_ms,
                        compact_plain_ms=wc_plain_ms, compact_err=wc_err, compact_bound_ms=wcb, compact_bound_by=wcby)
         log(f"window 1 of P={dims['P']} N={dims['N']} ws0={ws0} W={W} WS={WS}: kernel equals the windowed plain "
@@ -2645,8 +2708,12 @@ def main() -> int:
             "bound_ms": main["scan_bound_ms"],
             "bound_by": main["scan_bound_by"],
             "library_ms": None,
-            "paced_by": "sequential dependency chain over the pod queue",
+            "paced_by": f"sequential dependency chain over the pod queue, one cluster of {main['cluster']} blocks",
             "shape": f"{ref}, one launch (its round)",
+            "cluster": main["cluster"],
+            "blocks_ms": main["scan_blocks_ms"],
+            "by_workload": {n: {k: timing[(n, torch.float32)][k] for k in ("scan_ms", "scan_blocks_ms", "cluster",
+                                                                             "scan_bound_ms")} for n in WORKLOADS},
         },
         {
             "name": "scan_window",
@@ -2660,8 +2727,10 @@ def main() -> int:
             "bound_ms": churn_t["scan_window_bound_ms"],
             "bound_by": churn_t["scan_window_bound_by"],
             "library_ms": None,
-            "paced_by": "sequential dependency chain over the pod queue",
+            "paced_by": f"sequential dependency chain over the pod queue, one cluster of {churn_t['cluster']} blocks",
             "shape": churn_shape,
+            "cluster": churn_t["cluster"],
+            "blocks_ms": churn_t["scan_window_blocks_ms"],
         },
         {
             "name": "compact",
@@ -2796,8 +2865,28 @@ def main() -> int:
             "bound_ms": k2g_t["bound_ms"],
             "bound_by": k2g_t["bound_by"],
             "library_ms": None,
-            "paced_by": "sequential dependency chain over the pod queue, 3 + S block reductions a committed pod",
+            "paced_by": (f"sequential dependency chain over the pod queue, one cluster of {k2g_t['cluster']} blocks; "
+                         f"the softmax sums ride the selection's exchange"),
             "shape": k2g_t["shape"],
+            "cluster": k2g_t["cluster"],
+            "forward_ms": k2g_t["forward_ms"],
+            "hard_forward_ms": k2g_t["hard_forward_ms"],
+            "grad_row_wall_s": k2g_t["grad_row_wall_s"],
+        },
+        {
+            "name": "grad_contract",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/tune.cu",
+            "replaces": "kube_scheduler_simulator_tpu/tuning/relax.py:63",
+            "launches": k2g_t["contract"]["launches"],
+            "max_abs_err": k2g_t["contract"]["err"],
+            "ms": k2g_t["contract"]["ms"],
+            "plain_ms": k2g_t["contract"]["plain_ms"],
+            "bound_ms": k2g_t["contract"]["bound_ms"],
+            "bound_by": k2g_t["contract"]["bound_by"],
+            "library_ms": k2g_t["contract"]["library_ms"],
+            "library_call": "torch.einsum('nj,jkn->k', F, M) (without the division by tau)",
+            "shape": k2g_t["contract"]["shape"],
         },
     ]
     for k in kernels:

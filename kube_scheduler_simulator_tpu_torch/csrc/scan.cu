@@ -34,16 +34,19 @@
 // trips of the carry) sets the pace, far above both the bytes it must move
 // (the [P,N] trace planes) and its operations.
 //
-// Design: every block runs the full pod loop on its own copy of the carry
-// (deterministic, identical arithmetic in every block, no atomics, one
-// writer per node at the commit), and the blocks split only the output
-// rows: block b writes the trace planes of pods i with i % gridDim.x == b.
-// So the chain runs at one block's speed while the trace writes, the bulk
-// of the bytes, spread over every SM.  On an H100 at 10 000 pods x 5 000
-// nodes, one block writing every row took 11 % longer in float32 and 8 %
-// in float64 (time_scan.py launches this kernel with one block).  Nodes are visited in rotation order
-// (rank r -> node (start + r) % n_true, padding columns after), so the
-// rotated prefix sum is a plain running block scan.
+// Design: one thread-block cluster of C = kernels.cluster_width(N, lanes)
+// blocks walks a lane's pod chain (Clusters, below): block k of the cluster
+// walks rank tiles k, k + C, ... of the visit order (rank r -> node (start
+// + r) % n_true, padding columns after), so each pod's passes over the N
+// nodes are split C ways.  With the trace on, each block writes the trace
+// columns of its own rank tiles for every pod (failure codes, reasons, the
+// sampled mask, the raw and normalized score planes); the pod's packed row
+// is written once, by the committing block.  A cluster of one block runs
+// the same code without DSMEM or cluster barriers.  The earlier design,
+// every block running the full pod loop on its own copy of the carry and
+// writing the trace rows of pods i with i % gridDim.x == b (MODE_BLOCKS,
+// csrc/scan.cu built alone), stays for comparisons only: time_scan.py
+// times the two, chip_smoke.py holds them bitwise equal.
 //
 // Passes per pod: (0) PodTopologySpread's per-domain sums, each constraint's
 // minimum over domains and InterPodAffinity's required-affinity total, when
@@ -53,20 +56,19 @@
 // (1b) PodTopologySpread's raw score and its extrema, when the pod has score
 // constraints; (2) scores and weighted totals; (3) selection; the commit.
 // Domain sums of a key with few domains live in shared memory, the rest in
-// per-block global scratch; identity keys (one domain per node, such as the
+// global scratch; identity keys (one domain per node, such as the
 // hostname) need none: their minimum is a block reduction over nodes.
 //
-// Carries: each block keeps its own copy of spread_counts [SG,N] and of
-// ip_sel, ip_own, ip_anti [G,D+1] (column D is the reference's sink for a
-// node without the key: never read, but committed as the reference does,
-// so the final carry a window hands on equals the reference's).  At the
-// cfg4 workload (10 000 pods x 5 000 nodes, chip_smoke.py prints the sizes)
-// these copies take SG*N + 3*G*(D+1) values per block, times 132 blocks.
-// The volume carries are kept column-major, so neighbouring threads read
-// neighbouring nodes: ports_used [PT,N], restr_used [VR,N], cloud_used
-// [3,N] in the working dtype, the CSI attachment bits [V,N] as bytes (they
-// are 0 or 1), and beside them the count of attached ids per (driver,
-// node) [DR,N], which the commit raises by the pod's newly attached ids.
+// Carries: spread_counts [SG,N] and ip_sel, ip_own, ip_anti [G,D+1] (column
+// D is the reference's sink for a node without the key: never read, but
+// committed as the reference does, so the final carry a window hands on
+// equals the reference's), one copy a lane in global scratch (one a block
+// of the redundant chains).  The volume carries are kept column-major, so
+// neighbouring threads read neighbouring nodes: ports_used [PT,N],
+// restr_used [VR,N], cloud_used [3,N] in the working dtype, the CSI
+// attachment bits [V,N] as bytes (they are 0 or 1), and beside them the
+// count of attached ids per (driver, node) [DR,N], which the commit (the
+// owner of the node's rank tile) raises by the pod's newly attached ids.
 // So NodeVolumeLimits reads the pod's few ids and one count per driver, not
 // the reference's whole [N,V] product: exact, since every count is an
 // integer.
@@ -76,52 +78,54 @@
 // the sampled ones in visit order is its running count c - 1; with c_hi the
 // number of sampled nodes of id >= start (visited first) and n_s the number
 // sampled, its rank in ascending node id is (n_s - c_hi) + c - 1 for
-// id >= start and c - 1 - c_hi below.
+// id >= start and c - 1 - c_hi below.  In a cluster, c is the tiles'
+// exclusive scan plus the count within the tile, and c_hi (each block's
+// largest c below rank n_true - start) travels in the same DSMEM exchange
+// as the k-th feasible rank, so it adds no barrier; the zero columns past
+// n_s are written by the blocks in stretches of THREADS.
 //
 // Lanes (K8, replacing the JAX package's autoscaler/estimator.py:186
 // ScaleUpEstimator._estimate_kernel, which runs this scan vmapped over a
 // [G,N] node_active mask, one lane a node group): blockIdx.y is the lane.
-// Block (b, g) runs the whole pod loop of lane g on its own copy of the
-// carry, read from the shared initial carry (the estimator's template rows
-// carry no bound pods), with its own lane's mask row node_active[g] (lane
-// stride N), and writes its lane's slices of packed_pod and of every final
-// carry (lane strides 5*P, N*R, N*2, N, ...).  Per-block scratch sits in
-// slot g * gridDim.x + b.  So G lanes take G SMs in one launch, each paced
-// by the per-pod chain as a one-lane scan is; a one-lane launch (G = 1) is
-// the scan as it was.  That is the lane launch at C = 1; with C > 1 a lane
-// is a cluster of C blocks (Clusters, below).  Lane launches run with the trace off: the trace
-// planes and their meta have no lane stride, and launch() refuses them.
+// The cluster (b, g) runs the whole pod loop of lane g on its lane's copy of
+// the carry, read from the shared initial carry (the estimator's template
+// rows carry no bound pods), with its own lane's mask row node_active[g]
+// (lane stride N), and writes its lane's slices of packed_pod and of every
+// final carry (lane strides 5*P, N*R, N*2, N, ...).  Lane launches run with
+// the trace off: the trace planes and their meta have no lane stride, and
+// launch() refuses them.
 //
-// Clusters (K9 and K8 since the lane scan was redesigned for Hopper, replacing
-// one block a lane): a lane launch with C > 1 runs each lane on one
-// thread-block cluster of C blocks, grid (C, lanes), cluster dims (C, 1, 1).
-// C = min(8, node tiles, 132 / lanes) is a function of the shape
-// (kernels.cluster_width).  Block k of a lane's cluster walks rank tiles k,
-// k + C, ... of the visit order, so a pod's chain is split C ways and the
-// rotated prefix sum stays a plain scan: each block scans its tiles, the
-// tiles' feasible counts are exclusive-scanned across the cluster through
-// distributed shared memory (DSMEM), and every block then samples its nodes
-// with the cluster-wide count.  The other per-pod reductions (the k-th
-// feasible rank, the score extrema, PodTopologySpread's minima over nodes,
-// the selection's best total and rank) are combined through DSMEM slots in
+// Clusters (every launch since the one-lane scan was redesigned for Hopper;
+// K9 and K8 first): a launch runs each lane on one thread-block cluster of
+// C blocks, grid (C, lanes), cluster dims (C, 1, 1).  C = min(8, node
+// tiles, 132 / lanes), and 1 where a lane has at most two tiles, is a
+// function of the shape (kernels.cluster_width).  The rotated prefix sum
+// stays a plain scan: each block scans its tiles, the tiles' feasible
+// counts are exclusive-scanned across the cluster through distributed
+// shared memory (DSMEM), and every block then samples its nodes with the
+// cluster-wide count.  The other per-pod reductions (the k-th feasible
+// rank, c_hi, the score extrema, PodTopologySpread's minima over nodes, the
+// selection's best total and rank) are combined through DSMEM slots in
 // fixed rank order; min and max are exact in any order.  PodTopologySpread's
 // domain sums and sampled-domain flags live once a lane, in rank 0's shared
 // memory (DSMEM atomics) or in the lane's global scratch: exact, as below.
-// The carries are one copy a lane in global scratch, not one a block: the
-// block that owns the selected node's rank tile commits it, and a cluster
-// barrier (release/acquire at cluster scope) orders those global writes
-// before the next pod reads them.  Where every carry a pod reads is a
-// per-node one (no InterPodAffinity rows, no PodTopologySpread domain sums)
-// and every block knows the selection (first tie), the block that owns the
-// node's rank in the NEXT pod commits it instead, so that barrier goes: a
-// block then reads only carries it wrote itself or that an earlier barrier
-// published.  The barriers, not the DSMEM reads, are what a cluster adds to
-// a pod's time (PERF.md), so this is three barriers a pod at the tuner's
-// imbalance problem and the autoscale burst (after the tiles' counts, after
-// sampling, after the selection), four with
-// InterPodAffinity, one more with PodTopologySpread's domain sums, one more
-// for its score extrema, and the reservoir draw two more.  The trace and the
-// grad mode never run in a cluster.
+// The carries are one copy a lane in global scratch: the block that owns
+// the selected node's rank tile commits it, and a cluster barrier
+// (release/acquire at cluster scope) orders those global writes before the
+// next pod reads them.  Where every carry a pod reads is a per-node one (no
+// InterPodAffinity rows, no PodTopologySpread domain sums) and every block
+// knows the selection (first tie), the block that owns the node's rank in
+// the NEXT pod commits it instead, so that barrier goes: a block then reads
+// only carries it wrote itself or that an earlier barrier published.  The
+// barriers, not the DSMEM reads, are what a cluster adds to a pod's time
+// (PERF.md), so this is three barriers a pod at the tuner's imbalance
+// problem (after the tiles' counts, after sampling, after the selection),
+// four with InterPodAffinity, one more with PodTopologySpread's domain sums,
+// one more for its score extrema, and the reservoir draw two more.  The
+// trace meta (each score's min and max, the largest failure code) is kept
+// by each block over its nodes and combined once, after the pod loop, in
+// rank 0's slots.  A window hands on one carry copy a lane: the next
+// window's blocks copy it in, a stretch each.
 //
 // Term groups: InterPodAffinity's filter and raw score walk the pod's own
 // list of matching term groups (ip_match_g, ascending g, built on the host
@@ -140,21 +144,40 @@
 // T on the host round as T(double) did in the kernel, so the one-lane
 // launches stayed bitwise what they were.
 //
-// Grad mode (K2g, replacing the autodiff through the JAX package's
-// straight-through head, ops/batch.py:1614-1623, tuning/relax.py:63-71):
-// one lane, one block, trace off.  The weights enter only the totals and
-// every score reaches its normalized value through floor/trunc/round, so
-// the gradient of an objective of final_nonzero is a sum over committed
-// pods that this same pod chain accumulates: after pass 2 stores each
-// node's normalized scores (s_norm [S,N]), a committed pod takes s =
-// softmax(totals / tau) over its sampled nodes (block max, sum of exp),
-// c[n] = F[n,0] pnz[0] + F[n,1] pnz[1] with F = d objective / d
-// final_nonzero, cbar = sum s c, and for each weight k adds (sum_n s (c -
-// cbar) norm_k[n]) / tau to a float64 accumulator: 3 + S block
-// reductions a pod and nothing of size [P,N,S].  The launch also writes
-// the hard rollout's final carry.  Its sums run in the block's order, not
-// the plain version's (ops/batch.grad_plain), so the two agree to a
-// stated tolerance, not bitwise; exp is the IEEE expf/exp (no fast math).
+// Grad mode (K2g's forward, replacing the autodiff through the JAX
+// package's straight-through head, ops/batch.py:1614-1623,
+// tuning/relax.py:63-71): one lane, a cluster, trace off.  The weights
+// enter only the totals and every score reaches its normalized value
+// through floor/trunc/round, so the gradient of an objective of
+// final_nonzero is a sum over committed pods i: with s_i = softmax(totals_i
+// / tau) over the sampled nodes, c_i[n] = F[n,0] pnz_i0 + F[n,1] pnz_i1 and
+// F = d objective / d final_nonzero,
+//
+//   dw_k = (1 / tau) sum_i sum_n s_i[n] (c_i[n] - sum_m s_i[m] c_i[m]) norm_ik[n].
+//
+// It is linear in F, and since sum_n s_i[n] = 1 the mean of c_i may move
+// onto the scores: with nbar_ik = sum_n s_i[n] norm_ik[n],
+//
+//   dw_k = (1 / tau) sum_{n,j} F[n,j] M[j,k,n],
+//   M[j,k,n] = sum_i pnz_ij s_i[n] (norm_ik[n] - nbar_ik),
+//
+// exact in math.  M [2,S,N] (float64, global memory) does not depend on F,
+// so this launch folds it over the pod chain as it runs the hard rollout,
+// and the backward (csrc/tune.cu's contraction) reads it with F: no second
+// pass over the chain.  Per pod, each block sums e = exp(z - its max) and
+// the S sums of e norm_k over its nodes in one block tree (the max of z
+// over its sampled nodes is its best total over tau: IEEE division by tau
+// > 0 is monotone); the selection's DSMEM exchange carries them, and warp
+// 0 rescales each block's by exp(its max - the cluster's), so the grad
+// mode adds no cluster barrier.  Then, for a committed pod, the thread
+// that owns node n adds pnz_ij s[n] (norm_k[n] - nbar_k) to M[j,k,n], in
+// float64 from the working dtype's s = exp(z - max) / sum e and nbar_k =
+// sum e norm_k / sum e; the cluster barriers between pods order these
+// writes when a node's owner changes with `start`.  Its sums run in the cluster's order and M sums pods before
+// F, where the plain version (ops/batch.grad_plain) sums each pod's terms
+// with F first, so the two agree to a stated tolerance, not bitwise; exp is
+// the IEEE expf/exp (no fast math).  The launch also writes the hard
+// rollout's outputs and final carry, bitwise.
 //
 // Exactness: built with --fmad=false and without fast math; every formula
 // keeps the reference's order of operations, divisions are IEEE divisions,
@@ -179,9 +202,9 @@ constexpr int MAXFR = 4;
 constexpr int MAXSHAPE = 16;
 constexpr int MAXC = 8;    // PodTopologySpread constraints per pod, of each kind
 constexpr int MAXKU = 16;  // topology keys the constraints and terms use
-constexpr int MAXCL = 8;   // blocks of a lane's cluster (the portable cluster size)
+constexpr int MAXCL = 16;  // blocks of a lane's cluster (above 8: a non-portable size)
 constexpr int MAXT = THREADS / 2;  // rank tiles a cluster block owns (N <= THREADS tiles, C >= 2)
-enum { MODE_BLOCKS = 0, MODE_GRAD = 1, MODE_CLUSTER = 2 };
+enum { MODE_BLOCKS = 0, MODE_GRAD = 1, MODE_CLUSTER = 2, MODE_TRACE = 3 };
 
 enum {
   F_UNSCHED = 0, F_NAME = 1, F_TAINT = 2, F_AFF = 3, F_FIT = 4, F_SPREAD = 5, F_IPA = 6,
@@ -201,8 +224,8 @@ struct ScanArgs {
   int64_t lanes;  // the grid's y extent: K8's node masks or K9's weight rows
   int64_t na_stride;  // lane stride of node_active: N (K8) or 0 (one mask)
   int64_t w_stride;   // lane stride of weights: S (K9) or 0 (one row)
-  int64_t grad;       // K2g: accumulate d objective / d weights into dw
-  int64_t cluster;    // blocks of each lane's thread-block cluster; 1: none
+  int64_t grad;       // K2g's forward: fold the residual M into resid
+  int64_t cluster;    // blocks of each lane's thread-block cluster (1 in MODE_BLOCKS)
   int64_t nf, filters[MAXF];
   int64_t ns, scores[MAXS];
   int64_t fit_strategy, n_fit_res, fit_col[MAXFR];
@@ -280,8 +303,7 @@ struct ScanArgs {
   const int32_t* pod_vol_idx;  // [P]
   const void* log_table;       // [N+1] log(t + 2)
   const void* weights;         // [lanes or 1, S] score weights in the working dtype
-  const void* grad_F;          // [N,2] d objective / d final_nonzero (grad mode)
-  double* dw;                  // [S] d objective / d weights (grad mode)
+  double* resid;               // [2,S,N] K2g's residual M, float64 (grad mode)
   const void* requested0;
   const void* nonzero0;
   const void* pod_count0;
@@ -315,7 +337,6 @@ struct ScanArgs {
   uint8_t* s_csi;      // [B,V,N] attachment bits
   void* s_csi_cnt;     // [B,DR,N] attached ids per driver
   void* s_norm;        // [B,S,N] normalized scores of the current pod (grad mode)
-  void* s_soft;        // [B,N] its softmax (grad mode)
   int32_t* packed;     // [lanes,5,P]
   int32_t* final_start;  // [lanes]
   void* final_requested;
@@ -356,6 +377,30 @@ __device__ V block_reduce(V v, V identity, Op op) {
   const V out = result;
   __syncthreads();
   return out;
+}
+
+// The block's sums of v[0..m) (m <= MAXS + 1 <= the block's warps) in one
+// tree: each warp's partial sums, then warp k adds sum k's partials; out[k]
+// (shared memory) holds sum k for every thread after the call.
+template <typename V>
+__device__ void block_sums(const V (&v)[MAXS + 1], int m, V* out) {
+  __shared__ V sh[32][MAXS + 1];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k <= MAXS; ++k) {
+    if (k < m) {
+      V x = v[k];
+      for (int o = 16; o > 0; o >>= 1) x = x + __shfl_down_sync(0xffffffffu, x, o);
+      if (lane == 0) sh[w][k] = x;
+    }
+  }
+  __syncthreads();
+  if (w < m) {
+    V x = lane < nw ? sh[lane][w] : V(0);
+    for (int o = 16; o > 0; o >>= 1) x = x + __shfl_down_sync(0xffffffffu, x, o);
+    if (lane == 0) out[w] = x;
+  }
+  __syncthreads();
 }
 
 // Inclusive prefix sum over the block in thread order; *total gets the sum.
@@ -408,11 +453,18 @@ struct ClusterX {
   T lmin[MAXC];         // pass 0: minima over the block's nodes (identity keys)
   int tile_feas[MAXT];  // pass 1: feasible nodes in each of the block's rank tiles
   int tile_tied[MAXT];  // reservoir: nodes tied at the best total in each tile
-  int kth, n_fni, best_rank;
+  int kth, n_fni, c_hi, best_rank;
   T mx_taint, mx_aff, ip_mn, ip_mx, sp_mn, sp_mx, best;
-  int out_i[2];         // the cluster's values, for this block's threads
+  T g_part[MAXS + 1];   // grad mode: sum e and sum e norm_k over the block's sampled nodes
+  // trace meta: each block's score min/max and largest failure code, in
+  // rank 0's copy (written there once, after the pod loop)
+  T m_mn[MAXCL][MAXS], m_mx[MAXCL][MAXS];
+  int m_code[MAXCL];
+  int out_i[3];         // the cluster's values, for this block's threads
   T out_t[MAXC + 4];
 };
+static_assert(MAXC + 4 >= MAXS + 2, "out_t holds the best total and the grad mode's sums");
+static_assert(MAXS + 1 <= THREADS / 32, "block_sums gives each sum a warp");
 
 // warp 0's reduction of the lanes' values (one a cluster block) to lane 0
 template <typename V, typename Op>
@@ -537,30 +589,57 @@ __device__ __forceinline__ T at_node(const ScanArgs& a, const T* carry, int g, i
   return d >= 0 ? carry[(int64_t)g * (a.D + 1) + d] : T(0);
 }
 
-// dst[c * N + n] = src[n * C + c]: a row-major [N,C] carry into a
-// column-major copy (once a launch), nodes n0, n0 + step, ... of it.
+// dst[c * R + r] = src[r * C + c]: a row-major [R,C] carry into its
+// transpose (a volume carry in at a launch's start, out at its end), over
+// the source's elements j0, j0 + step, ...: the reads coalesce, the
+// scattered stores do not stall, and four loads go out before their stores.
 template <typename S, typename D>
-__device__ void load_transposed(const S* src, D* dst, int64_t N, int64_t C, int64_t n0, int64_t step) {
-  for (int64_t c = 0; c < C; ++c) {
-    for (int64_t n = n0; n < N; n += step) dst[c * N + n] = D(src[n * C + c]);
+__device__ void copy_transposed(const S* src, D* dst, int64_t R, int64_t C, int64_t j0, int64_t step) {
+  const int64_t total = R * C;
+  for (int64_t j = j0; j < total; j += 4 * step) {
+    S v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (j + u * step < total) v[u] = src[j + u * step];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int64_t jj = j + u * step;
+      if (jj < total) dst[(jj % C) * R + jj / C] = D(v[u]);
+    }
   }
 }
 
 // TOPO = false compiles PodTopologySpread's and InterPodAffinity's work out
 // (a problem without spread constraints or term groups), so that path keeps
 // the registers of a kernel without them; VOL = false does the same for the
-// host-port, conflict-volume, cloud-disk and CSI carries.  The grid has one
-// block per SM, so the bounds allow one resident block and up to 128
-// registers a thread: capped at 64, the float64 kernel spilled to local
-// memory.  MODE_GRAD compiles K2g's reductions in (grad mode), MODE_CLUSTER
-// the cluster's exchanges (a lane a cluster of gridDim.x blocks).
+// host-port, conflict-volume, cloud-disk and CSI carries.  A block takes an
+// SM, so the bounds allow one resident block and up to 128 registers a
+// thread: capped at 64, the float64 kernel spilled to local memory.
+// MODE_CLUSTER compiles the cluster's exchanges in (a lane a cluster of
+// gridDim.x blocks) with the trace off, MODE_TRACE the same with the trace
+// on, MODE_GRAD the exchanges and K2g's residual, MODE_BLOCKS neither (the
+// redundant chains, for comparisons; the trace on or off at run time).  The
+// trace's per-score meta arrays cost local memory, so the modes without a
+// trace compile them out.
 template <typename T, bool TOPO, bool VOL, int MODE>
 __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   constexpr bool GRAD = MODE == MODE_GRAD;
-  constexpr bool CL = MODE == MODE_CLUSTER;
+  constexpr bool CL = MODE != MODE_BLOCKS;
+  const bool trace = MODE == MODE_TRACE || (MODE == MODE_BLOCKS && a.trace != 0);
   const int tid = threadIdx.x;
   const int b = blockIdx.x;  // in a cluster: the block's rank in it
   const int B = gridDim.x;
+  // a cluster of one block runs the one-block code: no DSMEM, no cluster
+  // barrier
+  const bool split = CL && B > 1;
+  auto csync = [&]() {
+    if (split) {
+      cluster_sync();
+    } else {
+      __syncthreads();
+    }
+  };
   const int64_t P = a.P, N = a.N, R = a.R;
   // the lane, and this block's scratch slot: its own, or its lane's (the
   // blocks of a cluster share one copy of the carries)
@@ -575,10 +654,6 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const uint8_t* node_act = a.node_active + lane * a.na_stride;
   const T* wrow = (const T*)a.weights + lane * a.w_stride;
   T* snorm = GRAD ? (T*)a.s_norm + sb * a.ns * N : nullptr;
-  T* ssoft = GRAD ? (T*)a.s_soft + sb * N : nullptr;
-  const T* gF = (const T*)a.grad_F;
-  double dwacc[MAXS];
-  for (int k = 0; k < MAXS; ++k) dwacc[k] = 0.0;
   int32_t* const packed = a.packed + lane * 5 * P;
   const int nt = (int)a.n_true;
   const int K = (int)a.sample_k;
@@ -628,11 +703,9 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const bool dom_used = TOPO && (a.use_spread_f || a.use_spread_s);
   T* const dom_sum0 = dom_sum;
   int* const dom_flag0 = dom_flag;
-  if constexpr (CL) {
-    if (a.dom_smem) {
-      dom_sum = at_rank(dom_sum, 0);
-      dom_flag = at_rank(dom_flag, 0);
-    }
+  if (split && a.dom_smem) {
+    dom_sum = at_rank(dom_sum, 0);
+    dom_flag = at_rank(dom_flag, 0);
   }
   // A cluster's barrier after the commit: where a block may read a carry
   // another block committed (InterPodAffinity's per-domain rows), rank 0
@@ -664,14 +737,14 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       ianti[j] = ((const T*)a.ip_anti0)[j];
     }
   }
-  if (ports) load_transposed((const T*)a.ports_used0, sports, N, a.PT, i0, istep);
-  if (restr) load_transposed((const T*)a.restr_used0, srestr, N, a.VR, i0, istep);
-  if (cloud) load_transposed((const T*)a.cloud_used0, scloud, N, 3, i0, istep);
-  if (csi) load_transposed((const T*)a.csi_attached0, scsi, N, a.VID, i0, istep);
-  __syncthreads();
+  if (ports) copy_transposed((const T*)a.ports_used0, sports, N, a.PT, i0, istep);
+  if (restr) copy_transposed((const T*)a.restr_used0, srestr, N, a.VR, i0, istep);
+  if (cloud) copy_transposed((const T*)a.cloud_used0, scloud, N, 3, i0, istep);
+  if (csi) copy_transposed((const T*)a.csi_attached0, scsi, N, a.VID, i0, istep);
   if (csi) {
     // attached ids per (driver, node): the reference's csi_att @ csi_drv_oh
-    // (the nodes this thread copied above)
+    // (bits other blocks of the cluster copied)
+    csync();
     for (int64_t n = i0; n < N; n += istep) {
       for (int64_t d = 0; d < a.DR; ++d) scnt[d * N + n] = T(0);
       for (int64_t v = 0; v < a.VID; ++v) {
@@ -681,23 +754,28 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     __syncthreads();
   }
+  // K2g's residual starts at zero: each block zeroes its stretch
+  for (int64_t j = i0; GRAD && j < 2 * a.ns * N; j += istep) a.resid[j] = 0.0;
   zero_domains();
-  if constexpr (CL) cluster_sync();
+  csync();
 
-  // trace meta (block 0): per-score min/max of where(feasible & active,
-  // raw, 0) over [P,N], and the max failure code
+  // trace meta: per-score min/max of where(feasible & active, raw, 0) over
+  // [P,N], and the max failure code; each cluster block over its nodes,
+  // block 0 alone of the redundant chains
   T meta_mn[MAXS], meta_mx[MAXS];
   for (int k = 0; k < MAXS; ++k) {
     meta_mn[k] = T(INFINITY);
     meta_mx[k] = T(-INFINITY);
   }
   int code_mx = 0;
-  const bool meta = !CL && a.trace && b == 0;
+  const bool meta = trace && (CL || b == 0);
 
   int start = a.start_ptr ? a.start_ptr[0] : (int)a.start0;
   for (int64_t i = 0; i < P; ++i) {
+    // the trace: a cluster block writes its rank tiles' columns of every
+    // pod, a redundant chain the rows of its pods
     const bool owner = (i % B) == b;
-    const bool writes = !CL && a.trace && owner;
+    const bool writes = trace && (CL || owner);
     const bool active = a.pod_active[i] != 0;
     const int tol = a.pod_tol_idx[i];
     const int affi = a.pod_aff_idx[i];
@@ -765,7 +843,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
           }
         }
       }
-      if constexpr (CL) {
+      if (split) {
         // the cluster's minima over nodes, and its domain sums complete
         for (int k = 0; sp_f && k < a.KC; ++k) {
           if (fkey[k] < 0) continue;
@@ -774,10 +852,16 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
         cluster_sync();
         if (sp_f && tid < 32) {
+          // every remote read before the first store, which the compiler
+          // cannot order them past
           const ClusterX<T>* x = at_rank(&cx, tid < B ? tid : 0);
-          for (int k = 0; k < a.KC; ++k) {
-            const T v = warp_combine(fkey[k] >= 0 ? x->lmin[k] : INF, MinOp());
-            if (tid == 0) cx.out_t[k] = v;
+          T v[MAXC];
+#pragma unroll
+          for (int k = 0; k < MAXC; ++k) v[k] = k < a.KC && fkey[k] >= 0 ? x->lmin[k] : INF;
+#pragma unroll
+          for (int k = 0; k < MAXC; ++k) {
+            const T m = warp_combine(v[k], MinOp());
+            if (tid == 0 && k < a.KC) cx.out_t[k] = m;
           }
         }
         __syncthreads();
@@ -997,7 +1081,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
       int tile_total;
       const int c_tile = block_scan(feas, &tile_total);
-      if constexpr (CL) {
+      if (split) {
         // sampled once the cluster's counts before this tile are known
         if (r < N) {
           srank[n] = c_tile;
@@ -1010,7 +1094,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         if (r < N) sample(r, n, feas, c, ip_raw);
       }
     }
-    if constexpr (CL) {
+    if (split) {
       // tile t (rank order) is block t % C's (t / C)-th: its feasible count,
       // exclusive-scanned over the cluster's tiles
       cluster_sync();
@@ -1034,12 +1118,14 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       ip_mn = block_reduce(ip_mn, INF, MinOp());
       ip_mx = block_reduce(ip_mx, -INF, MaxOp());
     }
-    if constexpr (CL) {
+    if (ws0 > 0) c_hi = block_reduce(c_hi, 0, MaxOp());
+    if (split) {
       // the cluster's: the sampled-domain flags land in rank 0's copy too
       if (sp_s) n_fni = block_reduce(n_fni, 0, SumOp());
       if (tid == 0) {
         cx.kth = kth_rank;
         cx.n_fni = n_fni;
+        cx.c_hi = c_hi;
         cx.mx_taint = mx_taint;
         cx.mx_aff = mx_aff;
         cx.ip_mn = ip_mn;
@@ -1051,6 +1137,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         const ClusterX<T>* x = at_rank(&cx, in ? tid : 0);
         const int kth = warp_combine(x->kth, MaxOp());
         const int nf = warp_combine(in ? x->n_fni : 0, SumOp());
+        const int ch = warp_combine(x->c_hi, MaxOp());
         const T mt = warp_combine(x->mx_taint, MaxOp());
         const T ma = warp_combine(x->mx_aff, MaxOp());
         const T mn = warp_combine(x->ip_mn, MinOp());
@@ -1058,6 +1145,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         if (tid == 0) {
           cx.out_i[0] = kth;
           cx.out_i[1] = nf;
+          cx.out_i[2] = ch;
           cx.out_t[0] = mt;
           cx.out_t[1] = ma;
           cx.out_t[2] = mn;
@@ -1067,6 +1155,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       __syncthreads();
       kth_rank = cx.out_i[0];
       n_fni = cx.out_i[1];
+      c_hi = cx.out_i[2];
       mx_taint = cx.out_t[0];
       mx_aff = cx.out_t[1];
       ip_mn = cx.out_t[2];
@@ -1075,14 +1164,13 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     const int processed = total >= K ? kth_rank + 1 : nt;
     const int n_samp = total < K ? total : K;
     const int count = n_samp * (active ? 1 : 0);
-    if (ws0 > 0) c_hi = block_reduce(c_hi, 0, MaxOp());
 
     // ---- pass 1b: PodTopologySpread's raw score and its extrema ---------
     T sp_mn = INF, sp_mx = -INF;
     if (sp_s) {
       // topology size: sampled nodes (identity key) or sampled domains (a
       // cluster's n_fni is already its total)
-      if constexpr (!CL) n_fni = block_reduce(n_fni, 0, SumOp());
+      if (!split) n_fni = block_reduce(n_fni, 0, SumOp());
       for (int k = 0; k < a.KS; ++k) {
         if (skey[k] < 0) continue;
         int tsize = n_fni;
@@ -1124,7 +1212,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
       sp_mn = block_reduce(sp_mn, INF, MinOp());
       sp_mx = block_reduce(sp_mx, -INF, MaxOp());
-      if constexpr (CL) {
+      if (split) {
         if (tid == 0) {
           cx.sp_mn = sp_mn;
           cx.sp_mx = sp_mx;
@@ -1223,9 +1311,10 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
     }
     if (ws0 > 0) {
-      // the compacted rows past the sampled nodes are zero, and hold a
-      // masked (zero) column for the meta when the pod's count is below ws0
-      for (int j = n_samp + tid; writes && j < ws0; j += blockDim.x) {
+      // the compacted rows past the sampled nodes are zero (each block its
+      // stretches of them), and hold a masked (zero) column for the meta
+      // when the pod's count is below ws0
+      for (int64_t j = n_samp + i0; writes && j < ws0; j += istep) {
         for (int k = 0; k < a.ns; ++k) {
           ((T*)a.raw[k])[i * ws0 + j] = T(0);
           ((T*)a.norm[k])[i * ws0 + j] = T(0);
@@ -1240,40 +1329,48 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     best = block_reduce(best, T(-INFINITY), MaxOp());
 
-    // ---- K2g: this pod's term of d objective / d weights -----------------
-    if (GRAD && count > 0) {
-      const T tau = T(a.tau);
-      T zmax = -INFINITY;
-      for (int64_t n = tid; n < N; n += blockDim.x) {
-        const T z = (fl[n] & 2) ? tot[n] / tau : NEG;
-        zmax = z > zmax ? z : zmax;
+    // ---- K2g: the block's softmax sums -----------------------------------
+    // s = softmax(totals / tau) over the sampled nodes.  Each block sums e =
+    // exp(z - its own max) and e norm_k over its nodes in one tree (its max
+    // is its best total over tau: IEEE division by tau > 0 is monotone);
+    // the selection's exchange carries them, rescaled to the cluster's max
+    // (grad_combine), so the grad mode adds no cluster barrier
+    const T tau = T(a.tau);
+    if constexpr (GRAD) {
+      const T zb = best / tau;
+      T part[MAXS + 1];
+#pragma unroll
+      for (int k = 0; k <= MAXS; ++k) part[k] = T(0);
+      for (int64_t base = T0; base < N; base += TSTEP) {
+        const int r = (int)(base + tid);
+        if (r >= N) continue;
+        const int n = r < nt ? (start + r) % nt : r;
+        if (!(fl[n] & 2)) continue;
+        const T e = d_exp(tot[n] / tau - zb);
+        part[0] = part[0] + e;
+#pragma unroll
+        for (int k = 0; k < MAXS; ++k) {
+          if (k < a.ns) part[k + 1] = part[k + 1] + e * snorm[k * N + n];
+        }
       }
-      zmax = block_reduce(zmax, T(-INFINITY), MaxOp());
-      T esum = T(0);
-      for (int64_t n = tid; n < N; n += blockDim.x) {
-        const T e = d_exp(((fl[n] & 2) ? tot[n] / tau : NEG) - zmax);
-        ssoft[n] = e;
-        esum = esum + e;
-      }
-      esum = block_reduce(esum, T(0), SumOp());
-      T sc = T(0);
-      for (int64_t n = tid; n < N; n += blockDim.x) {
-        const T sn = ssoft[n] / esum;
-        ssoft[n] = sn;
-        sc = sc + sn * (gF[n * 2] * pnz[0] + gF[n * 2 + 1] * pnz[1]);
-      }
-      const T cbar = block_reduce(sc, T(0), SumOp());
-      T part[MAXS];
-      for (int k = 0; k < MAXS; ++k) part[k] = T(0);
-      for (int64_t n = tid; n < N; n += blockDim.x) {
-        const T d = ssoft[n] * ((gF[n * 2] * pnz[0] + gF[n * 2 + 1] * pnz[1]) - cbar);
-        for (int k = 0; k < a.ns; ++k) part[k] = part[k] + d * snorm[k * N + n];
-      }
-      for (int k = 0; k < a.ns; ++k) {
-        const T gk = block_reduce(part[k], T(0), SumOp());
-        if (tid == 0) dwacc[k] += (double)(gk / tau);
-      }
+      block_sums(part, (int)a.ns + 1, cx.g_part);
     }
+    // warp 0 of a cluster block, lane q holding block q's best total v and
+    // the cluster's gb: the cluster's sums, sum_q exp(v/tau - gb/tau) S_q,
+    // into out_t[1..]
+    auto grad_combine = [&](const ClusterX<T>* x, T v, T gb) {
+      if constexpr (GRAD) {
+        T g[MAXS + 1];
+#pragma unroll
+        for (int k = 0; k <= MAXS; ++k) g[k] = tid < B && k <= a.ns ? x->g_part[k] : T(0);
+        const T sc = tid < B ? d_exp(v / tau - gb / tau) : T(0);
+#pragma unroll
+        for (int k = 0; k <= MAXS; ++k) {
+          const T s = warp_combine(g[k] * sc, SumOp());
+          if (tid == 0 && k <= a.ns) cx.out_t[1 + k] = s;
+        }
+      }
+    };
 
     // ---- pass 3: selection ----------------------------------------------
     // (in a cluster, the block whose rank tile holds the selected node
@@ -1291,7 +1388,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
       best_rank = block_reduce(best_rank, 0x7fffffff, MinOp());
-      if constexpr (CL) {
+      if (split) {
         // each block's best total and its first rank, then the cluster's
         if (tid == 0) {
           cx.best = best;
@@ -1304,6 +1401,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
           const int vr = x->best_rank;
           const T gb = __shfl_sync(0xffffffffu, warp_combine(v, MaxOp()), 0);
           const int gr = warp_combine(v == gb ? vr : 0x7fffffff, MinOp());
+          grad_combine(x, v, gb);
           if (tid == 0) {
             cx.out_t[0] = gb;
             cx.out_i[0] = gr;
@@ -1323,7 +1421,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
       if (best_rank != 0x7fffffff) sel_node = best_rank < nt ? (start + best_rank) % nt : best_rank;
-    } else if constexpr (!CL) {
+    } else if (!split) {
       // k-th tied maximum in visit order, k from the counter-keyed draw
       int tied_cnt = 0;
       for (int64_t base = 0; base < N; base += blockDim.x) {
@@ -1358,7 +1456,10 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       if (tid == 0) cx.best = best;
       cluster_sync();
       if (tid < 32) {
-        const T gb = warp_combine(at_rank(&cx, tid < B ? tid : 0)->best, MaxOp());
+        const ClusterX<T>* x = at_rank(&cx, tid < B ? tid : 0);
+        const T v = x->best;
+        const T gb = __shfl_sync(0xffffffffu, warp_combine(v, MaxOp()), 0);
+        grad_combine(x, v, gb);
         if (tid == 0) cx.out_t[0] = gb;
       }
       __syncthreads();
@@ -1400,6 +1501,45 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     const int sel = count > 0 ? sel_node : -1;
     const bool commits = !CL || b == committer;
+
+    // ---- K2g: this pod's term of the residual M --------------------------
+    // each node's owner adds pnz_j s[n] (norm_k[n] - nbar_k) to M[j,k,n],
+    // with s = exp(z - max) / sum e and nbar_k = sum e norm_k / sum e
+    if constexpr (GRAD) {
+      if (count > 0) {
+        const T zmax = best / tau;
+        const T* sums = split ? cx.out_t + 1 : cx.g_part;
+        const T esum = sums[0];
+        const int64_t SN = a.ns * N;
+        for (int64_t base = T0; base < N; base += TSTEP) {
+          const int r = (int)(base + tid);
+          if (r >= N) continue;
+          const int n = r < nt ? (start + r) % nt : r;
+          if (!(fl[n] & 2)) continue;
+          const double s = (double)(d_exp(tot[n] / tau - zmax) / esum);
+          T nk[MAXS];
+#pragma unroll
+          for (int k = 0; k < MAXS; ++k) {
+            if (k < a.ns) nk[k] = snorm[k * N + n];
+          }
+          // each half's loads before its stores: two round trips to L2, not 2S
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const double p = (double)pnz[j];
+            double* m = a.resid + j * SN + n;
+            double old[MAXS];
+#pragma unroll
+            for (int k = 0; k < MAXS; ++k) {
+              if (k < a.ns) old[k] = m[k * N];
+            }
+#pragma unroll
+            for (int k = 0; k < MAXS; ++k) {
+              if (k < a.ns) m[k * N] = old[k] + p * (s * ((double)nk[k] - (double)(sums[1 + k] / esum)));
+            }
+          }
+        }
+      }
+    }
 
     // ---- commit: one writer per node ------------------------------------
     if (sel >= 0 && commits && tid == 0) {
@@ -1474,24 +1614,32 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     // the rotating start advances by the number of visited nodes
     if (active) start = nt > 0 ? (start + processed) % nt : 0;
-    if constexpr (CL) {
-      if (commit_sync) {
-        cluster_sync();  // the commit, before the next pod reads the carries
-      } else {
-        __syncthreads();
-      }
+    if (split && commit_sync) {
+      cluster_sync();  // the commit, before the next pod reads the carries
     } else {
       __syncthreads();
     }
   }
-  if constexpr (CL) cluster_sync();  // every commit, before the final copy
+  // the trace meta: each block's (block 0's of the redundant chains) into
+  // rank 0's slots, read there after the barrier below
+  if (meta) {
+    ClusterX<T>* x0 = split ? at_rank(&cx, 0) : &cx;
+    for (int k = 0; k < a.ns; ++k) {
+      const T mn = block_reduce(meta_mn[k], T(INFINITY), MinOp());
+      const T mx = block_reduce(meta_mx[k], T(-INFINITY), MaxOp());
+      if (tid == 0) {
+        x0->m_mn[b][k] = mn;
+        x0->m_mx[b][k] = mx;
+      }
+    }
+    const int cm = block_reduce(code_mx, 0, MaxOp());
+    if (tid == 0) x0->m_code[b] = cm;
+  }
+  if (split) cluster_sync();  // every commit and the meta, before the final copy
 
   // the final carries: block 0's copy, or a cluster's one copy by all its
   // blocks
   if (!CL && b != 0) return;
-  if (GRAD && tid == 0) {
-    for (int k = 0; k < a.ns; ++k) a.dw[k] = dwacc[k];
-  }
   for (int64_t i = i0; i < P; i += istep) packed[4 * P + i] = start;
   if (b == 0 && tid == 0) a.final_start[lane] = start;
   // this lane's slices of the final carries
@@ -1511,18 +1659,17 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   for (int64_t j = i0; j < N; j += istep) f_pc[j] = pc[j];
   // the volume carries, row-major again (their initial values when the
   // problem carries none)
-  for (int64_t j = i0; j < N * a.PT; j += istep) {
-    f_ports[j] = ports ? sports[(j % a.PT) * N + j / a.PT] : ((const T*)a.ports_used0)[j];
-  }
-  for (int64_t j = i0; j < N * a.VR; j += istep) {
-    f_restr[j] = restr ? srestr[(j % a.VR) * N + j / a.VR] : ((const T*)a.restr_used0)[j];
-  }
-  for (int64_t j = i0; j < N * 3; j += istep) {
-    f_cloud[j] = cloud ? scloud[(j % 3) * N + j / 3] : ((const T*)a.cloud_used0)[j];
-  }
-  for (int64_t j = i0; j < N * a.VID; j += istep) {
-    f_csi[j] = csi ? T(scsi[(j % a.VID) * N + j / a.VID]) : ((const T*)a.csi_attached0)[j];
-  }
+  auto carry_out = [&](bool on, const auto* cols, T* dst, const T* init, int64_t C) {
+    if (on) {
+      copy_transposed(cols, dst, C, N, i0, istep);
+    } else {
+      for (int64_t j = i0; j < N * C; j += istep) dst[j] = init[j];
+    }
+  };
+  carry_out(ports, sports, f_ports, (const T*)a.ports_used0, a.PT);
+  carry_out(restr, srestr, f_restr, (const T*)a.restr_used0, a.VR);
+  carry_out(cloud, scloud, f_cloud, (const T*)a.cloud_used0, 3);
+  carry_out(csi, scsi, f_csi, (const T*)a.csi_attached0, a.VID);
   // PodTopologySpread's and InterPodAffinity's carries, for the next window
   for (int64_t j = i0; j < a.SG * N; j += istep) {
     f_spread[j] = spread_on ? spc[j] : ((const T*)a.spread_counts0)[j];
@@ -1532,27 +1679,51 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     f_iown[j] = ipa ? iown[j] : ((const T*)a.ip_own0)[j];
     f_ianti[j] = ipa ? ianti[j] : ((const T*)a.ip_anti0)[j];
   }
-  if (CL || !a.trace) return;
+  if (!trace || b != 0 || tid != 0) return;
+  // min and max are exact in any order
+  const int nb = CL ? B : 1;
   for (int k = 0; k < a.ns; ++k) {
-    const T mn = block_reduce(meta_mn[k], T(INFINITY), MinOp());
-    const T mx = block_reduce(meta_mx[k], T(-INFINITY), MaxOp());
-    if (tid == 0) {
-      a.trace_meta[2 * k] = (int32_t)mn;
-      a.trace_meta[2 * k + 1] = (int32_t)mx;
+    T mn = cx.m_mn[0][k], mx = cx.m_mx[0][k];
+    for (int q = 1; q < nb; ++q) {
+      mn = cx.m_mn[q][k] < mn ? cx.m_mn[q][k] : mn;
+      mx = cx.m_mx[q][k] > mx ? cx.m_mx[q][k] : mx;
     }
+    a.trace_meta[2 * k] = (int32_t)mn;
+    a.trace_meta[2 * k + 1] = (int32_t)mx;
   }
-  code_mx = block_reduce(code_mx, 0, MaxOp());
-  if (tid == 0) {
-    a.trace_meta[2 * a.ns] = 0;
-    a.trace_meta[2 * a.ns + 1] = a.nf > 0 ? code_mx : 0;
-  }
+  int cm = cx.m_code[0];
+  for (int q = 1; q < nb; ++q) cm = cx.m_code[q] > cm ? cx.m_code[q] : cm;
+  a.trace_meta[2 * a.ns] = 0;
+  a.trace_meta[2 * a.ns + 1] = a.nf > 0 ? cm : 0;
 }
 
-template <typename T, bool TOPO, bool VOL, int MODE>
-cudaError_t launch_mode(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
+// The modes build as four libraries, so their nvcc runs go in parallel:
+// csrc/scan_cluster.cu, csrc/scan_trace.cu and csrc/scan_grad.cu include
+// this file with SCAN_CLUSTER, SCAN_TRACE or SCAN_GRAD defined; built alone
+// it holds MODE_BLOCKS.
+#if defined(SCAN_GRAD)
+constexpr int LIB_MODE = MODE_GRAD;
+#elif defined(SCAN_TRACE)
+constexpr int LIB_MODE = MODE_TRACE;
+#elif defined(SCAN_CLUSTER)
+constexpr int LIB_MODE = MODE_CLUSTER;
+#else
+constexpr int LIB_MODE = MODE_BLOCKS;
+#endif
+
+template <typename T, bool TOPO, bool VOL>
+cudaError_t launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
   const dim3 grid((unsigned)blocks, (unsigned)a->lanes);
-  if constexpr (MODE == MODE_CLUSTER) {
-    // one cluster of `blocks` blocks a lane
+  if constexpr (LIB_MODE == MODE_BLOCKS) {
+    scan_kernel<T, TOPO, VOL, LIB_MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+    return cudaGetLastError();
+  } else {
+    // one cluster of `blocks` blocks a lane; above 8 a non-portable size
+    if (blocks > 8) {
+      const cudaError_t e = cudaFuncSetAttribute(scan_kernel<T, TOPO, VOL, LIB_MODE>,
+                                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+    }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
     cfg.blockDim = dim3(THREADS);
@@ -1565,24 +1736,8 @@ cudaError_t launch_mode(const ScanArgs* a, int64_t blocks, size_t smem, void* st
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, scan_kernel<T, TOPO, VOL, MODE>, *a);
-  } else {
-    scan_kernel<T, TOPO, VOL, MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
-    return cudaGetLastError();
+    return cudaLaunchKernelEx(&cfg, scan_kernel<T, TOPO, VOL, LIB_MODE>, *a);
   }
-}
-
-// The cluster launches build as a library of their own (csrc/scan_lanes.cu
-// includes this file with SCAN_CLUSTER defined), so the two nvcc runs go in
-// parallel: each holds a third or two thirds of the instantiations.
-template <typename T, bool TOPO, bool VOL>
-cudaError_t launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
-#ifdef SCAN_CLUSTER
-  return launch_mode<T, TOPO, VOL, MODE_CLUSTER>(a, blocks, smem, stream);
-#else
-  if (a->grad) return launch_mode<T, TOPO, VOL, MODE_GRAD>(a, blocks, smem, stream);
-  return launch_mode<T, TOPO, VOL, MODE_BLOCKS>(a, blocks, smem, stream);
-#endif
 }
 
 template <typename T, bool TOPO>
@@ -1594,20 +1749,21 @@ cudaError_t launch_topo(const ScanArgs* a, int64_t blocks, size_t smem, void* st
 template <typename T>
 int launch(const ScanArgs* a, int64_t blocks, void* stream) {
   // the trace planes have no lane stride; gridDim.y is at most 65 535
-  if (a->lanes < 1 || a->lanes > 65535 || (a->lanes > 1 && a->trace)) return (int)cudaErrorInvalidValue;
-  // grad mode: one lane, one block, trace off, at most MAXS weights
-  if (a->grad && (a->lanes != 1 || blocks != 1 || a->trace || a->cluster != 1)) return (int)cudaErrorInvalidValue;
-  // a cluster: `blocks` of them a lane, trace off, every block at most MAXT
-  // of the at most THREADS rank tiles
-#ifdef SCAN_CLUSTER
-  if (a->cluster < 2 || a->cluster > MAXCL) return (int)cudaErrorInvalidValue;
-#else
-  if (a->cluster != 1) return (int)cudaErrorInvalidValue;
-#endif
-  if (a->cluster > 1 && (blocks != a->cluster || a->trace || a->ws0 || (a->N + THREADS - 1) / THREADS > THREADS)) {
+  if (a->lanes < 1 || a->lanes > 65535 || (a->lanes > 1 && a->trace) || a->ns > MAXS) return (int)cudaErrorInvalidValue;
+  // grad mode (its own library): one lane, trace off; the cluster modes'
+  // trace is their library's
+  if ((a->grad != 0) != (LIB_MODE == MODE_GRAD) || (a->grad && (a->lanes != 1 || a->trace)) ||
+      (LIB_MODE != MODE_BLOCKS && (a->trace != 0) != (LIB_MODE == MODE_TRACE))) {
     return (int)cudaErrorInvalidValue;
   }
-  if (a->ns > MAXS) return (int)cudaErrorInvalidValue;
+  if (LIB_MODE == MODE_BLOCKS) {
+    if (a->cluster != 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  } else if (a->cluster != blocks || blocks < 1 || blocks > MAXCL ||
+             (blocks > 1 && (a->N + THREADS - 1) / THREADS > THREADS)) {
+    // `blocks` a cluster, every block at most MAXT of the at most THREADS
+    // rank tiles the exchanges take
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
   if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) return (int)launch_topo<T, true>(a, blocks, smem, stream);
   return (int)launch_topo<T, false>(a, blocks, 0, stream);
@@ -1615,7 +1771,7 @@ int launch(const ScanArgs* a, int64_t blocks, void* stream) {
 
 }  // namespace
 
-#ifndef SCAN_CLUSTER
+#if !defined(SCAN_CLUSTER) && !defined(SCAN_TRACE) && !defined(SCAN_GRAD)
 extern "C" int kss_scan_f32(const ScanArgs* a, int64_t blocks, void* stream) { return launch<float>(a, blocks, stream); }
 extern "C" int kss_scan_f64(const ScanArgs* a, int64_t blocks, void* stream) { return launch<double>(a, blocks, stream); }
 #endif

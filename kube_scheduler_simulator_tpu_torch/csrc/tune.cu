@@ -1,6 +1,9 @@
 // The tuner's objective kernel (part of K9): each lane of a rollout reduced
 // to its objective's scalar, and (backward mode) the objective's cotangent
-// F = d objective / d final_nonzero that the scan's grad mode (K2g) reads.
+// F = d objective / d final_nonzero; and K2g's contraction of F with the
+// residual M [2,S,N] that the scan's grad mode folded over the pod chain:
+// dw_k = (sum over m = 2n + j of F[n,j] M[j,k,n]) / tau, one block a
+// weight, the products (in float64) summed over the same fixed tree.
 //
 // Replaces the JAX package's tuning/objective.py:33-87 (utilization,
 // fragmentation, pending_age), which XLA fuses into the rollout's jit, and
@@ -58,6 +61,16 @@ struct ObjArgs {
   void* scratch;               // [L,2,pw]
   void* value;                 // [L]
   void* F;                     // [L,N,2]
+};
+
+struct ContractArgs {
+  int64_t S, N;
+  int64_t pw;          // the tree's width: a power of two >= 2N
+  double tau;
+  const void* F;       // [N,2] d objective / d final_nonzero
+  const double* M;     // [2,S,N] the grad forward's residual
+  double* scratch;     // [S,pw]
+  double* dw;          // [S] d objective / d weights
 };
 
 namespace {
@@ -155,6 +168,25 @@ __global__ void __launch_bounds__(THREADS) objective_kernel(const ObjArgs a) {
 }
 
 template <typename T>
+__global__ void __launch_bounds__(THREADS) contract_kernel(const ContractArgs a) {
+  const int64_t k = blockIdx.x, N = a.N, pw = a.pw;
+  const T* F = (const T*)a.F;
+  double* buf = a.scratch + k * pw;
+  for (int64_t m = threadIdx.x; m < pw; m += blockDim.x) {
+    buf[m] = m < 2 * N ? (double)F[m] * a.M[((m % 2) * a.S + k) * N + m / 2] : 0.0;
+  }
+  const double s = tree_sum(buf, pw);
+  if (threadIdx.x == 0) a.dw[k] = s / a.tau;
+}
+
+template <typename T>
+int launch_contract(const ContractArgs* a, void* stream) {
+  if (a->S < 1 || a->S > 65535 || a->N < 1 || a->pw < 2 * a->N || !(a->tau > 0)) return (int)cudaErrorInvalidValue;
+  contract_kernel<T><<<(unsigned)a->S, THREADS, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(const ObjArgs* a, void* stream) {
   if (a->L < 1 || a->L > 65535 || a->kind < O_UTIL || a->kind > O_AGE || a->pw < 1) return (int)cudaErrorInvalidValue;
   objective_kernel<T><<<(unsigned)a->L, THREADS, 0, (cudaStream_t)stream>>>(*a);
@@ -165,3 +197,5 @@ int launch(const ObjArgs* a, void* stream) {
 
 extern "C" int kss_objective_f32(const ObjArgs* a, void* stream) { return launch<float>(a, stream); }
 extern "C" int kss_objective_f64(const ObjArgs* a, void* stream) { return launch<double>(a, stream); }
+extern "C" int kss_contract_f32(const ContractArgs* a, void* stream) { return launch_contract<float>(a, stream); }
+extern "C" int kss_contract_f64(const ContractArgs* a, void* stream) { return launch_contract<double>(a, stream); }

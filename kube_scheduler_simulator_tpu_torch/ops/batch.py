@@ -842,7 +842,7 @@ def final_carry(out: dict, start) -> dict:
 def scan_plain(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, ws0: "int | None" = None,
     carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
-    weights: "torch.Tensor | None" = None, grad: "tuple | None" = None,
+    weights: "torch.Tensor | None" = None, grad: "tuple | None" = None, residual: "float | None" = None,
 ) -> dict:
     """The whole pod loop of one round in plain PyTorch, op for op the JAX
     ``build_batch_fn`` step (filters with first-failure tracking, rotated
@@ -860,7 +860,8 @@ def scan_plain(
     ``weights``: the [S] weight vector in the round's dtype (the JAX
     ``DeviceProblem.plugin_w``; default the profile's).  ``cfg.relax_tau > 0``: the straight-through commit (see
     BatchConfig).  ``grad=(F, tau)``: also accumulate K2g's closed form
-    (``grad_plain``) into ``out["dw"]``."""
+    (``grad_plain``) into ``out["dw"]``; ``residual=tau``: K2g's residual
+    (``grad_residual_plain``) into ``out["resid"]``."""
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
     if window is not None:
@@ -892,6 +893,8 @@ def scan_plain(
     if grad is not None:
         F_n = grad[0]
         dw = torch.zeros(len(cfg.scores), dtype=torch.float64, device=dev)
+    if residual is not None:
+        resid = torch.zeros((2, len(cfg.scores), N), dtype=torch.float64, device=dev)
     # the per-pod constraint and term lists, read on the host
     host = {f: t.cpu().numpy() for f, t in (
         ("spf_key", dp.spf[0]), ("spf_grp", dp.spf[1]), ("spf_ku", dp.spf_ku),
@@ -1098,6 +1101,17 @@ def scan_plain(
             cbar = (s_n * c_n).sum()
             g = ((s_n * (c_n - cbar))[None, :] * torch.stack(norm_rows)).sum(1)
             dw = dw + (g / _den(g, tau)).double()
+        if residual is not None and bool(commit):
+            # K2g's residual: e = exp(z - max z) over the sampled nodes, s =
+            # e / sum e, nbar_k = sum e norm_k / sum e, and M[j,k,n] +=
+            # pnz_j s[n] (norm_k[n] - nbar_k)
+            z = torch.where(sampled, totals / _den(totals, residual), NEG)
+            e_n = torch.exp(z - z.max())
+            norms = torch.stack(norm_rows)
+            esum = e_n.sum()
+            nbar = (e_n[None, :] * norms).sum(1) / esum
+            d = (e_n / esum).double()[None, :] * (norms.double() - nbar.double()[:, None])
+            resid = resid + dp.pod_nonzero[i].double()[:, None, None] * d[None]
         if cfg.relax_tau > 0:
             soft = torch.softmax(torch.where(sampled, totals / _den(totals, tau), NEG), 0) * commit.to(dt)
             oh = soft + (oh - soft).detach()
@@ -1179,6 +1193,8 @@ def scan_plain(
     out["final_carry"] = final_carry(out, start)
     if grad is not None:
         out["dw"] = dw
+    if residual is not None:
+        out["resid"] = resid
     if cfg.trace:
         if ws0 is None:
             feas = out["feasible"] & dp.pod_active[:, None]
@@ -1260,6 +1276,40 @@ def grad_plain(
         raise ValueError(f"F must be {weights.dtype} [{dims['N']}, 2], got {F.dtype} {tuple(F.shape)}")
     out = scan_plain(cfg._replace(relax_tau=0.0, trace=False), dims, dp, weights=weights, grad=(F, float(tau)))
     return out.pop("dw"), out
+
+
+def grad_residual_plain(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: torch.Tensor, tau: float,
+) -> "tuple[torch.Tensor, dict]":
+    """The plain version of K2g's forward: (the residual M [2, S, N]
+    float64, the hard rollout's outputs).  ``grad_plain``'s sum is linear
+    in F: with s_i pod i's softmax and nbar_ik = sum_n s_i[n] norm_ik[n]
+    (sum s_i = 1, so the mean of c_i drops out),
+
+        dw_k = (1 / tau) sum_{n,j} F[n,j] M[j,k,n],
+        M[j,k,n] = sum over committed pods i of pnz_ij s_i[n] (norm_ik[n] - nbar_ik),
+
+    and M does not depend on F: the rollout folds it over the pod chain,
+    and the backward (``grad_contract_plain``) only contracts."""
+    if tau <= 0:
+        raise ValueError(f"tau must be positive, got {tau}")
+    out = scan_plain(cfg._replace(relax_tau=0.0, trace=False), dims, dp, weights=weights, residual=float(tau))
+    return out.pop("resid"), out
+
+
+def grad_contract_plain(M: torch.Tensor, F: torch.Tensor, tau: float) -> torch.Tensor:
+    """The plain version of K2g's contraction: d objective / d weights [S]
+    float64 = the fixed pairwise tree sum (tuning.objective.tree_sum) over
+    m = 2n + j of F[n,j] M[j,k,n] in float64, over tau; the kernel sums the
+    same products in the same tree, so the two are bitwise equal."""
+    from kube_scheduler_simulator_tpu_torch.tuning.objective import tree_sum
+
+    S, N = M.shape[1], M.shape[2]
+    if M.shape[0] != 2 or F.shape != (N, 2):
+        raise ValueError(f"M must be [2, S, N] and F [N, 2], got {tuple(M.shape)} and {tuple(F.shape)}")
+    x = F.double()[None, :, :] * M.permute(1, 2, 0)  # [S, N, 2]: F[n,j] M[j,k,n]
+    v = tree_sum(x.reshape(S, 2 * N))
+    return v / _den(v, tau)
 
 
 # ------------------------------------------- the lane scan (K8, K9)

@@ -11,19 +11,26 @@ counters and the wrappers.
               compacted in the step.  A launch may run one window of pods
               from a given initial carry (``offset``, ``window``,
               ``carry0``); it always hands on the whole final carry, so
-              windows chain on the card.
-- ``scan_lanes`` (csrc/scan.cu, K8) — the same kernel over G lanes, one
-              block a lane on the grid's y axis: lane g runs the whole pod
-              loop with node_active = lane_active[g] and writes its slices
-              of the packed outputs and the final carries (the capacity
-              engine's scale-up estimate: one node group a lane).
-- ``scan_population`` (csrc/scan.cu, K9) — the same kernel over the rows
-              of a [pop, S] weight matrix, one shared node mask: lane g is
-              the whole rollout under weights[g] (the tuner's population).
-- ``scan_grad`` (csrc/scan.cu, K2g) — the scan's grad mode: one launch
-              re-runs the pod chain and accumulates d objective / d
-              weights through the straight-through softmax head from the
-              objective's cotangent F [N,2].
+              windows chain on the card.  One thread-block cluster of
+              ``cluster_width(N, 1)`` blocks (csrc/scan_trace.cu with the
+              trace on, csrc/scan_cluster.cu without);
+              ``blocks=`` launches the redundant chains instead, for
+              comparisons.
+- ``scan_lanes`` (csrc/scan_cluster.cu, K8) — the same kernel over G
+              lanes, a cluster a lane on the grid's y axis: lane g runs the
+              whole pod loop with node_active = lane_active[g] and writes
+              its slices of the packed outputs and the final carries (the
+              capacity engine's scale-up estimate: one node group a lane).
+- ``scan_population`` (csrc/scan_cluster.cu, K9) — the same kernel over
+              the rows of a [pop, S] weight matrix, one shared node mask:
+              lane g is the whole rollout under weights[g] (the tuner's
+              population).
+- ``scan_grad_forward`` (csrc/scan_grad.cu, K2g) — the scan's grad mode:
+              the one-lane rollout, folding the residual M [2, S, N] of the
+              straight-through softmax head over the committed pods;
+              ``grad_contract`` (csrc/tune.cu) contracts it with the
+              objective's cotangent F [N,2] into d objective / d weights;
+              ``scan_grad`` is the two.
 - ``objective`` (csrc/tune.cu, part of K9) — each lane's final carry or
               selections reduced to its objective (utilization,
               fragmentation, pending_age) over a fixed pairwise tree, or
@@ -89,8 +96,9 @@ from kube_scheduler_simulator_tpu_torch.ops.batch import (
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {
-    "scan": "scan.cu", "scan_lanes": "scan_lanes.cu", "compact": "compact.cu", "scatter": "scatter.cu",
-    "preempt": "preempt.cu", "gang": "gang.cu", "objective": "tune.cu",
+    "scan": "scan.cu", "scan_cluster": "scan_cluster.cu", "scan_trace": "scan_trace.cu", "scan_grad": "scan_grad.cu",
+    "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu", "gang": "gang.cu",
+    "objective": "tune.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -100,7 +108,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "scan": 0, "scan_lanes": 0, "compact": 0, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
-    "scan_population": 0, "objective": 0, "scan_grad": 0,
+    "scan_population": 0, "objective": 0, "scan_grad": 0, "grad_contract": 0,
 }
 
 # the struct capacities of csrc/*.cu
@@ -110,8 +118,9 @@ MAXR_PREEMPT = 16  # resource columns of a victim-search lane (csrc/preempt.cu)
 # sums; larger domain arrays go to per-block global scratch
 DOM_SMEM_BYTES = 8192
 # the scan's block width (csrc/scan.cu THREADS: one rank tile of nodes), the
-# portable thread-block cluster size, and the H100's SMs
-SCAN_THREADS, MAX_CLUSTER, H100_SMS = 512, 8, 132
+# portable thread-block cluster size, the largest (non-portable) one the
+# scan takes (csrc/scan.cu MAXCL), and the H100's SMs
+SCAN_THREADS, MAX_CLUSTER, MAXCL, H100_SMS = 512, 8, 16, 132
 # bytes of shared memory a feasibility-scan block may take for its group's
 # free table, pod budgets and domain flags (of the 227 KB an H100 block can
 # have); larger tables go to a per-group slice of global scratch
@@ -200,12 +209,12 @@ class ScanArgs(ctypes.Structure):
             "gdom", "term_match", "ip_match_g", "ip_aff_g", "ip_anti_g", "ip_pref_g", "ip_pref_w",
             "ip_own_g", "ip_own_w", "ip_self_match",
             "port_cols", "port_conflict", "restr_cols", "restr_conflict", "cloud_cnt", "csi_cols", "csi_drv",
-            "csi_seed_used", "csi_limit", "vb_cls", "vz_cls", "pod_vol_idx", "log_table", "weights", "grad_F", "dw",
+            "csi_seed_used", "csi_limit", "vb_cls", "vz_cls", "pod_vol_idx", "log_table", "weights", "resid",
             "requested0", "nonzero0", "pod_count0", "spread_counts0", "ip_sel0", "ip_own0", "ip_anti0",
             "ports_used0", "restr_used0", "cloud_used0", "csi_attached0", "start_ptr",
             "s_requested", "s_nonzero", "s_pod_count", "s_spread", "s_ip_sel", "s_ip_own", "s_ip_anti",
             "s_raw_spread", "s_raw_ipa", "s_dom", "s_domflag", "s_total", "s_flags",
-            "s_rank", "s_ports", "s_restr", "s_cloud", "s_csi", "s_csi_cnt", "s_norm", "s_soft",
+            "s_rank", "s_ports", "s_restr", "s_cloud", "s_csi", "s_csi_cnt", "s_norm",
             "packed", "final_start", "final_requested", "final_nonzero", "final_pod_count",
             "final_ports_used", "final_restr_used", "final_cloud_used", "final_csi_att",
             "final_spread", "final_ip_sel", "final_ip_own", "final_ip_anti",
@@ -244,6 +253,12 @@ class ObjArgs(ctypes.Structure):
     ]
 
 
+class ContractArgs(ctypes.Structure):
+    _fields_ = [(n, _i64) for n in ("S", "N", "pw")] + [("tau", _f64)] + [
+        (n, _ptr) for n in ("F", "M", "scratch", "dw")
+    ]
+
+
 # the objective kernel's kinds (csrc/tune.cu)
 OBJECTIVE_IDS = {"utilization": 0, "fragmentation": 1, "pending_age": 2}
 
@@ -272,13 +287,13 @@ class GangFeasArgs(ctypes.Structure):
 
 # each library's extern "C" entry points and their argument types
 ENTRIES = {
-    "scan": {f"kss_scan_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")},
-    "scan_lanes": {f"kss_scan_lanes_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")},
+    **{lib: {f"kss_{lib}_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")}
+       for lib in ("scan", "scan_cluster", "scan_trace", "scan_grad")},
     "compact": {f"kss_compact_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
     "scatter": {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]},
     "preempt": {f"kss_preempt_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
     "gang": {f"kss_gang_{e}": [_ptr, _ptr] for e in ("verdict", "feasibility_f32", "feasibility_f64")},
-    "objective": {f"kss_objective_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
+    "objective": {f"kss_{e}_{d}": [_ptr, _ptr] for e in ("objective", "contract") for d in ("f32", "f64")},
 }
 
 _LIBS: "dict[str, ctypes.CDLL]" = {}
@@ -296,8 +311,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    """The library of ``src``, keyed by every source (scan_lanes.cu includes
-    scan.cu) and the flags."""
+    """The library of ``src``, keyed by every source (scan_cluster.cu,
+    scan_trace.cu and scan_grad.cu include scan.cu) and the flags."""
     key = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cu"))) + src.name.encode()
     h = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{h}.so"
@@ -371,25 +386,37 @@ def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
 
 
 def cluster_width(N: int, lanes: int) -> int:
-    """Blocks of each lane's thread-block cluster in a lane launch (K8, K9):
-    one a rank tile of the N nodes, at most 8, and at most the H100's 132
-    SMs shared among the lanes; 1 runs each lane in one block."""
-    return max(1, min(MAX_CLUSTER, -(-N // SCAN_THREADS), H100_SMS // lanes))
+    """Blocks of each lane's thread-block cluster (every scan launch but
+    the redundant chains): one a rank tile of the N nodes, at most 16 for
+    one lane (a non-portable size) and 8 for several, which share the
+    H100's 132 SMs; then the fewest blocks that keep the most tiles a block
+    walks (10 tiles: 10 blocks for one lane, 5 for several); 1 where a lane
+    has at most two tiles (there a cluster's barriers cost more than the
+    tile they save).  PERF.md §6 has the card's times of each choice."""
+    tiles = -(-N // SCAN_THREADS)
+    if tiles <= 2:
+        return 1
+    top = MAXCL if lanes == 1 else max(1, min(MAX_CLUSTER, H100_SMS // lanes))
+    per_block = -(-tiles // min(top, tiles))
+    return -(-tiles // per_block)
 
 
 def scan(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, blocks: "int | None" = None, ws0: "int | None" = None,
     carry0: "dict | None" = None, offset: int = 0, window: "int | None" = None,
-    weights: "torch.Tensor | None" = None,
+    weights: "torch.Tensor | None" = None, cluster: "int | None" = None,
 ) -> dict:
     """Launch the scan kernel on a problem on the card; returns the outputs
     of ops/batch.scan_plain under the same keys (``ws0``, ``carry0``,
     ``offset``, ``window`` and ``weights`` as there: with ``window`` the
     launch runs pods [offset, offset + window) from ``carry0``, whose
     ``start0`` may be the previous window's ``final_start`` on the card).
-    ``blocks`` defaults to one per SM with the trace on (one without);
-    time_scan.py compares it with a single block."""
-    out = _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, weights=weights)
+    One thread-block cluster of ``cluster`` (default ``cluster_width(N,
+    1)``) blocks walks the pod chain; ``blocks`` instead launches that many
+    blocks, each running the whole chain on its own carry copy and writing
+    its share of the trace rows: the earlier design, kept for comparisons
+    (chip_smoke.py, time_scan.py), never chosen on the service's path."""
+    out = _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, weights=weights, cluster=cluster)
     LAUNCHES["scan"] += 1
     return out
 
@@ -403,7 +430,7 @@ def scan_lanes(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: tor
     not annotations."""
     check_lanes(cfg, dims, lane_active)
     _check(lane_active, "lane_active", torch.bool)
-    out = _launch_scan(cfg, dims, dp, 1, None, None, 0, None, lane_active=lane_active)
+    out = _launch_scan(cfg, dims, dp, None, None, None, 0, None, lane_active=lane_active)
     LAUNCHES["scan_lanes"] += 1
     return out
 
@@ -417,29 +444,67 @@ def scan_population(cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: to
     leading lane axis.  Trace off."""
     check_lanes(cfg, dims, None, weights)
     _check(weights, "weights", dp.alloc.dtype)
-    out = _launch_scan(cfg, dims, dp, 1, None, None, 0, None, weights=weights)
+    out = _launch_scan(cfg, dims, dp, None, None, None, 0, None, weights=weights)
     LAUNCHES["scan_population"] += 1
     return out
+
+
+def scan_grad_forward(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: torch.Tensor, tau: float,
+) -> "tuple[torch.Tensor, dict]":
+    """Launch the scan's grad mode (K2g's forward) on a problem on the card:
+    (the residual M [2, S, N] float64, the hard rollout's outputs), as
+    ops/batch.grad_residual_plain.  ``weights`` [S] in the problem's dtype;
+    one lane, a cluster of ``cluster_width(N, 1)`` blocks, trace off."""
+    if weights.shape != (len(cfg.scores),):
+        raise ValueError(f"weights must be [{len(cfg.scores)}], got {tuple(weights.shape)}")
+    if not tau > 0:
+        raise ValueError(f"tau must be positive, got {tau}")
+    out = _launch_scan(cfg._replace(trace=False), dims, dp, None, None, None, 0, None, weights=weights, grad=tau)
+    LAUNCHES["scan_grad"] += 1
+    return out.pop("resid"), out
+
+
+def grad_contract(M: torch.Tensor, F: torch.Tensor, tau: float) -> torch.Tensor:
+    """Launch K2g's contraction (csrc/tune.cu) on the card: d objective / d
+    weights [S] float64 from the grad forward's residual ``M`` [2, S, N]
+    float64 and the objective's cotangent ``F`` [N, 2], as
+    ops/batch.grad_contract_plain (bitwise: the same products over the same
+    tree)."""
+    if M.dim() != 3 or M.shape[0] != 2 or F.shape != (M.shape[2], 2):
+        raise ValueError(f"M must be [2, S, N] and F [N, 2], got {tuple(M.shape)} and {tuple(F.shape)}")
+    if not tau > 0:
+        raise ValueError(f"tau must be positive, got {tau}")
+    S, N = M.shape[1], M.shape[2]
+    a = ContractArgs()
+    a.M = _check(M, "M", torch.float64)
+    a.F = _check(F, "F")
+    if F.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"F must be float32 or float64, got {F.dtype}")
+    fn = getattr(build()["objective"], f"kss_contract_{'f32' if F.dtype == torch.float32 else 'f64'}")
+    pw = 1 << max(2 * N - 1, 0).bit_length()
+    scratch = torch.empty((S, pw), dtype=torch.float64, device=M.device)
+    dw = torch.empty(S, dtype=torch.float64, device=M.device)
+    a.S, a.N, a.pw, a.tau = S, N, pw, float(tau)
+    a.scratch, a.dw = scratch.data_ptr(), dw.data_ptr()
+    rc = fn(ctypes.byref(a), torch.cuda.current_stream(M.device).cuda_stream)
+    _raise_on(rc, "grad contraction")
+    LAUNCHES["grad_contract"] += 1
+    return dw
 
 
 def scan_grad(
     cfg: BatchConfig, dims: dict, dp: DeviceProblem, weights: torch.Tensor, F: torch.Tensor, tau: float,
 ) -> "tuple[torch.Tensor, dict]":
-    """Launch the scan's grad mode (K2g) on a problem on the card: (d
-    objective / d weights [S] float64, the hard rollout's outputs), as
-    ops/batch.grad_plain (whose docstring gives the formula).  ``weights``
-    [S] and ``F`` [N, 2] (d objective / d final_nonzero) in the problem's
-    dtype.  One lane, one block, trace off."""
-    dt = dp.alloc.dtype
-    if weights.shape != (len(cfg.scores),) or F.shape != (dims["N"], 2):
-        raise ValueError(f"weights must be [{len(cfg.scores)}] and F [{dims['N']}, 2], got "
-                         f"{tuple(weights.shape)} and {tuple(F.shape)}")
-    _check(F, "F", dt)
-    if not tau > 0:
-        raise ValueError(f"tau must be positive, got {tau}")
-    out = _launch_scan(cfg._replace(trace=False), dims, dp, 1, None, None, 0, None, weights=weights, grad=(F, tau))
-    LAUNCHES["scan_grad"] += 1
-    return out.pop("dw"), out
+    """K2g on a problem on the card: (d objective / d weights [S] float64,
+    the hard rollout's outputs), as ops/batch.grad_plain (whose docstring
+    gives the formula): the grad forward, then the contraction with ``F``
+    [N, 2] (d objective / d final_nonzero, the problem's dtype)."""
+    if F.shape != (dims["N"], 2):
+        raise ValueError(f"F must be [{dims['N']}, 2], got {tuple(F.shape)}")
+    _check(F, "F", dp.alloc.dtype)
+    M, out = scan_grad_forward(cfg, dims, dp, weights, tau)
+    return grad_contract(M, F, tau), out
 
 
 def objective(
@@ -485,13 +550,14 @@ def objective(
 
 
 def _launch_scan(
-    cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None, weights=None, grad=None,
+    cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None, weights=None, grad=None, cluster=None,
 ) -> dict:
     """One launch of csrc/scan.cu: ``scan``'s arguments; with
     ``lane_active`` [G, N] (K8) or a [G, S] ``weights`` matrix (K9) the lane
-    axis (every output gets a leading lane axis; a lane is a cluster of
-    ``cluster_width`` blocks sharing one scratch slot, or one block); with
-    ``grad=(F, tau)`` the grad mode (K2g, ``dw`` in the outputs)."""
+    axis (every output gets a leading lane axis); a lane is a cluster of
+    ``cluster`` (default ``cluster_width``) blocks sharing one scratch slot,
+    unless ``blocks`` asks for the redundant chains; with ``grad=tau`` the
+    grad mode (K2g's forward, ``resid`` in the outputs)."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
@@ -517,11 +583,6 @@ def _launch_scan(
     dt = dp.alloc.dtype
     dev = dp.alloc.device
     i32 = torch.int32
-    if blocks is None:
-        # every block runs the whole chain; only the trace rows are split
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = max(1, min(P, sms)) if cfg.trace else 1
-
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
     SG, G, D = dims["SG"], dims["G"], dims["D"]
     # the weights: the profile's row, one given row, or K9's [L, S] rows
@@ -562,12 +623,20 @@ def _launch_scan(
     PT, VR, VID, DR = (t.shape[1] for t in (dp.ports_used0, dp.restr_used0, dp.csi_attached0, dp.csi_seed_used))
     cap, in_smem = domain_layout(dims, dt)
     nslot = dims["KC"] + dims["KS"]
-    # a lane launch runs each lane on a cluster of C blocks sharing one carry
-    # copy; otherwise a carry copy for each block of each lane
-    C = cluster_width(N, L) if laned and grad is None else 1
-    fn = _entry("scan_lanes" if C > 1 else "scan", dt)
-    blocks_x = C if C > 1 else blocks
-    slots = L if C > 1 else blocks * L
+    # each lane a cluster of C blocks sharing one carry copy, or (``blocks``)
+    # a carry copy for each block of each lane
+    if blocks is not None:
+        if laned or grad is not None or cluster is not None or blocks < 1:
+            raise ValueError("the redundant chains take one lane, no grad mode and no cluster width")
+        C, lib, blocks_x, slots = 1, "scan", blocks, blocks
+    else:
+        C = cluster_width(N, L) if cluster is None else cluster
+        if not 1 <= C <= MAXCL or (C > 1 and -(-N // SCAN_THREADS) > SCAN_THREADS):
+            raise ValueError(f"a cluster of {C} blocks over {N} nodes: at most {MAXCL} blocks and "
+                             f"{SCAN_THREADS} rank tiles of {SCAN_THREADS} nodes")
+        lib = "scan_grad" if grad is not None else ("scan_trace" if cfg.trace else "scan_cluster")
+        blocks_x, slots = C, L
+    fn = _entry(lib, dt)
     scratch = dict(
         s_requested=e(slots, N, R), s_nonzero=e(slots, N, 2), s_pod_count=e(slots, N),
         s_spread=e(slots, SG, N) if SG > 0 else e(1),
@@ -585,7 +654,6 @@ def _launch_scan(
         s_csi=e(slots, VID, N, dtype=torch.uint8) if gates["csi"] else e(1, dtype=torch.uint8),
         s_csi_cnt=e(slots, DR, N) if gates["csi"] else e(1),
         s_norm=e(slots, S, N) if grad is not None else e(1),
-        s_soft=e(slots, N) if grad is not None else e(1),
     )
     logt = log_table(N, dt, dev)
     a = ScanArgs()
@@ -674,12 +742,12 @@ def _launch_scan(
         a.node_active = lane_active.data_ptr()
     a.start_ptr = _check(start_dev, "start0", i32) if start_dev is not None else None
     if grad is not None:
-        F, tau = grad
-        if L != 1 or blocks_x != 1 or cfg.trace:
-            raise ValueError("the grad mode runs one lane in one block with the trace off")
-        out["dw"] = torch.empty(S, dtype=torch.float64, device=dev)
-        a.grad, a.tau = 1, float(tau)
-        a.grad_F, a.dw = F.data_ptr(), out["dw"].data_ptr()
+        if laned or cfg.trace:
+            raise ValueError("the grad mode runs one lane with the trace off")
+        # zeroed by the kernel
+        out["resid"] = torch.empty((2, S, N), dtype=torch.float64, device=dev)
+        a.grad, a.tau = 1, float(grad)
+        a.resid = out["resid"].data_ptr()
     for name, t in scratch.items():
         setattr(a, name, t.data_ptr())
     a.packed = out["packed_pod"].data_ptr()

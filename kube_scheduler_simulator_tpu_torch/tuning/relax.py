@@ -13,14 +13,16 @@ by autodiff through the whole scan.
 
 Here the gradient is a ``torch.autograd.Function`` (``RolloutValue``):
 
-- forward: the hard rollout (the population kernel K9 with one lane on the
-  card, ``scan_plain`` on the CPU) and the objective (csrc/tune.cu on the
-  card);
+- forward: the hard rollout in the scan's grad mode (K2g's forward,
+  ``kernels.scan_grad_forward`` on the card, ``grad_residual_plain`` on
+  the CPU), which also folds the residual M [2, S, N] of every committed
+  pod's softmax term over the pod chain, and the objective (csrc/tune.cu
+  on the card);
 - backward: the objective's cotangent F = d objective / d final_nonzero,
-  then the scan's grad mode (K2g, ``kernels.scan_grad``; ``grad_plain`` on
-  the CPU), which re-runs the pod chain and sums each committed pod's
-  softmax term (ops/batch.grad_plain gives the formula and why no carry
-  passes gradient).
+  then its contraction with M (``kernels.grad_contract``,
+  ``grad_contract_plain`` on the CPU): no second pass over the pod chain
+  (ops/batch.grad_plain gives the formula and why no carry passes
+  gradient, grad_residual_plain why M carries it).
 
 ``BatchConfig.relax_tau`` keeps the reference's straight-through head in
 the plain scan, so torch autograd through ``scan_plain`` checks the
@@ -48,32 +50,44 @@ def rollout(cfg: "B.BatchConfig", dims: dict, dp: Any, W: torch.Tensor) -> dict:
     return B.scan_lanes_plain(cfg, dims, dp, weights=W)
 
 
-def rollout_grad(cfg: "B.BatchConfig", dims: dict, dp: Any, w: torch.Tensor, F: torch.Tensor, tau: float):
-    """(d objective / d weights [S] float64, the hard rollout): K2g on the
-    card, ``grad_plain`` on the CPU."""
+def rollout_residual(cfg: "B.BatchConfig", dims: dict, dp: Any, w: torch.Tensor, tau: float):
+    """(K2g's residual M [2, S, N] float64, the hard rollout under ``w``):
+    the grad forward on the card, ``grad_residual_plain`` on the CPU."""
     if dp.alloc.device.type == "cuda":
         from kube_scheduler_simulator_tpu_torch.ops import kernels
 
-        return kernels.scan_grad(cfg, dims, dp, w, F, tau)
-    return B.grad_plain(cfg, dims, dp, w, F, tau)
+        return kernels.scan_grad_forward(cfg, dims, dp, w, tau)
+    return B.grad_residual_plain(cfg, dims, dp, w, tau)
+
+
+def contract(M: torch.Tensor, F: torch.Tensor, tau: float) -> torch.Tensor:
+    """d objective / d weights [S] float64 from M and F: the contraction
+    kernel on the card, ``grad_contract_plain`` on the CPU."""
+    if M.device.type == "cuda":
+        from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+        return kernels.grad_contract(M, F, tau)
+    return B.grad_contract_plain(M, F, tau)
 
 
 class RolloutValue(torch.autograd.Function):
-    """value(w) of one rollout; its backward is K2g (``grad_plain`` on the
-    CPU) at the temperature ``tau``."""
+    """value(w) of one rollout at the temperature ``tau``: the forward is
+    K2g's grad forward and the objective, the backward the cotangent and
+    the contraction."""
 
     @staticmethod
     def forward(ctx, w, cfg, dims, dp, age_w, objective, tau):
         wd = w.detach().to(device=dp.alloc.device, dtype=dp.alloc.dtype).contiguous()
-        ys = {k: v[0] for k, v in rollout(cfg, dims, dp, wd[None]).items() if k in ("final_nonzero", "selected")}
-        ctx.args = (wd, cfg, dims, dp, age_w, objective, tau, ys, w.device, w.dtype)
+        M, out = rollout_residual(cfg, dims, dp, wd, tau)
+        ys = {k: out[k] for k in ("final_nonzero", "selected")}
+        ctx.args = (M, dp, age_w, objective, tau, ys, w.device, w.dtype)
         return objective_value(objective, ys, dp, age_w)
 
     @staticmethod
     def backward(ctx, g):
-        wd, cfg, dims, dp, age_w, objective, tau, ys, w_dev, w_dt = ctx.args
+        M, dp, age_w, objective, tau, ys, w_dev, w_dt = ctx.args
         F = objective_grad(objective, ys, dp, age_w)
-        dw, _out = rollout_grad(cfg, dims, dp, wd, F, tau)
+        dw = contract(M, F, tau)
         return (g.double() * dw).to(device=w_dev, dtype=w_dt), None, None, None, None, None, None
 
 

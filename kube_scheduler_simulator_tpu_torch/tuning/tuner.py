@@ -10,15 +10,18 @@ against one scalar objective (or one [S] gradient):
   then one objective launch) evaluates a whole generation.  Needs
   nothing differentiable, so it covers every objective.
 - ``run_grad``: normalized gradient ascent through the straight-through
-  relaxed rollout (tuning/relax.py): per step one hard rollout (K9 with
-  one lane), the objective and its cotangent, and the scan's grad mode
-  (K2g).  Forward values equal the hard rollout's, so the reported
-  objectives need no re-evaluation.
+  relaxed rollout (tuning/relax.py): per step one rollout in the scan's
+  grad mode (K2g's forward: the hard rollout, folding the residual M),
+  the objective and its cotangent, and the contraction of M with it.
+  Forward values equal the hard rollout's, so the reported objectives
+  need no re-evaluation.
 
 ``rollouts``, ``dispatches`` and ``grad_dispatches`` keep the reference's
 meaning (one dispatch per evaluate, population or value-and-grad call);
-the kernel launches count in ``ops/kernels.LAUNCHES`` as
-``scan_population``, ``objective`` and ``scan_grad``.  A problem whose
+the kernel launches count in ``ops/kernels.LAUNCHES``: ``scan_population``
+one an evaluate or population call, ``scan_grad`` (the grad forward) and
+``grad_contract`` one a value-and-grad call each, ``objective`` one a
+value and one a cotangent.  A problem whose
 resource values would go inexact in float32 runs in float64
 (``ops/batch.exactness_bound`` / ``round_dtype``; ``bound``,
 ``promotion``).

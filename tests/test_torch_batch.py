@@ -777,3 +777,35 @@ def test_device_placer_reuses_and_scatters_ip_match_g(topo_problem):
     assert placer.decisions[("ip_match_g", None)][0] == "scatter" and "ip_match_g" in placer.last_scattered
     assert torch.equal(d3.ip_match_g, torch.from_numpy(host3["ip_match_g"]))
     assert d3.ip_match_g[3].tolist()[:2] == [0, 2]
+
+
+# ------------------------------------------- K2g's residual and contraction
+
+
+@pytest.mark.parametrize("fixture,subset,tie", [
+    ("problem", "full", "first"), ("topo_problem", "seven", "first"), ("topo_problem", "seven", "reservoir"),
+])
+@pytest.mark.parametrize("fseed", [1, 2])
+def test_residual_and_contraction_equal_grad_plain(request, fixture, subset, tie, fseed):
+    """K2g's pair of plain versions: the residual M folded over the plain
+    step, then contracted with a seeded F, equals grad_plain's per-pod
+    closed form to 1e-12 of its norm in float64, for any F (the identity is
+    linear in F and rests only on each softmax summing to 1); the pair's
+    rollout is the hard one, bitwise."""
+    pr, _jdp, _dims = request.getfixturevalue(fixture)
+    dp, dims = TB.lower(pr, dtype=torch.float64, device="cpu")
+    dp = dp._replace(sample_k=100, start0=37, tb_base=4294967290)
+    filters, scores = SUBSETS[subset]
+    cfg = TB.BatchConfig(filters=tuple(filters), scores=tuple(scores), tie_break=tie, seed=7)
+    rng = np.random.default_rng(fseed)
+    w = torch.as_tensor(rng.uniform(0.2, 3.0, len(scores)))
+    F = torch.as_tensor(rng.normal(size=(dims["N"], 2)))
+    M, out = TB.grad_residual_plain(cfg, dims, dp, w, 50.0)
+    assert M.shape == (2, len(scores), dims["N"]) and M.dtype == torch.float64
+    got = TB.grad_contract_plain(M, F, 50.0)
+    want, hard = TB.grad_plain(cfg, dims, dp, w, F, 50.0)
+    assert float(want.norm()) > 0
+    assert float((got - want).norm()) <= 1e-12 * float(want.norm()), (got, want)
+    for k in ("packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_ip_sel"):
+        assert torch.equal(out[k], hard[k]), k
+

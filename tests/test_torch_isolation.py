@@ -179,7 +179,7 @@ def test_a_cuda_round_launches_both_kernels():
     res = BatchEngine(scores=[("NodeResourcesFit", 1)], trace=True).schedule(nodes, all_pods, pending)
     assert kernels.LAUNCHES == {
         "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
-        "scan_population": 0, "objective": 0, "scan_grad": 0,
+        "scan_population": 0, "objective": 0, "scan_grad": 0, "grad_contract": 0,
     }
     assert sum(s is not None for s in res.selected_nodes) == 40
 

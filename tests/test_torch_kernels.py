@@ -64,7 +64,8 @@ def _struct_fields(src: str, name: str) -> "list[str]":
 @pytest.mark.parametrize(
     "src,struct",
     [("scan.cu", "ScanArgs"), ("compact.cu", "CompactArgs"), ("preempt.cu", "PreemptArgs"),
-     ("gang.cu", "GangVerdictArgs"), ("gang.cu", "GangFeasArgs"), ("tune.cu", "ObjArgs")],
+     ("gang.cu", "GangVerdictArgs"), ("gang.cu", "GangFeasArgs"), ("tune.cu", "ObjArgs"),
+     ("tune.cu", "ContractArgs")],
 )
 def test_ctypes_mirror_matches_the_cuda_struct(src, struct):
     """The argument structs are read by field order: the ctypes mirror and
@@ -104,17 +105,29 @@ def _search_args(U, N, V, R, PDB, S, dt, device, seed=0):
 
 @pytest.mark.parametrize("N,lanes,C", [
     (160, 3, 1),      # cfg6-autoscale's first estimate: one tile, one block a lane
-    (1024, 16, 2),    # the autoscale burst
+    (1024, 16, 1),    # the autoscale burst: two tiles, one block a lane
     (1280, 16, 3),    # cfg10-tune-10k's population
-    (1280, 1, 3),     # the grad tuner's one-lane evaluation
+    (1280, 1, 3),     # the grad tuner's one-lane evaluation and grad forward
     (4096, 16, 8),    # 3 585 nodes padded: eight tiles, at most 8 blocks a cluster
-    (40960, 1, 8),
+    (5120, 16, 5),    # ten tiles over at most 8 blocks: two a block, so 5
+    (40960, 1, 16),   # one lane: at most 16 blocks (a non-portable size)
+    (12288, 1, 12),
     (4096, 40, 3),    # 132 SMs shared by 40 lanes
+    (1536, 50, 2),
     (1280, 100, 1),
+    # the one-lane scan at every path shape (nodes padded by encode._bucket)
+    (512, 1, 1),      # cfg2: 500 nodes
+    (5120, 1, 10),    # north, cfg4, cfg5-vol, the churn window: 5 000 nodes
+    (2048, 1, 4),     # cfg3: 2 000 nodes
+    (224, 1, 1),      # cfg8-gang: 220 nodes
+    (1024, 1, 1),     # two tiles
+    (1536, 1, 3),
 ])
 def test_cluster_width_is_a_function_of_the_shape(N, lanes, C):
-    """C = min(8, ceil(N / 512), max(1, 132 // lanes)) at the lane paths'
-    shapes."""
+    """C = min(16 for one lane or 8, ceil(N / 512), max(1, 132 // lanes)),
+    lowered to the fewest blocks at the same tiles a block, and 1 where a
+    lane has at most two rank tiles, at the lane paths' and the one-lane
+    scan's shapes."""
     assert TK.cluster_width(N, lanes) == C
 
 
@@ -200,13 +213,17 @@ def test_wrappers_refuse_cpu_tensors():
         TK.scan_population(lanes_cfg, dims, dp, f64(3, len(SCORES)))
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.scan_grad(lanes_cfg, dims, dp, f64(len(SCORES)), f64(dims["N"], 2), 50.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.scan_grad_forward(lanes_cfg, dims, dp, f64(len(SCORES)), 50.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.grad_contract(f64(2, len(SCORES), dims["N"]), f64(dims["N"], 2), 50.0)
     N, P = dims["N"], dims["P"]
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.objective("utilization", f64(2, N, 2), i32(2, P), f64(N, 2), torch.ones(N, dtype=torch.bool),
                      torch.ones(P, dtype=torch.bool), f64(P))
     assert TK.LAUNCHES == {
         k: 0 for k in ("scan", "scan_lanes", "compact", "scatter", "preempt", "gang_verdict", "gang_feasibility",
-                       "scan_population", "objective", "scan_grad")
+                       "scan_population", "objective", "scan_grad", "grad_contract")
     }
 
 
@@ -406,6 +423,74 @@ def test_windowed_scan_matches_one_launch_on_the_card(dt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_windows_of_256_in_a_cluster_chain_to_one_launch_on_the_card(dt):
+    """K2w at the service's window of 256 pods over three rank tiles (a
+    cluster of 3 blocks): the windows chained on the card, each handing on
+    one carry copy and its rotation start, equal the one-launch kernel
+    bitwise in the packed rows, every trace plane (compacted in the step)
+    and the whole final carry; spread constraints, inter-pod terms, host
+    ports, volumes, reservoir draws across the uint32 wrap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    pr, dp, dims = _problem(dt, "cuda", n_pods=700, n_nodes=1300, topo=True, storage=True)
+    dp = dp._replace(sample_k=500, start0=401, tb_base=4294967000)
+    assert TK.cluster_width(dims["N"], 1) == 3 and dims["P"] == 768
+    cfg = TB.BatchConfig(filters=REGISTRY_FILTERS, scores=DEFAULT_SCORES, trace=True, tie_break="reservoir", seed=7)
+    ws0 = TB.pick_ws0(cfg, dims, 500, pr.N_true)
+    one = TK.scan(cfg, dims, dp, ws0=ws0)
+    carry, outs = None, []
+    for off in range(0, dims["P"], 256):
+        out = TK.scan(cfg, dims, dp, ws0=ws0, carry0=carry, offset=off, window=256)
+        carry = out["final_carry"]
+        outs.append(out)
+    for key in ("fail_plug", "fail_code", *(f"{k}:{s}" for s, _w in DEFAULT_SCORES for k in ("raw", "norm"))):
+        assert torch.equal(torch.cat([o[key] for o in outs]), one[key]), key
+    assert torch.equal(torch.cat([o["packed_pod"][:4] for o in outs], 1), one["packed_pod"][:4])
+    for f in TB.CARRY0_FIELDS:
+        assert torch.equal(carry[f].reshape(-1), one["final_carry"][f].reshape(-1)), f
+
+
+# (cluster width, nodes, tie-break, storage, in-step compaction, topology):
+# the one-lane scan with the trace on as a cluster of C blocks (an explicit
+# width; 12 a non-portable size), the rotation start a third of the way in;
+# 1 250 nodes pad to 1 280, a partial last rank tile
+ONE_LANE_CASES = [
+    (1, 300, "first", False, True, True),
+    (2, 900, "reservoir", True, True, True),
+    (2, 900, "first", False, False, False),
+    (3, 1250, "reservoir", False, True, True),
+    (3, 1300, "first", True, False, True),
+    (8, 3585, "first", True, True, True),
+    (8, 3585, "reservoir", False, False, True),
+    (12, 6000, "reservoir", True, True, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,n_nodes,tie_break,storage,compact,topo", ONE_LANE_CASES)
+def test_one_lane_scan_in_a_cluster_matches_plain_version_on_the_card(C, n_nodes, tie_break, storage, compact, topo):
+    """The one-lane scan (K2a-f) as one thread-block cluster of C blocks
+    with the trace on: every output bitwise its plain version's in both
+    dtypes (packed rows, trace planes, compacted score rows with ws0 > 0,
+    trace meta, the whole final carry), and bitwise the redundant chains'
+    (``blocks=``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    for dt in (torch.float32, torch.float64):
+        pr, dp, dims = _problem(dt, "cuda", n_pods=24, n_nodes=n_nodes, topo=topo, storage=storage)
+        sample_k = 2 * n_nodes // 3
+        dp = dp._replace(sample_k=sample_k, start0=n_nodes // 3 + 1, tb_base=4294967290)
+        filters, scores = (REGISTRY_FILTERS, DEFAULT_SCORES) if storage or topo else (SEVEN_FILTERS, SCORES)
+        cfg = TB.BatchConfig(filters=filters, scores=scores, trace=True, tie_break=tie_break, seed=7)
+        ws0 = TB.pick_ws0(cfg, dims, sample_k, pr.N_true) if compact else None
+        assert (ws0 is not None) == compact
+        k_out = TK.scan(cfg, dims, dp, ws0=ws0, cluster=C)
+        assert_outputs_equal(k_out, TB.scan_plain(cfg, dims, dp, ws0=ws0), (C, dt))
+        assert_outputs_equal(TK.scan(cfg, dims, dp, ws0=ws0, blocks=7), k_out, ("blocks", C, dt))
+
+
+@pytest.mark.gpu
 def test_service_churn_on_the_card_matches_the_cpu():
     """A small churn through the port's SchedulerService on the card (float64,
     windowed rounds, a rolling cordon through the scatter kernel) leaves
@@ -525,7 +610,7 @@ def test_lane_scan_matches_plain_version_and_one_lane_scans_on_the_card(topo):
         p_out = TB.scan_lanes_plain(cfg, dims, dp, lane)
         assert_outputs_equal(k_out, p_out, (dt, topo))
         for g in range(masks.shape[0]):
-            one = TK.scan(cfg, dims, dp._replace(node_active=lane[g].contiguous()))
+            one = TK.scan(cfg, dims, dp._replace(node_active=lane[g].contiguous()), blocks=1)
             for key in ("packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_spread_counts",
                         "final_ip_sel", "final_ip_own", "final_ip_anti"):
                 assert torch.equal(k_out[key][g], one[key]), (dt, topo, g, key)
@@ -533,17 +618,19 @@ def test_lane_scan_matches_plain_version_and_one_lane_scans_on_the_card(topo):
 
 
 # (cluster width, nodes, lanes, pods, sample_k, start0, zones, topology): the
-# lane scan in clusters of 1, 2, 3 and 8 blocks, the rotation start past the
-# first tiles; with spread constraints and inter-pod terms (a barrier after
-# each commit), or without them (the next pod's owner commits); the last in
-# 650 zones, so PodTopologySpread's domain sums live in the lane's global
-# scratch instead of rank 0's shared memory
+# lane scan in clusters of 1 (one or two rank tiles), 2 (132 SMs over 50
+# lanes), 3 and 8 blocks, the rotation start past the first tiles; with
+# spread constraints and inter-pod terms (a barrier after each commit), or
+# without them (the next pod's owner commits); the last in 650 zones, so
+# PodTopologySpread's domain sums live in the lane's global scratch instead
+# of rank 0's shared memory
 CLUSTER_CASES = [
     (1, 300, 4, 24, 120, 211, None, True),
-    (2, 900, 4, 24, 400, 777, None, True),
+    (1, 900, 4, 24, 400, 777, None, True),
     (3, 1300, 5, 24, 700, 1111, None, True),
     (8, 3585, 16, 12, 2500, 3001, None, True),
-    (2, 900, 4, 24, 400, 777, None, False),
+    (2, 1300, 50, 6, 700, 1111, None, True),
+    (1, 900, 4, 24, 400, 777, None, False),
     (3, 1300, 5, 24, 700, 1111, None, False),
     (8, 3585, 16, 12, 2500, 3001, None, False),
     (3, 1300, 3, 16, 900, 5, lambda i: f"zone-{i // 2}", True),
@@ -631,9 +718,10 @@ def _tune_session(family: str, dt, device, n_nodes=40, n_pods=240):
 @pytest.mark.parametrize("family", ["imbalance", "consolidate"])
 def test_population_and_objective_kernels_match_plain_versions_on_the_card(family):
     """K9: the population launch against its plain version and each lane
-    against the one-lane scan (K2) under that lane's weights, bitwise, in
-    both dtypes; the objective kernel (values and cotangents) against its
-    plain version, bitwise, for every objective."""
+    against the one-lane scan (K2, the redundant chains' design) under that
+    lane's weights, bitwise, in both dtypes; the objective kernel (values
+    and cotangents) against its plain version, bitwise, for every
+    objective."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     import numpy as np
@@ -649,7 +737,7 @@ def test_population_and_objective_kernels_match_plain_versions_on_the_card(famil
         k_out = TK.scan_population(s.cfg, s.dims, s.dp, Wt)
         assert_outputs_equal(k_out, TB.scan_lanes_plain(s.cfg, s.dims, s.dp, weights=Wt), (family, dt))
         for g in range(W.shape[0]):
-            one = TK.scan(s.cfg, s.dims, s.dp, weights=Wt[g].contiguous())
+            one = TK.scan(s.cfg, s.dims, s.dp, weights=Wt[g].contiguous(), blocks=1)
             for key in ("packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_ip_sel", "final_ip_own"):
                 assert torch.equal(k_out[key][g], one[key]), (family, dt, g, key)
         for name in TO.OBJECTIVES:
@@ -661,30 +749,42 @@ def test_population_and_objective_kernels_match_plain_versions_on_the_card(famil
                                    TO.objective_grad_plain(name, one, s.dp, s.age_w)), (name, g)
 
 
-# K2g against grad_plain: sums in the block's order, not the plain version's
+# K2g against grad_plain: the grad forward folds M in the cluster's order
+# and over pods before F, the plain version sums each pod's terms with F
 GRAD_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family,objective", [("imbalance", "fragmentation"), ("consolidate", "utilization"),
-                                              ("imbalance", "pending_age")])
-def test_grad_kernel_matches_grad_plain_on_the_card(family, objective):
-    """K2g: d objective / d weights within GRAD_TOL of ||g||, the launch's
-    final carry bitwise the hard rollout's; pending_age's exactly 0."""
+@pytest.mark.parametrize("family,objective,nodes", [("imbalance", "fragmentation", 40), ("consolidate", "utilization", 40),
+                                                    ("imbalance", "pending_age", 40), ("imbalance", "utilization", 1300)])
+def test_grad_kernel_matches_grad_plain_on_the_card(family, objective, nodes):
+    """K2g (the grad forward, then the contraction): d objective / d
+    weights within GRAD_TOL of ||g|| from grad_plain, the forward's
+    residual within GRAD_TOL of grad_residual_plain's, the contraction
+    bitwise its plain version on the same M and F, the launch's final carry
+    bitwise the hard rollout's; pending_age's exactly 0.  At 1 300 nodes
+    the forward is a cluster of 3 blocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from kube_scheduler_simulator_tpu_torch.tuning import objective as TO
 
     for dt in (torch.float32, torch.float64):
-        s = _tune_session(family, dt, "cuda")
+        s = _tune_session(family, dt, "cuda", n_nodes=nodes)
         w = torch.tensor([1.0, 2.0, 1.5, 0.5, 2.0, 1.0, 1.0], dtype=dt, device="cuda")
         hard = TK.scan_population(s.cfg, s.dims, s.dp, w[None].contiguous())
         ys = {"final_nonzero": hard["final_nonzero"][0], "selected": hard["selected"][0]}
         F = TO.objective_grad(objective, ys, s.dp, s.age_w)
+        TK.reset_counts()
         dw, out = TK.scan_grad(s.cfg, s.dims, s.dp, w, F, 50.0)
+        assert TK.LAUNCHES["scan_grad"] == TK.LAUNCHES["grad_contract"] == 1
         dw_p, out_p = TB.grad_plain(s.cfg, s.dims, s.dp, w, F, 50.0)
         for key in ("packed_pod", "final_requested", "final_nonzero", "final_pod_count"):
             assert torch.equal(out[key], hard[key][0]) and torch.equal(out[key], out_p[key]), (dt, key)
+        M, _out = TK.scan_grad_forward(s.cfg, s.dims, s.dp, w, 50.0)
+        M_p, _out_p = TB.grad_residual_plain(s.cfg, s.dims, s.dp, w, 50.0)
+        assert float((M - M_p).norm()) <= GRAD_TOL[dt] * float(M_p.norm()), dt
+        assert torch.equal(TK.grad_contract(M, F, 50.0), TB.grad_contract_plain(M, F, 50.0))
+        assert torch.equal(TK.grad_contract(M, F, 50.0), dw)
         if objective == "pending_age":
             assert not dw.any() and not dw_p.any()
         else:
@@ -709,8 +809,11 @@ def test_tuner_and_override_on_the_card_match_the_cpu():
         kernels.reset_counts()
         got = run_tuning(device="cuda", **kw)
         want = run_tuning(device="cpu", **kw)
-        assert got["kernelPlatform"] == "cuda" and kernels.LAUNCHES["scan_population"] == got["dispatches"]
-        assert kernels.LAUNCHES["scan_grad"] == got["gradDispatches"]
+        # an evaluate or population call launches K9, a value-and-grad call
+        # the grad forward and the contraction
+        assert got["kernelPlatform"] == "cuda"
+        assert kernels.LAUNCHES["scan_population"] == got["dispatches"] - got["gradDispatches"]
+        assert kernels.LAUNCHES["scan_grad"] == kernels.LAUNCHES["grad_contract"] == got["gradDispatches"]
         assert got["defaultObjective"] == want["defaultObjective"]
         if tuner == "cem":
             assert got["weights"] == want["weights"] and got["history"] == want["history"]

@@ -266,6 +266,33 @@ def test_grad_matches_jax_value_and_grad_and_torch_autograd(family, objective, w
     assert port.grad_dispatches == 1 and port.dispatches == 1
 
 
+@pytest.mark.parametrize("family,objective", [
+    ("consolidate", "utilization"), ("imbalance", "fragmentation"), ("tail", "pending_age"),
+])
+def test_residual_and_contraction_match_jax_value_and_grad(family, objective):
+    """K2g as the card runs it, in plain versions: the grad forward's
+    residual M (``grad_residual_plain``) contracted with the objective's
+    cotangent (``grad_contract_plain``) against ``jax.value_and_grad``
+    through the reference's straight-through scan (GRAD_TOL of the
+    gradient's norm) and against ``grad_plain`` (1e-12), for each
+    objective; pending_age's is exactly 0 on both sides."""
+    port, ref = _sessions(family, objective, n_pods=40, seed=31)
+    w = _weights(len(port.scores), 31)
+    M, out = TB.grad_residual_plain(port.cfg, port.dims, port.dp, torch.as_tensor(w), 50.0)
+    ys = {"final_nonzero": out["final_nonzero"], "selected": out["selected"]}
+    F = TO.objective_grad_plain(objective, ys, port.dp, port.age_w)
+    g = TB.grad_contract_plain(M, F, 50.0).numpy()
+    jv, jg = ref.value_and_grad(w, 50.0)
+    assert abs(float(TO.objective_plain(objective, ys, port.dp, port.age_w)) - jv) <= VALUE_TOL * max(abs(jv), 1e-300)
+    gp, _hard = TB.grad_plain(port.cfg, port.dims, port.dp, torch.as_tensor(w), F, 50.0)
+    if objective == "pending_age":
+        assert not np.any(g) and not np.any(jg) and not gp.any()
+        return
+    assert np.linalg.norm(jg) > 0, "the reference's gradient is zero: the case checks nothing"
+    assert _rel(g, jg) <= GRAD_TOL, (_rel(g, jg), g, jg)
+    assert _rel(g, gp.numpy()) <= 1e-12
+
+
 def test_grad_plain_is_the_rollout_and_pending_age_has_zero_gradient():
     port, ref = _sessions("tail", "pending_age", n_pods=30)
     w = torch.as_tensor(_weights(len(port.scores), 7), dtype=torch.float64)
