@@ -91,7 +91,7 @@ Phases (each prints its seconds; any failure exits nonzero before the last
 line):
 
 1. the card's name and power limit (nvidia-smi), then the kernel build
-   (nvcc, sm_90a, both sources in parallel);
+   (nvcc, sm_90a, every source in parallel);
 2. kernel against plain version on the card, bitwise (digests of every
    output against a worker's plain run) in float32 and float64, with the
    trace on: the scan (one thread-block cluster of ``cluster_width(N, 1)``
@@ -151,7 +151,13 @@ line):
    than the dispatches;
 13. K5 against its plain version on the captured inputs of that round's
    first dispatch, bitwise in float32 and float64, timed (the kernel over
-   20 launches after warm-ups, the plain version once);
+   20 launches enqueued behind a sleep of the card, so they run back to
+   back: the launch is shorter than its call; the call's host time beside
+   it; the plain version once); the whole dispatch
+   (``run_search`` on the same host inputs: its masks the kernel's) and its
+   split (host staging; inputs in, kernel and fetch by CUDA events), the
+   mean of 20, warm and cold (the problem's tables uploaded first, as the
+   service runs every dispatch);
 14. cfg7-preempt-5k cut to 500 nodes, 2 000 bound pods, 40 fillers and 16
    preemptors, two rounds: the CUDA float64 service and the CPU float64
    service (a worker process) leave every pod with equal annotations, node
@@ -185,22 +191,26 @@ line):
    promotion counted, in the engine and in the service), places nothing
    ("Insufficient memory") and equals the float64 round.  Phases 3, 8 and
    12 fail on any promotion and print each round's exactness headroom;
-20. (run after 21, on its captured inputs) K8 against its plain version,
-   bitwise in float32 and float64, at cfg6-autoscale's first estimate
-   dispatch; at the burst's shape, each of the 16 lanes of K8 against the
-   one-lane scan (K2) launched on that lane's mask, in both dtypes; K8
-   timed over 20 launches at both shapes, the plain version once at cfg6's;
+20. (run after 21, on its captured inputs) K8 (the masked mode: one
+   block of ``lane_tile`` threads a lane over its own rows) against its
+   plain version, bitwise in float32 and float64, at cfg6-autoscale's
+   first estimate dispatch; at the burst's shape, each of the 16 lanes of
+   K8 against the one-lane scan (K2) launched on that lane's mask, in both
+   dtypes; K8 timed over 20 launches at both shapes, the plain version
+   once at cfg6's; the tile width printed;
 21. cfg6-autoscale end to end on the card, float32 (counts reset just
    before): the wall, scheduled, pending after, nodes added, scale-ups,
    passes, group sizes, estimate dispatches and K8 launches, each
-   dispatch's (G, P, N), exactness headroom and K8 time, the rounds' scan
+   dispatch's (G, P, N), exactness headroom, K8 time, tile width and split
+   (encode, lower, launch, fetch; the process's first K8 launch apart from
+   the next), ``estimate_cum_s`` and its split, the rounds' scan
    and compaction launches, and whether the scale-ups equal
    BENCH_autoscaler.json's (recorded, not required); it fails on a kernel
    error, a resource-fallback estimate or a method other than
    "xla-batch", K8 launches other than the dispatches, a pod left pending,
    or a batch fallback other than the size rule (a round below
    ``batch_min_work`` takes the sequential cycle, as in the bench); then
-   one estimate at the autoscale burst, its wall and K8 time;
+   one estimate at the autoscale burst, its wall, split and K8 time;
 22. cfg6-autoscale through the CUDA float64 service and the CPU float64
    service (a worker process), store clocks frozen: every pod's
    annotations, node and status, the autoscaler's events, summaries and
@@ -216,7 +226,7 @@ line):
    cotangents of every lane) bitwise equal to its plain version for the
    three objectives; K9 and its objective timed over 20 launches at each
    problem, the plain scan once; the cluster width C and the term-group
-   list width KM printed (K8's too, in 20);
+   list width KM printed (K8's tile width, in 20);
 24. K2g (the grad forward, a cluster of ``cluster_width(N, 1)`` blocks
    folding the residual M, then the contraction) at the same problem under
    the lane with the most fractional weights, tau 50: fragmentation in
@@ -260,6 +270,7 @@ from the network.
 
 from __future__ import annotations
 
+import gc
 import json
 import multiprocessing
 import os
@@ -807,8 +818,11 @@ def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = 
     """cfg7-preempt-5k (or its cut) through a SchedulerService on ``device``:
     one ``schedule_pending(max_rounds=max_rounds)``, the launch counters
     reset just before it.  With ``capture``, the first victim-search
-    dispatch's arguments are kept there (``capture["args"]``).  Returns (the
-    call's record, pod digests after it, pod names by role)."""
+    dispatch's arguments are kept there: the kernel's tensors
+    (``capture["args"]``) and run_search's host inputs
+    (``capture["run_search"]``, ``time_preempt.snapshot``'s bytes).  Returns
+    (the call's record, pod digests after it, pod names by role)."""
+    from kube_scheduler_simulator_tpu_torch import time_preempt as TP
     from kube_scheduler_simulator_tpu_torch import workloads
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
     from kube_scheduler_simulator_tpu_torch.preemption import kernel as PK
@@ -822,7 +836,7 @@ def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = 
     build_s = time.perf_counter() - t0
     svc = SchedulerService(store, tie_break="first", use_batch="auto", device=device, dtype=dt)
     svc.start_scheduler(None)
-    search = PK.search
+    launch, run_search = K.preempt, PK.run_search
     # host seconds building the victim-search tables (one per kernel run)
     prep_s = [0.0]
     prepare = svc._prepare_preemption
@@ -836,19 +850,24 @@ def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = 
 
     svc._prepare_preemption = timed_prepare
     if capture is not None:
-        def keep(*args):
+        def keep(*args, **kw):
             if "args" not in capture:
                 capture["args"] = tuple(a.clone() for a in args)
-            return search(*args)
+            return launch(*args, **kw)
 
-        PK.search = keep
+        def keep_host(pr, *args, **kw):
+            if "run_search" not in capture:
+                capture["run_search"] = TP.snapshot(pr, args, kw)
+            return run_search(pr, *args, **kw)
+
+        K.preempt, PK.run_search = keep, keep_host
     try:
         K.reset_counts()
         t0 = time.perf_counter()
         svc.schedule_pending(max_rounds=max_rounds)
         wall = time.perf_counter() - t0
     finally:
-        PK.search = search
+        K.preempt, PK.run_search = launch, run_search
     st = svc.stats
     pods = {p["metadata"]["name"]: p for p in store.list("pods", copy_objects=False)}
     pre = [pods[n] for n in names["preemptors"]]
@@ -931,11 +950,43 @@ def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
             got = K.preempt(*a)
             for nm, x, y in zip(("cand", "victims", "viol"), got, preempt_plain(*a)):
                 k5_err = max(k5_err, same(f"K5 first dispatch {dt} {nm}", x, y))
-        k5_ms, kout5 = cuda_ms(lambda: K.preempt(*cargs), 20, warmup=3)
+        import numpy as np
+
+        from kube_scheduler_simulator_tpu_torch import time_preempt as TP
+        from kube_scheduler_simulator_tpu_torch.preemption import kernel as PK
+
+        # the kernel is shorter than its call: timed back to back behind a
+        # sleep (time_preempt.device_ms), the call's host time beside it
+        k5_ms, k5_host_ms, kout5 = TP.device_ms(lambda: K.preempt(*cargs), 20)
         k5_plain_ms, _p = cuda_ms(lambda: preempt_plain(*cargs), 1, warmup=0)
         k5b, k5by = bound(search_counts(cargs, kout5), torch.float32)
-        k5_t = dict(ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5b, bound_by=k5by, err=k5_err, shape=shape5,
-                    cand=int(kout5[0].sum()), victims=int(kout5[1].sum()), viol=int(kout5[2].sum()))
+        # the whole dispatch on the same inputs (run_search: the inputs in
+        # one pinned copy, the kernel, the masks' one buffer out), its masks
+        # the kernel's, and its stages by CUDA events (mean of 20), warm (the
+        # problem's tables on the card) and cold (uploaded first, as every
+        # dispatch of the cfg7 service is)
+        pr5, sargs, skw = TP.restore(captured["run_search"])
+        masks = PK.run_search(pr5, *sargs, **skw, device=DEVICE, dtype=torch.float32)
+        for nm, x in zip(("cand", "victims", "viol"), kout5):
+            k5_err = max(k5_err, same(f"K5 dispatch {nm}", torch.from_numpy(np.ascontiguousarray(masks[nm])),
+                                      x.cpu()))
+        dispatch = {}
+        for how in ("warm", "cold"):
+            splits = []
+            for _ in range(20):
+                if how == "cold":
+                    pr5._device = None
+                sp: dict = {}
+                PK.run_search(pr5, *sargs, **skw, device=DEVICE, dtype=torch.float32, split=sp)
+                splits.append(sp)
+            d = dispatch[how] = {k: float(np.mean([sp[k] for sp in splits])) for k in splits[0]}
+            log(f"K5 dispatch, {how} (run_search, mean of 20): host staging {1e3 * d['stage_s']:.4f} ms, inputs in "
+                f"{d['in_ms']:.4f} ms, kernel {d['kernel_ms']:.4f} ms, fetch {d['fetch_ms']:.4f} ms, "
+                f"wall {1e3 * d['wall_s']:.4f} ms; its masks equal the kernel's")
+        k5_t = dict(ms=k5_ms, host_ms=k5_host_ms, plain_ms=k5_plain_ms, bound_ms=k5b, bound_by=k5by, err=k5_err,
+                    shape=shape5,
+                    cand=int(kout5[0].sum()), victims=int(kout5[1].sum()), viol=int(kout5[2].sum()),
+                    dispatch=dispatch)
         log(f"timing K5 {shape5}: {json.dumps(k5_t)}")
 
     with Phase(f"cfg7-preempt-5k cut to {PREEMPT_CUT}, two rounds: CUDA float64 service vs CPU float64 service"):
@@ -1242,17 +1293,17 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
             gstore.create("pods", big)
         fcap: dict = {}
         scap: dict = {}
-        feas, search = GK.feasibility, PK.search
+        feas, launch = GK.feasibility, K.preempt
 
         def keep_f(*a):
             fcap.setdefault("args", tuple(x.clone() if hasattr(x, "clone") else x for x in a))
             return feas(*a)
 
-        def keep_s(*a):
+        def keep_s(*a, **kw):
             scap.setdefault("args", tuple(x.clone() for x in a))
-            return search(*a)
+            return launch(*a, **kw)
 
-        GK.feasibility, PK.search = keep_f, keep_s
+        GK.feasibility, K.preempt = keep_f, keep_s
         try:
             K.reset_counts()
             t0 = time.perf_counter()
@@ -1261,7 +1312,7 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
             preview_s = time.perf_counter() - t0
             preview_launches = dict(K.LAUNCHES)
         finally:
-            GK.feasibility, PK.search = feas, search
+            GK.feasibility, K.preempt = feas, launch
         log(f"group_preview x2 in {preview_s:.4f} s, launches {preview_launches}: feasible group -> feasible "
             f"{ok['feasible']}, {ok['distinctTopologyDomains']} domains, {sum(v is not None for v in ok['assignment'].values())} "
             f"assigned; large group -> feasible {big['feasible']}, victim preview {big.get('victimPreview')}")
@@ -1341,30 +1392,44 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
 
 def capture_lanes(capture: list, estimator):
     """Wrap kernels.scan_lanes: each dispatch's arguments, shape, working
-    dtype, exactness headroom (``estimator()``'s last bound) and CUDA
-    events around the launch are appended to ``capture``.  Returns the
-    function that unwraps it."""
+    dtype, block width, exactness headroom (``estimator()``'s last bound)
+    and CUDA events around the launch are appended to ``capture``, and the
+    estimator's split of the dispatch before it (encode, lower, launch,
+    fetch: ``last_split``) to the record before.  Returns the function
+    that unwraps it."""
     import torch
 
+    from kube_scheduler_simulator_tpu_torch.autoscaler import estimator as EST
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 
-    orig = K.scan_lanes
+    orig, orig_est = K.scan_lanes, EST.ScaleUpEstimator._estimate_kernel
 
-    def wrapped(cfg, dims, dp, lane):
+    def wrapped(cfg, dims, dp, lane, widest=None):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        out = orig(cfg, dims, dp, lane)
+        out = orig(cfg, dims, dp, lane, widest=widest)
         e.record()
         est = estimator()
+        widest = int(lane.sum(dim=1).max()) if widest is None else widest
         capture.append(dict(
-            args=(cfg, dims, dp, lane), events=(s, e), G=lane.shape[0], P=int(dp.pod_active.sum()),
-            N=int(dp.n_true), P_pad=dims["P"], N_pad=dims["N"], dtype=str(dp.alloc.dtype).split(".")[-1],
-            bound=headroom(est.last_bound) if est is not None else None,
+            args=(cfg, dims, dp, lane), widest=widest, tile=K.lane_tile(widest), events=(s, e), G=lane.shape[0],
+            P=int(dp.pod_active.sum()), N=int(dp.n_true), P_pad=dims["P"], N_pad=dims["N"],
+            dtype=str(dp.alloc.dtype).split(".")[-1], bound=headroom(est.last_bound) if est is not None else None,
         ))
         return out
 
-    K.scan_lanes = wrapped
-    return lambda: setattr(K, "scan_lanes", orig)
+    def estimate(self, *a, **kw):
+        out = orig_est(self, *a, **kw)
+        if capture:
+            capture[-1]["split"] = dict(self.last_split)
+        return out
+
+    K.scan_lanes, EST.ScaleUpEstimator._estimate_kernel = wrapped, estimate
+
+    def unwrap():
+        K.scan_lanes, EST.ScaleUpEstimator._estimate_kernel = orig, orig_est
+
+    return unwrap
 
 
 def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None):
@@ -1390,6 +1455,19 @@ def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None)
     store = ClusterStore(clock=lambda: 0.0) if frozen_clock else ClusterStore()
     svc = workloads.autoscale(store, start, **AUTOSCALE)
     unwrap = capture_lanes(capture, lambda: svc.autoscaler._estimator) if capture is not None else None
+    # the seconds Python's garbage collector takes during the loop, by
+    # generation (the process holds every earlier phase's objects)
+    gc_rec = {"collections": [0, 0, 0], "s": [0.0, 0.0, 0.0]}
+    gc_t0 = [0.0]
+
+    def gc_probe(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_rec["collections"][info["generation"]] += 1
+            gc_rec["s"][info["generation"]] += time.perf_counter() - gc_t0[0]
+
+    gc.callbacks.append(gc_probe)
     try:
         K.reset_counts()
         t0 = time.perf_counter()
@@ -1397,6 +1475,7 @@ def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None)
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
     finally:
+        gc.callbacks.remove(gc_probe)
         if unwrap is not None:
             unwrap()
     asc = svc.autoscaler
@@ -1408,6 +1487,7 @@ def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None)
         group_sizes={g: v["current"] for g, v in sorted(am["groups"].items())},
         estimate_dispatches=am["estimate_dispatches"], estimate_compiles=am["estimate_compiles"],
         estimate_cum_s=am["estimate_cum_s"], kernel_errors=am["estimate_kernel_errors"],
+        estimate_split=dict(asc._estimator.cum_split) if asc._estimator else {}, gc=gc_rec,
         launches=launches,
         actions=[[e["nodeGroup"], len(e["nodes"])] for e in ups], methods=sorted({e["method"] for e in ups}),
         batch_pods=svc.stats["batch_pods"], sequential_pods=svc.stats["sequential_pods"],
@@ -1460,8 +1540,17 @@ def autoscale_phases(dev, cpu_autoscale_ref) -> dict:
         rec, _dig, _ev = run_autoscale(DEVICE, torch.float32, capture=cfg6)
         for c in cfg6:
             c["k8_ms"] = c["events"][0].elapsed_time(c["events"][1])
-        rec["dispatches"] = [{k: c[k] for k in ("G", "P", "N", "P_pad", "N_pad", "dtype", "bound", "k8_ms")} for c in cfg6]
+        rec["dispatches"] = [{k: c[k] for k in ("G", "P", "N", "P_pad", "N_pad", "dtype", "bound", "k8_ms", "widest",
+                                                "tile", "split")} for c in cfg6]
         log(f"cfg6-autoscale float32: {json.dumps(rec, sort_keys=True)}")
+        for j, c in enumerate(cfg6):
+            sp = c["split"]
+            log(f"estimate {j + 1} of {len(cfg6)} (the process's {'first' if j == 0 else 'next'} K8 launch; tile "
+                f"{c['tile']} for {c['widest']} rows): encode {sp['encode_s']:.4f} s, lower {sp['lower_s']:.4f} s, "
+                f"launch {sp['launch_s']:.5f} s, fetch {sp['fetch_s']:.4f} s; K8 {c['k8_ms']:.4f} ms")
+        log(f"estimate_cum_s {rec['estimate_cum_s']:.4f} s = {json.dumps(rec['estimate_split'])}; the garbage "
+            f"collector during the loop: {rec['gc']['collections']} collections by generation, "
+            f"{[round(x, 4) for x in rec['gc']['s']]} s")
         log(f"scale-ups {rec['actions']}; BENCH_autoscaler.json (JAX package, CPU) {AUTOSCALE_REFERENCE}: "
             f"{'equal' if rec['actions'] == AUTOSCALE_REFERENCE else 'different'}")
         problems = []
@@ -1495,6 +1584,9 @@ def autoscale_phases(dev, cpu_autoscale_ref) -> dict:
             unwrap()
         c = burst[0]
         c["k8_ms"] = c["events"][0].elapsed_time(c["events"][1])
+        sp = c["split"]
+        log(f"burst estimate split: encode {sp['encode_s']:.4f} s, lower {sp['lower_s']:.4f} s, launch "
+            f"{sp['launch_s']:.5f} s, fetch {sp['fetch_s']:.4f} s; tile {c['tile']} for {c['widest']} rows")
         log(f"burst estimate: wall {wall:.4f} s, K8 {c['k8_ms']:.3f} ms (G={c['G']} P={c['P']} N={c['N']}, padded "
             f"{c['P_pad']} x {c['N_pad']}, {c['dtype']}, bound {json.dumps(c['bound'])}); estimates "
             f"{[(e.group, e.nodes_needed, e.pods_fit, e.waste) for e in out]}")
@@ -1511,11 +1603,12 @@ def autoscale_phases(dev, cpu_autoscale_ref) -> dict:
             k8_err = max(k8_err, same_outputs(f"K8 cfg6 {dt}", K.scan_lanes(cfg, dims, d, lane), pout))
             if dt == dp.alloc.dtype:
                 plain_ms = pms
-        k8_ms, kout = cuda_ms(lambda: K.scan_lanes(cfg, dims, dp, lane), 20, warmup=3)
+        w6 = cfg6[0]["widest"]
+        k8_ms, kout = cuda_ms(lambda: K.scan_lanes(cfg, dims, dp, lane, widest=w6), 20, warmup=3)
         k8b, k8by = bound(lane_counts(cfg, dims, dp, lane, kout), dp.alloc.dtype)
-        c6 = K.cluster_width(dims["N"], lane.shape[0])
-        log(f"{shape6} (C={c6}, KM={dp.ip_match_g.shape[1]}): bitwise equal in float32 and float64; kernel "
-            f"{k8_ms:.4f} ms, plain {plain_ms:.1f} ms, bound {k8b:.6f} ms ({k8by})")
+        c6 = K.lane_tile(w6)
+        log(f"{shape6} (tile {c6} for {w6} rows, KM={dp.ip_match_g.shape[1]}): bitwise equal in float32 and "
+            f"float64; kernel {k8_ms:.4f} ms, plain {plain_ms:.1f} ms, bound {k8b:.6f} ms ({k8by})")
         cfg, dims, dp, lane = burst[0]["args"]
         G = lane.shape[0]
         for dt in (torch.float32, torch.float64):
@@ -1527,16 +1620,20 @@ def autoscale_phases(dev, cpu_autoscale_ref) -> dict:
                     if k != "final_carry":
                         k8_err = max(k8_err, same(f"K8 burst lane {g} {k} {dt}", kb[k][g], v))
             del kb
-        burst_ms, bout = cuda_ms(lambda: K.scan_lanes(cfg, dims, dp, lane), 20, warmup=2)
+        wb = burst[0]["widest"]
+        burst_ms, bout = cuda_ms(lambda: K.scan_lanes(cfg, dims, dp, lane, widest=wb), 20, warmup=2)
         burst_b, burst_by = bound(lane_counts(cfg, dims, dp, lane, bout), dp.alloc.dtype)
-        cb = K.cluster_width(dims["N"], G)
-        log(f"burst G={G} P={dims['P']} N={dims['N']} (C={cb}, KM={dp.ip_match_g.shape[1]}): every lane bitwise "
+        cb = K.lane_tile(wb)
+        log(f"burst G={G} P={dims['P']} N={dims['N']} (tile {cb} for {wb} rows, KM={dp.ip_match_g.shape[1]}): "
+            f"every lane bitwise "
             f"equal to K2 on its mask in float32 and "
             f"float64; kernel {burst_ms:.3f} ms, bound {burst_b:.6f} ms ({burst_by}); placed per lane "
             f"{(bout['selected'] >= 0).sum(dim=1).tolist()}")
         k8_t = dict(ms=k8_ms, plain_ms=plain_ms, bound_ms=k8b, bound_by=k8by, err=k8_err, shape=shape6, launches=launches,
-                    cluster=c6, burst_ms=burst_ms, burst_bound_ms=burst_b, burst_bound_by=burst_by,
-                    burst_shape=f"G={G} P={dims['P']} N={dims['N']}", burst_cluster=cb)
+                    tile=c6, burst_ms=burst_ms, burst_bound_ms=burst_b, burst_bound_by=burst_by,
+                    burst_shape=f"G={G} P={dims['P']} N={dims['N']}", burst_tile=cb,
+                    estimate_cum_s=rec["estimate_cum_s"], estimate_split=rec["estimate_split"],
+                    first_launch=cfg6[0]["split"], second_launch=cfg6[1]["split"] if len(cfg6) > 1 else None)
         log(f"timing K8: {json.dumps(k8_t)}")
         del bout, kout
         torch.cuda.empty_cache()
@@ -2776,6 +2873,8 @@ def main() -> int:
             "bound_by": k5_t["bound_by"],
             "library_ms": None,
             "shape": f"cfg7-preempt-5k first dispatch: {k5_t['shape']}",
+            "call_ms": k5_t["host_ms"],
+            "dispatch": k5_t["dispatch"],
         },
         {
             "name": "gang_verdict",
@@ -2808,7 +2907,7 @@ def main() -> int:
         {
             "name": "scan_lanes",
             "route": "cuda",
-            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan_masked.cu",
             "replaces": "kube_scheduler_simulator_tpu/autoscaler/estimator.py:186",
             "launches": k8_t["launches"],
             "max_abs_err": k8_t["err"],
@@ -2817,13 +2916,15 @@ def main() -> int:
             "bound_ms": k8_t["bound_ms"],
             "bound_by": k8_t["bound_by"],
             "library_ms": None,
-            "paced_by": "sequential dependency chain over the pod queue, one block or cluster a lane",
+            "paced_by": "sequential dependency chain over the pod queue, one block a lane over its own rows",
             "shape": k8_t["shape"],
-            "cluster": k8_t["cluster"],
-            "burst_cluster": k8_t["burst_cluster"],
+            "tile": k8_t["tile"],
+            "burst_tile": k8_t["burst_tile"],
             "burst_ms": k8_t["burst_ms"],
             "burst_bound_ms": k8_t["burst_bound_ms"],
             "burst_shape": k8_t["burst_shape"],
+            "estimate_cum_s": k8_t["estimate_cum_s"],
+            "estimate_split": k8_t["estimate_split"],
         },
         {
             "name": "scan_population",

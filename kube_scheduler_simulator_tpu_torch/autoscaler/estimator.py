@@ -9,8 +9,8 @@ synthetic node rows in a single BatchProblem, and the batch scheduling scan
 (the exact Filter kernels the real rounds use) runs over a [G, N]
 node-activity mask: lane g schedules the whole pending queue onto ONLY its
 template block.  On the card that is the lane axis of the hand-written scan
-(K8, ``ops/kernels.scan_lanes``: one block a lane); on the CPU its plain
-version (``ops/batch.scan_lanes_plain``).  The scan's carry IS the
+(K8, ``ops/kernels.scan_lanes``: one block a lane over the lane's own
+rows); on the CPU its plain version (``ops/batch.scan_lanes_plain``).  The scan's carry IS the
 bin-packing state (resources consume as pods commit), so "nodes needed"
 falls out of the final per-node pod counts.
 
@@ -22,6 +22,12 @@ decreasing-style consolidation onto the fewest template copies
 maxSize for every group).  Feasibility is the profile's own filter set,
 so a pod that can never pass the group's taints/affinity counts for no
 group.
+
+A dispatch is four stages, timed in ``last_split`` / ``cum_split``: encode
+(the template rows and the pods, the exactness bound), lower (the problem
+and the lane masks onto the device), launch (the host's part of the lane
+launch) and fetch (the three outputs the estimate reads, in one copy; it
+waits for the card).
 
 Each dispatch is bounded for exactness as a scheduling round is
 (``ops/batch.exactness_bound``): past 2^24 it runs in float64, counted in
@@ -51,6 +57,7 @@ from kube_scheduler_simulator_tpu_torch.ops import batch as B
 from kube_scheduler_simulator_tpu_torch.ops import encode as E
 
 Obj = dict[str, Any]
+SPLIT = ("encode_s", "lower_s", "launch_s", "fetch_s")
 
 
 @dataclass
@@ -62,6 +69,20 @@ class GroupEstimate:
     waste: float        # mean unused allocatable fraction on the used copies
     priority: int       # spec.priority (the "priority" expander's key)
     method: str         # "xla-batch" (the lane kernel) | "resource-fallback"
+
+
+def fetch_outputs(out: dict, keys: "tuple[str, ...]") -> "list[np.ndarray]":
+    """The outputs ``keys`` of a lane scan as numpy arrays, in one copy off
+    the device: their bytes gathered into one buffer there, fetched, and
+    split again on the host."""
+    parts = [out[k] for k in keys]
+    blob = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts]).cpu().numpy()
+    arrays, off = [], 0
+    for p in parts:
+        n = p.numel() * p.element_size()
+        arrays.append(blob[off : off + n].view(np.dtype(str(p.dtype).split(".")[-1])).reshape(p.shape))
+        off += n
+    return arrays
 
 
 class ScaleUpEstimator:
@@ -118,6 +139,9 @@ class ScaleUpEstimator:
         # dispatches promoted to float64, by reason
         self.last_bound: "tuple[str, int]" = ("none", 0)
         self.promotions: dict[str, int] = {}
+        # seconds of the last dispatch's stages, and their sums
+        self.last_split: dict[str, float] = {}
+        self.cum_split: dict[str, float] = dict.fromkeys(SPLIT, 0.0)
 
     @classmethod
     def from_framework(
@@ -197,6 +221,7 @@ class ScaleUpEstimator:
         volumes: "dict[str, list[Obj]] | None",
     ) -> list[GroupEstimate]:
         eng = self.engine
+        t0 = time.perf_counter()
         pr = E.encode(
             synth_nodes,
             [],  # fresh template copies carry no bound pods
@@ -213,6 +238,7 @@ class ScaleUpEstimator:
         dt, why = B.round_dtype(self.last_bound, eng.dtype)
         if why is not None:
             self.promotions[why] = self.promotions.get(why, 0) + 1
+        t1 = time.perf_counter()
         # lower() takes the full node count and no rotation (sample_k =
         # n_true, start0 = 0): visit order == index order, so
         # tie_break="first" fills the lowest template copy first —
@@ -224,18 +250,24 @@ class ScaleUpEstimator:
         masks = np.zeros((G, N), dtype=bool)
         for g, (_grp, lo, hi) in enumerate(blocks):
             masks[g, lo:hi] = True
+        lane = torch.from_numpy(masks).to(eng.device)
+        t2 = time.perf_counter()
 
         key = (tuple(sorted(dims.items())), G, dt)
         if key not in self._shapes:
             self._shapes.add(key)
             self.compiles += 1
-        # ONE dispatch: G lanes x (P pods x N template rows)
-        out = B.build_lanes_fn(cfg, dims)(dp, torch.from_numpy(masks).to(eng.device))
+        # ONE dispatch: G lanes x (P pods x N template rows); the widest
+        # lane's rows size its block
+        out = B.build_lanes_fn(cfg, dims)(dp, lane, widest=max(hi - lo for _g, lo, hi in blocks))
         self.dispatches += 1
-        packed = out["packed_pod"].cpu().numpy()                             # [G, 5, P]
-        pod_count = out["final_pod_count"].cpu().numpy()                     # [G, N]
-        requested = out["final_requested"].cpu().numpy().astype(np.float64)  # [G, N, R]
+        t3 = time.perf_counter()
+        packed, pod_count, requested = fetch_outputs(out, ("packed_pod", "final_pod_count", "final_requested"))
+        requested = requested.astype(np.float64)                            # [G, N, R]
         alloc = np.asarray(pr.alloc, dtype=np.float64)                       # [N, R]
+        self.last_split = dict(zip(SPLIT, (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3)))
+        for k, v in self.last_split.items():
+            self.cum_split[k] += v
 
         estimates: list[GroupEstimate] = []
         P_true = pr.P_true

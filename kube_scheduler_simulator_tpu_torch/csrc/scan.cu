@@ -95,6 +95,39 @@
 // the trace off: the trace planes and their meta have no lane stride, and
 // launch() refuses them.
 //
+// Masked lanes (K8 since its redesign for Hopper; csrc/scan_masked.cu builds
+// MODE_MASKED): one block a lane, of a compile-time tile of 64, 256 or 512
+// threads (kernels.lane_tile, from the widest lane's active rows; each wins
+// at some lane width on the card, PERF.md).
+// Before the pod loop the block compacts its mask row node_active[g] into a
+// list of its active rows, ascending (in shared memory, or in the lane's
+// s_rank slot when N does not fit there).  Every pass but PodTopologySpread's
+// pass 0 then walks that list in visit order (the rotation is the list's,
+// from its first row >= start: rank r = (n - start) mod n_true below n_true,
+// r = n above), since a row outside the lane is never feasible, sampled,
+// selected or committed: the prefix sum, the k-th feasible rank, the score
+// extrema and the argmax over the list give the same bits, ties included.
+// What the skipped rows gave a reduction is folded in as a constant: 0 to
+// the taint and affinity maxima (a row that is not sampled counts 0 there)
+// and NEG to the best total.  Pass 0 still walks every row: the domain sums,
+// presence flags and minima of PodTopologySpread count the inactive rows of
+// other groups (their counts are the initial carry, since nothing commits
+// there), as the reference does.  The pass-1 reductions are one block step
+// (warp shuffles, then one shared-memory exchange over the few warps), and
+// the best total and its first rank another, one (total, rank) pair.  Each
+// pod's own rows (its request, class indices, constraint and term lists:
+// nothing that depends on the carry) are copied into a shared-memory slot
+// with cp.async while the pod before it runs, two slots in turn.  Where
+// they fit (kernels.LANE_SMEM_BYTES), the lane's resource carries, totals,
+// raw scores, flags and row list live in shared memory, so a pass's reads
+// of what the commit or an earlier pass wrote miss no cache; and a row's
+// loads of its class filters, its fit and its sampling extrema are issued
+// together before the filter loop.  Where the lane fits its tile, a pod's
+// time is then the chain of one thread's dependent work; a lane wider than
+// its tile adds a row a thread to each pass, which is why the tile follows
+// the widest lane (PERF.md).  The final carries of the inactive rows are
+// the initial carry, copied through with the rest.
+//
 // Clusters (every launch since the one-lane scan was redesigned for Hopper;
 // K9 and K8 first): a launch runs each lane on one thread-block cluster of
 // C blocks, grid (C, lanes), cluster dims (C, 1, 1).  C = min(8, node
@@ -204,7 +237,9 @@ constexpr int MAXC = 8;    // PodTopologySpread constraints per pod, of each kin
 constexpr int MAXKU = 16;  // topology keys the constraints and terms use
 constexpr int MAXCL = 16;  // blocks of a lane's cluster (above 8: a non-portable size)
 constexpr int MAXT = THREADS / 2;  // rank tiles a cluster block owns (N <= THREADS tiles, C >= 2)
-enum { MODE_BLOCKS = 0, MODE_GRAD = 1, MODE_CLUSTER = 2, MODE_TRACE = 3 };
+constexpr int MAXSEG = 32;  // a pod row's staged segments (the masked mode)
+constexpr int PFR = 4;      // resource columns the masked mode's filters read ahead
+enum { MODE_BLOCKS = 0, MODE_GRAD = 1, MODE_CLUSTER = 2, MODE_TRACE = 3, MODE_MASKED = 4 };
 
 enum {
   F_UNSCHED = 0, F_NAME = 1, F_TAINT = 2, F_AFF = 3, F_FIT = 4, F_SPREAD = 5, F_IPA = 6,
@@ -226,6 +261,9 @@ struct ScanArgs {
   int64_t w_stride;   // lane stride of weights: S (K9) or 0 (one row)
   int64_t grad;       // K2g's forward: fold the residual M into resid
   int64_t cluster;    // blocks of each lane's thread-block cluster (1 in MODE_BLOCKS)
+  int64_t tile;       // MODE_MASKED: threads a block (64, 256 or 512); 0 elsewhere
+  int64_t lane_smem;  // MODE_MASKED: the lane's row list, flags, totals, raw scores and
+                      // resource carries in shared memory (else s_rank and the scratch)
   int64_t nf, filters[MAXF];
   int64_t ns, scores[MAXS];
   int64_t fit_strategy, n_fit_res, fit_col[MAXFR];
@@ -330,7 +368,8 @@ struct ScanArgs {
   void* s_total;       // [B,N] masked weighted totals of the current pod
   uint8_t* s_flags;    // [B,N] bit 0 feasible, bit 1 sampled, bit 2 has every score key
   int32_t* s_rank;     // [B,N] running feasible count in visit order (in-step compaction;
-                       // in a cluster, the count within the node's rank tile)
+                       // in a cluster, the count within the node's rank tile; in the
+                       // masked mode the lane's row list, when not in shared memory)
   void* s_ports;       // [B,PT,N]
   void* s_restr;       // [B,VR,N]
   void* s_cloud;       // [B,3,N]
@@ -610,6 +649,101 @@ __device__ void copy_transposed(const S* src, D* dst, int64_t R, int64_t C, int6
   }
 }
 
+// ---- the masked mode's staged pod rows ------------------------------------
+// A segment of a pod's row: `count` elements of `esize` bytes, row i of a
+// [P, count] array, staged at byte `off` of a shared-memory slot.
+struct Seg {
+  const char* base;
+  int count, esize, off;
+};
+// the segments, in the slot's order: the working dtype's first, then int32
+enum {
+  PR_REQ, PR_NZ, PR_SPF_SKEW, PR_SPF_SELF, PR_SPS_SKEW, PR_CCNT, PR_PREF_W, PR_OWN_W, PR_NT,
+  PR_TOL = PR_NT, PR_AFF, PR_PREF, PR_IMG, PR_TGT, PR_VOL, PR_FKEY, PR_FGRP, PR_FKU, PR_SKEY, PR_SGRP, PR_SKU,
+  PR_PCOLS, PR_RCOLS, PR_CCOLS, PR_MG, PR_AFFG, PR_ANTIG, PR_PREFG, PR_OWNG, PR_NSEG,
+};
+static_assert(PR_NSEG <= MAXSEG, "a pod row's segments");
+
+// Fills segs[0..PR_NSEG) for dtype size `tsize`; *byte_off gets the offset
+// of the row's bytes (its active flag, its self-match flag, fit_checked's R
+// bytes: cp.async copies 4, 8 or 16 bytes, so these go through a register)
+// and *n_el the count of its 4- and 8-byte elements.  Returns the slot's
+// size.
+__host__ __device__ inline int64_t pod_row_layout(const ScanArgs& a, int64_t tsize, Seg* segs, int64_t* byte_off,
+                                                  int64_t* n_el) {
+  const void* const ptr[PR_NSEG] = {
+      a.pod_req, a.pod_nonzero, a.spf_skew, a.spf_self, a.sps_skew, a.cloud_cnt, a.ip_pref_w, a.ip_own_w,
+      a.pod_tol_idx, a.pod_aff_idx, a.pod_pref_idx, a.pod_img_idx, a.name_target, a.pod_vol_idx,
+      a.spf_key, a.spf_grp, a.spf_ku, a.sps_key, a.sps_grp, a.sps_ku, a.port_cols, a.restr_cols, a.csi_cols,
+      a.ip_match_g, a.ip_aff_g, a.ip_anti_g, a.ip_pref_g, a.ip_own_g,
+  };
+  const int64_t count[PR_NSEG] = {
+      a.R, 2, a.KC, a.KC, a.KS, 3, a.KP, a.KO,
+      1, 1, 1, 1, 1, 1,
+      a.KC, a.KC, a.KC, a.KS, a.KS, a.KS, a.KPT, a.KVR, a.KV, a.KM, a.KA, a.KB, a.KP, a.KO,
+  };
+  int64_t off = 0;
+  *n_el = 0;
+  for (int k = 0; k < PR_NSEG; ++k) {
+    if (k == PR_NT) off = (off + 7) & ~int64_t(7);
+    const int64_t es = k < PR_NT ? tsize : 4;
+    segs[k] = Seg{(const char*)ptr[k], (int)count[k], (int)es, (int)off};
+    off += count[k] * es;
+    *n_el += count[k];
+  }
+  *byte_off = off;
+  return (off + 2 + a.R + 15) & ~int64_t(15);
+}
+
+// The masked mode's dynamic shared memory, byte offsets (16-aligned): the
+// domain sums (when there) at 0; with lane_smem the lane's resource
+// carries, totals, raw scores, row list and flags; two pod-row slots; the
+// element table of the pod-row copies (segment << 16 | element).
+struct MaskedSmem {
+  int64_t req, nzc, pc, tot, spraw, ipraw, list, fl, rows, slot, byte_off, n_el, el, total;
+};
+
+__host__ __device__ inline MaskedSmem masked_smem(const ScanArgs& a, int64_t tsize) {
+  MaskedSmem m;
+  Seg segs[PR_NSEG];
+  m.slot = pod_row_layout(a, tsize, segs, &m.byte_off, &m.n_el);
+  auto up = [](int64_t x) { return (x + 15) & ~int64_t(15); };
+  int64_t o = up(a.dom_smem ? (a.KC + a.KS) * a.dom_cap * (tsize + 4) : 0);
+  const int64_t N = a.lane_smem ? a.N : 0;
+  m.req = o;
+  o = up(o + N * a.R * tsize);
+  m.nzc = o;
+  o = up(o + 2 * N * tsize);
+  m.pc = o;
+  o = up(o + N * tsize);
+  m.tot = o;
+  o = up(o + N * tsize);
+  m.spraw = o;
+  o = up(o + N * tsize);
+  m.ipraw = o;
+  o = up(o + N * tsize);
+  m.list = o;
+  o = up(o + 4 * N);
+  m.fl = o;
+  o = up(o + N);
+  m.rows = o;
+  o += 2 * m.slot;
+  m.el = o;
+  m.total = up(o + 4 * m.n_el);
+  return m;
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
 // TOPO = false compiles PodTopologySpread's and InterPodAffinity's work out
 // (a problem without spread constraints or term groups), so that path keeps
 // the registers of a kernel without them; VOL = false does the same for the
@@ -621,11 +755,15 @@ __device__ void copy_transposed(const S* src, D* dst, int64_t R, int64_t C, int6
 // on, MODE_GRAD the exchanges and K2g's residual, MODE_BLOCKS neither (the
 // redundant chains, for comparisons; the trace on or off at run time).  The
 // trace's per-score meta arrays cost local memory, so the modes without a
-// trace compile them out.
-template <typename T, bool TOPO, bool VOL, int MODE>
-__global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
+// trace compile them out.  MODE_MASKED (K8) runs one block of TPB threads a
+// lane over the lane's own rows, trace off; every other mode has TPB =
+// THREADS.
+template <typename T, bool TOPO, bool VOL, int MODE, int TPB>
+__global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
   constexpr bool GRAD = MODE == MODE_GRAD;
+  constexpr bool MASKED = MODE == MODE_MASKED;
   constexpr bool CL = MODE != MODE_BLOCKS;
+  constexpr int NW = TPB / 32;
   const bool trace = MODE == MODE_TRACE || (MODE == MODE_BLOCKS && a.trace != 0);
   const int tid = threadIdx.x;
   const int b = blockIdx.x;  // in a cluster: the block's rank in it
@@ -647,8 +785,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const int64_t sb = CL ? lane : lane * B + b;
   // the rank tiles this block walks (every one, or b, b + C, ...) and its
   // share of the once-a-launch copies (all, or every C-th stretch)
-  const int64_t T0 = CL ? (int64_t)b * THREADS : 0, TSTEP = CL ? (int64_t)B * THREADS : THREADS;
-  const int64_t i0 = CL ? (int64_t)b * THREADS + tid : tid, istep = CL ? (int64_t)B * THREADS : THREADS;
+  const int64_t T0 = CL ? (int64_t)b * TPB : 0, TSTEP = CL ? (int64_t)B * TPB : TPB;
+  const int64_t i0 = CL ? (int64_t)b * TPB + tid : tid, istep = CL ? (int64_t)B * TPB : TPB;
   __shared__ ClusterX<T> cx;
   __shared__ int tile_off[THREADS];
   const uint8_t* node_act = a.node_active + lane * a.na_stride;
@@ -660,8 +798,6 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const T* alloc = (const T*)a.alloc;
   const T* max_pods = (const T*)a.max_pods;
   const T* nz_alloc = (const T*)a.nz_alloc;
-  const T* pod_req = (const T*)a.pod_req;
-  const T* pod_nonzero = (const T*)a.pod_nonzero;
   T* req = (T*)a.s_requested + sb * N * R;
   T* nzc = (T*)a.s_nonzero + sb * N * 2;
   T* pc = (T*)a.s_pod_count + sb * N;
@@ -669,6 +805,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   uint8_t* fl = a.s_flags + sb * N;
   const T NEG = T(-1e18);
   const T INF = T(INFINITY);
+  uint32_t fmask = 0;  // the profile's filters, a bit each
+  for (int k = 0; k < a.nf; ++k) fmask |= 1u << a.filters[k];
 
   // spread_counts is carried whenever the problem has selector groups,
   // as the reference commits it (SG > 0), read only by the spread plugin
@@ -686,6 +824,22 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   const int64_t cap = a.dom_cap;
   const int64_t nslot = a.KC + a.KS;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
+  // the masked mode: the lane's resource carries, totals, raw scores and
+  // flags in shared memory, when they fit (a pass's reads of what the
+  // commit or an earlier pass wrote then miss no cache)
+  MaskedSmem ms{};
+  if constexpr (MASKED) {
+    ms = masked_smem(a, sizeof(T));
+    if (a.lane_smem) {
+      req = (T*)(dyn_smem + ms.req);
+      nzc = (T*)(dyn_smem + ms.nzc);
+      pc = (T*)(dyn_smem + ms.pc);
+      tot = (T*)(dyn_smem + ms.tot);
+      spraw = (T*)(dyn_smem + ms.spraw);
+      ipraw = (T*)(dyn_smem + ms.ipraw);
+      fl = dyn_smem + ms.fl;
+    }
+  }
   T* dom_sum = a.dom_smem ? (T*)dyn_smem : (T*)a.s_dom + sb * nslot * cap;
   int* dom_flag = a.dom_smem ? (int*)(dyn_smem + nslot * cap * sizeof(T)) : a.s_domflag + sb * nslot * cap;
   const T* log_table = (const T*)a.log_table;
@@ -770,34 +924,157 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   int code_mx = 0;
   const bool meta = trace && (CL || b == 0);
 
+  // ---- the masked mode: the lane's rows, and its pods' rows staged -------
+  // lst: the lane's active rows, ascending; m of them, m_true below n_true
+  int* lst = nullptr;
+  int m = 0, m_true = 0;
+  __shared__ Seg segs[MAXSEG];
+  unsigned char* rows = nullptr;
+  const int* el = nullptr;
+  int64_t slot_bytes = 0;
+  uint8_t pbyte = 0;  // this thread's byte of the next pod's row, until it is stored
+  // issue pod ip's row into `slot`: its 4- and 8-byte elements by cp.async
+  // (an element a thread, from the element table), its bytes into a register
+  auto stage = [&](int64_t ip, unsigned char* slot) {
+    for (int64_t e = tid; e < ms.n_el; e += TPB) {
+      const int v = el[e];
+      const Seg s = segs[v >> 16];
+      const int j = v & 0xffff;
+      cp_async(slot + s.off + j * s.esize, s.base + (ip * s.count + j) * s.esize, s.esize);
+    }
+    cp_async_commit();
+    if (tid < 2 + R) {
+      pbyte = tid == 0 ? a.pod_active[ip] : tid == 1 ? a.ip_self_match[ip] : a.fit_checked[ip * R + tid - 2];
+    }
+  };
+  // the staged row complete: every thread's copies landed, its byte stored
+  // (visible to the block after the next barrier)
+  auto landed = [&](unsigned char* slot) {
+    cp_async_wait_all();
+    if (tid < 2 + R) slot[ms.byte_off + tid] = pbyte;
+  };
+  if constexpr (MASKED) {
+    slot_bytes = ms.slot;
+    lst = a.lane_smem ? (int*)(dyn_smem + ms.list) : a.s_rank + sb * N;
+    rows = dyn_smem + ms.rows;
+    el = (const int*)(dyn_smem + ms.el);
+    if (tid == 0) {
+      Seg s[PR_NSEG];
+      int64_t bo, ne;
+      pod_row_layout(a, sizeof(T), s, &bo, &ne);
+      int e = 0;
+      for (int k = 0; k < PR_NSEG; ++k) {
+        segs[k] = s[k];
+        for (int j = 0; j < s[k].count; ++j) ((int*)(dyn_smem + ms.el))[e++] = k << 16 | j;
+      }
+    }
+    // compact the mask row, a tile at a time
+    int below = 0;
+    for (int64_t base = 0; base < N; base += TPB) {
+      const int64_t n = base + tid;
+      const int act = n < N && node_act[n] != 0 ? 1 : 0;
+      int tile_total;
+      const int c = block_scan(act, &tile_total);
+      if (act) lst[m + c - 1] = (int)n;
+      m += tile_total;
+      below += act && n < nt ? 1 : 0;
+    }
+    m_true = block_reduce(below, 0, SumOp());
+    if (P > 0) {
+      stage(0, rows);
+      landed(rows);
+    }
+    __syncthreads();
+  }
   int start = a.start_ptr ? a.start_ptr[0] : (int)a.start0;
+  // the pass's q-th row in visit order (rank r, node n): rank q itself, or in
+  // the masked mode the list's q-th from its first row >= start (p0)
+  int p0 = 0;
+  auto visit = [&](int64_t q, int& r, int& n) {
+    if constexpr (MASKED) {
+      if (q < m_true) {
+        int p = p0 + (int)q;
+        if (p >= m_true) p -= m_true;
+        n = lst[p];
+        r = n >= start ? n - start : n - start + nt;
+      } else {
+        n = lst[q];
+        r = n;
+      }
+    } else {
+      r = (int)q;
+      n = r < nt ? (start + r) % nt : r;
+    }
+  };
+  const int64_t QN = MASKED ? m : N;  // a pass's rows
+
   for (int64_t i = 0; i < P; ++i) {
     // the trace: a cluster block writes its rank tiles' columns of every
     // pod, a redundant chain the rows of its pods
     const bool owner = (i % B) == b;
     const bool writes = trace && (CL || owner);
-    const bool active = a.pod_active[i] != 0;
-    const int tol = a.pod_tol_idx[i];
-    const int affi = a.pod_aff_idx[i];
-    const int prefi = a.pod_pref_idx[i];
-    const int imgi = a.pod_img_idx[i];
-    const int tgt = a.name_target[i];
-    const T* preq = pod_req + i * R;
-    const T* pnz = pod_nonzero + i * 2;
-    const uint8_t* fchk = a.fit_checked + i * R;
-    const int32_t* fkey = a.spf_key + i * a.KC;
-    const int32_t* fgrp = a.spf_grp + i * a.KC;
-    const int32_t* fku = a.spf_ku + i * a.KC;
-    const int32_t* skey = a.sps_key + i * a.KS;
-    const int32_t* sgrp = a.sps_grp + i * a.KS;
-    const int32_t* sku = a.sps_ku + i * a.KS;
+    // the pod's own rows: staged (masked mode), or read in place
+    const unsigned char* row = MASKED ? rows + (i & 1) * slot_bytes : nullptr;
+    auto rI = [&](int k, const int32_t* src, int64_t cnt) -> const int32_t* {
+      if constexpr (MASKED) {
+        return (const int32_t*)(row + segs[k].off);
+      } else {
+        return src + i * cnt;
+      }
+    };
+    auto rT = [&](int k, const void* src, int64_t cnt) -> const T* {
+      if constexpr (MASKED) {
+        return (const T*)(row + segs[k].off);
+      } else {
+        return (const T*)src + i * cnt;
+      }
+    };
+    if constexpr (MASKED) {
+      if (i + 1 < P) stage(i + 1, rows + ((i + 1) & 1) * slot_bytes);
+      // the list's first row at or past the rotation start
+      int lo = 0, hi = m_true;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (lst[mid] < start) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      p0 = lo;
+    }
+    const bool active = (MASKED ? row[ms.byte_off] : a.pod_active[i]) != 0;
+    const int tol = *rI(PR_TOL, a.pod_tol_idx, 1);
+    const int affi = *rI(PR_AFF, a.pod_aff_idx, 1);
+    const int prefi = *rI(PR_PREF, a.pod_pref_idx, 1);
+    const int imgi = *rI(PR_IMG, a.pod_img_idx, 1);
+    const int tgt = *rI(PR_TGT, a.name_target, 1);
+    const T* preq = rT(PR_REQ, a.pod_req, R);
+    const T* pnz = rT(PR_NZ, a.pod_nonzero, 2);
+    const uint8_t* fchk = MASKED ? row + ms.byte_off + 2 : a.fit_checked + i * R;
+    const int32_t* fkey = rI(PR_FKEY, a.spf_key, a.KC);
+    const int32_t* fgrp = rI(PR_FGRP, a.spf_grp, a.KC);
+    const int32_t* fku = rI(PR_FKU, a.spf_ku, a.KC);
+    const int32_t* skey = rI(PR_SKEY, a.sps_key, a.KS);
+    const int32_t* sgrp = rI(PR_SGRP, a.sps_grp, a.KS);
+    const int32_t* sku = rI(PR_SKU, a.sps_ku, a.KS);
+    const T* fskew = rT(PR_SPF_SKEW, a.spf_skew, a.KC);
+    const T* fself = rT(PR_SPF_SELF, a.spf_self, a.KC);
+    const T* sskew = rT(PR_SPS_SKEW, a.sps_skew, a.KS);
     const bool sp_f = TOPO && a.use_spread_f != 0;
     const bool sp_s = TOPO && a.use_spread_s && skey[0] >= 0;
-    const int32_t* pcols = a.port_cols + i * a.KPT;
-    const int32_t* rcols = a.restr_cols + i * a.KVR;
-    const int32_t* ccols = a.csi_cols + i * a.KV;
-    const T* ccnt = (const T*)a.cloud_cnt + i * 3;
-    const int voli = a.pod_vol_idx[i];
+    const int32_t* pcols = rI(PR_PCOLS, a.port_cols, a.KPT);
+    const int32_t* rcols = rI(PR_RCOLS, a.restr_cols, a.KVR);
+    const int32_t* ccols = rI(PR_CCOLS, a.csi_cols, a.KV);
+    const T* ccnt = rT(PR_CCNT, a.cloud_cnt, 3);
+    const int voli = *rI(PR_VOL, a.pod_vol_idx, 1);
+    const int32_t* affg = rI(PR_AFFG, a.ip_aff_g, a.KA);
+    const int32_t* antig = rI(PR_ANTIG, a.ip_anti_g, a.KB);
+    const int32_t* prefg = rI(PR_PREFG, a.ip_pref_g, a.KP);
+    const T* prefw = rT(PR_PREF_W, a.ip_pref_w, a.KP);
+    const int32_t* owng = rI(PR_OWNG, a.ip_own_g, a.KO);
+    const T* ownw = rT(PR_OWN_W, a.ip_own_w, a.KO);
+    const bool self_match = (MASKED ? row[ms.byte_off + 1] : a.ip_self_match[i]) != 0;
 
     // ---- pass 0: PodTopologySpread domain sums and minima ---------------
     T min_match[MAXC], w_log[MAXC];
@@ -887,17 +1164,17 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
 
     // InterPodAffinity: existing matches of the required-affinity groups
-    const bool has_aff = ipa && a.KA > 0 && a.ip_aff_g[i * a.KA] >= 0;
+    const bool has_aff = ipa && a.KA > 0 && affg[0] >= 0;
     bool aff_escape = false;
     if (has_aff) {
       T s = T(0);
       for (int k = 0; k < a.KA; ++k) {
-        const int g = a.ip_aff_g[i * a.KA + k];
+        const int g = affg[k];
         if (g < 0) continue;
         for (int64_t d = tid; d < a.D; d += blockDim.x) s = s + isel[(int64_t)g * (a.D + 1) + d];
       }
       s = block_reduce(s, T(0), SumOp());
-      aff_escape = s == T(0) && a.ip_self_match[i] != 0;
+      aff_escape = s == T(0) && self_match;
     }
 
     // ---- pass 1: filters, rotated prefix sum, sampling ----------------
@@ -907,9 +1184,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     int n_fni = 0;  // sampled nodes with every score key
     T mx_taint = -INFINITY, mx_aff = -INFINITY;
     T ip_mn = INF, ip_mx = -INF;
-    const int32_t* mg = a.ip_match_g + i * a.KM;  // the groups whose term selects the pod
+    const int32_t* mg = rI(PR_MG, a.ip_match_g, a.KM);  // the groups whose term selects the pod
     // a feasible node at running count c (in visit order): sampled while c
     // <= K; its taint/affinity/InterPodAffinity extrema and sampled domains
+    // (the masked mode passes the row's taint and affinity preference
+    // values, read with its filters' loads)
+    T pf_tp = T(0), pf_ap = T(0);
     auto sample = [&](int r, int n, int feas, int c, T ip_raw) {
       const bool samp = feas && c <= K;
       if (feas && c == K) kth_rank = r;
@@ -919,8 +1199,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
       fl[n] = (uint8_t)(feas | (samp ? 2 : 0));
       const int64_t tcell = (int64_t)tol * a.T_cols + a.node_taint_idx[n];
-      const T vt = samp ? T(a.taint_prefer_cls[tcell]) : T(0);
-      const T va = samp ? T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + a.node_label_idx[n]]) : T(0);
+      const T vt = samp ? (MASKED ? pf_tp : T(a.taint_prefer_cls[tcell])) : T(0);
+      const T va = samp ? (MASKED ? pf_ap : T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + a.node_label_idx[n]])) : T(0);
       mx_taint = vt > mx_taint ? vt : mx_taint;
       mx_aff = va > mx_aff ? va : mx_aff;
       if (samp && ipa_scored) {
@@ -936,23 +1216,48 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
     };
-    for (int64_t base = T0, tile = 0; base < N; base += TSTEP, ++tile) {
-      const int r = (int)(base + tid);
-      int n = -1;
+    for (int64_t base = T0, tile = 0; base < QN; base += TSTEP, ++tile) {
+      const int64_t q = base + tid;
+      int r = (int)q, n = -1;
       int feas = 0;
       T ip_raw = T(0);
-      if (r < N) {
-        n = r < nt ? (start + r) % nt : r;
+      if (q < QN) {
+        visit(q, r, n);
         const int ntaint = a.node_taint_idx[n];
         const int nlabel = a.node_label_idx[n];
         bool ok = node_act[n] != 0;
         int plug = -1, fcode = 0;
+        // the masked mode issues the row's loads of the class filters, the
+        // fit and the sampling extrema before the filter loop, so they
+        // overlap (the node's class indices, then the class tables and
+        // carries) instead of one round trip a filter
+        [[maybe_unused]] int pf_uns = 0, pf_tu = 0, pf_tf = 0, pf_ac = 0, pf_vb = 0, pf_vz = 0;
+        [[maybe_unused]] T pf_pc = T(0), pf_mp = T(0), pf_fr[PFR];
+        if constexpr (MASKED) {
+          const int64_t tcell = (int64_t)tol * a.T_cols + ntaint;
+          if (fmask >> F_UNSCHED & 1) {
+            pf_uns = a.node_unsched[n];
+            pf_tu = a.taint_unsched_cls[tcell];
+          }
+          if (fmask >> F_TAINT & 1) pf_tf = a.taint_cls[tcell];
+          if (fmask >> F_AFF & 1) pf_ac = a.aff_code_cls[(int64_t)affi * a.M_cols + nlabel];
+          if (fmask >> F_FIT & 1) {
+            pf_pc = pc[n];
+            pf_mp = max_pods[n];
+#pragma unroll
+            for (int c = 0; c < PFR; ++c) pf_fr[c] = c < R ? alloc[n * R + c] - req[n * R + c] : T(0);
+          }
+          if (fmask >> F_VB & 1) pf_vb = a.vb_cls[(int64_t)voli * a.VB_cols + nlabel];
+          if (fmask >> F_VZ & 1) pf_vz = a.vz_cls[(int64_t)voli * a.VB_cols + nlabel];
+          pf_tp = T(a.taint_prefer_cls[tcell]);
+          pf_ap = T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + nlabel]);
+        }
         for (int k = 0; k < a.nf; ++k) {
           int code = 0;
           switch ((int)a.filters[k]) {
             case F_UNSCHED: {
-              const bool uok = a.node_unsched[n] == 0 ||
-                               a.taint_unsched_cls[(int64_t)tol * a.T_cols + ntaint] != 0;
+              const bool uok = (MASKED ? pf_uns : a.node_unsched[n]) == 0 ||
+                               (MASKED ? pf_tu : a.taint_unsched_cls[(int64_t)tol * a.T_cols + ntaint]) != 0;
               code = uok ? 0 : 1;
               break;
             }
@@ -960,26 +1265,34 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
               code = (tgt == -1 || tgt == n) ? 0 : 1;
               break;
             case F_TAINT: {
-              const int tf = a.taint_cls[(int64_t)tol * a.T_cols + ntaint];
+              const int tf = MASKED ? pf_tf : a.taint_cls[(int64_t)tol * a.T_cols + ntaint];
               code = tf < 0 ? 0 : tf + 1;
               break;
             }
             case F_AFF:
-              code = a.aff_code_cls[(int64_t)affi * a.M_cols + nlabel];
+              code = MASKED ? pf_ac : a.aff_code_cls[(int64_t)affi * a.M_cols + nlabel];
               break;
             case F_FIT: {
-              code = (pc[n] + T(1) > max_pods[n]) ? 1 : 0;
-              for (int64_t q = 0; q < R; ++q) {
+              code = ((MASKED ? pf_pc : pc[n]) + T(1) > (MASKED ? pf_mp : max_pods[n])) ? 1 : 0;
+              int64_t q = 0;
+              if constexpr (MASKED) {
+#pragma unroll
+                for (int c = 0; c < PFR; ++c) {
+                  if (c < R && preq[c] > pf_fr[c] && fchk[c]) code |= 1 << (c + 1);
+                }
+                q = PFR;
+              }
+              for (; q < R; ++q) {
                 const T fr = alloc[n * R + q] - req[n * R + q];
                 if (preq[q] > fr && fchk[q]) code |= 1 << (q + 1);
               }
               break;
             }
             case F_VB:
-              code = a.vb_cls[(int64_t)voli * a.VB_cols + nlabel];
+              code = MASKED ? pf_vb : a.vb_cls[(int64_t)voli * a.VB_cols + nlabel];
               break;
             case F_VZ:
-              code = a.vz_cls[(int64_t)voli * a.VB_cols + nlabel];
+              code = MASKED ? pf_vz : a.vz_cls[(int64_t)voli * a.VB_cols + nlabel];
               break;
             case F_PORTS:
             case F_RESTR: {
@@ -1030,8 +1343,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
                   const T match = a.key_size[fku[c]] == 0
                       ? (incl ? spc[(int64_t)fgrp[c] * N + n] : T(0))
                       : dom_sum[c * cap + (dom - a.key_base[fku[c]])];
-                  const T skew = match + ((const T*)a.spf_self)[i * a.KC + c] - min_match[c];
-                  c_code = skew > ((const T*)a.spf_skew)[i * a.KC + c] ? 2 : 0;
+                  const T skew = match + fself[c] - min_match[c];
+                  c_code = skew > fskew[c] ? 2 : 0;
                 }
                 if (code == 0) code = c_code;
               }
@@ -1046,13 +1359,13 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
               if (code == 0 && has_aff && !aff_escape) {
                 bool sat = true;
                 for (int c = 0; c < a.KA; ++c) {
-                  const int g = a.ip_aff_g[i * a.KA + c];
+                  const int g = affg[c];
                   if (g >= 0) sat = sat && a.gdom[(int64_t)g * N + n] >= 0 && at_node(a, isel, g, n) > T(0);
                 }
                 if (!sat) code = 2;
               }
               for (int c = 0; c < a.KB && code == 0; ++c) {
-                const int g = a.ip_anti_g[i * a.KB + c];
+                const int g = antig[c];
                 if (g >= 0 && at_node(a, isel, g, n) > T(0)) code = 3;
               }
               break;
@@ -1073,8 +1386,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         if (ipa_scored) {
           for (int c = 0; c < a.KM && mg[c] >= 0; ++c) ip_raw = ip_raw + at_node(a, iown, mg[c], n);
           for (int c = 0; c < a.KP; ++c) {
-            const int g = a.ip_pref_g[i * a.KP + c];
-            if (g >= 0) ip_raw = ip_raw + ((const T*)a.ip_pref_w)[i * a.KP + c] * at_node(a, isel, g, n);
+            const int g = prefg[c];
+            if (g >= 0) ip_raw = ip_raw + prefw[c] * at_node(a, isel, g, n);
           }
           ipraw[n] = ip_raw;
         }
@@ -1083,7 +1396,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       const int c_tile = block_scan(feas, &tile_total);
       if (split) {
         // sampled once the cluster's counts before this tile are known
-        if (r < N) {
+        if (q < QN) {
           srank[n] = c_tile;
           fl[n] = (uint8_t)feas;
         }
@@ -1091,14 +1404,14 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       } else {
         const int c = run + c_tile;
         run += tile_total;
-        if (r < N) sample(r, n, feas, c, ip_raw);
+        if (q < QN) sample(r, n, feas, c, ip_raw);
       }
     }
     if (split) {
       // tile t (rank order) is block t % C's (t / C)-th: its feasible count,
       // exclusive-scanned over the cluster's tiles
       cluster_sync();
-      const int ntiles = (int)((N + THREADS - 1) / THREADS);
+      const int ntiles = (int)((N + TPB - 1) / TPB);
       const int v = tid < ntiles ? at_rank(&cx, tid % B)->tile_feas[tid / B] : 0;
       const int incl = block_scan(v, &run);
       if (tid < ntiles) tile_off[tid] = incl - v;
@@ -1107,16 +1420,62 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         const int r = (int)(base + tid);
         if (r >= N) continue;
         const int n = r < nt ? (start + r) % nt : r;
-        sample(r, n, fl[n] & 1, tile_off[base / THREADS] + srank[n], ipa_scored ? ipraw[n] : T(0));
+        sample(r, n, fl[n] & 1, tile_off[base / TPB] + srank[n], ipa_scored ? ipraw[n] : T(0));
       }
     }
     const int total = run;
-    kth_rank = block_reduce(kth_rank, -1, MaxOp());
-    mx_taint = block_reduce(mx_taint, T(-INFINITY), MaxOp());
-    mx_aff = block_reduce(mx_aff, T(-INFINITY), MaxOp());
-    if (ipa_scored) {
-      ip_mn = block_reduce(ip_mn, INF, MinOp());
-      ip_mx = block_reduce(ip_mx, -INF, MaxOp());
+    if constexpr (MASKED) {
+      // one block step: each warp's values by shuffles, then every thread
+      // combines the warps' from shared memory; a row outside the lane
+      // gives the maxima a 0 (it is not sampled)
+      __shared__ int f_i[NW][2];
+      __shared__ T f_t[NW][4];
+      for (int o = 16; o > 0; o >>= 1) {
+        const int k2 = __shfl_down_sync(0xffffffffu, kth_rank, o);
+        const int f2 = __shfl_down_sync(0xffffffffu, n_fni, o);
+        const T t2 = __shfl_down_sync(0xffffffffu, mx_taint, o);
+        const T a2 = __shfl_down_sync(0xffffffffu, mx_aff, o);
+        const T n2 = __shfl_down_sync(0xffffffffu, ip_mn, o);
+        const T x2 = __shfl_down_sync(0xffffffffu, ip_mx, o);
+        kth_rank = k2 > kth_rank ? k2 : kth_rank;
+        n_fni += f2;
+        mx_taint = t2 > mx_taint ? t2 : mx_taint;
+        mx_aff = a2 > mx_aff ? a2 : mx_aff;
+        ip_mn = n2 < ip_mn ? n2 : ip_mn;
+        ip_mx = x2 > ip_mx ? x2 : ip_mx;
+      }
+      if ((tid & 31) == 0) {
+        f_i[tid >> 5][0] = kth_rank;
+        f_i[tid >> 5][1] = n_fni;
+        f_t[tid >> 5][0] = mx_taint;
+        f_t[tid >> 5][1] = mx_aff;
+        f_t[tid >> 5][2] = ip_mn;
+        f_t[tid >> 5][3] = ip_mx;
+      }
+      __syncthreads();
+      kth_rank = -1;
+      n_fni = 0;
+      mx_taint = m < N ? T(0) : T(-INFINITY);
+      mx_aff = mx_taint;
+      ip_mn = INF;
+      ip_mx = -INF;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        kth_rank = f_i[w][0] > kth_rank ? f_i[w][0] : kth_rank;
+        n_fni += f_i[w][1];
+        mx_taint = f_t[w][0] > mx_taint ? f_t[w][0] : mx_taint;
+        mx_aff = f_t[w][1] > mx_aff ? f_t[w][1] : mx_aff;
+        ip_mn = f_t[w][2] < ip_mn ? f_t[w][2] : ip_mn;
+        ip_mx = f_t[w][3] > ip_mx ? f_t[w][3] : ip_mx;
+      }
+    } else {
+      kth_rank = block_reduce(kth_rank, -1, MaxOp());
+      mx_taint = block_reduce(mx_taint, T(-INFINITY), MaxOp());
+      mx_aff = block_reduce(mx_aff, T(-INFINITY), MaxOp());
+      if (ipa_scored) {
+        ip_mn = block_reduce(ip_mn, INF, MinOp());
+        ip_mx = block_reduce(ip_mx, -INF, MaxOp());
+      }
     }
     if (ws0 > 0) c_hi = block_reduce(c_hi, 0, MaxOp());
     if (split) {
@@ -1169,8 +1528,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     T sp_mn = INF, sp_mx = -INF;
     if (sp_s) {
       // topology size: sampled nodes (identity key) or sampled domains (a
-      // cluster's n_fni is already its total)
-      if (!split) n_fni = block_reduce(n_fni, 0, SumOp());
+      // cluster's and the masked mode's n_fni is already its total)
+      if (!split && !MASKED) n_fni = block_reduce(n_fni, 0, SumOp());
       for (int k = 0; k < a.KS; ++k) {
         if (skey[k] < 0) continue;
         int tsize = n_fni;
@@ -1182,11 +1541,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
         w_log[k] = log_table[tsize];
       }
-      // every node, or in a cluster the nodes of this block's rank tiles
-      for (int64_t base = T0; base < N; base += TSTEP) {
+      // every node, in a cluster the nodes of this block's rank tiles, in
+      // the masked mode the lane's rows
+      for (int64_t base = T0; base < QN; base += TSTEP) {
         const int64_t r = base + tid;
-        if (r >= N) continue;
-        const int64_t n = !CL || r >= nt ? r : (start + r) % nt;
+        if (r >= QN) continue;
+        const int64_t n = MASKED ? lst[r] : !CL || r >= nt ? r : (start + r) % nt;
         const bool all_keys = has_all_keys(a, skey, n);
         T raw_f = T(0);
         for (int k = 0; k < a.KS; ++k) {
@@ -1198,7 +1558,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
           } else {
             cnt = dom >= 0 ? dom_sum[(a.KC + k) * cap + (dom - a.key_base[sku[k]])] : T(0);
           }
-          raw_f = raw_f + (cnt * w_log[k] + (((const T*)a.sps_skew)[i * a.KS + k] - T(1)));
+          raw_f = raw_f + (cnt * w_log[k] + (sskew[k] - T(1)));
         }
         const T raw = d_rint(raw_f);
         spraw[n] = raw;
@@ -1235,10 +1595,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
 
     // ---- pass 2: scores, weighted totals -------------------------------
     T best = -INFINITY;
-    for (int64_t base = T0; base < N; base += TSTEP) {
-      const int r = (int)(base + tid);
-      if (r < N) {
-        const int n = r < nt ? (start + r) % nt : r;
+    int best_r = 0x7fffffff;  // the masked mode: the best total's least sampled rank
+    for (int64_t base = T0; base < QN; base += TSTEP) {
+      const int64_t q = base + tid;
+      if (q < QN) {
+        int r, n;
+        visit(q, r, n);
         const bool samp = (fl[n] & 2) != 0;
         const int ntaint = a.node_taint_idx[n];
         const int nlabel = a.node_label_idx[n];
@@ -1306,7 +1668,15 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
         const T masked = samp ? total_w : NEG;
         tot[n] = masked;
-        best = masked > best ? masked : best;
+        if constexpr (MASKED) {
+          const int rr = samp ? r : 0x7fffffff;
+          if (masked > best || (masked == best && rr < best_r)) {
+            best = masked;
+            best_r = rr;
+          }
+        } else {
+          best = masked > best ? masked : best;
+        }
         if (writes && ws0 == 0) a.feasible[i * N + n] = samp ? 1 : 0;
       }
     }
@@ -1327,7 +1697,36 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         }
       }
     }
-    best = block_reduce(best, T(-INFINITY), MaxOp());
+    if constexpr (MASKED) {
+      // the best total and its least sampled rank, one (total, rank) pair
+      // over the block in one step; the rows outside the lane are (NEG, none)
+      __shared__ T f_b[NW];
+      __shared__ int f_r[NW];
+      for (int o = 16; o > 0; o >>= 1) {
+        const T b2 = __shfl_down_sync(0xffffffffu, best, o);
+        const int r2 = __shfl_down_sync(0xffffffffu, best_r, o);
+        if (b2 > best || (b2 == best && r2 < best_r)) {
+          best = b2;
+          best_r = r2;
+        }
+      }
+      if ((tid & 31) == 0) {
+        f_b[tid >> 5] = best;
+        f_r[tid >> 5] = best_r;
+      }
+      __syncthreads();
+      best = m < N ? NEG : T(-INFINITY);
+      best_r = 0x7fffffff;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        if (f_b[w] > best || (f_b[w] == best && f_r[w] < best_r)) {
+          best = f_b[w];
+          best_r = f_r[w];
+        }
+      }
+    } else {
+      best = block_reduce(best, T(-INFINITY), MaxOp());
+    }
 
     // ---- K2g: the block's softmax sums -----------------------------------
     // s = softmax(totals / tau) over the sampled nodes.  Each block sums e =
@@ -1378,16 +1777,19 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     int sel_node = -1;
     int committer = 0;
     if (!a.reservoir) {
-      // first tied maximum in visit order = minimal visit rank
-      int best_rank = 0x7fffffff;
-      for (int64_t base = T0; base < N; base += TSTEP) {
-        const int r = (int)(base + tid);
-        if (r < N) {
-          const int n = r < nt ? (start + r) % nt : r;
-          if ((fl[n] & 2) && tot[n] == best && r < best_rank) best_rank = r;
+      // first tied maximum in visit order = minimal visit rank (the masked
+      // mode's came with the best total)
+      int best_rank = best_r;
+      if constexpr (!MASKED) {
+        for (int64_t base = T0; base < N; base += TSTEP) {
+          const int r = (int)(base + tid);
+          if (r < N) {
+            const int n = r < nt ? (start + r) % nt : r;
+            if ((fl[n] & 2) && tot[n] == best && r < best_rank) best_rank = r;
+          }
         }
+        best_rank = block_reduce(best_rank, 0x7fffffff, MinOp());
       }
-      best_rank = block_reduce(best_rank, 0x7fffffff, MinOp());
       if (split) {
         // each block's best total and its first rank, then the cluster's
         if (tid == 0) {
@@ -1417,17 +1819,18 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
             const int nstart = active ? (start + processed) % nt : start;
             rk = ((start + best_rank) % nt - nstart + nt) % nt;
           }
-          committer = (rk / THREADS) % B;
+          committer = (rk / TPB) % B;
         }
       }
       if (best_rank != 0x7fffffff) sel_node = best_rank < nt ? (start + best_rank) % nt : best_rank;
     } else if (!split) {
       // k-th tied maximum in visit order, k from the counter-keyed draw
       int tied_cnt = 0;
-      for (int64_t base = 0; base < N; base += blockDim.x) {
-        const int r = (int)(base + tid);
-        if (r < N) {
-          const int n = r < nt ? (start + r) % nt : r;
+      for (int64_t base = 0; base < QN; base += blockDim.x) {
+        const int64_t q = base + tid;
+        if (q < QN) {
+          int r, n;
+          visit(q, r, n);
           if ((fl[n] & 2) && tot[n] == best) ++tied_cnt;
         }
       }
@@ -1437,11 +1840,11 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       const int kk = (int)(draw % (uint32_t)(t_count > 1 ? t_count : 1));
       int seen = 0;
       int pick = -1;
-      for (int64_t base = 0; base < N; base += blockDim.x) {
-        const int r = (int)(base + tid);
-        int tied = 0, n = -1;
-        if (r < N) {
-          n = r < nt ? (start + r) % nt : r;
+      for (int64_t base = 0; base < QN; base += blockDim.x) {
+        const int64_t q = base + tid;
+        int tied = 0, r, n = -1;
+        if (q < QN) {
+          visit(q, r, n);
           tied = ((fl[n] & 2) && tot[n] == best) ? 1 : 0;
         }
         int tile_total;
@@ -1475,7 +1878,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
         if (tid == 0) cx.tile_tied[tile] = t_tied;
       }
       cluster_sync();
-      const int ntiles = (int)((N + THREADS - 1) / THREADS);
+      const int ntiles = (int)((N + TPB - 1) / TPB);
       const int v = tid < ntiles ? at_rank(&cx, tid % B)->tile_tied[tid / B] : 0;
       int t_count;
       const int incl = block_scan(v, &t_count);
@@ -1487,7 +1890,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       if (t_sel >= 0) {
         committer = t_sel % B;
         if (b == committer) {
-          const int r = t_sel * THREADS + tid;
+          const int r = t_sel * TPB + tid;
           int tied = 0, n = -1;
           if (r < N) {
             n = r < nt ? (start + r) % nt : r;
@@ -1590,14 +1993,14 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
       }
       if (tid == 0) {
         for (int c = 0; c < a.KO; ++c) {
-          const int g = a.ip_own_g[i * a.KO + c];
+          const int g = owng[c];
           if (g < 0) continue;
           const int d = a.gdom[(int64_t)g * N + sel];
           const int64_t cell = (int64_t)g * (a.D + 1) + (d >= 0 ? d : a.D);
-          iown[cell] = iown[cell] + ((const T*)a.ip_own_w)[i * a.KO + c];
+          iown[cell] = iown[cell] + ownw[c];
         }
         for (int c = 0; c < a.KB; ++c) {
-          const int g = a.ip_anti_g[i * a.KB + c];
+          const int g = antig[c];
           if (g < 0) continue;
           const int d = a.gdom[(int64_t)g * N + sel];
           const int64_t cell = (int64_t)g * (a.D + 1) + (d >= 0 ? d : a.D);
@@ -1614,6 +2017,9 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
     }
     // the rotating start advances by the number of visited nodes
     if (active) start = nt > 0 ? (start + processed) % nt : 0;
+    if constexpr (MASKED) {
+      if (i + 1 < P) landed(rows + ((i + 1) & 1) * slot_bytes);
+    }
     if (split && commit_sync) {
       cluster_sync();  // the commit, before the next pod reads the carries
     } else {
@@ -1697,11 +2103,13 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(const ScanArgs a) {
   a.trace_meta[2 * a.ns + 1] = a.nf > 0 ? cm : 0;
 }
 
-// The modes build as four libraries, so their nvcc runs go in parallel:
-// csrc/scan_cluster.cu, csrc/scan_trace.cu and csrc/scan_grad.cu include
-// this file with SCAN_CLUSTER, SCAN_TRACE or SCAN_GRAD defined; built alone
-// it holds MODE_BLOCKS.
-#if defined(SCAN_GRAD)
+// The modes build as five libraries, so their nvcc runs go in parallel:
+// csrc/scan_cluster.cu, csrc/scan_trace.cu, csrc/scan_grad.cu and
+// csrc/scan_masked.cu include this file with SCAN_CLUSTER, SCAN_TRACE,
+// SCAN_GRAD or SCAN_MASKED defined; built alone it holds MODE_BLOCKS.
+#if defined(SCAN_MASKED)
+constexpr int LIB_MODE = MODE_MASKED;
+#elif defined(SCAN_GRAD)
 constexpr int LIB_MODE = MODE_GRAD;
 #elif defined(SCAN_TRACE)
 constexpr int LIB_MODE = MODE_TRACE;
@@ -1711,16 +2119,35 @@ constexpr int LIB_MODE = MODE_CLUSTER;
 constexpr int LIB_MODE = MODE_BLOCKS;
 #endif
 
+// the masked mode: one block of TPB threads a lane
+template <typename T, bool TOPO, bool VOL, int TPB>
+cudaError_t launch_masked(const ScanArgs* a, size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(scan_kernel<T, TOPO, VOL, MODE_MASKED, TPB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  scan_kernel<T, TOPO, VOL, MODE_MASKED, TPB><<<dim3(1, (unsigned)a->lanes), TPB, smem, (cudaStream_t)stream>>>(*a);
+  return cudaGetLastError();
+}
+
 template <typename T, bool TOPO, bool VOL>
 cudaError_t launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* stream) {
   const dim3 grid((unsigned)blocks, (unsigned)a->lanes);
-  if constexpr (LIB_MODE == MODE_BLOCKS) {
-    scan_kernel<T, TOPO, VOL, LIB_MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
+  if constexpr (LIB_MODE == MODE_MASKED) {
+    switch (a->tile) {
+      case 64: return launch_masked<T, TOPO, VOL, 64>(a, smem, stream);
+      case 256: return launch_masked<T, TOPO, VOL, 256>(a, smem, stream);
+      case 512: return launch_masked<T, TOPO, VOL, 512>(a, smem, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  } else if constexpr (LIB_MODE == MODE_BLOCKS) {
+    scan_kernel<T, TOPO, VOL, LIB_MODE, THREADS><<<grid, THREADS, smem, (cudaStream_t)stream>>>(*a);
     return cudaGetLastError();
   } else {
     // one cluster of `blocks` blocks a lane; above 8 a non-portable size
     if (blocks > 8) {
-      const cudaError_t e = cudaFuncSetAttribute(scan_kernel<T, TOPO, VOL, LIB_MODE>,
+      const cudaError_t e = cudaFuncSetAttribute(scan_kernel<T, TOPO, VOL, LIB_MODE, THREADS>,
                                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (e != cudaSuccess) return e;
     }
@@ -1736,7 +2163,7 @@ cudaError_t launch_vol(const ScanArgs* a, int64_t blocks, size_t smem, void* str
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, scan_kernel<T, TOPO, VOL, LIB_MODE>, *a);
+    return cudaLaunchKernelEx(&cfg, scan_kernel<T, TOPO, VOL, LIB_MODE, THREADS>, *a);
   }
 }
 
@@ -1756,7 +2183,14 @@ int launch(const ScanArgs* a, int64_t blocks, void* stream) {
       (LIB_MODE != MODE_BLOCKS && (a->trace != 0) != (LIB_MODE == MODE_TRACE))) {
     return (int)cudaErrorInvalidValue;
   }
-  if (LIB_MODE == MODE_BLOCKS) {
+  if (LIB_MODE == MODE_MASKED) {
+    // one block a lane, trace off, no in-step compaction; a byte of the
+    // staged pod row a thread
+    if (a->cluster != 1 || blocks != 1 || a->ws0 != 0 || 2 + a->R > a->tile) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)masked_smem(*a, sizeof(T)).total;
+    if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) return (int)launch_topo<T, true>(a, 1, smem, stream);
+    return (int)launch_topo<T, false>(a, 1, smem, stream);
+  } else if (LIB_MODE == MODE_BLOCKS) {
     if (a->cluster != 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   } else if (a->cluster != blocks || blocks < 1 || blocks > MAXCL ||
              (blocks > 1 && (a->N + THREADS - 1) / THREADS > THREADS)) {
@@ -1771,7 +2205,7 @@ int launch(const ScanArgs* a, int64_t blocks, void* stream) {
 
 }  // namespace
 
-#if !defined(SCAN_CLUSTER) && !defined(SCAN_TRACE) && !defined(SCAN_GRAD)
+#if !defined(SCAN_CLUSTER) && !defined(SCAN_TRACE) && !defined(SCAN_GRAD) && !defined(SCAN_MASKED)
 extern "C" int kss_scan_f32(const ScanArgs* a, int64_t blocks, void* stream) { return launch<float>(a, blocks, stream); }
 extern "C" int kss_scan_f64(const ScanArgs* a, int64_t blocks, void* stream) { return launch<double>(a, blocks, stream); }
 #endif

@@ -1362,19 +1362,20 @@ def scan_lanes_plain(
 
 
 def build_lanes_fn(cfg: BatchConfig, dims: dict):
-    """fn(dp, lane_active) → dict of [G, ...] result tensors: the scan over
-    the G lanes of a [G, N] node mask in one dispatch (the JAX package's
-    ``jax.jit(jax.vmap(build_batch_fn(cfg, dims)))`` with only node_active
-    mapped), by the lane kernel for a problem on the card and the plain
-    version for one on the CPU.  Trace off (each call checks it with the
-    mask, ``check_lanes``), no window, no carry0, no ws0."""
+    """fn(dp, lane_active, widest=None) → dict of [G, ...] result tensors:
+    the scan over the G lanes of a [G, N] node mask in one dispatch (the JAX
+    package's ``jax.jit(jax.vmap(build_batch_fn(cfg, dims)))`` with only
+    node_active mapped), by the lane kernel for a problem on the card (whose
+    block the widest lane's active rows size, ``kernels.scan_lanes``) and
+    the plain version for one on the CPU.  Trace off (each call checks it
+    with the mask, ``check_lanes``), no window, no carry0, no ws0."""
     check_slice(cfg)
 
-    def fn(dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
+    def fn(dp: DeviceProblem, lane_active: torch.Tensor, widest: "int | None" = None) -> dict:
         if dp.alloc.device.type == "cuda":
             from kube_scheduler_simulator_tpu_torch.ops import kernels
 
-            return kernels.scan_lanes(cfg, dims, dp, lane_active)
+            return kernels.scan_lanes(cfg, dims, dp, lane_active, widest=widest)
         return scan_lanes_plain(cfg, dims, dp, lane_active)
 
     return fn

@@ -16,9 +16,10 @@ counters and the wrappers.
               trace on, csrc/scan_cluster.cu without);
               ``blocks=`` launches the redundant chains instead, for
               comparisons.
-- ``scan_lanes`` (csrc/scan_cluster.cu, K8) — the same kernel over G
-              lanes, a cluster a lane on the grid's y axis: lane g runs the
-              whole pod loop with node_active = lane_active[g] and writes
+- ``scan_lanes`` (csrc/scan_masked.cu, K8) — the same kernel over G
+              lanes in its masked mode, one block of ``lane_tile`` threads
+              a lane on the grid's y axis: lane g runs the whole pod loop
+              over its own rows (node_active = lane_active[g]) and writes
               its slices of the packed outputs and the final carries (the
               capacity engine's scale-up estimate: one node group a lane).
 - ``scan_population`` (csrc/scan_cluster.cu, K9) — the same kernel over
@@ -97,6 +98,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {
     "scan": "scan.cu", "scan_cluster": "scan_cluster.cu", "scan_trace": "scan_trace.cu", "scan_grad": "scan_grad.cu",
+    "scan_masked": "scan_masked.cu",
     "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu", "gang": "gang.cu",
     "objective": "tune.cu",
 }
@@ -121,6 +123,11 @@ DOM_SMEM_BYTES = 8192
 # portable thread-block cluster size, the largest (non-portable) one the
 # scan takes (csrc/scan.cu MAXCL), and the H100's SMs
 SCAN_THREADS, MAX_CLUSTER, MAXCL, H100_SMS = 512, 8, 16, 132
+# the masked lane scan's block widths (csrc/scan.cu MODE_MASKED), and the
+# bytes of shared memory a lane's row list, flags, totals, raw scores and
+# resource carries may take (else they stay in global scratch)
+LANE_TILES = (64, 256, 512)
+LANE_SMEM_BYTES = 160 * 1024
 # bytes of shared memory a feasibility-scan block may take for its group's
 # free table, pod budgets and domain flags (of the 227 KB an H100 block can
 # have); larger tables go to a per-group slice of global scratch
@@ -161,7 +168,7 @@ class ScanArgs(ctypes.Structure):
     _fields_ = [
         (n, _i64) for n in (
             "P", "N", "R", "n_true", "sample_k", "start0", "tb_base", "seed_mix", "Psrc", "trace", "reservoir", "lanes",
-            "na_stride", "w_stride", "grad", "cluster", "nf",
+            "na_stride", "w_stride", "grad", "cluster", "tile", "lane_smem", "nf",
         )
     ] + [
         ("filters", _i64 * MAXF),
@@ -265,7 +272,7 @@ OBJECTIVE_IDS = {"utilization": 0, "fragmentation": 1, "pending_age": 2}
 
 class PreemptArgs(ctypes.Structure):
     _fields_ = [(n, _i64) for n in ("U", "N", "V", "R", "PDB", "S")] + [
-        (n, _ptr) for n in PREEMPT_TENSORS + ("cand", "victims", "viol")
+        (n, _ptr) for n in PREEMPT_TENSORS + ("cand", "victims", "viol", "slist")
     ]
 
 
@@ -288,7 +295,7 @@ class GangFeasArgs(ctypes.Structure):
 # each library's extern "C" entry points and their argument types
 ENTRIES = {
     **{lib: {f"kss_{lib}_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")}
-       for lib in ("scan", "scan_cluster", "scan_trace", "scan_grad")},
+       for lib in ("scan", "scan_cluster", "scan_trace", "scan_grad", "scan_masked")},
     "compact": {f"kss_compact_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
     "scatter": {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]},
     "preempt": {f"kss_preempt_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
@@ -421,16 +428,33 @@ def scan(
     return out
 
 
-def scan_lanes(cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: torch.Tensor) -> dict:
+def lane_tile(widest: int) -> int:
+    """Threads of a masked lane block (K8): the narrowest of LANE_TILES that
+    holds the widest lane's active rows in one tile, 512 past it (a wider
+    lane walks several tiles).  A function of the shape; on the card
+    (time_lanes.py --tiles, PERF.md §6) 64 wins at 64 rows a lane, 256 at
+    200, 512 at 500 and 1 000; 128 won at none, so it is not built."""
+    return next((t for t in LANE_TILES if t >= widest), LANE_TILES[-1])
+
+
+def scan_lanes(
+    cfg: BatchConfig, dims: dict, dp: DeviceProblem, lane_active: torch.Tensor, widest: "int | None" = None,
+) -> dict:
     """Launch the scan kernel over G lanes (K8) on a problem on the card,
     lane g with ``node_active = lane_active[g]`` (a contiguous CUDA bool
-    [G, N]), each lane a cluster of ``cluster_width(N, G)`` blocks; returns
-    the outputs of ops/batch.scan_lanes_plain under the same keys, each with
-    a leading lane axis.  The trace is off: the estimator reads decisions,
-    not annotations."""
+    [G, N]), in its masked mode: one block of ``lane_tile(widest)`` threads
+    a lane walks the lane's own rows.  ``widest``: the most active rows of
+    any lane, as the caller knows it (None: read from the mask, which waits
+    for the card; tests and timing force a tile t of LANE_TILES by
+    ``widest=t``: a lane wider than its tile walks several).  Returns the
+    outputs of ops/batch.scan_lanes_plain under the same keys, each with a
+    leading lane axis.  The trace is off: the estimator reads decisions, not
+    annotations."""
     check_lanes(cfg, dims, lane_active)
     _check(lane_active, "lane_active", torch.bool)
-    out = _launch_scan(cfg, dims, dp, None, None, None, 0, None, lane_active=lane_active)
+    if widest is None:
+        widest = int(lane_active.sum(dim=1).max())
+    out = _launch_scan(cfg, dims, dp, None, None, None, 0, None, lane_active=lane_active, tile=lane_tile(widest))
     LAUNCHES["scan_lanes"] += 1
     return out
 
@@ -551,13 +575,16 @@ def objective(
 
 def _launch_scan(
     cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None, weights=None, grad=None, cluster=None,
+    tile=None,
 ) -> dict:
     """One launch of csrc/scan.cu: ``scan``'s arguments; with
-    ``lane_active`` [G, N] (K8) or a [G, S] ``weights`` matrix (K9) the lane
-    axis (every output gets a leading lane axis); a lane is a cluster of
-    ``cluster`` (default ``cluster_width``) blocks sharing one scratch slot,
-    unless ``blocks`` asks for the redundant chains; with ``grad=tau`` the
-    grad mode (K2g's forward, ``resid`` in the outputs)."""
+    ``lane_active`` [G, N] and a ``tile`` (K8: the masked mode, one block of
+    ``tile`` threads a lane over its own rows) or a [G, S] ``weights``
+    matrix (K9) the lane axis (every output gets a leading lane axis); a
+    lane of K9 or the one-lane scan is a cluster of ``cluster`` (default
+    ``cluster_width``) blocks sharing one scratch slot, unless ``blocks``
+    asks for the redundant chains; with ``grad=tau`` the grad mode (K2g's
+    forward, ``resid`` in the outputs)."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
     ws0 = in_step_width(cfg, dims, ws0)
@@ -625,7 +652,16 @@ def _launch_scan(
     nslot = dims["KC"] + dims["KS"]
     # each lane a cluster of C blocks sharing one carry copy, or (``blocks``)
     # a carry copy for each block of each lane
-    if blocks is not None:
+    lane_smem = False
+    if (lane_active is None) != (tile is None):
+        raise ValueError("node-mask lanes run in the masked mode only, which takes them and a tile")
+    if tile is not None:
+        if blocks is not None or cluster is not None or tile not in LANE_TILES:
+            raise ValueError(f"the masked mode takes one block a lane and a tile of {LANE_TILES}, got {tile}")
+        C, lib, blocks_x, slots = 1, "scan_masked", 1, L
+        # the list (int32), flags (uint8), and R + 6 rows of the dtype a node
+        lane_smem = N * (5 + dp.alloc.element_size() * (R + 6)) <= LANE_SMEM_BYTES
+    elif blocks is not None:
         if laned or grad is not None or cluster is not None or blocks < 1:
             raise ValueError("the redundant chains take one lane, no grad mode and no cluster width")
         C, lib, blocks_x, slots = 1, "scan", blocks, blocks
@@ -647,7 +683,7 @@ def _launch_scan(
         s_dom=e(1) if in_smem else e(slots, nslot * cap),
         s_domflag=e(1, dtype=i32) if in_smem else e(slots, nslot * cap, dtype=i32),
         s_total=e(slots, N), s_flags=e(slots, N, dtype=torch.uint8),
-        s_rank=e(slots, N, dtype=i32) if ws0 or C > 1 else e(1, dtype=i32),
+        s_rank=e(slots, N, dtype=i32) if ws0 or C > 1 or (tile and not lane_smem) else e(1, dtype=i32),
         s_ports=e(slots, PT, N) if gates["ports"] else e(1),
         s_restr=e(slots, VR, N) if gates["restr"] else e(1),
         s_cloud=e(slots, 3, N) if gates["cloud"] else e(1),
@@ -665,6 +701,7 @@ def _launch_scan(
     a.trace = int(cfg.trace)
     a.reservoir = int(cfg.tie_break == "reservoir")
     a.lanes, a.cluster = L, C
+    a.tile, a.lane_smem = tile or 0, int(lane_smem)
     a.na_stride = N if lane_active is not None else 0
     a.w_stride = S if w_rows.dim() == 2 else 0
     a.weights = w_rows.data_ptr()
@@ -895,11 +932,15 @@ def compact(
 
 def preempt(
     ucand, ureq, uprio, smask, sreq, snode, alloc, base_req, extra_req, base_cnt, extra_cnt, max_pods,
-    vreq, vprio, vvalid, vmatch, allowed,
+    vreq, vprio, vvalid, vmatch, allowed, out: "torch.Tensor | None" = None,
 ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
     """Launch the victim-search kernel on tensors on the card; returns
     (cand [U,N], victims [U,N,V], viol [U,N,V]) bool, as
-    preemption/kernel.preempt_plain (whose docstring gives the shapes)."""
+    preemption/kernel.preempt_plain (whose docstring gives the shapes):
+    views of one uint8 buffer of ``preemption.kernel.mask_layout`` bytes,
+    ``out`` when given (so the three fetch in one copy)."""
+    from kube_scheduler_simulator_tpu_torch.preemption.kernel import mask_layout, mask_views
+
     U, N = ucand.shape
     V, R, PDB, S = vprio.shape[1], alloc.shape[1], vmatch.shape[2], snode.shape[0]
     if R > MAXR_PREEMPT:
@@ -925,12 +966,19 @@ def preempt(
         setattr(a, name, _check(t, name, tdt))
     fn = _entry("preempt", dt)
     dev = alloc.device
-    cand = torch.empty((U, N), dtype=torch.bool, device=dev)
-    victims = torch.empty((U, N, V), dtype=torch.bool, device=dev)
-    viol = torch.empty((U, N, V), dtype=torch.bool, device=dev)
+    nbytes, _offs = mask_layout(U, N, V)
+    if out is None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if out.dtype != torch.uint8 or out.shape != (nbytes,):
+        raise ValueError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
+    _check(out, "out")
+    cand, victims, viol = mask_views(out, U, N, V)
     a.cand, a.victims, a.viol = cand.data_ptr(), victims.data_ptr(), viol.data_ptr()
     if U * N == 0:
         return cand, victims, viol
+    # the successes bucketed by node (csrc/preempt.cu), each block its slice
+    slist = torch.empty(max(S, 1), dtype=torch.int32, device=dev)
+    a.slist = slist.data_ptr()
     rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "preempt")
     LAUNCHES["preempt"] += 1

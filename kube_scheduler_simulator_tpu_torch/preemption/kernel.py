@@ -26,11 +26,18 @@ Exactness: every resource column is GCD-scaled, so the floats hold
 integers; sums in any order are exact while every value and partial sum
 stays below 2**24 (float32) or 2**53 (float64).  ``run_search`` checks a
 bound on every magnitude the search forms before it dispatches and raises
-``ValueError`` when the dtype cannot hold it.
+``ValueError`` when the dtype cannot hold it; the problem's part of that
+bound is computed once, with its device tables.
+
+The three masks come out of one buffer (``mask_layout``, ``mask_views``).
+A dispatch on the card stages its per-dispatch inputs in one pinned host
+buffer (one copy in), and fetches the masks' buffer into pinned memory
+(one copy out).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
@@ -45,6 +52,31 @@ PROBLEM_FIELDS = (
     "vstart", "vvalid", "vmatch", "allowed", "victim_pods", "res_idx", "V", "PDB",
 )
 EXACT_LIMIT = {torch.float32: 1 << 24, torch.float64: 1 << 53}
+_ALIGN = 16  # byte alignment of each array in a staged or output buffer
+
+
+def _up(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def mask_layout(U: int, N: int, V: int) -> "tuple[int, tuple[int, int, int]]":
+    """(bytes, (cand, victims, viol) byte offsets) of the search's one output
+    buffer: cand [U,N], victims [U,N,V] and viol [U,N,V], one byte a flag,
+    each at a 16-byte boundary."""
+    off_v = _up(U * N)
+    off_o = off_v + _up(U * N * V)
+    return off_o + _up(U * N * V), (0, off_v, off_o)
+
+
+def mask_views(buf, U: int, N: int, V: int) -> tuple:
+    """(cand [U,N], victims [U,N,V], viol [U,N,V]) bool views of a
+    ``mask_layout`` buffer: a uint8 tensor (any device) or numpy array."""
+    _n, (oc, ov, oo) = mask_layout(U, N, V)
+    if isinstance(buf, torch.Tensor):
+        cut = lambda o, n, shape: buf[o : o + n].view(torch.bool).reshape(shape)  # noqa: E731
+    else:
+        cut = lambda o, n, shape: buf[o : o + n].view(bool).reshape(shape)  # noqa: E731
+    return cut(oc, U * N, (U, N)), cut(ov, U * N * V, (U, N, V)), cut(oo, U * N * V, (U, N, V))
 
 
 def preempt_plain(
@@ -142,21 +174,55 @@ def problem_from_fields(src: Any):
 def device_tables(pr, device: torch.device, dtype: torch.dtype) -> dict:
     """The node-axis tables of ``pr`` on ``device`` in the search's dtypes,
     uploaded at the first call for that (device, dtype) and kept on the
-    problem."""
+    problem (on the card in one pinned copy), with the problem's part of
+    the exactness bound: ``mag`` [R],
+    each column's allocatable, base usage and twice its victims' summed
+    requests (freed, then re-added), at their maxima over nodes;
+    ``cnt_mag``, the pod count's (base count, twice V, 2); ``pods_mag``,
+    max_pods'."""
     key = (str(device), dtype)
     if pr._device is not None and pr._device[0] == key:
         return pr._device[1]
-    floats = {f: getattr(pr, f).astype(np.float64) for f in ("alloc", "base_req", "base_cnt", "max_pods", "vreq")}
-    tables = {f: torch.from_numpy(a).to(device=device, dtype=dtype) for f, a in floats.items()}
-    for f, dt in (("vprio", np.int64), ("vvalid", bool), ("vmatch", bool), ("allowed", np.int32)):
-        tables[f] = torch.from_numpy(np.ascontiguousarray(getattr(pr, f), dtype=dt)).to(device)
+    npdt = np.dtype(str(dtype).split(".")[-1])
+    kinds = (("alloc", npdt), ("base_req", npdt), ("base_cnt", npdt), ("max_pods", npdt), ("vreq", npdt),
+             ("vprio", np.int64), ("vvalid", bool), ("vmatch", bool), ("allowed", np.int32))
+    arrays = [np.ascontiguousarray(getattr(pr, f), dtype=dt) for f, dt in kinds]
+    # on the card in one pinned copy, as a dispatch's inputs
+    staged = _stage(arrays, device) if device.type == "cuda" else [torch.from_numpy(a) for a in arrays]
+    tables = dict(zip((f for f, _dt in kinds), staged))
+    vsum = pr.vreq.sum(axis=1) if pr.V else np.zeros_like(pr.alloc)
+    tables["mag"] = _colmax(pr.alloc) + _colmax(pr.base_req) + 2 * _colmax(vsum)
+    tables["cnt_mag"] = int(np.abs(pr.base_cnt).max(initial=0)) + 2 * pr.V + 2
+    tables["pods_mag"] = int(np.abs(pr.max_pods).max(initial=0))
     pr._device = (key, tables)
     return tables
 
 
+def _colmax(a: np.ndarray) -> np.ndarray:
+    return np.abs(a).max(axis=0, initial=0)
+
+
+def _stage(arrays: list, device: torch.device) -> list:
+    """Numpy ``arrays`` on ``device`` (a problem's tables, a dispatch's
+    inputs): packed at 16-byte boundaries into one pinned host buffer, one
+    copy in, and cut into views of their dtypes and shapes there."""
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += _up(a.nbytes)
+    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8, pin_memory=True)
+    hn = host.numpy()
+    for a, o in zip(arrays, offs):
+        hn[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    buf = host.to(device, non_blocking=True)
+    return [
+        buf[o : o + a.nbytes].view(getattr(torch, a.dtype.name)).reshape(a.shape) for a, o in zip(arrays, offs)
+    ]
+
+
 def run_search(
     pr, ucand, ureq, uprio, smask, sreq, snode, *, usage=None, cnt=None,
-    device: "str | torch.device | None" = None, dtype: "torch.dtype | None" = None,
+    device: "str | torch.device | None" = None, dtype: "torch.dtype | None" = None, split: "dict | None" = None,
 ) -> dict:
     """Dispatch the search for U pods over ``pr``'s N nodes and V slots.
 
@@ -165,13 +231,18 @@ def run_search(
     ``device``: the card unless the caller passes "cpu"; ``dtype``: float32
     on the card, float64 on the CPU.  Returns numpy masks ``cand`` [U,N],
     ``victims`` and ``viol`` [U,N,V] at the true dims (no padding: the
-    kernel takes runtime shapes)."""
+    kernel takes runtime shapes), on the card views of one buffer.
+    ``split``: a dict that gets the dispatch's stages on the card,
+    ``stage_s`` (the host's packing), ``in_ms``, ``kernel_ms`` and
+    ``fetch_ms`` (CUDA events around the copy in, the launch and the copy
+    out) and ``wall_s``."""
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
     ucand = np.asarray(ucand, dtype=bool)
     U, N = ucand.shape
     R = len(pr.resource_names)
     S = len(snode)
+    t0 = time.perf_counter()
     tables = device_tables(pr, dev, dt)
     extra_req = np.zeros((N, R), dtype=np.int64) if usage is None else np.asarray(usage, dtype=np.int64)
     extra_cnt = np.zeros(N, dtype=np.int64) if cnt is None else np.asarray(cnt, dtype=np.int64)
@@ -179,26 +250,57 @@ def run_search(
     sreq = np.asarray(sreq, dtype=np.int64).reshape(S, R)
     # the largest magnitude any value or partial sum of a column can reach:
     # allocatable, usage with every extra, every victim's request summed
-    # twice (freed, then re-added), and the pod's want
-    vsum = pr.vreq.sum(axis=1) if pr.V else np.zeros_like(pr.alloc)
-    colmax = lambda a: np.abs(a).max(axis=0, initial=0)  # noqa: E731
-    mag = colmax(pr.alloc) + colmax(pr.base_req) + colmax(extra_req) + np.abs(sreq).sum(axis=0)
-    mag = mag + 2 * colmax(vsum) + colmax(ureq)
-    cnt_mag = int(np.abs(pr.base_cnt).max(initial=0) + np.abs(extra_cnt).max(initial=0)) + S + 2 * pr.V + 2
-    worst = max(int(mag.max(initial=0)), cnt_mag, int(np.abs(pr.max_pods).max(initial=0)))
+    # twice (freed, then re-added), and the pod's want; the problem's part
+    # comes with its tables
+    mag = tables["mag"] + _colmax(extra_req) + np.abs(sreq).sum(axis=0) + _colmax(ureq)
+    cnt_mag = tables["cnt_mag"] + int(np.abs(extra_cnt).max(initial=0)) + S
+    worst = max(int(mag.max(initial=0)), cnt_mag, tables["pods_mag"])
     if worst >= EXACT_LIMIT[dt]:
         raise ValueError(
             f"victim search values reach {worst}, beyond exact integers in {dt} ({EXACT_LIMIT[dt]})"
         )
+    V = pr.V
+    npdt = np.dtype(str(dt).split(".")[-1])
+    inputs = [
+        ucand, ureq.astype(npdt), np.asarray(uprio, dtype=np.int64), np.asarray(smask, dtype=bool).reshape(U, S),
+        sreq.astype(npdt), np.asarray(snode, dtype=np.int32), extra_req.astype(npdt), extra_cnt.astype(npdt),
+    ]
+    if dev.type != "cuda":
+        t = [torch.from_numpy(np.ascontiguousarray(a)) for a in inputs]
+        cand, victims, viol = (m.numpy() for m in search(*_search_args(t, tables)))
+        return {"cand": cand, "victims": victims, "viol": viol}
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 
-    def up(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+    nbytes, _offs = mask_layout(U, N, V)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if split is not None else None
+    if ev:
+        ev[0].record()
+    t = _stage(inputs, dev)
+    t1 = time.perf_counter()
+    if ev:
+        ev[1].record()
+    out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    K.preempt(*_search_args(t, tables), out=out)
+    if ev:
+        ev[2].record()
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    if ev:
+        ev[3].record()
+    torch.cuda.current_stream(dev).synchronize()
+    if ev:
+        split.update(stage_s=t1 - t0, in_ms=ev[0].elapsed_time(ev[1]), kernel_ms=ev[1].elapsed_time(ev[2]),
+                     fetch_ms=ev[2].elapsed_time(ev[3]), wall_s=time.perf_counter() - t0)
+    cand, victims, viol = mask_views(host.numpy(), U, N, V)
+    return {"cand": cand, "victims": victims, "viol": viol}
 
-    args = (
-        up(ucand), up(ureq, dt), up(np.asarray(uprio, dtype=np.int64)),
-        up(np.asarray(smask, dtype=bool).reshape(U, S)), up(sreq, dt), up(np.asarray(snode, dtype=np.int32)),
-        tables["alloc"], tables["base_req"], up(extra_req, dt), tables["base_cnt"], up(extra_cnt, dt),
-        tables["max_pods"], tables["vreq"], tables["vprio"], tables["vvalid"], tables["vmatch"], tables["allowed"],
+
+def _search_args(t: list, tables: dict) -> tuple:
+    """The search's 17 arguments in order from the staged per-dispatch
+    tensors (``run_search``'s ``inputs``) and the problem's tables."""
+    ucand, ureq, uprio, smask, sreq, snode, extra_req, extra_cnt = t
+    return (
+        ucand, ureq, uprio, smask, sreq, snode, tables["alloc"], tables["base_req"], extra_req, tables["base_cnt"],
+        extra_cnt, tables["max_pods"], tables["vreq"], tables["vprio"], tables["vvalid"], tables["vmatch"],
+        tables["allowed"],
     )
-    cand, victims, viol = search(*args)
-    return {"cand": cand.cpu().numpy(), "victims": victims.cpu().numpy(), "viol": viol.cpu().numpy()}

@@ -83,7 +83,9 @@ def seeded_case(name: str) -> "tuple[list[Obj], dict[str, int], list[Obj]]":
     bench pods from seed 11.  "spread" gives every pod bench's two spread
     constraints (zone and hostname: the per-lane spread carries are
     used); "interpod" every pod its inter-pod terms; "burst" is
-    ``workloads.autoscale_burst`` cut to 6 groups of 6 copies."""
+    ``workloads.autoscale_burst`` cut to 6 groups of 6 copies; "hostname"
+    is 12 pods of one app under a hostname DoNotSchedule constraint of
+    maxSkew 1."""
     if name == "burst":
         return workloads.autoscale_burst(n_groups=6, copies=6, n_pending=60, seed=3)
     rng = random.Random(11)
@@ -92,8 +94,46 @@ def seeded_case(name: str) -> "tuple[list[Obj], dict[str, int], list[Obj]]":
         workloads.node_group("tainted", "16", "64Gi", {"disk": "hdd"}, 8, taints=TAINT),
         workloads.node_group("big", "64", "256Gi", {"disk": "ssd"}, 8),
     ]
-    pods = [workloads.mk_pod(i, rng, spread=name == "spread", interpod=name == "interpod") for i in range(60)]
+    if name == "hostname":
+        pods = [hostname_pod(i) for i in range(12)]
+    else:
+        pods = [workloads.mk_pod(i, rng, spread=name == "spread", interpod=name == "interpod") for i in range(60)]
     return groups, {"small": 8, "tainted": 8, "big": 3}, pods
+
+
+def hostname_pod(i: int) -> Obj:
+    """A pod of app ``web`` that PodTopologySpread keeps one skew from the
+    least loaded included node (kubernetes.io/hostname, DoNotSchedule)."""
+    return {
+        "metadata": {"name": f"web-{i}", "namespace": "default", "labels": {"app": "web"}},
+        "spec": {
+            "containers": [{"name": "c", "resources": {"requests": {"cpu": "100m", "memory": "128Mi"}}}],
+            "topologySpreadConstraints": [{
+                "maxSkew": 1, "topologyKey": "kubernetes.io/hostname", "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchLabels": {"app": "web"}},
+            }],
+        },
+    }
+
+
+def lane_masks(case: str, blocks: list, N: int, n_true: int) -> np.ndarray:
+    """The estimate's [G, N] lane masks, each lane its group's block of
+    template rows, and for the masked lane scan's hazards:
+    "noncontiguous" draws each lane's rows at random over every real row;
+    "empty" leaves lane 0 no row; "hostname" leaves lane 0 three of its
+    block's eight rows, so the other five, included but inactive, hold
+    the hostname constraint's minimum at 0."""
+    masks = np.zeros((len(blocks), N), dtype=bool)
+    for g, (lo, hi) in enumerate(blocks):
+        masks[g, lo:hi] = True
+    if case == "noncontiguous":
+        masks = np.random.default_rng(5).random((len(blocks), N)) < 0.45
+        masks[:, n_true:] = False
+    elif case == "empty":
+        masks[0] = False
+    elif case == "hostname":
+        masks[0, blocks[0][0] + 3 :] = False
+    return masks
 
 
 def jax_fields(dp) -> dict:
@@ -105,9 +145,9 @@ def jax_fields(dp) -> dict:
 
 # ------------------------------------------------- (a) the plain lane scan
 
-@pytest.mark.parametrize("case", ["plain", "spread", "interpod", "burst"])
+@pytest.mark.parametrize("case", ["plain", "spread", "interpod", "burst", "noncontiguous", "empty", "hostname"])
 def test_plain_lane_scan_matches_the_vmapped_reference(case):
-    groups, headroom, pending = seeded_case(case)
+    groups, headroom, pending = seeded_case({"noncontiguous": "spread", "empty": "plain"}.get(case, case))
     est = JEst.ScaleUpEstimator(filters=DEFAULT_FILTERS)
     blocks, synth = [], []
     for g in groups:
@@ -119,9 +159,7 @@ def test_plain_lane_scan_matches_the_vmapped_reference(case):
     pr = JE.pad_problem(JE.encode(synth, [], pending, None, volumes={}))
     dp, dims = JB.lower(pr, dtype=np.float64)
     cfg = est.engine.cfg._replace(sampling=False, trace=False, traced_weights=False)
-    masks = np.zeros((len(blocks), dims["N"]), dtype=bool)
-    for g, (lo, hi) in enumerate(blocks):
-        masks[g, lo:hi] = True
+    masks = lane_masks(case, blocks, dims["N"], pr.N_true)
     axes = JB.DeviceProblem(**{f: (0 if f == "node_active" else None) for f in JB.DeviceProblem._fields})
     fn = jax.jit(jax.vmap(JB.build_batch_fn(cfg, dims), in_axes=(axes,)))
     want = {k: np.asarray(v) for k, v in fn(jax.device_put(dp._replace(node_active=masks))).items()}
@@ -139,10 +177,34 @@ def test_plain_lane_scan_matches_the_vmapped_reference(case):
     assert got["final_carry"]["requested0"] is got["final_requested"]
     placed = (want["packed_pod"][:, 0, : pr.P_true] >= 0).sum(axis=1)
     assert placed.max() > 0
-    if case != "burst":
+    if case not in ("burst", "noncontiguous"):
         assert placed[1] == 0  # the tainted group helps no pod
-    if case == "spread":
+    if case in ("spread", "noncontiguous"):
         assert np.asarray(tdp.spread_counts0).shape[0] > 1 and got["final_spread_counts"].any()
+    if case == "empty":
+        assert placed[0] == 0 and not got["final_pod_count"][0].any()
+    if case == "hostname":
+        # one pod a node: the five inactive rows keep the minimum at 0 (over
+        # the lane's three rows alone, the pods would stack two and more a
+        # node), and lane 2's three rows take one each too
+        assert placed[0] == 3 and placed[2] == 3
+
+
+def test_fetch_outputs_splits_one_copy_into_the_estimate_outputs():
+    """The estimate reads packed_pod (int32), final_pod_count and
+    final_requested (the working dtype) in one copy: their bytes gathered,
+    fetched and split again give the same arrays, in either dtype."""
+    rng = np.random.default_rng(2)
+    for dt in (torch.float32, torch.float64):
+        out = {
+            "packed_pod": torch.from_numpy(rng.integers(-1, 50, (3, 5, 7)).astype(np.int32)),
+            "final_pod_count": torch.from_numpy(rng.integers(0, 9, (3, 11))).to(dt),
+            "final_requested": torch.from_numpy(rng.integers(0, 1 << 20, (3, 11, 2))).to(dt),
+        }
+        keys = ("packed_pod", "final_pod_count", "final_requested")
+        got = TEst.fetch_outputs(out, keys)
+        for k, g in zip(keys, got):
+            assert g.dtype == out[k].numpy().dtype and np.array_equal(g, out[k].numpy()), (dt, k)
 
 
 def test_lane_scan_refuses_the_trace_and_a_bad_mask():

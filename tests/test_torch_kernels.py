@@ -11,6 +11,7 @@ On a machine without a card they skip; the binding checks run anywhere.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import re
 import sys
 from pathlib import Path
@@ -129,6 +130,18 @@ def test_cluster_width_is_a_function_of_the_shape(N, lanes, C):
     lane has at most two rank tiles, at the lane paths' and the one-lane
     scan's shapes."""
     assert TK.cluster_width(N, lanes) == C
+
+
+@pytest.mark.parametrize("widest,tile", [
+    (0, 64), (1, 64), (48, 64),     # cfg6-autoscale's estimates: at most 48 rows a lane
+    (64, 64),                       # the autoscale burst: 64 copies a group
+    (65, 256), (128, 256), (129, 256), (256, 256), (257, 512), (512, 512),
+    (3585, 512),                    # wider lanes walk several tiles of 512
+])
+def test_lane_tile_is_a_function_of_the_widest_lane(widest, tile):
+    """K8's block width: the narrowest of 64, 256 and 512 threads that
+    holds the widest lane's active rows in one tile, 512 past it."""
+    assert TK.lane_tile(widest) == tile
 
 
 def test_build_flags_keep_ieee_arithmetic():
@@ -369,6 +382,50 @@ def test_preempt_kernel_matches_plain_version_on_the_card(dt):
         assert TK.LAUNCHES["preempt"] == 1
         for name, a, b in zip(("cand", "victims", "viol"), got, preempt_plain(*args)):
             assert torch.equal(a, b), (shape, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("U,N,V,R,PDB,S,bunch", [
+    (13, 77, 4, 2, 3, 40, "one_node"),    # U x N not a multiple of the block (8 rows x 32 nodes)
+    (13, 77, 4, 2, 3, 40, "two_nodes"),
+    (13, 77, 4, 2, 3, 0, "none"),         # S 0
+    (64, 500, 4, 2, 16, 144, "spread"),   # cfg7's widths, successes over every node
+    (9, 70, 5, 3, 2, 30, "one_node"),     # V not a multiple of 4: the masks written a byte at a time
+    (6, 50, 200, 8, 40, 25, "spread"),    # V > 32 (bits in local memory), a tile of fewer than 32
+                                          # nodes, PDB matches read in place
+    (5, 40, 4, 2, 3, 60_000, "spread"),   # S past what a block's shared memory could list
+    (5, 40, 4, 2, 3, 60_000, "one_node"),
+])
+def test_preempt_kernel_with_bucketed_successes_on_the_card(dt, U, N, V, R, PDB, S, bunch):
+    """K5's redesign against preemption/kernel.preempt_plain, bitwise: the
+    same-window successes bucketed by node (all on one node, on two, none,
+    spread, more than a block's shared memory could hold), ragged tiles, V
+    past one word of bits, tables too wide for 32 nodes a block; the three
+    masks are views of one buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_scheduler_simulator_tpu_torch.preemption.kernel import mask_layout, preempt_plain
+
+    args = list(_search_args(U, N, V, R, PDB, S, dt, "cuda", seed=U + V + S))
+    if bunch in ("one_node", "two_nodes"):
+        full = int(torch.argmax(args[14].sum(dim=1)))
+        other = 5 if bunch == "two_nodes" else full
+        args[5] = torch.tensor([full if s % 2 == 0 else other for s in range(S)], dtype=torch.int32, device="cuda")
+    if S > 10_000:
+        # each pod preceded by a few of the S successes, so that nodes keep
+        # room and candidates: every lane still walks its node's whole list
+        args[3] = torch.rand((U, S), generator=torch.Generator("cuda").manual_seed(S), device="cuda") < 5e-4
+    TK.reset_counts()
+    got = TK.preempt(*args)
+    assert TK.LAUNCHES["preempt"] == 1
+    base = got[0].data_ptr()
+    _n, offs = mask_layout(U, N, V)
+    assert [g.data_ptr() - base for g in got] == list(offs)
+    want = preempt_plain(*args)
+    for name, a, b in zip(("cand", "victims", "viol"), got, want):
+        assert torch.equal(a, b), (bunch, name)
+    assert want[0].any()
 
 
 # ------------------------------------------ row scatter and windows (K4, K2w)
@@ -617,6 +674,73 @@ def test_lane_scan_matches_plain_version_and_one_lane_scans_on_the_card(topo):
         assert (k_out["selected"][4] < 0).all() and (k_out["selected"][3] >= 0).any()
 
 
+def _hostname_problem(dtype, device="cuda", n_nodes: int = 300, n_pods: int = 40):
+    """``n_nodes`` template copies of one node group (each its own hostname)
+    and ``n_pods`` pods of one app under a hostname DoNotSchedule
+    constraint of maxSkew 1: a lane's minimum over the hostname domains
+    counts the included rows outside the lane."""
+    from kube_scheduler_simulator_tpu_torch.autoscaler import nodegroups as NG
+
+    group = workloads.node_group("pool", "8", "32Gi", {"disk": "ssd"}, n_nodes)
+    nodes = [NG.synthetic_node(group, i) for i in range(n_nodes)]
+    pods = [{
+        "metadata": {"name": f"web-{i}", "namespace": "default", "labels": {"app": "web"}},
+        "spec": {
+            "containers": [{"name": "c", "resources": {"requests": {"cpu": "100m", "memory": "128Mi"}}}],
+            "topologySpreadConstraints": [{
+                "maxSkew": 1, "topologyKey": "kubernetes.io/hostname", "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchLabels": {"app": "web"}},
+            }],
+        },
+    } for i in range(n_pods)]
+    pr = TE.pad_problem(TE.encode(nodes, [], pods))
+    dp, dims = TB.lower(pr, dtype=dtype, device=device)
+    return pr, dp, dims
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masks", ["noncontiguous", "empty", "hostname"])
+@pytest.mark.parametrize("tile", TK.LANE_TILES)
+def test_masked_lane_scan_matches_plain_version_on_the_card(tile, masks):
+    """K8's masked mode (one block of ``tile`` threads a lane over the
+    lane's own rows) against scan_lanes_plain, bitwise, in both dtypes: lanes
+    of rows drawn at random (wider than the tile below 512: several tiles),
+    an empty lane, and lanes of a hostname-spread problem whose minimum
+    comes from included rows outside the lane; a rotated start and
+    sampling, both tie-breaks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    rng = np.random.default_rng(tile)
+    for tie, dt in itertools.product(("first", "reservoir"), (torch.float32, torch.float64)):
+        if masks == "hostname":
+            pr, dp, dims = _hostname_problem(dt)
+            cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=TOPO_SCORES, tie_break=tie, seed=3)
+            m = np.zeros((3, dims["N"]), dtype=bool)
+            m[0, :270] = True
+            m[1, 270:273] = True
+            m[2, : pr.N_true] = rng.random(pr.N_true) < 0.3
+        else:
+            pr, dp, dims = _problem(dt, "cuda", n_pods=40, n_nodes=700, topo=True)
+            cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=TOPO_SCORES, tie_break=tie, seed=3)
+            m = rng.random((4, dims["N"])) < 0.5
+            m[:, pr.N_true:] = False
+            if masks == "empty":
+                m[1] = False
+        lane = torch.from_numpy(m).to("cuda")
+        TK.reset_counts()
+        k_out = TK.scan_lanes(cfg, dims, dp, lane, widest=tile)
+        assert TK.LAUNCHES["scan_lanes"] == 1
+        assert_outputs_equal(k_out, TB.scan_lanes_plain(cfg, dims, dp, lane), (tile, masks, dt))
+        assert int(lane.sum(dim=1).max()) > tile or tile == 512
+        if masks == "hostname":
+            placed = (k_out["selected"][:, : pr.P_true] >= 0).sum(dim=1).tolist()
+            assert placed[:2] == [40, 3], placed  # one pod a row of lane 1: its minimum stays 0
+        if masks == "empty":
+            assert (k_out["selected"][1] < 0).all()
+
+
 # (cluster width, nodes, lanes, pods, sample_k, start0, zones, topology): the
 # lane scan in clusters of 1 (one or two rank tiles), 2 (132 SMs over 50
 # lanes), 3 and 8 blocks, the rotation start past the first tiles; with
@@ -642,9 +766,10 @@ CLUSTER_CASES = [
 def test_lane_scans_in_clusters_match_plain_versions_on_the_card(
     C, n_nodes, lanes, n_pods, sample_k, start0, zones, topo,
 ):
-    """K9 (weight lanes, first tie) and K8 (node-mask lanes, reservoir with
-    the topology plugins, first tie without) launched as one thread-block
-    cluster of C blocks a lane, against their plain versions, bitwise, in
+    """K9 (weight lanes, first tie) launched as one thread-block cluster of
+    C blocks a lane, and K8 (node-mask lanes in its masked mode, reservoir
+    with the topology plugins, first tie without) on the same problem,
+    against their plain versions, bitwise, in
     both dtypes; with ``topo``, spread constraints on every 3rd pod and
     inter-pod terms on every pod (pods matching one and two term groups); a
     rotated start."""

@@ -120,6 +120,51 @@ def test_plain_search_matches_the_reference(shape, variant):
         assert want["cand"].any() and want["viol"].any() or shape[4] == 0
 
 
+@pytest.mark.parametrize("bunch", ["one_node", "two_nodes", "none"])
+def test_plain_search_with_bunched_successes_matches_the_reference(bunch):
+    """Every same-window success on one node, or on two, or none (S 0): the
+    kernel buckets the successes by node, so these are its extremes.
+    preempt_plain through the port's run_search on the CPU against the
+    reference's jitted search, every mask equal."""
+    S = 0 if bunch == "none" else 40
+    pr, (ucand, ureq, uprio, smask, sreq, snode), extra_req, extra_cnt = search_problem(
+        12, 30, 6, 2, 3, S, "mixed", seed=17)
+    if bunch != "none":
+        full = int(np.argmax(pr.vvalid.sum(axis=1)))
+        snode = np.where(np.arange(S) % 2 == 0, full, 7 if bunch == "two_nodes" else full).astype(np.int32)
+    args = (ucand, ureq, uprio, smask, sreq, snode)
+    port_pr = TK.problem_from_fields(pr)
+    pr.base_req, pr.base_cnt = pr.base_req + extra_req, pr.base_cnt + extra_cnt
+    want = JK.run_search(pr, *args)
+    got = TK.run_search(port_pr, *args, usage=extra_req, cnt=extra_cnt, device="cpu")
+    for k in ("cand", "victims", "viol"):
+        assert got[k].dtype == np.bool_ and got[k].shape == want[k].shape, k
+        assert np.array_equal(got[k], want[k]), (k, np.argwhere(got[k] != want[k])[:5])
+    assert want["cand"].any()
+
+
+@pytest.mark.parametrize("U,N,V", [(3, 5, 2), (7, 23, 9), (1, 1, 1), (4, 6, 0), (0, 5, 3), (16, 64, 16)])
+def test_one_output_buffer_splits_into_the_three_masks(U, N, V):
+    """cand, victims and viol are views of one uint8 buffer of
+    mask_layout's size, each at a 16-byte boundary and apart from the
+    others: written through the views and read back, as numpy arrays and as
+    tensors, they are the masks."""
+    rng = np.random.default_rng(U * 100 + N * 10 + V)
+    masks = [rng.random((U, N)) < 0.5, rng.random((U, N, V)) < 0.5, rng.random((U, N, V)) < 0.5]
+    nbytes, offs = TK.mask_layout(U, N, V)
+    sizes = (U * N, U * N * V, U * N * V)
+    assert all(o % 16 == 0 for o in offs) and offs[-1] + sizes[-1] <= nbytes
+    assert all(offs[k] + sizes[k] <= offs[k + 1] for k in range(2))
+    buf = np.full(nbytes, 0xAB, dtype=np.uint8)
+    for view, m in zip(TK.mask_views(buf, U, N, V), masks):
+        view[...] = m
+    for view, m, o, n in zip(TK.mask_views(buf, U, N, V), masks, offs, sizes):
+        assert view.dtype == np.bool_ and view.shape == m.shape and np.array_equal(view, m)
+        assert np.array_equal(buf[o : o + n], m.reshape(-1).astype(np.uint8))
+    tviews = TK.mask_views(torch.from_numpy(buf), U, N, V)
+    assert all(torch.equal(t, torch.from_numpy(m)) for t, m in zip(tviews, masks))
+
+
 def test_search_refuses_values_beyond_exact_floats():
     """A column whose magnitudes pass 2**24 cannot be searched exactly in
     float32: run_search raises instead of rounding."""
