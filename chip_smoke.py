@@ -103,7 +103,11 @@ line):
    sampled ids, and the two blobs; at cfg5-vol, the first failures of each
    filter (NodePorts, VolumeRestrictions, NodeVolumeLimits, VolumeBinding
    and VolumeZone must each reject a pair); the compaction on seeded planes
-   for every fail-pack mode and raw dtype;
+   for every fail-pack mode and raw dtype (``K3_SEEDED``: rows that wrap,
+   start at 0, visit nothing or more than n_true; padded node columns;
+   planes at odd offsets; in-step planes; north's widths); the compaction
+   timed at every workload over launches back to back behind a sleep of
+   the card (``timing.device_ms``), its host µs a call beside it;
 3. end to end: ``BatchEngine(device="cuda").schedule`` on every workload
    in float32, and in float64 at cfg2 (launch counters reset just before
    each round and read just after: every round must launch each kernel
@@ -164,7 +168,8 @@ line):
    and status (nominatedNodeName included) and evict the same pods;
 15. the gang kernels against their plain versions, bitwise: the window
    verdict (K6) on seeded problems (K 256 and 2 048 member slots, G 80, N
-   220 and 5 000, D 8 and N), the feasibility scan (K7) in float32 and
+   220 and 5 000, D 8 and N; K 4 096, G 512, N = D 5 000, whose bitmaps take
+   several blocks), the feasibility scan (K7) in float32 and
    float64 at cfg8's preview shape (G 64, M 64, N 220, D 8), at G 256 x M 64
    x N 5 000 with D 8 and D 5 000, and at N 12 000 (its float64 table in
    global scratch);
@@ -174,12 +179,15 @@ line):
    verdict's seconds; a wave fails on a verdict mismatch, a partially bound
    group, a gang or batch fallback, K6 launches other than the dispatches,
    dispatches other than one a replay window, or an unbound member;
-17. K6 timed on the captured inputs of 16's first dispatch; group_preview
+17. K6 timed on the captured inputs of 16's first dispatch (launches back
+   to back behind a sleep of the card, ``timing.device_ms``; the host's
+   call and the CUDA-event time of host-paced calls beside it; the
+   dispatch's host ms from 16's ``gang_kernel_s`` over its dispatches); group_preview
    at 16's final state on a feasible group (32 one-CPU members) and on one
    too large for any node (4 members of 100 CPU at priority 100), counts
    reset just before: K7 must launch twice and the victim search (K5) at
    least once; K7 and K5 against their plain versions on the captured
-   inputs, K7 timed;
+   inputs, K7 timed as K6;
 18. the CUDA float64 service against the CPU float64 service (a worker
    process) on cfg8-gang's parity leg (24 jobs of 2-8 members, plan seed
    23, 40 nodes) and on the same plan on 4 nodes of 8 CPU in 3 zones (members
@@ -363,8 +371,19 @@ GANG = dict(jobs=200, min_members=8, max_members=64, nodes=220, waves=5, seed=24
 GANG_WAVES = 3  # the scale leg's first 3 of its 5 waves, for the time limit
 GANG_PARITY = dict(jobs=24, min_members=2, max_members=8, nodes=40, waves=5, seed=23)
 GANG_CUTS = {"parity": GANG_PARITY, "cascade": dict(GANG_PARITY, nodes=4)}
-# K6 against its plain version on seeded problems: (K, G, N, D)
-K6_SEEDED = [(k, 80, n, d) for k in (256, 2048) for n in (220, 5000) for d in (8, n)]
+# K3 against its plain version on seeded planes: (P, N, n_true, W, WS,
+# in-step width or None); rows that start at 0, visit nothing, visit more
+# than n_true and wrap in each (seeded_planes); padded node columns and a
+# fail plane of odd bytes (the planes after it at odd offsets: byte stores);
+# rows over several partition tiles; in-step planes at aligned and odd
+# offsets; north's widths (16-byte stores)
+K3_SEEDED = [
+    (1024, 512, 500, 384, 256, None), (7, 40, 37, 33, 9, None), (5, 1100, 1050, 1030, 1025, None),
+    (6, 64, 64, 64, 16, 32), (3, 50, 45, 17, 7, 13), (64, 5120, 5000, 5120, 512, 512),
+]
+# K6 against its plain version on seeded problems: (K, G, N, D); at G 80 x
+# D 5 000 and G 512 x D 5 000 the groups' bitmaps take several blocks
+K6_SEEDED = [(k, 80, n, d) for k in (256, 2048) for n in (220, 5000) for d in (8, n)] + [(4096, 512, 5000, 5000)]
 # K7 in both dtypes: (G, M, N, D) — cfg8's preview shape, the 5 000-node
 # shapes under a zone and a hostname key, and one whose table is too big
 # for shared memory in float64 (the global-scratch path)
@@ -438,6 +457,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps, res
+
+
+def device_ms(fn, reps: int, warmup: int = 3):
+    """``timing.device_ms``: (ms a launch on the card with ``reps`` launches
+    enqueued behind a sleep of the card, so they run back to back; ms a
+    call on the host; the last result)."""
+    from kube_scheduler_simulator_tpu_torch.timing import device_ms as timed
+
+    return timed(fn, reps, warmup)
 
 
 def host_and_cuda_us(fn, reps: int, warmup: int = 10) -> "tuple[float, float]":
@@ -659,25 +687,37 @@ def bound(counts: dict, dt) -> "tuple[float, str]":
 
 
 def compact_counts(out, manifest, W, WS, n_true) -> dict:
-    """Bytes the compaction must move on this input: the sampled mask (or,
-    for planes compacted in the scan's step, the feasible counts) and the
-    window scalars of every row, the fail planes of the visited cells, the
-    score planes of the kept sampled cells, and the blob."""
-    import numpy as np
+    """Bytes the compaction must move on this input (``time_scan.compact_bytes``)."""
+    from kube_scheduler_simulator_tpu_torch.time_scan import compact_bytes
 
-    P, N = out["fail_plug"].shape
-    proc = np.minimum(out["sample_processed"].cpu().numpy().astype(np.int64), n_true)
-    if "feasible" in out:
-        kept = np.minimum(out["feasible"].sum(dim=1).cpu().numpy(), WS).sum()
-        mask = P * N
-    else:
-        kept = np.minimum(out["feasible_count"].cpu().numpy(), WS).sum()
-        mask = 4 * P
-    dt_size = out["raw:NodeResourcesFit"].element_size()
-    n_score_planes = sum(1 for n, _d, _s in manifest if n.startswith(("raw:", "norm:")))
-    blob = sum(int(np.prod(s)) * np.dtype(d).itemsize for _n, d, s in manifest)
-    read = mask + 8 * P + int(np.minimum(proc, W).sum()) * 5 + int(kept) * n_score_planes * dt_size
-    return {"bytes": read + blob, "ops": 0}
+    return {"bytes": compact_bytes(out, manifest, W, WS, n_true), "ops": 0}
+
+
+def seeded_planes(P, N, nt, ws0, code_max, rdt, dt, dev, rng) -> dict:
+    """Seeded trace planes for the compaction: row 0 starts at 0 and
+    visits nothing, row 1 visits more than n_true, row 2 wraps (start
+    n_true - 2, 10 visited), the rest random; first failures in -1..4 with
+    codes up to ``code_max``; score planes [P, ws0 or N] in ``dt``."""
+    import numpy as np
+    import torch
+
+    start, proc = rng.integers(0, nt, P), rng.integers(1, nt + 5, P)
+    start[0], proc[0] = 0, 0
+    proc[1] = nt + 3
+    start[2], proc[2] = nt - 2, 10
+    hi = {"int8": 100, "int16": 30000, "int32": 1 << 22}[rdt]
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    out = {
+        "sample_start": t(start.astype(np.int32)), "sample_processed": t(proc.astype(np.int32)),
+        "fail_plug": t(rng.integers(-1, 5, (P, N)).astype(np.int8)),
+        "fail_code": t(rng.integers(0, code_max + 1, (P, N)).astype(np.int32)),
+        "feasible": t(rng.random((P, N)) < 0.5),
+        "feasible_count": t(rng.integers(0, (ws0 or 1) + 2, P).astype(np.int32)),
+    }
+    for s, _w in FIVE_SCORES:
+        out[f"raw:{s}"] = t(rng.integers(-hi, hi + 1, (P, ws0 or N))).to(dt)
+        out[f"norm:{s}"] = t(rng.integers(0, 101, (P, ws0 or N))).to(dt)
+    return out
 
 
 def gather_sampled(full, ws0: int):
@@ -956,8 +996,8 @@ def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
         from kube_scheduler_simulator_tpu_torch.preemption import kernel as PK
 
         # the kernel is shorter than its call: timed back to back behind a
-        # sleep (time_preempt.device_ms), the call's host time beside it
-        k5_ms, k5_host_ms, kout5 = TP.device_ms(lambda: K.preempt(*cargs), 20)
+        # sleep (timing.device_ms), the call's host time beside it
+        k5_ms, k5_host_ms, kout5 = device_ms(lambda: K.preempt(*cargs), 20)
         k5_plain_ms, _p = cuda_ms(lambda: preempt_plain(*cargs), 1, warmup=0)
         k5b, k5by = bound(search_counts(cargs, kout5), torch.float32)
         # the whole dispatch on the same inputs (run_search: the inputs in
@@ -1029,27 +1069,6 @@ def seeded_verdict(K, G, N, D, device, seed):
     return t(gid), t(node), t(dom), t(prior), t(minm), D
 
 
-def seeded_feasibility(G, M, N, R, D, dt, device, seed):
-    """Seeded feasibility-scan arguments: per group a prefix of valid member
-    slots with a few holes, small integer requests (ties everywhere), free
-    capacities from -1 to 11 (so some nodes are overcommitted), pod budgets
-    0-5, group 0 asking more than any node has (infeasible); dom a hostname
-    key when D == N, else n mod D."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    valid = (np.arange(M)[None, :] < rng.integers(1, M + 1, G)[:, None]) & (rng.random((G, M)) < 0.95)
-    req = rng.integers(0, 3, (G, M, R))
-    req[0] = 1000
-    free = rng.integers(-1, 12, (N, R))
-    cnt = rng.integers(0, 6, N)
-    dom = np.tile(np.arange(N) % D, (G, 1))
-    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)  # noqa: E731
-    return (f(req), torch.from_numpy(valid).to(device), f(free), f(cnt),
-            torch.from_numpy(np.ascontiguousarray(dom, dtype=np.int32)).to(device), D)
-
-
 def verdict_counts(args, outs) -> dict:
     """Bytes the window verdict must move (the member slots, the domain cell
     of every placed member, the per-group inputs and outputs) and its
@@ -1110,10 +1129,10 @@ def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_n
     records, total, digests = [], {k: 0 for k in K.LAUNCHES}, []
     verdict = GK.window_verdict
     if capture is not None:
-        def keep(*args):
+        def keep(*args, **kw):
             if "args" not in capture:
                 capture["args"] = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
-            return verdict(*args)
+            return verdict(*args, **kw)
 
         GK.window_verdict = keep
     keys = ("gang_parked", "gang_released_groups", "gang_released_pods", "gang_kernel_dispatches",
@@ -1221,6 +1240,7 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
     from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
     from kube_scheduler_simulator_tpu_torch.preemption import kernel as PK
+    from kube_scheduler_simulator_tpu_torch.time_gang import seeded_feasibility
 
     with Phase(f"K6 and K7 kernel vs plain, seeded: K6 {K6_SEEDED}; K7 {K7_SEEDED} in float32 and float64"):
         err = 0.0
@@ -1229,7 +1249,8 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
             got, want = K.gang_verdict(*args), GK.verdict_plain(*args)
             for nm, a, b in zip(("feasible", "distinct", "placed"), got, want):
                 err = max(err, same(f"K6 K={k6} G={g6} N={n6} D={d6} {nm}", a, b))
-            log(f"K6 K={k6} G={g6} N={n6} D={d6}: bitwise equal; feasible {int(got[0].sum())}/{g6}, "
+            blocks = -(-g6 // (K.VERDICT_SMEM_BYTES // ((2 + (d6 + 31) // 32) * 4)))
+            log(f"K6 K={k6} G={g6} N={n6} D={d6} ({blocks} blocks): bitwise equal; feasible {int(got[0].sum())}/{g6}, "
                 f"distinct max {int(got[1].max())}, placed {int(got[2].sum())}")
         for c, (g7, m7, n7, d7) in enumerate(K7_SEEDED):
             for dt in (torch.float32, torch.float64):
@@ -1244,7 +1265,7 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
         k7_seeded_ms, kout = cuda_ms(lambda: K.gang_feasibility(*args), 5, warmup=1)
         k7_seeded_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*args), 1, warmup=0)
         args = seeded_feasibility(256, 64, 5000, 2, 8, torch.float32, dev, seed=301)
-        k7_big_ms, kout = cuda_ms(lambda: K.gang_feasibility(*args), 5, warmup=1)
+        k7_big_ms, _h, kout = device_ms(lambda: K.gang_feasibility(*args), 20)
         k7_big_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*args), 1, warmup=0)
         k7_big_bound, k7_big_by = bound(feasibility_counts(args, kout), torch.float32)
         log(f"timing K7 G=256 M=64 N=5000 D=8 float32: kernel {k7_big_ms:.3f} ms, plain {k7_big_plain_ms:.3f} ms, "
@@ -1272,11 +1293,17 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
         got, want = K.gang_verdict(*cargs), GK.verdict_plain(*cargs)
         for nm, a, b in zip(("feasible", "distinct", "placed"), got, want):
             err = max(err, same(f"K6 first dispatch {nm}", a, b))
-        k6_ms, kout6 = cuda_ms(lambda: K.gang_verdict(*cargs), 50, warmup=5)
+        # the launch back to back behind a sleep of the card (its device
+        # time), its host ms a call, and the earlier figure: CUDA events
+        # around calls paced by the host; the dispatch's host ms as the
+        # service saw it over the waves (gang_kernel_s / dispatches)
+        k6_ms, k6_host_ms, kout6 = device_ms(lambda: K.gang_verdict(*cargs), 200)
+        k6_cuda_ms, _k = cuda_ms(lambda: K.gang_verdict(*cargs), 50, warmup=5)
         k6_plain_ms, _p = cuda_ms(lambda: GK.verdict_plain(*cargs), 5, warmup=1)
         k6b, k6by = bound(verdict_counts(cargs, kout6), torch.int32)
-        k6_t = dict(ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6b, bound_by=k6by, library_ms=None, err=err,
-                    shape=shape6)
+        k6_s, k6_n = sum(r["gang_kernel_s"] for r in grec), sum(r["gang_kernel_dispatches"] for r in grec)
+        k6_t = dict(ms=k6_ms, host_ms=k6_host_ms, cuda_ms=k6_cuda_ms, dispatch_ms=1e3 * k6_s / k6_n,
+                    plain_ms=k6_plain_ms, bound_ms=k6b, bound_by=k6by, library_ms=None, err=err, shape=shape6)
         log(f"timing K6 {shape6}: {json.dumps(k6_t)}")
         # the preview: one feasible group (32 one-CPU members) and one too
         # large for any node (4 members of 100 CPU at priority 100, so the
@@ -1324,11 +1351,13 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
         got, want = K.gang_feasibility(*fargs), GK.feasibility_plain(*fargs)
         for nm, a, b in zip(("feasible", "distinct", "assignment"), got, want):
             err = max(err, same(f"K7 preview {nm}", a, b))
-        k7_ms, kout7 = cuda_ms(lambda: K.gang_feasibility(*fargs), 50, warmup=5)
+        k7_ms, k7_host_ms, kout7 = device_ms(lambda: K.gang_feasibility(*fargs), 200)
+        k7_cuda_ms, _k = cuda_ms(lambda: K.gang_feasibility(*fargs), 50, warmup=5)
         k7_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*fargs), 5, warmup=1)
         k7b, k7by = bound(feasibility_counts(fargs, kout7), fargs[2].dtype)
         shape7 = f"G={fargs[0].shape[0]} M={fargs[0].shape[1]} N={fargs[2].shape[0]} R={fargs[2].shape[1]} D={fargs[5]}"
-        k7_t = dict(ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=k7b, bound_by=k7by, library_ms=None, err=err,
+        k7_t = dict(ms=k7_ms, host_ms=k7_host_ms, cuda_ms=k7_cuda_ms, plain_ms=k7_plain_ms, bound_ms=k7b,
+                    bound_by=k7by, library_ms=None, err=err,
                     shape=shape7, launches=preview_launches["gang_feasibility"],
                     seeded_256x64x5000_ms=k7_big_ms, seeded_256x64x5000_plain_ms=k7_big_plain_ms,
                     seeded_256x64x5000_bound_ms=k7_big_bound)
@@ -2458,49 +2487,45 @@ def main() -> int:
             if dt == torch.float32:
                 blocks_ms, _bo = cuda_ms(lambda: K.scan(cfg, dims, dp, ws0=ws0, blocks=sms), *((1, 0) if big else (5, 2)))
                 del _bo
-            cms, _kb = cuda_ms(lambda: K.compact(cfg, dims, W, WS, manifest, kout, n_true, ws0), 20)
+            # K3 back to back behind a sleep of the card, its host µs a call beside it
+            cms, chost_ms, _kb = device_ms(lambda: K.compact(cfg, dims, W, WS, manifest, kout, n_true, ws0), 20)
             cplain_ms, _pb = cuda_ms(lambda: B.compact_plain(cfg, dims, W, WS, manifest, kout, n_true, ws0), 3)
             sb, sby = bound(scan_counts(cfg, dims, dp, kout), dt)
             cb, cby = bound(compact_counts(kout, manifest, W, WS, n_true), dt)
             timing[(name, dt)] = t = dict(
                 scan_ms=ms, scan_blocks_ms=blocks_ms, cluster=K.cluster_width(dims["N"], 1),
                 scan_plain_ms=t["scan_plain_ms"], scan_err=t["scan_err"], scan_bound_ms=sb,
-                scan_bound_by=sby, compact_ms=cms, compact_plain_ms=cplain_ms, compact_err=t["compact_err"],
-                compact_bound_ms=cb, compact_bound_by=cby,
+                scan_bound_by=sby, compact_ms=cms, compact_host_us=1e3 * chost_ms, compact_plain_ms=cplain_ms,
+                compact_err=t["compact_err"], compact_bound_ms=cb, compact_bound_by=cby,
             )
             log(f"timing {name} {str(dt).split('.')[-1]}: {json.dumps(t)}")
             del kout, _kb, _pb
     del timed
     torch.cuda.empty_cache()
 
-    with Phase("compact kernel vs plain, every fail-pack mode and raw dtype (seeded planes)"):
+    with Phase(f"compact kernel vs plain, every fail-pack mode and raw dtype (seeded planes {K3_SEEDED})"):
         rng = np.random.default_rng(11)
-        P, N, nt = 1024, 512, 500
-        for filters in (FIVE_FILTERS, ()):
-            cfg = B.BatchConfig(filters=filters, scores=tuple(FIVE_SCORES), trace=True)
-            for code_max in (9, 200, 30000, 70000):
-                for rdt in ("int8", "int16", "int32"):
-                    for dt in (torch.float32, torch.float64):
-                        hi = {"int8": 100, "int16": 30000, "int32": 1 << 22}[rdt]
-                        out = {
-                            "sample_start": torch.from_numpy(rng.integers(0, nt, P).astype(np.int32)),
-                            "sample_processed": torch.from_numpy(rng.integers(1, nt + 1, P).astype(np.int32)),
-                            "fail_plug": torch.from_numpy(rng.integers(-1, 5, (P, N)).astype(np.int8)),
-                            "fail_code": torch.from_numpy(rng.integers(0, code_max + 1, (P, N)).astype(np.int32)),
-                            "feasible": torch.from_numpy(rng.random((P, N)) < 0.5),
-                        }
-                        for s, _w in FIVE_SCORES:
-                            out[f"raw:{s}"] = torch.from_numpy(rng.integers(-hi, hi + 1, (P, N))).to(dt)
-                            out[f"norm:{s}"] = torch.from_numpy(rng.integers(0, 101, (P, N))).to(dt)
-                        out = {k: v.to(dev) for k, v in out.items()}
-                        dims = {"P": P, "N": N}
-                        _fn, manifest = B.build_compact_fn(cfg, dims, 384, 256, (rdt,) * 5, code_max)
-                        same(
-                            f"compact filters={len(filters)} code_max={code_max} raw={rdt} {dt}",
-                            K.compact(cfg, dims, 384, 256, manifest, out, nt),
-                            B.compact_plain(cfg, dims, 384, 256, manifest, out, nt),
-                        )
-        log("compact bitwise equal: 2 filter sets x 4 code ranges (modes 0-3) x 3 raw dtypes x 2 float dtypes")
+        n_cases = 0
+        for P, N, nt, W, WS, ws0 in K3_SEEDED:
+            for filters in (FIVE_FILTERS, ()):
+                if ws0 is not None and not filters:
+                    continue
+                cfg = B.BatchConfig(filters=filters, scores=tuple(FIVE_SCORES), trace=True)
+                for code_max in (9, 200, 30000, 70000):
+                    for rdt in ("int8", "int16", "int32"):
+                        for dt in (torch.float32, torch.float64):
+                            out = seeded_planes(P, N, nt, ws0, code_max, rdt, dt, dev, rng)
+                            dims = {"P": P, "N": N}
+                            _fn, manifest = B.build_compact_fn(cfg, dims, W, WS, (rdt,) * 5, code_max, in_step_ws0=ws0)
+                            same(
+                                f"compact P={P} N={N} W={W} WS={WS} ws0={ws0} filters={len(filters)} "
+                                f"code_max={code_max} raw={rdt} {dt}",
+                                K.compact(cfg, dims, W, WS, manifest, out, nt, ws0),
+                                B.compact_plain(cfg, dims, W, WS, manifest, out, nt, ws0),
+                            )
+                            n_cases += 1
+        log(f"compact bitwise equal: {n_cases} cases, every shape x 2 filter sets (in-step: filters only) x 4 code "
+            f"ranges (modes 0-3) x 3 raw dtypes x 2 float dtypes")
 
     # ------------------------------------------------------ end to end
     results = {}
@@ -2743,13 +2768,14 @@ def main() -> int:
         mm = kout["trace_meta"].cpu().numpy()
         rdt = tuple(B.raw_dtype_for(int(mm[k, 0]), int(mm[k, 1])) for k in range(len(cfg.scores)))
         _fn, wman = B.build_compact_fn(cfg, wdims, W, WS, rdt, int(mm[-1, 1]), in_step_ws0=ws0)
-        wc_ms, kb = cuda_ms(lambda: K.compact(cfg, wdims, W, WS, wman, kout, churn_pr.N_true, ws0), 20)
+        wc_ms, wc_host_ms, kb = device_ms(lambda: K.compact(cfg, wdims, W, WS, wman, kout, churn_pr.N_true, ws0), 50)
         wc_plain_ms, pb = cuda_ms(lambda: B.compact_plain(cfg, wdims, W, WS, wman, kout, churn_pr.N_true, ws0), 3)
         wc_err = same("window compaction blob", kb, pb)
         wcb, wcby = bound(compact_counts(kout, wman, W, WS, churn_pr.N_true), torch.float32)
         churn_t = dict(scan_window_ms=sw_ms, scan_window_blocks_ms=swb_ms, cluster=K.cluster_width(dims["N"], 1),
                        scan_window_plain_ms=sw_plain_ms, scan_window_err=sw_err,
                        scan_window_bound_ms=wsb, scan_window_bound_by=wsby, compact_ms=wc_ms,
+                       compact_host_us=1e3 * wc_host_ms,
                        compact_plain_ms=wc_plain_ms, compact_err=wc_err, compact_bound_ms=wcb, compact_bound_by=wcby)
         log(f"window 1 of P={dims['P']} N={dims['N']} ws0={ws0} W={W} WS={WS}: kernel equals the windowed plain "
             f"version; {json.dumps(churn_t)}")
@@ -2841,7 +2867,11 @@ def main() -> int:
             "bound_ms": churn_t["compact_bound_ms"],
             "bound_by": churn_t["compact_bound_by"],
             "library_ms": None,
+            "host_us": churn_t["compact_host_us"],
             "shape": churn_shape,
+            "timed": "launches back to back behind a sleep of the card (timing.device_ms)",
+            "by_workload": {n: {k: timing[(n, torch.float32)][k] for k in ("compact_ms", "compact_host_us",
+                                                                             "compact_bound_ms")} for n in WORKLOADS},
         },
         {
             "name": "scatter",
@@ -2889,6 +2919,10 @@ def main() -> int:
             "bound_by": k6_t["bound_by"],
             "library_ms": None,
             "shape": f"cfg8-gang first dispatch: {k6_t['shape']}",
+            "timed": "launches back to back behind a sleep of the card (timing.device_ms)",
+            "host_ms": k6_t["host_ms"],
+            "cuda_ms": k6_t["cuda_ms"],
+            "dispatch_ms": k6_t["dispatch_ms"],
         },
         {
             "name": "gang_feasibility",
@@ -2903,6 +2937,11 @@ def main() -> int:
             "bound_by": k7_t["bound_by"],
             "library_ms": None,
             "shape": f"group_preview at cfg8-gang's final state: {k7_t['shape']}",
+            "timed": "launches back to back behind a sleep of the card (timing.device_ms)",
+            "host_ms": k7_t["host_ms"],
+            "cuda_ms": k7_t["cuda_ms"],
+            "seeded_256x64x5000_ms": k7_t["seeded_256x64x5000_ms"],
+            "seeded_256x64x5000_bound_ms": k7_t["seeded_256x64x5000_bound_ms"],
         },
         {
             "name": "scan_lanes",

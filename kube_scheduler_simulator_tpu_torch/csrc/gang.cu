@@ -4,21 +4,33 @@
 //
 // K6 replaces the JAX package's gang/kernel.py build_verdict_fn (:43), a
 // jitted scatter-add of placed and failed members into [G] counters and a
-// scatter-max of placed members' domains into a [G,D] table.  Here:
+// scatter-max of placed members' domains into a [G,D] table.  Here one
+// launch, no memset and no global atomic:
 //
-//   1. the entry zeroes the [G] counters and a [G, ceil(D/32)] bitmap;
-//   2. mark: one thread a member slot k.  A slot with gid[k] < 0 is padding
-//      and adds nothing.  A placed member (node[k] >= 0) adds 1 to
-//      placed[g] and sets bit dom[g, node[k]] of group g's bitmap; a failed
-//      one adds 1 to nfail[g].  Integer atomicAdd and atomicOr commute, so
-//      the result does not depend on the order the slots land in;
-//   3. verdict: one block a group: distinct = the popcount of its bitmap
-//      (a block sum), feasible = nfail == 0 && placed + prior_bound >=
-//      min_member.  All int32: nothing rounds.
+//   - a block takes a range of gb groups whose counters (placed, failed)
+//     and domain bitmaps (ceil(D/32) words a group) fit its shared memory,
+//     and zeroes them;
+//   - its threads stride over the K member slots.  A slot whose group lies
+//     outside the block's range (a pad, gid -1, included) adds nothing.  A
+//     placed member (node[k] >= 0) adds 1 to placed[g] and sets bit
+//     dom[g, node[k]] of group g's bitmap; a failed one adds 1 to its
+//     failed count.  Shared-memory atomicAdd and atomicOr on integers
+//     commute, so the result does not depend on the order the slots land
+//     in;
+//   - a warp a group then writes distinct = the popcount of its bitmap,
+//     placed, and feasible = failed == 0 && placed + prior_bound >=
+//     min_member.  All int32: nothing rounds.
 //
-// What bounds K6 on an H100: the launches.  The path's shapes (K <= a few
-// thousand member slots, G <= a few hundred groups, D <= N) are kilobytes;
-// at 3.35 TB/s the bytes take well under a microsecond.
+// The outputs are three slices of one buffer the wrapper hands in
+// (distinct, placed int32, then feasible bytes), so the dispatch fetches
+// them in one copy.  At the gang path's shapes (K a few hundred member
+// slots, G 40, D 8) a single block does everything; several blocks appear
+// only when G x ceil(D/32) outgrows one block's budget, and each of them
+// rereads the slot arrays (kilobytes).
+//
+// What bounds K6 on an H100: the launch.  Its bytes (the slots, the domain
+// cell of each placed member, the per-group inputs and outputs) are
+// kilobytes, well under a microsecond at 3.35 TB/s.
 //
 // K7 replaces the JAX package's gang/kernel.py build_feasibility_fn (:108),
 // a vmap over the G groups of a lax.scan over each group's M member slots.
@@ -62,16 +74,15 @@
 // linkage
 struct GangVerdictArgs {
   int64_t K, G, N, D, W;         // W: 32-bit words of a group's domain bitmap
+  int64_t gb;                    // groups a block: gb x (2 + W) words of shared memory
   const int32_t* gid;            // [K]
   const int32_t* node;           // [K]
   const int32_t* dom;            // [G,N]
   const int32_t* prior_bound;    // [G]
   const int32_t* min_member;     // [G]
-  int32_t* nfail;                // [G] scratch
-  uint32_t* used;                // [G,W] scratch
-  uint8_t* feasible;             // [G]
   int32_t* distinct;             // [G]
   int32_t* placed;               // [G]
+  uint8_t* feasible;             // [G]
 };
 
 struct GangFeasArgs {
@@ -92,6 +103,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int VTHREADS = 512;  // K6's block
 
 __device__ __forceinline__ int block_sum(int v, int* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -108,31 +120,42 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
 
 // ------------------------------------------------------------------ K6
 
-__global__ void verdict_mark(GangVerdictArgs a) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= a.K) return;
-  const int32_t g = a.gid[k];
-  if (g < 0) return;
-  const int32_t n = a.node[k];
-  if (n >= 0) {
-    atomicAdd(&a.placed[g], 1);
-    int32_t d = a.dom[(int64_t)g * a.N + n];
-    if (d < 0) d = 0;
-    atomicOr(&a.used[(int64_t)g * a.W + (d >> 5)], 1u << (d & 31));
-  } else {
-    atomicAdd(&a.nfail[g], 1);
+__global__ void __launch_bounds__(VTHREADS) verdict_kernel(const __grid_constant__ GangVerdictArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* sm = reinterpret_cast<uint32_t*>(smem_raw);  // [gb][2 + W]: placed, failed, bitmap
+  const int64_t g0 = (int64_t)blockIdx.x * a.gb;
+  const int64_t ng = a.G - g0 < a.gb ? a.G - g0 : a.gb;
+  const int64_t stride = 2 + a.W;
+  for (int64_t x = threadIdx.x; x < ng * stride; x += blockDim.x) sm[x] = 0;
+  __syncthreads();
+  for (int64_t k = threadIdx.x; k < a.K; k += blockDim.x) {
+    const int64_t g = (int64_t)a.gid[k] - g0;
+    if (g < 0 || g >= ng) continue;
+    uint32_t* c = sm + g * stride;
+    const int32_t n = a.node[k];
+    if (n >= 0) {
+      atomicAdd(&c[0], 1u);
+      int32_t d = a.dom[(g0 + g) * a.N + n];
+      if (d < 0) d = 0;
+      atomicOr(&c[2 + (d >> 5)], 1u << (d & 31));
+    } else {
+      atomicAdd(&c[1], 1u);
+    }
   }
-}
-
-__global__ void verdict_reduce(GangVerdictArgs a) {
-  __shared__ int red[WARPS];
-  const int64_t g = blockIdx.x;
-  int c = 0;
-  for (int64_t w = threadIdx.x; w < a.W; w += blockDim.x) c += __popc(a.used[g * a.W + w]);
-  c = block_sum(c, red);
-  if (threadIdx.x == 0) {
-    a.distinct[g] = c;
-    a.feasible[g] = (a.nfail[g] == 0 && a.placed[g] + a.prior_bound[g] >= a.min_member[g]) ? 1 : 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int64_t g = threadIdx.x >> 5; g < ng; g += blockDim.x >> 5) {
+    const uint32_t* c = sm + g * stride;
+    int n = 0;
+    for (int64_t w = lane; w < a.W; w += 32) n += __popc(c[2 + w]);
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_down_sync(0xffffffffu, n, o);
+    if (lane == 0) {
+      const int64_t gg = g0 + g;
+      const int32_t placed = (int32_t)c[0];
+      a.distinct[gg] = n;
+      a.placed[gg] = placed;
+      a.feasible[gg] = (c[1] == 0 && placed + a.prior_bound[gg] >= a.min_member[gg]) ? 1 : 0;
+    }
   }
 }
 
@@ -246,18 +269,14 @@ int launch_feasibility(const GangFeasArgs* a, void* stream) {
 }  // namespace
 
 extern "C" int kss_gang_verdict(const GangVerdictArgs* a, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (a->G == 0) return (int)cudaSuccess;
-  cudaError_t e = cudaMemsetAsync(a->placed, 0, (size_t)a->G * sizeof(int32_t), s);
-  if (e == cudaSuccess) e = cudaMemsetAsync(a->nfail, 0, (size_t)a->G * sizeof(int32_t), s);
-  if (e == cudaSuccess) e = cudaMemsetAsync(a->used, 0, (size_t)(a->G * a->W) * sizeof(uint32_t), s);
-  if (e != cudaSuccess) return (int)e;
-  if (a->K > 0) {
-    verdict_mark<<<(unsigned)((a->K + THREADS - 1) / THREADS), THREADS, 0, s>>>(*a);
-    e = cudaGetLastError();
+  const int64_t gb = a->gb < a->G ? a->gb : a->G;
+  const size_t smem = (size_t)(gb * (2 + a->W)) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(verdict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  verdict_reduce<<<(unsigned)a->G, THREADS, 0, s>>>(*a);
+  verdict_kernel<<<(unsigned)((a->G + gb - 1) / gb), VTHREADS, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

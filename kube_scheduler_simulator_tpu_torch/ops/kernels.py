@@ -37,7 +37,11 @@ counters and the wrappers.
               fragmentation, pending_age) over a fixed pairwise tree, or
               (backward) the cotangent F.
 - ``compact`` (csrc/compact.cu) — the trace planes → the manifest's byte
-              blob, one block per pod row.
+              blob in one launch: a warp a tile of the planes whose
+              columns map to their sources by arithmetic (the fail
+              planes, the score planes compacted in the scan's step),
+              stored in words of up to 16 bytes; a block a row for the
+              stable partition of the sampled mask (full score planes).
 - ``scatter`` (csrc/scatter.cu) — ``buf[idx] = rows`` on a plane resident on
               the card: the DevicePlacer's row update.
 - ``preempt`` (csrc/preempt.cu) — DefaultPreemption's victim search, one
@@ -45,9 +49,10 @@ counters and the wrappers.
               all of them removed, PDB violations by budget rank and the
               greedy reprieve (preemption/kernel.py holds its plain
               version).
-- ``gang``    (csrc/gang.cu) — the gang round's per-window verdict (K6:
-              placed and failed members per group by integer atomics, the
-              quorum test, distinct domains by a bitmap popcount) and the
+- ``gang``    (csrc/gang.cu) — the gang round's per-window verdict (K6,
+              one launch: placed and failed members per group by integer
+              atomics in shared memory, the quorum test, distinct domains
+              by a bitmap popcount, into one output buffer) and the
               PodGroup feasibility scan (K7: one block a group, a greedy
               slot loop with a block argmax); gang/kernel.py holds their
               plain versions.
@@ -115,6 +120,7 @@ LAUNCHES = {
 
 # the struct capacities of csrc/*.cu
 MAXF, MAXS, MAXFR, MAXSHAPE, MAXSP, MAXC, MAXKU = 16, 8, 4, 16, 16, 8, 16
+MAXMP = MAXSP + 2  # the compaction's mapped planes: two fail planes and the score planes
 MAXR_PREEMPT = 16  # resource columns of a victim-search lane (csrc/preempt.cu)
 # bytes of shared memory the scan may take for PodTopologySpread's domain
 # sums; larger domain arrays go to per-block global scratch
@@ -132,6 +138,10 @@ LANE_SMEM_BYTES = 160 * 1024
 # free table, pod budgets and domain flags (of the 227 KB an H100 block can
 # have); larger tables go to a per-group slice of global scratch
 GANG_SMEM_BYTES = 200 * 1024
+# bytes of shared memory a window-verdict block takes for its groups'
+# counters and domain bitmaps (the static limit: no attribute to set); more
+# groups than fit take more blocks
+VERDICT_SMEM_BYTES = 48 * 1024
 _FILTER_IDS = {
     "NodeUnschedulable": 0,
     "NodeName": 1,
@@ -159,7 +169,6 @@ _SCORE_IDS = {
     "InterPodAffinity": 6,
 }
 _FIT_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
-_DT_IDS = {"int8": 0, "int16": 1, "int32": 2}
 
 _i64, _f64, _ptr = ctypes.c_int64, ctypes.c_double, ctypes.c_void_p
 
@@ -236,10 +245,14 @@ class ScanArgs(ctypes.Structure):
 
 class CompactArgs(ctypes.Structure):
     _fields_ = [
-        (n, _i64) for n in ("P", "N", "W", "WS", "n_true", "mode", "off_fail", "off_code", "off_sids", "n_sp", "ws0")
+        (n, _i64) for n in (
+            "P", "N", "n_true", "WS", "ws0", "filters", "off_sids", "rows", "n_sp", "n_mp", "map_tiles", "w_sids",
+        )
     ] + [
-        ("sp_off", _i64 * MAXSP),
-        ("sp_dt", _i64 * MAXSP),
+        (n, _i64 * MAXSP) for n in ("sp_off", "sp_nb", "sp_w")
+    ] + [
+        (n, _i64 * MAXMP) for n in ("mp_kind", "mp_src", "mp_width", "mp_nb", "mp_vec", "mp_off", "mp_tiles", "mp_first")
+    ] + [
         ("sp_src", _ptr * MAXSP),
     ] + [
         (n, _ptr) for n in (
@@ -277,10 +290,8 @@ class PreemptArgs(ctypes.Structure):
 
 
 class GangVerdictArgs(ctypes.Structure):
-    _fields_ = [(n, _i64) for n in ("K", "G", "N", "D", "W")] + [
-        (n, _ptr) for n in (
-            "gid", "node", "dom", "prior_bound", "min_member", "nfail", "used", "feasible", "distinct", "placed",
-        )
+    _fields_ = [(n, _i64) for n in ("K", "G", "N", "D", "W", "gb")] + [
+        (n, _ptr) for n in ("gid", "node", "dom", "prior_bound", "min_member", "distinct", "placed", "feasible")
     ]
 
 
@@ -824,14 +835,17 @@ def _launch_scan(
     return out
 
 
-_SCATTER: list = []  # [the row-copy entry point, the raw current-stream getter], resolved once
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _scatter_entry() -> list:
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    _SCATTER[:] = [build()["scatter"].kss_scatter_rows,
-                   raw or (lambda d: torch.cuda.current_stream(d).cuda_stream)]
-    return _SCATTER
+def _stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s card, as the kernels take it."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_SCATTER: list = []  # the row-copy entry point, resolved once
 
 
 def scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -862,12 +876,80 @@ def scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> to
     # the widest word (8, 4, 2 or 1 bytes) dividing the width and both bases
     m = row_bytes | bp | rp
     word = min(8, m & -m)
-    fn, stream = _SCATTER or _scatter_entry()
-    rc = fn(bp, idx.data_ptr(), rp, k, row_bytes, word, stream(buf.get_device()))
+    if not _SCATTER:
+        _SCATTER.append(build()["scatter"].kss_scatter_rows)
+    rc = _SCATTER[0](bp, idx.data_ptr(), rp, k, row_bytes, word, _stream(buf))
     if rc:
         _raise_on(rc, "scatter")
     LAUNCHES["scatter"] += 1
     return buf
+
+
+# the compaction's mapped plane kinds (csrc/compact.cu; 4: a score plane
+# the scan compacted in its step) and each manifest dtype's bytes
+_MAP_KINDS = {"fail8": 0, "fail": 1, "fail_plug": 2, "fail_code": 3}
+_DT_BYTES = {"uint8": 1, "int8": 1, "uint16": 2, "int16": 2, "int32": 4}
+# (manifest, N, W, WS, ws0, scores, filters) -> the launch's fixed fields
+_COMPACT_PLANS: dict = {}
+
+
+def _compact_plan(key, cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, ws0) -> tuple:
+    """(CompactArgs bytes with every field the manifest fixes, the blob's
+    bytes, the score planes' source keys in ``out``, the (field, key,
+    dtype) of the other planes the launch reads).  Each mapped plane
+    stores words of the widest of 16, 8, 4, 2 and 1 bytes that divides
+    both its byte offset and its row's bytes; a full-plane cell, the widest
+    that divides its bytes and its plane's offset."""
+
+    def word(m: int) -> int:  # the widest of 16, 8, 4, 2, 1 dividing m
+        return min(16, m & -m) if m else 16
+
+    P, N = dims["P"], dims["N"]
+    a = CompactArgs()
+    a.P, a.N, a.WS, a.filters = P, N, WS, int(bool(cfg.filters))
+    offs, dts, total = {}, {}, 0
+    for name, dt, shape in manifest:
+        offs[name], dts[name] = total, dt
+        total += int(torch.Size(shape).numel()) * _DT_BYTES[dt]
+    scores = [name for name, _dt, _shape in manifest if name.startswith(("raw:", "norm:"))]
+    if len(scores) > MAXSP:
+        raise ValueError(f"{len(scores)} score planes exceed the compaction kernel's capacity")
+    src_keys = tuple(f"{name.split(':')[0]}:{cfg.scores[int(name.split(':')[1])][0]}" for name in scores)
+    ptrs = [("sample_start", "sample_start", torch.int32), ("sample_processed", "sample_processed", torch.int32)]
+    mapped = []  # (kind, score source, cells a row, bytes a cell, offset)
+    if cfg.filters:
+        ptrs += [("fail_plug", "fail_plug", torch.int8), ("fail_code", "fail_code", torch.int32)]
+        mapped += [(k, 0, W, _DT_BYTES[dts[name]], offs[name]) for name, k in _MAP_KINDS.items() if name in offs]
+    if ws0 is not None:
+        if not cfg.filters:
+            raise ValueError("the in-step compaction needs filters: without them the blob carries feasible ids")
+        if WS > ws0:
+            raise ValueError(f"WS {WS} exceeds the in-step planes' width {ws0}")
+        a.ws0 = ws0
+        ptrs.append(("feasible_count", "feasible_count", torch.int32))
+        mapped += [(4, k, WS, _DT_BYTES[dts[name]], offs[name]) for k, name in enumerate(scores)]
+    else:
+        ptrs.append(("feasible", "feasible", torch.bool))
+        if not cfg.filters:
+            a.off_sids, a.w_sids = offs["sids"], min(4, word(offs["sids"]))
+        a.n_sp = len(scores)
+        for k, name in enumerate(scores):
+            nb = _DT_BYTES[dts[name]]
+            a.sp_off[k], a.sp_nb[k], a.sp_w[k] = offs[name], nb, min(nb, word(offs[name]))
+        a.rows = P if scores or not cfg.filters else 0
+    first = 0
+    for p, (kind, src, width, nb, off) in enumerate(mapped):
+        vec = word(off | (width * nb))
+        tiles = -(-width // (32 * (vec // nb if vec >= nb else 1)))
+        a.mp_kind[p], a.mp_src[p], a.mp_width[p], a.mp_nb[p] = kind, src, width, nb
+        a.mp_vec[p], a.mp_off[p], a.mp_tiles[p], a.mp_first[p] = vec, off, tiles, first
+        first += P * tiles
+    if first >= 1 << 31:
+        raise ValueError(f"{first} warp tiles exceed the compaction kernel's 32-bit tile index")
+    a.n_mp, a.map_tiles = len(mapped), first
+    plan = (bytes(a), total, src_keys, tuple(ptrs))
+    _COMPACT_PLANS[key] = plan
+    return plan
 
 
 def compact(
@@ -875,56 +957,31 @@ def compact(
     in_step_ws0: "int | None" = None,
 ) -> torch.Tensor:
     """Launch the compaction kernel on trace planes on the card; returns the
-    uint8 blob of ops/batch.compact_plain (``in_step_ws0`` as there)."""
-    _check(out["sample_start"], "sample_start")
-    P, N = dims["P"], dims["N"]
-    offs: dict[str, int] = {}
-    off = 0
-    for name, dt, shape in manifest:
-        offs[name] = off
-        off += int(torch.Size(shape).numel()) * {"uint8": 1, "int8": 1, "uint16": 2, "int16": 2, "int32": 4}[dt]
-    dev = out["sample_start"].device
-    blob = torch.empty(off, dtype=torch.uint8, device=dev)
-    planes = [(name, dt) for name, dt, _shape in manifest if name.startswith(("raw:", "norm:"))]
-    if len(planes) > MAXSP:
-        raise ValueError(f"{len(planes)} score planes exceed the compaction kernel's capacity")
-    a = CompactArgs()
-    a.P, a.N, a.W, a.WS, a.n_true = P, N, W, WS, int(n_true)
-    if "fail8" in offs:
-        a.mode, a.off_fail = 0, offs["fail8"]
-    elif "fail" in offs:
-        a.mode, a.off_fail = 1, offs["fail"]
-    elif "fail_plug" in offs:
-        a.off_fail, a.off_code = offs["fail_plug"], offs["fail_code"]
-        a.mode = 2 if dict((n, d) for n, d, _s in manifest)["fail_code"] == "int16" else 3
-    else:
-        a.mode, a.off_sids = -1, offs["sids"]
+    uint8 blob of ops/batch.compact_plain (``in_step_ws0`` as there).  The
+    fields the manifest fixes (offsets, store widths, the grid) are
+    computed once per (manifest, N, W, WS, in_step_ws0, profile); a call
+    fills in the pointers."""
+    key = (tuple(manifest), dims["N"], W, WS, in_step_ws0, cfg.scores, bool(cfg.filters))
+    tmpl, nbytes, src_keys, ptrs = _COMPACT_PLANS.get(key) or _compact_plan(
+        key, cfg, dims, W, WS, manifest, in_step_ws0
+    )
+    a = CompactArgs.from_buffer_copy(tmpl)
+    for field, name, dtype in ptrs:
+        setattr(a, field, _check(out[name], name, dtype))
     score_dt = None
-    a.n_sp = len(planes)
-    for k, (name, dt) in enumerate(planes):
-        kind, idx = name.split(":")
-        src = out[f"{kind}:{cfg.scores[int(idx)][0]}"]
-        score_dt = src.dtype
-        a.sp_src[k] = _check(src, name)
-        a.sp_off[k] = offs[name]
-        a.sp_dt[k] = _DT_IDS[dt]
-    fn = _entry("compact", score_dt or torch.float32)
-    if cfg.filters:
-        a.fail_plug = _check(out["fail_plug"], "fail_plug", torch.int8)
-        a.fail_code = _check(out["fail_code"], "fail_code", torch.int32)
-    if in_step_ws0 is not None:
-        if not cfg.filters:
-            raise ValueError("the in-step compaction needs filters: without them the blob carries feasible ids")
-        a.ws0 = in_step_ws0
-        a.feasible_count = _check(out["feasible_count"], "feasible_count", torch.int32)
-    else:
-        a.feasible = _check(out["feasible"], "feasible", torch.bool)
-    a.sample_start = _check(out["sample_start"], "sample_start", torch.int32)
-    a.sample_processed = _check(out["sample_processed"], "sample_processed", torch.int32)
+    for k, name in enumerate(src_keys):
+        t = out[name]
+        a.sp_src[k] = _check(t, name, score_dt)
+        score_dt = t.dtype
+    start = out["sample_start"]
+    a.n_true = int(n_true)
+    blob = torch.empty(nbytes, dtype=torch.uint8, device=start.device)
     a.blob = blob.data_ptr()
-    if P == 0:
+    if a.P == 0 or nbytes == 0:
         return blob
-    rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if a.blob % 16:
+        raise ValueError("the compaction's blob must be 16-byte aligned")
+    rc = _entry("compact", score_dt or torch.float32)(ctypes.byref(a), _stream(start))
     _raise_on(rc, "compact")
     LAUNCHES["compact"] += 1
     return blob
@@ -985,11 +1042,16 @@ def preempt(
     return cand, victims, viol
 
 
-def gang_verdict(gid, node, dom, prior_bound, min_member, D: int):
+def gang_verdict(gid, node, dom, prior_bound, min_member, D: int, out: "torch.Tensor | None" = None):
     """Launch the window verdict (K6) on int32 tensors on the card; returns
     (feasible [G] bool, distinct [G] int32, placed [G] int32), as
-    gang/kernel.verdict_plain (whose docstring gives the shapes).  Every
-    member's node must be below N and every domain id below ``D``."""
+    gang/kernel.verdict_plain (whose docstring gives the shapes): views of
+    one uint8 buffer of ``gang.kernel.verdict_layout(G)`` bytes, ``out``
+    when given (so the three fetch in one copy).  Every member's node must
+    be below N and every domain id below ``D``; a group's counters and
+    bitmap must fit ``VERDICT_SMEM_BYTES`` (D up to ~390 000)."""
+    from kube_scheduler_simulator_tpu_torch.gang.kernel import verdict_layout, verdict_views
+
     K = gid.shape[0]
     G, N = dom.shape
     want = dict(gid=(gid, (K,)), node=(node, (K,)), dom=(dom, (G, N)), prior_bound=(prior_bound, (G,)),
@@ -1001,18 +1063,21 @@ def gang_verdict(gid, node, dom, prior_bound, min_member, D: int):
         setattr(a, name, _check(t, name, torch.int32))
     D = max(int(D), 1)
     W = (D + 31) // 32
-    dev = dom.device
-    nfail = torch.empty(G, dtype=torch.int32, device=dev)
-    used = torch.empty(G * W, dtype=torch.int32, device=dev)
-    feasible = torch.empty(G, dtype=torch.bool, device=dev)
-    distinct = torch.empty(G, dtype=torch.int32, device=dev)
-    placed = torch.empty(G, dtype=torch.int32, device=dev)
-    a.K, a.G, a.N, a.D, a.W = K, G, N, D, W
-    a.nfail, a.used = nfail.data_ptr(), used.data_ptr()
+    group_bytes = (2 + W) * 4
+    if group_bytes > VERDICT_SMEM_BYTES:
+        raise ValueError(f"{D} domains exceed a verdict block's shared memory ({VERDICT_SMEM_BYTES} bytes)")
+    nbytes = verdict_layout(G)
+    if out is None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=dom.device)
+    if out.dtype != torch.uint8 or out.shape != (nbytes,):
+        raise ValueError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
+    _check(out, "out")
+    feasible, distinct, placed = verdict_views(out, G)
+    a.K, a.G, a.N, a.D, a.W, a.gb = K, G, N, D, W, VERDICT_SMEM_BYTES // group_bytes
     a.feasible, a.distinct, a.placed = feasible.data_ptr(), distinct.data_ptr(), placed.data_ptr()
     if G == 0:
         return feasible, distinct, placed
-    rc = build()["gang"].kss_gang_verdict(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    rc = build()["gang"].kss_gang_verdict(ctypes.byref(a), _stream(dom))
     _raise_on(rc, "gang verdict")
     LAUNCHES["gang_verdict"] += 1
     return feasible, distinct, placed

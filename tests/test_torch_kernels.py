@@ -616,6 +616,178 @@ def test_gang_kernels_match_plain_versions_on_the_card(G, M, N, R, D):
             assert torch.equal(a, b)
 
 
+# K3's seeded shapes (P, N, n_true, W, WS, ws0): padded node columns and a
+# fail plane of odd bytes (so the planes after it sit at odd offsets, where
+# only byte stores apply), W below the kept count; a row over several
+# partition tiles; in-step planes at aligned and at odd offsets; north's
+# widths (16-byte stores)
+K3_SHAPES = [
+    (7, 40, 37, 33, 9, None), (5, 1100, 1050, 1030, 1025, None), (6, 64, 64, 64, 16, 32), (3, 50, 45, 17, 7, 13),
+    (16, 5120, 5000, 5120, 512, 512),
+]
+
+
+def _compact_out(P, N, nt, ws0, code_max, rdt, dt, device, seed=0):
+    """Seeded trace planes for the compaction: row 0 starts at 0 and
+    visits nothing, row 1 visits more than n_true, row 2 wraps (start
+    n_true - 2, 10 visited), the rest random; first failures in -1..4 with
+    codes up to ``code_max``; score planes [P, ws0 or N] in ``dt``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    start, proc = rng.integers(0, nt, P), rng.integers(0, nt + 5, P)
+    start[0], proc[0] = 0, 0
+    proc[1] = nt + 3
+    start[2], proc[2] = nt - 2, 10
+    hi = {"int8": 100, "int16": 30000, "int32": 1 << 22}[rdt]
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    out = {
+        "sample_start": t(start.astype(np.int32)), "sample_processed": t(proc.astype(np.int32)),
+        "fail_plug": t(rng.integers(-1, 5, (P, N)).astype(np.int8)),
+        "fail_code": t(rng.integers(0, code_max + 1, (P, N)).astype(np.int32)),
+        "feasible": t(rng.random((P, N)) < 0.5),
+        "feasible_count": t(rng.integers(0, (ws0 or 1) + 2, P).astype(np.int32)),
+    }
+    for s, _w in SCORES:
+        out[f"raw:{s}"] = t(rng.integers(-hi, hi + 1, (P, ws0 or N))).to(dt)
+        out[f"norm:{s}"] = t(rng.integers(0, 101, (P, ws0 or N))).to(dt)
+    return out
+
+
+@pytest.mark.parametrize("P,N,nt,W,WS,ws0", K3_SHAPES)
+def test_compaction_plan_stores_as_wide_as_the_offsets_allow(P, N, nt, W, WS, ws0):
+    """The compaction's fixed fields (kernels._compact_plan): each mapped
+    plane (the fail planes; the score planes where the step compacted them)
+    stores words of the widest of 16, 8, 4, 2 and 1 bytes dividing its
+    offset and its row's bytes, and its warp tiles cover every row; full
+    score planes take a partition block a row; the blob's bytes are the
+    manifest's."""
+    import numpy as np
+
+    dims = {"P": P, "N": N}
+    for filters in (SEVEN_FILTERS[:5], ()):
+        if ws0 is not None and not filters:
+            continue
+        cfg = TB.BatchConfig(filters=filters, scores=SCORES, trace=True)
+        for code_max, rdt in itertools.product((9, 200, 30000, 70000), ("int8", "int16", "int32")):
+            _fn, man = TB.build_compact_fn(cfg, dims, W, WS, (rdt,) * len(SCORES), code_max, in_step_ws0=ws0)
+            key = ("test", tuple(man), N, W, WS, ws0, filters)
+            tmpl, nbytes, src_keys, _ptrs = TK._compact_plan(key, cfg, dims, W, WS, man, ws0)
+            TK._COMPACT_PLANS.pop(key)
+            a = TK.CompactArgs.from_buffer_copy(tmpl)
+            offs, sizes, total = {}, {}, 0
+            for name, dt, shape in man:
+                offs[name], sizes[name] = total, np.dtype(dt).itemsize
+                total += int(np.prod(shape)) * np.dtype(dt).itemsize
+            assert nbytes == total and len(src_keys) == sum(n.startswith(("raw:", "norm:")) for n in offs)
+            mapped = [n for n in offs if n.startswith("fail") or (ws0 is not None and ":" in n)]
+            assert a.n_mp == len(mapped) and a.rows == (0 if ws0 is not None or (filters and not src_keys) else P)
+            first = 0
+            for k, name in enumerate(mapped):
+                width, nb = (W if name.startswith("fail") else WS), sizes[name]
+                m = offs[name] | (width * nb)
+                vec = min(16, m & -m) if m else 16
+                assert (a.mp_off[k], a.mp_nb[k], a.mp_width[k], a.mp_vec[k]) == (offs[name], nb, width, vec), name
+                assert a.mp_first[k] == first and a.mp_tiles[k] * 32 * max(1, vec // nb) >= width
+                first += P * a.mp_tiles[k]
+                if offs[name] % 2:
+                    assert vec == 1
+            assert a.map_tiles == first
+
+
+def test_verdict_buffer_views_and_the_cpu_dispatch():
+    """K6's one output buffer (gang.kernel.verdict_layout / verdict_views:
+    distinct, placed int32, then feasible bytes) and run_window_verdict on
+    the CPU against verdict_plain."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+
+    G = 5
+    buf = torch.arange(GK.verdict_layout(G), dtype=torch.uint8)
+    feasible, distinct, placed = GK.verdict_views(buf, G)
+    assert (feasible.dtype, distinct.dtype, placed.dtype) == (torch.bool, torch.int32, torch.int32)
+    assert feasible.shape == distinct.shape == placed.shape == (G,)
+    assert distinct.data_ptr() == buf.data_ptr() and placed.data_ptr() == buf.data_ptr() + 4 * G
+    assert feasible.data_ptr() == buf.data_ptr() + 8 * G
+    rng = np.random.default_rng(3)
+    gid = np.where(rng.random(40) < 0.1, -1, rng.integers(0, G, 40))
+    node = np.where(rng.random(40) < 0.1, -1, rng.integers(0, 12, 40))
+    dom, prior, minm = rng.integers(0, 4, (G, 12)), rng.integers(0, 3, G), rng.integers(1, 8, G)
+    got = GK.run_window_verdict(gid, node, dom, prior, minm, 4, device="cpu")
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))  # noqa: E731
+    want = GK.verdict_plain(i32(gid), i32(node), i32(dom), i32(prior), i32(minm), 4)
+    for k, w in zip(("feasible", "distinct_domains", "placed"), want):
+        assert np.array_equal(got[k], w.numpy()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,N,nt,W,WS,ws0", K3_SHAPES)
+def test_compaction_matches_plain_version_on_the_card(P, N, nt, W, WS, ws0, dt):
+    """K3 bitwise against ops/batch.compact_plain on the same planes on the
+    card: every fail-pack mode (code ranges 9, 200, 30 000, 70 000) with
+    each raw dtype, the sids plane without filters, in-step and full score
+    planes, rows that wrap, start at 0, visit nothing or more than n_true."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dims = {"P": P, "N": N}
+    for filters in (SEVEN_FILTERS[:5], ()):
+        if ws0 is not None and not filters:
+            continue
+        cfg = TB.BatchConfig(filters=filters, scores=SCORES, trace=True)
+        for c, (code_max, rdt) in enumerate(itertools.product((9, 200, 30000, 70000), ("int8", "int16", "int32"))):
+            out = _compact_out(P, N, nt, ws0, code_max, rdt, dt, "cuda", seed=c)
+            _fn, man = TB.build_compact_fn(cfg, dims, W, WS, (rdt,) * len(SCORES), code_max, in_step_ws0=ws0)
+            got = TK.compact(cfg, dims, W, WS, man, out, nt, ws0)
+            want = TB.compact_plain(cfg, dims, W, WS, man, out, nt, ws0)
+            assert torch.equal(got, want), (filters, code_max, rdt)
+
+
+# K6's seeded cases (K, G, N, D, what): no member slot; every slot a pad;
+# every member failed; D >= 5 000 (a hostname key); G x ceil(D/32) past one
+# block's shared memory, so several blocks run
+K6_CASES = [
+    (0, 5, 20, 4, "mixed"), (64, 6, 30, 30, "pads"), (64, 6, 30, 3, "failed"), (512, 8, 6000, 6000, "mixed"),
+    (4096, 512, 5000, 5000, "mixed"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,G,N,D,what", K6_CASES)
+def test_window_verdict_matches_plain_version_on_the_card(K, G, N, D, what):
+    """K6 bitwise against gang/kernel.verdict_plain on the same tensors on
+    the card, and its dispatch (one upload, one launch, one fetch) equal to
+    the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+
+    rng = np.random.default_rng(K + G + D)
+    gid = np.where(rng.random(K) < 0.1, -1, rng.integers(0, G, K))
+    node = np.where(rng.random(K) < 0.05, -1, rng.integers(0, N, K))
+    if what == "pads":
+        gid[:] = -1
+    if what == "failed":
+        node[:] = -1
+    dom = np.tile(np.arange(N), (G, 1)) if D == N else rng.integers(0, D, (G, N))
+    prior, minm = rng.integers(0, 3, G), rng.integers(1, max(2, 2 * K // G), G)
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to("cuda")  # noqa: E731
+    args = (i32(gid), i32(node), i32(dom), i32(prior), i32(minm), D)
+    W = (D + 31) // 32
+    assert (G > TK.VERDICT_SMEM_BYTES // ((2 + W) * 4)) == (G == 512)
+    for a, b in zip(TK.gang_verdict(*args), GK.verdict_plain(*args)):
+        assert torch.equal(a, b), what
+    n0 = TK.LAUNCHES["gang_verdict"]
+    got = GK.run_window_verdict(gid, node, i32(dom), prior, minm, D, device="cuda")
+    want = GK.run_window_verdict(gid, node, dom, prior, minm, D, device="cpu")
+    assert TK.LAUNCHES["gang_verdict"] == n0 + 1
+    for k in want:
+        assert np.array_equal(got[k], want[k]), (what, k)
+
+
 @pytest.mark.gpu
 def test_float32_round_past_the_exact_bound_runs_in_float64_on_the_card():
     """One node of 33554438 bytes of memory, one pod asking 33554439: in
