@@ -170,9 +170,11 @@ line):
    verdict (K6) on seeded problems (K 256 and 2 048 member slots, G 80, N
    220 and 5 000, D 8 and N; K 4 096, G 512, N = D 5 000, whose bitmaps take
    several blocks), the feasibility scan (K7) in float32 and
-   float64 at cfg8's preview shape (G 64, M 64, N 220, D 8), at G 256 x M 64
-   x N 5 000 with D 8 and D 5 000, and at N 12 000 (its float64 table in
-   global scratch);
+   float64 at a shape for each of its kernel shapes (a warp a group at N
+   60-500, blocks of 256 and 512 threads at N 2 000-8 000, the state in
+   shared memory at R 5 and in global scratch at N 12 000 in float64), at
+   the JAX bench's dispatch shape (G 64, M 64, N 220, D 8) and at G 256 x
+   M 64 x N 5 000 with D 8 and D 5 000;
 16. cfg8-gang end to end on the card, float32, its first 3 of 5 waves:
    per wave the wall, the gang
    counters, the launches (counts reset just before each wave) and the
@@ -187,7 +189,9 @@ line):
    too large for any node (4 members of 100 CPU at priority 100), counts
    reset just before: K7 must launch twice and the victim search (K5) at
    least once; K7 and K5 against their plain versions on the captured
-   inputs, K7 timed as K6;
+   inputs, K7 timed as K6, with the preview's whole dispatch (one copy in,
+   one copy out) and K7 at the JAX bench's standalone dispatch (64 fresh
+   groups of 8-64 one-CPU members over the 220 nodes) at 16's final state;
 18. the CUDA float64 service against the CPU float64 service (a worker
    process) on cfg8-gang's parity leg (24 jobs of 2-8 members, plan seed
    23, 40 nodes) and on the same plan on 4 nodes of 8 CPU in 3 zones (members
@@ -384,10 +388,17 @@ K3_SEEDED = [
 # K6 against its plain version on seeded problems: (K, G, N, D); at G 80 x
 # D 5 000 and G 512 x D 5 000 the groups' bitmaps take several blocks
 K6_SEEDED = [(k, 80, n, d) for k in (256, 2048) for n in (220, 5000) for d in (8, n)] + [(4096, 512, 5000, 5000)]
-# K7 in both dtypes: (G, M, N, D) — cfg8's preview shape, the 5 000-node
-# shapes under a zone and a hostname key, and one whose table is too big
-# for shared memory in float64 (the global-scratch path)
-K7_SEEDED = [(64, 64, 220, 8), (256, 64, 5000, 8), (256, 64, 5000, 5000), (32, 16, 12000, 12000)]
+# K7 in both dtypes: (G, M, N, R, D) — a shape for each kernel shape that
+# kernels.FEAS_TABLE picks (a warp a group, four groups a block, at N 60,
+# 120 and, in float64, 220; blocks of 256 and 512 threads at N 220 to
+# 8 000), the JAX bench's dispatch (G 64 x M 64 x N 220), the 5 000-node
+# shapes under a zone and a hostname key, R 5 (the state in shared memory)
+# and N 12 000 (in float64 the state in global scratch)
+K7_SEEDED = [
+    (16, 16, 60, 2, 4), (16, 16, 120, 2, 8), (64, 64, 220, 2, 8), (16, 16, 500, 2, 8), (16, 16, 2000, 2, 8),
+    (16, 16, 4000, 2, 8), (16, 16, 8000, 2, 8), (256, 64, 5000, 2, 8), (256, 64, 5000, 2, 5000),
+    (16, 16, 300, 5, 8), (32, 16, 12000, 2, 12000),
+]
 # cfg6-autoscale (the JAX package's bench run_autoscale, workloads.autoscale)
 # and the autoscale burst (one estimate: 16 groups of the reference
 # autoscaler's 64-copy max_nodes_per_scale_up, 10 000 pending pods)
@@ -1096,6 +1107,20 @@ def feasibility_counts(args, outs) -> dict:
     return {"bytes": nbytes, "ops": slots * (N * (R + 4) + R + 2)}
 
 
+def bench_args(store, device, dt) -> tuple:
+    """K7's arguments of the JAX bench's standalone feasibility dispatch on
+    ``store`` (time_gang.bench_problem), in ``dt`` on ``device``."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.time_gang import bench_problem
+
+    pr = bench_problem(store)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)  # noqa: E731
+    return (f(pr.req), torch.from_numpy(np.asarray(pr.valid, dtype=bool)).to(device), f(pr.free), f(pr.cnt_free),
+            torch.from_numpy(np.ascontiguousarray(pr.dom, dtype=np.int32)).to(device), max(int(pr.D), 1))
+
+
 def gang_node_small(i: int) -> dict:
     """A node of tests/test_gang.py's churn: 8 CPU, 64Gi, 110 pods, 3 zones."""
     return {
@@ -1252,15 +1277,25 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
             blocks = -(-g6 // (K.VERDICT_SMEM_BYTES // ((2 + (d6 + 31) // 32) * 4)))
             log(f"K6 K={k6} G={g6} N={n6} D={d6} ({blocks} blocks): bitwise equal; feasible {int(got[0].sum())}/{g6}, "
                 f"distinct max {int(got[1].max())}, placed {int(got[2].sum())}")
-        for c, (g7, m7, n7, d7) in enumerate(K7_SEEDED):
+        shapes7: set = set()
+        for c, (g7, m7, n7, r7, d7) in enumerate(K7_SEEDED):
             for dt in (torch.float32, torch.float64):
-                args = seeded_feasibility(g7, m7, n7, 2, d7, dt, dev, seed=300 + c)
+                args = seeded_feasibility(g7, m7, n7, r7, d7, dt, dev, seed=300 + c)
                 got, want = K.gang_feasibility(*args), GK.feasibility_plain(*args)
                 for nm, a, b in zip(("feasible", "distinct", "assignment"), got, want):
-                    err = max(err, same(f"K7 G={g7} M={m7} N={n7} D={d7} {dt} {nm}", a, b))
-                smem = (n7 * 3) * (4 if dt == torch.float32 else 8) + d7 <= K.GANG_SMEM_BYTES
-                log(f"K7 G={g7} M={m7} N={n7} D={d7} {str(dt).split('.')[-1]} ({'shared' if smem else 'global'} "
-                    f"table): bitwise equal; feasible {int(got[0].sum())}/{g7}, placed {int((got[2] >= 0).sum())}")
+                    err = max(err, same(f"K7 G={g7} M={m7} N={n7} R={r7} D={d7} {dt} {nm}", a, b))
+                v = K.feas_variant(n7, r7, dt)
+                tg, npt = K.FEAS_VARIANTS[v]
+                scratch = K.feas_memory(g7, m7, n7, r7, dt, v)[2]
+                where = f"{npt} nodes a thread in registers" if npt else ("global scratch" if scratch else "shared memory")
+                shapes7.add((v, bool(scratch)))
+                log(f"K7 G={g7} M={m7} N={n7} R={r7} D={d7} {str(dt).split('.')[-1]} (variant {v}: {tg} threads a "
+                    f"group, {where}): bitwise equal; feasible {int(got[0].sum())}/{g7}, placed "
+                    f"{int((got[2] >= 0).sum())}")
+        built = {(v, False) for v in range(len(K.FEAS_VARIANTS)) if v != K.FEAS_MEM} | {(K.FEAS_MEM, False),
+                                                                                       (K.FEAS_MEM, True)}
+        if built - shapes7:
+            raise AssertionError(f"K7_SEEDED misses kernel shapes (variant, global scratch) {sorted(built - shapes7)}")
         args = seeded_feasibility(32, 16, 12000, 2, 12000, torch.float64, dev, seed=303)
         k7_seeded_ms, kout = cuda_ms(lambda: K.gang_feasibility(*args), 5, warmup=1)
         k7_seeded_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*args), 1, warmup=0)
@@ -1320,17 +1355,21 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
             gstore.create("pods", big)
         fcap: dict = {}
         scap: dict = {}
-        feas, launch = GK.feasibility, K.preempt
+        feas, launch, run_feas = GK.feasibility, K.preempt, GK.run_feasibility
 
-        def keep_f(*a):
+        def keep_f(*a, **kw):
             fcap.setdefault("args", tuple(x.clone() if hasattr(x, "clone") else x for x in a))
-            return feas(*a)
+            return feas(*a, **kw)
 
         def keep_s(*a, **kw):
             scap.setdefault("args", tuple(x.clone() for x in a))
             return launch(*a, **kw)
 
-        GK.feasibility, K.preempt = keep_f, keep_s
+        def keep_p(pr, *a, **kw):
+            fcap.setdefault("problem", pr)
+            return run_feas(pr, *a, **kw)
+
+        GK.feasibility, K.preempt, GK.run_feasibility = keep_f, keep_s, keep_p
         try:
             K.reset_counts()
             t0 = time.perf_counter()
@@ -1339,7 +1378,7 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
             preview_s = time.perf_counter() - t0
             preview_launches = dict(K.LAUNCHES)
         finally:
-            GK.feasibility, K.preempt = feas, launch
+            GK.feasibility, K.preempt, GK.run_feasibility = feas, launch, run_feas
         log(f"group_preview x2 in {preview_s:.4f} s, launches {preview_launches}: feasible group -> feasible "
             f"{ok['feasible']}, {ok['distinctTopologyDomains']} domains, {sum(v is not None for v in ok['assignment'].values())} "
             f"assigned; large group -> feasible {big['feasible']}, victim preview {big.get('victimPreview')}")
@@ -1356,9 +1395,33 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
         k7_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*fargs), 5, warmup=1)
         k7b, k7by = bound(feasibility_counts(fargs, kout7), fargs[2].dtype)
         shape7 = f"G={fargs[0].shape[0]} M={fargs[0].shape[1]} N={fargs[2].shape[0]} R={fargs[2].shape[1]} D={fargs[5]}"
+        # the preview's whole dispatch (one copy in, one launch, one copy
+        # out): the mean of 20 after 3, and its stages' medians
+        pr7 = fcap["problem"]
+        for _ in range(3):
+            GK.run_feasibility(pr7, device=DEVICE)
+        splits = [{} for _ in range(20)]
+        t0 = time.perf_counter()
+        for sp in splits:
+            GK.run_feasibility(pr7, device=DEVICE, split=sp)
+        k7_dispatch_ms = 1e3 * (time.perf_counter() - t0) / len(splits)
+        k7_stages = {k: float(np.median([1e6 * sp[k] for sp in splits])) for k in splits[0]}
+        # the JAX bench's standalone dispatch (64 fresh groups over the 220
+        # nodes) on cfg8-gang's final state
+        bargs = bench_args(gstore, dev, torch.float32)
+        got, want = K.gang_feasibility(*bargs), GK.feasibility_plain(*bargs)
+        for nm, a, b in zip(("feasible", "distinct", "assignment"), got, want):
+            err = max(err, same(f"K7 bench dispatch {nm}", a, b))
+        k7_bench_ms, _h, koutb = device_ms(lambda: K.gang_feasibility(*bargs), 50)
+        k7_bench_plain_ms, _p = cuda_ms(lambda: GK.feasibility_plain(*bargs), 3, warmup=1)
+        k7_bench_bound, _by = bound(feasibility_counts(bargs, koutb), torch.float32)
+        shape7b = f"G={bargs[0].shape[0]} M={bargs[0].shape[1]} N={bargs[2].shape[0]} R={bargs[2].shape[1]} D={bargs[5]}"
         k7_t = dict(ms=k7_ms, host_ms=k7_host_ms, cuda_ms=k7_cuda_ms, plain_ms=k7_plain_ms, bound_ms=k7b,
                     bound_by=k7by, library_ms=None, err=err,
                     shape=shape7, launches=preview_launches["gang_feasibility"],
+                    dispatch_ms=k7_dispatch_ms, dispatch_stages_us=k7_stages,
+                    bench_shape=shape7b, bench_ms=k7_bench_ms, bench_plain_ms=k7_bench_plain_ms,
+                    bench_bound_ms=k7_bench_bound,
                     seeded_256x64x5000_ms=k7_big_ms, seeded_256x64x5000_plain_ms=k7_big_plain_ms,
                     seeded_256x64x5000_bound_ms=k7_big_bound)
         log(f"timing K7 {shape7} (the preview's first group): {json.dumps(k7_t)}")
@@ -2940,6 +3003,11 @@ def main() -> int:
             "timed": "launches back to back behind a sleep of the card (timing.device_ms)",
             "host_ms": k7_t["host_ms"],
             "cuda_ms": k7_t["cuda_ms"],
+            "dispatch_ms": k7_t["dispatch_ms"],
+            "dispatch_stages_us": k7_t["dispatch_stages_us"],
+            "bench_shape": k7_t["bench_shape"],
+            "bench_ms": k7_t["bench_ms"],
+            "bench_bound_ms": k7_t["bench_bound_ms"],
             "seeded_256x64x5000_ms": k7_t["seeded_256x64x5000_ms"],
             "seeded_256x64x5000_bound_ms": k7_t["seeded_256x64x5000_bound_ms"],
         },

@@ -7,14 +7,20 @@ Port of the JAX package's ``gang/kernel.py``:
   over the window's per-member selections plus the members parked earlier,
   for all G groups at once, (a) all-or-nothing placement (no member
   failed, quorum met) and (b) the distinct topology domains the placed
-  members span.  The reference's ``build_verdict_fn`` (:43).  On the card
-  one upload, one launch, one fetch.
+  members span.  The reference's ``build_verdict_fn`` (:43).
 - ``run_feasibility`` — per group, the member slots placed greedily over
   the node axis on free capacity, preferring nodes whose domain the group
   already uses, first maximum wins.  The reference's
   ``build_feasibility_fn`` (:108).
 - ``group_victim_search`` — preemption/'s victim search (K5) at group
   granularity: each group's aggregate request is one preemptor row.
+
+On the card the verdict's dispatch uploads its inputs in one pinned copy
+and fetches one output buffer in one copy; the scan's goes through a
+``Staging``: the inputs packed into one host buffer (pinned on the card)
+go up in one copy, the kernel writes its outputs into one device buffer,
+and they come back in one copy.  On the CPU the same buffer serves both
+sides, so the layouts are exercised there too.
 
 Each kernel has a plain PyTorch version here (``verdict_plain``,
 ``feasibility_plain``), which serves CPU tensors, and a hand-written CUDA
@@ -43,6 +49,65 @@ from kube_scheduler_simulator_tpu_torch.device import resolve_device, resolve_dt
 Obj = dict[str, Any]
 
 EXACT_LIMIT = {torch.float32: 1 << 24, torch.float64: 1 << 53}
+
+
+# ------------------------------------------------------------------ staging
+
+_ALIGN = 16  # byte alignment of each array in a staged buffer
+
+
+def _up(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def stage_layout(arrays: list) -> "tuple[list[int], int]":
+    """(byte offset of each numpy array, bytes of them all) packed at
+    16-byte boundaries in order."""
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += _up(a.nbytes)
+    return offs, total
+
+
+class Staging:
+    """One dispatch's buffers: ``put`` packs numpy arrays at 16-byte offsets
+    of one host buffer (pinned when the device is the card), moves them in
+    one copy and hands back their views on the device, with an output
+    buffer after them there; ``get`` brings the output back in one copy and
+    waits for the stream.  On the CPU the host buffer is the device
+    buffer."""
+
+    def __init__(self, device: "str | torch.device") -> None:
+        self.device = torch.device(device)
+
+    def put(self, arrays: list, out_bytes: int) -> "tuple[list[torch.Tensor], torch.Tensor]":
+        """(``arrays`` as tensors on the device, a uint8 output buffer of
+        ``out_bytes`` there)."""
+        offs, n_in = stage_layout(arrays)
+        cuda = self.device.type == "cuda"
+        nbytes = max(n_in + _up(out_bytes), _ALIGN)
+        self._host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+        hn = self._host.numpy()
+        for a, o in zip(arrays, offs):
+            hn[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        self._dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device) if cuda else self._host
+        if cuda:
+            self._dev[:n_in].copy_(self._host[:n_in], non_blocking=True)
+        self._out = (n_in, out_bytes)
+        views = [
+            self._dev[o : o + a.nbytes].view(getattr(torch, a.dtype.name)).reshape(a.shape)
+            for a, o in zip(arrays, offs)
+        ]
+        return views, self._dev[n_in : n_in + out_bytes]
+
+    def get(self) -> torch.Tensor:
+        """The output buffer on the host."""
+        o, n = self._out
+        if self._dev is not self._host:
+            self._host[o : o + n].copy_(self._dev[o : o + n], non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._host[o : o + n]
 
 
 # ------------------------------------------------------------ window verdict
@@ -193,24 +258,53 @@ def feasibility_plain(req, valid, free, cnt_free, dom, D: int):
     return ok, used.sum(dim=1).to(torch.int32), sel
 
 
-def feasibility(req, valid, free, cnt_free, dom, D: int):
+def feasibility_layout(G: int, M: int) -> int:
+    """Bytes of the scan's one output buffer: assignment [G,M] int32,
+    distinct [G] int32, then feasible [G] bool."""
+    return 4 * G * M + 5 * G
+
+
+def feasibility_views(buf: torch.Tensor, G: int, M: int):
+    """(feasible [G] bool, distinct [G] int32, assignment [G,M] int32):
+    views of a uint8 buffer of ``feasibility_layout(G, M)`` bytes."""
+    a = 4 * G * M
+    return buf[a + 4 * G : a + 5 * G].view(torch.bool), buf[a : a + 4 * G].view(torch.int32), \
+        buf[:a].view(torch.int32).view(G, M)
+
+
+def _into(views, res):
+    """Copy the plain version's results into the output buffer's views."""
+    for v, r in zip(views, res):
+        v.copy_(r)
+    return views
+
+
+def feasibility(req, valid, free, cnt_free, dom, D: int, out: "torch.Tensor | None" = None):
     """The scan on the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors; with ``out`` (as
+    kernels.gang_feasibility) the results are views of it on either."""
     if free.is_cuda:
         from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 
-        return K.gang_feasibility(req, valid, free, cnt_free, dom, D)
-    return feasibility_plain(req, valid, free, cnt_free, dom, D)
+        return K.gang_feasibility(req, valid, free, cnt_free, dom, D, out=out)
+    res = feasibility_plain(req, valid, free, cnt_free, dom, D)
+    return res if out is None else _into(feasibility_views(out, *req.shape[:2]), res)
 
 
 def run_feasibility(
     pr: Any, device: "str | torch.device | None" = None, dtype: "torch.dtype | None" = None,
+    split: "dict | None" = None,
 ) -> dict:
     """Dispatch the scan for an encoded ``gang.encode.GangFeasibilityProblem``
     on ``device`` (the card unless the caller passes "cpu") in ``dtype``
     (float32 on the card, float64 on the CPU): one dispatch covers every
-    group.  Raises ``ValueError`` when a magnitude is beyond exact integers
-    in the dtype."""
+    group, its inputs up in one copy and its outputs back in one
+    (``Staging``).  Raises ``ValueError`` when a magnitude is beyond exact
+    integers in the dtype.  ``split``: a dict that gets the dispatch's host
+    seconds by stage: ``stage_s`` (the inputs packed and their copy
+    enqueued), ``launch_s``, ``wait_s`` (the copy out and the stream's
+    synchronize) and ``views_s``."""
+    t0 = time.perf_counter()
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
     # the largest magnitude the scan forms: a free capacity, a request or a
@@ -218,30 +312,29 @@ def run_feasibility(
     worst = max(int(np.abs(a).max(initial=0)) for a in (pr.free, pr.req, pr.cnt_free))
     if worst >= EXACT_LIMIT[dt]:
         raise ValueError(f"feasibility scan values reach {worst}, beyond exact integers in {dt} ({EXACT_LIMIT[dt]})")
-    G = pr.req.shape[0]
+    G, M = pr.req.shape[:2]
     if G == 0:
         return {
             "feasible": np.zeros(0, dtype=bool),
             "distinct_domains": np.zeros(0, dtype=np.int32),
             "assignment": np.zeros(pr.req.shape[:2], dtype=np.int32),
         }
-
-    def up(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
-
-    ok, distinct, sel = feasibility(
-        up(pr.req.astype(np.float64), dt),
-        up(np.asarray(pr.valid, dtype=bool), torch.bool),
-        up(pr.free.astype(np.float64), dt),
-        up(pr.cnt_free.astype(np.float64), dt),
-        up(np.asarray(pr.dom, dtype=np.int32), torch.int32),
-        max(int(pr.D), 1),
-    )
-    return {
-        "feasible": ok.cpu().numpy(),
-        "distinct_domains": distinct.cpu().numpy(),
-        "assignment": sel.cpu().numpy(),
-    }
+    npdt = np.float32 if dt == torch.float32 else np.float64
+    st = Staging(dev)
+    (req, valid, free, cnt, dom), out = st.put([
+        pr.req.astype(npdt), np.asarray(pr.valid, dtype=bool), pr.free.astype(npdt), pr.cnt_free.astype(npdt),
+        np.asarray(pr.dom, dtype=np.int32),
+    ], feasibility_layout(G, M))
+    t1 = time.perf_counter()
+    feasibility(req, valid, free, cnt, dom, max(int(pr.D), 1), out=out)
+    t2 = time.perf_counter()
+    res = st.get()
+    t3 = time.perf_counter()
+    ok, distinct, sel = feasibility_views(res, G, M)
+    r = {"feasible": ok.numpy(), "distinct_domains": distinct.numpy(), "assignment": sel.numpy()}
+    if split is not None:
+        split.update(stage_s=t1 - t0, launch_s=t2 - t1, wait_s=t3 - t2, views_s=time.perf_counter() - t3)
+    return r
 
 
 # ----------------------------------------------------- group victim search

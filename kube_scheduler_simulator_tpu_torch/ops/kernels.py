@@ -53,9 +53,11 @@ counters and the wrappers.
               one launch: placed and failed members per group by integer
               atomics in shared memory, the quorum test, distinct domains
               by a bitmap popcount, into one output buffer) and the
-              PodGroup feasibility scan (K7: one block a group, a greedy
-              slot loop with a block argmax); gang/kernel.py holds their
-              plain versions.
+              PodGroup feasibility scan (K7: a warp or a block a group,
+              each thread owning its nodes' state, a greedy slot loop
+              with one redux.sync, and one barrier in a block, a slot,
+              into one output buffer); gang/kernel.py holds their plain
+              versions.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``csrc/build/`` keyed by a hash
@@ -135,9 +137,32 @@ SCAN_THREADS, MAX_CLUSTER, MAXCL, H100_SMS = 512, 8, 16, 132
 LANE_TILES = (64, 256, 512)
 LANE_SMEM_BYTES = 160 * 1024
 # bytes of shared memory a feasibility-scan block may take for its group's
-# free table, pod budgets and domain flags (of the 227 KB an H100 block can
-# have); larger tables go to a per-group slice of global scratch
+# staged slots and, in the memory variants, its nodes' state (of the 227 KB
+# an H100 block can have); a larger state goes to a per-group slice of
+# global scratch
 GANG_SMEM_BYTES = 200 * 1024
+# the feasibility scan's kernel shapes (csrc/gang.cu launch_feasibility, in
+# order): (threads a group, nodes a thread in registers), 0 nodes a thread
+# for the state in memory; 32 threads is a warp a group, FEAS_GPB groups a
+# block.  A register variant holds up to FEAS_RC resource columns (2 or 4),
+# and every variant stages FEAS_SLOTS member slots at a time.  Built: the
+# shapes that FEAS_TABLE picks (time_gang.py --variants on an H100 also
+# timed 32 x 16, 128 x 8, 128 x 16, 256 x 16 and a memory variant of 256
+# threads; none is the fastest at G 64 at any N swept).
+FEAS_VARIANTS = ((32, 2), (32, 4), (32, 8), (256, 8), (512, 8), (512, 16), (512, 0))
+FEAS_GPB, FEAS_RC, FEAS_SLOTS = 4, 4, 256
+# the variant a scan takes, by dtype and by R up to 2 or up to FEAS_RC: (the
+# largest N it serves, variant) in order; past the last, and past FEAS_RC
+# columns, FEAS_MEM.  The fastest at G 64 x M 64 at each N of
+# time_gang.py --variants (R 2; R 3 for the 4-column rows) on an H100; in
+# float64 at 4 columns, 512 x 16 spills (and loses to FEAS_MEM at N 5 000).
+FEAS_TABLE = {
+    (torch.float32, 2): ((64, 0), (128, 1), (2048, 3), (4096, 4), (8192, 5)),
+    (torch.float32, 4): ((64, 0), (128, 1), (2048, 3), (4096, 4), (8192, 5)),
+    (torch.float64, 2): ((64, 0), (128, 1), (256, 2), (1024, 3), (4096, 4), (8192, 5)),
+    (torch.float64, 4): ((64, 0), (128, 1), (512, 3), (4096, 4)),
+}
+FEAS_MEM = 6
 # bytes of shared memory a window-verdict block takes for its groups'
 # counters and domain bitmaps (the static limit: no attribute to set); more
 # groups than fit take more blocks
@@ -296,10 +321,8 @@ class GangVerdictArgs(ctypes.Structure):
 
 
 class GangFeasArgs(ctypes.Structure):
-    _fields_ = [(n, _i64) for n in ("G", "M", "N", "R", "D", "smem")] + [
-        (n, _ptr) for n in (
-            "req", "valid", "free", "cnt_free", "dom", "scratch", "used_scratch", "feasible", "distinct", "assignment",
-        )
+    _fields_ = [(n, _i64) for n in ("G", "M", "N", "R", "variant", "mc", "smem")] + [
+        (n, _ptr) for n in ("req", "valid", "free", "cnt_free", "dom", "scratch", "feasible", "distinct", "assignment")
     ]
 
 
@@ -1083,11 +1106,52 @@ def gang_verdict(gid, node, dom, prior_bound, min_member, D: int, out: "torch.Te
     return feasible, distinct, placed
 
 
-def gang_feasibility(req, valid, free, cnt_free, dom, D: int):
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def feas_variant(N: int, R: int, dt: torch.dtype) -> int:
+    """The feasibility scan's kernel shape for N nodes and R resource
+    columns in ``dt``: an index of FEAS_VARIANTS, from FEAS_TABLE."""
+    if R <= FEAS_RC:
+        for n_max, v in FEAS_TABLE[dt, 2 if R <= 2 else FEAS_RC]:
+            if N <= n_max:
+                return v
+    return FEAS_MEM
+
+
+def feas_memory(G: int, M: int, N: int, R: int, dt: torch.dtype, variant: int) -> "tuple[int, int, int]":
+    """(slots staged at a time, dynamic shared memory of a block, bytes of
+    global scratch) of the feasibility scan's ``variant`` at these shapes:
+    the staged request rows and valid flags (a register variant's rows
+    padded to 2 or 4 columns, FEAS_GPB groups a block in a one-warp
+    variant), then in a memory variant the nodes' state ([R + 1, N] values,
+    [N] domain ids) where it fits GANG_SMEM_BYTES, else in G slices of
+    scratch."""
+    size = 4 if dt == torch.float32 else 8
+    mc = max(1, min(M, FEAS_SLOTS))
+    tg, npt = FEAS_VARIANTS[variant]
+    if npt:
+        gb = FEAS_GPB if tg == 32 else 1
+        return mc, gb * mc * ((2 if R <= 2 else 4) * size + 1), 0
+    stage = _up16(mc * R * size + mc)
+    state = _up16((R + 1) * N * size) + _up16(4 * N)
+    if stage + state <= GANG_SMEM_BYTES:
+        return mc, stage + state, 0
+    return mc, stage, G * state
+
+
+def gang_feasibility(req, valid, free, cnt_free, dom, D: int, out: "torch.Tensor | None" = None,
+                     variant: "int | None" = None):
     """Launch the all-or-nothing feasibility scan (K7) on tensors on the
     card; returns (feasible [G] bool, distinct [G] int32, assignment [G,M]
     int32), as gang/kernel.feasibility_plain (whose docstring gives the
-    shapes).  Every domain id must be below ``D``."""
+    shapes): views of one uint8 buffer of ``gang.kernel.feasibility_layout(G,
+    M)`` bytes, ``out`` when given (so the three fetch in one copy).  Every
+    domain id must be in [0, ``D``).  ``variant`` forces a kernel shape
+    (an index of FEAS_VARIANTS; ``feas_variant`` picks it otherwise)."""
+    from kube_scheduler_simulator_tpu_torch.gang.kernel import feasibility_layout, feasibility_views
+
     G, M, R = req.shape
     N = free.shape[0]
     dt = free.dtype
@@ -1102,23 +1166,29 @@ def gang_feasibility(req, valid, free, cnt_free, dom, D: int):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, the scan wants {shape}")
         setattr(a, name, _check(t, name, tdt))
-    D = max(int(D), 1)
+    if N >= 1 << 30:
+        raise ValueError(f"{N} nodes exceed the feasibility scan's 30-bit node index")
+    v = feas_variant(N, R, dt) if variant is None else variant
+    tg, npt = FEAS_VARIANTS[v]
+    if npt and (R > FEAS_RC or N > tg * npt):
+        raise ValueError(f"variant {v} ({tg} threads x {npt} nodes, {FEAS_RC} columns) cannot hold N {N}, R {R}")
+    nbytes = feasibility_layout(G, M)
     dev = free.device
-    smem = (N * R + N) * free.element_size() + D <= GANG_SMEM_BYTES
-    scratch = used_scratch = None
-    if not smem:
-        scratch = torch.empty(G * (N * R + N), dtype=dt, device=dev)
-        used_scratch = torch.empty(G * D, dtype=torch.uint8, device=dev)
-        a.scratch, a.used_scratch = scratch.data_ptr(), used_scratch.data_ptr()
-    feasible = torch.empty(G, dtype=torch.bool, device=dev)
-    distinct = torch.empty(G, dtype=torch.int32, device=dev)
-    assignment = torch.empty((G, M), dtype=torch.int32, device=dev)
-    a.G, a.M, a.N, a.R, a.D, a.smem = G, M, N, R, D, int(smem)
+    if out is None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if out.dtype != torch.uint8 or out.shape != (nbytes,):
+        raise ValueError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
+    _check(out, "out")
+    feasible, distinct, assignment = feasibility_views(out, G, M)
+    mc, smem, scratch_bytes = feas_memory(G, M, N, R, dt, v)
+    a.G, a.M, a.N, a.R, a.variant, a.mc, a.smem = G, M, N, R, v, mc, smem
     a.feasible, a.distinct, a.assignment = feasible.data_ptr(), distinct.data_ptr(), assignment.data_ptr()
     if G == 0:
         return feasible, distinct, assignment
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev) if scratch_bytes else None
+    a.scratch = scratch.data_ptr() if scratch is not None else None
     fn = getattr(build()["gang"], f"kss_gang_feasibility_{'f32' if dt == torch.float32 else 'f64'}")
-    rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(ctypes.byref(a), _stream(free))
     _raise_on(rc, "gang feasibility")
     LAUNCHES["gang_feasibility"] += 1
     return feasible, distinct, assignment

@@ -4,7 +4,9 @@
   versions and its ``run_*`` functions on the CPU against the reference's
   ``run_window_verdict`` / ``run_feasibility`` on seeded numpy problems
   (ties across nodes, padding and failed members, invalid slots, an
-  infeasible group, one group, one domain, a domain per node).
+  infeasible group, one group, one domain, a domain per node), and the
+  scan at the shapes where its kernel's shape changes on the card
+  (tests/test_torch_kernels.py K7_EDGES).
 - The encoder (``node_domain_ids``, ``encode_feasibility``), ``group_preview``
   and ``group_victim_search`` against the reference's.
 - The port's CPU service against the JAX service on tests/test_gang.py's
@@ -47,6 +49,7 @@ from kube_scheduler_simulator_tpu.scheduler.service import SchedulerService as J
 from kube_scheduler_simulator_tpu.state.store import ClusterStore as JaxStore  # noqa: E402
 import test_gang as JT  # noqa: E402  (its churn scenario)
 from test_gang import mk_group, mk_member, mk_node  # noqa: E402
+from test_torch_kernels import K7_EDGES, k7_problem  # noqa: E402  (K7's edge shapes, no JAX there)
 from kube_scheduler_simulator_tpu_torch import workloads  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.gang import encode as GE  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.gang import engine as GN  # noqa: E402
@@ -143,6 +146,22 @@ def test_feasibility_scan_matches_the_reference(case):
         got = GK.run_feasibility(pr, device="cpu", dtype=dt)
         for k in ("feasible", "distinct_domains", "assignment"):
             np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=f"{k} {dt}")
+
+
+@pytest.mark.parametrize("case", sorted(K7_EDGES))
+def test_feasibility_scan_matches_the_reference_at_the_kernel_edges(case):
+    """run_feasibility on the CPU (its staged buffers and output views
+    around the plain version) against the reference at K7_EDGES' shapes,
+    where the kernel's shapes change on the card: feasible, distinct
+    domains and assignment equal in float64 and float32."""
+    pr = k7_problem(*K7_EDGES[case], seed=len(case))
+    want = JGK.run_feasibility(pr)
+    assert not want["feasible"][0]  # group 0's first member asks more than any node has
+    for dt in (torch.float64, torch.float32):
+        got = GK.run_feasibility(pr, device="cpu", dtype=dt)
+        for k in ("feasible", "distinct_domains", "assignment"):
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=f"{k} {dt}")
+    assert (np.asarray(want["assignment"])[1] == -1).all()  # the all-pad group places nothing
 
 
 def test_feasibility_scan_refuses_values_beyond_exact_floats():

@@ -616,6 +616,164 @@ def test_gang_kernels_match_plain_versions_on_the_card(G, M, N, R, D):
             assert torch.equal(a, b)
 
 
+# K7's edge shapes, name: (G, M, N, R, D).  N across each kernel shape's
+# edge (kernels.FEAS_VARIANTS: a warp a group at 2-8 nodes a lane, N 64 to
+# 256; a block of 256 or 512 threads at 8 or 16 nodes, N 2 048 to 8 192;
+# past those the state in memory, at N 12 000 in float64 in global
+# scratch), R 1, R 3 (four register columns) and R 5 (past them: the state
+# in memory), D 1 and D = N, M 1.  Every problem (k7_problem) has an infeasible group 0, an
+# all-pad group 1, pads in the middle of the other groups, negative free
+# capacity, ties everywhere and fitting nodes spread over the whole axis.
+K7_EDGES = {
+    "N 1": (3, 4, 1, 2, 1), "N 31": (4, 6, 31, 2, 4), "N 32, D = N": (4, 6, 32, 2, 32), "N 33": (4, 6, 33, 2, 5),
+    "N 64": (3, 8, 64, 2, 8), "N 65": (3, 8, 65, 2, 8), "N 128": (3, 8, 128, 2, 3), "N 129": (3, 8, 129, 2, 8),
+    "N 256": (3, 12, 256, 2, 8), "N 257, R 1": (3, 12, 257, 1, 8), "N 512, D 1": (3, 8, 512, 2, 1),
+    "N 513": (3, 8, 513, 2, 16), "N 1024": (3, 8, 1024, 2, 8), "N 1025, R 3": (3, 8, 1025, 3, 8),
+    "N 2048, D = N": (3, 8, 2048, 2, 2048), "N 2049": (3, 8, 2049, 2, 8), "N 4096": (3, 6, 4096, 2, 8),
+    "N 4097": (3, 6, 4097, 2, 8), "N 8192": (3, 6, 8192, 2, 8), "N 8193": (3, 6, 8193, 2, 8),
+    "R 5": (4, 8, 300, 5, 8), "M 1": (5, 1, 40, 2, 4), "N 12000, D = N": (3, 4, 12000, 2, 12000),
+}
+
+
+def k7_problem(G, M, N, R, D, seed):
+    """A seeded GangFeasibilityProblem stand-in (numpy; the fields
+    ``run_feasibility`` reads) with K7_EDGES' features."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    valid = (np.arange(M)[None, :] < rng.integers(1, M + 1, G)[:, None]) & (rng.random((G, M)) < 0.85)
+    valid[0, 0] = True
+    if G > 1:
+        valid[1] = False
+    req = rng.integers(0, 3, (G, M, R)).astype(np.int64)
+    req[0, 0] = 100
+    free = rng.integers(-1, 7, (N, R)).astype(np.int64)
+    cnt = rng.integers(0, 4, N).astype(np.int64)
+    cnt[rng.random(N) > max(16 / N, 0.02)] = 0
+    dom = (np.tile(np.arange(N), (G, 1)) if D == N else rng.integers(0, D, (G, N))).astype(np.int32)
+    return SimpleNamespace(req=req, valid=valid, free=free, cnt_free=cnt, dom=dom, D=D)
+
+
+def k7_args(pr, dt, device):
+    """K7's arguments from a k7_problem in ``dt`` on ``device``."""
+    import numpy as np
+
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)  # noqa: E731
+    return (f(pr.req), torch.from_numpy(pr.valid).to(device), f(pr.free), f(pr.cnt_free),
+            torch.from_numpy(pr.dom).to(device), pr.D)
+
+
+@pytest.mark.parametrize("N,R", [(1, 2), (64, 2), (65, 1), (220, 2), (512, 4), (513, 2), (5000, 2), (8192, 3),
+                                 (8193, 2), (300, 5), (12000, 2)])
+def test_feasibility_scan_picks_a_kernel_shape_that_holds_the_problem(N, R):
+    """kernels.feas_variant: a register variant where N fits its threads x
+    nodes and R its columns, in the order of FEAS_TABLE for the dtype and
+    R's columns (2 or 4), else the memory variant; feas_memory: the staged slots (a register variant's rows in 2
+    or 4 columns, four groups a block in a one-warp variant), the nodes'
+    state in shared memory where it fits GANG_SMEM_BYTES, else global
+    scratch a group."""
+    for dt, size in ((torch.float32, 4), (torch.float64, 8)):
+        v = TK.feas_variant(N, R, dt)
+        tg, npt = TK.FEAS_VARIANTS[v]
+        table = TK.FEAS_TABLE[dt, 2 if R <= 2 else TK.FEAS_RC] if R <= TK.FEAS_RC else ()
+        fits = [nmax for nmax, _v in table if N <= nmax]
+        if fits:
+            assert npt and N <= tg * npt and (min(fits), v) in table
+        else:
+            assert v == TK.FEAS_MEM and npt == 0
+        for G, M in ((1, 1), (64, 64), (5, 300)):
+            mc, smem, scratch = TK.feas_memory(G, M, N, R, dt, v)
+            assert mc == min(M, TK.FEAS_SLOTS)
+            if npt:
+                assert smem == (TK.FEAS_GPB if tg == 32 else 1) * mc * ((2 if R <= 2 else 4) * size + 1)
+                assert scratch == 0
+            else:
+                state = -(-(R + 1) * N * size // 16) * 16 + -(-4 * N // 16) * 16
+                stage = -(-(mc * R * size + mc) // 16) * 16
+                assert (smem, scratch) == ((stage + state, 0) if stage + state <= TK.GANG_SMEM_BYTES
+                                           else (stage, G * state))
+    assert TK.feas_memory(32, 16, 12000, 2, torch.float64, TK.FEAS_MEM)[2] > 0  # chip_smoke's global case
+
+
+def test_feasibility_staging_and_views_round_trip():
+    """run_feasibility's buffers (gang.kernel.Staging, feasibility_views):
+    the inputs packed at 16-byte offsets of one buffer come back as views
+    of their dtypes and shapes, bitwise; the outputs written into the
+    views of the output buffer after them come back through ``get`` (on
+    the CPU the same bytes); the CPU dispatch, with its split, equals
+    feasibility_plain."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+
+    rng = np.random.default_rng(5)
+    G, M, N, R = 3, 5, 7, 2
+    arrays = [rng.random((G, M, R)).astype(np.float32), rng.random((G, M)) < 0.5, rng.random((N, R)),
+              rng.integers(-3, 9, N).astype(np.float64), rng.integers(0, 4, (G, N)).astype(np.int32)]
+    st = GK.Staging("cpu")
+    views, out = st.put(arrays, GK.feasibility_layout(G, M))
+    offs, n_in = GK.stage_layout(arrays)
+    base = views[0].data_ptr()
+    for a, v, o in zip(arrays, views, offs):
+        assert o % 16 == 0 and v.data_ptr() == base + o and v.dtype == getattr(torch, a.dtype.name)
+        assert tuple(v.shape) == a.shape and v.numpy().tobytes() == a.tobytes()
+    assert n_in == sum(-(-a.nbytes // 16) * 16 for a in arrays)
+    assert out.dtype == torch.uint8 and out.shape == (4 * G * M + 5 * G,) and out.data_ptr() == base + n_in
+    feasible, distinct, assignment = GK.feasibility_views(out, G, M)
+    assert (feasible.dtype, distinct.dtype, assignment.dtype) == (torch.bool, torch.int32, torch.int32)
+    assert feasible.shape == distinct.shape == (G,) and assignment.shape == (G, M)
+    assert assignment.data_ptr() == out.data_ptr() and distinct.data_ptr() == out.data_ptr() + 4 * G * M
+    assert feasible.data_ptr() == out.data_ptr() + 4 * G * M + 4 * G
+    want = (torch.tensor([True, False, True]), torch.tensor([2, 0, 7], dtype=torch.int32),
+            torch.from_numpy(rng.integers(-1, N, (G, M)).astype(np.int32)))
+    for v, w in zip((feasible, distinct, assignment), want):
+        v.copy_(w)
+    res = st.get()
+    assert res.data_ptr() == out.data_ptr() and res.numel() == out.numel()
+    for v, w in zip(GK.feasibility_views(res, G, M), want):
+        assert torch.equal(v, w)
+    pr = k7_problem(4, 6, 33, 2, 5, seed=1)
+    got = GK.run_feasibility(pr, device="cpu")
+    split: dict = {}
+    again = GK.run_feasibility(pr, device="cpu", split=split)
+    assert set(split) == {"stage_s", "launch_s", "wait_s", "views_s"}
+    for k, w in zip(("feasible", "distinct_domains", "assignment"),
+                    GK.feasibility_plain(*k7_args(pr, torch.float64, "cpu"))):
+        assert np.array_equal(got[k], w.numpy()) and np.array_equal(again[k], w.numpy()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K7_EDGES))
+def test_feasibility_scan_kernel_shapes_match_plain_version_on_the_card(case):
+    """K7 at every kernel shape of kernels.FEAS_VARIANTS that holds the
+    problem, bitwise against gang/kernel.feasibility_plain on the same
+    tensors on the card, in both dtypes; run_feasibility on the card (one
+    launch) equal to the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
+
+    pr = k7_problem(*K7_EDGES[case], seed=len(case))
+    N, R = pr.free.shape
+    for dt in (torch.float32, torch.float64):
+        args = k7_args(pr, dt, "cuda")
+        want = GK.feasibility_plain(*args)
+        for v, (tg, npt) in enumerate(TK.FEAS_VARIANTS):
+            if npt and (R > TK.FEAS_RC or N > tg * npt):
+                continue
+            for a, b in zip(TK.gang_feasibility(*args, variant=v), want):
+                assert torch.equal(a, b), (case, v, dt)
+        n0 = TK.LAUNCHES["gang_feasibility"]
+        got = GK.run_feasibility(pr, device="cuda", dtype=dt)
+        assert TK.LAUNCHES["gang_feasibility"] == n0 + 1
+        cpu = GK.run_feasibility(pr, device="cpu", dtype=dt)
+        for k in cpu:
+            assert np.array_equal(got[k], cpu[k]), (case, k, dt)
+
+
 # K3's seeded shapes (P, N, n_true, W, WS, ws0): padded node columns and a
 # fail plane of odd bytes (so the planes after it sit at odd offsets, where
 # only byte stores apply), W below the kept count; a row over several
