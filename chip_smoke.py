@@ -2,7 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port: build, check and time the batch
 round's kernels on one NVIDIA GPU, then drive the port's main path.
 
-    python3 chip_smoke.py    # one card, about 15-19 min, build included
+    python3 chip_smoke.py    # one card, about 13-15 min, build included
 
 Workloads (every one from seed 42 through ``workloads.cluster``):
 
@@ -73,12 +73,12 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   north's pod count; ``workloads.tune``), ``run_tuning`` on the card in
   float32; the bench's own 12 x 96 size is the parity cut.
 
-Cut for the time limit: the float32 churn runs its first 2 of 5 waves and
-no float64 churn runs at full size (the cut of phase 9 holds float64); the
-annotation bytes of phase 4 are compared at full size at cfg2 only (cfg3
-at a 1 000 x 500 cut, as cfg4 and cfg5-vol), so the float64 end-to-end
-rounds run only there; cfg8-gang's scale leg runs its first 3 of 5 waves.  None of these
-holds a kernel against its plain version.  The CPU float64
+Cut for the time limit: no float64 churn runs at full size (the cut of
+phase 9 holds float64); the annotation bytes of phase 4 are compared at
+full size at cfg2 only (cfg3 at a 1 000 x 500 cut, as cfg4 and cfg5-vol),
+so the float64 end-to-end rounds run only there.  None of these holds a
+kernel against its plain version.  The float32 churn and cfg8-gang's
+scale leg run all 5 of their waves.  The CPU float64
 references of phases 4, 9, 14, 18, 22 and 26 run in two worker processes
 started after the build, beside the card's phases.  The plain references
 of phases 2, 23 and 24 (host-bound: hundreds of small launches a pod) run
@@ -91,7 +91,10 @@ Phases (each prints its seconds; any failure exits nonzero before the last
 line):
 
 1. the card's name and power limit (nvidia-smi), then the kernel build
-   (nvcc, sm_90a, every source in parallel);
+   (nvcc, sm_90a, every source in parallel); the C renderer's status
+   (``native.status()``: the library, or why it did not load, the build's
+   seconds, the Python headers) and the compiler's version: the script
+   fails if the renderer did not load;
 2. kernel against plain version on the card, bitwise (digests of every
    output against a worker's plain run) in float32 and float64, with the
    trace on: the scan (one thread-block cluster of ``cluster_width(N, 1)``
@@ -130,12 +133,15 @@ line):
    both dtypes, timed against it; at cfg5-churn's wave shape, one window
    against the windowed plain version and the redundant chains, timed
    beside them;
-8. cfg5-churn end to end on the card, float32 (2 of 5 waves): per wave
-   the wall, encode, blocked and estimated device time, commit, windows,
+8. cfg5-churn end to end on the card, float32 (all 5 waves): per wave
+   the wall, encode, blocked and estimated device time, commit with its
+   ``annotate`` and ``store_mutate`` stages, windows,
    launches (counts reset just before each wave), the placer's decisions
    and planes scattered, and the encoder's counters; a wave fails on a
    scan or compaction count other than its window count, no scatter after
-   the first wave, a batch fallback, a sequential pod or an unbound pod;
+   the first wave, a batch fallback, a sequential pod, an unbound pod, or a
+   document the C renderer did not render (``materialize_wave`` returning
+   None, a filter pair without its escaped twin);
 9. the same churn cut to 1 500 pods in 3 waves on 500 nodes with a 10-node
    cordon: the CUDA float64 service and the CPU float64 service leave every
    pod with equal annotations, node and status;
@@ -175,12 +181,13 @@ line):
    shared memory at R 5 and in global scratch at N 12 000 in float64), at
    the JAX bench's dispatch shape (G 64, M 64, N 220, D 8) and at G 256 x
    M 64 x N 5 000 with D 8 and D 5 000;
-16. cfg8-gang end to end on the card, float32, its first 3 of 5 waves:
-   per wave the wall, the gang
+16. cfg8-gang end to end on the card, float32, all 5 waves: per wave the
+   wall, commit with its ``annotate`` and ``store_mutate`` stages, the gang
    counters, the launches (counts reset just before each wave) and the
    verdict's seconds; a wave fails on a verdict mismatch, a partially bound
    group, a gang or batch fallback, K6 launches other than the dispatches,
-   dispatches other than one a replay window, or an unbound member;
+   dispatches other than one a replay window, an unbound member, or a
+   document the C renderer did not render (as in 8);
 17. K6 timed on the captured inputs of 16's first dispatch (launches back
    to back behind a sleep of the card, ``timing.device_ms``; the host's
    call and the CUDA-event time of host-paced calls beside it; the
@@ -262,7 +269,17 @@ line):
    service with no override, with the profile's own weights as an
    override, and with seeded float weights): the defaults change no byte,
    and every pod's bytes equal the CPU service's, finalScore fractional
-   under the float weights.
+   under the float weights;
+27. (run after 19) the C renderer's bytes against the Python renderer's
+   (every binding of the renderer cleared): every document of cfg2's
+   full-size float64 round of phase 4 (the per-pod functions, and
+   ``materialize_wave`` for the scheduled pods) equal on that BatchResult;
+   the churn cut of phase 9 and cfg8-gang's parity leg through the CUDA
+   float64 service, pod digests (and the gang's events) equal.
+
+Before phase 20 the earlier phases' cycles and rounds are collected and
+what is left of the heap is frozen (``gc.freeze``), the tracked objects
+counted at each step, so phases 20-26 pay no full collection of it.
 
 Then one ``{"kernels": [...]}`` line (time, plain time, bound and launches
 of each kernel: the one-launch scan at cfg5-vol, launched by its round;
@@ -282,10 +299,13 @@ from the network.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import gc
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -357,7 +377,7 @@ ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", (1000, 500, 0)), ("cfg4", (1000, 5
 MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
 # cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
 CHURN = (10000, 5000, 5, 50)
-CHURN_F32_WAVES = 2  # the first 2 of its 5 waves, for the time limit
+CHURN_F32_WAVES = 5  # all 5 waves
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
@@ -372,7 +392,7 @@ K5_SEEDED = (64, 5000, 2, [(v, pdb, s) for v in (1, 4, 16) for pdb, s in ((0, 0)
 # members fail in four of the five waves and their gangs cascade (on 6 such
 # nodes every member still fits)
 GANG = dict(jobs=200, min_members=8, max_members=64, nodes=220, waves=5, seed=24)
-GANG_WAVES = 3  # the scale leg's first 3 of its 5 waves, for the time limit
+GANG_WAVES = 5  # all 5 waves of the scale leg
 GANG_PARITY = dict(jobs=24, min_members=2, max_members=8, nodes=40, waves=5, seed=23)
 GANG_CUTS = {"parity": GANG_PARITY, "cascade": dict(GANG_PARITY, nodes=4)}
 # K3 against its plain version on seeded planes: (P, N, n_true, W, WS,
@@ -451,6 +471,64 @@ class Phase:
     def __exit__(self, *exc):
         if exc[0] is None:
             log(f"== {self.name}: {time.perf_counter() - self.t0:.3f} s")
+
+
+@contextlib.contextmanager
+def python_renderer():
+    """Every binding of the C renderer cleared, so the Python renderer
+    render: the package's ``native.fastjson`` (the batch engine reads it at
+    each call) and the ``_fastjson`` that utils/gojson.py and
+    plugins/storereflector.py bind at import."""
+    from kube_scheduler_simulator_tpu_torch import native
+    from kube_scheduler_simulator_tpu_torch.plugins import storereflector as SR
+    from kube_scheduler_simulator_tpu_torch.utils import gojson
+
+    saved = (native.fastjson, gojson._fastjson, SR._fastjson)
+    native.fastjson = gojson._fastjson = SR._fastjson = None
+    try:
+        yield
+    finally:
+        native.fastjson, gojson._fastjson, SR._fastjson = saved
+
+
+@contextlib.contextmanager
+def renderer_watch(what: str):
+    """Count the commit's documents by path: ``materialize_wave`` calls
+    (None: the wave took the per-pod Python functions) and per-pod filter
+    pairs for the history (no escaped twin: the Python renderer).  With the
+    renderer loaded (not cleared by ``python_renderer``), fail on either."""
+    from kube_scheduler_simulator_tpu_torch import native
+    from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchResult
+
+    seen = {"waves": 0, "waves_none": 0, "pairs": 0, "pairs_no_twin": 0}
+    mw, fp = BatchResult.materialize_wave, BatchResult.filter_annotation_pair
+
+    def materialize_wave(self, js):
+        out = mw(self, js)
+        seen["waves"] += 1
+        seen["waves_none"] += out is None
+        return out
+
+    def filter_annotation_pair(self, i, want_esc=True):
+        out = fp(self, i, want_esc)
+        if want_esc:
+            seen["pairs"] += 1
+            seen["pairs_no_twin"] += out[1] is None
+        return out
+
+    BatchResult.materialize_wave, BatchResult.filter_annotation_pair = materialize_wave, filter_annotation_pair
+    try:
+        yield seen
+    finally:
+        BatchResult.materialize_wave, BatchResult.filter_annotation_pair = mw, fp
+    if native.fastjson is not None and (seen["waves_none"] or seen["pairs_no_twin"]):
+        raise AssertionError(f"{what}: commit documents took the Python path ({seen})")
+
+
+def stage_seconds(svc) -> dict:
+    """The wave profiler's cumulative seconds of the commit's stages."""
+    st = svc.profiler.snapshot()["stages"]
+    return {s: st[s]["total_s"] for s in ("annotate", "store_mutate")}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1):
@@ -822,11 +900,12 @@ def run_churn(spec, device, dt, waves=None, echo=True):
             svc.start_scheduler(None)
         eng = svc._batch_engine
         pl0 = (eng._placer.plane_reuses, eng._placer.scatter_updates, eng._placer.full_uploads) if eng else (0, 0, 0)
-        c0 = svc.stats["commit_s"]
+        c0, st0 = svc.stats["commit_s"], stage_seconds(svc)
         K.reset_counts()
-        t0 = time.perf_counter()
-        svc.schedule_pending(max_rounds=1)
-        wall = time.perf_counter() - t0
+        with renderer_watch(f"{device} wave {w}") as rendered:
+            t0 = time.perf_counter()
+            svc.schedule_pending(max_rounds=1)
+            wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         eng = svc._batch_engine
         lt = eng.last_timings
@@ -836,6 +915,7 @@ def run_churn(spec, device, dt, waves=None, echo=True):
         rec = dict(
             wave=w, wall_s=wall, encode_s=lt["encode_s"], device_s=lt["device_s"],
             device_est_s=lt.get("device_est_s", 0.0), commit_s=svc.stats["commit_s"] - c0, windows=windows,
+            **{f"{k}_s": v - st0[k] for k, v in stage_seconds(svc).items()}, rendered=dict(rendered),
             overlap=1 - lt["device_s"] / lt["device_est_s"] if lt.get("device_est_s") else 0.0,
             launches=launches, reuses=pl.plane_reuses - pl0[0], scatters=pl.scatter_updates - pl0[1],
             full_uploads=pl.full_uploads - pl0[2], scattered=pl.last_scattered, unbound=unbound,
@@ -1169,11 +1249,12 @@ def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_n
                 svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0,
                                        device=device, dtype=dt)
                 svc.start_scheduler(gang_scheduler_config())
-            st0 = {k: svc.stats[k] for k in keys}
+            st0, sg0 = {k: svc.stats[k] for k in keys}, stage_seconds(svc)
             K.reset_counts()
-            t0 = time.perf_counter()
-            svc.schedule_pending(max_rounds=3)
-            wall = time.perf_counter() - t0
+            with renderer_watch(f"{device} gang wave {w}") as rendered:
+                t0 = time.perf_counter()
+                svc.schedule_pending(max_rounds=3)
+                wall = time.perf_counter() - t0
             launches = dict(K.LAUNCHES)
             st = svc.stats
             delta = {k: st[k] - st0[k] for k in keys}
@@ -1186,6 +1267,7 @@ def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_n
                 wave=w, wall_s=wall, pods=len(members), unbound=unbound, windows=int(lt.get("windows", 1)),
                 encode_s=lt.get("encode_s", 0.0), device_s=lt.get("device_s", 0.0), launches=launches,
                 promotions=dict(st["f64_promotions"]), waiting=len(svc.framework.waiting_pods), **delta,
+                **{f"{k}_s": v - sg0[k] for k, v in stage_seconds(svc).items()}, rendered=dict(rendered),
                 stages={k: round(v, 4) for k, v in svc.profiler.snapshot()["last_wave"].items()},
             )
             if echo:
@@ -1217,6 +1299,69 @@ def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_n
     events = [(e["metadata"]["name"], e["reason"], e["message"], e["type"])
               for e in store.list("events", copy_objects=False)]
     return records, total, (digests, digest(json.dumps(sorted(events)))), store, svc
+
+
+def render_phases(res_cfg2, P: int, churn_digests: dict) -> None:
+    """Phase 27: the C renderer's bytes against the Python renderer's: every
+    document of cfg2's full-size float64 round (one BatchResult: the per-pod
+    functions and ``materialize_wave`` in C, the per-pod functions in Python
+    on a copy with empty caches), and through the CUDA float64 service the
+    churn cut (phase 9's digests, rendered in C) and cfg8-gang's parity leg,
+    run again with every binding of the renderer cleared: pod digests
+    equal."""
+    import torch
+
+    with Phase(f"cfg2 {P} pods: C renderer against Python renderer on one float64 round"):
+        t0 = time.perf_counter()
+        csel, cdocs = round_documents(res_cfg2, P)
+        c_s = time.perf_counter() - t0
+        js = [i for i in range(P) if int(res_cfg2.selected[i]) >= 0]
+        t0 = time.perf_counter()
+        wave = res_cfg2.materialize_wave(js)
+        w_s = time.perf_counter() - t0
+        if wave is None or set(wave) != set(js):
+            raise AssertionError(f"materialize_wave rendered {None if wave is None else len(wave)} of {len(js)} pods")
+        fresh = copy.copy(res_cfg2)
+        fresh._lists, fresh._fr_shared = None, None
+        with python_renderer():
+            t0 = time.perf_counter()
+            psel, pdocs = round_documents(fresh, P)
+            p_s = time.perf_counter() - t0
+        if csel != psel:
+            raise AssertionError("selections differ between the renderers")
+        for i in range(P):
+            for d, kind in enumerate(("filter", "score", "finalScore")):
+                if cdocs[i][d] != pdocs[i][d]:
+                    raise AssertionError(f"cfg2 pod {i}: {kind} bytes differ between C and Python")
+        n_scored = 0
+        for j in js:
+            doc = wave[j]
+            if digest(doc["filter"][0]) != pdocs[j][0]:
+                raise AssertionError(f"cfg2 pod {j}: materialize_wave's filter bytes differ")
+            if "score" in doc:
+                n_scored += 1
+                if (digest(doc["score"][0]), digest(doc["finalScore"][0])) != pdocs[j][1:]:
+                    raise AssertionError(f"cfg2 pod {j}: materialize_wave's score bytes differ")
+        log(f"{P} pods x 3 documents byte-identical, C (per pod {c_s:.3f} s) and Python ({p_s:.3f} s); "
+            f"materialize_wave {len(js)} pods ({n_scored} scored) in {w_s:.3f} s, byte-identical")
+    with Phase(f"cfg5-churn cut to {CHURN_CUT}: CUDA float64 service, Python renderer against phase 9's C renderer"):
+        with python_renderer():
+            rec, _l, dig_py = run_churn(CHURN_CUT, DEVICE, torch.float64, echo=False)
+        bad = [n for n in churn_digests if dig_py.get(n) != churn_digests[n]]
+        if dig_py.keys() != churn_digests.keys() or bad:
+            raise AssertionError(f"{len(bad)} pods differ between the renderers, first {bad[:3]}")
+        log(f"{len(dig_py)} pods byte-identical; Python commit_s per wave {[round(r['commit_s'], 4) for r in rec]}")
+    with Phase(f"cfg8-gang parity leg {GANG_PARITY}: CUDA float64 service, C renderer against Python renderer"):
+        recs, digs = [], []
+        for mode in ("C", "Python"):
+            with python_renderer() if mode == "Python" else contextlib.nullcontext():
+                rec, _l, (dig, ev), _st, _svc = run_gang(GANG_PARITY, DEVICE, torch.float64, echo=False)
+            recs.append([round(r["commit_s"], 4) for r in rec])
+            digs.append((dig, ev))
+        if digs[0] != digs[1]:
+            raise AssertionError("cfg8-gang parity leg: pods or events differ between the renderers")
+        log(f"{len(digs[0][0][-1])} pods after each of {len(digs[0][0])} waves and the events byte-identical; "
+            f"commit_s per wave C {recs[0]}, Python {recs[1]}")
 
 
 def probe(device, dt) -> dict:
@@ -1310,7 +1455,7 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
     captured: dict = {}
     with Phase(f"cfg8-gang {GANG}, its first {GANG_WAVES} waves: service on the card, float32"):
         grec, glaunch, _dig, gstore, gsvc = run_gang(GANG, DEVICE, torch.float32, capture=captured, waves=GANG_WAVES)
-        keys = ("wall_s", "encode_s", "device_s", "commit_s", "gang_kernel_s")
+        keys = ("wall_s", "encode_s", "device_s", "commit_s", "annotate_s", "store_mutate_s", "gang_kernel_s")
         med = {k: float(np.median([r[k] for r in grec])) for k in keys}
         st = gsvc.stats
         log(f"cfg8-gang float32: launches over {len(grec)} waves {glaunch}; medians {json.dumps(med)}; "
@@ -2425,6 +2570,18 @@ def main() -> int:
     with Phase("build"):
         K.build()
         log(f"kernel build: {K.build_seconds:.2f} s (nvcc, sm_90a, {len(K.SOURCES)} sources in parallel)")
+    with Phase("C renderer (native/fastjson.c)"):
+        from kube_scheduler_simulator_tpu_torch import native
+
+        st = native.status()
+        log(f"renderer status: {json.dumps(st)}")
+        if not st["loaded"]:
+            raise AssertionError(f"the C renderer did not load: {st['reason']}")
+        if shutil.which(st["compiler"]):
+            cc = subprocess.run([st["compiler"], "--version"], capture_output=True, text=True, timeout=60)
+            log(f"{st['compiler']} --version: {(cc.stdout or cc.stderr).strip().splitlines()[0] if cc.returncode == 0 else cc.stderr.strip()}")
+        log(f"renderer built in {st['build_s']:.3f} s ({'compiled' if st['built'] else 'cached'}) from "
+            f"{native.SOURCE} into {st['path']}")
 
     # the CPU references (phases 4 and 9) run beside the card's phases; the
     # longest first
@@ -2846,7 +3003,7 @@ def main() -> int:
 
     # ------------------------------------------- cfg5-churn end to end
     def medians(records) -> dict:
-        keys = ("wall_s", "encode_s", "device_s", "device_est_s", "commit_s", "overlap")
+        keys = ("wall_s", "encode_s", "device_s", "device_est_s", "commit_s", "annotate_s", "store_mutate_s", "overlap")
         return {k: float(np.median([r[k] for r in records])) for k in keys}
 
     with Phase(f"cfg5-churn {P_ch} pods x {N_ch} nodes, {CHURN_F32_WAVES} of {waves_ch} waves, cordon {cordon_ch}: "
@@ -2871,6 +3028,29 @@ def main() -> int:
 
     # ------------------------------------------- gang (K6, K7)
     k6_t, k7_t, gang_launches = gang_phases(dev, cpu_gang_refs)
+
+    # ------------------------------------------- the C renderer's bytes
+    render_phases(results[("cfg2", torch.float64)], WORKLOADS["cfg2"].pods, dig_gpu)
+
+    # ------------------------------------------- a clean heap for K8 and K9
+    # the cycles the churn, preemption and gang services left, then the
+    # rounds and clusters of phases 1-5, are collected, and what is left is
+    # frozen: a full collection inside the autoscale loop or the tuner then
+    # walks only their own objects
+    with Phase("heap before the capacity engine and the tuner"):
+        heap = {"tracked": len(gc.get_objects())}
+        t0 = time.perf_counter()
+        heap["cycles_freed"] = gc.collect()
+        heap["cycles_s"] = time.perf_counter() - t0
+        heap["after_cycles"] = len(gc.get_objects())
+        del clusters, results
+        t0 = time.perf_counter()
+        heap["rounds_freed"] = gc.collect()
+        heap["rounds_s"] = time.perf_counter() - t0
+        heap["after_rounds"] = len(gc.get_objects())
+        gc.freeze()
+        heap["frozen"] = gc.get_freeze_count()
+        log(f"gc-tracked objects: {json.dumps(heap)}")
 
     # ------------------------------------------- capacity engine (K8)
     k8_t = autoscale_phases(dev, cpu_autoscale_ref)

@@ -16,6 +16,7 @@ import json
 from sys import intern
 from typing import Any
 
+from kube_scheduler_simulator_tpu_torch.native import fastjson as _fastjson
 from kube_scheduler_simulator_tpu_torch.plugins import annotations as anno
 from kube_scheduler_simulator_tpu_torch.plugins.resultstore import ResultStore
 from kube_scheduler_simulator_tpu_torch.utils.gojson import go_marshal, go_string, go_string_key
@@ -288,11 +289,16 @@ def _entry_parts(new_results: dict[str, str], escs: "dict[str, str] | None" = No
 def _entry_json(new_results: dict[str, str], escs: "dict[str, str] | None" = None) -> str:
     """go_marshal of the history entry, assembled from fragments: the
     entry is a flat map whose VALUES are the (often megabyte) annotation
-    bodies just built — ``go_string``'s replace chain avoids re-scanning
-    everything through json.dumps, and pre-escaped twins (``escs``) embed
-    without any scan at all.  (The reference's C renderer,
-    native/fastjson.c, is not ported yet: its bytes are these.)"""
+    bodies just built — the C renderer's one-pass escape (or ``go_string``'s
+    replace chain) avoids re-scanning everything through json.dumps, and
+    pre-escaped twins (``escs``) embed without any scan at all."""
     frags, vals, esc_list = _entry_parts(new_results, escs)
+    if _fastjson is not None:
+        try:
+            return _fastjson.history_entry(frags, vals, [e if isinstance(e, str) else None for e in esc_list])
+        except UnicodeEncodeError:  # lone surrogates: the Python path
+            pass
+    # deferred (tuple) twins cannot embed here: escape the plain value
     return "{" + ",".join(
         frag + ('"' + e + '"' if isinstance(e, str) else go_string(v))
         for frag, v, e in zip(frags, vals, esc_list)
@@ -318,6 +324,19 @@ def _updated_history(
     Untrusted values (imported snapshots, foreign annotations) are
     parse-validated; corrupt or non-array values reset to a fresh
     single-entry history, as before."""
+    if _fastjson is not None and (
+        not existing
+        or (trusted and (existing == "[]" or (existing.startswith("[{") and existing.endswith("}]"))))
+    ):
+        # one C buffer builds the splice and the entry together; the
+        # megabyte filter and score values embed from the batch engine's
+        # deferred twin specs, whose escaped bytes are written here, once,
+        # straight into the trail (or from pre-escaped str twins)
+        frags, vals, esc_list = _entry_parts(new_results, escs)
+        try:
+            return _fastjson.history_append2(existing or None, frags, vals, esc_list)
+        except UnicodeEncodeError:  # lone surrogates: the Python path
+            pass
     entry_json = _entry_json(new_results, escs)
     if existing:
         if trusted:

@@ -18,11 +18,16 @@ service's ``set_plugin_weights``) runs the scan with the override's [S]
 vector as its weight argument and renders finalScore through
 ``format_weighted_score``, with the vector each round was dispatched with.
 
+The annotation documents are assembled by the C renderer
+(``native/fastjson.c``) where it loaded: ``materialize_wave`` renders a
+commit wave's documents in three calls, the per-pod pair functions render
+one pod's from the same tables and hand the history writer deferred escaped
+twins.  Without it (``KSS_NO_NATIVE=1``,
+no compiler), for lone surrogates and for PreFilter-narrowed node sets the
+Python renderer writes the same bytes.
+
 Left out of the reference's engine: the mesh, the streaming
-``schedule_async``, the AOT
-artifact cache and the process ensemble, and the C renderer of the
-annotation documents (``materialize_wave`` returns None; every document
-takes the Python paths, which the parity suites pin to the same bytes).
+``schedule_async``, the AOT artifact cache and the process ensemble.
 
 Kernels: upstream's whole default profile, the fifteen filters of
 ``ops/batch.FILTER_KERNELS`` (NodePorts, VolumeRestrictions, the EBS, GCE
@@ -44,6 +49,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from kube_scheduler_simulator_tpu_torch import native
 from kube_scheduler_simulator_tpu_torch.device import resolve_device, resolve_dtype
 from kube_scheduler_simulator_tpu_torch.models.framework import CycleState, Status
 from kube_scheduler_simulator_tpu_torch.models.snapshot import has_pending_nomination
@@ -167,13 +173,15 @@ class BatchResult:
 
             def lut_inv(arr: "np.ndarray", fmt=str) -> tuple:
                 """[P,WS] ints → (rendered str per DISTINCT value, [P,WS]
-                indices into it): each distinct value is formatted once."""
+                int64 indices into it): each distinct value is formatted
+                once, and the C wave path splices values from the LUT by
+                index (C-contiguous int64, as the renderer reads them)."""
                 mn = int(arr.min()) if arr.size else 0
                 mx = int(arr.max()) if arr.size else 0
                 if mx - mn <= 4096:
-                    return [fmt(v) for v in range(mn, mx + 1)], arr.astype(np.int64) - mn
+                    return [fmt(v) for v in range(mn, mx + 1)], np.ascontiguousarray(arr.astype(np.int64) - mn)
                 uniq, inv = np.unique(arr, return_inverse=True)
-                return [fmt(int(v)) for v in uniq], inv.reshape(arr.shape).astype(np.int64)
+                return [fmt(int(v)) for v in uniq], np.ascontiguousarray(inv.reshape(arr.shape).astype(np.int64))
 
             wov = self.weight_override  # dispatch-time snapshot, not live
 
@@ -194,6 +202,7 @@ class BatchResult:
                 # records "passed" for every enabled plugin BEFORE the
                 # first failure, in profile order
                 "fail_pos": [self._engine.filters.index(f) for f in cfg.filters],
+                "taint_k": cfg.filters.index("TaintToleration") if "TaintToleration" in cfg.filters else -1,
                 "raw_li": {s: lut_inv(tr["raw"][k]) for k, (s, _w) in enumerate(cfg.scores)},
                 "fin_li": {s: fin_li_of(k, w) for k, (s, w) in enumerate(cfg.scores)},
                 "raw_s": {},
@@ -204,7 +213,8 @@ class BatchResult:
         return self._lists
 
     def _strs_of(self, plugin: str, final: bool = False) -> list:
-        """[P][WS] interned score strings for one plugin."""
+        """[P][WS] interned score strings for one plugin (the paths other
+        than the C wave path read these)."""
         tr = self._tr()
         cache = tr["final_s" if final else "raw_s"]
         v = cache.get(plugin)
@@ -212,6 +222,44 @@ class BatchResult:
             lut, inv = tr["fin_li" if final else "raw_li"][plugin]
             v = cache[plugin] = np.array(lut, dtype=object)[inv].tolist()
         return v
+
+    def _wave(self) -> "dict | None":
+        """The round's C commit tables, or None where the C wave path
+        cannot run (no renderer, lone surrogates): a capsule resolving
+        every fragment table once, and one batched name-order argsort of
+        the feasible ids, so each document is assembled from resolved
+        tables and int64 buffers (native.fastjson ``wave_*``)."""
+        tr = self._tr()
+        if "wave" in tr:
+            return tr["wave"]
+        wave = None
+        fj = native.fastjson
+        fr = self._fr()
+        if fj is not None and "pass_esc" in fr:
+            try:
+                splug = fr["splug"]
+                cap = fj.wave_new(
+                    fr["pass_list"], fr["pass_esc"], fr["key"], fr["key_esc"], fr["order_i64"],
+                    self.problem.N_true, [f for f, _s in splug], fr["splug_esc"],
+                    [tr["raw_li"][s][0] for _f, s in splug], [tr["fin_li"][s][0] for _f, s in splug],
+                )
+                sids = tr["sids"]
+                valid = sids >= 0
+                rank = fr["rank_by_name"]
+                keys = np.where(valid, rank[np.clip(sids, 0, None)], len(rank) + 1)
+                sperm = np.ascontiguousarray(np.argsort(keys, axis=1, kind="stable").astype(np.int64))
+                wave = {
+                    "cap": cap,
+                    "ns": np.ascontiguousarray(np.take_along_axis(sids.astype(np.int64), sperm, axis=1)),
+                    "perm": sperm,
+                    "counts": valid.sum(axis=1),
+                    "raw_inv": [tr["raw_li"][s][1] for _f, s in splug],
+                    "fin_inv": [tr["fin_li"][s][1] for _f, s in splug],
+                }
+            except UnicodeEncodeError:
+                wave = None
+        tr["wave"] = wave
+        return wave
 
     def _visited_ids(self, i: int) -> "np.ndarray":
         """The nodes pod i's cycle visited, ascending node index — the
@@ -247,7 +295,8 @@ class BatchResult:
     def _fr(self) -> dict:
         """Per-round fragments for direct annotation-JSON assembly: node
         key fragments, the shared all-passed entry's bytes, and sorted
-        score-plugin key fragments."""
+        score-plugin key fragments; with the C renderer, their escaped
+        twins too."""
         tr = self._tr()
         if "frags" not in tr:
             shared = self._fr_shared
@@ -260,6 +309,7 @@ class BatchResult:
             order_by_name = np.array(sorted(range(len(names)), key=names.__getitem__), dtype=np.int64)
             rank_by_name = np.empty(len(names), dtype=np.int64)
             rank_by_name[order_by_name] = np.arange(len(names))
+            pass_list = [k + passed for k in key]
             tr["frags"] = {
                 "key": key,
                 "key_arr": np.array(key, dtype=object),
@@ -267,8 +317,26 @@ class BatchResult:
                 # go_marshal key order = sorted node names
                 "order_by_name": order_by_name,
                 "rank_by_name": rank_by_name,
-                "pass_arr": np.array([k + passed for k in key], dtype=object),
+                "pass_arr": np.array(pass_list, dtype=object),
             }
+            if native.fastjson is not None:
+                # the escaped twins of every fragment: the C assembly
+                # emits (annotation, history-escaped) pairs from them in
+                # one pass, where escaping the quote-dense documents at
+                # history-write time costs ~5-10x more.  Lone surrogates
+                # (node names UTF-8 cannot encode) keep the round on the
+                # Python path.
+                try:
+                    eb = native.fastjson.escape_body
+                    tr["frags"].update(
+                        pass_list=pass_list,
+                        pass_esc=[eb(p) for p in pass_list],
+                        key_esc=[eb(k) for k in key],
+                        splug_esc=[eb(f) for f, _s in tr["frags"]["splug"]],
+                        order_i64=np.ascontiguousarray(order_by_name, dtype=np.int64),
+                    )
+                except UnicodeEncodeError:
+                    pass
             if shared is not None:
                 shared["frags"] = tr["frags"]
         return tr["frags"]
@@ -277,9 +345,78 @@ class BatchResult:
         """go_marshal of pod i's filter-result map (node → plugin →
         "passed"/failure message, first-failure short circuit), assembled
         from fragments."""
+        return self.filter_annotation_pair(i, want_esc=False)[0]
+
+    def filter_annotation_pair(self, i: int, want_esc: bool = True) -> "tuple[str, Any]":
+        """(annotation, history-escaped twin or None): the batch commit
+        hands the pair to the result store, and the history write embeds
+        the twin (a deferred spec the C renderer writes straight into the
+        trail) instead of re-escaping a megabyte document.  The wave
+        capsule renders it where the C renderer loaded and the pod's node
+        set is not PreFilter-narrowed; otherwise the Python renderer, with
+        the same bytes."""
         assert self._engine.cfg.trace, "run with trace=True for annotations"
         tr = self._tr()
-        fr = self._fr()
+        fj = native.fastjson
+        wave = self._wave() if fj is not None and self._prefilter_node_set(i) is None else None
+        if wave is not None:
+            try:
+                return self._filter_annotation_wave(i, tr, fj, wave, want_esc)
+            except UnicodeEncodeError:
+                pass  # lone surrogates in a message: the Python path
+        return self._filter_annotation_json_py(i, tr, self._fr()), None
+
+    def _fail_tables(self, i: int, tr: dict, fj) -> tuple:
+        """(fail_ids, fail_uidx, ftable, etable) of pod i's failing visited
+        nodes, (None, None, [], []) where every visited node passed.  One
+        entry a distinct (plugin, code), and a node for TaintToleration,
+        whose message names the node's taint."""
+        fp_all = tr["fail_plug"]
+        if fp_all is None or not tr["fail_any_row"][i]:
+            return None, None, [], []
+        ids = self._visited_ids(i)
+        fp = fp_all[i][: len(ids)]
+        cols = np.nonzero(fp >= 0)[0]
+        fpc = fp[cols].astype(np.int64)
+        fcc = tr["fail_code"][i][cols].astype(np.int64)
+        idsc = np.ascontiguousarray(ids[cols], dtype=np.int64)
+        taint_k = tr["taint_k"]
+        extra = np.where(fpc == taint_k, idsc + 1, 0) if taint_k >= 0 else 0
+        ucode = (fpc << 40) | (extra << 16) | fcc
+        uniq, first, inv = np.unique(ucode, return_index=True, return_inverse=True)
+        entry_memo = tr.setdefault("entry_memo_esc", {})
+        cfg_filters = self._engine.cfg.filters
+        filters = self._engine.filters
+        fail_pos = tr["fail_pos"]
+        ftable: list = []
+        etable: list = []
+        for t0, u in zip(first, uniq):
+            k = int(u >> 40)
+            plugin = cfg_filters[k]
+            msg = self._msg(i, int(idsc[t0]), plugin, int(fcc[t0]))
+            pair = entry_memo.get((k, msg))
+            if pair is None:
+                entry = {p: PASSED_FILTER_MESSAGE for p in filters[: fail_pos[k]]}
+                entry[plugin] = msg
+                frag = go_marshal(entry)
+                pair = entry_memo[(k, msg)] = (frag, fj.escape_body(frag))
+            ftable.append(pair[0])
+            etable.append(pair[1])
+        return idsc, np.ascontiguousarray(inv.reshape(-1), dtype=np.int64), ftable, etable
+
+    def _filter_annotation_wave(self, i: int, tr: dict, fj, wave: dict, want_esc: bool) -> "tuple[str, Any]":
+        """The filter pair from the wave capsule: one C call; the twin is a
+        deferred ``wfilter`` spec."""
+        start = int(self.out["sample_start"][i])
+        proc = int(self.out["sample_processed"][i])
+        fail_ids, fail_uidx, ftable, etable = self._fail_tables(i, tr, fj)
+        cap = wave["cap"]
+        s = fj.wave_filter_json(cap, start, proc, fail_ids, fail_uidx, ftable)
+        if not want_esc:
+            return s, None
+        return s, ("wfilter", cap, start, proc, fail_ids, fail_uidx, etable)
+
+    def _filter_annotation_json_py(self, i: int, tr: dict, fr: dict) -> str:
         ids = self._visited_ids(i)
         narrowed = self._prefilter_node_set(i)
         n_true = self.problem.N_true
@@ -322,22 +459,142 @@ class BatchResult:
                 parts[t] = key_frag[n] + frag
         return "{" + ",".join(parts) + "}"
 
-    def filter_annotation_pair(self, i: int, want_esc: bool = True) -> "tuple[str, None]":
-        """(annotation, history-escaped twin): the twin is None, as on the
-        reference's Python path, and the history writer escapes it."""
-        return self.filter_annotation_json(i), None
+    def score_annotations_json(self, i: int) -> "tuple[str, str]":
+        """(score, finalScore) annotation JSON over pod i's feasible nodes."""
+        (s, _se), (f, _fe) = self.score_annotations_pairs(i)
+        return s, f
 
-    def score_annotations_pairs(self, i: int) -> "tuple[tuple[str, None], tuple[str, None]]":
-        """((score, None), (finalScore, None)), as ``filter_annotation_pair``."""
-        s, f = self.score_annotations_json(i)
-        return (s, None), (f, None)
+    def score_annotations_pairs(self, i: int) -> "tuple[tuple[str, Any], tuple[str, Any]]":
+        """((score, twin), (finalScore, twin)) assembled from fragments:
+        from the wave capsule (deferred ``wscore`` twins), else by the
+        Python loop (twins None); the same bytes on both paths."""
+        assert self._engine.cfg.trace, "run with trace=True for annotations"
+        tr = self._tr()
+        fr = self._fr()
+        fj = native.fastjson
+        wave = self._wave() if fj is not None else None
+        if wave is not None:
+            T = int(wave["counts"][i])
+            if T == 0:
+                return ("{}", "{}"), ("{}", "{}")
+            cap = wave["cap"]
+            ns_row = wave["ns"][i, :T]
+            perm_row = wave["perm"][i, :T]
+            raw_inv = [inv[i] for inv in wave["raw_inv"]]
+            fin_inv = [inv[i] for inv in wave["fin_inv"]]
+            try:
+                return (
+                    (fj.wave_score_json(cap, 0, ns_row, perm_row, raw_inv), ("wscore", cap, 0, ns_row, perm_row, raw_inv)),
+                    (fj.wave_score_json(cap, 1, ns_row, perm_row, fin_inv), ("wscore", cap, 1, ns_row, perm_row, fin_inv)),
+                )
+            except UnicodeEncodeError:
+                pass  # lone surrogates: the Python loop below
+        sids_row = tr["sids"][i]
+        js = np.nonzero(sids_row >= 0)[0]
+        if js.size == 0:
+            return ("{}", "{}"), ("{}", "{}")
+        ns = sids_row[js]
+        order = np.argsort(fr["rank_by_name"][ns], kind="stable")
+        js = js[order]
+        ns = ns[order]
+        keys = fr["key_arr"][ns].tolist()
+        perm = js.tolist()
+        splug = fr["splug"]
+        frags = [frag for frag, _s in splug]
+        raw_rows = [self._strs_of(s)[i] for _f, s in splug]
+        fin_rows = [self._strs_of(s, final=True)[i] for _f, s in splug]
+        s_parts = []
+        f_parts = []
+        for kf, j in zip(keys, perm):
+            s_parts.append(kf + "{" + ",".join([frag + row[j] + '"' for frag, row in zip(frags, raw_rows)]) + "}")
+            f_parts.append(kf + "{" + ",".join([frag + row[j] + '"' for frag, row in zip(frags, fin_rows)]) + "}")
+        return ("{" + ",".join(s_parts) + "}", None), ("{" + ",".join(f_parts) + "}", None)
 
-    def materialize_wave(self, js: "list[int]") -> None:
-        """The reference renders a whole commit wave's documents in its C
-        extension here; the port has no copy of it yet, so every pod takes
-        the per-pod builders (None, as the reference without the
-        extension)."""
-        return None
+    def materialize_wave(self, js: "list[int]") -> "dict[int, dict] | None":
+        """A whole commit wave's annotation documents in three C calls: one
+        ``wave_filter_many`` for every pod's filter document, two
+        ``wave_score_many`` (score, finalScore) for the pods that score.
+        Returns ``{j: {"filter": pair, "score": pair, "finalScore": pair}}``
+        (score and finalScore only where ``feasible_count[j] > 1``); a pod
+        whose node set PreFilter narrows is left out, and the caller
+        renders it with the per-pod functions.  None where the C wave path
+        cannot run at all (no renderer, lone surrogates): every pod then
+        takes the per-pod functions, with the same bytes."""
+        fj = native.fastjson
+        if fj is None:
+            return None
+        wave = self._wave()
+        if wave is None:
+            return None
+        tr = self._tr()
+        try:
+            render = [j for j in js if self._prefilter_node_set(j) is None]
+            if not render:
+                return {}
+            cap = wave["cap"]
+            starts_m = np.ascontiguousarray(np.asarray(self.out["sample_start"], dtype=np.int64)[render])
+            procs_m = np.ascontiguousarray(np.asarray(self.out["sample_processed"], dtype=np.int64)[render])
+            # every pod's failure entries in one table shared by the wave
+            # (the entry memo already shares fragments across pods, so the
+            # index hits by identity); the per-pod tables ride along for
+            # the deferred escaped twins
+            frag_index: dict[str, int] = {}
+            ftable: list[str] = []
+            frow_l: list = []
+            fids_l: list = []
+            fuidx_l: list = []
+            fail_specs: dict[int, tuple] = {}
+            for m, j in enumerate(render):
+                ids_j, uidx_j, ft_j, et_j = self._fail_tables(j, tr, fj)
+                if ids_j is None:
+                    fail_specs[j] = (None, None, [])
+                    continue
+                rebase = np.empty(len(ft_j), dtype=np.int64)
+                for t, frag in enumerate(ft_j):
+                    u = frag_index.get(frag)
+                    if u is None:
+                        u = frag_index[frag] = len(ftable)
+                        ftable.append(frag)
+                    rebase[t] = u
+                frow_l.append(np.full(len(ids_j), m, dtype=np.int64))
+                fids_l.append(ids_j)
+                fuidx_l.append(rebase[uidx_j])
+                fail_specs[j] = (ids_j, uidx_j, et_j)
+            if frow_l:
+                frow = np.ascontiguousarray(np.concatenate(frow_l))
+                fids = np.ascontiguousarray(np.concatenate(fids_l))
+                fuidx = np.ascontiguousarray(np.concatenate(fuidx_l))
+            else:
+                frow = fids = fuidx = None
+            filt_docs = fj.wave_filter_many(cap, starts_m, procs_m, frow, fids, fuidx, ftable or None)
+            out: dict[int, dict] = {}
+            for m, j in enumerate(render):
+                ids_j, uidx_j, et_j = fail_specs[j]
+                out[j] = {"filter": (filt_docs[m], ("wfilter", cap, int(starts_m[m]), int(procs_m[m]),
+                                                    ids_j, uidx_j, et_j))}
+            scoring = [j for j in render if int(self.feasible_count[j]) > 1]
+            if scoring:
+                sjs = np.asarray(scoring, dtype=np.int64)
+                cnts = np.ascontiguousarray(np.asarray(wave["counts"], dtype=np.int64)[sjs])
+                ns2 = np.ascontiguousarray(wave["ns"][sjs])
+                perm2 = np.ascontiguousarray(wave["perm"][sjs])
+                raw2 = [np.ascontiguousarray(np.asarray(inv, dtype=np.int64)[sjs]) for inv in wave["raw_inv"]]
+                fin2 = [np.ascontiguousarray(np.asarray(inv, dtype=np.int64)[sjs]) for inv in wave["fin_inv"]]
+                score_docs = fj.wave_score_many(cap, 0, cnts, ns2, perm2, raw2)
+                final_docs = fj.wave_score_many(cap, 1, cnts, ns2, perm2, fin2)
+                for m2, j in enumerate(scoring):
+                    T = int(cnts[m2])
+                    if T == 0:
+                        out[j]["score"] = ("{}", "{}")
+                        out[j]["finalScore"] = ("{}", "{}")
+                        continue
+                    ns_row = ns2[m2, :T]
+                    perm_row = perm2[m2, :T]
+                    out[j]["score"] = (score_docs[m2], ("wscore", cap, 0, ns_row, perm_row, [r[m2] for r in raw2]))
+                    out[j]["finalScore"] = (final_docs[m2], ("wscore", cap, 1, ns_row, perm_row, [r[m2] for r in fin2]))
+            return out
+        except UnicodeEncodeError:
+            return None
 
     def diagnosis(self, i: int) -> dict[str, Status]:
         """Per-node failure Status map (failure messages, PostFilter)."""
@@ -364,31 +621,6 @@ class BatchResult:
             else:
                 diag[self.problem.node_names[n]] = Status.unschedulable(msg)
         return diag
-
-    def score_annotations_json(self, i: int) -> "tuple[str, str]":
-        """(score, finalScore) annotation JSON over pod i's feasible nodes."""
-        assert self._engine.cfg.trace, "run with trace=True for annotations"
-        tr = self._tr()
-        fr = self._fr()
-        sids_row = tr["sids"][i]
-        js = np.nonzero(sids_row >= 0)[0]
-        if js.size == 0:
-            return "{}", "{}"
-        ns = sids_row[js]
-        order = np.argsort(fr["rank_by_name"][ns], kind="stable")
-        js = js[order]
-        ns = ns[order]
-        keys = fr["key_arr"][ns].tolist()
-        splug = fr["splug"]
-        frags = [frag for frag, _s in splug]
-        raw_rows = [self._strs_of(s)[i] for _f, s in splug]
-        fin_rows = [self._strs_of(s, final=True)[i] for _f, s in splug]
-        s_parts = []
-        f_parts = []
-        for kf, j in zip(keys, js.tolist()):
-            s_parts.append(kf + "{" + ",".join([frag + row[j] + '"' for frag, row in zip(frags, raw_rows)]) + "}")
-            f_parts.append(kf + "{" + ",".join([frag + row[j] + '"' for frag, row in zip(frags, fin_rows)]) + "}")
-        return "{" + ",".join(s_parts) + "}", "{" + ",".join(f_parts) + "}"
 
     def fit_failed_ids(self, i: int) -> "np.ndarray":
         """Visited node ids whose first filter failure was NodeResourcesFit —

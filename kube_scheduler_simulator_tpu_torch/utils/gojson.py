@@ -10,7 +10,8 @@ golden tests pin those exact bytes.  Go's encoder differs from
 3. ``<``, ``>`` and ``&`` are HTML-escaped to ``\\u003c``/``\\u003e``/
    ``\\u0026`` by default.
 
-Pure Python: the native renderer of the reference is not ported yet.
+``go_string`` runs through the C renderer (``native/fastjson.c``) when it
+loaded, and through the Python escape below otherwise: the same bytes.
 """
 
 from __future__ import annotations
@@ -61,9 +62,7 @@ def go_string_key(s: str) -> str:
 _CTRL_RE = re.compile("[\x00-\x1f\u2028\u2029]")
 
 
-def go_string(s: str) -> str:
-    """A JSON string literal (quotes included) exactly as go_marshal emits
-    it."""
+def _go_string_py(s: str) -> str:
     if _CTRL_RE.search(s):
         return _escape_html(json.dumps(s, ensure_ascii=False))
     return (
@@ -75,3 +74,24 @@ def go_string(s: str) -> str:
         .replace(">", "\\u003e")
         + '"'
     )
+
+
+def go_string(s: str) -> str:
+    """A JSON string literal (quotes included) exactly as go_marshal emits
+    it.  The history annotation re-encodes megabyte annotation values as
+    JSON strings every attempt: the C escape does it in one pass, the
+    Python one in C-level ``str.replace`` passes (tests/test_torch_native.py
+    pins them equal).  Strings UTF-8 cannot encode (lone surrogates from
+    permissive JSON input) take the Python path, which keeps them as
+    ``json.dumps`` does."""
+    if _fastjson is not None:
+        try:
+            return _fastjson.escape_string(s)
+        except UnicodeEncodeError:
+            pass
+    return _go_string_py(s)
+
+
+# bound once: the native package imports only the standard library, and
+# go_string runs millions of times a wave
+from kube_scheduler_simulator_tpu_torch.native import fastjson as _fastjson  # noqa: E402

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package, loads
+its own C renderer and never the JAX package's library, and its entry
+points run on the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -107,6 +108,11 @@ for w in workloads.churn(wstore, 40, 20, 1):
     wsvc.start_scheduler(None)
     wsvc.schedule_pending(max_rounds=1)
 assert wsvc.stats["batch_pods"] >= 30 and wsvc.plugin_weights() is not None, wsvc.stats
+from kube_scheduler_simulator_tpu_torch import native
+assert native.fastjson is not None and native.status()["path"].startswith({str(PORT)!r}), native.status()
+# the port's renderer, never the JAX package's library
+mapped = [ln.split()[-1] for ln in open("/proc/self/maps") if ".so" in ln]
+assert not [m for m in mapped if m.startswith({str(ROOT / REFERENCE)!r} + "/")], mapped
 new = set(sys.modules) - before
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == {REFERENCE!r} or m.startswith({REFERENCE!r} + ".")))
