@@ -71,15 +71,27 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   steps, population 16, tau 50, lr 1, the default profile's seven scores and
   its filters) at 1 250 nodes x 10 000 pods (the bench's 8 pods a node at
   north's pod count; ``workloads.tune``), ``run_tuning`` on the card in
-  float32; the bench's own 12 x 96 size is the parity cut.
+  float32; the bench's own 12 x 96 size is the parity cut;
+- cfg9-stream: the JAX package's bench ``run_stream_report``
+  (``workloads.stream_cluster`` / ``steady_feed``): 600 bench nodes, 6 000
+  bench pods bound round-robin (spread constraints on every 3rd), then
+  ticks of 100 arrivals and 100 deletions of settled pods, through
+  ``SchedulerService(store, tie_break="first", use_batch="force")``: one
+  priming tick, then 48 timed ticks (a cut of the bench's 320) in each of
+  three modes: ``schedule_pending`` a tick, ``schedule_stream`` with the
+  overlap off, and streamed (wave k+1's encode, upload and scan launched
+  while wave k commits).
 
 Cut for the time limit: no float64 churn runs at full size (the cut of
 phase 9 holds float64); the annotation bytes of phase 4 are compared at
 full size at cfg2 only (cfg3 at a 1 000 x 500 cut, as cfg4 and cfg5-vol),
 so the float64 end-to-end rounds run only there.  None of these holds a
-kernel against its plain version.  The float32 churn and cfg8-gang's
+kernel against its plain version.  cfg9-stream times 48 ticks a mode
+(``time_stream.py`` runs the bench's 320) and its float64 leg 8.  The
+float32 churn, cfg7 and cfg8-gang's scale leg hash no pod digests (nothing
+compares them; at full size they cost ~6 ms a MB of annotations).  The float32 churn and cfg8-gang's
 scale leg run all 5 of their waves.  The CPU float64
-references of phases 4, 9, 14, 18, 22 and 26 run in two worker processes
+references of phases 4, 9, 14, 18, 22, 26 and 28 run in two worker processes
 started after the build, beside the card's phases.  The plain references
 of phases 2, 23 and 24 (host-bound: hundreds of small launches a pod) run
 on the card in two more worker processes, beside the main process's
@@ -270,6 +282,22 @@ line):
    override, and with seeded float weights): the defaults change no byte,
    and every pod's bytes equal the CPU service's, finalScore fractional
    under the float weights;
+28. (run after 26) cfg9-stream on the card, float32, each of the three
+   modes from a fresh cluster (launch counters reset just before the 48
+   timed ticks, read just after; each streamed wave's own launches counted
+   apart around ``schedule_async`` and its ``decisions()``): the wall,
+   pods/s, ``stream_overlap_s``, ``stream_stall_s``, overlap efficiency,
+   drains, the stages (admit, encode, upload, dispatch, device_blocked,
+   trace_fetch, annotate, store_mutate), the placer's decisions and the
+   encoder's counters; the three final stores' ``pod_parity_state``
+   digests must be equal; the streamed run fails on fewer than 40 waves,
+   no overlap, a drain, a wave that did not launch exactly one scan and one
+   compaction, a fallback, a sequential pod, a promotion or an unbound pod;
+   then one more wave's ``result()`` is timed behind a sleep of the card
+   (~200 ms) enqueued after its ``decisions()``: it must return in a
+   quarter of the sleep (it waits on the blob copy's event, not on the
+   stream) while the card still sleeps; then the CUDA float64 streamed run
+   at 8 ticks equals a CPU float64 streamed run (a worker process);
 27. (run after 19) the C renderer's bytes against the Python renderer's
    (every binding of the renderer cleared): every document of cfg2's
    full-size float64 round of phase 4 (the per-pod functions, and
@@ -291,7 +319,9 @@ preview's first group, launched by group_preview; the lane scan at
 cfg6-autoscale's first estimate dispatch, launched by its loop; the
 population scan K9 with its objective at phase 23's two shapes, the grad
 scan K2g and its contraction at phase 24's, launched by phase 25's rows;
-the scan's cluster width and the redundant chains' time beside it), and as
+the scan's cluster width and the redundant chains' time beside it; the
+scan's, the compaction's and the scatter's launches add cfg9-stream's
+streamed run's, ``launches_by_path`` apart), and as
 the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
@@ -436,6 +466,15 @@ PROBE_POD = {"metadata": {"name": "p0", "namespace": "default"},
 # filters cfg5-vol must see reject at least one (pod, node) pair first
 MUST_REJECT = ("NodePorts", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 DEVICE = "cuda"
+# cfg9-stream (workloads.STREAM: the JAX bench's run_stream_report, 600
+# nodes, 6 000 bound pods, 100 arrivals and 100 deletions a tick): each mode
+# times STREAM_TICKS ticks after one priming tick, a cut of the bench's 320;
+# the float64 leg against the CPU runs STREAM_F64_TICKS; result() is timed
+# behind STREAM_SLEEP_CYCLES of sleep (~200 ms at the H100's 1.98 GHz)
+STREAM_TICKS = 48
+STREAM_F64_TICKS = 8
+STREAM_MODES = ("sequential", "stream_off", "streamed")
+STREAM_SLEEP_CYCLES = 400_000_000
 # what one BatchEngine round launches
 ROUND_LAUNCHES = {
     "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
@@ -877,10 +916,11 @@ def pod_digests(store) -> dict:
     }
 
 
-def run_churn(spec, device, dt, waves=None, echo=True):
+def run_churn(spec, device, dt, waves=None, echo=True, digests=True):
     """Drive the churn through a SchedulerService on ``device``; returns
     (per-wave records, launches over all waves, pod digests after the last
-    wave).  On the card a wave fails on a scan
+    wave, or None without ``digests``: at full size they cost ~6 ms a MB of
+    annotations).  On the card a wave fails on a scan
     or compaction count other than its window count and, after the first
     wave, on no scatter; on any device, on a batch fallback, a sequential
     pod or an unbound pod."""
@@ -942,17 +982,18 @@ def run_churn(spec, device, dt, waves=None, echo=True):
         if waves is not None and w + 1 >= waves:
             break
     gen.close()
-    return records, total, pod_digests(store)
+    return records, total, pod_digests(store) if digests else None
 
 
-def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = None):
+def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = None, digests=True):
     """cfg7-preempt-5k (or its cut) through a SchedulerService on ``device``:
     one ``schedule_pending(max_rounds=max_rounds)``, the launch counters
     reset just before it.  With ``capture``, the first victim-search
     dispatch's arguments are kept there: the kernel's tensors
     (``capture["args"]``) and run_search's host inputs
     (``capture["run_search"]``, ``time_preempt.snapshot``'s bytes).  Returns
-    (the call's record, pod digests after it, pod names by role)."""
+    (the call's record, pod digests after it (None without ``digests``), pod
+    names by role)."""
     from kube_scheduler_simulator_tpu_torch import time_preempt as TP
     from kube_scheduler_simulator_tpu_torch import workloads
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
@@ -1021,7 +1062,7 @@ def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = 
         bound=headroom(svc._batch_engine.last_bound), promotions=dict(st["f64_promotions"]),
         stages={k: v["total_s"] for k, v in svc.profiler.snapshot()["stages"].items()},
     )
-    return rec, pod_digests(store), names
+    return rec, pod_digests(store) if digests else None, names
 
 
 def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
@@ -1051,7 +1092,7 @@ def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
     P_n, P_low, P_fill, P_pre = PREEMPT
     captured: dict = {}
     with Phase(f"cfg7-preempt-5k {P_n} nodes, {P_low} bound, {P_fill} fillers, {P_pre} preemptors: service on the card, float32"):
-        prec, _dig, _names = run_preempt(PREEMPT, DEVICE, torch.float32, capture=captured)
+        prec, _none, _names = run_preempt(PREEMPT, DEVICE, torch.float32, capture=captured, digests=False)
         log(f"cfg7-preempt-5k float32: {json.dumps(prec, sort_keys=True)}")
         want_restarts = prec["nominations"] - int(prec["last_nominated"])
         problems = []
@@ -1211,7 +1252,7 @@ def gang_node_small(i: int) -> dict:
 
 
 def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_nodes=False, strict=True,
-             waves: "int | None" = None):
+             waves: "int | None" = None, digests: bool = True):
     """cfg8-gang (or a cut) through a SchedulerService on ``device`` under
     the gang profile: one ``schedule_pending(max_rounds=3)`` a wave (the
     first ``waves`` of them, or all), the launch counters reset just before
@@ -1221,7 +1262,8 @@ def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_n
     card) verdict launches other than the dispatches; with ``strict``, also
     on an unbound member or dispatches other than one a replay window.
     Returns (per-wave records, total launches, (the pod digests after each
-    wave, the events' digest), the store, the service)."""
+    wave, the events' digest; None without ``digests``), the store, the
+    service)."""
     from kube_scheduler_simulator_tpu_torch import workloads
     from kube_scheduler_simulator_tpu_torch.gang import gang_scheduler_config, partially_bound_groups
     from kube_scheduler_simulator_tpu_torch.gang import kernel as GK
@@ -1231,7 +1273,7 @@ def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_n
 
     store = ClusterStore(clock=lambda: 0.0)
     svc = None
-    records, total, digests = [], {k: 0 for k in K.LAUNCHES}, []
+    records, total, wave_digests = [], {k: 0 for k in K.LAUNCHES}, []
     verdict = GK.window_verdict
     if capture is not None:
         def keep(*args, **kw):
@@ -1290,15 +1332,205 @@ def run_gang(spec, device, dt, capture: "dict | None" = None, echo=True, small_n
             for k in total:
                 total[k] += launches[k]
             records.append(rec)
-            digests.append(pod_digests(store))
+            if digests:
+                wave_digests.append(pod_digests(store))
             if waves is not None and len(records) >= waves:
                 break
         gen.close()
     finally:
         GK.window_verdict = verdict
+    if not digests:
+        return records, total, None, store, svc
     events = [(e["metadata"]["name"], e["reason"], e["message"], e["type"])
               for e in store.list("events", copy_objects=False)]
-    return records, total, (digests, digest(json.dumps(sorted(events)))), store, svc
+    return records, total, (wave_digests, digest(json.dumps(sorted(events)))), store, svc
+
+
+STREAM_STAGES = ("admit", "encode", "upload", "dispatch", "device_blocked", "trace_fetch", "annotate", "store_mutate")
+
+
+def run_stream(device, dt, mode: str, ticks: int, sleep_check: bool = False) -> "tuple[dict, str]":
+    """cfg9-stream (``workloads.STREAM``) through a SchedulerService on
+    ``device`` in ``mode`` ("sequential": ``schedule_pending`` a tick;
+    "stream_off" / "streamed": ``schedule_stream(streaming=...)``): one
+    priming tick, then ``ticks`` timed ticks, the launch counters reset just
+    before them and read just after.  Each streamed wave's own launches are
+    counted apart (``schedule_async`` and its first ``decisions()`` wrapped:
+    deltas of the counters, never a reset).  Returns (record, sha256 of the
+    final store's ``pod_parity_state``).  On the card a run fails on a batch
+    fallback, a sequential pod, a promotion, an unbound pod, or, streamed, a
+    drain, no overlap, waves other than ticks, or a wave that did not launch
+    one scan and one compaction.  ``sleep_check``: after the timed run, one more wave's
+    ``result()`` is timed behind a sleep of the card enqueued after its
+    ``decisions()`` (standing in for the next wave's scan): it must not wait
+    for the sleep."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler import batch_engine as BE
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.utils.parity import parity_digest
+
+    cfg9 = workloads.STREAM
+    t_build = time.perf_counter()
+    store = ClusterStore(clock=lambda: 1_700_000_000.0)
+    settled = workloads.stream_cluster(store, cfg9["n_nodes"], cfg9["seed_bound"])
+    svc = SchedulerService(store, tie_break="first", use_batch="force", device=device, dtype=dt)
+    svc.start_scheduler(None)
+    build_s = time.perf_counter() - t_build
+
+    def drive(n_ticks: int, start: int) -> dict:
+        feed = workloads.steady_feed(store, settled, n_ticks, start, cfg9["per_tick"], cfg9["seed_bound"])
+        if mode == "sequential":
+            tick, alive, results = 0, True, {}
+            while alive:
+                alive = feed(tick)
+                tick += 1
+                results.update(svc.schedule_pending())
+            return results
+        return svc.schedule_stream(feed=feed, streaming=mode == "streamed")
+
+    waves: list = []
+    sa, dec = BE.BatchEngine.schedule_async, BE.PendingBatch.decisions
+
+    def schedule_async(self, *a, **kw):
+        c0 = dict(K.LAUNCHES)
+        pb = sa(self, *a, **kw)
+        pb.smoke_launches = {k: K.LAUNCHES[k] - c0[k] for k in c0}
+        waves.append(pb.smoke_launches)
+        return pb
+
+    def decisions(self):
+        first, c0 = self._out is None, dict(K.LAUNCHES)
+        out = dec(self)
+        if first:
+            for k in c0:
+                self.smoke_launches[k] += K.LAUNCHES[k] - c0[k]
+        return out
+
+    drive(1, 0)  # the priming tick
+    eng = svc._batch_engine
+    enc0, pl = eng.encode_stats(), eng._placer
+    pl0 = (pl.plane_reuses, pl.scatter_updates, pl.full_uploads, pl.bytes_uploaded)
+    st0 = svc.profiler.snapshot()["stages"]
+    keys = ("stream_waves", "stream_pods", "stream_overlap_s", "stream_stall_s")
+    s0 = {k: svc.stats[k] for k in keys}
+    for k in STREAM_STAGES:
+        svc.profiler.totals[k][2] = 0.0  # each stage's max over the timed run
+    BE.BatchEngine.schedule_async, BE.PendingBatch.decisions = schedule_async, decisions
+    try:
+        if device == DEVICE:
+            torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        results = drive(ticks, cfg9["per_tick"])
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        BE.BatchEngine.schedule_async, BE.PendingBatch.decisions = sa, dec
+    st1 = svc.profiler.snapshot()["stages"]
+    stages = {k: {"count": st1[k]["count"] - st0[k]["count"], "total_s": st1[k]["total_s"] - st0[k]["total_s"],
+                  "max_s": st1[k]["max_s"]} for k in STREAM_STAGES}
+    up = stages["upload"]
+    stream = {k: svc.stats[k] - s0[k] for k in keys}
+    boundary = stream["stream_overlap_s"] + stream["stream_stall_s"]
+    enc1 = eng.encode_stats()
+    scheduled = sum(1 for r in results.values() if r.success)
+    unbound = sum(1 for p in store.list("pods", copy_objects=False) if not (p.get("spec") or {}).get("nodeName"))
+    per_wave = sorted({json.dumps({k: v for k, v in w.items() if v}, sort_keys=True) for w in waves})
+    rec = dict(
+        mode=mode, dtype=str(dt).split(".")[-1], ticks=ticks, build_s=build_s, wall_s=wall, scheduled=scheduled,
+        pods_per_s=scheduled / wall, **stream,
+        overlap_efficiency=stream["stream_overlap_s"] / boundary if boundary > 0 else 0.0,
+        drains=dict(svc.stats["stream_drains"]), launches=launches, waves_launched=len(waves),
+        per_wave_launches=per_wave, stages=stages,
+        upload_mean_ms=1e3 * up["total_s"] / up["count"] if up["count"] else 0.0,
+        upload_max_ms=1e3 * up["max_s"], unbound=unbound,
+        placer=dict(reuses=pl.plane_reuses - pl0[0], scatters=pl.scatter_updates - pl0[1],
+                    full_uploads=pl.full_uploads - pl0[2], bytes_uploaded=pl.bytes_uploaded - pl0[3],
+                    last=sorted({f"{k[0]}:{v[0]}" for k, v in pl.decisions.items() if v[0] != "reuse"})),
+        encode={k: enc1[k] - enc0.get(k, 0) for k in enc1 if k.startswith("encode_") and isinstance(enc1[k], int)},
+        fallbacks=dict(svc.stats["batch_fallbacks"]), sequential_pods=svc.stats["sequential_pods"],
+        promotions=dict(svc.stats["f64_promotions"]),
+    )
+    if device == DEVICE:
+        if rec["fallbacks"] or rec["sequential_pods"] or rec["promotions"] or unbound:
+            raise AssertionError(f"cfg9-stream {mode}: {json.dumps(rec)}")
+        if mode == "streamed":
+            if stream["stream_waves"] != ticks or stream["stream_overlap_s"] <= 0 or rec["drains"]:
+                raise AssertionError(f"cfg9-stream streamed: waves {stream['stream_waves']}, overlap "
+                                     f"{stream['stream_overlap_s']}, drains {rec['drains']}")
+            bad = [w for w in waves if w["scan"] != 1 or w["compact"] != 1]
+            if bad or len(waves) != stream["stream_waves"]:
+                raise AssertionError(f"cfg9-stream: {len(waves)} waves launched for {stream['stream_waves']} "
+                                     f"committed; waves not one scan and one compaction: {bad[:3]}")
+            if launches["scan"] != len(waves) or launches["compact"] != len(waves):
+                raise AssertionError(f"cfg9-stream: launches {launches} for {len(waves)} waves")
+    final = parity_digest(store)
+    if sleep_check:
+        # one more tick's wave, launched as the stream launches it; after its
+        # decisions() the card sleeps, as if the next wave's scan ran there
+        workloads.steady_feed(store, settled, 1, cfg9["per_tick"] * (ticks + 1), cfg9["per_tick"],
+                              cfg9["seed_bound"])(0)
+        fw = svc.framework
+        pending = fw.sort_pods(svc._ready_pending())
+        pb = eng.schedule_async(store.list("nodes", copy_objects=False), store.list("pods", copy_objects=False),
+                                pending, store.list("namespaces", copy_objects=False),
+                                base_counter=fw.sched_counter, start_index=fw.next_start_node_index)
+        pb.decisions()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(STREAM_SLEEP_CYCLES)
+        e1.record()
+        t0 = time.perf_counter()
+        res = pb.result()
+        result_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        rest_ms = 1e3 * (time.perf_counter() - t0)
+        sleep_ms = e0.elapsed_time(e1)
+        rec["sleep_check"] = dict(pods=len(pending), scheduled=int((res.selected[: len(pending)] >= 0).sum()),
+                                  sleep_ms=sleep_ms, result_ms=result_ms, rest_of_sleep_ms=rest_ms)
+        if result_ms > 0.25 * sleep_ms or rest_ms < 0.5 * sleep_ms:
+            raise AssertionError(f"result() waited for the work enqueued after decisions(): {rec['sleep_check']}")
+    return rec, final
+
+
+def stream_phases(dev, cpu_stream_ref) -> dict:
+    """cfg9-stream: the three modes in float32 on the card, equal digests;
+    ``result()`` behind a sleep of the card; the CUDA float64 streamed run
+    against the CPU's.  Returns the streamed run's record."""
+    import torch
+
+    recs, digests = {}, {}
+    for mode in STREAM_MODES:
+        with Phase(f"cfg9-stream {mode}, {STREAM_TICKS} ticks after one priming tick, float32, on the card"):
+            gc.collect()  # the previous mode's store
+            recs[mode], digests[mode] = run_stream(DEVICE, torch.float32, mode, STREAM_TICKS,
+                                                   sleep_check=mode == "streamed")
+            log(f"cfg9-stream {mode}: {json.dumps(recs[mode], sort_keys=True)}; digest {digests[mode]}")
+    with Phase("cfg9-stream: the three modes' final stores"):
+        if recs["streamed"]["stream_waves"] < 40:
+            raise AssertionError(f"cfg9-stream: {recs['streamed']['stream_waves']} streamed waves (40 at least)")
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"cfg9-stream: the modes' final stores differ: {digests}")
+        w = {m: recs[m]["wall_s"] for m in STREAM_MODES}
+        log(f"{len(STREAM_MODES)} digests equal ({digests['streamed']}); walls {json.dumps(w)}; streamed speedup "
+            f"vs sequential {w['sequential'] / w['streamed']:.3f}, vs stream_off {w['stream_off'] / w['streamed']:.3f}")
+    with Phase(f"cfg9-stream cut to {STREAM_F64_TICKS} ticks: CUDA float64 streamed vs CPU float64 streamed"):
+        rec64, dig64 = run_stream(DEVICE, torch.float64, "streamed", STREAM_F64_TICKS)
+        t0 = time.perf_counter()
+        cpu_rec, cpu_dig = cpu_stream_ref.get()
+        log(f"CPU float64 streamed run (worker process) waited for {time.perf_counter() - t0:.2f} s; "
+            f"cuda {json.dumps({k: rec64[k] for k in ('wall_s', 'stream_waves', 'drains')})} "
+            f"cpu {json.dumps({k: cpu_rec[k] for k in ('wall_s', 'stream_waves', 'drains')})}")
+        if dig64 != cpu_dig or rec64["stream_waves"] != cpu_rec["stream_waves"]:
+            raise AssertionError(f"cfg9-stream float64: CUDA {dig64} ({rec64['stream_waves']} waves) vs CPU "
+                                 f"{cpu_dig} ({cpu_rec['stream_waves']} waves)")
+        log(f"CUDA and CPU float64 streamed stores equal ({dig64})")
+    return recs["streamed"]
 
 
 def render_phases(res_cfg2, P: int, churn_digests: dict) -> None:
@@ -1454,7 +1686,8 @@ def gang_phases(dev, cpu_gang_refs) -> "tuple[dict, dict, dict]":
 
     captured: dict = {}
     with Phase(f"cfg8-gang {GANG}, its first {GANG_WAVES} waves: service on the card, float32"):
-        grec, glaunch, _dig, gstore, gsvc = run_gang(GANG, DEVICE, torch.float32, capture=captured, waves=GANG_WAVES)
+        grec, glaunch, _none, gstore, gsvc = run_gang(GANG, DEVICE, torch.float32, capture=captured, waves=GANG_WAVES,
+                                                      digests=False)
         keys = ("wall_s", "encode_s", "device_s", "commit_s", "annotate_s", "store_mutate_s", "gang_kernel_s")
         med = {k: float(np.median([r[k] for r in grec])) for k in keys}
         st = gsvc.stats
@@ -2530,6 +2763,14 @@ def cpu_autoscale() -> "tuple[dict, dict, str]":
     return run_autoscale("cpu", torch.float64, frozen_clock=True)
 
 
+def cpu_stream() -> "tuple[dict, str]":
+    """cfg9-stream's float64 cut streamed through a CPU float64 service:
+    run_stream's (record, digest)."""
+    import torch
+
+    return run_stream("cpu", torch.float64, "streamed", STREAM_F64_TICKS)
+
+
 _POOL = None  # the CPU worker pool, stopped on the way out of the script
 _GPU_POOL = None  # the plain references' worker pool on the card, stopped likewise
 
@@ -2592,6 +2833,7 @@ def main() -> int:
     cpu_gang_refs = {cut: _POOL.apply_async(cpu_gang, (cut,)) for cut in GANG_CUTS}
     cpu_autoscale_ref = _POOL.apply_async(cpu_autoscale)
     cpu_tune_ref = _POOL.apply_async(cpu_tune)
+    cpu_stream_ref = _POOL.apply_async(cpu_stream)
 
     # the plain references of phases 2, 23 and 24 run on the card in two
     # worker processes while the main process runs its untimed checks;
@@ -3008,7 +3250,8 @@ def main() -> int:
 
     with Phase(f"cfg5-churn {P_ch} pods x {N_ch} nodes, {CHURN_F32_WAVES} of {waves_ch} waves, cordon {cordon_ch}: "
                f"service on the card, float32"):
-        rec32, main_launches_churn, _dig32 = run_churn(CHURN, DEVICE, torch.float32, waves=CHURN_F32_WAVES)
+        rec32, main_launches_churn, _none = run_churn(CHURN, DEVICE, torch.float32, waves=CHURN_F32_WAVES,
+                                                      digests=False)
         log(f"float32 churn: launches over {len(rec32)} waves {main_launches_churn}; medians {json.dumps(medians(rec32))}")
     with Phase(f"cfg5-churn cut to {CHURN_CUT}: CUDA float64 service vs CPU float64 service"):
         _r, _l, dig_gpu = run_churn(CHURN_CUT, DEVICE, torch.float64)
@@ -3058,6 +3301,10 @@ def main() -> int:
     # ------------------------------------------- the tuner (K9, K2g)
     k9_t, k2g_t = tune_phases(dev, cpu_tune_ref)
 
+    # ------------------------------------------- cfg9-stream
+    stream_rec = stream_phases(dev, cpu_stream_ref)
+    stream_launches = stream_rec["launches"]
+
     ref = MAIN
     main = timing[(ref, torch.float32)]
     churn_shape = f"cfg5-churn: window of {WINDOW} of P={churn_pr.P} N={churn_pr.N}"
@@ -3067,7 +3314,8 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
-            "launches": main_launches["scan"],
+            "launches": main_launches["scan"] + stream_launches["scan"],
+            "launches_by_path": {f"{ref} round": main_launches["scan"], "cfg9-stream streamed": stream_launches["scan"]},
             "max_abs_err": main["scan_err"],
             "ms": main["scan_ms"],
             "plain_ms": main["scan_plain_ms"],
@@ -3103,7 +3351,9 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/compact.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:951",
-            "launches": main_launches_churn["compact"],
+            "launches": main_launches_churn["compact"] + stream_launches["compact"],
+            "launches_by_path": {"cfg5-churn": main_launches_churn["compact"],
+                                 "cfg9-stream streamed": stream_launches["compact"]},
             "max_abs_err": churn_t["compact_err"],
             "ms": churn_t["compact_ms"],
             "plain_ms": churn_t["compact_plain_ms"],
@@ -3121,7 +3371,9 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scatter.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:614",
-            "launches": main_launches_churn["scatter"],
+            "launches": main_launches_churn["scatter"] + stream_launches["scatter"],
+            "launches_by_path": {"cfg5-churn": main_launches_churn["scatter"],
+                                 "cfg9-stream streamed": stream_launches["scatter"]},
             "max_abs_err": scatter_t["err"],
             "ms": scatter_t["ms"],
             "plain_ms": scatter_t["plain_ms"],

@@ -1201,11 +1201,13 @@ def scan_plain(
         else:  # positional: column < the pod's feasible count
             feas = torch.arange(ws0, dtype=i32, device=dev)[None, :] < packed[1][:, None]
         rows = []
+        zero = torch.zeros((), dtype=i32, device=dev)
         for s, _w in cfg.scores:
             v = torch.where(feas, out[f"raw:{s}"], torch.zeros((), dtype=dt, device=dev))
-            rows.append(torch.stack([v.min().to(i32), v.max().to(i32)]))
-        code_max = out["fail_code"].max().to(i32) if cfg.filters else torch.zeros((), dtype=i32, device=dev)
-        rows.append(torch.stack([torch.zeros((), dtype=i32, device=dev), code_max]))
+            # an empty round's planes have no cells: its range is [0, 0]
+            rows.append(torch.stack([v.min().to(i32), v.max().to(i32)]) if v.numel() else torch.stack([zero, zero]))
+        code_max = out["fail_code"].max().to(i32) if cfg.filters and out["fail_code"].numel() else zero
+        rows.append(torch.stack([zero, code_max]))
         out["trace_meta"] = torch.stack(rows)
     return out
 
@@ -1444,9 +1446,12 @@ class DevicePlacer:
     scatter rows and indices), ``plane_reuses``, ``scatter_updates``,
     ``full_uploads``; and the last round's decision per plane,
     ``decisions[(field, sub)] = ("reuse" | "scatter" | "full" | "carry",
-    bytes uploaded)``.  The reference's plane banks (one resident set per
-    bank, for its mesh and multi-config callers) are left out: the port's
-    engine keeps one set per shape key."""
+    bytes uploaded)``.  The reference's plane banks (two resident sets a
+    shape key, which its streamed waves alternate because XLA donates
+    buffers an in-flight kernel still reads) are left out: the port
+    launches and copies on the one current CUDA stream, so a streamed wave
+    k+1's row scatter is ordered after wave k's scan and compaction on the
+    card, and one set a shape key suffices."""
 
     def __init__(self, max_keys: int = 2, scatter_max_frac: "float | None" = None):
         self.max_keys = max_keys

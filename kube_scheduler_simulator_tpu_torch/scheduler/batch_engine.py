@@ -26,8 +26,14 @@ twins.  Without it (``KSS_NO_NATIVE=1``,
 no compiler), for lone surrogates and for PreFilter-narrowed node sets the
 Python renderer writes the same bytes.
 
-Left out of the reference's engine: the mesh, the streaming
-``schedule_async``, the AOT artifact cache and the process ensemble.
+``schedule_async`` dispatches a round without blocking and returns a
+``PendingBatch`` (the streaming pipeline's in-flight wave,
+scheduler/stream.py): ``decisions()`` fetches the packed per-pod outputs
+and launches the compaction with the blob's copy behind an event,
+``result()`` waits on that event only.
+
+Left out of the reference's engine: the mesh, the AOT artifact cache and
+the process ensemble.
 
 Kernels: upstream's whole default profile, the fifteen filters of
 ``ops/batch.FILTER_KERNELS`` (NodePorts, VolumeRestrictions, the EBS, GCE
@@ -938,12 +944,17 @@ class BatchEngine:
             self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated)
         )
 
-    def _prep(self, nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated=None) -> dict:
+    def _prep(
+        self, nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated=None,
+        prof_rec: "dict | None" = None,
+    ) -> dict:
         """Encode (delta through the EncodeCache) + pad + lower the round's
         problem and place it on the device through the DevicePlacer (reuse,
-        scatter, or one upload of what changed)."""
+        scatter, or one upload of what changed).  ``prof_rec``: an
+        already-open wave-profiler record (the stream session opens one
+        before its admission work); None opens a fresh one here."""
         prof = self.profiler
-        rec = prof.open()
+        rec = prof_rec if prof_rec is not None else prof.open()
         t0 = time.perf_counter()
         kw = dict(
             hard_pod_affinity_weight=self.hard_pod_affinity_weight,
@@ -1170,6 +1181,36 @@ class BatchEngine:
         res.prof_rec = rec
         return res
 
+    def schedule_async(
+        self,
+        nodes: list[Obj],
+        all_pods: list[Obj],
+        pending: list[Obj],
+        namespaces: "list[Obj] | None" = None,
+        base_counter: int = 0,
+        start_index: int = 0,
+        volumes: "dict[str, list[Obj]] | None" = None,
+        nominated: "list[tuple[Obj, str]] | None" = None,
+        prof_rec: "dict | None" = None,
+    ) -> "PendingBatch":
+        """Dispatch one round in one scan launch WITHOUT blocking on its
+        results: the streaming pipeline's producer (scheduler/stream.py),
+        so wave k+1's encode, upload and launch run while wave k's commit
+        forms on the host.  Trace rounds only.  The returned
+        ``PendingBatch`` is consumed in two blocking steps: ``decisions()``
+        (the packed per-pod outputs; the compaction launched and its blob's
+        copy enqueued), then ``result()`` (waits on that copy's event, then
+        rebuilds the trace).  No plane ``bank``, unlike the reference: see
+        ops/batch.DevicePlacer."""
+        assert self.trace, "streamed rounds are trace rounds"
+        ctx = self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated,
+                         prof_rec=prof_rec)
+        t2 = time.perf_counter()
+        dp = ctx.pop("dp")
+        out_dev = B.build_batch_fn(self.cfg, ctx["dims"], ws0=ctx["ws0"], weights=ctx["weights"])(dp)
+        self.profiler.note(ctx["prof"], "dispatch", time.perf_counter() - t2)
+        return PendingBatch(self, ctx, out_dev, t2, dp.start0)
+
     # ----------------------------------------------------- trace helpers
 
     def filter_message(self, result: BatchResult, i: int, n: int, plugin: str, code: int) -> str:
@@ -1197,6 +1238,118 @@ class BatchEngine:
         # pre_filter only inspects the pod's own required terms
         result, _status = na.NodeAffinity(None).pre_filter(CycleState(), pod)
         return None if result is None else result.node_names
+
+
+class PendingBatch:
+    """One DISPATCHED round whose results have not been fetched: the
+    streaming pipeline's in-flight wave (``BatchEngine.schedule_async``).
+
+    Two blocking steps, split so the stream can interleave host and device
+    work:
+
+    - ``decisions()`` fetches the scan's packed per-pod outputs (one small
+      [5, P] int32 copy: it waits for the scan), launches the trace
+      compaction, and enqueues the blob's copy into pinned host memory with
+      an event recorded after it.  The caller learns every selection, the
+      round's ``final_start`` and the attempt-counter advance before a
+      single annotation byte is formatted.
+    - ``result()`` waits on THAT EVENT ONLY, rebuilds the compact trace and
+      returns the ``BatchResult`` the commit path formats.  The next wave
+      is launched between the two calls on the same stream: a plain
+      ``blob.cpu()`` here would wait for its scan too, and the overlap
+      would silently be zero.
+
+    The device wait the host paid at both points lands in the engine's
+    round timings at ``result()`` (``device_s``: blocked wait only)."""
+
+    def __init__(self, engine: BatchEngine, ctx: dict, out_dev: dict, t2: float, start0: int):
+        self._eng = engine
+        self._ctx = ctx
+        self._out_dev: "dict | None" = out_dev
+        self._t2 = t2
+        self._start0 = start0
+        self._dev_wait = 0.0
+        self._out: "dict | None" = None
+        self._blob: "torch.Tensor | None" = None
+        self._host_blob: "torch.Tensor | None" = None
+        self._ready: "torch.cuda.Event | None" = None
+        self._result: "BatchResult | None" = None
+        self.pending: list[Obj] = ctx["pending"]
+        # the round's exactness promotion, taken now: the engine's
+        # last_promotion belongs to the next wave by the time this commits
+        self.promotion: "str | None" = engine.last_promotion
+
+    def decisions(self) -> dict:
+        """Packed per-pod outputs (selected, feasible_count, sample_*,
+        final_start), blocking on the scan only; the compaction is launched
+        and its blob's copy enqueued (not waited for) before returning."""
+        if self._out is None:
+            assert self._out_dev is not None
+            eng, ctx = self._eng, self._ctx
+            prof, rec = eng.profiler, ctx["prof"]
+            tw = time.perf_counter()
+            packed = self._out_dev["packed_pod"].cpu().numpy()  # waits for the scan
+            tb = time.perf_counter()
+            self._dev_wait += tb - tw
+            prof.note(rec, "device_blocked", tb - tw)
+            out = eng._packed_out(packed)
+            if not packed.shape[1]:
+                out["final_start"] = np.int32(self._start0)
+            self._blob, self._manifest, self._raw_dtypes, self._WS = eng._compact_dispatch(
+                ctx["dims"], ctx["ws0"], self._out_dev, packed, ctx["pr"].N_true
+            )
+            self._host_blob, self._ready = _fetch_async(self._blob)
+            prof.note(rec, "dispatch", time.perf_counter() - tb)
+            self._out = out
+        return self._out
+
+    @property
+    def selected(self) -> "np.ndarray":
+        return np.asarray(self.decisions()["selected"])
+
+    @property
+    def final_start(self) -> int:
+        return int(np.asarray(self.decisions()["final_start"]))
+
+    @property
+    def node_names(self) -> list[str]:
+        return self._ctx["pr"].node_names
+
+    def result(self) -> BatchResult:
+        """Wait for the blob's copy, rebuild the compact trace and build the
+        BatchResult (cached); the round's device tensors are dropped."""
+        if self._result is None:
+            out = dict(self.decisions())
+            eng, ctx = self._eng, self._ctx
+            tw = time.perf_counter()
+            if self._ready is not None:
+                self._ready.synchronize()
+            self._dev_wait += time.perf_counter() - tw
+            fetched = B.unpack_compact_blob(self._host_blob.numpy(), self._manifest)
+            out["trace"] = B.reconstruct_trace(
+                eng.cfg, fetched, out["sample_start"], out["sample_processed"],
+                ctx["pr"].N_true, out["feasible_count"], self._raw_dtypes, len(ctx["pending"]), self._WS,
+            )
+            t3 = time.perf_counter()
+            eng.profiler.note(ctx["prof"], "trace_fetch", t3 - tw)
+            eng._note_round(
+                {
+                    "encode_s": ctx["t1"] - ctx["t0"],
+                    "promoted_f64": float(self.promotion is not None),
+                    "lower_s": self._t2 - ctx["t1"],
+                    # blocked device wait only: device time hidden under
+                    # host work never shows up here
+                    "device_s": self._dev_wait,
+                    "total_s": t3 - ctx["t0"],
+                }
+            )
+            self._result = BatchResult(
+                eng, ctx["pending"], out, ctx["pr"], ctx["nodes"], weight_override=ctx["weight_override"],
+            )
+            self._result.prof_rec = ctx["prof"]
+            # release the round's device tensors
+            self._out_dev = self._blob = self._host_blob = self._ready = None
+        return self._result
 
 
 def _fetch_async(t: torch.Tensor) -> "tuple[torch.Tensor, torch.cuda.Event | None]":

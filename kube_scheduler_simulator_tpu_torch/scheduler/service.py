@@ -52,8 +52,12 @@ and the batch engines, whose scan takes the vector as its weight argument.
 The scale-up estimator keeps its own packing profile.  ``note_tuning_run``
 absorbs a ``run_tuning`` report into the ``tuning_*`` counters.
 
-Refused with an error, never worked around: a mesh, extenders
-(preempt-verb ones included), ``schedule_stream``.  Left out:
+``schedule_stream`` runs the streaming wave pipeline (scheduler/stream.py)
+and ``pause_streams`` parks its sessions at a wave boundary; the streamed
+waves' counters are ``stats["stream_*"]``.
+
+Refused with an error, never worked around: a mesh and extenders
+(preempt-verb ones included).  Left out:
 the journal, the background loop (and with it the throttled background
 autoscaler passes), ``metrics()``, the restart and reset of a running
 configuration, and the chaos catch of the reference (a kernel or launch
@@ -215,6 +219,16 @@ class SchedulerService:
             "gang_fallbacks": {},
             # permit waits that expired and were rejected
             "permit_wait_expired": 0,
+            # the streaming wave pipeline (scheduler/stream.py): waves
+            # committed through it and their pods, host seconds spent while a
+            # kernel was in flight (overlap) and blocked on the card (stall),
+            # and the exactness gates that drained or serialized the
+            # pipeline, by reason
+            "stream_waves": 0,
+            "stream_pods": 0,
+            "stream_overlap_s": 0.0,
+            "stream_stall_s": 0.0,
+            "stream_drains": {},
             # kernel runs promoted to float64 because their resource values
             # would go inexact in float32, by reason (column and magnitude)
             "f64_promotions": {},
@@ -232,6 +246,13 @@ class SchedulerService:
         self._weights_override: "dict[str, float] | None" = None
         self._last_tuning_report: "Obj | None" = None
         self._stats_lock = threading.Lock()
+        # stream quiesce machinery (pause_streams): an exclusive store
+        # operation drains every active StreamSession to a wave boundary
+        # (counted per reason) and holds it parked until the operation ends
+        self._stream_cv = threading.Condition()
+        self._stream_busy = 0
+        self._stream_pause_reason: "str | None" = None
+        self._pause_mu = threading.Lock()
         # one per-wave stage profiler shared by every profile engine and the
         # commit path; the store stamps its mutations against it too
         self.profiler = WaveProfiler()
@@ -401,8 +422,75 @@ class SchedulerService:
             }
         self._last_tuning_report = report
 
-    def schedule_stream(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError("schedule_stream: the streaming wave pipeline is not ported yet")
+    def schedule_stream(
+        self,
+        feed: "Callable[[int], bool] | None" = None,
+        duration_s: "float | None" = None,
+        max_waves: "int | None" = None,
+        wave_pods: "int | None" = None,
+        streaming: "bool | None" = None,
+        idle_sleep_s: float = 0.002,
+    ) -> dict[str, ScheduleResult]:
+        """Continuous streaming drain (scheduler/stream.py): a wave pipeline
+        where wave k+1's encode/upload/launch overlaps wave k's in-flight
+        kernel and host commit, fed by an admission queue drained fresh
+        every wave.  Commit order and bytes are the serial path's;
+        out-of-envelope waves (gang, nominations, preemption, node/config
+        changes, unsupported workloads) drain to ``schedule_pending``,
+        counted in ``stats["stream_drains"]``.  ``streaming=None`` resolves
+        the ``KSS_STREAM_PIPELINE`` knob (default on); False keeps the same
+        admission loop strictly serial.  A kernel or launch error
+        propagates (the dying wave has committed nothing)."""
+        from kube_scheduler_simulator_tpu_torch.scheduler.stream import StreamSession
+
+        return StreamSession(
+            self,
+            feed=feed,
+            duration_s=duration_s,
+            max_waves=max_waves,
+            wave_pods=wave_pods,
+            streaming=streaming,
+            idle_sleep_s=idle_sleep_s,
+        ).run()
+
+    def pause_streams(self, reason: str):
+        """Context manager: quiesce every active StreamSession before an
+        exclusive store operation (a wholesale store reset must never
+        interleave with an in-flight wave commit).  Each parked session
+        counts ONE drain under ``reason`` in ``stats["stream_drains"]``;
+        with no session active this is free.  Pausers queue on
+        ``_pause_mu``.
+
+        The quiesce wait is BOUNDED (a session stuck inside a feed callback
+        can never park), but a fallthrough is never silent: it logs and
+        counts ``stream_drains["pause timeout"]``."""
+        import contextlib
+        import logging
+
+        @contextlib.contextmanager
+        def _pause():
+            with self._pause_mu:
+                with self._stream_cv:
+                    self._stream_pause_reason = reason
+                    quiesced = self._stream_cv.wait_for(lambda: self._stream_busy == 0, timeout=60.0)
+                if not quiesced:
+                    logging.getLogger(__name__).warning(
+                        "pause_streams(%r): %d stream session(s) failed to park within 60s; "
+                        "proceeding WITHOUT exclusivity",
+                        reason,
+                        self._stream_busy,
+                    )
+                    with self._stats_lock:
+                        d = self.stats["stream_drains"]
+                        d["pause timeout"] = d.get("pause timeout", 0) + 1
+                try:
+                    yield
+                finally:
+                    with self._stream_cv:
+                        self._stream_pause_reason = None
+                        self._stream_cv.notify_all()
+
+        return _pause()
 
     # -------------------------------------------------------------- builder
 

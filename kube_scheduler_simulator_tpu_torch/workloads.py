@@ -13,7 +13,9 @@ pods), all drawn from the same seed.  ``add_host_ports`` and
 CSI nodes a StatefulSet- and DaemonSet-heavy cluster carries (the
 ``volumes`` dict that ``BatchEngine.schedule(..., volumes=)`` reads).
 ``churn`` replays the bench's BASELINE cfg5 scenario churn into a cluster
-store, wave by wave, with a rolling cordon on top.  ``preemption_wave``
+store, wave by wave, with a rolling cordon on top; ``stream_cluster`` and
+``steady_feed`` build cfg9-stream's standing cluster and its arrival
+stream.  ``preemption_wave``
 fills a store with cfg7-preempt-5k, Kubernetes scheduler_perf's
 PreemptionBasic shape at its 5000Nodes size.  ``gang_churn`` replays the
 JAX package's cfg8-gang (bench ``run_gang``): distributed-training jobs,
@@ -27,6 +29,7 @@ families (tuning/scenario.py) at a size: cfg10-tune-10k.
 
 from __future__ import annotations
 
+import collections
 import random
 
 
@@ -319,6 +322,63 @@ def churn(store, n_pods: int, n_nodes: int, waves: int, delete_frac: float = 0.1
         bound = [p for p in store.list("pods") if (p.get("spec") or {}).get("nodeName")]
         for p in rng.sample(bound, int(len(bound) * delete_frac)):
             store.delete("pods", p["metadata"]["name"], p["metadata"].get("namespace"))
+
+
+# cfg9-stream (the JAX package's bench ``run_stream_report``): 600 nodes, a
+# standing population of 6 000 bound pods, 100 arrivals and 100 deletions of
+# settled pods a tick, 320 timed ticks after one priming tick
+STREAM = dict(n_nodes=600, seed_bound=6000, per_tick=100, ticks=320)
+
+
+def stream_cluster(store, n_nodes: int = 600, seed_bound: int = 6000) -> "collections.deque":
+    """cfg9-stream's standing cluster (bench ``run_stream_report``'s
+    ``build``) created in ``store``: ``n_nodes`` bench nodes and
+    ``seed_bound`` bench pods (``random.Random(7)``, spread constraints on
+    every 3rd) bound round-robin; returns the settled pod names, oldest
+    first, for ``steady_feed`` to delete from."""
+    rng = random.Random(7)
+    for i in range(n_nodes):
+        store.create("nodes", mk_node(i))
+    settled: collections.deque = collections.deque()
+    for i in range(seed_bound):
+        p = stamp(mk_pod(1_000_000 + i, rng, spread=i % 3 == 0), i)
+        p["metadata"]["name"] = f"seed-{i}"
+        p["spec"]["nodeName"] = f"node-{i % n_nodes}"
+        store.create("pods", p)
+        settled.append(f"seed-{i}")
+    return settled
+
+
+def steady_feed(store, settled, n_ticks: int, start: int, per_tick: int = 100, seed_bound: int = 6000):
+    """cfg9-stream's arrival stream (bench ``steady_feed``): a feed for
+    ``schedule_stream`` (or a caller's own tick loop) of ``n_ticks`` ticks,
+    each creating ``per_tick`` bench pods (``random.Random(11 + start)``,
+    names from ``pod-{start}``, spread constraints on every 3rd) and
+    deleting ``per_tick`` of the oldest settled pods, keeping the last two
+    ticks' arrivals (a streamed feed runs one commit ahead of the round
+    loop, so only pods every mode has committed are deleted)."""
+    rng = random.Random(11 + start)
+    state = {"created": start}
+
+    def feed(tick: int) -> bool:
+        if tick >= n_ticks:
+            return False
+        fresh = []
+        for _ in range(per_tick):
+            i = state["created"]
+            state["created"] += 1
+            store.create("pods", stamp(mk_pod(i, rng, spread=i % 3 == 0), seed_bound + i))
+            fresh.append(f"pod-{i}")
+        for _ in range(min(per_tick, max(0, len(settled) - 2 * per_tick))):
+            nm = settled.popleft()
+            try:
+                store.delete("pods", nm, "default")
+            except KeyError:
+                pass
+        settled.extend(fresh)
+        return True
+
+    return feed
 
 
 def preemption_wave(

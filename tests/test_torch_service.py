@@ -229,8 +229,12 @@ def test_the_port_refuses_what_it_has_not_ported():
     svc.schedule_pending(max_rounds=1)
     assert svc.stats["batch_fallbacks"] == {"permit plugins ['Gate']": 1}
     assert store.get("pods", "p0")["spec"]["nodeName"] == "node-0"
-    with pytest.raises(NotImplementedError, match="schedule_stream"):
-        svc.schedule_stream()
+    # the streaming pipeline is ported: a permit profile's wave drains to
+    # the sequential path, counted by reason, as in the reference
+    store.create("pods", {"metadata": {"name": "p1"}, "spec": {"containers": [{"name": "c"}]}})
+    svc.schedule_stream()
+    assert svc.stats["stream_drains"] == {"gang": 1} and svc.stats["stream_waves"] == 0
+    assert store.get("pods", "p1")["spec"]["nodeName"] == "node-0"
     with pytest.raises(NotImplementedError, match="journal"):
         store.attach_journal(object())
     if not torch.cuda.is_available():
