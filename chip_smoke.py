@@ -80,7 +80,17 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   priming tick, then 48 timed ticks (a cut of the bench's 320) in each of
   three modes: ``schedule_pending`` a tick, ``schedule_stream`` with the
   overlap off, and streamed (wave k+1's encode, upload and scan launched
-  while wave k commits).
+  while wave k commits);
+- cfg11-scenario: BASELINE cfg5's "10k pods x 5k nodes scenario" as one
+  KEP-140 Scenario (``workloads.scenario_churn``): major 0 creates 5 000
+  bench nodes and a Deployment ``web`` of 200 replicas of a 100m / 128Mi
+  pod, majors 1-5 create 2 000 bench pods each (spread constraints on
+  every 3rd, deterministic stamps), majors 2-5 first delete every 10th pod
+  of the previous major by name and move a rolling 50-node cordon by
+  patchOperations, major 3 also scales ``web`` to 400, major 6 is the
+  doneOperation; ``ScenarioEngine(store, SchedulerService(store,
+  tie_break="first", use_batch="auto"), ControllerManager(store)).run`` on
+  the default configuration, store and service clocks pinned (SimClock).
 
 Cut for the time limit: no float64 churn runs at full size (the cut of
 phase 9 holds float64); the annotation bytes of phase 4 are compared at
@@ -89,9 +99,10 @@ so the float64 end-to-end rounds run only there.  None of these holds a
 kernel against its plain version.  cfg9-stream times 48 ticks a mode
 (``time_stream.py`` runs the bench's 320) and its float64 leg 8.  The
 float32 churn, cfg7 and cfg8-gang's scale leg hash no pod digests (nothing
-compares them; at full size they cost ~6 ms a MB of annotations).  The float32 churn and cfg8-gang's
-scale leg run all 5 of their waves.  The CPU float64
-references of phases 4, 9, 14, 18, 22, 26 and 28 run in two worker processes
+compares them; at full size they cost ~6 ms a MB of annotations).  The float32 churn runs the
+first 3 of its 5 waves (phase 29 replays the same windowed rounds at the
+same size), cfg8-gang's scale leg all 5.  The CPU float64
+references of phases 4, 9, 14, 18, 22, 26, 28 and 29 run in two worker processes
 started after the build, beside the card's phases.  The plain references
 of phases 2, 23 and 24 (host-bound: hundreds of small launches a pod) run
 on the card in two more worker processes, beside the main process's
@@ -145,7 +156,7 @@ line):
    both dtypes, timed against it; at cfg5-churn's wave shape, one window
    against the windowed plain version and the redundant chains, timed
    beside them;
-8. cfg5-churn end to end on the card, float32 (all 5 waves): per wave
+8. cfg5-churn end to end on the card, float32 (its first 3 waves): per wave
    the wall, encode, blocked and estimated device time, commit with its
    ``annotate`` and ``store_mutate`` stages, windows,
    launches (counts reset just before each wave), the placer's decisions
@@ -303,7 +314,39 @@ line):
    full-size float64 round of phase 4 (the per-pod functions, and
    ``materialize_wave`` for the scheduled pods) equal on that BatchResult;
    the churn cut of phase 9 and cfg8-gang's parity leg through the CUDA
-   float64 service, pod digests (and the gang's events) equal.
+   float64 service, pod digests (and the gang's events) equal;
+29. (run after 28) cfg11-scenario on the card, float32 (launch counters
+   reset just before the replay, read just after and at the end of each
+   major's convergence pass): the replay's wall, each major's wall and
+   launches, ``metrics()`` (``batch_pods``, ``batch_commits``,
+   ``engine_rounds``, ``commit_s``, ``overlap_efficiency``), the
+   allocation rate; it fails on a phase other than Succeeded, an unbound
+   pod (the 400 ReplicaSet pods included), a podScheduled count other than
+   the bindings or a delete count other than the delete operations, a
+   batch fallback, a sequential pod, a promotion, or no scan, compaction
+   or scatter launch; the full-size timeline is not hashed.  Then its
+   float64 cut (500 nodes, 1 000 pods, a Deployment of 20 then 40, a
+   10-node cordon) on the card: the returned Scenario and the store dump
+   byte-equal (sha256) to a CPU float64 replay (a worker process); then the
+   JAX package's autoscale replay (tests/test_autoscaler.py
+   ``_autoscale_scenario``) under ``autoscale="scenario"`` in float64: its
+   timeline equal to the CPU's, K8 launched;
+30. the lifecycle on the card on cfg9-stream's cluster (600 nodes, 6 000
+   bound pods, every node scored), float32: (a) one tick's 100 arrivals,
+   then ``start_background(poll_interval=0.05)``: the loop's first round
+   gives the pod digests of ``schedule_pending(max_rounds=1,
+   respect_backoff=True)`` on two twin stores; (b) ten more ticks fed while
+   the loop runs, then ``stop_background()`` (raising nothing): every
+   arrival bound exactly once (one Scheduled event each), no node over its
+   allocatable, ``batch_pods`` > 0 with no fallback, idle ticks launching
+   nothing; (c) a configuration naming an unknown plugin rolls back; (d)
+   after a restart with another configuration and
+   ``reset_scheduler_configuration``, a tick's round gives the bytes of the
+   twin that never restarted; (e) at phase 29's float64 cut, ``snap()``
+   loaded into a fresh store and service on the card equals the source
+   modulo uid and resourceVersion (the snapshot's kinds) and schedules
+   nothing more, and ``ResetService.reset()`` restores the boot state and
+   configuration.
 
 Before phase 20 the earlier phases' cycles and rounds are collected and
 what is left of the heap is frozen (``gc.freeze``), the tracked objects
@@ -321,7 +364,8 @@ population scan K9 with its objective at phase 23's two shapes, the grad
 scan K2g and its contraction at phase 24's, launched by phase 25's rows;
 the scan's cluster width and the redundant chains' time beside it; the
 scan's, the compaction's and the scatter's launches add cfg9-stream's
-streamed run's, ``launches_by_path`` apart), and as
+streamed run's, cfg11-scenario's and the background loop's, K8's the
+autoscale replay's, ``launches_by_path`` apart), and as
 the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
@@ -407,7 +451,9 @@ ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", (1000, 500, 0)), ("cfg4", (1000, 5
 MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
 # cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
 CHURN = (10000, 5000, 5, 50)
-CHURN_F32_WAVES = 5  # all 5 waves
+# the first 3 of its 5 waves: phase 29 replays the same windowed rounds at
+# the same size (the churn as a Scenario), so the time goes there
+CHURN_F32_WAVES = 3
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
@@ -475,6 +521,24 @@ STREAM_TICKS = 48
 STREAM_F64_TICKS = 8
 STREAM_MODES = ("sequential", "stream_off", "streamed")
 STREAM_SLEEP_CYCLES = 400_000_000
+# cfg11-scenario (workloads.SCENARIO: BASELINE cfg5's churn as one KEP-140
+# Scenario, 5 000 nodes, 10 000 pods in 5 majors, a Deployment of 200 then
+# 400 replicas) in float32 on the card; its float64 cut against the CPU; the
+# store and service clocks (SimClock) it starts from
+SCENARIO_F64 = dict(n_nodes=500, n_pods=1000, steps=5, web=20, cordon=10)
+SCENARIO_CLOCK = 1_700_000_000.0
+# phase 30 (the lifecycle) on cfg9-stream's cluster: the ticks fed while the
+# background loop runs, the loop's poll interval, its configuration (every
+# node scored: a restart then restarts no rotation the twin's round would
+# keep), a bad configuration and a valid other one
+LIFECYCLE_TICKS = 10
+LIFECYCLE_POLL_S = 0.05
+LIFECYCLE_CFG = {"percentageOfNodesToScore": 100}
+LIFECYCLE_BAD_CFG = {"profiles": [{"schedulerName": "default-scheduler",
+                                   "plugins": {"multiPoint": {"enabled": [{"name": "NoSuchPlugin"}]}}}]}
+LIFECYCLE_OTHER_CFG = {"profiles": [{"schedulerName": "default-scheduler",
+                                     "plugins": {"multiPoint": {"disabled": [{"name": "ImageLocality"}]}}}],
+                       "percentageOfNodesToScore": 100}
 # what one BatchEngine round launches
 ROUND_LAUNCHES = {
     "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
@@ -1531,6 +1595,354 @@ def stream_phases(dev, cpu_stream_ref) -> dict:
                                  f"{cpu_dig} ({cpu_rec['stream_waves']} waves)")
         log(f"CUDA and CPU float64 streamed stores equal ({dig64})")
     return recs["streamed"]
+
+
+def autoscale_scenario() -> dict:
+    """The JAX package's autoscale replay (tests/test_autoscaler.py
+    ``_autoscale_scenario``): a NodeGroup ``pool`` (0 to 4 nodes of 4 CPU,
+    8Gi, 20 pods) at major 1, four pods of 3 CPU and 1Gi at major 2, done at
+    major 3."""
+    template = {"metadata": {"labels": {}}, "spec": {},
+                "status": {"allocatable": {"cpu": "4000m", "memory": "8Gi", "pods": "20"}}}
+    ops = [{"id": "1", "step": {"major": 1}, "createOperation": {"typeMeta": {"kind": "NodeGroup"}, "object": {
+        "metadata": {"name": "pool"}, "spec": {"minSize": 0, "maxSize": 4, "priority": 0, "template": template}}}}]
+    for i in range(4):
+        ops.append({"id": str(2 + i), "step": {"major": 2}, "createOperation": {"typeMeta": {"kind": "Pod"}, "object": {
+            "metadata": {"name": f"p{i}", "namespace": "default", "labels": {}},
+            "spec": {"containers": [{"name": "c", "resources": {"requests": {"cpu": "3000m", "memory": "1Gi"}}}]}}}})
+    ops.append({"id": "done", "step": {"major": 3}, "doneOperation": {}})
+    return {"metadata": {"name": "autoscale-scn", "namespace": "default"}, "spec": {"operations": ops}}
+
+
+def run_scenario(device, dt, spec: dict, echo: bool = True):
+    """cfg11-scenario (``workloads.scenario_churn(**spec)``) through
+    ``ScenarioEngine(store, SchedulerService(store, tie_break="first",
+    use_batch="auto"), ControllerManager(store)).run`` on ``device``, the
+    store and service clocks pinned (SimClock), the launch counters reset
+    just before the run and read just after (and at the end of each major's
+    convergence pass).  Returns (record, the returned Scenario, store,
+    service).  A run fails on a phase other than Succeeded, an unbound pod,
+    a pod count other than the scenario's, a podScheduled count other than
+    the bindings, a delete count other than the delete operations, a batch
+    fallback, a sequential pod, or (float32 on the card) a promotion or no
+    scan, compaction or scatter launch."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.controllers import ControllerManager
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scenario import ScenarioEngine
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.utils.simclock import SimClock
+
+    scn = workloads.scenario_churn(**spec)
+    store = ClusterStore(clock=SimClock(SCENARIO_CLOCK))
+    svc = SchedulerService(store, tie_break="first", use_batch="auto", device=device, dtype=dt, clock=SimClock(0.0))
+    svc.start_scheduler(None)
+    engine = ScenarioEngine(store, svc, ControllerManager(store))
+    marks: list = []
+    converge = engine._run_controllers_to_convergence
+
+    def timed(major, minor):
+        events = converge(major, minor)
+        marks.append((major, time.perf_counter(), dict(K.LAUNCHES)))
+        return events
+
+    engine._run_controllers_to_convergence = timed
+    if device == DEVICE:
+        torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    out = engine.run(scn)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    majors, prev_t, prev_l = [], t0, {k: 0 for k in launches}
+    for major, t, lc in marks:
+        majors.append(dict(major=major, wall_s=t - prev_t,
+                           launches={k: lc[k] - prev_l[k] for k in lc if lc[k] != prev_l[k]}))
+        prev_t, prev_l = t, lc
+    tl = out["status"]["scenarioResult"]["timeline"]
+    ops = scn["spec"]["operations"]
+    pods = store.list("pods", copy_objects=False)
+    per_step = spec["n_pods"] // spec["steps"]
+    deleted = sum(1 for op in ops if op.get("deleteOperation") is not None)
+    m = svc.metrics()
+    eng = svc._batch_engine
+    rec = dict(
+        dtype=str(dt).split(".")[-1], phase=out["status"]["phase"], wall_s=wall, majors=majors, launches=launches,
+        pods=len(pods), unbound=sum(1 for p in pods if not (p.get("spec") or {}).get("nodeName")),
+        pod_scheduled_events=sum("podScheduled" in ev for evs in tl.values() for ev in evs),
+        delete_events=sum("delete" in ev for evs in tl.values() for ev in evs), delete_operations=deleted,
+        allocation_rate=out["status"]["scenarioResult"]["summary"]["allocationRate"],
+        metrics={k: m[k] for k in ("batch_pods", "batch_commits", "engine_rounds", "commit_s", "overlap_efficiency",
+                                   "commit_waves", "sequential_pods", "engine_compiles", "engine_cache_entries")},
+        fallbacks=m["batch_fallbacks"], promotions=dict(svc.stats["f64_promotions"]),
+        encode={k: v for k, v in eng.encode_stats().items() if k.startswith("encode_")} if eng else {},
+        placer=dict(full_uploads=eng._placer.full_uploads, scatters=eng._placer.scatter_updates) if eng else {},
+        kernel_launches=dict(K.LAUNCHES),
+    )
+    if echo:
+        log(f"cfg11-scenario {device} {rec['dtype']}: {json.dumps(rec, sort_keys=True)}")
+    want_pods = spec["steps"] * per_step - deleted + 2 * spec["web"]
+    bad = []
+    if rec["phase"] != "Succeeded":
+        bad.append(f"phase {rec['phase']} ({out['status'].get('message')})")
+    if rec["unbound"] or rec["pods"] != want_pods:
+        bad.append(f"{rec['unbound']} unbound of {rec['pods']} pods ({want_pods} expected)")
+    if rec["pod_scheduled_events"] != spec["steps"] * per_step + 2 * spec["web"]:
+        bad.append(f"{rec['pod_scheduled_events']} podScheduled events")
+    if rec["delete_events"] != deleted:
+        bad.append(f"{rec['delete_events']} delete events for {deleted} delete operations")
+    if rec["fallbacks"] or m["sequential_pods"]:
+        bad.append(f"fallbacks {rec['fallbacks']}, sequential pods {m['sequential_pods']}")
+    if device == DEVICE:
+        if dt == torch.float32 and rec["promotions"]:
+            bad.append(f"promotions {rec['promotions']}")
+        if not (launches["scan"] and launches["compact"] and launches["scatter"]):
+            bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"cfg11-scenario {device} {rec['dtype']}: {'; '.join(bad)}")
+    return rec, out, store, svc
+
+
+def run_autoscale_scenario(device, dt) -> "tuple[dict, str]":
+    """The autoscale replay under ``autoscale="scenario"`` (sequential
+    rounds, the least-waste expander; each scale-up estimate one lane-scan
+    launch, K8, on the card), the store clock frozen: (record, sha256 of the
+    timeline).  Fails on a phase other than Succeeded, no scale-up, an
+    estimate other than "xla-batch", a pod left pending, or (on the card) no
+    K8 launch."""
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scenario import ScenarioEngine
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore(clock=lambda: 0.0)
+    svc = SchedulerService(store, tie_break="first", use_batch="off", autoscale="scenario",
+                           autoscaler_opts={"expander": "least-waste"}, device=device, dtype=dt)
+    svc.start_scheduler(None)
+    K.reset_counts()
+    t0 = time.perf_counter()
+    out = ScenarioEngine(store, svc, None).run(autoscale_scenario())
+    wall = time.perf_counter() - t0
+    tl = out["status"]["scenarioResult"]["timeline"]
+    acts = [ev["autoscale"] for evs in tl.values() for ev in evs if "autoscale" in ev]
+    rec = dict(phase=out["status"]["phase"], wall_s=wall, k8_launches=K.LAUNCHES["scan_lanes"],
+               actions=[(a["action"], a["nodeGroup"], a.get("method")) for a in acts],
+               allocation_rate=out["status"]["scenarioResult"]["summary"]["allocationRate"],
+               nodes=len(store.list("nodes", copy_objects=False)))
+    if (rec["phase"] != "Succeeded" or not acts or acts[0]["action"] != "ScaleUp"
+            or {a.get("method") for a in acts if a["action"] == "ScaleUp"} != {"xla-batch"}
+            or rec["allocation_rate"] != 1.0 or (device == DEVICE and not rec["k8_launches"])):
+        raise AssertionError(f"autoscale scenario on {device}: {json.dumps(rec)}")
+    return rec, digest(json.dumps(tl, sort_keys=True))
+
+
+def scenario_phases(dev, cpu_scenario_ref, cpu_autoscale_scenario_ref) -> "tuple[dict, dict, tuple]":
+    """Phase 29: cfg11-scenario on the card in float32, its float64 cut
+    against the CPU's, the autoscale replay against the CPU's.  Returns
+    (the float32 run's record, the autoscale replay's record, the float64
+    cut's (store, service) for phase 30)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+
+    with Phase(f"cfg11-scenario: {json.dumps(workloads.SCENARIO)}, float32, on the card"):
+        gc.collect()
+        rec, _out, _store, _svc = run_scenario(DEVICE, torch.float32, workloads.SCENARIO, echo=False)
+        del _out, _store, _svc
+        log(f"replay wall {rec['wall_s']:.3f} s; majors " + ", ".join(
+            f"{m['major']}: {m['wall_s']:.3f} s {json.dumps(m['launches'], sort_keys=True)}" for m in rec["majors"]))
+        log(f"metrics(): {json.dumps(rec['metrics'], sort_keys=True)}; allocation rate {rec['allocation_rate']}")
+        log(f"launches {json.dumps(rec['launches'], sort_keys=True)}; podScheduled {rec['pod_scheduled_events']}, "
+            f"delete {rec['delete_events']} (operations {rec['delete_operations']}), pods {rec['pods']}, "
+            f"encode {json.dumps(rec['encode'], sort_keys=True)}, placer {json.dumps(rec['placer'])}")
+        gc.collect()
+    with Phase(f"cfg11-scenario cut {json.dumps(SCENARIO_F64)}: CUDA float64 vs CPU float64"):
+        rec64, out64, store64, svc64 = run_scenario(DEVICE, torch.float64, SCENARIO_F64, echo=False)
+        got = (digest(json.dumps(out64, sort_keys=True)), digest(json.dumps(store64.dump(), sort_keys=True)))
+        del out64
+        t0 = time.perf_counter()
+        cpu_rec, want = cpu_scenario_ref.get()
+        log(f"CPU float64 replay (worker process) waited for {time.perf_counter() - t0:.2f} s; cuda wall "
+            f"{rec64['wall_s']:.3f} s launches {json.dumps(rec64['launches'], sort_keys=True)}; cpu wall "
+            f"{cpu_rec['wall_s']:.3f} s")
+        if got != want:
+            raise AssertionError(f"cfg11-scenario float64 cut: CUDA (scenario, dump) {got} vs CPU {want}")
+        log(f"the returned Scenarios and the store dumps byte-equal ({got[0][:16]}, {got[1][:16]})")
+    with Phase("the autoscale replay (autoscale=\"scenario\"), CUDA float64 vs CPU float64"):
+        arec, adig = run_autoscale_scenario(DEVICE, torch.float64)
+        cpu_arec, cpu_adig = cpu_autoscale_scenario_ref.get()
+        log(f"cuda {json.dumps(arec, sort_keys=True)}; cpu {json.dumps(cpu_arec, sort_keys=True)}")
+        if adig != cpu_adig:
+            raise AssertionError(f"autoscale replay: CUDA timeline {adig} vs CPU {cpu_adig}")
+        log(f"timelines equal ({adig[:16]}); K8 launched {arec['k8_launches']} times")
+    return rec, arec, (store64, svc64)
+
+
+def lifecycle_phases(dev, cut) -> dict:
+    """Phase 30: the lifecycle on the card, on cfg9-stream's cluster (600
+    nodes, 6 000 bound pods) in float32: (a) the background loop's first
+    round over one tick's 100 arrivals against ``schedule_pending(
+    max_rounds=1, respect_backoff=True)`` on twin stores; (b) ten more ticks
+    fed while the loop runs: every arrival bound exactly once, no node over
+    its allocatable, batch pods and no fallback, idle ticks launching
+    nothing, and ``stop_background()`` raising nothing; (c) a bad
+    configuration rolled back; (d) a restart and a reset giving the bytes of
+    a twin that never restarted; (e) at the float64 cut of phase 29 (``cut``:
+    its store and service), ``snap()`` loaded into a fresh store and
+    service equal modulo uid and resourceVersion, then ``ResetService``
+    restoring the boot state.  Returns the loop's record."""
+    import collections
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.models.nodeinfo import build_node_infos
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.services.reset import ResetService
+    from kube_scheduler_simulator_tpu_torch.services.snapshot import SnapshotService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.utils.parity import parity_digest
+
+    cfg9 = workloads.STREAM
+
+    def cluster():
+        store = ClusterStore(clock=lambda: 1_700_000_000.0)
+        settled = workloads.stream_cluster(store, cfg9["n_nodes"], cfg9["seed_bound"])
+        feed = workloads.steady_feed(store, settled, 1 + LIFECYCLE_TICKS, 0, cfg9["per_tick"], cfg9["seed_bound"])
+        feed(0)
+        svc = SchedulerService(store, tie_break="first", use_batch="auto", device=DEVICE, dtype=torch.float32)
+        svc.start_scheduler(LIFECYCLE_CFG)
+        return store, svc, feed
+
+    def wait_idle(svc, timeout: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout
+        while svc.pending_pods():
+            if not svc.is_background_running():
+                svc.stop_background()  # re-raises what the loop died of
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the loop left {len(svc.pending_pods())} pods pending")
+            time.sleep(0.01)
+
+    rec: dict = {}
+    with Phase("lifecycle (a): the background loop's first round vs schedule_pending on twin stores"):
+        store_a, svc_a, feed_a = cluster()
+        store_b, svc_b, _fb = cluster()
+        store_c, svc_c, _fc = cluster()
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        svc_a.start_background(poll_interval=LIFECYCLE_POLL_S)
+        wait_idle(svc_a)
+        # joins the tick in flight (a pod is bound before its annotations
+        # are flushed), then the loop starts again for (b)
+        svc_a.stop_background()
+        first_s = time.perf_counter() - t0
+        first = parity_digest(store_a)
+        first_launches = dict(K.LAUNCHES)
+        svc_a.start_background(poll_interval=LIFECYCLE_POLL_S)
+        for svc in (svc_b, svc_c):
+            svc.schedule_pending(max_rounds=1, respect_backoff=True)
+        twins = (parity_digest(store_b), parity_digest(store_c))
+        log(f"loop's first round {first_s:.3f} s, launches {json.dumps({k: v for k, v in first_launches.items() if v})}; "
+            f"digest {first[:16]}; twins {twins[0][:16]} {twins[1][:16]}")
+        if first != twins[0] or first != twins[1] or not first_launches["scan"]:
+            raise AssertionError(f"the loop's first round {first} vs schedule_pending {twins}, {first_launches}")
+    with Phase(f"lifecycle (b): {LIFECYCLE_TICKS} ticks fed while the loop runs"):
+        base = dict(K.LAUNCHES)  # the twins' rounds are not the loop's
+        t0 = time.perf_counter()
+        for tick in range(1, 1 + LIFECYCLE_TICKS):
+            feed_a(tick)
+            time.sleep(LIFECYCLE_POLL_S)
+        wait_idle(svc_a)
+        busy_s = time.perf_counter() - t0
+        idle0 = dict(K.LAUNCHES)
+        time.sleep(10 * LIFECYCLE_POLL_S)  # idle ticks
+        idle = {k: K.LAUNCHES[k] - idle0[k] for k in idle0 if K.LAUNCHES[k] != idle0[k]}
+        svc_a.stop_background()  # raises what the loop died of, if it did
+        launches = {k: first_launches[k] + K.LAUNCHES[k] - base[k] for k in base}
+        arrivals = sorted(p["metadata"]["name"] for p in store_a.list("pods", copy_objects=False)
+                          if p["metadata"]["name"].startswith("pod-"))
+        unbound = [n for n in arrivals if not (store_a.get("pods", n, "default")["spec"].get("nodeName"))]
+        scheduled = sorted(e["involvedObject"]["name"] for e in store_a.list("events", copy_objects=False)
+                           if e["reason"] == "Scheduled")
+        over = []
+        for ni in build_node_infos(store_a.list("nodes", copy_objects=False), store_a.list("pods", copy_objects=False)):
+            for r in ("cpu", "memory", "pods"):
+                used = len(ni.pods) if r == "pods" else ni.requested.get(r, 0)
+                if used > ni.allocatable.get(r, 0):
+                    over.append((ni.name, r, used))
+        m = svc_a.metrics()
+        rec = dict(first_round_s=first_s, busy_s=busy_s, arrivals=len(arrivals), unbound=len(unbound),
+                   scheduled_events=len(scheduled), launches=launches, idle_launches=idle,
+                   metrics={k: m[k] for k in ("batch_pods", "batch_commits", "engine_rounds", "commit_s",
+                                              "overlap_efficiency", "sequential_pods", "queue_moves")},
+                   fallbacks=m["batch_fallbacks"], over_allocatable=over[:5])
+        log(f"the loop: {json.dumps(rec, sort_keys=True)}")
+        want = (1 + LIFECYCLE_TICKS) * cfg9["per_tick"]
+        if (len(arrivals) != want or unbound or scheduled != arrivals or over or m["batch_pods"] <= 0
+                or m["batch_fallbacks"] or idle or svc_a.is_background_running()):
+            raise AssertionError(f"the loop: {json.dumps(rec)}")
+        log(f"{want} arrivals bound exactly once, no node over its allocatable, idle ticks launched nothing")
+    with Phase("lifecycle (c) and (d): a bad configuration rolls back; restart and reset give the twin's bytes"):
+        boot = svc_b.get_scheduler_config()
+        try:
+            svc_b.restart_scheduler(LIFECYCLE_BAD_CFG)
+            raise AssertionError("a configuration naming an unknown plugin started")
+        except KeyError as exc:
+            log(f"bad configuration refused: {exc!r}")
+        if svc_b.get_scheduler_config() != boot or svc_b.framework is None:
+            raise AssertionError("the bad configuration was not rolled back")
+        svc_b.restart_scheduler(LIFECYCLE_OTHER_CFG)
+        if svc_b.get_scheduler_config() == boot:
+            raise AssertionError("the other configuration did not start")
+        svc_b.reset_scheduler_configuration()
+        if svc_b.get_scheduler_config() != boot:
+            raise AssertionError("the reset did not return to the boot configuration")
+        for store in (store_b, store_c):
+            # one more tick's arrivals (nothing deleted), the same in both
+            workloads.steady_feed(store, collections.deque(), 1, 5000, cfg9["per_tick"], cfg9["seed_bound"])(0)
+        for svc in (svc_b, svc_c):
+            svc.schedule_pending(max_rounds=1)
+        d_b, d_c = parity_digest(store_b), parity_digest(store_c)
+        log(f"after the reset: {d_b[:16]}, the twin that never restarted: {d_c[:16]}")
+        if d_b != d_c:
+            raise AssertionError(f"the round after the reset {d_b} differs from the twin's {d_c}")
+        del store_a, svc_a, store_b, svc_b, store_c, svc_c
+        gc.collect()
+    with Phase(f"lifecycle (e): snapshot and reset at the float64 cut {json.dumps(SCENARIO_F64)}"):
+        store64, svc64 = cut
+        t0 = time.perf_counter()
+        exported = SnapshotService(store64, svc64).snap()
+        fresh = ClusterStore(clock=lambda: SCENARIO_CLOCK)
+        svc2 = SchedulerService(fresh, tie_break="first", use_batch="auto", device=DEVICE, dtype=torch.float64)
+        svc2.start_scheduler(None)
+        boot_dump, boot_cfg = json.dumps(fresh.dump(), sort_keys=True), svc2.get_scheduler_config()
+        reset = ResetService(fresh, svc2)
+        SnapshotService(fresh, svc2).load(exported)
+        kinds = ("pods", "nodes", "persistentvolumes", "persistentvolumeclaims", "storageclasses", "priorityclasses")
+
+        def stripped(store) -> str:
+            return digest(json.dumps({k: [{**o, "metadata": {f: v for f, v in o["metadata"].items()
+                                                                if f not in ("uid", "resourceVersion")}}
+                                          for o in objs] for k, objs in store.dump().items() if k in kinds},
+                                     sort_keys=True))
+
+        a, b = stripped(store64), stripped(fresh)
+        rounds = svc2.schedule_pending()
+        log(f"snap {sum(len(v) for v in exported.values() if isinstance(v, list))} objects; loaded store "
+            f"{b[:16]} vs source {a[:16]}; a round after the load scheduled {len(rounds)} pods; "
+            f"{time.perf_counter() - t0:.2f} s")
+        if a != b or rounds or svc2.get_scheduler_config() != exported["schedulerConfig"]:
+            raise AssertionError(f"snapshot load: {b} vs {a}, {len(rounds)} pods scheduled after it")
+        reset.reset()
+        if json.dumps(fresh.dump(), sort_keys=True) != boot_dump or svc2.get_scheduler_config() != boot_cfg:
+            raise AssertionError("ResetService.reset() did not restore the boot state")
+        log("ResetService.reset() restored the boot state and configuration")
+    return rec
 
 
 def render_phases(res_cfg2, P: int, churn_digests: dict) -> None:
@@ -2763,6 +3175,23 @@ def cpu_autoscale() -> "tuple[dict, dict, str]":
     return run_autoscale("cpu", torch.float64, frozen_clock=True)
 
 
+def cpu_scenario() -> "tuple[dict, tuple]":
+    """cfg11-scenario's float64 cut through a CPU float64 service: (record,
+    (sha256 of the returned Scenario, sha256 of the store dump))."""
+    import torch
+
+    rec, out, store, _svc = run_scenario("cpu", torch.float64, SCENARIO_F64, echo=False)
+    return rec, (digest(json.dumps(out, sort_keys=True)), digest(json.dumps(store.dump(), sort_keys=True)))
+
+
+def cpu_autoscale_scenario() -> "tuple[dict, str]":
+    """The autoscale replay on the CPU in float64: run_autoscale_scenario's
+    (record, timeline digest)."""
+    import torch
+
+    return run_autoscale_scenario("cpu", torch.float64)
+
+
 def cpu_stream() -> "tuple[dict, str]":
     """cfg9-stream's float64 cut streamed through a CPU float64 service:
     run_stream's (record, digest)."""
@@ -2834,6 +3263,8 @@ def main() -> int:
     cpu_autoscale_ref = _POOL.apply_async(cpu_autoscale)
     cpu_tune_ref = _POOL.apply_async(cpu_tune)
     cpu_stream_ref = _POOL.apply_async(cpu_stream)
+    cpu_scenario_ref = _POOL.apply_async(cpu_scenario)
+    cpu_autoscale_scenario_ref = _POOL.apply_async(cpu_autoscale_scenario)
 
     # the plain references of phases 2, 23 and 24 run on the card in two
     # worker processes while the main process runs its untimed checks;
@@ -3305,6 +3736,12 @@ def main() -> int:
     stream_rec = stream_phases(dev, cpu_stream_ref)
     stream_launches = stream_rec["launches"]
 
+    # ------------------------------------------- cfg11-scenario, the lifecycle
+    scen_rec, ascen_rec, cut64 = scenario_phases(dev, cpu_scenario_ref, cpu_autoscale_scenario_ref)
+    scen_launches = scen_rec["launches"]
+    loop_rec = lifecycle_phases(dev, cut64)
+    del cut64
+
     ref = MAIN
     main = timing[(ref, torch.float32)]
     churn_shape = f"cfg5-churn: window of {WINDOW} of P={churn_pr.P} N={churn_pr.N}"
@@ -3314,8 +3751,11 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
-            "launches": main_launches["scan"] + stream_launches["scan"],
-            "launches_by_path": {f"{ref} round": main_launches["scan"], "cfg9-stream streamed": stream_launches["scan"]},
+            "launches": main_launches["scan"] + stream_launches["scan"] + scen_launches["scan"]
+            + loop_rec["launches"]["scan"],
+            "launches_by_path": {f"{ref} round": main_launches["scan"], "cfg9-stream streamed": stream_launches["scan"],
+                                 "cfg11-scenario (windows and one-launch rounds)": scen_launches["scan"],
+                                 "background loop": loop_rec["launches"]["scan"]},
             "max_abs_err": main["scan_err"],
             "ms": main["scan_ms"],
             "plain_ms": main["scan_plain_ms"],
@@ -3351,9 +3791,12 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/compact.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:951",
-            "launches": main_launches_churn["compact"] + stream_launches["compact"],
+            "launches": main_launches_churn["compact"] + stream_launches["compact"] + scen_launches["compact"]
+            + loop_rec["launches"]["compact"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["compact"],
-                                 "cfg9-stream streamed": stream_launches["compact"]},
+                                 "cfg9-stream streamed": stream_launches["compact"],
+                                 "cfg11-scenario": scen_launches["compact"],
+                                 "background loop": loop_rec["launches"]["compact"]},
             "max_abs_err": churn_t["compact_err"],
             "ms": churn_t["compact_ms"],
             "plain_ms": churn_t["compact_plain_ms"],
@@ -3371,9 +3814,12 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scatter.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:614",
-            "launches": main_launches_churn["scatter"] + stream_launches["scatter"],
+            "launches": main_launches_churn["scatter"] + stream_launches["scatter"] + scen_launches["scatter"]
+            + loop_rec["launches"]["scatter"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["scatter"],
-                                 "cfg9-stream streamed": stream_launches["scatter"]},
+                                 "cfg9-stream streamed": stream_launches["scatter"],
+                                 "cfg11-scenario": scen_launches["scatter"],
+                                 "background loop": loop_rec["launches"]["scatter"]},
             "max_abs_err": scatter_t["err"],
             "ms": scatter_t["ms"],
             "plain_ms": scatter_t["plain_ms"],
@@ -3448,7 +3894,9 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan_masked.cu",
             "replaces": "kube_scheduler_simulator_tpu/autoscaler/estimator.py:186",
-            "launches": k8_t["launches"],
+            "launches": k8_t["launches"] + ascen_rec["k8_launches"],
+            "launches_by_path": {"cfg6-autoscale": k8_t["launches"],
+                                 "the autoscale replay (cfg11-scenario phase)": ascen_rec["k8_launches"]},
             "max_abs_err": k8_t["err"],
             "ms": k8_t["ms"],
             "plain_ms": k8_t["plain_ms"],

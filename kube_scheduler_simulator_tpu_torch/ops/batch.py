@@ -1541,6 +1541,13 @@ class DevicePlacer:
                 entry[path] = (val, placed[path])
         return assemble(host, placed)
 
+    def drop(self) -> None:
+        """Forget every resident plane: the next ``place`` uploads the
+        whole problem (no row is scattered against planes of a cluster
+        that is gone)."""
+        self._cache.clear()
+        self._order.clear()
+
     @property
     def last_scattered(self) -> "list[str]":
         """The fields whose planes the last round row-updated."""

@@ -1495,6 +1495,9 @@ class EncodeCache:
         self._req_memo: dict[str, tuple] = {}
         self.rows_miss = 0  # row-cache misses within the current seeded encode
         self._delta_rows = 0
+        # why the cached state was dropped from outside (``invalidate``):
+        # the next encode's state gate reports it instead of "cold start"
+        self._invalidated: "str | None" = None
 
     # -------------------------------------------------------- fingerprints
 
@@ -1550,6 +1553,15 @@ class EncodeCache:
                 nodes, all_pods, pending, namespaces,
                 hard_pod_affinity_weight, added_affinity, volumes, nominated,
             )
+
+    def invalidate(self, reason: str) -> None:
+        """Drop the cached state: the next encode is a full one that
+        re-primes, counted under ``reason`` in
+        ``encode_fallbacks_by_reason`` (the store was restored wholesale
+        under the cache)."""
+        with self._lock:
+            self._primed = False
+            self._invalidated = reason
 
     def stats_snapshot(self) -> dict:
         """A copy of the counters, readable while an encode is in
@@ -1642,7 +1654,8 @@ class EncodeCache:
     def _state_gate(self, nodes, hard_w, added_affinity) -> "str | None":
         """Gates that invalidate the CACHED STATE (fallback must re-prime)."""
         if not self._primed:
-            return "cold start"
+            reason, self._invalidated = self._invalidated or "cold start", None
+            return reason
         if (hard_w, _sig(added_affinity)) != self._cfg_key:
             return "plugin config changed"
         if len(nodes) != len(self.node_names):

@@ -456,7 +456,14 @@ def scan(
     1)``) blocks walks the pod chain; ``blocks`` instead launches that many
     blocks, each running the whole chain on its own carry copy and writing
     its share of the trace rows: the earlier design, kept for comparisons
-    (chip_smoke.py, time_scan.py), never chosen on the service's path."""
+    (chip_smoke.py, time_scan.py), never chosen on the service's path.  A
+    launch over no pods (P = 0, or an empty window) is refused: no caller
+    makes one (the service, the background loop and a scenario's
+    convergence pass return before the engine on an empty queue), and the
+    kernel's trace meta of an empty round is not held against the plain
+    version's."""
+    if (dims["P"] if window is None else window) <= 0:
+        raise ValueError(f"a scan over no pods (P={dims['P']}, window={window}): nothing to launch")
     out = _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, weights=weights, cluster=cluster)
     LAUNCHES["scan"] += 1
     return out

@@ -734,6 +734,8 @@ class BatchEngine:
         self._raw_dtypes: dict[int, str] = {}
         self.last_timings: dict[str, float] = {}
         self.cum_timings: dict[str, float] = {}
+        # rounds run (one per schedule, windowed round or PendingBatch)
+        self.rounds = 0
         # the last round's exactness bound (column, magnitude), its working
         # dtype and, when the bound promoted it to float64, why
         # (ops/batch.exactness_bound, round_dtype)
@@ -746,6 +748,8 @@ class BatchEngine:
         self._unsupported_config: "str | None" = None
         self._framework: Any = None
         self._store: Any = None
+        # the store's restore count at this engine's last round
+        self._store_restores = 0
 
     # ------------------------------------------------------------ factory
 
@@ -831,6 +835,7 @@ class BatchEngine:
         eng._unsupported_config = unsupported
         eng._framework = framework
         eng._store = getattr(framework.handle, "cluster_store", None)
+        eng._store_restores = getattr(eng._store, "restores", 0)
         return eng
 
     def set_weight_override(self, override: "dict[str, float] | None") -> None:
@@ -956,6 +961,14 @@ class BatchEngine:
         prof = self.profiler
         rec = prof_rec if prof_rec is not None else prof.open()
         t0 = time.perf_counter()
+        restores = getattr(self._store, "restores", 0)
+        if restores != self._store_restores:
+            # the store was replaced wholesale (a scenario's wipe, a reset):
+            # a full encode and a fresh upload, never a delta or a scatter
+            # against the planes of the cluster that is gone
+            self._store_restores = restores
+            self.encode_cache.invalidate("store restored")
+            self._placer.drop()
         kw = dict(
             hard_pod_affinity_weight=self.hard_pod_affinity_weight,
             added_affinity=self.added_affinity,
@@ -1034,6 +1047,7 @@ class BatchEngine:
 
     def _note_round(self, timings: dict) -> None:
         self.last_timings = timings
+        self.rounds += 1
         # rebind, never mutate: a reader may hold the old dict
         self.cum_timings = {
             k: self.cum_timings.get(k, 0.0) + timings.get(k, 0.0) for k in {*self.cum_timings, *timings}

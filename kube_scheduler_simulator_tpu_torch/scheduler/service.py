@@ -56,13 +56,23 @@ absorbs a ``run_tuning`` report into the ``tuning_*`` counters.
 and ``pause_streams`` parks its sessions at a wave boundary; the streamed
 waves' counters are ``stats["stream_*"]``.
 
+The lifecycle is the reference's: ``restart_scheduler`` swaps the
+configuration and rolls back to the previous one when the new one fails to
+build, ``reset_scheduler_configuration`` restarts from the first
+configuration started, ``shutdown_scheduler`` stops the loop and drops the
+frameworks.  ``start_background`` runs the always-on loop on a thread of its
+own: each tick expires permit waits, flushes the queue's stuck pods and runs
+one round with backoff respected, and under ``autoscale="on"`` an
+autoscaler pass at most every ``autoscale_interval_s`` (idle ticks too, so
+scale-down advances).  One deliberate difference: the reference's loop
+swallows every exception; the port's stops at its first one, and
+``stop_background()`` re-raises it in the caller's thread, so a kernel or
+launch error is never hidden.  ``metrics()`` returns the reference's keys.
+
 Refused with an error, never worked around: a mesh and extenders
-(preempt-verb ones included).  Left out:
-the journal, the background loop (and with it the throttled background
-autoscaler passes), ``metrics()``, the restart and reset of a running
-configuration, and the chaos catch of the reference (a kernel or launch
-error propagates: finishing the round on the Python cycle would hide the
-kernel).
+(preempt-verb ones included).  Left out: the journal, and the chaos catch
+of the reference (a kernel or launch error propagates: finishing the round
+on the Python cycle would hide the kernel).
 """
 
 from __future__ import annotations
@@ -131,17 +141,18 @@ class SchedulerService:
         pods per bulk-commit wave.  ``pipeline``: the double-buffered
         windowed round; "auto" turns it on on the card, and on the CPU
         where the host has at least 4 cores (the reference's rule).
-        ``autoscale``: "off" = no capacity engine; "on" =
-        ``schedule_pending_autoscaled`` runs autoscaler passes between
-        rounds.  "scenario" is accepted and, until the background loop and
-        scenario/ are ported, behaves as "on".  ``autoscaler_opts``
-        forwards to ``ClusterAutoscaler``; ``weights``: the plugin-weight
-        override (a vector in the profile's score-plugin order or a name →
-        weight mapping), validated at ``start_scheduler``
-        (WeightValidationError), changed live by ``set_plugin_weights``;
-        ``autoscale_interval_s`` is
-        accepted for the reference's signature and unused (it throttles
-        the background loop, which is not ported)."""
+        ``autoscale``: "off" = no capacity engine; "on" = the synchronous
+        autoscaled drain (``schedule_pending_autoscaled``), scenario
+        replays AND the background loop run autoscaler passes between
+        rounds; "scenario" = the synchronous drain and scenario replays
+        do, the background loop does not (it behaves as "off").
+        ``autoscaler_opts`` forwards to ``ClusterAutoscaler``;
+        ``weights``: the plugin-weight override (a vector in the profile's
+        score-plugin order or a name → weight mapping), validated at
+        ``start_scheduler`` (WeightValidationError), changed live by
+        ``set_plugin_weights``; ``autoscale_interval_s`` throttles the
+        background loop's autoscaler passes (the synchronous drains are
+        never throttled)."""
         if autoscale not in ("off", "on", "scenario"):
             raise ValueError(f"autoscale must be off|on|scenario, got {autoscale!r}")
         if mesh not in ("auto", None):
@@ -177,6 +188,17 @@ class SchedulerService:
         self.framework: "Framework | None" = None
         self.result_store: "ResultStore | None" = None
         self._result_store_keys: list[str] = []
+        # the configuration running, and the first one started (the reset
+        # target)
+        self._current_cfg: "Obj | None" = None
+        self._initial_cfg: "Obj | None" = None
+        # the background loop: its thread, stop and wake-up signals, and the
+        # first exception of a loop that died (re-raised by stop_background)
+        self._bg_thread: "threading.Thread | None" = None
+        self._bg_stop = threading.Event()
+        self._wakeup = threading.Event()
+        self._bg_error: "BaseException | None" = None
+        self._bg_unsubscribe: "Callable[[], None] | None" = None
         self._batch_engine: "BatchEngine | None" = None
         self._batch_engines: dict[str, BatchEngine] = {}
         # wait-start move_seq of each pod parked at Permit: events fired
@@ -263,6 +285,8 @@ class SchedulerService:
         self._autoscaler_opts = dict(autoscaler_opts or {})
         self._autoscaler: Any = None
         self._autoscaler_build_lock = threading.Lock()
+        self.autoscale_interval_s = float(autoscale_interval_s)
+        self._last_autoscale_ts = float("-inf")
 
     # ----------------------------------------------------------- autoscaler
 
@@ -347,8 +371,39 @@ class SchedulerService:
         self._weights_override = None
         if self._weights_requested is not None:
             self.set_plugin_weights(self._weights_requested)
+        self._current_cfg = cfg
         # a scheduler (re)build is a scheduling-relevant event
         self.queue.move_all()
+        if self._initial_cfg is None:
+            self._initial_cfg = copy.deepcopy(cfg)
+
+    def restart_scheduler(self, cfg: "Obj | None") -> None:
+        """Swap the configuration; when the new one fails to build, the
+        previous one is started again and the error raised."""
+        old = self._current_cfg
+        try:
+            self.start_scheduler(cfg)
+        except Exception:
+            if old is not None:
+                self.start_scheduler(old)
+            raise
+
+    def reset_scheduler_configuration(self) -> None:
+        """Restart from the first configuration this service started."""
+        self.restart_scheduler(copy.deepcopy(self._initial_cfg))
+
+    def shutdown_scheduler(self) -> None:
+        """Stop the background loop (re-raising its error, if it died of
+        one) and drop the frameworks."""
+        try:
+            self.stop_background()
+        finally:
+            self.framework = None
+            self.frameworks = {}
+
+    def get_scheduler_config(self) -> Obj:
+        assert self._current_cfg is not None, "scheduler not started"
+        return copy.deepcopy(self._current_cfg)
 
     # ------------------------------------------------------- weight override
 
@@ -1448,6 +1503,234 @@ class SchedulerService:
         if not parts:
             return result.status.message() if result.status else "no nodes available"
         return f"0/{num} nodes are available: {', '.join(parts)}."
+
+    # ------------------------------------------------------------- metrics
+
+    def metrics(self) -> dict[str, Any]:
+        """Observability snapshot: the reference's keys, no more and no
+        fewer, with the port's counters in the reference's meaning.
+
+        Keys of subsystems the port has not ported report what the
+        reference reports with the subsystem off: ``journal_enabled``,
+        ``journal_records_total``, ``journal_bytes_written_total``,
+        ``journal_fsyncs_total``, ``journal_wedges_total``,
+        ``journal_records_dropped_total``, ``checkpoint_compactions_total``
+        and ``recovery_*`` 0, ``journal_degraded_by_errno`` {} (the
+        journal); ``shard_devices``, ``sharded_dispatches_total`` and
+        ``plane_shard_bytes_per_device`` 0 (the mesh); ``procmesh`` None;
+        ``retry_by_seam`` {} (resilience/); ``fuzz_scenarios_total`` and
+        ``fuzz_shrink_steps_total`` 0, ``fuzz_divergences_by_kind`` {}
+        (fuzz/); ``placer_bank_rotations_total`` 0 and ``placer_banks`` {}
+        (the plane banks); ``aot_cache_hits_total``,
+        ``aot_cache_misses_total``, ``aot_cache_saves_total`` 0 and
+        ``aot_cache_fallbacks_by_reason`` {} (ops/aot.py).
+
+        The engine keys read the default profile's engine:
+        ``engine_rounds`` its rounds (one per ``schedule``, windowed round
+        or ``PendingBatch``); ``engine_compiles`` the kernel libraries
+        this process has built or loaded (``ops/kernels.build``: nvcc, once
+        per source; 0 on the CPU, where the plain versions run);
+        ``engine_cache_entries`` the launch plans the compaction kernel
+        has cached, one per trace manifest and shape (0 on the CPU).  The
+        last two are the process's, shared by every engine.
+        ``stats["f64_promotions"]`` stays in ``stats``."""
+        from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+        eng = self._batch_engine
+        # the multi-key dicts are copied under the lock; the scalar reads
+        # are single-writer counters
+        with self._stats_lock:
+            fallbacks = dict(self.stats["batch_fallbacks"])
+            preempt_fallbacks = dict(self.stats["preempt_fallbacks"])
+            gang_fallbacks = dict(self.stats["gang_fallbacks"])
+            stream_drains = dict(self.stats["stream_drains"])
+            tuning_objective = dict(self.stats["tuning_objective"])
+        last_t = dict(eng.last_timings) if eng else {}
+        # the fraction of the last pipelined round's device time hidden
+        # under host commits (0 for rounds in one launch)
+        est = last_t.get("device_est_s", 0.0)
+        overlap = max(0.0, min(1.0, 1.0 - last_t.get("device_s", 0.0) / est)) if est > 1e-9 else 0.0
+        last_wave_s = self.stats["last_wave_commit_s"]
+        enc: dict[str, Any] = {
+            "encode_full_total": 0,
+            "encode_delta_total": 0,
+            "encode_rows_reencoded_total": 0,
+            "encode_fallbacks_by_reason": {},
+            "device_bytes_uploaded_total": 0,
+            "device_plane_reuses_total": 0,
+            "device_scatter_updates_total": 0,
+            "sharded_dispatches_total": 0,
+            "plane_shard_bytes_per_device": 0,
+            "placer_bank_rotations_total": 0,
+            "placer_banks": {},
+            "aot_cache_hits_total": 0,
+            "aot_cache_misses_total": 0,
+            "aot_cache_saves_total": 0,
+            "aot_cache_fallbacks_by_reason": {},
+        }
+        for e in list(self._batch_engines.values()) or ([eng] if eng else []):
+            es = e.encode_stats()
+            for k in ("encode_full_total", "encode_delta_total", "encode_rows_reencoded_total",
+                      "device_bytes_uploaded_total", "device_plane_reuses_total", "device_scatter_updates_total"):
+                enc[k] += es.get(k, 0)
+            for reason, n in es.get("encode_fallbacks_by_reason", {}).items():
+                enc["encode_fallbacks_by_reason"][reason] = enc["encode_fallbacks_by_reason"].get(reason, 0) + n
+        asc_m = self._autoscaler.metrics() if self._autoscaler is not None else None
+        return {
+            **enc,
+            "journal_enabled": 0,
+            "journal_records_total": 0,
+            "journal_bytes_written_total": 0,
+            "journal_fsyncs_total": 0,
+            "journal_wedges_total": 0,
+            "journal_records_dropped_total": 0,
+            "journal_degraded_by_errno": {},
+            "checkpoint_compactions_total": 0,
+            "recovery_replayed_records_total": 0,
+            "recovery_truncated_records_total": 0,
+            "recovery_partial_gangs_total": 0,
+            "shard_devices": 0,
+            "batch_commits": self.stats["batch_commits"],
+            "batch_pods": self.stats["batch_pods"],
+            "batch_restarts": self.stats["batch_restarts"],
+            "sequential_pods": self.stats["sequential_pods"],
+            "batch_fallbacks": fallbacks,
+            "commit_s": self.stats["commit_s"],
+            "commit_waves": self.stats["commit_waves"],
+            "wave_commit_s": last_wave_s,
+            "commit_pods_per_s": self.stats["last_wave_pods"] / last_wave_s if last_wave_s > 1e-9 else 0.0,
+            "overlap_efficiency": overlap,
+            "preempt_attempts": self.stats["preempt_attempts"],
+            "preempt_nominations": self.stats["preempt_nominations"],
+            "preempt_victims": self.stats["preempt_victims"],
+            "preempt_dispatches": self.stats["preempt_dispatches"],
+            "preempt_kernel_s": self.stats["preempt_kernel_s"],
+            "preempt_fallbacks": preempt_fallbacks,
+            "gang_rounds": self.stats["gang_rounds"],
+            "gang_parked": self.stats["gang_parked"],
+            "gang_released_groups": self.stats["gang_released_groups"],
+            "gang_released_pods": self.stats["gang_released_pods"],
+            "gang_kernel_dispatches": self.stats["gang_kernel_dispatches"],
+            "gang_kernel_s": self.stats["gang_kernel_s"],
+            "gang_verdict_mismatch": self.stats["gang_verdict_mismatch"],
+            "gang_fallbacks": gang_fallbacks,
+            "stream_waves_total": self.stats["stream_waves"],
+            "stream_pods_total": self.stats["stream_pods"],
+            "stream_overlap_s": self.stats["stream_overlap_s"],
+            "stream_stall_s": self.stats["stream_stall_s"],
+            "stream_drains_by_reason": stream_drains,
+            "tuning_runs_total": self.stats["tuning_runs"],
+            "tuning_rollouts_total": self.stats["tuning_rollouts"],
+            "tuning_grad_dispatches_total": self.stats["tuning_grad_dispatches"],
+            "tuning_objective": tuning_objective,
+            "plugin_weights_overridden": int(self._weights_override is not None),
+            "fuzz_scenarios_total": 0,
+            "fuzz_divergences_by_kind": {},
+            "fuzz_shrink_steps_total": 0,
+            "waiting_pods": len(self._all_waiting_keys()),
+            "permit_wait_expired": self.stats["permit_wait_expired"],
+            **self.queue.stats(),
+            "engine_rounds": eng.rounds if eng else 0,
+            "engine_compiles": len(kernels._LIBS) if eng else 0,
+            "engine_cache_entries": len(kernels._COMPACT_PLANS) if eng else 0,
+            # the engine rebinds these dicts per round: copying the captured
+            # object is race-free
+            "engine_last_timings": last_t,
+            "engine_cum_timings": dict(eng.cum_timings) if eng else {},
+            "profile": self.profiler.snapshot(),
+            "procmesh": None,
+            "retry_by_seam": {},
+            "autoscaler": asc_m,
+        }
+
+    # ---------------------------------------------------------- background
+
+    def start_background(self, poll_interval: float = 0.25) -> None:
+        """Always-on mode: a thread schedules whenever pods or nodes change
+        (or every ``poll_interval`` seconds, or at the queue's next backoff
+        expiry).  Each tick expires permit waits, flushes the queue's stuck
+        pods, then runs one round with backoff respected; under
+        ``autoscale="on"`` an autoscaler pass runs at most every
+        ``autoscale_interval_s`` (idle ticks included, so scale-down
+        advances).  The loop stops at its first exception and keeps it for
+        ``stop_background`` to re-raise; starting over a loop that died
+        re-raises its exception first."""
+        if self._bg_thread is not None:
+            if self.is_background_running():
+                return
+            self.stop_background()
+        self._bg_stop.clear()
+        self._bg_error = None
+        self._bg_unsubscribe = self.cluster_store.subscribe(["pods", "nodes"], lambda ev: self._wakeup.set())
+        # the rounds run on the loop's thread: on the card the caller's
+        # device (and its default stream), as the thread that built the
+        # engines
+        card = None
+        if self.device.type == "cuda":
+            card = self.device.index if self.device.index is not None else torch.cuda.current_device()
+
+        def loop() -> None:
+            if card is not None:
+                torch.cuda.set_device(card)
+            try:
+                while not self._bg_stop.is_set():
+                    wake_in = self.queue.next_wakeup_in()
+                    timeout = poll_interval if wake_in is None else min(poll_interval, wake_in)
+                    self._wakeup.wait(timeout=max(timeout, 0.01))
+                    self._wakeup.clear()
+                    if self._bg_stop.is_set():
+                        break
+                    self._background_tick()
+            except Exception as exc:  # noqa: BLE001 - kept for stop_background to re-raise
+                self._bg_error = exc
+
+        self._bg_thread = threading.Thread(target=loop, name="scheduler-loop", daemon=True)
+        self._bg_thread.start()
+
+    def _background_tick(self) -> None:
+        if self.framework is None:
+            return
+        self.process_waiting_pods()
+        self.queue.flush_stuck()
+        now = time.monotonic()
+        autoscale_due = self.autoscale == "on" and now - self._last_autoscale_ts >= self.autoscale_interval_s
+        if self.pending_pods():
+            # persistently unschedulable pods wait in unschedulableQ instead
+            # of being filtered again on every event
+            if autoscale_due:
+                self._last_autoscale_ts = now
+                self.schedule_pending_autoscaled(max_rounds=1, respect_backoff=True)
+            else:
+                self.schedule_pending(max_rounds=1, respect_backoff=True)
+        elif autoscale_due and self.autoscaler is not None:
+            # idle ticks advance the scale-down timers
+            self._last_autoscale_ts = now
+            self.autoscaler.run_once()
+
+    def is_background_running(self) -> bool:
+        """True while the loop runs: False before ``start_background``,
+        after ``stop_background``, and once the loop died of an
+        exception."""
+        t = self._bg_thread
+        return t is not None and t.is_alive() and self._bg_error is None
+
+    def stop_background(self) -> None:
+        """Stop the loop and wait for its tick in flight to end (a round is
+        never cut: the store and ``metrics()`` are settled on return), then
+        re-raise the exception the loop died of, if it did."""
+        t = self._bg_thread
+        if t is None:
+            return
+        self._bg_stop.set()
+        self._wakeup.set()
+        t.join()
+        self._bg_thread = None
+        if self._bg_unsubscribe is not None:
+            self._bg_unsubscribe()
+            self._bg_unsubscribe = None
+        err, self._bg_error = self._bg_error, None
+        if err is not None:
+            raise err
 
 
 def _normalize_names(profile: Obj) -> None:

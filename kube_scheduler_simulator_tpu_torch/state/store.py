@@ -241,6 +241,10 @@ class ClusterStore:
         self._rv = 0
         self._uid_counter = 0
         self._generate_name_counter = 0
+        # wholesale restores so far (``restore``): a batch engine holding
+        # encoder state and resident planes of this store drops them when
+        # the count moved since its last round
+        self.restores = 0
         self._clock = clock or time.time
         self._event_log: dict[str, deque[Event]] = {k: deque(maxlen=event_log_size) for k in KINDS}
         self._evicted_rv: dict[str, int] = {k: 0 for k in KINDS}
@@ -905,6 +909,7 @@ class ClusterStore:
         )
         # a restore is one atomic state transition — and one journal record
         with self.journal_txn("restore"), self._lock:
+            self.restores += 1
             for kind in delete_order:
                 # Delete everything not in the target state.  Key
                 # computation must default the namespace exactly like

@@ -13,7 +13,9 @@ pods), all drawn from the same seed.  ``add_host_ports`` and
 CSI nodes a StatefulSet- and DaemonSet-heavy cluster carries (the
 ``volumes`` dict that ``BatchEngine.schedule(..., volumes=)`` reads).
 ``churn`` replays the bench's BASELINE cfg5 scenario churn into a cluster
-store, wave by wave, with a rolling cordon on top; ``stream_cluster`` and
+store, wave by wave, with a rolling cordon on top; ``scenario_churn``
+writes the same churn as one KEP-140 Scenario (cfg11-scenario), with a
+Deployment beside it; ``stream_cluster`` and
 ``steady_feed`` build cfg9-stream's standing cluster and its arrival
 stream.  ``preemption_wave``
 fills a store with cfg7-preempt-5k, Kubernetes scheduler_perf's
@@ -322,6 +324,82 @@ def churn(store, n_pods: int, n_nodes: int, waves: int, delete_frac: float = 0.1
         bound = [p for p in store.list("pods") if (p.get("spec") or {}).get("nodeName")]
         for p in rng.sample(bound, int(len(bound) * delete_frac)):
             store.delete("pods", p["metadata"]["name"], p["metadata"].get("namespace"))
+
+
+# cfg11-scenario: BASELINE cfg5's "10k pods x 5k nodes scenario" as one
+# KEP-140 Scenario (``scenario_churn``'s defaults)
+SCENARIO = dict(n_nodes=5000, n_pods=10_000, steps=5, web=200, cordon=50)
+
+
+def scenario_churn(n_nodes: int = 5000, n_pods: int = 10_000, steps: int = 5, web: int = 200, cordon: int = 50,
+                   seed: int = 7) -> dict:
+    """cfg11-scenario: BASELINE cfg5's churn written as one KEP-140
+    Scenario for ``ScenarioEngine.run``.  Major 0 creates ``n_nodes`` bench
+    nodes and a Deployment ``web`` of ``web`` replicas of a 100m / 128Mi
+    pod; majors 1 to ``steps`` each create ``n_pods // steps`` bench pods
+    (``mk_pod`` from ``random.Random(seed)``, spread constraints on every
+    3rd, deterministic stamps); majors 2 to ``steps`` first delete every
+    10th pod the previous major created, by name, and move a rolling cordon
+    of ``cordon`` nodes by patchOperations (as ``churn`` does); major 3
+    also patches ``web`` to twice its replicas; major ``steps + 1`` is the
+    doneOperation."""
+    rng = random.Random(seed)
+    ops: list = []
+
+    def op(major: int, field: str, body: dict) -> None:
+        ops.append({"id": f"op-{len(ops)}", "step": {"major": major}, field: body})
+
+    def node_patch(major: int, i: int, value) -> None:
+        op(major, "patchOperation", {
+            "typeMeta": {"kind": "Node", "apiVersion": "v1"},
+            "objectMeta": {"name": f"node-{i}"},
+            "patch": {"spec": {"unschedulable": value}},
+        })
+
+    for i in range(n_nodes):
+        op(0, "createOperation", {"typeMeta": {"kind": "Node", "apiVersion": "v1"}, "object": mk_node(i)})
+    template = {
+        "metadata": {"labels": {"app": "web"}},
+        "spec": {"containers": [{"name": "c", "resources": {"requests": {"cpu": "100m", "memory": "128Mi"}}}]},
+    }
+    op(0, "createOperation", {
+        "typeMeta": {"kind": "Deployment", "apiVersion": "apps/v1"},
+        "object": {"metadata": {"name": "web", "namespace": "default"},
+                   "spec": {"replicas": web, "selector": {"matchLabels": {"app": "web"}}, "template": template}},
+    })
+    per_step = n_pods // steps
+    created = 0
+    previous: list = []
+    cordoned: list = []
+    for major in range(1, steps + 1):
+        if major > 1:
+            for name in previous[::10]:
+                op(major, "deleteOperation", {
+                    "typeMeta": {"kind": "Pod", "apiVersion": "v1"},
+                    "objectMeta": {"name": name, "namespace": "default"},
+                })
+            if cordon:
+                fresh = rng.sample(sorted(set(range(n_nodes)) - set(cordoned)), cordon)
+                for i in cordoned:
+                    node_patch(major, i, None)
+                for i in fresh:
+                    node_patch(major, i, True)
+                cordoned = fresh
+        if major == 3:
+            op(major, "patchOperation", {
+                "typeMeta": {"kind": "Deployment", "apiVersion": "apps/v1"},
+                "objectMeta": {"name": "web", "namespace": "default"},
+                "patch": {"spec": {"replicas": 2 * web}},
+            })
+        previous = []
+        for _ in range(per_step):
+            pod = stamp(mk_pod(created, rng, spread=created % 3 == 0), created)
+            op(major, "createOperation", {"typeMeta": {"kind": "Pod", "apiVersion": "v1"}, "object": pod})
+            previous.append(pod["metadata"]["name"])
+            created += 1
+    op(steps + 1, "doneOperation", {})
+    return {"kind": "Scenario", "metadata": {"name": "cfg11-scenario", "namespace": "default"},
+            "spec": {"operations": ops}}
 
 
 # cfg9-stream (the JAX package's bench ``run_stream_report``): 600 nodes, a

@@ -48,6 +48,20 @@ def test_no_file_of_the_port_imports_jax_or_the_reference(path):
     assert not bad, bad
 
 
+def test_the_checks_cover_the_scenario_controller_and_service_modules():
+    """The AST check above walks every module of the port, the scenario
+    engine's, the controllers' and the services' among them; the
+    subprocess check below replays a Scenario and drives the loop and the
+    services through them."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for module in ("scenario/__init__.py", "scenario/engine.py", "scenario/operator.py", "scenario/result.py",
+                   "controllers/__init__.py", "controllers/manager.py", "services/__init__.py",
+                   "services/reset.py", "services/snapshot.py", "services/importer.py",
+                   "services/resourcewatcher.py", "utils/simclock.py"):
+        assert module in checked, module
+    assert "scenario_churn" in ROUND and "start_background" in ROUND and "SnapshotService" in ROUND
+
+
 def test_name_check_tells_the_packages_apart():
     assert _is_forbidden("kube_scheduler_simulator_tpu.ops.batch")
     assert _is_forbidden("jax.numpy")
@@ -108,6 +122,29 @@ for w in workloads.churn(wstore, 40, 20, 1):
     wsvc.start_scheduler(None)
     wsvc.schedule_pending(max_rounds=1)
 assert wsvc.stats["batch_pods"] >= 30 and wsvc.plugin_weights() is not None, wsvc.stats
+from kube_scheduler_simulator_tpu_torch.controllers import ControllerManager
+from kube_scheduler_simulator_tpu_torch.scenario import ScenarioEngine, ScenarioOperator, allocation_rate
+from kube_scheduler_simulator_tpu_torch.services.importer import ClusterResourceImporter
+from kube_scheduler_simulator_tpu_torch.services.reset import ResetService
+from kube_scheduler_simulator_tpu_torch.services.resourcewatcher import ResourceWatcherService
+from kube_scheduler_simulator_tpu_torch.services.snapshot import SnapshotService
+from kube_scheduler_simulator_tpu_torch.utils.simclock import SimClock
+sstore = ClusterStore(clock=SimClock(0.0))
+ssvc = SchedulerService(sstore, use_batch="auto", batch_min_work=0, device="cpu")
+ssvc.start_scheduler(None)
+reset = ResetService(sstore, ssvc)
+out = ScenarioEngine(sstore, ssvc, ControllerManager(sstore)).run(workloads.scenario_churn(12, 30, 3, web=2, cordon=1))
+assert out["status"]["phase"] == "Succeeded" and allocation_rate(sstore) == 1.0, out["status"]
+ssvc.start_background(poll_interval=0.01)
+ssvc.stop_background()
+assert ssvc.metrics()["batch_pods"] == 34 and ssvc.metrics()["engine_rounds"] >= 3, ssvc.metrics()
+dstore = ClusterStore(clock=SimClock(0.0))
+dsvc = SchedulerService(dstore, device="cpu")
+dsvc.start_scheduler(None)
+ClusterResourceImporter(SnapshotService(sstore, ssvc), SnapshotService(dstore, dsvc)).import_cluster_resources()
+assert len(dstore.list("pods")) == 32
+reset.reset()
+assert sstore.list("pods") == [] and ResourceWatcherService(sstore) and ScenarioOperator(sstore, ssvc)
 from kube_scheduler_simulator_tpu_torch import native
 assert native.fastjson is not None and native.status()["path"].startswith({str(PORT)!r}), native.status()
 # the port's renderer, never the JAX package's library

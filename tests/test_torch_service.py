@@ -9,7 +9,8 @@ equal annotations, node and status.  Covered: the sequential cycle
 with enough pending pods to split P = 512 into two windows of 256), BASELINE
 cfg5's churn cut to three small waves with deletes and a rolling cordon
 (both tie-breaks), a kernel-failed pod resolved by the batched
-DefaultPreemption, two profiles (segments), and what the port refuses.
+DefaultPreemption, two profiles (segments), and what the port refuses
+(the lifecycle beside it: restart, reset, the loop and ``metrics()``).
 Mirrors tests/test_batch_parity.py and tests/test_commit_pipeline.py.
 """
 
@@ -237,6 +238,18 @@ def test_the_port_refuses_what_it_has_not_ported():
     assert store.get("pods", "p1")["spec"]["nodeName"] == "node-0"
     with pytest.raises(NotImplementedError, match="journal"):
         store.attach_journal(object())
+    # the lifecycle is ported: a bad configuration rolls back, the reset
+    # returns to the first configuration started, the loop runs and stops,
+    # and metrics() answers
+    with pytest.raises(KeyError, match="NoSuchPlugin"):
+        svc.restart_scheduler({"profiles": [profile_with(["NoSuchPlugin"])]})
+    assert [wp.original.name for wp in svc.framework.plugins["permit"]] == ["Gate"]
+    svc.reset_scheduler_configuration()
+    assert [wp.original.name for wp in svc.framework.plugins["permit"]] == ["Coscheduling"]
+    svc.start_background(poll_interval=0.01)
+    assert svc.is_background_running()
+    svc.stop_background()
+    assert not svc.is_background_running() and svc.metrics()["batch_fallbacks"] == svc.stats["batch_fallbacks"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SchedulerService(store)

@@ -8,8 +8,10 @@ Every pod's ``pod_parity_state`` (binding, annotation trail, failure
 conditions) must be equal, and the port's streamed store must equal its own
 ``streaming=False`` store; the stream counters (``svc.stats``) must agree
 with the reference's.  The cases follow tests/test_stream.py; its mesh case
-and its ``metrics()`` render case have no port counterpart (the port
-refuses a mesh and has no ``metrics()``).  Then the port's own contract: a
+has no port counterpart (the port refuses a mesh), and its ``metrics()``
+render case needs ``server/metrics.py``, which the port does not have yet:
+the stream counters as ``metrics()`` reports them are held against the
+reference's in tests/test_torch_lifecycle.py.  Then the port's own contract: a
 launch error propagates out of ``schedule_stream`` with nothing of the
 dying wave committed, ``pause_streams`` parks a running session, and a
 ``PendingBatch`` equals ``schedule()``.  The twin on the card is in
