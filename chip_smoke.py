@@ -90,7 +90,21 @@ Workloads (every one from seed 42 through ``workloads.cluster``):
   patchOperations, major 3 also scales ``web`` to 400, major 6 is the
   doneOperation; ``ScenarioEngine(store, SchedulerService(store,
   tie_break="first", use_batch="auto"), ControllerManager(store)).run`` on
-  the default configuration, store and service clocks pinned (SimClock).
+  the default configuration, store and service clocks pinned (SimClock);
+- cfg8-gang-journal: cfg8-gang at full size (run_gang's knobs, store and
+  service clocks pinned) with a write-ahead journal wired as the
+  reference's boot wires it (``state/journal.py``, ``state/recovery.py``:
+  the scheduler's meta on every record, a ``write_mark`` after each wave),
+  its primary killed by ``kill_at`` inside wave 4;
+- the scorer bridge at north: north's 5 000 nodes with 5 000 of its pods
+  bound (``make_cluster("north", (16, 5000, 5000))``), the default profile,
+  ``TPUScorerBridge`` Filter and Prioritize for its first 16 pending pods
+  over seeded candidate lists of 500 node names (upstream's default sample
+  at 5 000 nodes) and for its first 2 over every node;
+- the extender round: cfg2's cluster (500 nodes) with its first 64 pods
+  pending, a scheduler whose configuration has an extender stanza (filter
+  and prioritize verbs, weight 1, nodeCacheCapable) pointing at the bridge
+  served over HTTP at the reference's routes.
 
 Cut for the time limit: no float64 churn runs at full size (the cut of
 phase 9 holds float64); the annotation bytes of phase 4 are compared at
@@ -114,7 +128,9 @@ Phases (each prints its seconds; any failure exits nonzero before the last
 line):
 
 1. the card's name and power limit (nvidia-smi), then the kernel build
-   (nvcc, sm_90a, every source in parallel); the C renderer's status
+   (nvcc, sm_90a, every source in parallel, on a thread while the worker
+   processes start their references and the clusters are encoded; joined
+   before the first kernel launch); the C renderer's status
    (``native.status()``: the library, or why it did not load, the build's
    seconds, the Python headers) and the compiler's version: the script
    fails if the renderer did not load;
@@ -346,7 +362,37 @@ line):
    loaded into a fresh store and service on the card equals the source
    modulo uid and resourceVersion (the snapshot's kinds) and schedules
    nothing more, and ``ResetService.reset()`` restores the boot state and
-   configuration.
+   configuration;
+31. cfg8-gang-journal, float32, on the card: (a) the uninterrupted run in
+   a spawned process, its ``parity_digest`` the target; beside it (b) the
+   journaled primary in another spawned process, killed by ``kill_at`` one
+   record past wave 4's first gang-release record, while this process
+   tails the live journal with a ``ReplicaApplier`` (the records, bytes,
+   each wave's ``journal_append`` seconds against its ``commit_s``, the
+   replica's lag); then (c), in a third spawned process started with the
+   others, ``boot_recover`` into a fresh store (its replay seconds), a
+   fresh service restarted from the journaled configuration,
+   ``restore_scheduler_state``, a new journal epoch, the crashed wave re-run
+   from the last mark (creates already there skipped) and wave 5, beside
+   (d) ``promote_replica`` of the live replica in this process, resumed the
+   same way.  Each resumed leg's digest must equal (a)'s, with no
+   partially bound group, and a 32-member ``group_preview`` at each final
+   state equal (a)'s; counts reset before each leg's waves: each must
+   launch K2w, K3, K6 and K7;
+32. the scorer bridge at north on the card, float32: each case's Filter,
+   then Prioritize over the nodes that passed (none when none passed, as a
+   scheduler calls it); each response equal to the
+   bridge's own oracle fallback for the same pod (from a CPU worker):
+   passed, failed and unresolvable nodes with their messages, and every
+   score; no fallback, no error, one scan launch a call; each verb's median
+   latency split into encode (with upload), kernel (launch and wait) and
+   fetch (K3 and the trace);
+33. the extender round on the card, float32: one ``schedule_pending``,
+   which takes the sequential cycle (counted "extender webhooks
+   configured"), each extender call one kernel pass of the bridge; no
+   handler or Filter error, no fallback, every pod bound with both extender
+   annotations; the binds and the extender annotation bytes equal the
+   same round in float64 on the CPU (a worker process, its own server).
 
 Before phase 20 the earlier phases' cycles and rounds are collected and
 what is left of the heap is frozen (``gc.freeze``), the tracked objects
@@ -365,7 +411,10 @@ scan K2g and its contraction at phase 24's, launched by phase 25's rows;
 the scan's cluster width and the redundant chains' time beside it; the
 scan's, the compaction's and the scatter's launches add cfg9-stream's
 streamed run's, cfg11-scenario's and the background loop's, K8's the
-autoscale replay's, ``launches_by_path`` apart), and as
+autoscale replay's, the scan's, the compaction's and the scatter's the
+bridge's (phases 32 and 33), the windowed scan's, the compaction's, the
+scatter's, K6's and K7's the journaled legs' (phase 31),
+``launches_by_path`` apart), and as
 the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
 from the network.
@@ -539,6 +588,16 @@ LIFECYCLE_BAD_CFG = {"profiles": [{"schedulerName": "default-scheduler",
 LIFECYCLE_OTHER_CFG = {"profiles": [{"schedulerName": "default-scheduler",
                                      "plugins": {"multiPoint": {"disabled": [{"name": "ImageLocality"}]}}}],
                        "percentageOfNodesToScore": 100}
+# phase 31 (cfg8-gang-journal): cfg8-gang's scale leg, its primary killed
+# inside wave 4 (index 3)
+JOURNAL_GANG = GANG
+JOURNAL_KILL_WAVE = 3
+# phase 32 (the scorer bridge at north): pending pods asked about over
+# candidate lists of ``sample`` names, the first ``full`` of them over every
+# node, and the pods bound before; phase 33: cfg2 pods scheduled through the
+# extender
+BRIDGE = dict(pods=16, sample=500, full=2, bound=5000)
+EXTENDER_PODS = 64
 # what one BatchEngine round launches
 ROUND_LAUNCHES = {
     "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
@@ -2964,6 +3023,602 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
     return k9_t, k2g_t
 
 
+# ------------------------------------------ the journal, recovery, promotion (phase 31)
+
+def journal_store():
+    """A store on cfg8-gang's pinned clock (SimClock: recovery restores it)."""
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.utils.simclock import SimClock
+
+    return ClusterStore(clock=SimClock(SCENARIO_CLOCK))
+
+
+def journal_service(store, device, dt):
+    """cfg8-gang's service (run_gang's knobs) on ``store``, its clock pinned;
+    not started."""
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.utils.simclock import SimClock
+
+    return SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=device, dtype=dt,
+                            clock=SimClock(SCENARIO_CLOCK))
+
+
+def attach_journal(store, svc, directory: str):
+    """A journal epoch in ``directory``, wired as the reference's boot
+    (server/di.py) wires it: attached to the store, the scheduler's meta on
+    every record, the snapshot service's export as the checkpoint."""
+    from kube_scheduler_simulator_tpu_torch.services.snapshot import SnapshotService
+    from kube_scheduler_simulator_tpu_torch.state.journal import Journal
+    from kube_scheduler_simulator_tpu_torch.state.recovery import build_checkpoint, scheduler_meta_provider
+
+    journal = Journal(directory)
+    store.attach_journal(journal)
+    journal.add_meta_provider(scheduler_meta_provider(svc))
+    snap = SnapshotService(store, svc)
+    journal.checkpoint_provider = lambda: build_checkpoint(store, snap)
+    return journal
+
+
+def arm_kill(journal) -> None:
+    """``kill_at`` one record past the first gang-release record from now:
+    the process dies (SIGKILL) the instant that record is durable."""
+    append = journal.append
+
+    def armed(rtype, events=None, extra=None):
+        if rtype == "gang-release" and journal.kill_at is None:
+            journal.kill_at = journal.stats["records"] + 2
+        return append(rtype, events, extra)
+
+    journal.append = armed
+
+
+def journal_waves(store, svc, plan, spec, first: int = 0, resume: bool = False, kill_wave=None,
+                  progress: "str | None" = None, who: str = "") -> list:
+    """cfg8-gang's waves ``first``.. on a started service: ``gang_wave``
+    (``resume``: the first re-runs a crashed wave, skipping what is already
+    there), ``schedule_pending(max_rounds=3)``, then a recovery mark
+    (``write_mark``).  A wave fails on a partially bound group or a verdict
+    mismatch.  Per wave: wall, ``commit_s``, the journal's append seconds,
+    records and bytes (0 with no journal).  ``kill_wave``: arm the kill at
+    that wave's start; ``progress``: a file each wave's record is appended
+    to (a killed process returns nothing)."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.gang import partially_bound_groups
+    from kube_scheduler_simulator_tpu_torch.state.recovery import write_mark
+
+    out = []
+    for w in range(first, spec["waves"]):
+        journal = store.journal
+        if w == kill_wave:
+            arm_kill(journal)
+        workloads.gang_wave(store, plan, spec["waves"], w, resume=resume and w == first)
+        js0 = dict(journal.stats) if journal is not None else {"records": 0, "bytes": 0}
+        ja0, c0, r0 = store._journal_s, svc.stats["commit_s"], svc.stats["gang_released_pods"]
+        mm0 = svc.stats["gang_verdict_mismatch"]
+        t0 = time.perf_counter()
+        svc.schedule_pending(max_rounds=3)
+        write_mark(svc, w)
+        js = journal.stats if journal is not None else js0
+        rec = dict(wave=w, wall_s=time.perf_counter() - t0, commit_s=svc.stats["commit_s"] - c0,
+                   journal_append_s=store._journal_s - ja0, records=js["records"] - js0["records"],
+                   bytes=js["bytes"] - js0["bytes"], released_pods=svc.stats["gang_released_pods"] - r0)
+        partial = partially_bound_groups(store)
+        if partial or svc.stats["gang_verdict_mismatch"] != mm0:
+            raise AssertionError(f"{who} wave {w}: partially bound {partial[:3]}, verdict mismatches "
+                                 f"{svc.stats['gang_verdict_mismatch'] - mm0}")
+        out.append(rec)
+        log(f"{who} wave {w}: {json.dumps(rec, sort_keys=True)}")
+        if progress is not None:
+            with open(progress, "a") as f:
+                f.write(json.dumps(rec, sort_keys=True) + "\n")
+    return out
+
+
+def journal_primary(directory: str, progress: str, spec: dict, device: str) -> None:
+    """Phase 31's primary, a spawned process: cfg8-gang in float32 with a
+    journal in ``directory`` wired from the first mutation on, a mark after
+    each wave, killed by ``kill_at`` one record past wave 4's first
+    gang-release record.  Exits 3 when the kill never fired."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.gang import gang_scheduler_config
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    if device == "cuda":
+        K.build()
+    store = journal_store()
+    svc = journal_service(store, device, torch.float32)
+    attach_journal(store, svc, directory)
+    plan = workloads.gang_setup(store, **{k: v for k, v in spec.items() if k != "waves"})
+    svc.start_scheduler(gang_scheduler_config())
+    journal_waves(store, svc, plan, spec, kill_wave=JOURNAL_KILL_WAVE, progress=progress, who="primary")
+    sys.exit(3)
+
+
+def preview_launch(store, dev) -> dict:
+    """A 32-member group previewed at the store's final state (K7): its
+    answer."""
+    from kube_scheduler_simulator_tpu_torch.gang import engine as GE
+    from kube_scheduler_simulator_tpu_torch.gang.scenario import make_member
+
+    store.create("podgroups", {"metadata": {"name": "preview-ok"}, "spec": {"minMember": 32}})
+    for m in range(32):
+        store.create("pods", make_member(f"preview-ok-m{m}", "preview-ok"))
+    return GE.group_preview(store, store.get("podgroups", "preview-ok"), device=dev)
+
+
+def journal_leg(role: str, spec: dict, device: str, out, go=None, directory: str = "", epoch: str = "") -> None:
+    """One of phase 31's legs in a spawned process on the card, its answer
+    put on ``out`` as (role, record) or (role, the error): "uninterrupted",
+    cfg8-gang run through; "recovered", once ``go`` is set (the primary is
+    dead): ``boot_recover`` of ``directory`` into a fresh store, a fresh
+    service restarted from the journaled configuration,
+    ``restore_scheduler_state``, a new journal epoch in ``epoch``, the
+    crashed wave re-run from the last mark, then the rest.  The record:
+    the parity digest, a 32-member preview at the final state, the waves,
+    the launches (counts reset before the waves) and, recovered, the
+    replay."""
+    import traceback
+
+    try:
+        import torch
+
+        from kube_scheduler_simulator_tpu_torch import workloads
+        from kube_scheduler_simulator_tpu_torch.gang import gang_scheduler_config
+        from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+        from kube_scheduler_simulator_tpu_torch.state.recovery import boot_recover, restore_scheduler_state
+        from kube_scheduler_simulator_tpu_torch.utils.parity import parity_digest
+
+        if device == "cuda":
+            K.build()
+        setup = {k: v for k, v in spec.items() if k != "waves"}
+        rec: dict = {}
+        store = journal_store()
+        if role == "uninterrupted":
+            svc = journal_service(store, device, torch.float32)
+            plan = workloads.gang_setup(store, **setup)
+            svc.start_scheduler(gang_scheduler_config())
+            first, resume = 0, False
+        else:
+            plan = workloads.gang_setup(journal_store(), **setup)
+            go.wait()
+            t0 = time.perf_counter()
+            report = boot_recover(directory, store)
+            rec.update(replay_s=time.perf_counter() - t0, recovery=report.stats())
+            svc = journal_service(store, device, torch.float32)
+            journal = attach_journal(store, svc, epoch)
+            svc.start_scheduler(report.scheduler_config)
+            restore_scheduler_state(svc, report)
+            journal.last_mark = report.last_mark
+            store.journal_append("boot", {"recovered": True})
+            first, resume = int((report.last_mark or {}).get("tick", -1)) + 1, True
+        K.reset_counts()
+        rec["waves"] = journal_waves(store, svc, plan, spec, first=first, resume=resume, who=role)
+        rec["digest"] = parity_digest(store)
+        rec["preview"] = preview_launch(store, torch.device(device))
+        rec.update(launches=dict(K.LAUNCHES), resumed_from=first, pods=len(store.list("pods", copy_objects=False)))
+        if store.journal is not None:
+            store.journal.close()
+            rec["epoch"] = dict(store.journal.stats)
+        out.put((role, rec))
+    except BaseException:  # noqa: BLE001 - handed to the phase, which fails on it
+        out.put((role, {"error": traceback.format_exc()}))
+
+
+def journal_phases(dev) -> dict:
+    """Phase 31, cfg8-gang-journal, four legs on the card: (a) cfg8-gang
+    uninterrupted, its parity digest the target (a spawned process); (b)
+    the same run journaled in a spawned primary, killed inside wave 4,
+    while this process tails its journal live with a ReplicaApplier; (c)
+    recovery and resume in a spawned process (``journal_leg``); (d)
+    ``promote_replica`` of the live replica in this process, resumed the
+    same way, beside (c).  Each resumed leg's digest must equal (a)'s, with
+    no partially bound group, and its preview (a)'s.  Returns the launches
+    by leg and the numbers."""
+    import queue
+    import signal
+    import tempfile
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.replication import ReplicaApplier, promote_replica
+    from kube_scheduler_simulator_tpu_torch.state import journal as J
+    from kube_scheduler_simulator_tpu_torch.utils.parity import parity_digest
+
+    spec, dt = JOURNAL_GANG, torch.float32
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    tmp = tempfile.mkdtemp(prefix="kss-journal-")
+    jdir, progress = os.path.join(tmp, "primary"), os.path.join(tmp, "progress.jsonl")
+    os.makedirs(jdir)
+    ctx = multiprocessing.get_context("spawn")
+    answers, go = ctx.Queue(), ctx.Event()
+    legs = [ctx.Process(target=journal_leg, args=("uninterrupted", spec, device, answers)),
+            ctx.Process(target=journal_leg, args=("recovered", spec, device, answers, go, jdir,
+                                                 os.path.join(tmp, "epoch-a")))]
+    out: dict = {"launches": {}}
+    got: dict = {}
+
+    def collect(role: str) -> dict:
+        while role not in got:
+            try:
+                r, rec = answers.get(timeout=600)
+            except queue.Empty:
+                raise AssertionError(f"phase 31: no answer from the {role} leg") from None
+            if "error" in rec:
+                raise AssertionError(f"phase 31, the {r} leg:\n{rec['error']}")
+            got[r] = rec
+        return got[role]
+
+    try:
+        with Phase(f"31a-b. cfg8-gang {spec}: uninterrupted (a spawned process on the card), and journaled in a "
+                   f"spawned primary on the card killed inside wave 4, a ReplicaApplier tailing its journal live"):
+            for p in legs:
+                p.start()
+            t0 = time.perf_counter()
+            child = ctx.Process(target=journal_primary, args=(jdir, progress, spec, device))
+            child.start()
+            rstore = journal_store()
+            applier = ReplicaApplier(rstore, jdir, notify=False)
+            applier.bootstrap()
+            lag_records, lag_s, polls = 0, 0.0, 0
+            while child.is_alive():
+                applier.step()
+                polls += 1
+                lag_records = max(lag_records, int(applier.stats["lag_records"]))
+                lag_s = max(lag_s, float(applier.stats["lag_seconds"]))
+                time.sleep(0.02)
+            child.join()
+            t_child = time.perf_counter() - t0
+            if child.exitcode != -signal.SIGKILL:
+                raise AssertionError(f"the primary exited {child.exitcode}: the kill inside wave 4 never fired")
+            go.set()
+            t1 = time.perf_counter()
+            applier.step()
+            drain_s = time.perf_counter() - t1
+            primary_waves = [json.loads(ln) for ln in open(progress)]
+            seg_bytes = sum(os.path.getsize(p) for _i, p in J.list_segments(jdir))
+            out.update(primary_waves=primary_waves, journal_records=applier.stats["records_shipped"],
+                       journal_bytes=seg_bytes, replica=dict(applier.stats), replica_lag_records_max=lag_records,
+                       replica_lag_s_max=lag_s, replica_polls=polls, replica_drain_s=drain_s, primary_s=t_child)
+            log(f"primary killed (exit {child.exitcode}) after {t_child:.2f} s: journal "
+                f"{applier.stats['records_shipped']} records, {seg_bytes} bytes; replica {json.dumps(applier.stats)}, "
+                f"max lag {lag_records} records / {lag_s:.3f} s over {polls} polls, final drain {drain_s:.3f} s")
+            if applier.stats["torn_records"]:
+                raise AssertionError(f"the replica read torn records: {applier.stats}")
+            target = collect("uninterrupted")
+            out["launches"]["uninterrupted"] = target["launches"]
+            log(f"uninterrupted: {target['pods']} pods, digest {target['digest']}, launches {target['launches']}")
+
+        with Phase("31c-d. leg (a): boot_recover and resume (a spawned process on the card), beside leg (b): "
+                   "promote_replica, resumed the same way"):
+            plan = workloads.gang_setup(journal_store(), **{k: v for k, v in spec.items() if k != "waves"})
+            t0 = time.perf_counter()
+            promotion = promote_replica(applier, lambda s: journal_service(s, dev, dt))
+            promote_s = time.perf_counter() - t0
+            svc = promotion.service
+            journal = attach_journal(rstore, svc, jdir)
+            journal.last_mark = promotion.recovery.last_mark
+            rstore.journal_append("boot", {"promoted": True})
+            first_b = int((promotion.recovery.last_mark or {}).get("tick", -1)) + 1
+            K.reset_counts()
+            waves_b = journal_waves(rstore, svc, plan, spec, first=first_b, resume=True, who="leg (b)")
+            digest_b = parity_digest(rstore)
+            preview_b = preview_launch(rstore, dev)
+            out["launches"]["promoted"] = dict(K.LAUNCHES)
+            journal.close()
+            out.update(promote_s=promote_s, promotion=promotion.stats(), promoted_waves=waves_b,
+                       promoted_epoch=dict(journal.stats))
+            log(f"leg (b): promotion {json.dumps(promotion.stats())} in {promote_s:.3f} s, resumed from wave "
+                f"{first_b}, digest {digest_b}, launches {out['launches']['promoted']}")
+            del rstore, svc, promotion, applier
+            rec_a = collect("recovered")
+            out["launches"]["recovered"] = rec_a["launches"]
+            out.update(replay_s=rec_a["replay_s"], recovery=rec_a["recovery"], resumed_from=rec_a["resumed_from"],
+                       recovered_waves=rec_a["waves"], recovered_epoch=rec_a["epoch"])
+            log(f"leg (a): recovery {json.dumps(rec_a['recovery'])} in {rec_a['replay_s']:.3f} s, resumed from wave "
+                f"{rec_a['resumed_from']}, digest {rec_a['digest']}, launches {rec_a['launches']}, new epoch "
+                f"{json.dumps(rec_a['epoch'])}")
+            for leg, digest, partial, preview in (
+                ("(a) recovered", rec_a["digest"], rec_a["recovery"]["partial_gangs"], rec_a["preview"]),
+                ("(b) promoted", digest_b, out["promotion"]["partial_gangs"], preview_b),
+            ):
+                if digest != target["digest"] or partial or preview != target["preview"]:
+                    raise AssertionError(f"leg {leg}: digest {digest} != {target['digest']}, or {partial} partially "
+                                         f"bound groups, or another preview")
+            log(f"both legs' digests and previews equal the uninterrupted run's; no partially bound group")
+    finally:
+        go.set()
+        for p in legs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for leg in ("recovered", "promoted"):
+        launches = out["launches"][leg]
+        log(f"{leg} leg: K6 {launches['gang_verdict']} launches, K7 {launches['gang_feasibility']}, "
+            f"K2w {launches['scan']}, K3 {launches['compact']}")
+        if dev.type == "cuda" and not (launches["gang_verdict"] and launches["gang_feasibility"]
+                                       and launches["scan"] and launches["compact"]):
+            raise AssertionError(f"the {leg} leg did not launch K2w, K3, K6 and K7: {launches}")
+    return out
+
+
+# ------------------------------------------ the extenderv1 bridge (phases 32-33)
+
+def bridge_cluster(dev, dt):
+    """North's 5 000 nodes with 5 000 of its pods bound in a store, a
+    default-profile service over it (not scheduling), its bridge, and the
+    pending pods and candidate lists phase 32 asks about: (bridge, nodes,
+    cases), a case (pod, candidate node names or None for every node)."""
+    import random
+
+    from kube_scheduler_simulator_tpu_torch.scheduler.scorer_bridge import TPUScorerBridge
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    n_pods, n_nodes, n_bound = BRIDGE["pods"], WORKLOADS["north"].nodes, BRIDGE["bound"]
+    nodes, all_pods, pending, _vols = make_cluster("north", (n_pods, n_nodes, n_bound))
+    store = ClusterStore(clock=lambda: 0.0)
+    store.create("namespaces", {"metadata": {"name": "default"}})
+    for n in nodes:
+        store.create("nodes", n)
+    for p in all_pods[:n_bound]:
+        store.create("pods", p)
+    svc = SchedulerService(store, tie_break="first", device=dev, dtype=dt)
+    svc.start_scheduler(None)
+    names = [n["metadata"]["name"] for n in nodes]
+    rng = random.Random(17)
+    cases = [(p, rng.sample(names, BRIDGE["sample"])) for p in pending[: BRIDGE["pods"]]]
+    cases += [(p, None) for p in pending[: BRIDGE["full"]]]
+    return TPUScorerBridge(svc), nodes, cases
+
+
+def filter_split(resp) -> tuple:
+    """(passed names, failedNodes, failedAndUnresolvableNodes) of a Filter
+    response in either mode."""
+    passed = resp["nodenames"] if resp.get("nodenames") is not None else [
+        n["metadata"]["name"] for n in (resp.get("nodes") or {}).get("items") or []]
+    return list(passed), dict(resp.get("failedNodes") or {}), dict(resp.get("failedAndUnresolvableNodes") or {})
+
+
+def cpu_bridge_oracle() -> list:
+    """Phase 32's reference: the bridge's own oracle fallbacks (the
+    sequential plugins) for every case, on the CPU in float64: per case
+    (passed, failed, unresolvable) and the Prioritize scores over the
+    passed nodes."""
+    import torch
+
+    bridge, nodes, cases = bridge_cluster(torch.device("cpu"), torch.float64)
+    by_name = {n["metadata"]["name"]: n for n in nodes}
+    out = []
+    for pod, names in cases:
+        cand = nodes if names is None else [by_name[nm] for nm in names]
+        passed, failed, unresolvable = bridge._filter_fallback(pod, cand)
+        scores = bridge._prioritize_fallback(pod, passed) if passed else []
+        out.append(([n["metadata"]["name"] for n in passed], failed, unresolvable,
+                    {e["host"]: e["score"] for e in scores}))
+    return out
+
+
+def bridge_phase(dev, oracle_ref) -> dict:
+    """Phase 32: extenderv1 Filter, then Prioritize over the passed nodes,
+    through the bridge on the card at north (16 pods over candidate lists
+    of 500 names, 2 over every node in full ``nodes`` mode), each response
+    held against the bridge's oracle fallback for the same pod (from a CPU
+    worker); no fallback, no error.  Returns the launches and latencies."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    with Phase(f"32. the scorer bridge at north (5 000 nodes, {BRIDGE['bound']} bound): Filter and Prioritize "
+               f"for {BRIDGE['pods']} pods over {BRIDGE['sample']} candidates, {BRIDGE['full']} over every node, "
+               f"float32, on the card"):
+        bridge, nodes, cases = bridge_cluster(dev, torch.float32)
+        lat: dict = {}
+        got = []
+        K.reset_counts()
+        for c, (pod, names) in enumerate(cases):
+            mode = "nodes" if names is None else "nodenames"
+            t0 = time.perf_counter()
+            # extenderv1 ExtenderArgs: full node objects, or names only
+            f = bridge.filter({"pod": pod, "nodes": {"items": nodes}} if names is None
+                              else {"pod": pod, "nodenames": names})
+            t1 = time.perf_counter()
+            fst = bridge._engine.profiler.snapshot()["last_wave"]
+            if f["error"]:
+                raise AssertionError(f"case {c}: Filter error {f['error']!r}")
+            passed, failed, unresolvable = filter_split(f)
+            calls = [("filter", t1 - t0, fst)]
+            p = []
+            if passed:
+                # a scheduler asks Prioritize about the nodes that passed,
+                # and about none when none did
+                pargs = ({"pod": pod, "nodes": {"items": f["nodes"]["items"]}} if names is None
+                         else {"pod": pod, "nodenames": passed})
+                t2 = time.perf_counter()
+                p = bridge.prioritize(pargs)
+                calls.append(("prioritize", time.perf_counter() - t2, bridge._engine.profiler.snapshot()["last_wave"]))
+            got.append((passed, failed, unresolvable, {e["host"]: e["score"] for e in p}))
+            for verb, wall, st in calls:
+                row = {"wall_ms": 1e3 * wall, "encode_ms": 1e3 * (st.get("encode", 0.0) + st.get("upload", 0.0)),
+                       "kernel_ms": 1e3 * (st.get("dispatch", 0.0) + st.get("device_blocked", 0.0)),
+                       "fetch_ms": 1e3 * st.get("trace_fetch", 0.0)}
+                lat.setdefault((verb, mode), []).append(row)
+        launches = dict(K.LAUNCHES)
+        if bridge.fallbacks:
+            raise AssertionError(f"the bridge fell back {bridge.fallbacks} times")
+        med = {f"{verb} {mode} ({len(rows)} calls)": {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+               for (verb, mode), rows in lat.items()}
+        log(f"bridge launches {launches}; median latency by verb: {json.dumps(med)}")
+        t0 = time.perf_counter()
+        oracle = oracle_ref.get()
+        log(f"the oracle (CPU worker) waited for {time.perf_counter() - t0:.2f} s")
+        for c, ((kp, kf, ku, ks), (op, of, ou, os_)) in enumerate(zip(got, oracle)):
+            if kp != op or kf != of or ku != ou:
+                raise AssertionError(f"case {c}: Filter differs from the oracle: passed {len(kp)}/{len(op)}, "
+                                     f"failed {len(kf)}/{len(of)}, unresolvable {len(ku)}/{len(ou)}")
+            if ks != os_:
+                bad = [h for h in ks if ks[h] != os_.get(h)]
+                raise AssertionError(f"case {c}: Prioritize differs from the oracle on {len(bad)} nodes, first {bad[:3]}")
+        counts = [(len(kp), len(kf), len(ku)) for kp, kf, ku, _s in got]
+        log(f"{len(cases)} cases equal the oracle (passed, failed, unresolvable per case: {counts}); "
+            f"requests {bridge.requests}, fallbacks {bridge.fallbacks}")
+        n_calls = sum(bridge.requests.values())
+        if dev.type == "cuda" and launches["scan"] != n_calls:
+            raise AssertionError(f"the bridge launched K2 {launches['scan']} times for {n_calls} calls")
+    return {"launches": launches, "latency": med}
+
+
+def bridge_server(bridge):
+    """(server, its URL prefix, the calls seen, the handler errors): a
+    stdlib ThreadingHTTPServer on 127.0.0.1 serving ``bridge`` at the
+    reference's routes (server/server.py:606-611),
+    ``/api/v1/tpuscorer/{filter,prioritize}``, on a thread of its own;
+    every call's Filter error and every handler error is kept for the phase
+    to check."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    calls: list = []
+    errors: list = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_POST(self):
+            try:
+                args = json.loads(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
+                verb = self.path.rsplit("/", 1)[-1]
+                if self.path == "/api/v1/tpuscorer/filter":
+                    out = bridge.filter(args)
+                elif self.path == "/api/v1/tpuscorer/prioritize":
+                    out = bridge.prioritize(args)
+                else:
+                    raise ValueError(f"no route {self.path}")
+                calls.append((verb, out.get("error", "") if isinstance(out, dict) else ""))
+                code, data = 200, json.dumps(out).encode()
+            except Exception as exc:  # noqa: BLE001 - kept for the phase to fail on
+                errors.append(f"{type(exc).__name__}: {exc}")
+                code, data = 500, json.dumps({"error": str(exc)}).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}/api/v1/tpuscorer", calls, errors
+
+
+def extender_round(device, dt) -> "tuple[dict, dict, dict]":
+    """Phase 33's round: cfg2's cluster with its first EXTENDER_PODS pods
+    pending, a default-profile bridge service over the store served over
+    HTTP, and a scheduler whose configuration has an extender stanza
+    (filter and prioritize verbs, weight 1, nodeCacheCapable) pointing at
+    it; one ``schedule_pending`` round, which takes the sequential cycle.
+    Returns (record, binds, the extender annotations with the bridge's URL
+    replaced by a placeholder), over the pods the round scheduled (cfg2's
+    pod 5 arrives bound to node-7 by nodeName)."""
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.scorer_bridge import TPUScorerBridge
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.utils.simclock import SimClock
+
+    nodes, _all, pending, _vols = make_cluster("cfg2")
+    store = ClusterStore(clock=SimClock(SCENARIO_CLOCK))
+    store.create("namespaces", {"metadata": {"name": "default"}})
+    for n in nodes:
+        store.create("nodes", n)
+    for p in pending[:EXTENDER_PODS]:
+        store.create("pods", p)
+    scheduled = {p["metadata"]["name"] for p in pending[:EXTENDER_PODS] if not p["spec"].get("nodeName")}
+    scorer = SchedulerService(store, tie_break="first", device=device, dtype=dt)
+    scorer.start_scheduler(None)
+    bridge = TPUScorerBridge(scorer)
+    server, url, calls, errors = bridge_server(bridge)
+    try:
+        svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=device,
+                               dtype=dt, clock=SimClock(SCENARIO_CLOCK))
+        svc.start_scheduler({"percentageOfNodesToScore": 100, "extenders": [{
+            "urlPrefix": url, "filterVerb": "filter", "prioritizeVerb": "prioritize", "weight": 1,
+            "nodeCacheCapable": True}]})
+        K.reset_counts()
+        t0 = time.perf_counter()
+        svc.schedule_pending(max_rounds=1)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+    rec = dict(wall_s=wall, launches=launches, calls=len(calls), requests=dict(bridge.requests),
+               fallbacks=bridge.fallbacks, errors=errors, filter_errors=[e for _v, e in calls if e],
+               batch_fallbacks=dict(svc.stats["batch_fallbacks"]), sequential_pods=svc.stats["sequential_pods"],
+               pending=len(scheduled))
+    binds, docs = {}, {}
+    for p in store.list("pods", copy_objects=False):
+        nm = p["metadata"]["name"]
+        if nm not in scheduled:
+            continue
+        binds[nm] = (p.get("spec") or {}).get("nodeName")
+        docs[nm] = {k: v.replace(url, "<bridge>") for k, v in (p["metadata"].get("annotations") or {}).items()
+                    if k.startswith("scheduler-simulator/extender-")}
+    return rec, binds, docs
+
+
+def cpu_extender() -> "tuple[dict, dict, dict]":
+    """Phase 33's round on the CPU in float64 (the bridge too)."""
+    import torch
+
+    return extender_round(torch.device("cpu"), torch.float64)
+
+
+def extender_phase(dev, cpu_ref) -> dict:
+    """Phase 33: the extender round on the card (every extender call one
+    kernel pass of the bridge), its binds and extender annotation bytes
+    against the same round in float64 on the CPU (a worker).  Returns the
+    round's record."""
+    import torch
+
+    with Phase(f"33. the extender round: {EXTENDER_PODS} cfg2 pods through the sequential cycle, the extender "
+               f"stanza served by the bridge over HTTP on the card, float32"):
+        rec, binds, docs = extender_round(dev, torch.float32)
+        log(f"extender round: {json.dumps(rec, sort_keys=True)}")
+        problems = []
+        if rec["errors"] or rec["filter_errors"]:
+            problems.append(f"handler errors {rec['errors'][:3]}, Filter errors {rec['filter_errors'][:3]}")
+        if rec["fallbacks"]:
+            problems.append(f"{rec['fallbacks']} bridge fallbacks")
+        if rec["batch_fallbacks"] != {"extender webhooks configured": 1} or rec["sequential_pods"] != rec["pending"]:
+            problems.append(f"batch fallbacks {rec['batch_fallbacks']}, sequential pods {rec['sequential_pods']} of "
+                            f"{rec['pending']}")
+        if not all(binds.values()) or sum(1 for d in docs.values() if len(d) == 2) != rec["pending"]:
+            problems.append("a pod unbound or without both extender annotations")
+        if dev.type == "cuda" and rec["launches"]["scan"] != rec["calls"]:
+            problems.append(f"K2 launches {rec['launches']['scan']} for {rec['calls']} extender calls")
+        if problems:
+            raise AssertionError(f"extender round: {'; '.join(problems)}")
+        t0 = time.perf_counter()
+        rec_cpu, binds_cpu, docs_cpu = cpu_ref.get()
+        log(f"CPU float64 round (worker process) waited for {time.perf_counter() - t0:.2f} s: "
+            f"{json.dumps(rec_cpu, sort_keys=True)}")
+        if binds != binds_cpu:
+            bad = [n for n in binds if binds[n] != binds_cpu.get(n)]
+            raise AssertionError(f"{len(bad)} binds differ between the CUDA and CPU rounds, first {bad[:3]}")
+        if docs != docs_cpu:
+            bad = [n for n in docs if docs[n] != docs_cpu.get(n)]
+            raise AssertionError(f"{len(bad)} pods' extender annotations differ, first {bad[:3]}")
+        size = sum(len(v) for d in docs.values() for v in d.values())
+        log(f"{len(binds)} binds and {size} bytes of extender annotations equal between the CUDA and CPU rounds")
+    return rec
+
+
 # ------------------------------------------ plain references on the card, in workers
 
 def workload_cfg(name):
@@ -3237,9 +3892,22 @@ def main() -> int:
         log(card)
         log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
             f"count {torch.cuda.device_count()}")
-    with Phase("build"):
-        K.build()
-        log(f"kernel build: {K.build_seconds:.2f} s (nvcc, sm_90a, {len(K.SOURCES)} sources in parallel)")
+    # the build (nvcc, one process a source) runs on a thread of its own:
+    # the workers' references (plain versions and CPU runs need no built
+    # kernel) and the clusters' encoding go on beside it
+    import threading
+
+    build_error: list = []
+
+    def build() -> None:
+        try:
+            K.build()
+        except BaseException as exc:  # noqa: BLE001 - re-raised when the build is joined
+            build_error.append(exc)
+
+    builder = threading.Thread(target=build, name="kernel-build")
+    t_build = time.perf_counter()
+    builder.start()
     with Phase("C renderer (native/fastjson.c)"):
         from kube_scheduler_simulator_tpu_torch import native
 
@@ -3265,6 +3933,8 @@ def main() -> int:
     cpu_stream_ref = _POOL.apply_async(cpu_stream)
     cpu_scenario_ref = _POOL.apply_async(cpu_scenario)
     cpu_autoscale_scenario_ref = _POOL.apply_async(cpu_autoscale_scenario)
+    cpu_bridge_ref = _POOL.apply_async(cpu_bridge_oracle)
+    cpu_extender_ref = _POOL.apply_async(cpu_extender)
 
     # the plain references of phases 2, 23 and 24 run on the card in two
     # worker processes while the main process runs its untimed checks;
@@ -3282,6 +3952,12 @@ def main() -> int:
         pr = E.pad_problem(E.encode(nodes, all_pods, pending, volumes=vols))
         clusters[name] = (nodes, all_pods, pending, vols, pr)
         log(f"{name}: generated and encoded in {time.perf_counter() - t0:.2f} s")
+    with Phase("build (the rest of it, once the workers started and the clusters were encoded)"):
+        builder.join()
+        if build_error:
+            raise build_error[0]
+        log(f"kernel build: {K.build_seconds:.2f} s (nvcc, sm_90a, {len(K.SOURCES)} sources in parallel), "
+            f"{time.perf_counter() - t_build:.2f} s after it started")
 
     # ------------------------------------------------ kernel vs plain
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3742,6 +4418,12 @@ def main() -> int:
     loop_rec = lifecycle_phases(dev, cut64)
     del cut64
 
+    # ------------------------------------------- the journal, the bridge, the extender
+    journal_rec = journal_phases(dev)
+    legs = [journal_rec["launches"][leg] for leg in ("recovered", "promoted")]
+    bridge_rec = bridge_phase(dev, cpu_bridge_ref)
+    ext_rec = extender_phase(dev, cpu_extender_ref)
+
     ref = MAIN
     main = timing[(ref, torch.float32)]
     churn_shape = f"cfg5-churn: window of {WINDOW} of P={churn_pr.P} N={churn_pr.N}"
@@ -3752,10 +4434,12 @@ def main() -> int:
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
             "launches": main_launches["scan"] + stream_launches["scan"] + scen_launches["scan"]
-            + loop_rec["launches"]["scan"],
+            + loop_rec["launches"]["scan"] + bridge_rec["launches"]["scan"] + ext_rec["launches"]["scan"],
             "launches_by_path": {f"{ref} round": main_launches["scan"], "cfg9-stream streamed": stream_launches["scan"],
                                  "cfg11-scenario (windows and one-launch rounds)": scen_launches["scan"],
-                                 "background loop": loop_rec["launches"]["scan"]},
+                                 "background loop": loop_rec["launches"]["scan"],
+                                 "scorer bridge at north": bridge_rec["launches"]["scan"],
+                                 "extender round": ext_rec["launches"]["scan"]},
             "max_abs_err": main["scan_err"],
             "ms": main["scan_ms"],
             "plain_ms": main["scan_plain_ms"],
@@ -3774,7 +4458,10 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1785",
-            "launches": main_launches_churn["scan"],
+            "launches": main_launches_churn["scan"] + sum(leg["scan"] for leg in legs),
+            "launches_by_path": {"cfg5-churn": main_launches_churn["scan"],
+                                 "cfg8-gang-journal recovered leg": legs[0]["scan"],
+                                 "cfg8-gang-journal promoted leg": legs[1]["scan"]},
             "max_abs_err": churn_t["scan_window_err"],
             "ms": churn_t["scan_window_ms"],
             "plain_ms": churn_t["scan_window_plain_ms"],
@@ -3792,11 +4479,16 @@ def main() -> int:
             "source": "kube_scheduler_simulator_tpu_torch/csrc/compact.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:951",
             "launches": main_launches_churn["compact"] + stream_launches["compact"] + scen_launches["compact"]
-            + loop_rec["launches"]["compact"],
+            + loop_rec["launches"]["compact"] + sum(leg["compact"] for leg in legs)
+            + bridge_rec["launches"]["compact"] + ext_rec["launches"]["compact"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["compact"],
                                  "cfg9-stream streamed": stream_launches["compact"],
                                  "cfg11-scenario": scen_launches["compact"],
-                                 "background loop": loop_rec["launches"]["compact"]},
+                                 "background loop": loop_rec["launches"]["compact"],
+                                 "cfg8-gang-journal recovered leg": legs[0]["compact"],
+                                 "cfg8-gang-journal promoted leg": legs[1]["compact"],
+                                 "scorer bridge at north": bridge_rec["launches"]["compact"],
+                                 "extender round": ext_rec["launches"]["compact"]},
             "max_abs_err": churn_t["compact_err"],
             "ms": churn_t["compact_ms"],
             "plain_ms": churn_t["compact_plain_ms"],
@@ -3815,11 +4507,16 @@ def main() -> int:
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scatter.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:614",
             "launches": main_launches_churn["scatter"] + stream_launches["scatter"] + scen_launches["scatter"]
-            + loop_rec["launches"]["scatter"],
+            + loop_rec["launches"]["scatter"] + sum(leg["scatter"] for leg in legs)
+            + bridge_rec["launches"]["scatter"] + ext_rec["launches"]["scatter"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["scatter"],
                                  "cfg9-stream streamed": stream_launches["scatter"],
                                  "cfg11-scenario": scen_launches["scatter"],
-                                 "background loop": loop_rec["launches"]["scatter"]},
+                                 "background loop": loop_rec["launches"]["scatter"],
+                                 "cfg8-gang-journal recovered leg": legs[0]["scatter"],
+                                 "cfg8-gang-journal promoted leg": legs[1]["scatter"],
+                                 "scorer bridge at north": bridge_rec["launches"]["scatter"],
+                                 "extender round": ext_rec["launches"]["scatter"]},
             "max_abs_err": scatter_t["err"],
             "ms": scatter_t["ms"],
             "plain_ms": scatter_t["plain_ms"],
@@ -3852,7 +4549,10 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/gang.cu",
             "replaces": "kube_scheduler_simulator_tpu/gang/kernel.py:43",
-            "launches": gang_launches["gang_verdict"],
+            "launches": gang_launches["gang_verdict"] + sum(leg["gang_verdict"] for leg in legs),
+            "launches_by_path": {"cfg8-gang": gang_launches["gang_verdict"],
+                                 "cfg8-gang-journal recovered leg": legs[0]["gang_verdict"],
+                                 "cfg8-gang-journal promoted leg": legs[1]["gang_verdict"]},
             "max_abs_err": k6_t["err"],
             "ms": k6_t["ms"],
             "plain_ms": k6_t["plain_ms"],
@@ -3870,7 +4570,10 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/gang.cu",
             "replaces": "kube_scheduler_simulator_tpu/gang/kernel.py:108",
-            "launches": k7_t["launches"],
+            "launches": k7_t["launches"] + sum(leg["gang_feasibility"] for leg in legs),
+            "launches_by_path": {"group_preview at cfg8-gang": k7_t["launches"],
+                                 "cfg8-gang-journal recovered leg": legs[0]["gang_feasibility"],
+                                 "cfg8-gang-journal promoted leg": legs[1]["gang_feasibility"]},
             "max_abs_err": k7_t["err"],
             "ms": k7_t["ms"],
             "plain_ms": k7_t["plain_ms"],

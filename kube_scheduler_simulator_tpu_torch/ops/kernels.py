@@ -991,6 +991,8 @@ def compact(
     fields the manifest fixes (offsets, store widths, the grid) are
     computed once per (manifest, N, W, WS, in_step_ws0, profile); a call
     fills in the pointers."""
+    # CPU planes are refused before a launch plan is cached for them
+    _check(out["sample_start"], "sample_start")
     key = (tuple(manifest), dims["N"], W, WS, in_step_ws0, cfg.scores, bool(cfg.filters))
     tmpl, nbytes, src_keys, ptrs = _COMPACT_PLANS.get(key) or _compact_plan(
         key, cfg, dims, W, WS, manifest, in_step_ws0

@@ -347,6 +347,35 @@ class BatchResult:
                 shared["frags"] = tr["frags"]
         return tr["frags"]
 
+    def filter_annotation(self, i: int) -> dict:
+        """The scheduler-simulator/filter-result map for pod i: node →
+        plugin → "passed"/failure message, honoring the first-failure
+        short circuit of the sequential cycle."""
+        assert self._engine.cfg.trace, "run with trace=True for annotations"
+        tr = self._tr()
+        ids = self._visited_ids(i)
+        narrowed = self._prefilter_node_set(i)
+        passed_entry = tr["passed_entry"]
+        node_names = self.problem.node_names
+        filters = self._engine.filters
+        cfg_filters = self._engine.cfg.filters
+        fail_pos = tr["fail_pos"]
+        fp = tr["fail_plug"][i] if tr["fail_plug"] is not None else None
+        fc = tr["fail_code"][i] if tr["fail_code"] is not None else None
+        result: dict = {}
+        for j, n in enumerate(ids):
+            if narrowed is not None and n not in narrowed:
+                continue
+            k = int(fp[j]) if fp is not None else -1
+            if k < 0:
+                result[node_names[n]] = passed_entry
+                continue
+            plugin = cfg_filters[k]
+            entry = {p: PASSED_FILTER_MESSAGE for p in filters[: fail_pos[k]]}
+            entry[plugin] = self._msg(i, int(n), plugin, int(fc[j]))
+            result[node_names[n]] = entry
+        return result
+
     def filter_annotation_json(self, i: int) -> str:
         """go_marshal of pod i's filter-result map (node → plugin →
         "passed"/failure message, first-failure short circuit), assembled
@@ -627,6 +656,29 @@ class BatchResult:
             else:
                 diag[self.problem.node_names[n]] = Status.unschedulable(msg)
         return diag
+
+    def totals_map(self, i: int) -> dict[int, Any]:
+        """FEASIBLE node index → weighted score total (Σ weight ×
+        normalized, recomputed from the compact trace).  Infeasible nodes
+        carry no scores (the cycle never scores them).  Under a weight
+        override the totals are floats (the kernel's own weighted sum),
+        ints otherwise."""
+        tr = self._tr()
+        norm = self.out["trace"]["norm"]
+        wov = self.weight_override  # dispatch-time snapshot, not live
+        sids = tr["sids"][i]
+        totals: dict[int, Any] = {int(n): 0 for n in sids if n >= 0}
+        for k, (_plugin, weight) in enumerate(self._engine.cfg.scores):
+            w = float(wov[k]) if wov is not None else int(weight)
+            norm_row = norm[k][i]
+            for j, n in enumerate(sids):
+                if n >= 0:
+                    totals[int(n)] += int(norm_row[j]) * w
+        return totals
+
+    def feasible_idx(self, i: int) -> set[int]:
+        """Node indices that passed all filters."""
+        return {int(n) for n in self._tr()["sids"][i] if n >= 0}
 
     def fit_failed_ids(self, i: int) -> "np.ndarray":
         """Visited node ids whose first filter failure was NodeResourcesFit —
@@ -937,6 +989,7 @@ class BatchEngine:
         start_index: int = 0,
         volumes: "dict[str, list[Obj]] | None" = None,
         nominated: "list[tuple[Obj, str]] | None" = None,
+        image_nodes: "list[Obj] | None" = None,
     ) -> BatchResult:
         """One batch scheduling pass over ``pending`` (already in queue
         order), in one scan launch.  ``base_counter`` is the framework's
@@ -944,14 +997,17 @@ class BatchEngine:
         tie-break draws); ``start_index`` is the rotating
         next_start_node_index at round start; ``volumes`` the volume kinds
         (default: the store's); ``nominated`` the pending nominations the
-        encoder models as filter-only usage."""
+        encoder models as filter-only usage; ``image_nodes`` the cluster's
+        nodes where ``nodes`` are a subset of them (ImageLocality's spread,
+        ``ops/encode.encode``)."""
         return self._finish_prepped(
-            self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated)
+            self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated,
+                       image_nodes=image_nodes)
         )
 
     def _prep(
         self, nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated=None,
-        prof_rec: "dict | None" = None,
+        prof_rec: "dict | None" = None, image_nodes: "list[Obj] | None" = None,
     ) -> dict:
         """Encode (delta through the EncodeCache) + pad + lower the round's
         problem and place it on the device through the DevicePlacer (reuse,
@@ -974,6 +1030,7 @@ class BatchEngine:
             added_affinity=self.added_affinity,
             volumes=volumes if volumes is not None else self._volumes(),
             nominated=nominated,
+            image_nodes=image_nodes,
         )
         pr = E.pad_problem(self.encode_cache.encode(nodes, all_pods, pending, namespaces, **kw))
         t1 = time.perf_counter()

@@ -69,10 +69,20 @@ swallows every exception; the port's stops at its first one, and
 ``stop_background()`` re-raises it in the caller's thread, so a kernel or
 launch error is never hidden.  ``metrics()`` returns the reference's keys.
 
-Refused with an error, never worked around: a mesh and extenders
-(preempt-verb ones included).  Left out: the journal, and the chaos catch
-of the reference (a kernel or launch error propagates: finishing the round
-on the Python cycle would hide the kernel).
+The configuration's extender webhooks (scheduler/extender.py) run in the
+sequential cycle, as in the reference: a round whose profile has extenders
+takes that cycle, counted as ``"extender webhooks configured"``, and the
+batched PostFilter declines preempt-verb extenders.  With a write-ahead
+journal attached to the store (state/journal.py), the configuration is
+journaled at every (re)start, each commit wave, gang release and sequential
+attempt is one atomic record, and ``metrics()`` reads the journal's
+counters; state/recovery.py rebuilds a crashed store and
+``restore_scheduler_state`` re-arms a fresh service from it, and
+replication/ promotes a live follower the same way.
+
+Refused with an error, never worked around: a mesh.  Left out: the chaos
+catch of the reference (a kernel or launch error propagates: finishing the
+round on the Python cycle would hide the kernel).
 """
 
 from __future__ import annotations
@@ -96,6 +106,7 @@ from kube_scheduler_simulator_tpu_torch.plugins.intree import in_tree_registry
 from kube_scheduler_simulator_tpu_torch.plugins.resultstore import SUCCESS_MESSAGE, ResultStore
 from kube_scheduler_simulator_tpu_torch.plugins.storereflector import RESULT_STORE_KEY, StoreReflector
 from kube_scheduler_simulator_tpu_torch.preemption import nomination_gate, prepare_round
+from kube_scheduler_simulator_tpu_torch.resilience import retry_stats
 from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
 from kube_scheduler_simulator_tpu_torch.scheduler.framework_runner import (
     Framework,
@@ -187,6 +198,9 @@ class SchedulerService:
         self.frameworks: dict[str, Framework] = {}
         self.framework: "Framework | None" = None
         self.result_store: "ResultStore | None" = None
+        # the configuration's extender webhooks, shared by every profile
+        # (set by start_scheduler)
+        self.extender_service: Any = None
         self._result_store_keys: list[str] = []
         # the configuration running, and the first one started (the reset
         # target)
@@ -340,10 +354,12 @@ class SchedulerService:
 
     def start_scheduler(self, cfg: "Obj | None" = None) -> None:
         """Build one Framework per profile of the configuration, keyed by
-        schedulerName.  Extenders are refused."""
+        schedulerName, all sharing one ExtenderService (scheduler/extender.py)
+        for the configuration's extender webhooks.  With a journal attached
+        the configuration is journaled as a ``config`` record."""
+        from kube_scheduler_simulator_tpu_torch.scheduler.extender import ExtenderService
+
         cfg = self._filter_allowed_changes(cfg)
-        if cfg.get("extenders"):
-            raise ValueError("extenders: the extender webhooks are not ported yet")
         profiles = cfg.get("profiles") or [{}]
         names = [p.get("schedulerName") or "default-scheduler" for p in profiles]
         if len(set(names)) != len(names):
@@ -352,10 +368,12 @@ class SchedulerService:
         for key in self._result_store_keys:
             self.reflector.remove_result_store(key)
         self._result_store_keys = []
+        extender_service = ExtenderService(cfg.get("extenders"), self.reflector)
         frameworks: dict[str, Framework] = {}
         for idx, (name, profile) in enumerate(zip(names, profiles)):
             store_key = RESULT_STORE_KEY if idx == 0 else f"{RESULT_STORE_KEY}/{name}"
             fw = self._build_framework(cfg, profile, store_key)
+            fw.extender_service = extender_service
             self._result_store_keys.append(store_key)
             frameworks[name] = fw
         self._profile_names = set(names)
@@ -365,6 +383,7 @@ class SchedulerService:
         # their wait-start marks
         self._wait_move_seq.clear()
         self.result_store = self.framework.result_store
+        self.extender_service = extender_service
         self._batch_engine = None  # rebuilt lazily for the new profiles
         self._batch_engines = {}
         # re-apply a requested weight override onto the fresh frameworks
@@ -372,6 +391,10 @@ class SchedulerService:
         if self._weights_requested is not None:
             self.set_plugin_weights(self._weights_requested)
         self._current_cfg = cfg
+        if getattr(self.cluster_store, "journal", None) is not None:
+            # the active configuration is process state the journal carries:
+            # recovery restarts from the LAST journaled config
+            self.cluster_store.journal_append("config", {"config": cfg})
         # a scheduler (re)build is a scheduling-relevant event
         self.queue.move_all()
         if self._initial_cfg is None:
@@ -1510,15 +1533,14 @@ class SchedulerService:
         """Observability snapshot: the reference's keys, no more and no
         fewer, with the port's counters in the reference's meaning.
 
-        Keys of subsystems the port has not ported report what the
-        reference reports with the subsystem off: ``journal_enabled``,
-        ``journal_records_total``, ``journal_bytes_written_total``,
-        ``journal_fsyncs_total``, ``journal_wedges_total``,
-        ``journal_records_dropped_total``, ``checkpoint_compactions_total``
-        and ``recovery_*`` 0, ``journal_degraded_by_errno`` {} (the
-        journal); ``shard_devices``, ``sharded_dispatches_total`` and
+        The ``journal_*`` and ``checkpoint_compactions_total`` keys read the
+        attached journal's counters, ``recovery_*`` the store's last
+        recovery (0 with no journal), ``retry_by_seam`` the retries counted
+        by resilience/.  Keys of subsystems the port has not ported report
+        what the reference reports with the subsystem off:
+        ``shard_devices``, ``sharded_dispatches_total`` and
         ``plane_shard_bytes_per_device`` 0 (the mesh); ``procmesh`` None;
-        ``retry_by_seam`` {} (resilience/); ``fuzz_scenarios_total`` and
+        ``fuzz_scenarios_total`` and
         ``fuzz_shrink_steps_total`` 0, ``fuzz_divergences_by_kind`` {}
         (fuzz/); ``placer_bank_rotations_total`` 0 and ``placer_banks`` {}
         (the plane banks); ``aot_cache_hits_total``,
@@ -1576,19 +1598,24 @@ class SchedulerService:
             for reason, n in es.get("encode_fallbacks_by_reason", {}).items():
                 enc["encode_fallbacks_by_reason"][reason] = enc["encode_fallbacks_by_reason"].get(reason, 0) + n
         asc_m = self._autoscaler.metrics() if self._autoscaler is not None else None
+        # the write-ahead journal's write-side counters and the last
+        # recovery's outcome: zero with no journal attached
+        journal = getattr(self.cluster_store, "journal", None)
+        jstats = dict(journal.stats) if journal is not None else {}
+        rstats = dict(getattr(self.cluster_store, "recovery_stats", None) or {})
         return {
             **enc,
-            "journal_enabled": 0,
-            "journal_records_total": 0,
-            "journal_bytes_written_total": 0,
-            "journal_fsyncs_total": 0,
-            "journal_wedges_total": 0,
-            "journal_records_dropped_total": 0,
-            "journal_degraded_by_errno": {},
-            "checkpoint_compactions_total": 0,
-            "recovery_replayed_records_total": 0,
-            "recovery_truncated_records_total": 0,
-            "recovery_partial_gangs_total": 0,
+            "journal_enabled": int(journal is not None),
+            "journal_records_total": jstats.get("records", 0),
+            "journal_bytes_written_total": jstats.get("bytes", 0),
+            "journal_fsyncs_total": jstats.get("fsyncs", 0),
+            "journal_wedges_total": jstats.get("wedges", 0),
+            "journal_records_dropped_total": jstats.get("records_dropped", 0),
+            "journal_degraded_by_errno": dict(getattr(journal, "degraded_by_errno", None) or {}),
+            "checkpoint_compactions_total": jstats.get("compactions", 0),
+            "recovery_replayed_records_total": rstats.get("replayed_records", 0),
+            "recovery_truncated_records_total": rstats.get("truncated_records", 0),
+            "recovery_partial_gangs_total": rstats.get("partial_gangs", 0),
             "shard_devices": 0,
             "batch_commits": self.stats["batch_commits"],
             "batch_pods": self.stats["batch_pods"],
@@ -1639,7 +1666,7 @@ class SchedulerService:
             "engine_cum_timings": dict(eng.cum_timings) if eng else {},
             "profile": self.profiler.snapshot(),
             "procmesh": None,
-            "retry_by_seam": {},
+            "retry_by_seam": retry_stats(),
             "autoscaler": asc_m,
         }
 

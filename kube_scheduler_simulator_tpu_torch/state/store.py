@@ -312,9 +312,18 @@ class ClusterStore:
     # ------------------------------------------------------------ durability
 
     def attach_journal(self, journal: Any) -> None:
-        """The write-ahead journal (the reference's state/journal.py) is not
-        ported yet: ``journal`` stays None, so ``journal_txn`` is a no-op."""
-        raise NotImplementedError("the write-ahead journal is not ported yet")
+        """Attach a write-ahead journal (state/journal.py): every event
+        emitted from now on becomes a durable record before the mutating
+        call returns.  Attach at boot, before concurrent mutators exist —
+        the ``self.journal is None`` fast paths are deliberately read
+        without the lock."""
+        with self._lock:
+            self.journal = journal
+            journal.add_meta_provider(lambda: {"counters": self.durability_counters()})
+            # one total order for records and their meta deltas, and no
+            # checkpoint while a transaction's events are unwritten
+            journal.append_lock = self._lock
+            journal.compaction_gate = self._no_open_txns
 
     def _no_open_txns(self) -> bool:
         # lock-free: invoked by Journal.compact with the store lock

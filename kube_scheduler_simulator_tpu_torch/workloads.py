@@ -550,34 +550,70 @@ def gang_churn(
     after each wave the previous wave's jobs complete (members and group
     deleted).  The defaults are cfg8-gang's scale leg (plan seed 24); its
     parity leg is ``jobs=24, min_members=2, max_members=8, nodes=40,
-    seed=23``."""
-    from kube_scheduler_simulator_tpu_torch.gang.scenario import make_member
+    seed=23``.  The same operations, a wave at a time: ``gang_setup`` and
+    ``gang_wave``."""
+    plan = gang_setup(store, jobs, min_members, max_members, nodes, seed, node)
+    for w in range(waves):
+        gang_wave(store, plan, waves, w)
+        yield w
+    # past the last wave, the last-but-one wave's jobs complete
+    gang_wave(store, plan, waves, waves)
 
+
+def gang_setup(
+    store, jobs: int = 200, min_members: int = 8, max_members: int = 64, nodes: int = 220, seed: int = 24,
+    node=mk_node,
+) -> list:
+    """``gang_churn``'s set-up: the default namespace and the nodes; returns
+    the plan (each job's member count)."""
     rng = random.Random(seed)
     plan = [rng.randint(min_members, max_members) for _ in range(jobs)]
     store.create("namespaces", {"metadata": {"name": "default"}})
     for i in range(nodes):
         store.create("nodes", node(i))
+    return plan
+
+
+def gang_jobs(plan: list, waves: int, w: int) -> list:
+    """(group name, member count) of wave ``w``'s jobs (none past the last
+    wave)."""
+    if w >= waves:
+        return []
     per_wave = max(len(plan) // waves, 1)
-    prev: list = []
-    for w in range(waves):
-        batch = plan[w * per_wave : (w + 1) * per_wave] if w < waves - 1 else plan[(waves - 1) * per_wave :]
-        cur = []
-        for j, members in enumerate(batch):
-            g = f"job-{w}-{j}"
-            store.create("podgroups", {"metadata": {"name": g}, "spec": {"minMember": members, "scheduleTimeoutSeconds": 600}})
-            for m in range(members):
-                store.create("pods", make_member(f"{g}-m{m}", g))
-            cur.append((g, members))
-        yield w
-        for g, members in prev:
+    batch = plan[w * per_wave : (w + 1) * per_wave] if w < waves - 1 else plan[(waves - 1) * per_wave :]
+    return [(f"job-{w}-{j}", members) for j, members in enumerate(batch)]
+
+
+def gang_wave(store, plan: list, waves: int, w: int, resume: bool = False) -> None:
+    """The store operations before ``gang_churn`` yields wave ``w``: wave
+    ``w - 2``'s jobs complete (they ran through wave ``w - 1``), then wave
+    ``w``'s jobs arrive.  ``resume``: the wave is re-run after a crash
+    from the last mark, so a create whose object is already there and a
+    delete whose object is already gone are skipped."""
+    from kube_scheduler_simulator_tpu_torch.gang.scenario import make_member
+    from kube_scheduler_simulator_tpu_torch.state.store import AlreadyExistsError
+
+    if w >= 2:
+        for g, members in gang_jobs(plan, waves, w - 2):
             for m in range(members):
                 try:
                     store.delete("pods", f"{g}-m{m}")
                 except KeyError:
                     pass
-            store.delete("podgroups", g)
-        prev = cur
+            try:
+                store.delete("podgroups", g)
+            except KeyError:
+                if not resume:
+                    raise
+    for g, members in gang_jobs(plan, waves, w):
+        objs = [("podgroups", {"metadata": {"name": g}, "spec": {"minMember": members, "scheduleTimeoutSeconds": 600}})]
+        objs += [("pods", make_member(f"{g}-m{m}", g)) for m in range(members)]
+        for kind, obj in objs:
+            try:
+                store.create(kind, obj)
+            except AlreadyExistsError:
+                if not resume:
+                    raise
 
 
 # cfg6-autoscale's node groups (the JAX package's bench ``run_autoscale``):

@@ -62,6 +62,20 @@ def test_the_checks_cover_the_scenario_controller_and_service_modules():
     assert "scenario_churn" in ROUND and "start_background" in ROUND and "SnapshotService" in ROUND
 
 
+def test_the_checks_cover_the_durability_and_extension_modules():
+    """The journal, recovery, replication, resilience, the extender webhooks
+    and the scorer bridge are walked by the AST check; the subprocess check
+    journals a round, recovers and promotes it, and answers extenderv1
+    calls through them."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for module in ("state/__init__.py", "state/journal.py", "state/recovery.py", "resilience/__init__.py",
+                   "resilience/policy.py", "replication/__init__.py", "replication/ship.py",
+                   "replication/apply.py", "replication/promote.py", "replication/replica.py",
+                   "scheduler/extender.py", "scheduler/scorer_bridge.py"):
+        assert module in checked, module
+    assert "boot_recover" in ROUND and "promote_replica" in ROUND and "TPUScorerBridge" in ROUND
+
+
 def test_name_check_tells_the_packages_apart():
     assert _is_forbidden("kube_scheduler_simulator_tpu.ops.batch")
     assert _is_forbidden("jax.numpy")
@@ -145,6 +159,39 @@ ClusterResourceImporter(SnapshotService(sstore, ssvc), SnapshotService(dstore, d
 assert len(dstore.list("pods")) == 32
 reset.reset()
 assert sstore.list("pods") == [] and ResourceWatcherService(sstore) and ScenarioOperator(sstore, ssvc)
+import tempfile
+from kube_scheduler_simulator_tpu_torch.replication import ReplicaApplier, promote_replica
+from kube_scheduler_simulator_tpu_torch.resilience import RetryPolicy
+from kube_scheduler_simulator_tpu_torch.scheduler.scorer_bridge import TPUScorerBridge
+from kube_scheduler_simulator_tpu_torch.state import Journal, boot_recover, restore_scheduler_state
+from kube_scheduler_simulator_tpu_torch.state import scheduler_meta_provider, write_mark
+jdir = tempfile.mkdtemp()
+jstore = ClusterStore(clock=SimClock(0.0))
+jsvc = SchedulerService(jstore, use_batch="force", device="cpu")
+journal = Journal(jdir)
+jstore.attach_journal(journal)
+journal.add_meta_provider(scheduler_meta_provider(jsvc))
+plan = workloads.gang_setup(jstore, jobs=4, min_members=2, max_members=3, nodes=4, seed=2)
+jsvc.start_scheduler(gang_scheduler_config())
+for w in range(2):
+    workloads.gang_wave(jstore, plan, 2, w)
+    jsvc.schedule_pending(max_rounds=3)
+    write_mark(jsvc, w)
+rstore = ClusterStore(clock=SimClock(0.0))
+report = boot_recover(jdir, rstore)
+rsvc = SchedulerService(rstore, use_batch="force", device="cpu")
+rsvc.start_scheduler(report.scheduler_config)
+restore_scheduler_state(rsvc, report)
+assert rstore.dump() == jstore.dump() and report.partial_gangs == 0 and report.last_mark["tick"] == 1
+applier = ReplicaApplier(ClusterStore(clock=SimClock(0.0)), jdir, notify=False)
+applier.bootstrap()
+applier.step()
+promoted = promote_replica(applier, lambda st: SchedulerService(st, device="cpu"))
+assert applier.store.dump() == jstore.dump() and promoted.service.framework is not None
+assert RetryPolicy(seed=1).schedule() == RetryPolicy(seed=1).schedule()
+bridge = TPUScorerBridge(dsvc)
+out = bridge.filter({{"pod": {{"metadata": {{"name": "x"}}, "spec": {{}}}}, "nodenames": [n["metadata"]["name"] for n in dstore.list("nodes")][:3]}})
+assert out["error"] == "" and len(out["nodenames"]) == 3 and bridge.fallbacks == 0, out
 from kube_scheduler_simulator_tpu_torch import native
 assert native.fastjson is not None and native.status()["path"].startswith({str(PORT)!r}), native.status()
 # the port's renderer, never the JAX package's library

@@ -193,7 +193,7 @@ def test_two_profiles_run_as_segments():
     assert set(port._batch_engines) == {"default-scheduler", "packer"} and not port.stats["batch_fallbacks"]
 
 
-def test_the_port_refuses_what_it_has_not_ported():
+def test_the_port_refuses_what_it_has_not_ported(tmp_path):
     store = ClusterStore()
     for kw, what in (
         ({"mesh": object()}, "mesh"),
@@ -207,8 +207,12 @@ def test_the_port_refuses_what_it_has_not_ported():
     # the capacity engine is ported: the knob is accepted
     assert SchedulerService(store, device="cpu", autoscale="on").autoscaler is not None
     svc = SchedulerService(store, device="cpu", use_batch="auto")
-    with pytest.raises(ValueError, match="extender"):
-        svc.start_scheduler({"extenders": [{"urlPrefix": "http://localhost:1", "filterVerb": "filter"}]})
+    # the extender webhooks are ported: a stanza is accepted, and its
+    # ExtenderService is shared by the profiles
+    ext = SchedulerService(ClusterStore(), device="cpu")
+    ext.start_scheduler({"extenders": [{"urlPrefix": "http://localhost:1", "filterVerb": "filter"}]})
+    assert [e.name for e in ext.extender_service.extenders] == ["http://localhost:1"]
+    assert ext.framework.extender_service is ext.extender_service
     # the gang path is ported: a Coscheduling profile starts and batches
     gang = profile_with(["NodeResourcesFit", "Coscheduling"])
     svc.start_scheduler({"profiles": [gang]})
@@ -236,8 +240,14 @@ def test_the_port_refuses_what_it_has_not_ported():
     svc.schedule_stream()
     assert svc.stats["stream_drains"] == {"gang": 1} and svc.stats["stream_waves"] == 0
     assert store.get("pods", "p1")["spec"]["nodeName"] == "node-0"
-    with pytest.raises(NotImplementedError, match="journal"):
-        store.attach_journal(object())
+    # the write-ahead journal is ported: the store attaches one, and each
+    # mutation from then on is a durable record
+    from kube_scheduler_simulator_tpu_torch.state.journal import Journal
+
+    journal = Journal(str(tmp_path))
+    store.attach_journal(journal)
+    store.create("pods", {"metadata": {"name": "p2"}, "spec": {"containers": [{"name": "c"}]}})
+    assert store.journal is journal and journal.stats["records"] == 1
     # the lifecycle is ported: a bad configuration rolls back, the reset
     # returns to the first configuration started, the loop runs and stops,
     # and metrics() answers
