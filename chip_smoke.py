@@ -575,6 +575,10 @@ STREAM_SLEEP_CYCLES = 400_000_000
 # 400 replicas) in float32 on the card; its float64 cut against the CPU; the
 # store and service clocks (SimClock) it starts from
 SCENARIO_F64 = dict(n_nodes=500, n_pods=1000, steps=5, web=20, cordon=10)
+# the float32 run's depth, cut from workloads.SCENARIO's 10 000 pods in 5
+# majors to pay for phase 34 (the first three majors keep the deletions,
+# the rolling cordon and the Deployment's patch)
+SCENARIO_F32 = dict(n_nodes=5000, n_pods=6000, steps=3, web=200, cordon=50)
 SCENARIO_CLOCK = 1_700_000_000.0
 # phase 30 (the lifecycle) on cfg9-stream's cluster: the ticks fed while the
 # background loop runs, the loop's poll interval, its configuration (every
@@ -597,6 +601,12 @@ JOURNAL_KILL_WAVE = 3
 # node, and the pods bound before; phase 33: cfg2 pods scheduled through the
 # extender
 BRIDGE = dict(pods=16, sample=500, full=2, bound=5000)
+# phase 32's second leg: cfg4's pods (inter-pod terms on every pod, spread
+# on every 3rd) over seeded 500-name lists of its 5 000 nodes, its first
+# 5 000 pods bound: spread domains and inter-pod terms reach past every
+# candidate list, so the bridge's answers hold only if its kernel pass sees
+# the cluster
+BRIDGE_LEGS = {"north": BRIDGE, "cfg4": dict(pods=8, sample=500, full=0, bound=5000)}
 EXTENDER_PODS = 64
 # what one BatchEngine round launches
 ROUND_LAUNCHES = {
@@ -1029,14 +1039,22 @@ def round_documents(res, P: int) -> "tuple[list, list]":
 
 
 def pod_digests(store) -> dict:
-    """name → (node, sha256 of the annotations and status)."""
-    return {
-        p["metadata"]["name"]: (
-            (p.get("spec") or {}).get("nodeName"),
-            digest(json.dumps([p["metadata"].get("annotations"), p.get("status")], sort_keys=True)),
-        )
-        for p in store.list("pods", copy_objects=False)
-    }
+    """name → (node, sha256 of the annotations' keys and values and the
+    status), without JSON-encoding the annotation strings: north's 10 000
+    pods carry gigabytes of them."""
+    import hashlib
+
+    out = {}
+    for p in store.list("pods", copy_objects=False):
+        h = hashlib.sha256()
+        for k, v in sorted((p["metadata"].get("annotations") or {}).items()):
+            h.update(k.encode())
+            h.update(b"\0")
+            h.update(str(v).encode())
+            h.update(b"\0")
+        h.update(json.dumps(p.get("status"), sort_keys=True).encode())
+        out[p["metadata"]["name"]] = ((p.get("spec") or {}).get("nodeName"), h.hexdigest())
+    return out
 
 
 def run_churn(spec, device, dt, waves=None, echo=True, digests=True):
@@ -1805,11 +1823,9 @@ def scenario_phases(dev, cpu_scenario_ref, cpu_autoscale_scenario_ref) -> "tuple
     cut's (store, service) for phase 30)."""
     import torch
 
-    from kube_scheduler_simulator_tpu_torch import workloads
-
-    with Phase(f"cfg11-scenario: {json.dumps(workloads.SCENARIO)}, float32, on the card"):
+    with Phase(f"cfg11-scenario cut to {json.dumps(SCENARIO_F32)}, float32, on the card"):
         gc.collect()
-        rec, _out, _store, _svc = run_scenario(DEVICE, torch.float32, workloads.SCENARIO, echo=False)
+        rec, _out, _store, _svc = run_scenario(DEVICE, torch.float32, SCENARIO_F32, echo=False)
         del _out, _store, _svc
         log(f"replay wall {rec['wall_s']:.3f} s; majors " + ", ".join(
             f"{m['major']}: {m['wall_s']:.3f} s {json.dumps(m['launches'], sort_keys=True)}" for m in rec["majors"]))
@@ -3348,19 +3364,21 @@ def journal_phases(dev) -> dict:
 
 # ------------------------------------------ the extenderv1 bridge (phases 32-33)
 
-def bridge_cluster(dev, dt):
-    """North's 5 000 nodes with 5 000 of its pods bound in a store, a
+def bridge_cluster(dev, dt, name: str = "north"):
+    """A workload's 5 000 nodes with 5 000 of its pods bound in a store, a
     default-profile service over it (not scheduling), its bridge, and the
-    pending pods and candidate lists phase 32 asks about: (bridge, nodes,
-    cases), a case (pod, candidate node names or None for every node)."""
+    pending pods and candidate lists phase 32 asks about
+    (``BRIDGE_LEGS[name]``): (bridge, nodes, cases), a case (pod, candidate
+    node names or None for every node)."""
     import random
 
     from kube_scheduler_simulator_tpu_torch.scheduler.scorer_bridge import TPUScorerBridge
     from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
     from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
 
-    n_pods, n_nodes, n_bound = BRIDGE["pods"], WORKLOADS["north"].nodes, BRIDGE["bound"]
-    nodes, all_pods, pending, _vols = make_cluster("north", (n_pods, n_nodes, n_bound))
+    spec = BRIDGE_LEGS[name]
+    n_pods, n_nodes, n_bound = spec["pods"], WORKLOADS[name].nodes, spec["bound"]
+    nodes, all_pods, pending, _vols = make_cluster(name, (n_pods, n_nodes, n_bound))
     store = ClusterStore(clock=lambda: 0.0)
     store.create("namespaces", {"metadata": {"name": "default"}})
     for n in nodes:
@@ -3371,8 +3389,8 @@ def bridge_cluster(dev, dt):
     svc.start_scheduler(None)
     names = [n["metadata"]["name"] for n in nodes]
     rng = random.Random(17)
-    cases = [(p, rng.sample(names, BRIDGE["sample"])) for p in pending[: BRIDGE["pods"]]]
-    cases += [(p, None) for p in pending[: BRIDGE["full"]]]
+    cases = [(p, rng.sample(names, spec["sample"])) for p in pending[: spec["pods"]]]
+    cases += [(p, None) for p in pending[: spec["full"]]]
     return TPUScorerBridge(svc), nodes, cases
 
 
@@ -3384,14 +3402,14 @@ def filter_split(resp) -> tuple:
     return list(passed), dict(resp.get("failedNodes") or {}), dict(resp.get("failedAndUnresolvableNodes") or {})
 
 
-def cpu_bridge_oracle() -> list:
-    """Phase 32's reference: the bridge's own oracle fallbacks (the
-    sequential plugins) for every case, on the CPU in float64: per case
-    (passed, failed, unresolvable) and the Prioritize scores over the
+def cpu_bridge_oracle(name: str = "north") -> list:
+    """Phase 32's reference for one leg: the bridge's own oracle fallbacks
+    (the sequential plugins) for every case, on the CPU in float64: per
+    case (passed, failed, unresolvable) and the Prioritize scores over the
     passed nodes."""
     import torch
 
-    bridge, nodes, cases = bridge_cluster(torch.device("cpu"), torch.float64)
+    bridge, nodes, cases = bridge_cluster(torch.device("cpu"), torch.float64, name)
     by_name = {n["metadata"]["name"]: n for n in nodes}
     out = []
     for pod, names in cases:
@@ -3403,21 +3421,23 @@ def cpu_bridge_oracle() -> list:
     return out
 
 
-def bridge_phase(dev, oracle_ref) -> dict:
-    """Phase 32: extenderv1 Filter, then Prioritize over the passed nodes,
-    through the bridge on the card at north (16 pods over candidate lists
-    of 500 names, 2 over every node in full ``nodes`` mode), each response
-    held against the bridge's oracle fallback for the same pod (from a CPU
+def bridge_phase(dev, oracle_ref, name: str = "north") -> dict:
+    """Phase 32, one leg: extenderv1 Filter, then Prioritize over the
+    passed nodes, through the bridge on the card at ``name`` (north: 16
+    pods over candidate lists of 500 names, 2 over every node in full
+    ``nodes`` mode; cfg4: 8 pods over 500 names), each response held
+    against the bridge's oracle fallback for the same pod (from a CPU
     worker); no fallback, no error.  Returns the launches and latencies."""
     import numpy as np
     import torch
 
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 
-    with Phase(f"32. the scorer bridge at north (5 000 nodes, {BRIDGE['bound']} bound): Filter and Prioritize "
-               f"for {BRIDGE['pods']} pods over {BRIDGE['sample']} candidates, {BRIDGE['full']} over every node, "
+    spec = BRIDGE_LEGS[name]
+    with Phase(f"32. the scorer bridge at {name} (5 000 nodes, {spec['bound']} bound): Filter and Prioritize "
+               f"for {spec['pods']} pods over {spec['sample']} candidates, {spec['full']} over every node, "
                f"float32, on the card"):
-        bridge, nodes, cases = bridge_cluster(dev, torch.float32)
+        bridge, nodes, cases = bridge_cluster(dev, torch.float32, name)
         lat: dict = {}
         got = []
         K.reset_counts()
@@ -3453,7 +3473,7 @@ def bridge_phase(dev, oracle_ref) -> dict:
             raise AssertionError(f"the bridge fell back {bridge.fallbacks} times")
         med = {f"{verb} {mode} ({len(rows)} calls)": {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
                for (verb, mode), rows in lat.items()}
-        log(f"bridge launches {launches}; median latency by verb: {json.dumps(med)}")
+        log(f"{name}: bridge launches {launches}; median latency by verb: {json.dumps(med)}")
         t0 = time.perf_counter()
         oracle = oracle_ref.get()
         log(f"the oracle (CPU worker) waited for {time.perf_counter() - t0:.2f} s")
@@ -3620,6 +3640,358 @@ def extender_phase(dev, cpu_ref) -> dict:
 
 
 # ------------------------------------------ plain references on the card, in workers
+
+# phase 34 (the simulator process at north): north's nodes and pending pods
+# imported over HTTP, ``arrivals`` more created over the kube API, ``gets``
+# seeded pods read back over both APIs, and one session at cfg2's size
+SIM = dict(nodes=5000, pods=10000, arrivals=100, group=8, gets=10, seed=7, cordon="node-17")
+SIM_SESSION = "cfg2"
+SIM_CLOCK = 1_700_000_000.0
+
+
+def sim_http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    """(status, body bytes) of one request to 127.0.0.1:``port``."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def sim_cluster():
+    """(nodes, pending pods, arrivals) of north at phase 34's size."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+
+    w = WORKLOADS["north"]
+    nodes, _all, pending = workloads.cluster(SIM["pods"] + SIM["arrivals"], SIM["nodes"], seed=42,
+                                             n_bound=0, spread=w.spread, interpod=w.interpod)
+    return nodes, pending[: SIM["pods"]], pending[SIM["pods"]:]
+
+
+def session_snapshot() -> dict:
+    """The import body of phase 34's session: cfg2's nodes, bound and
+    pending pods, each pod with the creationTimestamp an exported snapshot
+    carries.  A session's store stamps what arrives without one from the
+    wall clock, in whole seconds, and the queue sorts by that stamp, then
+    by the store's name order: unstamped, the order of the session's round
+    would depend on where a second boundary fell during the import."""
+    nodes, all_pods, _pending, _vols = make_cluster(SIM_SESSION)
+    stamp = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(SIM_CLOCK))
+    for p in all_pods:
+        p["metadata"]["creationTimestamp"] = stamp
+    return {"nodes": nodes, "pods": all_pods}
+
+
+def wait_bound(store, n: int, timeout: float = 600.0, kind_ok=None) -> float:
+    """Wait until ``n`` pods of ``store`` are bound; the seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        bound = sum(1 for p in store.list("pods", copy_objects=False) if (p.get("spec") or {}).get("nodeName"))
+        if bound >= n:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{bound} of {n} pods bound after {timeout} s")
+        time.sleep(0.01)
+
+
+def round_done(svc) -> None:
+    """Wait for the loop's round in flight to end: a tick holds the
+    service's quiesce gate, and a round writes its annotations after its
+    binds."""
+    with svc.pause_streams("phase 34 read"):
+        pass
+
+
+def sim_direct(device: str = DEVICE) -> "tuple[dict, float]":
+    """The reference run of phase 34's steps 1-3: a SchedulerService built
+    as DIContainer builds it (default configuration, seed 0, use_batch
+    auto), the snapshot loaded as POST /api/v1/import loads it, then
+    ``schedule_pending`` directly, then the arrivals' first half, the node
+    cordoned, the second half, ``schedule_pending`` after each.  Returns
+    (pod_digests, its wall); a worker process on the card runs it beside
+    the server's phase."""
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.services.snapshot import SnapshotService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    t0 = time.perf_counter()
+    nodes, pending, arrivals = sim_cluster()
+    store = ClusterStore(clock=lambda: SIM_CLOCK)
+    svc = SchedulerService(store, seed=0, use_batch="auto", autoscale="off", device=device)
+    svc.start_scheduler(None)
+    SnapshotService(store, svc).load({"nodes": nodes, "pods": pending})
+    svc.schedule_pending()
+    for half, part in enumerate(arrival_halves(arrivals)):
+        if half:
+            store.patch("nodes", SIM["cordon"], {"spec": {"unschedulable": True}})
+        for p in part:
+            store.create("pods", copy.deepcopy(p))
+        svc.schedule_pending()
+    return pod_digests(store), time.perf_counter() - t0
+
+
+def arrival_halves(arrivals: list) -> "tuple[list, list]":
+    """Phase 34's arrivals before and after the cordon."""
+    cut = len(arrivals) // 2
+    return arrivals[:cut], arrivals[cut:]
+
+
+def arrival_parts(arrivals: list) -> list:
+    """The server's sends: each half in a burst and a group of
+    ``SIM["group"]`` pods, the groups next to the cordon, each part
+    landing before the next is sent.  A group's rounds have at most a
+    group's pods, so the rounds on both sides of the cordon share one
+    shape and the next one writes the cordoned row with K4."""
+    first, second = arrival_halves(arrivals)
+    g = SIM["group"]
+    return [first[:-g], first[-g:], second[:g], second[g:]]
+
+
+def cpu_sim_session() -> dict:
+    """Phase 34's session reference: a container on the CPU in float64
+    (``DIContainer(device="cpu")``, as the session's but for the device)
+    loads cfg2's snapshot and schedules it in one round, as the session's
+    loop does.  Returns pod_digests."""
+    from kube_scheduler_simulator_tpu_torch.server import DIContainer
+
+    di = DIContainer(device="cpu", enable_simulator_operator=False)
+    try:
+        di.snapshot_service().load(session_snapshot())
+        di.scheduler_service().schedule_pending(max_rounds=1)
+        return pod_digests(di.cluster_store)
+    finally:
+        di.close()
+
+
+def simulator_phase(dev, session_ref, direct_ref) -> dict:
+    """Phase 34: the simulator process at north on the card, in this
+    process: DIContainer + SimulatorServer with both APIs on ephemeral
+    ports, the background loop scheduling what clients create.  Held
+    against ``direct_ref`` (sim_direct, a worker process on the card that
+    runs beside this phase) and ``session_ref`` (cpu_sim_session)."""
+    import random
+    import threading
+
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.server import DIContainer, SimulatorServer
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.tenancy import SUBSTRATE
+
+    rec: dict = {"launches": {}}
+    steps: dict = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        steps[name] = round(now - t_mark[0], 3)
+        t_mark[0] = now
+
+    with Phase(f"34. the simulator process at north ({SIM['nodes']} nodes, {SIM['pods']} pods imported, "
+               f"{SIM['arrivals']} over the kube API, a session at {SIM_SESSION}), on the card"):
+        nodes, pending, arrivals = sim_cluster()
+        snapshot = {"nodes": nodes, "pods": pending}
+        mark("generate")
+        di = DIContainer(cluster_store=ClusterStore(clock=lambda: SIM_CLOCK), device=dev)
+        server = SimulatorServer(di, port=0, kube_api_port=0)
+        port = server.start(background=True)
+        mark("boot")
+        kport = server.kube_api_port
+        store, svc = di.cluster_store, di.scheduler_service()
+        log(f"serving the simulator API on 127.0.0.1:{port}, the kube API on 127.0.0.1:{kport}, device {di.device}")
+        try:
+            # 1-2. the import, and the loop's round over it
+            K.reset_counts()
+            t0 = time.perf_counter()
+            code, _b = sim_http(port, "POST", "/api/v1/import", snapshot)
+            t_import = time.perf_counter() - t0
+            if code != 200:
+                raise AssertionError(f"import answered {code}: {_b[:300]!r}")
+            t_round = wait_bound(store, len(pending))
+            round_done(svc)
+            mark("import and first round")
+            first = dict(K.LAUNCHES)
+            rec["launches"]["import round"] = first
+            eng = svc._batch_engine
+            log(f"import wall {t_import:.3f} s ({len(nodes)} nodes, {len(pending)} pods); first round: "
+                f"{t_round:.3f} s from the import's answer to the last bind, launches K2 {first['scan']} "
+                f"K3 {first['compact']} K4 {first['scatter']}; engine timings "
+                f"{json.dumps({k: round(v, 4) for k, v in (eng.last_timings or {}).items()})}")
+            # 3-4. arrivals over the kube API (arrival_parts), a client
+            # cordoning a node halfway (its row goes to the card by K4 at
+            # the next round), the binds read off a watch
+            rv = store.resource_version
+            qs = "&".join(f"{param}LastResourceVersion={rv}" for param in
+                          ("pods", "nodes", "pvs", "pvcs", "scs", "pcs", "namespace"))
+            import http.client
+
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("GET", f"/api/v1/listwatchresources?{qs}")
+            resp = conn.getresponse()
+            names = {p["metadata"]["name"] for p in arrivals}
+            bound_at: dict = {}
+            counts = {"events": 0}
+
+            def read_watch():
+                buf = b""
+                while len(bound_at) < len(names):
+                    chunk = resp.read1(1 << 20)
+                    if not chunk:
+                        return
+                    buf += chunk
+                    while b"\n" in buf:
+                        line, buf = buf.split(b"\n", 1)
+                        if not line.strip():
+                            continue
+                        ev = json.loads(line)
+                        counts["events"] += 1
+                        obj = ev["Obj"]
+                        nm = obj["metadata"]["name"]
+                        if ev["Kind"] == "pods" and nm in names and (obj.get("spec") or {}).get("nodeName"):
+                            bound_at.setdefault(nm, time.perf_counter())
+
+            reader = threading.Thread(target=read_watch, daemon=True)
+            reader.start()
+            K.reset_counts()
+            sent_at = {}
+            t0 = time.perf_counter()
+            done = len(pending)
+            for k, part in enumerate(arrival_parts(arrivals)):
+                if k == 2:
+                    code, _b = sim_http(kport, "PATCH", f"/api/v1/nodes/{SIM['cordon']}",
+                                        {"spec": {"unschedulable": True}})
+                    if code != 200:
+                        raise AssertionError(f"the cordon answered {code}: {_b[:300]!r}")
+                for p in part:
+                    sent_at[p["metadata"]["name"]] = time.perf_counter()
+                    code, _b = sim_http(kport, "POST", "/api/v1/namespaces/default/pods", p)
+                    if code != 201:
+                        raise AssertionError(f"kube API create answered {code}: {_b[:300]!r}")
+                done += len(part)
+                wait_bound(store, done)
+                round_done(svc)
+            round_done(svc)
+            reader.join(timeout=120)
+            conn.close()
+            t_arrivals = time.perf_counter() - t0
+            later = dict(K.LAUNCHES)
+            rec["launches"]["kube-API arrivals"] = later
+            if len(bound_at) != len(names):
+                raise AssertionError(f"the watch showed {len(bound_at)} of {len(names)} binds")
+            lat = np.array([bound_at[n] - sent_at[n] for n in names])
+            log(f"kube-API arrivals: {len(arrivals)} pods in {t_arrivals:.3f} s, arrival-to-bind latency (watch) "
+                f"median {1e3 * np.median(lat):.1f} ms, p90 {1e3 * np.percentile(lat, 90):.1f} ms, "
+                f"max {1e3 * lat.max():.1f} ms; launches K2 {later['scan']} K3 {later['compact']} "
+                f"K4 {later['scatter']}, scattered {eng._placer.last_scattered}")
+            log(f"watch: {counts['events']} events read, {len(bound_at)} bind events of the arrivals")
+            mark("arrivals")
+            if dev.type == "cuda" and (later["scatter"] == 0 or first["scan"] == 0):
+                raise AssertionError(f"the loop's rounds did not launch K2 and K4: {first} {later}")
+            # 5. seeded pods over both APIs against the store's objects
+            rng = random.Random(SIM["seed"])
+            every = [p["metadata"]["name"] for p in pending + arrivals]
+            for nm in rng.sample(every, SIM["gets"]):
+                want = store.get("pods", nm, "default")
+                # the kube API wraps the object in its type meta
+                typed = {**want, "apiVersion": want.get("apiVersion", "v1"), "kind": want.get("kind", "Pod")}
+                for p_, path, obj in ((port, f"/api/v1/resources/pods/{nm}?namespace=default", want),
+                                      (kport, f"/api/v1/namespaces/default/pods/{nm}", typed)):
+                    code, body = sim_http(p_, "GET", path)
+                    if code != 200 or json.loads(body) != obj:
+                        raise AssertionError(f"GET {path} on :{p_} answered {code} and not the store's object")
+            log(f"{SIM['gets']} seeded pods read over both APIs equal the store's objects")
+            mark("gets")
+            served = pod_digests(store)
+            mark("digests")
+            # 6. metrics
+            code, body = sim_http(port, "GET", "/api/v1/metrics")
+            metrics = {ln.rpartition(" ")[0]: float(ln.rpartition(" ")[2]) for ln in body.decode().splitlines()
+                       if ln and not ln.startswith("#")}
+            picked = {k: metrics.get(k) for k in ("simulator_batch_rounds_total", "simulator_batch_kernel_runs_total",
+                                                  'simulator_scheduled_pods_total{path="batch"}')}
+            log(f"metrics {code}: {json.dumps(picked)}; substrate {json.dumps(SUBSTRATE.stats())}")
+            if code != 200 or not all(picked.values()):
+                raise AssertionError(f"metrics answered {code} with {picked}")
+            mark("metrics")
+            # 7-8. a restart with another configuration, then reset
+            cfg = svc.get_scheduler_config()
+            cfg["profiles"][0]["pluginConfig"] = [{"name": "NodeResourcesFit", "args": {"scoringStrategy": {
+                "type": "MostAllocated", "resources": [{"name": "cpu", "weight": 1}, {"name": "memory", "weight": 1}]}}}]
+            code, _b = sim_http(port, "POST", "/api/v1/schedulerconfiguration", cfg)
+            now = svc.get_scheduler_config()["profiles"][0].get("pluginConfig") or []
+            if code != 202 or not any(pc["name"] == "NodeResourcesFit" and pc["args"]["scoringStrategy"]["type"]
+                                      == "MostAllocated" for pc in now):
+                raise AssertionError(f"the restart answered {code} and did not take the configuration")
+            mark("restart")
+            t0 = time.perf_counter()
+            code, _b = sim_http(port, "PUT", "/api/v1/reset")
+            if code != 202 or store.list("pods", copy_objects=False) or store.list("nodes", copy_objects=False):
+                raise AssertionError(f"reset answered {code} and left objects")
+            log(f"restart 202, reset 202 in {time.perf_counter() - t0:.3f} s: the store is empty")
+            mark("reset")
+            # 9. a session at cfg2's size, scheduled by its own loop
+            t0 = time.perf_counter()
+            code, body = sim_http(port, "POST", "/api/v1/sessions", {"id": "cfg2"})
+            if code != 201:
+                raise AssertionError(f"session create answered {code}: {body[:300]!r}")
+            snap2 = session_snapshot()
+            K.reset_counts()
+            code, _b = sim_http(port, "POST", "/api/v1/sessions/cfg2/import", snap2)
+            sdi = server.sessions.resolve_di("cfg2")
+            wait_bound(sdi.cluster_store, len(snap2["pods"]))
+            round_done(sdi.scheduler_service())
+            t_session = time.perf_counter() - t0
+            rec["launches"]["session"] = dict(K.LAUNCHES)
+            sdig = pod_digests(sdi.cluster_store)
+            mark("session")
+            if sdi.device != di.device or sdi.scheduler_service().device != di.device:
+                raise AssertionError(f"the session runs on {sdi.device}, not {di.device}")
+            code, body = sim_http(port, "GET", "/api/v1/metrics")
+            subs = {ln.rpartition(" ")[0]: float(ln.rpartition(" ")[2]) for ln in body.decode().splitlines()
+                    if ln.startswith("simulator_substrate_fn_")}
+            log(f"session {SIM_SESSION}: {len(snap2['pods'])} pods on {len(snap2['nodes'])} nodes in "
+                f"{t_session:.3f} s (create, import, its loop's round), launches {rec['launches']['session']}; "
+                f"substrate metrics {json.dumps(subs)}")
+            # the substrate resolves the card's kernel entries and launch
+            # plans: a CPU rehearsal reads zeros
+            if dev.type == "cuda" and not (subs.get("simulator_substrate_fn_hits_total")
+                                           and subs.get("simulator_substrate_fn_entries")):
+                raise AssertionError(f"the substrate counters read {subs}")
+        finally:
+            server.shutdown()
+        mark("shutdown")
+        # the direct service on the card, on the same snapshot and arrivals
+        t0 = time.perf_counter()
+        direct, direct_s = direct_ref.get()
+        log(f"the direct service (schedule_pending on the card, a worker process beside this phase): "
+            f"{direct_s:.3f} s; waited for {time.perf_counter() - t0:.2f} s")
+        if direct != served:
+            bad = [n for n in served if served[n] != direct.get(n)]
+            raise AssertionError(f"the server's binds or annotations differ from the direct service's on "
+                                 f"{len(bad)} pods, first {bad[:3]}")
+        log(f"binds and annotation digests of {len(served)} pods equal the direct service's "
+            f"({sum(1 for v in served.values() if v[0])} bound)")
+        t0 = time.perf_counter()
+        want = session_ref.get()
+        log(f"the session's CPU float64 reference waited for {time.perf_counter() - t0:.2f} s")
+        if want != sdig:
+            bad = [n for n in sdig if sdig[n] != want.get(n)]
+            raise AssertionError(f"the session differs from the CPU float64 run on {len(bad)} pods, first "
+                                 f"{[(n, sdig[n], want.get(n)) for n in bad[:2]]}")
+        log(f"the session's {len(sdig)} pods equal the CPU float64 run")
+        mark("checks")
+        log(f"phase 34's steps (s): {json.dumps(steps)}")
+    rec.update(import_s=t_import, round_s=t_round, arrival_ms=float(1e3 * np.median(lat)), session_s=t_session,
+               watch_events=counts["events"])
+    return rec
+
 
 def workload_cfg(name):
     """The scan's configuration of a workload (trace on)."""
@@ -3892,6 +4264,12 @@ def main() -> int:
         log(card)
         log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
             f"count {torch.cuda.device_count()}")
+        try:
+            import yaml
+
+            log(f"yaml imports here (PyYAML {yaml.__version__}); phase 34's path does not need it")
+        except ImportError:
+            log("yaml does not import here; phase 34's path does not need it")
     # the build (nvcc, one process a source) runs on a thread of its own:
     # the workers' references (plain versions and CPU runs need no built
     # kernel) and the clusters' encoding go on beside it
@@ -3933,7 +4311,8 @@ def main() -> int:
     cpu_stream_ref = _POOL.apply_async(cpu_stream)
     cpu_scenario_ref = _POOL.apply_async(cpu_scenario)
     cpu_autoscale_scenario_ref = _POOL.apply_async(cpu_autoscale_scenario)
-    cpu_bridge_ref = _POOL.apply_async(cpu_bridge_oracle)
+    cpu_bridge_refs = {name: _POOL.apply_async(cpu_bridge_oracle, (name,)) for name in BRIDGE_LEGS}
+    cpu_sim_ref = _POOL.apply_async(cpu_sim_session)
     cpu_extender_ref = _POOL.apply_async(cpu_extender)
 
     # the plain references of phases 2, 23 and 24 run on the card in two
@@ -4407,6 +4786,9 @@ def main() -> int:
 
     # ------------------------------------------- the tuner (K9, K2g)
     k9_t, k2g_t = tune_phases(dev, cpu_tune_ref)
+    # phase 34's direct service, in a worker on the card beside phases 28-33
+    # (the plain references are done with the pool by now)
+    sim_direct_ref = _GPU_POOL.apply_async(sim_direct)
 
     # ------------------------------------------- cfg9-stream
     stream_rec = stream_phases(dev, cpu_stream_ref)
@@ -4421,8 +4803,15 @@ def main() -> int:
     # ------------------------------------------- the journal, the bridge, the extender
     journal_rec = journal_phases(dev)
     legs = [journal_rec["launches"][leg] for leg in ("recovered", "promoted")]
-    bridge_rec = bridge_phase(dev, cpu_bridge_ref)
+    bridge_legs = {name: bridge_phase(dev, cpu_bridge_refs[name], name) for name in BRIDGE_LEGS}
+    bridge_rec = bridge_legs["north"]
+    log("phase 32's median latencies (ms) by leg: " + json.dumps(
+        {name: {k: round(v["wall_ms"], 3) for k, v in rec["latency"].items()} for name, rec in bridge_legs.items()}))
     ext_rec = extender_phase(dev, cpu_extender_ref)
+
+    # ------------------------------------------- the simulator process
+    sim_rec = simulator_phase(dev, cpu_sim_ref, sim_direct_ref)
+    sim_launches = {k: sum(rec[k] for rec in sim_rec["launches"].values()) for k in ("scan", "compact", "scatter")}
 
     ref = MAIN
     main = timing[(ref, torch.float32)]
@@ -4434,12 +4823,15 @@ def main() -> int:
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
             "launches": main_launches["scan"] + stream_launches["scan"] + scen_launches["scan"]
-            + loop_rec["launches"]["scan"] + bridge_rec["launches"]["scan"] + ext_rec["launches"]["scan"],
+            + loop_rec["launches"]["scan"] + bridge_rec["launches"]["scan"] + bridge_legs["cfg4"]["launches"]["scan"] + ext_rec["launches"]["scan"]
+            + sim_launches["scan"],
             "launches_by_path": {f"{ref} round": main_launches["scan"], "cfg9-stream streamed": stream_launches["scan"],
                                  "cfg11-scenario (windows and one-launch rounds)": scen_launches["scan"],
                                  "background loop": loop_rec["launches"]["scan"],
                                  "scorer bridge at north": bridge_rec["launches"]["scan"],
-                                 "extender round": ext_rec["launches"]["scan"]},
+                                 "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["scan"],
+                                 "extender round": ext_rec["launches"]["scan"],
+                                 "simulator process at north (phase 34)": sim_launches["scan"]},
             "max_abs_err": main["scan_err"],
             "ms": main["scan_ms"],
             "plain_ms": main["scan_plain_ms"],
@@ -4480,7 +4872,8 @@ def main() -> int:
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:951",
             "launches": main_launches_churn["compact"] + stream_launches["compact"] + scen_launches["compact"]
             + loop_rec["launches"]["compact"] + sum(leg["compact"] for leg in legs)
-            + bridge_rec["launches"]["compact"] + ext_rec["launches"]["compact"],
+            + bridge_rec["launches"]["compact"] + bridge_legs["cfg4"]["launches"]["compact"] + ext_rec["launches"]["compact"]
+            + sim_launches["compact"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["compact"],
                                  "cfg9-stream streamed": stream_launches["compact"],
                                  "cfg11-scenario": scen_launches["compact"],
@@ -4488,7 +4881,9 @@ def main() -> int:
                                  "cfg8-gang-journal recovered leg": legs[0]["compact"],
                                  "cfg8-gang-journal promoted leg": legs[1]["compact"],
                                  "scorer bridge at north": bridge_rec["launches"]["compact"],
-                                 "extender round": ext_rec["launches"]["compact"]},
+                                 "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["compact"],
+                                 "extender round": ext_rec["launches"]["compact"],
+                                 "simulator process at north (phase 34)": sim_launches["compact"]},
             "max_abs_err": churn_t["compact_err"],
             "ms": churn_t["compact_ms"],
             "plain_ms": churn_t["compact_plain_ms"],
@@ -4508,7 +4903,8 @@ def main() -> int:
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:614",
             "launches": main_launches_churn["scatter"] + stream_launches["scatter"] + scen_launches["scatter"]
             + loop_rec["launches"]["scatter"] + sum(leg["scatter"] for leg in legs)
-            + bridge_rec["launches"]["scatter"] + ext_rec["launches"]["scatter"],
+            + bridge_rec["launches"]["scatter"] + bridge_legs["cfg4"]["launches"]["scatter"] + ext_rec["launches"]["scatter"]
+            + sim_launches["scatter"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["scatter"],
                                  "cfg9-stream streamed": stream_launches["scatter"],
                                  "cfg11-scenario": scen_launches["scatter"],
@@ -4516,7 +4912,9 @@ def main() -> int:
                                  "cfg8-gang-journal recovered leg": legs[0]["scatter"],
                                  "cfg8-gang-journal promoted leg": legs[1]["scatter"],
                                  "scorer bridge at north": bridge_rec["launches"]["scatter"],
-                                 "extender round": ext_rec["launches"]["scatter"]},
+                                 "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["scatter"],
+                                 "extender round": ext_rec["launches"]["scatter"],
+                                 "simulator process at north (phase 34)": sim_launches["scatter"]},
             "max_abs_err": scatter_t["err"],
             "ms": scatter_t["ms"],
             "plain_ms": scatter_t["plain_ms"],

@@ -1733,13 +1733,17 @@ def reconstruct_trace(
     raw_dtypes: "tuple[str, ...]",
     p_true: int,
     WS: int,
+    node_active: "np.ndarray | None" = None,
 ) -> dict:
     """Expand the minimal fetch back to the trace interface the annotation
     writer reads (sids [P,WS] int32, raw [S,P,WS] int32, norm [S,P,WS]
     int8, fail planes) — all host-side numpy.
 
     Rows ≥ ``p_true`` are shape padding (pod_active=False in the kernel):
-    their planes are left empty — no consumer reads them."""
+    their planes are left empty — no consumer reads them.  ``node_active``
+    ([n_true] bool, None: all): a real node masked out of the scan's
+    feasibility fails no filter, so it is dropped from the feasible ids
+    here, as the kernel dropped it."""
     P = len(sample_start)
     fp = fetched.get("fail_plug")
     out: dict = {}
@@ -1756,6 +1760,8 @@ def reconstruct_trace(
         in_window = r < proc
         in_window[p_true:] = False
         feas = in_window & (fp < 0)
+        if node_active is not None:
+            feas &= node_active[np.minimum(ids, n_true - 1)]
         pos = np.cumsum(feas, axis=1) - 1
         take = feas & (pos < WS)
         sids = np.full((P, WS), -1, dtype=np.int32)

@@ -285,7 +285,6 @@ def encode(
     seed: "EncodeCache | None" = None,
     rows: "EncodeCache | None" = None,
     node_infos: "list[NodeInfo] | None" = None,
-    image_nodes: "list[Obj] | None" = None,
 ) -> BatchProblem:
     """Encode a scheduling snapshot.
 
@@ -322,11 +321,6 @@ def encode(
     function of (spec signature × the node tables), and the cache is
     emptied whenever the node tables change, so serving a cached row is
     exactly the cold computation.  Implied by ``seed``.
-
-    ``image_nodes``: the cluster's nodes, where ``nodes`` are a subset of
-    them (the scorer bridge's candidates): ImageLocality's spread counts
-    the nodes holding an image over these, as upstream counts it over the
-    scheduler's whole snapshot.  None: over ``nodes``.
     """
     pr = BatchProblem()
     P, N = len(pending), len(nodes)
@@ -599,13 +593,6 @@ def encode(
     else:
         _node_image_sets, img_states, nimg_reps, nimg_idx = _node_image_tables(nodes)
         nimg_sets = None  # built lazily below (only when images exist)
-    n_img = N
-    img_rows = rows.img_rows if rows is not None else None
-    if image_nodes is not None:
-        # the spread over the cluster: its own image index and node count,
-        # and no row cache (its rows are keyed by the round's nodes alone)
-        _sets, img_states, _reps, _idx = _node_image_tables(image_nodes)
-        n_img, img_rows = len(image_nodes), None
     pod_image_lists = [
         tuple(
             _normalized_image_name(c.get("image") or "")
@@ -618,6 +605,7 @@ def encode(
     if img_states:  # all-zero when no node publishes images
         if nimg_sets is None:
             nimg_sets = [set(ns) for ns in nimg_reps]
+        img_rows = rows.img_rows if rows is not None else None
         for a, images in enumerate(pimg_reps):
             if img_rows is not None:
                 hit = img_rows.get(repr(images))
@@ -629,7 +617,7 @@ def encode(
                 for nm in images:
                     if nm in nset_s and nm in img_states:
                         size, cnt = img_states[nm]
-                        total += int(size * cnt / n_img) if n_img else 0
+                        total += int(size * cnt / N) if N else 0
                 img_cls[a, b] = score_from_total(total, len(images))
             if img_rows is not None:
                 img_rows[repr(images)] = img_cls[a].copy()
@@ -1539,7 +1527,6 @@ class EncodeCache:
         added_affinity: "Obj | None" = None,
         volumes: "dict[str, list[Obj]] | None" = None,
         nominated: "list[tuple[Obj, str]] | None" = None,
-        image_nodes: "list[Obj] | None" = None,
     ) -> BatchProblem:
         """Drop-in for :func:`encode`, delta-re-encoding when possible.
 
@@ -1564,7 +1551,7 @@ class EncodeCache:
         with self._lock:
             return self._encode_locked(
                 nodes, all_pods, pending, namespaces,
-                hard_pod_affinity_weight, added_affinity, volumes, nominated, image_nodes,
+                hard_pod_affinity_weight, added_affinity, volumes, nominated,
             )
 
     def invalidate(self, reason: str) -> None:
@@ -1604,7 +1591,6 @@ class EncodeCache:
         added_affinity: "Obj | None",
         volumes: "dict[str, list[Obj]] | None",
         nominated: "list[tuple[Obj, str]] | None",
-        image_nodes: "list[Obj] | None" = None,
     ) -> BatchProblem:
         self._trim_memos()
         state_reason = self._state_gate(nodes, hard_pod_affinity_weight, added_affinity)
@@ -1620,7 +1606,7 @@ class EncodeCache:
                 nodes, all_pods, pending, namespaces,
                 hard_pod_affinity_weight=hard_pod_affinity_weight,
                 added_affinity=added_affinity, volumes=volumes,
-                nominated=nominated, seed=self, image_nodes=image_nodes,
+                nominated=nominated, seed=self,
             )
             self.stats["encode_delta_total"] += 1
             self.stats["encode_rows_reencoded_total"] += self.rows_miss + self._delta_rows
@@ -1646,7 +1632,7 @@ class EncodeCache:
             nodes, all_pods, pending, namespaces,
             hard_pod_affinity_weight=hard_pod_affinity_weight,
             added_affinity=added_affinity, volumes=volumes, nominated=nominated,
-            rows=self if self._primed else None, node_infos=ni, image_nodes=image_nodes,
+            rows=self if self._primed else None, node_infos=ni,
         )
         self.stats["encode_full_total"] += 1
         return pr

@@ -406,10 +406,24 @@ def _check(t: torch.Tensor, name: str, dtype: "torch.dtype | None" = None) -> in
     return t.data_ptr()
 
 
+def _substrate():
+    from kube_scheduler_simulator_tpu_torch.tenancy.substrate import SUBSTRATE
+
+    return SUBSTRATE
+
+
 def _entry(lib: str, dt: torch.dtype):
+    """A scan library's entry for ``dt``, resolved through the tenants'
+    substrate (``tenancy/substrate.py``, family "kernel_entry")."""
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"kernels take float32 or float64 problems, got {dt}")
-    return getattr(build()[lib], f"kss_{lib}_{'f32' if dt == torch.float32 else 'f64'}")
+    sub = _substrate()
+    fn = sub.lookup("kernel_entry", (lib, dt))
+    if fn is None:
+        fn = sub.publish(
+            "kernel_entry", (lib, dt), getattr(build()[lib], f"kss_{lib}_{'f32' if dt == torch.float32 else 'f64'}")
+        )
+    return fn
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -994,9 +1008,14 @@ def compact(
     # CPU planes are refused before a launch plan is cached for them
     _check(out["sample_start"], "sample_start")
     key = (tuple(manifest), dims["N"], W, WS, in_step_ws0, cfg.scores, bool(cfg.filters))
-    tmpl, nbytes, src_keys, ptrs = _COMPACT_PLANS.get(key) or _compact_plan(
-        key, cfg, dims, W, WS, manifest, in_step_ws0
-    )
+    sub = _substrate()
+    plan = sub.lookup("compact_plan", key)
+    if plan is None:
+        plan = sub.publish(
+            "compact_plan", key,
+            _COMPACT_PLANS.get(key) or _compact_plan(key, cfg, dims, W, WS, manifest, in_step_ws0),
+        )
+    tmpl, nbytes, src_keys, ptrs = plan
     a = CompactArgs.from_buffer_copy(tmpl)
     for field, name, dtype in ptrs:
         setattr(a, field, _check(out[name], name, dtype))

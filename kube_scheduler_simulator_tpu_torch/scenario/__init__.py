@@ -5,19 +5,23 @@ empty Reconcile, reference scenario/controllers/scenario_controller.go:48-55);
 the full design lives in keps/140-scenario-based-simulation/README.md and
 is implemented here as a first-class engine over the in-memory store.
 
-The port's copy exports the engine, the operator and the result functions.
-The JAX package's ``simulation.py`` (KEP-184 SchedulerSimulation runs) and
-``simulator_operator.py`` (KEP-159 Simulator objects) build on ``server/``,
-which the port does not have yet; they come with it.
+The port's copy exports what the JAX package's does: the engine, the
+operator, the result functions, KEP-184 SchedulerSimulation runs
+(``simulation.py``) and the KEP-159 Simulator operator
+(``simulator_operator.py``).
 """
 
 from kube_scheduler_simulator_tpu_torch.scenario.engine import ScenarioEngine
 from kube_scheduler_simulator_tpu_torch.scenario.operator import ScenarioOperator
 from kube_scheduler_simulator_tpu_torch.scenario.result import allocation_rate, node_utilization
+from kube_scheduler_simulator_tpu_torch.scenario.simulation import run_scheduler_simulation
+from kube_scheduler_simulator_tpu_torch.scenario.simulator_operator import SimulatorOperator
 
 __all__ = [
     "ScenarioEngine",
     "ScenarioOperator",
+    "SimulatorOperator",
     "allocation_rate",
     "node_utilization",
+    "run_scheduler_simulation",
 ]

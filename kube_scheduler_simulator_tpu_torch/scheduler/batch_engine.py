@@ -989,7 +989,7 @@ class BatchEngine:
         start_index: int = 0,
         volumes: "dict[str, list[Obj]] | None" = None,
         nominated: "list[tuple[Obj, str]] | None" = None,
-        image_nodes: "list[Obj] | None" = None,
+        node_active: "np.ndarray | None" = None,
     ) -> BatchResult:
         """One batch scheduling pass over ``pending`` (already in queue
         order), in one scan launch.  ``base_counter`` is the framework's
@@ -997,17 +997,19 @@ class BatchEngine:
         tie-break draws); ``start_index`` is the rotating
         next_start_node_index at round start; ``volumes`` the volume kinds
         (default: the store's); ``nominated`` the pending nominations the
-        encoder models as filter-only usage; ``image_nodes`` the cluster's
-        nodes where ``nodes`` are a subset of them (ImageLocality's spread,
-        ``ops/encode.encode``)."""
+        encoder models as filter-only usage; ``node_active`` a [len(nodes)]
+        bool mask of the nodes the pods may land on: the others stay in the
+        cluster's state (spread domains, inter-pod terms, image spread) but
+        are never feasible, so no score is taken or normalized over them
+        (the scorer bridge's candidates)."""
         return self._finish_prepped(
             self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated,
-                       image_nodes=image_nodes)
+                       node_active=node_active)
         )
 
     def _prep(
         self, nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated=None,
-        prof_rec: "dict | None" = None, image_nodes: "list[Obj] | None" = None,
+        prof_rec: "dict | None" = None, node_active: "np.ndarray | None" = None,
     ) -> dict:
         """Encode (delta through the EncodeCache) + pad + lower the round's
         problem and place it on the device through the DevicePlacer (reuse,
@@ -1030,9 +1032,10 @@ class BatchEngine:
             added_affinity=self.added_affinity,
             volumes=volumes if volumes is not None else self._volumes(),
             nominated=nominated,
-            image_nodes=image_nodes,
         )
         pr = E.pad_problem(self.encode_cache.encode(nodes, all_pods, pending, namespaces, **kw))
+        if node_active is not None:
+            pr.node_active[: len(nodes)] &= np.asarray(node_active, dtype=bool)
         t1 = time.perf_counter()
         # a round whose resource values would go inexact in the engine's
         # dtype runs in float64, on the same device and kernels
@@ -1235,6 +1238,7 @@ class BatchEngine:
             out["trace"] = B.reconstruct_trace(
                 self.cfg, fetched, out["sample_start"], out["sample_processed"],
                 pr.N_true, out["feasible_count"], raw_dtypes, len(ctx["pending"]), WS,
+                node_active=pr.node_active[: pr.N_true],
             )
             prof.note(rec, "trace_fetch", time.perf_counter() - tb)
         t3 = time.perf_counter()

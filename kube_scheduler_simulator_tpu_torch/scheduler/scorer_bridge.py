@@ -23,9 +23,16 @@ Semantics:
 - Workloads the kernel does not cover fall back to the sequential oracle
   plugins (counted in ``fallbacks``), so the endpoint is always exact.
 
-Each kernel pass is one pod over the candidate nodes (the scan K2a-f, then
+Each kernel pass is one pod over the whole cluster (the scan K2a-f, then
 the compaction K3) on the service's device and dtype: the card unless the
-service runs on the CPU.  A kernel or launch error is never answered by the
+service runs on the CPU.  Every node and bound pod of the store enters the
+pass, as the oracle's snapshot (and upstream's) holds them, so spread
+domains, inter-pod terms and image spread count the cluster; the nodes that
+are not candidates are masked out of the scan's feasibility
+(``BatchEngine.schedule(node_active=)``), so Filter answers and Prioritize
+scores and normalizes over the candidates alone.  The JAX package's bridge
+encodes the candidates and their pods only, and its scores differ from its
+oracle's where a domain reaches past them.  A kernel or launch error is never answered by the
 oracle: Filter reports it in the wire's ``error`` field (the extenderv1
 contract), Prioritize raises.
 
@@ -36,6 +43,8 @@ chosen which nodes to offer (extenders see post-sampling candidates).
 from __future__ import annotations
 
 from typing import Any
+
+import numpy as np
 
 
 Obj = dict[str, Any]
@@ -119,8 +128,9 @@ class TPUScorerBridge:
         return [by_name[nm] for nm in names if nm in by_name], False
 
     def _run(self, pod: Obj, nodes: list[Obj]):
-        """One kernel pass of the pod over the candidate nodes; None when
-        the profile × workload needs the sequential fallback."""
+        """One kernel pass of the pod over the cluster with the candidate
+        nodes active: (result, node name → the result's node index), or
+        None when the profile × workload needs the sequential fallback."""
         with self._lock:
             if self._card is not None:
                 import torch
@@ -135,13 +145,28 @@ class TPUScorerBridge:
                 return None
             store = self.scheduler_service.cluster_store
             # the engine only reads the store's objects, as the service's
-            # rounds do: no copies.  ImageLocality's spread is the
-            # cluster's, as the oracle's snapshot (and upstream's) counts
-            # it, not the candidates'
-            return eng.schedule(
-                nodes, store.list("pods", copy_objects=False), [pod], store.list("namespaces", copy_objects=False),
-                image_nodes=store.list("nodes", copy_objects=False),
+            # rounds do: no copies.  A candidate the caller sent as an
+            # object stands in for the store's node of its name (the
+            # oracle filters the caller's objects); one the store lacks
+            # joins the cluster
+            cluster = store.list("nodes", copy_objects=False)
+            index = {n["metadata"]["name"]: j for j, n in enumerate(cluster)}
+            cluster = list(cluster)
+            active = np.zeros(len(cluster) + len(nodes), dtype=bool)
+            for n in nodes:
+                nm = n["metadata"]["name"]
+                j = index.get(nm)
+                if j is None:
+                    j = index[nm] = len(cluster)
+                    cluster.append(n)
+                else:
+                    cluster[j] = n
+                active[j] = True
+            result = eng.schedule(
+                cluster, store.list("pods", copy_objects=False), [pod], store.list("namespaces", copy_objects=False),
+                node_active=active[: len(cluster)],
             )
+            return result, index
 
     # --------------------------------------------------------------- verbs
 
@@ -152,8 +177,9 @@ class TPUScorerBridge:
         pod = args.get("pod") or {}
         nodes, full_objects = self._nodes_from_args(args)
         try:
-            result = self._run(pod, nodes)
-            if result is not None:
+            ran = self._run(pod, nodes)
+            if ran is not None:
+                result, _index = ran
                 from kube_scheduler_simulator_tpu_torch.plugins.resultstore import (
                     PASSED_FILTER_MESSAGE,
                 )
@@ -205,17 +231,16 @@ class TPUScorerBridge:
         self.requests["prioritize"] += 1
         pod = args.get("pod") or {}
         nodes, _full = self._nodes_from_args(args)
-        result = self._run(pod, nodes)
-        if result is not None and "trace" in result.out:
+        ran = self._run(pod, nodes)
+        if ran is not None and "trace" in ran[0].out:
+            result, index = ran
             totals = result.totals_map(0)
             feasible = result.feasible_idx(0)
-            return [
-                {
-                    "host": n["metadata"]["name"],
-                    "score": totals.get(j, 0) if j in feasible else 0,
-                }
-                for j, n in enumerate(nodes)
-            ]
+            out = []
+            for n in nodes:
+                j = index[n["metadata"]["name"]]
+                out.append({"host": n["metadata"]["name"], "score": totals.get(j, 0) if j in feasible else 0})
+            return out
         self.fallbacks += 1
         return self._prioritize_fallback(pod, nodes)
 

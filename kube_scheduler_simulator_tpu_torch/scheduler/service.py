@@ -67,7 +67,9 @@ autoscaler pass at most every ``autoscale_interval_s`` (idle ticks too, so
 scale-down advances).  One deliberate difference: the reference's loop
 swallows every exception; the port's stops at its first one, and
 ``stop_background()`` re-raises it in the caller's thread, so a kernel or
-launch error is never hidden.  ``metrics()`` returns the reference's keys.
+launch error is never hidden.  A second: each tick of the port's loop holds
+the quiesce gate of ``pause_streams``, so a snapshot load lands whole
+before the next round.  ``metrics()`` returns the reference's keys.
 
 The configuration's extender webhooks (scheduler/extender.py) run in the
 sequential cycle, as in the reference: a round whose profile has extenders
@@ -1715,6 +1717,15 @@ class SchedulerService:
         self._bg_thread.start()
 
     def _background_tick(self) -> None:
+        # the quiesce gate of pause_streams: an exclusive store operation
+        # (a snapshot load: POST /api/v1/import) lands whole before the
+        # loop's next round.  The reference's loop does not take it, so a
+        # round of its loop can see part of an import (pods bound in the
+        # snapshot missing from the nodes they hold)
+        with self._pause_mu:
+            self._tick()
+
+    def _tick(self) -> None:
         if self.framework is None:
             return
         self.process_waiting_pods()

@@ -76,6 +76,20 @@ def test_the_checks_cover_the_durability_and_extension_modules():
     assert "boot_recover" in ROUND and "promote_replica" in ROUND and "TPUScorerBridge" in ROUND
 
 
+def test_the_checks_cover_the_server_and_session_modules():
+    """The simulator process, its HTTP server, the kube API, the session
+    plane, the embeddable scheduler, the simulator configuration, the
+    selectors and the KEP-159/184 modules are walked by the AST check; the
+    subprocess check below boots the process and serves a request."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for module in ("server/__init__.py", "server/di.py", "server/kubeapi.py", "server/metrics.py",
+                   "server/patches.py", "server/server.py", "server/webui.py", "server/wirecache.py",
+                   "tenancy/__init__.py", "tenancy/manager.py", "tenancy/substrate.py", "pkg/__init__.py",
+                   "pkg/debuggablescheduler.py", "simulator.py", "__main__.py", "config/simulator_config.py",
+                   "utils/k8s_selectors.py", "scenario/simulation.py", "scenario/simulator_operator.py"):
+        assert module in checked, module
+
+
 def test_name_check_tells_the_packages_apart():
     assert _is_forbidden("kube_scheduler_simulator_tpu.ops.batch")
     assert _is_forbidden("jax.numpy")
@@ -287,3 +301,66 @@ def test_every_library_entry_the_loader_binds_is_in_its_source():
         text = (kernels.CSRC / kernels.SOURCES[lib]).read_text()
         exported = set(re.findall(r'extern "C" int (\w+)\(', text))
         assert set(entries) <= exported, (lib, set(entries) - exported)
+
+
+PROCESS = f"""
+import logging, os, runpy, signal, sys, threading, time, urllib.request
+sys.path.insert(0, {str(ROOT)!r})
+sys.argv = ["kube_scheduler_simulator_tpu_torch", "--device", "cpu"]
+ports = []
+
+
+class Ports(logging.Handler):
+    def emit(self, rec):
+        if rec.getMessage().startswith("simulator server started"):
+            ports.append(rec.args)
+
+
+logging.getLogger("simulator").addHandler(Ports())
+
+
+def check():
+    while not ports:
+        time.sleep(0.05)
+    port, kube = ports[0]
+    with urllib.request.urlopen(f"http://127.0.0.1:{{port}}/api/v1/schedulerconfiguration", timeout=30) as r:
+        print("status", r.status, int(kube) > 0 and int(kube) != 3131)
+    print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == {REFERENCE!r} or m.startswith({REFERENCE!r} + ".")))
+    sys.stdout.flush()
+    os.kill(os.getpid(), signal.SIGTERM)
+
+
+threading.Thread(target=check, daemon=True).start()
+runpy.run_module("kube_scheduler_simulator_tpu_torch", run_name="__main__")
+"""
+
+
+def _process_env() -> dict:
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KSS_")}
+    env.update(PORT="0", KUBE_API_PORT="0")
+    return env
+
+
+def test_the_process_boots_on_the_cpu_and_loads_no_jax(tmp_path):
+    """``python -m kube_scheduler_simulator_tpu_torch --device cpu`` on
+    ephemeral ports answers a request, and neither JAX nor the JAX package
+    is in its ``sys.modules``."""
+    proc = subprocess.run([sys.executable, "-I", "-c", PROCESS], capture_output=True, text=True, timeout=300,
+                          cwd=str(tmp_path), env=_process_env())
+    assert proc.returncode == 0, proc.stderr
+    status, loaded = proc.stdout.strip().splitlines()[-2:]
+    assert status == "status 200 True", proc.stdout
+    assert loaded == "[]", loaded
+
+
+def test_the_process_refuses_to_start_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the process starts on it")
+    # -m reads the package from the working directory, the repo's root
+    proc = subprocess.run([sys.executable, "-m", "kube_scheduler_simulator_tpu_torch"], capture_output=True,
+                          text=True, timeout=300, cwd=str(ROOT), env=_process_env())
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "simulator server started" not in proc.stderr

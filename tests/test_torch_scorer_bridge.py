@@ -159,6 +159,62 @@ def test_the_kernel_pass_counts_image_spread_over_the_cluster():
     assert port.fallbacks == 0 and differ > 0
 
 
+def probe(store) -> None:
+    """A seeded cluster whose topology domains reach past any candidate
+    list: 40 nodes, 120 bound pods, spread constraints on every pod and
+    inter-pod terms on every other one."""
+    nodes, all_pods, _pending = probe_cluster()
+    store.create("namespaces", {"metadata": {"name": "default"}})
+    for n in nodes:
+        store.create("nodes", n)
+    for p in all_pods[:120]:
+        store.create("pods", p)
+
+
+def probe_cluster():
+    return workloads.cluster(20, 40, seed=9, n_bound=120, spread=lambda i: True, interpod=lambda i: i % 2 == 0)
+
+
+def probe_answers(bridge, oracle) -> "tuple[int, int]":
+    """Ask the bridge Filter and Prioritize about the probe's 20 pods over
+    seeded 8-node candidate lists: (pods whose Filter differs from
+    ``oracle``'s, pods whose Prioritize differs)."""
+    store = bridge.scheduler_service.cluster_store
+    by = {n["metadata"]["name"]: n for n in store.list("nodes")}
+    rng = random.Random(17)
+    f_diff = p_diff = 0
+    for pod in probe_cluster()[2]:
+        cand = rng.sample(sorted(by), 8)
+        f = bridge.filter({"pod": pod, "nodenames": cand})
+        want = oracle._filter_fallback(pod, [by[n] for n in cand])
+        f_diff += (f["nodenames"], f["failedNodes"], f["failedAndUnresolvableNodes"]) != (
+            [n["metadata"]["name"] for n in want[0]], *want[1:])
+        passed = [by[n] for n in f["nodenames"]]
+        if passed:
+            p_diff += bridge.prioritize({"pod": pod, "nodenames": f["nodenames"]}) != oracle._prioritize_fallback(
+                pod, passed)
+    return f_diff, p_diff
+
+
+def test_the_kernel_pass_sees_the_cluster_and_answers_over_the_candidates():
+    """The port's kernel pass encodes every node and bound pod and masks
+    the non-candidates out of feasibility: its Filter and Prioritize equal
+    its oracle's for every probe pod."""
+    _ref, port = bridges(probe)
+    assert probe_answers(port, port) == (0, 0)
+    assert port.fallbacks == 0 and port.requests["prioritize"] > 0
+
+
+def test_the_reference_bridge_differs_from_its_oracle_on_the_probe():
+    """Records a fault of the REFERENCE, not a test of the port: the JAX
+    package's kernel pass encodes the candidates and their pods only, so
+    its Prioritize differs from its own oracle where spread domains and
+    inter-pod terms reach past the candidates."""
+    ref, _port = bridges(probe)
+    _f_diff, p_diff = probe_answers(ref, ref)
+    assert p_diff > 0
+
+
 def test_result_methods_equal_the_references():
     """``filter_annotation``, ``totals_map`` and ``feasible_idx`` of one
     round, without and with a float weight override."""
