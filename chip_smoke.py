@@ -114,7 +114,7 @@ kernel against its plain version.  cfg9-stream times 48 ticks a mode
 (``time_stream.py`` runs the bench's 320) and its float64 leg 8.  The
 float32 churn, cfg7 and cfg8-gang's scale leg hash no pod digests (nothing
 compares them; at full size they cost ~6 ms a MB of annotations).  The float32 churn runs the
-first 3 of its 5 waves (phase 29 replays the same windowed rounds at the
+first 2 of its 5 waves (phase 29 replays the same windowed rounds at the
 same size), cfg8-gang's scale leg all 5.  The CPU float64
 references of phases 4, 9, 14, 18, 22, 26, 28 and 29 run in two worker processes
 started after the build, beside the card's phases.  The plain references
@@ -392,7 +392,31 @@ line):
    configured"), each extender call one kernel pass of the bridge; no
    handler or Filter error, no fallback, every pod bound with both extender
    annotations; the binds and the extender annotation bytes equal the
-   same round in float64 on the CPU (a worker process, its own server).
+   same round in float64 on the CPU (a worker process, its own server);
+35. the differential fuzzer and kernel chaos on the card, float32 (run
+   last; ``fuzz_phases``): (a) ``FUZZ_SWEEP``'s seeded composite scenarios
+   through ``fuzz.smoke.sweep`` (batch against the sequential oracle,
+   streamed against serial), every scenario after the first under
+   ``RecompileGuard(max_compiles=0)``: no divergence, each kernel's
+   launches; (b) ``KernelChaos`` at cfg2 (1 000 pods over 500 nodes, the
+   five-plugin profile, percentage 100, windows of 256): the round's third
+   window's fetch fails while the fourth is already launched; exactly one
+   ``kernel error: ChaosError`` in ``batch_fallbacks``, windows 0-1
+   committed (512 pods), the sequential tail's seconds, every pod's digest
+   equal to the uninterrupted run's on the card; (c) ``KernelChaos`` on
+   cfg9-stream's cluster for ``CHAOS_STREAM_TICKS`` streamed ticks (a
+   decision fetch and a launch fail): both drains counted as ``kernel
+   error: ChaosError``, the store's digest equal to a ``stream_off`` run's;
+   (d) on a thread started before phase 34, one ``ProcessChaos`` kill
+   point of a generated composite scenario on the batch path, its children on
+   the card (loading the built libraries, building none): the recovered
+   trail equal to the uninterrupted child's, no torn record, no partial
+   gang, each reporting child's ``compile_count`` delta 0; (e) after (a),
+   both committed fixtures replayed on fresh harnesses on the card in
+   float64 and float32: no divergence, the committed bytes.  No phase but
+   35 may degrade a kernel error (``kernels.DEGRADES``: each ``Phase``
+   checks it on exit, each worker job too, and it must be empty when phase
+   35 starts).
 
 Before phase 20 the earlier phases' cycles and rounds are collected and
 what is left of the heap is frozen (``gc.freeze``), the tracked objects
@@ -413,7 +437,8 @@ scan's, the compaction's and the scatter's launches add cfg9-stream's
 streamed run's, cfg11-scenario's and the background loop's, K8's the
 autoscale replay's, the scan's, the compaction's and the scatter's the
 bridge's (phases 32 and 33), the windowed scan's, the compaction's, the
-scatter's, K6's and K7's the journaled legs' (phase 31),
+scatter's, K6's and K7's the journaled legs' (phase 31), those of K2,
+K2w, K3, K4, K5, K6 and K8 phase 35's sweep and chaos rounds,
 ``launches_by_path`` apart), and as
 the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
@@ -500,9 +525,10 @@ ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", (1000, 500, 0)), ("cfg4", (1000, 5
 MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
 # cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
 CHURN = (10000, 5000, 5, 50)
-# the first 3 of its 5 waves: phase 29 replays the same windowed rounds at
-# the same size (the churn as a Scenario), so the time goes there
-CHURN_F32_WAVES = 3
+# the first 2 of its 5 waves: phase 29 replays the same windowed rounds at
+# the same size (the churn as a Scenario), so the time goes there (PERF.md
+# §4 names the cut)
+CHURN_F32_WAVES = 2
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
@@ -608,6 +634,23 @@ BRIDGE = dict(pods=16, sample=500, full=2, bound=5000)
 # the cluster
 BRIDGE_LEGS = {"north": BRIDGE, "cfg4": dict(pods=8, sample=500, full=0, bound=5000)}
 EXTENDER_PODS = 64
+# phase 35 (the fuzzer and kernel chaos): the sweep's seed and scenarios
+# (fuzz.smoke.sweep, the KSS_FUZZ_* knobs' meaning); cfg2's chaos trip (the
+# device events of a windowed round: its launch, then one a window fetched,
+# so event 3 is the third window's fetch); cfg9-stream's chaos ticks and
+# trips (a decision fetch, then the next wave's launch); the ProcessChaos
+# scenario's seed and kill record
+FUZZ_SWEEP = dict(seed=0, scenarios=10, shrink_steps=12, budget_s=0.0)
+CHAOS_CFG2_TRIP = 3
+CHAOS_STREAM_TICKS = 6
+CHAOS_STREAM_EVENTS = (1, 3)
+PROCESS_CHAOS = dict(seed=10, kill_record=7)
+# the five-filter, five-score profile as a scheduler configuration
+FIVE_CFG = {"percentageOfNodesToScore": 100, "profiles": [{"schedulerName": "default-scheduler", "plugins": {
+    "multiPoint": {"enabled": [{"name": "PrioritySort"}, *({"name": n} for n in FIVE_FILTERS),
+                               *({"name": n, "weight": w} for n, w in FIVE_SCORES if n not in FIVE_FILTERS),
+                               {"name": "DefaultBinder"}],
+                   "disabled": [{"name": "*"}]}}}]}
 # what one BatchEngine round launches
 ROUND_LAUNCHES = {
     "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
@@ -631,18 +674,44 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+def kernel_degrades() -> dict:
+    """``kernels.DEGRADES``: every kernel error this process degraded."""
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    return dict(K.DEGRADES)
+
+
 class Phase:
-    def __init__(self, name: str):
+    """A timed phase; it fails where it degraded a kernel error (a round,
+    a streamed wave or an estimate finished on the sequential cycle), but
+    where ``chaos`` says the phase injects them."""
+
+    def __init__(self, name: str, chaos: bool = False):
         self.name = name
+        self.chaos = chaos
 
     def __enter__(self):
         self.t0 = time.perf_counter()
+        self.degrades = kernel_degrades()
         log(f"== {self.name}")
         return self
 
     def __exit__(self, *exc):
         if exc[0] is None:
             log(f"== {self.name}: {time.perf_counter() - self.t0:.3f} s")
+            if not self.chaos and kernel_degrades() != self.degrades:
+                raise AssertionError(f"{self.name}: kernel errors degraded outside the chaos phase: "
+                                     f"{kernel_degrades()} (before: {self.degrades})")
+
+
+def no_kernel_errors(fn, *args):
+    """A worker job: ``fn(*args)``, failing where it degraded a kernel
+    error in the worker's process."""
+    before = kernel_degrades()
+    out = fn(*args)
+    if kernel_degrades() != before:
+        raise AssertionError(f"{fn.__name__}{args}: kernel errors degraded: {kernel_degrades()} (before: {before})")
+    return out
 
 
 @contextlib.contextmanager
@@ -2859,7 +2928,7 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
         if sess[torch.float32].promotion is not None:
             raise AssertionError(f"cfg10-tune-10k {family} promoted to float64: {sess[torch.float32].promotion}")
         W, gp, frac = generation0(sess[torch.float32], scores, t)
-        refs = {dt: _GPU_POOL.apply_async(plain_lane_job, (family, str(dt).split(".")[-1], W[gp].tolist()))
+        refs = {dt: _GPU_POOL.apply_async(no_kernel_errors, (plain_lane_job, family, str(dt).split(".")[-1], W[gp].tolist()))
                 for dt in sess}
         families[family] = (sess, obj, W, gp, frac, refs)
     sessions, obj, W, gp, frac, _refs = families["imbalance"]
@@ -2877,7 +2946,7 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
         F = TO.objective_grad(objective, ys, s.dp, s.age_w)
         ref = None
         if objective != "pending_age":
-            ref = _GPU_POOL.apply_async(plain_grad_job, (str(dt).split(".")[-1], W[gp].tolist(), F.cpu().numpy(),
+            ref = _GPU_POOL.apply_async(no_kernel_errors, (plain_grad_job, str(dt).split(".")[-1], W[gp].tolist(), F.cpu().numpy(),
                                                          t["tau"]))
         grad_cases.append((dt, objective, s, w, hard, F, ref))
 
@@ -3217,6 +3286,8 @@ def journal_leg(role: str, spec: dict, device: str, out, go=None, directory: str
         if store.journal is not None:
             store.journal.close()
             rec["epoch"] = dict(store.journal.stats)
+        if kernel_degrades():
+            raise AssertionError(f"the {role} leg degraded kernel errors: {kernel_degrades()}")
         out.put((role, rec))
     except BaseException:  # noqa: BLE001 - handed to the phase, which fails on it
         out.put((role, {"error": traceback.format_exc()}))
@@ -3993,6 +4064,246 @@ def simulator_phase(dev, session_ref, direct_ref) -> dict:
     return rec
 
 
+# ------------------------------------------ the fuzzer and kernel chaos (phase 35)
+
+def fuzz_sweep(dev) -> dict:
+    """Phase 35 (a): the seeded sweep on the card; counts reset just before
+    it and read just after."""
+    from kube_scheduler_simulator_tpu_torch.fuzz import FuzzHarness, smoke
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    with Phase(f"phase 35 (a): the fuzz sweep, {FUZZ_SWEEP['scenarios']} seeded scenarios (seeds "
+               f"{FUZZ_SWEEP['seed']} and {FUZZ_SWEEP['seed'] + 1}), batch against the oracle and streamed against "
+               "serial, on the card, float32"):
+        harness = FuzzHarness(dev)
+        K.reset_counts()
+        t0 = time.perf_counter()
+        report = smoke.sweep(harness, FUZZ_SWEEP, log=log)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        rec = dict(wall_s=wall, scenarios=report["scenarios"], divergences=report["divergences"],
+                   failures=report["failures"], compiles_after_first=report["compiles"],
+                   scenario_s=report["seconds"], coverage=report["coverage"], launches=launches)
+        log(f"fuzz sweep: {json.dumps(rec, sort_keys=True)}")
+        if report["divergences"] or report["failures"] or report["scenarios"] < 8:
+            raise AssertionError(f"the fuzz sweep diverged: {json.dumps(rec)}")
+        if dev.type == "cuda" and (not launches["scan"] or not launches["compact"]):
+            raise AssertionError(f"the fuzz sweep launched no scan or no compaction: {launches}")
+        for (_profile, _role), (_store, svc) in harness._built.items():
+            fb = [r for r in svc.stats["batch_fallbacks"] if r.startswith("kernel error")]
+            dr = [r for r in svc.stats["stream_drains"] if r.startswith("kernel error")]
+            est = svc.autoscaler._estimator if svc.autoscaler is not None else None
+            if fb or dr or (est is not None and est.kernel_errors):
+                raise AssertionError(f"the fuzz sweep's {_role} service counted kernel errors: {fb} {dr}")
+    return rec
+
+
+def fixture_replays(dev) -> dict:
+    """Phase 35 (e): every committed fixture (``fuzz/fixtures/``, one
+    injecting kernel errors) replayed on a fresh harness on the card, in
+    float64 and in float32: no divergence, the committed bytes."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.fuzz import iter_fixture_paths, load_fixture, replay_fixture
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    rec: dict = {}
+    with Phase("phase 35 (e): the committed fixtures replayed on the card, float64 and float32", chaos=True):
+        for path in iter_fixture_paths():
+            fx = load_fixture(path)
+            for dt in (torch.float64, torch.float32):
+                K.reset_counts()
+                t0 = time.perf_counter()
+                v, encoded = replay_fixture(fx, device=dev, dtype=dt)
+                key = f"{os.path.basename(path)} {str(dt).split('.')[-1]}"
+                rec[key] = dict(wall_s=time.perf_counter() - t0, divergences=v["divergences"],
+                                exact=encoded == fx["expected"], launches={k: n for k, n in K.LAUNCHES.items() if n})
+                if v["divergences"] or encoded != fx["expected"]:
+                    raise AssertionError(f"fixture {key}: {json.dumps(rec[key])}")
+        log(f"fixtures: {json.dumps(rec, sort_keys=True)}")
+    return rec
+
+
+def cfg2_service(dev, dt):
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+    nodes, _all, pending, _vols = make_cluster("cfg2")
+    store = ClusterStore(clock=lambda: SCENARIO_CLOCK)
+    for n in nodes:
+        store.create("nodes", n)
+    for p in pending:
+        store.create("pods", p)
+    svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=dev, dtype=dt)
+    svc.start_scheduler(FIVE_CFG)
+    return store, svc
+
+
+def cfg2_chaos(dev) -> dict:
+    """Phase 35 (b): cfg2's round in windows of 256 on the card, once
+    uninterrupted, once with the third window's fetch failing."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.fuzz import KernelChaos
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    recs, digests = {}, {}
+    for leg in ("uninterrupted", "chaos"):
+        with Phase(f"phase 35 (b): cfg2 1000 pods x 500 nodes in windows of {WINDOW}, {leg}, on the card, float32",
+                   chaos=leg == "chaos"):
+            store, svc = cfg2_service(dev, torch.float32)
+            K.reset_counts()
+            t0 = time.perf_counter()
+            if leg == "chaos":
+                with KernelChaos(svc, fail_events={CHAOS_CFG2_TRIP}) as kc:
+                    svc.schedule_pending(max_rounds=1)
+                trips, events = kc.trips, kc.events
+            else:
+                svc.schedule_pending(max_rounds=1)
+                trips = events = 0
+            wall = time.perf_counter() - t0
+            digests[leg] = pod_digests(store)
+            recs[leg] = dict(wall_s=wall, trips=trips, events=events, launches=dict(K.LAUNCHES),
+                             batch_pods=svc.stats["batch_pods"], batch_fallbacks=dict(svc.stats["batch_fallbacks"]),
+                             sequential_tail_s=svc.stats["degrade_s"], commit_s=svc.stats["commit_s"],
+                             restarts=svc.stats["batch_restarts"], windows=svc._batch_engine.last_timings.get("windows"),
+                             bound=sum(1 for v in digests[leg].values() if v[0]))
+            log(f"cfg2 {leg}: {json.dumps(recs[leg], sort_keys=True)}")
+    u, c = recs["uninterrupted"], recs["chaos"]
+    with Phase("phase 35 (b): the chaotic cfg2 round against the uninterrupted one"):
+        if u["batch_fallbacks"] or u["restarts"] or u["windows"] != 4:
+            raise AssertionError(f"cfg2 uninterrupted: {json.dumps(u)}")
+        if c["trips"] != 1 or c["batch_fallbacks"] != {"kernel error: ChaosError": 1}:
+            raise AssertionError(f"cfg2 chaos: {json.dumps(c)}")
+        if c["batch_pods"] != (CHAOS_CFG2_TRIP - 1) * WINDOW or c["sequential_tail_s"] <= 0:
+            raise AssertionError(f"cfg2 chaos: {c['batch_pods']} pods committed before the trip "
+                                 f"({(CHAOS_CFG2_TRIP - 1) * WINDOW} expected)")
+        if digests["chaos"] != digests["uninterrupted"]:
+            bad = [n for n in digests["uninterrupted"] if digests["chaos"].get(n) != digests["uninterrupted"][n]]
+            raise AssertionError(f"cfg2 chaos: {len(bad)} pods differ from the uninterrupted run, first {bad[:3]}")
+        log(f"cfg2 chaos: {len(digests['chaos'])} pods' digests equal the uninterrupted run's; "
+            f"{c['batch_pods']} pods committed from windows before the trip, the sequential tail "
+            f"{c['sequential_tail_s']:.3f} s")
+    return {"uninterrupted": u, "chaos": c}
+
+
+def stream_chaos(dev) -> dict:
+    """Phase 35 (c): cfg9-stream's cluster, ``CHAOS_STREAM_TICKS`` ticks
+    streamed with ``CHAOS_STREAM_EVENTS`` failing, against ``stream_off``."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.fuzz import KernelChaos
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.utils.parity import parity_digest
+
+    cfg9 = workloads.STREAM
+    recs, digests = {}, {}
+    for mode in ("stream_off", "streamed with chaos"):
+        with Phase(f"phase 35 (c): cfg9-stream {CHAOS_STREAM_TICKS} ticks, {mode}, on the card, float32",
+                   chaos=mode != "stream_off"):
+            store = ClusterStore(clock=lambda: 1_700_000_000.0)
+            settled = workloads.stream_cluster(store, cfg9["n_nodes"], cfg9["seed_bound"])
+            svc = SchedulerService(store, tie_break="first", use_batch="force", device=dev, dtype=torch.float32)
+            svc.start_scheduler(None)
+            feed = workloads.steady_feed(store, settled, CHAOS_STREAM_TICKS, 0, cfg9["per_tick"], cfg9["seed_bound"])
+            K.reset_counts()
+            t0 = time.perf_counter()
+            if mode == "stream_off":
+                svc.schedule_stream(feed=feed, streaming=False)
+                trips = 0
+            else:
+                with KernelChaos(svc, fail_events=frozenset(CHAOS_STREAM_EVENTS)) as kc:
+                    svc.schedule_stream(feed=feed, streaming=True)
+                trips = kc.trips
+            wall = time.perf_counter() - t0
+            digests[mode] = parity_digest(store)
+            recs[mode] = dict(wall_s=wall, trips=trips, launches=dict(K.LAUNCHES),
+                              drains=dict(svc.stats["stream_drains"]), waves=svc.stats["stream_waves"],
+                              batch_fallbacks=dict(svc.stats["batch_fallbacks"]),
+                              unbound=len(svc.pending_pods()), digest=digests[mode])
+            log(f"cfg9-stream {mode}: {json.dumps(recs[mode], sort_keys=True)}")
+    off, on = recs["stream_off"], recs["streamed with chaos"]
+    with Phase("phase 35 (c): the chaotic stream against stream_off"):
+        want = {"kernel error: ChaosError": len(CHAOS_STREAM_EVENTS)}
+        got = {r: n for r, n in on["drains"].items() if r.startswith("kernel error")}
+        if on["trips"] != len(CHAOS_STREAM_EVENTS) or got != want or on["batch_fallbacks"]:
+            raise AssertionError(f"cfg9-stream chaos: {json.dumps(on)}")
+        if off["drains"] or off["batch_fallbacks"] or digests["stream_off"] != digests["streamed with chaos"]:
+            raise AssertionError(f"cfg9-stream chaos: digest {on['digest']} against stream_off {off['digest']}")
+        log(f"cfg9-stream chaos: drains {json.dumps(on['drains'])}; the store's digest equals stream_off's "
+            f"({off['digest']})")
+    return {"stream_off": off, "chaos": on}
+
+
+def process_chaos(device: str) -> dict:
+    """Phase 35 (d): one ProcessChaos kill point, its children on
+    ``device``; the parent's kernel build comes first, so the children only
+    load the libraries."""
+    from kube_scheduler_simulator_tpu_torch.fuzz import ProcessChaos, generate_scenario
+
+    scn = generate_scenario(PROCESS_CHAOS["seed"], 0, features=frozenset({"preemption", "churn", "retune"}))
+    pc = ProcessChaos(scn, kill_records=(PROCESS_CHAOS["kill_record"],), role={"use_batch": "auto"},
+                      child_timeout_s=300, device=device)
+    t0 = time.perf_counter()
+    v = pc.run()
+    return dict(v, wall_s=time.perf_counter() - t0, child_compiles=pc.child_compiles,
+                child_launches=pc.child_launches, scenario=scn["name"], features=list(scn["features"]))
+
+
+def start_process_chaos(dev) -> "tuple[Any, dict]":
+    """Phase 35 (d), started on a thread before phase 34 (its children are
+    processes of their own, mostly importing torch and starting CUDA; phase
+    34 is host-bound in this process): (the thread, the box its record or
+    error lands in)."""
+    import threading
+
+    box: dict = {}
+
+    def leg_d() -> None:
+        try:
+            box["rec"] = process_chaos(str(dev))
+        except BaseException as exc:  # noqa: BLE001 - re-raised when the thread is joined
+            box["error"] = exc
+
+    worker = threading.Thread(target=leg_d, name="process-chaos")
+    worker.start()
+    return worker, box
+
+
+def fuzz_phases(dev, leg_d: "tuple[Any, dict]") -> dict:
+    """Phase 35: (a), (e), (b) and (c) here, then (d) joined (started by
+    ``start_process_chaos``)."""
+    if kernel_degrades():
+        raise AssertionError(f"kernel errors degraded before phase 35: {kernel_degrades()}")
+    worker, box = leg_d
+    t0 = time.perf_counter()
+    rec = {"sweep": fuzz_sweep(dev), "fixtures": fixture_replays(dev), "cfg2": cfg2_chaos(dev),
+           "stream": stream_chaos(dev)}
+    with Phase(f"phase 35 (d): ProcessChaos, kill record {PROCESS_CHAOS['kill_record']}, children on the card "
+               "(joined)"):
+        worker.join()
+        if "error" in box:
+            raise box["error"]
+        d = box["rec"]
+        log(f"ProcessChaos: {json.dumps(d, sort_keys=True)[:6000]}")
+        if d["divergences"] or d["truncated_records"] or d["partial_gangs"] or not d["replayed_records"]:
+            raise AssertionError(f"ProcessChaos: {json.dumps(d)[:4000]}")
+        if d["child_compiles"] != [0, 0]:
+            raise AssertionError(f"ProcessChaos children built or loaded libraries: {d['child_compiles']}")
+        if dev.type == "cuda" and not d["child_launches"].get("scan"):
+            raise AssertionError(f"ProcessChaos children launched no scan on the card: {d['child_launches']}")
+    rec["process"] = d
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"phase 35: {rec['wall_s']:.3f} s (the sweep {rec['sweep']['wall_s']:.3f}, cfg2's chaos round "
+        f"{rec['cfg2']['chaos']['wall_s']:.3f} with its sequential tail {rec['cfg2']['chaos']['sequential_tail_s']:.3f}, "
+        f"the stream's chaos {rec['stream']['chaos']['wall_s']:.3f}; ProcessChaos {d['wall_s']:.3f} on its thread, "
+        "from phase 34 on)")
+    return rec
+
+
 def workload_cfg(name):
     """The scan's configuration of a workload (trace on)."""
     from kube_scheduler_simulator_tpu_torch.ops import batch as B
@@ -4302,25 +4613,25 @@ def main() -> int:
     # the CPU references (phases 4 and 9) run beside the card's phases; the
     # longest first
     _POOL = multiprocessing.get_context("spawn").Pool(2, initializer=cpu_worker_init)
-    cpu_refs = {name: _POOL.apply_async(cpu_round, (name, cut)) for name, cut in ANNOTATION_CHECKS}
-    cpu_churn_ref = _POOL.apply_async(cpu_churn, (CHURN_CUT,))
-    cpu_preempt_ref = _POOL.apply_async(cpu_preempt, (PREEMPT_CUT,))
-    cpu_gang_refs = {cut: _POOL.apply_async(cpu_gang, (cut,)) for cut in GANG_CUTS}
-    cpu_autoscale_ref = _POOL.apply_async(cpu_autoscale)
-    cpu_tune_ref = _POOL.apply_async(cpu_tune)
-    cpu_stream_ref = _POOL.apply_async(cpu_stream)
-    cpu_scenario_ref = _POOL.apply_async(cpu_scenario)
-    cpu_autoscale_scenario_ref = _POOL.apply_async(cpu_autoscale_scenario)
-    cpu_bridge_refs = {name: _POOL.apply_async(cpu_bridge_oracle, (name,)) for name in BRIDGE_LEGS}
-    cpu_sim_ref = _POOL.apply_async(cpu_sim_session)
-    cpu_extender_ref = _POOL.apply_async(cpu_extender)
+    cpu_refs = {name: _POOL.apply_async(no_kernel_errors, (cpu_round, name, cut)) for name, cut in ANNOTATION_CHECKS}
+    cpu_churn_ref = _POOL.apply_async(no_kernel_errors, (cpu_churn, CHURN_CUT,))
+    cpu_preempt_ref = _POOL.apply_async(no_kernel_errors, (cpu_preempt, PREEMPT_CUT,))
+    cpu_gang_refs = {cut: _POOL.apply_async(no_kernel_errors, (cpu_gang, cut,)) for cut in GANG_CUTS}
+    cpu_autoscale_ref = _POOL.apply_async(no_kernel_errors, (cpu_autoscale,))
+    cpu_tune_ref = _POOL.apply_async(no_kernel_errors, (cpu_tune,))
+    cpu_stream_ref = _POOL.apply_async(no_kernel_errors, (cpu_stream,))
+    cpu_scenario_ref = _POOL.apply_async(no_kernel_errors, (cpu_scenario,))
+    cpu_autoscale_scenario_ref = _POOL.apply_async(no_kernel_errors, (cpu_autoscale_scenario,))
+    cpu_bridge_refs = {name: _POOL.apply_async(no_kernel_errors, (cpu_bridge_oracle, name,)) for name in BRIDGE_LEGS}
+    cpu_sim_ref = _POOL.apply_async(no_kernel_errors, (cpu_sim_session,))
+    cpu_extender_ref = _POOL.apply_async(no_kernel_errors, (cpu_extender,))
 
     # the plain references of phases 2, 23 and 24 run on the card in two
     # worker processes while the main process runs its untimed checks;
     # every timing waits until they are idle
     _GPU_POOL = multiprocessing.get_context("spawn").Pool(2, initializer=gpu_worker_init)
     dts = (torch.float32, torch.float64)
-    plain_refs = {(name, dt): _GPU_POOL.apply_async(plain_scan_job, (name, str(dt).split(".")[-1]))
+    plain_refs = {(name, dt): _GPU_POOL.apply_async(no_kernel_errors, (plain_scan_job, name, str(dt).split(".")[-1]))
                   for name in WORKLOADS for dt in dts}
 
     clusters = {}
@@ -4788,7 +5099,7 @@ def main() -> int:
     k9_t, k2g_t = tune_phases(dev, cpu_tune_ref)
     # phase 34's direct service, in a worker on the card beside phases 28-33
     # (the plain references are done with the pool by now)
-    sim_direct_ref = _GPU_POOL.apply_async(sim_direct)
+    sim_direct_ref = _GPU_POOL.apply_async(no_kernel_errors, (sim_direct,))
 
     # ------------------------------------------- cfg9-stream
     stream_rec = stream_phases(dev, cpu_stream_ref)
@@ -4810,8 +5121,21 @@ def main() -> int:
     ext_rec = extender_phase(dev, cpu_extender_ref)
 
     # ------------------------------------------- the simulator process
+    # phase 35 (d)'s children run beside phase 34
+    leg_d = start_process_chaos(dev)
     sim_rec = simulator_phase(dev, cpu_sim_ref, sim_direct_ref)
     sim_launches = {k: sum(rec[k] for rec in sim_rec["launches"].values()) for k in ("scan", "compact", "scatter")}
+
+    # ------------------------------------------- the fuzzer and kernel chaos
+    fuzz_rec = fuzz_phases(dev, leg_d)
+    fz = {k: fuzz_rec["sweep"]["launches"][k] + fuzz_rec["stream"]["chaos"]["launches"][k]
+          + fuzz_rec["cfg2"]["chaos"]["launches"][k] for k in K.LAUNCHES}
+    fz_window = fuzz_rec["cfg2"]["chaos"]["launches"]["scan"]
+    fz_scan = fz["scan"] - fz_window
+    log("phase 35's launches by kernel: " + json.dumps({"sweep": fuzz_rec["sweep"]["launches"],
+                                                          "cfg2 chaos": fuzz_rec["cfg2"]["chaos"]["launches"],
+                                                          "stream chaos": fuzz_rec["stream"]["chaos"]["launches"],
+                                                          "ProcessChaos children": fuzz_rec["process"]["child_launches"]}))
 
     ref = MAIN
     main = timing[(ref, torch.float32)]
@@ -4824,14 +5148,15 @@ def main() -> int:
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
             "launches": main_launches["scan"] + stream_launches["scan"] + scen_launches["scan"]
             + loop_rec["launches"]["scan"] + bridge_rec["launches"]["scan"] + bridge_legs["cfg4"]["launches"]["scan"] + ext_rec["launches"]["scan"]
-            + sim_launches["scan"],
+            + sim_launches["scan"] + fz_scan,
             "launches_by_path": {f"{ref} round": main_launches["scan"], "cfg9-stream streamed": stream_launches["scan"],
                                  "cfg11-scenario (windows and one-launch rounds)": scen_launches["scan"],
                                  "background loop": loop_rec["launches"]["scan"],
                                  "scorer bridge at north": bridge_rec["launches"]["scan"],
                                  "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["scan"],
                                  "extender round": ext_rec["launches"]["scan"],
-                                 "simulator process at north (phase 34)": sim_launches["scan"]},
+                                 "simulator process at north (phase 34)": sim_launches["scan"],
+                                 "fuzz sweep and stream chaos (phase 35)": fz_scan},
             "max_abs_err": main["scan_err"],
             "ms": main["scan_ms"],
             "plain_ms": main["scan_plain_ms"],
@@ -4850,10 +5175,11 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan.cu",
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1785",
-            "launches": main_launches_churn["scan"] + sum(leg["scan"] for leg in legs),
+            "launches": main_launches_churn["scan"] + sum(leg["scan"] for leg in legs) + fz_window,
             "launches_by_path": {"cfg5-churn": main_launches_churn["scan"],
                                  "cfg8-gang-journal recovered leg": legs[0]["scan"],
-                                 "cfg8-gang-journal promoted leg": legs[1]["scan"]},
+                                 "cfg8-gang-journal promoted leg": legs[1]["scan"],
+                                 "cfg2 kernel chaos (phase 35)": fz_window},
             "max_abs_err": churn_t["scan_window_err"],
             "ms": churn_t["scan_window_ms"],
             "plain_ms": churn_t["scan_window_plain_ms"],
@@ -4873,7 +5199,7 @@ def main() -> int:
             "launches": main_launches_churn["compact"] + stream_launches["compact"] + scen_launches["compact"]
             + loop_rec["launches"]["compact"] + sum(leg["compact"] for leg in legs)
             + bridge_rec["launches"]["compact"] + bridge_legs["cfg4"]["launches"]["compact"] + ext_rec["launches"]["compact"]
-            + sim_launches["compact"],
+            + sim_launches["compact"] + fz["compact"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["compact"],
                                  "cfg9-stream streamed": stream_launches["compact"],
                                  "cfg11-scenario": scen_launches["compact"],
@@ -4883,7 +5209,8 @@ def main() -> int:
                                  "scorer bridge at north": bridge_rec["launches"]["compact"],
                                  "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["compact"],
                                  "extender round": ext_rec["launches"]["compact"],
-                                 "simulator process at north (phase 34)": sim_launches["compact"]},
+                                 "simulator process at north (phase 34)": sim_launches["compact"],
+                                 "fuzz and kernel chaos (phase 35)": fz["compact"]},
             "max_abs_err": churn_t["compact_err"],
             "ms": churn_t["compact_ms"],
             "plain_ms": churn_t["compact_plain_ms"],
@@ -4904,7 +5231,7 @@ def main() -> int:
             "launches": main_launches_churn["scatter"] + stream_launches["scatter"] + scen_launches["scatter"]
             + loop_rec["launches"]["scatter"] + sum(leg["scatter"] for leg in legs)
             + bridge_rec["launches"]["scatter"] + bridge_legs["cfg4"]["launches"]["scatter"] + ext_rec["launches"]["scatter"]
-            + sim_launches["scatter"],
+            + sim_launches["scatter"] + fz["scatter"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["scatter"],
                                  "cfg9-stream streamed": stream_launches["scatter"],
                                  "cfg11-scenario": scen_launches["scatter"],
@@ -4914,7 +5241,8 @@ def main() -> int:
                                  "scorer bridge at north": bridge_rec["launches"]["scatter"],
                                  "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["scatter"],
                                  "extender round": ext_rec["launches"]["scatter"],
-                                 "simulator process at north (phase 34)": sim_launches["scatter"]},
+                                 "simulator process at north (phase 34)": sim_launches["scatter"],
+                                 "fuzz and kernel chaos (phase 35)": fz["scatter"]},
             "max_abs_err": scatter_t["err"],
             "ms": scatter_t["ms"],
             "plain_ms": scatter_t["plain_ms"],
@@ -4931,7 +5259,9 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/preempt.cu",
             "replaces": "kube_scheduler_simulator_tpu/preemption/kernel.py:34",
-            "launches": prec["launches"]["preempt"],
+            "launches": prec["launches"]["preempt"] + fz["preempt"],
+            "launches_by_path": {"cfg7-preempt-5k": prec["launches"]["preempt"],
+                                 "fuzz sweep (phase 35)": fz["preempt"]},
             "max_abs_err": k5_t["err"],
             "ms": k5_t["ms"],
             "plain_ms": k5_t["plain_ms"],
@@ -4947,10 +5277,11 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/gang.cu",
             "replaces": "kube_scheduler_simulator_tpu/gang/kernel.py:43",
-            "launches": gang_launches["gang_verdict"] + sum(leg["gang_verdict"] for leg in legs),
+            "launches": gang_launches["gang_verdict"] + sum(leg["gang_verdict"] for leg in legs) + fz["gang_verdict"],
             "launches_by_path": {"cfg8-gang": gang_launches["gang_verdict"],
                                  "cfg8-gang-journal recovered leg": legs[0]["gang_verdict"],
-                                 "cfg8-gang-journal promoted leg": legs[1]["gang_verdict"]},
+                                 "cfg8-gang-journal promoted leg": legs[1]["gang_verdict"],
+                                 "fuzz sweep (phase 35)": fz["gang_verdict"]},
             "max_abs_err": k6_t["err"],
             "ms": k6_t["ms"],
             "plain_ms": k6_t["plain_ms"],
@@ -4995,9 +5326,10 @@ def main() -> int:
             "route": "cuda",
             "source": "kube_scheduler_simulator_tpu_torch/csrc/scan_masked.cu",
             "replaces": "kube_scheduler_simulator_tpu/autoscaler/estimator.py:186",
-            "launches": k8_t["launches"] + ascen_rec["k8_launches"],
+            "launches": k8_t["launches"] + ascen_rec["k8_launches"] + fz["scan_lanes"],
             "launches_by_path": {"cfg6-autoscale": k8_t["launches"],
-                                 "the autoscale replay (cfg11-scenario phase)": ascen_rec["k8_launches"]},
+                                 "the autoscale replay (cfg11-scenario phase)": ascen_rec["k8_launches"],
+                                 "fuzz sweep (phase 35)": fz["scan_lanes"]},
             "max_abs_err": k8_t["err"],
             "ms": k8_t["ms"],
             "plain_ms": k8_t["plain_ms"],

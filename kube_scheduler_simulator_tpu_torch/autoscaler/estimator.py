@@ -35,16 +35,18 @@ Each dispatch is bounded for exactness as a scheduling round is
 
 Where ``supported()`` refuses the profile x workload combination, the
 estimator uses a host-side first-fit over cpu/memory/pods only
-(``method="resource-fallback"`` on the estimates).  Unlike the reference,
-a kernel or launch error is never caught into that fallback: it
-propagates, so ``kernel_errors`` stays 0 (a round's kernel error
-propagates the same way).  ``method`` keeps the reference's wire value
-``"xla-batch"`` for the lane-kernel path, so action records and events
-compare byte for byte between the two packages.
+(``method="resource-fallback"`` on the estimates).  A kernel or launch
+error in a supported estimate degrades to the same first-fit, as the
+reference's does: counted in ``kernel_errors`` and logged with its
+traceback.  A library build or load error, or a lost CUDA context,
+propagates (``kernels.degradable``).  ``method`` keeps the reference's
+wire value ``"xla-batch"`` for the lane-kernel path, so action records and
+events compare byte for byte between the two packages.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -55,6 +57,9 @@ import torch
 from kube_scheduler_simulator_tpu_torch.autoscaler import nodegroups as ng
 from kube_scheduler_simulator_tpu_torch.ops import batch as B
 from kube_scheduler_simulator_tpu_torch.ops import encode as E
+from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+logger = logging.getLogger("autoscaler.estimator")
 
 Obj = dict[str, Any]
 SPLIT = ("encode_s", "lower_s", "launch_s", "fetch_s")
@@ -132,8 +137,7 @@ class ScaleUpEstimator:
         self.cum_estimate_s = 0.0
         self.sharded_dispatches = 0
         self.shard_plane_bytes_per_device = 0
-        # kernel errors propagate (module docstring): kept at 0 for the
-        # reference's metric keys
+        # supported estimates whose kernel failed and took the first-fit
         self.kernel_errors = 0
         # the last dispatch's exactness bound (column, magnitude) and the
         # dispatches promoted to float64, by reason
@@ -202,7 +206,22 @@ class ScaleUpEstimator:
 
         ok, _why = self.engine.supported(pending, synth_nodes, volumes=volumes)
         if ok:
-            out = self._estimate_kernel(blocks, synth_nodes, pending, namespaces, volumes)
+            try:
+                out = self._estimate_kernel(blocks, synth_nodes, pending, namespaces, volumes)
+            except Exception as e:
+                if not K.degradable(e, self.engine.device, "estimate"):
+                    raise
+                # degrade rather than stop the autoscaler, but loudly:
+                # supported() said the kernel covers this workload, so this
+                # is a kernel-path fault, not an expected fallback
+                self.kernel_errors += 1
+                logger.exception(
+                    "scale-up estimation kernel failed (%d pods x %d template rows); "
+                    "degrading to the resource-only fallback",
+                    len(pending),
+                    len(synth_nodes),
+                )
+                out = self._estimate_resources(blocks, pending)
         else:
             out = self._estimate_resources(blocks, pending)
         dt = time.perf_counter() - t0

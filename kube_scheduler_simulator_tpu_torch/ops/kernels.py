@@ -79,6 +79,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -339,6 +340,16 @@ ENTRIES = {
 
 _LIBS: "dict[str, ctypes.CDLL]" = {}
 build_seconds = 0.0
+# every nvcc that build() started and every library it loaded, since the
+# process started (analysis/runtime.compile_count reads their sum)
+BUILDS = {"nvcc": 0, "loads": 0}
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built or loaded (nvcc missing or
+    failing, a library missing where ``build(compile=False)`` may not
+    compile it, a library or entry point that does not load).  Never
+    degraded to the sequential cycle: ``degradable`` lets it propagate."""
 
 
 def _nvcc() -> str:
@@ -359,9 +370,11 @@ def _lib_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h}.so"
 
 
-def build() -> "dict[str, ctypes.CDLL]":
+def build(compile: bool = True) -> "dict[str, ctypes.CDLL]":
     """Compile every kernel source that has no library for its current hash
-    (one ``nvcc`` per source, all started together), then load them."""
+    (one ``nvcc`` per source, all started together), then load them.  With
+    ``compile=False`` a missing library raises instead (a child process
+    loads what its parent built).  Every failure is a ``KernelBuildError``."""
     global build_seconds
     if len(_LIBS) == len(SOURCES):
         return _LIBS
@@ -372,23 +385,61 @@ def build() -> "dict[str, ctypes.CDLL]":
         src = CSRC / fn
         out = _lib_path(src)
         if not out.exists():
+            if not compile:
+                raise KernelBuildError(f"no library for csrc/{fn} in {BUILD_DIR} (build(compile=False))")
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
+            try:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            except OSError as exc:
+                raise KernelBuildError(f"cannot start nvcc for csrc/{fn}: {exc}") from exc
+            BUILDS["nvcc"] += 1
+            jobs[name] = (proc, tmp, out)
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{SOURCES[name]}:\n{log.decode(errors='replace')}")
+            raise KernelBuildError(f"nvcc failed for csrc/{SOURCES[name]}:\n{log.decode(errors='replace')}")
         os.replace(tmp, out)
     for name, fn in SOURCES.items():
-        lib = ctypes.CDLL(str(_lib_path(CSRC / fn)))
-        for entry, argtypes in ENTRIES[name].items():
-            f = getattr(lib, entry)
-            f.restype = ctypes.c_int
-            f.argtypes = argtypes
+        try:
+            lib = ctypes.CDLL(str(_lib_path(CSRC / fn)))
+            BUILDS["loads"] += 1
+            for entry, argtypes in ENTRIES[name].items():
+                f = getattr(lib, entry)
+                f.restype = ctypes.c_int
+                f.argtypes = argtypes
+        except (OSError, AttributeError) as exc:
+            raise KernelBuildError(f"cannot load the library of csrc/{fn}: {exc}") from exc
         _LIBS[name] = lib
     build_seconds = time.perf_counter() - t0
     return _LIBS
+
+
+# every kernel error this process degraded, by "<site>: kernel error: <type>"
+# (site: round, stream or estimate); chip_smoke.py fails a phase that adds one
+DEGRADES: "dict[str, int]" = {}
+_DEGRADES_MU = threading.Lock()
+
+
+def degradable(err: BaseException, device: "str | torch.device", site: str) -> bool:
+    """May a round, a streamed wave or an estimate (``site``) that raised
+    ``err`` finish on the sequential cycle (or the estimator's resource-only
+    first-fit)?  Never for a library build or load error, and on the card
+    only while its CUDA context still answers a ``synchronize``: a lost
+    context keeps the original error, so a dead card never turns later
+    rounds into quiet host rounds.  A yes is counted in ``DEGRADES``."""
+    if isinstance(err, KernelBuildError):
+        return False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        try:
+            torch.cuda.synchronize(dev)
+        except Exception:  # noqa: BLE001 - any failure here means the context is gone
+            return False
+    key = f"{site}: kernel error: {type(err).__name__}"
+    with _DEGRADES_MU:
+        DEGRADES[key] = DEGRADES.get(key, 0) + 1
+    return True
 
 
 def reset_counts() -> None:

@@ -66,10 +66,12 @@ one round with backoff respected, and under ``autoscale="on"`` an
 autoscaler pass at most every ``autoscale_interval_s`` (idle ticks too, so
 scale-down advances).  One deliberate difference: the reference's loop
 swallows every exception; the port's stops at its first one, and
-``stop_background()`` re-raises it in the caller's thread, so a kernel or
-launch error is never hidden.  A second: each tick of the port's loop holds
-the quiesce gate of ``pause_streams``, so a snapshot load lands whole
-before the next round.  ``metrics()`` returns the reference's keys.
+``stop_background()`` re-raises it in the caller's thread.  A kernel error
+never gets there, since the round degrades it (below): what stops the loop
+is a build or load error, a lost CUDA context or a fault of the host code,
+none of which a next tick would cure.  A second: each tick of the port's
+loop holds the quiesce gate of ``pause_streams``, so a snapshot load lands
+whole before the next round.  ``metrics()`` returns the reference's keys.
 
 The configuration's extender webhooks (scheduler/extender.py) run in the
 sequential cycle, as in the reference: a round whose profile has extenders
@@ -82,15 +84,22 @@ counters; state/recovery.py rebuilds a crashed store and
 ``restore_scheduler_state`` re-arms a fresh service from it, and
 replication/ promotes a live follower the same way.
 
-Refused with an error, never worked around: a mesh.  Left out: the chaos
-catch of the reference (a kernel or launch error propagates: finishing the
-round on the Python cycle would hide the kernel).
+A kernel error mid-round (a failing launch, or a window's fetch) degrades
+the round as the reference's does (``_degrade_segment``): the windows
+committed before it stand, and the round's other pods finish on the exact
+sequential cycle, counted in ``batch_fallbacks`` as ``kernel error:
+<type>`` and logged.  It never gives way to a kernel's plain version, and
+``kernels.degradable`` lets a library build or load error, or a CUDA
+context that no longer answers a synchronize, propagate.
+
+Refused with an error, never worked around: a mesh.
 """
 
 from __future__ import annotations
 
 import copy
 import gc
+import logging
 import os
 import threading
 import time
@@ -103,6 +112,7 @@ from kube_scheduler_simulator_tpu_torch.device import resolve_device
 from kube_scheduler_simulator_tpu_torch.gang import prepare_round as gang_prepare
 from kube_scheduler_simulator_tpu_torch.models.snapshot import Snapshot, has_pending_nomination
 from kube_scheduler_simulator_tpu_torch.models.wrapped import WrappedPlugin, original_name
+from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
 from kube_scheduler_simulator_tpu_torch.plugins.intree import in_tree_registry
 from kube_scheduler_simulator_tpu_torch.plugins.resultstore import SUCCESS_MESSAGE, ResultStore
@@ -119,6 +129,7 @@ from kube_scheduler_simulator_tpu_torch.scheduler.queue import SchedulingQueue
 from kube_scheduler_simulator_tpu_torch.state.store import BULK_DELETE
 from kube_scheduler_simulator_tpu_torch.utils.keys import pod_key as _pod_key
 
+logger = logging.getLogger(__name__)
 Obj = dict[str, Any]
 
 
@@ -277,6 +288,15 @@ class SchedulerService:
             "tuning_rollouts": 0,
             "tuning_grad_dispatches": 0,
             "tuning_objective": {},
+            # host seconds of the sequential tails of rounds degraded by a
+            # kernel error (batch_fallbacks "kernel error: <type>")
+            "degrade_s": 0.0,
+            # the differential fuzzer (fuzz/): scenarios judged through this
+            # service, byte divergences by comparison kind (nonzero is a
+            # bug), and accepted shrinker reductions (note_fuzz_report)
+            "fuzz_scenarios": 0,
+            "fuzz_divergences": {},
+            "fuzz_shrink_steps": 0,
         }
         # the weight override asked for (at construction or by
         # set_plugin_weights), resolved and validated when frameworks exist
@@ -489,6 +509,19 @@ class SchedulerService:
         """The active default-profile weight override (None = defaults)."""
         return self._weights_override
 
+    def note_fuzz_report(self, report: Obj) -> None:
+        """Absorb one fuzz session's outcome into the service counters
+        (``metrics()``' ``fuzz_*`` keys): ``{"scenarios": n, "divergences":
+        {kind: n}, "shrink_steps": n}``, the shape ``python -m
+        kube_scheduler_simulator_tpu_torch.fuzz`` reports after its sweep."""
+        with self._stats_lock:
+            self.stats["fuzz_scenarios"] += int(report.get("scenarios", 0))
+            fd = dict(self.stats["fuzz_divergences"])
+            for kind, n in (report.get("divergences") or {}).items():
+                fd[kind] = fd.get(kind, 0) + int(n)
+            self.stats["fuzz_divergences"] = fd
+            self.stats["fuzz_shrink_steps"] += int(report.get("shrink_steps", 0))
+
     def note_tuning_run(self, session: Any, report: Obj) -> None:
         """Absorb one tuning run's dispatch counts and outcome into the
         ``tuning_*`` counters."""
@@ -519,8 +552,9 @@ class SchedulerService:
         changes, unsupported workloads) drain to ``schedule_pending``,
         counted in ``stats["stream_drains"]``.  ``streaming=None`` resolves
         the ``KSS_STREAM_PIPELINE`` knob (default on); False keeps the same
-        admission loop strictly serial.  A kernel or launch error
-        propagates (the dying wave has committed nothing)."""
+        admission loop strictly serial.  A kernel error drains the dying
+        wave (nothing of it committed) to the sequential path, counted as
+        ``kernel error: <type>``."""
         from kube_scheduler_simulator_tpu_torch.scheduler.stream import StreamSession
 
         return StreamSession(
@@ -972,10 +1006,18 @@ class SchedulerService:
                 volumes=volumes,
                 nominated=noms or None,
             )
-            if self._pipeline_on() and len(tail) > self.commit_wave:
-                windows = eng.schedule_waves(*args, **kw, wave_pods=max(self.commit_wave, 256))
-            else:
-                windows = iter([(eng.schedule(*args, **kw), 0, len(tail))])
+            try:
+                if self._pipeline_on() and len(tail) > self.commit_wave:
+                    # pipelined round: window k+1 runs on the card while the
+                    # host commits window k
+                    windows = iter(eng.schedule_waves(*args, **kw, wave_pods=max(self.commit_wave, 256)))
+                else:
+                    windows = iter([(eng.schedule(*args, **kw), 0, len(tail))])
+            except Exception as e:  # the launch failed: nothing committed
+                if not K.degradable(e, self.device, "round"):
+                    raise
+                self._degrade_segment(fw, tail, results, noms, e)
+                return
             snapshot = None
             restart_at = None
             # batched-PostFilter context, built lazily at the run's first
@@ -984,7 +1026,21 @@ class SchedulerService:
             pholder: "dict | None" = None
             if seq_failures:
                 pholder = {"build": lambda: self._prepare_preemption(fw, eng, snapshot, nodes, tail, noms)}
-            for result, off, cnt in windows:
+            while True:
+                try:
+                    result, off, cnt = next(windows)
+                except StopIteration:
+                    break
+                except Exception as e:
+                    # a later window's fetch failed: every window committed
+                    # so far is the sequential cycle's prefix, and nothing of
+                    # this window or any after it is committed, so the tail
+                    # finishes on the sequential cycle
+                    if not K.degradable(e, self.device, "round"):
+                        raise
+                    self._flush_pctx_stats(pholder)
+                    self._degrade_segment(fw, tail, results, noms, e)
+                    return
                 if snapshot is None:
                     # after the round's encode captured the cluster state
                     snapshot = self.build_snapshot()
@@ -1016,6 +1072,36 @@ class SchedulerService:
                 for pod in pending[i:]:
                     results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
                 break
+
+    def _degrade_segment(
+        self,
+        fw: Framework,
+        pods: list[Obj],
+        results: dict,
+        noms: "list[tuple[Obj, str]]",
+        err: Exception,
+    ) -> None:
+        """A kernel error mid-round (a failing launch or window fetch on the
+        card, or one injected by fuzz/chaos.py): the failing window
+        committed nothing and every window before it is the sequential
+        cycle's prefix, so the round's uncommitted pods finish on the exact
+        sequential cycle.  Counted in ``batch_fallbacks`` as ``kernel error:
+        <type>`` and logged every time; its seconds land in ``degrade_s``
+        (and ``commit_s``, as the reference counts them).  Only errors that
+        ``kernels.degradable`` passes get here: a build or load error, or a
+        lost CUDA context, propagates."""
+        self._count_fallback(f"kernel error: {type(err).__name__}")
+        logger.error("batch round degraded to the sequential cycle (%d pods): %r", len(pods), err, exc_info=err)
+        snapshot = self.build_snapshot()
+        self._prune_mid_round_nominations(snapshot, noms)
+        tc = time.perf_counter()
+        for pod in pods:
+            if _pod_key(pod) in results:
+                continue  # committed (or parked at Permit) before the error
+            results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
+        dt = time.perf_counter() - tc
+        self.stats["commit_s"] += dt
+        self.stats["degrade_s"] += dt
 
     def _pipeline_on(self) -> bool:
         """Resolve ``pipeline="auto"`` once: on on the card, where the scan
@@ -1542,9 +1628,7 @@ class SchedulerService:
         what the reference reports with the subsystem off:
         ``shard_devices``, ``sharded_dispatches_total`` and
         ``plane_shard_bytes_per_device`` 0 (the mesh); ``procmesh`` None;
-        ``fuzz_scenarios_total`` and
-        ``fuzz_shrink_steps_total`` 0, ``fuzz_divergences_by_kind`` {}
-        (fuzz/); ``placer_bank_rotations_total`` 0 and ``placer_banks`` {}
+        ``placer_bank_rotations_total`` 0 and ``placer_banks`` {}
         (the plane banks); ``aot_cache_hits_total``,
         ``aot_cache_misses_total``, ``aot_cache_saves_total`` 0 and
         ``aot_cache_fallbacks_by_reason`` {} (ops/aot.py).
@@ -1568,6 +1652,7 @@ class SchedulerService:
             preempt_fallbacks = dict(self.stats["preempt_fallbacks"])
             gang_fallbacks = dict(self.stats["gang_fallbacks"])
             stream_drains = dict(self.stats["stream_drains"])
+            fuzz_divergences = dict(self.stats["fuzz_divergences"])
             tuning_objective = dict(self.stats["tuning_objective"])
         last_t = dict(eng.last_timings) if eng else {}
         # the fraction of the last pipelined round's device time hidden
@@ -1653,9 +1738,10 @@ class SchedulerService:
             "tuning_grad_dispatches_total": self.stats["tuning_grad_dispatches"],
             "tuning_objective": tuning_objective,
             "plugin_weights_overridden": int(self._weights_override is not None),
-            "fuzz_scenarios_total": 0,
-            "fuzz_divergences_by_kind": {},
-            "fuzz_shrink_steps_total": 0,
+            # what the fuzzer reported into this service (note_fuzz_report)
+            "fuzz_scenarios_total": self.stats["fuzz_scenarios"],
+            "fuzz_divergences_by_kind": fuzz_divergences,
+            "fuzz_shrink_steps_total": self.stats["fuzz_shrink_steps"],
             "waiting_pods": len(self._all_waiting_keys()),
             "permit_wait_expired": self.stats["permit_wait_expired"],
             **self.queue.stats(),

@@ -47,20 +47,23 @@ admission taken before the commit could miss the reactivation the serial
 cadence would see).  All three still count a drain: the counter tracks
 pipeline serialization points, not sequential-path rounds.
 
-Two deliberate differences from the reference:
+A kernel or launch error (a real one on the card, or one injected by
+fuzz/chaos.py) drains as the reference's does, counted as ``kernel error:
+<type>`` (and a retry at the ``stream`` seam): a failing launch or
+decision fetch hands the wave's pods to ``schedule_pending``'s round, the
+drain path of every gate; a failing
+overlap launch lets wave k commit and re-admits the pods next; a failing
+blob wait abandons wave k and the prefetched wave k+1 alike, nothing of
+either committed, and both re-drain in one admission.  A library build or
+load error, or a lost CUDA context, propagates (``kernels.degradable``).
+
+One deliberate difference from the reference:
 
 - **No mesh.** The reference streams mesh-sharded engines too (the stream
   x mesh fusion); the port's service refuses a mesh, so that path is not
   ported.  Nor are the reference's two placer banks: the port launches and
   copies on one CUDA stream, so wave k+1's row scatter into the resident
   planes is ordered after wave k's kernels (``BatchEngine.schedule_async``).
-- **A kernel or launch error propagates** out of ``schedule_stream``, as it
-  does out of the port's round and its scale-up estimate.  The reference
-  catches it at the launch, the decision fetch and the blob wait, and
-  drains the wave's pods to the sequential path as ``kernel error:
-  <type>``.  Here the dying wave has committed nothing (its pods stay
-  pending), and ``run()`` still flushes the reflector and hands back the
-  session's busy slot.
 
 ``KSS_STREAM_PIPELINE=0`` (or ``streaming=False``) keeps the admission loop
 but runs every wave strictly serially: the A/B baseline
@@ -70,12 +73,15 @@ but runs every wave strictly serially: the A/B baseline
 from __future__ import annotations
 
 import gc
+import logging
 import os
 import time
 from typing import Any, Callable
 
+from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 from kube_scheduler_simulator_tpu_torch.utils.keys import pod_key as _pod_key
 
+logger = logging.getLogger(__name__)
 Obj = dict[str, Any]
 
 
@@ -138,6 +144,12 @@ class StreamSession:
     # ------------------------------------------------------------- stats
 
     def _count_drain(self, reason: str) -> None:
+        if reason.startswith("kernel error"):
+            # a kernel-error drain re-runs the wave's pods on the sequential
+            # path: a retry at the stream seam (retry_by_seam["stream"])
+            from kube_scheduler_simulator_tpu_torch.resilience import note_retry
+
+            note_retry("stream")
         with self.svc._stats_lock:
             d = self.svc.stats["stream_drains"]
             d[reason] = d.get(reason, 0) + 1
@@ -284,16 +296,33 @@ class StreamSession:
         fw = self.svc.framework
         return bool(fw.plugins["post_filter"]) and self.svc.use_batch != "force"
 
-    def _fetch_result(self, flight: dict) -> None:
+    def _kernel_error(self, err: Exception) -> str:
+        """The drain reason of a kernel error, logged, once
+        ``kernels.degradable`` lets it drain; otherwise the error
+        propagates."""
+        if not K.degradable(err, self.svc.device, "stream"):
+            raise err
+        logger.error("streamed wave drained to the sequential path: %r", err, exc_info=err)
+        return f"kernel error: {type(err).__name__}"
+
+    def _fetch_result(self, flight: dict) -> bool:
         """Wait for the wave's compaction blob (its event: the last device
-        interaction of a wave).  The blocked wait lands in
+        interaction of a wave); False, with the drain counted, when it
+        failed.  Only this fetch is guarded: nothing of the wave is
+        committed yet, where a failure inside ``_commit`` would be a host
+        commit's fault after pods may have bound.  The blocked wait lands in
         ``stream_stall_s`` here; the result is cached, so ``_commit`` sees no
-        further device wait.  A kernel error raised here propagates: nothing
-        of the wave is committed yet."""
+        further device wait."""
         pb = flight["pb"]
         dev0 = pb._dev_wait
-        pb.result()
-        self.svc.stats["stream_stall_s"] += pb._dev_wait - dev0
+        try:
+            pb.result()
+        except Exception as e:
+            self._count_drain(self._kernel_error(e))
+            return False
+        finally:
+            self.svc.stats["stream_stall_s"] += pb._dev_wait - dev0
+        return True
 
     def _commit(self, flight: dict, overlapped: bool) -> None:
         """Commit one streamed wave in strict order: trace, annotation
@@ -450,15 +479,26 @@ class StreamSession:
                 # stage vector stays a partition of its wall
                 svc.profiler.note_excl(rec, "admit", time.perf_counter() - ta)
                 fw = svc.framework
-                flight = self._dispatch(
-                    pending, nodes, fw.sched_counter, fw.next_start_node_index, volumes, prof_rec=rec,
-                )
+                try:
+                    flight = self._dispatch(
+                        pending, nodes, fw.sched_counter, fw.next_start_node_index, volumes, prof_rec=rec,
+                    )
+                except Exception as e:  # the launch failed: nothing committed
+                    # the same pods drain through the sequential path
+                    self._drain_round(self._kernel_error(e))
                 continue
 
             # a wave is in flight: learn its decisions (small fetch)
             pb = flight["pb"]
             t0 = time.perf_counter()
-            pb.decisions()
+            try:
+                pb.decisions()
+            except Exception as e:
+                # the wave died before any commit: abandon its device work
+                # and hand the same pods to the exact sequential round
+                flight = None
+                self._drain_round(self._kernel_error(e))
+                continue
             svc.stats["stream_stall_s"] += time.perf_counter() - t0
             n_fail = int((pb.selected[: len(pb.pending)] < 0).sum())
             if n_fail and self._seq_failures():
@@ -476,8 +516,10 @@ class StreamSession:
                 # admission must observe that requeue exactly when the serial
                 # path would.  Commit first, admit after
                 self._count_drain("kernel failures")
-                self._fetch_result(flight)
-                self._commit(flight, overlapped=False)
+                if self._fetch_result(flight):
+                    self._commit(flight, overlapped=False)
+                # on a failed fetch the pods stay pending and re-drain at the
+                # next admission
                 flight = None
                 self._maybe_gc()
                 continue
@@ -529,10 +571,19 @@ class StreamSession:
                         fw = flight["fw"]
                         svc.profiler.note_excl(rec2, "admit", time.perf_counter() - ta2)
                         t0 = time.perf_counter()
-                        next_flight = self._dispatch(
-                            pending2, nodes, fw.sched_counter + len(pb.pending), pb.final_start, volumes,
-                            binds=binds, prof_rec=rec2,
-                        )
+                        try:
+                            next_flight = self._dispatch(
+                                pending2, nodes, fw.sched_counter + len(pb.pending), pb.final_start, volumes,
+                                binds=binds, prof_rec=rec2,
+                            )
+                        except Exception as e:
+                            # the overlap launch failed: wave k commits below,
+                            # and the admitted pods re-drain at the next
+                            # pipeline-empty pass (their feed tick has fired:
+                            # hold it), on the serial cadence
+                            next_flight = None
+                            self._count_drain(self._kernel_error(e))
+                            self._feed_hold = True
                         svc.stats["stream_overlap_s"] += time.perf_counter() - t0
                     else:
                         # gated waves are NOT admitted into the overlap; the
@@ -545,7 +596,17 @@ class StreamSession:
             # commit wave k, overlapping wave k+1's kernel when one was
             # launched (serial mode never prefetches, so the same commit
             # machinery runs un-overlapped)
-            self._fetch_result(flight)
-            self._commit(flight, overlapped=next_flight is not None)
+            if self._fetch_result(flight):
+                self._commit(flight, overlapped=next_flight is not None)
+            else:
+                # wave k's blob wait failed before any commit.  Wave k+1, if
+                # prefetched, was encoded against placements that never
+                # landed: abandon it too.  Both waves' pods are still pending
+                # and re-drain in one admission (creation order kept, so the
+                # bytes are the serial cadence's), without pulling the feed
+                # tick wave k+1 already consumed
+                if next_flight is not None:
+                    self._feed_hold = True
+                next_flight = None
             flight = next_flight
             self._maybe_gc()

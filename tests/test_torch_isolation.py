@@ -90,6 +90,19 @@ def test_the_checks_cover_the_server_and_session_modules():
         assert module in checked, module
 
 
+def test_the_checks_cover_the_fuzz_and_analysis_modules():
+    """The differential fuzzer, its chaos engine, its crash child, its sweep
+    and the build counter are walked by the AST check; the subprocess check
+    below runs a differential scenario with an injected kernel failure
+    under the RecompileGuard through them."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for module in ("fuzz/__init__.py", "fuzz/__main__.py", "fuzz/chaos.py", "fuzz/coverage.py",
+                   "fuzz/crash_child.py", "fuzz/generator.py", "fuzz/runner.py", "fuzz/shrink.py",
+                   "fuzz/smoke.py", "fuzz/verdict.py", "analysis/__init__.py", "analysis/runtime.py"):
+        assert module in checked, module
+    assert "run_differential" in ROUND and "RecompileGuard" in ROUND and "fail_events" in ROUND
+
+
 def test_name_check_tells_the_packages_apart():
     assert _is_forbidden("kube_scheduler_simulator_tpu.ops.batch")
     assert _is_forbidden("jax.numpy")
@@ -206,6 +219,11 @@ assert RetryPolicy(seed=1).schedule() == RetryPolicy(seed=1).schedule()
 bridge = TPUScorerBridge(dsvc)
 out = bridge.filter({{"pod": {{"metadata": {{"name": "x"}}, "spec": {{}}}}, "nodenames": [n["metadata"]["name"] for n in dstore.list("nodes")][:3]}})
 assert out["error"] == "" and len(out["nodenames"]) == 3 and bridge.fallbacks == 0, out
+from kube_scheduler_simulator_tpu_torch.analysis import RecompileGuard
+from kube_scheduler_simulator_tpu_torch.fuzz import FuzzHarness, generate_scenario, run_differential
+with RecompileGuard("a CPU differential"):
+    fv, _fs = run_differential(generate_scenario(0, 1), FuzzHarness("cpu"), chaos={{"roles": ["batch"], "fail_events": [0]}})
+assert fv["divergences"] == [] and fv["comparisons"][0]["explained"]["batch_fallbacks"] == {{"kernel error: ChaosError": 1}}, fv
 from kube_scheduler_simulator_tpu_torch import native
 assert native.fastjson is not None and native.status()["path"].startswith({str(PORT)!r}), native.status()
 # the port's renderer, never the JAX package's library
@@ -262,6 +280,16 @@ def test_entry_points_default_to_the_card():
         run_tuning(n_nodes=4, n_pods=8, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TuningSession([], [], [("NodeResourcesFit", 1)])
+    from kube_scheduler_simulator_tpu_torch.fuzz import FuzzHarness, ProcessChaos, replay_fixture, run_differential
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FuzzHarness()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProcessChaos({"name": "s", "features": [], "ticks": []})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_differential({"name": "s", "features": [], "ticks": []})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        replay_fixture({"scenario": {"name": "s", "features": [], "ticks": []}, "comparisons": []})
     assert resolve_device("cpu").type == "cpu"
     assert resolve_dtype(resolve_device("cpu")) == torch.float64
     assert resolve_dtype(torch.device("cuda")) == torch.float32

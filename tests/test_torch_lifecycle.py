@@ -40,6 +40,7 @@ from tests.test_tuning import PLUGINS, _cluster  # noqa: E402
 from tests.test_batch_parity import profile_with  # noqa: E402
 from kube_scheduler_simulator_tpu_torch import workloads  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.ops import batch as TB  # noqa: E402
+from kube_scheduler_simulator_tpu_torch.ops.kernels import KernelBuildError  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.utils.parity import pod_parity_state  # noqa: E402
 
 # the metrics() counters both packages count in the same meaning
@@ -473,7 +474,9 @@ def test_an_idle_tick_launches_no_scan(monkeypatch):
 
 def test_a_launch_error_stops_the_loop_and_stop_background_raises_it():
     """The port's deliberate difference from the reference's loop (which
-    swallows every exception): the loop stops at a launch error,
+    swallows every exception): the loop stops at an error its round does not
+    degrade (here a kernel library that fails to load at the launch; a
+    kernel error itself finishes the round on the sequential cycle),
     ``is_background_running()`` reads False, nothing of the dying round is
     committed, and ``stop_background()`` re-raises the error once;
     ``start_background()`` over a loop that died re-raises it too."""
@@ -481,7 +484,7 @@ def test_a_launch_error_stops_the_loop_and_stop_background_raises_it():
 
     def failing(*a, **kw):
         def fn(*args):
-            raise RuntimeError("injected launch error")
+            raise KernelBuildError("injected launch error: the library did not load")
         return fn
 
     for restart_first in (False, True):

@@ -38,6 +38,7 @@ from tests.test_scenario_operator import mk_scenario  # noqa: E402
 from tests.test_tuning import PLUGINS, _cluster, mk_pod as tune_pod  # noqa: E402
 from kube_scheduler_simulator_tpu_torch import workloads  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.ops import batch as TB  # noqa: E402
+from kube_scheduler_simulator_tpu_torch.ops.kernels import KernelBuildError  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.utils.parity import pod_parity_state  # noqa: E402
 
 T0 = 1_700_000_000.0
@@ -442,8 +443,9 @@ def test_operator_case_matches_the_reference(case):
 
 def test_a_failed_run_is_recorded_on_the_scenario():
     """The operator's worker records a run that raised as ``phase: Failed``
-    with the exception's message, as the reference does (here a launch
-    error of the port's round)."""
+    with the exception's message, as the reference does (here a kernel
+    library that fails to load at the port's launch: the error a round never
+    degrades)."""
     store = PORT.Store(clock=PORT.Clock(T0))
     svc = PORT.Service(store, tie_break="first", use_batch="auto", batch_min_work=0, clock=PORT.Clock(0.0))
     svc.start_scheduler(None)
@@ -452,7 +454,7 @@ def test_a_failed_run_is_recorded_on_the_scenario():
 
     def failing(*a, **kw):
         def fn(*args):
-            raise RuntimeError("injected launch error")
+            raise KernelBuildError("injected launch error")
         return fn
 
     TB.build_batch_fn = failing
@@ -464,7 +466,7 @@ def test_a_failed_run_is_recorded_on_the_scenario():
         TB.build_batch_fn = real
         op.stop()
     status = store.get("scenarios", "scn-1", "default")["status"]
-    assert status == {"phase": "Failed", "message": "RuntimeError: injected launch error"}
+    assert status == {"phase": "Failed", "message": "KernelBuildError: injected launch error"}
 
 
 # ------------------------------------------------- autoscaler and weights
@@ -617,9 +619,10 @@ def test_a_convergence_pass_with_nothing_pending_launches_no_scan(monkeypatch):
 
 def test_a_replay_stops_and_restarts_the_background_loop():
     """The engine stops a running loop for the replay and starts it again
-    after; an exception raised while the loop is stopped (a launch error in
-    a convergence round) propagates out of ``run`` and the loop is running
-    again afterwards, with no error of its own."""
+    after; an exception raised while the loop is stopped (a library load
+    error at a convergence round's launch, which the round does not
+    degrade) propagates out of ``run`` and the loop is running again
+    afterwards, with no error of its own."""
     store, svc, engine = build_engine(PORT, "auto")
     svc.start_background(poll_interval=0.02)
     seen = []
@@ -643,7 +646,7 @@ def test_a_replay_stops_and_restarts_the_background_loop():
 
             def fn(*args):
                 failures.append(1)
-                raise RuntimeError("injected launch error")
+                raise KernelBuildError("injected launch error")
             return fn
 
         TB.build_batch_fn = failing_once
@@ -665,15 +668,16 @@ def test_a_replay_stops_and_restarts_the_background_loop():
 
 
 def test_a_replay_surfaces_the_error_of_a_loop_that_died():
-    """A loop that died of a launch error keeps it; the next replay calls
-    ``stop_background``, which re-raises it, instead of running over it."""
+    """A loop that died of a launch error it does not degrade (a library
+    load error) keeps it; the next replay calls ``stop_background``, which
+    re-raises it, instead of running over it."""
     store, svc, engine = build_engine(PORT, "auto")
     store.create("nodes", _node("node-1"))
     real = TB.build_batch_fn
 
     def failing(*a, **kw):
         def fn(*args):
-            raise RuntimeError("injected launch error")
+            raise KernelBuildError("injected launch error")
         return fn
 
     TB.build_batch_fn = failing

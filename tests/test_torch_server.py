@@ -16,6 +16,7 @@ import time  # noqa: E402
 import jax  # noqa: E402
 
 from kube_scheduler_simulator_tpu_torch import workloads  # noqa: E402
+from kube_scheduler_simulator_tpu_torch.utils.keys import pod_key  # noqa: E402
 from torch_reference_checks import Booted, metric_families, normalized  # noqa: E402
 
 PACKAGES = ("kube_scheduler_simulator_tpu", "kube_scheduler_simulator_tpu_torch")
@@ -40,9 +41,23 @@ def both(monkeypatch):
         jax.config.update("jax_enable_x64", False)
 
 
+def idle(server) -> bool:
+    """Has the server's loop attempted every pod it was given?  Every
+    pending pod of its service is parked in the queue's unschedulableQ: a
+    pod in activeQ or backoffQ, or one the queue has not seen yet, is still
+    to be attempted.  Both packages' services expose ``pending_pods`` and
+    the queue's ``state_snapshot``."""
+    svc = server.di.scheduler_service()
+    parked = set(svc.queue.state_snapshot()["unschedulable"])
+    return all(pod_key(p) in parked for p in svc.pending_pods())
+
+
 def settle(servers, quiet: float = 0.6, timeout: float = 120.0) -> None:
-    """Wait until no server's store has changed for ``quiet`` seconds (a
-    round writes its annotations after its binds)."""
+    """Wait until both loops are idle (``idle``) and no store has changed
+    for ``quiet`` seconds since (a round writes its annotations after its
+    binds).  Quiet time alone does not show a round is over: a round's
+    first launch can take longer than ``quiet`` without writing anything
+    (a JAX compile on the reference's side, under a loaded run)."""
     def versions():
         return [s.di.cluster_store.resource_version for s in servers]
 
@@ -51,11 +66,12 @@ def settle(servers, quiet: float = 0.6, timeout: float = 120.0) -> None:
     while time.monotonic() < end:
         time.sleep(0.1)
         now = versions()
-        if now != last:
+        if now != last or not all(idle(s) for s in servers):
             last, since = now, time.monotonic()
         elif time.monotonic() - since >= quiet:
             return
-    raise AssertionError("the loops did not settle")
+    raise AssertionError("the loops did not settle: " + json.dumps(
+        [{"idle": idle(s), "pending": len(s.di.scheduler_service().pending_pods())} for s in servers]))
 
 
 def same(servers, method, path, body=None, kube=False):
@@ -133,10 +149,12 @@ def test_both_servers_answer_a_seeded_request_sequence_alike(both):
     settle(both)
     code, pods = same(both, "GET", "/api/v1/resources/pods")
     assert code == 200 and sum(1 for p in pods["items"] if p["spec"].get("nodeName")) > 20
-    # the kube API: create, list and get
+    # the kube API: create, list and get.  Each write lands on idle loops:
+    # its answer carries the store's resourceVersion, which counts what each
+    # loop has written since the last write
     for p in pending[30:36]:
         same(both, "POST", "/api/v1/namespaces/default/pods", p, kube=True)
-    settle(both)
+        settle(both)
     same(both, "GET", "/api/v1/namespaces/default/pods", kube=True)
     same(both, "GET", f"/api/v1/namespaces/default/pods/{pending[31]['metadata']['name']}", kube=True)
     same(both, "GET", f"/api/v1/nodes/{nodes[2]['metadata']['name']}", kube=True)
@@ -165,7 +183,7 @@ def test_both_servers_answer_a_seeded_request_sequence_alike(both):
         member["metadata"].setdefault("labels", {})["scheduling.x-k8s.io/pod-group"] = "train"
         member["metadata"]["name"] = f"train-{i}"
         same(both, "POST", "/api/v1/resources/pods", member)
-    settle(both)
+        settle(both)
     same(both, "GET", "/api/v1/podgroups/train?namespace=default&preview=1")
     # the tuner at a capped size (K9; K2g with tuner grad), and a scenario
     same(both, "POST", "/api/v1/tuning", {"family": "imbalance", "nodes": 4, "pods": 12, "steps": 1, "pop": 2})
@@ -182,7 +200,7 @@ def test_both_servers_answer_a_seeded_request_sequence_alike(both):
     for p in pending[30:34]:
         same(both, "PUT", f"/api/v1/resources/pods/{p['metadata']['name']}-again",
              dict(p, metadata=dict(p["metadata"], name=p["metadata"]["name"] + "-again")))
-    settle(both)
+        settle(both)
     same(both, "GET", "/api/v1/resources/pods")
     m = [s.req("GET", "/api/v1/metrics") for s in both]
     assert m[1][0] == m[0][0] == 200 and metric_families(m[1][1]) == metric_families(m[0][1])

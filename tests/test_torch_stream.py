@@ -12,9 +12,12 @@ has no port counterpart (the port refuses a mesh), and its ``metrics()``
 render case needs ``server/metrics.py``, which the port does not have yet:
 the stream counters as ``metrics()`` reports them are held against the
 reference's in tests/test_torch_lifecycle.py.  Then the port's own contract: a
-launch error propagates out of ``schedule_stream`` with nothing of the
-dying wave committed, ``pause_streams`` parks a running session, and a
-``PendingBatch`` equals ``schedule()``.  The twin on the card is in
+launch error the stream does not degrade (a library load error) propagates
+out of ``schedule_stream`` with nothing of the dying wave committed, while a
+kernel error drains its wave to the sequential path with the serial bytes
+(tests/test_torch_fuzz.py holds those drains against the reference's),
+``pause_streams`` parks a running session, and a ``PendingBatch`` equals
+``schedule()``.  The twin on the card is in
 tests/test_torch_stream_gpu.py (a file that does not import JAX).
 """
 
@@ -372,13 +375,15 @@ def test_max_waves(budget):
 
 @pytest.mark.parametrize("failing_launch", [1, 2], ids=["pipeline-empty-launch", "overlap-launch"])
 def test_a_launch_error_propagates_and_commits_nothing_of_the_dying_wave(monkeypatch, failing_launch):
-    """A launch error inside a streamed wave propagates out of
-    ``schedule_stream`` (the reference drains such a wave to the sequential
-    path; the port does not hide a kernel).  Launch 2 is the overlap launch
+    """A launch error the stream does not degrade (the kernel library did
+    not load; a kernel error drains its wave to the sequential path instead)
+    propagates out of ``schedule_stream``.  Launch 2 is the overlap launch
     of wave 2 while wave 1 awaits its commit: neither wave has committed, so
     every pod stays pending, unbound and unannotated.  The session handed
     back its busy slot: ``pause_streams`` does not wait, and a later session
     schedules the same pods."""
+    from kube_scheduler_simulator_tpu_torch.ops.kernels import KernelBuildError
+
     store, svc = new_service("port")
     calls = {"n": 0}
     orig = TB.build_batch_fn
@@ -386,11 +391,11 @@ def test_a_launch_error_propagates_and_commits_nothing_of_the_dying_wave(monkeyp
     def flaky(*a, **kw):
         calls["n"] += 1
         if calls["n"] == failing_launch:
-            raise RuntimeError("scan launch failed")
+            raise KernelBuildError("scan launch failed: the library did not load")
         return orig(*a, **kw)
 
     monkeypatch.setattr(TB, "build_batch_fn", flaky)
-    with pytest.raises(RuntimeError, match="scan launch failed"):
+    with pytest.raises(KernelBuildError, match="scan launch failed"):
         svc.schedule_stream(feed=churn_feed(store, 4), streaming=True)
     pods = store.list("pods")
     assert len(pods) == 36 * failing_launch

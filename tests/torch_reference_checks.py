@@ -23,18 +23,20 @@ def on_cpu(fn):
     return functools.partial(fn, device="cpu")
 
 
-def port_source(name: str) -> str:
+def port_source(name: str, on_cpu_calls: "tuple[str, ...]" = ()) -> str:
     src = (Path(__file__).resolve().parent / f"{name}.py").read_text()
     src = re.sub(r"\bkube_scheduler_simulator_tpu\b", "kube_scheduler_simulator_tpu_torch", src)
-    for fn in ON_CPU:
+    for fn in ON_CPU + tuple(on_cpu_calls):
         src = re.sub(rf"(?<![\w.]){fn}\(", f"_on_cpu({fn})(", src)
     return src
 
 
-def exec_on_port(name: str, namespace: dict) -> None:
+def exec_on_port(name: str, namespace: dict, on_cpu_calls: "tuple[str, ...]" = ()) -> None:
+    """``on_cpu_calls`` names more callables of the file that take
+    ``device=`` in the port and get ``device="cpu"``."""
     namespace["_on_cpu"] = on_cpu
     namespace["_port_substrate_reset"] = _port_substrate_reset
-    exec(compile(port_source(name), f"tests/{name}.py, on the port", "exec"), namespace)
+    exec(compile(port_source(name, on_cpu_calls), f"tests/{name}.py, on the port", "exec"), namespace)
 
 
 @pytest.fixture(autouse=True)
