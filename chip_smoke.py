@@ -114,7 +114,7 @@ kernel against its plain version.  cfg9-stream times 48 ticks a mode
 (``time_stream.py`` runs the bench's 320) and its float64 leg 8.  The
 float32 churn, cfg7 and cfg8-gang's scale leg hash no pod digests (nothing
 compares them; at full size they cost ~6 ms a MB of annotations).  The float32 churn runs the
-first 2 of its 5 waves (phase 29 replays the same windowed rounds at the
+first 3 of its 5 waves (phase 29 replays the same windowed rounds at the
 same size), cfg8-gang's scale leg all 5.  The CPU float64
 references of phases 4, 9, 14, 18, 22, 26, 28 and 29 run in two worker processes
 started after the build, beside the card's phases.  The plain references
@@ -393,8 +393,11 @@ line):
    handler or Filter error, no fallback, every pod bound with both extender
    annotations; the binds and the extender annotation bytes equal the
    same round in float64 on the CPU (a worker process, its own server);
-35. the differential fuzzer and kernel chaos on the card, float32 (run
-   last; ``fuzz_phases``): (a) ``FUZZ_SWEEP``'s seeded composite scenarios
+35. the differential fuzzer and kernel chaos on the card, float32
+   (``fuzz_phases``: (a), (e), (b) and (c) run after cfg11-scenario,
+   beside phases 23-24's plain references in the card's workers, which
+   ``tune_start`` starts first; ``process_chaos_phase`` joins (d) last):
+   (a) ``FUZZ_SWEEP``'s seeded composite scenarios
    through ``fuzz.smoke.sweep`` (batch against the sequential oracle,
    streamed against serial), every scenario after the first under
    ``RecompileGuard(max_compiles=0)``: no divergence, each kernel's
@@ -411,7 +414,9 @@ line):
    point of a generated composite scenario on the batch path, its children on
    the card (loading the built libraries, building none): the recovered
    trail equal to the uninterrupted child's, no torn record, no partial
-   gang, each reporting child's ``compile_count`` delta 0; (e) after (a),
+   gang, each reporting child's ``compile_count`` delta 0 and no degraded
+   kernel error (``child_degrades``); (e) after (a), each fixture its own
+   ``Phase`` (only the one that injects kernel errors marked chaos),
    both committed fixtures replayed on fresh harnesses on the card in
    float64 and float32: no divergence, the committed bytes.  No phase but
    35 may degrade a kernel error (``kernels.DEGRADES``: each ``Phase``
@@ -525,10 +530,10 @@ ANNOTATION_CHECKS = (("cfg2", None), ("cfg3", (1000, 500, 0)), ("cfg4", (1000, 5
 MAIN = "cfg5-vol"  # the one-launch path: the kernels line reads its float32 run
 # cfg5-churn: (pods, nodes, waves, cordoned nodes); the byte-check cut
 CHURN = (10000, 5000, 5, 50)
-# the first 2 of its 5 waves: phase 29 replays the same windowed rounds at
+# the first 3 of its 5 waves: phase 29 replays the same windowed rounds at
 # the same size (the churn as a Scenario), so the time goes there (PERF.md
 # §4 names the cut)
-CHURN_F32_WAVES = 2
+CHURN_F32_WAVES = 3
 CHURN_CUT = (1500, 500, 3, 10)
 WINDOW = 256  # the service's commit_wave: windows of 256 pods
 # cfg7-preempt-5k: (nodes, bound low-priority pods, fillers, preemptors);
@@ -2901,24 +2906,19 @@ def k9_timed(dev, s32, W, obj, rec) -> dict:
     return dict(ms=k9_ms, objective_ms=obj_ms, bound_ms=k9b, bound_by=k9by, **rec)
 
 
-def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
-    """Phases 23-26 (cfg10-tune-10k and the bench's 12 x 96 size).  The plain
-    references of 23 and 24 run in the card's worker processes beside 23's
-    and 24's checks; K9 and K2g are timed once they are idle.  Returns (K9's
-    timing, K2g's timing)."""
-    import numpy as np
+def tune_start(dev) -> "tuple[dict, list]":
+    """Phases 23-24's problems, and their plain references started in the
+    card's worker processes (host-bound: ~100 s of the two workers), so
+    that other phases run beside them before ``tune_phases`` checks them.
+    Returns (the families' sessions and references, K2g's cases)."""
     import torch
 
     from kube_scheduler_simulator_tpu_torch import workloads
-    from kube_scheduler_simulator_tpu_torch.ops import batch as B
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
-    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
-    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
     from kube_scheduler_simulator_tpu_torch.tuning import objective as TO
     from kube_scheduler_simulator_tpu_torch.tuning import tuner as TT
 
     t = workloads.TUNE
-    size = dict(n_nodes=t["n_nodes"], n_pods=t["n_pods"])
     scores, _filters = TT.profile_scores(device=DEVICE)
     families = {}
     for family in ("imbalance", "consolidate"):
@@ -2931,9 +2931,7 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
         refs = {dt: _GPU_POOL.apply_async(no_kernel_errors, (plain_lane_job, family, str(dt).split(".")[-1], W[gp].tolist()))
                 for dt in sess}
         families[family] = (sess, obj, W, gp, frac, refs)
-    sessions, obj, W, gp, frac, _refs = families["imbalance"]
-    s32 = sessions[torch.float32]
-    shape = f"cfg10-tune-10k imbalance: L={W.shape[0]} P={s32.dims['P']} N={s32.dims['N']} S={W.shape[1]}"
+    sessions, _obj, W, gp, _frac, _refs = families["imbalance"]
     # K2g's cases: (dtype, objective); the hard rollout under the lane with
     # the most fractional weights, its cotangent, and grad_plain in a worker
     grad_cases = []
@@ -2949,6 +2947,31 @@ def tune_phases(dev, cpu_tune_ref) -> "tuple[dict, dict]":
             ref = _GPU_POOL.apply_async(no_kernel_errors, (plain_grad_job, str(dt).split(".")[-1], W[gp].tolist(), F.cpu().numpy(),
                                                          t["tau"]))
         grad_cases.append((dt, objective, s, w, hard, F, ref))
+    return families, grad_cases
+
+
+def tune_phases(dev, cpu_tune_ref, started: "tuple[dict, list]") -> "tuple[dict, dict]":
+    """Phases 23-26 (cfg10-tune-10k and the bench's 12 x 96 size) on what
+    ``tune_start`` set up: 23's and 24's checks against their plain
+    references; K9 and K2g timed once the workers are idle.  Returns (K9's
+    timing, K2g's timing)."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import batch as B
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+    from kube_scheduler_simulator_tpu_torch.tuning import tuner as TT
+
+    t = workloads.TUNE
+    size = dict(n_nodes=t["n_nodes"], n_pods=t["n_pods"])
+    families, grad_cases = started
+    del started
+    sessions, obj, W, gp, frac, _refs = families["imbalance"]
+    s32 = sessions[torch.float32]
+    shape = f"cfg10-tune-10k imbalance: L={W.shape[0]} P={s32.dims['P']} N={s32.dims['N']} S={W.shape[1]}"
 
     with Phase("23. K9 at cfg10-tune-10k's imbalance and consolidate generation 0: lanes vs K2, the most "
                "fractional lane vs the plain scan, the objective kernel"):
@@ -4101,16 +4124,19 @@ def fuzz_sweep(dev) -> dict:
 def fixture_replays(dev) -> dict:
     """Phase 35 (e): every committed fixture (``fuzz/fixtures/``, one
     injecting kernel errors) replayed on a fresh harness on the card, in
-    float64 and in float32: no divergence, the committed bytes."""
+    float64 and in float32: no divergence, the committed bytes.  Each
+    fixture is a ``Phase`` of its own, marked chaos only where the fixture
+    injects kernel errors (its ``chaos`` key)."""
     import torch
 
     from kube_scheduler_simulator_tpu_torch.fuzz import iter_fixture_paths, load_fixture, replay_fixture
     from kube_scheduler_simulator_tpu_torch.ops import kernels as K
 
     rec: dict = {}
-    with Phase("phase 35 (e): the committed fixtures replayed on the card, float64 and float32", chaos=True):
-        for path in iter_fixture_paths():
-            fx = load_fixture(path)
+    for path in iter_fixture_paths():
+        fx = load_fixture(path)
+        with Phase(f"phase 35 (e): fixture {os.path.basename(path)} replayed on the card, float64 and float32",
+                   chaos=bool(fx.get("chaos"))):
             for dt in (torch.float64, torch.float32):
                 K.reset_counts()
                 t0 = time.perf_counter()
@@ -4120,7 +4146,7 @@ def fixture_replays(dev) -> dict:
                                 exact=encoded == fx["expected"], launches={k: n for k, n in K.LAUNCHES.items() if n})
                 if v["divergences"] or encoded != fx["expected"]:
                     raise AssertionError(f"fixture {key}: {json.dumps(rec[key])}")
-        log(f"fixtures: {json.dumps(rec, sort_keys=True)}")
+    log(f"fixtures: {json.dumps(rec, sort_keys=True)}")
     return rec
 
 
@@ -4250,7 +4276,8 @@ def process_chaos(device: str) -> dict:
     t0 = time.perf_counter()
     v = pc.run()
     return dict(v, wall_s=time.perf_counter() - t0, child_compiles=pc.child_compiles,
-                child_launches=pc.child_launches, scenario=scn["name"], features=list(scn["features"]))
+                child_launches=pc.child_launches, child_degrades=pc.child_degrades, scenario=scn["name"],
+                features=list(scn["features"]))
 
 
 def start_process_chaos(dev) -> "tuple[Any, dict]":
@@ -4273,15 +4300,23 @@ def start_process_chaos(dev) -> "tuple[Any, dict]":
     return worker, box
 
 
-def fuzz_phases(dev, leg_d: "tuple[Any, dict]") -> dict:
-    """Phase 35: (a), (e), (b) and (c) here, then (d) joined (started by
-    ``start_process_chaos``)."""
+def fuzz_phases(dev) -> dict:
+    """Phase 35's legs in this process: (a), (e), (b) and (c), run beside
+    the tuner's plain references (``tune_start``)."""
     if kernel_degrades():
         raise AssertionError(f"kernel errors degraded before phase 35: {kernel_degrades()}")
-    worker, box = leg_d
     t0 = time.perf_counter()
     rec = {"sweep": fuzz_sweep(dev), "fixtures": fixture_replays(dev), "cfg2": cfg2_chaos(dev),
            "stream": stream_chaos(dev)}
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def process_chaos_phase(dev, leg_d: "tuple[Any, dict]", rec: dict) -> dict:
+    """Phase 35 (d) joined (started by ``start_process_chaos``) and checked;
+    ``rec`` (``fuzz_phases``'s) gains it."""
+    worker, box = leg_d
+    t0 = time.perf_counter()
     with Phase(f"phase 35 (d): ProcessChaos, kill record {PROCESS_CHAOS['kill_record']}, children on the card "
                "(joined)"):
         worker.join()
@@ -4293,14 +4328,16 @@ def fuzz_phases(dev, leg_d: "tuple[Any, dict]") -> dict:
             raise AssertionError(f"ProcessChaos: {json.dumps(d)[:4000]}")
         if d["child_compiles"] != [0, 0]:
             raise AssertionError(f"ProcessChaos children built or loaded libraries: {d['child_compiles']}")
+        if d["child_degrades"]:
+            raise AssertionError(f"ProcessChaos children degraded kernel errors: {d['child_degrades']}")
         if dev.type == "cuda" and not d["child_launches"].get("scan"):
             raise AssertionError(f"ProcessChaos children launched no scan on the card: {d['child_launches']}")
     rec["process"] = d
-    rec["wall_s"] = time.perf_counter() - t0
+    rec["wall_s"] += time.perf_counter() - t0
     log(f"phase 35: {rec['wall_s']:.3f} s (the sweep {rec['sweep']['wall_s']:.3f}, cfg2's chaos round "
         f"{rec['cfg2']['chaos']['wall_s']:.3f} with its sequential tail {rec['cfg2']['chaos']['sequential_tail_s']:.3f}, "
         f"the stream's chaos {rec['stream']['chaos']['wall_s']:.3f}; ProcessChaos {d['wall_s']:.3f} on its thread, "
-        "from phase 34 on)")
+        "from phase 34 on; (a)-(c) and (e) beside phases 23-24's plain references)")
     return rec
 
 
@@ -5096,7 +5133,19 @@ def main() -> int:
     k8_t = autoscale_phases(dev, cpu_autoscale_ref)
 
     # ------------------------------------------- the tuner (K9, K2g)
-    k9_t, k2g_t = tune_phases(dev, cpu_tune_ref)
+    # its plain references run in the card's workers (~100 s); meanwhile
+    # this process runs cfg11-scenario and phase 35's own legs (host-bound)
+    tune_started = tune_start(dev)
+
+    # ------------------------------------------- cfg11-scenario
+    scen_rec, ascen_rec, cut64 = scenario_phases(dev, cpu_scenario_ref, cpu_autoscale_scenario_ref)
+    scen_launches = scen_rec["launches"]
+
+    # ------------------------------------------- the fuzzer and kernel chaos
+    fuzz_rec = fuzz_phases(dev)
+
+    k9_t, k2g_t = tune_phases(dev, cpu_tune_ref, tune_started)
+    del tune_started
     # phase 34's direct service, in a worker on the card beside phases 28-33
     # (the plain references are done with the pool by now)
     sim_direct_ref = _GPU_POOL.apply_async(no_kernel_errors, (sim_direct,))
@@ -5105,9 +5154,7 @@ def main() -> int:
     stream_rec = stream_phases(dev, cpu_stream_ref)
     stream_launches = stream_rec["launches"]
 
-    # ------------------------------------------- cfg11-scenario, the lifecycle
-    scen_rec, ascen_rec, cut64 = scenario_phases(dev, cpu_scenario_ref, cpu_autoscale_scenario_ref)
-    scen_launches = scen_rec["launches"]
+    # ------------------------------------------- the lifecycle
     loop_rec = lifecycle_phases(dev, cut64)
     del cut64
 
@@ -5126,8 +5173,8 @@ def main() -> int:
     sim_rec = simulator_phase(dev, cpu_sim_ref, sim_direct_ref)
     sim_launches = {k: sum(rec[k] for rec in sim_rec["launches"].values()) for k in ("scan", "compact", "scatter")}
 
-    # ------------------------------------------- the fuzzer and kernel chaos
-    fuzz_rec = fuzz_phases(dev, leg_d)
+    # ------------------------------------------- phase 35 (d), joined
+    fuzz_rec = process_chaos_phase(dev, leg_d, fuzz_rec)
     fz = {k: fuzz_rec["sweep"]["launches"][k] + fuzz_rec["stream"]["chaos"]["launches"][k]
           + fuzz_rec["cfg2"]["chaos"]["launches"][k] for k in K.LAUNCHES}
     fz_window = fuzz_rec["cfg2"]["chaos"]["launches"]["scan"]

@@ -38,8 +38,9 @@ estimator uses a host-side first-fit over cpu/memory/pods only
 (``method="resource-fallback"`` on the estimates).  A kernel or launch
 error in a supported estimate degrades to the same first-fit, as the
 reference's does: counted in ``kernel_errors`` and logged with its
-traceback.  A library build or load error, or a lost CUDA context,
-propagates (``kernels.degradable``).  ``method`` keeps the reference's
+traceback.  A library build or load error, a kernel wrapper's own
+failure (``kernels.KernelLaunchError``) or a lost CUDA context propagates
+(``kernels.degradable``).  ``method`` keeps the reference's
 wire value ``"xla-batch"`` for the lane-kernel path, so action records and
 events compare byte for byte between the two packages.
 """

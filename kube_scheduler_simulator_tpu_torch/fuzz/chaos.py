@@ -174,8 +174,10 @@ class ProcessChaos:
     to exercise the wave-atomic batch commit path, ``checkpoint_every``
     to exercise compaction mid-run).  ``device`` is the children's
     (None: the card).  ``child_compiles`` lists each reporting child's
-    ``compile_count`` delta over its scenario (0 is the contract), and
-    ``child_launches`` sums their kernel launches.
+    ``compile_count`` delta over its scenario (0 is the contract),
+    ``child_launches`` sums their kernel launches and ``child_degrades``
+    the kernel errors they degraded (``kernels.DEGRADES``; none is
+    injected, so ``{}`` is the contract).
     """
 
     def __init__(
@@ -195,6 +197,7 @@ class ProcessChaos:
         self.device = str(resolve_device(device))
         self.child_compiles: list[int] = []
         self.child_launches: dict[str, int] = {}
+        self.child_degrades: dict[str, int] = {}
 
     # ------------------------------------------------------------- children
 
@@ -202,6 +205,8 @@ class ProcessChaos:
         self.child_compiles.append(int(doc.get("compiles", 0)))
         for k, n in (doc.get("launches") or {}).items():
             self.child_launches[k] = self.child_launches.get(k, 0) + int(n)
+        for k, n in (doc.get("degrades") or {}).items():
+            self.child_degrades[k] = self.child_degrades.get(k, 0) + int(n)
 
     def _prebuild(self) -> None:
         """On the card, build (or load) every kernel library here, once, so

@@ -40,7 +40,8 @@ SIGKILL at a record boundary never tears) and ``partial_gangs == 0``
 the child loads the kernel libraries its parent built and builds nothing
 (``kernels.build(compile=False)`` raises where one is missing); every
 report carries ``compiles``, the child's ``compile_count`` delta over its
-scenario, which is 0 when nothing was rebuilt or reloaded.
+scenario, which is 0 when nothing was rebuilt or reloaded, and
+``degrades``, the kernel errors it degraded (``kernels.DEGRADES``).
 """
 
 from __future__ import annotations
@@ -117,12 +118,13 @@ def _drive(scenario: Obj, store: Any, svc: Any, start_tick: int = 0) -> None:
 
 def _emit(plan: Obj, out_path: str, doc: Obj) -> None:
     """Write the child's report, with its builds and loads since main()
-    loaded the libraries, and its kernels' launches."""
+    loaded the libraries, its kernels' launches and the kernel errors it
+    degraded."""
     from kube_scheduler_simulator_tpu_torch.analysis.runtime import compile_count
     from kube_scheduler_simulator_tpu_torch.ops import kernels
 
     doc = dict(doc, compiles=compile_count() - plan["compiles_at_start"],
-               launches={k: n for k, n in kernels.LAUNCHES.items() if n})
+               launches={k: n for k, n in kernels.LAUNCHES.items() if n}, degrades=dict(kernels.DEGRADES))
     with open(out_path, "w", encoding="utf-8") as f:
         json.dump(doc, f, sort_keys=True)
 

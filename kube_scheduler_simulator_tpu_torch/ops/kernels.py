@@ -352,6 +352,19 @@ class KernelBuildError(RuntimeError):
     degraded to the sequential cycle: ``degradable`` lets it propagate."""
 
 
+class KernelLaunchError(RuntimeError):
+    """A wrapper's own failure on the card: a launch that returned a
+    cudaError (an invalid configuration, too many resources).  Never
+    degraded: a kernel that does not launch must not turn its rounds into
+    host rounds."""
+
+
+class KernelArgumentError(KernelLaunchError, ValueError):
+    """A wrapper refused its arguments (a CPU or non-contiguous tensor, a
+    dtype or shape the kernel does not take, a problem past its capacity).
+    Never degraded, as ``KernelLaunchError``."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -424,11 +437,15 @@ _DEGRADES_MU = threading.Lock()
 def degradable(err: BaseException, device: "str | torch.device", site: str) -> bool:
     """May a round, a streamed wave or an estimate (``site``) that raised
     ``err`` finish on the sequential cycle (or the estimator's resource-only
-    first-fit)?  Never for a library build or load error, and on the card
-    only while its CUDA context still answers a ``synchronize``: a lost
-    context keeps the original error, so a dead card never turns later
-    rounds into quiet host rounds.  A yes is counted in ``DEGRADES``."""
-    if isinstance(err, KernelBuildError):
+    first-fit)?  Never for a library build or load error, nor for a
+    wrapper's own failure (``KernelLaunchError``: a launch's cudaError, an
+    argument the kernel refuses), and on the card only while its CUDA
+    context still answers a ``synchronize``: a lost context keeps the
+    original error, so a dead card never turns later rounds into quiet host
+    rounds.  What degrades is raised above the wrappers (a host fault, the
+    engine-boundary ``ChaosError`` of fuzz/chaos.py).  A yes is counted in
+    ``DEGRADES``."""
+    if isinstance(err, (KernelBuildError, KernelLaunchError)):
         return False
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -449,11 +466,11 @@ def reset_counts() -> None:
 
 def _check(t: torch.Tensor, name: str, dtype: "torch.dtype | None" = None) -> int:
     if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor (the plain versions serve CPU tensors)")
+        raise KernelArgumentError(f"{name} must be a CUDA tensor (the plain versions serve CPU tensors)")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelArgumentError(f"{name} must be contiguous")
     if dtype is not None and t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        raise KernelArgumentError(f"{name} must be {dtype}, got {t.dtype}")
     return t.data_ptr()
 
 
@@ -467,7 +484,7 @@ def _entry(lib: str, dt: torch.dtype):
     """A scan library's entry for ``dt``, resolved through the tenants'
     substrate (``tenancy/substrate.py``, family "kernel_entry")."""
     if dt not in (torch.float32, torch.float64):
-        raise ValueError(f"kernels take float32 or float64 problems, got {dt}")
+        raise KernelArgumentError(f"kernels take float32 or float64 problems, got {dt}")
     sub = _substrate()
     fn = sub.lookup("kernel_entry", (lib, dt))
     if fn is None:
@@ -479,7 +496,7 @@ def _entry(lib: str, dt: torch.dtype):
 
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {torch.cuda.get_device_name()} cudaError {rc}")
+        raise KernelLaunchError(f"{what} kernel launch failed: {torch.cuda.get_device_name()} cudaError {rc}")
 
 
 def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
@@ -528,7 +545,7 @@ def scan(
     kernel's trace meta of an empty round is not held against the plain
     version's."""
     if (dims["P"] if window is None else window) <= 0:
-        raise ValueError(f"a scan over no pods (P={dims['P']}, window={window}): nothing to launch")
+        raise KernelArgumentError(f"a scan over no pods (P={dims['P']}, window={window}): nothing to launch")
     out = _launch_scan(cfg, dims, dp, blocks, ws0, carry0, offset, window, weights=weights, cluster=cluster)
     LAUNCHES["scan"] += 1
     return out
@@ -587,9 +604,9 @@ def scan_grad_forward(
     ops/batch.grad_residual_plain.  ``weights`` [S] in the problem's dtype;
     one lane, a cluster of ``cluster_width(N, 1)`` blocks, trace off."""
     if weights.shape != (len(cfg.scores),):
-        raise ValueError(f"weights must be [{len(cfg.scores)}], got {tuple(weights.shape)}")
+        raise KernelArgumentError(f"weights must be [{len(cfg.scores)}], got {tuple(weights.shape)}")
     if not tau > 0:
-        raise ValueError(f"tau must be positive, got {tau}")
+        raise KernelArgumentError(f"tau must be positive, got {tau}")
     out = _launch_scan(cfg._replace(trace=False), dims, dp, None, None, None, 0, None, weights=weights, grad=tau)
     LAUNCHES["scan_grad"] += 1
     return out.pop("resid"), out
@@ -602,15 +619,15 @@ def grad_contract(M: torch.Tensor, F: torch.Tensor, tau: float) -> torch.Tensor:
     ops/batch.grad_contract_plain (bitwise: the same products over the same
     tree)."""
     if M.dim() != 3 or M.shape[0] != 2 or F.shape != (M.shape[2], 2):
-        raise ValueError(f"M must be [2, S, N] and F [N, 2], got {tuple(M.shape)} and {tuple(F.shape)}")
+        raise KernelArgumentError(f"M must be [2, S, N] and F [N, 2], got {tuple(M.shape)} and {tuple(F.shape)}")
     if not tau > 0:
-        raise ValueError(f"tau must be positive, got {tau}")
+        raise KernelArgumentError(f"tau must be positive, got {tau}")
     S, N = M.shape[1], M.shape[2]
     a = ContractArgs()
     a.M = _check(M, "M", torch.float64)
     a.F = _check(F, "F")
     if F.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"F must be float32 or float64, got {F.dtype}")
+        raise KernelArgumentError(f"F must be float32 or float64, got {F.dtype}")
     fn = getattr(build()["objective"], f"kss_contract_{'f32' if F.dtype == torch.float32 else 'f64'}")
     pw = 1 << max(2 * N - 1, 0).bit_length()
     scratch = torch.empty((S, pw), dtype=torch.float64, device=M.device)
@@ -631,7 +648,7 @@ def scan_grad(
     gives the formula): the grad forward, then the contraction with ``F``
     [N, 2] (d objective / d final_nonzero, the problem's dtype)."""
     if F.shape != (dims["N"], 2):
-        raise ValueError(f"F must be [{dims['N']}, 2], got {tuple(F.shape)}")
+        raise KernelArgumentError(f"F must be [{dims['N']}, 2], got {tuple(F.shape)}")
     _check(F, "F", dp.alloc.dtype)
     M, out = scan_grad_forward(cfg, dims, dp, weights, tau)
     return grad_contract(M, F, tau), out
@@ -647,7 +664,7 @@ def objective(
     (d objective / d final_nonzero), as tuning/objective.py's plain
     versions."""
     if name not in OBJECTIVE_IDS:
-        raise ValueError(f"unknown objective {name!r}; choose from {tuple(OBJECTIVE_IDS)}")
+        raise KernelArgumentError(f"unknown objective {name!r}; choose from {tuple(OBJECTIVE_IDS)}")
     L, N, _two = final_nonzero.shape
     P = selected.shape[1]
     dt = final_nonzero.dtype
@@ -659,7 +676,7 @@ def objective(
     a = ObjArgs()
     for field, (t, shape, tdt) in want.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"{field} has shape {tuple(t.shape)}, the objective wants {shape}")
+            raise KernelArgumentError(f"{field} has shape {tuple(t.shape)}, the objective wants {shape}")
         setattr(a, "used" if field == "final_nonzero" else field, _check(t, field, tdt))
     fn = _entry("objective", dt)
     n_vals = {"utilization": 2 * N, "fragmentation": N, "pending_age": P}[name]
@@ -706,13 +723,13 @@ def _launch_scan(
             dp = dp._replace(start0=int(carry0["start0"]))
     P, N, R = dims["P"], dims["N"], dims["R"]
     if R > 30:
-        raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
+        raise KernelArgumentError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
     if len(cfg.fit_resources) > MAXFR or len(cfg.fit_shape) > MAXSHAPE:
-        raise ValueError("NodeResourcesFit scoring resources or shape exceed the kernel's capacity")
+        raise KernelArgumentError("NodeResourcesFit scoring resources or shape exceed the kernel's capacity")
     if max(dims["KC"], dims["KS"]) > MAXC:
-        raise ValueError(f"more than {MAXC} PodTopologySpread constraints of one kind on a pod")
+        raise KernelArgumentError(f"more than {MAXC} PodTopologySpread constraints of one kind on a pod")
     if len(dims["key_struct"]) > MAXKU:
-        raise ValueError(f"more than {MAXKU} topology keys in the spread constraints and inter-pod terms")
+        raise KernelArgumentError(f"more than {MAXKU} topology keys in the spread constraints and inter-pod terms")
     dt = dp.alloc.dtype
     dev = dp.alloc.device
     i32 = torch.int32
@@ -723,7 +740,7 @@ def _launch_scan(
     w_rows = profile_weights(cfg, dt, dev) if weights is None else weights
     _check(w_rows, "weights", dt)
     if w_rows.shape[-1] != S or w_rows.dim() not in (1, 2):
-        raise ValueError(f"weights must be [{S}] or [G, {S}], got {tuple(w_rows.shape)}")
+        raise KernelArgumentError(f"weights must be [{S}] or [G, {S}], got {tuple(w_rows.shape)}")
     # the lane axis: L lanes, each output with a leading [L]
     laned = lane_active is not None or w_rows.dim() == 2
     L = lane_active.shape[0] if lane_active is not None else (w_rows.shape[0] if w_rows.dim() == 2 else 1)
@@ -760,21 +777,21 @@ def _launch_scan(
     # a carry copy for each block of each lane
     lane_smem = False
     if (lane_active is None) != (tile is None):
-        raise ValueError("node-mask lanes run in the masked mode only, which takes them and a tile")
+        raise KernelArgumentError("node-mask lanes run in the masked mode only, which takes them and a tile")
     if tile is not None:
         if blocks is not None or cluster is not None or tile not in LANE_TILES:
-            raise ValueError(f"the masked mode takes one block a lane and a tile of {LANE_TILES}, got {tile}")
+            raise KernelArgumentError(f"the masked mode takes one block a lane and a tile of {LANE_TILES}, got {tile}")
         C, lib, blocks_x, slots = 1, "scan_masked", 1, L
         # the list (int32), flags (uint8), and R + 6 rows of the dtype a node
         lane_smem = N * (5 + dp.alloc.element_size() * (R + 6)) <= LANE_SMEM_BYTES
     elif blocks is not None:
         if laned or grad is not None or cluster is not None or blocks < 1:
-            raise ValueError("the redundant chains take one lane, no grad mode and no cluster width")
+            raise KernelArgumentError("the redundant chains take one lane, no grad mode and no cluster width")
         C, lib, blocks_x, slots = 1, "scan", blocks, blocks
     else:
         C = cluster_width(N, L) if cluster is None else cluster
         if not 1 <= C <= MAXCL or (C > 1 and -(-N // SCAN_THREADS) > SCAN_THREADS):
-            raise ValueError(f"a cluster of {C} blocks over {N} nodes: at most {MAXCL} blocks and "
+            raise KernelArgumentError(f"a cluster of {C} blocks over {N} nodes: at most {MAXCL} blocks and "
                              f"{SCAN_THREADS} rank tiles of {SCAN_THREADS} nodes")
         lib = "scan_grad" if grad is not None else ("scan_trace" if cfg.trace else "scan_cluster")
         blocks_x, slots = C, L
@@ -816,7 +833,7 @@ def _launch_scan(
         a.filters[k] = _FILTER_IDS[f]
     a.ns = len(cfg.scores)
     if S > MAXS:
-        raise ValueError(f"{S} score plugins exceed the scan's capacity ({MAXS})")
+        raise KernelArgumentError(f"{S} score plugins exceed the scan's capacity ({MAXS})")
     for k, (s, _w) in enumerate(cfg.scores):
         a.scores[k] = _SCORE_IDS[s]
     a.fit_strategy = _FIT_IDS[cfg.fit_strategy]
@@ -879,14 +896,14 @@ def _launch_scan(
     for name in ("spread_match", "term_match"):
         t = getattr(dp, name)
         if not t.is_cuda or t.dtype != dt or (t.numel() and (t.stride(1) != 1 or t.stride(0) != Psrc)):
-            raise ValueError(f"{name} must be a {dt} CUDA tensor with rows of the full problem")
+            raise KernelArgumentError(f"{name} must be a {dt} CUDA tensor with rows of the full problem")
         setattr(a, name, t.data_ptr())
     if lane_active is not None:
         a.node_active = lane_active.data_ptr()
     a.start_ptr = _check(start_dev, "start0", i32) if start_dev is not None else None
     if grad is not None:
         if laned or cfg.trace:
-            raise ValueError("the grad mode runs one lane with the trace off")
+            raise KernelArgumentError("the grad mode runs one lane with the trace off")
         # zeroed by the kernel
         out["resid"] = torch.empty((2, S, N), dtype=torch.float64, device=dev)
         a.grad, a.tau = 1, float(grad)
@@ -954,14 +971,14 @@ def scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> to
     comes from the shape and the copy word from the width and the two
     pointers, each read once."""
     if not (buf.is_cuda and idx.is_cuda and rows.is_cuda):
-        raise ValueError("buf, idx and rows must be CUDA tensors (the plain versions serve CPU tensors)")
+        raise KernelArgumentError("buf, idx and rows must be CUDA tensors (the plain versions serve CPU tensors)")
     if not (buf.is_contiguous() and idx.is_contiguous() and rows.is_contiguous()):
-        raise ValueError("buf, idx and rows must be contiguous")
+        raise KernelArgumentError("buf, idx and rows must be contiguous")
     if idx.dtype != torch.int32 or rows.dtype != buf.dtype:
-        raise ValueError(f"idx must be torch.int32 and rows {buf.dtype}, got {idx.dtype} and {rows.dtype}")
+        raise KernelArgumentError(f"idx must be torch.int32 and rows {buf.dtype}, got {idx.dtype} and {rows.dtype}")
     bs, rs, js = buf.shape, rows.shape, idx.shape
     if len(js) != 1 or len(rs) != len(bs) or not bs or js[0] != rs[0] or (len(bs) > 1 and rs[1:] != bs[1:]):
-        raise ValueError(f"rows {tuple(rs)} / idx {tuple(js)} do not fit plane {tuple(bs)}")
+        raise KernelArgumentError(f"rows {tuple(rs)} / idx {tuple(js)} do not fit plane {tuple(bs)}")
     nbytes = rows.nbytes
     if nbytes == 0:
         return buf
@@ -1008,7 +1025,7 @@ def _compact_plan(key, cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, 
         total += int(torch.Size(shape).numel()) * _DT_BYTES[dt]
     scores = [name for name, _dt, _shape in manifest if name.startswith(("raw:", "norm:"))]
     if len(scores) > MAXSP:
-        raise ValueError(f"{len(scores)} score planes exceed the compaction kernel's capacity")
+        raise KernelArgumentError(f"{len(scores)} score planes exceed the compaction kernel's capacity")
     src_keys = tuple(f"{name.split(':')[0]}:{cfg.scores[int(name.split(':')[1])][0]}" for name in scores)
     ptrs = [("sample_start", "sample_start", torch.int32), ("sample_processed", "sample_processed", torch.int32)]
     mapped = []  # (kind, score source, cells a row, bytes a cell, offset)
@@ -1017,9 +1034,9 @@ def _compact_plan(key, cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, 
         mapped += [(k, 0, W, _DT_BYTES[dts[name]], offs[name]) for name, k in _MAP_KINDS.items() if name in offs]
     if ws0 is not None:
         if not cfg.filters:
-            raise ValueError("the in-step compaction needs filters: without them the blob carries feasible ids")
+            raise KernelArgumentError("the in-step compaction needs filters: without them the blob carries feasible ids")
         if WS > ws0:
-            raise ValueError(f"WS {WS} exceeds the in-step planes' width {ws0}")
+            raise KernelArgumentError(f"WS {WS} exceeds the in-step planes' width {ws0}")
         a.ws0 = ws0
         ptrs.append(("feasible_count", "feasible_count", torch.int32))
         mapped += [(4, k, WS, _DT_BYTES[dts[name]], offs[name]) for k, name in enumerate(scores)]
@@ -1040,7 +1057,7 @@ def _compact_plan(key, cfg: BatchConfig, dims: dict, W: int, WS: int, manifest, 
         a.mp_vec[p], a.mp_off[p], a.mp_tiles[p], a.mp_first[p] = vec, off, tiles, first
         first += P * tiles
     if first >= 1 << 31:
-        raise ValueError(f"{first} warp tiles exceed the compaction kernel's 32-bit tile index")
+        raise KernelArgumentError(f"{first} warp tiles exceed the compaction kernel's 32-bit tile index")
     a.n_mp, a.map_tiles = len(mapped), first
     plan = (bytes(a), total, src_keys, tuple(ptrs))
     _COMPACT_PLANS[key] = plan
@@ -1082,7 +1099,7 @@ def compact(
     if a.P == 0 or nbytes == 0:
         return blob
     if a.blob % 16:
-        raise ValueError("the compaction's blob must be 16-byte aligned")
+        raise KernelArgumentError("the compaction's blob must be 16-byte aligned")
     rc = _entry("compact", score_dt or torch.float32)(ctypes.byref(a), _stream(start))
     _raise_on(rc, "compact")
     LAUNCHES["compact"] += 1
@@ -1103,7 +1120,7 @@ def preempt(
     U, N = ucand.shape
     V, R, PDB, S = vprio.shape[1], alloc.shape[1], vmatch.shape[2], snode.shape[0]
     if R > MAXR_PREEMPT:
-        raise ValueError(f"{R} resource columns exceed the victim search's capacity ({MAXR_PREEMPT})")
+        raise KernelArgumentError(f"{R} resource columns exceed the victim search's capacity ({MAXR_PREEMPT})")
     dt = alloc.dtype
     want = dict(
         ucand=((U, N), torch.bool), ureq=((U, R), dt), uprio=((U,), torch.int64), smask=((U, S), torch.bool),
@@ -1121,7 +1138,7 @@ def preempt(
     for name, (shape, tdt) in want.items():
         t = given[name]
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, the search wants {shape}")
+            raise KernelArgumentError(f"{name} has shape {tuple(t.shape)}, the search wants {shape}")
         setattr(a, name, _check(t, name, tdt))
     fn = _entry("preempt", dt)
     dev = alloc.device
@@ -1129,7 +1146,7 @@ def preempt(
     if out is None:
         out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     if out.dtype != torch.uint8 or out.shape != (nbytes,):
-        raise ValueError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
+        raise KernelArgumentError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
     _check(out, "out")
     cand, victims, viol = mask_views(out, U, N, V)
     a.cand, a.victims, a.viol = cand.data_ptr(), victims.data_ptr(), viol.data_ptr()
@@ -1161,18 +1178,18 @@ def gang_verdict(gid, node, dom, prior_bound, min_member, D: int, out: "torch.Te
     a = GangVerdictArgs()
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, the verdict wants {shape}")
+            raise KernelArgumentError(f"{name} has shape {tuple(t.shape)}, the verdict wants {shape}")
         setattr(a, name, _check(t, name, torch.int32))
     D = max(int(D), 1)
     W = (D + 31) // 32
     group_bytes = (2 + W) * 4
     if group_bytes > VERDICT_SMEM_BYTES:
-        raise ValueError(f"{D} domains exceed a verdict block's shared memory ({VERDICT_SMEM_BYTES} bytes)")
+        raise KernelArgumentError(f"{D} domains exceed a verdict block's shared memory ({VERDICT_SMEM_BYTES} bytes)")
     nbytes = verdict_layout(G)
     if out is None:
         out = torch.empty(nbytes, dtype=torch.uint8, device=dom.device)
     if out.dtype != torch.uint8 or out.shape != (nbytes,):
-        raise ValueError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
+        raise KernelArgumentError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
     _check(out, "out")
     feasible, distinct, placed = verdict_views(out, G)
     a.K, a.G, a.N, a.D, a.W, a.gb = K, G, N, D, W, VERDICT_SMEM_BYTES // group_bytes
@@ -1235,7 +1252,7 @@ def gang_feasibility(req, valid, free, cnt_free, dom, D: int, out: "torch.Tensor
     N = free.shape[0]
     dt = free.dtype
     if dt not in (torch.float32, torch.float64):
-        raise ValueError(f"the feasibility scan takes float32 or float64 capacities, got {dt}")
+        raise KernelArgumentError(f"the feasibility scan takes float32 or float64 capacities, got {dt}")
     want = dict(
         req=(req, (G, M, R), dt), valid=(valid, (G, M), torch.bool), free=(free, (N, R), dt),
         cnt_free=(cnt_free, (N,), dt), dom=(dom, (G, N), torch.int32),
@@ -1243,20 +1260,20 @@ def gang_feasibility(req, valid, free, cnt_free, dom, D: int, out: "torch.Tensor
     a = GangFeasArgs()
     for name, (t, shape, tdt) in want.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, the scan wants {shape}")
+            raise KernelArgumentError(f"{name} has shape {tuple(t.shape)}, the scan wants {shape}")
         setattr(a, name, _check(t, name, tdt))
     if N >= 1 << 30:
-        raise ValueError(f"{N} nodes exceed the feasibility scan's 30-bit node index")
+        raise KernelArgumentError(f"{N} nodes exceed the feasibility scan's 30-bit node index")
     v = feas_variant(N, R, dt) if variant is None else variant
     tg, npt = FEAS_VARIANTS[v]
     if npt and (R > FEAS_RC or N > tg * npt):
-        raise ValueError(f"variant {v} ({tg} threads x {npt} nodes, {FEAS_RC} columns) cannot hold N {N}, R {R}")
+        raise KernelArgumentError(f"variant {v} ({tg} threads x {npt} nodes, {FEAS_RC} columns) cannot hold N {N}, R {R}")
     nbytes = feasibility_layout(G, M)
     dev = free.device
     if out is None:
         out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     if out.dtype != torch.uint8 or out.shape != (nbytes,):
-        raise ValueError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
+        raise KernelArgumentError(f"out must be uint8 [{nbytes}], got {out.dtype} {tuple(out.shape)}")
     _check(out, "out")
     feasible, distinct, assignment = feasibility_views(out, G, M)
     mc, smem, scratch_bytes = feas_memory(G, M, N, R, dt, v)

@@ -68,8 +68,8 @@ scale-down advances).  One deliberate difference: the reference's loop
 swallows every exception; the port's stops at its first one, and
 ``stop_background()`` re-raises it in the caller's thread.  A kernel error
 never gets there, since the round degrades it (below): what stops the loop
-is a build or load error, a lost CUDA context or a fault of the host code,
-none of which a next tick would cure.  A second: each tick of the port's
+is a build or load error, a kernel that does not launch, a lost CUDA
+context or a fault of the host code, none of which a next tick would cure.  A second: each tick of the port's
 loop holds the quiesce gate of ``pause_streams``, so a snapshot load lands
 whole before the next round.  ``metrics()`` returns the reference's keys.
 
@@ -89,8 +89,10 @@ the round as the reference's does (``_degrade_segment``): the windows
 committed before it stand, and the round's other pods finish on the exact
 sequential cycle, counted in ``batch_fallbacks`` as ``kernel error:
 <type>`` and logged.  It never gives way to a kernel's plain version, and
-``kernels.degradable`` lets a library build or load error, or a CUDA
-context that no longer answers a synchronize, propagate.
+``kernels.degradable`` lets a library build or load error, a kernel
+wrapper's own failure (``kernels.KernelLaunchError``: a launch's cudaError,
+an argument the kernel refuses), or a CUDA context that no longer answers
+a synchronize, propagate.
 
 Refused with an error, never worked around: a mesh.
 """
@@ -1006,6 +1008,12 @@ class SchedulerService:
                 volumes=volumes,
                 nominated=noms or None,
             )
+            # the unpipelined round's launch and fetch run in this try;
+            # ``schedule_waves`` is a generator, so the pipelined round's
+            # encode and launches run at ``next()`` below and its try
+            # catches them: here only a fault raised at the call itself
+            # (fuzz/chaos.py's engine proxy ticks there).  Either way
+            # nothing is committed yet
             try:
                 if self._pipeline_on() and len(tail) > self.commit_wave:
                     # pipelined round: window k+1 runs on the card while the
@@ -1013,7 +1021,7 @@ class SchedulerService:
                     windows = iter(eng.schedule_waves(*args, **kw, wave_pods=max(self.commit_wave, 256)))
                 else:
                     windows = iter([(eng.schedule(*args, **kw), 0, len(tail))])
-            except Exception as e:  # the launch failed: nothing committed
+            except Exception as e:
                 if not K.degradable(e, self.device, "round"):
                     raise
                 self._degrade_segment(fw, tail, results, noms, e)
@@ -1032,7 +1040,8 @@ class SchedulerService:
                 except StopIteration:
                     break
                 except Exception as e:
-                    # a later window's fetch failed: every window committed
+                    # a window's encode, launch or fetch failed (the first
+                    # window's too, when pipelined): every window committed
                     # so far is the sequential cycle's prefix, and nothing of
                     # this window or any after it is committed, so the tail
                     # finishes on the sequential cycle
@@ -1088,8 +1097,8 @@ class SchedulerService:
         sequential cycle.  Counted in ``batch_fallbacks`` as ``kernel error:
         <type>`` and logged every time; its seconds land in ``degrade_s``
         (and ``commit_s``, as the reference counts them).  Only errors that
-        ``kernels.degradable`` passes get here: a build or load error, or a
-        lost CUDA context, propagates."""
+        ``kernels.degradable`` passes get here: a build or load error, a
+        wrapper's own launch failure, or a lost CUDA context, propagates."""
         self._count_fallback(f"kernel error: {type(err).__name__}")
         logger.error("batch round degraded to the sequential cycle (%d pods): %r", len(pods), err, exc_info=err)
         snapshot = self.build_snapshot()

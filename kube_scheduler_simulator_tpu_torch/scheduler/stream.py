@@ -55,7 +55,8 @@ drain path of every gate; a failing
 overlap launch lets wave k commit and re-admits the pods next; a failing
 blob wait abandons wave k and the prefetched wave k+1 alike, nothing of
 either committed, and both re-drain in one admission.  A library build or
-load error, or a lost CUDA context, propagates (``kernels.degradable``).
+load error, a kernel wrapper's own failure (``kernels.KernelLaunchError``)
+or a lost CUDA context propagates (``kernels.degradable``).
 
 One deliberate difference from the reference:
 

@@ -368,13 +368,44 @@ def test_a_lost_cuda_context_keeps_the_original_error(monkeypatch, path):
     assert kernel_error_counts(svc, est) != ([], [], 0)
 
 
+@pytest.mark.parametrize("path", ["round", "stream", "estimate"])
+@pytest.mark.parametrize("error", ["launch", "argument"])
+def test_a_wrapper_failure_on_the_card_is_not_degraded(monkeypatch, path, error):
+    """A kernel wrapper's own failure (``_raise_on``'s cudaError after a
+    launch, ``_check``'s refusal of a tensor) raised where the path reaches
+    its kernel on the card, whose context still answers: it propagates out
+    of the round, the stream and the estimate, nothing is degraded, and the
+    card is not even asked to synchronize."""
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "a card")
+    with pytest.raises(K.KernelLaunchError) as caught:
+        if error == "launch":
+            K._raise_on(9, "scan")  # cudaErrorInvalidConfiguration
+        else:
+            K._check(torch.zeros(2), "alloc")
+    assert isinstance(caught.value, ValueError) == (error == "argument")
+    svc, est, drive = failing(path, caught.value, monkeypatch)
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: synced.append(device))
+    dev = torch.device("cuda", 0)
+    if est is not None:
+        est.engine.device = dev
+    else:
+        svc.device = dev
+    with pytest.raises(type(caught.value)):
+        drive()
+    assert synced == [] and kernel_error_counts(svc, est) == ([], [], 0)
+
+
 def test_degradable_tells_the_errors_apart_and_counts_each_degrade(monkeypatch):
     monkeypatch.setattr(K, "DEGRADES", {})
     assert K.degradable(TF.ChaosError("x"), "cpu", "round")
     assert not K.degradable(K.KernelBuildError("x"), "cpu", "round")
+    assert not K.degradable(K.KernelArgumentError("x"), "cpu", "round")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
     assert K.degradable(RuntimeError("cudaError 700"), "cuda:0", "stream")
     assert not K.degradable(K.KernelBuildError("x"), "cuda:0", "estimate")
+    assert not K.degradable(K.KernelLaunchError("x"), "cuda:0", "round")
+    assert not K.degradable(K.KernelArgumentError("x"), "cuda:0", "stream")
     assert K.DEGRADES == {"round: kernel error: ChaosError": 1, "stream: kernel error: RuntimeError": 1}
 
 
@@ -412,7 +443,7 @@ def test_process_chaos_on_the_cpu_recovers_the_uninterrupted_bytes():
     assert v["divergences"] == [] and v["first_mismatch"] is None, v
     assert v["truncated_records"] == 0 and v["partial_gangs"] == 0 and v["replayed_records"] > 0, v
     assert v["kill_points"] == [7] and v["records"] > 7
-    assert pc.child_compiles == [0, 0], pc.child_compiles
+    assert pc.child_compiles == [0, 0] and pc.child_degrades == {}, (pc.child_compiles, pc.child_degrades)
 
 
 def test_failover_chaos_on_the_cpu_promotes_to_the_uninterrupted_bytes():
@@ -426,7 +457,7 @@ def test_failover_chaos_on_the_cpu_promotes_to_the_uninterrupted_bytes():
     v = fc.run()
     assert v["divergences"] == [] and v["promotions"] == 1 and v["torn_records"] == 0, v
     assert v["records_shipped"] > 0 and v["max_lag"] <= 1, v
-    assert fc.child_compiles == [0, 0], fc.child_compiles
+    assert fc.child_compiles == [0, 0] and fc.child_degrades == {}, (fc.child_compiles, fc.child_degrades)
 
 
 @pytest.mark.parametrize("mode", ["degrade", "wedge"])
