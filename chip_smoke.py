@@ -309,7 +309,8 @@ line):
    override, and with seeded float weights): the defaults change no byte,
    and every pod's bytes equal the CPU service's, finalScore fractional
    under the float weights;
-28. (run after 26) cfg9-stream on the card, float32, each of the three
+28. (run after phases 29, 35 and 36, beside phases 23-24's plain
+   references) cfg9-stream on the card, float32, each of the three
    modes from a fresh cluster (launch counters reset just before the 48
    timed ticks, read just after; each streamed wave's own launches counted
    apart around ``schedule_async`` and its ``decisions()``): the wall,
@@ -422,6 +423,22 @@ line):
    35 may degrade a kernel error (``kernels.DEGRADES``: each ``Phase``
    checks it on exit, each worker job too, and it must be empty when phase
    35 starts).
+36. the kernel-library cache (``ops/aot.py``) on the card: (a) after the
+   build, the ten libraries saved into a fresh temporary cache (ten saves);
+   then two child processes, started beside phases 23-24's plain references
+   and joined after phase 35, each with ``KSS_COMPILE_CACHE_DIR`` an empty
+   temporary directory: (b) one loads every library from that cache (ten
+   hits, no miss, no save, no ``nvcc``) and runs cfg2's float32 round in
+   windows of 256 (K2, K3), its store digest equal to phase 35 (b)'s
+   uninterrupted round's; (c) one over a copy of the cache with three
+   entries altered (``AOT_TAMPERED``: scatter.cu's sidecar under another
+   ``kernel-digest``, gang.cu's library truncated, preempt.cu's sidecar
+   under another ``platform``) counts one fallback for each reason,
+   rebuilds only those three sources with ``nvcc`` and saves them, holds K4
+   (``kernels.scatter_rows``) bitwise against ``ops/batch.scatter_rows_plain``
+   on every plane kind of cfg2's problem, and gives cfg2's digest again.
+   The hits, misses, saves, fallbacks, the children's build and load
+   seconds and the card's name and power limit are printed.
 
 Before phase 20 the earlier phases' cycles and rounds are collected and
 what is left of the heap is frozen (``gc.freeze``), the tracked objects
@@ -4190,6 +4207,7 @@ def cfg2_chaos(dev) -> dict:
             wall = time.perf_counter() - t0
             digests[leg] = pod_digests(store)
             recs[leg] = dict(wall_s=wall, trips=trips, events=events, launches=dict(K.LAUNCHES),
+                             digest=digest(json.dumps(digests[leg], sort_keys=True)),
                              batch_pods=svc.stats["batch_pods"], batch_fallbacks=dict(svc.stats["batch_fallbacks"]),
                              sequential_tail_s=svc.stats["degrade_s"], commit_s=svc.stats["commit_s"],
                              restarts=svc.stats["batch_restarts"], windows=svc._batch_engine.last_timings.get("windows"),
@@ -4339,6 +4357,191 @@ def process_chaos_phase(dev, leg_d: "tuple[Any, dict]", rec: dict) -> dict:
         f"the stream's chaos {rec['stream']['chaos']['wall_s']:.3f}; ProcessChaos {d['wall_s']:.3f} on its thread, "
         "from phase 34 on; (a)-(c) and (e) beside phases 23-24's plain references)")
     return rec
+
+
+# ------------------------------------------------ phase 36: the library cache
+
+def aot_child(role: str, out_path: str) -> None:
+    """Phase 36's child, a process of its own on the card, its
+    ``KSS_AOT_CACHE_DIR`` and ``KSS_COMPILE_CACHE_DIR`` set by the parent:
+    ``kernels.build`` (the libraries from the cache, or rebuilt where an
+    entry is rejected), cfg2's float32 round in windows of 256 and, for the
+    "fallback" child, K4 against its plain version on cfg2's planes.  Its
+    record goes to ``out_path`` as JSON."""
+    t_enter = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.ops import aot
+    from kube_scheduler_simulator_tpu_torch.ops import batch as B
+    from kube_scheduler_simulator_tpu_torch.ops import encode as E
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    dev = torch.device(DEVICE)
+    torch.cuda.init()
+    t_cuda = time.perf_counter()
+    builds0 = dict(K.BUILDS)
+    t0 = time.perf_counter()
+    K.build()
+    build_s = time.perf_counter() - t0
+    rec = dict(role=role, import_and_cuda_s=t_cuda - t_enter, build_s=build_s,
+               builds={k: K.BUILDS[k] - builds0[k] for k in K.BUILDS}, cache=aot.stats(),
+               built=sorted(p.name for p in K.build_dir().glob("*.so")), platform=K.cuda_platform(),
+               toolchain=aot.toolchain_of(K._nvcc()), cache_dir=os.environ.get("KSS_AOT_CACHE_DIR"))
+    store, svc = cfg2_service(dev, torch.float32)
+    K.reset_counts()
+    t0 = time.perf_counter()
+    svc.schedule_pending(max_rounds=1)
+    torch.cuda.synchronize()
+    rec.update(round_s=time.perf_counter() - t0, launches=dict(K.LAUNCHES),
+               batch_fallbacks=dict(svc.stats["batch_fallbacks"]), degrades=kernel_degrades(),
+               windows=svc._batch_engine.last_timings.get("windows"),
+               digest=digest(json.dumps(pod_digests(store), sort_keys=True)))
+    if role == "fallback":
+        # K4 (rebuilt after its entry's kernel-digest fallback) against its
+        # plain version on every plane kind of cfg2's problem
+        nodes, all_pods, pending, vols = make_cluster("cfg2")
+        host, _dims = B.lower_host(E.pad_problem(E.encode(nodes, all_pods, pending, volumes=vols)), torch.float32)
+        g = torch.Generator().manual_seed(36)
+        checked, n0 = [], K.LAUNCHES["scatter"]
+        for (fname, sub), a in sorted(B.problem_leaves(host).items(), key=lambda kv: str(kv[0])):
+            if fname in B.CARRY0_FIELDS or a.ndim == 0 or a.shape[0] < 4:
+                continue
+            rows_n = a.shape[0]
+            buf0 = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for k in sorted({1, 7, max(1, rows_n // 4)}):
+                idx = torch.randperm(rows_n, generator=g)[:k].to(torch.int32).to(dev)
+                src = torch.from_numpy(np.ascontiguousarray(a[torch.randperm(rows_n, generator=g)[:k].numpy()])).to(dev)
+                want = B.scatter_rows_plain(buf0.clone(), idx, src)
+                got = K.scatter_rows(buf0.clone(), idx, src)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"phase 36 (c): K4 differs from its plain version on {fname}[{sub}] K={k}")
+            checked.append(f"{fname}{'' if sub is None else f'[{sub}]'} {a.dtype} {tuple(a.shape)}")
+        rec["k4"] = dict(planes=checked, launches=K.LAUNCHES["scatter"] - n0)
+    rec["wall_in_child_s"] = time.perf_counter() - t_enter
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(rec, f)
+
+
+# phase 36 (c)'s prepared cache: each altered entry and the fallback it counts
+AOT_TAMPERED = {"scatter": "kernel-digest", "gang": "corrupt", "preempt": "platform"}
+
+
+def aot_start(dev) -> dict:
+    """Phase 36 (a): the built libraries saved into a fresh cache; then (b)
+    and (c)'s children started on the card (they run beside phases 23-24's
+    plain references and cfg11-scenario; ``aot_phase`` joins them)."""
+    import tempfile
+
+    from kube_scheduler_simulator_tpu_torch.ops import aot
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    tmp = tempfile.mkdtemp(prefix="kss-aot-")
+    warm = os.path.join(tmp, "cache")
+    with Phase("phase 36 (a): the built libraries saved into a fresh kernel-library cache"):
+        before = aot.stats()
+        t0 = time.perf_counter()
+        saved = K.save_libraries(K.library_cache(warm))
+        save_s = time.perf_counter() - t0
+        after = aot.stats()
+        saves = after["aot_cache_saves_total"] - before["aot_cache_saves_total"]
+        if None in saved.values() or saves != len(K.SOURCES) or after["aot_cache_fallbacks_by_reason"] != before[
+                "aot_cache_fallbacks_by_reason"]:
+            raise AssertionError(f"phase 36 (a): {saves} saves of {len(K.SOURCES)} libraries: {saved}, {after}")
+        sizes = {n: os.path.getsize(path) for n, path in saved.items()}
+        side = json.load(open(os.path.join(warm, "scan.json"), encoding="utf-8"))
+        log(f"phase 36 (a): {saves} saves in {save_s:.3f} s, {sum(sizes.values())} bytes "
+            f"({json.dumps(sizes, sort_keys=True)}); toolchain {side['toolchain']!r}, platform {side['platform']!r}")
+        # (c)'s cache: the same entries, three of them altered
+        bad = os.path.join(tmp, "tampered")
+        shutil.copytree(warm, bad)
+        for name, reason in AOT_TAMPERED.items():
+            sp = os.path.join(bad, f"{name}.json")
+            side = json.load(open(sp, encoding="utf-8"))
+            if reason == "corrupt":
+                lib = os.path.join(bad, side["library"])
+                with open(lib, "r+b") as f:
+                    f.truncate(os.path.getsize(lib) // 2)
+                continue
+            side[reason] = "0" * 16 if reason == "kernel-digest" else "sm_80; arch=compute_80,code=sm_80"
+            with open(sp, "w", encoding="utf-8") as f:
+                json.dump(side, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for role, cache_dir in (("warm", warm), ("fallback", bad)):
+        build_dir = os.path.join(tmp, f"build-{role}")
+        os.makedirs(build_dir)
+        out = os.path.join(tmp, f"{role}.json")
+        env = dict(os.environ, KSS_AOT_CACHE_DIR=cache_dir, KSS_COMPILE_CACHE_DIR=build_dir)
+        code = f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; chip_smoke.aot_child({role!r}, {out!r})"
+        logf = open(os.path.join(tmp, f"{role}.log"), "w", encoding="utf-8")
+        procs[role] = (subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logf, stderr=subprocess.STDOUT,
+                                        cwd=root), out, logf)
+    _CHILDREN.extend(p for p, *_ in procs.values())
+    return dict(tmp=tmp, procs=procs, save_s=save_s, saves=saves)
+
+
+def aot_phase(started: dict, cfg2_digest: str, card: str) -> dict:
+    """Phase 36 (b) and (c) joined and checked: the warm child loaded every
+    library from the cache (no nvcc), the other counted one fallback for
+    each altered entry and rebuilt only those; both rounds' digests are
+    this process's cfg2 round's."""
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    recs = {}
+    try:
+        with Phase("phase 36 (b), (c): the kernel-library cache's children on the card (joined)"):
+            for role, (proc, out, logf) in started["procs"].items():
+                try:
+                    rc = proc.wait(timeout=900)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rc = proc.wait()
+                logf.close()
+                child_log = open(logf.name, encoding="utf-8").read()
+                if rc != 0 or not os.path.exists(out):
+                    raise AssertionError(f"phase 36 {role} child exited {rc}:\n{child_log[-6000:]}")
+                recs[role] = rec = json.load(open(out, encoding="utf-8"))
+                log(f"phase 36 {role} child: {json.dumps(rec, sort_keys=True)}")
+            warm, fb = recs["warm"], recs["fallback"]
+            n = len(K.SOURCES)
+            want_warm = {"aot_cache_hits_total": n, "aot_cache_misses_total": 0, "aot_cache_saves_total": 0,
+                         "aot_cache_fallbacks_by_reason": {}}
+            if warm["cache"] != want_warm or warm["builds"] != {"nvcc": 0, "loads": n} or warm["built"]:
+                raise AssertionError(f"phase 36 (b): the warm child did not load every library from the cache: "
+                                     f"{json.dumps(warm)}")
+            want_fb = {"aot_cache_hits_total": n - len(AOT_TAMPERED), "aot_cache_misses_total": 0,
+                       "aot_cache_saves_total": len(AOT_TAMPERED),
+                       "aot_cache_fallbacks_by_reason": {r: 1 for r in AOT_TAMPERED.values()}}
+            rebuilt = sorted(name.split("-")[0] for name in fb["built"])
+            if fb["cache"] != want_fb or fb["builds"] != {"nvcc": len(AOT_TAMPERED), "loads": n} or rebuilt != sorted(
+                    K.SOURCES[name].split(".")[0] for name in AOT_TAMPERED):
+                raise AssertionError(f"phase 36 (c): {json.dumps(fb)}")
+            for role, rec in recs.items():
+                if rec["digest"] != cfg2_digest or rec["batch_fallbacks"] or rec["degrades"] or rec["windows"] != 4:
+                    raise AssertionError(f"phase 36 {role}: cfg2's round differs from this process's "
+                                         f"({cfg2_digest}): {json.dumps(rec)}")
+                if not (rec["launches"]["scan"] and rec["launches"]["compact"]):
+                    raise AssertionError(f"phase 36 {role}: cfg2's round launched {rec['launches']}")
+            if not fb["k4"]["launches"]:
+                raise AssertionError(f"phase 36 (c): K4: {json.dumps(fb['k4'])}")
+            log(f"phase 36: warm child: {want_warm['aot_cache_hits_total']} hits, 0 misses, 0 saves, no fallback, "
+                f"nvcc 0, libraries loaded in {warm['build_s']:.3f} s (this process's fresh build "
+                f"{K.build_seconds:.3f} s), child wall {warm['wall_in_child_s']:.3f} s (torch and CUDA "
+                f"{warm['import_and_cuda_s']:.3f} s); fallback child: "
+                f"{json.dumps(fb['cache']['aot_cache_fallbacks_by_reason'], sort_keys=True)}, "
+                f"{fb['cache']['aot_cache_hits_total']} hits, {fb['cache']['aot_cache_saves_total']} saves, "
+                f"nvcc {fb['builds']['nvcc']} ({', '.join(rebuilt)}) in {fb['build_s']:.3f} s, child wall "
+                f"{fb['wall_in_child_s']:.3f} s; K4 bitwise on {len(fb['k4']['planes'])} planes; both cfg2 digests "
+                f"{cfg2_digest[:16]}; {card}")
+    finally:
+        for proc, *_rest in started["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    return dict(recs, save_s=started["save_s"], saves=started["saves"], fresh_build_s=K.build_seconds)
 
 
 def workload_cfg(name):
@@ -4577,6 +4780,7 @@ def cpu_stream() -> "tuple[dict, str]":
 
 _POOL = None  # the CPU worker pool, stopped on the way out of the script
 _GPU_POOL = None  # the plain references' worker pool on the card, stopped likewise
+_CHILDREN: list = []  # phase 36's child processes, killed likewise where still running
 
 
 def main() -> int:
@@ -5136,6 +5340,8 @@ def main() -> int:
     # its plain references run in the card's workers (~100 s); meanwhile
     # this process runs cfg11-scenario and phase 35's own legs (host-bound)
     tune_started = tune_start(dev)
+    # phase 36's children (the kernel-library cache) beside them too
+    aot_started = aot_start(dev)
 
     # ------------------------------------------- cfg11-scenario
     scen_rec, ascen_rec, cut64 = scenario_phases(dev, cpu_scenario_ref, cpu_autoscale_scenario_ref)
@@ -5144,15 +5350,19 @@ def main() -> int:
     # ------------------------------------------- the fuzzer and kernel chaos
     fuzz_rec = fuzz_phases(dev)
 
-    k9_t, k2g_t = tune_phases(dev, cpu_tune_ref, tune_started)
-    del tune_started
-    # phase 34's direct service, in a worker on the card beside phases 28-33
-    # (the plain references are done with the pool by now)
-    sim_direct_ref = _GPU_POOL.apply_async(no_kernel_errors, (sim_direct,))
+    # ------------------------------------------- the kernel-library cache
+    aot_phase(aot_started, fuzz_rec["cfg2"]["uninterrupted"]["digest"], card)
+    del aot_started
 
-    # ------------------------------------------- cfg9-stream
+    # ------------------------------------------- cfg9-stream (still beside them)
     stream_rec = stream_phases(dev, cpu_stream_ref)
     stream_launches = stream_rec["launches"]
+
+    k9_t, k2g_t = tune_phases(dev, cpu_tune_ref, tune_started)
+    del tune_started
+    # phase 34's direct service, in a worker on the card beside phases 29-33
+    # (the plain references are done with the pool by now)
+    sim_direct_ref = _GPU_POOL.apply_async(no_kernel_errors, (sim_direct,))
 
     # ------------------------------------------- the lifecycle
     loop_rec = lifecycle_phases(dev, cut64)
@@ -5477,4 +5687,8 @@ if __name__ == "__main__":
             if pool is not None:
                 pool.terminate()
                 pool.join()
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     sys.exit(rc)

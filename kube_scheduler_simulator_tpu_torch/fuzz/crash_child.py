@@ -38,7 +38,9 @@ SIGKILL at a record boundary never tears) and ``partial_gangs == 0``
 
 ``--device`` places the child's service (default: the card).  On the card
 the child loads the kernel libraries its parent built and builds nothing
-(``kernels.build(compile=False)`` raises where one is missing); every
+(``kernels.build(compile=False)``, from the build directory the child's
+``KSS_COMPILE_CACHE_DIR`` names, or from the kernel-library cache under
+``KSS_AOT_CACHE_DIR``, raises where one is missing); every
 report carries ``compiles``, the child's ``compile_count`` delta over its
 scenario, which is 0 when nothing was rebuilt or reloaded, and
 ``degrades``, the kernel errors it degraded (``kernels.DEGRADES``).

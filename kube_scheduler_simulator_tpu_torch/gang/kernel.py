@@ -87,7 +87,7 @@ class Staging:
         offs, n_in = stage_layout(arrays)
         cuda = self.device.type == "cuda"
         nbytes = max(n_in + _up(out_bytes), _ALIGN)
-        self._host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+        self._host = torch.empty(nbytes, dtype=torch.uint8, device="cpu", pin_memory=cuda)
         hn = self._host.numpy()
         for a, o in zip(arrays, offs):
             hn[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
@@ -132,7 +132,7 @@ def verdict_plain(gid, node, dom, prior_bound, min_member, D: int):
     # dom[gsel, clip(node, 0)] for every slot and marks only placed ones
     dm = dom[gsel, node.clamp(min=0).long()].clamp(min=0).long()
     used = torch.zeros(G * D, dtype=torch.int32, device=dev).index_add_(0, gsel * D + dm, placed.to(torch.int32))
-    distinct = (used.view(G, D) > 0).sum(dim=1).to(torch.int32)
+    distinct = (used.view(G, D) > 0).sum(dim=1, dtype=torch.int64).to(torch.int32)
     return feasible, distinct, cnt
 
 
@@ -189,13 +189,13 @@ def run_window_verdict(
         feasible, distinct, placed = window_verdict(gid_t, node_t, dom_t, prior_t, min_t, D)
         return {"feasible": feasible.numpy(), "distinct_domains": distinct.numpy(), "placed": placed.numpy()}
     sizes = [a.size for a in host]
-    staged = torch.empty(sum(sizes), dtype=torch.int32, pin_memory=True)
+    staged = torch.empty(sum(sizes), dtype=torch.int32, device="cpu", pin_memory=True)
     staged.numpy()[:] = np.concatenate(host)
     t1 = time.perf_counter()
     gid_t, node_t, prior_t, min_t = staged.to(dev, non_blocking=True).split(sizes)
     out = torch.empty(verdict_layout(G), dtype=torch.uint8, device=dev)
     window_verdict(gid_t, node_t, dom_t, prior_t, min_t, D, out=out)
-    res = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+    res = torch.empty(out.shape, dtype=torch.uint8, device="cpu", pin_memory=True)
     res.copy_(out, non_blocking=True)
     t2 = time.perf_counter()
     stream = torch.cuda.current_stream(dev)
@@ -234,7 +234,7 @@ def feasibility_plain(req, valid, free, cnt_free, dom, D: int):
     used = torch.zeros((G, max(int(D), 1)), dtype=torch.bool, device=dev)
     ok = torch.ones(G, dtype=torch.bool, device=dev)
     sel = torch.full((G, M), -1, dtype=torch.int32, device=dev)
-    ar = torch.arange(N, device=dev)
+    ar = torch.arange(N, dtype=torch.int64, device=dev)
     domL = dom.long()
     zero = torch.zeros((), dtype=dt, device=dev)
     for m in range(M):

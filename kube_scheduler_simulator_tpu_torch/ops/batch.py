@@ -282,7 +282,7 @@ def _set_columns(mask) -> np.ndarray:
     """[P,C] bool → [P,K] int32: each row's True columns ascending, -1
     padded, K the most any row has (at least 1)."""
     mask = np.asarray(mask, dtype=bool)
-    cnt = mask.sum(axis=1)
+    cnt = mask.sum(axis=1, dtype=np.int64)
     K = max(int(cnt.max()) if mask.size else 0, 1)
     order = np.argsort(~mask, axis=1, kind="stable")[:, :K]
     return np.where(np.arange(K)[None, :] < cnt[:, None], order, -1).astype(np.int32)
@@ -752,7 +752,7 @@ def _spread_score(cons, dp, spread_counts, sampled, key_struct, logt):
         else:
             ok, d = _domain_index(dom, base)
             cnt = torch.where(ok, _domain_sums(ok, d, size, mc)[d], 0)
-            tsize = (_domain_sums(ok, d, size, fni.to(mc.dtype)) > 0).sum()
+            tsize = (_domain_sums(ok, d, size, fni.to(mc.dtype)) > 0).sum(dtype=torch.int64)
         raw_f = raw_f + (cnt * logt[tsize] + (skew - 1.0))
     raw = torch.round(raw_f)  # half to even, as jnp.round
     mn = torch.where(fni, raw, float("inf")).min()
@@ -902,7 +902,7 @@ def scan_plain(
         ("aff_g", dp.ip_aff_g), ("anti_g", dp.ip_anti_g), ("pref_g", dp.ip_pref_g), ("own_g", dp.ip_own_g),
     )}
     gvalid, gidx = _domain_index(dp.gdom, 0)
-    g_rows = torch.arange(gidx.shape[0], device=dev)
+    g_rows = torch.arange(gidx.shape[0], dtype=torch.int64, device=dev)
 
     def at_nodes(carry, g=None):
         """A [G,D+1] carry read at each node's domain of each group ([G,N]),
@@ -1027,7 +1027,7 @@ def scan_plain(
         sampled = feasible & (c <= K)
         processed = torch.where(
             total >= K,
-            torch.where(feasible & (c == K), r + 1, 0).sum().to(i32),
+            torch.where(feasible & (c == K), r + 1, 0).sum(dtype=torch.int64).to(i32),
             torch.tensor(nt, dtype=i32, device=dev),
         )
         count = torch.clamp(total, max=K) * dp.pod_active[i]

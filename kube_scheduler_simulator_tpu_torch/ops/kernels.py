@@ -60,8 +60,11 @@ counters and the wrappers.
               versions.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``csrc/build/`` keyed by a hash
-of the source and flags; the sources build in parallel.  The libraries are
+with a plain C interface, at first use, into ``csrc/build/`` (or the
+``KSS_COMPILE_CACHE_DIR`` directory, ``build_dir``) keyed by a hash of the
+sources and flags; the sources build in parallel.  With ``KSS_AOT_CACHE_DIR``
+set, a library comes from the kernel-library cache (ops/aot.py) where it
+holds a valid entry, and one built here is saved there.  The libraries are
 loaded with ``ctypes``: every pointer and the stream travel as
 ``c_void_p``, the arguments as one struct whose fields are all 8 bytes
 wide, and every entry point returns ``cudaGetLastError()``, which the
@@ -85,6 +88,7 @@ from pathlib import Path
 
 import torch
 
+from kube_scheduler_simulator_tpu_torch.ops import aot
 from kube_scheduler_simulator_tpu_torch.ops.batch import (
     CLOUD_LIMIT_COL,
     GOLDEN32,
@@ -375,57 +379,146 @@ def _nvcc() -> str:
     return "nvcc"
 
 
-def _lib_path(src: Path) -> Path:
-    """The library of ``src``, keyed by every source (scan_cluster.cu,
-    scan_trace.cu and scan_grad.cu include scan.cu) and the flags."""
+def build_dir() -> Path:
+    """The directory ``build`` compiles into and loads from, by the
+    ``KSS_COMPILE_CACHE_DIR`` knob (the reference's persistent compilation
+    cache): unset or empty, ``BUILD_DIR`` (csrc/build/, which .gitignore
+    lists); a path, that directory; ``0``, a temporary directory of this
+    process (removed at its exit), so every process compiles afresh.  A
+    child that loads with ``build(compile=False)`` reads the same knob."""
+    global _PRIVATE_BUILD_DIR
+    d = os.environ.get("KSS_COMPILE_CACHE_DIR", "").strip()
+    if d != "0":
+        return Path(d) if d else BUILD_DIR
+    if _PRIVATE_BUILD_DIR is None:
+        import atexit
+        import shutil
+        import tempfile
+
+        _PRIVATE_BUILD_DIR = Path(tempfile.mkdtemp(prefix="kss-kernels-"))
+        atexit.register(shutil.rmtree, str(_PRIVATE_BUILD_DIR), True)
+    return _PRIVATE_BUILD_DIR
+
+
+_PRIVATE_BUILD_DIR: "Path | None" = None
+
+
+def lib_digest(src: Path) -> str:
+    """The key of ``src``'s library: a hash of every source (scan_cluster.cu,
+    scan_trace.cu and scan_grad.cu include scan.cu), its name and the
+    flags."""
     key = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cu"))) + src.name.encode()
-    h = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{h}.so"
+    return hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
+def _lib_path(src: Path, directory: "Path | None" = None) -> Path:
+    """The library of ``src`` in the build directory, keyed by its digest."""
+    return (directory or build_dir()) / f"{src.stem}-{lib_digest(src)}.so"
+
+
+_PLATFORM: "str | None" = None
+
+
+def cuda_platform() -> str:
+    """The card's compute capability and the ``-gencode`` target the
+    libraries are built for (the kernel-library cache's ``platform``), read
+    once a process and only when the cache checks or saves an entry."""
+    global _PLATFORM
+    if _PLATFORM is None:
+        gencode = next((NVCC_FLAGS[i + 1] for i, f in enumerate(NVCC_FLAGS[:-1]) if f == "-gencode"), "")
+        if torch.cuda.is_available():
+            major, minor = torch.cuda.get_device_capability(0)
+            _PLATFORM = f"sm_{major}{minor}; {gencode}"
+        else:
+            _PLATFORM = f"no device; {gencode}"
+    return _PLATFORM
+
+
+def library_cache(cache_dir: "str | os.PathLike | None" = None) -> "aot.LibraryCache | None":
+    """The kernel-library cache in ``cache_dir``, by default the
+    ``KSS_AOT_CACHE_DIR`` knob's directory (None when it is unset)."""
+    d = aot.aot_cache_dir() if cache_dir is None else str(cache_dir)
+    if d is None:
+        return None
+    return aot.LibraryCache(d, (_nvcc(), *NVCC_FLAGS), cuda_platform)
+
+
+def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    for entry, argtypes in ENTRIES[name].items():
+        f = getattr(lib, entry)
+        f.restype = ctypes.c_int
+        f.argtypes = argtypes
+    return lib
 
 
 def build(compile: bool = True) -> "dict[str, ctypes.CDLL]":
     """Compile every kernel source that has no library for its current hash
     (one ``nvcc`` per source, all started together), then load them.  With
     ``compile=False`` a missing library raises instead (a child process
-    loads what its parent built).  Every failure is a ``KernelBuildError``."""
+    loads what its parent built).  Every failure is a ``KernelBuildError``.
+
+    With the kernel-library cache on (``KSS_AOT_CACHE_DIR``, ops/aot.py) a
+    library comes from the cache where its entry is valid; a missing or
+    rejected entry (counted) takes the path above, and the library is then
+    saved into the cache.  A library built here that does not load stays a
+    ``KernelBuildError``."""
     global build_seconds
     if len(_LIBS) == len(SOURCES):
         return _LIBS
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    bdir = build_dir()
+    cache = library_cache()
+    loaded: "dict[str, ctypes.CDLL]" = {}
+    if cache is not None:
+        for name, fn in SOURCES.items():
+            lib = cache.load(name, lib_digest(CSRC / fn), ENTRIES[name])
+            if lib is not None:
+                BUILDS["loads"] += 1
+                loaded[name] = _bind(lib, name)
+    bdir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, fn in SOURCES.items():
         src = CSRC / fn
-        out = _lib_path(src)
-        if not out.exists():
-            if not compile:
-                raise KernelBuildError(f"no library for csrc/{fn} in {BUILD_DIR} (build(compile=False))")
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            try:
-                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            except OSError as exc:
-                raise KernelBuildError(f"cannot start nvcc for csrc/{fn}: {exc}") from exc
-            BUILDS["nvcc"] += 1
-            jobs[name] = (proc, tmp, out)
+        out = _lib_path(src, bdir)
+        if name in loaded or out.exists():
+            continue
+        if not compile:
+            raise KernelBuildError(f"no library for csrc/{fn} in {bdir} (build(compile=False))")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        except OSError as exc:
+            raise KernelBuildError(f"cannot start nvcc for csrc/{fn}: {exc}") from exc
+        BUILDS["nvcc"] += 1
+        jobs[name] = (proc, tmp, out)
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise KernelBuildError(f"nvcc failed for csrc/{SOURCES[name]}:\n{log.decode(errors='replace')}")
         os.replace(tmp, out)
     for name, fn in SOURCES.items():
+        if name in loaded:
+            continue
+        path = _lib_path(CSRC / fn, bdir)
         try:
-            lib = ctypes.CDLL(str(_lib_path(CSRC / fn)))
+            lib = _bind(ctypes.CDLL(str(path)), name)
             BUILDS["loads"] += 1
-            for entry, argtypes in ENTRIES[name].items():
-                f = getattr(lib, entry)
-                f.restype = ctypes.c_int
-                f.argtypes = argtypes
         except (OSError, AttributeError) as exc:
             raise KernelBuildError(f"cannot load the library of csrc/{fn}: {exc}") from exc
-        _LIBS[name] = lib
+        loaded[name] = lib
+        if cache is not None:
+            cache.save(name, lib_digest(CSRC / fn), path)
+    _LIBS.update(loaded)
     build_seconds = time.perf_counter() - t0
     return _LIBS
+
+
+def save_libraries(cache: "aot.LibraryCache") -> "dict[str, str | None]":
+    """Save every library of the build directory into ``cache`` (after a
+    ``build``): the cached paths by library name, None where a save
+    failed."""
+    return {name: cache.save(name, lib_digest(CSRC / fn), _lib_path(CSRC / fn)) for name, fn in SOURCES.items()}
 
 
 # every kernel error this process degraded, by "<site>: kernel error: <type>"
@@ -504,7 +597,7 @@ def domain_layout(dims: dict, dt: torch.dtype) -> "tuple[int, bool]":
     the scan's shared memory): a slot holds the per-domain sums and flags
     of the largest interned key; identity keys need none."""
     cap = max((size for kind, _base, size in dims["key_struct"] if kind != "identity"), default=0)
-    slot_bytes = (dims["KC"] + dims["KS"]) * cap * (torch.empty((), dtype=dt).element_size() + 4)
+    slot_bytes = (dims["KC"] + dims["KS"]) * cap * (torch.empty((), dtype=dt, device="cpu").element_size() + 4)
     return cap, slot_bytes <= DOM_SMEM_BYTES
 
 

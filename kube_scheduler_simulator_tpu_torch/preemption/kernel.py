@@ -210,7 +210,7 @@ def _stage(arrays: list, device: torch.device) -> list:
     for a in arrays:
         offs.append(total)
         total += _up(a.nbytes)
-    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8, pin_memory=True)
+    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8, device="cpu", pin_memory=True)
     hn = host.numpy()
     for a, o in zip(arrays, offs):
         hn[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
@@ -283,7 +283,7 @@ def run_search(
     K.preempt(*_search_args(t, tables), out=out)
     if ev:
         ev[2].record()
-    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host = torch.empty(nbytes, dtype=torch.uint8, device="cpu", pin_memory=True)
     host.copy_(out, non_blocking=True)
     if ev:
         ev[3].record()

@@ -961,6 +961,8 @@ class SchedulerService:
                 tc = time.perf_counter()
                 for pod in pending:
                     results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
+                # lock-free: single-writer scalar bumps on the scheduling thread (the
+                # multi-key dicts are written under _stats_lock)
                 self.stats["commit_s"] += time.perf_counter() - tc
             else:
                 if gang_ctx is not None and gang_ctx.engaged:
@@ -1070,6 +1072,8 @@ class SchedulerService:
             restarts += 1
             if i >= len(pending):
                 break
+            # lock-free: single-writer scalar bumps on the scheduling thread (the
+            # multi-key dicts are written under _stats_lock)
             self.stats["batch_restarts"] += 1
             if pctx is None and restarts >= self.batch_max_restarts:
                 # a preemption-heavy round whose PostFilter runs on the
@@ -1109,6 +1113,8 @@ class SchedulerService:
                 continue  # committed (or parked at Permit) before the error
             results[_pod_key(pod)] = self.schedule_one(pod, snapshot)
         dt = time.perf_counter() - tc
+        # lock-free: single-writer scalar bumps on the scheduling thread (the
+        # multi-key dicts are written under _stats_lock)
         self.stats["commit_s"] += dt
         self.stats["degrade_s"] += dt
 
@@ -1167,6 +1173,8 @@ class SchedulerService:
                 nj = wave_js[-1] + 1
                 fw.next_start_node_index = int(sample_start[nj]) if nj < cnt else result.final_start
             dt = time.perf_counter() - tc
+            # lock-free: single-writer scalar bumps on the scheduling thread (the
+            # multi-key dicts are written under _stats_lock)
             self.stats["commit_s"] += dt
             self.stats["commit_waves"] += 1
             self.stats["last_wave_commit_s"] = dt
@@ -1538,6 +1546,8 @@ class SchedulerService:
         with self.cluster_store.journal_txn("attempt"):
             result = fw.schedule_one(pod, snapshot)
             self._sync_rotation(fw)
+            # lock-free: single-writer scalar bumps on the scheduling thread (the
+            # multi-key dicts are written under _stats_lock)
             self.stats["sequential_pods"] += 1
             # gang cascades inside the cycle (Coscheduling permit releases,
             # PostFilter rejections) resolve OTHER waiting pods: record
@@ -1633,14 +1643,15 @@ class SchedulerService:
         The ``journal_*`` and ``checkpoint_compactions_total`` keys read the
         attached journal's counters, ``recovery_*`` the store's last
         recovery (0 with no journal), ``retry_by_seam`` the retries counted
-        by resilience/.  Keys of subsystems the port has not ported report
-        what the reference reports with the subsystem off:
+        by resilience/, and the ``aot_cache_*`` keys this process's
+        kernel-library cache (ops/aot.py: hits, misses, saves and fallbacks
+        by reason; per process, not per engine as in the reference, since a
+        library is loaded once a process).  Keys of subsystems the port has
+        not ported report what the reference reports with the subsystem off:
         ``shard_devices``, ``sharded_dispatches_total`` and
         ``plane_shard_bytes_per_device`` 0 (the mesh); ``procmesh`` None;
         ``placer_bank_rotations_total`` 0 and ``placer_banks`` {}
-        (the plane banks); ``aot_cache_hits_total``,
-        ``aot_cache_misses_total``, ``aot_cache_saves_total`` 0 and
-        ``aot_cache_fallbacks_by_reason`` {} (ops/aot.py).
+        (the plane banks).
 
         The engine keys read the default profile's engine:
         ``engine_rounds`` its rounds (one per ``schedule``, windowed round
@@ -1651,11 +1662,11 @@ class SchedulerService:
         has cached, one per trace manifest and shape (0 on the CPU).  The
         last two are the process's, shared by every engine.
         ``stats["f64_promotions"]`` stays in ``stats``."""
-        from kube_scheduler_simulator_tpu_torch.ops import kernels
+        from kube_scheduler_simulator_tpu_torch.ops import aot, kernels
 
         eng = self._batch_engine
-        # the multi-key dicts are copied under the lock; the scalar reads
-        # are single-writer counters
+        # lock-free: the multi-key dicts are copied under the lock; the
+        # scalar reads are GIL-atomic reads of single-writer counters
         with self._stats_lock:
             fallbacks = dict(self.stats["batch_fallbacks"])
             preempt_fallbacks = dict(self.stats["preempt_fallbacks"])
@@ -1681,10 +1692,7 @@ class SchedulerService:
             "plane_shard_bytes_per_device": 0,
             "placer_bank_rotations_total": 0,
             "placer_banks": {},
-            "aot_cache_hits_total": 0,
-            "aot_cache_misses_total": 0,
-            "aot_cache_saves_total": 0,
-            "aot_cache_fallbacks_by_reason": {},
+            **aot.stats(),
         }
         for e in list(self._batch_engines.values()) or ([eng] if eng else []):
             es = e.encode_stats()

@@ -158,6 +158,8 @@ class StreamSession:
     def _note_wave(self, cnt: int) -> None:
         # single writer (the session thread), fixed keys
         self._session_waves += 1
+        # lock-free: single-writer scalar bumps on the session thread (the
+        # multi-key dicts are written under svc._stats_lock)
         self.svc.stats["stream_waves"] += 1
         self.svc.stats["stream_pods"] += cnt
 
@@ -322,6 +324,8 @@ class StreamSession:
             self._count_drain(self._kernel_error(e))
             return False
         finally:
+            # lock-free: single-writer scalar bumps on the session thread (the
+            # multi-key dicts are written under svc._stats_lock)
             self.svc.stats["stream_stall_s"] += pb._dev_wait - dev0
         return True
 
@@ -339,6 +343,8 @@ class StreamSession:
         # seconds of that window spent BLOCKED on the device are a stall,
         # not hidden work: kept out of the overlap bucket
         dev_wait = pb._dev_wait - dev0
+        # lock-free: single-writer scalar bumps on the session thread (the
+        # multi-key dicts are written under svc._stats_lock)
         svc.stats["stream_stall_s"] += dev_wait
         if pb.promotion is not None:
             svc._count_promotion(pb.promotion)
@@ -500,6 +506,8 @@ class StreamSession:
                 flight = None
                 self._drain_round(self._kernel_error(e))
                 continue
+            # lock-free: single-writer scalar bumps on the session thread (the
+            # multi-key dicts are written under svc._stats_lock)
             svc.stats["stream_stall_s"] += time.perf_counter() - t0
             n_fail = int((pb.selected[: len(pb.pending)] < 0).sum())
             if n_fail and self._seq_failures():

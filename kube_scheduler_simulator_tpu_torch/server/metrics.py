@@ -247,22 +247,22 @@ def render_metrics(di: Any, session: "str | None" = None, sessions: Any = None) 
             {"bank": bank},
             typ="gauge",
         )
-    # the reference's AOT artifact cache: the port has none yet (its
-    # kernel libraries are cached on disk by source hash), so these read 0
-    counter("aot_cache_hits_total", "Scan artifacts loaded from an on-disk cache (the port has no such cache: 0).", m["aot_cache_hits_total"])
-    counter("aot_cache_misses_total", "Scan builds with no on-disk artifact (the port has no such cache: 0).", m["aot_cache_misses_total"])
-    counter("aot_cache_saves_total", "Scan artifacts saved to an on-disk cache (the port has no such cache: 0).", m["aot_cache_saves_total"])
+    # the kernel-library cache (ops/aot.py, KSS_AOT_CACHE_DIR): the
+    # process's counters
+    counter("aot_cache_hits_total", "Kernel libraries loaded from the on-disk library cache (nvcc skipped).", m["aot_cache_hits_total"])
+    counter("aot_cache_misses_total", "Kernel libraries with no entry in the library cache (built, then saved).", m["aot_cache_misses_total"])
+    counter("aot_cache_saves_total", "Kernel libraries saved into the library cache.", m["aot_cache_saves_total"])
     for reason, n in sorted(m["aot_cache_fallbacks_by_reason"].items()):
         counter(
             "aot_cache_fallbacks_total",
-            "On-disk artifacts rejected, by reason (the port has no such cache: none).",
+            "Library cache entries rejected (the library rebuilt), or saves that failed, by reason.",
             n,
             {"reason": reason},
         )
     if not m["aot_cache_fallbacks_by_reason"]:
         counter(
             "aot_cache_fallbacks_total",
-            "On-disk artifacts rejected, by reason (the port has no such cache: none).",
+            "Library cache entries rejected (the library rebuilt), or saves that failed, by reason.",
             0,
             {"reason": "none"},
         )

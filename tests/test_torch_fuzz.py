@@ -36,12 +36,22 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from torch_reference_checks import exec_on_port  # noqa: E402
+from torch_reference_checks import exec_on_port, retry_tables  # noqa: E402
 
 # every port test this process runs must degrade no kernel error without chaos
 pytest_plugins = ["torch_degrade_watch"]
 
 exec_on_port("test_fuzz", globals(), on_cpu_calls=("FuzzHarness", "SchedulerService", "replay_fixture"))
+
+
+@pytest.fixture(autouse=True)
+def _retry_tables_as_found():
+    """Chaos drains streamed waves, which counts retries at the stream seam
+    in each package's process-wide table (``resilience.retry_stats``): each
+    test leaves both tables as it found them, so a later file of the same
+    process reads only its own retries."""
+    with retry_tables(empty=False):
+        yield
 
 
 class TestDifferentialParity(TestDifferentialParity):  # noqa: F821 - defined by exec_on_port

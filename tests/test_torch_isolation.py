@@ -103,6 +103,23 @@ def test_the_checks_cover_the_fuzz_and_analysis_modules():
     assert "run_differential" in ROUND and "RecompileGuard" in ROUND and "fail_events" in ROUND
 
 
+def test_the_checks_cover_the_library_cache_the_checker_and_the_js_tooling():
+    """The kernel-library cache, the contract checker with its rules and
+    fixtures, and the JavaScript tooling are walked by the AST check (the
+    fixtures import neither JAX nor the reference either); the subprocess
+    check reads the cache's counters, runs the checker over the live tree
+    and the served script through the checker and the interpreter."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for module in ("ops/aot.py", "analysis/framework.py", "analysis/__main__.py", "analysis/rules_dtype.py",
+                   "analysis/rules_env.py", "analysis/rules_host_sync.py", "analysis/rules_hot_render.py",
+                   "analysis/rules_lock.py", "analysis/rules_pinned.py", "utils/jscheck.py", "utils/jsdom.py",
+                   "utils/jseval.py", "utils/jsengine.py"):
+        assert module in checked, module
+    fixtures = sorted(p.name for p in (PORT / "analysis" / "fixtures").glob("*.py"))
+    assert len(fixtures) == 18 and all(f"analysis/fixtures/{f}" in checked for f in fixtures)
+    assert "run_analysis" in ROUND and "aot.stats" in ROUND and "jscheck.check" in ROUND
+
+
 def test_name_check_tells_the_packages_apart():
     assert _is_forbidden("kube_scheduler_simulator_tpu.ops.batch")
     assert _is_forbidden("jax.numpy")
@@ -224,6 +241,15 @@ from kube_scheduler_simulator_tpu_torch.fuzz import FuzzHarness, generate_scenar
 with RecompileGuard("a CPU differential"):
     fv, _fs = run_differential(generate_scenario(0, 1), FuzzHarness("cpu"), chaos={{"roles": ["batch"], "fail_events": [0]}})
 assert fv["divergences"] == [] and fv["comparisons"][0]["explained"]["batch_fallbacks"] == {{"kernel error: ChaosError": 1}}, fv
+from kube_scheduler_simulator_tpu_torch.ops import aot
+from kube_scheduler_simulator_tpu_torch.analysis import run_analysis
+from kube_scheduler_simulator_tpu_torch.utils import jscheck
+from kube_scheduler_simulator_tpu_torch.utils.jseval import Interp
+from kube_scheduler_simulator_tpu_torch.server.webui import JS
+assert aot.stats()["aot_cache_saves_total"] == 0 and aot.LibraryCache
+assert run_analysis()["findings"] == []
+jscheck.check(JS)
+assert Interp({{}}).run("const x = [1, 2].map(v => v * 2).join(',');").get("x") == "2,4"
 from kube_scheduler_simulator_tpu_torch import native
 assert native.fastjson is not None and native.status()["path"].startswith({str(PORT)!r}), native.status()
 # the port's renderer, never the JAX package's library

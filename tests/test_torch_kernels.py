@@ -200,6 +200,7 @@ def assert_outputs_equal(k_out: dict, p_out: dict, tag=None) -> None:
 def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises; CPU tensors reach the plain
     versions through build_batch_fn, never through a wrapper."""
+    TK.reset_counts()  # the launch counts are the process's
     pr, dp, dims = _problem(torch.float64, "cpu")
     cfg = TB.BatchConfig(filters=SEVEN_FILTERS, scores=SCORES, trace=True)
     with pytest.raises(ValueError, match="CUDA tensor"):

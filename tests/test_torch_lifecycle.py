@@ -20,6 +20,8 @@ re-raises it.
 
 from __future__ import annotations
 
+import os
+import subprocess
 import sys
 import threading
 import time
@@ -70,10 +72,25 @@ OFF = {
 
 @pytest.fixture(autouse=True)
 def _x64(monkeypatch):
-    # the reference's AOT cache stays off, as the port has none
+    # both packages' AOT caches stay off
     monkeypatch.delenv("KSS_AOT_CACHE_DIR", raising=False)
     with jax.enable_x64(True):
         yield
+
+
+@pytest.fixture(autouse=True)
+def _empty_process_tables():
+    """``OFF`` reads two process-wide tables of the port: the retries by
+    seam (resilience/) and the kernel-library cache's counters (ops/aot.py).
+    Another test file of the same process may have counted in them, so each
+    test starts from empty ones: ``retry_by_seam == {}`` then means that
+    this test retried nothing."""
+    from kube_scheduler_simulator_tpu_torch import resilience
+    from kube_scheduler_simulator_tpu_torch.ops import aot
+
+    resilience.reset_retry_stats()
+    aot.reset_stats()
+    yield
 
 
 def assert_same_metrics(port_svc, ref_svc) -> dict:
@@ -515,3 +532,36 @@ def test_a_launch_error_stops_the_loop_and_stop_background_raises_it():
         finally:
             svc.stop_background()
     assert not [t for t in threading.enumerate() if t.name == "scheduler-loop"]
+
+
+# ------------------------------------------------- the process-wide tables
+
+CHAOS_THEN_LIFECYCLE = """
+import sys
+import pytest
+import kube_scheduler_simulator_tpu_torch.fuzz as TF
+from kube_scheduler_simulator_tpu_torch import resilience
+
+scn = TF.generate_scenario(12, 1, features=frozenset({"churn", "retune", "preemption"}))
+v, _ = TF.run_differential(scn, TF.FuzzHarness("cpu"), comparisons=("stream-vs-serial",),
+                           chaos={"roles": ["stream-on"], "fail_events": [1, 4]})
+assert v["divergences"] == [], v
+assert resilience.retry_stats().get("stream", 0) >= 1, resilience.retry_stats()
+sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "-p", "no:randomly", "-p", "no:xdist",
+                      "tests/test_torch_lifecycle.py", "-k", "metrics_after"]))
+"""
+
+
+def test_the_metrics_cases_hold_after_a_chaos_stream_in_one_process():
+    """A chaos stream (tests/test_fuzz.py's stream chaos, on the port) counts
+    retries at the stream seam in the port's process-wide table; this
+    file's metrics cases, run after it in the same process, still find
+    ``retry_by_seam == {}``: each starts from an empty table."""
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", CHAOS_THEN_LIFECYCLE], cwd=root, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    # every metrics case of this file ran and passed: batch rounds (2), the
+    # gang round, streams (4), the tuning run and the queue sequences (3)
+    progress = proc.stdout.split("[100%]")[0]
+    assert progress.strip() == "." * (2 + 1 + len(STREAM_CASES) + 1 + len(QUEUE_CASES)), proc.stdout[-2000:]

@@ -16,6 +16,8 @@ import jax
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_reference_checks import retry_tables  # noqa: E402
 
 PACKAGES = ("kube_scheduler_simulator_tpu", "kube_scheduler_simulator_tpu_torch")
 CLOCK = 1_700_000_000.0
@@ -24,6 +26,15 @@ CLOCK = 1_700_000_000.0
 @pytest.fixture(autouse=True)
 def _x64():
     with jax.enable_x64(True):
+        yield
+
+
+@pytest.fixture(autouse=True)
+def _retry_tables_as_found():
+    """A follower's read fault counts a retry at the replication seam in each
+    package's process-wide table (``resilience.retry_stats``): each test
+    leaves both tables as it found them."""
+    with retry_tables(empty=False):
         yield
 
 

@@ -17,7 +17,7 @@ import jax  # noqa: E402
 
 from kube_scheduler_simulator_tpu_torch import workloads  # noqa: E402
 from kube_scheduler_simulator_tpu_torch.utils.keys import pod_key  # noqa: E402
-from torch_reference_checks import Booted, metric_families, normalized  # noqa: E402
+from torch_reference_checks import Booted, metric_families, normalized, retry_tables  # noqa: E402
 
 PACKAGES = ("kube_scheduler_simulator_tpu", "kube_scheduler_simulator_tpu_torch")
 
@@ -26,18 +26,22 @@ PACKAGES = ("kube_scheduler_simulator_tpu", "kube_scheduler_simulator_tpu_torch"
 def both(monkeypatch):
     """The JAX package's server and the port's, each with both APIs on
     ephemeral ports and its background loop running.  float64 everywhere:
-    the JAX server's loop and handler threads read the global setting."""
+    the JAX server's loop and handler threads read the global setting.
+    Both packages' retry tables start empty: ``/metrics`` renders the
+    process-wide retries, so the two servers' metric families agree only
+    where the tables do."""
     monkeypatch.delenv("KSS_AOT_CACHE_DIR", raising=False)
     monkeypatch.delenv("KSS_JOURNAL_DIR", raising=False)
     jax.config.update("jax_enable_x64", True)
     servers = []
-    try:
-        for pkg in PACKAGES:
-            servers.append(Booted(pkg, use_batch="auto"))
-        yield servers
-    finally:
-        for s in servers:
-            s.close()
+    with retry_tables(empty=True):
+        try:
+            for pkg in PACKAGES:
+                servers.append(Booted(pkg, use_batch="auto"))
+            yield servers
+        finally:
+            for s in servers:
+                s.close()
         jax.config.update("jax_enable_x64", False)
 
 

@@ -10,7 +10,9 @@ reference passes."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import importlib
 import re
 from pathlib import Path
 
@@ -37,6 +39,27 @@ def exec_on_port(name: str, namespace: dict, on_cpu_calls: "tuple[str, ...]" = (
     namespace["_on_cpu"] = on_cpu
     namespace["_port_substrate_reset"] = _port_substrate_reset
     exec(compile(port_source(name, on_cpu_calls), f"tests/{name}.py, on the port", "exec"), namespace)
+
+
+@contextlib.contextmanager
+def retry_tables(empty: bool):
+    """Both packages' per-seam retry tables (``resilience.retry_stats``) are
+    process-wide and outlive a test file in a pytest-xdist worker: within
+    the block they are empty when ``empty`` says so, and after it they are
+    as they were before it."""
+    mods = [importlib.import_module(f"{pkg}.resilience")
+            for pkg in ("kube_scheduler_simulator_tpu", "kube_scheduler_simulator_tpu_torch")]
+    before = [m.retry_stats() for m in mods]
+    if empty:
+        for m in mods:
+            m.reset_retry_stats()
+    try:
+        yield
+    finally:
+        for m, table in zip(mods, before):
+            m.reset_retry_stats()
+            for seam, n in table.items():
+                m.note_retry(seam, n)
 
 
 @pytest.fixture(autouse=True)
