@@ -439,6 +439,26 @@ line):
    on every plane kind of cfg2's problem, and gives cfg2's digest again.
    The hits, misses, saves, fallbacks, the children's build and load
    seconds and the card's name and power limit are printed.
+37. the scan ensemble (``ops/procmesh.py``, ``KSS_MESH_PROCESSES``) on the
+   card, in a child process started after phases 23-24 and joined after
+   phase 35 (d), with ``KSS_AOT_CACHE_DIR`` phase 36's warm cache and
+   ``KSS_COMPILE_CACHE_DIR`` an empty directory (the child and its workers
+   load every library from the cache): (a) cfg2's float32 round in one
+   launch through a one-worker ensemble, its store digest phase 35 (b)'s,
+   the pool engaged with a dispatch and a loaded scan, the worker's K2
+   launches with 0 ``nvcc`` runs, 10 loads and 0 degrades, K3 in the
+   parent, no fallback; (b) north in one launch in the child and through
+   the worker, equal documents, with the wall split (planes shipped,
+   the worker's place, scan and fetch, the reply, K3 and the trace in the
+   parent); (c) ``WorkerChaos`` kill, stop and sever at dispatch 0 on a
+   small seeded cluster: no divergence, one respawn (a hang for stop), the
+   breaker closed, no worker left (``leaked_worker_pids``); (d) two
+   workers on the one card: a counted fallback, ``sharded_scan_unported``
+   only, or the probe's own reason where gloo cannot start (workers that do
+   not start fail the phase), and cfg2's digest; (e) a grandchild with no
+   ``nvcc`` (off its ``PATH``, ``CUDA_HOME`` an empty directory) loads all
+   10 libraries from the cache, counted ``toolchain_unverified``, with no
+   ``toolchain`` fallback.
 
 Before phase 20 the earlier phases' cycles and rounds are collected and
 what is left of the heap is frozen (``gc.freeze``), the tracked objects
@@ -460,7 +480,8 @@ streamed run's, cfg11-scenario's and the background loop's, K8's the
 autoscale replay's, the scan's, the compaction's and the scatter's the
 bridge's (phases 32 and 33), the windowed scan's, the compaction's, the
 scatter's, K6's and K7's the journaled legs' (phase 31), those of K2,
-K2w, K3, K4, K5, K6 and K8 phase 35's sweep and chaos rounds,
+K2w, K3, K4, K5, K6 and K8 phase 35's sweep and chaos rounds, the scan's
+phase 37's worker's and the compaction's phase 37's parent's,
 ``launches_by_path`` apart), and as
 the last line
 ``{"ok": true, "device": {...}}``.  Everything is generated from seeds; nothing is read
@@ -4167,7 +4188,7 @@ def fixture_replays(dev) -> dict:
     return rec
 
 
-def cfg2_service(dev, dt):
+def cfg2_service(dev, dt, pipeline="auto"):
     from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
     from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
 
@@ -4177,7 +4198,8 @@ def cfg2_service(dev, dt):
         store.create("nodes", n)
     for p in pending:
         store.create("pods", p)
-    svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=dev, dtype=dt)
+    svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=dev, dtype=dt,
+                           pipeline=pipeline)
     svc.start_scheduler(FIVE_CFG)
     return store, svc
 
@@ -4507,13 +4529,14 @@ def aot_phase(started: dict, cfg2_digest: str, card: str) -> dict:
             warm, fb = recs["warm"], recs["fallback"]
             n = len(K.SOURCES)
             want_warm = {"aot_cache_hits_total": n, "aot_cache_misses_total": 0, "aot_cache_saves_total": 0,
-                         "aot_cache_fallbacks_by_reason": {}}
+                         "aot_cache_fallbacks_by_reason": {}, "aot_cache_toolchain_unverified_total": 0}
             if warm["cache"] != want_warm or warm["builds"] != {"nvcc": 0, "loads": n} or warm["built"]:
                 raise AssertionError(f"phase 36 (b): the warm child did not load every library from the cache: "
                                      f"{json.dumps(warm)}")
             want_fb = {"aot_cache_hits_total": n - len(AOT_TAMPERED), "aot_cache_misses_total": 0,
                        "aot_cache_saves_total": len(AOT_TAMPERED),
-                       "aot_cache_fallbacks_by_reason": {r: 1 for r in AOT_TAMPERED.values()}}
+                       "aot_cache_fallbacks_by_reason": {r: 1 for r in AOT_TAMPERED.values()},
+                       "aot_cache_toolchain_unverified_total": 0}
             rebuilt = sorted(name.split("-")[0] for name in fb["built"])
             if fb["cache"] != want_fb or fb["builds"] != {"nvcc": len(AOT_TAMPERED), "loads": n} or rebuilt != sorted(
                     K.SOURCES[name].split(".")[0] for name in AOT_TAMPERED):
@@ -4540,8 +4563,297 @@ def aot_phase(started: dict, cfg2_digest: str, card: str) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        shutil.rmtree(started["tmp"], ignore_errors=True)
-    return dict(recs, save_s=started["save_s"], saves=started["saves"], fresh_build_s=K.build_seconds)
+        # the warm cache stays for phase 37's ensemble (removed there, or on
+        # the way out of the script)
+        for name in os.listdir(started["tmp"]):
+            if name != "cache":
+                shutil.rmtree(os.path.join(started["tmp"], name), ignore_errors=True)
+        _TMPDIRS.append(started["tmp"])
+    return dict(recs, save_s=started["save_s"], saves=started["saves"], fresh_build_s=K.build_seconds,
+                warm=os.path.join(started["tmp"], "cache"))
+
+
+# ------------------------------------------------ phase 37: the scan ensemble
+
+ENSEMBLE_CHAOS = dict(nodes=4, pods=12, heartbeat_s=0.3, timeout_s=120.0)
+
+
+def no_nvcc_child(out_path: str) -> None:
+    """Phase 37 (e), a process with no ``nvcc`` (off its ``PATH``, and
+    ``CUDA_HOME`` a directory without one): ``kernels.build(compile=False)``
+    from the warm cache, every entry loaded with its toolchain unverified."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.ops import aot
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    K.build(compile=False)
+    rec = dict(build_s=time.perf_counter() - t0, builds=dict(K.BUILDS), cache=aot.stats(), nvcc=K._nvcc(),
+               toolchain=aot.toolchain_of(K._nvcc()), platform=K.cuda_platform(), libraries=len(K._LIBS))
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(rec, f)
+
+
+def ensemble_child(cfg2_digest: str, out_path: str) -> None:
+    """Phase 37, a process of its own on the card (``KSS_AOT_CACHE_DIR``
+    phase 36's warm cache, ``KSS_COMPILE_CACHE_DIR`` an empty directory, so
+    this process and its workers load every library from the cache): (e)'s
+    child started first, then (a) cfg2 through a one-worker ensemble, (b)
+    north in one launch in this process and through the worker, (c)
+    WorkerChaos kill, stop and sever, (d) two workers on the one card.  Its
+    record goes to ``out_path`` as JSON; a failed check raises."""
+    import tempfile
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.fuzz.chaos import WorkerChaos, leaked_worker_pids
+    from kube_scheduler_simulator_tpu_torch.ops import aot, procmesh
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    dev = torch.device(DEVICE)
+    card = dev.type == "cuda"  # a CPU rehearsal: no libraries, no launches, no (e)
+    if card:
+        torch.cuda.init()
+    rec: dict = {}
+    tmp = tempfile.mkdtemp(prefix="kss-ensemble-")
+    # (e): a child without the compiler, beside the rest
+    hidden = [d for d in os.environ.get("PATH", "").split(os.pathsep) if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    os.makedirs(os.path.join(tmp, "no-cuda"))
+    os.makedirs(os.path.join(tmp, "build-e"))
+    env = dict(os.environ, PATH=os.pathsep.join(hidden), CUDA_HOME=os.path.join(tmp, "no-cuda"),
+               KSS_COMPILE_CACHE_DIR=os.path.join(tmp, "build-e"))
+    env.pop("CUDA_PATH", None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_e = os.path.join(tmp, "e.json")
+    code = f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; chip_smoke.no_nvcc_child({out_e!r})"
+    child_e = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=root, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT) if card else None
+    try:
+        t0 = time.perf_counter()
+        builds0 = dict(K.BUILDS)
+        if card:
+            K.build()
+        rec["parent_build"] = dict(s=time.perf_counter() - t0, builds={k: K.BUILDS[k] - builds0[k] for k in K.BUILDS},
+                                   cache=aot.stats())
+        if rec["parent_build"]["builds"]["nvcc"]:
+            raise AssertionError(f"phase 37: the ensemble's parent ran nvcc: {rec['parent_build']}")
+
+        # (a) cfg2 through one worker: one launch (pipeline off: the ensemble
+        # serves no windows), the same store as phase 35's windowed round
+        os.environ["KSS_MESH_PROCESSES"] = "1"
+        procmesh.reset()
+        with Phase("phase 37 (a): cfg2 through a one-worker ensemble on the card, float32"):
+            store, svc = cfg2_service(dev, torch.float32, pipeline=False)
+            K.reset_counts()
+            t0 = time.perf_counter()
+            svc.schedule_pending(max_rounds=1)
+            if card:
+                torch.cuda.synchronize()
+            st = procmesh.stats()
+            a = dict(wall_s=time.perf_counter() - t0, launches=dict(K.LAUNCHES), procmesh=st,
+                     digest=digest(json.dumps(pod_digests(store), sort_keys=True)),
+                     batch_fallbacks=dict(svc.stats["batch_fallbacks"]), batch_pods=svc.stats["batch_pods"],
+                     stages=dict(svc._batch_engine.profiler.last_wave))
+            rec["a"] = a
+            log(f"phase 37 (a): {json.dumps(a, sort_keys=True)}")
+            pool = st["pool"] or {}
+            if a["digest"] != cfg2_digest or a["batch_fallbacks"]:
+                raise AssertionError(f"phase 37 (a): cfg2 through the worker differs from the in-process round "
+                                     f"({cfg2_digest}): {json.dumps(a)}")
+            if not (pool.get("engaged") == 1 and pool["dispatches"] >= 1 and pool["scans_loaded"] >= 1):
+                raise AssertionError(f"phase 37 (a): the ensemble did not serve cfg2: {json.dumps(st)}")
+            if st["run_fallbacks_by_reason"] or st["fallbacks_by_reason"]:
+                raise AssertionError(f"phase 37 (a): ensemble fallbacks: {json.dumps(st)}")
+            if pool["worker_builds"] != ({"nvcc": 0, "loads": len(K.SOURCES)} if card else {}) or pool["worker_degrades"]:
+                raise AssertionError(f"phase 37 (a): the worker's builds or degrades: {json.dumps(pool)}")
+            if card and (not pool["worker_launches"].get("scan") or not a["launches"]["compact"] or a["launches"]["scan"]):
+                raise AssertionError(f"phase 37 (a): K2 in the worker {pool['worker_launches']}, "
+                                     f"this process {a['launches']}")
+
+        # (b) north in one launch: in this process, then through the worker
+        # (the pool of (a), its libraries loaded)
+        nodes, all_pods, pending, vols = make_cluster("north")
+        P = len(pending)
+        docs = {}
+        for leg in ("in-process", "ensemble"):
+            with Phase(f"phase 37 (b): north, one launch, {leg}, on the card, float32"):
+                if leg == "in-process":
+                    os.environ.pop("KSS_MESH_PROCESSES")
+                else:
+                    os.environ["KSS_MESH_PROCESSES"] = "1"
+                eng = engine("north", torch.float32, device=dev)
+                if (eng._procmesh is not None) != (leg == "ensemble"):
+                    raise AssertionError(f"phase 37 (b) {leg}: the engine's pool is {eng._procmesh}")
+                K.reset_counts()
+                w0 = dict((procmesh.stats()["pool"] or {}).get("worker_launches") or {})
+                t0 = time.perf_counter()
+                res = eng.schedule(nodes, all_pods, pending, volumes=vols)
+                wall = time.perf_counter() - t0
+                docs[leg] = round_documents(res, P)
+                st = procmesh.stats()
+                b = dict(wall_s=wall, launches=dict(K.LAUNCHES), timings=dict(eng.last_timings),
+                         stages=dict(eng.profiler.last_wave),
+                         digest=digest(json.dumps(docs[leg], sort_keys=True)))
+                if leg == "ensemble":
+                    pool = st["pool"]
+                    b.update(last_run=pool["last_run"], worker_launches={
+                        k: n - w0.get(k, 0) for k, n in pool["worker_launches"].items()},
+                        run_fallbacks=st["run_fallbacks_by_reason"])
+                rec[f"b {leg}"] = b
+                log(f"phase 37 (b) {leg}: {json.dumps(b, sort_keys=True)}")
+        b, bi = rec["b ensemble"], rec["b in-process"]
+        if b["digest"] != bi["digest"] or docs["ensemble"] != docs["in-process"]:
+            raise AssertionError("phase 37 (b): north through the worker differs from the in-process round")
+        if b["run_fallbacks"] or b["last_run"]["reply_bytes"] <= 0 or (card and (
+                b["worker_launches"].get("scan") != 1 or b["launches"]["scan"] or b["launches"]["compact"] != 1)):
+            raise AssertionError(f"phase 37 (b): {json.dumps(b)}")
+        lr = b["last_run"]
+        worker = lr["worker"]
+        log(f"phase 37 (b): north's wall split through the worker: planes shipped {lr['ship_bytes']} bytes in "
+            f"{lr['ship_s']:.4f} s; in the worker place {worker['place_s']:.4f} s, scan {worker['scan_s']:.4f} s, "
+            f"outputs to the host {worker['fetch_s']:.4f} s; reply {lr['reply_bytes']} bytes, the wait for it "
+            f"{lr['wait_s']:.4f} s (transport {lr['wait_s'] - sum(worker.values()):.4f} s); K3 and the trace in "
+            f"this process (trace_fetch) {b['stages'].get('trace_fetch', 0.0):.4f} s; round {b['wall_s']:.3f} s "
+            f"against {bi['wall_s']:.3f} s in-process; digest {b['digest'][:16]} equal")
+
+        # (c) WorkerChaos at a small scenario, the worker faulted at the first dispatch
+        procmesh.reset()
+        os.environ.pop("KSS_MESH_PROCESSES", None)
+        c_nodes, _c_all, c_pods = workloads.cluster(ENSEMBLE_CHAOS["pods"], ENSEMBLE_CHAOS["nodes"], seed=5)
+        scn = {"name": "phase-37-chaos", "nodes": c_nodes, "pods": c_pods}
+        rec["c"] = {}
+        for mode in ("kill", "stop", "sever"):
+            with Phase(f"phase 37 (c): WorkerChaos {mode} at dispatch 0, one worker on the card"):
+                t0 = time.perf_counter()
+                v = WorkerChaos(scn, mode=mode, fault_at=0, nprocs=1, heartbeat_s=ENSEMBLE_CHAOS["heartbeat_s"],
+                                timeout_s=ENSEMBLE_CHAOS["timeout_s"], device=DEVICE).run()
+                v["wall_s"] = time.perf_counter() - t0
+                v["leaked_after"] = leaked_worker_pids()
+                rec["c"][mode] = v
+                log(f"phase 37 (c) {mode}: {json.dumps(v, sort_keys=True)}")
+                if (v["engaged"] != 1 or v["fired"] != 1 or v["divergences"] or v["respawns"] != 1
+                        or v["hangs_detected"] != (1 if mode == "stop" else 0) or v["breaker_state"] != "closed"
+                        or v["leaked_workers"] or v["leaked_after"] or v["run_fallbacks"]):
+                    raise AssertionError(f"phase 37 (c) {mode}: {json.dumps(v)}")
+                if v["worker_builds"].get("nvcc") or (card and not v["worker_launches"].get("scan")):
+                    raise AssertionError(f"phase 37 (c) {mode}: the workers' builds and launches {json.dumps(v)}")
+
+        # (d) two workers on the one card: a counted fallback, the same store
+        os.environ["KSS_MESH_PROCESSES"] = "2"
+        procmesh.reset()
+        with Phase("phase 37 (d): cfg2 with two workers on the one card, float32"):
+            store, svc = cfg2_service(dev, torch.float32, pipeline=False)
+            K.reset_counts()
+            svc.schedule_pending(max_rounds=1)
+            st = procmesh.stats()
+            d = dict(procmesh=st, launches=dict(K.LAUNCHES), digest=digest(json.dumps(pod_digests(store), sort_keys=True)))
+            rec["d"] = d
+            procmesh.reset()
+            os.environ.pop("KSS_MESH_PROCESSES")
+            log(f"phase 37 (d): verdict {st['verdict']!r}, bring-up fallbacks {st['fallbacks_by_reason']}, run "
+                f"fallbacks {st['run_fallbacks_by_reason']}, pool {json.dumps(st['pool'])}")
+            if d["digest"] != cfg2_digest or not two_worker_fallback(st) or (card and not d["launches"]["scan"]):
+                raise AssertionError(f"phase 37 (d): {json.dumps(d)}")
+            if leaked_worker_pids():
+                raise AssertionError(f"phase 37 (d): workers left: {leaked_worker_pids()}")
+
+        # (e) joined
+        with Phase("phase 37 (e): the cache in a process without nvcc (joined)") if card else contextlib.nullcontext():
+            out, _ = child_e.communicate(timeout=600) if card else (b"", None)
+            if card and (child_e.returncode != 0 or not os.path.exists(out_e)):
+                raise AssertionError(f"phase 37 (e) child exited {child_e.returncode}:\n{out.decode()[-6000:]}")
+            e = json.load(open(out_e, encoding="utf-8")) if card else {"rehearsal": True}
+            rec["e"] = e
+            log(f"phase 37 (e): {json.dumps(e, sort_keys=True)}")
+            n = len(K.SOURCES)
+            if card and (e["toolchain"] is not None or e["builds"] != {"nvcc": 0, "loads": n} or e["libraries"] != n
+                    or e["cache"]["aot_cache_hits_total"] != n or e["cache"]["aot_cache_fallbacks_by_reason"]
+                    or e["cache"]["aot_cache_toolchain_unverified_total"] != n):
+                raise AssertionError(f"phase 37 (e): {json.dumps(e)}")
+    finally:
+        if child_e is not None and child_e.poll() is None:
+            child_e.kill()
+            child_e.wait()
+        procmesh.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(rec, f, default=str)
+
+
+def two_worker_fallback(st: dict) -> bool:
+    """Phase 37 (d)'s one admitted fallback of two workers on one card:
+    every scan shape refused ``sharded_scan_unported`` by an engaged pair,
+    or, where gloo cannot start, the probe's own reason.  Workers that do
+    not start (``spawn_failed``, ``distributed_init_unavailable``) fail."""
+    run, up = st["run_fallbacks_by_reason"], st["fallbacks_by_reason"]
+    if not up:
+        return set(run) == {"sharded_scan_unported"}
+    return not run and len(up) == 1 and all(
+        r == "probe_timeout" or r.startswith("collectives_unavailable") for r in up)
+
+
+def ensemble_start(warm: str, cfg2_digest: str) -> dict:
+    """Phase 37's child started on the card (``ensemble_child``), beside the
+    host-bound phases 30-34; ``ensemble_phase`` joins it."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="kss-phase37-")
+    _TMPDIRS.append(tmp)
+    build = os.path.join(tmp, "build")
+    os.makedirs(build)
+    out = os.path.join(tmp, "phase37.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, KSS_AOT_CACHE_DIR=warm, KSS_COMPILE_CACHE_DIR=build)
+    env.pop("KSS_MESH_PROCESSES", None)
+    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            f"chip_smoke.ensemble_child({cfg2_digest!r}, {out!r})")
+    logf = open(os.path.join(tmp, "phase37.log"), "w", encoding="utf-8")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logf, stderr=subprocess.STDOUT, cwd=root)
+    _CHILDREN.append(proc)
+    return dict(proc=proc, out=out, log=logf, t0=time.perf_counter())
+
+
+def ensemble_phase(started: dict, card: str) -> dict:
+    """Phase 37 joined: its child's log printed and its record checked
+    again here (the child raised on any failed check)."""
+    with Phase("phase 37: the scan ensemble's child on the card (joined)"):
+        proc = started["proc"]
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        started["log"].close()
+        child_log = open(started["log"].name, encoding="utf-8").read()
+        log(child_log.rstrip()[-20000:])
+        if rc != 0 or not os.path.exists(started["out"]):
+            raise AssertionError(f"phase 37's child exited {rc}")
+        rec = json.load(open(started["out"], encoding="utf-8"))
+        rec["wall_s"] = time.perf_counter() - started["t0"]
+        a, b, d = rec["a"], rec["b ensemble"], rec["d"]
+        for mode in ("kill", "stop", "sever"):
+            if rec["c"][mode]["divergences"] or rec["c"][mode]["respawns"] != 1:
+                raise AssertionError(f"phase 37 (c) {mode}: {json.dumps(rec['c'][mode])}")
+        if not two_worker_fallback(d["procmesh"]):
+            raise AssertionError(f"phase 37 (d): {json.dumps(d['procmesh'])}")
+        rec["worker_scan_launches"] = (a["procmesh"]["pool"]["worker_launches"].get("scan", 0)
+                                       + b["worker_launches"].get("scan", 0))
+        rec["parent_compact_launches"] = a["launches"]["compact"] + b["launches"]["compact"]
+        log(f"phase 37: {rec['wall_s']:.3f} s from its start; the worker's K2 launches {rec['worker_scan_launches']} "
+            f"(cfg2 {a['procmesh']['pool']['worker_launches'].get('scan', 0)}, north "
+            f"{b['worker_launches'].get('scan', 0)}), "
+            f"K3 in this process's child {rec['parent_compact_launches']}, the worker's builds "
+            f"{json.dumps(a['procmesh']['pool']['worker_builds'])} and degrades "
+            f"{json.dumps(a['procmesh']['pool']['worker_degrades'])}; WorkerChaos respawns "
+            f"{[rec['c'][m]['respawns'] for m in ('kill', 'stop', 'sever')]}, hangs "
+            f"{[rec['c'][m]['hangs_detected'] for m in ('kill', 'stop', 'sever')]}; two workers: verdict "
+            f"{d['procmesh']['verdict']!r}, {json.dumps(d['procmesh']['run_fallbacks_by_reason'])}; without nvcc "
+            f"{rec['e'].get('cache', {}).get('aot_cache_toolchain_unverified_total')} libraries loaded unverified; "
+            f"{card}")
+    return rec
 
 
 def workload_cfg(name):
@@ -4780,7 +5092,8 @@ def cpu_stream() -> "tuple[dict, str]":
 
 _POOL = None  # the CPU worker pool, stopped on the way out of the script
 _GPU_POOL = None  # the plain references' worker pool on the card, stopped likewise
-_CHILDREN: list = []  # phase 36's child processes, killed likewise where still running
+_CHILDREN: list = []  # phase 36's and 37's child processes, killed likewise where still running
+_TMPDIRS: list = []  # phase 36's warm cache and phase 37's directory, removed likewise
 
 
 def main() -> int:
@@ -5351,7 +5664,7 @@ def main() -> int:
     fuzz_rec = fuzz_phases(dev)
 
     # ------------------------------------------- the kernel-library cache
-    aot_phase(aot_started, fuzz_rec["cfg2"]["uninterrupted"]["digest"], card)
+    aot_rec = aot_phase(aot_started, fuzz_rec["cfg2"]["uninterrupted"]["digest"], card)
     del aot_started
 
     # ------------------------------------------- cfg9-stream (still beside them)
@@ -5360,6 +5673,10 @@ def main() -> int:
 
     k9_t, k2g_t = tune_phases(dev, cpu_tune_ref, tune_started)
     del tune_started
+    # phase 37's child (the scan ensemble) on the card beside phases 30-34,
+    # from phase 36's warm cache (its kernels timed: nothing is timed on the
+    # card from here on)
+    ens_started = ensemble_start(aot_rec["warm"], fuzz_rec["cfg2"]["uninterrupted"]["digest"])
     # phase 34's direct service, in a worker on the card beside phases 29-33
     # (the plain references are done with the pool by now)
     sim_direct_ref = _GPU_POOL.apply_async(no_kernel_errors, (sim_direct,))
@@ -5385,6 +5702,9 @@ def main() -> int:
 
     # ------------------------------------------- phase 35 (d), joined
     fuzz_rec = process_chaos_phase(dev, leg_d, fuzz_rec)
+
+    # ------------------------------------------- phase 37, joined
+    ens_rec = ensemble_phase(ens_started, card)
     fz = {k: fuzz_rec["sweep"]["launches"][k] + fuzz_rec["stream"]["chaos"]["launches"][k]
           + fuzz_rec["cfg2"]["chaos"]["launches"][k] for k in K.LAUNCHES}
     fz_window = fuzz_rec["cfg2"]["chaos"]["launches"]["scan"]
@@ -5405,7 +5725,7 @@ def main() -> int:
             "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
             "launches": main_launches["scan"] + stream_launches["scan"] + scen_launches["scan"]
             + loop_rec["launches"]["scan"] + bridge_rec["launches"]["scan"] + bridge_legs["cfg4"]["launches"]["scan"] + ext_rec["launches"]["scan"]
-            + sim_launches["scan"] + fz_scan,
+            + sim_launches["scan"] + fz_scan + ens_rec["worker_scan_launches"],
             "launches_by_path": {f"{ref} round": main_launches["scan"], "cfg9-stream streamed": stream_launches["scan"],
                                  "cfg11-scenario (windows and one-launch rounds)": scen_launches["scan"],
                                  "background loop": loop_rec["launches"]["scan"],
@@ -5413,7 +5733,8 @@ def main() -> int:
                                  "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["scan"],
                                  "extender round": ext_rec["launches"]["scan"],
                                  "simulator process at north (phase 34)": sim_launches["scan"],
-                                 "fuzz sweep and stream chaos (phase 35)": fz_scan},
+                                 "fuzz sweep and stream chaos (phase 35)": fz_scan,
+                                 "scan ensemble's worker (phase 37: cfg2 and north)": ens_rec["worker_scan_launches"]},
             "max_abs_err": main["scan_err"],
             "ms": main["scan_ms"],
             "plain_ms": main["scan_plain_ms"],
@@ -5456,7 +5777,7 @@ def main() -> int:
             "launches": main_launches_churn["compact"] + stream_launches["compact"] + scen_launches["compact"]
             + loop_rec["launches"]["compact"] + sum(leg["compact"] for leg in legs)
             + bridge_rec["launches"]["compact"] + bridge_legs["cfg4"]["launches"]["compact"] + ext_rec["launches"]["compact"]
-            + sim_launches["compact"] + fz["compact"],
+            + sim_launches["compact"] + fz["compact"] + ens_rec["parent_compact_launches"],
             "launches_by_path": {"cfg5-churn": main_launches_churn["compact"],
                                  "cfg9-stream streamed": stream_launches["compact"],
                                  "cfg11-scenario": scen_launches["compact"],
@@ -5467,7 +5788,8 @@ def main() -> int:
                                  "scorer bridge at cfg4": bridge_legs["cfg4"]["launches"]["compact"],
                                  "extender round": ext_rec["launches"]["compact"],
                                  "simulator process at north (phase 34)": sim_launches["compact"],
-                                 "fuzz and kernel chaos (phase 35)": fz["compact"]},
+                                 "fuzz and kernel chaos (phase 35)": fz["compact"],
+                                 "scan ensemble's parent (phase 37: cfg2 and north)": ens_rec["parent_compact_launches"]},
             "max_abs_err": churn_t["compact_err"],
             "ms": churn_t["compact_ms"],
             "plain_ms": churn_t["compact_plain_ms"],
@@ -5691,4 +6013,6 @@ if __name__ == "__main__":
             if child.poll() is None:
                 child.kill()
                 child.wait()
+        for tmp in _TMPDIRS:
+            shutil.rmtree(tmp, ignore_errors=True)
     sys.exit(rc)

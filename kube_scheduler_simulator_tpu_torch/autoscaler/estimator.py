@@ -110,8 +110,10 @@ class ScaleUpEstimator:
         the CPU unless given) in place of ``mesh``, which is refused."""
         from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
 
-        if mesh not in (None, "auto"):
-            raise ValueError("a mesh: the port runs one card; sharding the node axis is not ported yet")
+        from kube_scheduler_simulator_tpu_torch.ops.mesh import resolve_mesh
+
+        if resolve_mesh(mesh, device=device) is not None:
+            raise ValueError("a mesh: sharding the node axis is not ported yet")
         # Feasibility = the profile's filters; packing = MostAllocated
         # best-fit (see module docstring).  trace off: estimation needs
         # decisions, not annotations.

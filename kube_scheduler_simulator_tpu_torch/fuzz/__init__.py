@@ -18,7 +18,7 @@ package's ``fuzz/``) is the engine that drives it:
   bytes;
 - :mod:`fuzz.chaos` — mid-run kernel-failure injection; the engines
   must degrade to the sequential path without committing a partial or
-  divergent wave.
+  divergent wave; process, disk and scan-ensemble worker faults.
 
 ``python -m kube_scheduler_simulator_tpu_torch.fuzz`` runs a bounded
 seeded sweep on the card (``--device cpu`` on the CPU; ``__main__.py``);

@@ -41,8 +41,8 @@ the parent builds the kernel libraries first and each child only loads
 them (``kernels.build(compile=False)``), reporting its own
 ``compile_count`` delta over the scenario.  :class:`FailoverChaos` adds a
 hot-standby follower, :class:`DiskChaos` faults the journal's writes;
-:class:`WorkerChaos` (a shard worker's faults) needs the multi-process
-mesh and raises :class:`ShardNotPorted`.
+:class:`WorkerChaos` kills, stops or cuts off a worker of the scan ensemble
+(ops/procmesh.py) mid-run, and ``leaked_worker_pids`` is its no-leak bar.
 """
 
 from __future__ import annotations
@@ -54,8 +54,6 @@ import subprocess
 import sys
 import tempfile
 from typing import Any, Iterator
-
-from kube_scheduler_simulator_tpu_torch.fuzz.runner import ShardNotPorted
 
 Obj = dict[str, Any]
 
@@ -525,17 +523,254 @@ def _first_state_mismatch(a: list, b: list, kill_point: int) -> Obj:
 # ------------------------------------------------------------ fault matrix
 
 
-class WorkerChaos:
-    """The reference's supervised-ensemble differential (a shard worker
-    killed, stopped or cut off mid-churn, then a counted respawn and byte
-    parity).  It drives the multi-process mesh (ops/procmesh.py), which the
-    port does not have: constructing one raises :class:`ShardNotPorted`."""
+def _env_scope(overrides: "dict[str, str | None]"):
+    """Context manager applying env overrides (None = delete) and
+    restoring the previous values on exit: the chaos legs flip the
+    ensemble's and the cache's knobs a leg without leaking into the
+    caller."""
+    import contextlib
 
-    def __init__(self, scenario: Obj, *args: Any, **kwargs: Any):
-        raise ShardNotPorted(
-            "WorkerChaos faults a shard worker of the multi-process mesh (ops/procmesh.py): "
-            "not ported (ROADMAP.md, queue 1, item 7)"
-        )
+    @contextlib.contextmanager
+    def scope():
+        saved = {k: os.environ.get(k) for k in overrides}
+        try:
+            for k, v in overrides.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return scope()
+
+
+def leaked_worker_pids(proc_root: str = "/proc") -> list[int]:
+    """Every live worker of the port's scan ensemble that this process
+    started: a process whose command line holds the port's worker marker
+    (``ops.procmesh_worker.MARKER``) and ``--owner <this pid>`` (zombies
+    have no command line: they are reaped, not leaked).  The JAX package's
+    workers are not counted, nor does its scan count the port's (their
+    command lines do not hold the bytes ``ops.procmesh_worker``); nor are
+    another process's, so concurrent test processes do not see each
+    other's.  The no-leak bar every worker-fault leg ends on.
+    ``proc_root``: the process table to read."""
+    from kube_scheduler_simulator_tpu_torch.ops.procmesh_worker import MARKER
+
+    owner = [b"--owner", str(os.getpid()).encode()]
+    pids = []
+    for entry in os.listdir(proc_root):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(os.path.join(proc_root, entry, "cmdline"), "rb") as f:
+                argv = f.read().split(b"\x00")
+        except OSError:
+            continue
+        i = argv.index(b"--owner") if MARKER.encode() in argv and b"--owner" in argv else -1
+        if i >= 0 and argv[i : i + 2] == owner:
+            pids.append(int(entry))
+    return pids
+
+
+class WorkerChaos:
+    """Supervised-ensemble differential: fault a worker of the scan
+    ensemble mid-run, demand byte parity plus a counted recovery.
+
+    Two legs over the same scenario (a ``{"name", "nodes", "pods"}`` dict
+    of raw store objects), each a ``SchedulerService`` on ``device`` (the
+    card unless the caller passes "cpu"):
+
+    - the BASELINE runs in-process with the kernel-library cache on; on the
+      card the process's libraries are saved into it, for the workers to
+      load;
+    - the CHAOS leg runs with ``KSS_MESH_PROCESSES`` engaged and
+      ``ProcMeshPool.run`` wrapped so dispatch #``fault_at`` first injects
+      the fault into a worker: ``kill`` SIGKILLs it, ``stop`` SIGSTOPs it
+      (alive, never replying), ``sever`` writes half a frame header down
+      its command pipe and closes it (the worker reads a short header and
+      exits; the parent's next send fails).
+
+    The supervisor must detect the fault (``died`` or ``hang``), SIGKILL the
+    straggler alone, respawn the ensemble from the cache and dispatch the
+    abandoned wave again: the verdict's bar is ``divergences == []`` and a
+    counted recovery (``respawns``, ``hangs_detected``, a run-fallback
+    reason).  Where the ensemble cannot engage, the verdict says so
+    (``engaged == 0`` with the counted bring-up reason) and the no-leak
+    check still applies.  ``clean_leg=True`` first runs the ensemble once
+    without the fault and reports both legs' library builds and loads in
+    this process (``analysis.RecompileGuard``)."""
+
+    def __init__(
+        self,
+        scenario: Obj,
+        mode: str = "kill",
+        fault_at: int = 1,
+        worker_rank: int = 0,
+        nprocs: int = 1,
+        heartbeat_s: float = 0.3,
+        timeout_s: float = 120.0,
+        role: "Obj | None" = None,
+        clean_leg: bool = False,
+        device: "str | None" = None,
+    ):
+        from kube_scheduler_simulator_tpu_torch.device import resolve_device
+
+        if mode not in ("kill", "stop", "sever"):
+            raise ValueError(f"mode must be kill|stop|sever, got {mode!r}")
+        self.scenario = scenario
+        self.mode = mode
+        self.fault_at = int(fault_at)
+        self.worker_rank = int(worker_rank)
+        self.nprocs = int(nprocs)
+        self.heartbeat_s = float(heartbeat_s)
+        self.timeout_s = float(timeout_s)
+        self.role = dict(role or {})
+        self.clean_leg = bool(clean_leg)
+        self.device = str(resolve_device(device))
+
+    # ------------------------------------------------------------------ legs
+
+    def _leg(self) -> Obj:
+        """One full scheduling pass over the scenario; returns the
+        annotation trail {pod: (nodeName, annotations)}."""
+        from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+        from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
+
+        store = ClusterStore()
+        for n in self.scenario.get("nodes", []):
+            store.create("nodes", json.loads(json.dumps(n)))
+        for p in self.scenario.get("pods", []):
+            store.create("pods", json.loads(json.dumps(p)))
+        kw = dict(tie_break="first", seed=3, use_batch="force", batch_min_work=0, device=self.device)
+        kw.update(self.role)
+        svc = SchedulerService(store, **kw)
+        svc.start_scheduler({"percentageOfNodesToScore": 100})
+        svc.schedule_pending()
+        return {
+            p["metadata"]["name"]: (
+                (p.get("spec") or {}).get("nodeName"),
+                p["metadata"].get("annotations") or {},
+            )
+            for p in store.list("pods")
+        }
+
+    def _inject(self, pool: Any) -> None:
+        w = pool.workers[self.worker_rank % len(pool.workers)]
+        if self.mode == "kill":
+            os.kill(w.proc.pid, signal.SIGKILL)
+        elif self.mode == "stop":
+            os.kill(w.proc.pid, signal.SIGSTOP)
+        else:  # sever: half a frame header, then EOF
+            try:
+                w.proc.stdin.write(b"\xde\xad\xbe\xef")
+                w.proc.stdin.flush()
+            except Exception:  # noqa: BLE001 - the pipe may be gone already
+                pass
+            try:
+                w.proc.stdin.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    # ------------------------------------------------------------------- run
+
+    def run(self) -> Obj:
+        from kube_scheduler_simulator_tpu_torch.analysis.runtime import RecompileGuard
+        from kube_scheduler_simulator_tpu_torch.ops import procmesh
+
+        verdict: Obj = {
+            "scenario": self.scenario.get("name", "scenario"),
+            "mode": self.mode,
+            "fault_at": self.fault_at,
+            "engaged": 0,
+            "fired": 0,
+            "dispatches": 0,
+            "respawns": 0,
+            "hangs_detected": 0,
+            "respawn_s": 0.0,
+            "breaker_state": None,
+            "bringup_verdict": None,
+            "run_fallbacks": {},
+            "divergences": [],
+            "first_mismatch": None,
+            "leaked_workers": [],
+            "clean_compiles": None,
+            "chaos_compiles": None,
+            "worker_launches": {},
+            "worker_builds": {},
+        }
+        with tempfile.TemporaryDirectory(prefix="kss-worker-chaos-") as td:
+            cache = os.path.join(td, "aot")
+            with _env_scope({"KSS_AOT_CACHE_DIR": cache, "KSS_MESH_PROCESSES": None}):
+                baseline = self._leg()
+                if self.device.startswith("cuda"):
+                    from kube_scheduler_simulator_tpu_torch.ops import kernels
+
+                    kernels.save_libraries(kernels.library_cache(cache))
+            ensemble_env = {
+                "KSS_AOT_CACHE_DIR": cache,
+                "KSS_MESH_PROCESSES": str(self.nprocs),
+                "KSS_PROCMESH_TIMEOUT_S": str(self.timeout_s),
+                "KSS_PROCMESH_HEARTBEAT_S": str(self.heartbeat_s),
+            }
+            if self.clean_leg:
+                with _env_scope(ensemble_env):
+                    procmesh.reset()
+                    with RecompileGuard("clean ensemble leg", max_compiles=1 << 30) as g:
+                        clean = self._leg()
+                    procmesh.reset()
+                verdict["clean_compiles"] = g.compiles
+                for name in sorted(set(baseline) | set(clean)):
+                    if baseline.get(name) != clean.get(name):
+                        verdict["divergences"].append(f"clean:{name}")
+            state = {"dispatch": 0, "fired": 0}
+            harness = self
+            orig_run = procmesh.ProcMeshPool.run
+
+            def chaotic_run(pool_self, key, payload):
+                i = state["dispatch"]
+                state["dispatch"] += 1
+                if i == harness.fault_at and not state["fired"]:
+                    state["fired"] = 1
+                    harness._inject(pool_self)
+                return orig_run(pool_self, key, payload)
+
+            with _env_scope(ensemble_env):
+                procmesh.reset()
+                procmesh.ProcMeshPool.run = chaotic_run
+                try:
+                    with RecompileGuard("chaotic ensemble leg", max_compiles=1 << 30) as g:
+                        chaotic = self._leg()
+                finally:
+                    procmesh.ProcMeshPool.run = orig_run
+                st = procmesh.stats()
+                procmesh.reset()
+            verdict["chaos_compiles"] = g.compiles
+        pool = st.get("pool")
+        verdict["fired"] = state["fired"]
+        verdict["bringup_verdict"] = st.get("verdict")
+        verdict["run_fallbacks"] = dict(st.get("run_fallbacks_by_reason") or {})
+        if pool is not None:
+            verdict["engaged"] = 1
+            for k in ("dispatches", "respawns", "respawn_s", "hangs_detected", "breaker_state", "worker_launches",
+                      "worker_builds"):
+                verdict[k] = pool[k]
+        for name in sorted(set(baseline) | set(chaotic)):
+            if baseline.get(name) != chaotic.get(name):
+                verdict["divergences"].append(name)
+                if verdict["first_mismatch"] is None:
+                    verdict["first_mismatch"] = {
+                        "pod": name,
+                        "baseline": baseline.get(name),
+                        "chaotic": chaotic.get(name),
+                    }
+        verdict["leaked_workers"] = leaked_worker_pids()
+        return verdict
 
 
 class _FaultyIO:

@@ -14,7 +14,8 @@ trail (:mod:`fuzz.verdict`):
 - ``shard-vs-single`` and ``shard-stream-vs-serial`` (the reference's
   opt-in comparisons of a node axis sharded over two devices): not
   ported; their roles raise :class:`ShardNotPorted` (ROADMAP.md, queue 1,
-  item 7: the mesh comes last).
+  item 7b and 7c: the node axis sharded over ranks, then the stream over
+  it).
 
 **Service reuse.**  A fresh service's first round encodes the cluster
 cold and fills the engine's caches, so a :class:`FuzzHarness` keeps one
@@ -55,9 +56,9 @@ EPILOGUE_ADVANCE_S = 330.0
 
 
 class ShardNotPorted(NotImplementedError):
-    """A ``shard`` or ``shard-stream`` role: the port runs one card, and
-    sharding the node axis over several (ops/mesh.py, ops/procmesh.py) is
-    ROADMAP.md's queue 1, item 7."""
+    """A ``shard`` or ``shard-stream`` role: sharding the node axis over
+    several devices is ROADMAP.md's queue 1, item 7b and 7c (ops/mesh.py
+    validates the mesh and refuses it)."""
 
 
 class FuzzHarnessError(RuntimeError):
@@ -140,7 +141,7 @@ class FuzzHarness:
         if kw.pop("_mesh_devices", None) is not None:
             raise ShardNotPorted(
                 f"fuzz role {role!r} shards the node axis over two devices: not ported "
-                "(ROADMAP.md, queue 1, item 7: ops/mesh.py and ops/procmesh.py come last)"
+                "(ROADMAP.md, queue 1, item 7b and 7c)"
             )
         store = ClusterStore(clock=SimClock(1_700_000_000.0))
         store.create("namespaces", {"metadata": {"name": "default"}})

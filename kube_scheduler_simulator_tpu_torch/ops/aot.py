@@ -28,6 +28,12 @@ The cache can only make a build cheaper, never wronger:
   ``toolchain``, ``platform``), or as ``corrupt`` (an unreadable sidecar, a
   library whose sha256 is not the sidecar's, a library or entry point that
   ``ctypes`` cannot load);
+- a process that cannot run the compiler (a worker that loads and never
+  builds, its ``nvcc`` off the path) cannot name its toolchain: it loads an
+  entry whose other checks all pass (``kernel-digest``, which covers every
+  source byte and the flags, ``platform``, ``sha256`` and every entry
+  point), counted as a hit and as ``toolchain_unverified``; a compiler that
+  runs and names another release still falls back by ``toolchain``;
 - either way the caller builds the library (``kernels.build``: through the
   compile-cache directory, with the compiler where that has none) and saves
   it: the library first, then the sidecar, each through a temporary file
@@ -88,9 +94,9 @@ SIDECAR_CHECKS = ("kernel-digest", "toolchain", "platform")
 FALLBACK_REASONS = SIDECAR_CHECKS + ("corrupt", "save-error")
 
 _MU = threading.Lock()
-_COUNTS = {"hits": 0, "misses": 0, "saves": 0}
+_COUNTS = {"hits": 0, "misses": 0, "saves": 0, "toolchain_unverified": 0}
 _FALLBACKS: "dict[str, int]" = {}
-_TOOLCHAINS: "dict[str, str]" = {}
+_TOOLCHAINS: "dict[str, str | None]" = {}
 
 
 def aot_cache_dir() -> "str | None":
@@ -110,14 +116,23 @@ def _fallback(reason: str) -> None:
         _FALLBACKS[reason] = _FALLBACKS.get(reason, 0) + 1
 
 
+# the counters ``SchedulerService.metrics()`` carries: the reference's keys
+METRIC_KEYS = (
+    "aot_cache_hits_total", "aot_cache_misses_total", "aot_cache_saves_total", "aot_cache_fallbacks_by_reason",
+)
+
+
 def stats() -> dict:
-    """This process's cache counters under the reference's metric names."""
+    """This process's cache counters under the reference's metric names,
+    and the hits whose toolchain could not be checked
+    (``aot_cache_toolchain_unverified_total``: no compiler ran)."""
     with _MU:
         return {
             "aot_cache_hits_total": _COUNTS["hits"],
             "aot_cache_misses_total": _COUNTS["misses"],
             "aot_cache_saves_total": _COUNTS["saves"],
             "aot_cache_fallbacks_by_reason": dict(_FALLBACKS),
+            "aot_cache_toolchain_unverified_total": _COUNTS["toolchain_unverified"],
         }
 
 
@@ -129,20 +144,20 @@ def reset_stats() -> None:
         _FALLBACKS.clear()
 
 
-def toolchain_of(compiler: str) -> str:
+def toolchain_of(compiler: str) -> "str | None":
     """The compiler's release line: the line of ``<compiler> --version``
     that names a release (nvcc's "Cuda compilation tools, release 12.4,
-    V12.4.131"), else its first line; run once a process and compiler."""
+    V12.4.131"), else its first line; None when the compiler could not be
+    run or printed nothing.  Run once a process and compiler."""
     with _MU:
-        known = _TOOLCHAINS.get(compiler)
-    if known is not None:
-        return known
+        if compiler in _TOOLCHAINS:
+            return _TOOLCHAINS[compiler]
     try:
         proc = subprocess.run([compiler, "--version"], capture_output=True, text=True, timeout=60)
         lines = [ln.strip() for ln in (proc.stdout or proc.stderr).splitlines() if ln.strip()]
     except (OSError, subprocess.SubprocessError):
         lines = []
-    line = next((ln for ln in lines if "release" in ln), lines[0] if lines else f"{compiler}: no version")
+    line = next((ln for ln in lines if "release" in ln), lines[0] if lines else None)
     with _MU:
         _TOOLCHAINS[compiler] = line
     return line
@@ -181,7 +196,7 @@ class LibraryCache:
 
     # ---------------------------------------------------------- identity
 
-    def toolchain(self) -> str:
+    def toolchain(self) -> "str | None":
         return toolchain_of(self.compiler[0])
 
     def platform(self) -> str:
@@ -190,7 +205,7 @@ class LibraryCache:
             self._platform_value = str(p() if callable(p) else p)
         return self._platform_value
 
-    def _current(self, field: str, digest: str) -> str:
+    def _current(self, field: str, digest: str) -> "str | None":
         if field == "kernel-digest":
             return digest
         return self.toolchain() if field == "toolchain" else self.platform()
@@ -224,8 +239,13 @@ class LibraryCache:
         if not os.path.exists(lib_path):
             _count("misses")
             return None
+        unverified = False
         for field in SIDECAR_CHECKS:
-            if side.get(field) != self._current(field, digest):
+            current = self._current(field, digest)
+            if current is None and field == "toolchain":
+                unverified = True  # no compiler ran: the other checks decide
+                continue
+            if side.get(field) != current:
                 _fallback(field)
                 return None
         try:
@@ -239,6 +259,8 @@ class LibraryCache:
             _fallback("corrupt")
             return None
         _count("hits")
+        if unverified:
+            _count("toolchain_unverified")
         return lib
 
     # -------------------------------------------------------------- save
@@ -253,6 +275,8 @@ class LibraryCache:
         try:
             sha = _sha256(str(built))
             meta = {f: self._current(f, digest) for f in SIDECAR_CHECKS}
+            if meta["toolchain"] is None:
+                raise ValueError("no toolchain to record: the compiler does not run here")
             lib_name = f"{name}.{sha[:16]}.so"
             lib_path = os.path.join(self.cache_dir, lib_name)
             old = None

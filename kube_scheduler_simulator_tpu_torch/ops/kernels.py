@@ -420,14 +420,15 @@ _PLATFORM: "str | None" = None
 
 
 def cuda_platform() -> str:
-    """The card's compute capability and the ``-gencode`` target the
+    """The compute capability of the card this process is bound to
+    (``torch.cuda.current_device()``) and the ``-gencode`` target the
     libraries are built for (the kernel-library cache's ``platform``), read
     once a process and only when the cache checks or saves an entry."""
     global _PLATFORM
     if _PLATFORM is None:
         gencode = next((NVCC_FLAGS[i + 1] for i, f in enumerate(NVCC_FLAGS[:-1]) if f == "-gencode"), "")
         if torch.cuda.is_available():
-            major, minor = torch.cuda.get_device_capability(0)
+            major, minor = torch.cuda.get_device_capability(torch.cuda.current_device())
             _PLATFORM = f"sm_{major}{minor}; {gencode}"
         else:
             _PLATFORM = f"no device; {gencode}"
@@ -515,10 +516,14 @@ def build(compile: bool = True) -> "dict[str, ctypes.CDLL]":
 
 
 def save_libraries(cache: "aot.LibraryCache") -> "dict[str, str | None]":
-    """Save every library of the build directory into ``cache`` (after a
-    ``build``): the cached paths by library name, None where a save
+    """Save every library this process loaded (after a ``build``: from the
+    build directory or from another cache), else the build directory's,
+    into ``cache``: the cached paths by library name, None where a save
     failed."""
-    return {name: cache.save(name, lib_digest(CSRC / fn), _lib_path(CSRC / fn)) for name, fn in SOURCES.items()}
+    return {
+        name: cache.save(name, lib_digest(CSRC / fn), _LIBS[name]._name if name in _LIBS else _lib_path(CSRC / fn))
+        for name, fn in SOURCES.items()
+    }
 
 
 # every kernel error this process degraded, by "<site>: kernel error: <type>"

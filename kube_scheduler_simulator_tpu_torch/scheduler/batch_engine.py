@@ -32,8 +32,18 @@ scheduler/stream.py): ``decisions()`` fetches the packed per-pod outputs
 and launches the compaction with the blob's copy behind an event,
 ``result()`` waits on that event only.
 
-Left out of the reference's engine: the mesh, the AOT artifact cache and
-the process ensemble.
+With ``KSS_MESH_PROCESSES`` set (and the kernel-library cache on) the
+one-launch scans of ``schedule`` and ``schedule_async`` run on the worker
+ensemble of ops/procmesh.py, on the engine's device: the round's host
+planes ship to the workers, the scan's outputs come back as host numpy and
+go onto the engine's device, where the compaction runs as before.  A shape
+the ensemble cannot serve, or a wave it loses, runs in this process
+(counted in ``procmesh.stats()``), with the same bytes.  The windowed
+rounds stay in this process, as in the reference.
+
+Left out of the reference's engine: the node-axis mesh (refused at the
+service's boundary, ops/mesh.py) and the AOT artifact cache (the port
+caches built kernel libraries instead: ops/aot.py).
 
 Kernels: upstream's whole default profile, the fifteen filters of
 ``ops/batch.FILTER_KERNELS`` (NodePorts, VolumeRestrictions, the EBS, GCE
@@ -802,6 +812,18 @@ class BatchEngine:
         self._store: Any = None
         # the store's restore count at this engine's last round
         self._store_restores = 0
+        # the scan ensemble (ops/procmesh.py, KSS_MESH_PROCESSES): None when
+        # the knob is unset or bring-up failed (counted).  Its workers load
+        # their libraries from the kernel-library cache only, so it needs one
+        from kube_scheduler_simulator_tpu_torch.ops import aot, procmesh
+
+        self._procmesh = procmesh.acquire(self.device)
+        if self._procmesh is not None and aot.aot_cache_dir() is None:
+            procmesh.count_run_fallback("aot_cache_disabled")
+            self._procmesh = None
+        # scan shape -> whether the ensemble serves it (asked once a shape,
+        # as the reference's executable cache)
+        self._procmesh_keys: "dict[str, bool]" = {}
 
     # ------------------------------------------------------------ factory
 
@@ -1059,8 +1081,56 @@ class BatchEngine:
         prof.note(rec, "upload", time.perf_counter() - tl)
         return dict(
             pr=pr, dp=dp, dims=dims, ws0=ws0, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec,
-            weights=self._round_weights(self.round_dtype), weight_override=self.weight_override,
+            weights=self._round_weights(self.round_dtype), weight_override=self.weight_override, host=host,
         )
+
+    def _scan(self, ctx: dict, dp: "B.DeviceProblem") -> dict:
+        """The one-launch scan of a prepped round (``_finish_prepped``,
+        ``schedule_async``): on the worker ensemble where it serves the
+        round's shape, else in this process."""
+        pool = self._procmesh
+        if pool is not None and not pool.dead:
+            out = self._procmesh_scan(pool, ctx)
+            if out is not None:
+                return out
+        return B.build_batch_fn(self.cfg, ctx["dims"], ws0=ctx["ws0"], weights=ctx["weights"])(dp)
+
+    def _procmesh_scan(self, pool: Any, ctx: dict) -> "dict | None":
+        """The scan's outputs from the ensemble, on this engine's device; None
+        where it cannot serve the shape (counted once a shape), lost the
+        wave (counted ``worker_lost``, or ``breaker_open`` by the pool) or
+        its worker's scan raised (counted ``worker_error:<type>`` by the
+        pool, which raises a kernel's own failure instead): the caller then
+        scans in this process, with the same problem."""
+        from kube_scheduler_simulator_tpu_torch.ops import aot, procmesh
+        from kube_scheduler_simulator_tpu_torch.resilience import note_retry
+
+        dims, ws0, dt = ctx["dims"], ctx["ws0"], str(self.round_dtype).removeprefix("torch.")
+        key = repr((self.cfg, sorted(dims.items()), ws0, dt))
+        serves = self._procmesh_keys.get(key)
+        if serves is None:
+            reason = pool.load_scan(key, {"cfg": self.cfg, "dims": dims, "ws0": ws0, "dtype": dt}, aot.aot_cache_dir())
+            if reason is not None:
+                procmesh.count_run_fallback(reason)
+            serves = self._procmesh_keys[key] = reason is None
+        if not serves:
+            return None
+        host = ctx["host"]
+        w = self.weight_override if self.weight_override is not None else [w for _s, w in self.scores]
+        payload = {"host": {f: host[f] for f in B.DeviceProblem._fields}, "weights": [float(x) for x in w]}
+        handle = pool.run(key, payload)
+        reply = handle.fetch() if handle is not None else None
+        if reply is not None and not reply["ok"]:
+            return None
+        if reply is None:
+            # the pool already dispatched the wave once more on a fresh
+            # ensemble; the breaker's terminal degrade counts itself
+            if not (pool.dead and pool.breaker.state == pool.breaker.OPEN):
+                procmesh.count_run_fallback("worker_lost")
+            note_retry("procmesh_local_rebuild")
+            self._procmesh_keys[key] = False
+            return None
+        return {k: torch.from_numpy(v).to(self.device) for k, v in reply["out"].items()}
 
     @staticmethod
     def _packed_out(packed: np.ndarray) -> dict:
@@ -1223,7 +1293,7 @@ class BatchEngine:
         pr, dp, dims = ctx["pr"], ctx["dp"], ctx["dims"]
         prof, rec = self.profiler, ctx["prof"]
         t2 = time.perf_counter()
-        out_dev = B.build_batch_fn(self.cfg, dims, ws0=ctx["ws0"], weights=ctx["weights"])(dp)
+        out_dev = self._scan(ctx, dp)
         td = time.perf_counter()
         prof.note(rec, "dispatch", td - t2)
         packed = out_dev["packed_pod"].cpu().numpy()
@@ -1282,7 +1352,8 @@ class BatchEngine:
                          prof_rec=prof_rec)
         t2 = time.perf_counter()
         dp = ctx.pop("dp")
-        out_dev = B.build_batch_fn(self.cfg, ctx["dims"], ws0=ctx["ws0"], weights=ctx["weights"])(dp)
+        out_dev = self._scan(ctx, dp)
+        ctx.pop("host")
         self.profiler.note(ctx["prof"], "dispatch", time.perf_counter() - t2)
         return PendingBatch(self, ctx, out_dev, t2, dp.start0)
 

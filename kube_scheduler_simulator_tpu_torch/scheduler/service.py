@@ -94,7 +94,13 @@ wrapper's own failure (``kernels.KernelLaunchError``: a launch's cudaError,
 an argument the kernel refuses), or a CUDA context that no longer answers
 a synchronize, propagate.
 
-Refused with an error, never worked around: a mesh.
+Refused with an error, never worked around: a mesh.  ``mesh="auto"`` (the
+default) reads ``KSS_MESH_DEVICES`` through ops/mesh.py, whose bad values
+raise ``MeshConfigError`` as the reference's do; a valid count above 1 is
+refused, since sharding the node axis is not ported yet.  The one-card
+worker ensemble (``KSS_MESH_PROCESSES``, ops/procmesh.py) serves the
+engine's one-launch rounds and streamed waves; ``metrics()["procmesh"]``
+reads its counters once the knob has been read.
 """
 
 from __future__ import annotations
@@ -181,16 +187,19 @@ class SchedulerService:
         never throttled)."""
         if autoscale not in ("off", "on", "scenario"):
             raise ValueError(f"autoscale must be off|on|scenario, got {autoscale!r}")
-        if mesh not in ("auto", None):
-            raise ValueError("a mesh: the port runs one card; sharding the node axis is not ported yet")
-        if os.environ.get("KSS_MESH_DEVICES", "").strip() not in ("", "0", "1"):
-            raise ValueError("KSS_MESH_DEVICES: the port runs one card; sharding the node axis is not ported yet")
         self.cluster_store = cluster_store
         self.seed = seed
         self.tie_break = tie_break
         self._clock = clock
         self.use_batch = use_batch
         self.device = resolve_device(device)
+        # the node-axis mesh is validated at this boundary (ops/mesh.py: a
+        # bad KSS_MESH_DEVICES raises MeshConfigError); a valid one is
+        # refused, since sharding the node axis is not ported yet
+        from kube_scheduler_simulator_tpu_torch.ops.mesh import resolve_mesh
+
+        if resolve_mesh(mesh, device=self.device) is not None:
+            raise ValueError("a mesh: sharding the node axis is not ported yet")
         self.dtype = dtype
         self.batch_min_work = batch_min_work
         self.commit_wave = max(int(commit_wave), 1)
@@ -1636,6 +1645,18 @@ class SchedulerService:
 
     # ------------------------------------------------------------- metrics
 
+    @staticmethod
+    def _procmesh_stats() -> "dict[str, Any] | None":
+        """The scan ensemble's counters (ops/procmesh.py), or None while
+        the ``KSS_MESH_PROCESSES`` knob has never been exercised: the
+        common case stays out of the metrics payload."""
+        from kube_scheduler_simulator_tpu_torch.ops import procmesh
+
+        s = procmesh.stats()
+        if not s["requested_processes"] and not s["fallbacks_by_reason"] and not s["run_fallbacks_by_reason"]:
+            return None
+        return s
+
     def metrics(self) -> dict[str, Any]:
         """Observability snapshot: the reference's keys, no more and no
         fewer, with the port's counters in the reference's meaning.
@@ -1646,10 +1667,13 @@ class SchedulerService:
         by resilience/, and the ``aot_cache_*`` keys this process's
         kernel-library cache (ops/aot.py: hits, misses, saves and fallbacks
         by reason; per process, not per engine as in the reference, since a
-        library is loaded once a process).  Keys of subsystems the port has
+        library is loaded once a process; ``aot.stats()`` also counts the
+        hits whose toolchain no compiler could check), ``procmesh`` the
+        scan ensemble's counters (ops/procmesh.py; None until
+        ``KSS_MESH_PROCESSES`` has been read).  Keys of subsystems the port has
         not ported report what the reference reports with the subsystem off:
         ``shard_devices``, ``sharded_dispatches_total`` and
-        ``plane_shard_bytes_per_device`` 0 (the mesh); ``procmesh`` None;
+        ``plane_shard_bytes_per_device`` 0 (the mesh);
         ``placer_bank_rotations_total`` 0 and ``placer_banks`` {}
         (the plane banks).
 
@@ -1680,6 +1704,7 @@ class SchedulerService:
         est = last_t.get("device_est_s", 0.0)
         overlap = max(0.0, min(1.0, 1.0 - last_t.get("device_s", 0.0) / est)) if est > 1e-9 else 0.0
         last_wave_s = self.stats["last_wave_commit_s"]
+        aot_counts = aot.stats()
         enc: dict[str, Any] = {
             "encode_full_total": 0,
             "encode_delta_total": 0,
@@ -1692,7 +1717,7 @@ class SchedulerService:
             "plane_shard_bytes_per_device": 0,
             "placer_bank_rotations_total": 0,
             "placer_banks": {},
-            **aot.stats(),
+            **{k: aot_counts[k] for k in aot.METRIC_KEYS},
         }
         for e in list(self._batch_engines.values()) or ([eng] if eng else []):
             es = e.encode_stats()
@@ -1770,7 +1795,7 @@ class SchedulerService:
             "engine_last_timings": last_t,
             "engine_cum_timings": dict(eng.cum_timings) if eng else {},
             "profile": self.profiler.snapshot(),
-            "procmesh": None,
+            "procmesh": self._procmesh_stats(),
             "retry_by_seam": retry_stats(),
             "autoscaler": asc_m,
         }

@@ -7,7 +7,12 @@ the same bytes, every fallback reason is counted and only that library is
 rebuilt, a stale entry is refreshed, an unwritable cache never fails a
 build, the knob unset is the path without the cache, a library just built
 that does not load stays a ``KernelBuildError``, ``metrics()`` and
-``/metrics`` read the counters, and nothing here initialises CUDA.  The
+``/metrics`` read the counters, and nothing here initialises CUDA.  A
+process that cannot run the compiler (a child with it off its path) loads
+a valid entry, counted ``toolchain_unverified``, and still refuses a wrong
+digest, platform or sha256; a compiler that runs and names another release
+falls back ``toolchain``.  The platform is the bound card's (a test on the
+card).  The
 port's fallback reasons are the reference's, renamed as the module says.
 """
 
@@ -55,7 +60,7 @@ def fx(tmp_path, monkeypatch):
     monkeypatch.setattr(K, "cuda_platform", lambda: PLATFORM)
     monkeypatch.setattr(K, "_LIBS", {})
     monkeypatch.setattr(K, "BUILDS", {"nvcc": 0, "loads": 0})
-    monkeypatch.setattr(aot, "_COUNTS", {"hits": 0, "misses": 0, "saves": 0})
+    monkeypatch.setattr(aot, "_COUNTS", {"hits": 0, "misses": 0, "saves": 0, "toolchain_unverified": 0})
     monkeypatch.setattr(aot, "_FALLBACKS", {})
     monkeypatch.setattr(aot, "_TOOLCHAINS", {})
     monkeypatch.delenv("KSS_AOT_CACHE_DIR", raising=False)
@@ -80,7 +85,8 @@ def fx(tmp_path, monkeypatch):
             before, nvcc = aot.stats(), K.BUILDS["nvcc"]
             libs = K.build()
             after = aot.stats()
-            delta = {k: after[k] - before[k] for k in after if k != "aot_cache_fallbacks_by_reason"}
+            delta = {k: after[k] - before[k] for k in after
+                     if k not in ("aot_cache_fallbacks_by_reason", "aot_cache_toolchain_unverified_total")}
             fb = {r: n - before["aot_cache_fallbacks_by_reason"].get(r, 0)
                   for r, n in after["aot_cache_fallbacks_by_reason"].items()
                   if n != before["aot_cache_fallbacks_by_reason"].get(r, 0)}
@@ -254,10 +260,13 @@ def test_metrics_read_the_process_counters(fx):
     svc = SchedulerService(ClusterStore(), device="cpu")
     svc.start_scheduler(None)
     m = svc.metrics()
-    assert {k: m[k] for k in aot.stats()} == aot.stats() == {
+    assert {k: m[k] for k in aot.METRIC_KEYS} == {k: aot.stats()[k] for k in aot.METRIC_KEYS} == {
         "aot_cache_hits_total": 1, "aot_cache_misses_total": 2, "aot_cache_saves_total": 3,
         "aot_cache_fallbacks_by_reason": {"platform": 1},
     }
+    # the reference's keys only: the unverified hits stay in aot.stats()
+    assert aot.stats()["aot_cache_toolchain_unverified_total"] == 0
+    assert "aot_cache_toolchain_unverified_total" not in m
     text = render_metrics(DIContainer(device="cpu"))
     for line in ("aot_cache_hits_total 1", "aot_cache_misses_total 2", "aot_cache_saves_total 3",
                  'aot_cache_fallbacks_total{reason="platform"} 1'):
@@ -278,6 +287,7 @@ def test_nothing_here_initialises_cuda(fx, monkeypatch):
         return (9, 0)
 
     monkeypatch.setattr(torch.cuda, "get_device_capability", capability)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(K, "cuda_platform", REAL_PLATFORM)
     monkeypatch.setattr(K, "_PLATFORM", None)
@@ -304,3 +314,121 @@ def test_the_reasons_are_the_references_renamed():
     assert set(aot.SIDECAR_CHECKS) == {renamed[r] for r in ("kernel-digest", "jax-version", "platform")}
     doc = aot.__doc__
     assert all(r in doc for r in no_counterpart) and "aot_artifacts" in doc
+
+
+# ------------------------------------------------ without the compiler
+
+CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+from pathlib import Path
+from kube_scheduler_simulator_tpu_torch.ops import aot
+from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+K.CSRC = Path({csrc!r})
+K.SOURCES = {sources!r}
+K.ENTRIES = {{name: {{e: [K.ctypes.c_int] for e in es}} for name, es in {entries!r}.items()}}
+K.NVCC_FLAGS = {flags!r}
+K._nvcc = lambda: {compiler!r}
+K.cuda_platform = lambda: {platform!r}
+libs = K.build(compile=False)
+print(json.dumps(dict(aot.stats(), builds=K.BUILDS, alpha=libs["alpha"].kss_alpha(40), beta=libs["beta"].kss_beta(40))))
+"""
+
+
+def child_build(fx, compiler: str) -> dict:
+    """``kernels.build(compile=False)`` in a child process whose compiler is
+    ``compiler``, over the fixtures' sources and ``fx.cache``, with an empty
+    build directory: its cache counters, builds and the entries' results."""
+    import os
+    import sys
+
+    build = fx.root / f"child-build-{fx.runs}"
+    fx.runs += 1
+    code = CHILD.format(root=str(Path(__file__).resolve().parent.parent), csrc=str(K.CSRC), sources=dict(SOURCES),
+                        entries={n: list(e) for n, e in ENTRIES.items()}, flags=FLAGS, compiler=compiler,
+                        platform=PLATFORM)
+    env = dict(os.environ, KSS_AOT_CACHE_DIR=str(fx.cache), KSS_COMPILE_CACHE_DIR=str(build),
+               PATH=str(fx.root / "no-compilers-here"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    if proc.returncode != 0:
+        return {"error": proc.stderr.strip().splitlines()[-1]}
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_a_process_without_the_compiler_loads_a_valid_entry(fx):
+    fx.fresh_process()
+    got = child_build(fx, "/nonexistent/cc")
+    assert got["alpha"] == 41 and got["beta"] == 42, got
+    assert got["aot_cache_hits_total"] == 2 and got["aot_cache_toolchain_unverified_total"] == 2, got
+    assert got["aot_cache_fallbacks_by_reason"] == {} and got["aot_cache_misses_total"] == 0, got
+    assert got["builds"] == {"nvcc": 0, "loads": 2} and got["aot_cache_saves_total"] == 0, got
+    # a compiler that cannot be run has no toolchain (and nothing in this
+    # process loaded unverified)
+    assert aot.toolchain_of("/nonexistent/cc") is None and aot.stats()["aot_cache_toolchain_unverified_total"] == 0
+
+
+NO_COMPILER_TAMPER = {r: TAMPER[r] for r in ("kernel-digest", "platform", "corrupt: a truncated library")}
+
+
+@pytest.mark.parametrize("case", sorted(NO_COMPILER_TAMPER))
+def test_without_the_compiler_the_other_checks_still_refuse(fx, case):
+    fx.fresh_process()
+    NO_COMPILER_TAMPER[case](fx)
+    got = child_build(fx, "/nonexistent/cc")
+    # alpha's entry is refused by its reason; with no library to load and
+    # no compiler to build one, the child's build(compile=False) raises
+    assert "KernelBuildError" in got["error"] and "csrc/alpha.cu" in got["error"], got
+    cache = K.library_cache(fx.cache)
+    cache.compiler = ("/nonexistent/cc",)
+    before = aot.stats()["aot_cache_fallbacks_by_reason"]
+    assert cache.load("alpha", K.lib_digest(K.CSRC / "alpha.cu"), ENTRIES["alpha"]) is None
+    reason = case.split(":")[0]
+    assert aot.stats()["aot_cache_fallbacks_by_reason"].get(reason, 0) == before.get(reason, 0) + 1
+    assert aot.stats()["aot_cache_toolchain_unverified_total"] == 0
+
+
+def test_a_compiler_that_runs_and_names_another_release_falls_back(fx):
+    fx.fresh_process()
+    fake = fx.root / "fakecc"
+    fake.write_text("#!/bin/sh\necho 'fakecc (a release of its own) 9.9'\n")
+    fake.chmod(0o755)
+    cache = aot.LibraryCache(fx.cache, (str(fake), *FLAGS), PLATFORM)
+    assert cache.load("alpha", K.lib_digest(K.CSRC / "alpha.cu"), ENTRIES["alpha"]) is None
+    assert aot.stats()["aot_cache_fallbacks_by_reason"] == {"toolchain": 1}
+    assert aot.stats()["aot_cache_toolchain_unverified_total"] == 0
+
+
+def test_a_save_without_a_compiler_is_a_counted_save_error(fx):
+    fx.fresh_process()
+    cache = aot.LibraryCache(fx.root / "other-cache", ("/nonexistent/cc", *FLAGS), PLATFORM)
+    assert cache.save("alpha", K.lib_digest(K.CSRC / "alpha.cu"), K._lib_path(K.CSRC / "alpha.cu")) is None
+    assert aot.stats()["aot_cache_fallbacks_by_reason"] == {"save-error": 1}
+    assert not (fx.root / "other-cache" / "alpha.json").exists()
+
+
+@pytest.mark.gpu
+def test_the_platform_is_the_bound_cards(monkeypatch):
+    """``cuda_platform`` reads the card the process is bound to
+    (``torch.cuda.current_device()``), not device 0."""
+    if not torch_cuda_available():
+        pytest.skip("needs an NVIDIA GPU: the platform is a card's compute capability")
+    import torch
+
+    monkeypatch.setattr(K, "_PLATFORM", None)
+    last = torch.cuda.device_count() - 1
+    with torch.cuda.device(last):
+        major, minor = torch.cuda.get_device_capability(last)
+        assert K.cuda_platform().startswith(f"sm_{major}{minor}; ")
+    monkeypatch.setattr(K, "_PLATFORM", None)
+    asked = []
+    real = torch.cuda.get_device_capability
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d=None: asked.append(d) or real(d))
+    with torch.cuda.device(last):
+        K.cuda_platform()
+    assert asked == [last]
+
+
+def torch_cuda_available() -> bool:
+    import torch
+
+    return torch.cuda.is_available()

@@ -235,12 +235,19 @@ def test_a_window_that_fails_mid_round_degrades_to_the_sequential_bytes():
 
 
 def test_sharded_roles_and_worker_chaos_raise(port_harness):
+    """The sharded roles still raise ShardNotPorted; WorkerChaos is ported
+    (tests/test_torch_procmesh.py runs it) and raises on an unknown mode, as
+    the reference's does."""
     scn = TF.generate_scenario(11, 2, features=CHAOS_FEATURES)
     for kind in ("shard-vs-single", "shard-stream-vs-serial"):
         with pytest.raises(TF.ShardNotPorted, match="queue 1, item 7"):
             TF.run_differential(scn, port_harness, comparisons=(kind,))
-    with pytest.raises(TF.ShardNotPorted, match="queue 1, item 7"):
-        TF.WorkerChaos({"name": "worker-fault", "nodes": [], "pods": []}, mode="kill")
+    assert TF.WorkerChaos({"name": "worker-fault", "nodes": [], "pods": []}, mode="kill", device="cpu").nprocs == 1
+    from kube_scheduler_simulator_tpu.fuzz.chaos import WorkerChaos as JaxWorkerChaos
+
+    for chaos in (TF.WorkerChaos, JaxWorkerChaos):
+        with pytest.raises(ValueError, match="mode must be kill|stop|sever"):
+            chaos({"name": "worker-fault", "nodes": [], "pods": []}, mode="pause")
 
 
 # ------------------------------------------------ the estimator's degrade

@@ -120,6 +120,16 @@ def test_the_checks_cover_the_library_cache_the_checker_and_the_js_tooling():
     assert "run_analysis" in ROUND and "aot.stats" in ROUND and "jscheck.check" in ROUND
 
 
+def test_the_checks_cover_the_mesh_and_the_ensemble_modules():
+    """The mesh boundary, the scan ensemble and its worker are walked by the
+    AST check; the subprocess check validates the mesh knob and runs a
+    round through a one-worker ensemble on the CPU, leaving no worker."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for module in ("ops/mesh.py", "ops/procmesh.py", "ops/procmesh_worker.py"):
+        assert module in checked, module
+    assert "KSS_MESH_PROCESSES" in ROUND and "mesh_from_env" in ROUND and "leaked_worker_pids" in ROUND
+
+
 def test_name_check_tells_the_packages_apart():
     assert _is_forbidden("kube_scheduler_simulator_tpu.ops.batch")
     assert _is_forbidden("jax.numpy")
@@ -236,6 +246,21 @@ assert RetryPolicy(seed=1).schedule() == RetryPolicy(seed=1).schedule()
 bridge = TPUScorerBridge(dsvc)
 out = bridge.filter({{"pod": {{"metadata": {{"name": "x"}}, "spec": {{}}}}, "nodenames": [n["metadata"]["name"] for n in dstore.list("nodes")][:3]}})
 assert out["error"] == "" and len(out["nodenames"]) == 3 and bridge.fallbacks == 0, out
+import os
+from kube_scheduler_simulator_tpu_torch.fuzz.chaos import leaked_worker_pids
+from kube_scheduler_simulator_tpu_torch.ops import mesh, procmesh
+assert mesh.mesh_from_env(device="cpu") is None
+os.environ.update(KSS_MESH_PROCESSES="1", KSS_AOT_CACHE_DIR=tempfile.mkdtemp())
+pstore = ClusterStore()
+for w in workloads.churn(pstore, 40, 20, 1):
+    psvc = SchedulerService(pstore, use_batch="auto", batch_min_work=0, device="cpu")
+    psvc.start_scheduler(None)
+    psvc.schedule_pending(max_rounds=1)
+pm = psvc.metrics()["procmesh"]
+assert pm["pool"]["dispatches"] >= 1 and pm["run_fallbacks_by_reason"] == {{}} and psvc.stats["batch_pods"] >= 30, pm
+procmesh.reset()
+del os.environ["KSS_MESH_PROCESSES"]
+assert leaked_worker_pids() == []
 from kube_scheduler_simulator_tpu_torch.analysis import RecompileGuard
 from kube_scheduler_simulator_tpu_torch.fuzz import FuzzHarness, generate_scenario, run_differential
 with RecompileGuard("a CPU differential"):
