@@ -424,7 +424,7 @@ line):
    checks it on exit, each worker job too, and it must be empty when phase
    35 starts).
 36. the kernel-library cache (``ops/aot.py``) on the card: (a) after the
-   build, the ten libraries saved into a fresh temporary cache (ten saves);
+   build, every library (13) saved into a fresh temporary cache (13 saves);
    then two child processes, started beside phases 23-24's plain references
    and joined after phase 35, each with ``KSS_COMPILE_CACHE_DIR`` an empty
    temporary directory: (b) one loads every library from that cache (ten
@@ -457,8 +457,31 @@ line):
    only, or the probe's own reason where gloo cannot start (workers that do
    not start fail the phase), and cfg2's digest; (e) a grandchild with no
    ``nvcc`` (off its ``PATH``, ``CUDA_HOME`` an empty directory) loads all
-   10 libraries from the cache, counted ``toolchain_unverified``, with no
+   13 libraries from the cache, counted ``toolchain_unverified``, with no
    ``toolchain`` fallback.
+38. the node axis sharded over shards of the one card (``NodeMesh((cuda:0,)
+   * n)``: the buffers and the in-launch mailbox exchange a mesh of cards
+   runs, csrc/scan_shard_trace.cu, scan_shard_cluster.cu and
+   scan_shard_masked.cu), in a child process started beside phase 37's and
+   joined after it: (1) cfg2 on 2 and 4 shards, float32 and float64, the
+   sharded K2 bitwise the unsharded kernel and its plain sharded version
+   (``scan_plain_sharded`` on the CPU), 4 windows of 256 chained shard for
+   shard bitwise the one launch, then cfg2 through the service on 2 and 4
+   shards (windows of 256 on the mesh) with phase 35 (b)'s store digest;
+   the sharded K2 timed at cfg2 on 2 shards beside the unsharded kernel and
+   its plain sharded version on the card; (2) north and cfg4 one-launch
+   rounds on 2 and 4 shards: documents equal the one-device round's, K2's
+   shard mode and K3 launched once each, the scan timed on 1, 2 and 4
+   shards with what the shards add a pod; (3) K5 at cfg7-preempt-5k's first
+   dispatch (phase 13's) on 2 and 4 shards, a launch a shard, masks equal
+   the unsharded launch's, and the cfg7 cut through a service on 2 shards
+   equal to one device's; (4) cfg6-autoscale through a service on 2 shards
+   and the burst on 4, estimates, pods and events equal one device's, and
+   every captured sharded K8 dispatch bitwise K8 on the whole axis; (5) the
+   fuzzer's shard role on 2 shards of the card: no divergence; (6) 5 000
+   lanes on 2 shards, more blocks than the card holds at once: refused
+   with ``KernelArgumentError`` before the launch, no hang.  The kernels
+   line reads the shard modes' launches from (1)-(5)'s main-path drives.
 
 Before phase 20 the earlier phases' cycles and rounds are collected and
 what is left of the heap is frozen (``gc.freeze``), the tracked objects
@@ -696,8 +719,8 @@ FIVE_CFG = {"percentageOfNodesToScore": 100, "profiles": [{"schedulerName": "def
                    "disabled": [{"name": "*"}]}}}]}
 # what one BatchEngine round launches
 ROUND_LAUNCHES = {
-    "scan": 1, "scan_lanes": 0, "compact": 1, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
-    "scan_population": 0, "objective": 0, "scan_grad": 0, "grad_contract": 0,
+    "scan": 1, "scan_lanes": 0, "scan_sharded": 0, "scan_lanes_sharded": 0, "compact": 1, "scatter": 0, "preempt": 0,
+    "gang_verdict": 0, "gang_feasibility": 0, "scan_population": 0, "objective": 0, "scan_grad": 0, "grad_contract": 0,
 }
 # cfg10-tune-10k (workloads.TUNE: the JAX bench's tune report at 1 250 nodes
 # x 10 000 pods, seed 11, steps 8, pop 16, tau 50, lr 1) and the bench's own
@@ -1126,14 +1149,14 @@ def make_cluster(name, cut=None):
     return nodes, all_pods, pending, vols
 
 
-def engine(name, dt, device=DEVICE):
+def engine(name, dt, device=DEVICE, mesh=None):
     from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
 
     w = WORKLOADS[name]
     filters, scores = PROFILES[w.profile]
     return BatchEngine(
         filters=list(filters), scores=scores, percentage_of_nodes_to_score=w.pct,
-        trace=True, tie_break=w.tie, seed=7, device=device, dtype=dt,
+        trace=True, tie_break=w.tie, seed=7, device=device, dtype=dt, mesh=mesh,
     )
 
 
@@ -1238,7 +1261,7 @@ def run_churn(spec, device, dt, waves=None, echo=True, digests=True):
     return records, total, pod_digests(store) if digests else None
 
 
-def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = None, digests=True):
+def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = None, digests=True, mesh=None):
     """cfg7-preempt-5k (or its cut) through a SchedulerService on ``device``:
     one ``schedule_pending(max_rounds=max_rounds)``, the launch counters
     reset just before it.  With ``capture``, the first victim-search
@@ -1259,7 +1282,7 @@ def run_preempt(spec, device, dt, max_rounds: int = 1, capture: "dict | None" = 
     t0 = time.perf_counter()
     names = workloads.preemption_wave(store, n_nodes, n_low, n_fillers, n_preemptors)
     build_s = time.perf_counter() - t0
-    svc = SchedulerService(store, tie_break="first", use_batch="auto", device=device, dtype=dt)
+    svc = SchedulerService(store, tie_break="first", use_batch="auto", device=device, dtype=dt, mesh=mesh)
     svc.start_scheduler(None)
     launch, run_search = K.preempt, PK.run_search
     # host seconds building the victim-search tables (one per kernel run)
@@ -1390,6 +1413,7 @@ def preempt_phases(dev, cpu_preempt_ref) -> "tuple[dict, dict]":
         # the kernel's, and its stages by CUDA events (mean of 20), warm (the
         # problem's tables on the card) and cold (uploaded first, as every
         # dispatch of the cfg7 service is)
+        _K5_DISPATCH.append(captured["run_search"])
         pr5, sargs, skw = TP.restore(captured["run_search"])
         masks = PK.run_search(pr5, *sargs, **skw, device=DEVICE, dtype=torch.float32)
         for nm, x in zip(("cand", "victims", "viol"), kout5):
@@ -2501,7 +2525,7 @@ def capture_lanes(capture: list, estimator):
     return unwrap
 
 
-def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None):
+def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None, mesh=None):
     """cfg6-autoscale through a SchedulerService on ``device`` in ``dt``, as
     bench's run_autoscale drives it (``workloads.autoscale``, then
     ``schedule_pending_autoscaled(max_rounds=2, max_passes=12)``), the
@@ -2517,7 +2541,7 @@ def run_autoscale(device, dt, frozen_clock=False, capture: "list | None" = None)
 
     def start(store):
         svc = SchedulerService(store, tie_break="first", use_batch="auto", autoscale="on",
-                               autoscaler_opts={"expander": "least-waste"}, device=device, dtype=dt)
+                               autoscaler_opts={"expander": "least-waste"}, device=device, dtype=dt, mesh=mesh)
         svc.start_scheduler(None)
         return svc
 
@@ -4188,7 +4212,7 @@ def fixture_replays(dev) -> dict:
     return rec
 
 
-def cfg2_service(dev, dt, pipeline="auto"):
+def cfg2_service(dev, dt, pipeline="auto", mesh=None):
     from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
     from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
 
@@ -4199,7 +4223,7 @@ def cfg2_service(dev, dt, pipeline="auto"):
     for p in pending:
         store.create("pods", p)
     svc = SchedulerService(store, tie_break="first", use_batch="auto", batch_min_work=0, device=dev, dtype=dt,
-                           pipeline=pipeline)
+                           pipeline=pipeline, mesh=mesh)
     svc.start_scheduler(FIVE_CFG)
     return store, svc
 
@@ -4856,6 +4880,455 @@ def ensemble_phase(started: dict, card: str) -> dict:
     return rec
 
 
+# ------------------------------------------- phase 38: the node axis sharded
+
+SHARDS = (2, 4)
+SHARD_WINDOW = 256
+SHARD_FUZZ = ((0, 1), (2, 0), (3, 1))  # (seed, index) of the fuzz scenarios the shard role runs
+SHARD_REFUSED_LANES = 5000  # (shard, lane) blocks past what one card holds at once
+SHARD_TEST_CAP = 2000  # polls of a mailbox wait in the cap's check (a few ms)
+
+
+def refused_clusters(sms: int) -> int:
+    """A count of one-block shard clusters past what a card of ``sms`` SMs
+    holds at once: an SM runs at most 2 048 threads, so at most 2 048 /
+    SCAN_THREADS of the scan's blocks."""
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    return 2048 // K.SCAN_THREADS * sms + 1
+
+
+def shard_mesh(dev, n: int):
+    from kube_scheduler_simulator_tpu_torch.ops.mesh import NodeMesh
+
+    return NodeMesh((dev,) * n)
+
+
+def unshard(sp):
+    """The DeviceProblem of a ShardedProblem's whole axis (its node-axis
+    fields concatenated in shard order, the rest from shard 0)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.ops import batch as B
+
+    fields = {}
+    for f in B.DeviceProblem._fields:
+        ax = B.NODE_AXIS_SPECS.get(f)
+        v0 = getattr(sp.shards[0], f)
+        fields[f] = v0 if ax is None else torch.cat([getattr(dp, f) for dp in sp.shards], ax[0])
+    return B.DeviceProblem(**fields)
+
+
+def sharded_digests(out: dict) -> dict:
+    """``out_digests`` of a scan's outputs but its chaining view (the
+    sharded scan's ``final_carry`` is a list of the shards' carries; both
+    hand on the whole axis's final carry field by field)."""
+    return out_digests({k: v for k, v in out.items() if k != "final_carry" and not k.startswith("_")})
+
+
+def lanes_capture(capture: list):
+    """Wrap kernels.scan_lanes_sharded: each dispatch's arguments and
+    outputs are appended to ``capture``.  Returns the unwrapping function."""
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    orig = K.scan_lanes_sharded
+
+    def wrapped(cfg, dims, sp, lanes, widest=None):
+        out = orig(cfg, dims, sp, lanes, widest=widest)
+        capture.append(dict(args=(cfg, dims, sp, lanes, widest), out=out))
+        return out
+
+    K.scan_lanes_sharded = wrapped
+
+    def unwrap():
+        K.scan_lanes_sharded = orig
+
+    return unwrap
+
+
+def shard_lanes_check(dev, c: dict, name: str) -> dict:
+    """A captured sharded K8 dispatch against K8 on the whole axis: bitwise."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+
+    cfg, dims, sp, lanes, widest = c["args"]
+    whole = K.scan_lanes(cfg, dims, unshard(sp), torch.cat(lanes, 1), widest=widest)
+    keys = ("packed_pod", "final_requested", "final_nonzero", "final_pod_count", "final_spread_counts",
+            "final_ip_sel", "final_start")
+    same_digests(f"{name}: sharded K8 vs K8", out_digests({k: c["out"][k] for k in keys}),
+                 out_digests({k: whole[k] for k in keys}))
+    return dict(G=lanes[0].shape[0], N=dims["N"], P=dims["P"], shards=len(lanes), widest=widest,
+                tile=K.lane_tile(widest if widest is not None else 512), err=max_abs_err(c["out"], whole, keys))
+
+
+def shard_child(cfg2_digest: str, k5_path: str, out_path: str) -> None:
+    """Phase 38, a process of its own on the card: the node axis sharded
+    over shards of the one card (``NodeMesh((cuda:0,) * n)``).  (1) cfg2 on
+    2 and 4 shards, float32 and float64: the sharded K2 bitwise its plain
+    sharded version and the unsharded kernel, windows of 256, the service's
+    round (windows on the mesh) equal to the in-process digest; (2) north and
+    cfg4 one-launch rounds on 2 and 4 shards: documents equal the unsharded
+    round's, K2 sharded and K3 once each, the scan's ms beside the
+    unsharded ms; (3) K5 at cfg7-preempt-5k's first dispatch on 2 and 4
+    shards, masks equal to the unsharded launch, and the cfg7 cut through a
+    service on a mesh; (4) K8 at cfg6 through a service on a mesh and at the
+    burst, each dispatch bitwise K8 on the whole axis; (5) the fuzzer's
+    shard role; (6) the refusals.  Its record goes to ``out_path``; a
+    failed check raises."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch import time_preempt as TP
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.autoscaler import ScaleUpEstimator
+    from kube_scheduler_simulator_tpu_torch.fuzz import FuzzHarness, generate_scenario, run_differential
+    from kube_scheduler_simulator_tpu_torch.ops import batch as B
+    from kube_scheduler_simulator_tpu_torch.ops import encode as E
+    from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+    from kube_scheduler_simulator_tpu_torch.preemption import kernel as PK
+    from kube_scheduler_simulator_tpu_torch.preemption.kernel import preempt_plain
+
+    dev = torch.device(DEVICE)
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.init()
+        K.build()
+    cpu = torch.device("cpu")
+    rec: dict = {"main": {k: 0 for k in K.LAUNCHES}, "by_path": {}}
+
+    def main_path(label: str, launches: dict) -> None:
+        rec["by_path"][label] = {k: n for k, n in launches.items() if n}
+        for k, n in launches.items():
+            rec["main"][k] += n
+
+    # (1) cfg2: the sharded K2 against its plain sharded version and the
+    # unsharded kernel; windows of 256
+    cfg = workload_cfg("cfg2")
+    pr = encoded("cfg2")
+    err = {"scan_sharded": 0.0, "preempt_sharded": 0.0, "scan_lanes_sharded": 0.0}  # max |sharded - reference|
+    for dt in (torch.float32, torch.float64):
+        with Phase(f"phase 38 (1): cfg2 on 2 and 4 shards of the card, {dt}"):
+            dp, dims, ws0 = lowered("cfg2", pr, dt, dev)
+            dpc, _dc, _wc = lowered("cfg2", pr, dt, cpu)
+            uout = K.scan(cfg, dims, dp, ws0=ws0)
+            ud = sharded_digests(uout)
+            for n in SHARDS:
+                sp = B.shard_device_problem(dp, shard_mesh(dev, n))
+                kout = K.scan_sharded(cfg, dims, sp, ws0=ws0)
+                kd = sharded_digests(kout)
+                same_digests(f"cfg2 {n} shards {dt}: sharded K2 vs K2", kd, ud)
+                t0 = time.perf_counter()
+                pout = B.scan_plain_sharded(cfg, dims, B.shard_device_problem(dpc, shard_mesh(cpu, n)), ws0=ws0)
+                pd = sharded_digests(pout)
+                same_digests(f"cfg2 {n} shards {dt}: sharded K2 vs its plain sharded version (CPU)", kd, pd)
+                err["scan_sharded"] = max(err["scan_sharded"], max_abs_err(kout, uout), max_abs_err(kout, pout))
+                del pout
+                # windows of 256 chained shard for shard, against the one launch
+                carry, W = None, SHARD_WINDOW
+                for off in range(0, dims["P"], W):
+                    wout = K.scan_sharded(cfg, dims, sp, ws0=ws0, carry0=carry, offset=off, window=W)
+                    for k in ("fail_plug", "fail_code", "feasible", "packed_pod"):
+                        a = wout[k][:4] if k == "packed_pod" else wout[k]
+                        b = kout[k][:4, off:off + W] if k == "packed_pod" else kout[k][off:off + W]
+                        same(f"cfg2 {n} shards {dt}: window at {off} {k}", a, b)
+                    carry = wout["final_carry"]
+                for k in ("final_requested", "final_nonzero", "final_pod_count", "final_start"):
+                    same(f"cfg2 {n} shards {dt}: windows' final {k}", wout[k], kout[k])
+                log(f"cfg2 {n} shards {str(dt).split('.')[-1]}: sharded K2 bitwise the unsharded kernel and its "
+                    f"plain sharded version ({len(kd)} outputs; plain {time.perf_counter() - t0:.2f} s on the CPU); "
+                    f"{dims['P'] // W} windows of {W} bitwise the one launch; max |err| so far "
+                    f"{err['scan_sharded']!r}")
+        del dp, dpc, uout
+    # the kernels line's shape: cfg2, 2 shards, float32 (plain on the card)
+    with Phase("phase 38 (1): cfg2 timed, 2 shards, float32"):
+        dp, dims, ws0 = lowered("cfg2", pr, torch.float32, dev)
+        sp = B.shard_device_problem(dp, shard_mesh(dev, 2))
+        ms, kout = cuda_ms(lambda: K.scan_sharded(cfg, dims, sp, ws0=ws0), 10, 3)
+        ums, _u = cuda_ms(lambda: K.scan(cfg, dims, dp, ws0=ws0), 10, 3)
+        plain_ms, pout = cuda_ms(lambda: B.scan_plain_sharded(cfg, dims, sp, ws0=ws0), 1, 0)
+        same_digests("cfg2 2 shards: sharded K2 vs its plain sharded version on the card", sharded_digests(kout),
+                     sharded_digests(pout))
+        err["scan_sharded"] = max(err["scan_sharded"], max_abs_err(kout, pout))
+        b_ms, b_by = bound(scan_counts(cfg, dims, dp, kout), torch.float32)
+        rec["cfg2"] = dict(ms=ms, unsharded_ms=ums, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           P=dims["P"], N=dims["N"], shards=2, cluster=K.cluster_width(dims["N"] // 2, 1),
+                           err=err["scan_sharded"])
+        log(f"cfg2 timed: {json.dumps(rec['cfg2'])}")
+        del dp, sp, kout, pout, _u
+    # the service's round on the mesh: windows of 256 (the main path)
+    for n in SHARDS:
+        with Phase(f"phase 38 (1): cfg2 through the service on {n} shards, float32"):
+            store, svc = cfg2_service(dev, torch.float32, mesh=shard_mesh(dev, n))
+            K.reset_counts()
+            svc.schedule_pending(max_rounds=1)
+            launches = dict(K.LAUNCHES)
+            main_path(f"cfg2 service on {n} shards (windows of 256)", launches)
+            dg = digest(json.dumps(pod_digests(store), sort_keys=True))
+            m = svc.metrics()
+            r = dict(launches=launches, digest=dg, windows=svc._batch_engine.last_timings.get("windows"),
+                     shard_devices=m["shard_devices"], sharded_dispatches=m["sharded_dispatches_total"],
+                     plane_shard_bytes=m["plane_shard_bytes_per_device"],
+                     uploaded=m["device_bytes_uploaded_total"], fallbacks=dict(svc.stats["batch_fallbacks"]))
+            rec[f"cfg2 service {n}"] = r
+            log(f"cfg2 service on {n} shards: {json.dumps(r)}")
+            if dg != cfg2_digest or r["fallbacks"] or launches["scan"] or launches["scan_sharded"] < 2 \
+                    or m["shard_devices"] != n:
+                raise AssertionError(f"phase 38 (1): cfg2's service round on {n} shards ({cfg2_digest}): {json.dumps(r)}")
+
+    # (2) north and cfg4: one-launch rounds on 2 and 4 shards, timed
+    for name in ("north", "cfg4"):
+        w = WORKLOADS[name]
+        nodes, all_pods, pending, vols = make_cluster(name)
+        P = len(pending)
+        docs = {}
+        for n in (None, *SHARDS):
+            leg = "one device" if n is None else f"{n} shards"
+            with Phase(f"phase 38 (2): {name} one launch, {leg}, float32"):
+                eng = engine(name, torch.float32, device=DEVICE, mesh=None if n is None else shard_mesh(dev, n))
+                K.reset_counts()
+                res = eng.schedule(nodes, all_pods, pending, base_counter=w.base_counter, start_index=w.start,
+                                   volumes=vols)
+                launches = dict(K.LAUNCHES)
+                docs[leg] = round_documents(res, P)
+                if n is not None:
+                    main_path(f"{name} one-launch round on {n} shards", launches)
+                    want = {**{k: 0 for k in K.LAUNCHES}, "scan_sharded": 1, "compact": 1}
+                    if launches != want or docs[leg] != docs["one device"]:
+                        raise AssertionError(f"phase 38 (2): {name} on {n} shards: launches {launches}, documents "
+                                             f"{'equal' if docs[leg] == docs['one device'] else 'differ'}")
+                    log(f"{name} on {n} shards: documents equal the one-device round's; launches {launches}")
+        with Phase(f"phase 38 (2): {name} scan timed, one device and 2 and 4 shards, float32"):
+            pr_n = E.pad_problem(E.encode(nodes, all_pods, pending, volumes=vols))
+            dp, dims, ws0 = lowered(name, pr_n, torch.float32, dev)
+            cfg_n = workload_cfg(name)
+            t = {"unsharded_ms": cuda_ms(lambda: K.scan(cfg_n, dims, dp, ws0=ws0), 2, 1)[0]}
+            for n in SHARDS:
+                sp = B.shard_device_problem(dp, shard_mesh(dev, n))
+                ms, kout = cuda_ms(lambda: K.scan_sharded(cfg_n, dims, sp, ws0=ws0), 2, 1)
+                t[f"{n}_ms"] = ms
+                t[f"{n}_cluster"] = K.cluster_width(dims["N"] // n, 1)
+                # what the shard mode adds a pod, against the unsharded
+                # kernel: the exchanges, the wider kernel (every gate on)
+                # and its spills, less what the split of the node axis saves
+                t[f"{n}_added_us_a_pod"] = 1e3 * (ms - t["unsharded_ms"]) / pr_n.P_true
+                # the exchanges alone, timed in the kernel (the last timed
+                # launch): each shard's rank-0 block from each publish to the
+                # end of its wait, the wait for the slowest shard included
+                xns = kout["_exchange_ns"][0].double().cpu()
+                t[f"{n}_exchange_us_a_pod"] = float(xns.mean()) / 1e3 / dims["P"]
+                t[f"{n}_exchange_us_a_pod_max_shard"] = float(xns.max()) / 1e3 / dims["P"]
+                del sp, kout
+            t.update(P=pr_n.P_true, N=pr_n.N_true, cluster=K.cluster_width(dims["N"], 1))
+            rec[f"{name} timed"] = t
+            log(f"{name} timed: {json.dumps(t)}")
+            del dp
+
+    # (3) K5: cfg7-preempt-5k's first dispatch on 2 and 4 shards, then the
+    # cfg7 cut through a service on a mesh (the main path)
+    with Phase("phase 38 (3): K5 at cfg7-preempt-5k's first dispatch on 2 and 4 shards, float32"):
+        with open(k5_path, "rb") as f:
+            pr5, sargs, skw = TP.restore(pickle.load(f))
+        want = PK.run_search(pr5, *sargs, **skw, device=DEVICE, dtype=torch.float32)
+        for n in SHARDS:
+            calls: list = []
+            launch = K.preempt
+
+            def keep(*args, **kw):
+                calls.append(tuple(a.clone() for a in args))
+                return launch(*args, **kw)
+
+            K.preempt = keep
+            try:
+                got = PK.run_search(pr5, *sargs, **skw, device=DEVICE, dtype=torch.float32,
+                                    mesh=shard_mesh(dev, n))
+            finally:
+                K.preempt = launch
+            for k in ("cand", "victims", "viol"):
+                if not np.array_equal(got[k], want[k]):
+                    raise AssertionError(f"phase 38 (3): K5 on {n} shards: mask {k} differs from the unsharded launch")
+            err["preempt_sharded"] = max(err["preempt_sharded"], max_abs_err(got, want, ("cand", "victims", "viol")))
+            if len(calls) != n:
+                raise AssertionError(f"phase 38 (3): K5 on {n} shards launched {len(calls)} times")
+            if n == 2:
+                ms, host_ms, outs = device_ms(lambda: [K.preempt(*a) for a in calls], 20)
+                plain_ms, _p = cuda_ms(lambda: [preempt_plain(*a) for a in calls], 1, warmup=0)
+                cnt = [search_counts(a, o) for a, o in zip(calls, outs)]
+                b_ms, b_by = bound({"bytes": sum(c["bytes"] for c in cnt), "ops": sum(c["ops"] for c in cnt)},
+                                   torch.float32)
+                rec["k5"] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 shards=2, shape=[list(a[0].shape) for a in calls])
+            log(f"K5 on {n} shards: {n} launches over the node ranges, masks equal the unsharded launch's")
+        rec["k5"]["err"] = err["preempt_sharded"]
+        log(f"K5 timed: {json.dumps(rec['k5'])}")
+    with Phase(f"phase 38 (3): cfg7-preempt-5k cut {PREEMPT_CUT} through the service, one device and 2 shards"):
+        r1, d1, _n1 = run_preempt(PREEMPT_CUT, DEVICE, torch.float32)
+        r2, d2, _n2 = run_preempt(PREEMPT_CUT, DEVICE, torch.float32, mesh=shard_mesh(dev, 2))
+        main_path("cfg7-preempt-5k cut on 2 shards", r2["launches"])
+        rec["cfg7 cut"] = dict(one=r1["launches"], sharded=r2["launches"], nominations=r2["nominations"])
+        if d1 != d2 or r2["launches"]["preempt"] < 2 or r2["nominations"] != r1["nominations"]:
+            raise AssertionError(f"phase 38 (3): the cfg7 cut on 2 shards: {json.dumps(rec['cfg7 cut'])}, pods "
+                                 f"{'equal' if d1 == d2 else 'differ'}")
+        log(f"cfg7 cut on 2 shards: pods equal the one-device service's; {json.dumps(rec['cfg7 cut'])}")
+
+    # (4) K8: cfg6 through a service on a mesh, and the burst
+    with Phase(f"phase 38 (4): cfg6-autoscale {AUTOSCALE} through the service, one device and 2 shards, float32"):
+        r1, d1, e1 = run_autoscale(DEVICE, torch.float32, frozen_clock=True)
+        cap: list = []
+        unwrap = lanes_capture(cap)
+        try:
+            r2, d2, e2 = run_autoscale(DEVICE, torch.float32, frozen_clock=True, mesh=shard_mesh(dev, 2))
+        finally:
+            unwrap()
+        main_path("cfg6-autoscale on 2 shards", r2["launches"])
+        if d1 != d2 or e1 != e2 or r2["actions"] != r1["actions"] or r2["kernel_errors"] or not cap:
+            raise AssertionError(f"phase 38 (4): cfg6 on 2 shards: actions {r2['actions']} vs {r1['actions']}, pods "
+                                 f"{'equal' if d1 == d2 else 'differ'}, events {'equal' if e1 == e2 else 'differ'}")
+        first = shard_lanes_check(dev, cap[0], "cfg6's first dispatch")
+        cfgl, dimsl, spl, lanesl, widestl = cap[0]["args"]
+        ms, _o = cuda_ms(lambda: K.scan_lanes_sharded(cfgl, dimsl, spl, lanesl, widest=widestl), 10, 3)
+        ums, _u = cuda_ms(lambda: K.scan_lanes(cfgl, dimsl, unshard(spl), torch.cat(lanesl, 1), widest=widestl),
+                          10, 3)
+        plain_ms, pout = cuda_ms(lambda: B.scan_lanes_plain_sharded(cfgl, dimsl, spl, lanesl), 1, 0)
+        keys = ("packed_pod", "final_requested", "final_pod_count")
+        same_digests("cfg6's first dispatch: sharded K8 vs its plain sharded version",
+                     out_digests({k: _o[k] for k in keys}), out_digests({k: pout[k] for k in keys}))
+        err["scan_lanes_sharded"] = max(err["scan_lanes_sharded"], first["err"], max_abs_err(_o, pout, keys))
+        lane_all = torch.cat(lanesl, 1)
+        b_ms, b_by = bound(lane_counts(cfgl, dimsl, unshard(spl), lane_all, _u), torch.float32)
+        rec["k8"] = dict(ms=ms, unsharded_ms=ums, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         dispatches=len(cap), **first)
+        log(f"cfg6 on 2 shards: pods and events equal the one-device service's; {len(cap)} sharded K8 dispatches; "
+            f"K8 timed {json.dumps(rec['k8'])}")
+        del cap, _o, _u, pout
+    with Phase(f"phase 38 (4): the autoscale burst {BURST} on 4 shards, float32"):
+        groups, headroom_, pods = workloads.autoscale_burst(**BURST)
+        est1 = ScaleUpEstimator(device=DEVICE, dtype=torch.float32).estimate(groups, headroom_, pods)
+        cap = []
+        unwrap = lanes_capture(cap)
+        try:
+            K.reset_counts()
+            est2 = ScaleUpEstimator(device=DEVICE, dtype=torch.float32, mesh=shard_mesh(dev, 4)).estimate(
+                groups, headroom_, pods)
+            main_path("the autoscale burst on 4 shards", dict(K.LAUNCHES))
+        finally:
+            unwrap()
+        if [e.__dict__ for e in est1] != [e.__dict__ for e in est2] or len(cap) != 1:
+            raise AssertionError("phase 38 (4): the burst's estimates on 4 shards differ from one device's")
+        rec["burst"] = shard_lanes_check(dev, cap[0], "the burst")
+        err["scan_lanes_sharded"] = rec["k8"]["err"] = max(err["scan_lanes_sharded"], rec["burst"]["err"])
+        log(f"the burst on 4 shards: estimates equal; K8 bitwise on the whole axis; {json.dumps(rec['burst'])}")
+        del cap
+
+    # (5) the fuzzer's shard role on the card
+    with Phase(f"phase 38 (5): the fuzzer's shard role on 2 shards of the card, scenarios {SHARD_FUZZ}"):
+        harness = FuzzHarness(DEVICE)
+        K.reset_counts()
+        div = []
+        for seed, index in SHARD_FUZZ:
+            v, _s = run_differential(generate_scenario(seed, index), harness, comparisons=("shard-vs-single",))
+            div += v["divergences"]
+        launches = dict(K.LAUNCHES)
+        main_path("fuzz shard role on 2 shards", launches)
+        rec["fuzz"] = dict(divergences=div, launches=launches)
+        log(f"fuzz shard role: {json.dumps(rec['fuzz'])}")
+        if div or not launches["scan_sharded"]:
+            raise AssertionError(f"phase 38 (5): {json.dumps(rec['fuzz'])}")
+
+    # (6) the refusals: shards that cannot all be resident, never a hang
+    with Phase("phase 38 (6): a shard count that cannot be co-resident is refused"):
+        prq = E.pad_problem(E.encode(*make_cluster("cfg2", (4, 8, 0))[:3]), node_multiple=2)
+        dpq, dimsq = B.lower(prq, dtype=torch.float32, device=dev)
+        cfgq = B.BatchConfig(filters=tuple(FIVE_FILTERS), scores=(("NodeResourcesFit", 1),), trace=False)
+        spq = B.shard_device_problem(dpq, shard_mesh(dev, 2))
+        lanes = [torch.ones((SHARD_REFUSED_LANES, dimsq["N"] // 2), dtype=torch.bool, device=dev)] * 2
+        t0 = time.perf_counter()
+        try:
+            K.scan_lanes_sharded(cfgq, dimsq, spq, lanes)
+        except K.KernelArgumentError as exc:
+            rec["refused"] = dict(s=time.perf_counter() - t0, error=str(exc))
+        else:
+            raise AssertionError(f"phase 38 (6): {SHARD_REFUSED_LANES} lanes x 2 shards were not refused")
+        log(f"refused in {rec['refused']['s']:.4f} s: {rec['refused']['error']}")
+    with Phase("phase 38 (6): more one-block shard clusters than the card holds at once are refused"):
+        n = refused_clusters(torch.cuda.get_device_properties(dev).multi_processor_count)
+        prc = E.pad_problem(E.encode(*make_cluster("cfg2", (4, 8, 0))[:3]), node_multiple=n)
+        dpc_, dimsc = B.lower(prc, dtype=torch.float32, device=dev)
+        spc = B.shard_device_problem(dpc_, shard_mesh(dev, n))
+        t0 = time.perf_counter()
+        try:
+            K.scan_sharded(cfgq, dimsc, spc)
+        except K.KernelArgumentError as exc:
+            rec["refused_clusters"] = dict(shards=n, s=time.perf_counter() - t0, error=str(exc))
+        else:
+            raise AssertionError(f"phase 38 (6): {n} shard clusters of one block were not refused")
+        log(f"refused in {rec['refused_clusters']['s']:.4f} s: {rec['refused_clusters']['error']}")
+        del spc, dpc_
+    with Phase("phase 38 (6): a shard that never answers ends its peers' waits at the cap, raised"):
+        cap_, silent = K.SHARD_SPIN_CAP, K.SILENT_SHARD
+        K.SHARD_SPIN_CAP, K.SILENT_SHARD = SHARD_TEST_CAP, 1
+        t0 = time.perf_counter()
+        try:
+            K.scan_sharded(cfgq, dimsq, spq)
+        except K.KernelLaunchError as exc:
+            rec["spin_cap"] = dict(cap=SHARD_TEST_CAP, s=time.perf_counter() - t0, error=str(exc))
+        else:
+            raise AssertionError("phase 38 (6): a silent shard's peers returned without an error")
+        finally:
+            K.SHARD_SPIN_CAP, K.SILENT_SHARD = cap_, silent
+        # the card still answers: the same launch with every shard
+        same_digests("phase 38 (6): the launch after the cap", sharded_digests(K.scan_sharded(cfgq, dimsq, spq)),
+                     sharded_digests(K.scan(cfgq, dimsq, dpq)))
+        log(f"the cap: {json.dumps(rec['spin_cap'])}; the next launch bitwise the unsharded kernel")
+
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(rec, f, default=str)
+
+
+def shard_start(cfg2_digest: str, k5_dispatch: bytes) -> dict:
+    """Phase 38's child started on the card (``shard_child``), beside phases
+    30-34 and phase 37's child; ``shard_phase`` joins it."""
+    import pickle
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="kss-phase38-")
+    _TMPDIRS.append(tmp)
+    k5_path = os.path.join(tmp, "k5.pickle")
+    with open(k5_path, "wb") as f:
+        pickle.dump(k5_dispatch, f)
+    out = os.path.join(tmp, "phase38.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            f"chip_smoke.shard_child({cfg2_digest!r}, {k5_path!r}, {out!r})")
+    logf = open(os.path.join(tmp, "phase38.log"), "w", encoding="utf-8")
+    env = dict(os.environ)
+    env.pop("KSS_MESH_PROCESSES", None)
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logf, stderr=subprocess.STDOUT, cwd=root)
+    _CHILDREN.append(proc)
+    return dict(proc=proc, out=out, log=logf, t0=time.perf_counter())
+
+
+def shard_phase(started: dict, card: str) -> dict:
+    """Phase 38 joined: its child's log printed and its record read."""
+    with Phase("phase 38: the node axis sharded, the child on the card (joined)"):
+        proc = started["proc"]
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        started["log"].close()
+        log(open(started["log"].name, encoding="utf-8").read().rstrip()[-20000:])
+        if rc != 0 or not os.path.exists(started["out"]):
+            raise AssertionError(f"phase 38's child exited {rc}")
+        rec = json.load(open(started["out"], encoding="utf-8"))
+        rec["wall_s"] = time.perf_counter() - started["t0"]
+        log(f"phase 38: {rec['wall_s']:.3f} s from its start; main-path launches {json.dumps(rec['main'])}; {card}")
+    return rec
+
+
 def workload_cfg(name):
     """The scan's configuration of a workload (trace on)."""
     from kube_scheduler_simulator_tpu_torch.ops import batch as B
@@ -4922,6 +5395,25 @@ def same_digests(name: str, kernel: dict, plain: dict) -> float:
     if bad:
         raise AssertionError(f"{name}: kernel and plain version differ in {bad}")
     return 0.0
+
+
+def max_abs_err(a: dict, b: dict, keys=None) -> float:
+    """The largest |a - b| over the outputs ``keys`` (by default every key
+    the two share but the chaining view and the wrappers' own ``_`` keys),
+    each tensor or array taken as float64 on the CPU; cells equal in value
+    (infinities, NaN beside NaN) count 0."""
+    import torch
+
+    keys = keys or [k for k in b if k in a and k != "final_carry" and not k.startswith("_")]
+    err = 0.0
+    for k in keys:
+        x, y = (torch.as_tensor(v).detach().cpu().double() for v in (a[k], b[k]))
+        if x.shape != y.shape:
+            raise AssertionError(f"{k}: shapes {tuple(x.shape)} and {tuple(y.shape)}")
+        d = (x - y).abs()
+        d[(x == y) | (x.isnan() & y.isnan())] = 0.0
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
 
 
 def gpu_worker_init() -> None:
@@ -5091,6 +5583,7 @@ def cpu_stream() -> "tuple[dict, str]":
 
 
 _POOL = None  # the CPU worker pool, stopped on the way out of the script
+_K5_DISPATCH: list = []  # cfg7-preempt-5k's first victim-search dispatch (phase 13), for phase 38
 _GPU_POOL = None  # the plain references' worker pool on the card, stopped likewise
 _CHILDREN: list = []  # phase 36's and 37's child processes, killed likewise where still running
 _TMPDIRS: list = []  # phase 36's warm cache and phase 37's directory, removed likewise
@@ -5677,6 +6170,8 @@ def main() -> int:
     # from phase 36's warm cache (its kernels timed: nothing is timed on the
     # card from here on)
     ens_started = ensemble_start(aot_rec["warm"], fuzz_rec["cfg2"]["uninterrupted"]["digest"])
+    # phase 38's child (the node axis sharded over shards of the card) too
+    shard_started = shard_start(fuzz_rec["cfg2"]["uninterrupted"]["digest"], _K5_DISPATCH[0])
     # phase 34's direct service, in a worker on the card beside phases 29-33
     # (the plain references are done with the pool by now)
     sim_direct_ref = _GPU_POOL.apply_async(no_kernel_errors, (sim_direct,))
@@ -5705,6 +6200,8 @@ def main() -> int:
 
     # ------------------------------------------- phase 37, joined
     ens_rec = ensemble_phase(ens_started, card)
+    # ------------------------------------------- phase 38, joined
+    sh_rec = shard_phase(shard_started, card)
     fz = {k: fuzz_rec["sweep"]["launches"][k] + fuzz_rec["stream"]["chaos"]["launches"][k]
           + fuzz_rec["cfg2"]["chaos"]["launches"][k] for k in K.LAUNCHES}
     fz_window = fuzz_rec["cfg2"]["chaos"]["launches"]["scan"]
@@ -5987,6 +6484,72 @@ def main() -> int:
             "library_ms": k2g_t["contract"]["library_ms"],
             "library_call": "torch.einsum('nj,jkn->k', F, M) (without the division by tau)",
             "shape": k2g_t["contract"]["shape"],
+        },
+    ]
+    # the sharded modes (phase 38): launches of its main-path drives, each
+    # reset just before and read just after
+    def by_path(kernel: str) -> dict:
+        return {label: n[kernel] for label, n in sh_rec["by_path"].items() if n.get(kernel)}
+
+    t2 = {name: sh_rec[f"{name} timed"] for name in ("north", "cfg4")}
+    kernels += [
+        {
+            "name": "scan_sharded",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan_shard_trace.cu",
+            "untraced_source": "kube_scheduler_simulator_tpu_torch/csrc/scan_shard_cluster.cu",
+            "replaces": "kube_scheduler_simulator_tpu/ops/batch.py:1185",
+            "sharding": "kube_scheduler_simulator_tpu/ops/batch.py:560 (shard_device_problem: GSPMD over the node axis)",
+            "launches": sh_rec["main"]["scan_sharded"],
+            "launches_by_path": by_path("scan_sharded"),
+            "max_abs_err": sh_rec["cfg2"]["err"],
+            "ms": sh_rec["cfg2"]["ms"],
+            "plain_ms": sh_rec["cfg2"]["plain_ms"],
+            "bound_ms": sh_rec["cfg2"]["bound_ms"],
+            "bound_by": sh_rec["cfg2"]["bound_by"],
+            "library_ms": None,
+            "unsharded_ms": sh_rec["cfg2"]["unsharded_ms"],
+            "shape": f"cfg2 one launch, P={sh_rec['cfg2']['P']} N={sh_rec['cfg2']['N']}, 2 shards of the card, "
+                     f"clusters of {sh_rec['cfg2']['cluster']}",
+            "by_workload": t2,
+            "timed": "beside phases 30-34 and phase 37's child (the card shared)",
+        },
+        {
+            "name": "preempt_sharded",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/preempt.cu",
+            "replaces": "kube_scheduler_simulator_tpu/preemption/kernel.py:34",
+            "sharding": "kube_scheduler_simulator_tpu/preemption/kernel.py:218 (shard_search_args)",
+            "launches": sh_rec["main"]["preempt"],
+            "launches_by_path": by_path("preempt"),
+            "max_abs_err": sh_rec["k5"]["err"],
+            "ms": sh_rec["k5"]["ms"],
+            "plain_ms": sh_rec["k5"]["plain_ms"],
+            "bound_ms": sh_rec["k5"]["bound_ms"],
+            "bound_by": sh_rec["k5"]["bound_by"],
+            "library_ms": None,
+            "shape": f"cfg7-preempt-5k first dispatch on 2 shards: a launch a shard, {sh_rec['k5']['shape']}",
+            "timed": "launches back to back behind a sleep of the card (timing.device_ms), beside phases 30-34",
+        },
+        {
+            "name": "scan_lanes_sharded",
+            "route": "cuda",
+            "source": "kube_scheduler_simulator_tpu_torch/csrc/scan_shard_masked.cu",
+            "replaces": "kube_scheduler_simulator_tpu/autoscaler/estimator.py:186",
+            "sharding": "kube_scheduler_simulator_tpu/autoscaler/estimator.py:244 (the [G, N] lane mask sharded on N)",
+            "launches": sh_rec["main"]["scan_lanes_sharded"],
+            "launches_by_path": by_path("scan_lanes_sharded"),
+            "max_abs_err": sh_rec["k8"]["err"],
+            "ms": sh_rec["k8"]["ms"],
+            "plain_ms": sh_rec["k8"]["plain_ms"],
+            "bound_ms": sh_rec["k8"]["bound_ms"],
+            "bound_by": sh_rec["k8"]["bound_by"],
+            "library_ms": None,
+            "unsharded_ms": sh_rec["k8"]["unsharded_ms"],
+            "shape": f"cfg6-autoscale first dispatch on 2 shards: G={sh_rec['k8']['G']} N={sh_rec['k8']['N']} "
+                     f"P={sh_rec['k8']['P']}",
+            "burst": sh_rec["burst"],
+            "timed": "beside phases 30-34 and phase 37's child (the card shared)",
         },
     ]
     for k in kernels:

@@ -215,6 +215,7 @@ class ClusterAutoscaler:
             self._estimator = ScaleUpEstimator.from_framework(
                 fw,
                 store=self.store,
+                mesh=getattr(self.scheduler, "mesh", None),
                 device=getattr(self.scheduler, "device", None),
                 dtype=getattr(self.scheduler, "dtype", None),
             )

@@ -59,6 +59,7 @@ from kube_scheduler_simulator_tpu_torch.autoscaler import nodegroups as ng
 from kube_scheduler_simulator_tpu_torch.ops import batch as B
 from kube_scheduler_simulator_tpu_torch.ops import encode as E
 from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+from kube_scheduler_simulator_tpu_torch.ops.mesh import mesh_devices, resolve_mesh
 
 logger = logging.getLogger("autoscaler.estimator")
 
@@ -107,13 +108,12 @@ class ScaleUpEstimator:
     ):
         """The reference's signature with ``device`` (the card unless the
         caller passes "cpu") and ``dtype`` (float32 on the card, float64 on
-        the CPU unless given) in place of ``mesh``, which is refused."""
+        the CPU unless given).  ``mesh``: a node mesh (ops/mesh.py) whose
+        shards split the template rows; the estimator shards the problem
+        and the [G, N] lane mask itself, so the inner engine has none."""
         from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import BatchEngine
 
-        from kube_scheduler_simulator_tpu_torch.ops.mesh import resolve_mesh
-
-        if resolve_mesh(mesh, device=device) is not None:
-            raise ValueError("a mesh: sharding the node axis is not ported yet")
+        self.mesh = resolve_mesh(mesh, device=device)
         # Feasibility = the profile's filters; packing = MostAllocated
         # best-fit (see module docstring).  trace off: estimation needs
         # decisions, not annotations.
@@ -253,7 +253,9 @@ class ScaleUpEstimator:
             added_affinity=eng.added_affinity,
             volumes=volumes or {},
         )
-        pr = E.pad_problem(pr)
+        # a mesh needs the node axis divisible by its shard count
+        nm = mesh_devices(self.mesh) or 1
+        pr = E.pad_problem(pr, node_multiple=nm)
         # a dispatch whose resource values would go inexact in the engine's
         # dtype runs in float64, on the same kernel
         self.last_bound = B.exactness_bound(pr)
@@ -272,7 +274,18 @@ class ScaleUpEstimator:
         masks = np.zeros((G, N), dtype=bool)
         for g, (_grp, lo, hi) in enumerate(blocks):
             masks[g, lo:hi] = True
-        lane = torch.from_numpy(masks).to(eng.device)
+        if self.mesh is not None:
+            # the problem and the [G, N] lane mask sharded on N (lanes
+            # replicate); the mask's bytes are what is placed, not lower()'s
+            # [N] node_active it replaces
+            self.sharded_dispatches += 1
+            self.shard_plane_bytes_per_device += B.tree_shard_bytes_per_device(dp._replace(node_active=masks), nm)
+            dp = B.shard_device_problem(dp, self.mesh)
+            Ns = N // nm
+            lane = [torch.from_numpy(masks[:, s * Ns : (s + 1) * Ns].copy()).to(d)
+                    for s, d in enumerate(self.mesh.devices)]
+        else:
+            lane = torch.from_numpy(masks).to(eng.device)
         t2 = time.perf_counter()
 
         key = (tuple(sorted(dims.items())), G, dt)

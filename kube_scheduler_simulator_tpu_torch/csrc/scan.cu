@@ -395,6 +395,19 @@ struct ScanArgs {
   void* raw[MAXS];     // [P,N] each, [P,ws0] with ws0
   void* norm[MAXS];
   int32_t* trace_meta; // [S+1,2]
+  // the node mesh (shard mode, csrc/scan_shard*.cu): each shard's args hold
+  // its own buffers; packed, final_start, the trace planes and the trace
+  // meta are the whole axis's, on the mesh's first device
+  int64_t shards;       // shards of the mesh (0: not sharded)
+  int64_t shard;        // this shard's index
+  int64_t node_off;     // global index of the shard's first node
+  int64_t N_glob;       // the whole node axis: the trace planes' row stride
+  int64_t slot_bytes;   // one shard's mailbox slot
+  int64_t spin_cap;     // polls before a wait gives up (marks the shard in mbox_err)
+  uint32_t* mbox_flags;  // [lanes, shards] exchanges published, system scope
+  char* mbox;           // [2, lanes, shards, slot_bytes] double-buffered payloads
+  int32_t* mbox_err;    // [lanes, shards] 1 where a wait on the shard's flag hit its cap
+  int64_t* xwait;       // [lanes, shards] ns each shard's rank-0 block spent in the pod loop's exchanges, or null
 };
 
 namespace {
@@ -493,6 +506,7 @@ struct ClusterX {
   int tile_feas[MAXT];  // pass 1: feasible nodes in each of the block's rank tiles
   int tile_tied[MAXT];  // reservoir: nodes tied at the best total in each tile
   int kth, n_fni, c_hi, best_rank;
+  int hi_cnt;           // shard mode: feasible (or tied) nodes of the block's in the shard's first run
   T mx_taint, mx_aff, ip_mn, ip_mx, sp_mn, sp_mx, best;
   T g_part[MAXS + 1];   // grad mode: sum e and sum e norm_k over the block's sampled nodes
   // trace meta: each block's score min/max and largest failure code, in
@@ -649,6 +663,56 @@ __device__ void copy_transposed(const S* src, D* dst, int64_t R, int64_t C, int6
   }
 }
 
+// ---- the shard mailbox ----------------------------------------------------
+// A shard's slot: int32 values at XI_OFF, the working dtype's at XT_OFF, a
+// vector (domain sums and flags, sampled-domain flags, a gdom column) at
+// XV_OFF.  Each shard's rank-0 block writes its slot of exchange e (pod
+// parity's double buffer: e & 1), then publishes e + 1 in its flag with a
+// system-scope release; every block of every shard waits for each flag
+// with a system-scope acquire, polling with __nanosleep backoff, and reads
+// the slots uncached (__ldcv), combining them in shard order.  A slot is
+// written again two exchanges later, which no shard reaches before every
+// shard has published the exchange between, which each does only after
+// its cluster barrier behind its reads.
+constexpr int XI_OFF = 0, XT_OFF = 128, XV_OFF = 384;
+
+__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
+  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// the card's nanosecond clock (the exchanges' timer)
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// one thread's wait for a shard's flag to reach `want`.  A wait past the
+// cap marks the shard dead in its error word (the wrapper raises it), and
+// every later wait on that shard returns at once: the launch runs to its
+// end instead of hanging the card.  The fault this guards is a shard that
+// never ran (its card's launch refused after another card's, a shard not
+// resident): its slots keep the zeros the mailbox starts with, so every
+// block reads the same in-range values from them (counts and ranks 0) and
+// the live shards, which keep publishing, stay in step.
+__device__ void mb_spin(const unsigned* flag, unsigned want, int32_t* dead, int64_t cap) {
+  unsigned ns = 32;
+  for (int64_t it = 0; ld_acquire_sys(flag) < want; ++it) {
+    if (*(volatile int32_t*)dead != 0) return;
+    if (it >= cap) {
+      atomicExch(dead, 1);
+      return;
+    }
+    __nanosleep(ns);
+    if (ns < 1024) ns <<= 1;
+  }
+}
+
 // ---- the masked mode's staged pod rows ------------------------------------
 // A segment of a pod's row: `count` elements of `esize` bytes, row i of a
 // [P, count] array, staged at byte `off` of a shared-memory slot.
@@ -758,16 +822,37 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // trace compile them out.  MODE_MASKED (K8) runs one block of TPB threads a
 // lane over the lane's own rows, trace off; every other mode has TPB =
 // THREADS.
-template <typename T, bool TOPO, bool VOL, int MODE, int TPB>
-__global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
+//
+// SH (the shard mode, csrc/scan_shard_*.cu): the node axis split over a
+// mesh's shards, each shard a cluster (MODE_CLUSTER, MODE_TRACE: grid
+// (C, shards), the shard on y) or, in the masked mode, a block a (shard,
+// lane) (grid (shards, lanes)), every shard with its own ScanArgs (its own
+// buffers, its global node offset).  Within a shard the code is the
+// one-shard code over its N nodes, visited in the rotation of its true
+// nodes from its part of the global start (so its visit order is its
+// nodes of id >= start, then those below: the two runs the global visit
+// order takes from it); every rank, tie, reservoir key and NodeName target
+// stays global.  Each pod's cross-shard reductions go through the shard
+// mailbox above, in shard order: PodTopologySpread's identity minima and
+// domain sums and flags (E0), the shard's feasible counts of its two runs
+// (E1: the global prefix in visit order), the k-th feasible rank, c_hi,
+// the sampling extrema and the sampled-domain flags (E2), the spread
+// score's extrema (E3), the best (total, rank) or, for the reservoir, the
+// best and the two runs' tie counts (E4), and the selected node's gdom
+// column, which every shard's copy of InterPodAffinity's rows commits
+// (E5); the trace meta once, after the pod loop (E6).  The owner shard
+// commits the per-node carries.
+template <typename T, bool TOPO, bool VOL, int MODE, int TPB, bool SH>
+__device__ __forceinline__ void scan_body(const ScanArgs& a) {
   constexpr bool GRAD = MODE == MODE_GRAD;
   constexpr bool MASKED = MODE == MODE_MASKED;
   constexpr bool CL = MODE != MODE_BLOCKS;
   constexpr int NW = TPB / 32;
   const bool trace = MODE == MODE_TRACE || (MODE == MODE_BLOCKS && a.trace != 0);
   const int tid = threadIdx.x;
-  const int b = blockIdx.x;  // in a cluster: the block's rank in it
-  const int B = gridDim.x;
+  // in a cluster: the block's rank in it (a masked shard block is alone)
+  const int b = SH && MASKED ? 0 : blockIdx.x;
+  const int B = SH && MASKED ? 1 : gridDim.x;
   // a cluster of one block runs the one-block code: no DSMEM, no cluster
   // barrier
   const bool split = CL && B > 1;
@@ -781,7 +866,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
   const int64_t P = a.P, N = a.N, R = a.R;
   // the lane, and this block's scratch slot: its own, or its lane's (the
   // blocks of a cluster share one copy of the carries)
-  const int64_t lane = blockIdx.y;
+  const int64_t lane = SH && !MASKED ? 0 : blockIdx.y;
   const int64_t sb = CL ? lane : lane * B + b;
   // the rank tiles this block walks (every one, or b, b + C, ...) and its
   // share of the once-a-launch copies (all, or every C-th stretch)
@@ -795,6 +880,36 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
   int32_t* const packed = a.packed + lane * 5 * P;
   const int nt = (int)a.n_true;
   const int K = (int)a.sample_k;
+  // the shard: its offset, its true nodes, the trace planes' row stride,
+  // and the mailbox exchanges made so far (the same sequence in every shard)
+  const int S_SH = SH ? (int)a.shards : 1;
+  const int off = SH ? (int)a.node_off : 0;
+  const int nts = SH ? max(0, min((int)N, nt - off)) : nt;
+  const int64_t NT = SH ? a.N_glob : N;
+  int64_t ex = 0;
+  // block 0's thread 0: the pod loop's exchanges timed, each from its
+  // publish to the end of its wait (the wait for the slowest shard included)
+  uint64_t x_ns = 0, x_t0 = 0;
+  auto mslot = [&](int q, int64_t e) -> char* {
+    return a.mbox + (((e & 1) * a.lanes + lane) * S_SH + q) * a.slot_bytes;
+  };
+  // block 0, every thread, once its slot of exchange ex is written
+  auto mpublish = [&]() {
+    if (tid == 0) x_t0 = globaltimer();
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence_system();
+      st_release_sys(a.mbox_flags + lane * S_SH + a.shard, (unsigned)(ex + 1));
+    }
+  };
+  // every block: each shard's slot of exchange ex published
+  auto mwait = [&]() {
+    if (tid < S_SH) {
+      mb_spin(a.mbox_flags + lane * S_SH + tid, (unsigned)(ex + 1), a.mbox_err + lane * S_SH + tid, a.spin_cap);
+    }
+    __syncthreads();
+    if (b == 0 && tid == 0) x_ns += globaltimer() - x_t0;
+  };
   const T* alloc = (const T*)a.alloc;
   const T* max_pods = (const T*)a.max_pods;
   const T* nz_alloc = (const T*)a.nz_alloc;
@@ -867,7 +982,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
   // reservoir).  Elsewhere the block that owns the selected node's rank in
   // the next pod commits it, and every carry a block reads before the next
   // barrier is its own nodes'.
-  const bool commit_sync = ipa || dom_used || a.reservoir;
+  const bool commit_sync = SH || ipa || dom_used || a.reservoir;
   // rank 0 zeroes them for the next pod once every block has read them
   auto zero_domains = [&]() {
     if (CL && b == 0 && dom_used) {
@@ -977,7 +1092,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       const int c = block_scan(act, &tile_total);
       if (act) lst[m + c - 1] = (int)n;
       m += tile_total;
-      below += act && n < nt ? 1 : 0;
+      below += act && n < nts ? 1 : 0;
     }
     m_true = block_reduce(below, 0, SumOp());
     if (P > 0) {
@@ -987,6 +1102,15 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
     __syncthreads();
   }
   int start = a.start_ptr ? a.start_ptr[0] : (int)a.start0;
+  // the shard's part of the rotation: its first node at or past start
+  int ls = start;
+  // a node's global visit rank
+  auto grank = [&](int n) -> int {
+    const int g = off + n;
+    return g < nt ? (g >= start ? g - start : g - start + nt) : g;
+  };
+  // the node of the q-th rank (of the shard's own rotation)
+  auto loc = [&](int64_t q) -> int { return q < nts ? (ls + (int)q) % nts : (int)q; };
   // the pass's q-th row in visit order (rank r, node n): rank q itself, or in
   // the masked mode the list's q-th from its first row >= start (p0)
   int p0 = 0;
@@ -996,14 +1120,14 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
         int p = p0 + (int)q;
         if (p >= m_true) p -= m_true;
         n = lst[p];
-        r = n >= start ? n - start : n - start + nt;
+        r = SH ? grank(n) : n >= start ? n - start : n - start + nt;
       } else {
         n = lst[q];
-        r = n;
+        r = SH ? grank(n) : n;
       }
     } else {
-      r = (int)q;
-      n = r < nt ? (start + r) % nt : r;
+      n = loc(q);
+      r = SH ? grank(n) : (int)q;
     }
   };
   const int64_t QN = MASKED ? m : N;  // a pass's rows
@@ -1011,6 +1135,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
   for (int64_t i = 0; i < P; ++i) {
     // the trace: a cluster block writes its rank tiles' columns of every
     // pod, a redundant chain the rows of its pods
+    ls = SH ? max(0, min(nts, start - off)) : start;
     const bool owner = (i % B) == b;
     const bool writes = trace && (CL || owner);
     // the pod's own rows: staged (masked mode), or read in place
@@ -1035,7 +1160,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       int lo = 0, hi = m_true;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (lst[mid] < start) {
+        if (lst[mid] < ls) {
           lo = mid + 1;
         } else {
           hi = mid;
@@ -1148,6 +1273,51 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       } else {
         __syncthreads();
       }
+      if constexpr (SH) {
+        // E0: the shards' identity minima, domain sums and presence flags
+        T lm[MAXC];
+        for (int k = 0; k < MAXC; ++k) lm[k] = INF;
+        for (int k = 0; sp_f && k < a.KC; ++k) {
+          if (fkey[k] >= 0) lm[k] = split ? lmin[k] : block_reduce(lmin[k], INF, MinOp());
+        }
+        const int64_t nd = nslot * cap;
+        if (b == 0) {
+          char* my = mslot((int)a.shard, ex);
+          if (tid == 0) {
+            for (int k = 0; k < MAXC; ++k) ((T*)(my + XT_OFF))[k] = lm[k];
+          }
+          T* vs = (T*)(my + XV_OFF);
+          int* vf = (int*)(vs + nd);
+          for (int64_t j = tid; j < nd; j += blockDim.x) {
+            vs[j] = dom_sum[j];
+            vf[j] = dom_flag[j];
+          }
+          mpublish();
+        }
+        mwait();
+        for (int q = 0; q < S_SH; ++q) {
+          const T* xt = (const T*)(mslot(q, ex) + XT_OFF);
+          for (int k = 0; sp_f && k < a.KC; ++k) {
+            const T v = __ldcv(xt + k);
+            if (fkey[k] >= 0) lmin[k] = q == 0 || v < lmin[k] ? v : lmin[k];
+          }
+        }
+        if (b == 0) {
+          for (int64_t j = tid; j < nd; j += blockDim.x) {
+            T sum = T(0);
+            int f = 0;
+            for (int q = 0; q < S_SH; ++q) {
+              const T* vs = (const T*)(mslot(q, ex) + XV_OFF);
+              sum = sum + __ldcv(vs + j);
+              f |= __ldcv((const int*)(vs + nd) + j);
+            }
+            dom_sum[j] = sum;
+            dom_flag[j] = f;
+          }
+        }
+        ++ex;
+        csync();
+      }
       if (sp_f) {
         for (int k = 0; k < a.KC; ++k) {
           if (fkey[k] < 0) continue;
@@ -1179,6 +1349,13 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
 
     // ---- pass 1: filters, rotated prefix sum, sampling ----------------
     int run = 0;
+    // the shard mode samples once every shard's counts are known: the
+    // cluster's per-node counts are kept (srank, or the masked mode scans
+    // again), and each thread counts its feasible nodes in the shard's
+    // first run (its nodes of id >= start: the first HI of its visit order)
+    const bool defer = split || SH;
+    const int HI = MASKED ? m_true - p0 : nts - ls;
+    int hic = 0;
     int kth_rank = -1;
     int c_hi = 0;  // sampled nodes of id >= start (in-step compaction)
     int n_fni = 0;  // sampled nodes with every score key
@@ -1199,8 +1376,9 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       }
       fl[n] = (uint8_t)(feas | (samp ? 2 : 0));
       const int64_t tcell = (int64_t)tol * a.T_cols + a.node_taint_idx[n];
-      const T vt = samp ? (MASKED ? pf_tp : T(a.taint_prefer_cls[tcell])) : T(0);
-      const T va = samp ? (MASKED ? pf_ap : T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + a.node_label_idx[n]])) : T(0);
+      // (a deferred masked sample reads the tables: pf_ holds another row)
+      const T vt = samp ? (MASKED && !SH ? pf_tp : T(a.taint_prefer_cls[tcell])) : T(0);
+      const T va = samp ? (MASKED && !SH ? pf_ap : T(a.aff_pref_cls[(int64_t)prefi * a.MP_cols + a.node_label_idx[n]])) : T(0);
       mx_taint = vt > mx_taint ? vt : mx_taint;
       mx_aff = va > mx_aff ? va : mx_aff;
       if (samp && ipa_scored) {
@@ -1262,7 +1440,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
               break;
             }
             case F_NAME:
-              code = (tgt == -1 || tgt == n) ? 0 : 1;
+              code = (tgt == -1 || tgt == off + n) ? 0 : 1;
               break;
             case F_TAINT: {
               const int tf = MASKED ? pf_tf : a.taint_cls[(int64_t)tol * a.T_cols + ntaint];
@@ -1379,8 +1557,8 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
         }
         feas = ok ? 1 : 0;
         if (writes) {
-          a.fail_plug[i * N + n] = (int8_t)plug;
-          a.fail_code[i * N + n] = fcode;
+          a.fail_plug[i * NT + off + n] = (int8_t)plug;
+          a.fail_code[i * NT + off + n] = fcode;
         }
         if (meta && fcode > code_mx) code_mx = fcode;
         if (ipa_scored) {
@@ -1394,33 +1572,84 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       }
       int tile_total;
       const int c_tile = block_scan(feas, &tile_total);
-      if (split) {
-        // sampled once the cluster's counts before this tile are known
+      if (defer) {
+        // sampled once the cluster's (and the shards') counts before this
+        // tile are known
         if (q < QN) {
-          srank[n] = c_tile;
+          if (!MASKED) srank[n] = c_tile;
           fl[n] = (uint8_t)feas;
+          if (feas && q < HI) ++hic;
         }
-        if (tid == 0) cx.tile_feas[tile] = tile_total;
+        if (!MASKED && tid == 0) cx.tile_feas[tile] = tile_total;
+        if (MASKED) run += tile_total;
       } else {
         const int c = run + c_tile;
         run += tile_total;
         if (q < QN) sample(r, n, feas, c, ip_raw);
       }
     }
-    if (split) {
+    if (defer) {
       // tile t (rank order) is block t % C's (t / C)-th: its feasible count,
       // exclusive-scanned over the cluster's tiles
-      cluster_sync();
-      const int ntiles = (int)((N + TPB - 1) / TPB);
-      const int v = tid < ntiles ? at_rank(&cx, tid % B)->tile_feas[tid / B] : 0;
-      const int incl = block_scan(v, &run);
-      if (tid < ntiles) tile_off[tid] = incl - v;
-      __syncthreads();
-      for (int64_t base = T0; base < N; base += TSTEP) {
-        const int r = (int)(base + tid);
-        if (r >= N) continue;
-        const int n = r < nt ? (start + r) % nt : r;
-        sample(r, n, fl[n] & 1, tile_off[base / TPB] + srank[n], ipa_scored ? ipraw[n] : T(0));
+      const int hic_b = SH ? block_reduce(hic, 0, SumOp()) : 0;
+      if (tid == 0) cx.hi_cnt = hic_b;
+      if (split) {
+        cluster_sync();
+      } else {
+        __syncthreads();
+      }
+      if constexpr (!MASKED) {
+        const int ntiles = (int)((N + TPB - 1) / TPB);
+        const int v = tid < ntiles ? (split ? at_rank(&cx, tid % B) : &cx)->tile_feas[tid / B] : 0;
+        const int incl = block_scan(v, &run);
+        if (tid < ntiles) tile_off[tid] = incl - v;
+        __syncthreads();
+      }
+      // E1: each shard's feasible nodes in its two runs; a node's count in
+      // the global visit order is the earlier shards' first runs, or every
+      // first run and the earlier shards' second runs, plus its own
+      int base_hi = 0, base_lo = 0;
+      if constexpr (SH) {
+        const int hi = split ? block_reduce(tid < B ? at_rank(&cx, tid)->hi_cnt : 0, 0, SumOp()) : hic_b;
+        if (b == 0) {
+          if (tid == 0) {
+            int* xi = (int*)mslot((int)a.shard, ex);
+            xi[0] = hi;
+            xi[1] = run - hi;
+          }
+          mpublish();
+        }
+        mwait();
+        int tot_hi = 0, tot_lo = 0, pre_lo = 0;
+        for (int q = 0; q < S_SH; ++q) {
+          const int* xi = (const int*)mslot(q, ex);
+          const int h = __ldcv(xi), l = __ldcv(xi + 1);
+          if (q < a.shard) {
+            base_hi += h;
+            pre_lo += l;
+          }
+          tot_hi += h;
+          tot_lo += l;
+        }
+        ++ex;
+        base_lo = tot_hi + pre_lo - hi;
+        run = tot_hi + tot_lo;
+      }
+      int seen = 0;  // the masked mode's count before the tile
+      for (int64_t base = T0, tile = 0; base < QN; base += TSTEP, ++tile) {
+        const int64_t q = base + tid;
+        int r = 0, n = 0, c = 0;
+        if (q < QN) visit(q, r, n);
+        if constexpr (MASKED) {
+          int tt;
+          c = seen + block_scan(q < QN ? fl[n] & 1 : 0, &tt);
+          seen += tt;
+        } else if (q < QN) {
+          c = tile_off[base / TPB] + srank[n];
+        }
+        if (q >= QN) continue;
+        if (SH) c += q < HI ? base_hi : base_lo;
+        sample(r, n, fl[n] & 1, c, ipa_scored ? ipraw[n] : T(0));
       }
     }
     const int total = run;
@@ -1520,6 +1749,53 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       ip_mn = cx.out_t[2];
       ip_mx = cx.out_t[3];
     }
+    if constexpr (SH) {
+      // E2: the k-th feasible rank, the sampled nodes with every score key,
+      // c_hi, the sampling extrema and the sampled domains' flags
+      if (!split && !MASKED && sp_s) n_fni = block_reduce(n_fni, 0, SumOp());
+      const int64_t nf = sp_s ? a.KS * cap : 0;
+      int* sflag = dom_flag + a.KC * cap;
+      if (b == 0) {
+        char* my = mslot((int)a.shard, ex);
+        if (tid == 0) {
+          int* xi = (int*)my;
+          xi[0] = kth_rank;
+          xi[1] = n_fni;
+          xi[2] = c_hi;
+          T* xt = (T*)(my + XT_OFF);
+          xt[0] = mx_taint;
+          xt[1] = mx_aff;
+          xt[2] = ip_mn;
+          xt[3] = ip_mx;
+        }
+        for (int64_t j = tid; j < nf; j += blockDim.x) ((int*)(my + XV_OFF))[j] = sflag[j];
+        mpublish();
+      }
+      mwait();
+      n_fni = 0;
+      for (int q = 0; q < S_SH; ++q) {
+        const char* x = mslot(q, ex);
+        const int k2 = __ldcv((const int*)x), f2 = __ldcv((const int*)x + 1), h2 = __ldcv((const int*)x + 2);
+        const T* xt = (const T*)(x + XT_OFF);
+        const T t2 = __ldcv(xt), a2 = __ldcv(xt + 1), n2 = __ldcv(xt + 2), m2 = __ldcv(xt + 3);
+        kth_rank = k2 > kth_rank ? k2 : kth_rank;
+        n_fni += f2;
+        c_hi = h2 > c_hi ? h2 : c_hi;
+        mx_taint = t2 > mx_taint ? t2 : mx_taint;
+        mx_aff = a2 > mx_aff ? a2 : mx_aff;
+        ip_mn = n2 < ip_mn ? n2 : ip_mn;
+        ip_mx = m2 > ip_mx ? m2 : ip_mx;
+      }
+      if (b == 0) {
+        for (int64_t j = tid; j < nf; j += blockDim.x) {
+          int f = 0;
+          for (int q = 0; q < S_SH; ++q) f |= __ldcv((const int*)(mslot(q, ex) + XV_OFF) + j);
+          sflag[j] = f;
+        }
+      }
+      ++ex;
+      if (sp_s) csync();
+    }
     const int processed = total >= K ? kth_rank + 1 : nt;
     const int n_samp = total < K ? total : K;
     const int count = n_samp * (active ? 1 : 0);
@@ -1529,7 +1805,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
     if (sp_s) {
       // topology size: sampled nodes (identity key) or sampled domains (a
       // cluster's and the masked mode's n_fni is already its total)
-      if (!split && !MASKED) n_fni = block_reduce(n_fni, 0, SumOp());
+      if (!split && !MASKED && !SH) n_fni = block_reduce(n_fni, 0, SumOp());
       for (int k = 0; k < a.KS; ++k) {
         if (skey[k] < 0) continue;
         int tsize = n_fni;
@@ -1546,7 +1822,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       for (int64_t base = T0; base < QN; base += TSTEP) {
         const int64_t r = base + tid;
         if (r >= QN) continue;
-        const int64_t n = MASKED ? lst[r] : !CL || r >= nt ? r : (start + r) % nt;
+        const int64_t n = MASKED ? lst[r] : !CL ? r : loc(r);
         const bool all_keys = has_all_keys(a, skey, n);
         T raw_f = T(0);
         for (int k = 0; k < a.KS; ++k) {
@@ -1590,6 +1866,25 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
         __syncthreads();
         sp_mn = cx.out_t[0];
         sp_mx = cx.out_t[1];
+      }
+      if constexpr (SH) {
+        // E3: the spread score's extrema over every shard's sampled nodes
+        if (b == 0) {
+          if (tid == 0) {
+            T* xt = (T*)(mslot((int)a.shard, ex) + XT_OFF);
+            xt[0] = sp_mn;
+            xt[1] = sp_mx;
+          }
+          mpublish();
+        }
+        mwait();
+        for (int q = 0; q < S_SH; ++q) {
+          const T* xt = (const T*)(mslot(q, ex) + XT_OFF);
+          const T mn = __ldcv(xt), mx = __ldcv(xt + 1);
+          sp_mn = mn < sp_mn ? mn : sp_mn;
+          sp_mx = mx > sp_mx ? mx : sp_mx;
+        }
+        ++ex;
       }
     }
 
@@ -1645,8 +1940,8 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
             }
           }
           if (writes && ws0 == 0) {
-            ((T*)a.raw[k])[i * N + n] = raw;
-            ((T*)a.norm[k])[i * N + n] = nrm;
+            ((T*)a.raw[k])[i * NT + off + n] = raw;
+            ((T*)a.norm[k])[i * NT + off + n] = nrm;
           } else if (writes && samp) {
             // rank in ascending node id among the sampled nodes
             const int rank = srank[n] - 1;
@@ -1677,14 +1972,14 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
         } else {
           best = masked > best ? masked : best;
         }
-        if (writes && ws0 == 0) a.feasible[i * N + n] = samp ? 1 : 0;
+        if (writes && ws0 == 0) a.feasible[i * NT + off + n] = samp ? 1 : 0;
       }
     }
     if (ws0 > 0) {
       // the compacted rows past the sampled nodes are zero (each block its
       // stretches of them), and hold a masked (zero) column for the meta
       // when the pod's count is below ws0
-      for (int64_t j = n_samp + i0; writes && j < ws0; j += istep) {
+      for (int64_t j = n_samp + i0; writes && (!SH || a.shard == 0) && j < ws0; j += istep) {
         for (int k = 0; k < a.ns; ++k) {
           ((T*)a.raw[k])[i * ws0 + j] = T(0);
           ((T*)a.norm[k])[i * ws0 + j] = T(0);
@@ -1773,18 +2068,75 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
 
     // ---- pass 3: selection ----------------------------------------------
     // (in a cluster, the block whose rank tile holds the selected node
-    // commits it and writes the pod's packed row; block 0 when none is)
+    // commits it and writes the pod's packed row; block 0 when none is; in
+    // the shard mode, of the shard that holds it)
     int sel_node = -1;
     int committer = 0;
+    int own_q = -1;  // the shard mode: the shard that holds the selected node
+    const uint32_t counter = (uint32_t)((uint64_t)a.tb_base + (uint64_t)i);
+    const uint32_t draw = mix32((uint32_t)a.seed_mix ^ mix32(counter));
+    // E4a (the reservoir): the best total over the shards
+    auto shard_best_total = [&]() {
+      if constexpr (SH) {
+        if (b == 0) {
+          if (tid == 0) ((T*)(mslot((int)a.shard, ex) + XT_OFF))[0] = best;
+          mpublish();
+        }
+        mwait();
+        for (int q = 0; q < S_SH; ++q) {
+          const T v = __ldcv((const T*)(mslot(q, ex) + XT_OFF));
+          best = v > best ? v : best;
+        }
+        ++ex;
+      }
+    };
+    // E4b (the reservoir): each shard's ties in its two runs; the draw over
+    // the global count picks the k-th tie in visit order: returns its index
+    // among this shard's ties in the shard's visit order, or -1 where
+    // another shard (own_q) holds it
+    auto shard_ties = [&](int hi, int all) -> int {
+      if (b == 0) {
+        if (tid == 0) {
+          int* xi = (int*)mslot((int)a.shard, ex);
+          xi[0] = hi;
+          xi[1] = all - hi;
+        }
+        mpublish();
+      }
+      mwait();
+      int tot_hi = 0, tot_lo = 0;
+      for (int q = 0; q < S_SH; ++q) {
+        const int* xi = (const int*)mslot(q, ex);
+        tot_hi += __ldcv(xi);
+        tot_lo += __ldcv(xi + 1);
+      }
+      const int t_count = tot_hi + tot_lo;
+      const int kk = (int)(draw % (uint32_t)(t_count > 1 ? t_count : 1));
+      int acc = kk < tot_hi ? 0 : tot_hi, lk = -1;
+      for (int q = 0; q < S_SH && t_count > 0; ++q) {
+        const int* xi = (const int*)mslot(q, ex);
+        const int h = __ldcv(xi), l = __ldcv(xi + 1);
+        const int mine = kk < tot_hi ? h : l;
+        if (kk < acc + mine) {
+          own_q = q;
+          lk = (kk < tot_hi ? 0 : h) + kk - acc;
+          break;
+        }
+        acc += mine;
+      }
+      ++ex;
+      return own_q == a.shard ? lk : -1;
+    };
     if (!a.reservoir) {
       // first tied maximum in visit order = minimal visit rank (the masked
       // mode's came with the best total)
       int best_rank = best_r;
       if constexpr (!MASKED) {
         for (int64_t base = T0; base < N; base += TSTEP) {
-          const int r = (int)(base + tid);
-          if (r < N) {
-            const int n = r < nt ? (start + r) % nt : r;
+          const int64_t q = base + tid;
+          if (q < N) {
+            const int n = loc(q);
+            const int r = SH ? grank(n) : (int)q;
             if ((fl[n] & 2) && tot[n] == best && r < best_rank) best_rank = r;
           }
         }
@@ -1812,32 +2164,73 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
         __syncthreads();
         best = cx.out_t[0];
         best_rank = cx.out_i[0];
-        if (best_rank != 0x7fffffff) {
-          // the owner of the node's rank tile, in this pod or the next
-          int rk = best_rank;
-          if (!commit_sync && best_rank < nt) {
-            const int nstart = active ? (start + processed) % nt : start;
-            rk = ((start + best_rank) % nt - nstart + nt) % nt;
+      }
+      if constexpr (SH) {
+        // E4: the best (total, rank) over the shards
+        if (b == 0) {
+          if (tid == 0) {
+            char* my = mslot((int)a.shard, ex);
+            ((T*)(my + XT_OFF))[0] = best;
+            ((int*)my)[0] = best_rank;
           }
-          committer = (rk / TPB) % B;
+          mpublish();
+        }
+        mwait();
+        for (int q = 0; q < S_SH; ++q) {
+          const char* x = mslot(q, ex);
+          const T v = __ldcv((const T*)(x + XT_OFF));
+          const int vr = __ldcv((const int*)x);
+          if (v > best || (v == best && vr < best_rank)) {
+            best = v;
+            best_rank = vr;
+          }
+        }
+        ++ex;
+      }
+      if (best_rank != 0x7fffffff) {
+        const int g = best_rank < nt ? (start + best_rank) % nt : best_rank;
+        if (SH) {
+          own_q = g / (int)N;
+          if (own_q == a.shard) {
+            const int n = g - off;
+            committer = ((n < nts ? (n - ls + nts) % nts : n) / TPB) % B;
+            sel_node = n;
+          }
+        } else {
+          if (split) {
+            // the owner of the node's rank tile, in this pod or the next
+            int rk = best_rank;
+            if (!commit_sync && best_rank < nt) {
+              const int nstart = active ? (start + processed) % nt : start;
+              rk = ((start + best_rank) % nt - nstart + nt) % nt;
+            }
+            committer = (rk / TPB) % B;
+          }
+          sel_node = g;
         }
       }
-      if (best_rank != 0x7fffffff) sel_node = best_rank < nt ? (start + best_rank) % nt : best_rank;
     } else if (!split) {
       // k-th tied maximum in visit order, k from the counter-keyed draw
-      int tied_cnt = 0;
+      shard_best_total();
+      int tied_cnt = 0, tied_hi = 0;
       for (int64_t base = 0; base < QN; base += blockDim.x) {
         const int64_t q = base + tid;
         if (q < QN) {
           int r, n;
           visit(q, r, n);
-          if ((fl[n] & 2) && tot[n] == best) ++tied_cnt;
+          if ((fl[n] & 2) && tot[n] == best) {
+            ++tied_cnt;
+            if (q < HI) ++tied_hi;
+          }
         }
       }
       const int t_count = block_reduce(tied_cnt, 0, SumOp());
-      const uint32_t counter = (uint32_t)((uint64_t)a.tb_base + (uint64_t)i);
-      const uint32_t draw = mix32((uint32_t)a.seed_mix ^ mix32(counter));
-      const int kk = (int)(draw % (uint32_t)(t_count > 1 ? t_count : 1));
+      int kk;
+      if constexpr (SH) {
+        kk = shard_ties(block_reduce(tied_hi, 0, SumOp()), t_count);
+      } else {
+        kk = (int)(draw % (uint32_t)(t_count > 1 ? t_count : 1));
+      }
       int seen = 0;
       int pick = -1;
       for (int64_t base = 0; base < QN; base += blockDim.x) {
@@ -1867,15 +2260,22 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       }
       __syncthreads();
       best = cx.out_t[0];
+      shard_best_total();
+      int thi = 0;
       for (int64_t base = T0, tile = 0; base < N; base += TSTEP, ++tile) {
-        const int r = (int)(base + tid);
+        const int64_t q = base + tid;
         int tied = 0;
-        if (r < N) {
-          const int n = r < nt ? (start + r) % nt : r;
+        if (q < N) {
+          const int n = loc(q);
           tied = ((fl[n] & 2) && tot[n] == best) ? 1 : 0;
+          if (tied && q < HI) ++thi;
         }
         const int t_tied = block_reduce(tied, 0, SumOp());
         if (tid == 0) cx.tile_tied[tile] = t_tied;
+      }
+      if (SH) {
+        thi = block_reduce(thi, 0, SumOp());
+        if (tid == 0) cx.hi_cnt = thi;
       }
       cluster_sync();
       const int ntiles = (int)((N + TPB - 1) / TPB);
@@ -1883,17 +2283,20 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       int t_count;
       const int incl = block_scan(v, &t_count);
       if (tid < ntiles) tile_off[tid] = incl - v;
-      const uint32_t counter = (uint32_t)((uint64_t)a.tb_base + (uint64_t)i);
-      const uint32_t draw = mix32((uint32_t)a.seed_mix ^ mix32(counter));
-      const int kk = (int)(draw % (uint32_t)(t_count > 1 ? t_count : 1));
-      const int t_sel = block_reduce(v > 0 && incl - v <= kk && kk < incl ? tid : -1, -1, MaxOp());
+      int kk;
+      if constexpr (SH) {
+        kk = shard_ties(block_reduce(tid < B ? at_rank(&cx, tid)->hi_cnt : 0, 0, SumOp()), t_count);
+      } else {
+        kk = (int)(draw % (uint32_t)(t_count > 1 ? t_count : 1));
+      }
+      const int t_sel = block_reduce(kk >= 0 && v > 0 && incl - v <= kk && kk < incl ? tid : -1, -1, MaxOp());
       if (t_sel >= 0) {
         committer = t_sel % B;
         if (b == committer) {
-          const int r = t_sel * TPB + tid;
+          const int64_t q = (int64_t)t_sel * TPB + tid;
           int tied = 0, n = -1;
-          if (r < N) {
-            n = r < nt ? (start + r) % nt : r;
+          if (q < N) {
+            n = loc(q);
             tied = ((fl[n] & 2) && tot[n] == best) ? 1 : 0;
           }
           int tile_total;
@@ -1904,6 +2307,23 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
     }
     const int sel = count > 0 ? sel_node : -1;
     const bool commits = !CL || b == committer;
+    // E5: the selected node's gdom column, from its shard to every shard's
+    // copy of InterPodAffinity's rows (written by the block that knows the
+    // node, published by block 0 after the cluster's barrier)
+    const int* gcol = nullptr;
+    if constexpr (SH) {
+      if (ipa && count > 0) {
+        if (sel >= 0 && commits) {
+          int* col = (int*)(mslot((int)a.shard, ex) + XV_OFF);
+          for (int64_t g = tid; g < a.G; g += blockDim.x) col[g] = a.gdom[g * N + sel];
+        }
+        csync();
+        if (b == 0) mpublish();
+        mwait();
+        gcol = (const int*)(mslot(own_q, ex) + XV_OFF);
+        ++ex;
+      }
+    }
 
     // ---- K2g: this pod's term of the residual M --------------------------
     // each node's owner adds pnz_j s[n] (norm_k[n] - nbar_k) to M[j,k,n],
@@ -1982,12 +2402,14 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
         spc[s * N + sel] = spc[s * N + sel] + ((const T*)a.spread_match)[s * a.Psrc + i];
       }
     }
-    if (sel >= 0 && ipa && commits) {
+    // (the shard mode: every shard's committer, through the column)
+    auto gdom_sel = [&](int64_t g) -> int { return SH ? __ldcv(gcol + g) : a.gdom[g * N + sel]; };
+    if ((SH ? count > 0 : sel >= 0) && ipa && commits) {
       // one thread per group row of ip_sel; ip_own and ip_anti, whose
       // terms may repeat a cell, on thread 0 in the reference's order
       // a node without the group's key commits to the sink column D
       for (int64_t g = tid; g < a.G; g += blockDim.x) {
-        const int d = a.gdom[g * N + sel];
+        const int d = gdom_sel(g);
         const int64_t cell = g * (a.D + 1) + (d >= 0 ? d : a.D);
         isel[cell] = isel[cell] + ((const T*)a.term_match)[g * a.Psrc + i];
       }
@@ -1995,22 +2417,26 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
         for (int c = 0; c < a.KO; ++c) {
           const int g = owng[c];
           if (g < 0) continue;
-          const int d = a.gdom[(int64_t)g * N + sel];
+          const int d = gdom_sel(g);
           const int64_t cell = (int64_t)g * (a.D + 1) + (d >= 0 ? d : a.D);
           iown[cell] = iown[cell] + ownw[c];
         }
         for (int c = 0; c < a.KB; ++c) {
           const int g = antig[c];
           if (g < 0) continue;
-          const int d = a.gdom[(int64_t)g * N + sel];
+          const int d = gdom_sel(g);
           const int64_t cell = (int64_t)g * (a.D + 1) + (d >= 0 ? d : a.D);
           ianti[cell] = ianti[cell] + T(1);
         }
       }
     }
     zero_domains();
-    if ((CL ? b == committer : owner) && tid == 0) {
-      packed[0 * P + i] = sel;
+    // (the shard mode: the selected node's committer, or shard 0's block 0
+    // for a pod that binds nowhere)
+    const bool writer = SH ? (sel >= 0 ? b == committer : count <= 0 && a.shard == 0 && b == 0)
+                           : (CL ? b == committer : owner);
+    if (writer && tid == 0) {
+      packed[0 * P + i] = sel >= 0 ? off + sel : -1;
       packed[1 * P + i] = count;
       packed[2 * P + i] = start;
       packed[3 * P + i] = processed;
@@ -2026,6 +2452,7 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
       __syncthreads();
     }
   }
+  if (SH && b == 0 && tid == 0 && a.xwait != nullptr) a.xwait[lane * S_SH + a.shard] = (int64_t)x_ns;
   // the trace meta: each block's (block 0's of the redundant chains) into
   // rank 0's slots, read there after the barrier below
   if (meta) {
@@ -2046,8 +2473,10 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
   // the final carries: block 0's copy, or a cluster's one copy by all its
   // blocks
   if (!CL && b != 0) return;
-  for (int64_t i = i0; i < P; i += istep) packed[4 * P + i] = start;
-  if (b == 0 && tid == 0) a.final_start[lane] = start;
+  // (the whole axis's, written by shard 0)
+  const bool first_shard = !SH || a.shard == 0;
+  for (int64_t i = i0; first_shard && i < P; i += istep) packed[4 * P + i] = start;
+  if (first_shard && b == 0 && tid == 0) a.final_start[lane] = start;
   // this lane's slices of the final carries
   T* f_req = (T*)a.final_requested + lane * N * R;
   T* f_nz = (T*)a.final_nonzero + lane * N * 2;
@@ -2085,22 +2514,75 @@ __global__ void __launch_bounds__(TPB, 1) scan_kernel(const ScanArgs a) {
     f_iown[j] = ipa ? iown[j] : ((const T*)a.ip_own0)[j];
     f_ianti[j] = ipa ? ianti[j] : ((const T*)a.ip_anti0)[j];
   }
-  if (!trace || b != 0 || tid != 0) return;
-  // min and max are exact in any order
+  if (!trace || b != 0) return;
+  // min and max are exact in any order; the shard mode's clusters combine
+  // theirs through the mailbox (E6), shard 0 writes
   const int nb = CL ? B : 1;
-  for (int k = 0; k < a.ns; ++k) {
-    T mn = cx.m_mn[0][k], mx = cx.m_mx[0][k];
-    for (int q = 1; q < nb; ++q) {
-      mn = cx.m_mn[q][k] < mn ? cx.m_mn[q][k] : mn;
-      mx = cx.m_mx[q][k] > mx ? cx.m_mx[q][k] : mx;
+  T mn[MAXS], mx[MAXS];
+  int cm = 0;
+  if (tid == 0) {
+    for (int k = 0; k < a.ns; ++k) {
+      mn[k] = cx.m_mn[0][k];
+      mx[k] = cx.m_mx[0][k];
+      for (int q = 1; q < nb; ++q) {
+        mn[k] = cx.m_mn[q][k] < mn[k] ? cx.m_mn[q][k] : mn[k];
+        mx[k] = cx.m_mx[q][k] > mx[k] ? cx.m_mx[q][k] : mx[k];
+      }
     }
-    a.trace_meta[2 * k] = (int32_t)mn;
-    a.trace_meta[2 * k + 1] = (int32_t)mx;
+    cm = cx.m_code[0];
+    for (int q = 1; q < nb; ++q) cm = cx.m_code[q] > cm ? cx.m_code[q] : cm;
   }
-  int cm = cx.m_code[0];
-  for (int q = 1; q < nb; ++q) cm = cx.m_code[q] > cm ? cx.m_code[q] : cm;
+  if constexpr (SH) {
+    if (tid == 0) {
+      char* my = mslot((int)a.shard, ex);
+      ((int*)my)[0] = cm;
+      for (int k = 0; k < a.ns; ++k) {
+        ((T*)(my + XT_OFF))[2 * k] = mn[k];
+        ((T*)(my + XT_OFF))[2 * k + 1] = mx[k];
+      }
+    }
+    mpublish();
+    if (a.shard != 0) return;
+    mwait();
+    if (tid == 0) {
+      for (int q = 1; q < S_SH; ++q) {
+        const char* x = mslot(q, ex);
+        const int c2 = __ldcv((const int*)x);
+        cm = c2 > cm ? c2 : cm;
+        for (int k = 0; k < a.ns; ++k) {
+          const T n2 = __ldcv((const T*)(x + XT_OFF) + 2 * k), m2 = __ldcv((const T*)(x + XT_OFF) + 2 * k + 1);
+          mn[k] = n2 < mn[k] ? n2 : mn[k];
+          mx[k] = m2 > mx[k] ? m2 : mx[k];
+        }
+      }
+    }
+  }
+  if (tid != 0) return;
+  for (int k = 0; k < a.ns; ++k) {
+    a.trace_meta[2 * k] = (int32_t)mn[k];
+    a.trace_meta[2 * k + 1] = (int32_t)mx[k];
+  }
   a.trace_meta[2 * a.ns] = 0;
   a.trace_meta[2 * a.ns + 1] = a.nf > 0 ? cm : 0;
+}
+
+template <typename T, bool TOPO, bool VOL, int MODE, int TPB>
+__global__ void __launch_bounds__(TPB, 1) scan_kernel(const __grid_constant__ ScanArgs a) {
+  scan_body<T, TOPO, VOL, MODE, TPB, false>(a);
+}
+
+// the shard mode: `shards` holds the ScanArgs of the shards this launch
+// runs (this card's), a block's on the grid's y axis (x in the masked mode,
+// whose y is the lane); each block copies its shard's into shared memory
+template <typename T, bool TOPO, bool VOL, int MODE, int TPB>
+__global__ void __launch_bounds__(TPB, 1) scan_shard_kernel(const ScanArgs* shards) {
+  __shared__ ScanArgs sa;
+  const ScanArgs* src = shards + (MODE == MODE_MASKED ? blockIdx.x : blockIdx.y);
+  for (int j = threadIdx.x; j < (int)(sizeof(ScanArgs) / 8); j += TPB) {
+    ((int64_t*)&sa)[j] = ((const int64_t*)src)[j];
+  }
+  __syncthreads();
+  scan_body<T, TOPO, VOL, MODE, TPB, true>(sa);
 }
 
 // The modes build as five libraries, so their nvcc runs go in parallel:
@@ -2201,6 +2683,116 @@ int launch(const ScanArgs* a, int64_t blocks, void* stream) {
   const size_t smem = a->dom_smem ? (size_t)((a->KC + a->KS) * a->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
   if (a->use_spread_f || a->use_spread_s || a->use_ipa || a->SG > 0) return (int)launch_topo<T, true>(a, blocks, smem, stream);
   return (int)launch_topo<T, false>(a, blocks, 0, stream);
+}
+
+// ---- the shard mode's launch (csrc/scan_shard_*.cu) -----------------------
+// One launch on one card for the n_local shards it holds: `h` their
+// ScanArgs on the host (for the checks), `d` the same on the card, or null
+// for the checks alone (the wrapper checks every card before it launches
+// on any).  The shards' waits on each other's mailbox flags end only if
+// every shard is resident at once, so a launch whose clusters (masked:
+// blocks) the card cannot hold together is refused before it starts, with
+// RC_NOT_RESIDENT.
+constexpr int RC_NOT_RESIDENT = 1000;
+// the first card's mailbox and outputs mapped into another card's
+// address space: RC_NO_PEER where the cards cannot reach each other
+constexpr int RC_NO_PEER = 1001;
+
+[[maybe_unused]] int shard_peer(int64_t dev, int64_t peer) {
+  int prev = 0, can = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e == cudaSuccess) e = cudaDeviceCanAccessPeer(&can, (int)dev, (int)peer);
+  if (e != cudaSuccess) return (int)e;
+  if (!can) return RC_NO_PEER;
+  e = cudaSetDevice((int)dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess((int)peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      (void)cudaGetLastError();
+      e = cudaSuccess;
+    }
+  }
+  const cudaError_t r = cudaSetDevice(prev);
+  return (int)(e != cudaSuccess ? e : r);
+}
+
+// The shard mode builds one kernel a dtype (a block width, masked): the
+// topology and volume gates on, each plugin then gated by its flag at run
+// time, as in the unsharded kernel's narrower instances, with the same
+// bits; it keeps the three shard libraries' nvcc runs short.
+template <typename T, int TPB>
+cudaError_t shard_masked(const ScanArgs* h, const ScanArgs* d, int64_t n_local, size_t smem, void* stream) {
+  auto kern = scan_shard_kernel<T, true, true, MODE_MASKED, TPB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TPB, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if ((int64_t)per_sm * sms < n_local * h->lanes) return (cudaError_t)RC_NOT_RESIDENT;
+  if (d == nullptr) return cudaSuccess;
+  kern<<<dim3((unsigned)n_local, (unsigned)h->lanes), TPB, smem, (cudaStream_t)stream>>>(d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t shard_clusters(const ScanArgs* d, int64_t n_local, int64_t blocks, size_t smem, void* stream) {
+  auto kern = scan_shard_kernel<T, true, true, LIB_MODE, THREADS>;
+  if (blocks > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)n_local);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < n_local) return (cudaError_t)RC_NOT_RESIDENT;
+  if (d == nullptr) return cudaSuccess;
+  return cudaLaunchKernelEx(&cfg, kern, d);
+}
+
+template <typename T>
+int launch_shard(const ScanArgs* h, const ScanArgs* d, int64_t n_local, int64_t blocks, void* stream) {
+  // two shards at least, one lane a cluster launch (the masked mode's lanes
+  // on y), the trace as the library's, no grad mode
+  if (h->shards < 2 || n_local < 1 || n_local > h->shards || h->grad || h->ns > MAXS || h->lanes < 1 ||
+      h->lanes > 65535 || (LIB_MODE != MODE_MASKED && h->lanes != 1) || h->mbox == nullptr ||
+      h->slot_bytes < XV_OFF || (h->trace != 0) != (LIB_MODE == MODE_TRACE)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if constexpr (LIB_MODE == MODE_MASKED) {
+    if (h->cluster != 1 || blocks != 1 || h->ws0 != 0 || 2 + h->R > h->tile) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)masked_smem(*h, sizeof(T)).total;
+    switch (h->tile) {
+      case 64: return (int)shard_masked<T, 64>(h, d, n_local, smem, stream);
+      case 256: return (int)shard_masked<T, 256>(h, d, n_local, smem, stream);
+      case 512: return (int)shard_masked<T, 512>(h, d, n_local, smem, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    if (h->cluster != blocks || blocks < 1 || blocks > MAXCL ||
+        (blocks > 1 && (h->N + THREADS - 1) / THREADS > THREADS)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const bool topo = h->use_spread_f || h->use_spread_s || h->use_ipa || h->SG > 0;
+    const size_t smem =
+        topo && h->dom_smem ? (size_t)((h->KC + h->KS) * h->dom_cap) * (sizeof(T) + sizeof(int)) : 0;
+    return (int)shard_clusters<T>(d, n_local, blocks, smem, stream);
+  }
 }
 
 }  // namespace

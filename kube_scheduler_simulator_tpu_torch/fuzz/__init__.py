@@ -11,8 +11,9 @@ package's ``fuzz/``) is the engine that drives it:
   through independent paths (batch vs sequential oracle, streamed vs
   serial, sharded vs single-device) with the full annotation trail
   diffed byte-for-byte; counted exactness-gate drains are explained
-  routing, any byte mismatch is a divergence (the sharded comparisons
-  raise :class:`ShardNotPorted`);
+  routing, any byte mismatch is a divergence (the sharded comparison on
+  a two-shard mesh; the streamed one over a mesh raises
+  :class:`ShardNotPorted`);
 - :mod:`fuzz.shrink` — deterministic minimization of diverging
   scenarios down to committed ``fuzz/fixtures/`` with exact expected
   bytes;

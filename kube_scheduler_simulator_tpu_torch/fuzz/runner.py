@@ -11,11 +11,13 @@ trail (:mod:`fuzz.verdict`):
   sequential cycle (``use_batch="off"``).
 - ``stream-vs-serial``: the same timeline as a continuously draining
   admission feed, streamed (overlapped pipeline) vs strictly serial.
-- ``shard-vs-single`` and ``shard-stream-vs-serial`` (the reference's
-  opt-in comparisons of a node axis sharded over two devices): not
-  ported; their roles raise :class:`ShardNotPorted` (ROADMAP.md, queue 1,
-  item 7b and 7c: the node axis sharded over ranks, then the stream over
-  it).
+- ``shard-vs-single`` (the reference's opt-in comparison of a node axis
+  sharded over two devices): the ``shard`` role runs on an explicit
+  two-shard ``NodeMesh`` of the harness's device (the port's CPU has one
+  device, where the reference's runs ``KSS_MESH_DEVICES=2`` over its
+  virtual CPU devices), against the single-device ``shard-base``.
+- ``shard-stream-vs-serial`` (the stream over a mesh): not ported; its
+  role raises :class:`ShardNotPorted` (ROADMAP.md, queue 1, item 7c).
 
 **Service reuse.**  A fresh service's first round encodes the cluster
 cold and fills the engine's caches, so a :class:`FuzzHarness` keeps one
@@ -56,9 +58,8 @@ EPILOGUE_ADVANCE_S = 330.0
 
 
 class ShardNotPorted(NotImplementedError):
-    """A ``shard`` or ``shard-stream`` role: sharding the node axis over
-    several devices is ROADMAP.md's queue 1, item 7b and 7c (ops/mesh.py
-    validates the mesh and refuses it)."""
+    """A ``shard-stream`` role: the stream over a node mesh is ROADMAP.md's
+    queue 1, item 7c."""
 
 
 class FuzzHarnessError(RuntimeError):
@@ -105,7 +106,8 @@ _ROLE_KW: dict[str, dict] = {
     "batch": {"use_batch": "auto", "batch_min_work": 0},
     "stream-on": {"use_batch": "auto", "batch_min_work": 0},
     "stream-off": {"use_batch": "auto", "batch_min_work": 0},
-    "shard": {"use_batch": "force", "batch_min_work": 0, "_mesh_devices": "2"},
+    # two shards of the harness's device (an explicit NodeMesh)
+    "shard": {"use_batch": "force", "batch_min_work": 0, "_mesh_shards": 2},
     "shard-base": {"use_batch": "force", "batch_min_work": 0},
     # the stream × mesh fusion: sharded engines on a STREAMED feed,
     # byte-diffed against the serial single-device projection of the
@@ -134,15 +136,18 @@ class FuzzHarness:
         return self._built[key]
 
     def _build(self, profile: str, role: str) -> tuple[Any, Any]:
+        from kube_scheduler_simulator_tpu_torch.ops.mesh import NodeMesh
         from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
         from kube_scheduler_simulator_tpu_torch.state.store import ClusterStore
 
         kw = dict(_ROLE_KW[role])
         if kw.pop("_mesh_devices", None) is not None:
             raise ShardNotPorted(
-                f"fuzz role {role!r} shards the node axis over two devices: not ported "
-                "(ROADMAP.md, queue 1, item 7b and 7c)"
+                f"fuzz role {role!r} streams over a node mesh: not ported (ROADMAP.md, queue 1, item 7c)"
             )
+        shards = kw.pop("_mesh_shards", None)
+        if shards is not None:
+            kw["mesh"] = NodeMesh((self.device,) * shards)
         store = ClusterStore(clock=SimClock(1_700_000_000.0))
         store.create("namespaces", {"metadata": {"name": "default"}})
         cfg = None
@@ -278,8 +283,8 @@ _COMPARISON_ROLES: dict[str, tuple[str, str]] = {
     "batch-vs-oracle": ("batch", "oracle"),
     "stream-vs-serial": ("stream-on", "stream-off"),
     "shard-vs-single": ("shard", "shard-base"),
-    # sharded + streamed vs serial single-device: not ported (the roles
-    # raise ShardNotPorted)
+    # sharded + streamed vs serial single-device: not ported (the
+    # shard-stream role raises ShardNotPorted)
     "shard-stream-vs-serial": ("shard-stream", "shard-stream-off"),
 }
 

@@ -16,11 +16,11 @@ scenario written to a JSON file under the temp directory.
 failures on the batch and streamed roles: parity must hold, the injection
 must trip, and the degrade must be counted (``kernel error: ChaosError``).
 
-The reference's sharded comparisons need the node axis sharded over
-several devices, which the port does not have yet (``ShardNotPorted``);
-its worker-fault leg is ``fuzz.chaos.WorkerChaos`` and its process-kill
-leg ``fuzz.chaos.ProcessChaos``, which ``chip_smoke.py`` drives on the
-card.
+The reference's ``shard-vs-single`` comparison runs on a two-shard mesh
+of the harness's device; its streamed one over a mesh is not ported
+(``ShardNotPorted``, ROADMAP 7c); its worker-fault leg is
+``fuzz.chaos.WorkerChaos`` and its process-kill leg
+``fuzz.chaos.ProcessChaos``, which ``chip_smoke.py`` drives on the card.
 """
 
 from __future__ import annotations

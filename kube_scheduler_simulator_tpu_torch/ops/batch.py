@@ -1196,20 +1196,30 @@ def scan_plain(
     if residual is not None:
         out["resid"] = resid
     if cfg.trace:
-        if ws0 is None:
-            feas = out["feasible"] & dp.pod_active[:, None]
-        else:  # positional: column < the pod's feasible count
-            feas = torch.arange(ws0, dtype=i32, device=dev)[None, :] < packed[1][:, None]
-        rows = []
-        zero = torch.zeros((), dtype=i32, device=dev)
-        for s, _w in cfg.scores:
-            v = torch.where(feas, out[f"raw:{s}"], torch.zeros((), dtype=dt, device=dev))
-            # an empty round's planes have no cells: its range is [0, 0]
-            rows.append(torch.stack([v.min().to(i32), v.max().to(i32)]) if v.numel() else torch.stack([zero, zero]))
-        code_max = out["fail_code"].max().to(i32) if cfg.filters and out["fail_code"].numel() else zero
-        rows.append(torch.stack([zero, code_max]))
-        out["trace_meta"] = torch.stack(rows)
+        out["trace_meta"] = trace_meta_plain(cfg, out, packed, ws0, dp.pod_active)
     return out
+
+
+def trace_meta_plain(cfg: BatchConfig, out: dict, packed: torch.Tensor, ws0: "int | None", pod_active) -> torch.Tensor:
+    """The trace meta [S+1, 2] of a scan's planes: each score's min and max
+    of where(feasible & active, raw, 0) (with ``ws0``, over the columns below
+    the pod's feasible count), and the largest failure code."""
+    i32 = torch.int32
+    dev = packed.device
+    dt = next((out[f"raw:{s}"].dtype for s, _w in cfg.scores), torch.float64)
+    if ws0 is None:
+        feas = out["feasible"] & pod_active[:, None]
+    else:  # positional: column < the pod's feasible count
+        feas = torch.arange(ws0, dtype=i32, device=dev)[None, :] < packed[1][:, None]
+    rows = []
+    zero = torch.zeros((), dtype=i32, device=dev)
+    for s, _w in cfg.scores:
+        v = torch.where(feas, out[f"raw:{s}"], torch.zeros((), dtype=dt, device=dev))
+        # an empty round's planes have no cells: its range is [0, 0]
+        rows.append(torch.stack([v.min().to(i32), v.max().to(i32)]) if v.numel() else torch.stack([zero, zero]))
+    code_max = out["fail_code"].max().to(i32) if cfg.filters and out["fail_code"].numel() else zero
+    rows.append(torch.stack([zero, code_max]))
+    return torch.stack(rows)
 
 
 def plugin_gates(cfg: BatchConfig, dims: dict) -> "dict[str, bool]":
@@ -1244,17 +1254,671 @@ def build_batch_fn(
     ``out["final_carry"]``: windows chain with no host round trip."""
     check_slice(cfg)
 
-    def fn(dp: DeviceProblem, carry0: "dict | None" = None, offset: int = 0) -> dict:
+    def fn(dp: "DeviceProblem | ShardedProblem", carry0: "dict | list | None" = None, offset: int = 0) -> dict:
         kw = dict(ws0=ws0, carry0=carry0, offset=offset, window=window, weights=weights)
-        if dp.alloc.device.type == "cuda":
+        sharded = isinstance(dp, ShardedProblem)
+        if (dp.shards[0] if sharded else dp).alloc.device.type == "cuda":
             from kube_scheduler_simulator_tpu_torch.ops import kernels
 
-            return kernels.scan(cfg, dims, dp, **kw)
-        return scan_plain(cfg, dims, dp, **kw)
+            return (kernels.scan_sharded if sharded else kernels.scan)(cfg, dims, dp, **kw)
+        return (scan_plain_sharded if sharded else scan_plain)(cfg, dims, dp, **kw)
 
     if window is None:
         return lambda dp: fn(dp)
     return lambda carry0, dp, offset: fn(dp, carry0, offset)
+
+
+# ------------------------------------------------------- the node mesh
+#
+# The node axis sharded over a mesh (ops/mesh.py), the port of the JAX
+# package's GSPMD placement (its ops/batch.py NODE_AXIS_SPECS,
+# field_sharding, shard_device_problem).  There XLA turns each pod step's
+# cross-node reductions into collectives; here each shard runs its nodes'
+# part of the step and the shards' partials are combined, in shard order,
+# by the small functions below: on the card inside the scan's launch
+# (csrc/scan.cu's shard mailbox), on the CPU by ``scan_plain_sharded``.
+
+NODE_AXIS_SPECS = {
+    # [N, ...] node-major state: shard axis 0
+    "alloc": (0,),
+    "max_pods": (0,),
+    "nz_alloc": (0,),
+    "requested0": (0,),
+    "nonzero0": (0,),
+    "pod_count0": (0,),
+    # per-node class-index vectors
+    "node_taint_idx": (0,),
+    "node_label_idx": (0,),
+    "node_img_idx": (0,),
+    "node_unsched": (0,),
+    "node_active": (0,),
+    # [KT/SG/G, N]: shard the node axis
+    "node_domain": (1,),
+    "spread_counts0": (1,),
+    "gdom": (1,),
+    "ports_used0": (0,),
+    "restr_used0": (0,),
+    "cloud_used0": (0,),
+    "csi_attached0": (0,),
+    "csi_seed_used": (0,),
+    "csi_limit": (0,),
+}
+
+
+def field_sharding(mesh: Any, name: str, val: Any, axis_name: str = "nodes") -> "int | None":
+    """The node axis of DeviceProblem field ``name`` on ``mesh`` (None: the
+    field is replicated on every shard), as the reference's rule: node-axis
+    fields (NODE_AXIS_SPECS) shard their node axis, everything else
+    replicates.  A node axis the shard count does not divide raises."""
+    axes = NODE_AXIS_SPECS.get(name)
+    if axes is None:
+        return None
+    nm = int(mesh.shape[axis_name]) if hasattr(mesh, "shape") else int(mesh)
+    for ax in axes:
+        if val.shape[ax] % nm:
+            raise ValueError(
+                f"{name} axis {ax} ({val.shape[ax]}) not divisible by the "
+                f"{nm}-device mesh — pad the node axis to a multiple "
+                f"(BatchEngine does via pad_problem(node_multiple=...))"
+            )
+    return axes[0]
+
+
+class ShardedProblem(NamedTuple):
+    """A DeviceProblem with its node axis split over a mesh: one
+    DeviceProblem a shard, its NODE_AXIS_SPECS fields narrowed to the
+    shard's nodes (its own buffers on its device), every other field whole
+    (a copy a shard), the round scalars global (``n_true`` counts the
+    whole axis, ``start0`` is a global node index)."""
+
+    shards: tuple   # DeviceProblem a shard
+    offsets: tuple  # the global index of each shard's first node
+    mesh: Any
+
+    def __getattr__(self, name: str) -> Any:
+        # the round scalars and replicated fields read through shard 0
+        if name in DeviceProblem._fields and name not in NODE_AXIS_SPECS:
+            return getattr(self.shards[0], name)
+        raise AttributeError(name)
+
+
+def _narrow(val: Any, ax: "int | None", off: int, n: int) -> Any:
+    if ax is None:
+        return val
+    if isinstance(val, np.ndarray):
+        return np.ascontiguousarray(val[(slice(None),) * ax + (slice(off, off + n),)])
+    return val.narrow(ax, off, n)
+
+
+def shard_host(host: "dict[str, Any]", n_shards: int) -> "list[dict[str, Any]]":
+    """A host problem (``lower_host``) split into ``n_shards`` shards' host
+    problems: node-axis fields narrowed to each shard's nodes, the rest
+    shared.  Raises (``field_sharding``) where the node axis does not divide."""
+    N = host["alloc"].shape[0]
+    axes = {name: field_sharding(n_shards, name, host[name]) for name in NODE_AXIS_SPECS}
+    Ns = N // n_shards
+    return [
+        {name: _narrow(val, axes.get(name), s * Ns, Ns) for name, val in host.items()}
+        for s in range(n_shards)
+    ]
+
+
+def shard_device_problem(dp: DeviceProblem, mesh: Any) -> ShardedProblem:
+    """Place a DeviceProblem onto ``mesh`` with the NODE axis sharded: each
+    shard gets its own buffers on its device (also where shards share a
+    card, so one card holds the layout several cards would), node-axis
+    fields narrowed to its nodes and every other field whole."""
+    n = int(mesh.shape["nodes"])
+    N = dp.alloc.shape[0]
+    axes = {name: field_sharding(mesh, name, getattr(dp, name)) for name in NODE_AXIS_SPECS}
+    Ns = N // n
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        def put(val, ax=None):
+            if isinstance(val, tuple):
+                return tuple(put(v) for v in val)
+            if not isinstance(val, torch.Tensor):
+                return val
+            return _narrow(val, ax, s * Ns, Ns).to(dev).clone(memory_format=torch.contiguous_format)
+
+        shards.append(DeviceProblem(**{f: put(getattr(dp, f), axes.get(f)) for f in DeviceProblem._fields}))
+    return ShardedProblem(tuple(shards), tuple(s * Ns for s in range(n)), mesh)
+
+
+def tree_shard_bytes_per_device(tree: "dict[str, Any] | DeviceProblem", n_devices: int) -> int:
+    """Per-device bytes of a full sharded placement of a problem (a host
+    dict or a DeviceProblem, numpy or tensor leaves): node-axis planes
+    (NODE_AXIS_SPECS) split across the mesh, everything else replicated in
+    full on every device (the reference's ``plane_shard_bytes_per_device``)."""
+    n = max(int(n_devices), 1)
+    total = 0
+    for name in DeviceProblem._fields:
+        val = tree[name] if isinstance(tree, dict) else getattr(tree, name)
+        for leaf in (val if isinstance(val, tuple) else (val,)):
+            if isinstance(leaf, np.ndarray) and leaf.ndim:
+                nb = leaf.nbytes
+            elif isinstance(leaf, torch.Tensor) and leaf.dim():
+                nb = leaf.numel() * leaf.element_size()
+            else:
+                continue
+            total += nb // n if name in NODE_AXIS_SPECS else nb
+    return total
+
+
+# -- the cross-shard combines, each in shard order (exact in any order: the
+#    sums are of integers, min and max are order-free)
+
+def shard_exclusive_scan(counts: "list[int]") -> "tuple[list[int], int]":
+    """Each shard's count before its own in shard order, and the total."""
+    offs, run = [], 0
+    for c in counts:
+        offs.append(run)
+        run += int(c)
+    return offs, run
+
+
+def shard_visit_offsets(hi: "list[int]", lo: "list[int]") -> "tuple[list[int], list[int], int]":
+    """The feasible-node prefix in visit order across shards.  Visit order
+    is every node of id >= start (each shard's "hi" run, ascending id, in
+    shard order), then every node below start (the "lo" runs): so a shard's
+    hi run starts after the earlier shards' hi runs and its lo run after
+    every hi run and the earlier lo runs.  Returns (hi offsets, lo offsets,
+    total)."""
+    hi_off, tot_hi = shard_exclusive_scan(hi)
+    lo_off, tot_lo = shard_exclusive_scan(lo)
+    return hi_off, [tot_hi + o for o in lo_off], tot_hi + tot_lo
+
+
+def shard_kth_rank(parts: "list[int]") -> int:
+    """The visit rank + 1 of the K-th feasible node: the one shard that
+    holds it gives it, the others 0."""
+    return sum(int(p) for p in parts)
+
+
+def shard_max(parts: list) -> Any:
+    return max(parts)
+
+
+def shard_min(parts: list) -> Any:
+    return min(parts)
+
+
+def shard_domain_sums(parts: "list[torch.Tensor]") -> torch.Tensor:
+    """PodTopologySpread's per-domain sums over every shard's nodes."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out = out + p.to(out.device)
+    return out
+
+
+def shard_best(parts: "list[tuple[float, int]]") -> "tuple[float, int]":
+    """The best (total, visit rank): the largest total, then its least
+    rank (the first tie in visit order)."""
+    best, rank = parts[0]
+    for t, r in parts[1:]:
+        if t > best or (t == best and r < rank):
+            best, rank = t, r
+    return best, rank
+
+
+def _default_normalize_mx(raw: torch.Tensor, mx: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """``_default_normalize`` given the maximum over the sampled nodes."""
+    scaled = _floordiv(raw * MAX_NODE_SCORE, mx)
+    out = MAX_NODE_SCORE - scaled if reverse else scaled
+    zero_case = MAX_NODE_SCORE if reverse else 0.0
+    return torch.where(mx == 0, torch.full_like(out, zero_case), out)
+
+
+def _minmax_normalize_given(raw: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """``_minmax_normalize`` given the extrema over the sampled nodes."""
+    diff = mx - mn
+    q = torch.floor(MAX_NODE_SCORE * (raw - mn) / torch.where(diff == 0, torch.ones_like(diff), diff))
+    return torch.where(diff > 0, q, torch.zeros_like(q))
+
+
+def sharded_out(outs: "list[dict]", out: dict, lead: int = 0) -> dict:
+    """The whole-axis views of a sharded scan's per-shard final carries
+    (node-axis carries concatenated in node order on the first shard's
+    device, replicated ones from shard 0) beside ``final_carry``, the
+    shards' carries for the next window.  ``lead``: the leading lane axes
+    before the node axis (1 for the lane scan)."""
+    dev = outs[0]["final_requested"].device
+    cat = lambda k, ax=0: torch.cat([o[k].to(dev) for o in outs], lead + ax)  # noqa: E731
+    out.update(
+        final_requested=cat("final_requested"), final_nonzero=cat("final_nonzero"),
+        final_pod_count=cat("final_pod_count"), final_ports_used=cat("final_ports_used"),
+        final_restr_used=cat("final_restr_used"), final_cloud_used=cat("final_cloud_used"),
+        final_csi_att=cat("final_csi_att"), final_spread_counts=cat("final_spread_counts", 1),
+        final_ip_sel=outs[0]["final_ip_sel"], final_ip_own=outs[0]["final_ip_own"],
+        final_ip_anti=outs[0]["final_ip_anti"],
+    )
+    out["final_carry"] = [final_carry(o, out["final_start"]) for o in outs]
+    return out
+
+
+def scan_plain_sharded(
+    cfg: BatchConfig, dims: dict, sp: ShardedProblem, ws0: "int | None" = None,
+    carry0: "list[dict] | None" = None, offset: int = 0, window: "int | None" = None,
+    weights: "torch.Tensor | None" = None,
+) -> dict:
+    """The pod loop over a node mesh in plain PyTorch: ``scan_plain``'s
+    outputs, each pod's step run shard by shard over the shard's nodes with
+    the cross-node reductions combined through the shard combines above
+    (the feasible counts exclusive-scanned in visit order, the k-th feasible
+    rank, the score extrema, PodTopologySpread's domain sums and minima,
+    the best (total, rank), the reservoir's tied counts), every node keeping
+    its global index for the rotation, the reservoir key and the ties.  The
+    owner shard commits the per-node carries; the replicated
+    InterPodAffinity rows take the same commit on every shard, through the
+    owner's ``gdom`` column.  The trace comes out whole ([P, N] or [P,
+    ws0]) on the first shard's device; ``final_carry`` is the list of the
+    shards' carries (``carry0`` of the next window).  ``dims`` are the
+    whole problem's."""
+    check_slice(cfg)
+    ws0 = in_step_width(cfg, dims, ws0)
+    shards = list(sp.shards)
+    if window is not None:
+        shards = [slice_pod_window(dp, offset, window) for dp in shards]
+        dims = dict(dims, P=window)
+    if carry0 is not None:
+        shards = [dp._replace(**c) for dp, c in zip(shards, carry0)]
+    S = len(shards)
+    P, N, R, D = dims["P"], dims["N"], dims["R"], dims["D"]
+    Ns = N // S
+    if R > 30:
+        raise ValueError(f"{R} distinct checked resources exceed the int32 reason bitmask (30)")
+    dp0 = shards[0]
+    dev, dt, i32 = dp0.alloc.device, dp0.alloc.dtype, torch.int32
+    gates = plugin_gates(cfg, dims)
+    key_struct = dims["key_struct"]
+    logt = log_table(N, dt, dev)
+    w_vec = profile_weights(cfg, dt, dev) if weights is None else weights
+    host = {f: t.cpu().numpy() for f, t in (
+        ("spf_key", dp0.spf[0]), ("spf_grp", dp0.spf[1]), ("spf_ku", dp0.spf_ku),
+        ("sps_key", dp0.sps[0]), ("sps_grp", dp0.sps[1]), ("sps_ku", dp0.sps_ku),
+        ("aff_g", dp0.ip_aff_g), ("anti_g", dp0.ip_anti_g), ("pref_g", dp0.ip_pref_g), ("own_g", dp0.ip_own_g),
+    )}
+    filter_pos = {f: k for k, f in enumerate(cfg.filters)}
+    nt, K = int(dp0.n_true), int(dp0.sample_k)
+    start = int(dp0.start0.item() if isinstance(dp0.start0, torch.Tensor) else dp0.start0)
+
+    class Shard:
+        pass
+
+    sh = []
+    for s, dp in enumerate(shards):
+        z = Shard()
+        z.dp, z.dev = dp, dp.alloc.device
+        z.g = torch.arange(Ns, dtype=i32, device=z.dev) + s * Ns  # global node ids
+        z.X = expand_features(dp, dt)
+        z.X["name_ok"] = (dp.name_target[:, None] == -1) | (dp.name_target[:, None] == z.g[None, :])
+        z.req, z.nz, z.pc = dp.requested0.clone(), dp.nonzero0.clone(), dp.pod_count0.clone()
+        z.ports, z.restr = dp.ports_used0.clone(), dp.restr_used0.clone()
+        z.cloud, z.csi = dp.cloud_used0.clone(), dp.csi_attached0.clone()
+        z.spc = dp.spread_counts0.clone()
+        z.isel, z.iown, z.ianti = dp.ip_sel0.clone(), dp.ip_own0.clone(), dp.ip_anti0.clone()
+        z.gvalid, z.gidx = _domain_index(dp.gdom, 0)
+        sh.append(z)
+
+    def at_nodes(z, carry, g=None):
+        if g is None:
+            return torch.where(z.gvalid, carry.gather(1, z.gidx), 0)
+        return torch.where(z.gvalid[g], carry[g][z.gidx[g]], 0)
+
+    packed = torch.zeros((5, P), dtype=i32, device=dev)
+    out: dict = {}
+    if cfg.trace:
+        out["fail_plug"] = torch.empty((P, N), dtype=torch.int8, device=dev)
+        out["fail_code"] = torch.empty((P, N), dtype=i32, device=dev)
+        if ws0 is None:
+            out["feasible"] = torch.empty((P, N), dtype=torch.bool, device=dev)
+        for name, _w in cfg.scores:
+            out[f"raw:{name}"] = torch.empty((P, ws0 or N), dtype=dt, device=dev)
+            out[f"norm:{name}"] = torch.empty((P, ws0 or N), dtype=dt, device=dev)
+    inf = float("inf")
+
+    for i in range(P):
+        active = bool(dp0.pod_active[i])
+        # ---- pass 0: PodTopologySpread's filter minima and domain sums
+        spf = []  # per constraint: (key, group, kind/base/size, global sums or None, min_match)
+        if gates["spread_filter"] and "PodTopologySpread" in cfg.filters:
+            for k in range(dims["KC"]):
+                key = int(host["spf_key"][i, k])
+                if key < 0:
+                    continue
+                grp, ks = int(host["spf_grp"][i, k]), key_struct[int(host["spf_ku"][i, k])]
+                kind, base, size = ks
+                mins, anys, dsums, pres = [], [], [], []
+                for z in sh:
+                    dom = z.dp.node_domain[key]
+                    contributing = z.X["incl"][i] & (dom >= 0)
+                    mc = torch.where(contributing, z.spc[grp], 0)
+                    if kind == "identity":
+                        mins.append(torch.where(contributing, mc, inf).min())
+                        anys.append(bool(contributing.any()))
+                    else:
+                        ok, d = _domain_index(dom, base)
+                        dsums.append(_domain_sums(ok, d, size, mc))
+                        pres.append(_domain_sums(ok, d, size, contributing.to(mc.dtype)))
+                if kind == "identity":
+                    dc, mn, present_any = None, shard_min([m.to(dev) for m in mins]), any(anys)
+                else:
+                    dc = shard_domain_sums(dsums)
+                    present = shard_domain_sums(pres) > 0
+                    mn, present_any = torch.where(present, dc, inf).min(), bool(present.any())
+                spf.append((key, grp, ks, dc, mn if present_any else torch.zeros((), dtype=dt, device=dev), k))
+        # ---- pass 1: filters, each shard over its nodes
+        for z in sh:
+            dp, X = z.dp, z.X
+            fail_plug = torch.full((Ns,), -1, dtype=torch.int8, device=z.dev)
+            fail_code = torch.zeros(Ns, dtype=i32, device=z.dev)
+            feasible = dp.node_active.clone()
+            one, zero_i = torch.ones(Ns, dtype=i32, device=z.dev), torch.zeros(Ns, dtype=i32, device=z.dev)
+
+            def apply(name, code):
+                nonlocal feasible, fail_plug, fail_code
+                hit = (fail_plug < 0) & (code != 0)
+                fail_plug = torch.where(hit, filter_pos[name], fail_plug)
+                fail_code = torch.where(hit, code, fail_code)
+                feasible = feasible & (code == 0)
+
+            for name in cfg.filters:
+                if name == "NodeUnschedulable":
+                    apply(name, torch.where(X["unsched_ok"][i], zero_i, one))
+                elif name == "NodeName":
+                    apply(name, torch.where(X["name_ok"][i], zero_i, one))
+                elif name == "TaintToleration":
+                    tfail = X["taint_fail"][i].to(i32)
+                    apply(name, torch.where(tfail < 0, zero_i, tfail + 1))
+                elif name == "NodeAffinity":
+                    apply(name, X["aff_code"][i].to(i32))
+                elif name == "NodePorts" and gates["ports"]:
+                    clash = (z.ports * dp.pod_ports[i][None, :].to(dt)).sum(1)
+                    apply(name, (clash > 0).to(i32))
+                elif name == "NodeResourcesFit":
+                    free = dp.alloc - z.req
+                    insuff = (dp.pod_req[i][None, :] > free) & dp.fit_checked[i][None, :]
+                    code = (z.pc + 1.0 > dp.max_pods).to(i32)
+                    for r in range(R):
+                        code = code | (insuff[:, r].to(i32) << (r + 1))
+                    apply(name, code)
+                elif name == "VolumeBinding":
+                    apply(name, X["vb_code"][i].to(i32))
+                elif name == "VolumeZone":
+                    apply(name, X["vz_code"][i].to(i32))
+                elif name == "VolumeRestrictions" and gates["restr"]:
+                    clash = (z.restr * dp.pod_restr[i][None, :].to(dt)).sum(1)
+                    apply(name, (clash > 0).to(i32))
+                elif name in CLOUD_LIMIT_COL and gates["cloud"]:
+                    col, limit = CLOUD_LIMIT_COL[name]
+                    want = dp.cloud_cnt[i, col]
+                    apply(name, ((want > 0) & (z.cloud[:, col] + want > limit)).to(i32))
+                elif name == "NodeVolumeLimits" and gates["csi"]:
+                    new = dp.pod_csi[i].to(dt)[None, :] * (1.0 - z.csi)
+                    need_d = new @ dp.csi_drv_oh
+                    used_d = dp.csi_seed_used + z.csi @ dp.csi_drv_oh
+                    apply(name, ((need_d > 0) & (used_d + need_d > dp.csi_limit)).any(1).to(i32))
+                elif name == "PodTopologySpread" and gates["spread_filter"]:
+                    code = torch.zeros(Ns, dtype=i32, device=z.dev)
+                    for key, grp, (kind, base, _size), dc, min_match, k in spf:
+                        dom = dp.node_domain[key]
+                        contributing = X["incl"][i] & (dom >= 0)
+                        if kind == "identity":
+                            match = torch.where(contributing, z.spc[grp], 0)
+                        else:
+                            ok, d = _domain_index(dom, base)
+                            match = torch.where(ok, dc.to(z.dev)[d], 0)
+                        skew = match + dp.spf[3][i, k] - min_match.to(z.dev)
+                        k_code = torch.where(dom < 0, 1, torch.where(skew > dp.spf[2][i, k], 2, 0)).to(i32)
+                        code = torch.where(code == 0, k_code, code)
+                    apply(name, code)
+                elif name == "InterPodAffinity" and gates["interpod"]:
+                    tm = dp.term_match[:, i]
+                    code = torch.where((tm[:, None] * at_nodes(z, z.ianti)).sum(0) > 0, 1, 0).to(i32)
+                    aff = [int(g) for g in host["aff_g"][i] if g >= 0]
+                    if aff:
+                        sat = torch.ones(Ns, dtype=torch.bool, device=z.dev)
+                        total_any = torch.zeros((), dtype=dt, device=z.dev)
+                        for g in aff:
+                            sat = sat & (at_nodes(z, z.isel, g) > 0) & z.gvalid[g]
+                            total_any = total_any + z.isel[g, :D].sum()
+                        escape = (total_any == 0) & dp.ip_self_match[i]
+                        code = torch.where((code == 0) & ~sat & ~escape, 2, code)
+                    for g in host["anti_g"][i]:
+                        if g >= 0:
+                            code = torch.where((code == 0) & (at_nodes(z, z.isel, int(g)) > 0), 3, code)
+                    apply(name, code)
+            z.feas, z.fail_plug, z.fail_code = feasible, fail_plug, fail_code
+        # ---- sampling: the rotated prefix across shards
+        for z in sh:
+            z.hi = z.g >= start
+            z.r = torch.where(z.hi, z.g - start, z.g - start + nt)
+            z.c_hi = torch.cumsum((z.feas & z.hi).to(i32), 0, dtype=i32)
+            z.c_lo = torch.cumsum((z.feas & ~z.hi).to(i32), 0, dtype=i32)
+        hi_off, lo_off, total = shard_visit_offsets([int(z.c_hi[-1]) for z in sh], [int(z.c_lo[-1]) for z in sh])
+        for s, z in enumerate(sh):
+            z.c = torch.where(z.hi, z.c_hi + hi_off[s], z.c_lo + lo_off[s])
+            z.sampled = z.feas & (z.c <= K)
+        kth = shard_kth_rank([int(torch.where(z.feas & (z.c == K), z.r + 1, 0).sum(dtype=torch.int64)) for z in sh])
+        processed = kth if total >= K else nt
+        count = min(total, K) * int(active)
+        # ---- scores, with the extrema over every shard's sampled nodes
+        mx = {}
+        for name, _w in cfg.scores:
+            if name in ("TaintToleration", "NodeAffinity"):
+                feat = "taint_prefer" if name == "TaintToleration" else "aff_pref"
+                mx[name] = shard_max([torch.where(z.sampled, z.X[feat][i], 0).max().to(dev) for z in sh])
+        ipa_on = gates["interpod"] and any(nm == "InterPodAffinity" for nm, _w in cfg.scores)
+        if ipa_on:
+            for z in sh:
+                raw = (z.dp.term_match[:, i][:, None] * at_nodes(z, z.iown)).sum(0)
+                for k, g in enumerate(host["pref_g"][i]):
+                    if g >= 0:
+                        raw = raw + z.dp.ip_pref_w[i, k] * at_nodes(z, z.isel, int(g))
+                z.ip_raw = raw
+            ip_mn = shard_min([torch.where(z.sampled, z.ip_raw, inf).min().to(dev) for z in sh])
+            ip_mx = shard_max([torch.where(z.sampled, z.ip_raw, -inf).max().to(dev) for z in sh])
+        sps_on = gates["spread_score"] and host["sps_key"][i, 0] >= 0 and any(
+            nm == "PodTopologySpread" for nm, _w in cfg.scores)
+        if sps_on:
+            cons = [(int(host["sps_key"][i, k]), int(host["sps_grp"][i, k]), int(host["sps_ku"][i, k]), k)
+                    for k in range(dims["KS"]) if host["sps_key"][i, k] >= 0]
+            for z in sh:
+                z.has_all = torch.ones(Ns, dtype=torch.bool, device=z.dev)
+                for key, _g, _u, _k in cons:
+                    z.has_all = z.has_all & (z.dp.node_domain[key] >= 0)
+                z.fni = z.sampled & z.has_all
+                z.sraw_f = torch.zeros(Ns, dtype=dt, device=z.dev)
+            for key, g, u, k in cons:
+                kind, base, size = key_struct[u]
+                if kind == "identity":
+                    tsize = sum(int(z.fni.sum()) for z in sh)
+                    for z in sh:
+                        z.cnt = torch.where(z.has_all, z.spc[g], 0)
+                else:
+                    parts, flags = [], []
+                    for z in sh:
+                        ok, d = _domain_index(z.dp.node_domain[key], base)
+                        mc = torch.where(z.has_all, z.spc[g], 0)
+                        parts.append(_domain_sums(ok, d, size, mc))
+                        flags.append(_domain_sums(ok, d, size, z.fni.to(dt)))
+                    dsum = shard_domain_sums(parts)
+                    tsize = int((shard_domain_sums(flags) > 0).sum(dtype=torch.int64))
+                    for z in sh:
+                        ok, d = _domain_index(z.dp.node_domain[key], base)
+                        z.cnt = torch.where(ok, dsum.to(z.dev)[d], 0)
+                for z in sh:
+                    z.sraw_f = z.sraw_f + (z.cnt * logt[tsize].to(z.dev) + (z.dp.sps[2][i, k] - 1.0))
+            for z in sh:
+                z.sraw = torch.round(z.sraw_f)
+            sp_mn = shard_min([torch.where(z.fni, z.sraw, inf).min().to(dev) for z in sh])
+            sp_mx = shard_max([torch.where(z.fni, z.sraw, -inf).max().to(dev) for z in sh])
+            any_fni = any(bool(z.fni.any()) for z in sh)
+        for z in sh:
+            dp, X = z.dp, z.X
+            totals = torch.zeros(Ns, dtype=dt, device=z.dev)
+            z.raws, z.norms = {}, {}
+            for k_s, (name, _weight) in enumerate(cfg.scores):
+                if name == "NodeResourcesFit":
+                    raw = _fit_raw(cfg, z.nz + dp.pod_nonzero[i][None, :], dp.nz_alloc)
+                    norm = raw
+                elif name == "NodeResourcesBalancedAllocation":
+                    req_nz, a = z.nz + dp.pod_nonzero[i][None, :], dp.nz_alloc
+                    frac = torch.where(a > 0, torch.clamp(req_nz / _den(a, a), max=1.0), torch.ones_like(a))
+                    raw = torch.floor((1.0 - torch.abs(frac[:, 0] - frac[:, 1]) / 2.0) * MAX_NODE_SCORE)
+                    norm = raw
+                elif name == "ImageLocality":
+                    raw = X["img_score"][i]
+                    norm = raw
+                elif name == "TaintToleration":
+                    raw = X["taint_prefer"][i]
+                    norm = _default_normalize_mx(raw, mx[name].to(z.dev), reverse=True)
+                elif name == "NodeAffinity":
+                    raw = X["aff_pref"][i]
+                    norm = _default_normalize_mx(raw, mx[name].to(z.dev), reverse=False)
+                elif name == "PodTopologySpread" and sps_on:
+                    raw = z.sraw
+                    m1, m2 = sp_mx.to(z.dev), sp_mn.to(z.dev)
+                    norm = torch.where(m1 == 0, MAX_NODE_SCORE, _floordiv(MAX_NODE_SCORE * (m1 + m2 - raw), m1))
+                    norm = torch.where(~z.has_all | (not any_fni), 0.0, norm)
+                elif name == "InterPodAffinity" and gates["interpod"]:
+                    raw = z.ip_raw
+                    norm = _minmax_normalize_given(raw, ip_mn.to(z.dev), ip_mx.to(z.dev))
+                else:
+                    raw = torch.zeros(Ns, dtype=dt, device=z.dev)
+                    norm = raw
+                z.raws[name], z.norms[name] = raw, norm
+                totals = totals + norm * w_vec[k_s].to(z.dev)
+            z.masked = torch.where(z.sampled, totals, torch.full_like(totals, NEG))
+        # ---- selection: the best total, then the first tie in visit order
+        # (or the reservoir's k-th tie)
+        best = shard_max([z.masked.max().to(dev) for z in sh])
+        for z in sh:
+            z.tied = z.sampled & (z.masked == best.to(z.dev))
+        sel = -1
+        owner = None
+        if cfg.tie_break == "reservoir":
+            t_hi = [int((z.tied & z.hi).sum()) for z in sh]
+            t_lo = [int((z.tied & ~z.hi).sum(dtype=torch.int64)) for z in sh]
+            th_off, tl_off, t_count = shard_visit_offsets(t_hi, t_lo)
+            kk = tie_break_draw(cfg.seed, dp0.tb_base + i) % max(t_count, 1)
+            for s, z in enumerate(sh):
+                ct = torch.where(
+                    z.hi, torch.cumsum((z.tied & z.hi).to(i32), 0) + th_off[s],
+                    torch.cumsum((z.tied & ~z.hi).to(i32), 0) + tl_off[s],
+                )
+                hit = torch.nonzero(z.tied & (ct == kk + 1))
+                if hit.numel():
+                    owner, local = s, int(hit[0, 0])
+        else:
+            BIG = 2 * nt + N
+            cands = []
+            for z in sh:
+                rr = torch.where(z.tied, z.r, BIG)
+                cands.append((0.0, int(rr.min())))
+            _b, rank = shard_best(cands)
+            if rank < BIG:
+                owner = next(s for s, (_t, r) in enumerate(cands) if r == rank)
+                local = int(torch.argmin(torch.where(sh[owner].tied, sh[owner].r, BIG)))
+        if count > 0 and owner is not None:
+            sel = owner * Ns + local
+        # ---- commit: the owner's per-node carries; the replicated rows on
+        # every shard, through the owner's gdom column
+        if sel >= 0:
+            z = sh[owner]
+            dp = z.dp
+            l = local
+            z.req[l] = z.req[l] + dp.pod_req[i]
+            z.nz[l] = z.nz[l] + dp.pod_nonzero[i]
+            z.pc[l] = z.pc[l] + 1.0
+            if gates["ports"]:
+                z.ports[l] = z.ports[l] + dp.port_conflict @ dp.pod_ports[i].to(dt)
+            if gates["restr"]:
+                z.restr[l] = z.restr[l] + dp.restr_conflict @ dp.pod_restr[i].to(dt)
+            if gates["cloud"]:
+                z.cloud[l] = z.cloud[l] + dp.cloud_cnt[i]
+            if gates["csi"]:
+                z.csi[l] = torch.maximum(z.csi[l], dp.pod_csi[i].to(dt))
+            if dims["SG"] > 0:
+                z.spc[:, l] = z.spc[:, l] + dp.spread_match[:, i]
+            if gates["interpod"]:
+                col = dp.gdom[:, l]  # the owner's column, handed to every shard
+                for y in sh:
+                    c = col.to(y.dev)
+                    d_g = torch.where(c >= 0, c, D).long()
+                    rows = torch.arange(d_g.shape[0], dtype=torch.int64, device=y.dev)
+                    y.isel = y.isel.index_put((rows, d_g), y.dp.term_match[:, i], accumulate=True)
+                    for carry, groups, wts in ((y.iown, host["own_g"][i], y.dp.ip_own_w[i]),
+                                               (y.ianti, host["anti_g"][i], None)):
+                        for k, g in enumerate(groups):
+                            if g < 0:
+                                continue
+                            dd = int(c[int(g)])
+                            dd = dd if dd >= 0 else D
+                            carry[int(g), dd] = carry[int(g), dd] + (1.0 if wts is None else wts[k])
+        packed[0, i], packed[1, i], packed[2, i], packed[3, i] = sel, count, start, processed
+        if active:
+            start = (start + processed) % max(nt, 1) if nt > 0 else 0
+        if cfg.trace:
+            for s, z in enumerate(sh):
+                cols = slice(s * Ns, (s + 1) * Ns)
+                out["fail_plug"][i, cols] = z.fail_plug.to(dev)
+                out["fail_code"][i, cols] = z.fail_code.to(dev)
+                if ws0 is None:
+                    out["feasible"][i, cols] = z.sampled.to(dev)
+                    for name in z.raws:
+                        out[f"raw:{name}"][i, cols] = z.raws[name].to(dev)
+                        out[f"norm:{name}"][i, cols] = z.norms[name].to(dev)
+            if ws0 is not None:
+                # the sampled nodes at their rank in ascending node id: the
+                # earlier shards' sampled counts, then the shard's own
+                offs, _n = shard_exclusive_scan([int(z.sampled.sum()) for z in sh])
+                for name, _w in cfg.scores:
+                    for kind in ("raw", "norm"):
+                        row = torch.zeros(ws0 + 1, dtype=dt, device=dev)
+                        for s, z in enumerate(sh):
+                            pos = torch.cumsum(z.sampled.to(i32), 0, dtype=i32) - 1 + offs[s]
+                            dest = torch.where(z.sampled & (pos < ws0), pos, ws0).long().to(dev)
+                            v = (z.raws if kind == "raw" else z.norms)[name].to(dev)
+                            row = row.scatter(0, dest, v)
+                        out[f"{kind}:{name}"][i] = row[:ws0]
+
+    packed[4] = start
+    start_t = torch.tensor(start, dtype=i32, device=dev)
+    out.update(
+        selected=packed[0], feasible_count=packed[1], sample_start=packed[2], sample_processed=packed[3],
+        final_start=start_t, packed_pod=packed,
+    )
+    outs = [dict(
+        final_requested=z.req, final_nonzero=z.nz, final_pod_count=z.pc, final_ports_used=z.ports,
+        final_restr_used=z.restr, final_cloud_used=z.cloud, final_csi_att=z.csi, final_spread_counts=z.spc,
+        final_ip_sel=z.isel, final_ip_own=z.iown, final_ip_anti=z.ianti,
+    ) for z in sh]
+    sharded_out(outs, out)
+    if cfg.trace:
+        out["trace_meta"] = trace_meta_plain(cfg, out, packed, ws0, dp0.pod_active)
+    return out
+
+
+def scan_lanes_plain_sharded(
+    cfg: BatchConfig, dims: dict, sp: ShardedProblem, lane_active: "list[torch.Tensor]",
+) -> dict:
+    """The plain lane scan (K8) over a node mesh: ``scan_plain_sharded``
+    once per lane g, each shard's node_active its slice ``lane_active[s][g]``
+    ([G, N / n] a shard, on its device), every output stacked on a leading
+    lane axis with the node-axis carries whole."""
+    G = lane_active[0].shape[0]
+    for la in lane_active:
+        if la.dtype != torch.bool or la.dim() != 2 or la.shape[0] != G:
+            raise ValueError(f"lane_active must be one bool [G, N / n] a shard, got {la.dtype} {tuple(la.shape)}")
+    outs = [
+        scan_plain_sharded(cfg, dims, sp._replace(shards=tuple(
+            dp._replace(node_active=la[g]) for dp, la in zip(sp.shards, lane_active))))
+        for g in range(G)
+    ]
+    out = {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k != "final_carry"}
+    out["final_carry"] = [o["final_carry"] for o in outs]
+    return out
 
 
 def grad_plain(
@@ -1373,12 +2037,14 @@ def build_lanes_fn(cfg: BatchConfig, dims: dict):
     with the mask, ``check_lanes``), no window, no carry0, no ws0."""
     check_slice(cfg)
 
-    def fn(dp: DeviceProblem, lane_active: torch.Tensor, widest: "int | None" = None) -> dict:
-        if dp.alloc.device.type == "cuda":
+    def fn(dp: "DeviceProblem | ShardedProblem", lane_active: "torch.Tensor | list", widest: "int | None" = None) -> dict:
+        sharded = isinstance(dp, ShardedProblem)
+        if (dp.shards[0] if sharded else dp).alloc.device.type == "cuda":
             from kube_scheduler_simulator_tpu_torch.ops import kernels
 
-            return kernels.scan_lanes(cfg, dims, dp, lane_active, widest=widest)
-        return scan_lanes_plain(cfg, dims, dp, lane_active)
+            return (kernels.scan_lanes_sharded if sharded else kernels.scan_lanes)(
+                cfg, dims, dp, lane_active, widest=widest)
+        return (scan_lanes_plain_sharded if sharded else scan_lanes_plain)(cfg, dims, dp, lane_active)
 
     return fn
 
@@ -1453,9 +2119,16 @@ class DevicePlacer:
     k+1's row scatter is ordered after wave k's scan and compaction on the
     card, and one set a shape key suffices."""
 
-    def __init__(self, max_keys: int = 2, scatter_max_frac: "float | None" = None):
+    def __init__(self, max_keys: int = 2, scatter_max_frac: "float | None" = None, mesh: Any = None):
         self.max_keys = max_keys
         self.scatter_max_frac = placer_scatter_frac() if scatter_max_frac is None else scatter_max_frac
+        # on a node mesh: one placer a shard, each keeping its shard's planes
+        # (node-axis planes narrowed to its nodes, the rest whole) resident
+        # on its device
+        self.mesh = mesh
+        self._shards = (
+            [DevicePlacer(max_keys, self.scatter_max_frac) for _ in mesh.devices] if mesh is not None else []
+        )
         self.bytes_uploaded = 0
         self.plane_reuses = 0
         self.scatter_updates = 0
@@ -1481,7 +2154,21 @@ class DevicePlacer:
 
     def place(self, host: "dict[str, Any]", key, device: torch.device) -> DeviceProblem:
         """Place a host problem on ``device``, reusing or row-updating the
-        resident planes of ``key``."""
+        resident planes of ``key``.  On a mesh each shard's placer places
+        its shard (``shard_host``) on its own device and the result is a
+        ``ShardedProblem``: a changed row of a node-axis plane goes to its
+        owner shard only, at its local index; a changed replicated plane
+        to every shard."""
+        if self.mesh is not None:
+            parts = [pl.place(h, key, dev) for pl, h, dev in zip(
+                self._shards, shard_host(host, len(self._shards)), self.mesh.devices)]
+            self.bytes_uploaded = sum(pl.bytes_uploaded for pl in self._shards)
+            self.plane_reuses = sum(pl.plane_reuses for pl in self._shards)
+            self.scatter_updates = sum(pl.scatter_updates for pl in self._shards)
+            self.full_uploads = sum(pl.full_uploads for pl in self._shards)
+            self.decisions = {(*path, s): d for s, pl in enumerate(self._shards) for path, d in pl.decisions.items()}
+            Ns = parts[0].alloc.shape[0]
+            return ShardedProblem(tuple(parts), tuple(s * Ns for s in range(len(parts))), self.mesh)
         entry = self._entry(key)
         leaves = problem_leaves(host)
         placed: dict = {}
@@ -1547,6 +2234,8 @@ class DevicePlacer:
         that is gone)."""
         self._cache.clear()
         self._order.clear()
+        for pl in self._shards:
+            pl.drop()
 
     @property
     def last_scattered(self) -> "list[str]":

@@ -111,6 +111,8 @@ BUILD_DIR = CSRC / "build"
 SOURCES = {
     "scan": "scan.cu", "scan_cluster": "scan_cluster.cu", "scan_trace": "scan_trace.cu", "scan_grad": "scan_grad.cu",
     "scan_masked": "scan_masked.cu",
+    "scan_shard_trace": "scan_shard_trace.cu", "scan_shard_cluster": "scan_shard_cluster.cu",
+    "scan_shard_masked": "scan_shard_masked.cu",
     "compact": "compact.cu", "scatter": "scatter.cu", "preempt": "preempt.cu", "gang": "gang.cu",
     "objective": "tune.cu",
 }
@@ -121,8 +123,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {
-    "scan": 0, "scan_lanes": 0, "compact": 0, "scatter": 0, "preempt": 0, "gang_verdict": 0, "gang_feasibility": 0,
-    "scan_population": 0, "objective": 0, "scan_grad": 0, "grad_contract": 0,
+    "scan": 0, "scan_lanes": 0, "scan_sharded": 0, "scan_lanes_sharded": 0, "compact": 0, "scatter": 0, "preempt": 0,
+    "gang_verdict": 0, "gang_feasibility": 0, "scan_population": 0, "objective": 0, "scan_grad": 0, "grad_contract": 0,
 }
 
 # the struct capacities of csrc/*.cu
@@ -270,6 +272,10 @@ class ScanArgs(ctypes.Structure):
         ("raw", _ptr * MAXS),
         ("norm", _ptr * MAXS),
         ("trace_meta", _ptr),
+    ] + [
+        (n, _i64) for n in ("shards", "shard", "node_off", "N_glob", "slot_bytes", "spin_cap")
+    ] + [
+        (n, _ptr) for n in ("mbox_flags", "mbox", "mbox_err", "xwait")
     ]
 
 
@@ -335,6 +341,9 @@ class GangFeasArgs(ctypes.Structure):
 ENTRIES = {
     **{lib: {f"kss_{lib}_{d}": [_ptr, _i64, _ptr] for d in ("f32", "f64")}
        for lib in ("scan", "scan_cluster", "scan_trace", "scan_grad", "scan_masked")},
+    **{lib: {**{f"kss_{lib}_{d}": [_ptr, _ptr, _i64, _i64, _ptr] for d in ("f32", "f64")},
+            f"kss_{lib}_peer": [_i64, _i64]}
+       for lib in ("scan_shard_trace", "scan_shard_cluster", "scan_shard_masked")},
     "compact": {f"kss_compact_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
     "scatter": {"kss_scatter_rows": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr]},
     "preempt": {f"kss_preempt_{d}": [_ptr, _ptr] for d in ("f32", "f64")},
@@ -798,17 +807,48 @@ def _launch_scan(
     cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None, weights=None, grad=None, cluster=None,
     tile=None,
 ) -> dict:
-    """One launch of csrc/scan.cu: ``scan``'s arguments; with
+    """One launch of csrc/scan.cu (``_scan_setup``'s arguments)."""
+    fn, a, blocks_x, out, final_start, laned, dev = _scan_setup(
+        cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active, weights, grad, cluster, tile)
+    rc = fn(ctypes.byref(a), blocks_x, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "scan")
+    return _scan_outputs(out, final_start, laned)
+
+
+def _scan_outputs(out: dict, final_start: torch.Tensor, laned: bool) -> dict:
+    packed = out["packed_pod"]
+    out.update(
+        selected=packed[..., 0, :],
+        feasible_count=packed[..., 1, :],
+        sample_start=packed[..., 2, :],
+        sample_processed=packed[..., 3, :],
+        final_start=final_start if laned else final_start[0],
+    )
+    out["final_carry"] = final_carry(out, final_start)
+    return out
+
+
+def _scan_setup(
+    cfg, dims, dp, blocks, ws0, carry0, offset, window, lane_active=None, weights=None, grad=None, cluster=None,
+    tile=None, shard: "dict | None" = None,
+) -> tuple:
+    """The arguments of one launch of csrc/scan.cu, its outputs allocated:
+    (entry, ScanArgs, grid x, outputs, final_start, laned, device).  ``scan``'s
+    arguments; with
     ``lane_active`` [G, N] and a ``tile`` (K8: the masked mode, one block of
     ``tile`` threads a lane over its own rows) or a [G, S] ``weights``
     matrix (K9) the lane axis (every output gets a leading lane axis); a
     lane of K9 or the one-lane scan is a cluster of ``cluster`` (default
     ``cluster_width``) blocks sharing one scratch slot, unless ``blocks``
     asks for the redundant chains; with ``grad=tau`` the grad mode (K2g's
-    forward, ``resid`` in the outputs)."""
+    forward, ``resid`` in the outputs).  ``shard``: the shard mode's part
+    (``_launch_sharded``): this shard's index, offset and mesh size, the
+    whole axis's ``dims``, the mailbox, and the whole axis's outputs
+    (packed, final_start, the trace), which it fills in instead of
+    allocating them."""
     _check(dp.alloc, "alloc")
     check_slice(cfg)
-    ws0 = in_step_width(cfg, dims, ws0)
+    ws0 = in_step_width(cfg, shard["dims"] if shard else dims, ws0)
     Psrc = dims["P"]
     if window is not None:
         dp = slice_pod_window(dp, offset, window)
@@ -852,7 +892,7 @@ def _launch_scan(
         return o(*t.shape) if t.shape[0] == rows else t.expand(*lead, *t.shape).clone()
 
     out = {
-        "packed_pod": o(5, P, dtype=i32),
+        "packed_pod": shard["out"]["packed_pod"] if shard else o(5, P, dtype=i32),
         "final_requested": o(N, R),
         "final_nonzero": o(N, 2),
         "final_pod_count": o(N),
@@ -865,7 +905,7 @@ def _launch_scan(
         "final_ip_own": carried(dp.ip_own0, G),
         "final_ip_anti": carried(dp.ip_anti0, G),
     }
-    final_start = e(L, dtype=i32)
+    final_start = shard["final_start"] if shard else e(L, dtype=i32)
     gates = plugin_gates(cfg, dims)
     # column counts of the volume arrays (at least 1 each)
     PT, VR, VID, DR = (t.shape[1] for t in (dp.ports_used0, dp.restr_used0, dp.csi_attached0, dp.csi_seed_used))
@@ -893,6 +933,9 @@ def _launch_scan(
                              f"{SCAN_THREADS} rank tiles of {SCAN_THREADS} nodes")
         lib = "scan_grad" if grad is not None else ("scan_trace" if cfg.trace else "scan_cluster")
         blocks_x, slots = C, L
+    if shard:
+        lib = {"scan_trace": "scan_shard_trace", "scan_cluster": "scan_shard_cluster",
+               "scan_masked": "scan_shard_masked"}[lib]
     fn = _entry(lib, dt)
     scratch = dict(
         s_requested=e(slots, N, R), s_nonzero=e(slots, N, 2), s_pod_count=e(slots, N),
@@ -904,7 +947,7 @@ def _launch_scan(
         s_dom=e(1) if in_smem else e(slots, nslot * cap),
         s_domflag=e(1, dtype=i32) if in_smem else e(slots, nslot * cap, dtype=i32),
         s_total=e(slots, N), s_flags=e(slots, N, dtype=torch.uint8),
-        s_rank=e(slots, N, dtype=i32) if ws0 or C > 1 or (tile and not lane_smem) else e(1, dtype=i32),
+        s_rank=e(slots, N, dtype=i32) if ws0 or C > 1 or (tile and not lane_smem) or shard else e(1, dtype=i32),
         s_ports=e(slots, PT, N) if gates["ports"] else e(1),
         s_restr=e(slots, VR, N) if gates["restr"] else e(1),
         s_cloud=e(slots, 3, N) if gates["cloud"] else e(1),
@@ -912,7 +955,8 @@ def _launch_scan(
         s_csi_cnt=e(slots, DR, N) if gates["csi"] else e(1),
         s_norm=e(slots, S, N) if grad is not None else e(1),
     )
-    logt = log_table(N, dt, dev)
+    # (the shard mode: the topology sizes count the whole axis's nodes)
+    logt = log_table(shard["dims"]["N"] if shard else N, dt, dev)
     a = ScanArgs()
     a.P, a.N, a.R, a.Psrc = P, N, R, Psrc
     a.n_true, a.sample_k, a.start0 = dp.n_true, dp.sample_k, dp.start0
@@ -1017,31 +1061,223 @@ def _launch_scan(
                       ("final_ip_own", "final_ip_own"), ("final_ip_anti", "final_ip_anti")):
         setattr(a, name, out[key].data_ptr())
     if cfg.trace:
-        out["fail_plug"] = e(P, N, dtype=torch.int8)
-        out["fail_code"] = e(P, N, dtype=i32)
+        planes = shard["out"] if shard else trace_outputs(cfg, P, N, ws0, e)
+        out.update({k: v for k, v in planes.items() if k != "packed_pod"})
         a.fail_plug = out["fail_plug"].data_ptr()
         a.fail_code = out["fail_code"].data_ptr()
         if ws0 is None:
-            out["feasible"] = e(P, N, dtype=torch.bool)
             a.feasible = out["feasible"].data_ptr()
         for k, (s, _w) in enumerate(cfg.scores):
-            out[f"raw:{s}"] = e(P, ws0 or N)
-            out[f"norm:{s}"] = e(P, ws0 or N)
             a.raw[k] = out[f"raw:{s}"].data_ptr()
             a.norm[k] = out[f"norm:{s}"].data_ptr()
-        out["trace_meta"] = e(len(cfg.scores) + 1, 2, dtype=i32)
         a.trace_meta = out["trace_meta"].data_ptr()
-    rc = fn(ctypes.byref(a), blocks_x, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "scan")
-    packed = out["packed_pod"]
-    out.update(
-        selected=packed[..., 0, :],
-        feasible_count=packed[..., 1, :],
-        sample_start=packed[..., 2, :],
-        sample_processed=packed[..., 3, :],
-        final_start=final_start if laned else final_start[0],
+    if shard:
+        out["_shard"] = shard["shard"]
+        a.shards, a.shard, a.node_off = shard["shards"], shard["shard"], shard["node_off"]
+        a.N_glob, a.slot_bytes, a.spin_cap = shard["dims"]["N"], shard["slot_bytes"], SHARD_SPIN_CAP
+        a.mbox_flags, a.mbox, a.mbox_err, a.xwait = (
+            shard[k].data_ptr() for k in ("mbox_flags", "mbox", "mbox_err", "xwait"))
+        out["_scratch"] = (scratch, logt)  # alive until the launch is enqueued
+    return fn, a, blocks_x, out, final_start, laned, dev
+
+
+def trace_outputs(cfg, P: int, N: int, ws0: "int | None", e) -> dict:
+    """The trace planes a traced launch writes, allocated by ``e(*shape,
+    dtype=)`` (the working dtype by default): the failing plugin and code,
+    the feasible flags (not with an in-step width), each score's raw and
+    normalized plane ([P, N], or [P, ws0]) and the trace meta."""
+    out = {"fail_plug": e(P, N, dtype=torch.int8), "fail_code": e(P, N, dtype=torch.int32)}
+    if ws0 is None:
+        out["feasible"] = e(P, N, dtype=torch.bool)
+    for s, _w in cfg.scores:
+        out[f"raw:{s}"] = e(P, ws0 or N)
+        out[f"norm:{s}"] = e(P, ws0 or N)
+    out["trace_meta"] = e(len(cfg.scores) + 1, 2, dtype=torch.int32)
+    return out
+
+
+# polls of a shard's mailbox wait before it gives up (csrc/scan.cu mb_spin:
+# the shard's error word, which the wrapper raises): with the __nanosleep backoff's
+# 1 us ceiling, some seconds, far past a pod step's exchange
+SHARD_SPIN_CAP = 1 << 22
+RC_NOT_RESIDENT = 1000  # csrc/scan.cu: the shards cannot all be resident
+RC_NO_PEER = 1001  # csrc/scan.cu shard_peer: a card cannot map the first card's memory
+# a shard left out of its card's launch, so that the other shards' waits
+# for its flags reach the cap (tests of the cap); None launches every shard
+SILENT_SHARD: "int | None" = None
+
+
+def _mailbox_bytes(dims: dict, dt: torch.dtype) -> int:
+    """One shard's mailbox slot (csrc/scan.cu XI/XT/XV): 384 bytes of
+    scalars, then the largest vector an exchange sends: the domain sums and
+    flags, the sampled-domain flags, the selected node's gdom column."""
+    cap, _smem = domain_layout(dims, dt)
+    esize = torch.finfo(dt).bits // 8
+    vec = max((dims["KC"] + dims["KS"]) * cap * (esize + 4), dims["G"] * 4, 16)
+    return 384 + -(-vec // 128) * 128
+
+
+def _launch_sharded(cfg, dims, sp, ws0, carry0, offset, window, lane_active=None, tile=None, weights=None) -> dict:
+    """The shard mode (csrc/scan.cu "SH") over a ``ShardedProblem``: one
+    ScanArgs a shard (its own buffers, its global offset), one launch a card
+    for the shards it holds, every card's launch issued before any wait; the
+    mailbox, packed, final_start and the trace on the mesh's first device
+    (other cards map them as peers).  Returns ``scan_plain_sharded``'s keys:
+    the whole axis's packed outputs and trace, the per-shard final carries
+    (``final_carry``, the next window's ``carry0``) and their whole-axis
+    views.  Raises ``KernelArgumentError`` where the shards cannot all be
+    resident at once, and ``KernelLaunchError`` where a mailbox wait hit its
+    cap."""
+    from kube_scheduler_simulator_tpu_torch.ops.batch import sharded_out
+
+    shards = sp.shards
+    n = len(shards)
+    if n < 2:
+        raise KernelArgumentError("the shard mode takes a mesh of two shards or more")
+    dev0 = shards[0].alloc.device
+    dt = shards[0].alloc.dtype
+    N = dims["N"]
+    Ns = N // n
+    P = dims["P"] if window is None else window
+    L = lane_active[0].shape[0] if lane_active is not None else 1
+    laned = lane_active is not None
+    lead = (L,) if laned else ()
+    i32 = torch.int32
+    e0 = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev0)  # noqa: E731
+    ws0w = in_step_width(cfg, dims, ws0)
+    shared_out = {"packed_pod": e0(*lead, 5, P, dtype=i32)}
+    if cfg.trace:
+        shared_out.update(trace_outputs(cfg, P, N, ws0w, e0))
+    slot = _mailbox_bytes(dims, dt)
+    box = dict(
+        mbox_flags=torch.zeros(L * n, dtype=i32, device=dev0),
+        # zeros: what a shard that never ran leaves in its slots
+        mbox=torch.zeros(2 * L * n * slot, dtype=torch.uint8, device=dev0),
+        mbox_err=torch.zeros(L * n, dtype=i32, device=dev0),
+        xwait=torch.zeros(L * n, dtype=torch.int64, device=dev0),
     )
-    out["final_carry"] = final_carry(out, final_start)
+    final_start = e0(L, dtype=i32)
+    cards = {}
+    for s, dp in enumerate(shards):
+        if dp.alloc.device != dev0:
+            # the peer mapping of the first card's mailbox and outputs
+            _enable_peer(dp.alloc.device, dev0)
+        part = dict(dims=dims, shards=n, shard=s, node_off=s * Ns, out=shared_out, final_start=final_start,
+                    slot_bytes=slot, **box)
+        sdims = dict(dims, N=Ns)
+        fn, a, blocks_x, out, _fs, _l, dev = _scan_setup(
+            cfg, sdims, dp, None, ws0w, None if carry0 is None else carry0[s], offset, window,
+            lane_active=None if lane_active is None else lane_active[s], tile=tile, shard=part,
+            weights=None if weights is None else weights.to(dp.alloc.device))
+        cards.setdefault(dev, []).append((fn, a, blocks_x, out))
+    # every card's checks (co-residency first) before any card launches: a
+    # launched card whose peers are refused would spin to its waits' cap
+    plan = []
+    for dev, group in cards.items():
+        fn, _a, blocks_x, _o = group[0]
+        if any(g[2] != blocks_x for g in group):
+            raise KernelArgumentError("the shards of one card take one cluster width")
+        group = [g for g in group if g[3]["_shard"] != SILENT_SHARD]
+        if not group:
+            continue
+        args = (ScanArgs * len(group))(*(g[1] for g in group))
+        with torch.cuda.device(dev):
+            rc = fn(ctypes.byref(args[0]), None, len(group), blocks_x, None)
+        if rc == RC_NOT_RESIDENT:
+            raise KernelArgumentError(
+                f"{len(group)} shards of {blocks_x}-block clusters cannot all be resident on "
+                f"{torch.cuda.get_device_name(dev)}: their mailbox waits would never end")
+        _raise_on(rc, "sharded scan")
+        plan.append((dev, fn, args, blocks_x))
+    if len(plan) > 1:
+        # the mailbox's zeros, made on the first card's stream, before
+        # another card's launch reads or publishes there
+        torch.cuda.current_stream(dev0).synchronize()
+    launched = []
+    try:
+        for dev, fn, args, blocks_x in plan:
+            dev_args = torch.frombuffer(bytearray(bytes(args)), dtype=torch.uint8).to(dev)
+            launched.append((dev, dev_args))
+            with torch.cuda.device(dev):
+                rc = fn(ctypes.byref(args[0]), dev_args.data_ptr(), len(args), blocks_x,
+                        torch.cuda.current_stream(dev).cuda_stream)
+            _raise_on(rc, "sharded scan")
+    except BaseException:
+        # the cards already launched write the first card's mailbox and
+        # outputs until their waits reach the cap: held until they end, so
+        # that no freed block of the first card is written after its reuse
+        for dev, _d in launched:
+            torch.cuda.current_stream(dev).synchronize()
+        raise
+    for dev, _d in launched:
+        torch.cuda.current_stream(dev).synchronize()
+    if int(box["mbox_err"].any().item()):
+        dead = box["mbox_err"].view(L, n).any(0).nonzero().flatten().tolist()
+        raise KernelLaunchError(f"sharded scan: the mailbox waits on shards {dead} hit their cap (the shards "
+                                "never answered)")
+    outs = [g[3] for group in cards.values() for g in group]
+    outs.sort(key=lambda o: o["_shard"])
+    out = dict(shared_out)
+    out["final_start"] = final_start if laned else final_start[0]
+    # each (lane, shard)'s rank-0 block's ns in the pod loop's exchanges
+    out["_exchange_ns"] = box["xwait"].view(L, n)
+    packed = out["packed_pod"]
+    out.update(selected=packed[..., 0, :], feasible_count=packed[..., 1, :], sample_start=packed[..., 2, :],
+               sample_processed=packed[..., 3, :])
+    return sharded_out(outs, out, lead=int(laned))
+
+
+_PEERS: set = set()
+
+
+def _enable_peer(dev: torch.device, peer: torch.device) -> None:
+    """Map ``peer``'s memory into ``dev``'s (cudaDeviceEnablePeerAccess,
+    csrc/scan.cu shard_peer), once a pair; ``MeshConfigError`` where the
+    cards cannot reach each other's memory."""
+    from kube_scheduler_simulator_tpu_torch.ops.mesh import MeshConfigError
+
+    key = (dev.index, peer.index)
+    if key not in _PEERS:
+        rc = build()["scan_shard_cluster"].kss_scan_shard_cluster_peer(dev.index, peer.index)
+        if rc == RC_NO_PEER:
+            raise MeshConfigError(f"cuda:{dev.index} cannot map the memory of cuda:{peer.index}: a mesh over "
+                                  "cards needs peer access between each card and the first")
+        _raise_on(rc, "peer access")
+        _PEERS.add(key)
+
+
+def scan_sharded(
+    cfg: BatchConfig, dims: dict, sp, ws0: "int | None" = None, carry0: "list | None" = None, offset: int = 0,
+    window: "int | None" = None, weights: "torch.Tensor | None" = None,
+) -> dict:
+    """Launch the scan's shard mode on a ``ShardedProblem`` whose shards lie
+    on cards (csrc/scan_shard_trace.cu with the trace on,
+    csrc/scan_shard_cluster.cu without): each shard a cluster of
+    ``cluster_width(N / n, 1)`` blocks, each pod's cross-shard reductions
+    exchanged inside the launch.  ``scan_plain_sharded``'s arguments and
+    outputs (``carry0`` the list of the shards' carries)."""
+    if (dims["P"] if window is None else window) <= 0:
+        raise KernelArgumentError(f"a scan over no pods (P={dims['P']}, window={window}): nothing to launch")
+    out = _launch_sharded(cfg, dims, sp, ws0, carry0, offset, window, weights=weights)
+    LAUNCHES["scan_sharded"] += 1
+    return out
+
+
+def scan_lanes_sharded(cfg: BatchConfig, dims: dict, sp, lane_active: list, widest: "int | None" = None) -> dict:
+    """K8 over a ``ShardedProblem`` (csrc/scan_shard_masked.cu): one block a
+    (shard, lane) over the lane's rows in the shard, each pod's cross-shard
+    reductions exchanged per lane inside the launch.  ``lane_active``: one
+    bool [G, N / n] mask a shard, on its device; ``widest`` as
+    ``scan_lanes``'s (the most rows a lane has in one shard).  Returns
+    ``scan_lanes_sharded``'s plain keys, node-axis carries whole."""
+    if cfg.trace:
+        raise KernelArgumentError("the lane scan runs with the trace off")
+    for la in lane_active:
+        _check(la, "lane_active", torch.bool)
+    if widest is None:
+        widest = max(int(la.sum(dim=1).max()) for la in lane_active)
+    out = _launch_sharded(cfg, dims, sp, None, None, 0, None, lane_active=lane_active, tile=lane_tile(widest))
+    LAUNCHES["scan_lanes_sharded"] += 1
     return out
 
 

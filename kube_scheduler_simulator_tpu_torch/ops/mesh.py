@@ -7,7 +7,11 @@ elementwise over nodes, and the cross-node reductions (feasible counts,
 normalize max/min, the argmax select) are what a sharded run turns into
 collectives.  Three kernels scan it: the main scan, the victim search and
 the estimator's lanes.  A mesh here is a ``NodeMesh``: the cards that
-would each hold a slice of the node axis, under the axis name ``"nodes"``.
+that each hold a slice of the node axis (a shard), under the axis name
+``"nodes"``.  An explicit ``NodeMesh`` may name one device several times:
+each entry is one shard with its own buffers, so a mesh of shards on one
+card runs the layout (and the kernels' in-launch exchange) that a mesh of
+several cards runs, as the reference's tests run on a virtual CPU mesh.
 
 Resolution order as in the reference: an explicit mesh wins; the
 ``"auto"`` sentinel (the ``SchedulerService`` default) reads
@@ -19,8 +23,10 @@ devices are ``torch.cuda.device_count()`` for an engine on the card and
 one for an engine on the CPU (the port's CPU runs are one process on one
 device; the reference's virtual 8-device CPU mesh has no counterpart).
 
-Sharding the node axis itself is not ported yet: a valid count above 1
-resolves to a mesh here, and the service and the estimator refuse it.
+A mesh over distinct cards that cannot map each other's memory
+(``torch.cuda.can_device_access_peer``) is a :class:`MeshConfigError` when
+it is resolved: the sharded scan exchanges each pod's partials through a
+mailbox in the first card's memory, which the other cards map as peers.
 The reference's ``tpu_lowering_dryrun`` (a ``jax.export`` lowering for
 another platform) has no counterpart: the port's kernels are built by
 ``nvcc`` for one target (ops/kernels.py).
@@ -115,6 +121,14 @@ def resolve_mesh(mesh: Any, axis_name: str = AXIS_NAME, device: "str | torch.dev
             f"mesh {mesh} has no {axis_name!r} axis — the node-axis kernels shard over NodeMesh(devices, "
             f"{axis_name!r})"
         )
+    cards = sorted({d.index or 0 for d in map(torch.device, mesh.devices) if d.type == "cuda"})
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise MeshConfigError(
+                    f"mesh {mesh}: cuda:{a} cannot access cuda:{b}'s memory as a peer — the sharded kernels "
+                    f"exchange each pod's partials through a mailbox every card of the mesh maps"
+                )
     return mesh
 
 

@@ -70,13 +70,15 @@ class PreemptionProblem:
     __slots__ = (
         "node_names", "resource_names", "alloc", "base_req", "base_cnt",
         "max_pods", "vreq", "vprio", "vstart", "vvalid", "vmatch",
-        "allowed", "victim_pods", "res_idx", "V", "PDB", "_device",
+        "allowed", "victim_pods", "res_idx", "V", "PDB", "_device", "_shards",
     )
 
     def __init__(self, node_names, resource_names):
         self.node_names = node_names
         self.resource_names = resource_names
         self._device = None
+        # node-range sub-problems of a sharded search (kernel.shard_problem)
+        self._shards = {}
 
 
 def encode_preemption(

@@ -24,7 +24,9 @@ DefaultPreemption cycle, counted per reason):
   leaving NodeResourcesFit as the only resolvable filter, whose victim
   arithmetic the search reproduces bit-exactly.
 
-The reference's node-axis mesh is left out: the port runs one card.
+On a node mesh (the engine's ``mesh``) each dispatch runs one search a
+shard over its node range (preemption/kernel.run_search(mesh=)), counted
+in ``sharded_dispatches``.
 """
 
 from __future__ import annotations
@@ -133,7 +135,7 @@ class PreemptionRound:
     def __init__(self, pr: "PE.PreemptionProblem", tail: list[Obj], fit_k: int,
                  ureq_all: np.ndarray, uprio_all: np.ndarray,
                  pod_reasons: "list[str | None]", n_true: int,
-                 device: "torch.device | None" = None, dtype: "torch.dtype | None" = None):
+                 device: "torch.device | None" = None, dtype: "torch.dtype | None" = None, mesh: Any = None):
         self.pr = pr
         self.tail = tail
         self.fit_k = fit_k  # NodeResourcesFit's index in cfg.filters, -1 if absent
@@ -148,6 +150,8 @@ class PreemptionRound:
         self._extra_cnt = np.zeros_like(pr.base_cnt)
         self.kernel_s = 0.0
         self.dispatches = 0
+        self.mesh = mesh
+        self.sharded_dispatches = 0
 
     def note_success(self, tail_idx: int, node_id: int) -> None:
         """Record a committed bind from an already-replayed window, so later
@@ -208,10 +212,11 @@ class PreemptionRound:
         t0 = time.perf_counter()
         masks = PK.run_search(
             pr, ucand, ureq, uprio, smask, sreq, snode, usage=self._extra_req, cnt=self._extra_cnt,
-            device=self.device, dtype=self.dtype,
+            device=self.device, dtype=self.dtype, mesh=self.mesh,
         )
         self.kernel_s += time.perf_counter() - t0
         self.dispatches += 1
+        self.sharded_dispatches += int(self.mesh is not None)
 
         cand, victims, viol = masks["cand"], masks["victims"], masks["viol"]
         vp = pr.vprio[None, :, :]
@@ -302,6 +307,7 @@ def prepare_round(
             pr, tail, fit_k, ureq_all, uprio_all, reasons, len(nis),
             device=getattr(eng, "device", None),
             dtype=getattr(eng, "round_dtype", None) or getattr(eng, "dtype", None),
+            mesh=getattr(eng, "mesh", None),
         ),
         None,
     )

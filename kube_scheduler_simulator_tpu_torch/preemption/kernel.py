@@ -220,9 +220,55 @@ def _stage(arrays: list, device: torch.device) -> list:
     ]
 
 
+def shard_problem(pr, lo: int, hi: int):
+    """The node range [lo, hi) of a PreemptionProblem: its node-axis tables
+    narrowed (victims and PDB budgets whole), kept on ``pr`` by range so its
+    device tables upload once a round."""
+    cache = pr._shards
+    sub = cache.get((lo, hi))
+    if sub is None:
+        from kube_scheduler_simulator_tpu_torch.preemption.encode import PreemptionProblem
+
+        sub = PreemptionProblem(list(pr.node_names[lo:hi]), list(pr.resource_names))
+        for f in PROBLEM_FIELDS[2:]:
+            v = getattr(pr, f)
+            node_axis = f in ("alloc", "base_req", "base_cnt", "max_pods", "vreq", "vprio", "vstart", "vvalid",
+                              "vmatch", "victim_pods")
+            setattr(sub, f, v[lo:hi] if node_axis else v)
+        cache[(lo, hi)] = sub
+    return sub
+
+
+def shard_search_args(pr, ucand, smask, sreq, snode, usage, cnt, mesh) -> "list[dict]":
+    """The victim search's arguments split over a node mesh (the reference's
+    ``shard_search_args``): each shard takes the node range ceil(N / n)
+    wide (the last ones shorter or empty), its columns of ``ucand`` and
+    rows of the usage, and the same-window successes whose node falls in
+    its range, re-indexed to it (with their ``smask`` columns and ``sreq``
+    rows); the per-pod vectors are every shard's.  The search has no
+    cross-node term, so the shards' masks concatenated in node order are
+    the whole axis's."""
+    U, N = ucand.shape
+    n = len(mesh.devices)
+    Ns = -(-N // n)
+    snode = np.asarray(snode, dtype=np.int32)
+    parts = []
+    for s, dev in enumerate(mesh.devices):
+        lo, hi = min(s * Ns, N), min((s + 1) * Ns, N)
+        keep = (snode >= lo) & (snode < hi)
+        parts.append(dict(
+            lo=lo, hi=hi, device=torch.device(dev), pr=shard_problem(pr, lo, hi), ucand=ucand[:, lo:hi],
+            smask=np.asarray(smask, dtype=bool).reshape(U, len(snode))[:, keep], sreq=np.asarray(sreq)[keep],
+            snode=snode[keep] - lo, usage=None if usage is None else np.asarray(usage)[lo:hi],
+            cnt=None if cnt is None else np.asarray(cnt)[lo:hi],
+        ))
+    return parts
+
+
 def run_search(
     pr, ucand, ureq, uprio, smask, sreq, snode, *, usage=None, cnt=None,
     device: "str | torch.device | None" = None, dtype: "torch.dtype | None" = None, split: "dict | None" = None,
+    mesh: Any = None,
 ) -> dict:
     """Dispatch the search for U pods over ``pr``'s N nodes and V slots.
 
@@ -235,7 +281,18 @@ def run_search(
     ``split``: a dict that gets the dispatch's stages on the card,
     ``stage_s`` (the host's packing), ``in_ms``, ``kernel_ms`` and
     ``fetch_ms`` (CUDA events around the copy in, the launch and the copy
-    out) and ``wall_s``."""
+    out) and ``wall_s``.  ``mesh``: a node mesh (ops/mesh.py): one search
+    a shard over its node range (``shard_search_args``), on the shard's
+    device, the masks concatenated in node order."""
+    if mesh is not None:
+        ucand = np.asarray(ucand, dtype=bool)
+        outs = [
+            run_search(a["pr"], a["ucand"], ureq, uprio, a["smask"], a["sreq"], a["snode"], usage=a["usage"],
+                       cnt=a["cnt"], device=a["device"], dtype=dtype)
+            for a in shard_search_args(pr, ucand, smask, sreq, snode, usage, cnt, mesh)
+            if a["hi"] > a["lo"]  # a shard past the last node has no columns
+        ]
+        return {k: np.concatenate([o[k] for o in outs], axis=1) for k in ("cand", "victims", "viol")}
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
     ucand = np.asarray(ucand, dtype=bool)

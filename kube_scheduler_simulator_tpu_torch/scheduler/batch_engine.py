@@ -41,8 +41,16 @@ the ensemble cannot serve, or a wave it loses, runs in this process
 (counted in ``procmesh.stats()``), with the same bytes.  The windowed
 rounds stay in this process, as in the reference.
 
-Left out of the reference's engine: the node-axis mesh (refused at the
-service's boundary, ops/mesh.py) and the AOT artifact cache (the port
+With ``mesh`` (a ``NodeMesh``, ops/mesh.py) the node axis is sharded: the
+problem is padded to a multiple of the shard count, each shard's planes stay
+resident on its device (``DevicePlacer(mesh=)``), and every scan, one-launch
+or windowed, runs over the ``ShardedProblem`` (``kernels.scan_sharded`` on
+the card, ``ops/batch.scan_plain_sharded`` on the CPU) with the same bytes
+as one device.  Counted as the reference's ``sharded_dispatches_total`` and
+``plane_shard_bytes_per_device``.  ``schedule_async`` (the stream) on a
+mesh is not ported (ROADMAP 7c) and raises ``MeshStreamNotPorted``.
+
+Left out of the reference's engine: the AOT artifact cache (the port
 caches built kernel libraries instead: ops/aot.py).
 
 Kernels: upstream's whole default profile, the fifteen filters of
@@ -71,6 +79,7 @@ from kube_scheduler_simulator_tpu_torch.models.framework import CycleState, Stat
 from kube_scheduler_simulator_tpu_torch.models.snapshot import has_pending_nomination
 from kube_scheduler_simulator_tpu_torch.ops import batch as B
 from kube_scheduler_simulator_tpu_torch.ops import encode as E
+from kube_scheduler_simulator_tpu_torch.ops.mesh import mesh_devices, resolve_mesh
 from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
 from kube_scheduler_simulator_tpu_torch.plugins.intree import interpodaffinity as ip
 from kube_scheduler_simulator_tpu_torch.plugins.intree import node_basic as nb
@@ -86,6 +95,11 @@ from kube_scheduler_simulator_tpu_torch.tuning.validate import format_weighted_s
 from kube_scheduler_simulator_tpu_torch.utils.gojson import go_marshal, go_string_key
 
 Obj = dict[str, Any]
+
+
+class MeshStreamNotPorted(NotImplementedError):
+    """The stream (``schedule_async``, scheduler/stream.py) over a node mesh:
+    not ported (ROADMAP 7c).  Raised rather than streamed unsharded."""
 
 # the resource kinds the volume kernels resolve on the host
 VOLUME_KINDS = ("persistentvolumeclaims", "persistentvolumes", "storageclasses", "csinodes")
@@ -751,6 +765,7 @@ class BatchEngine:
         hard_pod_affinity_weight: int = 1,
         added_affinity: "Obj | None" = None,
         weights: Any = None,
+        mesh: Any = None,
     ):
         """``device``: the card unless the caller passes ``"cpu"`` (where the
         plain versions stand in for the kernels); a missing card raises.
@@ -765,9 +780,16 @@ class BatchEngine:
         the profile's score order or a name → weight mapping), validated
         here (WeightValidationError); the scan then takes it as its weight
         argument and finalScore renders through ``format_weighted_score``.
-        None keeps the profile's weights and bytes."""
+        None keeps the profile's weights and bytes.
+        ``mesh``: a ``NodeMesh`` whose shards split the node axis (None: one
+        device)."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.device, dtype)
+        self.mesh = resolve_mesh(mesh, device=self.device)
+        # rounds dispatched with the node axis sharded, and the cumulative
+        # per-device bytes of their placements (the reference's counters)
+        self.sharded_dispatches = 0
+        self.shard_plane_bytes_per_device = 0
         self.filters = list(filters if filters is not None else B.FILTER_KERNELS)
         self.scores = list(scores if scores is not None else [])
         self.fit_strategy = fit_strategy
@@ -791,7 +813,7 @@ class BatchEngine:
             seed=seed,
         )
         self.encode_cache = E.EncodeCache()
-        self._placer = B.DevicePlacer()
+        self._placer = B.DevicePlacer(mesh=self.mesh)
         # sticky per-plugin raw fetch dtypes: only widen across rounds
         self._raw_dtypes: dict[int, str] = {}
         self.last_timings: dict[str, float] = {}
@@ -817,7 +839,7 @@ class BatchEngine:
         # their libraries from the kernel-library cache only, so it needs one
         from kube_scheduler_simulator_tpu_torch.ops import aot, procmesh
 
-        self._procmesh = procmesh.acquire(self.device)
+        self._procmesh = procmesh.acquire(self.device) if self.mesh is None else None
         if self._procmesh is not None and aot.aot_cache_dir() is None:
             procmesh.count_run_fallback("aot_cache_disabled")
             self._procmesh = None
@@ -830,7 +852,7 @@ class BatchEngine:
     @classmethod
     def from_framework(
         cls, framework: Any, trace: bool = False, dtype: "torch.dtype | None" = None,
-        device: "str | torch.device | None" = None,
+        device: "str | torch.device | None" = None, mesh: Any = None,
     ) -> "BatchEngine":
         """Build from a scheduler Framework: the plugin set, weights and
         arguments the sequential path uses."""
@@ -905,6 +927,7 @@ class BatchEngine:
             tie_break=framework.tie_break,
             seed=framework.seed,
             device=device,
+            mesh=mesh,
         )
         eng._unsupported_config = unsupported
         eng._framework = framework
@@ -1055,7 +1078,9 @@ class BatchEngine:
             volumes=volumes if volumes is not None else self._volumes(),
             nominated=nominated,
         )
-        pr = E.pad_problem(self.encode_cache.encode(nodes, all_pods, pending, namespaces, **kw))
+        n_shards = mesh_devices(self.mesh)
+        pr = E.pad_problem(self.encode_cache.encode(nodes, all_pods, pending, namespaces, **kw),
+                           node_multiple=n_shards or 1)
         if node_active is not None:
             pr.node_active[: len(nodes)] &= np.asarray(node_active, dtype=bool)
         t1 = time.perf_counter()
@@ -1078,6 +1103,9 @@ class BatchEngine:
         # planes are resident per (dtype, shape): a float64 round never
         # reuses float32 planes, nor the reverse
         dp = self._placer.place(host, (str(self.round_dtype), tuple(sorted(dims.items()))), self.device)
+        if n_shards:
+            self.sharded_dispatches += 1
+            self.shard_plane_bytes_per_device += B.tree_shard_bytes_per_device(host, n_shards)
         prof.note(rec, "upload", time.perf_counter() - tl)
         return dict(
             pr=pr, dp=dp, dims=dims, ws0=ws0, nodes=nodes, pending=pending, t0=t0, t1=t1, prof=rec,
@@ -1167,12 +1195,14 @@ class BatchEngine:
 
     def encode_stats(self) -> dict:
         """Incremental-encoder and device-upload counters (the reference's
-        keys; the mesh, bank and AOT families are not ported)."""
+        keys and the mesh's; the bank and AOT families are not ported)."""
         s = self.encode_cache.stats_snapshot()
         pl = self._placer
         s["device_bytes_uploaded_total"] = pl.bytes_uploaded
         s["device_plane_reuses_total"] = pl.plane_reuses
         s["device_scatter_updates_total"] = pl.scatter_updates
+        s["sharded_dispatches_total"] = self.sharded_dispatches
+        s["plane_shard_bytes_per_device"] = self.shard_plane_bytes_per_device
         return s
 
     def _note_round(self, timings: dict) -> None:
@@ -1346,8 +1376,12 @@ class BatchEngine:
         (the packed per-pod outputs; the compaction launched and its blob's
         copy enqueued), then ``result()`` (waits on that copy's event, then
         rebuilds the trace).  No plane ``bank``, unlike the reference: see
-        ops/batch.DevicePlacer."""
+        ops/batch.DevicePlacer.  On a mesh: ``MeshStreamNotPorted``."""
         assert self.trace, "streamed rounds are trace rounds"
+        if self.mesh is not None:
+            raise MeshStreamNotPorted(
+                "streaming over a node mesh is not ported (ROADMAP 7c): use schedule_pending's rounds"
+            )
         ctx = self._prep(nodes, all_pods, pending, namespaces, base_counter, start_index, volumes, nominated,
                          prof_rec=prof_rec)
         t2 = time.perf_counter()

@@ -94,10 +94,14 @@ wrapper's own failure (``kernels.KernelLaunchError``: a launch's cudaError,
 an argument the kernel refuses), or a CUDA context that no longer answers
 a synchronize, propagate.
 
-Refused with an error, never worked around: a mesh.  ``mesh="auto"`` (the
-default) reads ``KSS_MESH_DEVICES`` through ops/mesh.py, whose bad values
-raise ``MeshConfigError`` as the reference's do; a valid count above 1 is
-refused, since sharding the node axis is not ported yet.  The one-card
+A mesh shards the node axis: ``mesh="auto"`` (the default) reads
+``KSS_MESH_DEVICES`` through ops/mesh.py, whose bad values raise
+``MeshConfigError`` as the reference's do; an explicit ``NodeMesh`` may
+place several shards on one device.  The batch engine, the victim search
+and the scale-up estimate then run over the shards
+(``metrics()["shard_devices"]``, ``sharded_dispatches_total``,
+``plane_shard_bytes_per_device``); the stream over a mesh is not ported
+(ROADMAP 7c) and raises.  The one-card
 worker ensemble (``KSS_MESH_PROCESSES``, ops/procmesh.py) serves the
 engine's one-launch rounds and streamed waves; ``metrics()["procmesh"]``
 reads its counters once the knob has been read.
@@ -121,6 +125,7 @@ from kube_scheduler_simulator_tpu_torch.gang import prepare_round as gang_prepar
 from kube_scheduler_simulator_tpu_torch.models.snapshot import Snapshot, has_pending_nomination
 from kube_scheduler_simulator_tpu_torch.models.wrapped import WrappedPlugin, original_name
 from kube_scheduler_simulator_tpu_torch.ops import kernels as K
+from kube_scheduler_simulator_tpu_torch.ops.mesh import mesh_devices, resolve_mesh
 from kube_scheduler_simulator_tpu_torch.ops.profile import WaveProfiler
 from kube_scheduler_simulator_tpu_torch.plugins.intree import in_tree_registry
 from kube_scheduler_simulator_tpu_torch.plugins.resultstore import SUCCESS_MESSAGE, ResultStore
@@ -194,12 +199,8 @@ class SchedulerService:
         self.use_batch = use_batch
         self.device = resolve_device(device)
         # the node-axis mesh is validated at this boundary (ops/mesh.py: a
-        # bad KSS_MESH_DEVICES raises MeshConfigError); a valid one is
-        # refused, since sharding the node axis is not ported yet
-        from kube_scheduler_simulator_tpu_torch.ops.mesh import resolve_mesh
-
-        if resolve_mesh(mesh, device=self.device) is not None:
-            raise ValueError("a mesh: sharding the node axis is not ported yet")
+        # bad KSS_MESH_DEVICES raises MeshConfigError)
+        self.mesh = resolve_mesh(mesh, device=self.device)
         self.dtype = dtype
         self.batch_min_work = batch_min_work
         self.commit_wave = max(int(commit_wave), 1)
@@ -262,6 +263,7 @@ class SchedulerService:
             "preempt_nominations": 0,
             "preempt_victims": 0,
             "preempt_dispatches": 0,
+            "preempt_sharded_dispatches": 0,
             "preempt_kernel_s": 0.0,
             "preempt_fallbacks": {},
             # gang engine (gang/): all-or-nothing PodGroup placement on the
@@ -895,7 +897,7 @@ class SchedulerService:
         device."""
         eng = self._batch_engines.get(fw.profile_name)
         if eng is None:
-            eng = BatchEngine.from_framework(fw, trace=True, device=self.device, dtype=self.dtype)
+            eng = BatchEngine.from_framework(fw, trace=True, device=self.device, dtype=self.dtype, mesh=self.mesh)
             eng.profiler = self.profiler
             self._batch_engines[fw.profile_name] = eng
             if fw is self.framework:
@@ -1272,6 +1274,7 @@ class SchedulerService:
             return
         with self._stats_lock:
             self.stats["preempt_dispatches"] += pctx.dispatches
+            self.stats["preempt_sharded_dispatches"] += pctx.sharded_dispatches
             self.stats["preempt_kernel_s"] += pctx.kernel_s
 
     def _count_fallback(self, reason: str) -> None:
@@ -1722,11 +1725,18 @@ class SchedulerService:
         for e in list(self._batch_engines.values()) or ([eng] if eng else []):
             es = e.encode_stats()
             for k in ("encode_full_total", "encode_delta_total", "encode_rows_reencoded_total",
-                      "device_bytes_uploaded_total", "device_plane_reuses_total", "device_scatter_updates_total"):
+                      "device_bytes_uploaded_total", "device_plane_reuses_total", "device_scatter_updates_total",
+                      "sharded_dispatches_total", "plane_shard_bytes_per_device"):
                 enc[k] += es.get(k, 0)
             for reason, n in es.get("encode_fallbacks_by_reason", {}).items():
                 enc["encode_fallbacks_by_reason"][reason] = enc["encode_fallbacks_by_reason"].get(reason, 0) + n
+        # node-axis sharding: the victim search and the estimate shard over
+        # the same mesh as the rounds, and count into the same pair
+        enc["sharded_dispatches_total"] += self.stats["preempt_sharded_dispatches"]
         asc_m = self._autoscaler.metrics() if self._autoscaler is not None else None
+        if asc_m is not None:
+            enc["sharded_dispatches_total"] += asc_m["estimate_sharded_dispatches"]
+            enc["plane_shard_bytes_per_device"] += asc_m["estimate_shard_plane_bytes_per_device"]
         # the write-ahead journal's write-side counters and the last
         # recovery's outcome: zero with no journal attached
         journal = getattr(self.cluster_store, "journal", None)
@@ -1745,7 +1755,7 @@ class SchedulerService:
             "recovery_replayed_records_total": rstats.get("replayed_records", 0),
             "recovery_truncated_records_total": rstats.get("truncated_records", 0),
             "recovery_partial_gangs_total": rstats.get("partial_gangs", 0),
-            "shard_devices": 0,
+            "shard_devices": mesh_devices(self.mesh),
             "batch_commits": self.stats["batch_commits"],
             "batch_pods": self.stats["batch_pods"],
             "batch_restarts": self.stats["batch_restarts"],

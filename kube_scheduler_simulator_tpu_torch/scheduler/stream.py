@@ -61,9 +61,11 @@ or a lost CUDA context propagates (``kernels.degradable``).
 One deliberate difference from the reference:
 
 - **No mesh.** The reference streams mesh-sharded engines too (the stream
-  x mesh fusion); the port's service refuses a mesh, so that path is not
-  ported.  Nor are the reference's two placer banks: the port launches and
-  copies on one CUDA stream, so wave k+1's row scatter into the resident
+  x mesh fusion); the port's stream over a mesh is not ported (ROADMAP
+  7c): a session on a service with a mesh raises ``MeshStreamNotPorted``,
+  as ``BatchEngine.schedule_async`` on a mesh engine does.  Nor are the
+  reference's two placer banks: the port launches and copies on one CUDA
+  stream, so wave k+1's row scatter into the resident
   planes is ordered after wave k's kernels (``BatchEngine.schedule_async``).
 
 ``KSS_STREAM_PIPELINE=0`` (or ``streaming=False``) keeps the admission loop
@@ -115,6 +117,12 @@ class StreamSession:
         idle_sleep_s: float = 0.002,
         gc_every_waves: int = 32,
     ):
+        if getattr(service, "mesh", None) is not None:
+            from kube_scheduler_simulator_tpu_torch.scheduler.batch_engine import MeshStreamNotPorted
+
+            raise MeshStreamNotPorted(
+                "streaming over a node mesh is not ported (ROADMAP 7c): use schedule_pending's rounds"
+            )
         self.svc = service
         self.feed = feed
         self.duration_s = duration_s

@@ -235,13 +235,18 @@ def test_a_window_that_fails_mid_round_degrades_to_the_sequential_bytes():
 
 
 def test_sharded_roles_and_worker_chaos_raise(port_harness):
-    """The sharded roles still raise ShardNotPorted; WorkerChaos is ported
+    """The ``shard`` role runs on a two-shard mesh of the harness's device
+    with no divergence from ``shard-base``; the streamed one over a mesh
+    still raises ShardNotPorted (item 7c); WorkerChaos is ported
     (tests/test_torch_procmesh.py runs it) and raises on an unknown mode, as
     the reference's does."""
     scn = TF.generate_scenario(11, 2, features=CHAOS_FEATURES)
-    for kind in ("shard-vs-single", "shard-stream-vs-serial"):
-        with pytest.raises(TF.ShardNotPorted, match="queue 1, item 7"):
-            TF.run_differential(scn, port_harness, comparisons=(kind,))
+    v, _states = TF.run_differential(scn, port_harness, comparisons=("shard-vs-single",))
+    assert v["divergences"] == [], v["comparisons"]
+    _store, svc = port_harness.service(scn.get("profile") or "default", "shard")
+    assert svc.metrics()["shard_devices"] == 2 and svc.metrics()["sharded_dispatches_total"] >= 1
+    with pytest.raises(TF.ShardNotPorted, match="queue 1, item 7c"):
+        TF.run_differential(scn, port_harness, comparisons=("shard-stream-vs-serial",))
     assert TF.WorkerChaos({"name": "worker-fault", "nodes": [], "pods": []}, mode="kill", device="cpu").nprocs == 1
     from kube_scheduler_simulator_tpu.fuzz.chaos import WorkerChaos as JaxWorkerChaos
 

@@ -235,9 +235,18 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.objective("utilization", f64(2, N, 2), i32(2, P), f64(N, 2), torch.ones(N, dtype=torch.bool),
                      torch.ones(P, dtype=torch.bool), f64(P))
+    # the shard mode's wrappers (a ShardedProblem of two CPU shards)
+    from kube_scheduler_simulator_tpu_torch.ops.mesh import NodeMesh
+
+    sp = TB.shard_device_problem(dp, NodeMesh((torch.device("cpu"),) * 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.scan_sharded(cfg, dims, sp)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.scan_lanes_sharded(lanes_cfg, dims, sp, [torch.ones(2, N // 2, dtype=torch.bool)] * 2)
     assert TK.LAUNCHES == {
         k: 0 for k in ("scan", "scan_lanes", "compact", "scatter", "preempt", "gang_verdict", "gang_feasibility",
-                       "scan_population", "objective", "scan_grad", "grad_contract")
+                       "scan_population", "objective", "scan_grad", "grad_contract", "scan_sharded",
+                       "scan_lanes_sharded")
     }
 
 

@@ -6,11 +6,13 @@ each listed value both packages return "no mesh", or both raise
 tests/conftest.py's 8 virtual CPU devices, the port's CPU engine sees one
 device).  A count above the port's visible devices raises on the port,
 and ``SchedulerService`` and ``ScaleUpEstimator`` validate the knob at
-their boundary as the reference's do; a valid count above 1 is refused
-(sharding the node axis is not ported yet).
+their boundary as the reference's do; a valid explicit mesh is accepted
+and shards the node axis (tests/test_torch_shard.py holds its rounds).
 """
 
 from __future__ import annotations
+
+import random
 
 import pytest
 import torch
@@ -97,8 +99,26 @@ def test_unset_empty_and_one_run_on_one_device(monkeypatch):
 
 
 def test_a_valid_mesh_is_refused_until_the_node_axis_is_sharded():
+    """(The name predates the sharded node axis.)  A valid explicit mesh of
+    two shards on one device is accepted by the service and the estimator,
+    and its round equals the single-device round."""
+    from kube_scheduler_simulator_tpu_torch import workloads
+    from kube_scheduler_simulator_tpu_torch.utils.parity import pod_parity_state
+
     mesh = port_mesh.NodeMesh((torch.device("cpu"), torch.device("cpu")))
-    with pytest.raises(ValueError, match="sharding the node axis is not ported yet"):
-        SchedulerService(ClusterStore(), mesh=mesh, device="cpu")
-    with pytest.raises(ValueError, match="sharding the node axis is not ported yet"):
-        ScaleUpEstimator(mesh=mesh, device="cpu")
+    assert ScaleUpEstimator(mesh=mesh, device="cpu").mesh is mesh
+    states = []
+    for m in (None, mesh):
+        store = ClusterStore(clock=lambda: 0.0)
+        for i in range(9):
+            store.create("nodes", workloads.mk_node(i))
+        rng = random.Random(2)
+        for i in range(14):
+            store.create("pods", workloads.stamp(workloads.mk_pod(i, rng, spread=i % 3 == 0), i))
+        svc = SchedulerService(store, mesh=m, device="cpu", use_batch="force", batch_min_work=0)
+        assert svc.mesh is m
+        svc.start_scheduler(None)
+        svc.schedule_pending(max_rounds=1)
+        states.append(pod_parity_state(store))
+    assert states[0] == states[1] and any(v[0] for v in states[0].values())
+    assert svc.metrics()["shard_devices"] == 2 and not svc.stats["batch_fallbacks"]
